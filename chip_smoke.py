@@ -1,9 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of mbt_gym_torch on one NVIDIA GPU (H100): builds the CUDA
-episode kernels K1/K2 from mbt_gym_torch/ops/csrc/, holds each against its
-plain PyTorch version on the card, drives the Avellaneda-Stoikov main path
-through the public entry points (``rollout`` and ``mc_episode_stats`` with
-``backend="auto"``, then ``backend="engine"``), and times it all.
+kernels from mbt_gym_torch/ops/csrc/ (the AS episode kernels K1/K2, the MLP
+rollout K3, the fused PPO update K4), holds each against its plain PyTorch
+version on the card, drives the two main paths through the public entry
+points and times it all:
+
+- the Avellaneda-Stoikov path, ``rollout`` and ``mc_episode_stats`` with
+  ``backend="auto"`` (K2, K1), then ``backend="engine"`` (phases 1-6);
+- PPO training on the normalised AS env at bench_suite config 5 (262,144
+  envs x 200 steps, 256x256 shared trunk, 16 minibatches, bf16), through
+  ``init_train_state`` / ``train_iteration`` / ``train_chunk`` on the fused
+  path (K3 once and K4 16 times per iteration), then the engine path at the
+  dryrun shape (phases 7-12).
 
 Run from the repository root:
 
@@ -19,10 +27,12 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM data-sheet peaks used for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense tensor-core peak
 
 N_MAIN = 16_384
 N_LARGE = 1_048_576
@@ -114,6 +124,252 @@ def compare_streams(torch, got, want, n, label):
     return err
 
 
+# ------------------------------------------------------------------ PPO
+PPO_N = 262_144  # bench_suite config 5
+PPO_MINIBATCHES = 16
+PPO_ITERATIONS = 9
+DRYRUN_N, DRYRUN_T = 2048, 64
+
+
+def assert_metric_bands(metrics, label):
+    """__graft_entry__._assert_metric_bands (lines 42-54), copied: PPO
+    sanity bands on the normalised AS env."""
+    m = {k: float(v) for k, v in metrics.items()}
+    check(all(v == v and abs(v) != float("inf") for v in m.values()), f"{label}: non-finite metrics {m}")
+    check(abs(m["pg_loss"]) < 0.5, f"{label}: pg_loss {m}")
+    check(0.0 < m["vf_loss"] < 1e4, f"{label}: vf_loss {m}")
+    check(abs(m["approx_kl"]) < 0.5, f"{label}: approx_kl {m}")
+    check(-200.0 < m["mean_episode_reward"] < 200.0, f"{label}: mean_episode_reward {m}")
+    if "entropy" in m:
+        check(0.0 < m["entropy"] < 20.0, f"{label}: entropy {m}")
+    return m
+
+
+def mlp_flops_per_sample(s_dim, h0, h1, a_dim):
+    """Matmul FLOPs of one forward of the shared-trunk actor-critic."""
+    return 2 * (s_dim * h0 + h0 * h1 + (a_dim + 1) * h1)
+
+
+def ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim):
+    """Forward plus backward (dh2, dW_head, dW1, dh1, dW0) matmul FLOPs."""
+    return mlp_flops_per_sample(s_dim, h0, h1, a_dim) + 2 * (2 * (a_dim + 1) * h1 + 2 * h0 * h1 + s_dim * h0)
+
+
+def profile_iteration(torch, card, label, fn, top=6):
+    """One call of ``fn`` under torch.profiler: device time by kernel
+    (self time, summed over launches) and the device's busy share of the
+    call's wall time (kernel time / wall; overlapping kernels would count
+    twice, and this program runs one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    busy_ms = sum(r[0] for r in rows)
+    if not rows:
+        print(f"phase 12 profile [{card}] {label}: the profiler saw no device time (wall {wall_ms} ms)")
+        return
+    print(f"phase 12 profile [{card}] {label}: wall {wall_ms} ms under the profiler, device busy {busy_ms} ms "
+          f"({busy_ms / wall_ms:.1%}), idle share {1 - busy_ms / wall_ms:.1%}")
+    for ms, count, key in sorted(rows, reverse=True)[:top]:
+        print(f"    {ms:10.3f} ms  {count:6d} x  {key[:90]}")
+
+
+def ppo_phases(torch, np, card, dev):
+    """Phases 8-12: K3 and K4 against their plain versions, the fused PPO
+    main path, the engine path, timings.  Returns the kernels-line entries
+    of K3 and K4."""
+    import dataclasses
+
+    from mbt_gym_torch import init_train_state, train_chunk, train_iteration
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.agents.ppo import PPOConfig, compute_gae, normalise
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import fused_ppo
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.utils.config import as_env_config
+
+    env_cfg = dataclasses.replace(
+        as_env_config(num_trajectories=PPO_N),
+        normalise_observation_space=True, normalise_action_space=True,
+    )
+    ppo_cfg = PPOConfig(
+        hidden=(256, 256), n_epochs=1, n_minibatches=PPO_MINIBATCHES, shuffle=False,
+        compute_dtype="bfloat16", shared_trunk=True, fused_rollout=True, fused_update=True,
+    )
+    steps = env_cfg.n_steps
+    p = mr.rollout_params_from_config(env_cfg)
+    model = init_actor_critic(0, 4, 2, hidden=(256, 256), shared_trunk=True, device=dev)
+
+    # ---- phase 8: K3 against its plain version at config 5, noise and
+    # native mode.  A fill decided on the other side of u < exp(-k d) by a
+    # summation-order difference changes that env's later path: at most
+    # 0.1% of envs may differ in their inventory stream (0 of 262,144 seen
+    # in both modes on the H100), the rest agree to rtol=1e-4/atol=1e-3
+    # (max abs err 2.4e-4 seen, on ~100-scale cash and rewards).
+    rng = np.random.default_rng(21)
+    channels = rng.uniform(size=(steps, mr.N_CHANNELS, PPO_N)).astype(np.float32)
+    channels[:, 4:] = rng.normal(size=(steps, 3, PPO_N)).astype(np.float32)
+    noise = torch.from_numpy(channels).to(dev)
+    del channels
+    k3_err = 0.0
+    for mode, kw in (("noise", {"noise": noise}), ("native", {"seed": 31, "device": dev})):
+        got = mr.mlp_rollout(p, model, num_trajectories=PPO_N, **kw)
+        want = mr.mlp_rollout_plain(p, model, num_trajectories=PPO_N, **kw)
+        torch.cuda.synchronize()
+        same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
+        flips = int((~same).sum())
+        check(flips <= PPO_N // 1000, f"phase 8 K3 {mode}: inventory stream differs on {flips} of {PPO_N} envs")
+        for name, a, b in zip(("obs", "actions", "log_probs", "values", "rewards"), got, want):
+            torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3,
+                                       msg=lambda m: f"phase 8 K3 {mode} {name}: {m}")
+            k3_err = max(k3_err, float((a[..., same] - b[..., same]).abs().max()))
+        print(f"phase 8 K3 {mode} at {PPO_N}x{steps}: inventory flips {flips}/{PPO_N}, max abs err {k3_err:.3g}")
+    del noise, want
+
+    # ---- phase 9: K4 against its plain version on the first minibatch
+    # (a 16,384-env slice, as views) of phase 8's native rollout, log_std
+    # moved by 0.05 so that ratios leave 1 and both clip branches occur.
+    # float32: every grad to rtol=1e-4, atol 1e-4 of the leaf's largest
+    # value; bf16: relative Frobenius error per leaf at most 1e-3 (the same
+    # roundings in both, so only summation order differs: 3.9e-6 seen on
+    # the H100); metrics to rtol=1e-4.
+    obs_t, actions_t, log_probs, values, rewards = got
+    adv, returns = compute_gae(rewards, values, torch.zeros_like(values[0]), 1.0, 0.95)
+    nb = PPO_N // PPO_MINIBATCHES
+    mb = [x[..., :nb] for x in (obs_t, actions_t, log_probs, adv, returns)]
+    mb[3] = normalise(mb[3])
+    moved = init_actor_critic(0, 4, 2, hidden=(256, 256), shared_trunk=True, device=dev)
+    with torch.no_grad():
+        moved.log_std.add_(0.05)
+    k4_err = 0.0
+    for dtype in ("float32", "bfloat16"):
+        grads, metrics = fused_ppo.ppo_fused_grads_T(moved, *mb, compute_dtype=dtype)
+        want_g, want_m = fused_ppo.ppo_fused_grads_T_plain(moved, *mb, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, want in want_g.items():
+            got_leaf = grads[name]
+            rel = float(torch.linalg.vector_norm(got_leaf - want) / torch.linalg.vector_norm(want).clamp_min(1e-30))
+            worst = max(worst, rel)
+            if dtype == "float32":
+                torch.testing.assert_close(got_leaf, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()),
+                                           msg=lambda m: f"phase 9 K4 float32 {name}: {m}")
+            else:
+                check(rel <= 1e-3, f"phase 9 K4 bf16 {name}: relative Frobenius error {rel}")
+                k4_err = max(k4_err, float((got_leaf - want).abs().max()))
+        for name, want in want_m.items():
+            torch.testing.assert_close(metrics[name], want, rtol=1e-4, atol=1e-7,
+                                       msg=lambda m: f"phase 9 K4 {dtype} {name}: {m}")
+        print(f"phase 9 K4 {dtype} at {steps}x{nb}: worst relative Frobenius error {worst:.3g}, "
+              f"metrics {[round(float(v), 6) for v in metrics.values()]}")
+    del got, obs_t, actions_t, log_probs, values, rewards, adv, returns, mb
+
+    # ---- phase 10: the fused main path through the public entry points
+    ts = init_train_state(env_cfg, ppo_cfg, 0)
+    check(next(ts.params.parameters()).device.type == "cuda", "phase 10: params not on the card")
+    _build.reset_launch_counts()
+    history = []
+    for i in range(PPO_ITERATIONS):
+        ts, metrics = train_iteration(env_cfg, ppo_cfg, ts, 100 + i)
+        history.append(assert_metric_bands(metrics, f"phase 10 iteration {i + 1}"))
+    ts, chunk = train_chunk(env_cfg, ppo_cfg, ts, 7, 2)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    n_it = PPO_ITERATIONS + 2
+    print(f"phase 10 launches on the PPO main path ({n_it} iterations): {launches}")
+    check(launches["mlp_rollout"] == n_it, f"phase 10: K3 launched {launches['mlp_rollout']} times, not {n_it}")
+    check(launches["ppo_fused_grads_T"] == PPO_MINIBATCHES * n_it,
+          f"phase 10: K4 launched {launches['ppo_fused_grads_T']} times, not {PPO_MINIBATCHES * n_it}")
+    check(launches["as_episode"] == launches["as_episode_trajectories"] == 0, "phase 10: an AS kernel ran")
+    for i in range(2):
+        assert_metric_bands({k: v[i] for k, v in chunk.items()}, f"phase 10 train_chunk {i + 1}")
+    rewards = [m["mean_episode_reward"] for m in history]
+    early, late = statistics.mean(rewards[1:4]), statistics.mean(rewards[-3:])
+    print(f"phase 10 mean_episode_reward by iteration: {rewards}; iterations 2-4 {early}, last 3 {late}")
+    print(f"phase 10 last metrics: {history[-1]}")
+    check(late >= early - 1.0, f"phase 10: PPO degraded, mean reward {early} -> {late}")
+
+    # ---- phase 11: the engine path on the card at the dryrun shape
+    dry_cfg = dataclasses.replace(env_cfg, num_trajectories=DRYRUN_N, n_steps=DRYRUN_T)
+    dry_ppo = PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=4)
+    dts = init_train_state(dry_cfg, dry_ppo, 2)
+    _build.reset_launch_counts()
+    dts, dry_metrics = train_iteration(dry_cfg, dry_ppo, dts, 3)
+    torch.cuda.synchronize()
+    check(sum(_build.launch_counts.values()) == 0, "phase 11: the engine path launched a kernel")
+    print(f"phase 11 engine train_iteration at {DRYRUN_N}x{DRYRUN_T}: {assert_metric_bands(dry_metrics, 'phase 11')}")
+
+    # ---- phase 12: timings (CUDA events, medians after warm-up)
+    env_steps = PPO_N * steps
+    state = {"ts": ts}
+
+    def fused_iteration():
+        state["ts"], _ = train_iteration(env_cfg, ppo_cfg, state["ts"], 5)
+
+    it_ms = cuda_ms(torch, fused_iteration, warmup=1, reps=3)
+    engine_cfg = dataclasses.replace(ppo_cfg, fused_rollout=False, fused_update=False)
+    engine_ms = cuda_ms(torch, lambda: train_iteration(env_cfg, engine_cfg, ts, 5), warmup=1, reps=2)
+    for name, ms in (("fused train_iteration (K3 + 16 x K4)", it_ms), ("engine train_iteration", engine_ms)):
+        print(f"phase 12 [{card}] {name} at config 5 ({PPO_N}x{steps}, 16 minibatches): "
+              f"{ms} ms = {env_steps / ms * 1e3} env-steps/s")
+    for name, fn in (("fused", fused_iteration), ("engine", lambda: train_iteration(env_cfg, engine_cfg, ts, 5))):
+        profile_iteration(torch, card, f"{name} train_iteration at config 5", fn)
+    params = ts.params
+    k3_ms = cuda_ms(torch, lambda: mr.mlp_rollout(p, params, 9, PPO_N, device=dev), warmup=1, reps=5)
+    k3_plain_ms = cuda_ms(torch, lambda: mr.mlp_rollout_plain(p, params, 9, PPO_N, device=dev), warmup=1, reps=2)
+    tb = mr.collect_rollout_fused_T(env_cfg, params, 9, device=dev)
+    mb = [x[..., :nb] for x in (tb.obs_t, tb.actions_t, tb.log_probs, tb.advantages, tb.returns)]
+    mb[3] = normalise(mb[3])
+    k4_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(params, *mb), warmup=2, reps=10)
+    k4_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(params, *mb), warmup=1, reps=3)
+
+    def bound(bytes_moved, ops, peak):
+        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    s_dim, a_dim, (h0, h1) = 4, 2, ppo_cfg.hidden
+    # K3 native mode reads nothing per step and writes obs, actions,
+    # log-prob, value and reward: (S + A + 3) floats per env-step
+    k3_bound = bound((s_dim + a_dim + 3) * 4 * env_steps, mlp_flops_per_sample(s_dim, h0, h1, a_dim) * env_steps,
+                     BF16_OPS_PER_S)
+    # K4 reads obs, actions, old log-prob, advantage and return once per
+    # sample; its outputs are the grads (~0.3 MB)
+    samples = steps * nb
+    k4_bound = bound((s_dim + a_dim + 3) * 4 * samples, ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim) * samples,
+                     BF16_OPS_PER_S)
+    for name, ms, plain_ms, (b_ms, b_by), shape in (
+        ("K3 mlp_rollout native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}"),
+        ("K4 ppo_fused_grads_T bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{steps}x{nb}"),
+    ):
+        print(f"phase 12 [{card}] {name} at {shape}: {ms} ms, plain {plain_ms} ms, "
+              f"bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound")
+    return [
+        {
+            "name": "K3 mlp_rollout", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/mlp_rollout.cu",
+            "replaces": "mbt_gym_tpu/ops/pallas_rollout.py:1514", "launches": launches["mlp_rollout"],
+            "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+            "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
+        },
+        {
+            "name": "K4 ppo_fused_grads_T", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/fused_ppo.cu",
+            "replaces": "mbt_gym_tpu/ops/fused_ppo.py:392", "launches": launches["ppo_fused_grads_T"],
+            "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None,
+        },
+    ]
+
+
 def main():
     import torch
 
@@ -135,11 +391,14 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}")
 
-    # ---- phase 1: build
+    # ---- phase 1 (K1/K2) and phase 7 (K3/K4): build every kernel source,
+    # one nvcc each, all started together, with -Xptxas -v
     t0 = time.perf_counter()
-    _build.build("as_episode.cu", ptxas_verbose=True)
+    sources = ("as_episode.cu", "mlp_rollout.cu", "fused_ppo.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(lambda src: _build.build(src, ptxas_verbose=True), sources))
     ep._kernels()
-    print(f"phase 1 build: as_episode.cu in {time.perf_counter() - t0:.1f} s")
+    print(f"phase 1/7 build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 2/3: K1 and K2 against their plain versions, noise mode on
     # two configs and native mode, at the main path's 16,384 x 200
@@ -257,6 +516,7 @@ def main():
             "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
         },
     ]
+    kernels += ppo_phases(torch, np, card, dev)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -9,7 +9,12 @@ lists.
 - :func:`env_config_from_spec` rebuilds an :class:`EnvConfig` with its
   processes, dynamics and reward;
 - :func:`env_state_from_numpy` builds an :class:`EnvState` from arrays;
-- :func:`as_agent_from_spec` rebuilds the AS agent.
+- :func:`as_agent_from_spec` rebuilds the AS agent;
+- :func:`ppo_config_from_spec` rebuilds a :class:`~mbt_gym_torch.agents.ppo.PPOConfig`;
+- :func:`actor_critic_from_numpy` / :func:`actor_critic_to_numpy` carry
+  actor-critic parameters across as the JAX package's params pytree of
+  numpy arrays (``w`` is ``(in, out)`` there and ``(out, in)`` in
+  ``nn.Linear``).
 
 A type that the port has not ported yet raises ``ValueError`` naming it.
 """
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from mbt_gym_torch.agents.baseline import AvellanedaStoikovAgent
+from mbt_gym_torch.agents.networks import ActorCritic
 from mbt_gym_torch.dynamics import LimitOrderDynamics
 from mbt_gym_torch.env import EnvConfig, make_generator, resolve_device
 from mbt_gym_torch.processes.arrivals import PoissonArrivals
@@ -111,3 +117,74 @@ def env_state_from_numpy(
         start_time=t(start_time),
         clip_events=torch.tensor(clip_events, dtype=torch.int32, device=device),
     )
+
+
+def ppo_config_from_spec(spec: dict):
+    """A :class:`~mbt_gym_torch.agents.ppo.PPOConfig` from its fields
+    (``{"type": "PPOConfig", ...}`` or the bare fields)."""
+    from mbt_gym_torch.agents.ppo import PPOConfig
+
+    spec = dict(spec)
+    spec.pop("type", None)
+    fields = {f.name for f in dataclasses.fields(PPOConfig)}
+    unknown = set(spec) - fields
+    if unknown:
+        raise ValueError(f"unknown PPOConfig fields {sorted(unknown)}")
+    return PPOConfig(**{k: _plain(v) for k, v in spec.items()})
+
+
+def _layers_from_numpy(layers, model_layers, device) -> None:
+    for layer, lin in zip(layers, model_layers):
+        lin.weight.copy_(torch.tensor(np.asarray(layer["w"]), dtype=torch.float32, device=device).T)
+        lin.bias.copy_(torch.tensor(np.asarray(layer["b"]), dtype=torch.float32, device=device))
+
+
+def actor_critic_from_numpy(tree: dict, device=None) -> ActorCritic:
+    """An :class:`ActorCritic` from the JAX params pytree as nested dicts
+    and lists of numpy arrays: ``{"shared": [{"w", "b"}, ...], "pi_head",
+    "vf_head", "log_std"}`` or ``{"pi": [...], "vf": [...], "log_std"}``."""
+    device = resolve_device(device)
+    shared = "shared" in tree
+    if shared:
+        trunk = tree["shared"]
+        obs_dim = np.shape(trunk[0]["w"])[0]
+        hidden = [np.shape(layer["w"])[1] for layer in trunk]
+        action_dim = np.shape(tree["pi_head"]["w"])[1]
+    else:
+        obs_dim = np.shape(tree["pi"][0]["w"])[0]
+        hidden = [np.shape(layer["w"])[1] for layer in tree["pi"][:-1]]
+        action_dim = np.shape(tree["pi"][-1]["w"])[1]
+    model = ActorCritic(obs_dim, action_dim, hidden, shared_trunk=shared, device=device)
+    with torch.no_grad():
+        if shared:
+            _layers_from_numpy(tree["shared"], model.shared, device)
+            _layers_from_numpy([tree["pi_head"], tree["vf_head"]], [model.pi_head, model.vf_head], device)
+        else:
+            _layers_from_numpy(tree["pi"], model.pi, device)
+            _layers_from_numpy(tree["vf"], model.vf, device)
+        model.log_std.copy_(torch.tensor(np.asarray(tree["log_std"]), dtype=torch.float32, device=device))
+    return model
+
+
+def actor_critic_to_numpy(model: ActorCritic, named: Optional[dict] = None) -> dict:
+    """The JAX params pytree of ``model``, as numpy arrays.  With ``named``
+    (a ``{parameter name: tensor}`` dict in ``model.named_parameters()``'s
+    names, such as the grads of :func:`mbt_gym_torch.ops.fused_ppo.ppo_fused_grads_T`)
+    the tree holds those tensors instead of the parameters."""
+    values = dict(model.named_parameters()) if named is None else named
+
+    def arr(name):
+        return values[name].detach().float().cpu().numpy().copy()
+
+    def layer(prefix):
+        return {"w": arr(f"{prefix}.weight").T.copy(), "b": arr(f"{prefix}.bias")}
+
+    out = {"log_std": arr("log_std")}
+    if model.shared_trunk:
+        out["shared"] = [layer(f"shared.{i}") for i in range(len(model.shared))]
+        out["pi_head"] = layer("pi_head")
+        out["vf_head"] = layer("vf_head")
+    else:
+        out["pi"] = [layer(f"pi.{i}") for i in range(len(model.pi))]
+        out["vf"] = [layer(f"vf.{i}") for i in range(len(model.vf))]
+    return out

@@ -1,6 +1,7 @@
 """Build, load and count the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file has a plain C interface.  At first use it is
+Each ``csrc/*.cu`` file has a plain C interface; ``csrc/*.cuh`` are the
+headers they share.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/mbt_gym_torch/`` at the repository root (git-ignored), named by a
 hash of its source and flags so an edit rebuilds it, then loaded with
@@ -33,7 +34,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-launch_counts: Dict[str, int] = {"as_episode": 0, "as_episode_trajectories": 0}
+launch_counts: Dict[str, int] = {
+    "as_episode": 0,
+    "as_episode_trajectories": 0,
+    "mlp_rollout": 0,
+    "ppo_fused_grads_T": 0,
+}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -63,7 +69,9 @@ def build(source: str, ptxas_verbose: bool = False) -> Path:
     ``ptxas_verbose`` the compiler's register and spill report is printed."""
     src = CSRC / source
     flags = NVCC_FLAGS + (("-Xptxas", "-v") if ptxas_verbose else ())
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    # the shared headers are part of every source's build key
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.exists() and not ptxas_verbose:
         return out

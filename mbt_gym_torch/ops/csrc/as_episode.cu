@@ -37,6 +37,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 // Mirrors AsKernelParams in mbt_gym_torch/ops/episode.py (ctypes).  Every
 // float is the float32 rounding of the double the host computed, as the
 // JAX kernel's Python-float constants are.
@@ -64,27 +66,9 @@ struct AsKernelParams {
 namespace {
 
 constexpr int kBlock = 128;
-constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-constexpr float kTwoPi = 6.283185307179586f;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += kW0;
-      k.y += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float uniform24(uint32_t x) {
-  return static_cast<float>(x >> 8) * 0x1.0p-24f;
-}
+using mbt::kTwoPi;
+using mbt::philox4x32_10;
+using mbt::uniform24;
 
 struct Draws {
   float u_ab, u_aa, u_fb, u_fa, normal;

@@ -315,7 +315,8 @@ def test_default_device_is_cuda():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of mbt_gym_torch in a fresh interpreter leaves
-    jax and mbt_gym_tpu out of sys.modules, and no file of the port has an
+    jax and mbt_gym_tpu out of sys.modules, and no file of the port (the
+    PPO learner and the K3/K4 modules included) nor chip_smoke.py has an
     import statement naming them."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -336,7 +337,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         r"|(import_module|__import__)\(\s*['\"](jax|jaxlib|mbt_gym_tpu)\b",
         re.M,
     )
-    files = sorted((ROOT / "mbt_gym_torch").rglob("*.py"))
-    assert files
+    files = sorted((ROOT / "mbt_gym_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("agents/networks.py", "agents/ppo.py", "ops/mlp_rollout.py", "ops/fused_ppo.py"):
+        assert f"mbt_gym_torch/{module}" in names, module
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
