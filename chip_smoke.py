@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of mbt_gym_torch on one NVIDIA GPU (H100): builds the CUDA
 kernels from mbt_gym_torch/ops/csrc/ (the AS episode kernels K1/K2, the MLP
-rollout K3, the fused PPO update K4), holds each against its plain PyTorch
-version on the card, drives the two main paths through the public entry
-points and times it all:
+rollout K3, the fused PPO update K4, the deterministic-policy rollout K5,
+the OE episode K6 and the CJ episode K8), holds each against its plain
+PyTorch version on the card, drives the main paths through the public
+entry points and times it all:
 
 - the Avellaneda-Stoikov path, ``rollout`` and ``mc_episode_stats`` with
   ``backend="auto"`` (K2, K1), then ``backend="engine"`` (phases 1-6);
@@ -11,7 +12,14 @@ points and times it all:
   envs x 200 steps, 256x256 shared trunk, 16 minibatches, bf16), through
   ``init_train_state`` / ``train_iteration`` / ``train_chunk`` on the fused
   path (K3 once and K4 16 times per iteration), then the engine path at the
-  dryrun shape (phases 7-12).
+  dryrun shape (phases 7-12);
+- the closed-form Cartea-Jaimungal paths: the CJP market maker at 16,384
+  envs x 1,000 steps (K5 table kind, and the value-function lane
+  ``cj_episode_rewards`` on K8), the optimal-execution schedule at 8,192 x
+  200 (K5 schedule kind for ``rollout``, K6 for ``mc_episode_stats``) and
+  fixed actions on the AS and OE configs (K5 fixed kind), each with
+  ``backend="auto"`` and then ``"engine"``, with the CJP value-function
+  t-test (phases 13-17).
 
 Run from the repository root:
 
@@ -155,7 +163,7 @@ def ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim):
     return mlp_flops_per_sample(s_dim, h0, h1, a_dim) + 2 * (2 * (a_dim + 1) * h1 + 2 * h0 * h1 + s_dim * h0)
 
 
-def profile_iteration(torch, card, label, fn, top=6):
+def profile_iteration(torch, card, label, fn, top=6, phase=12):
     """One call of ``fn`` under torch.profiler: device time by kernel
     (self time, summed over launches) and the device's busy share of the
     call's wall time (kernel time / wall; overlapping kernels would count
@@ -177,9 +185,9 @@ def profile_iteration(torch, card, label, fn, top=6):
             rows.append((us / 1e3, e.count, e.key))
     busy_ms = sum(r[0] for r in rows)
     if not rows:
-        print(f"phase 12 profile [{card}] {label}: the profiler saw no device time (wall {wall_ms} ms)")
+        print(f"phase {phase} profile [{card}] {label}: the profiler saw no device time (wall {wall_ms} ms)")
         return
-    print(f"phase 12 profile [{card}] {label}: wall {wall_ms} ms under the profiler, device busy {busy_ms} ms "
+    print(f"phase {phase} profile [{card}] {label}: wall {wall_ms} ms under the profiler, device busy {busy_ms} ms "
           f"({busy_ms / wall_ms:.1%}), idle share {1 - busy_ms / wall_ms:.1%}")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"    {ms:10.3f} ms  {count:6d} x  {key[:90]}")
@@ -370,6 +378,330 @@ def ppo_phases(torch, np, card, dev):
     ]
 
 
+# ------------------------------------------------------------------ CJ
+CJ_N = 16_384  # cj_env_config at its published widths, 1,000 steps (bench.py:209-210)
+CJ_STATS_N = 131_072  # the stats lane's size (bench.py:216-237)
+OE_N = 8_192  # oe_env_config's default, 200 steps
+OE_LARGE_N = 1_048_576
+T_BAND = 3.29  # |t| < 3.29: the 99.9% band of tests/test_replication.py:52-80
+
+# Operations per env-step, counted as OPS_PER_ENV_STEP_K1 is.
+# K5, table kind on limit dynamics, stats mode: two Philox calls (196), six
+# 24-bit uniforms (18), Box-Muller (7), step time (3), inventory index and
+# two table loads (6), arrivals/fills/masks (14), bookkeeping with the
+# inventory and cash clips (12), price move (3), PnL and the pathwise CJ
+# reward (14), the reward and spread sums (3).
+OPS_PER_ENV_STEP_K5_TABLE = 196 + 18 + 7 + 3 + 6 + 14 + 12 + 3 + 14 + 3
+# K6: one Philox call (98), two uniforms (6), Box-Muller (7), the schedule
+# load (1), execution, inventory, impact and the two sums with the clips
+# (19), price move (3).
+OPS_PER_ENV_STEP_K6 = 98 + 6 + 7 + 1 + 19 + 3
+# K5, schedule kind on speed dynamics: one Philox call (98), two uniforms
+# (6), Box-Muller (7), step time (3), the schedule load (1), impact,
+# volume and bookkeeping (10), the clips (4), price move (3), PnL and the
+# CJ execution reward (14).
+OPS_PER_ENV_STEP_K5_SPEED = 98 + 6 + 7 + 3 + 1 + 10 + 4 + 3 + 14
+# K8: K5's table step without the clips (bookkeeping 8), with the sum of
+# q^2 (2) in place of the reward (14) and the sums (3), and no step time.
+OPS_PER_ENV_STEP_K8 = 196 + 18 + 7 + 6 + 14 + 8 + 3 + 2
+
+
+def compare_outputs(torch, got, want, n, label, streams=False):
+    """K5/K6/K8 outputs against the plain version at K1's limits: the
+    inventory (in streams: at some step) may differ on at most 1e-4 of
+    envs, a fill decided at an exp() ULP boundary; every output agrees to
+    rtol=1e-6/atol=1e-3 on the other envs.  Returns the max abs error."""
+    if streams:
+        same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
+    else:
+        same = got[1] == want[1]
+    flips = int((~same).sum())
+    check(flips <= n // 10_000, f"{label}: inventory differs on {flips} of {n} envs")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-6, atol=1e-3,
+                                   msg=lambda m: f"{label} output {i}: {m}")
+        err = max(err, float((a[..., same] - b[..., same]).abs().max()))
+    print(f"{label}: inventory flips {flips}/{n}, max abs err {err:.3g}")
+    return err
+
+
+def t_stat(mean, std, n, truth):
+    return (float(mean) - truth) / (float(std) / n**0.5)
+
+
+def check_agree(a, b, key, n_a, n_b, label, std_key=None):
+    """Two runs' means of ``key`` within 4 standard errors (at least
+    1e-4 relative, for the deterministic OE inventories)."""
+    std_key = std_key or {"mean_pnl": "std_pnl", "mean_terminal_inventory": "std_terminal_inventory"}[key]
+    se = (float(a[std_key]) ** 2 / n_a + float(b[std_key]) ** 2 / n_b) ** 0.5
+    diff = abs(float(a[key]) - float(b[key]))
+    check(diff <= max(4 * se, 1e-4 * abs(float(b[key]))), f"{label}: {key} {float(a[key])} vs {float(b[key])}, se {se}")
+    print(f"{label}: {key} {float(a[key]):.4f} vs {float(b[key]):.4f} ({diff / se if se else 0.0:.2f} se)")
+
+
+def rollout_summary(torch, res):
+    """mean/std of the episode rewards and terminal inventories of a rollout."""
+    total = res.trajectory.rewards.sum(0)
+    inv = res.trajectory.observations[-1, :, 1]
+    return {"mean_pnl": total.mean(), "std_pnl": total.std(correction=0),
+            "mean_terminal_inventory": inv.mean(), "std_terminal_inventory": inv.std(correction=0)}
+
+
+def cj_phases(torch, np, card, dev):
+    """Phases 14-17: K5, K6 and K8 against their plain versions, the
+    closed-form CJ paths through the public entry points (auto, then
+    engine), timings.  Returns the kernels-line entries of K5, K6 and K8."""
+    import dataclasses
+
+    from mbt_gym_torch import (
+        CarteaJaimungalMmAgent, CarteaJaimungalOeAgent, as_env_config, cj_env_config, cj_episode_rewards,
+        dispatch_report, episode_stats, fixed_action_policy, mc_episode_stats, oe_env_config, rollout,
+    )
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import cj_episode as cj
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import oe_episode as oe
+
+    cj_cfg = cj_env_config(num_trajectories=CJ_N, max_inventory=100.0)
+    cj_agent = CarteaJaimungalMmAgent.from_config(cj_cfg, max_inventory=100)
+    oe_cfg = oe_env_config(num_trajectories=OE_N)
+    oe_agent = CarteaJaimungalOeAgent.from_config(oe_cfg, phi=2e-4, alpha=0.01)
+    as_cfg = as_env_config(num_trajectories=CJ_N)
+    fixed_as, fixed_oe = [0.7, 0.9], [-2.5]
+    cj_steps, oe_steps, as_steps = cj_cfg.n_steps, oe_cfg.n_steps, as_cfg.n_steps
+
+    def channels(seed, steps, n):
+        rng = np.random.default_rng(seed)
+        c = rng.uniform(size=(steps, 5, n)).astype(np.float32)
+        c[:, 4] = rng.normal(size=(steps, n)).astype(np.float32)
+        return torch.from_numpy(c).to(dev)
+
+    # ---- phase 14: each kernel against its plain version, noise and
+    # native mode, at the main paths' shapes
+    t0 = time.perf_counter()
+    p_table = det.cj_rollout_params(cj_cfg, cj_agent)
+    tables = tuple(torch.as_tensor(t, device=dev) for t in det.cj_depth_tables(cj_agent))
+    p_oe = oe.oe_params_from_config(oe_cfg)
+    speed_table = oe.oe_speed_table(oe_cfg, oe_agent).to(dev)
+    k5_cases = [
+        ("table CJP", p_table, tables, CJ_N),
+        ("fixed AS", det.fixed_rollout_params(as_cfg, fixed_as), (), CJ_N),
+        ("fixed OE", det.fixed_rollout_params(oe_cfg, fixed_oe), (), OE_N),
+        ("schedule OE", det.schedule_rollout_params(oe_cfg), (speed_table[:, None],), OE_N),
+    ]
+    err = {"K5": 0.0, "K6": 0.0, "K8": 0.0}
+    for label, p, tbl, n in k5_cases:
+        for mode, kw in (("noise", {"noise": channels(14, p.run_steps, n)}), ("native", {"seed": 41, "device": dev})):
+            for stats in (True, False):
+                extra = {"stats_only": stats, "final_obs": not stats}
+                got = det.det_rollout(p, tbl, num_trajectories=n, **kw, **extra)
+                want = det.det_rollout_plain(p, tbl, num_trajectories=n, **kw, **extra)
+                torch.cuda.synchronize()
+                kind = "stats" if stats else "streams"
+                err["K5"] = max(err["K5"], compare_outputs(
+                    torch, got, want, n, f"phase 14 K5 {label} {kind} {mode} at {n}x{p.run_steps}", streams=not stats))
+            del got, want
+    normals = torch.from_numpy(np.random.default_rng(15).normal(size=(oe_steps, OE_N)).astype(np.float32)).to(dev)
+    for mode, kw in (("noise", {"noise": normals}), ("native", {"seed": 42, "device": dev})):
+        got = oe.oe_episode(p_oe, speed_table, num_trajectories=OE_N, **kw)
+        want = oe.oe_episode_plain(p_oe, speed_table, num_trajectories=OE_N, **kw)
+        torch.cuda.synchronize()
+        err["K6"] = max(err["K6"], compare_outputs(torch, got, want, OE_N, f"phase 14 K6 {mode} at {OE_N}x{oe_steps}"))
+    p_cj = cj.cj_params_from_config(cj_cfg)
+    cj_table = torch.tensor(cj_agent.depth_table_f32()[:-1], device=dev)
+    for mode, kw in (("noise", {"noise": channels(16, cj_steps, CJ_N)}), ("native", {"seed": 43, "device": dev})):
+        got = cj.cj_episode(p_cj, cj_table, q_cap=100, num_trajectories=CJ_N, **kw)
+        want = cj.cj_episode_plain(p_cj, cj_table, q_cap=100, num_trajectories=CJ_N, **kw)
+        torch.cuda.synchronize()
+        err["K8"] = max(err["K8"], compare_outputs(torch, got, want, CJ_N, f"phase 14 K8 {mode} at {CJ_N}x{cj_steps}"))
+        k5 = det.table_rollout(p_table, *tables, num_trajectories=CJ_N, stats_only=True, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got[:3], k5[:3])),
+              f"phase 14 K8 {mode}: terminal state differs from K5's table stats mode on the same noise")
+    print(f"phase 14 ok in {time.perf_counter() - t0:.1f} s: K5, K6 and K8 agree with their plain versions; "
+          "K8's terminal state equals K5's table stats mode on the same noise")
+
+    # ---- phase 15: the CJ paths through the public entry points, auto
+    t0 = time.perf_counter()
+    cj_pol, oe_pol = cj_agent.policy(), oe_agent.policy()
+    fx_as, fx_oe = fixed_action_policy(fixed_as), fixed_action_policy(fixed_oe)
+    cj_big = dataclasses.replace(cj_cfg, num_trajectories=CJ_STATS_N)
+    for cfg, pol, family in ((cj_cfg, cj_pol, "cj_table"), (oe_cfg, oe_pol, "oe_episode"),
+                             (as_cfg, fx_as, "fixed"), (oe_cfg, fx_oe, "fixed")):
+        for mode in ("rollout", "stats"):
+            d = dispatch_report(cfg, pol, mode=mode)
+            check((d.backend, d.family) == ("fused", family), f"phase 15 dispatch ({family}, {mode}): {d}")
+    _build.reset_launch_counts()
+    cj_mc = mc_episode_stats(cj_cfg, cj_pol, None, 61, episodes=1)
+    cj_roll = rollout(cj_cfg, cj_pol, None, 62)
+    cj_rewards = cj_episode_rewards(cj_cfg, cj_agent, 63, CJ_N)
+    cj_big_mc = mc_episode_stats(cj_big, CarteaJaimungalMmAgent.from_config(cj_big, max_inventory=100).policy(), None, 64)
+    oe_mc = mc_episode_stats(oe_cfg, oe_pol, None, 65, episodes=2)
+    oe_roll = rollout(oe_cfg, oe_pol, None, 66)
+    fx_as_mc = mc_episode_stats(as_cfg, fx_as, None, 67)
+    fx_as_roll = rollout(as_cfg, fx_as, None, 68)
+    fx_oe_mc = mc_episode_stats(oe_cfg, fx_oe, None, 69)
+    fx_oe_roll = rollout(oe_cfg, fx_oe, None, 70)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    print(f"phase 15 launches on the CJ paths: {launches}")
+    check(launches["det_rollout"] == 8, f"phase 15: K5 launched {launches['det_rollout']} times, not 8")
+    check(launches["oe_episode"] == 2, f"phase 15: K6 launched {launches['oe_episode']} times, not 2")
+    check(launches["cj_episode"] == 1, f"phase 15: K8 launched {launches['cj_episode']} times, not 1")
+    for res, steps, n, s_dim, a_dim, label in (
+        (cj_roll, cj_steps, CJ_N, 4, 2, "CJ"), (oe_roll, oe_steps, OE_N, 5, 1, "OE"),
+        (fx_as_roll, as_steps, CJ_N, 4, 2, "fixed AS"), (fx_oe_roll, oe_steps, OE_N, 5, 1, "fixed OE"),
+    ):
+        traj = res.trajectory
+        check(tuple(traj.observations.shape) == (steps + 1, n, s_dim), f"phase 15 {label} obs {tuple(traj.observations.shape)}")
+        check(tuple(traj.actions.shape) == (steps, n, a_dim) and tuple(traj.rewards.shape) == (steps, n), f"phase 15 {label} shapes")
+        check(all(bool(torch.isfinite(x).all()) for x in traj), f"phase 15 {label}: non-finite trajectory values")
+        check(traj.observations.device.type == "cuda", f"phase 15 {label}: trajectory not on the card")
+    obs0 = torch.tensor([[0.0, 0.0, 0.0, 100.0]], device=dev)
+    h0 = float(cj_agent.true_value_function(obs0)[0])
+    roll_stats = rollout_summary(torch, cj_roll)
+    for label, mean, std, n in (
+        ("mc_episode_stats (K5 table stats)", cj_mc["mean_pnl"], cj_mc["std_pnl"], CJ_N),
+        ("rollout (K5 table streams)", roll_stats["mean_pnl"], roll_stats["std_pnl"], CJ_N),
+        ("cj_episode_rewards (K8)", cj_rewards.mean(), cj_rewards.std(correction=0), CJ_N),
+    ):
+        t = t_stat(mean, std, n, h0)
+        print(f"phase 15 CJP value function, {label} at {n}x{cj_steps}: mean {float(mean):.4f} "
+              f"+/- {float(std):.4f} vs h(0,0) {h0:.4f}, t={t:.3f}")
+        check(abs(t) < T_BAND, f"phase 15 CJP t-test failed for {label}: t={t}")
+    big = float(cj_big_mc["mean_pnl"])
+    print(f"phase 15 CJP mc_episode_stats at {CJ_STATS_N}x{cj_steps}: mean {big:.4f} +/- {float(cj_big_mc['std_pnl']):.4f}, "
+          f"t={t_stat(big, cj_big_mc['std_pnl'], CJ_STATS_N, h0):.3f}")
+    check(abs(big - h0) < 0.3, f"phase 15: CJP mean {big} outside h(0,0) {h0} +/- 0.3 at {CJ_STATS_N} envs")
+    check_agree(oe_mc, rollout_summary(torch, oe_roll), "mean_pnl", 2 * OE_N, OE_N, "phase 15 OE K6 stats vs K5 schedule rollout")
+    check_agree(oe_mc, rollout_summary(torch, oe_roll), "mean_terminal_inventory", 2 * OE_N, OE_N,
+                "phase 15 OE K6 stats vs K5 schedule rollout")
+    check(abs(float(fx_as_mc["mean_spread"]) - 1.6) < 1e-6, f"phase 15 fixed AS mean_spread {fx_as_mc['mean_spread']}")
+    check(abs(float(episode_stats(as_cfg, fx_as_roll.trajectory)["mean_spread"]) - 1.6) < 1e-5, "phase 15 fixed AS rollout spread")
+    check(bool(torch.isnan(fx_oe_mc["mean_spread"])) and bool(torch.isnan(oe_mc["mean_spread"])), "phase 15 OE spread not NaN")
+    check_agree(fx_as_mc, rollout_summary(torch, fx_as_roll), "mean_pnl", CJ_N, CJ_N, "phase 15 fixed AS stats vs rollout")
+    check_agree(fx_oe_mc, rollout_summary(torch, fx_oe_roll), "mean_pnl", OE_N, OE_N, "phase 15 fixed OE stats vs rollout")
+    print(f"phase 15 ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 16: the same configs through the engine on the card
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    e_cj = mc_episode_stats(cj_cfg, cj_pol, None, 71, backend="engine")
+    e_cj_roll = rollout(cj_cfg, cj_pol, None, 72, backend="engine")
+    e_oe = mc_episode_stats(oe_cfg, oe_pol, None, 73, episodes=2, backend="engine")
+    e_fx_as = mc_episode_stats(as_cfg, fx_as, None, 74, backend="engine")
+    e_fx_oe = mc_episode_stats(oe_cfg, fx_oe, None, 75, backend="engine")
+    torch.cuda.synchronize()
+    check(sum(_build.launch_counts.values()) == 0, "phase 16: the engine launched a kernel")
+    check(e_cj_roll.trajectory.observations.device.type == "cuda", "phase 16: engine trajectory not on the card")
+    t = t_stat(e_cj["mean_pnl"], e_cj["std_pnl"], CJ_N, h0)
+    print(f"phase 16 CJP value function, mc_episode_stats (engine): mean {float(e_cj['mean_pnl']):.4f}, t={t:.3f}")
+    for fused, eng, n_f, n_e, label in (
+        (cj_mc, e_cj, CJ_N, CJ_N, "CJ stats"), (roll_stats, rollout_summary(torch, e_cj_roll), CJ_N, CJ_N, "CJ rollout"),
+        (oe_mc, e_oe, 2 * OE_N, 2 * OE_N, "OE stats"), (fx_as_mc, e_fx_as, CJ_N, CJ_N, "fixed AS stats"),
+        (fx_oe_mc, e_fx_oe, OE_N, OE_N, "fixed OE stats"),
+    ):
+        for key in ("mean_pnl", "mean_terminal_inventory"):
+            check_agree(fused, eng, key, n_f, n_e, f"phase 16 {label} fused vs engine")
+    print(f"phase 16 ok in {time.perf_counter() - t0:.1f} s: the engine agrees with the fused paths within 4 se")
+    del cj_roll, e_cj_roll, oe_roll, fx_as_roll, fx_oe_roll
+
+    # ---- phase 17: timings (CUDA events, medians after warm-up)
+    t0 = time.perf_counter()
+    for name, fn, steps, reps in (
+        ("mc_episode_stats CJ fused K5 table stats", lambda: mc_episode_stats(cj_cfg, cj_pol, None, 7), CJ_N * cj_steps, 5),
+        ("rollout CJ fused K5 table streams", lambda: rollout(cj_cfg, cj_pol, None, 7), CJ_N * cj_steps, 3),
+        ("cj_episode_rewards CJ fused K8", lambda: cj_episode_rewards(cj_cfg, cj_agent, 7, CJ_N), CJ_N * cj_steps, 5),
+        ("mc_episode_stats OE fused K6", lambda: mc_episode_stats(oe_cfg, oe_pol, None, 7), OE_N * oe_steps, 5),
+        ("rollout OE fused K5 schedule", lambda: rollout(oe_cfg, oe_pol, None, 7), OE_N * oe_steps, 5),
+        ("mc_episode_stats fixed AS fused K5", lambda: mc_episode_stats(as_cfg, fx_as, None, 7), CJ_N * as_steps, 5),
+        ("mc_episode_stats CJ engine", lambda: mc_episode_stats(cj_cfg, cj_pol, None, 7, backend="engine"), CJ_N * cj_steps, 1),
+        ("rollout CJ engine", lambda: rollout(cj_cfg, cj_pol, None, 7, backend="engine"), CJ_N * cj_steps, 1),
+        ("mc_episode_stats OE engine", lambda: mc_episode_stats(oe_cfg, oe_pol, None, 7, backend="engine"), OE_N * oe_steps, 2),
+        ("rollout OE engine", lambda: rollout(oe_cfg, oe_pol, None, 7, backend="engine"), OE_N * oe_steps, 2),
+    ):
+        ms = cuda_ms(torch, fn, warmup=1, reps=reps)
+        print(f"phase 17 [{card}] {name}: {ms} ms per call = {steps / ms * 1e3} env-steps/s")
+    for name, fn in (
+        ("mc_episode_stats CJ fused", lambda: mc_episode_stats(cj_cfg, cj_pol, None, 7)),
+        ("mc_episode_stats OE fused", lambda: mc_episode_stats(oe_cfg, oe_pol, None, 7)),
+    ):
+        profile_iteration(torch, card, name, fn, phase=17)
+    # the host set-up of the entry points: the CJ depth table is built once
+    # per agent (the eigendecomposition) and copied from then on
+    for name, fn in (
+        ("CarteaJaimungalMmAgent.depth_table (the build, once per agent)", cj_agent.depth_table),
+        ("cj_depth_tables (K5's CJ tables from the built table)", lambda: det.cj_depth_tables(cj_agent)),
+        ("oe_speed_table (K6's and K5's OE schedule)", lambda: oe.oe_speed_table(oe_cfg, oe_agent)),
+    ):
+        host = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t1) * 1e3)
+        print(f"phase 17 host [{card}] {name}: {statistics.median(host)} ms per call (median of 3)")
+
+    def bound(bytes_moved, ops):
+        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    table_bytes = sum(t.numel() * 4 for t in tables)
+    # native mode reads only the tables; stats writes 5 floats per env,
+    # streams (S + A + 3) floats per env-step (obs, actions, the zero
+    # log-prob and value planes, rewards) plus the terminal obs
+    k5_bound = bound(table_bytes + 5 * 4 * CJ_N, OPS_PER_ENV_STEP_K5_TABLE * CJ_N * cj_steps)
+    k6_bound = bound(oe_steps * 4 + 6 * 4 * OE_N, OPS_PER_ENV_STEP_K6 * OE_N * oe_steps)
+    k8_bound = bound(cj_table.numel() * 4 + 4 * 4 * CJ_N, OPS_PER_ENV_STEP_K8 * CJ_N * cj_steps)
+    k5 = lambda n, **kw: det.table_rollout(p_table, *tables, 9, n, device=dev, **kw)  # noqa: E731
+    k5_ms = cuda_ms(torch, lambda: k5(CJ_N, stats_only=True), warmup=2, reps=10)
+    k5_plain_ms = cuda_ms(torch, lambda: det.table_rollout_plain(p_table, *tables, 9, CJ_N, stats_only=True, device=dev),
+                          warmup=1, reps=1)
+    k5_streams_ms = cuda_ms(torch, lambda: k5(CJ_N, final_obs=True), warmup=1, reps=5)
+    big_p, big_tables = det.cj_rollout_params(cj_big, cj_agent), tables
+    k5_big_ms = cuda_ms(torch, lambda: det.table_rollout(big_p, *big_tables, 9, CJ_STATS_N, stats_only=True, device=dev),
+                        warmup=1, reps=5)
+    p_sched = k5_cases[3][1]
+    k5_sched_ms = cuda_ms(torch, lambda: det.schedule_rollout(p_sched, speed_table[:, None], 9, OE_N, final_obs=True,
+                                                              device=dev), warmup=2, reps=10)
+    k6_ms = cuda_ms(torch, lambda: oe.oe_episode(p_oe, speed_table, 9, OE_N, device=dev), warmup=2, reps=10)
+    k6_plain_ms = cuda_ms(torch, lambda: oe.oe_episode_plain(p_oe, speed_table, 9, OE_N, device=dev), warmup=1, reps=2)
+    k6_big_ms = cuda_ms(torch, lambda: oe.oe_episode(p_oe, speed_table, 9, OE_LARGE_N, device=dev), warmup=2, reps=10)
+    k8_ms = cuda_ms(torch, lambda: cj.cj_episode(p_cj, cj_table, 9, 100, CJ_N, device=dev), warmup=2, reps=10)
+    k8_plain_ms = cuda_ms(torch, lambda: cj.cj_episode_plain(p_cj, cj_table, 9, 100, CJ_N, device=dev), warmup=1, reps=1)
+    s_oe = len(p_sched.obs_low)
+    rows = (
+        ("K5 det_rollout table stats native", k5_ms, k5_plain_ms, CJ_N, cj_steps, k5_bound),
+        ("K5 det_rollout table streams native", k5_streams_ms, None, CJ_N, cj_steps,
+         bound(table_bytes + (cj_steps * 9 + 4) * 4 * CJ_N, OPS_PER_ENV_STEP_K5_TABLE * CJ_N * cj_steps)),
+        ("K5 det_rollout table stats native", k5_big_ms, None, CJ_STATS_N, cj_steps,
+         bound(table_bytes + 5 * 4 * CJ_STATS_N, OPS_PER_ENV_STEP_K5_TABLE * CJ_STATS_N * cj_steps)),
+        ("K5 det_rollout schedule streams native", k5_sched_ms, None, OE_N, oe_steps,
+         bound(oe_steps * 4 + (oe_steps * (s_oe + 4) + s_oe) * 4 * OE_N, OPS_PER_ENV_STEP_K5_SPEED * OE_N * oe_steps)),
+        ("K6 oe_episode native", k6_ms, k6_plain_ms, OE_N, oe_steps, k6_bound),
+        ("K6 oe_episode native", k6_big_ms, None, OE_LARGE_N, oe_steps,
+         bound(oe_steps * 4 + 6 * 4 * OE_LARGE_N, OPS_PER_ENV_STEP_K6 * OE_LARGE_N * oe_steps)),
+        ("K8 cj_episode native", k8_ms, k8_plain_ms, CJ_N, cj_steps, k8_bound),
+    )
+    for name, ms, plain_ms, n, steps, (b_ms, b_by) in rows:
+        plain = f", plain {plain_ms} ms" if plain_ms is not None else ""
+        print(f"phase 17 [{card}] {name} at {n}x{steps}: {ms} ms = {n * steps / ms * 1e3} env-steps/s, "
+              f"bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound{plain}")
+    print(f"phase 17 ok in {time.perf_counter() - t0:.1f} s")
+    entries = []
+    for name, key, src, replaces, ms, plain_ms, (b_ms, b_by) in (
+        ("K5 det_rollout", "det_rollout", "det_rollout.cu", "mbt_gym_tpu/ops/pallas_rollout.py:1876", k5_ms, k5_plain_ms, k5_bound),
+        ("K6 oe_episode", "oe_episode", "oe_episode.cu", "mbt_gym_tpu/ops/pallas_episode.py:720", k6_ms, k6_plain_ms, k6_bound),
+        ("K8 cj_episode", "cj_episode", "cj_episode.cu", "mbt_gym_tpu/ops/pallas_episode.py:409", k8_ms, k8_plain_ms, k8_bound),
+    ):
+        entries.append({
+            "name": name, "route": "cuda", "source": f"mbt_gym_torch/ops/csrc/{src}", "replaces": replaces,
+            "launches": launches[key], "max_abs_err": err[name[:2]], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    return entries
+
+
 def main():
     import torch
 
@@ -391,14 +723,14 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}")
 
-    # ---- phase 1 (K1/K2) and phase 7 (K3/K4): build every kernel source,
-    # one nvcc each, all started together, with -Xptxas -v
+    # ---- phases 1 (K1/K2), 7 (K3/K4) and 13 (K5/K6/K8): build every
+    # kernel source, one nvcc each, all started together, with -Xptxas -v
     t0 = time.perf_counter()
-    sources = ("as_episode.cu", "mlp_rollout.cu", "fused_ppo.cu")
+    sources = _build.SOURCES
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(lambda src: _build.build(src, ptxas_verbose=True), sources))
     ep._kernels()
-    print(f"phase 1/7 build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+    print(f"phase 1/7/13 build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 2/3: K1 and K2 against their plain versions, noise mode on
     # two configs and native mode, at the main path's 16,384 x 200
@@ -517,6 +849,7 @@ def main():
         },
     ]
     kernels += ppo_phases(torch, np, card, dev)
+    kernels += cj_phases(torch, np, card, dev)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

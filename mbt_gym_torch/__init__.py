@@ -7,9 +7,12 @@ the JAX package in this repository is its reference.  Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``.  The port covers
 the Avellaneda-Stoikov main path (the engine, the AS agent, ``rollout`` /
 ``mc_episode_stats`` and the CUDA episode kernels K1/K2 behind
-``backend="auto"``) and PPO training on that env (``agents.ppo``: the
+``backend="auto"``), PPO training on that env (``agents.ppo``: the
 engine path, and the fused path on the CUDA kernels K3, the MLP rollout,
-and K4, the PPO update).
+and K4, the PPO update), and the closed-form Cartea-Jaimungal paths: the
+CJP market maker, the optimal-execution schedule and fixed actions on the
+deterministic-policy kernel K5, the OE episode kernel K6, and the CJP
+value-function lane :func:`cj_episode_rewards` on K8.
 """
 
 from mbt_gym_torch.types import (
@@ -30,14 +33,26 @@ from mbt_gym_torch.dispatch import DispatchDecision, dispatch_report
 from mbt_gym_torch.env import EnvConfig, default_dynamics, reset, step, observe
 from mbt_gym_torch.rollout import RolloutResult, episode_stats, mc_episode_stats, rollout
 from mbt_gym_torch.agents.ppo import PPOConfig, init_train_state, train_chunk, train_iteration
+from mbt_gym_torch.agents.baseline import (
+    AvellanedaStoikovAgent,
+    CarteaJaimungalMmAgent,
+    CarteaJaimungalOeAgent,
+    fixed_action_policy,
+)
+from mbt_gym_torch.ops.cj_episode import cj_episode_rewards
+from mbt_gym_torch.ops.oe_episode import oe_episode_rewards
+from mbt_gym_torch.utils.config import as_env_config, cj_env_config, oe_env_config
 
 __version__ = "0.1.0"
 
 __all__ = [
     "ASK_INDEX",
     "ASSET_PRICE_INDEX",
+    "AvellanedaStoikovAgent",
     "BID_INDEX",
     "CASH_INDEX",
+    "CarteaJaimungalMmAgent",
+    "CarteaJaimungalOeAgent",
     "DispatchDecision",
     "dispatch_report",
     "EnvConfig",
@@ -51,11 +66,17 @@ __all__ = [
     "TIME_INDEX",
     "Trajectory",
     "TrajectoryT",
+    "as_env_config",
+    "cj_env_config",
+    "cj_episode_rewards",
     "default_dynamics",
     "episode_stats",
+    "fixed_action_policy",
     "init_train_state",
     "mc_episode_stats",
     "observe",
+    "oe_env_config",
+    "oe_episode_rewards",
     "reset",
     "rollout",
     "step",

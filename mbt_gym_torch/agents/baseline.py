@@ -5,24 +5,35 @@
 
 Each policy carries a ``dispatch_meta`` tag naming its kind, which
 :func:`mbt_gym_torch.dispatch.dispatch_report` reads.  The port carries the
-AS agent and the fixed-action policy.
+AS agent, the two Cartea-Jaimungal agents (market making and optimal
+execution) and the fixed-action policy.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from mbt_gym_torch.dispatch import tag_policy
 from mbt_gym_torch.env import EnvConfig
-from mbt_gym_torch.types import INVENTORY_INDEX, TIME_INDEX
+from mbt_gym_torch.types import (
+    ASK_INDEX,
+    ASSET_PRICE_INDEX,
+    BID_INDEX,
+    CASH_INDEX,
+    INVENTORY_INDEX,
+    TIME_INDEX,
+)
 
 
 def fixed_action_policy(fixed_action):
     """Constant action for every trajectory (BaselineAgents.py:25-31).
-    Tagged ``kind="fixed"``; its kernel family is not ported yet, so it
-    runs on the engine."""
+    Tagged ``kind="fixed"``: on eligible configs ``rollout(backend="auto")``
+    runs it on the deterministic-policy kernel K5
+    (:func:`mbt_gym_torch.ops.det_rollout.fixed_rollout`)."""
     fixed = np.asarray(fixed_action, dtype=np.float64).reshape(-1)
 
     def policy(params, obs, state):
@@ -70,3 +81,203 @@ class AvellanedaStoikovAgent:
             return torch.stack([skew + spread / 2, -skew + spread / 2], dim=1)
 
         return tag_policy(policy_fn, kind="as_closed_form", agent=self)
+
+
+def _device_table(cache: dict, table: np.ndarray, device) -> torch.Tensor:
+    """``table`` as a tensor on ``device``, copied there once per device."""
+    key = str(device)
+    if key not in cache:
+        cache[key] = torch.tensor(table, device=device)
+    return cache[key]
+
+
+@functools.lru_cache(maxsize=16)
+def _cj_depth_table_f32(agent: "CarteaJaimungalMmAgent") -> np.ndarray:
+    table = agent.depth_table().astype(np.float32)
+    table.flags.writeable = False
+    return table
+
+
+# --------------------------------------------------------- Cartea-Jaimungal MM
+@dataclasses.dataclass(frozen=True)
+class CarteaJaimungalMmAgent:
+    """CJP-2015 ch.10 closed-form market maker (BaselineAgents.py:86-170).
+
+    The reference computes ``omega(t) = expm(A (T - t)) z`` per query with
+    ``scipy.linalg.expm`` over a ``(2Q+1)^2`` tridiagonal matrix.  Here the
+    whole ``h(t, q) = (1/kappa) ln omega`` surface is computed once on the
+    episode's time grid through one eigendecomposition of A (the JAX
+    package's numpy code, so both packages build the same tables bit for
+    bit), and the policy is a gather from the depth table.
+    """
+
+    kappa: float
+    phi: float
+    alpha: float
+    lambdas: Tuple[float, float]
+    terminal_time: float
+    n_steps: int
+    max_inventory: int
+    inventory_neutral: bool = False
+    large_depth: float = 10_000.0
+
+    @classmethod
+    def from_config(cls, cfg: EnvConfig, max_inventory: Optional[int] = None) -> "CarteaJaimungalMmAgent":
+        from mbt_gym_torch import rewards as rw
+
+        reward = cfg.reward_function
+        inventory_neutral = isinstance(reward, rw.PnL)
+        if not inventory_neutral:
+            assert reward.inventory_exponent == 2.0, "Inventory exponent must be 2."
+        return cls(
+            kappa=cfg.dynamics.fill_probability_model.fill_exponent,
+            phi=0.0 if inventory_neutral else reward.per_step_inventory_aversion,
+            alpha=0.0 if inventory_neutral else reward.terminal_inventory_aversion,
+            lambdas=tuple(cfg.dynamics.arrival_model.intensity),
+            terminal_time=cfg.terminal_time,
+            n_steps=cfg.n_steps,
+            max_inventory=int(max_inventory if max_inventory is not None else cfg.max_inventory),
+            inventory_neutral=inventory_neutral,
+        )
+
+    def _a_and_z(self):
+        """Tridiagonal generator A and terminal vector z over the inventory
+        grid [max_inventory, ..., -max_inventory] (BaselineAgents.py:147-159)."""
+        q = self.max_inventory
+        size = 2 * q + 1
+        inventories = q - np.arange(size)
+        a = np.zeros((size, size))
+        a[np.arange(size), np.arange(size)] = -self.phi * self.kappa * inventories**2
+        a[np.arange(size - 1), np.arange(1, size)] = self.lambdas[BID_INDEX] * np.exp(-1)
+        a[np.arange(1, size), np.arange(size - 1)] = self.lambdas[ASK_INDEX] * np.exp(-1)
+        z = np.exp(-self.alpha * self.kappa * inventories**2)
+        return a, z
+
+    def h_table(self, dtype=np.float64) -> np.ndarray:
+        """(n_steps + 1, 2Q+1) table of h(t_i, q) on the episode time grid,
+        from ``expm(A s) = V diag(e^{w s}) V^{-1}`` with one
+        eigendecomposition: O(T * Q^2) instead of T matrix exponentials."""
+        a, z = self._a_and_z()
+        w, v = np.linalg.eig(a)
+        v_inv_z = np.linalg.solve(v, z)
+        times_left = self.terminal_time - np.linspace(0.0, self.terminal_time, self.n_steps + 1)
+        omega = np.real(np.exp(np.outer(times_left, w)) * v_inv_z[None, :] @ v.T)
+        omega = np.maximum(omega, 1e-300)
+        return (np.log(omega) / self.kappa).astype(dtype)
+
+    def depth_table(self) -> np.ndarray:
+        """(n_steps+1, 2Q+1, 2) table of [bid, ask] depths by (time, inventory
+        index).  The reference's large-depth boundary override
+        (BaselineAgents.py:131-137) fires exactly at the clipped inventory
+        bounds, so it is index-based and precomputable."""
+        h = self.h_table()  # (T+1, 2Q+1)
+        inv_k = 1.0 / self.kappa
+        bid = inv_k - np.roll(h, -1, axis=1) + h
+        bid[:, -1] = inv_k + self.large_depth  # q >= +Q: quote huge bid depth
+        ask = inv_k - np.roll(h, 1, axis=1) + h
+        ask[:, 0] = inv_k + self.large_depth  # q <= -Q: quote huge ask depth
+        return np.stack([bid, ask], axis=2)
+
+    def depth_table_f32(self) -> np.ndarray:
+        """:meth:`depth_table` in float32, the table every CJ path reads
+        (the engine policy, K5's :func:`~mbt_gym_torch.ops.det_rollout.cj_depth_tables`
+        and K8's :func:`~mbt_gym_torch.ops.cj_episode.cj_episode_rewards`).
+        Built once per agent value and shared, so it is read-only."""
+        return _cj_depth_table_f32(self)
+
+    def policy(self):
+        if self.inventory_neutral:
+            risk_neutral = 1.0 / self.kappa
+
+            def neutral_fn(params, obs, state):
+                return torch.full((obs.shape[0], 2), risk_neutral, dtype=obs.dtype, device=obs.device)
+
+            return tag_policy(neutral_fn, kind="cj_closed_form", agent=self)
+
+        q_max = self.max_inventory
+        dt = self.terminal_time / self.n_steps
+        # float32, as the JAX policy's table: in a float64 config the quotes
+        # are float32 values widened, in both packages
+        depth_tab = self.depth_table_f32()
+        last = depth_tab.shape[0] - 1
+        tables = {}
+
+        def policy_fn(params, obs, state):
+            tab = _device_table(tables, depth_tab, obs.device)
+            idx = torch.clamp(q_max + obs[:, INVENTORY_INDEX], 0, 2 * q_max).to(torch.int64)
+            if state is not None:
+                # Rollout: every trajectory shares the clock
+                # (TradingEnvironment.py:218-220), so one time row.
+                t_idx = torch.clamp(torch.round(state.time[0] / dt).to(torch.int64), 0, last)
+                return tab[t_idx][idx].to(obs.dtype)
+            # Standalone use (state=None): each row at its own time.
+            t_idx = torch.clamp(torch.round(obs[:, TIME_INDEX] / dt).to(torch.int64), 0, last)
+            return tab[t_idx, idx].to(obs.dtype)
+
+        return tag_policy(policy_fn, kind="cj_closed_form", agent=self)
+
+    def true_value_function(self, obs: torch.Tensor) -> torch.Tensor:
+        """Analytic value ``h(t, q) + cash + q * S`` — the CJP replication
+        oracle (BaselineAgents.py:161-170)."""
+        h_tab = torch.as_tensor(self.h_table(), dtype=obs.dtype, device=obs.device)
+        dt = self.terminal_time / self.n_steps
+        t_idx = torch.clamp(torch.round(obs[:, TIME_INDEX] / dt).to(torch.int64), 0, h_tab.shape[0] - 1)
+        idx = torch.clamp(
+            self.max_inventory + obs[:, INVENTORY_INDEX], 0, 2 * self.max_inventory
+        ).to(torch.int64)
+        h_0 = h_tab[t_idx, idx]
+        return h_0 + obs[:, CASH_INDEX] + obs[:, INVENTORY_INDEX] * obs[:, ASSET_PRICE_INDEX]
+
+
+# --------------------------------------------------------- Cartea-Jaimungal OE
+@dataclasses.dataclass(frozen=True)
+class CarteaJaimungalOeAgent:
+    """CJP-2015 p.147 closed-form optimal-execution schedule
+    (BaselineAgents.py:173-210)."""
+
+    phi: float = 2e-4
+    alpha: float = 1e-4
+    temporary_impact: float = 0.01
+    permanent_impact: float = 0.01
+    terminal_time: float = 1.0
+    initial_inventory: float = 0.0
+
+    @classmethod
+    def from_config(cls, cfg: EnvConfig, phi: float = 2e-4, alpha: float = 1e-4) -> "CarteaJaimungalOeAgent":
+        impact = cfg.dynamics.price_impact_model
+        # The schedule needs one scalar q0: a (low, high) tuple uses the
+        # expectation of the uniform-integer draw, (low + high - 1) / 2
+        # (high exclusive, TradingEnvironment.py:271-272); a callable is
+        # evaluated once.
+        spec = cfg.initial_inventory
+        if callable(spec):
+            q0 = float(spec())
+        elif isinstance(spec, tuple):
+            q0 = (float(spec[0]) + float(spec[1]) - 1.0) / 2.0
+        else:
+            q0 = float(spec)
+        return cls(
+            phi=phi,
+            alpha=alpha,
+            temporary_impact=impact.temporary_impact_coefficient,
+            permanent_impact=impact.permanent_impact_coefficient,
+            terminal_time=cfg.terminal_time,
+            initial_inventory=q0,
+        )
+
+    def policy(self):
+        gamma = float(np.sqrt(self.phi / self.temporary_impact))
+        root = float(np.sqrt(self.temporary_impact * self.phi))
+        zeta = (self.alpha - 0.5 * self.permanent_impact + root) / (
+            self.alpha - 0.5 * self.permanent_impact - root
+        )
+        q0, T = self.initial_inventory, self.terminal_time
+        denom = float(zeta * np.exp(gamma * T) - np.exp(-gamma * T))
+        sign = -float(np.sign(q0))
+
+        def policy_fn(params, obs, state):
+            time_left = T - obs[:, TIME_INDEX]
+            speed = gamma * q0 * (zeta * torch.exp(gamma * time_left) + torch.exp(-gamma * time_left)) / denom
+            return (sign * speed)[:, None]
+
+        return tag_policy(policy_fn, kind="oe_schedule", agent=self)

@@ -9,7 +9,10 @@ lists.
 - :func:`env_config_from_spec` rebuilds an :class:`EnvConfig` with its
   processes, dynamics and reward;
 - :func:`env_state_from_numpy` builds an :class:`EnvState` from arrays;
-- :func:`as_agent_from_spec` rebuilds the AS agent;
+- :func:`as_agent_from_spec`, :func:`cj_mm_agent_from_spec` and
+  :func:`cj_oe_agent_from_spec` rebuild the closed-form agents (the CJ
+  agents' depth tables and schedules are computed from these fields, so
+  they are this slice's "weights");
 - :func:`ppo_config_from_spec` rebuilds a :class:`~mbt_gym_torch.agents.ppo.PPOConfig`;
 - :func:`actor_critic_from_numpy` / :func:`actor_critic_to_numpy` carry
   actor-critic parameters across as the JAX package's params pytree of
@@ -26,19 +29,28 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from mbt_gym_torch.agents.baseline import AvellanedaStoikovAgent
+from mbt_gym_torch.agents.baseline import (
+    AvellanedaStoikovAgent,
+    CarteaJaimungalMmAgent,
+    CarteaJaimungalOeAgent,
+)
 from mbt_gym_torch.agents.networks import ActorCritic
-from mbt_gym_torch.dynamics import LimitOrderDynamics
+from mbt_gym_torch.dynamics import LimitOrderDynamics, TradingWithSpeedDynamics
 from mbt_gym_torch.env import EnvConfig, make_generator, resolve_device
 from mbt_gym_torch.processes.arrivals import PoissonArrivals
 from mbt_gym_torch.processes.fills import ExponentialFill
+from mbt_gym_torch.processes.impact import TemporaryAndPermanentImpact
 from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
-from mbt_gym_torch.rewards import PnL
+from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, PnL, RunningInventoryPenalty
 from mbt_gym_torch.types import EnvState
 
 _COMPONENTS = {
     cls.__name__: cls
-    for cls in (BrownianMotionMidprice, PoissonArrivals, ExponentialFill, LimitOrderDynamics, PnL)
+    for cls in (
+        BrownianMotionMidprice, PoissonArrivals, ExponentialFill, TemporaryAndPermanentImpact,
+        LimitOrderDynamics, TradingWithSpeedDynamics,
+        PnL, RunningInventoryPenalty, CjMmCriterion, CjOeCriterion,
+    )
 }
 
 
@@ -74,13 +86,29 @@ def env_config_from_spec(spec: dict) -> EnvConfig:
     return EnvConfig(**kwargs)
 
 
+def _agent_from_spec(cls, spec: dict):
+    spec = dict(spec)
+    name = spec.pop("type", cls.__name__)
+    if name != cls.__name__:
+        raise ValueError(f"{name} is not a {cls.__name__} spec")
+    return cls(**{k: _plain(v) for k, v in spec.items()})
+
+
 def as_agent_from_spec(spec: dict) -> AvellanedaStoikovAgent:
     """Rebuild the AS agent from ``{"type": "AvellanedaStoikovAgent", ...}``."""
-    spec = dict(spec)
-    name = spec.pop("type", "AvellanedaStoikovAgent")
-    if name != "AvellanedaStoikovAgent":
-        raise ValueError(f"{name} is not ported to mbt_gym_torch yet")
-    return AvellanedaStoikovAgent(**spec)
+    return _agent_from_spec(AvellanedaStoikovAgent, spec)
+
+
+def cj_mm_agent_from_spec(spec: dict) -> CarteaJaimungalMmAgent:
+    """Rebuild the CJ market-making agent from
+    ``{"type": "CarteaJaimungalMmAgent", ...}``."""
+    return _agent_from_spec(CarteaJaimungalMmAgent, spec)
+
+
+def cj_oe_agent_from_spec(spec: dict) -> CarteaJaimungalOeAgent:
+    """Rebuild the CJ optimal-execution agent from
+    ``{"type": "CarteaJaimungalOeAgent", ...}``."""
+    return _agent_from_spec(CarteaJaimungalOeAgent, spec)
 
 
 def env_state_from_numpy(

@@ -10,21 +10,25 @@ inspectable fallback reason.
 - ``rollout()`` / ``mc_episode_stats()`` consult it under
   ``backend="auto"`` (their default) and route accordingly.
 
-Families ported so far:
+Families and the entry-point modes they serve:
 
 ==============  =======================================  ========  =====
 family          kernel                                   rollout   stats
 ==============  =======================================  ========  =====
 as_episode      ops.episode K2 (rollout) / K1 (stats)    yes       yes
+cj_table        ops.det_rollout K5, table policy         yes       yes
+fixed           ops.det_rollout K5, fixed policy         yes       yes
+oe_episode      ops.det_rollout K5, schedule policy      yes       yes
+                (rollout) / ops.oe_episode K6 (stats)
 ==============  =======================================  ========  =====
 
-The JAX package's other families (``cj_table``, ``fixed``, ``oe_episode``,
-``mlp_rollout``) are not ported yet: their policy kinds run the engine,
-and the reason names the family.  Backend names: ``"fused"`` for a kernel
-family, ``"engine"`` for the general eager engine (the JAX package's
-``"xla"``).
+The CJP value-function lane, :func:`mbt_gym_torch.ops.cj_episode.cj_episode_rewards`
+(K8), is called directly.  The JAX package's ``mlp_rollout`` family
+(deterministic MLP evaluation) runs the engine here, and the reason says
+so.  Backend names: ``"fused"`` for a kernel family, ``"engine"`` for the
+general eager engine (the JAX package's ``"xla"``).
 
-Semantics: the fused family is validated against the engine step for step
+Semantics: every fused family is validated against the engine step for step
 on injected noise (tests/test_torch_*.py); native-mode RNG *streams* differ
 between the backends, so ``backend="auto"`` results are statistically — not
 bitwise — equal to ``backend="engine"``.  Replay features (injected noise,
@@ -39,7 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from mbt_gym_torch.env import EnvConfig, make_generator, resolve_device
-from mbt_gym_torch.types import EnvState
+from mbt_gym_torch.types import EnvState, Trajectory
 
 
 class DispatchDecision(NamedTuple):
@@ -75,7 +79,7 @@ def _require_lane_batch(cfg: EnvConfig):
         )
 
 
-def _check_as(cfg: EnvConfig, meta: dict, mode: str) -> None:
+def _check_as(cfg: EnvConfig, meta: dict, mode: str, device: torch.device) -> None:
     from mbt_gym_torch.agents.baseline import AvellanedaStoikovAgent
     from mbt_gym_torch.ops import episode
 
@@ -92,16 +96,109 @@ def _check_as(cfg: EnvConfig, meta: dict, mode: str) -> None:
     _require_lane_batch(cfg)
 
 
+def _streams_fit(p, cfg: EnvConfig, device: torch.device, tables_bytes: int = 0) -> None:
+    from mbt_gym_torch.ops import det_rollout as det
+
+    if not det.det_streams_feasible(p, cfg.num_trajectories, tables_bytes, device):
+        raise _Ineligible(
+            f"the {cfg.n_steps}-step horizon's trajectory streams at "
+            f"{cfg.num_trajectories} envs exceed free device memory for the "
+            f"{p.policy_kind} kernel; full trajectories run on the engine "
+            "(stats mode stays fused)"
+        )
+
+
+def _check_cj(cfg: EnvConfig, meta: dict, mode: str, device: torch.device) -> None:
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent
+    from mbt_gym_torch.ops import det_rollout as det
+
+    agent = meta["agent"]
+    try:
+        p = det.cj_rollout_params(cfg, agent)
+        reference = CarteaJaimungalMmAgent.from_config(cfg, max_inventory=agent.max_inventory)
+    except AssertionError as e:
+        raise _Ineligible(str(e))
+    if agent != reference:
+        raise _Ineligible(
+            "CJ agent parameters differ from the env config (build the "
+            "agent with CarteaJaimungalMmAgent.from_config)"
+        )
+    if p.dynamics_kind != "limit":
+        raise _Ineligible(
+            "the depth-table policy quotes (bid, ask) limit depths — "
+            f"limit-order dynamics only (config has {p.dynamics_kind})"
+        )
+    if p.normalise_act:
+        raise _Ineligible(
+            "closed-form depths are model units; disable "
+            "normalise_action_space for the closed-form CJ policy"
+        )
+    if p.inventory_range and mode == "stats":
+        raise _Ineligible(
+            "random initial inventory is unsupported by the table stats "
+            "kernel wrapper; use backend='engine' or mode='rollout'"
+        )
+    if mode == "rollout":
+        _streams_fit(p, cfg, device, tables_bytes=2 * (cfg.n_steps + 1) * p.table_size * 4)
+    _require_lane_batch(cfg)
+
+
+def _check_fixed(cfg: EnvConfig, meta: dict, mode: str, device: torch.device) -> None:
+    from mbt_gym_torch.ops import det_rollout as det
+
+    action = meta["action"]
+    try:
+        p = det.fixed_rollout_params(cfg, action)
+    except AssertionError as e:
+        raise _Ineligible(str(e))
+    if len(p.fixed_action) != p.a_dim:
+        raise _Ineligible(
+            f"fixed action has {len(p.fixed_action)} columns; "
+            f"{p.dynamics_kind} dynamics takes {p.a_dim}"
+        )
+    if p.inventory_range and mode == "stats":
+        raise _Ineligible(
+            "random initial inventory is unsupported by the fixed stats "
+            "kernel wrapper; use backend='engine' or mode='rollout'"
+        )
+    if mode == "rollout":
+        _streams_fit(p, cfg, device)
+    _require_lane_batch(cfg)
+
+
+def _check_oe(cfg: EnvConfig, meta: dict, mode: str, device: torch.device) -> None:
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalOeAgent
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import oe_episode as oe
+
+    agent = meta["agent"]
+    try:
+        oe.oe_params_from_config(cfg)
+        reference = CarteaJaimungalOeAgent.from_config(cfg, phi=agent.phi, alpha=agent.alpha)
+        # full trajectories run on K5's schedule kind, stats on K6
+        p = det.schedule_rollout_params(cfg) if mode == "rollout" else None
+    except AssertionError as e:
+        raise _Ineligible(str(e))
+    if p is not None:
+        _streams_fit(p, cfg, device)
+    if agent != reference:
+        raise _Ineligible(
+            "CJ-OE agent parameters differ from the env config (build the "
+            "agent with CarteaJaimungalOeAgent.from_config)"
+        )
+    _require_lane_batch(cfg)
+
+
 _FAMILIES = {
     "as_closed_form": ("as_episode", _check_as),
+    "cj_closed_form": ("cj_table", _check_cj),
+    "fixed": ("fixed", _check_fixed),
+    "oe_schedule": ("oe_episode", _check_oe),
 }
 
-# Policy kinds whose kernel family the JAX package has and this port does
-# not yet (ROADMAP.md Queue 1 item 10, Queue 2 K3-K8).
+# Policy kinds whose kernel family the JAX package has and this port's
+# front door does not route yet (ROADMAP.md Queue 1 item 10).
 _UNPORTED = {
-    "cj_closed_form": "cj_table",
-    "fixed": "fixed",
-    "oe_schedule": "oe_episode",
     "mlp_deterministic": "mlp_rollout",
 }
 
@@ -113,11 +210,12 @@ def dispatch_report(
     """Decide fused-vs-engine for (config, policy) and say why.
 
     ``mode``: "rollout" (full-trajectory contract) or "stats"
-    (:func:`mc_episode_stats` contract).  ``platform`` is the device type
-    the call targets; ``None`` means the entry points' default, ``"cuda"``.
-    The kernels run on CUDA devices only, so a CPU target takes the
-    engine.  ``policy_params`` is accepted for signature parity; no ported
-    family reads it."""
+    (:func:`mc_episode_stats` contract).  ``platform`` is the device the
+    call targets, or its type (``"cuda:1"``, ``"cuda"``, ``"cpu"``);
+    ``None`` means the entry points' default, ``"cuda"``.  The kernels run
+    on CUDA devices only, so a CPU target takes the engine; the streams
+    memory rule reads the target card's memory.  ``policy_params`` is
+    accepted for signature parity; no ported family reads it."""
     assert mode in ("rollout", "stats"), mode
     meta = policy_meta(policy)
     if meta is None:
@@ -131,21 +229,22 @@ def dispatch_report(
         return DispatchDecision(
             "engine", None,
             f"policy kind {kind!r} maps to the {_UNPORTED[kind]} kernel "
-            "family, which is not ported to CUDA yet",
+            "family, which the port's front door does not route yet "
+            "(agents.ppo.evaluate_policy(backend='fused') runs K3)",
         )
     if kind not in _FAMILIES:
         return DispatchDecision("engine", None, f"policy kind {kind!r} has no fused kernel family")
     family, check = _FAMILIES[kind]
+    target = torch.device(platform if platform is not None else "cuda")
     try:
-        check(cfg, meta, mode)
+        check(cfg, meta, mode, target)
     except _Ineligible as e:
         return DispatchDecision("engine", None, str(e))
-    platform = platform if platform is not None else "cuda"
-    if platform != "cuda":
+    if target.type != "cuda":
         return DispatchDecision(
             "engine", None,
             f"config and policy match the {family} kernel contract, but the "
-            f"kernel requires a CUDA device (running on {platform})",
+            f"kernel requires a CUDA device (running on {target.type})",
         )
     return DispatchDecision("fused", family, f"config and policy match the {family} kernel contract")
 
@@ -155,12 +254,16 @@ def _final_state_from_obs(
     cfg: EnvConfig, obs_final, key, run_steps: int, initial_inventory, start_time: float,
 ) -> EnvState:
     """:class:`EnvState` from the terminal observation (every state plane
-    in slot order — env.raw_observation's column contract).
-    ``clip_events`` is not tracked by the kernels and reads 0."""
+    in slot order — env.raw_observation's column contract), mapped back to
+    raw units when the config normalises observations.  ``clip_events`` is
+    not tracked by the kernels and reads 0."""
     n = cfg.num_trajectories
     dtype = cfg.torch_dtype
     raw = obs_final.to(dtype)
     device = raw.device
+    if cfg.normalise_observation_space:
+        low, high = (torch.as_tensor(b, dtype=dtype, device=device) for b in cfg.observation_bounds())
+        raw = (raw + 1.0) * (high - low) / 2 + low
     col = 3
     proc = []
     for _, pr in cfg.dynamics.processes():
@@ -183,25 +286,53 @@ def _final_state_from_obs(
 def fused_rollout(cfg: EnvConfig, policy, policy_params, key, decision, device=None):
     """Execute a fused-family rollout and assemble the engine-compatible
     :class:`~mbt_gym_torch.rollout.RolloutResult` (Trajectory + final
-    EnvState).  The episode seed is drawn from ``key`` (an int seed or a
+    EnvState).  The episode seed (and, under a random initial inventory,
+    the per-env draws first) comes from ``key`` (an int seed or a
     ``torch.Generator``), which becomes the final state's noise source."""
+    from mbt_gym_torch.ops import det_rollout as det
     from mbt_gym_torch.ops import episode
     from mbt_gym_torch.rollout import RolloutResult
 
-    assert decision.family == "as_episode", decision
     device = resolve_device(device)
     gen = make_generator(key, device)
-    agent = policy_meta(policy)["agent"]
-    p = episode.params_from_config(cfg, risk_aversion=agent.risk_aversion)
-    # emit="full": rewards and closed-form actions come kernel-computed, so
-    # the Trajectory assembly is layout work only.
-    streams = episode.as_episode_trajectories(
-        p, episode.seed_from_key(gen), cfg.num_trajectories, emit="full", device=device
+    meta = policy_meta(policy)
+    n = cfg.num_trajectories
+    if decision.family == "as_episode":
+        p = episode.params_from_config(cfg, risk_aversion=meta["agent"].risk_aversion)
+        # emit="full": rewards and closed-form actions come kernel-computed,
+        # so the Trajectory assembly is layout work only.
+        streams = episode.as_episode_trajectories(
+            p, episode.seed_from_key(gen), n, emit="full", device=device
+        )
+        traj = episode.as_trajectory_from_full(p, streams)
+        final = _final_state_from_obs(
+            cfg, traj.observations[-1], gen, p.run_steps, p.initial_inventory, p.start_time,
+        )
+        return RolloutResult(trajectory=traj, final_state=final)
+
+    if decision.family == "oe_episode":
+        # full trajectories on K5's schedule kind (K6 serves the stats mode)
+        p = det.schedule_rollout_params(cfg)
+        tables = (det.schedule_table_from_policy(cfg, policy),)
+    elif decision.family == "cj_table":
+        p = det.cj_rollout_params(cfg, meta["agent"])
+        tables = det.cj_depth_tables(meta["agent"])
+    else:
+        assert decision.family == "fixed", decision
+        p = det.fixed_rollout_params(cfg, meta["action"])
+        tables = ()
+    if p.inventory_range:
+        lo, hi = p.inventory_range
+        inv0 = torch.randint(lo, hi, (n,), generator=gen, device=device).to(torch.float32)
+        q0 = inv0
+    else:
+        inv0, q0 = None, p.initial_inventory
+    obs_t, act_t, _, _, rew, fin = det.det_rollout(
+        p, tables, episode.seed_from_key(gen), n, inv0=inv0, final_obs=True, device=device,
     )
-    traj = episode.as_trajectory_from_full(p, streams)
-    final = _final_state_from_obs(
-        cfg, traj.observations[-1], gen, p.run_steps, p.initial_inventory, p.start_time,
-    )
+    observations = torch.cat([obs_t.transpose(1, 2), fin.T[None]], dim=0)
+    traj = Trajectory(observations=observations, actions=act_t.transpose(1, 2), rewards=rew)
+    final = _final_state_from_obs(cfg, observations[-1], gen, p.run_steps, q0, p.start_time)
     return RolloutResult(trajectory=traj, final_state=final)
 
 
@@ -209,8 +340,16 @@ def fused_mc_episode_stats(cfg: EnvConfig, policy, policy_params, key, episodes,
                            device=None):
     """Execute a fused-family throughput-mode evaluation, returning the
     :func:`~mbt_gym_torch.rollout.mc_episode_stats` summary dict."""
+    from mbt_gym_torch.ops import det_rollout as det
     from mbt_gym_torch.ops.episode import as_mc_episode_stats
+    from mbt_gym_torch.ops.oe_episode import oe_mc_episode_stats
 
-    assert decision.family == "as_episode", decision
-    return as_mc_episode_stats(cfg, policy_meta(policy)["agent"].risk_aversion, key, episodes,
-                               device=device)
+    meta = policy_meta(policy)
+    if decision.family == "as_episode":
+        return as_mc_episode_stats(cfg, meta["agent"].risk_aversion, key, episodes, device=device)
+    if decision.family == "oe_episode":
+        return oe_mc_episode_stats(cfg, meta["agent"], key, episodes, device=device)
+    if decision.family == "cj_table":
+        return det.cj_mc_episode_stats(cfg, meta["agent"], key, episodes, device=device)
+    assert decision.family == "fixed", decision
+    return det.fixed_mc_episode_stats(cfg, meta["action"], key, episodes, device=device)

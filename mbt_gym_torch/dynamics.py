@@ -13,7 +13,9 @@ order, TradingEnvironment.py:303-318) plus pure functions:
 The bid/ask sign convention is the reference's ``fill_multiplier = [-1, +1]``
 (ModelDynamics.py:71-73): a filled *bid* quote buys (inventory +1,
 cash -(mid - depth)), a filled *ask* quote sells.  The port carries the
-limit-order dynamics only.
+limit-order and trading-speed dynamics; the at-the-touch and
+limit-and-market-order families are not ported yet (ROADMAP.md Queue 1
+item 7).
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ class DynamicsBase:
     fill_probability_model: Optional[ProcessBase] = None
     price_impact_model: Optional[ProcessBase] = None
     # Callable initial-inventory specs are rounded to an int for order-book
-    # dynamics (ModelDynamics.py:106 round_initial_inventory=True).
+    # dynamics (ModelDynamics.py:106 round_initial_inventory=True) but kept
+    # fractional for execution-by-speed (ModelDynamics.py:260 sets False).
     round_initial_inventory = True
 
     def processes(self) -> Tuple[Tuple[str, ProcessBase], ...]:
@@ -115,3 +118,35 @@ class LimitOrderDynamics(DynamicsBase):
 
     def update_agent(self, cash, inventory, midprice, proc_states, action, arrivals, fills, dt):
         return _limit_order_bookkeeping(cash, inventory, midprice, _limit_depths(action), arrivals, fills)
+
+
+@dataclasses.dataclass(frozen=True)
+class TradingWithSpeedDynamics(DynamicsBase):
+    """Optimal execution by trading speed (ModelDynamics.py:243-275; the
+    reference spells it ``TradinghWithSpeedModelDynamics``).  Action = signed
+    speed; executes ``speed*dt`` volume at ``mid + impact(speed)``, against
+    the pre-update midprice and impact state."""
+
+    midprice_model: ProcessBase = None
+    price_impact_model: ProcessBase = None
+    max_speed: Optional[float] = None
+    action_dim = 1
+    round_initial_inventory = False  # ModelDynamics.py:260
+
+    def required_processes(self):
+        return ("price_impact_model",)
+
+    def _max_speed(self) -> float:
+        return self.max_speed if self.max_speed is not None else self.price_impact_model.max_speed
+
+    def action_bounds(self):
+        s = self._max_speed()
+        return ((-s,), (s,))
+
+    def update_agent(self, cash, inventory, midprice, proc_states, action, arrivals, fills, dt):
+        impact = self.price_impact_model.get_impact(proc_states.get("price_impact_model"), action)
+        execution_price = midprice[:, None] + impact  # (N, 1)
+        volume = action[:, 0:1] * dt
+        new_cash = cash - (volume * execution_price).squeeze(1)
+        new_inventory = inventory + volume.squeeze(1)
+        return new_cash, new_inventory

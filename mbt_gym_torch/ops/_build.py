@@ -24,7 +24,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mbt_gym_torch"
@@ -39,7 +41,13 @@ launch_counts: Dict[str, int] = {
     "as_episode_trajectories": 0,
     "mlp_rollout": 0,
     "ppo_fused_grads_T": 0,
+    "det_rollout": 0,
+    "oe_episode": 0,
+    "cj_episode": 0,
 }
+
+# Every kernel source, in the order the kernels were ported.
+SOURCES = ("as_episode.cu", "mlp_rollout.cu", "fused_ppo.cu", "det_rollout.cu", "oe_episode.cu", "cj_episode.cu")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -51,6 +59,13 @@ def count_launch(kernel: str) -> None:
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def device_stream(device: torch.device) -> Tuple[int, int]:
+    """(index, current stream handle) of a CUDA device: what every C entry
+    point takes to launch on PyTorch's current stream."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(index).cuda_stream
 
 
 def nvcc() -> str:

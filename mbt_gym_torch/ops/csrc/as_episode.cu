@@ -28,16 +28,13 @@
 // multiply-add is contracted.  Kernel and plain version therefore agree up
 // to the libm functions, which are the same CUDA ones on the card.
 //
-// Native noise: Philox4x32-10 keyed by (seed, env) with counter
-// (step, draw, 0, 0); draw 0 gives the four arrival/fill uniforms, draw 1
-// the two Box-Muller uniforms.  Uniforms keep the top 24 bits.
-// Noise mode reads (T, 5, N) float32 channels: arrival-bid u, arrival-ask
-// u, fill-bid u, fill-ask u, midprice normal.
+// Draws: native Philox4x32-10 or injected (T, 5, N) channels, in the
+// layout of draws.cuh.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "philox.cuh"
+#include "draws.cuh"
 
 // Mirrors AsKernelParams in mbt_gym_torch/ops/episode.py (ctypes).  Every
 // float is the float32 rounding of the double the host computed, as the
@@ -66,48 +63,8 @@ struct AsKernelParams {
 namespace {
 
 constexpr int kBlock = 128;
-using mbt::kTwoPi;
-using mbt::philox4x32_10;
-using mbt::uniform24;
-
-struct Draws {
-  float u_ab, u_aa, u_fb, u_fa, normal;
-};
-
-__device__ __forceinline__ Draws philox_draws(uint32_t seed, uint32_t env, uint32_t step) {
-  const uint2 key = make_uint2(seed, env);
-  const uint4 a = philox4x32_10(make_uint4(step, 0u, 0u, 0u), key);
-  const uint4 b = philox4x32_10(make_uint4(step, 1u, 0u, 0u), key);
-  Draws d;
-  d.u_ab = uniform24(a.x);
-  d.u_aa = uniform24(a.y);
-  d.u_fb = uniform24(a.z);
-  d.u_fa = uniform24(a.w);
-  const float u1 = 1.0f - uniform24(b.x);  // (0, 1] so logf is finite
-  const float u2 = uniform24(b.y);
-  d.normal = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
-  return d;
-}
-
-__device__ __forceinline__ Draws noise_draws(const float* __restrict__ noise, int n, int env, int step) {
-  const size_t base = static_cast<size_t>(step) * 5 * n + env;
-  Draws d;
-  d.u_ab = noise[base];
-  d.u_aa = noise[base + n];
-  d.u_fb = noise[base + 2 * static_cast<size_t>(n)];
-  d.u_fa = noise[base + 3 * static_cast<size_t>(n)];
-  d.normal = noise[base + 4 * static_cast<size_t>(n)];
-  return d;
-}
-
-template <bool kNoise>
-__device__ __forceinline__ Draws draws_for(const float* noise, int n, uint32_t seed, int env, int step) {
-  if constexpr (kNoise) {
-    return noise_draws(noise, n, env, step);
-  } else {
-    return philox_draws(seed, static_cast<uint32_t>(env), static_cast<uint32_t>(step));
-  }
-}
+using mbt::Draws;
+using mbt::draws_for;
 
 // One AS step on register state (pallas_episode.py:133-173): closed-form
 // quotes, Bernoulli arrivals, exponential fills masked at +/-max_inventory,

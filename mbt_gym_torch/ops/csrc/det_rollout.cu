@@ -1,0 +1,277 @@
+// Deterministic-policy rollout kernel K5 for Hopper (sm_90a).
+//
+// Replaces the TPU kernel _det_rollout_pallas
+// (mbt_gym_tpu/ops/pallas_rollout.py:1876, pallas_call at :2017), which
+// table_rollout_pallas (:1652), fixed_rollout_pallas (:1739) and
+// schedule_rollout_pallas (:1790) reach: one whole episode per env with a
+// deterministic policy (the CJ depth table, a constant action, or one
+// action row per step) fused into the env step and reward.
+//
+// Ported scope: limit-order dynamics (Poisson arrivals, exponential fills)
+// with the PnL, pathwise CJ or running-penalty reward, and trading-speed
+// dynamics with temporary + permanent impact and the PnL or CJ execution
+// reward; BM midprice; inventory exponent 2; fixed start; optional per-env
+// initial inventory (inv0).
+//
+// Design: one thread per env, the step loop inside the thread, the state
+// (cash, inventory, price, impact, the reward and spread sums) in
+// registers.  Streams are (T, S, N) / (T, A, N) / (T, N) with envs minor,
+// so a warp's store of one plane of one step is one coalesced 128-byte
+// line.  The depth tables ((T+1) x (2Q+1) floats per side, 0.8 MB each at
+// the CJP shape, too large for a block's shared memory) are read through
+// the read-only path (__ldg): at each step every thread of the card reads
+// the same 2 x (2Q+1) row, so the row sits in L1/L2 and only a clipped
+// inventory index varies per thread.  The TPU kernel's one-hot MXU
+// contraction selects the same single entry, so the gather is exact.
+// The schedule and fixed actions are uniform loads.
+//
+// Bounds on the H100: stats mode writes 20 bytes per env and reads nothing
+// per step in native mode, so it is bound by operations (two Philox calls
+// and the libm calls per env-step, one Philox call on speed dynamics).
+// Streams mode writes (S + A + 1) floats per env-step (obs, actions,
+// reward; the zero log-prob and value planes are written by the wrapper),
+// and is bound by bytes once enough envs are in flight.
+//
+// Numerics: every float op follows the plain PyTorch version's order
+// (mbt_gym_torch/ops/det_rollout.py), --fmad=false keeps every multiply
+// and add separately rounded, and normalisation divides.  Draws: native
+// Philox4x32-10 or injected (T, 5, N) channels, in the layout of
+// draws.cuh.
+//
+// TPU-only parts not ported: the sublane `rows` packing, the VMEM tile
+// search, pltpu.prng_seed and the 1e-42 carry jitter.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "draws.cuh"
+
+constexpr int kMaxS = 5;
+
+// Mirrors DetKernelParams in mbt_gym_torch/ops/det_rollout.py (ctypes).
+struct DetKernelParams {
+  int run_steps;
+  int t_off;          // round(start_time / dt): first table/schedule row
+  int dynamics;       // 0 limit, 1 speed
+  int policy;         // 0 table, 1 fixed, 2 schedule
+  int reward;         // 0 pnl, 1 cjmm, 2 running, 3 cjoe
+  int normalise_obs;
+  int normalise_act;
+  int s_dim;
+  int a_dim;
+  int q_max;
+  int table_width;    // row stride of the depth tables
+  float start_time;
+  float dt;
+  float t_term;       // start_time + run_steps * dt (the terminal obs time)
+  float obs_low[kMaxS];
+  float obs_grad[kMaxS];
+  float act_low[2];
+  float act_grad[2];
+  float fixed_action[2];
+  float p_arr_bid;
+  float p_arr_ask;
+  float neg_k;
+  float max_inventory;
+  float max_cash;
+  float drift_dt;
+  float vol_sqrt_dt;
+  float initial_cash;
+  float initial_inventory;
+  float initial_price;
+  float temporary_impact;
+  float permanent_impact;
+  float dt_phi;       // dt * phi
+  float alpha;
+  float dt_alpha;     // dt * alpha
+  float cjmm_const;   // alpha * dt / episode_length
+  float ep_len;       // terminal_time - start_time
+};
+
+// Mirrors _DetBuffers: NULL where a mode does not use a buffer.
+struct DetBuffers {
+  const float* noise;     // (T, 5, N) or NULL (native Philox)
+  const float* inv0;      // (N,) or NULL (initial_inventory for all)
+  const float* bid;       // table policy: (rows, table_width)
+  const float* ask;
+  const float* schedule;  // schedule policy: (rows, a_dim)
+  float* obs;             // streams: (T, S, N)
+  float* act;             // streams: (T, A, N)
+  float* rew;             // streams: (T, N)
+  float* fin;             // streams, optional: (S, N)
+  float* cash;            // stats: (N,) each
+  float* inv;
+  float* price;
+  float* rsum;
+  float* ssum;
+};
+
+namespace {
+
+constexpr int kBlock = 128;
+enum Dynamics { kLimit = 0, kSpeed = 1 };
+enum Policy { kTable = 0, kFixed = 1, kSchedule = 2 };
+enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2, kCjOe = 3 };
+
+// The observation planes of a state, normalised per the config.
+__device__ __forceinline__ void write_obs(const DetKernelParams& p, float* out, size_t stride,
+                                          float cash, float inv, float t, float price, float imp) {
+  const float planes[kMaxS] = {cash, inv, t, price, imp};
+#pragma unroll
+  for (int c = 0; c < kMaxS; ++c) {
+    if (c < p.s_dim) {
+      float x = planes[c];
+      if (p.normalise_obs) x = (x - p.obs_low[c]) / p.obs_grad[c] - 1.0f;
+      out[c * stride] = x;
+    }
+  }
+}
+
+template <bool kNoise, int kDyn, int kPol, bool kStats>
+__global__ void __launch_bounds__(kBlock)
+det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t seed) {
+  const int env = blockIdx.x * blockDim.x + threadIdx.x;
+  if (env >= n) return;
+  const size_t sn = static_cast<size_t>(n);
+  float cash = p.initial_cash;
+  float inv = b.inv0 ? b.inv0[env] : p.initial_inventory;
+  const float q0_sq = inv * inv;
+  float price = p.initial_price;
+  float imp = 0.0f;
+  float rsum = 0.0f, ssum = 0.0f;
+  for (int i = 0; i < p.run_steps; ++i) {
+    const float t = p.start_time + static_cast<float>(i) * p.dt;
+    const int row = p.t_off + i;
+    // ---- policy: the raw action columns (what the stream records)
+    float raw0, raw1 = 0.0f;
+    if constexpr (kPol == kTable) {
+      const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
+      const size_t at = static_cast<size_t>(row) * p.table_width + static_cast<int>(qf);
+      raw0 = __ldg(b.bid + at);
+      raw1 = __ldg(b.ask + at);
+    } else if constexpr (kPol == kSchedule) {
+      raw0 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim);
+      if constexpr (kDyn == kLimit) raw1 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim + 1);
+    } else {
+      raw0 = p.fixed_action[0];
+      raw1 = p.fixed_action[1];
+    }
+    float exe0 = raw0, exe1 = raw1;
+    if (p.normalise_act) {
+      exe0 = (raw0 + 1.0f) * p.act_grad[0] + p.act_low[0];
+      exe1 = (raw1 + 1.0f) * p.act_grad[1] + p.act_low[1];
+    }
+    if constexpr (!kStats) {
+      const size_t o = static_cast<size_t>(i) * p.s_dim * sn + env;
+      write_obs(p, b.obs + o, sn, cash, inv, t, price, imp);
+      const size_t a = static_cast<size_t>(i) * p.a_dim * sn + env;
+      b.act[a] = raw0;
+      if constexpr (kDyn == kLimit) b.act[a + sn] = raw1;
+    }
+    // ---- env step (TradingEnvironment.py:198-216 order)
+    float new_cash, new_inv, normal;
+    if constexpr (kDyn == kLimit) {
+      const mbt::Draws d = mbt::draws_for<kNoise>(b.noise, n, seed, env, i);
+      const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
+      const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
+      const float fill_bid = (d.u_fb < expf(p.neg_k * exe0) ? 1.0f : 0.0f) * (inv < p.max_inventory ? 1.0f : 0.0f);
+      const float fill_ask = (d.u_fa < expf(p.neg_k * exe1) ? 1.0f : 0.0f) * (inv > -p.max_inventory ? 1.0f : 0.0f);
+      const float hit_bid = arr_bid * fill_bid;
+      const float hit_ask = arr_ask * fill_ask;
+      new_inv = inv + hit_bid - hit_ask;
+      new_cash = cash - hit_bid * (price - exe0) + hit_ask * (price + exe1);
+      normal = d.normal;
+    } else {
+      // impact at the pre-update state, then the permanent-impact recursion
+      const float impact = p.temporary_impact * exe0 + imp;
+      const float new_imp = imp + p.permanent_impact * exe0 * p.dt;
+      const float volume = exe0 * p.dt;
+      new_inv = inv + volume;
+      new_cash = cash - volume * (price + impact);
+      imp = new_imp;
+      normal = mbt::normal_for<kNoise>(b.noise, n, seed, env, i);
+    }
+    new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
+    new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
+    const float new_price = price + p.drift_dt + p.vol_sqrt_dt * normal;
+    // ---- reward at the post-step state (RewardFunctions.py)
+    float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
+    const float q2 = new_inv * new_inv;
+    if (p.reward == kCjMm) {
+      reward = reward - p.dt_phi * q2 - p.alpha * (q2 - inv * inv) - p.cjmm_const * q0_sq;
+    } else if (p.reward == kRunning) {
+      const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
+      reward = reward - p.dt_phi * q2 - (p.alpha * terminal) * q2;
+    } else if (p.reward == kCjOe) {
+      reward = reward - p.dt_phi * q2 - p.dt_alpha * (2.0f * exe0 * inv + q0_sq * p.ep_len);
+    }
+    if constexpr (kStats) {
+      rsum = rsum + reward;
+      if constexpr (kDyn == kLimit) ssum = ssum + (raw0 + raw1);
+    } else {
+      b.rew[static_cast<size_t>(i) * sn + env] = reward;
+    }
+    cash = new_cash;
+    inv = new_inv;
+    price = new_price;
+  }
+  if constexpr (kStats) {
+    b.cash[env] = cash;
+    b.inv[env] = inv;
+    b.price[env] = price;
+    b.rsum[env] = rsum;
+    b.ssum[env] = ssum;
+  } else {
+    if (b.fin) write_obs(p, b.fin + env, sn, cash, inv, p.t_term, price, imp);
+  }
+}
+
+template <bool kNoise, int kDyn, int kPol>
+void launch_mode(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
+                 cudaStream_t s) {
+  const dim3 grid((n + kBlock - 1) / kBlock);
+  if (stats) {
+    det_rollout_kernel<kNoise, kDyn, kPol, true><<<grid, kBlock, 0, s>>>(p, b, n, seed);
+  } else {
+    det_rollout_kernel<kNoise, kDyn, kPol, false><<<grid, kBlock, 0, s>>>(p, b, n, seed);
+  }
+}
+
+template <bool kNoise>
+cudaError_t launch(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
+                   cudaStream_t s) {
+  if (p.dynamics == kLimit) {
+    switch (p.policy) {
+      case kTable: launch_mode<kNoise, kLimit, kTable>(p, b, n, seed, stats, s); break;
+      case kFixed: launch_mode<kNoise, kLimit, kFixed>(p, b, n, seed, stats, s); break;
+      case kSchedule: launch_mode<kNoise, kLimit, kSchedule>(p, b, n, seed, stats, s); break;
+      default: return cudaErrorInvalidValue;
+    }
+  } else if (p.dynamics == kSpeed) {
+    switch (p.policy) {
+      case kFixed: launch_mode<kNoise, kSpeed, kFixed>(p, b, n, seed, stats, s); break;
+      case kSchedule: launch_mode<kNoise, kSpeed, kSchedule>(p, b, n, seed, stats, s); break;
+      default: return cudaErrorInvalidValue;  // the depth table quotes limit depths
+    }
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// C entry point, loaded with ctypes.  Launches on the caller's stream,
+// allocates nothing and returns a CUDA error code (0 on success).
+extern "C" int mbt_det_rollout(const DetKernelParams* p, const DetBuffers* b, int device, int n,
+                               uint32_t seed, int stats_only, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return 0;
+  if (p->s_dim > kMaxS || p->a_dim < 1 || p->a_dim > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = b->noise ? launch<true>(*p, *b, n, seed, stats_only != 0, s)
+                 : launch<false>(*p, *b, n, seed, stats_only != 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}

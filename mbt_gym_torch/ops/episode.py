@@ -227,20 +227,33 @@ def _uniform24(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def _philox_draw(seed: int, run_steps: int, num_trajectories: int, draw: int, device):
+    """Philox4x32-10 keyed by ``(seed, env)`` at counter ``(step, draw)``
+    for every (step, env): four ``(run_steps, N)`` int64 words."""
+    steps = torch.arange(run_steps, dtype=torch.int64, device=device)[:, None]
+    envs = torch.arange(num_trajectories, dtype=torch.int64, device=device)[None, :]
+    zero = torch.zeros_like(steps)
+    return philox4x32_10((steps, zero + draw, zero, zero), (int(seed) & _MASK32, envs))
+
+
+def philox_normal(seed: int, run_steps: int, num_trajectories: int, device=None) -> torch.Tensor:
+    """The kernels' native midprice normal as ``(run_steps, N)`` float32:
+    Box-Muller on the first two words of counter ``(step, 1)`` — channel 4
+    of :func:`philox_noise`, which the speed-dynamics kernels draw alone."""
+    device = resolve_device(device)
+    b = _philox_draw(seed, run_steps, num_trajectories, 1, device)
+    u1 = 1.0 - _uniform24(b[0])  # (0, 1] so log is finite
+    u2 = _uniform24(b[1])
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+
+
 def philox_noise(seed: int, run_steps: int, num_trajectories: int, device=None) -> torch.Tensor:
     """The kernels' native noise as ``(run_steps, 5, N)`` float32 channels:
     Philox4x32-10 keyed by ``(seed, env)``, counter ``(step, 0)`` for the
     four arrival/fill uniforms and ``(step, 1)`` for the Box-Muller pair."""
     device = resolve_device(device)
-    steps = torch.arange(run_steps, dtype=torch.int64, device=device)[:, None]
-    envs = torch.arange(num_trajectories, dtype=torch.int64, device=device)[None, :]
-    zero = torch.zeros_like(steps)
-    key = (int(seed) & _MASK32, envs)
-    a = philox4x32_10((steps, zero, zero, zero), key)
-    b = philox4x32_10((steps, zero + 1, zero, zero), key)
-    u1 = 1.0 - _uniform24(b[0])  # (0, 1] so log is finite
-    u2 = _uniform24(b[1])
-    normal = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    a = _philox_draw(seed, run_steps, num_trajectories, 0, device)
+    normal = philox_normal(seed, run_steps, num_trajectories, device)
     return torch.stack([_uniform24(a[0]), _uniform24(a[1]), _uniform24(a[2]), _uniform24(a[3]), normal], dim=1)
 
 
@@ -368,8 +381,7 @@ def _launch_args(p: AsEpisodeParams, n: int, noise, device: torch.device):
         _check_noise(p, n, noise)
         if not noise.is_contiguous():
             raise ValueError("noise must be contiguous")
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
+    index, stream = _build.device_stream(device)
     return ctypes.byref(kernel_params(p)), index, (None if noise is None else noise.data_ptr()), stream
 
 

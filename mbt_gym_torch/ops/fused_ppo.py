@@ -223,8 +223,7 @@ def ppo_fused_grads_T(params, obs_t: torch.Tensor, actions_t: torch.Tensor, old_
     part2 = torch.empty((_PASS2_PARTS, h1, h0), dtype=f32, device=device)
     small = torch.empty(n_small, dtype=f32, device=device)
     dw1 = torch.empty((h1, h0), dtype=f32, device=device)
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
+    index, stream = _build.device_stream(device)
     rc = _kernels().mbt_ppo_fused_grads_T(
         ctypes.byref(kp), index, ctypes.byref(inputs), int(bf16),
         wf0.data_ptr(), wf1.data_ptr(), wb1.data_ptr(), bias.data_ptr(), w_head.data_ptr(),

@@ -42,7 +42,7 @@ import torch
 
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
-from mbt_gym_torch.ops.episode import _MASK32, _uniform24, philox4x32_10
+from mbt_gym_torch.ops.episode import _MASK32, _target, _uniform24, philox4x32_10
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -428,12 +428,7 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
     ``noise`` (optional) injects ``(T, 7, N)`` channels; otherwise native
     Philox noise keyed by ``seed``.  On a CPU target this is
     :func:`mlp_rollout_plain`; on CUDA it launches the kernel."""
-    if noise is not None:
-        if device is not None and torch.device(device).type != noise.device.type:
-            raise ValueError(f"noise lives on {noise.device}, the call targets {device}")
-        device = noise.device
-    else:
-        device = resolve_device(device)
+    device = _target(noise, device)
     if device.type == "cpu":
         return mlp_rollout_plain(p, params, seed, num_trajectories, noise, device)
     if device.type != "cuda":
@@ -461,8 +456,7 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
     obs = torch.empty((T, S, n), dtype=f32, device=device)
     act = torch.empty((T, A, n), dtype=f32, device=device)
     logp, val, rew = (torch.empty((T, n), dtype=f32, device=device) for _ in range(3))
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
+    index, stream = _build.device_stream(device)
     rc = _kernels().mbt_mlp_rollout(
         ctypes.byref(kp), index, n, int(seed) & _MASK32,
         None if noise is None else noise.data_ptr(), int(bf16), w_t.data_ptr(), bias.data_ptr(),

@@ -5,7 +5,8 @@ Pure functions of (current, action, next, is_terminal, aux) where
 ``current``/``next`` are :class:`AgentStateView` snapshots and ``aux``
 carries the reset-time quantities (initial inventory and episode length,
 RewardFunctions.py:72-74,111-113).  All return ``(N,)`` rewards.  The port
-carries the PnL reward only.
+carries PnL and the three Cartea-Jaimungal inventory criteria; the
+exponential-utility reward is not ported yet (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -39,3 +40,83 @@ class PnL:
 
     def calculate(self, current, action, next, is_terminal, aux):
         return mark_to_market(next) - mark_to_market(current)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunningInventoryPenalty:
+    """PnL - dt*phi*q'^exp - alpha*1[terminal]*q'^exp
+    (RewardFunctions.py:116-141).  Alias: ``CjCriterion``."""
+
+    per_step_inventory_aversion: float = 0.01
+    terminal_inventory_aversion: float = 0.0
+    inventory_exponent: float = 2.0
+
+    def calculate(self, current, action, next, is_terminal, aux):
+        dt = next.time - current.time
+        q_pow = next.inventory**self.inventory_exponent
+        pnl = mark_to_market(next) - mark_to_market(current)
+        terminal = torch.as_tensor(is_terminal, dtype=pnl.dtype, device=pnl.device)
+        return (
+            pnl
+            - dt * self.per_step_inventory_aversion * q_pow
+            - self.terminal_inventory_aversion * terminal * q_pow
+        )
+
+
+CjCriterion = RunningInventoryPenalty
+
+
+@dataclasses.dataclass(frozen=True)
+class CjMmCriterion:
+    """Cartea-Jaimungal market-making criterion with the terminal inventory
+    penalty decomposed pathwise via Ito's lemma for Poisson processes
+    (RewardFunctions.py:77-113).  Telescopes to the same episode total as
+    :class:`RunningInventoryPenalty`."""
+
+    per_step_inventory_aversion: float = 0.01
+    terminal_inventory_aversion: float = 0.0
+    inventory_exponent: float = 2.0
+    terminal_time: float = 1.0
+
+    def calculate(self, current, action, next, is_terminal, aux):
+        dt = next.time - current.time
+        exp = self.inventory_exponent
+        pnl = mark_to_market(next) - mark_to_market(current)
+        return (
+            pnl
+            - dt * self.per_step_inventory_aversion * next.inventory**exp
+            - self.terminal_inventory_aversion
+            * (
+                next.inventory**exp
+                - current.inventory**exp
+                + dt / aux.episode_length * aux.initial_inventory**exp
+            )
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CjOeCriterion:
+    """Cartea-Jaimungal optimal-execution criterion with the terminal
+    aversion spread over steps using the action and the initial inventory
+    (RewardFunctions.py:39-74)."""
+
+    per_step_inventory_aversion: float = 0.01
+    terminal_inventory_aversion: float = 0.0
+    inventory_exponent: float = 2.0
+    terminal_time: float = 1.0
+
+    def calculate(self, current, action, next, is_terminal, aux):
+        dt = next.time - current.time
+        exp = self.inventory_exponent
+        pnl = mark_to_market(next) - mark_to_market(current)
+        speed = action.squeeze(-1) if action.ndim > 1 else action
+        return (
+            pnl
+            - dt * self.per_step_inventory_aversion * next.inventory**exp
+            - dt
+            * self.terminal_inventory_aversion
+            * (
+                exp * speed * current.inventory ** (exp - 1)
+                + aux.initial_inventory**exp * aux.episode_length
+            )
+        )

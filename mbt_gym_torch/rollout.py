@@ -105,7 +105,8 @@ def rollout(
     (``None`` means ``"cuda"``).
 
     ``backend``: "auto" (default) routes eligible (config, policy) pairs to
-    the CUDA episode kernels (the AS family, K2); "engine" forces the
+    the CUDA episode kernels (the AS family to K2; the CJ, fixed-action and
+    CJ-OE policies to K5); "engine" forces the
     general eager engine; "fused" asserts eligibility (raises with the
     disqualifying feature otherwise).  Inspect decisions with
     :func:`mbt_gym_torch.dispatch.dispatch_report`.  Fused results are
@@ -130,7 +131,7 @@ def rollout(
             )
         else:
             decision = _dispatch.dispatch_report(
-                cfg, policy, mode="rollout", platform=device.type, policy_params=policy_params
+                cfg, policy, mode="rollout", platform=device, policy_params=policy_params
             )
         if decision.backend == "fused":
             return _dispatch.fused_rollout(cfg, policy, policy_params, key, decision, device=device)
@@ -223,13 +224,15 @@ def mc_episode_stats(
     :func:`rollout` when per-step data is needed.
 
     ``backend``: same semantics as :func:`rollout`'s; "auto" routes the AS
-    family to K1 (:func:`mbt_gym_torch.ops.episode.as_mc_episode_stats`).
+    family to K1, the CJ and fixed-action policies to K5's stats mode and
+    the CJ-OE schedule to K6 (:mod:`mbt_gym_torch.dispatch`).  A 1-column
+    (speed) action has no quotes: ``mean_spread`` is NaN.
     ``key`` is an int seed or a ``torch.Generator`` on ``device``."""
     _check_backend(backend)
     device = env_lib.resolve_device(device)
     if backend != "engine":
         decision = _dispatch.dispatch_report(
-            cfg, policy, mode="stats", platform=device.type, policy_params=policy_params
+            cfg, policy, mode="stats", platform=device, policy_params=policy_params
         )
         if decision.backend == "fused":
             return _dispatch.fused_mc_episode_stats(

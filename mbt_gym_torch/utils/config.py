@@ -1,14 +1,16 @@
 """Canonical environment factories (counterpart of
-``mbt_gym_tpu/utils/config.py``).  The port carries the AS replication
-config only."""
+``mbt_gym_tpu/utils/config.py``).  The port carries the AS and CJP
+replication configs and the optimal-execution config; the learning, touch,
+lam and composite factories are not ported yet (ROADMAP.md Queue 1 item 8)."""
 from __future__ import annotations
 
-from mbt_gym_torch.dynamics import LimitOrderDynamics
+from mbt_gym_torch.dynamics import LimitOrderDynamics, TradingWithSpeedDynamics
 from mbt_gym_torch.env import EnvConfig
 from mbt_gym_torch.processes.arrivals import PoissonArrivals
 from mbt_gym_torch.processes.fills import ExponentialFill
+from mbt_gym_torch.processes.impact import TemporaryAndPermanentImpact
 from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
-from mbt_gym_torch.rewards import PnL
+from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, PnL
 
 
 def as_env_config(
@@ -38,6 +40,93 @@ def as_env_config(
         n_steps=n_steps,
         initial_inventory=initial_inventory,
         max_inventory=n_steps,
+        num_trajectories=num_trajectories,
+        normalise_action_space=False,
+        normalise_observation_space=False,
+        dtype=dtype,
+    )
+
+
+def cj_env_config(
+    num_trajectories: int = 1000,
+    initial_price: float = 100.0,
+    terminal_time: float = 1.0,
+    sigma: float = 2.0,
+    n_steps: int = 1000,
+    initial_inventory: int = 0,
+    arrival_rate: float = 140.0,
+    fill_exponent: float = 1.5,
+    per_step_inventory_aversion: float = 0.01,
+    terminal_inventory_aversion: float = 0.001,
+    max_inventory: float = 100.0,
+    dtype: str = "float32",
+) -> EnvConfig:
+    """The CJP-2015 value-function replication env
+    (notebooks/Test_2_-_replicate_CJP_2015_... cell 3)."""
+    dynamics = LimitOrderDynamics(
+        midprice_model=BrownianMotionMidprice(
+            initial_price=initial_price, volatility=sigma, terminal_time=terminal_time
+        ),
+        arrival_model=PoissonArrivals(intensity=(arrival_rate, arrival_rate)),
+        fill_probability_model=ExponentialFill(fill_exponent=fill_exponent),
+    )
+    return EnvConfig(
+        dynamics=dynamics,
+        reward_function=CjMmCriterion(
+            per_step_inventory_aversion=per_step_inventory_aversion,
+            terminal_inventory_aversion=terminal_inventory_aversion,
+            terminal_time=terminal_time,
+        ),
+        terminal_time=terminal_time,
+        n_steps=n_steps,
+        initial_inventory=initial_inventory,
+        max_inventory=max_inventory,
+        num_trajectories=num_trajectories,
+        normalise_action_space=False,
+        normalise_observation_space=False,
+        dtype=dtype,
+    )
+
+
+def oe_env_config(
+    num_trajectories: int = 8192,
+    initial_price: float = 100.0,
+    terminal_time: float = 1.0,
+    sigma: float = 2.0,
+    n_steps: int = 200,
+    initial_inventory: int = 10,
+    temporary_impact: float = 0.01,
+    permanent_impact: float = 0.01,
+    per_step_inventory_aversion: float = 2e-4,
+    terminal_inventory_aversion: float = 0.01,
+    dtype: str = "float32",
+) -> EnvConfig:
+    """Optimal-execution env: trading-speed dynamics with temporary and
+    permanent impact and the CJ OE criterion (BASELINE.json config #3).
+
+    ``terminal_inventory_aversion`` must exceed
+    ``0.5*permanent_impact + sqrt(temporary_impact*phi)`` for the CJP
+    closed-form schedule to liquidate (zeta > 1 regime, CJP-2015 p.147)."""
+    dynamics = TradingWithSpeedDynamics(
+        midprice_model=BrownianMotionMidprice(
+            initial_price=initial_price, volatility=sigma, terminal_time=terminal_time
+        ),
+        price_impact_model=TemporaryAndPermanentImpact(
+            temporary_impact_coefficient=temporary_impact,
+            permanent_impact_coefficient=permanent_impact,
+            terminal_time=terminal_time,
+        ),
+    )
+    return EnvConfig(
+        dynamics=dynamics,
+        reward_function=CjOeCriterion(
+            per_step_inventory_aversion=per_step_inventory_aversion,
+            terminal_inventory_aversion=terminal_inventory_aversion,
+            terminal_time=terminal_time,
+        ),
+        terminal_time=terminal_time,
+        n_steps=n_steps,
+        initial_inventory=initial_inventory,
         num_trajectories=num_trajectories,
         normalise_action_space=False,
         normalise_observation_space=False,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: the episode kernels K1 and K2, the MLP rollout K3 and the fused PPO
-update K4.  They have no CPU mode, so every test here skips on a host
+card: the episode kernels K1 and K2, the MLP rollout K3, the fused PPO
+update K4, the deterministic-policy rollout K5, the OE episode K6 and the
+CJ episode K8.  They have no CPU mode, so every test here skips on a host
 without a GPU.  This file imports neither JAX nor the JAX package, so it
 runs on the GPU machine too, without the suite's conftest:
 
@@ -144,3 +145,144 @@ def test_fused_ppo_kernel_matches_plain_on_the_card(cuda_device, compute_dtype):
             assert _rel_frobenius(got, want) <= 1e-3, (name, _rel_frobenius(got, want))
     for name, want in want_m.items():
         torch.testing.assert_close(metrics[name], want, rtol=1e-4, atol=1e-7)
+
+
+def _assert_terminal_close(got, want, n):
+    """K1's limits for a terminal state (cash, inventory, price, ...):
+    inventory may flip on at most 1e-4 of envs (a fill decided at an exp()
+    ULP boundary); the other outputs to rtol=1e-6/atol=1e-3 elsewhere."""
+    same = got[1] == want[1]
+    assert int((~same).sum()) <= n // 10_000
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a[same], b[same], rtol=1e-6, atol=1e-3)
+
+
+def _assert_streams_close(got, want, n):
+    """K5 streams (obs (T,S,N), actions, log-probs, values, rewards[, final
+    obs]) on the envs whose inventory plane agrees at every step."""
+    same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
+    assert int((~same).sum()) <= n // 10_000
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-6, atol=1e-3)
+
+
+def _det_cases():
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent, CarteaJaimungalOeAgent
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.utils.config import cj_env_config, oe_env_config
+
+    cj = cj_env_config(num_trajectories=4096, n_steps=300, max_inventory=5.0)
+    agent = CarteaJaimungalMmAgent.from_config(cj)
+    oe = oe_env_config(num_trajectories=4096)
+    oe_agent = CarteaJaimungalOeAgent.from_config(oe, alpha=0.01)
+    late = dataclasses.replace(as_env_config(num_trajectories=4096), initial_inventory=(-3, 4), start_time=0.1)
+    return {
+        "cj-table": (det.cj_rollout_params(cj, agent), det.cj_depth_tables(agent)),
+        "as-fixed-random-inventory": (det.fixed_rollout_params(late, [0.7, 0.9]), ()),
+        "oe-fixed": (det.fixed_rollout_params(oe, [-2.5]), ()),
+        "oe-schedule": (det.schedule_rollout_params(oe), (det.schedule_table_from_policy(oe, oe_agent.policy()),)),
+    }
+
+
+@pytest.mark.parametrize("case", ["cj-table", "as-fixed-random-inventory", "oe-fixed", "oe-schedule"])
+def test_det_rollout_kernel_matches_plain_on_the_card(cuda_device, case):
+    """K5 in both output modes, noise and native, against its plain version
+    at K1's limits."""
+    from mbt_gym_torch.ops import det_rollout as det
+
+    p, tables = _det_cases()[case]
+    n = 4096
+    inv0 = None
+    if p.inventory_range:
+        inv0 = torch.from_numpy(np.random.default_rng(3).integers(*p.inventory_range, n).astype(np.float32)).to(cuda_device)
+    before = _build.launch_counts["det_rollout"]
+    for kw in ({"noise": _channels(4, p.run_steps, n, cuda_device)}, {"seed": 6, "device": cuda_device}):
+        for stats in (True, False):
+            extra = {"stats_only": stats, "final_obs": not stats, "inv0": inv0}
+            got = det.det_rollout(p, tables, num_trajectories=n, **kw, **extra)
+            want = det.det_rollout_plain(p, tables, num_trajectories=n, **kw, **extra)
+            torch.cuda.synchronize()
+            if stats:
+                _assert_terminal_close(got, want, n)
+            else:
+                _assert_streams_close(got, want, n)
+    assert _build.launch_counts["det_rollout"] == before + 4
+
+
+def test_oe_episode_kernel_matches_plain_on_the_card(cuda_device):
+    """K6 against its plain version (no fills, so inventory agrees
+    exactly), and its native normals are K5's on speed dynamics: the
+    schedule kind's terminal state on the same seed agrees."""
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalOeAgent
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import oe_episode as oe
+    from mbt_gym_torch.utils.config import oe_env_config
+
+    n = 8192
+    cfg = oe_env_config(num_trajectories=n)
+    agent = CarteaJaimungalOeAgent.from_config(cfg, alpha=0.01)
+    p = oe.oe_params_from_config(cfg)
+    table = oe.oe_speed_table(cfg, agent)
+    before = _build.launch_counts["oe_episode"]
+    normals = torch.from_numpy(np.random.default_rng(5).normal(size=(p.run_steps, n)).astype(np.float32)).to(cuda_device)
+    for kw in ({"noise": normals}, {"seed": 8, "device": cuda_device}):
+        got = oe.oe_episode(p, table, num_trajectories=n, **kw)
+        want = oe.oe_episode_plain(p, table, num_trajectories=n, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+        _assert_terminal_close(got, want, n)
+    assert _build.launch_counts["oe_episode"] == before + 2
+    k5 = det.schedule_rollout(det.schedule_rollout_params(cfg), table[:, None], 8, n, stats_only=True, device=cuda_device)
+    # same speeds and normals; K5 adds the impact before the price, K6 after
+    torch.testing.assert_close(k5[1], got[1], rtol=0, atol=0)
+    torch.testing.assert_close(k5[2], got[2], rtol=0, atol=0)
+    torch.testing.assert_close(k5[0], got[0], rtol=1e-6, atol=1e-3)
+
+
+def test_cj_episode_kernel_matches_plain_and_k5_on_the_card(cuda_device):
+    """K8 against its plain version, and its terminal state against K5's
+    table stats mode on the same noise and config."""
+    import dataclasses as dc
+
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent
+    from mbt_gym_torch.ops import cj_episode as cj
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.utils.config import cj_env_config
+
+    n = 4096
+    cfg = dc.replace(cj_env_config(num_trajectories=n, n_steps=300), max_inventory=5.0)
+    agent = CarteaJaimungalMmAgent.from_config(cfg, max_inventory=10)
+    p = cj.cj_params_from_config(cfg)
+    table = np.asarray(agent.depth_table()[:-1], np.float32)
+    before = _build.launch_counts["cj_episode"]
+    noise = _channels(9, p.n_steps, n, cuda_device)
+    for kw in ({"noise": noise}, {"seed": 12, "device": cuda_device}):
+        got = cj.cj_episode(p, table, q_cap=10, num_trajectories=n, **kw)
+        want = cj.cj_episode_plain(p, table, q_cap=10, num_trajectories=n, **kw)
+        torch.cuda.synchronize()
+        _assert_terminal_close(got, want, n)
+        k5 = det.table_rollout(det.cj_rollout_params(cfg, agent), *det.cj_depth_tables(agent),
+                               num_trajectories=n, stats_only=True, **kw)
+        for a, b in zip(got[:3], k5[:3]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert _build.launch_counts["cj_episode"] == before + 2
+
+
+def test_streams_memory_rule_counts_the_allocator_cache_as_free(cuda_device):
+    """A tensor the process allocated and freed stays reserved by PyTorch's
+    caching allocator, and cudaMemGetInfo counts it as taken; the streams
+    rule counts it as free, so a warm cache does not flip a decision.  The
+    card's free figure may move by 1% (other contexts on the card)."""
+    from mbt_gym_torch.ops import det_rollout as det
+
+    torch.cuda.empty_cache()
+    cold = det.device_free_bytes(cuda_device)
+    block = torch.empty(cold // 2, dtype=torch.uint8, device=cuda_device)
+    del block
+    try:
+        reported_free = torch.cuda.mem_get_info(cuda_device)[0]
+        assert reported_free < cold - cold // 3  # the cached block reads as taken
+        warm = det.device_free_bytes(cuda_device)
+        assert abs(warm - cold) <= cold // 100, (cold, warm)
+    finally:
+        torch.cuda.empty_cache()

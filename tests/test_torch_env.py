@@ -126,8 +126,8 @@ def test_spec_roundtrip_rebuilds_the_same_config():
 def test_unported_component_raises():
     spec = jax_spec(jax_as_env_config(num_trajectories=128))
     del spec["type"]
-    spec["reward_function"] = {"type": "RunningInventoryPenalty"}
-    with pytest.raises(ValueError, match="RunningInventoryPenalty is not ported"):
+    spec["reward_function"] = {"type": "ExponentialUtility"}
+    with pytest.raises(ValueError, match="ExponentialUtility is not ported"):
         convert.env_config_from_spec(spec)
 
 
@@ -316,7 +316,7 @@ def test_default_device_is_cuda():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of mbt_gym_torch in a fresh interpreter leaves
     jax and mbt_gym_tpu out of sys.modules, and no file of the port (the
-    PPO learner and the K3/K4 modules included) nor chip_smoke.py has an
+    PPO learner and the K3-K8 modules included) nor chip_smoke.py has an
     import statement naming them."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -339,7 +339,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     files = sorted((ROOT / "mbt_gym_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     names = {str(f.relative_to(ROOT)) for f in files}
-    for module in ("agents/networks.py", "agents/ppo.py", "ops/mlp_rollout.py", "ops/fused_ppo.py"):
+    for module in ("agents/networks.py", "agents/ppo.py", "ops/mlp_rollout.py", "ops/fused_ppo.py",
+                   "ops/det_rollout.py", "ops/oe_episode.py", "ops/cj_episode.py"):
         assert f"mbt_gym_torch/{module}" in names, module
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders

@@ -145,7 +145,7 @@ def test_dispatch_platform_and_policy_kinds():
     assert cpu.backend == "engine"
     assert cpu.reason.endswith("requires a CUDA device (running on cpu)")
     fixed = dispatch.dispatch_report(cfg, fixed_action_policy([0.7, 0.7]), platform="cuda")
-    assert fixed.backend == "engine" and "fixed kernel family" in fixed.reason
+    assert (fixed.backend, fixed.family) == ("fused", "fixed")
     untagged = dispatch.dispatch_report(cfg, lambda params, obs, state: obs[:, :2], platform="cuda")
     assert untagged.backend == "engine" and "no dispatch metadata" in untagged.reason
     with pytest.raises(ValueError, match="requires a CUDA device"):
