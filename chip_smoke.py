@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of mbt_gym_torch on one NVIDIA GPU (H100): builds the CUDA
 kernels from mbt_gym_torch/ops/csrc/ (the AS episode kernels K1/K2, the MLP
-rollout K3, the fused PPO update K4, the deterministic-policy rollout K5,
-the OE episode K6 and the CJ episode K8), holds each against its plain
-PyTorch version on the card, drives the main paths through the public
-entry points and times it all:
+rollout K3, the fused PPO updates K4 and K7, the deterministic-policy
+rollout K5, the OE episode K6 and the CJ episode K8), holds each against
+its plain PyTorch version on the card, drives the main paths through the
+public entry points and times it all:
 
 - the Avellaneda-Stoikov path, ``rollout`` and ``mc_episode_stats`` with
   ``backend="auto"`` (K2, K1), then ``backend="engine"`` (phases 1-6);
@@ -19,7 +19,13 @@ entry points and times it all:
   200 (K5 schedule kind for ``rollout``, K6 for ``mc_episode_stats``) and
   fixed actions on the AS and OE configs (K5 fixed kind), each with
   ``backend="auto"`` and then ``"engine"``, with the CJP value-function
-  t-test (phases 13-17).
+  t-test (phases 13-17);
+- the fused PPO update on the engine rollout and the separate pi/vf towers
+  at config 5, through ``init_train_state`` / ``train_iteration``: (a) the
+  shared trunk with ``fused_update`` (K7 16 times per iteration), (b) the
+  towers with ``fused_update`` (K4's stacked-trunk mode 16 times), (c) the
+  towers fully fused (K3's towers mode once, K4's 16 times), and
+  ``evaluate_policy(backend="fused")`` on the towers (phases 18-21).
 
 Run from the repository root:
 
@@ -153,21 +159,43 @@ def assert_metric_bands(metrics, label):
     return m
 
 
-def mlp_flops_per_sample(s_dim, h0, h1, a_dim):
-    """Matmul FLOPs of one forward of the shared-trunk actor-critic."""
-    return 2 * (s_dim * h0 + h0 * h1 + (a_dim + 1) * h1)
+def mlp_flops_per_sample(s_dim, h0, h1, a_dim, towers=1):
+    """Matmul FLOPs of one forward of the actor-critic: the shared trunk
+    (towers=1) or separate pi/vf towers of these widths (towers=2), whose
+    heads read only their own tower."""
+    return 2 * (towers * s_dim * h0 + towers * h0 * h1 + (a_dim + 1) * h1)
 
 
-def ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim):
+def ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim, towers=1):
     """Forward plus backward (dh2, dW_head, dW1, dh1, dW0) matmul FLOPs."""
-    return mlp_flops_per_sample(s_dim, h0, h1, a_dim) + 2 * (2 * (a_dim + 1) * h1 + 2 * h0 * h1 + s_dim * h0)
+    backward = 2 * (2 * (a_dim + 1) * h1 + 2 * towers * h0 * h1 + towers * s_dim * h0)
+    return mlp_flops_per_sample(s_dim, h0, h1, a_dim, towers) + backward
+
+
+def bound_ms(bytes_moved, ops, peak):
+    """(least time in ms, "bytes" or "operations") at HBM_BYTES_PER_S and
+    ``peak`` operations/s."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def busy_ms(intervals):
+    """Length in ms of the union of ``(start_us, end_us)`` intervals: time
+    in which at least one of them runs, none counted twice."""
+    busy_us, end_us = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        busy_us += max(0.0, end - max(start, end_us))
+        end_us = max(end_us, end)
+    return busy_us / 1e3
 
 
 def profile_iteration(torch, card, label, fn, top=6, phase=12):
     """One call of ``fn`` under torch.profiler: device time by kernel
-    (self time, summed over launches) and the device's busy share of the
-    call's wall time (kernel time / wall; overlapping kernels would count
-    twice, and this program runs one stream)."""
+    (summed over launches) and the device's busy share of the call's wall
+    time.  Busy time is the union of the intervals of the device-side
+    events (kernels, copies, sets), so it counts no time twice and is at
+    most the span from the first to the last of them."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -176,21 +204,62 @@ def profile_iteration(torch, card, label, fn, top=6, phase=12):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
-    busy_ms = sum(r[0] for r in rows)
-    if not rows:
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
         print(f"phase {phase} profile [{card}] {label}: the profiler saw no device time (wall {wall_ms} ms)")
         return
-    print(f"phase {phase} profile [{card}] {label}: wall {wall_ms} ms under the profiler, device busy {busy_ms} ms "
-          f"({busy_ms / wall_ms:.1%}), idle share {1 - busy_ms / wall_ms:.1%}")
-    for ms, count, key in sorted(rows, reverse=True)[:top]:
-        print(f"    {ms:10.3f} ms  {count:6d} x  {key[:90]}")
+    by_name = {}
+    for e in device:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
+    busy = busy_ms([(e.time_range.start, e.time_range.end) for e in device])
+    span_ms = (max(e.time_range.end for e in device) - min(e.time_range.start for e in device)) / 1e3
+    print(f"phase {phase} profile [{card}] {label}: wall {wall_ms} ms under the profiler, device events span "
+          f"{span_ms} ms, device busy {busy} ms ({busy / wall_ms:.1%}), idle share {1 - busy / wall_ms:.1%}")
+    for ms, count, name in sorted(((ms, count, name) for name, (ms, count) in by_name.items()), reverse=True)[:top]:
+        print(f"    {ms:10.3f} ms  {count:6d} x  {name[:90]}")
+
+
+def compare_rollouts(torch, got, want, n, label):
+    """K3's five outputs against its plain version: at most 0.1% of envs may
+    differ in their inventory stream (a fill decided on the other side of
+    u < exp(-k d) by a summation-order difference changes that env's later
+    path); the rest agree to rtol=1e-4/atol=1e-3.  Returns the max abs
+    error over the compared values."""
+    same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
+    flips = int((~same).sum())
+    check(flips <= n // 1000, f"{label}: inventory stream differs on {flips} of {n} envs")
+    err = 0.0
+    for name, a, b in zip(("obs", "actions", "log_probs", "values", "rewards"), got, want):
+        torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3, msg=lambda m: f"{label} {name}: {m}")
+        err = max(err, float((a[..., same] - b[..., same]).abs().max()))
+    print(f"{label}: inventory flips {flips}/{n}, max abs err {err:.3g}")
+    return err
+
+
+def compare_grads(torch, grads, metrics, want_g, want_m, dtype, label):
+    """An update kernel's grads and metrics against its plain version.
+    float32: every grad to rtol=1e-4, atol 1e-4 of the leaf's largest value;
+    bf16: relative Frobenius error per leaf at most 1e-3 (the same roundings
+    in both, so only summation order differs); metrics to rtol=1e-4.
+    Returns the max abs error of the bf16 grads (0 for float32)."""
+    check(set(grads) == set(want_g), f"{label}: grads {sorted(grads)} vs {sorted(want_g)}")
+    worst, err = 0.0, 0.0
+    for name, want in want_g.items():
+        got = grads[name]
+        rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want).clamp_min(1e-30))
+        worst = max(worst, rel)
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()),
+                                       msg=lambda m: f"{label} {name}: {m}")
+        else:
+            check(rel <= 1e-3, f"{label} {name}: relative Frobenius error {rel}")
+            err = max(err, float((got - want).abs().max()))
+    for name, want in want_m.items():
+        torch.testing.assert_close(metrics[name], want, rtol=1e-4, atol=1e-7, msg=lambda m: f"{label} {name}: {m}")
+    print(f"{label}: worst relative Frobenius error {worst:.3g}, "
+          f"metrics {[round(float(v), 6) for v in metrics.values()]}")
+    return err
 
 
 def ppo_phases(torch, np, card, dev):
@@ -235,14 +304,7 @@ def ppo_phases(torch, np, card, dev):
         got = mr.mlp_rollout(p, model, num_trajectories=PPO_N, **kw)
         want = mr.mlp_rollout_plain(p, model, num_trajectories=PPO_N, **kw)
         torch.cuda.synchronize()
-        same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
-        flips = int((~same).sum())
-        check(flips <= PPO_N // 1000, f"phase 8 K3 {mode}: inventory stream differs on {flips} of {PPO_N} envs")
-        for name, a, b in zip(("obs", "actions", "log_probs", "values", "rewards"), got, want):
-            torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3,
-                                       msg=lambda m: f"phase 8 K3 {mode} {name}: {m}")
-            k3_err = max(k3_err, float((a[..., same] - b[..., same]).abs().max()))
-        print(f"phase 8 K3 {mode} at {PPO_N}x{steps}: inventory flips {flips}/{PPO_N}, max abs err {k3_err:.3g}")
+        k3_err = max(k3_err, compare_rollouts(torch, got, want, PPO_N, f"phase 8 K3 {mode} at {PPO_N}x{steps}"))
     del noise, want
 
     # ---- phase 9: K4 against its plain version on the first minibatch
@@ -265,22 +327,8 @@ def ppo_phases(torch, np, card, dev):
         grads, metrics = fused_ppo.ppo_fused_grads_T(moved, *mb, compute_dtype=dtype)
         want_g, want_m = fused_ppo.ppo_fused_grads_T_plain(moved, *mb, compute_dtype=dtype)
         torch.cuda.synchronize()
-        worst = 0.0
-        for name, want in want_g.items():
-            got_leaf = grads[name]
-            rel = float(torch.linalg.vector_norm(got_leaf - want) / torch.linalg.vector_norm(want).clamp_min(1e-30))
-            worst = max(worst, rel)
-            if dtype == "float32":
-                torch.testing.assert_close(got_leaf, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()),
-                                           msg=lambda m: f"phase 9 K4 float32 {name}: {m}")
-            else:
-                check(rel <= 1e-3, f"phase 9 K4 bf16 {name}: relative Frobenius error {rel}")
-                k4_err = max(k4_err, float((got_leaf - want).abs().max()))
-        for name, want in want_m.items():
-            torch.testing.assert_close(metrics[name], want, rtol=1e-4, atol=1e-7,
-                                       msg=lambda m: f"phase 9 K4 {dtype} {name}: {m}")
-        print(f"phase 9 K4 {dtype} at {steps}x{nb}: worst relative Frobenius error {worst:.3g}, "
-              f"metrics {[round(float(v), 6) for v in metrics.values()]}")
+        k4_err = max(k4_err, compare_grads(torch, grads, metrics, want_g, want_m, dtype,
+                                           f"phase 9 K4 {dtype} at {steps}x{nb}"))
     del got, obs_t, actions_t, log_probs, values, rewards, adv, returns, mb
 
     # ---- phase 10: the fused main path through the public entry points
@@ -342,20 +390,16 @@ def ppo_phases(torch, np, card, dev):
     k4_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(params, *mb), warmup=2, reps=10)
     k4_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(params, *mb), warmup=1, reps=3)
 
-    def bound(bytes_moved, ops, peak):
-        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
     s_dim, a_dim, (h0, h1) = 4, 2, ppo_cfg.hidden
     # K3 native mode reads nothing per step and writes obs, actions,
     # log-prob, value and reward: (S + A + 3) floats per env-step
-    k3_bound = bound((s_dim + a_dim + 3) * 4 * env_steps, mlp_flops_per_sample(s_dim, h0, h1, a_dim) * env_steps,
-                     BF16_OPS_PER_S)
+    k3_bound = bound_ms((s_dim + a_dim + 3) * 4 * env_steps, mlp_flops_per_sample(s_dim, h0, h1, a_dim) * env_steps,
+                        BF16_OPS_PER_S)
     # K4 reads obs, actions, old log-prob, advantage and return once per
     # sample; its outputs are the grads (~0.3 MB)
     samples = steps * nb
-    k4_bound = bound((s_dim + a_dim + 3) * 4 * samples, ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim) * samples,
-                     BF16_OPS_PER_S)
+    k4_bound = bound_ms((s_dim + a_dim + 3) * 4 * samples, ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim) * samples,
+                        BF16_OPS_PER_S)
     for name, ms, plain_ms, (b_ms, b_by), shape in (
         ("K3 mlp_rollout native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}"),
         ("K4 ppo_fused_grads_T bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{steps}x{nb}"),
@@ -643,8 +687,7 @@ def cj_phases(torch, np, card, dev):
         print(f"phase 17 host [{card}] {name}: {statistics.median(host)} ms per call (median of 3)")
 
     def bound(bytes_moved, ops):
-        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        return bound_ms(bytes_moved, ops, FP32_OPS_PER_S)
 
     table_bytes = sum(t.numel() * 4 for t in tables)
     # native mode reads only the tables; stats writes 5 floats per env,
@@ -702,6 +745,226 @@ def cj_phases(torch, np, card, dev):
     return entries
 
 
+# ------------------------------------------------------------------ fused update and towers
+TOWERS_ITERATIONS = {"a": 4, "b": 4, "c": 6}
+EVAL_N = 16_384
+
+
+def kernel_registers(report, names):
+    """(kernel entry, its ptxas usage line) for every entry of a ptxas -v
+    report whose mangled name contains one of ``names``."""
+    rows, entry = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "Used" in line and any(n in entry for n in names):
+            rows.append((entry, line.split(":", 1)[1].strip()))
+            entry = None
+    return rows
+
+
+def update_phases(torch, np, card, dev):
+    """Phases 18-21: the register counts of the new kernel variants; K7,
+    K4's stacked-trunk mode and K3's towers mode against their plain
+    versions at config 5; the three train_iteration paths and the fused
+    towers evaluation through the public entry points, with per-iteration
+    launch counts; timings and profiles.  Returns the K7 kernels-line entry
+    and the towers figures of K3 and K4."""
+    import dataclasses
+
+    from mbt_gym_torch import dispatch_report, init_train_state, train_iteration
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.agents.ppo import PPOConfig, collect_rollout, deterministic_policy, evaluate_policy, normalise
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import fused_ppo
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.utils.config import as_env_config
+
+    # ---- phase 18: registers and spills of the new variants (the full
+    # report is printed with the builds above): K7 is ppo_pass1/ppo_pass2
+    # with kRowMajor = true (template arguments "Lb?ELb1E"), K3's towers
+    # phase is in mlp_rollout_kernel
+    for src, names in (("fused_ppo.cu", ("ppo_pass1", "ppo_pass2")), ("mlp_rollout.cu", ("mlp_rollout_kernel",))):
+        rows = kernel_registers(_build.ptxas_reports.get(src, ""), names)
+        check(rows, f"phase 18: no ptxas report for {names} in {src}")
+        for entry, usage in rows:
+            print(f"phase 18 registers {src} {entry[:72]}: {usage}")
+
+    env_cfg = dataclasses.replace(
+        as_env_config(num_trajectories=PPO_N),
+        normalise_observation_space=True, normalise_action_space=True,
+    )
+    steps = env_cfg.n_steps
+    s_dim, a_dim, (h0, h1) = 4, 2, (256, 256)
+    shared = init_actor_critic(0, s_dim, a_dim, hidden=(h0, h1), shared_trunk=True, device=dev)
+    towers = init_actor_critic(1, s_dim, a_dim, hidden=(h0, h1), shared_trunk=False, device=dev)
+
+    # ---- phase 19: K7 on one shuffled 3,276,800-sample minibatch of an
+    # engine rollout at config 5, K4's stacked-trunk mode on the same
+    # samples in feature-major form, both with log_std moved by 0.05 (so
+    # ratios leave 1 and both clip branches occur); K3's towers mode at
+    # 262,144 x 200 in noise and native mode (phase 8's limits)
+    t0 = time.perf_counter()
+    batch = collect_rollout(env_cfg, shared, 23, compute_dtype="bfloat16")
+    total = PPO_N * steps
+    m = total // PPO_MINIBATCHES
+    perm = torch.randperm(total, generator=torch.Generator(device=dev).manual_seed(5), device=dev)[:m]
+    mb = [batch.obs.reshape(total, s_dim)[perm], batch.actions.reshape(total, a_dim)[perm],
+          batch.log_probs.reshape(-1)[perm], batch.advantages.reshape(-1)[perm], batch.returns.reshape(-1)[perm]]
+    mb[3] = normalise(mb[3])
+    del batch, perm
+    lanes = 1024  # the re-blocking of agents/ppo.py: the largest power of two up to 1024 dividing m
+    while m % lanes:
+        lanes //= 2
+    rows = m // lanes
+    mb_t = [x.reshape(rows, lanes, -1).transpose(1, 2).contiguous() if x.dim() == 2 else x.reshape(rows, lanes)
+            for x in mb]
+    with torch.no_grad():
+        for model in (shared, towers):
+            model.log_std.add_(0.05)
+    err = {"K7": 0.0, "K4 towers": 0.0, "K3 towers": 0.0}
+    for dtype in ("float32", "bfloat16"):
+        grads, metrics = fused_ppo.ppo_fused_grads(shared, *mb, compute_dtype=dtype)
+        want_g, want_m = fused_ppo.ppo_fused_grads_plain(shared, *mb, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        err["K7"] = max(err["K7"], compare_grads(torch, grads, metrics, want_g, want_m, dtype,
+                                                 f"phase 19 K7 {dtype} at {m} samples"))
+        grads, metrics = fused_ppo.ppo_fused_grads_T(towers, *mb_t, compute_dtype=dtype)
+        want_g, want_m = fused_ppo.ppo_fused_grads_T_plain(towers, *mb_t, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        err["K4 towers"] = max(err["K4 towers"], compare_grads(
+            torch, grads, metrics, want_g, want_m, dtype, f"phase 19 K4 towers {dtype} at {rows}x{lanes}"))
+    del grads, want_g
+    with torch.no_grad():
+        for model in (shared, towers):
+            model.log_std.sub_(0.05)
+    p = mr.rollout_params_from_config(env_cfg)
+    rng = np.random.default_rng(22)
+    channels = rng.uniform(size=(steps, mr.N_CHANNELS, PPO_N)).astype(np.float32)
+    channels[:, 4:] = rng.normal(size=(steps, 3, PPO_N)).astype(np.float32)
+    noise = torch.from_numpy(channels).to(dev)
+    del channels
+    for mode, kw in (("noise", {"noise": noise}), ("native", {"seed": 32, "device": dev})):
+        got = mr.mlp_rollout(p, towers, num_trajectories=PPO_N, **kw)
+        want = mr.mlp_rollout_plain(p, towers, num_trajectories=PPO_N, **kw)
+        torch.cuda.synchronize()
+        err["K3 towers"] = max(err["K3 towers"], compare_rollouts(
+            torch, got, want, PPO_N, f"phase 19 K3 towers {mode} at {PPO_N}x{steps}"))
+    del noise, got, want
+    print(f"phase 19 ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 20: the three paths through the public entry points at
+    # config 5, launch counts read per iteration, metric bands on every one
+    t0 = time.perf_counter()
+    base = dict(hidden=(h0, h1), n_epochs=1, n_minibatches=PPO_MINIBATCHES, compute_dtype="bfloat16")
+    paths = {
+        "a": ("shared trunk, fused_update, shuffle", PPOConfig(**base, shared_trunk=True, fused_update=True),
+              {"ppo_fused_grads": PPO_MINIBATCHES}),
+        "b": ("towers, fused_update, shuffle", PPOConfig(**base, shared_trunk=False, fused_update=True),
+              {"ppo_fused_grads_T": PPO_MINIBATCHES}),
+        "c": ("towers, fused_rollout + fused_update", PPOConfig(**base, shared_trunk=False, fused_update=True,
+                                                               fused_rollout=True, shuffle=False),
+              {"mlp_rollout": 1, "ppo_fused_grads_T": PPO_MINIBATCHES}),
+    }
+    states, launches, rewards = {}, {}, {}
+    for key, (label, cfg, per_iteration) in paths.items():
+        ts = init_train_state(env_cfg, cfg, 30)
+        check(next(ts.params.parameters()).device.type == "cuda", f"phase 20 ({key}): params not on the card")
+        launches[key] = {name: 0 for name in _build.launch_counts}
+        rewards[key] = []
+        for i in range(TOWERS_ITERATIONS[key]):
+            _build.reset_launch_counts()
+            ts, metrics = train_iteration(env_cfg, cfg, ts, 300 + i)
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+            want = {name: per_iteration.get(name, 0) for name in counts}
+            check(counts == want, f"phase 20 ({key}) iteration {i + 1}: launches {counts}, want {want}")
+            for name, c in counts.items():
+                launches[key][name] += c
+            rewards[key].append(assert_metric_bands(metrics, f"phase 20 ({key}) iteration {i + 1}")["mean_episode_reward"])
+        states[key] = ts
+        print(f"phase 20 ({key}) {label}: {TOWERS_ITERATIONS[key]} iterations, launches {per_iteration} each, "
+              f"mean_episode_reward {rewards[key]}")
+    early, late = statistics.mean(rewards["c"][1:3]), statistics.mean(rewards["c"][-2:])
+    print(f"phase 20 (c) mean_episode_reward iterations 2-3 {early}, last 2 {late}")
+    check(late >= early - 1.0, f"phase 20 (c): PPO degraded, mean reward {early} -> {late}")
+    trained = states["c"].params
+    decision = dispatch_report(env_cfg, deterministic_policy(env_cfg), mode="evaluate", platform=dev,
+                               policy_params=trained)
+    print(f"phase 20 dispatch (evaluate, towers): {decision}")
+    _build.reset_launch_counts()
+    reward = float(evaluate_policy(env_cfg, trained, 40, backend="fused"))
+    torch.cuda.synchronize()
+    check(_build.launch_counts["mlp_rollout"] == 1, f"phase 20: fused evaluation launches {dict(_build.launch_counts)}")
+    check(-200.0 < reward < 200.0, f"phase 20: fused evaluation reward {reward}")
+    print(f"phase 20 evaluate_policy(backend='fused') on the trained towers at {PPO_N}x{steps}: {reward} (K3 x1)")
+    print(f"phase 20 ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 21: timings (CUDA events, medians after warm-up) and
+    # profiles with the idle share
+    t0 = time.perf_counter()
+    env_steps = PPO_N * steps
+    engine_towers = PPOConfig(**base, shared_trunk=False)
+    timed = [(f"({key}) {label}", cfg, states[key]) for key, (label, cfg, _) in paths.items()]
+    timed.append(("engine path on the towers (autograd update, shuffle)", engine_towers, states["b"]))
+    for label, cfg, ts in timed:
+        ms = cuda_ms(torch, lambda: train_iteration(env_cfg, cfg, ts, 5), warmup=1, reps=2)
+        print(f"phase 21 [{card}] train_iteration {label} at config 5 ({PPO_N}x{steps}, 16 minibatches): "
+              f"{ms} ms = {env_steps / ms * 1e3} env-steps/s")
+    for key in ("a", "c"):
+        label, cfg, _ = paths[key]
+        profile_iteration(torch, card, f"train_iteration ({key}) {label} at config 5",
+                          lambda: train_iteration(env_cfg, cfg, states[key], 6), phase=21)
+    k7_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads(shared, *mb), warmup=2, reps=5)
+    k7_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_plain(shared, *mb), warmup=1, reps=2)
+    k4_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(towers, *mb_t), warmup=1, reps=3)
+    k4_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(towers, *mb_t), warmup=1, reps=2)
+    k3_ms = cuda_ms(torch, lambda: mr.mlp_rollout(p, towers, 9, PPO_N, device=dev), warmup=1, reps=3)
+    k3_plain_ms = cuda_ms(torch, lambda: mr.mlp_rollout_plain(p, towers, 9, PPO_N, device=dev), warmup=1, reps=1)
+    # K7 and K4 read obs, actions, old log-prob, advantage and return once
+    # per sample and write the grads (~0.3 MB, ~0.6 MB with towers); K3
+    # native mode writes (S + A + 3) floats per env-step
+    per_sample = (s_dim + a_dim + 3) * 4
+    k7_bound = bound_ms(per_sample * m, ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim) * m, BF16_OPS_PER_S)
+    k4_bound = bound_ms(per_sample * m, ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim, towers=2) * m, BF16_OPS_PER_S)
+    k3_bound = bound_ms(per_sample * env_steps, mlp_flops_per_sample(s_dim, h0, h1, a_dim, towers=2) * env_steps,
+                        BF16_OPS_PER_S)
+    for name, ms, plain_ms, (b_ms, b_by), shape in (
+        ("K7 ppo_fused_grads bf16 (one shuffled minibatch)", k7_ms, k7_plain_ms, k7_bound, f"{m} samples"),
+        ("K4 ppo_fused_grads_T towers bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{rows}x{lanes}"),
+        ("K3 mlp_rollout towers native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}"),
+    ):
+        print(f"phase 21 [{card}] {name} at {shape}: {ms} ms, plain {plain_ms} ms, "
+              f"bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound")
+    eval_cfg = dataclasses.replace(env_cfg, num_trajectories=EVAL_N)
+    for label, model in (("shared trunk", shared), ("separate towers", towers)):
+        rates = {}
+        for backend in ("fused", "engine"):
+            ms = cuda_ms(torch, lambda: evaluate_policy(eval_cfg, model, 3, backend=backend), warmup=1, reps=3)
+            rates[backend] = EVAL_N * steps / ms * 1e3
+            print(f"phase 21 [{card}] evaluate_policy {backend} {label} at {EVAL_N}x{steps}: {ms} ms = "
+                  f"{rates[backend]} env-steps/s")
+        decision = dispatch_report(eval_cfg, deterministic_policy(eval_cfg), mode="evaluate", platform=dev,
+                                   policy_params=model)
+        print(f"phase 21 evaluate {label}: measured {'K3' if rates['fused'] > rates['engine'] else 'the engine'} "
+              f"faster; dispatch (evaluate) decides {decision.backend}: {decision.reason}")
+    print(f"phase 21 ok in {time.perf_counter() - t0:.1f} s")
+    k7 = {
+        "name": "K7 ppo_fused_grads", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/fused_ppo.cu",
+        "replaces": "mbt_gym_tpu/ops/fused_ppo.py:634", "launches": launches["a"]["ppo_fused_grads"],
+        "max_abs_err": err["K7"], "ms": k7_ms, "plain_ms": k7_plain_ms,
+        "bound_ms": k7_bound[0], "bound_by": k7_bound[1], "library_ms": None,
+    }
+    towers_figures = {
+        "K3": {"towers_launches": launches["c"]["mlp_rollout"], "towers_max_abs_err": err["K3 towers"],
+               "towers_ms": k3_ms, "towers_plain_ms": k3_plain_ms, "towers_bound_ms": k3_bound[0]},
+        "K4": {"towers_launches": launches["b"]["ppo_fused_grads_T"] + launches["c"]["ppo_fused_grads_T"],
+               "towers_max_abs_err": err["K4 towers"], "towers_ms": k4_ms, "towers_plain_ms": k4_plain_ms,
+               "towers_bound_ms": k4_bound[0]},
+    }
+    return k7, towers_figures
+
+
 def main():
     import torch
 
@@ -723,14 +986,15 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}")
 
-    # ---- phases 1 (K1/K2), 7 (K3/K4) and 13 (K5/K6/K8): build every
-    # kernel source, one nvcc each, all started together, with -Xptxas -v
+    # ---- phases 1 (K1/K2), 7 (K3/K4), 13 (K5/K6/K8) and 18 (K7, the
+    # towers modes): build every kernel source, one nvcc each, all started
+    # together, with -Xptxas -v
     t0 = time.perf_counter()
     sources = _build.SOURCES
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(lambda src: _build.build(src, ptxas_verbose=True), sources))
     ep._kernels()
-    print(f"phase 1/7/13 build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+    print(f"phase 1/7/13/18 build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 2/3: K1 and K2 against their plain versions, noise mode on
     # two configs and native mode, at the main path's 16,384 x 200
@@ -811,8 +1075,7 @@ def main():
     k1_large = cuda_ms(torch, lambda: ep.as_episode(large, 9, N_LARGE, device=dev), warmup=2, reps=10)
     k2_large = cuda_ms(torch, lambda: ep.as_episode_trajectories(large, 9, N_LARGE, emit="full", device=dev), warmup=2, reps=10)
     def bound(bytes_moved, ops):
-        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        return bound_ms(bytes_moved, ops, FP32_OPS_PER_S)
 
     def k1_bound_at(n):  # terminal (cash, inv, price) out; native mode reads nothing
         return bound(3 * 4 * n, OPS_PER_ENV_STEP_K1 * n * STEPS)
@@ -850,6 +1113,10 @@ def main():
     ]
     kernels += ppo_phases(torch, np, card, dev)
     kernels += cj_phases(torch, np, card, dev)
+    k7, towers_figures = update_phases(torch, np, card, dev)
+    for entry in kernels:
+        entry.update(towers_figures.get(entry["name"][:2], {}))
+    kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

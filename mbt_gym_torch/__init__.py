@@ -7,9 +7,10 @@ the JAX package in this repository is its reference.  Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``.  The port covers
 the Avellaneda-Stoikov main path (the engine, the AS agent, ``rollout`` /
 ``mc_episode_stats`` and the CUDA episode kernels K1/K2 behind
-``backend="auto"``), PPO training on that env (``agents.ppo``: the
-engine path, and the fused path on the CUDA kernels K3, the MLP rollout,
-and K4, the PPO update), and the closed-form Cartea-Jaimungal paths: the
+``backend="auto"``), PPO training on that env with either actor-critic
+layout (``agents.ppo``: the engine path, the CUDA kernels K3, the MLP
+rollout, K4, the feature-major PPO update, and K7, the row-major one),
+and the closed-form Cartea-Jaimungal paths: the
 CJP market maker, the optimal-execution schedule and fixed actions on the
 deterministic-policy kernel K5, the OE episode kernel K6, and the CJP
 value-function lane :func:`cj_episode_rewards` on K8.

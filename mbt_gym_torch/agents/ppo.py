@@ -3,24 +3,25 @@ hyperparameter conventions from experiments/helpers.py:68-96: 256x256,
 gamma=1, gae_lambda=0.95, batch = n_steps*N/n_minibatches).
 
 One :func:`train_iteration` = rollout + GAE + epochs x minibatch
-clipped-surrogate updates.  Two paths:
+clipped-surrogate updates, on either actor-critic layout (the separate
+pi/vf towers, the default, or ``shared_trunk=True``), routed as
+``ppo.py:461-550`` routes:
 
 - the **engine** path (the JAX package's XLA path): the rollout steps
-  :mod:`mbt_gym_torch.env` eagerly with the policy forward in PyTorch, and
-  each minibatch's gradient comes from ``torch.autograd`` of
-  :func:`_ppo_loss`;
-- the **fused** path, ``PPOConfig(fused_rollout=True, fused_update=True)``
-  on the shared trunk: the rollout is the K3 kernel
-  (:func:`mbt_gym_torch.ops.mlp_rollout.collect_rollout_fused_T`) and each
-  minibatch's gradient the K4 kernel
-  (:func:`mbt_gym_torch.ops.fused_ppo.ppo_fused_grads_T`), minibatches
-  being contiguous env slices of the feature-major buffers.
-
-``fused_rollout`` alone runs K3 with the engine update.  Not ported to
-CUDA yet, and refused with a ``ValueError`` naming it: the separate
-pi/vf towers with either fused flag (the JAX kernels' stacked-trunk
-``split_at`` mode), and ``fused_update`` without ``fused_rollout`` (the
-row-major kernel K7, ``ops/fused_ppo.py:634``).
+  :mod:`mbt_gym_torch.env` eagerly with the policy forward in PyTorch, the
+  samples are shuffled globally (``shuffle=True``) into row-major
+  minibatches, and each minibatch's gradient comes from ``torch.autograd``
+  of :func:`_ppo_loss`;
+- ``fused_update=True`` alone keeps that rollout and those minibatches and
+  takes each gradient from a kernel (:func:`_fused_grads_and_metrics`): K7
+  (:func:`mbt_gym_torch.ops.fused_ppo.ppo_fused_grads`) on the shared
+  trunk, K4 (:func:`~mbt_gym_torch.ops.fused_ppo.ppo_fused_grads_T`) in its
+  stacked-trunk mode on the towers, the minibatch re-blocked feature-major;
+- ``fused_rollout=True`` alone runs the K3 rollout
+  (:func:`mbt_gym_torch.ops.mlp_rollout.collect_rollout_fused`) with the
+  engine update;
+- both: the fully **fused** path, K3's feature-major buffers feeding K4
+  directly, minibatches being contiguous env slices (``shuffle=False``).
 
 The optimizer is ``torch.optim.Adam`` after a global-norm clip written to
 optax's formula.  :class:`PPOTrainState` holds the model and its
@@ -66,12 +67,11 @@ class PPOConfig:
     # in bf16 with float32 master params and optimizer state.
     compute_dtype: Optional[str] = None
     shared_trunk: bool = False
-    # K4 (ops/fused_ppo.py) for the minibatch gradients; needs fused_rollout
-    # and the shared trunk in this port.
+    # K7 or K4 (ops/fused_ppo.py) for the minibatch gradients
     fused_update: bool = False
     fused_tile: int = 1024  # TPU-only, unused
     fused_compute_dtype: str = "bfloat16"
-    # K3 (ops/mlp_rollout.py) for the rollout; shared trunk only.
+    # K3 (ops/mlp_rollout.py) for the rollout
     fused_rollout: bool = False
     fused_rollout_tile: Optional[int] = None  # TPU-only, unused
     fused_interpret_ok: bool = False  # TPU-only, unused
@@ -226,20 +226,61 @@ def _ppo_loss(params: networks.ActorCritic, ppo_cfg: PPOConfig, batch):
                   "approx_kl": torch.mean(batch.log_probs - log_probs)}
 
 
-def _check_fused_flags(ppo_cfg: PPOConfig) -> None:
-    if (ppo_cfg.fused_rollout or ppo_cfg.fused_update) and not ppo_cfg.shared_trunk:
-        raise ValueError(
-            "fused_rollout/fused_update with the separate pi/vf towers layout "
-            "(the JAX kernels' stacked-trunk split_at mode) are not ported to "
-            "CUDA yet; use shared_trunk=True or the engine path"
-        )
-    if ppo_cfg.fused_update and not ppo_cfg.fused_rollout:
-        raise ValueError(
-            "fused_update without fused_rollout needs the row-major update "
-            "kernel K7 (ppo_fused_grads, mbt_gym_tpu/ops/fused_ppo.py:634), "
-            "which is not ported to CUDA yet; set fused_rollout=True too, or "
-            "use the engine update"
-        )
+# Re-blocking of a towers minibatch for K4: the most lanes (envs of a
+# feature-major row) tried, as the JAX rule's default fused_tile, and the
+# fewest the CUDA kernel takes (its 32-sample tile).
+_MAX_LANES = 1024
+_MIN_LANES = 32
+
+
+def _lanes(m: int) -> int:
+    """The largest power of two up to 1024 that divides ``m``
+    (ppo.py:246-248)."""
+    lanes = _MAX_LANES
+    while lanes > 1 and m % lanes:
+        lanes //= 2
+    return lanes
+
+
+def _fused_grads_and_metrics(params: networks.ActorCritic, ppo_cfg: PPOConfig, mb: UpdateBatch
+                             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """One row-major minibatch's grads from a kernel (ppo.py:225-279):
+    advantages normalised per minibatch, then K7 on the shared trunk, or
+    K4's stacked-trunk mode on the towers, the ``(M,)`` minibatch re-blocked
+    into ``(rows, lanes)`` feature-major form (the loss is a mean over
+    samples, so any re-blocking is exact).  The entropy term depends on
+    ``log_std`` alone and enters its grad here."""
+    from mbt_gym_torch.ops import fused_ppo
+
+    adv = normalise(mb.advantages) if ppo_cfg.normalise_advantages else mb.advantages
+    kw = dict(clip_eps=ppo_cfg.clip_eps, vf_coef=ppo_cfg.vf_coef, compute_dtype=ppo_cfg.fused_compute_dtype)
+    if params.shared_trunk:
+        grads, metrics = fused_ppo.ppo_fused_grads(params, mb.obs, mb.actions, mb.log_probs, adv, mb.returns, **kw)
+    else:
+        m = mb.obs.shape[0]
+        lanes = _lanes(m)
+        if mb.obs.device.type == "cuda" and lanes < _MIN_LANES:
+            raise ValueError(
+                f"fused_update with separate towers re-blocks the {m}-sample minibatch into "
+                f"(rows, lanes) and the K4 kernel needs at least {_MIN_LANES} lanes; pick "
+                f"num_trajectories * n_steps / n_minibatches divisible by {_MIN_LANES}, or "
+                "fused_update=False"
+            )
+        rows = m // lanes
+
+        def to_t(x):
+            return x.reshape(rows, lanes, -1).transpose(1, 2).contiguous()
+
+        def flat_t(x):
+            return x.reshape(rows, lanes)
+
+        grads, metrics = fused_ppo.ppo_fused_grads_T(
+            params, to_t(mb.obs), to_t(mb.actions), flat_t(mb.log_probs), flat_t(adv), flat_t(mb.returns), **kw)
+    if ppo_cfg.ent_coef:
+        grads["log_std"] = grads["log_std"] - ppo_cfg.ent_coef
+    metrics = dict(metrics)
+    metrics["entropy"] = networks.entropy(params).detach()
+    return grads, metrics
 
 
 def _copy_state(train_state: PPOTrainState) -> PPOTrainState:
@@ -253,8 +294,10 @@ def _mean_metrics(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Ten
 
 def _engine_update(ppo_cfg: PPOConfig, ts: PPOTrainState, batch: RolloutBatch,
                    gen: torch.Generator) -> Dict[str, torch.Tensor]:
-    """n_epochs x n_minibatches autograd updates of ``ts`` in place
-    (ppo.py:504-548); returns the mean metrics."""
+    """n_epochs x n_minibatches updates of ``ts`` in place over row-major
+    minibatches, shuffled globally per epoch when ``shuffle`` (ppo.py:504-548),
+    each gradient from autograd or, with ``fused_update``, from
+    :func:`_fused_grads_and_metrics`; returns the mean metrics."""
     t, n = batch.rewards.shape
     flat = UpdateBatch(
         obs=batch.obs.reshape(t * n, -1), actions=batch.actions.reshape(t * n, -1),
@@ -272,10 +315,13 @@ def _engine_update(ppo_cfg: PPOConfig, ts: PPOTrainState, batch: RolloutBatch,
             sl = slice(m * mb_size, (m + 1) * mb_size)
             idx = perm[sl] if perm is not None else sl
             mb = UpdateBatch(*(x[idx] for x in flat))
-            params.zero_grad(set_to_none=True)
-            loss, mb_metrics = _ppo_loss(params, ppo_cfg, mb)
-            loss.backward()
-            grads = {name: p.grad for name, p in zip(names, params.parameters())}
+            if ppo_cfg.fused_update:
+                grads, mb_metrics = _fused_grads_and_metrics(params, ppo_cfg, mb)
+            else:
+                params.zero_grad(set_to_none=True)
+                loss, mb_metrics = _ppo_loss(params, ppo_cfg, mb)
+                loss.backward()
+                grads = {name: p.grad for name, p in zip(names, params.parameters())}
             apply_gradients(ppo_cfg, params, optimizer, grads)
             metrics.append({k: v.detach() for k, v in mb_metrics.items()})
     return _mean_metrics(metrics)
@@ -349,7 +395,6 @@ def train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrai
     ``approx_kl``, ``mean_episode_reward``).  ``key`` is an int seed or a
     ``torch.Generator`` on the parameters' device.  ``noise`` (fused
     rollout only) injects K3's ``(T, 7, N)`` channels."""
-    _check_fused_flags(ppo_cfg)
     if ppo_cfg.fused_rollout and ppo_cfg.fused_update:
         return _fused_train_iteration(env_cfg, ppo_cfg, train_state, key, noise=noise)
     device = _device_of(train_state.params)
@@ -394,8 +439,8 @@ def train_chunk(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainSta
 def deterministic_policy(env_cfg: EnvConfig):
     """The trained actor's mean action, clipped to the action space
     (ppo.py:595-618), tagged ``kind="mlp_deterministic"`` for the dispatch
-    front door (whose mlp_rollout family is not ported yet, so it runs the
-    engine)."""
+    front door, whose ``mlp_rollout`` family (K3) serves
+    :func:`evaluate_policy`."""
     from mbt_gym_torch.dispatch import tag_policy
 
     def policy(params, obs, state):
@@ -408,17 +453,27 @@ def deterministic_policy(env_cfg: EnvConfig):
 def evaluate_policy(env_cfg: EnvConfig, params: networks.ActorCritic, key, n_episodes: int = 1,
                     backend: str = "auto") -> torch.Tensor:
     """Mean episode reward of the deterministic policy over ``n_episodes``
-    fresh episodes (ppo.py:621-702), on the parameters' device.
+    fresh episodes (ppo.py:621-702), on the parameters' device, for either
+    actor-critic layout.
 
-    ``backend``: "auto" and "engine" run the engine (the JAX package's
-    auto also picks its engine, measured faster there).  "fused" runs K3
-    with ``log_std = -30`` (std ~1e-13, negligible against float32 action
-    scales) and raises ``ValueError`` naming the feature when the config or
-    layout is outside the kernel's contract."""
+    ``backend``: "fused" runs K3 with ``log_std = -30`` (std ~1e-13,
+    negligible against float32 action scales) and raises ``ValueError``
+    naming the feature when the config is outside the kernel's contract;
+    "engine" the engine; "auto" (the default) what
+    :func:`mbt_gym_torch.dispatch.dispatch_report` decides in its
+    ``"evaluate"`` mode, where the choice between the two follows the
+    port's measurement on the card (the JAX package's auto picks its
+    engine, measured faster on its TPU)."""
+    from mbt_gym_torch.dispatch import dispatch_report
+
     assert backend in ("auto", "engine", "fused"), backend
     device = _device_of(params)
     gen = env_lib.make_generator(key, device)
     total = torch.zeros((), dtype=torch.float32, device=device)
+    if backend == "auto":
+        decision = dispatch_report(env_cfg, deterministic_policy(env_cfg), mode="evaluate", platform=device,
+                                   policy_params=params)
+        backend = decision.backend
     if backend == "fused":
         from mbt_gym_torch.ops import mlp_rollout
 
@@ -426,11 +481,6 @@ def evaluate_policy(env_cfg: EnvConfig, params: networks.ActorCritic, key, n_epi
             mlp_rollout.rollout_params_from_config(env_cfg)
         except AssertionError as e:
             raise ValueError(f"backend='fused' unavailable: {e}") from None
-        if not params.shared_trunk:
-            raise ValueError(
-                "backend='fused' unavailable: the separate pi/vf towers layout is "
-                "not ported to CUDA yet"
-            )
         det = copy.deepcopy(params)
         det.log_std.fill_(-30.0)
         for _ in range(n_episodes):

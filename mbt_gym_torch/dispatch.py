@@ -12,21 +12,31 @@ inspectable fallback reason.
 
 Families and the entry-point modes they serve:
 
-==============  =======================================  ========  =====
-family          kernel                                   rollout   stats
-==============  =======================================  ========  =====
-as_episode      ops.episode K2 (rollout) / K1 (stats)    yes       yes
-cj_table        ops.det_rollout K5, table policy         yes       yes
-fixed           ops.det_rollout K5, fixed policy         yes       yes
-oe_episode      ops.det_rollout K5, schedule policy      yes       yes
+==============  =======================================  ========  =====  ========
+family          kernel                                   rollout   stats  evaluate
+==============  =======================================  ========  =====  ========
+as_episode      ops.episode K2 (rollout) / K1 (stats)    yes       yes    no
+cj_table        ops.det_rollout K5, table policy         yes       yes    no
+fixed           ops.det_rollout K5, fixed policy         yes       yes    no
+oe_episode      ops.det_rollout K5, schedule policy      yes       yes    no
                 (rollout) / ops.oe_episode K6 (stats)
-==============  =======================================  ========  =====
+mlp_rollout     ops.mlp_rollout K3, ppo.deterministic_   no        no     yes
+                policy
+==============  =======================================  ========  =====  ========
 
 The CJP value-function lane, :func:`mbt_gym_torch.ops.cj_episode.cj_episode_rewards`
-(K8), is called directly.  The JAX package's ``mlp_rollout`` family
-(deterministic MLP evaluation) runs the engine here, and the reason says
-so.  Backend names: ``"fused"`` for a kernel family, ``"engine"`` for the
-general eager engine (the JAX package's ``"xla"``).
+(K8), is called directly.  Mode ``"evaluate"`` is the contract of
+:func:`mbt_gym_torch.agents.ppo.evaluate_policy` (the mean episode reward
+of the deterministic MLP policy), which consults it under
+``backend="auto"``; K3 writes no terminal state, so ``rollout()`` and
+``mc_episode_stats()`` of that policy run the engine, as in the JAX
+package.  Where the kernel's contract holds, the ``mlp_rollout`` family
+decides between K3 and the engine by the port's own measurement on the
+card (:data:`MLP_EVALUATE_MEASURED`), once K3's streams fit the target
+card's free memory (the TPU's VMEM rule ``mlp_streams_feasible`` made the
+H100's own, as for K5).  Backend names: ``"fused"`` for a
+kernel family, ``"engine"`` for the general eager engine (the JAX
+package's ``"xla"``).
 
 Semantics: every fused family is validated against the engine step for step
 on injected noise (tests/test_torch_*.py); native-mode RNG *streams* differ
@@ -189,17 +199,58 @@ def _check_oe(cfg: EnvConfig, meta: dict, mode: str, device: torch.device) -> No
     _require_lane_batch(cfg)
 
 
+# evaluate_policy at 16,384 envs x 200 steps on the normalised AS env,
+# 256x256, in env-steps/s: (K3 through backend="fused", the engine), per
+# layout.  chip_smoke.py phase 21 on an NVIDIA H100 80GB HBM3 at 700 W.
+MLP_EVALUATE_MEASURED = {
+    "shared trunk": (143349505.9, 7905831.6),
+    "separate towers": (77511402.9, 13902838.8),
+}
+
+
+def _check_mlp(cfg: EnvConfig, meta: dict, mode: str, device: torch.device, policy_params=None) -> str:
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import mlp_rollout as mr
+
+    if mode != "evaluate":
+        raise _Ineligible(
+            "the mlp_rollout kernel family serves evaluate_policy (mode='evaluate') only: K3 "
+            "writes no terminal state, so rollout() and mc_episode_stats() of the deterministic "
+            "policy run the engine"
+        )
+    try:
+        p = mr.rollout_params_from_config(cfg)
+    except AssertionError as e:
+        raise _Ineligible(str(e))
+    # K3's (T, S + A + 3, N) streams and the (T, N) advantages and returns
+    floats = p.run_steps * (len(p.obs_low) + len(p.act_low) + 5) * cfg.num_trajectories
+    if 4 * floats > det.device_free_bytes(device):
+        raise _Ineligible(
+            f"K3's {p.run_steps}-step streams at {cfg.num_trajectories} envs exceed free device memory; "
+            "evaluation runs on the engine"
+        )
+    layout = "shared trunk"
+    if policy_params is not None:
+        layout = "shared trunk" if policy_params.shared_trunk else "separate towers"
+        try:
+            tp = mr.transpose_params(policy_params)
+            mr.check_kernel_shapes(p, tp.split_at or [w.shape[0] for w, _ in tp.trunk], cfg.num_trajectories)
+        except ValueError as e:
+            raise _Ineligible(str(e))
+    fused, engine = MLP_EVALUATE_MEASURED[layout]
+    figures = (f"K3 {fused:.4g} vs engine {engine:.4g} env-steps/s for the {layout} at 16,384 x 200 "
+               "on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 21)")
+    if not fused > engine:
+        raise _Ineligible(f"the engine measured faster than K3 for deterministic evaluation: {figures}")
+    return f"K3 measured faster than the engine for deterministic evaluation: {figures}"
+
+
 _FAMILIES = {
     "as_closed_form": ("as_episode", _check_as),
     "cj_closed_form": ("cj_table", _check_cj),
     "fixed": ("fixed", _check_fixed),
     "oe_schedule": ("oe_episode", _check_oe),
-}
-
-# Policy kinds whose kernel family the JAX package has and this port's
-# front door does not route yet (ROADMAP.md Queue 1 item 10).
-_UNPORTED = {
-    "mlp_deterministic": "mlp_rollout",
+    "mlp_deterministic": ("mlp_rollout", _check_mlp),
 }
 
 
@@ -209,14 +260,17 @@ def dispatch_report(
 ) -> DispatchDecision:
     """Decide fused-vs-engine for (config, policy) and say why.
 
-    ``mode``: "rollout" (full-trajectory contract) or "stats"
-    (:func:`mc_episode_stats` contract).  ``platform`` is the device the
-    call targets, or its type (``"cuda:1"``, ``"cuda"``, ``"cpu"``);
-    ``None`` means the entry points' default, ``"cuda"``.  The kernels run
-    on CUDA devices only, so a CPU target takes the engine; the streams
-    memory rule reads the target card's memory.  ``policy_params`` is
-    accepted for signature parity; no ported family reads it."""
-    assert mode in ("rollout", "stats"), mode
+    ``mode``: "rollout" (full-trajectory contract), "stats"
+    (:func:`mc_episode_stats` contract) or "evaluate"
+    (:func:`~mbt_gym_torch.agents.ppo.evaluate_policy` contract).
+    ``platform`` is the device the call targets, or its type
+    (``"cuda:1"``, ``"cuda"``, ``"cpu"``); ``None`` means the entry points'
+    default, ``"cuda"``.  The kernels run on CUDA devices only, so a CPU
+    target takes the engine; the streams memory rule reads the target
+    card's memory.  ``policy_params`` (the trained model) lets the
+    ``mlp_rollout`` family check its layout and widths against K3's
+    limits; omitted, they are not checked."""
+    assert mode in ("rollout", "stats", "evaluate"), mode
     meta = policy_meta(policy)
     if meta is None:
         return DispatchDecision(
@@ -225,19 +279,19 @@ def dispatch_report(
             "fixed_action_policy are tagged; custom callables run the engine)",
         )
     kind = meta.get("kind")
-    if kind in _UNPORTED:
-        return DispatchDecision(
-            "engine", None,
-            f"policy kind {kind!r} maps to the {_UNPORTED[kind]} kernel "
-            "family, which the port's front door does not route yet "
-            "(agents.ppo.evaluate_policy(backend='fused') runs K3)",
-        )
     if kind not in _FAMILIES:
         return DispatchDecision("engine", None, f"policy kind {kind!r} has no fused kernel family")
     family, check = _FAMILIES[kind]
+    if mode == "evaluate" and kind != "mlp_deterministic":
+        return DispatchDecision(
+            "engine", None, "mode 'evaluate' is evaluate_policy's contract, for ppo.deterministic_policy",
+        )
     target = torch.device(platform if platform is not None else "cuda")
     try:
-        check(cfg, meta, mode, target)
+        if kind == "mlp_deterministic":
+            note = check(cfg, meta, mode, target, policy_params)
+        else:
+            note = check(cfg, meta, mode, target)
     except _Ineligible as e:
         return DispatchDecision("engine", None, str(e))
     if target.type != "cuda":
@@ -246,7 +300,8 @@ def dispatch_report(
             f"config and policy match the {family} kernel contract, but the "
             f"kernel requires a CUDA device (running on {target.type})",
         )
-    return DispatchDecision("fused", family, f"config and policy match the {family} kernel contract")
+    reason = f"config and policy match the {family} kernel contract"
+    return DispatchDecision("fused", family, f"{reason}; {note}" if note else reason)
 
 
 # ------------------------------------------------------------ execution

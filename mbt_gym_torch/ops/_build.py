@@ -44,7 +44,12 @@ launch_counts: Dict[str, int] = {
     "det_rollout": 0,
     "oe_episode": 0,
     "cj_episode": 0,
+    "ppo_fused_grads": 0,
 }
+
+# The compiler's register and spill report of each source built with
+# ``ptxas_verbose``.
+ptxas_reports: Dict[str, str] = {}
 
 # Every kernel source, in the order the kernels were ported.
 SOURCES = ("as_episode.cu", "mlp_rollout.cu", "fused_ppo.cu", "det_rollout.cu", "oe_episode.cu", "cj_episode.cu")
@@ -99,6 +104,7 @@ def build(source: str, ptxas_verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{proc.stderr}")
     if ptxas_verbose:
         print(proc.stderr, end="")
+        ptxas_reports[source] = proc.stderr
     os.replace(tmp, out)
     return out
 

@@ -4,7 +4,7 @@
 // (mbt_gym_tpu/ops/pallas_rollout.py:1514, pallas_call at :1634) for the
 // MLP policy on the "limit" family: BM midprice, Poisson arrivals,
 // exponential fills, limit-order dynamics, PnL reward, fixed start time
-// and initial inventory, shared-trunk actor-critic.  Each step, per env:
+// and initial inventory, both actor-critic layouts.  Each step, per env:
 // the (normalised) observation, the trunk h = tanh(W h + b) layer by
 // layer, the merged (A+1)-row head giving mean and value, the Gaussian
 // sample and its log-prob, the clipped and denormalised action, then the
@@ -28,6 +28,19 @@
 // In bf16 mode the weights are staged once per CTA in shared memory as
 // bf16 (133 KB at 256x256), so the per-step products read no device
 // memory; in float32 mode (raw observations) they are read through L1/L2.
+//
+// Separate pi/vf towers (the JAX kernel's stacked-trunk split_at mode,
+// pallas_rollout.py:668-712 and :858-873): the bf16 weights of two 256x256
+// towers (266 KB) do not fit the 227 KB of shared memory an H100 block may
+// hold, and the env step needs only the pi tower's mean.  So a CTA runs its
+// episode in two phases: phase 1 stages the pi tower and runs the steps
+// above with the pi head's A rows (the value is not written); phase 2
+// restages the same buffers with the vf tower and, step by step, reads
+// back the observations its own threads wrote in phase 1 and writes the vf
+// head's value.  Each tower's products are those of the JAX kernel's
+// stacked trunk (layer 0's stacked rows are independent dot products, the
+// inner layers per-tower products, the merged head's zero blocks add exact
+// zeros), so the values are the same sums.  Both phases are one launch.
 //
 // Numerics follow the plain PyTorch version (ops/mlp_rollout.py):
 // with normalised observations every matmul operand is rounded to bf16
@@ -137,37 +150,114 @@ __device__ __forceinline__ Draws draws_at(const float* noise, int n, uint32_t se
   return d;
 }
 
+// One tower's weights: each layer's (in, out) matrix and bias, layers
+// concatenated, then the head rows it feeds.
+template <typename TW>
+struct TowerWeights {
+  const TW* w_t;
+  const float* bias;
+  const float* w_head;  // (head_rows, h_last)
+  const float* b_head;  // (head_rows,)
+  int head_rows;
+};
+
+// Buffers of one CTA in shared memory.
+struct Smem {
+  float* act0;
+  float* act1;
+  float* head_w;
+  float* head_o;
+  float* bias_s;
+};
+
+// Stages a tower's head and biases (and, when `w_s`, its weights) into
+// shared memory; returns the weights the products read.
+template <typename TW>
+__device__ const TW* stage(const TowerWeights<TW>& tw, const Smem& sm, TW* w_s, int w_total, int b_total,
+                           int h_last) {
+  for (int i = threadIdx.x; i < tw.head_rows * h_last; i += kThreads) sm.head_w[i] = tw.w_head[i];
+  for (int i = threadIdx.x; i < b_total; i += kThreads) sm.bias_s[i] = tw.bias[i];
+  if (w_s) {
+    for (int i = threadIdx.x; i < w_total; i += kThreads) w_s[i] = tw.w_t[i];
+    return w_s;
+  }
+  return tw.w_t;
+}
+
+// The trunk h = tanh(W h + b), layer by layer, from act0 (the tile's
+// observation, operand-rounded) through the ping-pong buffers, then the
+// head's rows into head_o.  Ends after a barrier.
+template <bool kBf16, typename TW>
+__device__ void forward(const MlpKernelParams& p, const TW* w, const Smem& sm, int head_rows,
+                        const float* b_head) {
+  const int tid = threadIdx.x;
+  const int rg = tid % kRowGroups;
+  const int eg = tid / kRowGroups;
+  float* in = sm.act0;
+  float* o = sm.act1;
+  int k_dim = p.s_dim;
+  size_t w_off = 0;
+  int b_off = 0;
+  for (int l = 0; l < p.n_layers; ++l) {
+    const int out_dim = p.widths[l];
+    if (rg * 4 < out_dim) {
+      float acc[4][kET];
+      mbt::dense_tile<kET>(w + w_off + rg * 4, out_dim, in + eg * kET, kE, k_dim, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float b = sm.bias_s[b_off + rg * 4 + r];
+#pragma unroll
+        for (int e = 0; e < kET; ++e) {
+          o[(rg * 4 + r) * kE + eg * kET + e] = mbt::operand<kBf16>(tanhf(acc[r][e] + b));
+        }
+      }
+    }
+    __syncthreads();
+    w_off += static_cast<size_t>(k_dim) * out_dim;
+    b_off += out_dim;
+    k_dim = out_dim;
+    float* tmp = in;
+    in = o;
+    o = tmp;
+  }
+  if (tid < head_rows * kE) {
+    const int a = tid / kE, e = tid % kE;
+    float s = 0.0f;
+    for (int k = 0; k < k_dim; ++k) s = __fmaf_rn(sm.head_w[a * k_dim + k], in[k * kE + e], s);
+    sm.head_o[a * kE + e] = s + b_head[a];
+  }
+  __syncthreads();
+}
+
+// `vf.w_t` is NULL for the shared trunk, whose merged head (A+1 rows, the
+// value last) is `pi`'s; with towers `pi` holds the pi tower and its A head
+// rows and `vf` the vf tower and its value row.
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_rollout_kernel(const MlpKernelParams p, int n, int h_max, uint32_t seed,
                    const float* __restrict__ noise,
-                   const typename std::conditional<kBf16, __nv_bfloat16, float>::type* __restrict__ w_t,
-                   int w_total, int stage_w, const float* __restrict__ bias, int b_total,
-                   const float* __restrict__ w_head, const float* __restrict__ b_head,
-                   const float* __restrict__ log_std, RolloutOut out) {
+                   const TowerWeights<typename std::conditional<kBf16, __nv_bfloat16, float>::type> pi,
+                   const TowerWeights<typename std::conditional<kBf16, __nv_bfloat16, float>::type> vf,
+                   int w_total, int stage_w, int b_total, const float* __restrict__ log_std,
+                   RolloutOut out) {
   using TW = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int h_last = p.widths[p.n_layers - 1];
   const int n_head = p.a_dim + 1;
 
-  float* act0 = reinterpret_cast<float*>(smem_raw);
-  float* act1 = act0 + h_max * kE;
-  float* head_w = act1 + h_max * kE;
-  float* head_o = head_w + n_head * h_last;
-  float* bias_s = head_o + n_head * kE;
+  Smem sm;
+  sm.act0 = reinterpret_cast<float*>(smem_raw);
+  sm.act1 = sm.act0 + h_max * kE;
+  sm.head_w = sm.act1 + h_max * kE;
+  sm.head_o = sm.head_w + n_head * h_last;
+  sm.bias_s = sm.head_o + n_head * kE;
   // 16-byte aligned start of the staged weights
-  size_t off = reinterpret_cast<size_t>(bias_s + b_total);
+  size_t off = reinterpret_cast<size_t>(sm.bias_s + b_total);
   off = (off + 15) & ~static_cast<size_t>(15);
-  TW* w_s = reinterpret_cast<TW*>(off);
+  TW* w_s = stage_w ? reinterpret_cast<TW*>(off) : nullptr;
 
-  for (int i = tid; i < n_head * h_last; i += kThreads) head_w[i] = w_head[i];
-  for (int i = tid; i < b_total; i += kThreads) bias_s[i] = bias[i];
-  if (stage_w) {
-    for (int i = tid; i < w_total; i += kThreads) w_s[i] = w_t[i];
-  }
-  const TW* w = stage_w ? w_s : w_t;
-
+  const TW* w = stage(pi, sm, w_s, w_total, b_total, h_last);
   const int env = blockIdx.x * kE + tid;
   float cash = p.initial_cash, inv = p.initial_inventory, price = p.initial_price;
   float lstd[kMaxAct], stdv[kMaxAct];
@@ -177,8 +267,7 @@ mlp_rollout_kernel(const MlpKernelParams p, int n, int h_max, uint32_t seed,
   }
   __syncthreads();
 
-  const int rg = tid % kRowGroups;
-  const int eg = tid / kRowGroups;
+  // ---- phase 1: the episode with the pi tower (or the shared trunk)
   for (int i = 0; i < p.run_steps; ++i) {
     // ---- observation (pre-step), pallas_rollout.py:724-754
     if (tid < kE) {
@@ -188,48 +277,12 @@ mlp_rollout_kernel(const MlpKernelParams p, int n, int h_max, uint32_t seed,
         float x = planes[c];
         if (p.normalise_obs) x = (x - p.obs_low[c]) / p.obs_grad[c] - 1.0f;
         out.obs[(static_cast<size_t>(i) * p.s_dim + c) * n + env] = x;
-        act0[c * kE + tid] = mbt::operand<kBf16>(x);
+        sm.act0[c * kE + tid] = mbt::operand<kBf16>(x);
       }
     }
     __syncthreads();
-
-    // ---- trunk: h = tanh(W h + b), layer by layer
-    float* in = act0;
-    float* o = act1;
-    int k_dim = p.s_dim;
-    size_t w_off = 0;
-    int b_off = 0;
-    for (int l = 0; l < p.n_layers; ++l) {
-      const int out_dim = p.widths[l];
-      if (rg * 4 < out_dim) {
-        float acc[4][kET];
-        mbt::dense_tile<kET>(w + w_off + rg * 4, out_dim, in + eg * kET, kE, k_dim, acc);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float b = bias_s[b_off + rg * 4 + r];
-#pragma unroll
-          for (int e = 0; e < kET; ++e) {
-            o[(rg * 4 + r) * kE + eg * kET + e] = mbt::operand<kBf16>(tanhf(acc[r][e] + b));
-          }
-        }
-      }
-      __syncthreads();
-      w_off += static_cast<size_t>(k_dim) * out_dim;
-      b_off += out_dim;
-      k_dim = out_dim;
-      float* tmp = in;
-      in = o;
-      o = tmp;
-    }
-
-    // ---- merged head: mean rows then the value row
-    if (tid < n_head * kE) {
-      const int a = tid / kE, e = tid % kE;
-      float s = 0.0f;
-      for (int k = 0; k < h_last; ++k) s = __fmaf_rn(head_w[a * h_last + k], in[k * kE + e], s);
-      head_o[a * kE + e] = s + b_head[a];
-    }
-    __syncthreads();
+    // ---- trunk and head: mean rows, then (shared trunk) the value row
+    forward<kBf16>(p, w, sm, pi.head_rows, pi.b_head);
 
     // ---- sample, log-prob, action, env step (one lane per env)
     if (tid < kE) {
@@ -238,7 +291,7 @@ mlp_rollout_kernel(const MlpKernelParams p, int n, int h_max, uint32_t seed,
       float action[kMaxAct], exec[kMaxAct];
       float lp = 0.0f;
       for (int a = 0; a < p.a_dim; ++a) {
-        action[a] = head_o[a * kE + tid] + stdv[a] * eps[a];
+        action[a] = sm.head_o[a * kE + tid] + stdv[a] * eps[a];
         lp = lp + ((-0.5f * eps[a]) * eps[a] - lstd[a]);
         if (p.normalise_act) {
           const float c = fminf(fmaxf(action[a], -1.0f), 1.0f);
@@ -248,7 +301,6 @@ mlp_rollout_kernel(const MlpKernelParams p, int n, int h_max, uint32_t seed,
         }
       }
       lp = lp - p.logp_const;
-      const float value = head_o[p.a_dim * kE + tid];
 
       const float bid = exec[0], ask = exec[1];
       const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
@@ -271,22 +323,37 @@ mlp_rollout_kernel(const MlpKernelParams p, int n, int h_max, uint32_t seed,
         out.act[(static_cast<size_t>(i) * p.a_dim + a) * n + env] = action[a];
       }
       out.logp[o1] = lp;
-      out.value[o1] = value;
+      if (!vf.w_t) out.value[o1] = sm.head_o[p.a_dim * kE + tid];
       out.reward[o1] = reward;
       cash = new_cash;
       inv = new_inv;
       price = new_price;
     }
     // the next step's observation writes act0 only after this step's head
-    // has read the trunk output (the barrier above), and its head runs
-    // after the barrier that follows those writes
+    // has read the trunk output (the barrier that ends forward), and its
+    // head runs after the barrier that follows those writes
+  }
+  if (!vf.w_t) return;
+
+  // ---- phase 2: the vf tower's value of each observation of phase 1
+  __syncthreads();
+  w = stage(vf, sm, w_s, w_total, b_total, h_last);
+  __syncthreads();
+  for (int i = 0; i < p.run_steps; ++i) {
+    if (tid < kE) {  // this thread wrote these observations in phase 1
+      for (int c = 0; c < p.s_dim; ++c) {
+        sm.act0[c * kE + tid] = mbt::operand<kBf16>(out.obs[(static_cast<size_t>(i) * p.s_dim + c) * n + env]);
+      }
+    }
+    __syncthreads();
+    forward<kBf16>(p, w, sm, vf.head_rows, vf.b_head);
+    if (tid < kE) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[tid];
   }
 }
 
 template <bool kBf16>
-int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const void* w_t,
-           const float* bias, const float* w_head, const float* b_head, const float* log_std,
-           const RolloutOut& out, cudaStream_t stream) {
+int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const void* const* pi,
+           const void* const* vf, const float* log_std, const RolloutOut& out, cudaStream_t stream) {
   using TW = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
   int h_max = p.s_dim, w_total = 0, b_total = 0, k_dim = p.s_dim;
   for (int l = 0; l < p.n_layers; ++l) {
@@ -296,6 +363,13 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
     k_dim = p.widths[l];
   }
   const int n_head = p.a_dim + 1;
+  const bool towers = vf[0] != nullptr;
+  auto tower = [&](const void* const* t, int rows) {
+    return TowerWeights<TW>{static_cast<const TW*>(t[0]), static_cast<const float*>(t[1]),
+                            static_cast<const float*>(t[2]), static_cast<const float*>(t[3]), rows};
+  };
+  const TowerWeights<TW> pi_w = tower(pi, towers ? p.a_dim : n_head);
+  const TowerWeights<TW> vf_w = tower(vf, 1);
   const size_t base = sizeof(float) * (2 * static_cast<size_t>(h_max) * kE + n_head * k_dim + n_head * kE + b_total) + 16;
   const size_t staged = base + sizeof(TW) * static_cast<size_t>(w_total);
   int max_optin = 0, device = 0;
@@ -309,8 +383,7 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n / kE);
   mlp_rollout_kernel<kBf16><<<grid, kThreads, smem, stream>>>(
-      p, n, h_max, seed, noise, static_cast<const TW*>(w_t), w_total, stage_w, bias, b_total,
-      w_head, b_head, log_std, out);
+      p, n, h_max, seed, noise, pi_w, vf_w, w_total, stage_w, b_total, log_std, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -318,21 +391,23 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
 
 // C entry point, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError() (0 on success).
-// `noise` is NULL in native (Philox) mode.  `w_t` holds each layer's
-// (in, out) weight matrix, layers concatenated, as bf16 when `bf16` is set
-// and float otherwise; `w_head` is (A+1, H) float, already rounded to bf16
-// in bf16 mode.  n must be a multiple of 32, every width a multiple of 4
-// and at most 256.
+// `noise` is NULL in native (Philox) mode.  A tower is {w_t, bias, w_head,
+// b_head}: each layer's (in, out) weight matrix, layers concatenated, as
+// bf16 when `bf16` is set and float otherwise; the biases concatenated;
+// the head rows (float, already rounded to bf16 in bf16 mode) and their
+// biases.  Shared trunk: `pi` is the trunk with the merged (A+1)-row head
+// and `vf` is four NULLs.  Towers: `pi` is the pi tower with its A rows,
+// `vf` the vf tower with its value row, of equal widths.  n must be a
+// multiple of 32, every width a multiple of 4 and at most 256.
 extern "C" int mbt_mlp_rollout(const MlpKernelParams* p, int device, int n, uint32_t seed,
-                               const float* noise, int bf16, const void* w_t, const float* bias,
-                               const float* w_head, const float* b_head, const float* log_std,
-                               float* obs, float* act, float* logp, float* value, float* reward,
-                               void* stream) {
+                               const float* noise, int bf16, const void* const* pi, const void* const* vf,
+                               const float* log_std, float* obs, float* act, float* logp, float* value,
+                               float* reward, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
   const RolloutOut out{obs, act, logp, value, reward};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<true>(*p, n, seed, noise, w_t, bias, w_head, b_head, log_std, out, s);
-  return launch<false>(*p, n, seed, noise, w_t, bias, w_head, b_head, log_std, out, s);
+  if (bf16) return launch<true>(*p, n, seed, noise, pi, vf, log_std, out, s);
+  return launch<false>(*p, n, seed, noise, pi, vf, log_std, out, s);
 }

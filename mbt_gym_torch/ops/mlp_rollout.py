@@ -11,10 +11,12 @@ buffers, envs on the minor dimension: obs ``(T, S, N)``, actions
 
 Ported scope: the "limit" family (BM midprice, Poisson arrivals,
 exponential fill, limit-order dynamics, PnL reward) with a fixed start
-time and a fixed initial inventory, and the shared-trunk actor-critic.
+time and a fixed initial inventory, and both actor-critic layouts: the
+shared trunk, and the separate pi/vf towers as the JAX kernel's stacked
+trunk (``split_at`` mode, ``pallas_rollout.py:668-712`` and ``:858-873``).
 :func:`rollout_params_from_config` raises ``AssertionError`` naming any
-other feature as not ported to CUDA yet; separate pi/vf towers raise in
-:func:`transpose_params`.
+other feature as not ported to CUDA yet; towers of unequal widths raise
+``ValueError`` in :func:`transpose_params`.
 
 Which path a call takes depends only on the device of its tensors: CPU
 tensors run :func:`mlp_rollout_plain`, CUDA tensors launch the kernel or
@@ -175,31 +177,70 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
 
 
 class TransposedParams(NamedTuple):
-    """The kernel's view of the actor-critic: ``trunk`` is a list of
+    """The kernels' view of the actor-critic: ``trunk`` is a list of
     ``(W (out, in), b (out,))`` float32 tensors; ``w_head`` ``(A+1, H)`` has
-    the pi rows then the vf row; ``b_head`` ``(A+1,)``; ``log_std`` ``(A,)``."""
+    the pi rows then the vf row; ``b_head`` ``(A+1,)``; ``log_std`` ``(A,)``;
+    ``split_at`` is ``None`` for the shared trunk, else the per-tower widths
+    of the stacked trunk."""
 
     trunk: list
     w_head: torch.Tensor
     b_head: torch.Tensor
     log_std: torch.Tensor
+    split_at: Optional[tuple] = None
+
+
+def _linear(lin) -> tuple:
+    return lin.weight.detach().float(), lin.bias.detach().float()
 
 
 def transpose_params(params) -> TransposedParams:
-    """pallas_rollout.py:668-712 for the shared trunk.  ``nn.Linear``
-    already stores ``W`` as ``(out, in)``, the JAX kernel's ``W^T``.
-    Separate pi/vf towers (the JAX kernel's stacked-trunk ``split_at``
-    mode) are not ported to CUDA yet and raise ``ValueError``."""
-    if not params.shared_trunk:
+    """pallas_rollout.py:668-712.  ``nn.Linear`` already stores ``W`` as
+    ``(out, in)``, the JAX kernel's ``W^T``.  Separate pi/vf towers become
+    a stacked trunk: every layer's rows are the pi tower's then the vf
+    tower's (layer 0 reads the observation, layer i > 0 block-wise the
+    carry below), and the merged ``(A+1, 2H)`` head is zero off its
+    towers' blocks.  Towers of unequal widths raise ``ValueError``."""
+    log_std = params.log_std.detach().float()
+    if params.shared_trunk:
+        trunk = [_linear(lin) for lin in params.shared]
+        w_head = torch.cat([params.pi_head.weight, params.vf_head.weight], dim=0).detach().float()
+        b_head = torch.cat([params.pi_head.bias, params.vf_head.bias]).detach().float()
+        return TransposedParams(trunk, w_head, b_head, log_std)
+    t_pi, t_vf = params.pi[:-1], params.vf[:-1]
+    if [lin.weight.shape for lin in t_pi] != [lin.weight.shape for lin in t_vf]:
         raise ValueError(
-            "the separate pi/vf towers layout (the JAX kernels' stacked-trunk "
-            "split_at mode) is not ported to CUDA yet; use shared_trunk=True "
-            "or the engine path"
+            "separate pi/vf towers must have matching widths (the reference always uses a "
+            f"symmetric net_arch); got {[lin.out_features for lin in t_pi]} and "
+            f"{[lin.out_features for lin in t_vf]}"
         )
-    trunk = [(lin.weight.detach().float(), lin.bias.detach().float()) for lin in params.shared]
-    w_head = torch.cat([params.pi_head.weight, params.vf_head.weight], dim=0).detach().float()
-    b_head = torch.cat([params.pi_head.bias, params.vf_head.bias]).detach().float()
-    return TransposedParams(trunk, w_head, b_head, params.log_std.detach().float())
+    trunk = []
+    for p_lin, v_lin in zip(t_pi, t_vf):
+        (wp, bp), (wv, bv) = _linear(p_lin), _linear(v_lin)
+        trunk.append((torch.cat([wp, wv]), torch.cat([bp, bv])))
+    split_at = tuple(lin.out_features for lin in t_pi)
+    (wp, bp), (wv, bv) = _linear(params.pi[-1]), _linear(params.vf[-1])
+    a_dim, h = wp.shape
+    w_head = torch.zeros((a_dim + 1, 2 * h), dtype=torch.float32, device=wp.device)
+    w_head[:a_dim, :h] = wp
+    w_head[a_dim:, h:] = wv
+    return TransposedParams(trunk, w_head, torch.cat([bp, bv]), log_std, split_at)
+
+
+def tower_params(tp: TransposedParams) -> list:
+    """The ``(trunk, w_head, b_head)`` of each tower the K3 kernel runs:
+    the shared trunk with its merged ``(A+1)``-row head, or the pi tower
+    with its ``A`` head rows and the vf tower with its value row, each cut
+    from its blocks of the stacked trunk."""
+    if tp.split_at is None:
+        return [(tp.trunk, tp.w_head, tp.b_head)]
+    a_dim, h = tp.log_std.shape[0], tp.split_at[-1]
+    towers = []
+    for blk, rows in ((0, slice(0, a_dim)), (1, slice(a_dim, a_dim + 1))):
+        trunk = [(w[blk * wo:(blk + 1) * wo], b[blk * wo:(blk + 1) * wo])
+                 for (w, b), wo in zip(tp.trunk, tp.split_at)]
+        towers.append((trunk, tp.w_head[rows, blk * h:(blk + 1) * h], tp.b_head[rows]))
+    return towers
 
 
 # ------------------------------------------------------------- native noise
@@ -322,7 +363,7 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
     n = num_trajectories
     tp = transpose_params(params)
     trunk = [(w.to(device), b.to(device)) for w, b in tp.trunk]
-    kp = kernel_params(p, [w.shape[0] for w, _ in trunk])
+    kp = kernel_params(p, tp.split_at or [w.shape[0] for w, _ in trunk])
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
     if noise is None:
         noise = philox_noise(seed, T, n, device)
@@ -352,8 +393,13 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
             X = torch.stack(planes)
             obs_out[i] = X
             h = X
-            for w, b in trunk:
-                h = torch.tanh(w @ rnd(h) + b)
+            for li, (w, b) in enumerate(trunk):
+                if tp.split_at is None or li == 0:
+                    pre = w @ rnd(h)
+                else:  # stacked towers: one product per tower on its row blocks
+                    wo, wi = tp.split_at[li], tp.split_at[li - 1]
+                    pre = torch.cat([w[:wo] @ rnd(h[:wi]), w[wo:] @ rnd(h[wi:])])
+                h = torch.tanh(pre + b)
             hd = w_head @ rnd(h) + b_head
             d = noise[i]
             lp = torch.zeros_like(cash)
@@ -399,15 +445,15 @@ def _kernels() -> ctypes.CDLL:
     lib = _build.load("mlp_rollout.cu")
     if not getattr(lib, "_mbt_declared", False):
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.mbt_mlp_rollout.argtypes = [
-            ptr, i32, i32, u32, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        ]
+        lib.mbt_mlp_rollout.argtypes = [ptr, i32, i32, u32, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         lib.mbt_mlp_rollout.restype = i32
         lib._mbt_declared = True
     return lib
 
 
-def _check_kernel_shapes(p: MlpRolloutParams, widths, n: int) -> None:
+def check_kernel_shapes(p: MlpRolloutParams, widths, n: int) -> None:
+    """The K3 kernel's limits on the config, the (per-tower) trunk widths
+    and the env count; ``ValueError`` naming the first one broken."""
     if len(p.obs_low) != S_DIM or len(p.act_low) != A_DIM:
         raise ValueError(f"the K3 kernel takes S={S_DIM}, A={A_DIM}; got {len(p.obs_low)}, {len(p.act_low)}")
     if not 1 <= len(widths) <= _MAX_LAYERS or any(w % 4 or not 0 < w <= _MAX_WIDTH for w in widths):
@@ -435,8 +481,9 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
         raise ValueError(f"the rollout kernel runs on CUDA devices, not {device}")
     n = num_trajectories
     tp = transpose_params(params)
-    widths = [w.shape[0] for w, _ in tp.trunk]
-    _check_kernel_shapes(p, widths, n)
+    towers = tower_params(tp)
+    widths = [w.shape[0] for w, _ in towers[0][0]]
+    check_kernel_shapes(p, widths, n)
     if noise is not None:
         _check_noise(p, n, noise)
         if not noise.is_contiguous():
@@ -445,12 +492,19 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
     bf16 = bool(p.normalise_obs)
     wdt = torch.bfloat16 if bf16 else torch.float32
-    # each layer's (in, out) matrix, layers concatenated
-    w_t = torch.cat([w.to(device).T.contiguous().reshape(-1) for w, _ in tp.trunk]).to(wdt)
-    bias = torch.cat([b.to(device) for _, b in tp.trunk]).contiguous()
-    w_head = tp.w_head.to(device)
-    w_head = (bf16_round(w_head) if bf16 else w_head).contiguous()
-    b_head = tp.b_head.to(device).contiguous()
+
+    def packed(trunk, w_head, b_head):
+        # each layer's (in, out) matrix, layers concatenated; the head rows
+        w_t = torch.cat([w.to(device).T.contiguous().reshape(-1) for w, _ in trunk]).to(wdt)
+        bias = torch.cat([b.to(device) for _, b in trunk]).contiguous()
+        w_head = w_head.to(device)
+        w_head = (bf16_round(w_head) if bf16 else w_head).contiguous()
+        return w_t, bias, w_head, b_head.to(device).contiguous()
+
+    tensors = [packed(*tower) for tower in towers]  # kept alive until the launch returns
+    pointers = [(ctypes.c_void_p * 4)(*(x.data_ptr() for x in t)) for t in tensors]
+    if len(pointers) == 1:
+        pointers.append((ctypes.c_void_p * 4)())
     log_std = tp.log_std.to(device).contiguous()
     f32 = torch.float32
     obs = torch.empty((T, S, n), dtype=f32, device=device)
@@ -459,8 +513,7 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
     index, stream = _build.device_stream(device)
     rc = _kernels().mbt_mlp_rollout(
         ctypes.byref(kp), index, n, int(seed) & _MASK32,
-        None if noise is None else noise.data_ptr(), int(bf16), w_t.data_ptr(), bias.data_ptr(),
-        w_head.data_ptr(), b_head.data_ptr(), log_std.data_ptr(),
+        None if noise is None else noise.data_ptr(), int(bf16), pointers[0], pointers[1], log_std.data_ptr(),
         obs.data_ptr(), act.data_ptr(), logp.data_ptr(), val.data_ptr(), rew.data_ptr(), stream,
     )
     if rc != 0:

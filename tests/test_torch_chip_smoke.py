@@ -1,0 +1,35 @@
+"""chip_smoke.py's host-side arithmetic, which the CPU can check: the
+device busy time of a profile (the union of the device events'
+intervals) and the FLOP counts behind the update kernels' bounds."""
+import pytest
+
+import chip_smoke
+
+
+@pytest.mark.parametrize("intervals,want_us", [
+    ([], 0.0),
+    ([(0.0, 2.0), (5.0, 6.0)], 3.0),  # apart
+    ([(0.0, 2.0), (1.0, 3.0)], 3.0),  # overlapping: a kernel beside a copy
+    ([(0.0, 10.0), (2.0, 3.0), (4.0, 5.0)], 10.0),  # nested: an op's span and its kernels
+    ([(4.0, 5.0), (0.0, 1.0), (0.5, 4.5)], 5.0),  # unsorted
+])
+def test_busy_time_is_the_union_of_intervals(intervals, want_us):
+    """Time covered by any interval, none counted twice, so busy time is
+    at most the span of the events (and the wall time around them)."""
+    got = chip_smoke.busy_ms(intervals)
+    assert got == want_us / 1e3
+    if intervals:
+        span = max(e for _, e in intervals) - min(s for s, _ in intervals)
+        assert got <= span / 1e3
+
+
+def test_towers_flop_counts():
+    """Separate towers do the trunk's work twice and the heads' once.  At
+    S=4, 256x256, A=2, per sample: forward 2(4*256 + 256*256 + 3*256) =
+    134,656 (towers 2(2*4*256 + 2*256*256 + 3*256) = 267,776); backward
+    dh2, dW_head, dW1, dh1, dW0 2(2*3*256 + 2*256*256 + 4*256) = 267,264
+    (towers 2(2*3*256 + 4*256*256 + 2*4*256) = 531,456)."""
+    assert chip_smoke.mlp_flops_per_sample(4, 256, 256, 2) == 134_656
+    assert chip_smoke.mlp_flops_per_sample(4, 256, 256, 2, towers=2) == 267_776
+    assert chip_smoke.ppo_grad_flops_per_sample(4, 256, 256, 2) == 134_656 + 267_264
+    assert chip_smoke.ppo_grad_flops_per_sample(4, 256, 256, 2, towers=2) == 267_776 + 531_456

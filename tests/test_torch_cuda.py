@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: the episode kernels K1 and K2, the MLP rollout K3, the fused PPO
-update K4, the deterministic-policy rollout K5, the OE episode K6 and the
-CJ episode K8.  They have no CPU mode, so every test here skips on a host
+card: the episode kernels K1 and K2, the MLP rollout K3 (both actor-critic
+layouts), the fused PPO updates K4 (both layouts) and K7, the
+deterministic-policy rollout K5, the OE episode K6 and the CJ episode K8.  They have no CPU mode, so every test here skips on a host
 without a GPU.  This file imports neither JAX nor the JAX package, so it
 runs on the GPU machine too, without the suite's conftest:
 
@@ -135,6 +135,36 @@ def test_fused_ppo_kernel_matches_plain_on_the_card(cuda_device, compute_dtype):
     torch.cuda.synchronize()
     assert _build.launch_counts["ppo_fused_grads_T"] == before + 1
     assert set(grads) == {name for name, _ in model.named_parameters()}
+    _assert_update_close(grads, metrics, want_g, want_m, compute_dtype)
+
+
+@pytest.mark.parametrize("normalised", [True, False], ids=["bf16-operands", "float32"])
+def test_mlp_rollout_towers_kernel_matches_plain_on_the_card(cuda_device, normalised):
+    """K3's towers mode (separate 256x256 pi/vf towers: the pi phase, then
+    the vf phase's values) at 4,096 envs x 200 steps against its plain
+    version, at the shared-trunk test's limits."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import mlp_rollout as mr
+
+    n = 4096
+    p = mr.rollout_params_from_config(_ppo_cfg(n, normalised))
+    model = init_actor_critic(5, 4, 2, hidden=(256, 256), shared_trunk=False, device=cuda_device)
+    before = _build.launch_counts["mlp_rollout"]
+    for kw in ({"noise": _mlp_channels(3, 200, n, cuda_device)}, {"seed": 8, "device": cuda_device}):
+        got = mr.mlp_rollout(p, model, num_trajectories=n, **kw)
+        want = mr.mlp_rollout_plain(p, model, num_trajectories=n, **kw)
+        torch.cuda.synchronize()
+        same = _same_inventory_envs(got, want, n)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3)
+    assert _build.launch_counts["mlp_rollout"] == before + 2
+
+
+def _assert_update_close(grads, metrics, want_g, want_m, compute_dtype):
+    """float32: every grad to rtol=1e-4 with atol 1e-4 of the leaf's largest
+    value; bf16: relative Frobenius error per leaf at most 1e-3 (same
+    roundings, another summation order).  Metrics to rtol=1e-4."""
+    assert set(grads) == set(want_g)
     for name, want in want_g.items():
         got = grads[name]
         assert got.shape == want.shape, name
@@ -145,6 +175,93 @@ def test_fused_ppo_kernel_matches_plain_on_the_card(cuda_device, compute_dtype):
             assert _rel_frobenius(got, want) <= 1e-3, (name, _rel_frobenius(got, want))
     for name, want in want_m.items():
         torch.testing.assert_close(metrics[name], want, rtol=1e-4, atol=1e-7)
+
+
+def _update_samples(shared_trunk, device):
+    """A moved model (log_std + 0.05, so both clip branches occur) and a
+    K3 rollout of the unmoved one at 8,192 x 200 on the card."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops.mlp_rollout import collect_rollout_fused
+
+    model = init_actor_critic(6, 4, 2, hidden=(256, 256), shared_trunk=shared_trunk, device=device)
+    batch = collect_rollout_fused(_ppo_cfg(8192), model, 12, device=device)
+    with torch.no_grad():
+        model.log_std.add_(0.05)
+    return model, batch
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_fused_ppo_towers_kernel_matches_plain_on_the_card(cuda_device, compute_dtype):
+    """K4's stacked-trunk mode on separate 256x256 towers, on a 4,096-env
+    slice (strided views) of a towers K3 rollout, against its plain
+    version."""
+    from mbt_gym_torch.agents.ppo import normalise
+    from mbt_gym_torch.ops import fused_ppo
+
+    model, batch = _update_samples(False, cuda_device)
+    sl = lambda x: x.transpose(1, 2)[..., 4096:] if x.dim() == 3 else x[..., 4096:]  # noqa: E731
+    args = (sl(batch.obs), sl(batch.actions), sl(batch.log_probs), normalise(sl(batch.advantages)),
+            sl(batch.returns))
+    before = _build.launch_counts["ppo_fused_grads_T"]
+    grads, metrics = fused_ppo.ppo_fused_grads_T(model, *args, compute_dtype=compute_dtype)
+    want_g, want_m = fused_ppo.ppo_fused_grads_T_plain(model, *args, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ppo_fused_grads_T"] == before + 1
+    assert set(grads) == {name for name, _ in model.named_parameters()}
+    _assert_update_close(grads, metrics, want_g, want_m, compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_fused_ppo_rows_kernel_matches_plain_on_the_card(cuda_device, compute_dtype):
+    """K7 on a shuffled row-major minibatch (819,200 of the 1,638,400
+    samples of a shared-trunk K3 rollout, gathered by a permutation)
+    against its plain version."""
+    from mbt_gym_torch.agents.ppo import normalise
+    from mbt_gym_torch.ops import fused_ppo
+
+    model, batch = _update_samples(True, cuda_device)
+    flat = [batch.obs.reshape(-1, 4), batch.actions.reshape(-1, 2), batch.log_probs.reshape(-1),
+            batch.advantages.reshape(-1), batch.returns.reshape(-1)]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    idx = torch.randperm(flat[2].numel(), generator=gen, device=cuda_device)[:819_200]
+    args = [x[idx] for x in flat]
+    args[3] = normalise(args[3])
+    before = _build.launch_counts["ppo_fused_grads"]
+    grads, metrics = fused_ppo.ppo_fused_grads(model, *args, compute_dtype=compute_dtype)
+    want_g, want_m = fused_ppo.ppo_fused_grads_plain(model, *args, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ppo_fused_grads"] == before + 1
+    assert set(grads) == {name for name, _ in model.named_parameters()}
+    _assert_update_close(grads, metrics, want_g, want_m, compute_dtype)
+
+
+def test_update_kernels_refuse_outside_their_limits_on_the_card(cuda_device):
+    """A trunk outside the update kernels' limits, a ragged sample count or
+    a towers minibatch that re-blocks to fewer than 32 lanes raises a
+    ValueError naming the limit, before any launch."""
+    from mbt_gym_torch.agents import ppo
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import fused_ppo
+
+    m = 1024
+    rows = [torch.zeros((m, 4), device=cuda_device), torch.zeros((m, 2), device=cuda_device)]
+    rows += [torch.zeros(m, device=cuda_device) for _ in range(3)]
+    narrow = init_actor_critic(0, 4, 2, hidden=(32, 32), shared_trunk=True, device=cuda_device)
+    with pytest.raises(ValueError, match="K7 kernel takes a two-layer trunk"):
+        fused_ppo.ppo_fused_grads(narrow, *rows)
+    towers = init_actor_critic(0, 4, 2, hidden=(64, 64, 64), shared_trunk=False, device=cuda_device)
+    feature_major = [x.reshape(8, m // 8, -1).transpose(1, 2).contiguous() if x.dim() == 2 else x.reshape(8, m // 8)
+                     for x in rows]
+    with pytest.raises(ValueError, match="K4 kernel takes a two-layer trunk"):
+        fused_ppo.ppo_fused_grads_T(towers, *feature_major)
+    wide = init_actor_critic(0, 4, 2, hidden=(64, 64), shared_trunk=True, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 32 samples"):
+        fused_ppo.ppo_fused_grads(wide, *(x[: m - 8] for x in rows))
+    towers = init_actor_critic(0, 4, 2, hidden=(64, 64), shared_trunk=False, device=cuda_device)
+    cfg = ppo.PPOConfig(hidden=(64, 64), fused_update=True)
+    odd = ppo.UpdateBatch(*(x[: m - 8] for x in rows))
+    with pytest.raises(ValueError, match="at least 32 lanes"):
+        ppo._fused_grads_and_metrics(towers, cfg, odd)
 
 
 def _assert_terminal_close(got, want, n):

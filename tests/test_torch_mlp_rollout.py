@@ -108,8 +108,13 @@ def test_config_guard_names_unported_features():
     ):
         with pytest.raises(AssertionError, match=match):
             mr.rollout_params_from_config(dataclasses.replace(cfg, **change))
+    # the separate pi/vf towers now run (the stacked-trunk mode); towers of
+    # unequal widths, which the JAX kernel refuses too, raise by name
     towers = init_actor_critic(0, 4, 2, hidden=(16, 16), shared_trunk=False, device="cpu")
-    with pytest.raises(ValueError, match="towers layout .*not ported to CUDA"):
+    out = mr.mlp_rollout(mr.rollout_params_from_config(cfg), towers, 0, N, device="cpu")
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    towers.vf = torch.nn.ModuleList([torch.nn.Linear(4, 8), torch.nn.Linear(8, 16), torch.nn.Linear(16, 1)])
+    with pytest.raises(ValueError, match="towers must have matching widths"):
         mr.mlp_rollout(mr.rollout_params_from_config(cfg), towers, 0, N, device="cpu")
 
 

@@ -1,7 +1,8 @@
 """mbt_gym_torch PPO learner against the JAX package's: the loss and its
 autograd grads, GAE, one optimizer step, the engine train_iteration on the
-CPU, train_chunk, evaluation, and the named refusals of unported layouts.
-Inputs are made with numpy from seeds and handed to both packages."""
+CPU, train_chunk, evaluation, and the named refusals outside the
+kernels' contract.  Inputs are made with numpy from seeds and handed to
+both packages."""
 import dataclasses
 
 import jax
@@ -192,21 +193,32 @@ def test_train_chunk_equals_sequential_iterations():
 
 
 def test_unported_fused_layouts_raise_named_errors():
+    """Every fused config (either fused flag on the towers, fused_update
+    alone on either layout, evaluate_policy's fused backend on the towers)
+    runs on the CPU through the plain versions with finite metrics in the
+    bands.  What is outside the kernels' contract raises by name: towers
+    of unequal widths, and a trunk outside the CUDA kernels' limits."""
+    from mbt_gym_torch.ops import fused_ppo
+
     env_cfg = _env(n=128, steps=8)
-    towers = ppo.PPOConfig(hidden=(16, 16), shuffle=False, shared_trunk=False, fused_rollout=True,
-                           fused_update=True)
-    ts = ppo.init_train_state(env_cfg, towers, 0, device="cpu")
-    with pytest.raises(ValueError, match="separate pi/vf towers layout.*not ported to CUDA"):
-        ppo.train_iteration(env_cfg, towers, ts, 0)
-    with pytest.raises(ValueError, match="separate pi/vf towers layout.*not ported to CUDA"):
-        ppo.train_iteration(env_cfg, dataclasses.replace(towers, fused_update=False), ts, 0)
-    update_only = ppo.PPOConfig(hidden=(16, 16), shuffle=False, shared_trunk=True, fused_update=True)
-    ts = ppo.init_train_state(env_cfg, update_only, 0, device="cpu")
-    with pytest.raises(ValueError, match="K7.*not ported to CUDA"):
-        ppo.train_iteration(env_cfg, update_only, ts, 0)
-    with pytest.raises(ValueError, match="towers layout is not ported"):
-        ppo.evaluate_policy(env_cfg, networks.init_actor_critic(0, 4, 2, (16, 16), device="cpu"), 0,
-                            backend="fused")
+    base = dict(hidden=(16, 16), n_epochs=1, n_minibatches=2)
+    for kw in (dict(shared_trunk=False, fused_rollout=True, fused_update=True, shuffle=False),
+               dict(shared_trunk=False, fused_rollout=True),
+               dict(shared_trunk=False, fused_update=True),
+               dict(shared_trunk=True, fused_update=True)):
+        cfg = ppo.PPOConfig(**base, **kw)
+        ts = ppo.init_train_state(env_cfg, cfg, 0, device="cpu")
+        _, metrics = ppo.train_iteration(env_cfg, cfg, ts, 0)
+        _assert_metric_bands(metrics, str(kw))
+    towers = networks.init_actor_critic(0, 4, 2, (16, 16), device="cpu")
+    assert np.isfinite(float(ppo.evaluate_policy(env_cfg, towers, 0, backend="fused")))
+    cfg = ppo.PPOConfig(**base, shared_trunk=False, fused_update=True)
+    ts = ppo.init_train_state(env_cfg, cfg, 0, device="cpu")
+    ts.params.vf = torch.nn.ModuleList([torch.nn.Linear(4, 8), torch.nn.Linear(8, 16), torch.nn.Linear(16, 1)])
+    with pytest.raises(ValueError, match="towers must have matching widths"):
+        ppo.train_iteration(env_cfg, cfg, ppo.PPOTrainState(ts.params, ppo.make_optimizer(cfg, ts.params), 0), 0)
+    with pytest.raises(ValueError, match="K4 kernel takes a two-layer trunk with widths"):
+        fused_ppo.check_kernel_limits(towers, 1024, 4, 2, "K4")
 
 
 def test_fused_rollout_with_engine_update_runs_on_cpu():
