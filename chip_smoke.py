@@ -244,11 +244,12 @@ def compare_grads(torch, grads, metrics, want_g, want_m, dtype, label):
     in both, so only summation order differs); metrics to rtol=1e-4.
     Returns the max abs error of the bf16 grads (0 for float32)."""
     check(set(grads) == set(want_g), f"{label}: grads {sorted(grads)} vs {sorted(want_g)}")
-    worst, err = 0.0, 0.0
+    worst, worst_leaf, err = 0.0, None, 0.0
     for name, want in want_g.items():
         got = grads[name]
         rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want).clamp_min(1e-30))
-        worst = max(worst, rel)
+        if rel >= worst:
+            worst, worst_leaf = rel, name
         if dtype == "float32":
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()),
                                        msg=lambda m: f"{label} {name}: {m}")
@@ -257,9 +258,37 @@ def compare_grads(torch, grads, metrics, want_g, want_m, dtype, label):
             err = max(err, float((got - want).abs().max()))
     for name, want in want_m.items():
         torch.testing.assert_close(metrics[name], want, rtol=1e-4, atol=1e-7, msg=lambda m: f"{label} {name}: {m}")
-    print(f"{label}: worst relative Frobenius error {worst:.3g}, "
+    print(f"{label}: worst relative Frobenius error {worst:.3g} ({worst_leaf}), "
           f"metrics {[round(float(v), 6) for v in metrics.values()]}")
     return err
+
+
+def check_repeat(torch, first, second, label):
+    """Two launches of an update kernel on the same minibatch give bitwise
+    equal grads and metrics (fixed tile ranges, fixed-order reductions)."""
+    for got, again in zip(first, second):
+        differ = [name for name in got if not torch.equal(got[name], again[name])]
+        check(not differ, f"{label}: a repeated launch differs in {differ}")
+    print(f"{label}: a repeated launch is bitwise equal")
+
+
+def engine_grad_ms(torch, model, rows, label, card):
+    """The update kernels' yardstick: milliseconds of the port's autograd
+    gradient of the same row-major minibatch in bf16, as ``_engine_update``
+    computes it (``_ppo_loss`` then ``backward()``, agents/ppo.py:321-324)."""
+    from mbt_gym_torch.agents.ppo import PPOConfig, UpdateBatch, _ppo_loss
+
+    cfg = PPOConfig(hidden=(256, 256), compute_dtype="bfloat16")
+    batch = UpdateBatch(*rows)
+
+    def grad():
+        model.zero_grad(set_to_none=True)
+        _ppo_loss(model, cfg, batch)[0].backward()
+
+    ms = cuda_ms(torch, grad, warmup=1, reps=3)
+    model.zero_grad(set_to_none=True)
+    print(f"{label} [{card}]: engine (autograd) gradient of the same minibatch {ms} ms")
+    return ms
 
 
 def ppo_phases(torch, np, card, dev):
@@ -325,11 +354,13 @@ def ppo_phases(torch, np, card, dev):
     k4_err = 0.0
     for dtype in ("float32", "bfloat16"):
         grads, metrics = fused_ppo.ppo_fused_grads_T(moved, *mb, compute_dtype=dtype)
+        again = fused_ppo.ppo_fused_grads_T(moved, *mb, compute_dtype=dtype)
         want_g, want_m = fused_ppo.ppo_fused_grads_T_plain(moved, *mb, compute_dtype=dtype)
         torch.cuda.synchronize()
         k4_err = max(k4_err, compare_grads(torch, grads, metrics, want_g, want_m, dtype,
                                            f"phase 9 K4 {dtype} at {steps}x{nb}"))
-    del got, obs_t, actions_t, log_probs, values, rewards, adv, returns, mb
+        check_repeat(torch, (grads, metrics), again, f"phase 9 K4 {dtype}")
+    del got, obs_t, actions_t, log_probs, values, rewards, adv, returns, mb, again
 
     # ---- phase 10: the fused main path through the public entry points
     ts = init_train_state(env_cfg, ppo_cfg, 0)
@@ -389,6 +420,9 @@ def ppo_phases(torch, np, card, dev):
     mb[3] = normalise(mb[3])
     k4_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(params, *mb), warmup=2, reps=10)
     k4_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(params, *mb), warmup=1, reps=3)
+    rows = [x.permute(0, 2, 1).reshape(steps * nb, -1) if x.dim() == 3 else x.reshape(-1) for x in mb]
+    k4_engine_ms = engine_grad_ms(torch, params, rows, f"phase 12 K4 at {steps}x{nb}", card)
+    del rows
 
     s_dim, a_dim, (h0, h1) = 4, 2, ppo_cfg.hidden
     # K3 native mode reads nothing per step and writes obs, actions,
@@ -400,11 +434,12 @@ def ppo_phases(torch, np, card, dev):
     samples = steps * nb
     k4_bound = bound_ms((s_dim + a_dim + 3) * 4 * samples, ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim) * samples,
                         BF16_OPS_PER_S)
-    for name, ms, plain_ms, (b_ms, b_by), shape in (
-        ("K3 mlp_rollout native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}"),
-        ("K4 ppo_fused_grads_T bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{steps}x{nb}"),
+    for name, ms, plain_ms, (b_ms, b_by), shape, engine in (
+        ("K3 mlp_rollout native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}", ""),
+        ("K4 ppo_fused_grads_T bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{steps}x{nb}",
+         f", engine {k4_engine_ms} ms"),
     ):
-        print(f"phase 12 [{card}] {name} at {shape}: {ms} ms, plain {plain_ms} ms, "
+        print(f"phase 12 [{card}] {name} at {shape}: {ms} ms, plain {plain_ms} ms{engine}, "
               f"bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound")
     return [
         {
@@ -416,7 +451,7 @@ def ppo_phases(torch, np, card, dev):
         {
             "name": "K4 ppo_fused_grads_T", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/fused_ppo.cu",
             "replaces": "mbt_gym_tpu/ops/fused_ppo.py:392", "launches": launches["ppo_fused_grads_T"],
-            "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+            "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms, "engine_ms": k4_engine_ms,
             "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None,
         },
     ]
@@ -751,16 +786,52 @@ EVAL_N = 16_384
 
 
 def kernel_registers(report, names):
-    """(kernel entry, its ptxas usage line) for every entry of a ptxas -v
-    report whose mangled name contains one of ``names``."""
-    rows, entry = [], None
+    """(kernel entry, its ptxas usage line with the spill line before it)
+    for every entry of a ptxas -v report whose mangled name contains one of
+    ``names``."""
+    rows, entry, spills = [], None, ""
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
+            entry, spills = line.split("'")[1], ""
+        elif entry and "spill stores" in line:
+            spills = line.strip()
         elif entry and "Used" in line and any(n in entry for n in names):
-            rows.append((entry, line.split(":", 1)[1].strip()))
+            usage = line.split(":", 1)[1].strip()
+            rows.append((entry, f"{usage}; {spills}" if spills else usage))
             entry = None
     return rows
+
+
+def sass_counts(sass, opcode):
+    """{kernel entry: number of SASS lines holding ``opcode``} from
+    ``cuobjdump -sass`` output."""
+    counts, entry = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            entry = line.split("Function : ", 1)[1].strip()
+            counts[entry] = 0
+        elif entry is not None and opcode in line:
+            counts[entry] += 1
+    return counts
+
+
+def check_tensor_cores(library, label):
+    """Phase 18: the bf16 instantiations of the fused update's passes issue
+    tensor-core instructions (HMMA in the SASS) and the float32 ones none."""
+    import shutil
+    from pathlib import Path
+
+    from mbt_gym_torch.ops import _build
+
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    passes = {k: v for k, v in sass_counts(sass, "HMMA").items() if "ppo_pass" in k}
+    check(len(passes) == 8, f"phase 18: {len(passes)} pass kernels in the SASS of {library}, not 8")
+    for entry, n in sorted(passes.items()):
+        bf16 = "__nv_bfloat16" in entry
+        print(f"phase 18 {label} {entry[:90]}: {n} HMMA ({'bf16' if bf16 else 'float32'})")
+        check(n > 0 if bf16 else n == 0, f"phase 18: {n} HMMA in {entry}")
 
 
 def update_phases(torch, np, card, dev):
@@ -780,15 +851,17 @@ def update_phases(torch, np, card, dev):
     from mbt_gym_torch.ops import mlp_rollout as mr
     from mbt_gym_torch.utils.config import as_env_config
 
-    # ---- phase 18: registers and spills of the new variants (the full
+    # ---- phase 18: registers and spills of the update passes (the full
     # report is printed with the builds above): K7 is ppo_pass1/ppo_pass2
-    # with kRowMajor = true (template arguments "Lb?ELb1E"), K3's towers
-    # phase is in mlp_rollout_kernel
+    # with kRowMajor = true (template arguments "Lb?ELb1E"), the bf16
+    # instantiations "Lb1E...13__nv_bfloat16"; K3's towers phase is in
+    # mlp_rollout_kernel.  Then the tensor-core instructions of each pass.
     for src, names in (("fused_ppo.cu", ("ppo_pass1", "ppo_pass2")), ("mlp_rollout.cu", ("mlp_rollout_kernel",))):
         rows = kernel_registers(_build.ptxas_reports.get(src, ""), names)
         check(rows, f"phase 18: no ptxas report for {names} in {src}")
         for entry, usage in rows:
-            print(f"phase 18 registers {src} {entry[:72]}: {usage}")
+            print(f"phase 18 registers {src} {entry[:90]}: {usage}")
+    check_tensor_cores(_build.build("fused_ppo.cu"), "fused_ppo.cu")
 
     env_cfg = dataclasses.replace(
         as_env_config(num_trajectories=PPO_N),
@@ -825,16 +898,20 @@ def update_phases(torch, np, card, dev):
     err = {"K7": 0.0, "K4 towers": 0.0, "K3 towers": 0.0}
     for dtype in ("float32", "bfloat16"):
         grads, metrics = fused_ppo.ppo_fused_grads(shared, *mb, compute_dtype=dtype)
+        again = fused_ppo.ppo_fused_grads(shared, *mb, compute_dtype=dtype)
         want_g, want_m = fused_ppo.ppo_fused_grads_plain(shared, *mb, compute_dtype=dtype)
         torch.cuda.synchronize()
         err["K7"] = max(err["K7"], compare_grads(torch, grads, metrics, want_g, want_m, dtype,
                                                  f"phase 19 K7 {dtype} at {m} samples"))
+        check_repeat(torch, (grads, metrics), again, f"phase 19 K7 {dtype}")
         grads, metrics = fused_ppo.ppo_fused_grads_T(towers, *mb_t, compute_dtype=dtype)
+        again = fused_ppo.ppo_fused_grads_T(towers, *mb_t, compute_dtype=dtype)
         want_g, want_m = fused_ppo.ppo_fused_grads_T_plain(towers, *mb_t, compute_dtype=dtype)
         torch.cuda.synchronize()
         err["K4 towers"] = max(err["K4 towers"], compare_grads(
             torch, grads, metrics, want_g, want_m, dtype, f"phase 19 K4 towers {dtype} at {rows}x{lanes}"))
-    del grads, want_g
+        check_repeat(torch, (grads, metrics), again, f"phase 19 K4 towers {dtype}")
+    del grads, want_g, again
     with torch.no_grad():
         for model in (shared, towers):
             model.log_std.sub_(0.05)
@@ -919,6 +996,8 @@ def update_phases(torch, np, card, dev):
     k7_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_plain(shared, *mb), warmup=1, reps=2)
     k4_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(towers, *mb_t), warmup=1, reps=3)
     k4_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(towers, *mb_t), warmup=1, reps=2)
+    k7_engine_ms = engine_grad_ms(torch, shared, mb, f"phase 21 K7 at {m} samples", card)
+    k4_engine_ms = engine_grad_ms(torch, towers, mb, f"phase 21 K4 towers at {m} samples", card)
     k3_ms = cuda_ms(torch, lambda: mr.mlp_rollout(p, towers, 9, PPO_N, device=dev), warmup=1, reps=3)
     k3_plain_ms = cuda_ms(torch, lambda: mr.mlp_rollout_plain(p, towers, 9, PPO_N, device=dev), warmup=1, reps=1)
     # K7 and K4 read obs, actions, old log-prob, advantage and return once
@@ -929,12 +1008,14 @@ def update_phases(torch, np, card, dev):
     k4_bound = bound_ms(per_sample * m, ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim, towers=2) * m, BF16_OPS_PER_S)
     k3_bound = bound_ms(per_sample * env_steps, mlp_flops_per_sample(s_dim, h0, h1, a_dim, towers=2) * env_steps,
                         BF16_OPS_PER_S)
-    for name, ms, plain_ms, (b_ms, b_by), shape in (
-        ("K7 ppo_fused_grads bf16 (one shuffled minibatch)", k7_ms, k7_plain_ms, k7_bound, f"{m} samples"),
-        ("K4 ppo_fused_grads_T towers bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{rows}x{lanes}"),
-        ("K3 mlp_rollout towers native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}"),
+    for name, ms, plain_ms, (b_ms, b_by), shape, engine in (
+        ("K7 ppo_fused_grads bf16 (one shuffled minibatch)", k7_ms, k7_plain_ms, k7_bound, f"{m} samples",
+         f", engine {k7_engine_ms} ms"),
+        ("K4 ppo_fused_grads_T towers bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{rows}x{lanes}",
+         f", engine {k4_engine_ms} ms"),
+        ("K3 mlp_rollout towers native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}", ""),
     ):
-        print(f"phase 21 [{card}] {name} at {shape}: {ms} ms, plain {plain_ms} ms, "
+        print(f"phase 21 [{card}] {name} at {shape}: {ms} ms, plain {plain_ms} ms{engine}, "
               f"bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound")
     eval_cfg = dataclasses.replace(env_cfg, num_trajectories=EVAL_N)
     for label, model in (("shared trunk", shared), ("separate towers", towers)):
@@ -952,7 +1033,7 @@ def update_phases(torch, np, card, dev):
     k7 = {
         "name": "K7 ppo_fused_grads", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/fused_ppo.cu",
         "replaces": "mbt_gym_tpu/ops/fused_ppo.py:634", "launches": launches["a"]["ppo_fused_grads"],
-        "max_abs_err": err["K7"], "ms": k7_ms, "plain_ms": k7_plain_ms,
+        "max_abs_err": err["K7"], "ms": k7_ms, "plain_ms": k7_plain_ms, "engine_ms": k7_engine_ms,
         "bound_ms": k7_bound[0], "bound_by": k7_bound[1], "library_ms": None,
     }
     towers_figures = {
@@ -960,7 +1041,7 @@ def update_phases(torch, np, card, dev):
                "towers_ms": k3_ms, "towers_plain_ms": k3_plain_ms, "towers_bound_ms": k3_bound[0]},
         "K4": {"towers_launches": launches["b"]["ppo_fused_grads_T"] + launches["c"]["ppo_fused_grads_T"],
                "towers_max_abs_err": err["K4 towers"], "towers_ms": k4_ms, "towers_plain_ms": k4_plain_ms,
-               "towers_bound_ms": k4_bound[0]},
+               "towers_engine_ms": k4_engine_ms, "towers_bound_ms": k4_bound[0]},
     }
     return k7, towers_figures
 

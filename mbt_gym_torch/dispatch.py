@@ -143,6 +143,8 @@ def _check_cj(cfg: EnvConfig, meta: dict, mode: str, device: torch.device) -> No
             "closed-form depths are model units; disable "
             "normalise_action_space for the closed-form CJ policy"
         )
+    if p.random_start:
+        raise _Ineligible("random start times with the table policy run on the engine")
     if p.inventory_range and mode == "stats":
         raise _Ineligible(
             "random initial inventory is unsupported by the table stats "
@@ -166,6 +168,8 @@ def _check_fixed(cfg: EnvConfig, meta: dict, mode: str, device: torch.device) ->
             f"fixed action has {len(p.fixed_action)} columns; "
             f"{p.dynamics_kind} dynamics takes {p.a_dim}"
         )
+    if p.random_start:
+        raise _Ineligible("random start times with the fixed policy run on the engine")
     if p.inventory_range and mode == "stats":
         raise _Ineligible(
             "random initial inventory is unsupported by the fixed stats "

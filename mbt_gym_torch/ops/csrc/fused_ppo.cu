@@ -44,28 +44,51 @@
 //     memory.
 //   pass 2, (stacked h1 / 64) x 64 CTAs: each owns 64 rows of layer 1 (of
 //     one tower) and a fixed range of tiles; it recomputes its tower's
-//     layer-0 activations and its 64 rows of layer 1 (the same ordered sums
-//     as pass 1, so the same values), forms its rows of dz2 from dmv and
-//     holds its 64 x h0 slice of dW1 in registers.
+//     layer-0 activations and its 64 rows of layer 1, forms its rows of
+//     dz2 from dmv and holds its 64 x h0 slice of dW1 in registers.
 //   pass 3: partial sums reduced over the CTAs in a fixed order.
-// The recomputation costs ~1.35x the minimum FLOPs.  Every product runs on
-// CUDA cores with explicit FMAs (dense.cuh); per-row sums over the 32
-// samples of a tile are warp butterflies, also in a fixed order.
+// A repeated launch therefore gives bitwise-equal grads.
 //
 // Bound on the H100: operations.  Per sample at S = 4, 256x256, A = 2:
 // forward 2*(4*256 + 256*256 + 3*256), backward the same again for dh and
-// the weight gradients (~4.0e5 FLOP; about twice that with towers).  A
-// 3,276,800-sample minibatch is 1.32 TFLOP: 1.33 ms at the bf16
-// tensor-core peak, against 118 MB read (0.035 ms).  On CUDA cores at the
-// 67 TFLOP/s float32 peak the floor is ~20 ms; tensor cores (wgmma) are
-// later work.
+// the weight gradients (4.0e5 FLOP; 8.0e5 with towers).  A 3,276,800-sample
+// minibatch is 1.32 TFLOP (2.62 with towers): 1.332 ms (2.648 ms) at the
+// 989 TFLOP/s bf16 tensor-core peak, against 118 MB read (0.035 ms).
+//
+// What the design does about it.  In the bf16 instantiations the three
+// 256-wide products run on the tensor cores as warp-level
+// mma.sync.m16n8k16 (bf16 operands, float32 sums): layer 1's forward
+// Z2 = W1 H1 (pass 1, and pass 2's recompute of its 64 rows), its
+// transpose dH1 = W1^T dZ2 (pass 1), and dW1 += dZ2 H1^T over a tile's
+// samples (pass 2).  Activation tiles are bf16 in shared memory (they are
+// bf16 operands already, so storing them so changes no value) and reach the
+// mma through ldmatrix.  The W1 operands come in mma fragment order (the
+// wrapper packs wb1 for the forward and wf1 for the transpose): pass 1
+// reads them from device memory through L2, one 16-byte load per lane and
+// 16x16 block with two k blocks in flight (at most 256 KB of bf16, resident
+// in the 50 MB L2); a pass-2 CTA stages its 64 rows (32 KB) in shared
+// memory once.  Layer 0 (k = S <= 8), the merged head (A+1 <= 5 rows), the
+// loss, the bias, dW0 and log_std gradients and the metrics stay on CUDA
+// cores; there the per-row sums over a tile's samples are one thread per
+// row (float32: warp butterflies), in a fixed order.  The float32
+// instantiations keep every product on CUDA cores with explicit FMAs
+// (dense.cuh): TF32 would break their rtol of 1e-4.
+// What still holds it back (chip_smoke.py, PERF.md): CUDA-core work, above
+// all the tanh of layer 0, which pass 2 recomputes in each of its 64-row
+// CTAs, and of layer 1 (~1.35x the minimum FLOPs in all); the per-tile L2
+// reads of W1 in pass 1; mma.sync, which issues a 16x8 product per warp
+// where wgmma issues 64xN per warpgroup with operands from shared memory.
+// wgmma with TMA-staged weights is the next step.
 //
 // Numerics follow the plain PyTorch versions (ops/fused_ppo.py) in both
 // compute dtypes.  bf16: every matmul operand rounded to bf16 with a
 // float32 sum; the saved activations rounded to bf16 (fused_ppo.py:276);
 // tanh' = 1 - h*h evaluated in bf16 (h*h rounded, then 1 - that rounded)
 // before it multiplies the float32 dh (:314).  float32: no rounding.
-// Bias gradients and metrics sum the unrounded float32 values.
+// Bias gradients and metrics sum the unrounded float32 values (db0 in the
+// transpose's epilogue, before dz1 is stored as a bf16 operand).  The
+// tensor cores sum in another order than an FMA chain, so a rare bf16
+// rounding of a saved value may differ from the plain version's.
 
 #include <cstdint>
 #include <type_traits>
@@ -140,6 +163,148 @@ __device__ __forceinline__ float tanh_grad(float h) {
   }
 }
 
+// ---- tensor-core building blocks of the bf16 instantiations
+//
+// Warp-level mma.sync.m16n8k16 (bf16 operands, float32 sums).  Activation
+// tiles sit in shared memory feature-major, row k holding the tile's 32
+// samples at a row stride of kLdA bf16 (80 bytes): the 8 rows one
+// ldmatrix phase reads then fall in 8 distinct 16-byte bank groups.
+constexpr int kWarps = kThreads / 32;
+constexpr int kLdA = kE + 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices; lane i gives the address of row i % 8 of matrix
+// i / 8, and r[q] receives matrix q in the mma operand layout.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row-major) * b (16x8, column-major)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// W1 in mma fragment order (ops/fused_ppo.py::pack_mma_a): the 16 x 16
+// A block (row block rb, k block kb) of a (R, K) matrix is 32 x 8 bf16 at
+// (rb K / 16 + kb) 256, lane l's four registers the 16 bytes at 8 l.
+constexpr int kBlock = 256;
+
+__device__ __forceinline__ void frag_from(uint32_t (&a)[4], const uint4 v) {
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+
+// The A fragments of MT row blocks (a row-block stride apart) at `p`,
+// this lane's 16 bytes of the first one, in device memory: one 16-byte
+// load through L2 each.
+template <int MT>
+__device__ __forceinline__ void load_a_global(uint32_t (&a)[MT][4], const __nv_bfloat16* p, size_t rb_stride) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) frag_from(a[mt], __ldg(reinterpret_cast<const uint4*>(p + mt * rb_stride)));
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+    }
+  }
+}
+
+// The ldmatrix.trans row address of this lane in a feature-major activation
+// tile `act` (rows of stride kLdA, offset to the first sample): matrices
+// (k 0-7, samples 0-7), (k 8-15, 0-7), (k 0-7, 8-15), (k 8-15, 8-15) give
+// the B fragments of two 8-sample tiles.
+__device__ __forceinline__ const __nv_bfloat16* act_b_row(const __nv_bfloat16* act) {
+  const int lane = threadIdx.x % 32, q = lane / 8;
+  return act + ((q % 2) * 8 + lane % 8) * kLdA + (q / 2) * 8;
+}
+
+// acc[mt][nt] += a[mt] * (NT 8-sample tiles of one 16-row k block), the k
+// block's B fragments read at `b` (act_b_row of its first row).
+template <int MT, int NT>
+__device__ __forceinline__ void mma_k_block(const uint32_t (&a)[MT][4], const __nv_bfloat16* b,
+                                            float (&acc)[MT][NT][4]) {
+  static_assert(NT % 2 == 0, "ldmatrix.x4 gives two sample tiles");
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    uint32_t f[4];
+    ldmatrix_x4_trans(f, b + np * 16);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_bf16(acc[mt][2 * np], a[mt], f[0], f[1]);
+      mma_bf16(acc[mt][2 * np + 1], a[mt], f[2], f[3]);
+    }
+  }
+}
+
+// acc[mt][nt] = sum over k < k_dim of w[16 mt + m][k] * act[k][8 nt + n]
+// for one warp: MT 16-row blocks of a bf16 matrix in fragment order (`w`
+// at the first row block's first k block, in device memory) times NT
+// 8-sample tiles of the feature-major activation tile `act` (k_dim rows of
+// stride kLdA in shared memory, offset to the first sample).  k_dim is a
+// multiple of 64.  The A fragments of D = 2 k blocks are in flight at once:
+// a block's registers are refilled with the block D ahead as soon as they
+// have been multiplied.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_weights_act(const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* act,
+                                                int k_dim, float (&acc)[MT][NT][4]) {
+  constexpr int D = 2;
+  const __nv_bfloat16* b_row = act_b_row(act);
+  const __nv_bfloat16* a_frag = w + (threadIdx.x % 32) * 8;
+  const size_t rb_stride = static_cast<size_t>(k_dim) * 16;
+  zero_acc(acc);
+  uint32_t a[D][MT][4];
+#pragma unroll
+  for (int s = 0; s < D; ++s) load_a_global<MT>(a[s], a_frag + s * kBlock, rb_stride);
+  for (int k0 = 0; k0 < k_dim; k0 += 16 * D) {
+#pragma unroll
+    for (int s = 0; s < D; ++s) {
+      const int kk = k0 + 16 * s;
+      mma_k_block(a[s], b_row + kk * kLdA, acc);
+      if (kk + 16 * D < k_dim) load_a_global<MT>(a[s], a_frag + (kk / 16 + D) * kBlock, rb_stride);
+    }
+  }
+}
+
+// The same product with `w` (fragment order) staged in shared memory: a
+// warp's 16-byte fragment reads cover 512 contiguous bytes.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_staged_act(const __nv_bfloat16* w, const __nv_bfloat16* act, int k_dim,
+                                               float (&acc)[MT][NT][4]) {
+  const __nv_bfloat16* b_row = act_b_row(act);
+  const __nv_bfloat16* a_frag = w + (threadIdx.x % 32) * 8;
+  zero_acc(acc);
+  for (int k0 = 0; k0 < k_dim; k0 += 16) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      frag_from(a[mt], *reinterpret_cast<const uint4*>(a_frag + mt * k_dim * 16 + k0 / 16 * kBlock));
+    }
+    mma_k_block(a, b_row + k0 * kLdA, acc);
+  }
+}
+
 __device__ __forceinline__ void tile_range(int n_tiles, int parts, int part, int& lo, int& hi) {
   lo = static_cast<int>(static_cast<long long>(n_tiles) * part / parts);
   hi = static_cast<int>(static_cast<long long>(n_tiles) * (part + 1) / parts);
@@ -181,24 +346,63 @@ __device__ __forceinline__ void load_obs(const PpoKernelParams& p, const View& o
   }
 }
 
+// Eight consecutive samples of a bf16 activation row (one 16-byte access;
+// a warp's 8-lane phases read 8 rows at the kLdA stride without conflict).
+__device__ __forceinline__ void load_row8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const auto* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store_row8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  auto* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
 // Layer 0 for the tile over `rows` rows of the stacked (s, ldw) matrix
-// `wf0` (already offset to the first row): h1[k][e] = op(tanh(W0 x + b0));
-// also h1t[e][k] when given.
-template <bool kBf16, typename TW>
+// `wf0` (already offset to the first row): h1[k][e] = op(tanh(W0 x + b0)),
+// row stride ldh; also h1t[e][k] when given.  A thread computes 4 rows x
+// ET samples per sweep (ET = 2 where registers hold a live accumulator).
+// Into bf16 tiles, neighbouring lanes take neighbouring sample runs and a
+// thread stores its run of a row at once (ET = 8 or 2), so the stores
+// meet no bank conflict.
+template <bool kBf16, int ET = 8, typename TW, typename TA>
 __device__ __forceinline__ void layer0(const PpoKernelParams& p, const TW* wf0, int ldw, const float* b0,
-                                       int rows, const float* x, float* h1, float* h1t) {
-  const int rg = threadIdx.x % 64, eg = threadIdx.x / 64;
-  for (int r0 = rg * 4; r0 < rows; r0 += kRowsPerSweep) {
-    float acc[4][8];
-    mbt::dense_tile<8>(wf0 + r0, ldw, x + eg * 8, kE, p.s_dim, acc);
+                                       int rows, const float* x, TA* h1, int ldh, float* h1t) {
+  constexpr bool kPacked = !std::is_same<TA, float>::value;
+  constexpr int kGroups = kE / ET, kRowGroups = kThreads / kGroups;
+  const int rg = kPacked ? threadIdx.x / kGroups : threadIdx.x % kRowGroups;
+  const int eg = kPacked ? threadIdx.x % kGroups : threadIdx.x / kRowGroups;
+  for (int r0 = rg * 4; r0 < rows; r0 += 4 * kRowGroups) {
+    float acc[4][ET];
+    mbt::dense_tile<ET>(wf0 + r0, ldw, x + eg * ET, kE, p.s_dim, acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int k = r0 + r;
+      float h[ET];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float h = mbt::operand<kBf16>(tanhf(acc[r][e] + b0[k]));
-        h1[k * kE + eg * 8 + e] = h;
-        if (h1t) h1t[(eg * 8 + e) * rows + k] = h;
+      for (int e = 0; e < ET; ++e) {
+        h[e] = mbt::operand<kBf16>(tanhf(acc[r][e] + b0[k]));
+        if constexpr (!kPacked) {
+          h1[k * ldh + eg * ET + e] = h[e];
+          if (h1t) h1t[(eg * ET + e) * rows + k] = h[e];
+        }
+      }
+      if constexpr (kPacked) {
+        static_assert(ET == 8 || ET == 2, "a packed run is 16 or 4 bytes");
+        if constexpr (ET == 8) {
+          store_row8(h1 + k * ldh + eg * ET, h);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(h1 + k * ldh + eg * ET) = __floats2bfloat162_rn(h[0], h[1]);
+        }
       }
     }
   }
@@ -215,10 +419,12 @@ ppo_pass1(const PpoKernelParams p, const PpoInputs in, const TW* __restrict__ wf
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int n_head = p.a_dim + 1;
   const int H0 = p.towers * p.h0, H1 = p.towers * p.h1;
+  using TA = TW;                          // activations: bf16 operand tiles or float
+  constexpr int kLd = kBf16 ? kLdA : kE;  // their row stride
   float* x = sm;                          // [s][kE]
-  float* h1 = x + kMaxObs * kE;           // [H0][kE]; later dz1
-  float* h2 = h1 + H0 * kE;               // [H1][kE]; later dz2
-  float* mv = h2 + H1 * kE;               // [a+1][kE]; later dmv
+  TA* h1 = reinterpret_cast<TA*>(x + kMaxObs * kE);     // [H0][kLd]; later dz1
+  TA* h2 = h1 + H0 * kLd;                               // [H1][kLd]; later dz2
+  float* mv = reinterpret_cast<float*>(h2 + H1 * kLd);  // [a+1][kE]; later dmv
   float* hw = mv + n_head * kE;           // [a+1][H1] head weights (operands)
   float* acc = hw + n_head * H1;          // Part1Layout
   const float* b0 = bias;
@@ -243,27 +449,59 @@ ppo_pass1(const PpoKernelParams p, const PpoInputs in, const TW* __restrict__ wf
     const int t = q / tiles_per_step, env0 = (q % tiles_per_step) * kE;
     load_obs<kBf16, kRowMajor>(p, in.obs, t, env0, x);
     __syncthreads();
-    layer0<kBf16>(p, wf0, H0, b0, H0, x, h1, nullptr);
+    layer0<kBf16>(p, wf0, H0, b0, H0, x, h1, kLd, nullptr);
     __syncthreads();
     // layer 1, one product per tower: rows [tw h1, (tw+1) h1) read h1 rows
     // [tw h0, (tw+1) h0)
-    for (int j0 = rg * 4; j0 < H1; j0 += kRowsPerSweep) {
-      const int tw = j0 / p.h1;
-      float a4[4][8];
-      mbt::dense_tile<8>(wf1 + static_cast<size_t>(tw) * p.h0 * p.h1 + (j0 - tw * p.h1), p.h1,
-                         h1 + tw * p.h0 * kE + eg * 8, kE, p.h0, a4);
+    if constexpr (kBf16) {
+      // on the tensor cores: warp w takes the 32-row blocks w, w + 8, ...,
+      // each inside one tower, W1 fragments from wb1 (out, in)
+      const int g = lane / 4, t4 = lane % 4;
+      for (int jb = warp * 32; jb < H1; jb += kWarps * 32) {
+        const int tw = jb / p.h1;
+        float z[2][4][4];
+        mma_weights_act<2, 4>(wb1 + static_cast<size_t>(jb) * p.h0, h1 + tw * p.h0 * kLd, p.h0, z);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int j = j0 + r;
+        for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) h2[j * kE + eg * 8 + e] = mbt::operand<kBf16>(tanhf(a4[r][e] + b1[j]));
+          for (int half = 0; half < 2; ++half) {
+            const int j = jb + mt * 16 + g + half * 8;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              *reinterpret_cast<__nv_bfloat162*>(h2 + j * kLd + nt * 8 + t4 * 2) = __floats2bfloat162_rn(
+                  tanhf(z[mt][nt][half * 2] + b1[j]), tanhf(z[mt][nt][half * 2 + 1] + b1[j]));
+            }
+          }
+        }
+      }
+    } else {
+      for (int j0 = rg * 4; j0 < H1; j0 += kRowsPerSweep) {
+        const int tw = j0 / p.h1;
+        float a4[4][8];
+        mbt::dense_tile<8>(wf1 + static_cast<size_t>(tw) * p.h0 * p.h1 + (j0 - tw * p.h1), p.h1,
+                           h1 + tw * p.h0 * kE + eg * 8, kE, p.h0, a4);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = j0 + r;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) h2[j * kE + eg * 8 + e] = tanhf(a4[r][e] + b1[j]);
+        }
       }
     }
     __syncthreads();
     if (tid < n_head * kE) {  // merged head
       const int a = tid / kE, e = tid % kE;
       float s = 0.0f;
-      for (int k = 0; k < H1; ++k) s = __fmaf_rn(hw[a * H1 + k], h2[k * kE + e], s);
+      if constexpr (kBf16) {  // four independent FMA chains
+        float s4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int k = 0; k < H1; k += 4) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) s4[u] = __fmaf_rn(hw[a * H1 + k + u], __bfloat162float(h2[(k + u) * kLd + e]), s4[u]);
+        }
+        s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+      } else {
+        for (int k = 0; k < H1; ++k) s = __fmaf_rn(hw[a * H1 + k], h2[k * kE + e], s);
+      }
       mv[a * kE + e] = s + b_head[a];
     }
     __syncthreads();
@@ -314,50 +552,149 @@ ppo_pass1(const PpoKernelParams p, const PpoInputs in, const TW* __restrict__ wf
     }
     __syncthreads();
 
-    // head grads, dh2 -> dz2 (rows of layer 1, one warp per row)
-    for (int j = warp; j < H1; j += kThreads / 32) {
-      const float h = h2[j * kE + lane];
-      float dh = 0.0f;
-      for (int a = 0; a < n_head; ++a) {
-        const float d = mbt::operand<kBf16>(mv[a * kE + lane]);
-        const float s = warp_sum(d * h);
-        if (lane == 0) acc[lay.dwh + a * H1 + j] += s;
-        dh = __fmaf_rn(hw[a * H1 + j], d, dh);
+    // head grads, dh2 -> dz2 (rows of layer 1)
+    if constexpr (kBf16) {
+      // one thread per row, over the tile's samples in order: no shuffles
+      for (int j = tid; j < H1; j += kThreads) {
+        float wj[kMaxAct + 1], dwh[kMaxAct + 1];
+#pragma unroll
+        for (int a = 0; a <= kMaxAct; ++a) {
+          wj[a] = a < n_head ? hw[a * H1 + j] : 0.0f;
+          dwh[a] = 0.0f;
+        }
+        float db = 0.0f;
+        __nv_bfloat16* row = h2 + j * kLd;
+        // rolled: unrolled, the tile's mv reads are hoisted out of the row
+        // loop and spill
+#pragma unroll 1
+        for (int e0 = 0; e0 < kE; e0 += 8) {
+          float h[8];
+          load_row8(row + e0, h);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float dh = 0.0f;
+#pragma unroll
+            for (int a = 0; a <= kMaxAct; ++a) {
+              if (a < n_head) {
+                const float d = mbt::round_bf16(mv[a * kE + e0 + i]);
+                dwh[a] = __fmaf_rn(d, h[i], dwh[a]);
+                dh = __fmaf_rn(wj[a], d, dh);
+              }
+            }
+            const float dz = dh * tanh_grad<true>(h[i]);
+            db = db + dz;
+            h[i] = dz;
+          }
+          store_row8(row + e0, h);
+        }
+#pragma unroll
+        for (int a = 0; a <= kMaxAct; ++a) {
+          if (a < n_head) acc[lay.dwh + a * H1 + j] += dwh[a];
+        }
+        acc[lay.db1 + j] += db;
       }
-      const float dz = dh * tanh_grad<kBf16>(h);
-      const float s = warp_sum(dz);
-      if (lane == 0) acc[lay.db1 + j] += s;
-      h2[j * kE + lane] = mbt::operand<kBf16>(dz);
+    } else {  // one warp per row
+      for (int j = warp; j < H1; j += kWarps) {
+        const float h = h2[j * kE + lane];
+        float dh = 0.0f;
+        for (int a = 0; a < n_head; ++a) {
+          const float d = mv[a * kE + lane];
+          const float s = warp_sum(d * h);
+          if (lane == 0) acc[lay.dwh + a * H1 + j] += s;
+          dh = __fmaf_rn(hw[a * H1 + j], d, dh);
+        }
+        const float dz = dh * tanh_grad<false>(h);
+        const float s = warp_sum(dz);
+        if (lane == 0) acc[lay.db1 + j] += s;
+        h2[j * kE + lane] = dz;
+      }
     }
     __syncthreads();
 
     // dh1 = W1^T dz2 per tower, then dz1 = dh1 * tanh'(h1) in place of h1
-    for (int k0 = rg * 4; k0 < H0; k0 += kRowsPerSweep) {
-      const int tw = k0 / p.h0;
-      float a4[4][8];
-      mbt::dense_tile<8>(wb1 + static_cast<size_t>(tw) * p.h1 * p.h0 + (k0 - tw * p.h0), p.h0,
-                         h2 + tw * p.h1 * kE + eg * 8, kE, p.h1, a4);
+    if constexpr (kBf16) {
+      // on the tensor cores, W1^T fragments from wf1 (in, out); db0 sums
+      // the unrounded dz1 here, before it is stored as a bf16 operand
+      const int g = lane / 4, t4 = lane % 4;
+      for (int kb = warp * 32; kb < H0; kb += kWarps * 32) {
+        const int tw = kb / p.h0;
+        float z[2][4][4];
+        mma_weights_act<2, 4>(wf1 + static_cast<size_t>(kb) * p.h1, h2 + tw * p.h1 * kLd, p.h1, z);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int k = k0 + r;
+        for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float* cell = h1 + k * kE + eg * 8 + e;
-          *cell = a4[r][e] * tanh_grad<kBf16>(*cell);
+          for (int half = 0; half < 2; ++half) {
+            const int k = kb + mt * 16 + g + half * 8;
+            float s = 0.0f;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              auto* cell = reinterpret_cast<__nv_bfloat162*>(h1 + k * kLd + nt * 8 + t4 * 2);
+              const float2 h = __bfloat1622float2(*cell);
+              const float d0 = z[mt][nt][half * 2] * tanh_grad<true>(h.x);
+              const float d1 = z[mt][nt][half * 2 + 1] * tanh_grad<true>(h.y);
+              s = s + d0;
+              s = s + d1;
+              *cell = __floats2bfloat162_rn(d0, d1);
+            }
+            s += __shfl_xor_sync(0xffffffffu, s, 1);
+            s += __shfl_xor_sync(0xffffffffu, s, 2);
+            if (t4 == 0) acc[lay.db0 + k] += s;
+          }
+        }
+      }
+    } else {
+      for (int k0 = rg * 4; k0 < H0; k0 += kRowsPerSweep) {
+        const int tw = k0 / p.h0;
+        float a4[4][8];
+        mbt::dense_tile<8>(wb1 + static_cast<size_t>(tw) * p.h1 * p.h0 + (k0 - tw * p.h0), p.h0,
+                           h2 + tw * p.h1 * kE + eg * 8, kE, p.h1, a4);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int k = k0 + r;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            float* cell = h1 + k * kE + eg * 8 + e;
+            *cell = a4[r][e] * tanh_grad<kBf16>(*cell);
+          }
         }
       }
     }
     __syncthreads();
 
-    // layer-0 grads, one warp per row
-    for (int k = warp; k < H0; k += kThreads / 32) {
-      const float dz = h1[k * kE + lane];
-      const float s = warp_sum(dz);
-      if (lane == 0) acc[lay.db0 + k] += s;
-      const float d = mbt::operand<kBf16>(dz);
-      for (int c = 0; c < p.s_dim; ++c) {
-        const float w = warp_sum(d * x[c * kE + lane]);
-        if (lane == 0) acc[lay.dw0 + k * p.s_dim + c] += w;
+    // layer-0 grads
+    if constexpr (kBf16) {
+      // one thread per row, over the tile's samples in order; dz1 is the
+      // bf16 operand already and db0 was summed above
+      for (int k = tid; k < H0; k += kThreads) {
+        float dw[kMaxObs];
+#pragma unroll
+        for (int c = 0; c < kMaxObs; ++c) dw[c] = 0.0f;
+#pragma unroll 1  // as above, for the x reads
+        for (int e0 = 0; e0 < kE; e0 += 8) {
+          float d[8];
+          load_row8(h1 + k * kLd + e0, d);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+#pragma unroll
+            for (int c = 0; c < kMaxObs; ++c) {
+              if (c < p.s_dim) dw[c] = __fmaf_rn(d[i], x[c * kE + e0 + i], dw[c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kMaxObs; ++c) {
+          if (c < p.s_dim) acc[lay.dw0 + k * p.s_dim + c] += dw[c];
+        }
+      }
+    } else {  // one warp per row
+      for (int k = warp; k < H0; k += kWarps) {
+        const float dz = h1[k * kE + lane];
+        const float s = warp_sum(dz);
+        if (lane == 0) acc[lay.db0 + k] += s;
+        for (int c = 0; c < p.s_dim; ++c) {
+          const float w = warp_sum(dz * x[c * kE + lane]);
+          if (lane == 0) acc[lay.dw0 + k * p.s_dim + c] += w;
+        }
       }
     }
     __syncthreads();
@@ -365,12 +702,14 @@ ppo_pass1(const PpoKernelParams p, const PpoInputs in, const TW* __restrict__ wf
   for (int i = tid; i < lay.total; i += kThreads) part1[static_cast<size_t>(blockIdx.x) * lay.total + i] = acc[i];
 }
 
-template <bool kBf16, bool kRowMajor, typename TW>
-__global__ void __launch_bounds__(kThreads, 2)
-ppo_pass2(const PpoKernelParams p, const PpoInputs in, const TW* __restrict__ wf0,
-          const TW* __restrict__ wf1, const float* __restrict__ bias,
-          const float* __restrict__ w_head, const float* __restrict__ dmv_in,
-          float* __restrict__ part2) {
+// Pass 2 on CUDA cores (float32): thread (r_own, kb) holds row r_own of
+// the CTA's dW1 slice, columns [kb kq, (kb+1) kq), in registers.
+template <bool kRowMajor>
+__device__ __forceinline__ void pass2_cuda_cores(const PpoKernelParams& p, const PpoInputs& in,
+                                                 const float* __restrict__ wf0, const float* __restrict__ wf1,
+                                                 const float* __restrict__ bias, const float* __restrict__ w_head,
+                                                 const float* __restrict__ dmv_in, float* __restrict__ part2) {
+  constexpr bool kBf16 = false;
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
   const int n_head = p.a_dim + 1;
@@ -386,7 +725,7 @@ ppo_pass2(const PpoKernelParams p, const PpoInputs in, const TW* __restrict__ wf
   float* hw = dz2t + kE * kRowBlock;    // [a+1][64] head weights of these rows
   const float* b0 = bias + tw * p.h0;
   const float* b1 = bias + H0;
-  const TW* w1 = wf1 + static_cast<size_t>(tw) * p.h0 * p.h1 + (row0 - tw * p.h1);
+  const float* w1 = wf1 + static_cast<size_t>(tw) * p.h0 * p.h1 + (row0 - tw * p.h1);
 
   for (int i = tid; i < n_head * kRowBlock; i += kThreads) {
     hw[i] = w_head[(i / kRowBlock) * H1 + row0 + i % kRowBlock];
@@ -410,7 +749,7 @@ ppo_pass2(const PpoKernelParams p, const PpoInputs in, const TW* __restrict__ wf
       dmv[i] = mbt::operand<kBf16>(dmv_in[(static_cast<size_t>(a) * p.n_steps + t) * p.n_envs + env0 + e]);
     }
     __syncthreads();
-    layer0<kBf16>(p, wf0 + tw * p.h0, H0, b0, p.h0, x, h1, h1t);
+    layer0<kBf16>(p, wf0 + tw * p.h0, H0, b0, p.h0, x, h1, kE, h1t);
     __syncthreads();
     {
       float a4[4][2];
@@ -452,6 +791,157 @@ ppo_pass2(const PpoKernelParams p, const PpoInputs in, const TW* __restrict__ wf
   }
 }
 
+// Pass 2 on tensor cores (bf16).  Per tile: layer 0 of the tower on CUDA
+// cores into a bf16 operand tile; the CTA's 64 rows of layer 1 as one
+// mma product (warp w: rows [16 (w / 2), +16) x samples [16 (w % 2), +16),
+// A fragments from the CTA's 64 rows of W1, staged in shared memory once
+// per CTA: 32 KB at 256 wide), whose epilogue forms dz2 in bf16; then
+// dW1 += dz2 h1^T over the tile's 32 samples, warp w holding rows
+// [32 (w % 2), +32) x columns [(w / 2) h0 / 4, +h0 / 4) of the slice as
+// mma accumulator fragments (at most 64 floats a thread).
+template <bool kRowMajor>
+__device__ __forceinline__ void pass2_tensor_cores(const PpoKernelParams& p, const PpoInputs& in,
+                                                   const __nv_bfloat16* __restrict__ wf0,
+                                                   const __nv_bfloat16* __restrict__ wb1,
+                                                   const float* __restrict__ bias, const float* __restrict__ w_head,
+                                                   const float* __restrict__ dmv_in, float* __restrict__ part2) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4, q = lane / 8, r = lane % 8;
+  const int n_head = p.a_dim + 1;
+  const int H0 = p.towers * p.h0, H1 = p.towers * p.h1;
+  const int row0 = blockIdx.x * kRowBlock;  // stacked layer-1 row
+  const int tw = row0 / p.h1;               // its tower
+  const int part = blockIdx.y;
+  float* x = sm;                            // [s][kE]
+  float* dmv = x + kMaxObs * kE;            // [a+1][kE], operands
+  float* hw = dmv + n_head * kE;            // [a+1][64] head weights of these rows
+  __nv_bfloat16* h1 = reinterpret_cast<__nv_bfloat16*>(hw + n_head * kRowBlock);  // [h0][kLdA]
+  __nv_bfloat16* dz2 = h1 + p.h0 * kLdA;    // [64][kLdA]
+  __nv_bfloat16* w1 = dz2 + kRowBlock * kLdA;  // these 64 rows of W1, fragment order
+  const float* b0 = bias + tw * p.h0;
+  const float* b1 = bias + H0;
+
+  for (int i = tid; i < n_head * kRowBlock; i += kThreads) {
+    hw[i] = w_head[(i / kRowBlock) * H1 + row0 + i % kRowBlock];
+  }
+  // the CTA's 64 x h0 slice of W1 (4 row blocks, contiguous), staged once
+  for (int i = tid; i < kRowBlock * p.h0 / 8; i += kThreads) {
+    reinterpret_cast<uint4*>(w1)[i] = __ldg(reinterpret_cast<const uint4*>(wb1 + static_cast<size_t>(row0) * p.h0) + i);
+  }
+  const int rm = (warp / 2) * 16, re = (warp % 2) * 16;  // the layer-1 product's warp tile
+  const int nq = p.h0 / 4, dm = (warp % 2) * 32, dn = (warp / 2) * nq;  // the dW1 warp tile
+  float acc[2][8][4];
+  zero_acc(acc);
+
+  const int tiles_per_step = p.n_envs / kE;
+  int lo, hi;
+  tile_range(p.n_steps * tiles_per_step, gridDim.y, part, lo, hi);
+  __syncthreads();
+  for (int qt = lo; qt < hi; ++qt) {
+    const int t = qt / tiles_per_step, env0 = (qt % tiles_per_step) * kE;
+    load_obs<true, kRowMajor>(p, in.obs, t, env0, x);
+    for (int i = tid; i < n_head * kE; i += kThreads) {
+      const int a = i / kE, e = i % kE;
+      dmv[i] = mbt::round_bf16(dmv_in[(static_cast<size_t>(a) * p.n_steps + t) * p.n_envs + env0 + e]);
+    }
+    __syncthreads();
+    layer0<true, 2>(p, wf0 + tw * p.h0, H0, b0, p.h0, x, h1, kLdA, nullptr);
+    __syncthreads();
+    {
+      float z[1][2][4];
+      mma_staged_act<1, 2>(w1 + rm * p.h0, h1 + re, p.h0, z);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int jl = rm + g + half * 8, j = row0 + jl;
+          const int el = re + nt * 8 + t4 * 2;
+          float dz[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float h = mbt::round_bf16(tanhf(z[0][nt][half * 2 + c] + b1[j]));
+            float dh = 0.0f;
+            for (int a = 0; a < n_head; ++a) dh = __fmaf_rn(hw[a * kRowBlock + jl], dmv[a * kE + el + c], dh);
+            dz[c] = dh * tanh_grad<true>(h);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(dz2 + jl * kLdA + el) = __floats2bfloat162_rn(dz[0], dz[1]);
+        }
+      }
+    }
+    __syncthreads();
+    // dW1 += dz2 h1^T over the tile's 32 samples.  The tile's products are
+    // summed in fresh fragments and added to the accumulator by IEEE float32
+    // adds: a tensor-core accumulator truncates, and over a CTA's ~1,600
+    // tiles that bias would add up (3.6e-4 of dW1 at config 5).
+    {
+      uint32_t a[2][2][4];  // [k block][row tile]
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          ldmatrix_x4(a[kb][mt], dz2 + (dm + mt * 16 + lane % 16) * kLdA + kb * 16 + (lane / 16) * 8);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (np * 16 < nq) {
+          float u[2][2][4];
+          zero_acc(u);
+#pragma unroll
+          for (int kb = 0; kb < 2; ++kb) {
+            uint32_t b[4];
+            ldmatrix_x4(b, h1 + (dn + np * 16 + (q / 2) * 8 + r) * kLdA + kb * 16 + (q % 2) * 8);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16(u[mt][0], a[kb][mt], b[0], b[1]);
+              mma_bf16(u[mt][1], a[kb][mt], b[2], b[3]);
+            }
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[mt][2 * np][i] += u[mt][0][i];
+              acc[mt][2 * np + 1][i] += u[mt][1][i];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* out = part2 + (static_cast<size_t>(part) * H1 + row0) * p.h0;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt * 8 < nq) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = dm + mt * 16 + g + half * 8, col = dn + nt * 8 + t4 * 2;
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * p.h0 + col) =
+              make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+        }
+      }
+    }
+  }
+}
+
+// Pass 2: grid (stacked h1 / 64, 64); the CTA's 64 layer-1 rows x part y's
+// tiles, its dW1 slice written to part2[y].
+template <bool kBf16, bool kRowMajor, typename TW>
+__global__ void __launch_bounds__(kThreads, 2)
+ppo_pass2(const PpoKernelParams p, const PpoInputs in, const TW* __restrict__ wf0,
+          const TW* __restrict__ wf1, const TW* __restrict__ wb1, const float* __restrict__ bias,
+          const float* __restrict__ w_head, const float* __restrict__ dmv_in, float* __restrict__ part2) {
+  if constexpr (kBf16) {
+    pass2_tensor_cores<kRowMajor>(p, in, wf0, wb1, bias, w_head, dmv_in, part2);
+  } else {
+    pass2_cuda_cores<kRowMajor>(p, in, wf0, wf1, bias, w_head, dmv_in, part2);
+  }
+}
+
 // out[i] = sum over parts p (in order) of part[p * n + i]
 __global__ void reduce_parts(const float* __restrict__ part, int parts, int n, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -470,8 +960,12 @@ int launch(const PpoKernelParams& p, const PpoInputs& in, const void* wf0, const
   const int n_head = p.a_dim + 1;
   const int H0 = p.towers * p.h0, H1 = p.towers * p.h1;
   const Part1Layout lay(p);
-  const size_t smem1 = sizeof(float) * (kMaxObs * kE + (H0 + H1 + n_head) * kE + n_head * H1 + lay.total);
-  const size_t smem2 = sizeof(float) * (kMaxObs * kE + 2 * p.h0 * kE + n_head * kE + kE * kRowBlock + n_head * kRowBlock);
+  const size_t smem1 = sizeof(float) * (kMaxObs * kE + n_head * kE + n_head * H1 + lay.total) +
+                       sizeof(TW) * (H0 + H1) * (kBf16 ? kLdA : kE);
+  const size_t smem2 =
+      kBf16 ? sizeof(float) * (kMaxObs * kE + n_head * kE + n_head * kRowBlock) +
+                  sizeof(__nv_bfloat16) * ((p.h0 + kRowBlock) * kLdA + kRowBlock * p.h0)
+            : sizeof(float) * (kMaxObs * kE + 2 * p.h0 * kE + n_head * kE + kE * kRowBlock + n_head * kRowBlock);
   auto* pass1 = ppo_pass1<kBf16, kRowMajor, TW>;
   auto* pass2 = ppo_pass2<kBf16, kRowMajor, TW>;
   cudaError_t err = cudaFuncSetAttribute(pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem1));
@@ -484,7 +978,8 @@ int launch(const PpoKernelParams& p, const PpoInputs& in, const void* wf0, const
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   pass2<<<dim3(H1 / kRowBlock, kPass2Parts), kThreads, smem2, stream>>>(
-      p, in, static_cast<const TW*>(wf0), static_cast<const TW*>(wf1), bias, w_head, dmv, part2);
+      p, in, static_cast<const TW*>(wf0), static_cast<const TW*>(wf1), static_cast<const TW*>(wb1), bias,
+      w_head, dmv, part2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_parts<<<(lay.total + 255) / 256, 256, 0, stream>>>(part1, kPass1Ctas, lay.total, out_small);
@@ -517,7 +1012,9 @@ int launch_dtype(const PpoKernelParams* p, int device, const PpoInputs* in, int 
 // (s, H0) layer 0's stacked (in, out) matrix; `wf1` (towers, h0, h1) each
 // tower's layer-1 (in, out) matrix; `wb1` (towers, h1, h0) each tower's
 // layer-1 (out, in) matrix; all bf16 when `bf16` is set and float
-// otherwise.  `bias` is b0 (H0) then b1 (H1); `w_head` (a+1, H1) is float,
+// otherwise, and with `bf16` set `wf1` and `wb1` are the stacked (H0, h1)
+// and (H1, h0) matrices in mma fragment order (ops/fused_ppo.py::
+// pack_mma_a).  `bias` is b0 (H0) then b1 (H1); `w_head` (a+1, H1) is float,
 // already rounded to bf16 in bf16 mode, zero off its towers' blocks.
 // Scratch: `dmv` (a+1, M), `part1` (256, Part1Layout), `part2`
 // (64, H1, h0).  Results: `out_small` in Part1Layout order and `out_dw1`

@@ -104,6 +104,10 @@ class DetRolloutParams(NamedTuple):
     # () = deterministic initial_inventory; (lo, hi) = per-env integer draw
     # in [lo, hi), passed to the kernel as the inv0 plane
     inventory_range: tuple = ()
+    # start_time=("uniform", lo, hi): carried as JAX carries it (start_time
+    # 0.0, the full horizon); dispatch sends it to the engine and the
+    # kernel wrappers refuse it
+    random_start: bool = False
 
     @property
     def run_steps(self) -> int:
@@ -198,10 +202,10 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
     assert not callable(cfg.start_time), (
         "callable start_time is host-evaluated per reset; use the engine rollout"
     )
-    assert not isinstance(cfg.start_time, tuple), (
-        "random start times with a deterministic policy run on the engine (the kernel's "
-        "per-env start-time plane is not ported to CUDA yet)"
-    )
+    random_start = isinstance(cfg.start_time, tuple)
+    if random_start:
+        assert cfg.start_time[0] == "uniform", f"Unknown start_time spec {cfg.start_time}"
+    start_time = 0.0 if random_start else round(float(cfg.start_time) / cfg.step_size) * cfg.step_size
     assert cfg.dtype == "float32", (
         "the deterministic-policy kernel computes in float32; float64 reference-parity "
         "configs must use the engine rollout"
@@ -221,7 +225,7 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
         max_cash=float(cfg.resolved_max_cash()),
         initial_cash=float(cfg.initial_cash),
         initial_inventory=inv0,
-        start_time=round(float(cfg.start_time) / cfg.step_size) * cfg.step_size,
+        start_time=start_time,
         obs_low=tuple(float(x) for x in obs_low),
         obs_grad=tuple(float(h - l) / 2.0 for l, h in zip(obs_low, obs_high)),
         act_low=tuple(float(x) for x in act_low),
@@ -236,6 +240,7 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
         temporary_impact=temp_imp,
         permanent_impact=perm_imp,
         inventory_range=inventory_range,
+        random_start=random_start,
     )
 
 
@@ -422,6 +427,10 @@ def kernel_params(p: DetRolloutParams, table_width: int = 0) -> DetKernelParams:
 def _check_call(p: DetRolloutParams, tables, n: int, noise, inv0, stats_only: bool, final_obs: bool):
     """The JAX wrappers' argument contract (pallas_rollout.py:1704-1836)."""
     assert p.policy_kind in _POLICIES, p.policy_kind
+    assert not p.random_start, (
+        "random start times with a deterministic policy are unsupported by the kernel (the "
+        "reference's CJ replication runs fixed-horizon episodes); run the engine"
+    )
     assert not (stats_only and final_obs), "final_obs is a streams-mode output"
     T, t_off = p.run_steps, round(p.start_time / p.dt)
     if p.policy_kind == "table":

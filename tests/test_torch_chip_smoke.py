@@ -33,3 +33,46 @@ def test_towers_flop_counts():
     assert chip_smoke.mlp_flops_per_sample(4, 256, 256, 2, towers=2) == 267_776
     assert chip_smoke.ppo_grad_flops_per_sample(4, 256, 256, 2) == 134_656 + 267_264
     assert chip_smoke.ppo_grad_flops_per_sample(4, 256, 256, 2, towers=2) == 267_776 + 531_456
+
+
+_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN4_GLOBAL9ppo_pass2ILb1ELb0E13__nv_bfloat16EEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL9ppo_pass2ILb1ELb0E13__nv_bfloat16EEv
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN4_GLOBAL12reduce_partsEPKfiiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL12reduce_partsEPKfiiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 12 registers
+ptxas info    : Compiling entry function '_ZN4_GLOBAL9ppo_pass1ILb0ELb0EfEEv' for 'sm_90a'
+ptxas info    : Used 107 registers, used 1 barriers, 96 bytes cumulative stack size
+"""
+
+
+def test_register_report_keeps_each_kernels_spill_line():
+    """Phase 18's rows: each matching entry's register line with its own
+    spill line (none where ptxas printed none), other entries skipped."""
+    rows = chip_smoke.kernel_registers(_PTXAS, ("ppo_pass1", "ppo_pass2"))
+    assert rows == [
+        ("_ZN4_GLOBAL9ppo_pass2ILb1ELb0E13__nv_bfloat16EEv",
+         "Used 128 registers, used 1 barriers, 8 bytes cumulative stack size; "
+         "8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads"),
+        ("_ZN4_GLOBAL9ppo_pass1ILb0ELb0EfEEv", "Used 107 registers, used 1 barriers, 96 bytes cumulative stack size"),
+    ]
+
+
+def test_sass_counts_per_kernel():
+    """Phase 18 counts an opcode per kernel of ``cuobjdump -sass`` output;
+    a kernel without it counts 0."""
+    sass = """\
+        Function : _ZN4_GLOBAL9ppo_pass1ILb1ELb0E13__nv_bfloat16EEv
+        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0110*/  LDSM.16.MT88.4 R8, [R2] ;
+        /*0120*/  HMMA.16816.F32.BF16 R16, R8, R14, R16 ;
+        Function : _ZN4_GLOBAL9ppo_pass1ILb0ELb0EfEEv
+        /*0100*/  FFMA R4, R8, R12, R4 ;
+"""
+    assert chip_smoke.sass_counts(sass, "HMMA") == {
+        "_ZN4_GLOBAL9ppo_pass1ILb1ELb0E13__nv_bfloat16EEv": 2,
+        "_ZN4_GLOBAL9ppo_pass1ILb0ELb0EfEEv": 0,
+    }

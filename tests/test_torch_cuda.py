@@ -264,6 +264,65 @@ def test_update_kernels_refuse_outside_their_limits_on_the_card(cuda_device):
         ppo._fused_grads_and_metrics(towers, cfg, odd)
 
 
+def _edge_samples(model, t_steps, nb, seed, device):
+    """Row-major samples of ``model`` (obs, actions, old log-probs with
+    noise of 0.1 on the model's own, normalised advantages, returns) made
+    with numpy, ordered (t, env)."""
+    from mbt_gym_torch.agents import networks
+    from mbt_gym_torch.agents.ppo import normalise
+
+    rng = np.random.default_rng(seed)
+    m = t_steps * nb
+    obs = torch.from_numpy(rng.uniform(-1.0, 1.0, (m, 4)).astype(np.float32)).to(device)
+    with torch.no_grad():
+        mean, _ = networks.policy_value(model, obs, "float32")
+        eps = torch.from_numpy(rng.normal(size=(m, 2)).astype(np.float32)).to(device)
+        actions = mean + torch.exp(model.log_std) * eps
+        logp = networks.gaussian_log_prob(model, mean, actions)
+    old = logp + torch.from_numpy(rng.normal(0.0, 0.1, m).astype(np.float32)).to(device)
+    adv = normalise(torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(device))
+    ret = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(device)
+    return [obs, actions, old, adv, ret]
+
+
+def _feature_major(rows, t_steps, nb):
+    return [x.reshape(t_steps, nb, -1).transpose(1, 2).contiguous() if x.dim() == 2 else x.reshape(t_steps, nb)
+            for x in rows]
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nb", [32, 96])
+@pytest.mark.parametrize("hidden", [(64, 64), (128, 192), (256, 256)], ids=["64x64", "128x192", "256x256"])
+def test_update_kernels_at_the_mma_tile_edges(cuda_device, hidden, nb, compute_dtype):
+    """K4 (shared trunk and towers) and K7 at the smallest and unequal
+    widths and at 1 and 3 sample tiles per step, against their plain
+    versions at the limits of the tests above; a second launch on the same
+    minibatch gives bitwise-equal grads and metrics (fixed tile ranges and
+    a fixed-order reduction)."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import fused_ppo
+
+    t_steps = 5
+    for shared_trunk in (True, False):
+        model = init_actor_critic(7, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device=cuda_device)
+        with torch.no_grad():
+            model.log_std.add_(0.05)
+        rows = _edge_samples(model, t_steps, nb, 11 + nb, cuda_device)
+        calls = [(fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain, _feature_major(rows, t_steps, nb))]
+        if shared_trunk:
+            calls.append((fused_ppo.ppo_fused_grads, fused_ppo.ppo_fused_grads_plain, rows))
+        for kernel, plain, args in calls:
+            grads, metrics = kernel(model, *args, compute_dtype=compute_dtype)
+            again, again_m = kernel(model, *args, compute_dtype=compute_dtype)
+            want_g, want_m = plain(model, *args, compute_dtype=compute_dtype)
+            torch.cuda.synchronize()
+            _assert_update_close(grads, metrics, want_g, want_m, compute_dtype)
+            for name in grads:
+                assert torch.equal(grads[name], again[name]), name
+            for name in metrics:
+                assert torch.equal(metrics[name], again_m[name]), name
+
+
 def _assert_terminal_close(got, want, n):
     """K1's limits for a terminal state (cash, inventory, price, ...):
     inventory may flip on at most 1e-4 of envs (a fill decided at an exp()

@@ -249,8 +249,13 @@ def test_config_guards():
     oe = oe_env_config(num_trajectories=N, n_steps=4)
     with pytest.raises(AssertionError, match="speed dynamics takes 1"):
         det.fixed_rollout(det.fixed_rollout_params(oe, [0.6, 0.6]), 0, N, device="cpu")
+    # random starts are carried in the params, as JAX carries them, and the
+    # kernel wrappers refuse them (pallas_rollout.py:1713, :1773, :1824)
+    late = det.fixed_rollout_params(dataclasses.replace(oe, start_time=("uniform", 0.0, 0.5)), [1.0])
+    assert late.random_start and late.start_time == 0.0 and late.run_steps == oe.n_steps
+    with pytest.raises(AssertionError, match="random start times"):
+        det.fixed_rollout(late, 0, N, device="cpu")
     for change, match in (
-        ({"start_time": ("uniform", 0.0, 0.5)}, "random start times"),
         ({"dtype": "float64"}, "float64"),
         ({"reward_scaling": 2.0}, "reward_scaling"),
     ):
@@ -355,6 +360,9 @@ def _guard_case(name):
     jcfg, jagent = _cj()
     if name == "cj-mismatched-agent":
         jagent = dataclasses.replace(jagent, kappa=2.0)
+    elif name == "cj-mismatched-agent-random-start":
+        jcfg = dataclasses.replace(jcfg, start_time=("uniform", 0.0, 0.5))
+        jagent = dataclasses.replace(jagent, kappa=2.0)
     elif name == "cj-normalised-actions":
         jcfg = dataclasses.replace(jcfg, normalise_action_space=True)
     elif name == "cj-random-start":
@@ -374,10 +382,12 @@ def _guard_case(name):
             jcfg = dataclasses.replace(jcfg, reward_scaling=2.0)
         return (jcfg, jagent.policy(), *_port_policy(jcfg, "oe", jagent))
     elif name.startswith("fixed"):
-        action = [0.6] if name == "fixed-wrong-columns" else [0.6, 0.6]
+        action = [0.6] if name.startswith("fixed-wrong-columns") else [0.6, 0.6]
         jcfg = jax_as_env_config(num_trajectories=256)
         if name == "fixed-random-inventory":
             jcfg = dataclasses.replace(jcfg, initial_inventory=(-2, 3))
+        elif name.endswith("random-start"):
+            jcfg = dataclasses.replace(jcfg, start_time=("uniform", 0.0, 0.5))
         return (jcfg, jax_fixed_action_policy(action), *_port_policy(jcfg, "fixed", action=action))
     return (jcfg, jagent.policy(), *_port_policy(jcfg, "cj", jagent))
 
@@ -387,7 +397,10 @@ def _guard_case(name):
     [
         ("cj-mismatched-agent", ("rollout", "stats"), "differ from the env config"),
         ("cj-normalised-actions", ("rollout", "stats"), "disable normalise_action_space"),
-        ("cj-random-start", ("rollout", "stats"), "random start times"),
+        ("cj-random-start", ("rollout", "stats"), "random start times with the table policy run on the"),
+        ("cj-mismatched-agent-random-start", ("rollout", "stats"), "differ from the env config"),
+        ("fixed-random-start", ("rollout", "stats"), "random start times with the fixed policy run on the"),
+        ("fixed-wrong-columns-random-start", ("rollout", "stats"), "fixed action has 1 columns"),
         ("cj-random-inventory", ("stats",), "random initial inventory is unsupported"),
         ("cj-n-not-128", ("rollout", "stats"), "multiple of 128"),
         ("cj-float64", ("rollout", "stats"), "float64"),
@@ -400,13 +413,14 @@ def _guard_case(name):
 def test_fallback_reasons_match_jax(name, modes, words):
     """tests/test_dispatch.py:89-173 for the CJ, OE and fixed families: the
     same guards send both front doors to their engine, each reason naming
-    the feature."""
+    the feature, in the same order of checks (a mismatched agent or wrong
+    columns with a random start give the agent's or the columns' reason)."""
     jcfg, jpol, cfg, pol = _guard_case(name)
     for mode in modes:
         want = jax_dispatch.dispatch_report(jcfg, jpol, mode=mode, platform="tpu")
         got = dispatch.dispatch_report(cfg, pol, mode=mode, platform="cuda")
         assert (want.backend, got.backend, got.family) == ("xla", "engine", None), (mode, want, got)
-        assert words in got.reason, (mode, got.reason)
+        assert words in got.reason and words in want.reason, (mode, want.reason, got.reason)
     if modes == ("stats",):  # random initial inventory stays fused for full trajectories
         got = dispatch.dispatch_report(cfg, pol, mode="rollout", platform="cuda")
         assert (got.backend, got.family) != ("engine", None)

@@ -131,3 +131,23 @@ def test_fused_iteration_matches_jax_on_injected_noise():
                        rtol=5e-4, atol=5e-6)
     for name in ("pg_loss", "vf_loss", "approx_kl", "entropy", "mean_episode_reward"):
         np.testing.assert_allclose(float(metrics[name]), float(want_m[name]), rtol=1e-3, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("rows, cols", [(64, 64), (128, 192), (512, 256)])
+def test_mma_fragment_packing_round_trips(rows, cols):
+    """The bf16 kernels' W1 in mma fragment order (pack_mma_a): every value
+    kept once, lane 4g+t of block (rb, kb) holding rows g, g+8 x columns 2t,
+    2t+1, 2t+8, 2t+9 as the m16n8k16 A registers a0-a3, and unpacked back."""
+    w = torch.from_numpy(np.random.default_rng(rows + cols).normal(size=(rows, cols)).astype(np.float32))
+    w = w.to(torch.bfloat16)
+    packed = fused_ppo.pack_mma_a(w)
+    assert packed.shape == (rows * cols,) and packed.is_contiguous()
+    unpacked = packed.reshape(rows // 16, cols // 16, 8, 4, 2, 2, 2).permute(0, 5, 2, 1, 4, 3, 6)
+    assert torch.equal(unpacked.reshape(rows, cols), w)
+    blocks = packed.reshape(rows // 16, cols // 16, 32, 8)
+    rb, kb = rows // 16 - 1, 1
+    for lane in (0, 5, 31):
+        g, t = divmod(lane, 4)
+        r0, k0 = 16 * rb, 16 * kb
+        want = [w[r0 + g + 8 * (i // 2 % 2), k0 + 2 * t + 8 * (i // 4) + i % 2] for i in range(8)]
+        assert torch.equal(blocks[rb, kb, lane], torch.stack(want))
