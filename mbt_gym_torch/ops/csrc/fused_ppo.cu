@@ -97,6 +97,7 @@
 #include <cuda_runtime.h>
 
 #include "dense.cuh"
+#include "mma.cuh"
 
 constexpr int kMaxObs = 8;
 constexpr int kMaxAct = 4;
@@ -163,52 +164,20 @@ __device__ __forceinline__ float tanh_grad(float h) {
   }
 }
 
-// ---- tensor-core building blocks of the bf16 instantiations
+// ---- tensor-core building blocks of the bf16 instantiations (mma.cuh)
 //
-// Warp-level mma.sync.m16n8k16 (bf16 operands, float32 sums).  Activation
-// tiles sit in shared memory feature-major, row k holding the tile's 32
-// samples at a row stride of kLdA bf16 (80 bytes): the 8 rows one
-// ldmatrix phase reads then fall in 8 distinct 16-byte bank groups.
+// Activation tiles hold the tile's 32 samples at a row stride of kLdA bf16
+// (80 bytes): the 8 rows one ldmatrix phase reads then fall in 8 distinct
+// 16-byte bank groups.
 constexpr int kWarps = kThreads / 32;
 constexpr int kLdA = kE + 8;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices; lane i gives the address of row i % 8 of matrix
-// i / 8, and r[q] receives matrix q in the mma operand layout.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// W1 in mma fragment order (ops/fused_ppo.py::pack_mma_a): the 16 x 16
-// A block (row block rb, k block kb) of a (R, K) matrix is 32 x 8 bf16 at
-// (rb K / 16 + kb) 256, lane l's four registers the 16 bytes at 8 l.
-constexpr int kBlock = 256;
-
-__device__ __forceinline__ void frag_from(uint32_t (&a)[4], const uint4 v) {
-  a[0] = v.x;
-  a[1] = v.y;
-  a[2] = v.z;
-  a[3] = v.w;
-}
+using mbt::frag_from;
+using mbt::kBlock;
+using mbt::ldmatrix_x4;
+using mbt::mma_bf16;
+using mbt::mma_k_block;
+using mbt::zero_acc;
 
 // The A fragments of MT row blocks (a row-block stride apart) at `p`,
 // this lane's 16 bytes of the first one, in device memory: one 16-byte
@@ -217,45 +186,6 @@ template <int MT>
 __device__ __forceinline__ void load_a_global(uint32_t (&a)[MT][4], const __nv_bfloat16* p, size_t rb_stride) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) frag_from(a[mt], __ldg(reinterpret_cast<const uint4*>(p + mt * rb_stride)));
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
-    }
-  }
-}
-
-// The ldmatrix.trans row address of this lane in a feature-major activation
-// tile `act` (rows of stride kLdA, offset to the first sample): matrices
-// (k 0-7, samples 0-7), (k 8-15, 0-7), (k 0-7, 8-15), (k 8-15, 8-15) give
-// the B fragments of two 8-sample tiles.
-__device__ __forceinline__ const __nv_bfloat16* act_b_row(const __nv_bfloat16* act) {
-  const int lane = threadIdx.x % 32, q = lane / 8;
-  return act + ((q % 2) * 8 + lane % 8) * kLdA + (q / 2) * 8;
-}
-
-// acc[mt][nt] += a[mt] * (NT 8-sample tiles of one 16-row k block), the k
-// block's B fragments read at `b` (act_b_row of its first row).
-template <int MT, int NT>
-__device__ __forceinline__ void mma_k_block(const uint32_t (&a)[MT][4], const __nv_bfloat16* b,
-                                            float (&acc)[MT][NT][4]) {
-  static_assert(NT % 2 == 0, "ldmatrix.x4 gives two sample tiles");
-#pragma unroll
-  for (int np = 0; np < NT / 2; ++np) {
-    uint32_t f[4];
-    ldmatrix_x4_trans(f, b + np * 16);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      mma_bf16(acc[mt][2 * np], a[mt], f[0], f[1]);
-      mma_bf16(acc[mt][2 * np + 1], a[mt], f[2], f[3]);
-    }
-  }
 }
 
 // acc[mt][nt] = sum over k < k_dim of w[16 mt + m][k] * act[k][8 nt + n]
@@ -270,7 +200,7 @@ template <int MT, int NT>
 __device__ __forceinline__ void mma_weights_act(const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* act,
                                                 int k_dim, float (&acc)[MT][NT][4]) {
   constexpr int D = 2;
-  const __nv_bfloat16* b_row = act_b_row(act);
+  const __nv_bfloat16* b_row = mbt::act_b_row<kLdA>(act);
   const __nv_bfloat16* a_frag = w + (threadIdx.x % 32) * 8;
   const size_t rb_stride = static_cast<size_t>(k_dim) * 16;
   zero_acc(acc);
@@ -284,24 +214,6 @@ __device__ __forceinline__ void mma_weights_act(const __nv_bfloat16* __restrict_
       mma_k_block(a[s], b_row + kk * kLdA, acc);
       if (kk + 16 * D < k_dim) load_a_global<MT>(a[s], a_frag + (kk / 16 + D) * kBlock, rb_stride);
     }
-  }
-}
-
-// The same product with `w` (fragment order) staged in shared memory: a
-// warp's 16-byte fragment reads cover 512 contiguous bytes.
-template <int MT, int NT>
-__device__ __forceinline__ void mma_staged_act(const __nv_bfloat16* w, const __nv_bfloat16* act, int k_dim,
-                                               float (&acc)[MT][NT][4]) {
-  const __nv_bfloat16* b_row = act_b_row(act);
-  const __nv_bfloat16* a_frag = w + (threadIdx.x % 32) * 8;
-  zero_acc(acc);
-  for (int k0 = 0; k0 < k_dim; k0 += 16) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      frag_from(a[mt], *reinterpret_cast<const uint4*>(a_frag + mt * k_dim * 16 + k0 / 16 * kBlock));
-    }
-    mma_k_block(a, b_row + k0 * kLdA, acc);
   }
 }
 
@@ -850,7 +762,7 @@ __device__ __forceinline__ void pass2_tensor_cores(const PpoKernelParams& p, con
     __syncthreads();
     {
       float z[1][2][4];
-      mma_staged_act<1, 2>(w1 + rm * p.h0, h1 + re, p.h0, z);
+      mbt::mma_staged_act<1, 2, kLdA>(w1 + rm * p.h0, h1 + re, p.h0, z);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
@@ -1013,7 +925,7 @@ int launch_dtype(const PpoKernelParams* p, int device, const PpoInputs* in, int 
 // tower's layer-1 (in, out) matrix; `wb1` (towers, h1, h0) each tower's
 // layer-1 (out, in) matrix; all bf16 when `bf16` is set and float
 // otherwise, and with `bf16` set `wf1` and `wb1` are the stacked (H0, h1)
-// and (H1, h0) matrices in mma fragment order (ops/fused_ppo.py::
+// and (H1, h0) matrices in mma fragment order (ops/mlp_rollout.py::
 // pack_mma_a).  `bias` is b0 (H0) then b1 (H1); `w_head` (a+1, H1) is float,
 // already rounded to bf16 in bf16 mode, zero off its towers' blocks.
 // Scratch: `dmv` (a+1, M), `part1` (256, Part1Layout), `part2`

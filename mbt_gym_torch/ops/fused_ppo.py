@@ -50,7 +50,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from mbt_gym_torch.ops import _build
-from mbt_gym_torch.ops.mlp_rollout import bf16_round, full_float32_matmul, transpose_params
+from mbt_gym_torch.ops.mlp_rollout import bf16_round, full_float32_matmul, pack_mma_a, transpose_params
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _SAMPLE_TILE = 32
@@ -331,19 +331,6 @@ def _launch(entry: str, params, n_steps: int, n_envs: int, s_dim: int, a_dim: in
                         dbh, dlstd)
     metrics = {"pg_loss": sums[0] / m, "vf_loss": sums[1] / m, "approx_kl": sums[2] / m}
     return grads, metrics
-
-
-def pack_mma_a(w: torch.Tensor) -> torch.Tensor:
-    """A row-major ``(R, K)`` matrix (R, K multiples of 16) in the order of
-    ``mma.m16n8k16``'s A fragments: for each 16 x 16 block (row blocks
-    outer, k blocks inner), lane ``4 g + t`` of a warp holds its four
-    registers as 8 consecutive values, rows ``g`` and ``g + 8``, columns
-    ``2 t, 2 t + 1`` and ``2 t + 8, 2 t + 9``, so one 16-byte load fetches
-    them.  Returns a flat tensor of ``R * K`` values."""
-    r, k = w.shape
-    # (row block, row half, g, k block, k half, t, column pair) ->
-    # (row block, k block, g, t, k half, row half, column pair)
-    return w.reshape(r // 16, 2, 8, k // 16, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6).reshape(-1)
 
 
 def _device_of(x: torch.Tensor, what: str) -> torch.device:

@@ -354,6 +354,19 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def pack_mma_a(w: torch.Tensor) -> torch.Tensor:
+    """A row-major ``(R, K)`` matrix (R, K multiples of 16) in the order of
+    ``mma.m16n8k16``'s A fragments: for each 16 x 16 block (row blocks
+    outer, k blocks inner), lane ``4 g + t`` of a warp holds its four
+    registers as 8 consecutive values, rows ``g`` and ``g + 8``, columns
+    ``2 t, 2 t + 1`` and ``2 t + 8, 2 t + 9``, so one 16-byte load fetches
+    them.  Returns a flat tensor of ``R * K`` values."""
+    r, k = w.shape
+    # (row block, row half, g, k block, k half, t, column pair) ->
+    # (row block, k block, g, t, k half, row half, column pair)
+    return w.reshape(r // 16, 2, 8, k // 16, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6).reshape(-1)
+
+
 # ------------------------------------------------------------ plain version
 def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: int = 16384,
                       noise: Optional[torch.Tensor] = None, device=None):
