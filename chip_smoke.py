@@ -264,12 +264,33 @@ def compare_grads(torch, grads, metrics, want_g, want_m, dtype, label):
 
 
 def check_repeat(torch, first, second, label):
-    """Two launches of an update kernel on the same minibatch give bitwise
-    equal grads and metrics (fixed tile ranges, fixed-order reductions)."""
+    """Two launches of a kernel on the same inputs give bitwise equal
+    results (fixed tiles, fixed-order reductions): each of ``first`` and
+    ``second`` is a sequence of ``{name: tensor}`` dicts (an update's grads
+    and metrics, a rollout's outputs)."""
     for got, again in zip(first, second):
         differ = [name for name in got if not torch.equal(got[name], again[name])]
         check(not differ, f"{label}: a repeated launch differs in {differ}")
     print(f"{label}: a repeated launch is bitwise equal")
+
+
+ROLLOUT_OUTPUTS = ("obs", "actions", "log_probs", "values", "rewards")
+
+
+def rollout_outputs(outputs):
+    """K3's five outputs as the one dict ``check_repeat`` compares."""
+    return (dict(zip(ROLLOUT_OUTPUTS, outputs)),)
+
+
+def engine_rollout_ms(torch, env_cfg, params, label, card):
+    """K3's yardstick: milliseconds of the port's engine collection episode
+    (``collect_rollout``, no kernel, bf16 operands) of the same params and
+    seed as the kernel's timing."""
+    from mbt_gym_torch.agents.ppo import collect_rollout
+
+    ms = cuda_ms(torch, lambda: collect_rollout(env_cfg, params, 9, compute_dtype="bfloat16"), warmup=1, reps=2)
+    print(f"{label} [{card}]: engine collect_rollout of the same params and seed {ms} ms")
+    return ms
 
 
 def engine_grad_ms(torch, model, rows, label, card):
@@ -331,9 +352,12 @@ def ppo_phases(torch, np, card, dev):
     k3_err = 0.0
     for mode, kw in (("noise", {"noise": noise}), ("native", {"seed": 31, "device": dev})):
         got = mr.mlp_rollout(p, model, num_trajectories=PPO_N, **kw)
+        again = mr.mlp_rollout(p, model, num_trajectories=PPO_N, **kw)
         want = mr.mlp_rollout_plain(p, model, num_trajectories=PPO_N, **kw)
         torch.cuda.synchronize()
         k3_err = max(k3_err, compare_rollouts(torch, got, want, PPO_N, f"phase 8 K3 {mode} at {PPO_N}x{steps}"))
+        check_repeat(torch, rollout_outputs(got), rollout_outputs(again), f"phase 8 K3 {mode}")
+        del again
     del noise, want
 
     # ---- phase 9: K4 against its plain version on the first minibatch
@@ -415,6 +439,7 @@ def ppo_phases(torch, np, card, dev):
     params = ts.params
     k3_ms = cuda_ms(torch, lambda: mr.mlp_rollout(p, params, 9, PPO_N, device=dev), warmup=1, reps=5)
     k3_plain_ms = cuda_ms(torch, lambda: mr.mlp_rollout_plain(p, params, 9, PPO_N, device=dev), warmup=1, reps=2)
+    k3_engine_ms = engine_rollout_ms(torch, env_cfg, params, f"phase 12 K3 at {PPO_N}x{steps}", card)
     tb = mr.collect_rollout_fused_T(env_cfg, params, 9, device=dev)
     mb = [x[..., :nb] for x in (tb.obs_t, tb.actions_t, tb.log_probs, tb.advantages, tb.returns)]
     mb[3] = normalise(mb[3])
@@ -435,7 +460,7 @@ def ppo_phases(torch, np, card, dev):
     k4_bound = bound_ms((s_dim + a_dim + 3) * 4 * samples, ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim) * samples,
                         BF16_OPS_PER_S)
     for name, ms, plain_ms, (b_ms, b_by), shape, engine in (
-        ("K3 mlp_rollout native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}", ""),
+        ("K3 mlp_rollout native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}", f", engine {k3_engine_ms} ms"),
         ("K4 ppo_fused_grads_T bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{steps}x{nb}",
          f", engine {k4_engine_ms} ms"),
     ):
@@ -445,7 +470,7 @@ def ppo_phases(torch, np, card, dev):
         {
             "name": "K3 mlp_rollout", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/mlp_rollout.cu",
             "replaces": "mbt_gym_tpu/ops/pallas_rollout.py:1514", "launches": launches["mlp_rollout"],
-            "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+            "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms, "engine_ms": k3_engine_ms,
             "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
         },
         {
@@ -802,22 +827,27 @@ def kernel_registers(report, names):
     return rows
 
 
-def sass_counts(sass, opcode):
+def sass_counts(sass, opcode, names=None):
     """{kernel entry: number of SASS lines holding ``opcode``} from
-    ``cuobjdump -sass`` output."""
+    ``cuobjdump -sass`` output, for every entry or, with ``names``, the
+    entries whose mangled name contains one of them."""
     counts, entry = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
-            entry = line.split("Function : ", 1)[1].strip()
-            counts[entry] = 0
+            name = line.split("Function : ", 1)[1].strip()
+            entry = name if names is None or any(n in name for n in names) else None
+            if entry is not None:
+                counts[entry] = 0
         elif entry is not None and opcode in line:
             counts[entry] += 1
     return counts
 
 
-def check_tensor_cores(library, label):
-    """Phase 18: the bf16 instantiations of the fused update's passes issue
-    tensor-core instructions (HMMA in the SASS) and the float32 ones none."""
+def check_tensor_cores(library, label, names, instantiations):
+    """Phase 18: the bf16 instantiations of the kernels ``names`` in
+    ``library`` issue tensor-core instructions (HMMA in the SASS) and the
+    float32 ones none; ``instantiations`` of them must be there.  Returns
+    the SASS."""
     import shutil
     from pathlib import Path
 
@@ -826,12 +856,14 @@ def check_tensor_cores(library, label):
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    passes = {k: v for k, v in sass_counts(sass, "HMMA").items() if "ppo_pass" in k}
-    check(len(passes) == 8, f"phase 18: {len(passes)} pass kernels in the SASS of {library}, not 8")
-    for entry, n in sorted(passes.items()):
+    kernels = sass_counts(sass, "HMMA", names)
+    check(len(kernels) == instantiations,
+          f"phase 18: {len(kernels)} {names} kernels in the SASS of {library}, not {instantiations}")
+    for entry, n in sorted(kernels.items()):
         bf16 = "__nv_bfloat16" in entry
         print(f"phase 18 {label} {entry[:90]}: {n} HMMA ({'bf16' if bf16 else 'float32'})")
         check(n > 0 if bf16 else n == 0, f"phase 18: {n} HMMA in {entry}")
+    return sass
 
 
 def update_phases(torch, np, card, dev):
@@ -861,7 +893,15 @@ def update_phases(torch, np, card, dev):
         check(rows, f"phase 18: no ptxas report for {names} in {src}")
         for entry, usage in rows:
             print(f"phase 18 registers {src} {entry[:90]}: {usage}")
-    check_tensor_cores(_build.build("fused_ppo.cu"), "fused_ppo.cu")
+    check_tensor_cores(_build.build("fused_ppo.cu"), "fused_ppo.cu", ("ppo_pass",), 8)
+    # K3: mlp_rollout_kernel<true> (bf16, tensor cores) and <false>; MUFU
+    # counts the special-function instructions behind its tanhf/expf/logf
+    k3_sass = check_tensor_cores(_build.build("mlp_rollout.cu"), "mlp_rollout.cu", ("mlp_rollout_kernel",), 2)
+    kinds = {kind: sass_counts(k3_sass, f"MUFU.{kind}", ("mlp_rollout_kernel",))
+             for kind in ("EX2", "RCP", "LG2", "SQRT", "RSQ", "SIN", "COS", "TANH")}
+    for entry, n in sorted(sass_counts(k3_sass, "MUFU", ("mlp_rollout_kernel",)).items()):
+        by_kind = {kind: c[entry] for kind, c in kinds.items() if c[entry]}
+        print(f"phase 18 mlp_rollout.cu {entry[:90]}: {n} MUFU in the SASS {by_kind}")
 
     env_cfg = dataclasses.replace(
         as_env_config(num_trajectories=PPO_N),
@@ -923,10 +963,13 @@ def update_phases(torch, np, card, dev):
     del channels
     for mode, kw in (("noise", {"noise": noise}), ("native", {"seed": 32, "device": dev})):
         got = mr.mlp_rollout(p, towers, num_trajectories=PPO_N, **kw)
+        again = mr.mlp_rollout(p, towers, num_trajectories=PPO_N, **kw)
         want = mr.mlp_rollout_plain(p, towers, num_trajectories=PPO_N, **kw)
         torch.cuda.synchronize()
         err["K3 towers"] = max(err["K3 towers"], compare_rollouts(
             torch, got, want, PPO_N, f"phase 19 K3 towers {mode} at {PPO_N}x{steps}"))
+        check_repeat(torch, rollout_outputs(got), rollout_outputs(again), f"phase 19 K3 towers {mode}")
+        del again
     del noise, got, want
     print(f"phase 19 ok in {time.perf_counter() - t0:.1f} s")
 
@@ -1000,6 +1043,7 @@ def update_phases(torch, np, card, dev):
     k4_engine_ms = engine_grad_ms(torch, towers, mb, f"phase 21 K4 towers at {m} samples", card)
     k3_ms = cuda_ms(torch, lambda: mr.mlp_rollout(p, towers, 9, PPO_N, device=dev), warmup=1, reps=3)
     k3_plain_ms = cuda_ms(torch, lambda: mr.mlp_rollout_plain(p, towers, 9, PPO_N, device=dev), warmup=1, reps=1)
+    k3_engine_ms = engine_rollout_ms(torch, env_cfg, towers, f"phase 21 K3 towers at {PPO_N}x{steps}", card)
     # K7 and K4 read obs, actions, old log-prob, advantage and return once
     # per sample and write the grads (~0.3 MB, ~0.6 MB with towers); K3
     # native mode writes (S + A + 3) floats per env-step
@@ -1013,7 +1057,8 @@ def update_phases(torch, np, card, dev):
          f", engine {k7_engine_ms} ms"),
         ("K4 ppo_fused_grads_T towers bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{rows}x{lanes}",
          f", engine {k4_engine_ms} ms"),
-        ("K3 mlp_rollout towers native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}", ""),
+        ("K3 mlp_rollout towers native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}",
+         f", engine {k3_engine_ms} ms"),
     ):
         print(f"phase 21 [{card}] {name} at {shape}: {ms} ms, plain {plain_ms} ms{engine}, "
               f"bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound")
@@ -1038,7 +1083,8 @@ def update_phases(torch, np, card, dev):
     }
     towers_figures = {
         "K3": {"towers_launches": launches["c"]["mlp_rollout"], "towers_max_abs_err": err["K3 towers"],
-               "towers_ms": k3_ms, "towers_plain_ms": k3_plain_ms, "towers_bound_ms": k3_bound[0]},
+               "towers_ms": k3_ms, "towers_plain_ms": k3_plain_ms, "towers_engine_ms": k3_engine_ms,
+               "towers_bound_ms": k3_bound[0]},
         "K4": {"towers_launches": launches["b"]["ppo_fused_grads_T"] + launches["c"]["ppo_fused_grads_T"],
                "towers_max_abs_err": err["K4 towers"], "towers_ms": k4_ms, "towers_plain_ms": k4_plain_ms,
                "towers_engine_ms": k4_engine_ms, "towers_bound_ms": k4_bound[0]},

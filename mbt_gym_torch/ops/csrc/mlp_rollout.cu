@@ -12,44 +12,72 @@
 // Outputs: obs (T, S, N) as the policy saw it, the unclipped action
 // (T, A, N), log-prob, value and reward (T, N).
 //
-// Design: one CTA of 256 threads owns a tile of 32 envs for all steps; the
-// env state lives in the registers of the first warp (one lane per env).
-// Per step the activations of the tile sit in shared memory feature-major
-// ([width][32] floats) and each layer is a register-tiled product on CUDA
-// cores (dense.cuh): a thread computes 4 output rows x 8 envs.  The head
-// (A+1 rows) and the env step follow; only the ~36 B/env-step outputs are
-// written to device memory, each warp's store one coalesced 128-B line.
-//
 // Bound on the H100: operations.  At config 5 (262,144 envs x 200 steps,
 // 256x256 trunk) the matmuls are 134,656 FLOP per env-step (7.06 TFLOP),
 // 7.1 ms at the bf16 tensor-core peak, against 1.89 GB of outputs
-// (0.56 ms).  This kernel runs those FLOPs on CUDA cores (67 TFLOP/s
-// float32 peak, ~105 ms at best); moving the trunk to wgmma is later work.
-// In bf16 mode the weights are staged once per CTA in shared memory as
-// bf16 (133 KB at 256x256), so the per-step products read no device
-// memory; in float32 mode (raw observations) they are read through L1/L2.
+// (0.56 ms).  Below that sits a CUDA-core floor the tensor cores do not
+// touch: every env-step evaluates 512 accurate tanhf (1,024 with towers).
+//
+// bf16 instantiation (normalised observations), on the tensor cores.  A CTA
+// of 512 threads (16 warps) owns a tile of 128 envs for all steps.  The
+// weights are staged once per CTA in shared memory in mma fragment order
+// (the wrapper packs them, ops/mlp_rollout.py::pack_mma_a): 128 KB for a
+// 256x256 inner layer, so one CTA fits on an SM.  Per step the layer's
+// input sits in shared memory feature-major as bf16 at a row stride of 136
+// (128 envs + 8: conflict-free ldmatrix and epilogue stores), and every
+// layer is mma.sync.m16n8k16 (mma.cuh) with the (out, in) matrix as A and
+// the activation tile as B through ldmatrix.trans: layer 0 reads the
+// observation tile, its k = S padded to 16 with exact zeros, each inner
+// layer the one activation tile.  Warp w holds rows [32 (w / 2), +32) x
+// envs [64 (w % 2), +64) of the layer's output as 64 float accumulators;
+// a second activation tile does not fit beside W1, so a layer's epilogue
+// (bias, tanhf, round to bf16) overwrites its input after a barrier.  The
+// head (A+1 <= 3 rows, zero-padded to 3) comes from the last layer's
+// accumulators in registers: each thread rounds its tanh to bf16, multiplies
+// by its rows' head weights and sums over them, the 8 lanes of a column
+// reduce with shuffles (a reduce-scatter: 42 shuffles for 48 values), and
+// the row groups' partial sums (12 KB) meet in shared memory, where the env
+// thread adds them in a fixed order.  Shared memory at 256x256: 136 KB of
+// weights (layer 0 padded to k = 16), 68 KB activation tile, 12 KB partials,
+// 9 KB observation tile, biases and head: 225 KB of the 227 KB a block may
+// hold.  A trunk whose inner layers do not fit reads their fragments from
+// device memory (through L2) instead.  The env step runs one thread per env
+// on the first 128 threads (warps 0-3, one per SM sub-partition).  Three
+// barriers per step at two layers.  The alternative of 64-env tiles with
+// two activation buffers and the head read from shared memory was not
+// taken: it halves the work between barriers, and the head's 3 x 256
+// serial products per env would run on CUDA cores.
 //
 // Separate pi/vf towers (the JAX kernel's stacked-trunk split_at mode,
-// pallas_rollout.py:668-712 and :858-873): the bf16 weights of two 256x256
-// towers (266 KB) do not fit the 227 KB of shared memory an H100 block may
-// hold, and the env step needs only the pi tower's mean.  So a CTA runs its
-// episode in two phases: phase 1 stages the pi tower and runs the steps
-// above with the pi head's A rows (the value is not written); phase 2
-// restages the same buffers with the vf tower and, step by step, reads
-// back the observations its own threads wrote in phase 1 and writes the vf
-// head's value.  Each tower's products are those of the JAX kernel's
-// stacked trunk (layer 0's stacked rows are independent dot products, the
-// inner layers per-tower products, the merged head's zero blocks add exact
-// zeros), so the values are the same sums.  Both phases are one launch.
+// pallas_rollout.py:668-712 and :858-873): the weights of two 256x256
+// towers do not fit in shared memory, and the env step needs only the pi
+// tower's mean.  So a CTA runs its episode in two phases: phase 1 stages
+// the pi tower and runs the steps above with the pi head's A rows (the
+// value is not written); phase 2 restages the same buffers with the vf
+// tower and, step by step, reads back the observations its own threads
+// wrote in phase 1 and writes the vf head's value.  Each tower's products
+// are those of the JAX kernel's stacked trunk (layer 0's stacked rows are
+// independent dot products, the inner layers per-tower products, the
+// merged head's zero blocks add exact zeros), so the values are the same
+// sums.  Both phases are one launch.
+//
+// float32 instantiation (raw observations), on CUDA cores: a CTA of 256
+// threads owns 32 envs; per step the activations sit in shared memory
+// feature-major ([width][32] floats) and each layer is a register tile
+// (dense.cuh, 4 rows x 8 envs a thread) reading the weights through L1/L2;
+// the head is one thread per (row, env); the env state lives in warp 0.
 //
 // Numerics follow the plain PyTorch version (ops/mlp_rollout.py):
 // with normalised observations every matmul operand is rounded to bf16
 // (round to nearest even) with a float32 sum; otherwise all float32.
-// Biases, tanh and everything after are float32.  A layer's output is
+// Biases, tanhf and everything after are float32.  A layer's output is
 // stored rounded to the operand type; its only uses are as the next
-// product's operand, which rounds it anyway.  The env step repeats the
-// plain version's float32 op order (build flag --fmad=false; the products
-// use explicit FMAs, exact on bf16 operands).
+// product's operand, which rounds it anyway.  The tensor cores sum a
+// product in another order than the plain version's matmul.  Zero-padded
+// rows and columns add exact zeros.  The env step repeats the plain
+// version's float32 op order (build flag --fmad=false; the CUDA-core
+// products use explicit FMAs, exact on bf16 operands).  Fixed warp tiles
+// and a fixed reduction order make a repeated launch bitwise equal.
 //
 // Noise: noise mode reads (T, 7, N) channels in the JAX order (u_arr_bid,
 // u_arr_ask, u_fill_bid, u_fill_ask, eps0, eps1, mid normal).  Native mode
@@ -65,6 +93,7 @@
 #include <cuda_runtime.h>
 
 #include "dense.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
 
 constexpr int kMaxLayers = 8;
@@ -110,10 +139,6 @@ struct RolloutOut {
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kE = 32;   // envs per CTA
-constexpr int kET = 8;   // envs per thread in a layer
-constexpr int kRowGroups = kThreads / (kE / kET);  // 64 groups of 4 rows
 constexpr int kNoiseChannels = 7;
 
 struct Draws {
@@ -150,16 +175,109 @@ __device__ __forceinline__ Draws draws_at(const float* noise, int n, uint32_t se
   return d;
 }
 
-// One tower's weights: each layer's (in, out) matrix and bias, layers
-// concatenated, then the head rows it feeds.
+// One env's state and its policy constants, in the registers of its thread.
+struct EnvState {
+  float cash, inv, price;
+  float lstd[kMaxAct], stdv[kMaxAct];
+};
+
+__device__ __forceinline__ EnvState initial_state(const MlpKernelParams& p, const float* log_std) {
+  EnvState s;
+  s.cash = p.initial_cash;
+  s.inv = p.initial_inventory;
+  s.price = p.initial_price;
+  for (int a = 0; a < p.a_dim; ++a) {
+    s.lstd[a] = log_std[a];
+    s.stdv[a] = expf(s.lstd[a]);
+  }
+  return s;
+}
+
+// Observation channel c before step i (pallas_rollout.py:724-754).
+__device__ __forceinline__ float observation(const MlpKernelParams& p, const EnvState& s, int i, int c) {
+  const float t = p.start_time + static_cast<float>(i) * p.dt;
+  const float planes[4] = {s.cash, s.inv, t, s.price};
+  float x = planes[c];
+  if (p.normalise_obs) x = (x - p.obs_low[c]) / p.obs_grad[c] - 1.0f;
+  return x;
+}
+
+// Step i of one env from its head output `mean`: the sample, its log-prob,
+// the executed action and the env step; writes the action, log-prob and
+// reward of the step and advances the state.
+__device__ __forceinline__ void env_step(const MlpKernelParams& p, const Draws& d, const float* mean, EnvState& s,
+                                         const RolloutOut& out, int n, int env, int i) {
+  const float eps[2] = {d.eps0, d.eps1};
+  float action[kMaxAct], exec[kMaxAct];
+  float lp = 0.0f;
+  for (int a = 0; a < p.a_dim; ++a) {
+    action[a] = mean[a] + s.stdv[a] * eps[a];
+    lp = lp + ((-0.5f * eps[a]) * eps[a] - s.lstd[a]);
+    if (p.normalise_act) {
+      const float c = fminf(fmaxf(action[a], -1.0f), 1.0f);
+      exec[a] = (c + 1.0f) * p.act_grad[a] + p.act_low[a];
+    } else {
+      exec[a] = fminf(fmaxf(action[a], p.act_low[a]), p.act_high[a]);
+    }
+  }
+  lp = lp - p.logp_const;
+
+  const float bid = exec[0], ask = exec[1];
+  const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
+  const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
+  float fill_bid = d.u_fb < expf(p.neg_k * bid) ? 1.0f : 0.0f;
+  float fill_ask = d.u_fa < expf(p.neg_k * ask) ? 1.0f : 0.0f;
+  fill_bid = fill_bid * (s.inv < p.max_inventory ? 1.0f : 0.0f);
+  fill_ask = fill_ask * (s.inv > -p.max_inventory ? 1.0f : 0.0f);
+  const float hit_bid = arr_bid * fill_bid;
+  const float hit_ask = arr_ask * fill_ask;
+  float new_inv = s.inv + hit_bid - hit_ask;
+  float new_cash = s.cash - hit_bid * (s.price - bid) + hit_ask * (s.price + ask);
+  new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
+  new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
+  const float new_price = s.price + p.drift_dt + p.vol_sqrt_dt * d.mid;
+  const float reward = (new_cash + new_inv * new_price) - (s.cash + s.inv * s.price);
+
+  const size_t o1 = static_cast<size_t>(i) * n + env;
+  for (int a = 0; a < p.a_dim; ++a) {
+    out.act[(static_cast<size_t>(i) * p.a_dim + a) * n + env] = action[a];
+  }
+  out.logp[o1] = lp;
+  out.reward[o1] = reward;
+  s.cash = new_cash;
+  s.inv = new_inv;
+  s.price = new_price;
+}
+
+// One tower's weights: the layers' weights and biases, concatenated, then
+// the head rows it feeds (C entry point below).
 template <typename TW>
 struct TowerWeights {
-  const TW* w_t;
+  const TW* w;
   const float* bias;
   const float* w_head;  // (head_rows, h_last)
   const float* b_head;  // (head_rows,)
   int head_rows;
 };
+
+// Sizes and shared-memory offsets (bytes) of a launch, from the host.
+struct Layout {
+  int w0_size;   // bf16: layer 0's packed weights, in values
+  int w_size;    // bf16: every layer's packed weights, in values
+  int staged;    // bf16: the inner layers are staged in shared memory
+  int b_total;   // every layer's bias
+  int act_rows;  // bf16: rows of the activation tile
+  int h_max;     // float32: widest activation
+  size_t off_bias, off_head, off_x, off_act, off_part, bytes;
+};
+
+// ============================================================ float32 path
+namespace cc {
+
+constexpr int kThreads = 256;
+constexpr int kE = 32;   // envs per CTA
+constexpr int kET = 8;   // envs per thread in a layer
+constexpr int kRowGroups = kThreads / (kE / kET);  // 64 groups of 4 rows
 
 // Buffers of one CTA in shared memory.
 struct Smem {
@@ -170,25 +288,17 @@ struct Smem {
   float* bias_s;
 };
 
-// Stages a tower's head and biases (and, when `w_s`, its weights) into
-// shared memory; returns the weights the products read.
-template <typename TW>
-__device__ const TW* stage(const TowerWeights<TW>& tw, const Smem& sm, TW* w_s, int w_total, int b_total,
-                           int h_last) {
+// Stages a tower's head and biases into shared memory.
+__device__ void stage(const TowerWeights<float>& tw, const Smem& sm, int b_total, int h_last) {
   for (int i = threadIdx.x; i < tw.head_rows * h_last; i += kThreads) sm.head_w[i] = tw.w_head[i];
   for (int i = threadIdx.x; i < b_total; i += kThreads) sm.bias_s[i] = tw.bias[i];
-  if (w_s) {
-    for (int i = threadIdx.x; i < w_total; i += kThreads) w_s[i] = tw.w_t[i];
-    return w_s;
-  }
-  return tw.w_t;
 }
 
 // The trunk h = tanh(W h + b), layer by layer, from act0 (the tile's
-// observation, operand-rounded) through the ping-pong buffers, then the
-// head's rows into head_o.  Ends after a barrier.
-template <bool kBf16, typename TW>
-__device__ void forward(const MlpKernelParams& p, const TW* w, const Smem& sm, int head_rows,
+// observation) through the ping-pong buffers, then the head's rows into
+// head_o.  Each layer's (in, out) matrix is read through L1/L2.  Ends
+// after a barrier.
+__device__ void forward(const MlpKernelParams& p, const float* w, const Smem& sm, int head_rows,
                         const float* b_head) {
   const int tid = threadIdx.x;
   const int rg = tid % kRowGroups;
@@ -207,9 +317,7 @@ __device__ void forward(const MlpKernelParams& p, const TW* w, const Smem& sm, i
       for (int r = 0; r < 4; ++r) {
         const float b = sm.bias_s[b_off + rg * 4 + r];
 #pragma unroll
-        for (int e = 0; e < kET; ++e) {
-          o[(rg * 4 + r) * kE + eg * kET + e] = mbt::operand<kBf16>(tanhf(acc[r][e] + b));
-        }
+        for (int e = 0; e < kET; ++e) o[(rg * 4 + r) * kE + eg * kET + e] = tanhf(acc[r][e] + b);
       }
     }
     __syncthreads();
@@ -229,18 +337,12 @@ __device__ void forward(const MlpKernelParams& p, const TW* w, const Smem& sm, i
   __syncthreads();
 }
 
-// `vf.w_t` is NULL for the shared trunk, whose merged head (A+1 rows, the
+// `vf.w` is NULL for the shared trunk, whose merged head (A+1 rows, the
 // value last) is `pi`'s; with towers `pi` holds the pi tower and its A head
 // rows and `vf` the vf tower and its value row.
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads, 1)
-mlp_rollout_kernel(const MlpKernelParams p, int n, int h_max, uint32_t seed,
-                   const float* __restrict__ noise,
-                   const TowerWeights<typename std::conditional<kBf16, __nv_bfloat16, float>::type> pi,
-                   const TowerWeights<typename std::conditional<kBf16, __nv_bfloat16, float>::type> vf,
-                   int w_total, int stage_w, int b_total, const float* __restrict__ log_std,
-                   RolloutOut out) {
-  using TW = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+__device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
+                        const TowerWeights<float>& pi, const TowerWeights<float>& vf, const Layout& lay,
+                        const float* __restrict__ log_std, const RolloutOut& out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int h_last = p.widths[p.n_layers - 1];
@@ -248,142 +350,404 @@ mlp_rollout_kernel(const MlpKernelParams p, int n, int h_max, uint32_t seed,
 
   Smem sm;
   sm.act0 = reinterpret_cast<float*>(smem_raw);
-  sm.act1 = sm.act0 + h_max * kE;
-  sm.head_w = sm.act1 + h_max * kE;
+  sm.act1 = sm.act0 + lay.h_max * kE;
+  sm.head_w = sm.act1 + lay.h_max * kE;
   sm.head_o = sm.head_w + n_head * h_last;
   sm.bias_s = sm.head_o + n_head * kE;
-  // 16-byte aligned start of the staged weights
-  size_t off = reinterpret_cast<size_t>(sm.bias_s + b_total);
-  off = (off + 15) & ~static_cast<size_t>(15);
-  TW* w_s = stage_w ? reinterpret_cast<TW*>(off) : nullptr;
 
-  const TW* w = stage(pi, sm, w_s, w_total, b_total, h_last);
+  stage(pi, sm, lay.b_total, h_last);
   const int env = blockIdx.x * kE + tid;
-  float cash = p.initial_cash, inv = p.initial_inventory, price = p.initial_price;
-  float lstd[kMaxAct], stdv[kMaxAct];
-  for (int a = 0; a < p.a_dim; ++a) {
-    lstd[a] = log_std[a];
-    stdv[a] = expf(lstd[a]);
-  }
+  EnvState s = initial_state(p, log_std);
   __syncthreads();
 
   // ---- phase 1: the episode with the pi tower (or the shared trunk)
   for (int i = 0; i < p.run_steps; ++i) {
-    // ---- observation (pre-step), pallas_rollout.py:724-754
     if (tid < kE) {
-      const float t = p.start_time + static_cast<float>(i) * p.dt;
-      const float planes[4] = {cash, inv, t, price};
       for (int c = 0; c < p.s_dim; ++c) {
-        float x = planes[c];
-        if (p.normalise_obs) x = (x - p.obs_low[c]) / p.obs_grad[c] - 1.0f;
+        const float x = observation(p, s, i, c);
         out.obs[(static_cast<size_t>(i) * p.s_dim + c) * n + env] = x;
-        sm.act0[c * kE + tid] = mbt::operand<kBf16>(x);
+        sm.act0[c * kE + tid] = x;
       }
     }
     __syncthreads();
     // ---- trunk and head: mean rows, then (shared trunk) the value row
-    forward<kBf16>(p, w, sm, pi.head_rows, pi.b_head);
+    forward(p, pi.w, sm, pi.head_rows, pi.b_head);
 
     // ---- sample, log-prob, action, env step (one lane per env)
     if (tid < kE) {
-      const Draws d = draws_at(noise, n, seed, env, i);
-      const float eps[2] = {d.eps0, d.eps1};
-      float action[kMaxAct], exec[kMaxAct];
-      float lp = 0.0f;
-      for (int a = 0; a < p.a_dim; ++a) {
-        action[a] = sm.head_o[a * kE + tid] + stdv[a] * eps[a];
-        lp = lp + ((-0.5f * eps[a]) * eps[a] - lstd[a]);
-        if (p.normalise_act) {
-          const float c = fminf(fmaxf(action[a], -1.0f), 1.0f);
-          exec[a] = (c + 1.0f) * p.act_grad[a] + p.act_low[a];
-        } else {
-          exec[a] = fminf(fmaxf(action[a], p.act_low[a]), p.act_high[a]);
-        }
-      }
-      lp = lp - p.logp_const;
-
-      const float bid = exec[0], ask = exec[1];
-      const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
-      const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
-      float fill_bid = d.u_fb < expf(p.neg_k * bid) ? 1.0f : 0.0f;
-      float fill_ask = d.u_fa < expf(p.neg_k * ask) ? 1.0f : 0.0f;
-      fill_bid = fill_bid * (inv < p.max_inventory ? 1.0f : 0.0f);
-      fill_ask = fill_ask * (inv > -p.max_inventory ? 1.0f : 0.0f);
-      const float hit_bid = arr_bid * fill_bid;
-      const float hit_ask = arr_ask * fill_ask;
-      float new_inv = inv + hit_bid - hit_ask;
-      float new_cash = cash - hit_bid * (price - bid) + hit_ask * (price + ask);
-      new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
-      new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
-      const float new_price = price + p.drift_dt + p.vol_sqrt_dt * d.mid;
-      const float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
-
-      const size_t o1 = static_cast<size_t>(i) * n + env;
-      for (int a = 0; a < p.a_dim; ++a) {
-        out.act[(static_cast<size_t>(i) * p.a_dim + a) * n + env] = action[a];
-      }
-      out.logp[o1] = lp;
-      if (!vf.w_t) out.value[o1] = sm.head_o[p.a_dim * kE + tid];
-      out.reward[o1] = reward;
-      cash = new_cash;
-      inv = new_inv;
-      price = new_price;
+      float mean[kMaxAct];
+      for (int a = 0; a < p.a_dim; ++a) mean[a] = sm.head_o[a * kE + tid];
+      if (!vf.w) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[p.a_dim * kE + tid];
+      env_step(p, draws_at(noise, n, seed, env, i), mean, s, out, n, env, i);
     }
     // the next step's observation writes act0 only after this step's head
     // has read the trunk output (the barrier that ends forward), and its
     // head runs after the barrier that follows those writes
   }
-  if (!vf.w_t) return;
+  if (!vf.w) return;
 
   // ---- phase 2: the vf tower's value of each observation of phase 1
   __syncthreads();
-  w = stage(vf, sm, w_s, w_total, b_total, h_last);
+  stage(vf, sm, lay.b_total, h_last);
   __syncthreads();
   for (int i = 0; i < p.run_steps; ++i) {
     if (tid < kE) {  // this thread wrote these observations in phase 1
       for (int c = 0; c < p.s_dim; ++c) {
-        sm.act0[c * kE + tid] = mbt::operand<kBf16>(out.obs[(static_cast<size_t>(i) * p.s_dim + c) * n + env]);
+        sm.act0[c * kE + tid] = out.obs[(static_cast<size_t>(i) * p.s_dim + c) * n + env];
       }
     }
     __syncthreads();
-    forward<kBf16>(p, w, sm, vf.head_rows, vf.b_head);
+    forward(p, vf.w, sm, vf.head_rows, vf.b_head);
     if (tid < kE) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[tid];
+  }
+}
+
+Layout layout(const MlpKernelParams& p) {
+  Layout lay{};
+  int k_dim = p.s_dim;
+  lay.h_max = p.s_dim;
+  for (int l = 0; l < p.n_layers; ++l) {
+    lay.h_max = p.widths[l] > lay.h_max ? p.widths[l] : lay.h_max;
+    lay.b_total += p.widths[l];
+    k_dim = p.widths[l];
+  }
+  const int n_head = p.a_dim + 1;
+  lay.bytes = sizeof(float) * (2 * static_cast<size_t>(lay.h_max) * kE + n_head * k_dim + n_head * kE + lay.b_total);
+  return lay;
+}
+
+}  // namespace cc
+
+// ============================================================ bf16 path
+namespace tc {
+
+using mbt::frag_from;
+using mbt::mma_k_block;
+using mbt::zero_acc;
+
+constexpr int kThreads = 512;
+constexpr int kE = 128;        // envs per CTA
+constexpr int kLd = kE + 8;    // activation row stride (bf16)
+constexpr int kK0 = 16;        // layer 0's k: S rows of the observation, then zeros
+constexpr int kHead = 3;       // head rows, zero-padded
+constexpr int kRows = 32;      // warp tile: two 16-row blocks
+constexpr int kEnvs = 64;      //            x eight 8-env tiles
+constexpr int kNT = kEnvs / 8;
+
+struct Smem {
+  __nv_bfloat16* w;     // layer 0's packed weights, then (staged) the inner layers'
+  float* bias;          // every layer's bias
+  float* head_w;        // [kHead][h_last]
+  __nv_bfloat16* x;     // [kK0][kLd] observation tile (layer 0's input)
+  __nv_bfloat16* act;   // [act_rows][kLd] activation tile
+  float* part;          // [row groups][kHead][kE] head partial sums
+};
+
+__device__ __forceinline__ uint4 lds128(const __nv_bfloat16* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(mbt::smem_u32(p)));
+  return v;
+}
+
+// Stages a tower into shared memory: layer 0's packed weights (and, when
+// the layout stages them, the inner layers'), the biases and the head.
+__device__ void stage(const TowerWeights<__nv_bfloat16>& tw, const Smem& sm, const Layout& lay, int h_last) {
+  const int n16 = (lay.staged ? lay.w_size : lay.w0_size) / 8;
+  for (int i = threadIdx.x; i < n16; i += kThreads) {
+    reinterpret_cast<uint4*>(sm.w)[i] = __ldg(reinterpret_cast<const uint4*>(tw.w) + i);
+  }
+  for (int i = threadIdx.x; i < lay.b_total; i += kThreads) sm.bias[i] = tw.bias[i];
+  for (int i = threadIdx.x; i < kHead * h_last; i += kThreads) sm.head_w[i] = tw.w_head[i];
+}
+
+// This warp's tile of one layer's product: acc[mt][nt] = rows
+// [32 rg + 16 mt, +16) of the (r_dim, k_dim) matrix `w` (fragment order;
+// in shared memory or, when `in_smem` is false, device memory) times envs
+// [64 eh + 8 nt, +8) of the feature-major tile `src` (k_dim rows).  A row
+// block at or past r_dim (r_dim % 32 == 16) multiplies zeros.
+__device__ __forceinline__ void product(const __nv_bfloat16* w, bool in_smem, int k_dim, int r_dim,
+                                        const __nv_bfloat16* src, int rg, int eh, float (&acc)[2][kNT][4]) {
+  zero_acc(acc);
+  const bool two = rg * kRows + 16 < r_dim;
+  const size_t rb_stride = static_cast<size_t>(k_dim) * 16;
+  const __nv_bfloat16* a_frag = w + 2 * rg * rb_stride + (threadIdx.x % 32) * 8;
+  const __nv_bfloat16* b_row = mbt::act_b_row<kLd>(src + eh * kEnvs);
+  uint32_t a[2][4] = {};
+  for (int kb = 0; kb < k_dim / 16; ++kb) {
+    const __nv_bfloat16* pa = a_frag + kb * mbt::kBlock;
+    if (in_smem) {
+      frag_from(a[0], lds128(pa));
+      if (two) frag_from(a[1], lds128(pa + rb_stride));
+    } else {
+      frag_from(a[0], __ldg(reinterpret_cast<const uint4*>(pa)));
+      if (two) frag_from(a[1], __ldg(reinterpret_cast<const uint4*>(pa + rb_stride)));
+    }
+    mma_k_block(a, b_row + kb * 16 * kLd, acc);
+  }
+}
+
+// Epilogue of an inner layer: dst[row][env] = bf16(tanh(acc + b[row])).
+__device__ __forceinline__ void store_layer(const float (&acc)[2][kNT][4], const float* bias, int r_dim, int rg,
+                                            int eh, __nv_bfloat16* dst) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = rg * kRows + mt * 16 + half * 8 + g;
+      if (row < r_dim) {
+        const float b = bias[row];
+        __nv_bfloat16* d = dst + row * kLd + eh * kEnvs + t4 * 2;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          *reinterpret_cast<__nv_bfloat162*>(d + nt * 8) = __floats2bfloat162_rn(
+              tanhf(acc[mt][nt][half * 2] + b), tanhf(acc[mt][nt][half * 2 + 1] + b));
+        }
+      }
+    }
+  }
+}
+
+// Epilogue of the last layer: the head's partial sums over this warp's 32
+// rows, part[rg][a][env] = sum over its rows of head_w[a][row] *
+// bf16(tanh(acc + b[row])).  Per half of the warp's envs a thread sums its
+// 4 rows for 2 envs x 3 head rows (24 values); the 8 lanes of a column
+// (lane bits 2-4) then reduce-scatter them with shuffles, each lane ending
+// with 3 values, summed in a fixed order.
+__device__ __forceinline__ void head_partials(const float (&acc)[2][kNT][4], const float* bias,
+                                              const float* head_w, int r_dim, int rg, int eh, float* part) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  float b[4], wh[4][kHead];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // j = 2 mt + half
+    const int row = rg * kRows + (j / 2) * 16 + (j % 2) * 8 + g;
+    const bool ok = row < r_dim;
+    b[j] = ok ? bias[row] : 0.0f;
+#pragma unroll
+    for (int a = 0; a < kHead; ++a) wh[j][a] = ok ? head_w[a * r_dim + row] : 0.0f;
+  }
+#pragma unroll
+  for (int nh = 0; nh < 2; ++nh) {
+    float v[24];  // [(4 nt' + ... ) : ((nt' 2 + c) 3 + a)], nt = 4 nh + nt'
+#pragma unroll
+    for (int ntl = 0; ntl < 4; ++ntl) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float s[kHead] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float h = mbt::round_bf16(tanhf(acc[j / 2][4 * nh + ntl][(j % 2) * 2 + c] + b[j]));
+#pragma unroll
+          for (int a = 0; a < kHead; ++a) s[a] = __fmaf_rn(wh[j][a], h, s[a]);
+        }
+#pragma unroll
+        for (int a = 0; a < kHead; ++a) v[(ntl * 2 + c) * kHead + a] = s[a];
+      }
+    }
+    // lane bit 4, 3, 2 (g bit 2, 1, 0): keep one half, add the partner's
+    // copy of it; lane g ends with v[0..2] = original [3 g, 3 g + 3)
+#pragma unroll
+    for (int st = 0; st < 3; ++st) {
+      const int mask = 16 >> st, keep_n = 12 >> st;
+      const bool up = (lane & mask) != 0;
+#pragma unroll
+      for (int j = 0; j < keep_n; ++j) {
+        const float send = up ? v[j] : v[j + keep_n];
+        const float keep = up ? v[j + keep_n] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+      }
+    }
+    // original index 3 g + a: nt' = g / 2, c = g % 2
+    const int e = eh * kEnvs + (4 * nh + g / 2) * 8 + t4 * 2 + g % 2;
+#pragma unroll
+    for (int a = 0; a < kHead; ++a) part[(rg * kHead + a) * kE + e] = v[a];
+  }
+}
+
+// The trunk and the head's partial sums of one step, from the observation
+// tile.  Ends with the partials written, before a barrier.
+__device__ void forward(const MlpKernelParams& p, const Smem& sm, const Layout& lay, const __nv_bfloat16* w_dev) {
+  const int warp = threadIdx.x / 32, rg = warp / 2, eh = warp % 2;
+  float acc[2][kNT][4];
+  int r_dim = p.widths[0];
+  bool has_rows = rg * kRows < r_dim;
+  if (has_rows) product(sm.w, true, kK0, r_dim, sm.x, rg, eh, acc);
+  size_t w_off = lay.w0_size;
+  int b_off = 0;
+  for (int l = 1; l < p.n_layers; ++l) {
+    if (has_rows) store_layer(acc, sm.bias + b_off, r_dim, rg, eh, sm.act);
+    __syncthreads();
+    const int k_dim = r_dim;
+    b_off += k_dim;
+    r_dim = p.widths[l];
+    has_rows = rg * kRows < r_dim;
+    if (has_rows) {
+      const __nv_bfloat16* w = lay.staged ? sm.w + w_off : w_dev + w_off;
+      product(w, lay.staged, k_dim, r_dim, sm.act, rg, eh, acc);
+    }
+    w_off += static_cast<size_t>(k_dim) * r_dim;
+    if (l + 1 < p.n_layers) __syncthreads();  // every read of act before the epilogue overwrites it
+  }
+  if (has_rows) head_partials(acc, sm.bias + b_off, sm.head_w, r_dim, rg, eh, sm.part);
+}
+
+// Head row a of this thread's env: the row groups' partials in order.
+__device__ __forceinline__ float head_out(const Smem& sm, int row_groups, int a, const float* b_head) {
+  float s = 0.0f;
+  for (int q = 0; q < row_groups; ++q) s += sm.part[(q * kHead + a) * kE + threadIdx.x];
+  return s + b_head[a];
+}
+
+__device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
+                        const TowerWeights<__nv_bfloat16>& pi, const TowerWeights<__nv_bfloat16>& vf,
+                        const Layout& lay, const float* __restrict__ log_std, const RolloutOut& out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int h_last = p.widths[p.n_layers - 1];
+  const int row_groups = (h_last + kRows - 1) / kRows;
+  Smem sm;
+  sm.w = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  sm.bias = reinterpret_cast<float*>(smem_raw + lay.off_bias);
+  sm.head_w = reinterpret_cast<float*>(smem_raw + lay.off_head);
+  sm.x = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.off_x);
+  sm.act = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.off_act);
+  sm.part = reinterpret_cast<float*>(smem_raw + lay.off_part);
+
+  // the observation tile's rows past S stay zero: layer 0's padded k
+  for (int i = tid; i < kK0 * kLd / 2; i += kThreads) {
+    reinterpret_cast<__nv_bfloat162*>(sm.x)[i] = __floats2bfloat162_rn(0.0f, 0.0f);
+  }
+  __syncthreads();
+  stage(pi, sm, lay, h_last);
+  const bool env_thread = tid < kE;
+  const int env = blockIdx.x * kE + tid;
+  const bool active = env_thread && env < n;  // the last tile may be ragged
+  EnvState s = initial_state(p, log_std);
+  // this thread's column of the observation tile before step i; envs past
+  // n take zeros and store nothing
+  auto load_obs = [&](int i, bool from_out) {
+    for (int c = 0; c < p.s_dim; ++c) {
+      float x = 0.0f;
+      if (active) {
+        const size_t o = (static_cast<size_t>(i) * p.s_dim + c) * n + env;
+        if (from_out) {
+          x = out.obs[o];  // this thread wrote it in phase 1
+        } else {
+          x = observation(p, s, i, c);
+          out.obs[o] = x;
+        }
+      }
+      sm.x[c * kLd + tid] = __float2bfloat16_rn(x);
+    }
+  };
+  if (env_thread) load_obs(0, false);
+  __syncthreads();
+
+  // ---- phase 1: the episode with the pi tower (or the shared trunk)
+  for (int i = 0; i < p.run_steps; ++i) {
+    forward(p, sm, lay, pi.w);
+    __syncthreads();
+    if (active) {
+      float mean[kMaxAct];
+      for (int a = 0; a < p.a_dim; ++a) mean[a] = head_out(sm, row_groups, a, pi.b_head);
+      if (!vf.w) out.value[static_cast<size_t>(i) * n + env] = head_out(sm, row_groups, p.a_dim, pi.b_head);
+      env_step(p, draws_at(noise, n, seed, env, i), mean, s, out, n, env, i);
+    }
+    if (env_thread && i + 1 < p.run_steps) load_obs(i + 1, false);
+    __syncthreads();  // the observation tile and the partials are read before they are rewritten
+  }
+  if (!vf.w) return;
+
+  // ---- phase 2: the vf tower's value of each observation of phase 1
+  stage(vf, sm, lay, h_last);
+  if (env_thread) load_obs(0, true);
+  __syncthreads();
+  for (int i = 0; i < p.run_steps; ++i) {
+    forward(p, sm, lay, vf.w);
+    __syncthreads();
+    if (active) out.value[static_cast<size_t>(i) * n + env] = head_out(sm, row_groups, 0, vf.b_head);
+    if (env_thread && i + 1 < p.run_steps) load_obs(i + 1, true);
+    __syncthreads();
+  }
+}
+
+size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
+
+// The launch's layout, the inner layers staged when `staged`.
+Layout layout(const MlpKernelParams& p, bool staged) {
+  Layout lay{};
+  lay.w0_size = p.widths[0] * kK0;
+  lay.w_size = lay.w0_size;
+  for (int l = 0; l < p.n_layers; ++l) {
+    lay.b_total += p.widths[l];
+    if (l > 0) lay.w_size += p.widths[l] * p.widths[l - 1];
+    if (l + 1 < p.n_layers && p.widths[l] > lay.act_rows) lay.act_rows = p.widths[l];
+  }
+  const int h_last = p.widths[p.n_layers - 1];
+  lay.staged = staged;
+  lay.off_bias = align16(sizeof(__nv_bfloat16) * (staged ? lay.w_size : lay.w0_size));
+  lay.off_head = lay.off_bias + align16(sizeof(float) * lay.b_total);
+  lay.off_x = lay.off_head + align16(sizeof(float) * kHead * h_last);
+  lay.off_act = lay.off_x + sizeof(__nv_bfloat16) * kK0 * kLd;
+  lay.off_part = lay.off_act + sizeof(__nv_bfloat16) * lay.act_rows * kLd;
+  lay.bytes = lay.off_part + sizeof(float) * ((h_last + kRows - 1) / kRows) * kHead * kE;
+  return lay;
+}
+
+}  // namespace tc
+
+template <bool kBf16>
+using Weight = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kBf16 ? tc::kThreads : cc::kThreads, 1)
+mlp_rollout_kernel(const MlpKernelParams p, int n, uint32_t seed, const float* __restrict__ noise,
+                   const TowerWeights<Weight<kBf16>> pi, const TowerWeights<Weight<kBf16>> vf, const Layout lay,
+                   const float* __restrict__ log_std, RolloutOut out) {
+  if constexpr (kBf16) {
+    tc::rollout(p, n, seed, noise, pi, vf, lay, log_std, out);
+  } else {
+    cc::rollout(p, n, seed, noise, pi, vf, lay, log_std, out);
   }
 }
 
 template <bool kBf16>
 int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const void* const* pi,
            const void* const* vf, const float* log_std, const RolloutOut& out, cudaStream_t stream) {
-  using TW = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
-  int h_max = p.s_dim, w_total = 0, b_total = 0, k_dim = p.s_dim;
-  for (int l = 0; l < p.n_layers; ++l) {
-    h_max = p.widths[l] > h_max ? p.widths[l] : h_max;
-    w_total += k_dim * p.widths[l];
-    b_total += p.widths[l];
-    k_dim = p.widths[l];
-  }
-  const int n_head = p.a_dim + 1;
+  using TW = Weight<kBf16>;
   const bool towers = vf[0] != nullptr;
   auto tower = [&](const void* const* t, int rows) {
     return TowerWeights<TW>{static_cast<const TW*>(t[0]), static_cast<const float*>(t[1]),
                             static_cast<const float*>(t[2]), static_cast<const float*>(t[3]), rows};
   };
-  const TowerWeights<TW> pi_w = tower(pi, towers ? p.a_dim : n_head);
+  const TowerWeights<TW> pi_w = tower(pi, towers ? p.a_dim : p.a_dim + 1);
   const TowerWeights<TW> vf_w = tower(vf, 1);
-  const size_t base = sizeof(float) * (2 * static_cast<size_t>(h_max) * kE + n_head * k_dim + n_head * kE + b_total) + 16;
-  const size_t staged = base + sizeof(TW) * static_cast<size_t>(w_total);
-  int max_optin = 0, device = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  const int stage_w = kBf16 && staged <= static_cast<size_t>(max_optin);
-  const size_t smem = stage_w ? staged : base;
-  cudaError_t err = cudaFuncSetAttribute(mlp_rollout_kernel<kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  Layout lay;
+  int threads, tile;
+  if constexpr (kBf16) {
+    if (p.a_dim + 1 > tc::kHead || p.s_dim > tc::kK0) return static_cast<int>(cudaErrorInvalidValue);
+    for (int l = 0; l < p.n_layers; ++l) {
+      if (p.widths[l] % 16) return static_cast<int>(cudaErrorInvalidValue);
+    }
+    int max_optin = 0, device = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    lay = tc::layout(p, true);
+    if (lay.bytes > static_cast<size_t>(max_optin)) lay = tc::layout(p, false);
+    threads = tc::kThreads;
+    tile = tc::kE;
+  } else {
+    lay = cc::layout(p);
+    threads = cc::kThreads;
+    tile = cc::kE;
+  }
+  cudaError_t err = cudaFuncSetAttribute(mlp_rollout_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(lay.bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n / kE);
-  mlp_rollout_kernel<kBf16><<<grid, kThreads, smem, stream>>>(
-      p, n, h_max, seed, noise, pi_w, vf_w, w_total, stage_w, b_total, log_std, out);
+  mlp_rollout_kernel<kBf16><<<(n + tile - 1) / tile, threads, lay.bytes, stream>>>(p, n, seed, noise, pi_w, vf_w,
+                                                                                  lay, log_std, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,10 +755,14 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
 
 // C entry point, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError() (0 on success).
-// `noise` is NULL in native (Philox) mode.  A tower is {w_t, bias, w_head,
-// b_head}: each layer's (in, out) weight matrix, layers concatenated, as
-// bf16 when `bf16` is set and float otherwise; the biases concatenated;
-// the head rows (float, already rounded to bf16 in bf16 mode) and their
+// `noise` is NULL in native (Philox) mode.  A tower is {w, bias, w_head,
+// b_head}.  float32 (`bf16` clear): each layer's (in, out) weight matrix,
+// layers concatenated; the biases concatenated; the head rows and their
+// biases.  bf16 (`bf16` set): every width a multiple of 16 (the wrapper
+// zero-pads); each layer's (out, in) matrix as bf16 in mma fragment order
+// (ops/mlp_rollout.py::pack_mma_a), layer 0's k padded from S to 16 with
+// zero columns, layers concatenated; the biases concatenated; the head as
+// 3 rows (float, rounded to bf16, zero rows past the tower's own) and 3
 // biases.  Shared trunk: `pi` is the trunk with the merged (A+1)-row head
 // and `vf` is four NULLs.  Towers: `pi` is the pi tower with its A rows,
 // `vf` the vf tower with its value row, of equal widths.  n must be a

@@ -9,6 +9,14 @@ on the H100 and what the design does about it).  It returns feature-major
 buffers, envs on the minor dimension: obs ``(T, S, N)``, actions
 ``(T, A, N)``, log-probs, values and rewards ``(T, N)``.
 
+With bf16 operands (normalised observations) the kernel runs its products
+on the tensor cores over tiles of 128 envs, the weights staged in shared
+memory in mma fragment order: :func:`pad_widths` rounds every hidden width
+up to a multiple of 16 with zero rows, columns and biases (tanh(0) = 0,
+and zero columns add exact zeros, so the outputs do not change), and
+:func:`pack_tower_bf16` packs each tower for the kernel.  With float32
+operands it runs on CUDA cores over tiles of 32 envs.
+
 Ported scope: the "limit" family (BM midprice, Poisson arrivals,
 exponential fill, limit-order dynamics, PnL reward) with a fixed start
 time and a fixed initial inventory, and both actor-critic layouts: the
@@ -51,10 +59,17 @@ _LOG_2PI = math.log(2.0 * math.pi)
 S_DIM = 4  # AS env state columns (cash, inventory, time, price)
 A_DIM = 2  # bid/ask depths
 
-# The CUDA kernel's limits (csrc/mlp_rollout.cu).
+# The CUDA kernel's limits (csrc/mlp_rollout.cu): the env count is a
+# multiple of _ENV_TILE (the float32 kernel's tile; the bf16 kernel's tiles
+# of 128 envs mask a ragged last one).
 _ENV_TILE = 32
 _MAX_WIDTH = 256
 _MAX_LAYERS = 8
+# The bf16 kernel's operand layout: widths a multiple of _MMA_WIDTH, layer
+# 0's k (S) padded to _MMA_WIDTH with zero columns, the head as _HEAD_ROWS
+# rows.
+_MMA_WIDTH = 16
+_HEAD_ROWS = 3
 
 
 def n_noise_channels(a_dim: int) -> int:
@@ -367,6 +382,58 @@ def pack_mma_a(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(r // 16, 2, 8, k // 16, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6).reshape(-1)
 
 
+def _round_up(x: int, multiple: int) -> int:
+    return -(-x // multiple) * multiple
+
+
+def pad_widths(params, multiple: int = _MMA_WIDTH):
+    """A copy of the actor-critic ``params`` with every hidden width rounded
+    up to a multiple of ``multiple``: the new rows of a layer's weight and
+    bias are zero, and so are the columns of the next layer (or head) that
+    read them.  Each padded unit computes tanh(0) = 0 and adds exact zeros
+    downstream, so the policy's outputs are unchanged."""
+    from mbt_gym_torch.agents.networks import ActorCritic
+
+    hidden = tuple(_round_up(h, multiple) for h in params.hidden)
+    device = params.log_std.device
+    padded = ActorCritic(params.obs_dim, params.action_dim, hidden, params.shared_trunk, device=device)
+    with torch.no_grad():
+        for lin in padded.modules():
+            if isinstance(lin, torch.nn.Linear):
+                lin.weight.zero_()
+                lin.bias.zero_()
+        pairs = (zip(params.shared, padded.shared) if params.shared_trunk
+                 else zip((*params.pi, *params.vf), (*padded.pi, *padded.vf)))
+        heads = ((params.pi_head, padded.pi_head), (params.vf_head, padded.vf_head)) if params.shared_trunk else ()
+        for src, dst in (*pairs, *heads):
+            o, i = src.weight.shape
+            dst.weight[:o, :i] = src.weight
+            dst.bias[:o] = src.bias
+        padded.log_std.copy_(params.log_std)
+    return padded
+
+
+def pack_tower_bf16(trunk, w_head: torch.Tensor, b_head: torch.Tensor) -> tuple:
+    """One tower (``trunk`` a list of ``(W (out, in), b)``, every width a
+    multiple of 16, and its head rows) in the bf16 kernel's layout:
+    ``(weights, bias, w_head, b_head)``.  The weights are every layer's
+    matrix as bf16 in mma fragment order (:func:`pack_mma_a`), layer 0's
+    ``S`` columns padded to 16 with zeros, layers concatenated; the biases
+    concatenated; the head rows rounded to bf16 and zero-padded to 3 rows
+    (float32), their biases likewise."""
+    mats = []
+    for li, (w, _) in enumerate(trunk):
+        if li == 0:
+            w = torch.nn.functional.pad(w, (0, _MMA_WIDTH - w.shape[1]))
+        mats.append(pack_mma_a(w.to(torch.bfloat16)))
+    rows, h = w_head.shape
+    head = torch.zeros((_HEAD_ROWS, h), dtype=torch.float32, device=w_head.device)
+    head[:rows] = bf16_round(w_head)
+    bias_head = torch.zeros(_HEAD_ROWS, dtype=torch.float32, device=w_head.device)
+    bias_head[:rows] = b_head
+    return torch.cat(mats), torch.cat([b for _, b in trunk]).contiguous(), head, bias_head
+
+
 # ------------------------------------------------------------ plain version
 def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: int = 16384,
                       noise: Optional[torch.Tensor] = None, device=None):
@@ -494,27 +561,27 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
         raise ValueError(f"the rollout kernel runs on CUDA devices, not {device}")
     n = num_trajectories
     tp = transpose_params(params)
-    towers = tower_params(tp)
-    widths = [w.shape[0] for w, _ in towers[0][0]]
+    widths = list(tp.split_at or [w.shape[0] for w, _ in tp.trunk])
     check_kernel_shapes(p, widths, n)
     if noise is not None:
         _check_noise(p, n, noise)
         if not noise.is_contiguous():
             raise ValueError("noise must be contiguous")
+    bf16 = bool(p.normalise_obs)
+    if bf16:  # the tensor-core kernel's layout
+        padded = pad_widths(params)
+        widths = list(padded.hidden)
+        towers = tower_params(transpose_params(padded))
+        tensors = [pack_tower_bf16([(w.to(device), b.to(device)) for w, b in trunk], w_head.to(device),
+                                   b_head.to(device)) for trunk, w_head, b_head in towers]
+    else:  # each layer's (in, out) matrix, layers concatenated; the head rows
+        tensors = [(torch.cat([w.to(device).T.contiguous().reshape(-1) for w, _ in trunk]),
+                    torch.cat([b.to(device) for _, b in trunk]).contiguous(),
+                    w_head.to(device).contiguous(), b_head.to(device).contiguous())
+                   for trunk, w_head, b_head in tower_params(tp)]
+    # `tensors` stays alive until the launch returns
     kp = kernel_params(p, widths)
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
-    bf16 = bool(p.normalise_obs)
-    wdt = torch.bfloat16 if bf16 else torch.float32
-
-    def packed(trunk, w_head, b_head):
-        # each layer's (in, out) matrix, layers concatenated; the head rows
-        w_t = torch.cat([w.to(device).T.contiguous().reshape(-1) for w, _ in trunk]).to(wdt)
-        bias = torch.cat([b.to(device) for _, b in trunk]).contiguous()
-        w_head = w_head.to(device)
-        w_head = (bf16_round(w_head) if bf16 else w_head).contiguous()
-        return w_t, bias, w_head, b_head.to(device).contiguous()
-
-    tensors = [packed(*tower) for tower in towers]  # kept alive until the launch returns
     pointers = [(ctypes.c_void_p * 4)(*(x.data_ptr() for x in t)) for t in tensors]
     if len(pointers) == 1:
         pointers.append((ctypes.c_void_p * 4)())

@@ -61,18 +61,36 @@ def test_register_report_keeps_each_kernels_spill_line():
     ]
 
 
-def test_sass_counts_per_kernel():
-    """Phase 18 counts an opcode per kernel of ``cuobjdump -sass`` output;
-    a kernel without it counts 0."""
-    sass = """\
+_SASS = """\
         Function : _ZN4_GLOBAL9ppo_pass1ILb1ELb0E13__nv_bfloat16EEv
         /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
         /*0110*/  LDSM.16.MT88.4 R8, [R2] ;
         /*0120*/  HMMA.16816.F32.BF16 R16, R8, R14, R16 ;
         Function : _ZN4_GLOBAL9ppo_pass1ILb0ELb0EfEEv
         /*0100*/  FFMA R4, R8, R12, R4 ;
+        Function : _ZN4_GLOBAL18mlp_rollout_kernelILb1EEEv15MlpKernelParams12TowerWeightsI13__nv_bfloat16E
+        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0110*/  MUFU.EX2 R3, R3 ;
+        Function : _ZN4_GLOBAL18mlp_rollout_kernelILb0EEEv15MlpKernelParams12TowerWeightsIfE
+        /*0100*/  MUFU.EX2 R3, R3 ;
+        /*0110*/  MUFU.RCP R5, R3 ;
 """
-    assert chip_smoke.sass_counts(sass, "HMMA") == {
+
+
+@pytest.mark.parametrize("names, opcode, want", [
+    (None, "HMMA", {
         "_ZN4_GLOBAL9ppo_pass1ILb1ELb0E13__nv_bfloat16EEv": 2,
         "_ZN4_GLOBAL9ppo_pass1ILb0ELb0EfEEv": 0,
-    }
+        "_ZN4_GLOBAL18mlp_rollout_kernelILb1EEEv15MlpKernelParams12TowerWeightsI13__nv_bfloat16E": 1,
+        "_ZN4_GLOBAL18mlp_rollout_kernelILb0EEEv15MlpKernelParams12TowerWeightsIfE": 0,
+    }),
+    (("mlp_rollout_kernel",), "MUFU", {
+        "_ZN4_GLOBAL18mlp_rollout_kernelILb1EEEv15MlpKernelParams12TowerWeightsI13__nv_bfloat16E": 1,
+        "_ZN4_GLOBAL18mlp_rollout_kernelILb0EEEv15MlpKernelParams12TowerWeightsIfE": 2,
+    }),
+], ids=["every-kernel", "name-filter"])
+def test_sass_counts_per_kernel(names, opcode, want):
+    """Phase 18 counts an opcode per kernel of ``cuobjdump -sass`` output;
+    a kernel without it counts 0, and a name filter keeps only the kernels
+    it names (K3's instantiations beside the update passes)."""
+    assert chip_smoke.sass_counts(_SASS, opcode, names) == want

@@ -105,6 +105,33 @@ def test_mlp_rollout_kernel_matches_plain_on_the_card(cuda_device, normalised):
     assert _build.launch_counts["mlp_rollout"] == before + 2
 
 
+@pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared-trunk", "towers"])
+@pytest.mark.parametrize("hidden", [(64, 64), (36, 100), (256,), (128, 128, 128)],
+                         ids=["64x64", "36x100-padded", "256", "128x128x128"])
+def test_mlp_rollout_kernel_at_the_mma_tile_edges(cuda_device, hidden, shared_trunk):
+    """K3's tensor-core (bf16) path at the edges of its tiles: small, unequal
+    and zero-padded widths (36 and 100 run as 48 and 112), one layer and
+    three, on both layouts, with 4,096 + 32 envs (the last 128-env tile
+    ragged), against its plain version at the limits above; a second launch
+    on the same noise is bitwise equal."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import mlp_rollout as mr
+
+    n = 4096 + 32
+    p = mr.rollout_params_from_config(_ppo_cfg(n))
+    model = init_actor_critic(8, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device=cuda_device)
+    noise = _mlp_channels(4, 200, n, cuda_device)
+    for kw in ({"noise": noise}, {"seed": 9, "device": cuda_device}):
+        got = mr.mlp_rollout(p, model, num_trajectories=n, **kw)
+        again = mr.mlp_rollout(p, model, num_trajectories=n, **kw)
+        want = mr.mlp_rollout_plain(p, model, num_trajectories=n, **kw)
+        torch.cuda.synchronize()
+        same = _same_inventory_envs(got, want, n)
+        for a, b, c in zip(got, want, again):
+            torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3)
+            assert torch.equal(a, c)
+
+
 def _rel_frobenius(a, b):
     return float(torch.linalg.vector_norm(a - b) / torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
 
@@ -321,6 +348,26 @@ def test_update_kernels_at_the_mma_tile_edges(cuda_device, hidden, nb, compute_d
                 assert torch.equal(grads[name], again[name]), name
             for name in metrics:
                 assert torch.equal(metrics[name], again_m[name]), name
+
+
+def test_fused_ppo_bf16_repeat_launch_is_bitwise_equal(cuda_device):
+    """K4's bf16 passes, built from the shared tensor-core header (mma.cuh),
+    give bitwise-equal grads and metrics on a second launch over the same
+    200 x 4,096 minibatch at 256x256, on both layouts."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import fused_ppo
+
+    t_steps, nb = 200, 4096
+    for shared_trunk in (True, False):
+        model = init_actor_critic(9, 4, 2, hidden=(256, 256), shared_trunk=shared_trunk, device=cuda_device)
+        args = _feature_major(_edge_samples(model, t_steps, nb, 13, cuda_device), t_steps, nb)
+        grads, metrics = fused_ppo.ppo_fused_grads_T(model, *args, compute_dtype="bfloat16")
+        again, again_m = fused_ppo.ppo_fused_grads_T(model, *args, compute_dtype="bfloat16")
+        torch.cuda.synchronize()
+        for name in grads:
+            assert torch.equal(grads[name], again[name]), name
+        for name in metrics:
+            assert torch.equal(metrics[name], again_m[name]), name
 
 
 def _assert_terminal_close(got, want, n):

@@ -134,3 +134,49 @@ def test_collect_rollout_fused_layouts_and_gae():
     native = mr.collect_rollout_fused_T(cfg, model, 3, device="cpu")
     again = mr.collect_rollout_fused_T(cfg, model, 3, device="cpu")
     torch.testing.assert_close(native.rewards, again.rewards, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared-trunk", "towers"])
+@pytest.mark.parametrize("width", [36, 100])
+def test_zero_padded_widths_leave_the_plain_rollout_bitwise_unchanged(width, shared_trunk):
+    """The bf16 kernel's wrapper rounds every hidden width up to a multiple
+    of 16 with zero weight rows and columns and zero biases (pad_widths):
+    each new unit is tanh(0) = 0 and adds exact zeros downstream, so the
+    plain version on the padded params gives the same outputs bit for
+    bit."""
+    _, cfg = _configs()
+    model = init_actor_critic(4, 4, 2, hidden=(width, width), shared_trunk=shared_trunk, device="cpu")
+    padded = mr.pad_widths(model)
+    assert padded.hidden == {36: (48, 48), 100: (112, 112)}[width]
+    p = mr.rollout_params_from_config(cfg)
+    noise = torch.from_numpy(_channels())
+    want = mr.mlp_rollout_plain(p, model, 0, N, noise=noise)
+    got = mr.mlp_rollout_plain(p, padded, 0, N, noise=noise)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared-trunk", "towers"])
+def test_bf16_tower_packing_puts_every_value_once_in_place(shared_trunk):
+    """pack_tower_bf16: each layer's (out, in) matrix in mma fragment order
+    (layer 0's S columns zero-padded to 16), layers concatenated, unpacks to
+    the bf16-rounded matrices; the biases concatenated; the head rounded to
+    bf16 and zero-padded to 3 rows with its biases."""
+    model = mr.pad_widths(init_actor_critic(2, 4, 2, hidden=(36, 100, 64), shared_trunk=shared_trunk, device="cpu"))
+    for trunk, w_head, b_head in mr.tower_params(mr.transpose_params(model)):
+        weights, bias, head, bias_head = mr.pack_tower_bf16(trunk, w_head, b_head)
+        assert weights.dtype == torch.bfloat16 and weights.is_contiguous()
+        off = 0
+        for li, (w, _) in enumerate(trunk):
+            rows, cols = w.shape[0], 16 if li == 0 else w.shape[1]
+            block = weights[off:off + rows * cols]
+            off += rows * cols
+            unpacked = block.reshape(rows // 16, cols // 16, 8, 4, 2, 2, 2).permute(0, 5, 2, 1, 4, 3, 6)
+            want = torch.zeros((rows, cols), dtype=torch.bfloat16)
+            want[:, :w.shape[1]] = w.to(torch.bfloat16)
+            assert torch.equal(unpacked.reshape(rows, cols), want)
+        assert off == weights.numel()
+        assert torch.equal(bias, torch.cat([b for _, b in trunk]))
+        a = w_head.shape[0]
+        assert head.shape == (3, w_head.shape[1]) and torch.equal(head[:a], mr.bf16_round(w_head))
+        assert not head[a:].any() and torch.equal(bias_head[:a], b_head) and not bias_head[a:].any()
