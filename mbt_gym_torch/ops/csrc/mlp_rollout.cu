@@ -19,34 +19,43 @@
 // touch: every env-step evaluates 512 accurate tanhf (1,024 with towers).
 //
 // bf16 instantiation (normalised observations), on the tensor cores.  A CTA
-// of 512 threads (16 warps) owns a tile of 128 envs for all steps.  The
+// of 512 threads (16 warps) owns a tile of 128 envs for all steps (the last
+// tile masked: envs past n compute on zeros and store nothing).  The
 // weights are staged once per CTA in shared memory in mma fragment order
-// (the wrapper packs them, ops/mlp_rollout.py::pack_mma_a): 128 KB for a
-// 256x256 inner layer, so one CTA fits on an SM.  Per step the layer's
-// input sits in shared memory feature-major as bf16 at a row stride of 136
-// (128 envs + 8: conflict-free ldmatrix and epilogue stores), and every
-// layer is mma.sync.m16n8k16 (mma.cuh) with the (out, in) matrix as A and
-// the activation tile as B through ldmatrix.trans: layer 0 reads the
-// observation tile, its k = S padded to 16 with exact zeros, each inner
-// layer the one activation tile.  Warp w holds rows [32 (w / 2), +32) x
-// envs [64 (w % 2), +64) of the layer's output as 64 float accumulators;
-// a second activation tile does not fit beside W1, so a layer's epilogue
-// (bias, tanhf, round to bf16) overwrites its input after a barrier.  The
-// head (A+1 <= 3 rows, zero-padded to 3) comes from the last layer's
-// accumulators in registers: each thread rounds its tanh to bf16, multiplies
-// by its rows' head weights and sums over them, the 8 lanes of a column
-// reduce with shuffles (a reduce-scatter: 42 shuffles for 48 values), and
-// the row groups' partial sums (12 KB) meet in shared memory, where the env
-// thread adds them in a fixed order.  Shared memory at 256x256: 136 KB of
-// weights (layer 0 padded to k = 16), 68 KB activation tile, 12 KB partials,
-// 9 KB observation tile, biases and head: 225 KB of the 227 KB a block may
-// hold.  A trunk whose inner layers do not fit reads their fragments from
-// device memory (through L2) instead.  The env step runs one thread per env
-// on the first 128 threads (warps 0-3, one per SM sub-partition).  Three
-// barriers per step at two layers.  The alternative of 64-env tiles with
-// two activation buffers and the head read from shared memory was not
-// taken: it halves the work between barriers, and the head's 3 x 256
-// serial products per env would run on CUDA cores.
+// (the wrapper packs them, ops/mlp_rollout.py::pack_tower_bf16, and pads
+// every width to a multiple of 16 with exact zeros), so each A fragment is
+// one 16-byte load.  Per step the layer's input sits in shared memory
+// feature-major as bf16 at a row stride of 136 (128 envs + 8:
+// conflict-free ldmatrix and epilogue stores), and every layer is
+// mma.sync.m16n8k16 (mma.cuh) with the (out, in) matrix as A and the
+// activation tile as B through ldmatrix.trans: layer 0 reads the
+// observation tile, its k = S padded to 16 with zero rows and columns, each
+// inner layer the one activation tile.  Warp w holds rows [32 (w / 2), +32)
+// x envs [64 (w % 2), +64) of a layer's output as 64 float accumulators; a
+// second activation tile does not fit beside W1, so the epilogue (bias,
+// tanhf, round to bf16) overwrites the layer's input after a barrier.  The
+// head is one more product over the last layer's output in the activation
+// tile: its A+1 <= 3 rows zero-padded to one 16-row block, staged in
+// fragment order, warp w taking envs [8 w, +8), its k blocks summed in four
+// accumulators added in a fixed order.  Shared memory at 256x256: 136 KB of
+// weights (layer 0 8 KB, W1 128 KB), 2 KB biases, 8 KB head, 4 KB
+// observation tile, 68 KB activation tile, 1.5 KB head output: 220 KB of
+// the 227 KB a block may hold, so one CTA per SM.  A trunk whose inner
+// layers do not fit reads their fragments from device memory (through L2)
+// instead.  The env step runs one thread per env on the first 128 threads
+// (warps 0-3, one per SM sub-partition).  Five barriers per step at two
+// layers.
+// Tried on the card and not kept (probe runs, not part of the repository):
+// the head from the last layer's accumulators (tanh, round, multiply by
+// the head rows, a shuffle reduce-scatter over a column's lanes, row-group
+// partials in shared memory) cost several times the mma head, its
+// register arrays going to local memory; two halves of 8 warps with their
+// own named barriers, with or without taking turns on the products, gained
+// nothing (a half's product alone runs at half the rate); 256 threads with
+// 32 x 128 warp tiles were no faster.  What the time goes to, in order: the
+// two tanhf epilogues (each tanhf issues a MUFU.EX2 and a MUFU.RCP, and the
+// special-function units are the busiest pipe there), the inner product on
+// mma.sync, the env step on 4 of the 16 warps, the head.
 //
 // Separate pi/vf towers (the JAX kernel's stacked-trunk split_at mode,
 // pallas_rollout.py:668-712 and :858-873): the weights of two 256x256
@@ -268,7 +277,7 @@ struct Layout {
   int b_total;   // every layer's bias
   int act_rows;  // bf16: rows of the activation tile
   int h_max;     // float32: widest activation
-  size_t off_bias, off_head, off_x, off_act, off_part, bytes;
+  size_t off_bias, off_head, off_x, off_act, off_head_o, bytes;
 };
 
 // ============================================================ float32 path
@@ -422,25 +431,29 @@ Layout layout(const MlpKernelParams& p) {
 namespace tc {
 
 using mbt::frag_from;
+using mbt::mma_bf16;
 using mbt::mma_k_block;
 using mbt::zero_acc;
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr int kE = 128;        // envs per CTA
 constexpr int kLd = kE + 8;    // activation row stride (bf16)
 constexpr int kK0 = 16;        // layer 0's k: S rows of the observation, then zeros
-constexpr int kHead = 3;       // head rows, zero-padded
+constexpr int kHead = 3;       // head rows the env step reads (A + 1 at most)
 constexpr int kRows = 32;      // warp tile: two 16-row blocks
 constexpr int kEnvs = 64;      //            x eight 8-env tiles
 constexpr int kNT = kEnvs / 8;
+constexpr int kEnvParts = kE / kEnvs;  // warp w: rows [32 (w / kEnvParts), +32), envs [64 (w % kEnvParts), +64)
+constexpr int kHeadNT = kE / kWarps / 8;  // 8-env tiles of the head per warp
 
 struct Smem {
-  __nv_bfloat16* w;     // layer 0's packed weights, then (staged) the inner layers'
-  float* bias;          // every layer's bias
-  float* head_w;        // [kHead][h_last]
-  __nv_bfloat16* x;     // [kK0][kLd] observation tile (layer 0's input)
-  __nv_bfloat16* act;   // [act_rows][kLd] activation tile
-  float* part;          // [row groups][kHead][kE] head partial sums
+  __nv_bfloat16* w;       // layer 0's packed weights, then (staged) the inner layers'
+  float* bias;            // every layer's bias
+  __nv_bfloat16* head_w;  // the head as a packed (16, h_last) matrix
+  __nv_bfloat16* x;       // [kK0][kLd] observation tile (layer 0's input)
+  __nv_bfloat16* act;     // [act_rows][kLd] activation tile
+  float* head_o;          // [kHead][kE] the head's output
 };
 
 __device__ __forceinline__ uint4 lds128(const __nv_bfloat16* p) {
@@ -459,7 +472,9 @@ __device__ void stage(const TowerWeights<__nv_bfloat16>& tw, const Smem& sm, con
     reinterpret_cast<uint4*>(sm.w)[i] = __ldg(reinterpret_cast<const uint4*>(tw.w) + i);
   }
   for (int i = threadIdx.x; i < lay.b_total; i += kThreads) sm.bias[i] = tw.bias[i];
-  for (int i = threadIdx.x; i < kHead * h_last; i += kThreads) sm.head_w[i] = tw.w_head[i];
+  for (int i = threadIdx.x; i < 2 * h_last; i += kThreads) {  // 16 h_last bf16
+    reinterpret_cast<uint4*>(sm.head_w)[i] = __ldg(reinterpret_cast<const uint4*>(tw.w_head) + i);
+  }
 }
 
 // This warp's tile of one layer's product: acc[mt][nt] = rows
@@ -488,9 +503,9 @@ __device__ __forceinline__ void product(const __nv_bfloat16* w, bool in_smem, in
   }
 }
 
-// Epilogue of an inner layer: dst[row][env] = bf16(tanh(acc + b[row])).
+// Epilogue of a layer: act[row][env] = bf16(tanh(acc + b[row])).
 __device__ __forceinline__ void store_layer(const float (&acc)[2][kNT][4], const float* bias, int r_dim, int rg,
-                                            int eh, __nv_bfloat16* dst) {
+                                            int eh, __nv_bfloat16* act) {
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
@@ -499,7 +514,7 @@ __device__ __forceinline__ void store_layer(const float (&acc)[2][kNT][4], const
       const int row = rg * kRows + mt * 16 + half * 8 + g;
       if (row < r_dim) {
         const float b = bias[row];
-        __nv_bfloat16* d = dst + row * kLd + eh * kEnvs + t4 * 2;
+        __nv_bfloat16* d = act + row * kLd + eh * kEnvs + t4 * 2;
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt) {
           *reinterpret_cast<__nv_bfloat162*>(d + nt * 8) = __floats2bfloat162_rn(
@@ -510,66 +525,42 @@ __device__ __forceinline__ void store_layer(const float (&acc)[2][kNT][4], const
   }
 }
 
-// Epilogue of the last layer: the head's partial sums over this warp's 32
-// rows, part[rg][a][env] = sum over its rows of head_w[a][row] *
-// bf16(tanh(acc + b[row])).  Per half of the warp's envs a thread sums its
-// 4 rows for 2 envs x 3 head rows (24 values); the 8 lanes of a column
-// (lane bits 2-4) then reduce-scatter them with shuffles, each lane ending
-// with 3 values, summed in a fixed order.
-__device__ __forceinline__ void head_partials(const float (&acc)[2][kNT][4], const float* bias,
-                                              const float* head_w, int r_dim, int rg, int eh, float* part) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
-  float b[4], wh[4][kHead];
+// The head over the last layer's output in the activation tile (k_dim
+// rows): warp w computes the (16, k_dim) packed head `w` times envs
+// [8 w, +8) as one mma row block, the k blocks summed round-robin in four
+// accumulators (shorter dependency chains) added in a fixed order, and
+// writes rows 0..kHead-1 to head_o.
+__device__ __forceinline__ void head_product(const __nv_bfloat16* w, int k_dim, const __nv_bfloat16* act,
+                                             float* head_o) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const __nv_bfloat16* a_frag = w + lane * 8;
+  const int nk = k_dim / 16;
+  for (int j = 0; j < kHeadNT; ++j) {
+    const int e0 = (warp * kHeadNT + j) * 8;
+    const __nv_bfloat16* b_row = act + (lane % 16) * kLd + e0;
+    float d[4][4] = {};
+    for (int kb = 0; kb < nk; kb += 4) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {  // j = 2 mt + half
-    const int row = rg * kRows + (j / 2) * 16 + (j % 2) * 8 + g;
-    const bool ok = row < r_dim;
-    b[j] = ok ? bias[row] : 0.0f;
-#pragma unroll
-    for (int a = 0; a < kHead; ++a) wh[j][a] = ok ? head_w[a * r_dim + row] : 0.0f;
-  }
-#pragma unroll
-  for (int nh = 0; nh < 2; ++nh) {
-    float v[24];  // [(4 nt' + ... ) : ((nt' 2 + c) 3 + a)], nt = 4 nh + nt'
-#pragma unroll
-    for (int ntl = 0; ntl < 4; ++ntl) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        float s[kHead] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float h = mbt::round_bf16(tanhf(acc[j / 2][4 * nh + ntl][(j % 2) * 2 + c] + b[j]));
-#pragma unroll
-          for (int a = 0; a < kHead; ++a) s[a] = __fmaf_rn(wh[j][a], h, s[a]);
+      for (int c = 0; c < 4; ++c) {
+        if (kb + c < nk) {
+          uint32_t a[4], f[2];
+          frag_from(a, lds128(a_frag + (kb + c) * mbt::kBlock));
+          mbt::ldmatrix_x2_trans(f, b_row + (kb + c) * 16 * kLd);
+          mma_bf16(d[c], a, f[0], f[1]);
         }
-#pragma unroll
-        for (int a = 0; a < kHead; ++a) v[(ntl * 2 + c) * kHead + a] = s[a];
       }
     }
-    // lane bit 4, 3, 2 (g bit 2, 1, 0): keep one half, add the partner's
-    // copy of it; lane g ends with v[0..2] = original [3 g, 3 g + 3)
-#pragma unroll
-    for (int st = 0; st < 3; ++st) {
-      const int mask = 16 >> st, keep_n = 12 >> st;
-      const bool up = (lane & mask) != 0;
-#pragma unroll
-      for (int j = 0; j < keep_n; ++j) {
-        const float send = up ? v[j] : v[j + keep_n];
-        const float keep = up ? v[j + keep_n] : v[j];
-        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
-      }
+    if (g < kHead) {  // row g: envs 2 t4, 2 t4 + 1
+      *reinterpret_cast<float2*>(head_o + g * kE + e0 + t4 * 2) =
+          make_float2((d[0][0] + d[1][0]) + (d[2][0] + d[3][0]), (d[0][1] + d[1][1]) + (d[2][1] + d[3][1]));
     }
-    // original index 3 g + a: nt' = g / 2, c = g % 2
-    const int e = eh * kEnvs + (4 * nh + g / 2) * 8 + t4 * 2 + g % 2;
-#pragma unroll
-    for (int a = 0; a < kHead; ++a) part[(rg * kHead + a) * kE + e] = v[a];
   }
 }
 
-// The trunk and the head's partial sums of one step, from the observation
-// tile.  Ends with the partials written, before a barrier.
+// The trunk and the head of one step, from the observation tile.  Ends
+// with head_o written, before a barrier.
 __device__ void forward(const MlpKernelParams& p, const Smem& sm, const Layout& lay, const __nv_bfloat16* w_dev) {
-  const int warp = threadIdx.x / 32, rg = warp / 2, eh = warp % 2;
+  const int warp = threadIdx.x / 32, rg = warp / kEnvParts, eh = warp % kEnvParts;
   float acc[2][kNT][4];
   int r_dim = p.widths[0];
   bool has_rows = rg * kRows < r_dim;
@@ -588,16 +579,11 @@ __device__ void forward(const MlpKernelParams& p, const Smem& sm, const Layout& 
       product(w, lay.staged, k_dim, r_dim, sm.act, rg, eh, acc);
     }
     w_off += static_cast<size_t>(k_dim) * r_dim;
-    if (l + 1 < p.n_layers) __syncthreads();  // every read of act before the epilogue overwrites it
+    __syncthreads();  // every read of act before the epilogue overwrites it
   }
-  if (has_rows) head_partials(acc, sm.bias + b_off, sm.head_w, r_dim, rg, eh, sm.part);
-}
-
-// Head row a of this thread's env: the row groups' partials in order.
-__device__ __forceinline__ float head_out(const Smem& sm, int row_groups, int a, const float* b_head) {
-  float s = 0.0f;
-  for (int q = 0; q < row_groups; ++q) s += sm.part[(q * kHead + a) * kE + threadIdx.x];
-  return s + b_head[a];
+  if (has_rows) store_layer(acc, sm.bias + b_off, r_dim, rg, eh, sm.act);
+  __syncthreads();
+  head_product(sm.head_w, r_dim, sm.act, sm.head_o);
 }
 
 __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
@@ -606,14 +592,13 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int h_last = p.widths[p.n_layers - 1];
-  const int row_groups = (h_last + kRows - 1) / kRows;
   Smem sm;
   sm.w = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   sm.bias = reinterpret_cast<float*>(smem_raw + lay.off_bias);
-  sm.head_w = reinterpret_cast<float*>(smem_raw + lay.off_head);
+  sm.head_w = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.off_head);
   sm.x = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.off_x);
   sm.act = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.off_act);
-  sm.part = reinterpret_cast<float*>(smem_raw + lay.off_part);
+  sm.head_o = reinterpret_cast<float*>(smem_raw + lay.off_head_o);
 
   // the observation tile's rows past S stay zero: layer 0's padded k
   for (int i = tid; i < kK0 * kLd / 2; i += kThreads) {
@@ -651,12 +636,12 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
     __syncthreads();
     if (active) {
       float mean[kMaxAct];
-      for (int a = 0; a < p.a_dim; ++a) mean[a] = head_out(sm, row_groups, a, pi.b_head);
-      if (!vf.w) out.value[static_cast<size_t>(i) * n + env] = head_out(sm, row_groups, p.a_dim, pi.b_head);
+      for (int a = 0; a < p.a_dim; ++a) mean[a] = sm.head_o[a * kE + tid] + pi.b_head[a];
+      if (!vf.w) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[p.a_dim * kE + tid] + pi.b_head[p.a_dim];
       env_step(p, draws_at(noise, n, seed, env, i), mean, s, out, n, env, i);
     }
     if (env_thread && i + 1 < p.run_steps) load_obs(i + 1, false);
-    __syncthreads();  // the observation tile and the partials are read before they are rewritten
+    __syncthreads();  // the observation tile and the head are read before they are rewritten
   }
   if (!vf.w) return;
 
@@ -667,7 +652,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
   for (int i = 0; i < p.run_steps; ++i) {
     forward(p, sm, lay, vf.w);
     __syncthreads();
-    if (active) out.value[static_cast<size_t>(i) * n + env] = head_out(sm, row_groups, 0, vf.b_head);
+    if (active) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[tid] + vf.b_head[0];
     if (env_thread && i + 1 < p.run_steps) load_obs(i + 1, true);
     __syncthreads();
   }
@@ -683,16 +668,16 @@ Layout layout(const MlpKernelParams& p, bool staged) {
   for (int l = 0; l < p.n_layers; ++l) {
     lay.b_total += p.widths[l];
     if (l > 0) lay.w_size += p.widths[l] * p.widths[l - 1];
-    if (l + 1 < p.n_layers && p.widths[l] > lay.act_rows) lay.act_rows = p.widths[l];
+    if (p.widths[l] > lay.act_rows) lay.act_rows = p.widths[l];
   }
   const int h_last = p.widths[p.n_layers - 1];
   lay.staged = staged;
   lay.off_bias = align16(sizeof(__nv_bfloat16) * (staged ? lay.w_size : lay.w0_size));
   lay.off_head = lay.off_bias + align16(sizeof(float) * lay.b_total);
-  lay.off_x = lay.off_head + align16(sizeof(float) * kHead * h_last);
+  lay.off_x = lay.off_head + sizeof(__nv_bfloat16) * 16 * h_last;
   lay.off_act = lay.off_x + sizeof(__nv_bfloat16) * kK0 * kLd;
-  lay.off_part = lay.off_act + sizeof(__nv_bfloat16) * lay.act_rows * kLd;
-  lay.bytes = lay.off_part + sizeof(float) * ((h_last + kRows - 1) / kRows) * kHead * kE;
+  lay.off_head_o = lay.off_act + sizeof(__nv_bfloat16) * lay.act_rows * kLd;
+  lay.bytes = lay.off_head_o + sizeof(float) * kHead * kE;
   return lay;
 }
 
@@ -761,9 +746,9 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
 // biases.  bf16 (`bf16` set): every width a multiple of 16 (the wrapper
 // zero-pads); each layer's (out, in) matrix as bf16 in mma fragment order
 // (ops/mlp_rollout.py::pack_mma_a), layer 0's k padded from S to 16 with
-// zero columns, layers concatenated; the biases concatenated; the head as
-// 3 rows (float, rounded to bf16, zero rows past the tower's own) and 3
-// biases.  Shared trunk: `pi` is the trunk with the merged (A+1)-row head
+// zero columns, layers concatenated; the biases concatenated; the head
+// rows zero-padded to 16 as bf16 in fragment order, and their biases
+// (float).  Shared trunk: `pi` is the trunk with the merged (A+1)-row head
 // and `vf` is four NULLs.  Towers: `pi` is the pi tower with its A rows,
 // `vf` the vf tower with its value row, of equal widths.  n must be a
 // multiple of 32, every width a multiple of 4 and at most 256.

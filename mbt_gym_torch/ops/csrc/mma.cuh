@@ -42,6 +42,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
                : "r"(smem_u32(p)));
 }
 
+// Two 8x8 bf16 matrices, transposed: lanes 0-7 give the rows of matrix 0,
+// lanes 8-15 those of matrix 1 (the other lanes' addresses are not read);
+// r[q] receives matrix q in the mma operand layout.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
 // d += a (16x16, row-major) * b (16x8, column-major)
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "

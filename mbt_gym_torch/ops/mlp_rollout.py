@@ -66,10 +66,9 @@ _ENV_TILE = 32
 _MAX_WIDTH = 256
 _MAX_LAYERS = 8
 # The bf16 kernel's operand layout: widths a multiple of _MMA_WIDTH, layer
-# 0's k (S) padded to _MMA_WIDTH with zero columns, the head as _HEAD_ROWS
-# rows.
+# 0's k (S) padded to _MMA_WIDTH with zero columns, the head as one
+# _MMA_WIDTH-row block.
 _MMA_WIDTH = 16
-_HEAD_ROWS = 3
 
 
 def n_noise_channels(a_dim: int) -> int:
@@ -419,19 +418,16 @@ def pack_tower_bf16(trunk, w_head: torch.Tensor, b_head: torch.Tensor) -> tuple:
     ``(weights, bias, w_head, b_head)``.  The weights are every layer's
     matrix as bf16 in mma fragment order (:func:`pack_mma_a`), layer 0's
     ``S`` columns padded to 16 with zeros, layers concatenated; the biases
-    concatenated; the head rows rounded to bf16 and zero-padded to 3 rows
-    (float32), their biases likewise."""
+    concatenated; the head rows zero-padded to one 16-row block, as bf16 in
+    fragment order; the head's biases as they are."""
     mats = []
     for li, (w, _) in enumerate(trunk):
         if li == 0:
             w = torch.nn.functional.pad(w, (0, _MMA_WIDTH - w.shape[1]))
         mats.append(pack_mma_a(w.to(torch.bfloat16)))
-    rows, h = w_head.shape
-    head = torch.zeros((_HEAD_ROWS, h), dtype=torch.float32, device=w_head.device)
-    head[:rows] = bf16_round(w_head)
-    bias_head = torch.zeros(_HEAD_ROWS, dtype=torch.float32, device=w_head.device)
-    bias_head[:rows] = b_head
-    return torch.cat(mats), torch.cat([b for _, b in trunk]).contiguous(), head, bias_head
+    head = torch.nn.functional.pad(w_head, (0, 0, 0, _MMA_WIDTH - w_head.shape[0]))
+    return (torch.cat(mats), torch.cat([b for _, b in trunk]).contiguous(), pack_mma_a(head.to(torch.bfloat16)),
+            b_head.contiguous())
 
 
 # ------------------------------------------------------------ plain version

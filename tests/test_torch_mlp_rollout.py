@@ -156,27 +156,31 @@ def test_zero_padded_widths_leave_the_plain_rollout_bitwise_unchanged(width, sha
         assert torch.equal(a, b)
 
 
+def _unpack_mma_a(block, rows, cols):
+    """pack_mma_a's inverse: fragment order back to a row-major matrix."""
+    return block.reshape(rows // 16, cols // 16, 8, 4, 2, 2, 2).permute(0, 5, 2, 1, 4, 3, 6).reshape(rows, cols)
+
+
 @pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared-trunk", "towers"])
 def test_bf16_tower_packing_puts_every_value_once_in_place(shared_trunk):
     """pack_tower_bf16: each layer's (out, in) matrix in mma fragment order
     (layer 0's S columns zero-padded to 16), layers concatenated, unpacks to
-    the bf16-rounded matrices; the biases concatenated; the head rounded to
-    bf16 and zero-padded to 3 rows with its biases."""
+    the bf16-rounded matrices; the biases concatenated; the head rows
+    zero-padded to 16 and packed the same way; the head's biases kept."""
     model = mr.pad_widths(init_actor_critic(2, 4, 2, hidden=(36, 100, 64), shared_trunk=shared_trunk, device="cpu"))
     for trunk, w_head, b_head in mr.tower_params(mr.transpose_params(model)):
         weights, bias, head, bias_head = mr.pack_tower_bf16(trunk, w_head, b_head)
-        assert weights.dtype == torch.bfloat16 and weights.is_contiguous()
+        assert weights.dtype == head.dtype == torch.bfloat16 and weights.is_contiguous()
         off = 0
         for li, (w, _) in enumerate(trunk):
             rows, cols = w.shape[0], 16 if li == 0 else w.shape[1]
-            block = weights[off:off + rows * cols]
-            off += rows * cols
-            unpacked = block.reshape(rows // 16, cols // 16, 8, 4, 2, 2, 2).permute(0, 5, 2, 1, 4, 3, 6)
             want = torch.zeros((rows, cols), dtype=torch.bfloat16)
             want[:, :w.shape[1]] = w.to(torch.bfloat16)
-            assert torch.equal(unpacked.reshape(rows, cols), want)
+            assert torch.equal(_unpack_mma_a(weights[off:off + rows * cols], rows, cols), want)
+            off += rows * cols
         assert off == weights.numel()
         assert torch.equal(bias, torch.cat([b for _, b in trunk]))
-        a = w_head.shape[0]
-        assert head.shape == (3, w_head.shape[1]) and torch.equal(head[:a], mr.bf16_round(w_head))
-        assert not head[a:].any() and torch.equal(bias_head[:a], b_head) and not bias_head[a:].any()
+        want = torch.zeros((16, w_head.shape[1]), dtype=torch.bfloat16)
+        want[:w_head.shape[0]] = w_head.to(torch.bfloat16)
+        assert head.numel() == want.numel() and torch.equal(_unpack_mma_a(head, *want.shape), want)
+        assert torch.equal(bias_head, b_head)
