@@ -27,6 +27,11 @@ public entry points and times it all:
   towers fully fused (K3's towers mode once, K4's 16 times), and
   ``evaluate_policy(backend="fused")`` on the towers (phases 18-21).
 
+Phase 18 also checks in the SASS that the bf16 instantiations of the
+update passes and of K3 issue tensor-core instructions and the float32 ones
+none; phases 8, 9 and 19 launch K3, K4 and K7 twice on the same inputs and
+require bitwise-equal results.
+
 Run from the repository root:
 
     python3 chip_smoke.py
@@ -843,6 +848,17 @@ def sass_counts(sass, opcode, names=None):
     return counts
 
 
+def bf16_instantiation(entry):
+    """Whether a mangled kernel entry is the bf16 instantiation: its first
+    template argument (``kBf16``, ``ILb1E``) is true.  The parameter types
+    may name ``__nv_bfloat16`` in either instantiation (K3's float32 one
+    mangles ``std::conditional<kBf16, __nv_bfloat16, float>``)."""
+    import re
+
+    match = re.search(r"ILb([01])E", entry)
+    return match is not None and match.group(1) == "1"
+
+
 def check_tensor_cores(library, label, names, instantiations):
     """Phase 18: the bf16 instantiations of the kernels ``names`` in
     ``library`` issue tensor-core instructions (HMMA in the SASS) and the
@@ -860,19 +876,19 @@ def check_tensor_cores(library, label, names, instantiations):
     check(len(kernels) == instantiations,
           f"phase 18: {len(kernels)} {names} kernels in the SASS of {library}, not {instantiations}")
     for entry, n in sorted(kernels.items()):
-        bf16 = "__nv_bfloat16" in entry
+        bf16 = bf16_instantiation(entry)
         print(f"phase 18 {label} {entry[:90]}: {n} HMMA ({'bf16' if bf16 else 'float32'})")
         check(n > 0 if bf16 else n == 0, f"phase 18: {n} HMMA in {entry}")
     return sass
 
 
 def update_phases(torch, np, card, dev):
-    """Phases 18-21: the register counts of the new kernel variants; K7,
-    K4's stacked-trunk mode and K3's towers mode against their plain
-    versions at config 5; the three train_iteration paths and the fused
-    towers evaluation through the public entry points, with per-iteration
-    launch counts; timings and profiles.  Returns the K7 kernels-line entry
-    and the towers figures of K3 and K4."""
+    """Phases 18-21: the register counts and tensor-core instructions of the
+    update passes and K3; K7, K4's stacked-trunk mode and K3's towers mode
+    against their plain versions at config 5; the three train_iteration
+    paths and the fused towers evaluation through the public entry points,
+    with per-iteration launch counts; timings and profiles.  Returns the K7
+    kernels-line entry and the towers figures of K3 and K4."""
     import dataclasses
 
     from mbt_gym_torch import dispatch_report, init_train_state, train_iteration
@@ -883,11 +899,11 @@ def update_phases(torch, np, card, dev):
     from mbt_gym_torch.ops import mlp_rollout as mr
     from mbt_gym_torch.utils.config import as_env_config
 
-    # ---- phase 18: registers and spills of the update passes (the full
-    # report is printed with the builds above): K7 is ppo_pass1/ppo_pass2
-    # with kRowMajor = true (template arguments "Lb?ELb1E"), the bf16
-    # instantiations "Lb1E...13__nv_bfloat16"; K3's towers phase is in
-    # mlp_rollout_kernel.  Then the tensor-core instructions of each pass.
+    # ---- phase 18: registers and spills of the update passes and of K3
+    # (the full report is printed with the builds above): K7 is
+    # ppo_pass1/ppo_pass2 with kRowMajor = true (template arguments
+    # "Lb?ELb1E"), the bf16 instantiations "ILb1E"; K3 (both layouts) is
+    # mlp_rollout_kernel.  Then the tensor-core instructions of each.
     for src, names in (("fused_ppo.cu", ("ppo_pass1", "ppo_pass2")), ("mlp_rollout.cu", ("mlp_rollout_kernel",))):
         rows = kernel_registers(_build.ptxas_reports.get(src, ""), names)
         check(rows, f"phase 18: no ptxas report for {names} in {src}")

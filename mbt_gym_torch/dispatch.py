@@ -207,8 +207,8 @@ def _check_oe(cfg: EnvConfig, meta: dict, mode: str, device: torch.device) -> No
 # 256x256, in env-steps/s: (K3 through backend="fused", the engine), per
 # layout.  chip_smoke.py phase 21 on an NVIDIA H100 80GB HBM3 at 700 W.
 MLP_EVALUATE_MEASURED = {
-    "shared trunk": (143349505.9, 7905831.6),
-    "separate towers": (77511402.9, 13902838.8),
+    "shared trunk": (149835752.3, 8587121.5),
+    "separate towers": (169311055.3, 10052501.1),
 }
 
 

@@ -94,3 +94,20 @@ def test_sass_counts_per_kernel(names, opcode, want):
     a kernel without it counts 0, and a name filter keeps only the kernels
     it names (K3's instantiations beside the update passes)."""
     assert chip_smoke.sass_counts(_SASS, opcode, names) == want
+
+
+_K3_F32 = ("_ZN47_GLOBAL__N__ac7b1fe6_14_mlp_rollout_cu_f500ab6c18mlp_rollout_kernelILb0EEEv15MlpKernelParamsijPKfNS_"
+           "12TowerWeightsINSt11conditionalIXT_E13__nv_bfloat16fE4typeEEES9_NS_6LayoutES3_10RolloutOut")
+
+
+@pytest.mark.parametrize("entry, bf16", [
+    ("_ZN4_GLOBAL9ppo_pass1ILb1ELb0E13__nv_bfloat16EEv", True),
+    ("_ZN4_GLOBAL9ppo_pass2ILb0ELb1EfEEv", False),
+    (_K3_F32.replace("kernelILb0E", "kernelILb1E"), True),
+    (_K3_F32, False),
+], ids=["update-bf16", "update-float32-rows", "k3-bf16", "k3-float32"])
+def test_bf16_instantiation_reads_the_first_template_argument(entry, bf16):
+    """Phase 18 tells the instantiations apart by their first template
+    argument (kBf16): K3's float32 kernel mangles __nv_bfloat16 into its
+    parameter types, as seen in the SASS of a build on the H100."""
+    assert chip_smoke.bf16_instantiation(entry) is bf16
