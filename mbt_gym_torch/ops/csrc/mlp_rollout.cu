@@ -264,7 +264,7 @@ template <typename TW>
 struct TowerWeights {
   const TW* w;
   const float* bias;
-  const float* w_head;  // (head_rows, h_last)
+  const TW* w_head;     // float: (head_rows, h_last); bf16: one packed 16-row block
   const float* b_head;  // (head_rows,)
   int head_rows;
 };
@@ -444,8 +444,8 @@ constexpr int kHead = 3;       // head rows the env step reads (A + 1 at most)
 constexpr int kRows = 32;      // warp tile: two 16-row blocks
 constexpr int kEnvs = 64;      //            x eight 8-env tiles
 constexpr int kNT = kEnvs / 8;
-constexpr int kEnvParts = kE / kEnvs;  // warp w: rows [32 (w / kEnvParts), +32), envs [64 (w % kEnvParts), +64)
-constexpr int kHeadNT = kE / kWarps / 8;  // 8-env tiles of the head per warp
+static_assert(kWarps * kEnvs == 8 * kE, "warp w: rows [32 (w / 2), +32) x envs [64 (w % 2), +64)");
+static_assert(kWarps * 8 == kE, "the head product gives each warp 8 envs");
 
 struct Smem {
   __nv_bfloat16* w;       // layer 0's packed weights, then (staged) the inner layers'
@@ -534,33 +534,30 @@ __device__ __forceinline__ void head_product(const __nv_bfloat16* w, int k_dim, 
                                              float* head_o) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   const __nv_bfloat16* a_frag = w + lane * 8;
+  const __nv_bfloat16* b_row = act + (lane % 16) * kLd + warp * 8;
+  float d[4][4] = {};
   const int nk = k_dim / 16;
-  for (int j = 0; j < kHeadNT; ++j) {
-    const int e0 = (warp * kHeadNT + j) * 8;
-    const __nv_bfloat16* b_row = act + (lane % 16) * kLd + e0;
-    float d[4][4] = {};
-    for (int kb = 0; kb < nk; kb += 4) {
+  for (int kb = 0; kb < nk; kb += 4) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (kb + c < nk) {
-          uint32_t a[4], f[2];
-          frag_from(a, lds128(a_frag + (kb + c) * mbt::kBlock));
-          mbt::ldmatrix_x2_trans(f, b_row + (kb + c) * 16 * kLd);
-          mma_bf16(d[c], a, f[0], f[1]);
-        }
+    for (int c = 0; c < 4; ++c) {
+      if (kb + c < nk) {
+        uint32_t a[4], f[2];
+        frag_from(a, lds128(a_frag + (kb + c) * mbt::kBlock));
+        mbt::ldmatrix_x2_trans(f, b_row + (kb + c) * 16 * kLd);
+        mma_bf16(d[c], a, f[0], f[1]);
       }
     }
-    if (g < kHead) {  // row g: envs 2 t4, 2 t4 + 1
-      *reinterpret_cast<float2*>(head_o + g * kE + e0 + t4 * 2) =
-          make_float2((d[0][0] + d[1][0]) + (d[2][0] + d[3][0]), (d[0][1] + d[1][1]) + (d[2][1] + d[3][1]));
-    }
+  }
+  if (g < kHead) {  // row g: envs 2 t4, 2 t4 + 1
+    *reinterpret_cast<float2*>(head_o + g * kE + warp * 8 + t4 * 2) =
+        make_float2((d[0][0] + d[1][0]) + (d[2][0] + d[3][0]), (d[0][1] + d[1][1]) + (d[2][1] + d[3][1]));
   }
 }
 
 // The trunk and the head of one step, from the observation tile.  Ends
 // with head_o written, before a barrier.
 __device__ void forward(const MlpKernelParams& p, const Smem& sm, const Layout& lay, const __nv_bfloat16* w_dev) {
-  const int warp = threadIdx.x / 32, rg = warp / kEnvParts, eh = warp % kEnvParts;
+  const int warp = threadIdx.x / 32, rg = warp / 2, eh = warp % 2;
   float acc[2][kNT][4];
   int r_dim = p.widths[0];
   bool has_rows = rg * kRows < r_dim;
@@ -705,7 +702,7 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
   const bool towers = vf[0] != nullptr;
   auto tower = [&](const void* const* t, int rows) {
     return TowerWeights<TW>{static_cast<const TW*>(t[0]), static_cast<const float*>(t[1]),
-                            static_cast<const float*>(t[2]), static_cast<const float*>(t[3]), rows};
+                            static_cast<const TW*>(t[2]), static_cast<const float*>(t[3]), rows};
   };
   const TowerWeights<TW> pi_w = tower(pi, towers ? p.a_dim : p.a_dim + 1);
   const TowerWeights<TW> vf_w = tower(vf, 1);

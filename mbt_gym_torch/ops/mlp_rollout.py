@@ -381,19 +381,15 @@ def pack_mma_a(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(r // 16, 2, 8, k // 16, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6).reshape(-1)
 
 
-def _round_up(x: int, multiple: int) -> int:
-    return -(-x // multiple) * multiple
-
-
-def pad_widths(params, multiple: int = _MMA_WIDTH):
+def pad_widths(params):
     """A copy of the actor-critic ``params`` with every hidden width rounded
-    up to a multiple of ``multiple``: the new rows of a layer's weight and
-    bias are zero, and so are the columns of the next layer (or head) that
-    read them.  Each padded unit computes tanh(0) = 0 and adds exact zeros
+    up to a multiple of 16: the new rows of a layer's weight and bias are
+    zero, and so are the columns of the next layer (or head) that read
+    them.  Each padded unit computes tanh(0) = 0 and adds exact zeros
     downstream, so the policy's outputs are unchanged."""
     from mbt_gym_torch.agents.networks import ActorCritic
 
-    hidden = tuple(_round_up(h, multiple) for h in params.hidden)
+    hidden = tuple(-(-h // _MMA_WIDTH) * _MMA_WIDTH for h in params.hidden)
     device = params.log_std.device
     padded = ActorCritic(params.obs_dim, params.action_dim, hidden, params.shared_trunk, device=device)
     with torch.no_grad():

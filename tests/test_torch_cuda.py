@@ -106,12 +106,13 @@ def test_mlp_rollout_kernel_matches_plain_on_the_card(cuda_device, normalised):
 
 
 @pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared-trunk", "towers"])
-@pytest.mark.parametrize("hidden", [(64, 64), (36, 100), (256,), (128, 128, 128)],
-                         ids=["64x64", "36x100-padded", "256", "128x128x128"])
+@pytest.mark.parametrize("hidden", [(64, 64), (36, 100), (256,), (128, 128, 128), (256, 256, 256)],
+                         ids=["64x64", "36x100-padded", "256", "128x128x128", "256x256x256-unstaged"])
 def test_mlp_rollout_kernel_at_the_mma_tile_edges(cuda_device, hidden, shared_trunk):
     """K3's tensor-core (bf16) path at the edges of its tiles: small, unequal
     and zero-padded widths (36 and 100 run as 48 and 112), one layer and
-    three, on both layouts, with 4,096 + 32 envs (the last 128-env tile
+    three, inner layers too large for shared memory (read from device
+    memory), on both layouts, with 4,096 + 32 envs (the last 128-env tile
     ragged), against its plain version at the limits above; a second launch
     on the same noise is bitwise equal."""
     from mbt_gym_torch.agents.networks import init_actor_critic
