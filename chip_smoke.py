@@ -28,7 +28,7 @@ public entry points and times it all:
   ``evaluate_policy(backend="fused")`` on the towers (phases 18-21).
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
-update passes and of K3 issue tensor-core instructions and the float32 ones
+update passes and of K3 run tensor-core instructions and the float32 ones
 none; phases 8, 9 and 19 launch K3, K4 and K7 twice on the same inputs and
 require bitwise-equal results.
 
@@ -861,7 +861,7 @@ def bf16_instantiation(entry):
 
 def check_tensor_cores(library, label, names, instantiations):
     """Phase 18: the bf16 instantiations of the kernels ``names`` in
-    ``library`` issue tensor-core instructions (HMMA in the SASS) and the
+    ``library`` run tensor-core instructions (HMMA in the SASS) and the
     float32 ones none; ``instantiations`` of them must be there.  Returns
     the SASS."""
     import shutil

@@ -53,7 +53,7 @@
 // own named barriers, with or without taking turns on the products, gained
 // nothing (a half's product alone runs at half the rate); 256 threads with
 // 32 x 128 warp tiles were no faster.  What the time goes to, in order: the
-// two tanhf epilogues (each tanhf issues a MUFU.EX2 and a MUFU.RCP, and the
+// two tanhf epilogues (each tanhf runs a MUFU.EX2 and a MUFU.RCP, and the
 // special-function units are the busiest pipe there), the inner product on
 // mma.sync, the env step on 4 of the 16 warps, the head.
 //
