@@ -88,8 +88,11 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, warmup=2, reps=5):
-    """Median milliseconds of ``fn`` between CUDA events, after warm-up."""
+def event_times(torch, fn, warmup=2, reps=5):
+    """Milliseconds of each of ``reps`` calls of ``fn`` between CUDA
+    events, after warm-up.  The start event is recorded on an idle stream,
+    so the window holds the call's host work too (its allocations, argument
+    packing, the launch): the time a caller waits for one call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -102,7 +105,102 @@ def cuda_ms(torch, fn, warmup=2, reps=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(torch, fn, warmup=2, reps=5):
+    """Median of :func:`event_times`: a call's time, host work included."""
+    return statistics.median(event_times(torch, fn, warmup, reps))
+
+
+_SLEEP_MS_PER_MCYCLE = []
+
+
+def sleep_cycles(torch, ms):
+    """``torch.cuda._sleep`` cycles that keep the card busy for ``ms``
+    milliseconds, from one timed sleep of a million cycles (cached)."""
+    if not _SLEEP_MS_PER_MCYCLE:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)  # warm
+        start.record()
+        torch.cuda._sleep(1_000_000)
+        end.record()
+        end.synchronize()
+        _SLEEP_MS_PER_MCYCLE.append(start.elapsed_time(end))
+    return int(ms / _SLEEP_MS_PER_MCYCLE[0] * 1e6) + 1
+
+
+def device_times(torch, fn, warmup=2, reps=5):
+    """Milliseconds of the device work that each of ``reps`` calls of ``fn``
+    enqueues, without its host work.  Before each timed call the stream is
+    filled with a ``torch.cuda._sleep`` that outlasts the call's host side,
+    so the start event fires on the card only after ``fn`` has enqueued
+    everything: the events bracket the kernel and any device op the wrapper
+    enqueues itself (the streams mode's zero planes), and nothing of the
+    host.  Where the start event had already fired when ``fn`` returned,
+    the sleep was too short: that repetition is dropped and the sleep
+    doubled."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    lead_ms = max(1.0, 4.0 * host_ms)
+    times = []
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles(torch, lead_ms))
+        start.record()
+        fn()
+        covered = not start.query()
+        end.record()
+        end.synchronize()
+        if covered:
+            times.append(start.elapsed_time(end))
+        else:
+            lead_ms *= 2.0
+            check(lead_ms < 1e3, "device_times: the host side of a call outlasts a one-second sleep")
+    return times
+
+
+def device_ms(torch, fn, warmup=2, reps=5):
+    """Median of :func:`device_times`: the card's time for one call."""
+    return statistics.median(device_times(torch, fn, warmup, reps))
+
+
+def kernel_ms(torch, fn, warmup=2, reps=5, label=None):
+    """(device_ms, call_ms) of one kernel wrapper: its device time alone and
+    the time a caller waits for it, host work included.  With ``label``
+    the two must agree within their spread (the larger range of either's
+    repetitions, at least 1% of the device time): a kernel long enough
+    that the host's share of a call is lost in its noise."""
+    dev = device_times(torch, fn, warmup, reps)
+    call = event_times(torch, fn, warmup, reps)
+    dev_ms, call_ms = statistics.median(dev), statistics.median(call)
+    if label is not None:
+        spread = max(max(dev) - min(dev), max(call) - min(call), 0.01 * dev_ms)
+        check(abs(call_ms - dev_ms) <= spread,
+              f"{label}: call time {call_ms} ms and device time {dev_ms} ms differ by more than {spread} ms")
+        print(f"{label}: device {dev_ms} ms, call {call_ms} ms, agree within {spread} ms")
+    return dev_ms, call_ms
+
+
+def rank_by_gap(entries):
+    """Kernel entries of the kernels line, ordered by launches x (ms -
+    bound_ms), largest first: the device time the main paths lose in each
+    kernel above its bound."""
+    return sorted(entries, key=lambda e: e["launches"] * (e["ms"] - e["bound_ms"]), reverse=True)
+
+
+def kernel_row(phase, card, name, shape, env_steps, ms, call, b_ms, b_by, plain_ms=None):
+    """One phase's line for a kernel timing: device time, call time, rate,
+    bound and share of bound (of the device time)."""
+    plain = f", plain {plain_ms} ms" if plain_ms is not None else ""
+    return (f"phase {phase} [{card}] {name} at {shape}: {ms} ms on the device (call {call} ms) = "
+            f"{env_steps / ms * 1e3} env-steps/s, bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound{plain}")
 
 
 def check_bands(stats, label):
@@ -194,35 +292,59 @@ def busy_ms(intervals):
     return busy_us / 1e3
 
 
-def profile_iteration(torch, card, label, fn, top=6, phase=12):
+def profile_iteration(torch, card, label, fn, top=6, phase=12, expect=(), warm=False):
     """One call of ``fn`` under torch.profiler: device time by kernel
     (summed over launches) and the device's busy share of the call's wall
     time.  Busy time is the union of the intervals of the device-side
     events (kernels, copies, sets), so it counts no time twice and is at
-    most the span from the first to the last of them."""
+    most the span from the first to the last of them.  ``expect`` names
+    kernels the call must launch: each is reported with the launch
+    counters' view of the call, found or missing among the profiler's
+    device events.  With ``warm`` the profiler first traces one call that
+    it discards (a warm-up step of its schedule), then the call it keeps.
+    Returns ``{name: (ms, count)}`` of the device events."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from mbt_gym_torch.ops import _build
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    plan = schedule(wait=0, warmup=1, active=1) if warm else None
+    kept = []  # a schedule clears the events at the end of its cycle
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=plan,
+                 on_trace_ready=(lambda p: kept.extend(p.events())) if warm else None) as prof:
+        for step in range(2 if warm else 1):
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if warm:
+                prof.step()
+    launched = {name: c for name, c in _build.launch_counts.items() if c}
+    events = kept if warm else prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    tag = " (after a discarded warm-up call)" if warm else ""
     if not device:
-        print(f"phase {phase} profile [{card}] {label}: the profiler saw no device time (wall {wall_ms} ms)")
-        return
+        print(f"phase {phase} profile{tag} [{card}] {label}: the profiler saw no device time (wall {wall_ms} ms)")
+        return {}
     by_name = {}
     for e in device:
         ms, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in device])
     span_ms = (max(e.time_range.end for e in device) - min(e.time_range.start for e in device)) / 1e3
-    print(f"phase {phase} profile [{card}] {label}: wall {wall_ms} ms under the profiler, device events span "
-          f"{span_ms} ms, device busy {busy} ms ({busy / wall_ms:.1%}), idle share {1 - busy / wall_ms:.1%}")
+    print(f"phase {phase} profile{tag} [{card}] {label}: wall {wall_ms} ms under the profiler, device events span "
+          f"{span_ms} ms, device busy {busy} ms ({busy / wall_ms:.1%}), idle share {1 - busy / wall_ms:.1%}; "
+          f"launch counters {launched}")
     for ms, count, name in sorted(((ms, count, name) for name, (ms, count) in by_name.items()), reverse=True)[:top]:
         print(f"    {ms:10.3f} ms  {count:6d} x  {name[:90]}")
+    for kernel in expect:
+        found = [(ms, count) for name, (ms, count) in by_name.items() if kernel in name]
+        print(f"phase {phase} profile{tag} {label}: {kernel} "
+              + (f"found, {sum(c for _, c in found)} x, {sum(m for m, _ in found)} ms" if found else
+                 f"missing among {len(device)} device events ({len(by_name)} names)"))
+    return by_name
 
 
 def compare_rollouts(torch, got, want, n, label):
@@ -442,13 +564,15 @@ def ppo_phases(torch, np, card, dev):
     for name, fn in (("fused", fused_iteration), ("engine", lambda: train_iteration(env_cfg, engine_cfg, ts, 5))):
         profile_iteration(torch, card, f"{name} train_iteration at config 5", fn)
     params = ts.params
-    k3_ms = cuda_ms(torch, lambda: mr.mlp_rollout(p, params, 9, PPO_N, device=dev), warmup=1, reps=5)
+    k3_ms, k3_call_ms = kernel_ms(torch, lambda: mr.mlp_rollout(p, params, 9, PPO_N, device=dev), warmup=1, reps=5,
+                                  label=f"phase 12 K3 at {PPO_N}x{steps}")
     k3_plain_ms = cuda_ms(torch, lambda: mr.mlp_rollout_plain(p, params, 9, PPO_N, device=dev), warmup=1, reps=2)
     k3_engine_ms = engine_rollout_ms(torch, env_cfg, params, f"phase 12 K3 at {PPO_N}x{steps}", card)
     tb = mr.collect_rollout_fused_T(env_cfg, params, 9, device=dev)
     mb = [x[..., :nb] for x in (tb.obs_t, tb.actions_t, tb.log_probs, tb.advantages, tb.returns)]
     mb[3] = normalise(mb[3])
-    k4_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(params, *mb), warmup=2, reps=10)
+    k4_ms, k4_call_ms = kernel_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(params, *mb), warmup=2, reps=10,
+                                  label=f"phase 12 K4 at {steps}x{nb}")
     k4_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(params, *mb), warmup=1, reps=3)
     rows = [x.permute(0, 2, 1).reshape(steps * nb, -1) if x.dim() == 3 else x.reshape(-1) for x in mb]
     k4_engine_ms = engine_grad_ms(torch, params, rows, f"phase 12 K4 at {steps}x{nb}", card)
@@ -464,24 +588,27 @@ def ppo_phases(torch, np, card, dev):
     samples = steps * nb
     k4_bound = bound_ms((s_dim + a_dim + 3) * 4 * samples, ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim) * samples,
                         BF16_OPS_PER_S)
-    for name, ms, plain_ms, (b_ms, b_by), shape, engine in (
-        ("K3 mlp_rollout native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}", f", engine {k3_engine_ms} ms"),
-        ("K4 ppo_fused_grads_T bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{steps}x{nb}",
+    for name, ms, call, plain_ms, (b_ms, b_by), shape, engine in (
+        ("K3 mlp_rollout native", k3_ms, k3_call_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}",
+         f", engine {k3_engine_ms} ms"),
+        ("K4 ppo_fused_grads_T bf16 (one minibatch)", k4_ms, k4_call_ms, k4_plain_ms, k4_bound, f"{steps}x{nb}",
          f", engine {k4_engine_ms} ms"),
     ):
-        print(f"phase 12 [{card}] {name} at {shape}: {ms} ms, plain {plain_ms} ms{engine}, "
-              f"bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound")
+        print(f"phase 12 [{card}] {name} at {shape}: {ms} ms on the device (call {call} ms), plain {plain_ms} ms"
+              f"{engine}, bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound")
     return [
         {
             "name": "K3 mlp_rollout", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/mlp_rollout.cu",
             "replaces": "mbt_gym_tpu/ops/pallas_rollout.py:1514", "launches": launches["mlp_rollout"],
-            "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms, "engine_ms": k3_engine_ms,
+            "max_abs_err": k3_err, "ms": k3_ms, "call_ms": k3_call_ms, "plain_ms": k3_plain_ms,
+            "engine_ms": k3_engine_ms,
             "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
         },
         {
             "name": "K4 ppo_fused_grads_T", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/fused_ppo.cu",
             "replaces": "mbt_gym_tpu/ops/fused_ppo.py:392", "launches": launches["ppo_fused_grads_T"],
-            "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms, "engine_ms": k4_engine_ms,
+            "max_abs_err": k4_err, "ms": k4_ms, "call_ms": k4_call_ms, "plain_ms": k4_plain_ms,
+            "engine_ms": k4_engine_ms,
             "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None,
         },
     ]
@@ -605,12 +732,14 @@ def cj_phases(torch, np, card, dev):
             for stats in (True, False):
                 extra = {"stats_only": stats, "final_obs": not stats}
                 got = det.det_rollout(p, tbl, num_trajectories=n, **kw, **extra)
+                again = det.det_rollout(p, tbl, num_trajectories=n, **kw, **extra)
                 want = det.det_rollout_plain(p, tbl, num_trajectories=n, **kw, **extra)
                 torch.cuda.synchronize()
                 kind = "stats" if stats else "streams"
-                err["K5"] = max(err["K5"], compare_outputs(
-                    torch, got, want, n, f"phase 14 K5 {label} {kind} {mode} at {n}x{p.run_steps}", streams=not stats))
-            del got, want
+                at = f"{label} {kind} {mode} at {n}x{p.run_steps}"
+                err["K5"] = max(err["K5"], compare_outputs(torch, got, want, n, f"phase 14 K5 {at}", streams=not stats))
+                check_repeat(torch, (dict(enumerate(got)),), (dict(enumerate(again)),), f"phase 14 K5 {at}")
+            del got, again, want
     normals = torch.from_numpy(np.random.default_rng(15).normal(size=(oe_steps, OE_N)).astype(np.float32)).to(dev)
     for mode, kw in (("noise", {"noise": normals}), ("native", {"seed": 42, "device": dev})):
         got = oe.oe_episode(p_oe, speed_table, num_trajectories=OE_N, **kw)
@@ -621,9 +750,11 @@ def cj_phases(torch, np, card, dev):
     cj_table = torch.tensor(cj_agent.depth_table_f32()[:-1], device=dev)
     for mode, kw in (("noise", {"noise": channels(16, cj_steps, CJ_N)}), ("native", {"seed": 43, "device": dev})):
         got = cj.cj_episode(p_cj, cj_table, q_cap=100, num_trajectories=CJ_N, **kw)
+        again = cj.cj_episode(p_cj, cj_table, q_cap=100, num_trajectories=CJ_N, **kw)
         want = cj.cj_episode_plain(p_cj, cj_table, q_cap=100, num_trajectories=CJ_N, **kw)
         torch.cuda.synchronize()
         err["K8"] = max(err["K8"], compare_outputs(torch, got, want, CJ_N, f"phase 14 K8 {mode} at {CJ_N}x{cj_steps}"))
+        check_repeat(torch, (dict(enumerate(got)),), (dict(enumerate(again)),), f"phase 14 K8 {mode}")
         k5 = det.table_rollout(p_table, *tables, num_trajectories=CJ_N, stats_only=True, **kw)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got[:3], k5[:3])),
@@ -732,11 +863,15 @@ def cj_phases(torch, np, card, dev):
     ):
         ms = cuda_ms(torch, fn, warmup=1, reps=reps)
         print(f"phase 17 [{card}] {name}: {ms} ms per call = {steps / ms * 1e3} env-steps/s")
-    for name, fn in (
-        ("mc_episode_stats CJ fused", lambda: mc_episode_stats(cj_cfg, cj_pol, None, 7)),
-        ("mc_episode_stats OE fused", lambda: mc_episode_stats(oe_cfg, oe_pol, None, 7)),
+    for name, fn, expect in (
+        ("mc_episode_stats CJ fused", lambda: mc_episode_stats(cj_cfg, cj_pol, None, 7), ("det_rollout_kernel",)),
+        ("mc_episode_stats OE fused", lambda: mc_episode_stats(oe_cfg, oe_pol, None, 7), ("oe_episode_kernel",)),
+        ("cj_episode_rewards CJ fused", lambda: cj_episode_rewards(cj_cfg, cj_agent, 7, CJ_N), ("cj_episode_kernel",)),
+        ("K5 table stats wrapper alone", lambda: det.table_rollout(p_table, *tables, 9, CJ_N, stats_only=True, device=dev),
+         ("det_rollout_kernel",)),
     ):
-        profile_iteration(torch, card, name, fn, phase=17)
+        for warm in (False, True):
+            profile_iteration(torch, card, name, fn, phase=17, expect=expect, warm=warm)
     # the host set-up of the entry points: the CJ depth table is built once
     # per agent (the eigendecomposition) and copied from then on
     for name, fn in (
@@ -762,49 +897,50 @@ def cj_phases(torch, np, card, dev):
     k6_bound = bound(oe_steps * 4 + 6 * 4 * OE_N, OPS_PER_ENV_STEP_K6 * OE_N * oe_steps)
     k8_bound = bound(cj_table.numel() * 4 + 4 * 4 * CJ_N, OPS_PER_ENV_STEP_K8 * CJ_N * cj_steps)
     k5 = lambda n, **kw: det.table_rollout(p_table, *tables, 9, n, device=dev, **kw)  # noqa: E731
-    k5_ms = cuda_ms(torch, lambda: k5(CJ_N, stats_only=True), warmup=2, reps=10)
+    k5_ms, k5_call_ms = kernel_ms(torch, lambda: k5(CJ_N, stats_only=True), warmup=2, reps=10)
     k5_plain_ms = cuda_ms(torch, lambda: det.table_rollout_plain(p_table, *tables, 9, CJ_N, stats_only=True, device=dev),
                           warmup=1, reps=1)
-    k5_streams_ms = cuda_ms(torch, lambda: k5(CJ_N, final_obs=True), warmup=1, reps=5)
+    k5_streams = kernel_ms(torch, lambda: k5(CJ_N, final_obs=True), warmup=1, reps=5)
     big_p, big_tables = det.cj_rollout_params(cj_big, cj_agent), tables
-    k5_big_ms = cuda_ms(torch, lambda: det.table_rollout(big_p, *big_tables, 9, CJ_STATS_N, stats_only=True, device=dev),
-                        warmup=1, reps=5)
+    k5_big = kernel_ms(torch, lambda: det.table_rollout(big_p, *big_tables, 9, CJ_STATS_N, stats_only=True, device=dev),
+                       warmup=1, reps=5)
     p_sched = k5_cases[3][1]
-    k5_sched_ms = cuda_ms(torch, lambda: det.schedule_rollout(p_sched, speed_table[:, None], 9, OE_N, final_obs=True,
+    k5_sched = kernel_ms(torch, lambda: det.schedule_rollout(p_sched, speed_table[:, None], 9, OE_N, final_obs=True,
                                                               device=dev), warmup=2, reps=10)
-    k6_ms = cuda_ms(torch, lambda: oe.oe_episode(p_oe, speed_table, 9, OE_N, device=dev), warmup=2, reps=10)
+    k6_ms, k6_call_ms = kernel_ms(torch, lambda: oe.oe_episode(p_oe, speed_table, 9, OE_N, device=dev), warmup=2, reps=10)
     k6_plain_ms = cuda_ms(torch, lambda: oe.oe_episode_plain(p_oe, speed_table, 9, OE_N, device=dev), warmup=1, reps=2)
-    k6_big_ms = cuda_ms(torch, lambda: oe.oe_episode(p_oe, speed_table, 9, OE_LARGE_N, device=dev), warmup=2, reps=10)
-    k8_ms = cuda_ms(torch, lambda: cj.cj_episode(p_cj, cj_table, 9, 100, CJ_N, device=dev), warmup=2, reps=10)
+    k6_big = kernel_ms(torch, lambda: oe.oe_episode(p_oe, speed_table, 9, OE_LARGE_N, device=dev), warmup=2, reps=10)
+    k8_ms, k8_call_ms = kernel_ms(torch, lambda: cj.cj_episode(p_cj, cj_table, 9, 100, CJ_N, device=dev), warmup=2, reps=10)
     k8_plain_ms = cuda_ms(torch, lambda: cj.cj_episode_plain(p_cj, cj_table, 9, 100, CJ_N, device=dev), warmup=1, reps=1)
     s_oe = len(p_sched.obs_low)
     rows = (
-        ("K5 det_rollout table stats native", k5_ms, k5_plain_ms, CJ_N, cj_steps, k5_bound),
-        ("K5 det_rollout table streams native", k5_streams_ms, None, CJ_N, cj_steps,
+        ("K5 det_rollout table stats native", (k5_ms, k5_call_ms), k5_plain_ms, CJ_N, cj_steps, k5_bound),
+        ("K5 det_rollout table streams native", k5_streams, None, CJ_N, cj_steps,
          bound(table_bytes + (cj_steps * 9 + 4) * 4 * CJ_N, OPS_PER_ENV_STEP_K5_TABLE * CJ_N * cj_steps)),
-        ("K5 det_rollout table stats native", k5_big_ms, None, CJ_STATS_N, cj_steps,
+        ("K5 det_rollout table stats native", k5_big, None, CJ_STATS_N, cj_steps,
          bound(table_bytes + 5 * 4 * CJ_STATS_N, OPS_PER_ENV_STEP_K5_TABLE * CJ_STATS_N * cj_steps)),
-        ("K5 det_rollout schedule streams native", k5_sched_ms, None, OE_N, oe_steps,
+        ("K5 det_rollout schedule streams native", k5_sched, None, OE_N, oe_steps,
          bound(oe_steps * 4 + (oe_steps * (s_oe + 4) + s_oe) * 4 * OE_N, OPS_PER_ENV_STEP_K5_SPEED * OE_N * oe_steps)),
-        ("K6 oe_episode native", k6_ms, k6_plain_ms, OE_N, oe_steps, k6_bound),
-        ("K6 oe_episode native", k6_big_ms, None, OE_LARGE_N, oe_steps,
+        ("K6 oe_episode native", (k6_ms, k6_call_ms), k6_plain_ms, OE_N, oe_steps, k6_bound),
+        ("K6 oe_episode native", k6_big, None, OE_LARGE_N, oe_steps,
          bound(oe_steps * 4 + 6 * 4 * OE_LARGE_N, OPS_PER_ENV_STEP_K6 * OE_LARGE_N * oe_steps)),
-        ("K8 cj_episode native", k8_ms, k8_plain_ms, CJ_N, cj_steps, k8_bound),
+        ("K8 cj_episode native", (k8_ms, k8_call_ms), k8_plain_ms, CJ_N, cj_steps, k8_bound),
     )
-    for name, ms, plain_ms, n, steps, (b_ms, b_by) in rows:
-        plain = f", plain {plain_ms} ms" if plain_ms is not None else ""
-        print(f"phase 17 [{card}] {name} at {n}x{steps}: {ms} ms = {n * steps / ms * 1e3} env-steps/s, "
-              f"bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound{plain}")
+    for name, (ms, call), plain_ms, n, steps, (b_ms, b_by) in rows:
+        print(kernel_row(17, card, name, f"{n}x{steps}", n * steps, ms, call, b_ms, b_by, plain_ms))
     print(f"phase 17 ok in {time.perf_counter() - t0:.1f} s")
     entries = []
-    for name, key, src, replaces, ms, plain_ms, (b_ms, b_by) in (
-        ("K5 det_rollout", "det_rollout", "det_rollout.cu", "mbt_gym_tpu/ops/pallas_rollout.py:1876", k5_ms, k5_plain_ms, k5_bound),
-        ("K6 oe_episode", "oe_episode", "oe_episode.cu", "mbt_gym_tpu/ops/pallas_episode.py:720", k6_ms, k6_plain_ms, k6_bound),
-        ("K8 cj_episode", "cj_episode", "cj_episode.cu", "mbt_gym_tpu/ops/pallas_episode.py:409", k8_ms, k8_plain_ms, k8_bound),
+    for name, key, src, replaces, ms, call, plain_ms, (b_ms, b_by) in (
+        ("K5 det_rollout", "det_rollout", "det_rollout.cu", "mbt_gym_tpu/ops/pallas_rollout.py:1876", k5_ms, k5_call_ms,
+         k5_plain_ms, k5_bound),
+        ("K6 oe_episode", "oe_episode", "oe_episode.cu", "mbt_gym_tpu/ops/pallas_episode.py:720", k6_ms, k6_call_ms,
+         k6_plain_ms, k6_bound),
+        ("K8 cj_episode", "cj_episode", "cj_episode.cu", "mbt_gym_tpu/ops/pallas_episode.py:409", k8_ms, k8_call_ms,
+         k8_plain_ms, k8_bound),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": f"mbt_gym_torch/ops/csrc/{src}", "replaces": replaces,
-            "launches": launches[key], "max_abs_err": err[name[:2]], "ms": ms, "plain_ms": plain_ms,
+            "launches": launches[key], "max_abs_err": err[name[:2]], "ms": ms, "call_ms": call, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     return entries
@@ -1051,13 +1187,16 @@ def update_phases(torch, np, card, dev):
         label, cfg, _ = paths[key]
         profile_iteration(torch, card, f"train_iteration ({key}) {label} at config 5",
                           lambda: train_iteration(env_cfg, cfg, states[key], 6), phase=21)
-    k7_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads(shared, *mb), warmup=2, reps=5)
+    k7_ms, k7_call_ms = kernel_ms(torch, lambda: fused_ppo.ppo_fused_grads(shared, *mb), warmup=2, reps=5,
+                                  label=f"phase 21 K7 at {m} samples")
     k7_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_plain(shared, *mb), warmup=1, reps=2)
-    k4_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(towers, *mb_t), warmup=1, reps=3)
+    k4_ms, k4_call_ms = kernel_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(towers, *mb_t), warmup=1, reps=3,
+                                  label=f"phase 21 K4 towers at {rows}x{lanes}")
     k4_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(towers, *mb_t), warmup=1, reps=2)
     k7_engine_ms = engine_grad_ms(torch, shared, mb, f"phase 21 K7 at {m} samples", card)
     k4_engine_ms = engine_grad_ms(torch, towers, mb, f"phase 21 K4 towers at {m} samples", card)
-    k3_ms = cuda_ms(torch, lambda: mr.mlp_rollout(p, towers, 9, PPO_N, device=dev), warmup=1, reps=3)
+    k3_ms, k3_call_ms = kernel_ms(torch, lambda: mr.mlp_rollout(p, towers, 9, PPO_N, device=dev), warmup=1, reps=3,
+                                  label=f"phase 21 K3 towers at {PPO_N}x{steps}")
     k3_plain_ms = cuda_ms(torch, lambda: mr.mlp_rollout_plain(p, towers, 9, PPO_N, device=dev), warmup=1, reps=1)
     k3_engine_ms = engine_rollout_ms(torch, env_cfg, towers, f"phase 21 K3 towers at {PPO_N}x{steps}", card)
     # K7 and K4 read obs, actions, old log-prob, advantage and return once
@@ -1068,16 +1207,16 @@ def update_phases(torch, np, card, dev):
     k4_bound = bound_ms(per_sample * m, ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim, towers=2) * m, BF16_OPS_PER_S)
     k3_bound = bound_ms(per_sample * env_steps, mlp_flops_per_sample(s_dim, h0, h1, a_dim, towers=2) * env_steps,
                         BF16_OPS_PER_S)
-    for name, ms, plain_ms, (b_ms, b_by), shape, engine in (
-        ("K7 ppo_fused_grads bf16 (one shuffled minibatch)", k7_ms, k7_plain_ms, k7_bound, f"{m} samples",
-         f", engine {k7_engine_ms} ms"),
-        ("K4 ppo_fused_grads_T towers bf16 (one minibatch)", k4_ms, k4_plain_ms, k4_bound, f"{rows}x{lanes}",
-         f", engine {k4_engine_ms} ms"),
-        ("K3 mlp_rollout towers native", k3_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}",
+    for name, ms, call, plain_ms, (b_ms, b_by), shape, engine in (
+        ("K7 ppo_fused_grads bf16 (one shuffled minibatch)", k7_ms, k7_call_ms, k7_plain_ms, k7_bound,
+         f"{m} samples", f", engine {k7_engine_ms} ms"),
+        ("K4 ppo_fused_grads_T towers bf16 (one minibatch)", k4_ms, k4_call_ms, k4_plain_ms, k4_bound,
+         f"{rows}x{lanes}", f", engine {k4_engine_ms} ms"),
+        ("K3 mlp_rollout towers native", k3_ms, k3_call_ms, k3_plain_ms, k3_bound, f"{PPO_N}x{steps}",
          f", engine {k3_engine_ms} ms"),
     ):
-        print(f"phase 21 [{card}] {name} at {shape}: {ms} ms, plain {plain_ms} ms{engine}, "
-              f"bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound")
+        print(f"phase 21 [{card}] {name} at {shape}: {ms} ms on the device (call {call} ms), plain {plain_ms} ms"
+              f"{engine}, bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound")
     eval_cfg = dataclasses.replace(env_cfg, num_trajectories=EVAL_N)
     for label, model in (("shared trunk", shared), ("separate towers", towers)):
         rates = {}
@@ -1094,15 +1233,18 @@ def update_phases(torch, np, card, dev):
     k7 = {
         "name": "K7 ppo_fused_grads", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/fused_ppo.cu",
         "replaces": "mbt_gym_tpu/ops/fused_ppo.py:634", "launches": launches["a"]["ppo_fused_grads"],
-        "max_abs_err": err["K7"], "ms": k7_ms, "plain_ms": k7_plain_ms, "engine_ms": k7_engine_ms,
+        "max_abs_err": err["K7"], "ms": k7_ms, "call_ms": k7_call_ms, "plain_ms": k7_plain_ms,
+        "engine_ms": k7_engine_ms,
         "bound_ms": k7_bound[0], "bound_by": k7_bound[1], "library_ms": None,
     }
     towers_figures = {
         "K3": {"towers_launches": launches["c"]["mlp_rollout"], "towers_max_abs_err": err["K3 towers"],
-               "towers_ms": k3_ms, "towers_plain_ms": k3_plain_ms, "towers_engine_ms": k3_engine_ms,
+               "towers_ms": k3_ms, "towers_call_ms": k3_call_ms, "towers_plain_ms": k3_plain_ms,
+               "towers_engine_ms": k3_engine_ms,
                "towers_bound_ms": k3_bound[0]},
         "K4": {"towers_launches": launches["b"]["ppo_fused_grads_T"] + launches["c"]["ppo_fused_grads_T"],
-               "towers_max_abs_err": err["K4 towers"], "towers_ms": k4_ms, "towers_plain_ms": k4_plain_ms,
+               "towers_max_abs_err": err["K4 towers"], "towers_ms": k4_ms, "towers_call_ms": k4_call_ms,
+               "towers_plain_ms": k4_plain_ms,
                "towers_engine_ms": k4_engine_ms, "towers_bound_ms": k4_bound[0]},
     }
     return k7, towers_figures
@@ -1210,13 +1352,15 @@ def main():
         ("rollout engine", t_eng, env_steps),
     ):
         print(f"phase 6 [{card}] {name} at {N_MAIN}x{STEPS}: {ms} ms per call = {steps / ms * 1e3} env-steps/s")
-    k1_ms = cuda_ms(torch, lambda: ep.as_episode(p, 9, N_MAIN, device=dev), warmup=3, reps=20)
-    k2_ms = cuda_ms(torch, lambda: ep.as_episode_trajectories(p, 9, N_MAIN, emit="full", device=dev), warmup=3, reps=20)
+    k1_ms, k1_call_ms = kernel_ms(torch, lambda: ep.as_episode(p, 9, N_MAIN, device=dev), warmup=3, reps=20)
+    k2_ms, k2_call_ms = kernel_ms(torch, lambda: ep.as_episode_trajectories(p, 9, N_MAIN, emit="full", device=dev),
+                                  warmup=3, reps=20)
     k1_plain_ms = cuda_ms(torch, lambda: ep.as_episode_plain(p, 9, N_MAIN, device=dev), warmup=1, reps=3)
     k2_plain_ms = cuda_ms(torch, lambda: ep.as_episode_trajectories_plain(p, 9, N_MAIN, emit="full", device=dev), warmup=1, reps=3)
     large = ep.params_from_config(dataclasses.replace(cfg, num_trajectories=N_LARGE), 0.1)
-    k1_large = cuda_ms(torch, lambda: ep.as_episode(large, 9, N_LARGE, device=dev), warmup=2, reps=10)
-    k2_large = cuda_ms(torch, lambda: ep.as_episode_trajectories(large, 9, N_LARGE, emit="full", device=dev), warmup=2, reps=10)
+    k1_large, k1_large_call = kernel_ms(torch, lambda: ep.as_episode(large, 9, N_LARGE, device=dev), warmup=2, reps=10)
+    k2_large, k2_large_call = kernel_ms(
+        torch, lambda: ep.as_episode_trajectories(large, 9, N_LARGE, emit="full", device=dev), warmup=2, reps=10)
     def bound(bytes_moved, ops):
         return bound_ms(bytes_moved, ops, FP32_OPS_PER_S)
 
@@ -1226,17 +1370,13 @@ def main():
     def k2_bound_at(n):  # six (T, N) float32 streams out
         return bound(6 * 4 * n * STEPS, OPS_PER_ENV_STEP_K2_FULL * n * STEPS)
 
-    for name, ms, plain_ms, n, (b_ms, b_by) in (
-        ("K1 as_episode native", k1_ms, k1_plain_ms, N_MAIN, k1_bound_at(N_MAIN)),
-        ("K2 as_episode_trajectories full native", k2_ms, k2_plain_ms, N_MAIN, k2_bound_at(N_MAIN)),
-        ("K1 as_episode native", k1_large, None, N_LARGE, k1_bound_at(N_LARGE)),
-        ("K2 as_episode_trajectories full native", k2_large, None, N_LARGE, k2_bound_at(N_LARGE)),
+    for name, ms, call, plain_ms, n, (b_ms, b_by) in (
+        ("K1 as_episode native", k1_ms, k1_call_ms, k1_plain_ms, N_MAIN, k1_bound_at(N_MAIN)),
+        ("K2 as_episode_trajectories full native", k2_ms, k2_call_ms, k2_plain_ms, N_MAIN, k2_bound_at(N_MAIN)),
+        ("K1 as_episode native", k1_large, k1_large_call, None, N_LARGE, k1_bound_at(N_LARGE)),
+        ("K2 as_episode_trajectories full native", k2_large, k2_large_call, None, N_LARGE, k2_bound_at(N_LARGE)),
     ):
-        plain = f", plain {plain_ms} ms" if plain_ms is not None else ""
-        print(
-            f"phase 6 [{card}] {name} at {n}x{STEPS}: {ms} ms = {n * STEPS / ms * 1e3} env-steps/s, "
-            f"bound {b_ms} ms ({b_by}), {b_ms / ms:.1%} of bound{plain}"
-        )
+        print(kernel_row(6, card, name, f"{n}x{STEPS}", n * STEPS, ms, call, b_ms, b_by, plain_ms))
 
     k1_bound = k1_bound_at(N_MAIN)
     k2_bound = k2_bound_at(N_MAIN)
@@ -1244,13 +1384,13 @@ def main():
         {
             "name": "K1 as_episode", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/as_episode.cu",
             "replaces": "mbt_gym_tpu/ops/pallas_episode.py:233", "launches": launches["as_episode"],
-            "max_abs_err": err["K1"], "ms": k1_ms, "plain_ms": k1_plain_ms,
+            "max_abs_err": err["K1"], "ms": k1_ms, "call_ms": k1_call_ms, "plain_ms": k1_plain_ms,
             "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
         },
         {
             "name": "K2 as_episode_trajectories", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/as_episode.cu",
             "replaces": "mbt_gym_tpu/ops/pallas_episode.py:1074", "launches": launches["as_episode_trajectories"],
-            "max_abs_err": err["K2"], "ms": k2_ms, "plain_ms": k2_plain_ms,
+            "max_abs_err": err["K2"], "ms": k2_ms, "call_ms": k2_call_ms, "plain_ms": k2_plain_ms,
             "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
         },
     ]
@@ -1260,6 +1400,9 @@ def main():
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))
     kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
+    for entry in rank_by_gap(kernels):
+        print(f"rank [{card}] {entry['name']}: {entry['launches']} launches x ({entry['ms']} - {entry['bound_ms']}) ms "
+              f"= {entry['launches'] * (entry['ms'] - entry['bound_ms'])} ms above the bound")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
