@@ -58,8 +58,25 @@ cj_episode_kernel(const CjKernelParams p, int n, uint32_t seed, const float* __r
   if (env >= n) return;
   const int size = 2 * p.q_cap + 1;
   float cash = 0.0f, inv = 0.0f, price = p.initial_price, sumq2 = 0.0f;
-  for (int i = 0; i < p.n_steps; ++i) {
-    const mbt::Draws d = mbt::draws_for<kNoise>(noise, n, seed, env, i);
+  // Probe: the draws of the next kAhead steps are computed (or loaded) in
+  // registers a batch ahead of the steps that use them.
+  constexpr int kAhead = 4;
+  mbt::Draws cur[kAhead];
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < p.n_steps) cur[j] = mbt::draws_for<kNoise>(noise, n, seed, env, j);
+  }
+  for (int base = 0; base < p.n_steps; base += kAhead) {
+  mbt::Draws next[kAhead];
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (base + kAhead + j < p.n_steps) next[j] = mbt::draws_for<kNoise>(noise, n, seed, env, base + kAhead + j);
+  }
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    const int i = base + j;
+    if (i >= p.n_steps) break;
+    const mbt::Draws& d = cur[j];
     const float qf = fminf(fmaxf(inv + static_cast<float>(p.q_cap), 0.0f), 2.0f * p.q_cap);
     const size_t at = (static_cast<size_t>(i) * size + static_cast<int>(qf)) * 2;
     const float bid = __ldg(table + at);
@@ -74,6 +91,9 @@ cj_episode_kernel(const CjKernelParams p, int n, uint32_t seed, const float* __r
     cash = cash - hit_bid * (price - bid) + hit_ask * (price + ask);
     sumq2 = sumq2 + inv * inv;  // post-update inventory (RewardFunctions.py:103)
     price = price + p.drift_dt + p.vol_sqrt_dt * d.normal;
+  }
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) cur[j] = next[j];
   }
   cash_out[env] = cash;
   inv_out[env] = inv;

@@ -127,6 +127,22 @@ __device__ __forceinline__ void write_obs(const DetKernelParams& p, float* out, 
   }
 }
 
+// Probe: the draws of the next kAhead steps are computed (or loaded) in
+// registers a batch ahead of the steps that use them, so their Philox
+// chains overlap the state chain of the current batch.
+constexpr int kAhead = 4;
+
+template <bool kNoise, int kDyn>
+__device__ __forceinline__ mbt::Draws step_draws(const float* noise, int n, uint32_t seed, int env, int i) {
+  if constexpr (kDyn == kLimit) {
+    return mbt::draws_for<kNoise>(noise, n, seed, env, i);
+  } else {
+    mbt::Draws d{};
+    d.normal = mbt::normal_for<kNoise>(noise, n, seed, env, i);
+    return d;
+  }
+}
+
 template <bool kNoise, int kDyn, int kPol, bool kStats>
 __global__ void __launch_bounds__(kBlock)
 det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t seed) {
@@ -139,81 +155,99 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   float price = p.initial_price;
   float imp = 0.0f;
   float rsum = 0.0f, ssum = 0.0f;
-  for (int i = 0; i < p.run_steps; ++i) {
-    const float t = p.start_time + static_cast<float>(i) * p.dt;
-    const int row = p.t_off + i;
-    // ---- policy: the raw action columns (what the stream records)
-    float raw0, raw1 = 0.0f;
-    if constexpr (kPol == kTable) {
-      const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
-      const size_t at = static_cast<size_t>(row) * p.table_width + static_cast<int>(qf);
-      raw0 = __ldg(b.bid + at);
-      raw1 = __ldg(b.ask + at);
-    } else if constexpr (kPol == kSchedule) {
-      raw0 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim);
-      if constexpr (kDyn == kLimit) raw1 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim + 1);
-    } else {
-      raw0 = p.fixed_action[0];
-      raw1 = p.fixed_action[1];
+  mbt::Draws cur[kAhead];
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < p.run_steps) cur[j] = step_draws<kNoise, kDyn>(b.noise, n, seed, env, j);
+  }
+  for (int base = 0; base < p.run_steps; base += kAhead) {
+    mbt::Draws next[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (base + kAhead + j < p.run_steps) next[j] = step_draws<kNoise, kDyn>(b.noise, n, seed, env, base + kAhead + j);
     }
-    float exe0 = raw0, exe1 = raw1;
-    if (p.normalise_act) {
-      exe0 = (raw0 + 1.0f) * p.act_grad[0] + p.act_low[0];
-      exe1 = (raw1 + 1.0f) * p.act_grad[1] + p.act_low[1];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int i = base + j;
+      if (i >= p.run_steps) break;
+      const mbt::Draws& ahead = cur[j];
+        const float t = p.start_time + static_cast<float>(i) * p.dt;
+        const int row = p.t_off + i;
+        // ---- policy: the raw action columns (what the stream records)
+        float raw0, raw1 = 0.0f;
+        if constexpr (kPol == kTable) {
+          const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
+          const size_t at = static_cast<size_t>(row) * p.table_width + static_cast<int>(qf);
+          raw0 = __ldg(b.bid + at);
+          raw1 = __ldg(b.ask + at);
+        } else if constexpr (kPol == kSchedule) {
+          raw0 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim);
+          if constexpr (kDyn == kLimit) raw1 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim + 1);
+        } else {
+          raw0 = p.fixed_action[0];
+          raw1 = p.fixed_action[1];
+        }
+        float exe0 = raw0, exe1 = raw1;
+        if (p.normalise_act) {
+          exe0 = (raw0 + 1.0f) * p.act_grad[0] + p.act_low[0];
+          exe1 = (raw1 + 1.0f) * p.act_grad[1] + p.act_low[1];
+        }
+        if constexpr (!kStats) {
+          const size_t o = static_cast<size_t>(i) * p.s_dim * sn + env;
+          write_obs(p, b.obs + o, sn, cash, inv, t, price, imp);
+          const size_t a = static_cast<size_t>(i) * p.a_dim * sn + env;
+          b.act[a] = raw0;
+          if constexpr (kDyn == kLimit) b.act[a + sn] = raw1;
+        }
+        // ---- env step (TradingEnvironment.py:198-216 order)
+        float new_cash, new_inv, normal;
+        if constexpr (kDyn == kLimit) {
+          const mbt::Draws& d = ahead;
+          const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
+          const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
+          const float fill_bid = (d.u_fb < expf(p.neg_k * exe0) ? 1.0f : 0.0f) * (inv < p.max_inventory ? 1.0f : 0.0f);
+          const float fill_ask = (d.u_fa < expf(p.neg_k * exe1) ? 1.0f : 0.0f) * (inv > -p.max_inventory ? 1.0f : 0.0f);
+          const float hit_bid = arr_bid * fill_bid;
+          const float hit_ask = arr_ask * fill_ask;
+          new_inv = inv + hit_bid - hit_ask;
+          new_cash = cash - hit_bid * (price - exe0) + hit_ask * (price + exe1);
+          normal = d.normal;
+        } else {
+          // impact at the pre-update state, then the permanent-impact recursion
+          const float impact = p.temporary_impact * exe0 + imp;
+          const float new_imp = imp + p.permanent_impact * exe0 * p.dt;
+          const float volume = exe0 * p.dt;
+          new_inv = inv + volume;
+          new_cash = cash - volume * (price + impact);
+          imp = new_imp;
+          normal = ahead.normal;
+        }
+        new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
+        new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
+        const float new_price = price + p.drift_dt + p.vol_sqrt_dt * normal;
+        // ---- reward at the post-step state (RewardFunctions.py)
+        float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
+        const float q2 = new_inv * new_inv;
+        if (p.reward == kCjMm) {
+          reward = reward - p.dt_phi * q2 - p.alpha * (q2 - inv * inv) - p.cjmm_const * q0_sq;
+        } else if (p.reward == kRunning) {
+          const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
+          reward = reward - p.dt_phi * q2 - (p.alpha * terminal) * q2;
+        } else if (p.reward == kCjOe) {
+          reward = reward - p.dt_phi * q2 - p.dt_alpha * (2.0f * exe0 * inv + q0_sq * p.ep_len);
+        }
+        if constexpr (kStats) {
+          rsum = rsum + reward;
+          if constexpr (kDyn == kLimit) ssum = ssum + (raw0 + raw1);
+        } else {
+          b.rew[static_cast<size_t>(i) * sn + env] = reward;
+        }
+        cash = new_cash;
+        inv = new_inv;
+        price = new_price;
     }
-    if constexpr (!kStats) {
-      const size_t o = static_cast<size_t>(i) * p.s_dim * sn + env;
-      write_obs(p, b.obs + o, sn, cash, inv, t, price, imp);
-      const size_t a = static_cast<size_t>(i) * p.a_dim * sn + env;
-      b.act[a] = raw0;
-      if constexpr (kDyn == kLimit) b.act[a + sn] = raw1;
-    }
-    // ---- env step (TradingEnvironment.py:198-216 order)
-    float new_cash, new_inv, normal;
-    if constexpr (kDyn == kLimit) {
-      const mbt::Draws d = mbt::draws_for<kNoise>(b.noise, n, seed, env, i);
-      const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
-      const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
-      const float fill_bid = (d.u_fb < expf(p.neg_k * exe0) ? 1.0f : 0.0f) * (inv < p.max_inventory ? 1.0f : 0.0f);
-      const float fill_ask = (d.u_fa < expf(p.neg_k * exe1) ? 1.0f : 0.0f) * (inv > -p.max_inventory ? 1.0f : 0.0f);
-      const float hit_bid = arr_bid * fill_bid;
-      const float hit_ask = arr_ask * fill_ask;
-      new_inv = inv + hit_bid - hit_ask;
-      new_cash = cash - hit_bid * (price - exe0) + hit_ask * (price + exe1);
-      normal = d.normal;
-    } else {
-      // impact at the pre-update state, then the permanent-impact recursion
-      const float impact = p.temporary_impact * exe0 + imp;
-      const float new_imp = imp + p.permanent_impact * exe0 * p.dt;
-      const float volume = exe0 * p.dt;
-      new_inv = inv + volume;
-      new_cash = cash - volume * (price + impact);
-      imp = new_imp;
-      normal = mbt::normal_for<kNoise>(b.noise, n, seed, env, i);
-    }
-    new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
-    new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
-    const float new_price = price + p.drift_dt + p.vol_sqrt_dt * normal;
-    // ---- reward at the post-step state (RewardFunctions.py)
-    float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
-    const float q2 = new_inv * new_inv;
-    if (p.reward == kCjMm) {
-      reward = reward - p.dt_phi * q2 - p.alpha * (q2 - inv * inv) - p.cjmm_const * q0_sq;
-    } else if (p.reward == kRunning) {
-      const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
-      reward = reward - p.dt_phi * q2 - (p.alpha * terminal) * q2;
-    } else if (p.reward == kCjOe) {
-      reward = reward - p.dt_phi * q2 - p.dt_alpha * (2.0f * exe0 * inv + q0_sq * p.ep_len);
-    }
-    if constexpr (kStats) {
-      rsum = rsum + reward;
-      if constexpr (kDyn == kLimit) ssum = ssum + (raw0 + raw1);
-    } else {
-      b.rew[static_cast<size_t>(i) * sn + env] = reward;
-    }
-    cash = new_cash;
-    inv = new_inv;
-    price = new_price;
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) cur[j] = next[j];
   }
   if constexpr (kStats) {
     b.cash[env] = cash;
