@@ -64,6 +64,12 @@ def main():
         print("episode_kernel_times: no CUDA device is visible", file=sys.stderr)
         return 1
     cs = load_chip_smoke()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mbt_gym_torch.ops import _build
+
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        list(pool.map(_build.build, _build.SOURCES))
     from mbt_gym_torch import CarteaJaimungalMmAgent, CarteaJaimungalOeAgent, as_env_config, cj_env_config, oe_env_config
     from mbt_gym_torch.ops import cj_episode as cj
     from mbt_gym_torch.ops import det_rollout as det
