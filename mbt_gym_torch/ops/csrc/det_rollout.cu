@@ -13,17 +13,26 @@
 // reward; BM midprice; inventory exponent 2; fixed start; optional per-env
 // initial inventory (inv0).
 //
-// Design: one thread per env, the step loop inside the thread, the state
-// (cash, inventory, price, impact, the reward and spread sums) in
-// registers.  Streams are (T, S, N) / (T, A, N) / (T, N) with envs minor,
-// so a warp's store of one plane of one step is one coalesced 128-byte
-// line.  The depth tables ((T+1) x (2Q+1) floats per side, 0.8 MB each at
-// the CJP shape, too large for a block's shared memory) are read through
-// the read-only path (__ldg): at each step every thread of the card reads
-// the same 2 x (2Q+1) row, so the row sits in L1/L2 and only a clipped
-// inventory index varies per thread.  The TPU kernel's one-hot MXU
-// contraction selects the same single entry, so the gather is exact.
-// The schedule and fixed actions are uniform loads.
+// Design: a warp-specialised step pipeline (step_pipeline.cuh).  A CTA
+// owns E envs: E / 32 consumer warps run the env step, one thread per env
+// with the state (cash, inventory, price, impact, the reward and spread
+// sums) in registers, and P producer warps fill a ring of shared-memory
+// slots with the inputs of the steps ahead: the draws (Philox in native
+// mode, the (T, 5, N) channels in noise mode, copied by the bulk-copy
+// engine where 16-byte aligned) and, for the table kind, the bid and ask
+// rows of the depth tables ((T+1) x (2Q+1) floats per side, 0.8 MB each at
+// the CJP shape) that those steps read.  The consumers' chain per step is
+// then a shared-memory load of the table entry at the clipped inventory,
+// two expf and the bookkeeping; the Philox chains, the libm calls of
+// Box-Muller and the table rows' L2 trips run in other warps, ahead.  A
+// table too wide for the ring stays in global memory, read through the
+// read-only path (__ldg) as every thread of the card reads the same row.
+// The TPU kernel's one-hot MXU contraction selects the same single entry,
+// so the gather is exact.  The schedule and fixed actions are uniform
+// loads.  Streams are (T, S, N) / (T, A, N) / (T, N) with envs minor, so a
+// consumer warp's store of one plane of one step is one 128-byte line.
+// The geometry (E, P, the slot's C steps, the R slots, whether the table is
+// staged) comes from step_pipeline.py::pipeline_geometry.
 //
 // Bounds on the H100: stats mode writes 20 bytes per env and reads nothing
 // per step in native mode, so it is bound by operations (two Philox calls
@@ -45,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include "draws.cuh"
+#include "step_pipeline.cuh"
 
 constexpr int kMaxS = 5;
 
@@ -86,6 +96,7 @@ struct DetKernelParams {
   float dt_alpha;     // dt * alpha
   float cjmm_const;   // alpha * dt / episode_length
   float ep_len;       // terminal_time - start_time
+  mbt::PipeGeometry pipe;
 };
 
 // Mirrors _DetBuffers: NULL where a mode does not use a buffer.
@@ -108,7 +119,6 @@ struct DetBuffers {
 
 namespace {
 
-constexpr int kBlock = 128;
 enum Dynamics { kLimit = 0, kSpeed = 1 };
 enum Policy { kTable = 0, kFixed = 1, kSchedule = 2 };
 enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2, kCjOe = 3 };
@@ -127,128 +137,135 @@ __device__ __forceinline__ void write_obs(const DetKernelParams& p, float* out, 
   }
 }
 
-// Probe: the draws of the next kAhead steps are computed (or loaded) in
-// registers a batch ahead of the steps that use them, so their Philox
-// chains overlap the state chain of the current batch.
-constexpr int kAhead = 4;
-
-template <bool kNoise, int kDyn>
-__device__ __forceinline__ mbt::Draws step_draws(const float* noise, int n, uint32_t seed, int env, int i) {
-  if constexpr (kDyn == kLimit) {
-    return mbt::draws_for<kNoise>(noise, n, seed, env, i);
-  } else {
-    mbt::Draws d{};
-    d.normal = mbt::normal_for<kNoise>(noise, n, seed, env, i);
-    return d;
-  }
-}
-
 template <bool kNoise, int kDyn, int kPol, bool kStats>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(mbt::kMaxPipeThreads)
 det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t seed) {
-  const int env = blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= n) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const mbt::StepRing ring(p.pipe, smem);
+  const int warp = threadIdx.x >> 5;
+  const int env0 = blockIdx.x * p.pipe.envs;
+  constexpr int kChannels = kDyn == kLimit ? 5 : 1;
+  const int cols = p.pipe.table_floats >> 1;  // bid row, then ask row
+  if (warp >= ring.consumer_warps()) {
+    const float* bid = b.bid;
+    const float* ask = b.ask;
+    const int t_off = p.t_off, width = p.table_width;
+    ring.produce<kNoise, kChannels>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, b.noise,
+                                    [=](int i, int k) {
+                                      const size_t row = static_cast<size_t>(t_off + i) * width;
+                                      return k < cols ? bid + row + k : ask + row + k - cols;
+                                    });
+    return;
+  }
+  const int e_local = threadIdx.x;
+  const int env = env0 + e_local;
+  const bool active = env < n;
   const size_t sn = static_cast<size_t>(n);
   float cash = p.initial_cash;
-  float inv = b.inv0 ? b.inv0[env] : p.initial_inventory;
+  float inv = b.inv0 && active ? b.inv0[env] : p.initial_inventory;
   const float q0_sq = inv * inv;
   float price = p.initial_price;
   float imp = 0.0f;
   float rsum = 0.0f, ssum = 0.0f;
-  mbt::Draws cur[kAhead];
-#pragma unroll
-  for (int j = 0; j < kAhead; ++j) {
-    if (j < p.run_steps) cur[j] = step_draws<kNoise, kDyn>(b.noise, n, seed, env, j);
-  }
-  for (int base = 0; base < p.run_steps; base += kAhead) {
-    mbt::Draws next[kAhead];
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      if (base + kAhead + j < p.run_steps) next[j] = step_draws<kNoise, kDyn>(b.noise, n, seed, env, base + kAhead + j);
-    }
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      const int i = base + j;
-      if (i >= p.run_steps) break;
-      const mbt::Draws& ahead = cur[j];
-        const float t = p.start_time + static_cast<float>(i) * p.dt;
-        const int row = p.t_off + i;
-        // ---- policy: the raw action columns (what the stream records)
-        float raw0, raw1 = 0.0f;
-        if constexpr (kPol == kTable) {
-          const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
-          const size_t at = static_cast<size_t>(row) * p.table_width + static_cast<int>(qf);
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int c0 = 0; c0 < p.run_steps; c0 += p.pipe.chunk) {
+    const int steps = min(p.pipe.chunk, p.run_steps - c0);
+    ring.wait_full(slot, phase);
+    const mbt::SlotDraws draws{ring.draws(slot) + e_local, p.pipe.envs, kChannels};
+    const float* tbl = ring.table(slot);
+    for (int j = 0; j < steps; ++j) {
+      const int i = c0 + j;
+      const float t = p.start_time + static_cast<float>(i) * p.dt;
+      const int row = p.t_off + i;
+      // ---- policy: the raw action columns (what the stream records)
+      float raw0, raw1 = 0.0f;
+      if constexpr (kPol == kTable) {
+        const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
+        const int q = static_cast<int>(qf);
+        if (cols > 0) {
+          raw0 = tbl[j * p.pipe.table_floats + q];
+          raw1 = tbl[j * p.pipe.table_floats + cols + q];
+        } else {
+          const size_t at = static_cast<size_t>(row) * p.table_width + q;
           raw0 = __ldg(b.bid + at);
           raw1 = __ldg(b.ask + at);
-        } else if constexpr (kPol == kSchedule) {
-          raw0 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim);
-          if constexpr (kDyn == kLimit) raw1 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim + 1);
-        } else {
-          raw0 = p.fixed_action[0];
-          raw1 = p.fixed_action[1];
         }
-        float exe0 = raw0, exe1 = raw1;
-        if (p.normalise_act) {
-          exe0 = (raw0 + 1.0f) * p.act_grad[0] + p.act_low[0];
-          exe1 = (raw1 + 1.0f) * p.act_grad[1] + p.act_low[1];
-        }
-        if constexpr (!kStats) {
+      } else if constexpr (kPol == kSchedule) {
+        raw0 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim);
+        if constexpr (kDyn == kLimit) raw1 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim + 1);
+      } else {
+        raw0 = p.fixed_action[0];
+        raw1 = p.fixed_action[1];
+      }
+      float exe0 = raw0, exe1 = raw1;
+      if (p.normalise_act) {
+        exe0 = (raw0 + 1.0f) * p.act_grad[0] + p.act_low[0];
+        exe1 = (raw1 + 1.0f) * p.act_grad[1] + p.act_low[1];
+      }
+      if constexpr (!kStats) {
+        if (active) {
           const size_t o = static_cast<size_t>(i) * p.s_dim * sn + env;
           write_obs(p, b.obs + o, sn, cash, inv, t, price, imp);
           const size_t a = static_cast<size_t>(i) * p.a_dim * sn + env;
           b.act[a] = raw0;
           if constexpr (kDyn == kLimit) b.act[a + sn] = raw1;
         }
-        // ---- env step (TradingEnvironment.py:198-216 order)
-        float new_cash, new_inv, normal;
-        if constexpr (kDyn == kLimit) {
-          const mbt::Draws& d = ahead;
-          const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
-          const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
-          const float fill_bid = (d.u_fb < expf(p.neg_k * exe0) ? 1.0f : 0.0f) * (inv < p.max_inventory ? 1.0f : 0.0f);
-          const float fill_ask = (d.u_fa < expf(p.neg_k * exe1) ? 1.0f : 0.0f) * (inv > -p.max_inventory ? 1.0f : 0.0f);
-          const float hit_bid = arr_bid * fill_bid;
-          const float hit_ask = arr_ask * fill_ask;
-          new_inv = inv + hit_bid - hit_ask;
-          new_cash = cash - hit_bid * (price - exe0) + hit_ask * (price + exe1);
-          normal = d.normal;
-        } else {
-          // impact at the pre-update state, then the permanent-impact recursion
-          const float impact = p.temporary_impact * exe0 + imp;
-          const float new_imp = imp + p.permanent_impact * exe0 * p.dt;
-          const float volume = exe0 * p.dt;
-          new_inv = inv + volume;
-          new_cash = cash - volume * (price + impact);
-          imp = new_imp;
-          normal = ahead.normal;
-        }
-        new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
-        new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
-        const float new_price = price + p.drift_dt + p.vol_sqrt_dt * normal;
-        // ---- reward at the post-step state (RewardFunctions.py)
-        float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
-        const float q2 = new_inv * new_inv;
-        if (p.reward == kCjMm) {
-          reward = reward - p.dt_phi * q2 - p.alpha * (q2 - inv * inv) - p.cjmm_const * q0_sq;
-        } else if (p.reward == kRunning) {
-          const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
-          reward = reward - p.dt_phi * q2 - (p.alpha * terminal) * q2;
-        } else if (p.reward == kCjOe) {
-          reward = reward - p.dt_phi * q2 - p.dt_alpha * (2.0f * exe0 * inv + q0_sq * p.ep_len);
-        }
-        if constexpr (kStats) {
-          rsum = rsum + reward;
-          if constexpr (kDyn == kLimit) ssum = ssum + (raw0 + raw1);
-        } else {
-          b.rew[static_cast<size_t>(i) * sn + env] = reward;
-        }
-        cash = new_cash;
-        inv = new_inv;
-        price = new_price;
+      }
+      // ---- env step (TradingEnvironment.py:198-216 order)
+      float new_cash, new_inv, normal;
+      if constexpr (kDyn == kLimit) {
+        const mbt::Draws d = draws.limit(j);
+        const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
+        const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
+        const float fill_bid = (d.u_fb < expf(p.neg_k * exe0) ? 1.0f : 0.0f) * (inv < p.max_inventory ? 1.0f : 0.0f);
+        const float fill_ask = (d.u_fa < expf(p.neg_k * exe1) ? 1.0f : 0.0f) * (inv > -p.max_inventory ? 1.0f : 0.0f);
+        const float hit_bid = arr_bid * fill_bid;
+        const float hit_ask = arr_ask * fill_ask;
+        new_inv = inv + hit_bid - hit_ask;
+        new_cash = cash - hit_bid * (price - exe0) + hit_ask * (price + exe1);
+        normal = d.normal;
+      } else {
+        // impact at the pre-update state, then the permanent-impact recursion
+        const float impact = p.temporary_impact * exe0 + imp;
+        const float new_imp = imp + p.permanent_impact * exe0 * p.dt;
+        const float volume = exe0 * p.dt;
+        new_inv = inv + volume;
+        new_cash = cash - volume * (price + impact);
+        imp = new_imp;
+        normal = draws.at(j, 0);
+      }
+      new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
+      new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
+      const float new_price = price + p.drift_dt + p.vol_sqrt_dt * normal;
+      // ---- reward at the post-step state (RewardFunctions.py)
+      float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
+      const float q2 = new_inv * new_inv;
+      if (p.reward == kCjMm) {
+        reward = reward - p.dt_phi * q2 - p.alpha * (q2 - inv * inv) - p.cjmm_const * q0_sq;
+      } else if (p.reward == kRunning) {
+        const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
+        reward = reward - p.dt_phi * q2 - (p.alpha * terminal) * q2;
+      } else if (p.reward == kCjOe) {
+        reward = reward - p.dt_phi * q2 - p.dt_alpha * (2.0f * exe0 * inv + q0_sq * p.ep_len);
+      }
+      if constexpr (kStats) {
+        rsum = rsum + reward;
+        if constexpr (kDyn == kLimit) ssum = ssum + (raw0 + raw1);
+      } else if (active) {
+        b.rew[static_cast<size_t>(i) * sn + env] = reward;
+      }
+      cash = new_cash;
+      inv = new_inv;
+      price = new_price;
     }
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j) cur[j] = next[j];
+    ring.release(slot);
+    if (++slot == p.pipe.slots) {
+      slot = 0;
+      phase ^= 1u;
+    }
   }
+  if (!active) return;
   if constexpr (kStats) {
     b.cash[env] = cash;
     b.inv[env] = inv;
@@ -260,15 +277,23 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   }
 }
 
+template <bool kNoise, int kDyn, int kPol, bool kStats>
+cudaError_t launch_kernel(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, cudaStream_t s) {
+  const auto kernel = det_rollout_kernel<kNoise, kDyn, kPol, kStats>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.pipe.smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + p.pipe.envs - 1) / p.pipe.envs);
+  const dim3 block(p.pipe.envs + 32 * p.pipe.producers);
+  kernel<<<grid, block, p.pipe.smem_bytes, s>>>(p, b, n, seed);
+  return cudaSuccess;
+}
+
 template <bool kNoise, int kDyn, int kPol>
-void launch_mode(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
-                 cudaStream_t s) {
-  const dim3 grid((n + kBlock - 1) / kBlock);
-  if (stats) {
-    det_rollout_kernel<kNoise, kDyn, kPol, true><<<grid, kBlock, 0, s>>>(p, b, n, seed);
-  } else {
-    det_rollout_kernel<kNoise, kDyn, kPol, false><<<grid, kBlock, 0, s>>>(p, b, n, seed);
-  }
+cudaError_t launch_mode(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
+                        cudaStream_t s) {
+  return stats ? launch_kernel<kNoise, kDyn, kPol, true>(p, b, n, seed, s)
+               : launch_kernel<kNoise, kDyn, kPol, false>(p, b, n, seed, s);
 }
 
 template <bool kNoise>
@@ -276,21 +301,33 @@ cudaError_t launch(const DetKernelParams& p, const DetBuffers& b, int n, uint32_
                    cudaStream_t s) {
   if (p.dynamics == kLimit) {
     switch (p.policy) {
-      case kTable: launch_mode<kNoise, kLimit, kTable>(p, b, n, seed, stats, s); break;
-      case kFixed: launch_mode<kNoise, kLimit, kFixed>(p, b, n, seed, stats, s); break;
-      case kSchedule: launch_mode<kNoise, kLimit, kSchedule>(p, b, n, seed, stats, s); break;
+      case kTable: return launch_mode<kNoise, kLimit, kTable>(p, b, n, seed, stats, s);
+      case kFixed: return launch_mode<kNoise, kLimit, kFixed>(p, b, n, seed, stats, s);
+      case kSchedule: return launch_mode<kNoise, kLimit, kSchedule>(p, b, n, seed, stats, s);
       default: return cudaErrorInvalidValue;
     }
-  } else if (p.dynamics == kSpeed) {
+  }
+  if (p.dynamics == kSpeed) {
     switch (p.policy) {
-      case kFixed: launch_mode<kNoise, kSpeed, kFixed>(p, b, n, seed, stats, s); break;
-      case kSchedule: launch_mode<kNoise, kSpeed, kSchedule>(p, b, n, seed, stats, s); break;
+      case kFixed: return launch_mode<kNoise, kSpeed, kFixed>(p, b, n, seed, stats, s);
+      case kSchedule: return launch_mode<kNoise, kSpeed, kSchedule>(p, b, n, seed, stats, s);
       default: return cudaErrorInvalidValue;  // the depth table quotes limit depths
     }
-  } else {
-    return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
+  return cudaErrorInvalidValue;
+}
+
+// The geometry the wrapper chose, checked against what the kernel assumes.
+bool pipe_ok(const DetKernelParams& p) {
+  const mbt::PipeGeometry& g = p.pipe;
+  const int groups = g.envs / 32;
+  const int channels = p.dynamics == kLimit ? 5 : 1;
+  const int cols = g.table_floats / 2;  // staged entries per row and side
+  const bool table_ok = g.table_floats == 0 || (p.policy == kTable && g.table_floats % 2 == 0 &&
+                                                2 * p.q_max + 1 <= cols && cols <= p.table_width);
+  return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
+         g.envs + 32 * g.producers <= mbt::kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 &&
+         g.channels == channels && table_ok && g.smem_bytes == mbt::ring_bytes(g);
 }
 
 }  // namespace
@@ -302,7 +339,7 @@ extern "C" int mbt_det_rollout(const DetKernelParams* p, const DetBuffers* b, in
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
-  if (p->s_dim > kMaxS || p->a_dim < 1 || p->a_dim > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (p->s_dim > kMaxS || p->a_dim < 1 || p->a_dim > 2 || !pipe_ok(*p)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = b->noise ? launch<true>(*p, *b, n, seed, stats_only != 0, s)
                  : launch<false>(*p, *b, n, seed, stats_only != 0, s);

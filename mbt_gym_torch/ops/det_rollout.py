@@ -51,6 +51,7 @@ import torch
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
 from mbt_gym_torch.ops.episode import _MASK32, _step_time, _target, philox_noise, seed_from_key
+from mbt_gym_torch.ops.step_pipeline import PipelineGeometry, pipeline_geometry
 
 # Channel count of the deterministic layout: 4 env uniforms + the midprice
 # normal (pallas_rollout.py:98-109 with table=True, no exo or second
@@ -372,6 +373,7 @@ class DetKernelParams(ctypes.Structure):
         ("dt_alpha", ctypes.c_float),
         ("cjmm_const", ctypes.c_float),
         ("ep_len", ctypes.c_float),
+        ("pipe", PipelineGeometry),  # set by the kernel wrapper
     ]
 
 
@@ -602,6 +604,14 @@ def _kernels() -> ctypes.CDLL:
     return lib
 
 
+def kernel_geometry(p: DetRolloutParams, num_trajectories: int, stats_only: bool):
+    """The step pipeline's geometry (:func:`pipeline_geometry`) of one K5
+    call: the table kind stages the ``table_size`` entries of each step's
+    bid and ask rows where they fit."""
+    width = p.table_size if p.policy_kind == "table" else 0
+    return pipeline_geometry(num_trajectories, p.run_steps, p.dynamics_kind, p.policy_kind, stats_only, width)
+
+
 def det_rollout(p: DetRolloutParams, tables=(), seed: int = 0, num_trajectories: int = 16384,
                 noise: Optional[torch.Tensor] = None, inv0: Optional[torch.Tensor] = None,
                 stats_only: bool = False, final_obs: bool = False, device=None):
@@ -631,6 +641,7 @@ def det_rollout(p: DetRolloutParams, tables=(), seed: int = 0, num_trajectories:
         inv0 = inv0.to(device, torch.float32).contiguous()
     kp = kernel_params(p, tables[0].shape[1] if p.policy_kind == "table" else 0)
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
+    kp.pipe = kernel_geometry(p, n, stats_only).ctypes()
     f32 = torch.float32
     buf = _DetBuffers(
         noise=None if noise is None else noise.data_ptr(),

@@ -3,7 +3,7 @@
 NVIDIA GPU, for comparing two checkouts of ``mbt_gym_torch`` on one card.
 
     python3 scripts/episode_kernel_times.py [--root DIR] [--label NAME]
-        [--geometry E,P,C,R] [--reps N]
+        [--geometry E,P,C,R] [--reps N] [--times-only]
 
 ``--root`` is the directory that holds the ``mbt_gym_torch`` to measure
 (default: this checkout); its kernels are built from its own ``csrc/``.
@@ -18,7 +18,8 @@ card's time alone, host work excluded) beside the call time
   ``oe_episode`` at 8,192 x 200.
 
 ``--geometry`` fixes K5's and K8's pipeline geometry (envs per CTA,
-producer warps, steps per slot, slots) where the checkout has one.  The
+producer warps, steps per slot, slots) where the checkout has one, and
+``--times-only`` times K5 and K8 alone.  The
 script also prints a sha256 digest of every output of K1-K8 on fixed
 inputs (noise and native mode; K3, K4 and K7 at 4,096 envs x 200 steps), so
 two checkouts can be shown to compute the same bits.  It prints one JSON
@@ -55,6 +56,7 @@ def main():
     parser.add_argument("--label", default="this checkout")
     parser.add_argument("--geometry", default=None, help="E,P,C,R for K5 and K8")
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--times-only", action="store_true", help="time K5 and K8 only, no digests")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -120,11 +122,16 @@ def main():
         ("K2 full", 16_384, 200, lambda: ep.as_episode_trajectories(p_as, 9, 16_384, emit="full", device=dev)),
         ("K6", 8_192, 200, lambda: oe.oe_episode(p_oe, speed_table, 9, 8_192, device=dev)),
     )
+    if args.times_only:
+        rows = [row for row in rows if row[0].startswith(("K5", "K8"))]
     for name, n, steps, fn in rows:
         ms = cs.device_ms(torch, fn, warmup=2, reps=args.reps)
         call = cs.cuda_ms(torch, fn, warmup=2, reps=args.reps)
         print(json.dumps({"label": label, "kernel": name, "shape": f"{n}x{steps}", "device_ms": ms, "call_ms": call,
                           "card": card}))
+
+    if args.times_only:
+        return 0
 
     def channels(seed, steps, n):
         rng = np.random.default_rng(seed)

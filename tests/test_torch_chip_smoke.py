@@ -111,3 +111,22 @@ def test_bf16_instantiation_reads_the_first_template_argument(entry, bf16):
     argument (kBf16): K3's float32 kernel mangles __nv_bfloat16 into its
     parameter types, as seen in the SASS of a build on the H100."""
     assert chip_smoke.bf16_instantiation(entry) is bf16
+
+
+def test_rank_by_gap_orders_by_lost_device_time():
+    """launches x (ms - bound_ms), largest first: many launches of a small
+    gap can outrank one launch of a large one."""
+    entries = [
+        {"name": "one slow launch", "launches": 1, "ms": 0.50, "bound_ms": 0.05},  # 0.45
+        {"name": "eight short launches", "launches": 8, "ms": 0.40, "bound_ms": 0.07},  # 2.64
+        {"name": "at its bound", "launches": 100, "ms": 1.0, "bound_ms": 1.0},  # 0
+        {"name": "two launches", "launches": 2, "ms": 0.11, "bound_ms": 0.003},  # 0.214
+    ]
+    ranked = [e["name"] for e in chip_smoke.rank_by_gap(entries)]
+    assert ranked == ["eight short launches", "one slow launch", "two launches", "at its bound"]
+
+
+def test_spill_bytes_reads_the_spill_line():
+    rows = dict(chip_smoke.kernel_registers(_PTXAS, ("ppo_pass1", "ppo_pass2")))
+    assert chip_smoke.spill_bytes(rows["_ZN4_GLOBAL9ppo_pass2ILb1ELb0E13__nv_bfloat16EEv"]) == 12
+    assert chip_smoke.spill_bytes(rows["_ZN4_GLOBAL9ppo_pass1ILb0ELb0EfEEv"]) == 0

@@ -492,6 +492,139 @@ def test_cj_episode_kernel_matches_plain_and_k5_on_the_card(cuda_device):
     assert _build.launch_counts["cj_episode"] == before + 2
 
 
+def _pipeline_cases(run_steps, t_off):
+    """K5's five policy/dynamics kinds on configs of ``run_steps`` executed
+    steps; with ``t_off`` the episode starts that many steps in (the table
+    and schedule rows from ``t_off``) and limit-order envs draw their
+    initial inventory (the ``inv0`` plane)."""
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent, CarteaJaimungalOeAgent
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.utils.config import cj_env_config, oe_env_config
+
+    steps = run_steps + t_off
+
+    def late(cfg, inventory=True):
+        if not t_off:
+            return cfg
+        extra = {"initial_inventory": (-3, 4)} if inventory else {}
+        return dataclasses.replace(cfg, start_time=t_off * cfg.step_size, **extra)
+
+    cj = late(cj_env_config(num_trajectories=16, n_steps=steps, max_inventory=5.0))
+    agent = CarteaJaimungalMmAgent.from_config(cj)
+    as_cfg = late(as_env_config(num_trajectories=16, n_steps=steps))
+    oe = late(oe_env_config(num_trajectories=16, n_steps=steps), inventory=False)
+    oe_agent = CarteaJaimungalOeAgent.from_config(oe, alpha=0.01)
+    depths = np.random.default_rng(7).uniform(0.2, 2.0, size=(steps, 2)).astype(np.float32)
+    return {
+        "table": (det.cj_rollout_params(cj, agent), det.cj_depth_tables(agent)),
+        "limit-fixed": (det.fixed_rollout_params(as_cfg, [0.7, 0.9]), ()),
+        "limit-schedule": (det.schedule_rollout_params(as_cfg), (depths,)),
+        "speed-fixed": (det.fixed_rollout_params(oe, [-2.5]), ()),
+        "speed-schedule": (det.schedule_rollout_params(oe), (det.schedule_table_from_policy(oe, oe_agent.policy()),)),
+    }
+
+
+def _assert_bitwise(got, again):
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("kind", ["table", "limit-fixed", "limit-schedule", "speed-fixed", "speed-schedule"])
+@pytest.mark.parametrize("run_steps,t_off", [(1, 0), (7, 3), (300, 0)], ids=["1-step", "7-steps-late", "300-steps"])
+def test_det_rollout_pipeline_edges_on_the_card(cuda_device, kind, run_steps, t_off):
+    """K5's step pipeline at its edges: 4,100 envs (a ragged last CTA) and
+    4,099 (noise rows not 16-byte aligned, so the producers load them
+    instead of the bulk-copy engine), episodes of 1, 7 and 300 steps (not
+    multiples of a slot's steps), a late start with per-env initial
+    inventories; every kind in both draw modes and both output modes
+    against its plain version at K1's limits, a repeated launch bitwise."""
+    from mbt_gym_torch.ops import det_rollout as det
+
+    p, tables = _pipeline_cases(run_steps, t_off)[kind]
+    assert p.run_steps == run_steps and round(p.start_time / p.dt) == t_off
+    for n in (4100, 4099):
+        inv0 = None
+        if p.inventory_range:
+            rng = np.random.default_rng(3)
+            inv0 = torch.from_numpy(rng.integers(*p.inventory_range, n).astype(np.float32)).to(cuda_device)
+        for kw in ({"noise": _channels(4, run_steps, n, cuda_device)}, {"seed": 6, "device": cuda_device}):
+            for stats in (True, False):
+                extra = {"stats_only": stats, "final_obs": not stats, "inv0": inv0}
+                got = det.det_rollout(p, tables, num_trajectories=n, **kw, **extra)
+                again = det.det_rollout(p, tables, num_trajectories=n, **kw, **extra)
+                want = det.det_rollout_plain(p, tables, num_trajectories=n, **kw, **extra)
+                torch.cuda.synchronize()
+                _assert_bitwise(got, again)
+                if stats:
+                    _assert_terminal_close(got, want, n)
+                else:
+                    _assert_streams_close(got, want, n)
+
+
+@pytest.mark.parametrize("run_steps", [1, 7, 300])
+def test_cj_episode_pipeline_edges_on_the_card(cuda_device, run_steps):
+    """K8's step pipeline at 4,100 and 4,099 envs and 1, 7 and 300 steps,
+    both draw modes: against its plain version at K1's limits, its terminal
+    state bitwise K5's table stats mode on the same noise, a repeated
+    launch bitwise."""
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent
+    from mbt_gym_torch.ops import cj_episode as cj
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.utils.config import cj_env_config
+
+    cfg = cj_env_config(num_trajectories=16, n_steps=run_steps, max_inventory=5.0)
+    agent = CarteaJaimungalMmAgent.from_config(cfg, max_inventory=10)
+    p = cj.cj_params_from_config(cfg)
+    table = np.asarray(agent.depth_table()[:-1], np.float32)
+    for n in (4100, 4099):
+        for kw in ({"noise": _channels(9, run_steps, n, cuda_device)}, {"seed": 12, "device": cuda_device}):
+            got = cj.cj_episode(p, table, q_cap=10, num_trajectories=n, **kw)
+            again = cj.cj_episode(p, table, q_cap=10, num_trajectories=n, **kw)
+            want = cj.cj_episode_plain(p, table, q_cap=10, num_trajectories=n, **kw)
+            k5 = det.table_rollout(det.cj_rollout_params(cfg, agent), *det.cj_depth_tables(agent),
+                                   num_trajectories=n, stats_only=True, **kw)
+            torch.cuda.synchronize()
+            _assert_bitwise(got, again)
+            _assert_terminal_close(got, want, n)
+            _assert_bitwise(got[:3], k5[:3])
+
+
+def test_a_table_too_wide_to_stage_is_read_from_global_memory_on_the_card(cuda_device):
+    """max_inventory 5,000: 10,001 entries per row and side, 80 KB a step,
+    more than the ring holds, so K5 and K8 read the table from global
+    memory while the draws are still staged; both against their plain
+    versions, K8's terminal state bitwise K5's.  The depths are random
+    (the closed form at this width is not needed to test the read)."""
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent
+    from mbt_gym_torch.ops import cj_episode as cj
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.utils.config import cj_env_config
+
+    q, steps, n = 5000, 50, 4100
+    cfg = cj_env_config(num_trajectories=16, n_steps=steps, max_inventory=5.0)
+    p = det.cj_rollout_params(cfg, CarteaJaimungalMmAgent.from_config(cfg))._replace(table_size=2 * q + 1)
+    rng = np.random.default_rng(13)
+    bid, ask = (rng.uniform(0.2, 2.0, size=(steps + 1, 2 * q + 1)).astype(np.float32) for _ in range(2))
+    assert det.kernel_geometry(p, n, True).table_path == "global"
+    assert cj.kernel_geometry(cj.cj_params_from_config(cfg), q, n).table_path == "global"
+    for kw in ({"noise": _channels(5, steps, n, cuda_device)}, {"seed": 14, "device": cuda_device}):
+        for stats in (True, False):
+            extra = {"stats_only": stats, "final_obs": not stats}
+            got = det.table_rollout(p, bid, ask, num_trajectories=n, **kw, **extra)
+            want = det.table_rollout_plain(p, bid, ask, num_trajectories=n, **kw, **extra)
+            torch.cuda.synchronize()
+            if stats:
+                _assert_terminal_close(got, want, n)
+                k5 = got
+            else:
+                _assert_streams_close(got, want, n)
+        table = np.stack([bid[:-1], ask[:-1]], axis=-1)
+        k8 = cj.cj_episode(cj.cj_params_from_config(cfg), table, q_cap=q, num_trajectories=n, **kw)
+        k8_plain = cj.cj_episode_plain(cj.cj_params_from_config(cfg), table, q_cap=q, num_trajectories=n, **kw)
+        torch.cuda.synchronize()
+        _assert_terminal_close(k8, k8_plain, n)
+        _assert_bitwise(k8[:3], k5[:3])
+
+
 def test_streams_memory_rule_counts_the_allocator_cache_as_free(cuda_device):
     """A tensor the process allocated and freed stays reserved by PyTorch's
     caching allocator, and cudaMemGetInfo counts it as taken; the streams
