@@ -180,7 +180,7 @@ def _kernels() -> ctypes.CDLL:
 def kernel_geometry(p: CjEpisodeParams, q_cap: int, num_trajectories: int):
     """The step pipeline's geometry (:func:`pipeline_geometry`) of one K8
     call: each step's (2Q+1, 2) table row is staged where it fits."""
-    return pipeline_geometry(num_trajectories, p.n_steps, "limit", "table", True, 2 * q_cap + 1)
+    return pipeline_geometry(num_trajectories, p.n_steps, "limit", "table", True, 2 * (2 * q_cap + 1), table_rows=1)
 
 
 def cj_episode(p: CjEpisodeParams, depth_table, seed: int = 0, q_cap: int = 100,

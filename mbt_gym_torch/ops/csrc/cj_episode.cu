@@ -64,33 +64,34 @@ cj_episode_kernel(const CjKernelParams p, int n, uint32_t seed, const float* __r
   const int row = 2 * (2 * p.q_cap + 1);  // floats of one step's (2Q+1, 2) row
   if (warp >= ring.consumer_warps()) {
     ring.produce<kNoise, 5>(warp - ring.consumer_warps(), p.n_steps, env0, n, seed, noise,
-                            [=](int i, int k) { return table + static_cast<size_t>(i) * row + k; });
+                            [=](int i, int) { return table + static_cast<size_t>(i) * row; });
     return;
   }
+  const int tfs = mbt::step_table_floats(p.pipe);
   const int e_local = threadIdx.x;
   const int env = env0 + e_local;
-  const bool staged = p.pipe.table_floats > 0;
   float cash = 0.0f, inv = 0.0f, price = p.initial_price, sumq2 = 0.0f;
   int slot = 0;
   uint32_t phase = 0;
   for (int c0 = 0; c0 < p.n_steps; c0 += p.pipe.chunk) {
     const int steps = min(p.pipe.chunk, p.n_steps - c0);
     ring.wait_full(slot, phase);
-    const mbt::SlotDraws draws{ring.draws(slot) + e_local, p.pipe.envs, 5};
+    const mbt::SlotDraws<kNoise, 5> draws{ring.draws(slot) + e_local, noise + env0, n, mbt::draw_stride(p.pipe)};
     const float* tbl = ring.table(slot);
     for (int j = 0; j < steps; ++j) {
       const int i = c0 + j;
-      const mbt::Draws d = draws.limit(j);
+      const mbt::Draws d = draws.limit(j, i);
       const float qf = fminf(fmaxf(inv + static_cast<float>(p.q_cap), 0.0f), 2.0f * p.q_cap);
       const int q = static_cast<int>(qf);
+      const float* src = table + static_cast<size_t>(i) * row;
       float bid, ask;
-      if (staged) {
-        bid = tbl[j * row + 2 * q];
-        ask = tbl[j * row + 2 * q + 1];
+      if (p.pipe.staged) {  // the row landed at its granule shift
+        const float* at = tbl + j * tfs + mbt::granule_shift(src) + 2 * q;
+        bid = at[0];
+        ask = at[1];
       } else {
-        const size_t at = static_cast<size_t>(i) * row + 2 * q;
-        bid = __ldg(table + at);
-        ask = __ldg(table + at + 1);
+        bid = __ldg(src + 2 * q);
+        ask = __ldg(src + 2 * q + 1);
       }
       const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
       const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
@@ -135,7 +136,8 @@ bool pipe_ok(const CjKernelParams& p) {
   const int groups = g.envs / 32;
   return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
          g.envs + 32 * g.producers <= mbt::kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 && g.channels == 5 &&
-         (g.table_floats == 0 || g.table_floats == 2 * (2 * p.q_cap + 1)) && g.smem_bytes == mbt::ring_bytes(g);
+         (!g.staged || (g.table_rows == 1 && g.row_floats == 2 * (2 * p.q_cap + 1))) &&
+         g.smem_bytes == mbt::ring_bytes(g);
 }
 
 }  // namespace

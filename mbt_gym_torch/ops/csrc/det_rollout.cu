@@ -145,18 +145,18 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   const int warp = threadIdx.x >> 5;
   const int env0 = blockIdx.x * p.pipe.envs;
   constexpr int kChannels = kDyn == kLimit ? 5 : 1;
-  const int cols = p.pipe.table_floats >> 1;  // bid row, then ask row
   if (warp >= ring.consumer_warps()) {
     const float* bid = b.bid;
     const float* ask = b.ask;
     const int t_off = p.t_off, width = p.table_width;
+    // a step's table rows: the bid row, then the ask row
     ring.produce<kNoise, kChannels>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, b.noise,
-                                    [=](int i, int k) {
-                                      const size_t row = static_cast<size_t>(t_off + i) * width;
-                                      return k < cols ? bid + row + k : ask + row + k - cols;
+                                    [=](int i, int r) {
+                                      return (r == 0 ? bid : ask) + static_cast<size_t>(t_off + i) * width;
                                     });
     return;
   }
+  const int tfs = mbt::step_table_floats(p.pipe), rs = mbt::row_stride(p.pipe);
   const int e_local = threadIdx.x;
   const int env = env0 + e_local;
   const bool active = env < n;
@@ -172,7 +172,8 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   for (int c0 = 0; c0 < p.run_steps; c0 += p.pipe.chunk) {
     const int steps = min(p.pipe.chunk, p.run_steps - c0);
     ring.wait_full(slot, phase);
-    const mbt::SlotDraws draws{ring.draws(slot) + e_local, p.pipe.envs, kChannels};
+    const mbt::SlotDraws<kNoise, kChannels> draws{ring.draws(slot) + e_local, b.noise + env0, n,
+                                                  mbt::draw_stride(p.pipe)};
     const float* tbl = ring.table(slot);
     for (int j = 0; j < steps; ++j) {
       const int i = c0 + j;
@@ -183,13 +184,14 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
       if constexpr (kPol == kTable) {
         const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
         const int q = static_cast<int>(qf);
-        if (cols > 0) {
-          raw0 = tbl[j * p.pipe.table_floats + q];
-          raw1 = tbl[j * p.pipe.table_floats + cols + q];
+        const float* bid_row = b.bid + static_cast<size_t>(row) * p.table_width;
+        const float* ask_row = b.ask + static_cast<size_t>(row) * p.table_width;
+        if (p.pipe.staged) {  // each row landed at its granule shift
+          raw0 = tbl[j * tfs + mbt::granule_shift(bid_row) + q];
+          raw1 = tbl[j * tfs + rs + mbt::granule_shift(ask_row) + q];
         } else {
-          const size_t at = static_cast<size_t>(row) * p.table_width + q;
-          raw0 = __ldg(b.bid + at);
-          raw1 = __ldg(b.ask + at);
+          raw0 = __ldg(bid_row + q);
+          raw1 = __ldg(ask_row + q);
         }
       } else if constexpr (kPol == kSchedule) {
         raw0 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim);
@@ -215,7 +217,7 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
       // ---- env step (TradingEnvironment.py:198-216 order)
       float new_cash, new_inv, normal;
       if constexpr (kDyn == kLimit) {
-        const mbt::Draws d = draws.limit(j);
+        const mbt::Draws d = draws.limit(j, i);
         const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
         const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
         const float fill_bid = (d.u_fb < expf(p.neg_k * exe0) ? 1.0f : 0.0f) * (inv < p.max_inventory ? 1.0f : 0.0f);
@@ -233,7 +235,7 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
         new_inv = inv + volume;
         new_cash = cash - volume * (price + impact);
         imp = new_imp;
-        normal = draws.at(j, 0);
+        normal = draws.at(j, i, 0);
       }
       new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
       new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
@@ -322,9 +324,8 @@ bool pipe_ok(const DetKernelParams& p) {
   const mbt::PipeGeometry& g = p.pipe;
   const int groups = g.envs / 32;
   const int channels = p.dynamics == kLimit ? 5 : 1;
-  const int cols = g.table_floats / 2;  // staged entries per row and side
-  const bool table_ok = g.table_floats == 0 || (p.policy == kTable && g.table_floats % 2 == 0 &&
-                                                2 * p.q_max + 1 <= cols && cols <= p.table_width);
+  const bool table_ok = !g.staged || (p.policy == kTable && g.table_rows == 2 && 2 * p.q_max + 1 <= g.row_floats &&
+                                      g.row_floats <= p.table_width);
   return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
          g.envs + 32 * g.producers <= mbt::kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 &&
          g.channels == channels && table_ok && g.smem_bytes == mbt::ring_bytes(g);

@@ -1,10 +1,11 @@
 // Warp-specialised step pipeline of the episode kernels: a CTA's producer
-// warps compute (or copy) the draws of the steps ahead, and stage the
-// depth-table rows those steps read, into a ring of shared-memory slots;
-// its consumer warps run the env step, one thread per env with the state in
-// registers, reading both from shared memory.  Used by K5 (det_rollout.cu)
-// and K8 (cj_episode.cu); written so that the other episode kernels can
-// take it up.
+// warps compute the draws of the steps ahead, and have the bulk-copy engine
+// stage the depth-table rows those steps read (and, in noise mode, the
+// injected draws), into a ring of shared-memory slots; its consumer warps
+// run the env step, one thread per env with the state in registers,
+// reading both from shared memory.  Used by K5 (det_rollout.cu) and K8
+// (cj_episode.cu); written so that the other episode kernels can take it
+// up.
 //
 // Why: the draws are counter-based, keyed by (seed, env) at counter (step,
 // draw) (draws.cuh), so they do not depend on the state; in noise mode they
@@ -16,15 +17,23 @@
 // per step is a shared-memory load, two expf and the bookkeeping.
 //
 // The ring: R slots, each holding the inputs of C consecutive steps:
-//   draws  [C][channels][E] floats (five channels on limit dynamics, the
+//   draws  [C][channels][E + 4] floats (five channels on limit dynamics, the
 //          midprice normal alone on speed dynamics), then
-//   table  [C][table_floats] floats (the rows the steps read; none when the
-//          table is read from global memory instead).
-// One full and one empty mbarrier per slot: every producer thread arrives on
-// `full` once it has written its part of a slot (and, in noise mode with a
-// 16-byte aligned source, the slot's bulk copies complete their bytes on
-// it); every consumer thread arrives on `empty` once it has read the slot.
-// No CTA-wide barrier runs inside the step loop.
+//   table  [C][table_rows][row_stride] floats (the rows the steps read; none
+//          when the table is read from global memory instead).
+// A run of floats in global memory (a table row; in noise mode, one step's
+// channel for the CTA's envs) is copied whole by one bulk copy of the
+// 16-byte granules that hold it, whatever its alignment: it lands `shift`
+// floats (its address mod 16, in floats) into its slot row, which is why a
+// row has 3 floats more room than it holds.  A granule that holds one valid
+// byte lies in a mapped page, so the copy cannot fault; the extra floats
+// are never read.
+//
+// One full and one empty mbarrier per slot.  Each producer warp arrives on
+// `full` once its lanes have written their draws (and one lane has
+// registered the slot's bulk-copy bytes, which complete on it too); each
+// consumer warp arrives on `empty` once its lanes have read the slot.  No
+// CTA-wide barrier runs inside the step loop.
 //
 // The layout is mirrored by mbt_gym_torch/ops/step_pipeline.py, which
 // chooses the geometry; ring_bytes() here must equal its smem_bytes.
@@ -39,24 +48,39 @@ namespace mbt {
 
 // Mirrors PipelineGeometry in mbt_gym_torch/ops/step_pipeline.py (ctypes).
 struct PipeGeometry {
-  int envs;          // E: envs per CTA, 32 per consumer warp
-  int producers;     // P: producer warps per CTA, a multiple of E / 32
-  int chunk;         // C: steps per slot
-  int slots;         // R: slots in the ring
-  int channels;      // draw channels per step: 5 (limit) or 1 (speed)
-  int table_floats;  // table floats staged per step; 0: read from global memory
-  int smem_bytes;    // the CTA's dynamic shared memory
+  int envs;        // E: envs per CTA, 32 per consumer warp
+  int producers;   // P: producer warps per CTA, a multiple of E / 32
+  int chunk;       // C: steps per slot
+  int slots;       // R: slots in the ring
+  int channels;    // draw channels per step: 5 (limit) or 1 (speed)
+  int table_rows;  // table rows a step reads (K5: bid and ask; K8: one)
+  int row_floats;  // floats of one row the consumers read
+  int staged;      // 1: the rows are staged in the ring; 0: read from global memory
+  int smem_bytes;  // the CTA's dynamic shared memory
 };
 
 constexpr int kMaxPipeThreads = 512;
 
+// Slot rows have room for a run that starts up to 3 floats into a granule.
+__host__ __device__ inline int padded(int floats) { return (floats + 3 + 3) & ~3; }
+__host__ __device__ inline int draw_stride(const PipeGeometry& g) { return g.envs + 4; }
+__host__ __device__ inline int row_stride(const PipeGeometry& g) { return padded(g.row_floats); }
+__host__ __device__ inline int step_table_floats(const PipeGeometry& g) {
+  return g.staged ? g.table_rows * row_stride(g) : 0;
+}
+
 __host__ __device__ inline int ring_slot_floats(const PipeGeometry& g) {
-  const int floats = g.chunk * (g.channels * g.envs + g.table_floats);
-  return (floats + 3) & ~3;  // slots start 16-byte aligned
+  return g.chunk * (g.channels * draw_stride(g) + step_table_floats(g));
 }
 
 __host__ __device__ inline int ring_bytes(const PipeGeometry& g) {
   return 16 * g.slots + 4 * g.slots * ring_slot_floats(g);
+}
+
+// Where a run of floats starting at `p` lands in its slot row: its offset
+// in floats from the 16-byte granule that holds it.
+__device__ __forceinline__ int granule_shift(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -72,8 +96,7 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
 // A wait this long (~17 s at the H100's clock) is a barrier that will never
@@ -109,17 +132,13 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
                : "memory");
 }
 
-// A 4-byte global -> shared copy by the async-copy unit (no register
-// round trip, no 16-byte alignment needed), and an arrival on `bar` that
-// fires once every cp.async this thread has issued so far has landed (the
-// pending count is raised by one first, so it adds to, and does not
-// replace, the thread's own arrival).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");
+// The 16-byte granules holding `floats` floats from `src`: their first
+// address (in `start`) and their bytes.
+__device__ __forceinline__ uint32_t granule_bytes(const float* src, int floats, const float** start) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t lo = a & ~static_cast<uintptr_t>(15);
+  *start = reinterpret_cast<const float*>(lo);
+  return static_cast<uint32_t>(((a + 4 * static_cast<uintptr_t>(floats) + 15) & ~static_cast<uintptr_t>(15)) - lo);
 }
 
 class StepRing {
@@ -134,8 +153,8 @@ class StepRing {
         slot_floats_(ring_slot_floats(g)) {
     if (threadIdx.x == 0) {
       for (int s = 0; s < g.slots; ++s) {
-        mbar_init(full_ + s, 32 * g.producers);
-        mbar_init(empty_ + s, g.envs);
+        mbar_init(full_ + s, g.producers);
+        mbar_init(empty_ + s, g.envs >> 5);
       }
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
@@ -144,85 +163,99 @@ class StepRing {
 
   __device__ int consumer_warps() const { return g_.envs >> 5; }
   __device__ float* draws(int slot) const { return base_ + slot * slot_floats_; }
-  __device__ float* table(int slot) const { return draws(slot) + g_.chunk * g_.channels * g_.envs; }
+  __device__ float* table(int slot) const { return draws(slot) + g_.chunk * g_.channels * draw_stride(g_); }
 
-  // Consumer side: wait for a slot's inputs, then hand the slot back.
+  // Consumer side: wait for a slot's inputs; hand the slot back once every
+  // lane of the warp has read it.
   __device__ void wait_full(int slot, uint32_t phase) const { mbar_wait(full_ + slot, phase); }
-  __device__ void release(int slot) const { mbar_arrive(empty_ + slot); }
+  __device__ void release(int slot) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty_ + slot);
+  }
 
   // Producer side, run by the CTA's producer warps (warp index `pw` among
   // them) for the CTA's envs env0 .. env0 + E - 1 over `run_steps` steps.
-  // Producer warp pw draws for the 32 envs of group pw % (E / 32) at the
-  // steps j = pw / (E / 32), + P / (E / 32), ... of each slot.  kChannels:
-  // 5 (draws.cuh's philox_draws or the five noise channels) or 1 (the
-  // midprice normal).  `table_entry(step, k)` points at the k-th staged
-  // table float of a step, 0 <= k < table_floats.  Loads from global memory
-  // (the table rows, unaligned noise) go through cp.async, so a producer
-  // issues all of a slot's copies without waiting on any of them.
-  template <bool kNoise, int kChannels, class TableEntry>
+  // Native mode: producer warp pw computes the draws (draws.cuh) of the 32
+  // envs of group pw % (E / 32) at the steps j = pw / (E / 32),
+  // + P / (E / 32), ... of each slot; kChannels 5 (philox_draws) or 1 (the
+  // midprice normal).  Noise mode: each step's channel runs for the CTA's
+  // envs are bulk copies.  `table_row(step, r)` points at row r of the
+  // table rows a step reads, each `row_floats` long.  Producer warp 0
+  // registers and issues the slot's bulk copies.
+  template <bool kNoise, int kChannels, class TableRow>
   __device__ void produce(int pw, int run_steps, int env0, int n, uint32_t seed, const float* __restrict__ noise,
-                          TableEntry table_entry) const {
+                          TableRow table_row) const {
     const int groups = g_.envs >> 5;
     const int lane = threadIdx.x & 31;
     const int e_local = (pw % groups) * 32 + lane;
     const int env = env0 + e_local;
     const int first = pw / groups, stride = g_.producers / groups;
-    const int ptid = pw * 32 + lane, pthreads = g_.producers * 32;
-    // Noise rows are (step, channel) runs of the CTA's envs: copied whole
-    // by the bulk-copy engine where they are 16-byte aligned.
     const int valid = min(g_.envs, n - env0);
-    const bool bulk = kNoise && (n & 3) == 0 && (reinterpret_cast<uintptr_t>(noise) & 15) == 0;
+    const int ds = draw_stride(g_), rs = row_stride(g_), tfs = step_table_floats(g_);
+    const int draw_runs = kNoise ? kChannels : 0;  // bulk copies per step
+    const int per_step = draw_runs + (g_.staged ? g_.table_rows : 0);
     int slot = 0;
     uint32_t phase = 0;
     for (int c0 = 0; c0 < run_steps; c0 += g_.chunk) {
       const int steps = min(g_.chunk, run_steps - c0);
       mbar_wait(empty_ + slot, phase ^ 1u);
       float* d = draws(slot);
-      if (bulk) {
-        if (ptid == 0) {
-          const uint32_t row_bytes = 4u * static_cast<uint32_t>(valid);
-          mbar_expect_tx(full_ + slot, row_bytes * steps * kChannels);
-          for (int j = 0; j < steps; ++j) {
-            for (int c = 0; c < kChannels; ++c) {
-              const int channel = kChannels == 1 ? 4 : c;
-              const float* src = noise + (static_cast<size_t>(c0 + j) * 5 + channel) * n + env0;
-              bulk_copy(d + (j * kChannels + c) * g_.envs, src, row_bytes, full_ + slot);
-            }
+      float* t = table(slot);
+      const int runs = steps * per_step;
+      if (pw == 0 && runs > 0) {
+        // run k: step k / per_step, then its draw channels, then its table rows
+        auto run = [&](int k, float** dst, int* floats) {
+          const int j = k / per_step, r = k - j * per_step;
+          if (r < draw_runs) {
+            const int channel = kChannels == 1 ? 4 : r;
+            *dst = d + (j * kChannels + r) * ds;
+            *floats = valid;
+            return noise + (static_cast<size_t>(c0 + j) * 5 + channel) * n + env0;
           }
+          *dst = t + j * tfs + (r - draw_runs) * rs;
+          *floats = g_.row_floats;
+          return table_row(c0 + j, r - draw_runs);
+        };
+        if (lane == 0) {
+          uint32_t total = 0;
+          for (int k = 0; k < runs; ++k) {
+            float* dst;
+            int floats;
+            const float* start;
+            const float* src = run(k, &dst, &floats);
+            total += granule_bytes(src, floats, &start);
+          }
+          mbar_expect_tx(full_ + slot, total);
         }
-      } else {
+        __syncwarp();
+        for (int k = lane; k < runs; k += 32) {
+          float* dst;
+          int floats;
+          const float* start;
+          const float* src = run(k, &dst, &floats);
+          const uint32_t bytes = granule_bytes(src, floats, &start);
+          bulk_copy(dst, start, bytes, full_ + slot);
+        }
+      }
+      if constexpr (!kNoise) {
         for (int j = first; j < steps; j += stride) {
           if (env >= n) break;
-          float* out = d + j * kChannels * g_.envs + e_local;
+          float* out = d + j * kChannels * ds + e_local;
           const int i = c0 + j;
-          if constexpr (kNoise) {
-            const float* src = noise + static_cast<size_t>(i) * 5 * n + env;
-            if constexpr (kChannels == 5) {
-#pragma unroll
-              for (int c = 0; c < 5; ++c) cp_async4(out + c * g_.envs, src + static_cast<size_t>(c) * n);
-            } else {
-              cp_async4(out, src + 4 * static_cast<size_t>(n));
-            }
-          } else if constexpr (kChannels == 5) {
+          if constexpr (kChannels == 5) {
             const Draws v = philox_draws(seed, static_cast<uint32_t>(env), static_cast<uint32_t>(i));
             out[0] = v.u_ab;
-            out[g_.envs] = v.u_aa;
-            out[2 * g_.envs] = v.u_fb;
-            out[3 * g_.envs] = v.u_fa;
-            out[4 * g_.envs] = v.normal;
+            out[ds] = v.u_aa;
+            out[2 * ds] = v.u_fb;
+            out[3 * ds] = v.u_fa;
+            out[4 * ds] = v.normal;
           } else {
             out[0] = philox_normal(seed, static_cast<uint32_t>(env), static_cast<uint32_t>(i));
           }
         }
       }
-      if (g_.table_floats > 0) {
-        float* t = table(slot);
-        for (int j = 0; j < steps; ++j) {
-          for (int k = ptid; k < g_.table_floats; k += pthreads) cp_async4(t + j * g_.table_floats + k, table_entry(c0 + j, k));
-        }
-      }
-      mbar_arrive_on_copies(full_ + slot);
-      mbar_arrive(full_ + slot);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full_ + slot);
       if (++slot == g_.slots) {
         slot = 0;
         phase ^= 1u;
@@ -238,19 +271,30 @@ class StepRing {
   int slot_floats_;
 };
 
-// A consumer thread's view of one slot's draws: step j, channel c of its env.
+// A consumer thread's view of one slot's draws: slot step j (episode step
+// i), channel c of its env.  In noise mode each (step, channel) run landed
+// shifted by its granule offset (see above); native draws are unshifted.
+template <bool kNoise, int kChannels>
 struct SlotDraws {
-  const float* base;  // draws(slot) + the thread's env within the CTA
-  int envs;
-  int channels;
-  __device__ float at(int j, int c) const { return base[(j * channels + c) * envs]; }
-  __device__ Draws limit(int j) const {
+  const float* slot;   // draws(slot) + the thread's env within the CTA
+  const float* noise;  // noise + env0 (noise mode)
+  int n;
+  int stride;          // draw_stride
+  __device__ float at(int j, int i, int c) const {
+    int shift = 0;
+    if constexpr (kNoise) {
+      const int channel = kChannels == 1 ? 4 : c;
+      shift = granule_shift(noise + (static_cast<size_t>(i) * 5 + channel) * n);
+    }
+    return slot[(j * kChannels + c) * stride + shift];
+  }
+  __device__ Draws limit(int j, int i) const {
     Draws d;
-    d.u_ab = at(j, 0);
-    d.u_aa = at(j, 1);
-    d.u_fb = at(j, 2);
-    d.u_fa = at(j, 3);
-    d.normal = at(j, 4);
+    d.u_ab = at(j, i, 0);
+    d.u_aa = at(j, i, 1);
+    d.u_fb = at(j, i, 2);
+    d.u_fa = at(j, i, 3);
+    d.normal = at(j, i, 4);
     return d;
   }
 };

@@ -608,8 +608,8 @@ def kernel_geometry(p: DetRolloutParams, num_trajectories: int, stats_only: bool
     """The step pipeline's geometry (:func:`pipeline_geometry`) of one K5
     call: the table kind stages the ``table_size`` entries of each step's
     bid and ask rows where they fit."""
-    width = p.table_size if p.policy_kind == "table" else 0
-    return pipeline_geometry(num_trajectories, p.run_steps, p.dynamics_kind, p.policy_kind, stats_only, width)
+    return pipeline_geometry(num_trajectories, p.run_steps, p.dynamics_kind, p.policy_kind, stats_only,
+                             p.table_size, table_rows=2)
 
 
 def det_rollout(p: DetRolloutParams, tables=(), seed: int = 0, num_trajectories: int = 16384,

@@ -6,9 +6,9 @@ A CTA owns ``envs`` envs: ``envs / 32`` consumer warps run the env step,
 one thread per env, and ``producers`` warps fill a ring of ``slots``
 shared-memory slots, each holding the draws of ``chunk`` consecutive steps
 (``channels`` floats per env and step) and, where it fits, the depth-table
-rows those steps read (``table_floats`` per step).  :func:`pipeline_geometry`
-chooses all of it from the call's shape; it is pure and runs on the host,
-so the CPU tests check its arithmetic.
+rows those steps read (``table_rows`` rows of ``row_floats`` per step).
+:func:`pipeline_geometry` chooses all of it from the call's shape; it is
+pure and runs on the host, so the CPU tests check its arithmetic.
 """
 from __future__ import annotations
 
@@ -34,15 +34,23 @@ class PipelineGeometry(ctypes.Structure):
     """``struct mbt::PipeGeometry`` in ``csrc/step_pipeline.cuh``."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
-        "envs", "producers", "chunk", "slots", "channels", "table_floats", "smem_bytes",
+        "envs", "producers", "chunk", "slots", "channels", "table_rows", "row_floats", "staged", "smem_bytes",
     )]
 
 
-def ring_bytes(envs: int, chunk: int, slots: int, channels: int, table_floats: int) -> int:
-    """Dynamic shared memory of a CTA: ``slots`` mbarrier pairs, then the
-    slots, each rounded up to 16 bytes (``mbt::ring_bytes``)."""
-    slot_floats = (chunk * (channels * envs + table_floats) + 3) & ~3
-    return 16 * slots + 4 * slots * slot_floats
+def padded(floats: int) -> int:
+    """Floats of a slot row that holds a run of ``floats`` landed up to 3
+    floats into its first 16-byte granule (``mbt::padded``)."""
+    return (floats + 3 + 3) & ~3
+
+
+def ring_bytes(envs: int, chunk: int, slots: int, channels: int, table_rows: int = 0, row_floats: int = 0) -> int:
+    """Dynamic shared memory of a CTA (``mbt::ring_bytes``): ``slots``
+    mbarrier pairs, then the slots, each ``chunk`` steps of ``channels``
+    draw rows of ``envs + 4`` floats and ``table_rows`` padded table rows
+    (none when the table is not staged)."""
+    step_floats = channels * (envs + 4) + table_rows * padded(row_floats)
+    return 16 * slots + 4 * slots * chunk * step_floats
 
 
 class Geometry(NamedTuple):
@@ -51,17 +59,18 @@ class Geometry(NamedTuple):
     chunk: int
     slots: int
     channels: int
-    table_floats: int  # staged per step; 0: the table stays in global memory
+    table_rows: int  # rows a step reads: K5 its bid and ask rows, K8 one (0: no table)
+    row_floats: int  # floats of one row
+    staged: int  # 1: the rows are staged in the ring; 0: read from global memory
     smem_bytes: int
-    table_width: int = 0  # the table's entries per row and side (0: no table)
 
     @property
     def table_path(self) -> str:
         """Where the consumers read the depth table: "staged" in the ring,
         "global" memory, or "none" for a policy without a table."""
-        if not self.table_width:
+        if not self.table_rows:
             return "none"
-        return "staged" if self.table_floats else "global"
+        return "staged" if self.staged else "global"
 
     @property
     def threads(self) -> int:
@@ -70,18 +79,17 @@ class Geometry(NamedTuple):
     def with_shape(self, envs: int, producers: int, chunk: int, slots: int) -> "Geometry":
         """The same call at another shape (for tuning), the table staged if
         the ring still fits a CTA's shared memory."""
-        table_floats = 2 * self.table_width
-        if ring_bytes(envs, chunk, slots, self.channels, table_floats) > SMEM_PER_CTA:
-            table_floats = 0
-        return self._replace(envs=envs, producers=producers, chunk=chunk, slots=slots, table_floats=table_floats,
-                             smem_bytes=ring_bytes(envs, chunk, slots, self.channels, table_floats))
+        staged = int(bool(self.table_rows)
+                     and ring_bytes(envs, chunk, slots, self.channels, self.table_rows, self.row_floats) <= SMEM_PER_CTA)
+        smem = ring_bytes(envs, chunk, slots, self.channels, self.table_rows * staged, self.row_floats)
+        return self._replace(envs=envs, producers=producers, chunk=chunk, slots=slots, staged=staged, smem_bytes=smem)
 
     def ctypes(self) -> PipelineGeometry:
-        return PipelineGeometry(*self[:7])
+        return PipelineGeometry(*self)
 
 
 def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_only: bool,
-                      table_width: int = 0) -> Geometry:
+                      row_floats: int = 0, table_rows: int = 2) -> Geometry:
     """The pipeline geometry of one K5 or K8 call of ``n`` envs over
     ``run_steps`` steps.
 
@@ -89,15 +97,17 @@ def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_
       a CTA (16,384 envs: 64 per CTA, 256 CTAs; 8,192: 32).
     - Producer warps: ``PRODUCERS_PER_CONSUMER[mode]`` per consumer warp.
     - Channels: five on limit dynamics, the midprice normal alone on speed.
-    - The table kind stages both sides' ``table_width`` entries of each
-      step's row (``2 * table_width`` floats: K5's bid and ask rows, K8's
-      (2Q+1, 2) row).  ``chunk`` steps per slot, at most ``MAX_CHUNK``, are
-      halved until the ring fits ``SMEM_BUDGET``; where one step's row does
-      not fit even so, the table stays in global memory.
+    - The table kind reads ``table_rows`` rows of ``row_floats`` floats a
+      step (K5: its bid and ask rows of the table's width; K8: one
+      (2Q+1, 2) row).  They are staged in the ring, ``chunk`` steps per
+      slot, at most ``MAX_CHUNK``, halved until the ring fits
+      ``SMEM_BUDGET``; where one step's rows do not fit even so, the table
+      stays in global memory.
     """
     assert n >= 1 and run_steps >= 0
     assert dynamics in ("limit", "speed") and policy in ("table", "fixed", "schedule")
-    width = table_width if policy == "table" else 0
+    rows = table_rows if policy == "table" else 0
+    width = row_floats if rows else 0
     consumers = MAX_CONSUMER_WARPS
     while consumers > 1 and -(-n // (32 * consumers)) < H100_SMS:
         consumers //= 2
@@ -105,11 +115,10 @@ def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_
     producers = PRODUCERS_PER_CONSUMER["stats" if stats_only else "streams"] * consumers
     channels = 5 if dynamics == "limit" else 1
     chunk = max(1, min(MAX_CHUNK, run_steps))
-    table_floats = 2 * width
-    while chunk > 1 and ring_bytes(envs, chunk, SLOTS, channels, table_floats) > SMEM_BUDGET:
+    while chunk > 1 and ring_bytes(envs, chunk, SLOTS, channels, rows, width) > SMEM_BUDGET:
         chunk //= 2
-    if ring_bytes(envs, chunk, SLOTS, channels, table_floats) > SMEM_BUDGET:
-        table_floats = 0
+    staged = int(bool(rows) and ring_bytes(envs, chunk, SLOTS, channels, rows, width) <= SMEM_BUDGET)
+    if rows and not staged:
         chunk = max(1, min(MAX_CHUNK, run_steps))
-    return Geometry(envs, producers, chunk, SLOTS, channels, table_floats,
-                    ring_bytes(envs, chunk, SLOTS, channels, table_floats), width)
+    return Geometry(envs, producers, chunk, SLOTS, channels, rows, width, staged,
+                    ring_bytes(envs, chunk, SLOTS, channels, rows * staged, width))

@@ -135,10 +135,10 @@ def test_k8_geometry_stages_the_table_row():
     cfg = cj_env_config(num_trajectories=16_384, max_inventory=100.0)
     p = cj.cj_params_from_config(cfg)
     g = cj.kernel_geometry(p, 100, 16_384)
-    assert g.table_path == "staged" and g.table_floats == 2 * 201 and g.channels == 5
+    assert g.table_path == "staged" and (g.table_rows, g.row_floats) == (1, 2 * 201) and g.channels == 5
     assert g.smem_bytes <= sp.SMEM_PER_CTA
     g = cj.kernel_geometry(p, 5000, 16_384)
     assert g.table_path == "global" and g.smem_bytes <= sp.SMEM_PER_CTA
     g = cj.kernel_geometry(p._replace(n_steps=1), 100, 4_100)
     assert g.chunk == 1 and g.table_path == "staged"
-    assert cj.CjKernelParams.pipe.offset == ctypes.sizeof(cj.CjKernelParams) - 7 * 4
+    assert cj.CjKernelParams.pipe.offset == ctypes.sizeof(cj.CjKernelParams) - 9 * 4

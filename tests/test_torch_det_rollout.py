@@ -534,12 +534,12 @@ def test_pipeline_geometry_fits_a_cta(width):
     and the producers divide among them; at least one step per slot."""
     for n, run_steps, stats_only in itertools.product((1, 4100, 16_384, 131_072), (1, 7, 300, 1000), (True, False)):
         g = sp.pipeline_geometry(n, run_steps, "limit", "table", stats_only, width)
-        assert g.smem_bytes == sp.ring_bytes(g.envs, g.chunk, g.slots, g.channels, g.table_floats)
+        assert g.smem_bytes == sp.ring_bytes(g.envs, g.chunk, g.slots, g.channels, g.table_rows * g.staged, width)
         assert g.smem_bytes <= sp.SMEM_BUDGET <= sp.SMEM_PER_CTA == 232_448
         assert g.envs in (32, 64, 128) and g.threads <= sp.MAX_THREADS
         assert g.producers % (g.envs // 32) == 0 and g.producers >= g.envs // 32
         assert 1 <= g.chunk <= max(1, run_steps) and g.slots >= 1 and g.channels == 5
-        assert g.table_floats in (0, 2 * width)
+        assert (g.table_rows, g.row_floats) == (2, width)
 
 
 def test_pipeline_geometry_stages_the_cjp_table_and_not_a_huge_one():
@@ -552,13 +552,16 @@ def test_pipeline_geometry_stages_the_cjp_table_and_not_a_huge_one():
     for n in (16_384, 131_072):
         for stats_only in (True, False):
             g = det.kernel_geometry(p, n, stats_only)
-            assert g.table_path == "staged" and g.table_floats == 402, g
+            assert g.table_path == "staged" and (g.table_rows, g.row_floats) == (2, 201), g
+            # a row lands up to 3 floats into its slot row: 201 + 3 rounded up to 4
+            assert sp.padded(201) == 204
     wide = p._replace(table_size=2 * 5000 + 1)
     g = det.kernel_geometry(wide, 16_384, True)
-    assert g.table_path == "global" and g.table_floats == 0 and g.channels == 5
+    assert g.table_path == "global" and g.channels == 5
+    assert g.smem_bytes == sp.ring_bytes(g.envs, g.chunk, g.slots, 5)  # the draws alone
     oe = oe_env_config(num_trajectories=8_192)
     g = det.kernel_geometry(det.schedule_rollout_params(oe), 8_192, False)
-    assert g.table_path == "none" and g.channels == 1 and g.table_floats == 0
+    assert g.table_path == "none" and g.channels == 1 and g.table_rows == 0
     # every SM gets a CTA: 16,384 envs in 64-env CTAs, 8,192 in 32-env ones
     assert det.kernel_geometry(p, 16_384, True).envs == 64
     assert g.envs == 32
@@ -568,18 +571,18 @@ def test_pipeline_geometry_of_a_one_step_episode():
     g = sp.pipeline_geometry(4_100, 1, "limit", "table", True, 201)
     assert g.chunk == 1 and g.table_path == "staged"
     g = sp.pipeline_geometry(5, 0, "speed", "fixed", False, 0)
-    assert g.chunk == 1 and g.smem_bytes == sp.ring_bytes(32, 1, g.slots, 1, 0)
+    assert g.chunk == 1 and g.smem_bytes == sp.ring_bytes(32, 1, g.slots, 1)
 
 
 def test_kernel_params_carry_the_geometry():
-    """The ctypes mirrors end with the geometry struct: seven ints after the
+    """The ctypes mirrors end with the geometry struct: nine ints after the
     step constants, as struct DetKernelParams and struct CjKernelParams
     declare it."""
     import ctypes
 
-    assert ctypes.sizeof(sp.PipelineGeometry) == 7 * 4
-    assert det.DetKernelParams.pipe.offset == ctypes.sizeof(det.DetKernelParams) - 7 * 4
+    assert ctypes.sizeof(sp.PipelineGeometry) == 9 * 4
+    assert det.DetKernelParams.pipe.offset == ctypes.sizeof(det.DetKernelParams) - 9 * 4
     g = sp.pipeline_geometry(16_384, 1000, "limit", "table", True, 201)
     c = g.ctypes()
-    assert (c.envs, c.producers, c.chunk, c.slots, c.channels, c.table_floats, c.smem_bytes) == tuple(g[:7])
-    assert g.with_shape(128, 12, 8, 3).smem_bytes == sp.ring_bytes(128, 8, 3, 5, 402)
+    assert tuple(getattr(c, name) for name, _ in c._fields_) == tuple(g)
+    assert g.with_shape(128, 12, 8, 3).smem_bytes == sp.ring_bytes(128, 8, 3, 5, 2, 201)
