@@ -64,10 +64,9 @@ cj_episode_kernel(const CjKernelParams p, int n, uint32_t seed, const float* __r
   const int row = 2 * (2 * p.q_cap + 1);  // floats of one step's (2Q+1, 2) row
   if (warp >= ring.consumer_warps()) {
     ring.produce<kNoise, 5>(warp - ring.consumer_warps(), p.n_steps, env0, n, seed, noise,
-                            [=](int i, int) { return table + static_cast<size_t>(i) * row; });
+                            [=](int, int i) { return table + static_cast<size_t>(i) * row; });
     return;
   }
-  const int tfs = mbt::step_table_floats(p.pipe);
   const int e_local = threadIdx.x;
   const int env = env0 + e_local;
   float cash = 0.0f, inv = 0.0f, price = p.initial_price, sumq2 = 0.0f;
@@ -77,21 +76,21 @@ cj_episode_kernel(const CjKernelParams p, int n, uint32_t seed, const float* __r
     const int steps = min(p.pipe.chunk, p.n_steps - c0);
     ring.wait_full(slot, phase);
     const mbt::SlotDraws<kNoise, 5> draws{ring.draws(slot) + e_local, noise + env0, n, mbt::draw_stride(p.pipe)};
-    const float* tbl = ring.table(slot);
+    // the slot's rows, landed at their granule shift
+    const float* rows = ring.table(slot) + mbt::granule_shift(table + static_cast<size_t>(c0) * row);
     for (int j = 0; j < steps; ++j) {
       const int i = c0 + j;
       const mbt::Draws d = draws.limit(j, i);
       const float qf = fminf(fmaxf(inv + static_cast<float>(p.q_cap), 0.0f), 2.0f * p.q_cap);
       const int q = static_cast<int>(qf);
-      const float* src = table + static_cast<size_t>(i) * row;
       float bid, ask;
-      if (p.pipe.staged) {  // the row landed at its granule shift
-        const float* at = tbl + j * tfs + mbt::granule_shift(src) + 2 * q;
-        bid = at[0];
-        ask = at[1];
+      if (p.pipe.staged) {
+        bid = rows[j * row + 2 * q];
+        ask = rows[j * row + 2 * q + 1];
       } else {
-        bid = __ldg(src + 2 * q);
-        ask = __ldg(src + 2 * q + 1);
+        const size_t at = static_cast<size_t>(i) * row + 2 * q;
+        bid = __ldg(table + at);
+        ask = __ldg(table + at + 1);
       }
       const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
       const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;

@@ -149,14 +149,14 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
     const float* bid = b.bid;
     const float* ask = b.ask;
     const int t_off = p.t_off, width = p.table_width;
-    // a step's table rows: the bid row, then the ask row
+    // a step's rows of the two tables: bid (0) and ask (1)
     ring.produce<kNoise, kChannels>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, b.noise,
-                                    [=](int i, int r) {
+                                    [=](int r, int i) {
                                       return (r == 0 ? bid : ask) + static_cast<size_t>(t_off + i) * width;
                                     });
     return;
   }
-  const int tfs = mbt::step_table_floats(p.pipe), rs = mbt::row_stride(p.pipe);
+  const int ts = mbt::table_stride(p.pipe);
   const int e_local = threadIdx.x;
   const int env = env0 + e_local;
   const bool active = env < n;
@@ -174,7 +174,10 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
     ring.wait_full(slot, phase);
     const mbt::SlotDraws<kNoise, kChannels> draws{ring.draws(slot) + e_local, b.noise + env0, n,
                                                   mbt::draw_stride(p.pipe)};
-    const float* tbl = ring.table(slot);
+    // the slot's bid and ask rows, each run landed at its granule shift
+    const size_t first_row = static_cast<size_t>(p.t_off + c0) * p.table_width;
+    const float* bid_rows = ring.table(slot) + mbt::granule_shift(b.bid + first_row);
+    const float* ask_rows = ring.table(slot) + ts + mbt::granule_shift(b.ask + first_row);
     for (int j = 0; j < steps; ++j) {
       const int i = c0 + j;
       const float t = p.start_time + static_cast<float>(i) * p.dt;
@@ -184,14 +187,13 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
       if constexpr (kPol == kTable) {
         const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
         const int q = static_cast<int>(qf);
-        const float* bid_row = b.bid + static_cast<size_t>(row) * p.table_width;
-        const float* ask_row = b.ask + static_cast<size_t>(row) * p.table_width;
-        if (p.pipe.staged) {  // each row landed at its granule shift
-          raw0 = tbl[j * tfs + mbt::granule_shift(bid_row) + q];
-          raw1 = tbl[j * tfs + rs + mbt::granule_shift(ask_row) + q];
+        if (p.pipe.staged) {
+          raw0 = bid_rows[j * p.table_width + q];
+          raw1 = ask_rows[j * p.table_width + q];
         } else {
-          raw0 = __ldg(bid_row + q);
-          raw1 = __ldg(ask_row + q);
+          const size_t at = static_cast<size_t>(row) * p.table_width + q;
+          raw0 = __ldg(b.bid + at);
+          raw1 = __ldg(b.ask + at);
         }
       } else if constexpr (kPol == kSchedule) {
         raw0 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim);
@@ -324,8 +326,7 @@ bool pipe_ok(const DetKernelParams& p) {
   const mbt::PipeGeometry& g = p.pipe;
   const int groups = g.envs / 32;
   const int channels = p.dynamics == kLimit ? 5 : 1;
-  const bool table_ok = !g.staged || (p.policy == kTable && g.table_rows == 2 && 2 * p.q_max + 1 <= g.row_floats &&
-                                      g.row_floats <= p.table_width);
+  const bool table_ok = !g.staged || (p.policy == kTable && g.table_rows == 2 && g.row_floats == p.table_width);
   return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
          g.envs + 32 * g.producers <= mbt::kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 &&
          g.channels == channels && table_ok && g.smem_bytes == mbt::ring_bytes(g);

@@ -19,15 +19,17 @@
 // The ring: R slots, each holding the inputs of C consecutive steps:
 //   draws  [C][channels][E + 4] floats (five channels on limit dynamics, the
 //          midprice normal alone on speed dynamics), then
-//   table  [C][table_rows][row_stride] floats (the rows the steps read; none
-//          when the table is read from global memory instead).
-// A run of floats in global memory (a table row; in noise mode, one step's
-// channel for the CTA's envs) is copied whole by one bulk copy of the
-// 16-byte granules that hold it, whatever its alignment: it lands `shift`
-// floats (its address mod 16, in floats) into its slot row, which is why a
-// row has 3 floats more room than it holds.  A granule that holds one valid
-// byte lies in a mapped page, so the copy cannot fault; the extra floats
-// are never read.
+//   table  [table_rows][padded(C * row_floats)] floats: for each table, the
+//          rows of the slot's C steps, which lie one after the other in
+//          global memory (none when the table is read from global memory
+//          instead).
+// A run of floats in global memory (a table's rows for a slot; in noise
+// mode, one step's channel for the CTA's envs) is copied whole by one bulk
+// copy of the 16-byte granules that hold it, whatever its alignment: it
+// lands `shift` floats (its address mod 16, in floats) into its slot row,
+// which is why a row has 3 floats more room than it holds.  A granule that
+// holds one valid byte lies in a mapped page, so the copy cannot fault; the
+// extra floats are never read.
 //
 // One full and one empty mbarrier per slot.  Each producer warp arrives on
 // `full` once its lanes have written their draws (and one lane has
@@ -53,8 +55,8 @@ struct PipeGeometry {
   int chunk;       // C: steps per slot
   int slots;       // R: slots in the ring
   int channels;    // draw channels per step: 5 (limit) or 1 (speed)
-  int table_rows;  // table rows a step reads (K5: bid and ask; K8: one)
-  int row_floats;  // floats of one row the consumers read
+  int table_rows;  // tables a step reads a row of (K5: bid and ask; K8: one)
+  int row_floats;  // floats from one step's row to the next in such a table
   int staged;      // 1: the rows are staged in the ring; 0: read from global memory
   int smem_bytes;  // the CTA's dynamic shared memory
 };
@@ -64,13 +66,10 @@ constexpr int kMaxPipeThreads = 512;
 // Slot rows have room for a run that starts up to 3 floats into a granule.
 __host__ __device__ inline int padded(int floats) { return (floats + 3 + 3) & ~3; }
 __host__ __device__ inline int draw_stride(const PipeGeometry& g) { return g.envs + 4; }
-__host__ __device__ inline int row_stride(const PipeGeometry& g) { return padded(g.row_floats); }
-__host__ __device__ inline int step_table_floats(const PipeGeometry& g) {
-  return g.staged ? g.table_rows * row_stride(g) : 0;
-}
+__host__ __device__ inline int table_stride(const PipeGeometry& g) { return padded(g.chunk * g.row_floats); }
 
 __host__ __device__ inline int ring_slot_floats(const PipeGeometry& g) {
-  return g.chunk * (g.channels * draw_stride(g) + step_table_floats(g));
+  return g.chunk * g.channels * draw_stride(g) + (g.staged ? g.table_rows * table_stride(g) : 0);
 }
 
 __host__ __device__ inline int ring_bytes(const PipeGeometry& g) {
@@ -179,9 +178,10 @@ class StepRing {
   // envs of group pw % (E / 32) at the steps j = pw / (E / 32),
   // + P / (E / 32), ... of each slot; kChannels 5 (philox_draws) or 1 (the
   // midprice normal).  Noise mode: each step's channel runs for the CTA's
-  // envs are bulk copies.  `table_row(step, r)` points at row r of the
-  // table rows a step reads, each `row_floats` long.  Producer warp 0
-  // registers and issues the slot's bulk copies.
+  // envs are bulk copies.  `table_row(r, step)` points at a step's row of
+  // table r; the rows of consecutive steps follow each other, row_floats
+  // apart, so a slot's rows of one table are one bulk copy.  Producer warp
+  // 0 registers and issues the slot's bulk copies.
   template <bool kNoise, int kChannels, class TableRow>
   __device__ void produce(int pw, int run_steps, int env0, int n, uint32_t seed, const float* __restrict__ noise,
                           TableRow table_row) const {
@@ -191,9 +191,9 @@ class StepRing {
     const int env = env0 + e_local;
     const int first = pw / groups, stride = g_.producers / groups;
     const int valid = min(g_.envs, n - env0);
-    const int ds = draw_stride(g_), rs = row_stride(g_), tfs = step_table_floats(g_);
+    const int ds = draw_stride(g_), ts = table_stride(g_);
     const int draw_runs = kNoise ? kChannels : 0;  // bulk copies per step
-    const int per_step = draw_runs + (g_.staged ? g_.table_rows : 0);
+    const int table_runs = g_.staged ? g_.table_rows : 0;  // bulk copies per slot
     int slot = 0;
     uint32_t phase = 0;
     for (int c0 = 0; c0 < run_steps; c0 += g_.chunk) {
@@ -201,20 +201,21 @@ class StepRing {
       mbar_wait(empty_ + slot, phase ^ 1u);
       float* d = draws(slot);
       float* t = table(slot);
-      const int runs = steps * per_step;
+      const int runs = table_runs + steps * draw_runs;
       if (pw == 0 && runs > 0) {
-        // run k: step k / per_step, then its draw channels, then its table rows
+        // run k: the slot's rows of table k, then step (k - table_runs) /
+        // draw_runs's draw channels
         auto run = [&](int k, float** dst, int* floats) {
-          const int j = k / per_step, r = k - j * per_step;
-          if (r < draw_runs) {
-            const int channel = kChannels == 1 ? 4 : r;
-            *dst = d + (j * kChannels + r) * ds;
-            *floats = valid;
-            return noise + (static_cast<size_t>(c0 + j) * 5 + channel) * n + env0;
+          if (k < table_runs) {
+            *dst = t + k * ts;
+            *floats = steps * g_.row_floats;
+            return table_row(k, c0);
           }
-          *dst = t + j * tfs + (r - draw_runs) * rs;
-          *floats = g_.row_floats;
-          return table_row(c0 + j, r - draw_runs);
+          const int j = (k - table_runs) / draw_runs, c = k - table_runs - j * draw_runs;
+          const int channel = kChannels == 1 ? 4 : c;
+          *dst = d + (j * kChannels + c) * ds;
+          *floats = valid;
+          return noise + (static_cast<size_t>(c0 + j) * 5 + channel) * n + env0;
         };
         if (lane == 0) {
           uint32_t total = 0;

@@ -604,12 +604,12 @@ def _kernels() -> ctypes.CDLL:
     return lib
 
 
-def kernel_geometry(p: DetRolloutParams, num_trajectories: int, stats_only: bool):
+def kernel_geometry(p: DetRolloutParams, num_trajectories: int, stats_only: bool, table_width: int = 0):
     """The step pipeline's geometry (:func:`pipeline_geometry`) of one K5
-    call: the table kind stages the ``table_size`` entries of each step's
-    bid and ask rows where they fit."""
+    call: the table kind stages each step's bid and ask rows, rows of
+    ``table_width`` floats (default ``p.table_size``), where they fit."""
     return pipeline_geometry(num_trajectories, p.run_steps, p.dynamics_kind, p.policy_kind, stats_only,
-                             p.table_size, table_rows=2)
+                             table_width or p.table_size, table_rows=2)
 
 
 def det_rollout(p: DetRolloutParams, tables=(), seed: int = 0, num_trajectories: int = 16384,
@@ -641,7 +641,7 @@ def det_rollout(p: DetRolloutParams, tables=(), seed: int = 0, num_trajectories:
         inv0 = inv0.to(device, torch.float32).contiguous()
     kp = kernel_params(p, tables[0].shape[1] if p.policy_kind == "table" else 0)
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
-    kp.pipe = kernel_geometry(p, n, stats_only).ctypes()
+    kp.pipe = kernel_geometry(p, n, stats_only, kp.table_width).ctypes()
     f32 = torch.float32
     buf = _DetBuffers(
         noise=None if noise is None else noise.data_ptr(),

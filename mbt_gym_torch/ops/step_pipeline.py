@@ -6,7 +6,8 @@ A CTA owns ``envs`` envs: ``envs / 32`` consumer warps run the env step,
 one thread per env, and ``producers`` warps fill a ring of ``slots``
 shared-memory slots, each holding the draws of ``chunk`` consecutive steps
 (``channels`` floats per env and step) and, where it fits, the depth-table
-rows those steps read (``table_rows`` rows of ``row_floats`` per step).
+rows those steps read (a row of each of ``table_rows`` tables per step,
+``row_floats`` floats apart).
 :func:`pipeline_geometry` chooses all of it from the call's shape; it is
 pure and runs on the host, so the CPU tests check its arithmetic.
 """
@@ -47,10 +48,11 @@ def padded(floats: int) -> int:
 def ring_bytes(envs: int, chunk: int, slots: int, channels: int, table_rows: int = 0, row_floats: int = 0) -> int:
     """Dynamic shared memory of a CTA (``mbt::ring_bytes``): ``slots``
     mbarrier pairs, then the slots, each ``chunk`` steps of ``channels``
-    draw rows of ``envs + 4`` floats and ``table_rows`` padded table rows
-    (none when the table is not staged)."""
-    step_floats = channels * (envs + 4) + table_rows * padded(row_floats)
-    return 16 * slots + 4 * slots * chunk * step_floats
+    draw rows of ``envs + 4`` floats, then, for each of ``table_rows``
+    tables, the ``chunk`` consecutive rows of ``row_floats`` in one padded
+    run (none when the table is not staged)."""
+    slot_floats = chunk * channels * (envs + 4) + table_rows * padded(chunk * row_floats)
+    return 16 * slots + 4 * slots * slot_floats
 
 
 class Geometry(NamedTuple):
@@ -59,8 +61,8 @@ class Geometry(NamedTuple):
     chunk: int
     slots: int
     channels: int
-    table_rows: int  # rows a step reads: K5 its bid and ask rows, K8 one (0: no table)
-    row_floats: int  # floats of one row
+    table_rows: int  # tables a step reads a row of: K5 bid and ask, K8 one (0: no table)
+    row_floats: int  # floats from one step's row to the next
     staged: int  # 1: the rows are staged in the ring; 0: read from global memory
     smem_bytes: int
 
@@ -76,10 +78,11 @@ class Geometry(NamedTuple):
     def threads(self) -> int:
         return self.envs + 32 * self.producers
 
-    def with_shape(self, envs: int, producers: int, chunk: int, slots: int) -> "Geometry":
-        """The same call at another shape (for tuning), the table staged if
-        the ring still fits a CTA's shared memory."""
-        staged = int(bool(self.table_rows)
+    def with_shape(self, envs: int, producers: int, chunk: int, slots: int, staged: bool = True) -> "Geometry":
+        """The same call at another shape (for tuning), the table staged
+        unless ``staged`` is false or the ring would not fit a CTA's shared
+        memory."""
+        staged = int(staged and bool(self.table_rows)
                      and ring_bytes(envs, chunk, slots, self.channels, self.table_rows, self.row_floats) <= SMEM_PER_CTA)
         smem = ring_bytes(envs, chunk, slots, self.channels, self.table_rows * staged, self.row_floats)
         return self._replace(envs=envs, producers=producers, chunk=chunk, slots=slots, staged=staged, smem_bytes=smem)
@@ -97,12 +100,12 @@ def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_
       a CTA (16,384 envs: 64 per CTA, 256 CTAs; 8,192: 32).
     - Producer warps: ``PRODUCERS_PER_CONSUMER[mode]`` per consumer warp.
     - Channels: five on limit dynamics, the midprice normal alone on speed.
-    - The table kind reads ``table_rows`` rows of ``row_floats`` floats a
-      step (K5: its bid and ask rows of the table's width; K8: one
-      (2Q+1, 2) row).  They are staged in the ring, ``chunk`` steps per
-      slot, at most ``MAX_CHUNK``, halved until the ring fits
-      ``SMEM_BUDGET``; where one step's rows do not fit even so, the table
-      stays in global memory.
+    - The table kind reads a row of each of ``table_rows`` tables a step,
+      ``row_floats`` apart (K5: the bid and ask tables' width; K8: one
+      table of (2Q+1, 2) rows).  A slot's consecutive rows of a table are
+      staged as one run, ``chunk`` steps per slot, at most ``MAX_CHUNK``,
+      halved until the ring fits ``SMEM_BUDGET``; where one step's rows do
+      not fit even so, the table stays in global memory.
     """
     assert n >= 1 and run_steps >= 0
     assert dynamics in ("limit", "speed") and policy in ("table", "fixed", "schedule")

@@ -3,7 +3,7 @@
 NVIDIA GPU, for comparing two checkouts of ``mbt_gym_torch`` on one card.
 
     python3 scripts/episode_kernel_times.py [--root DIR] [--label NAME]
-        [--geometry E,P,C,R] [--reps N] [--times-only]
+        [--geometry E,P,C,R[,0]] [--reps N] [--times-only]
 
 ``--root`` is the directory that holds the ``mbt_gym_torch`` to measure
 (default: this checkout); its kernels are built from its own ``csrc/``.
@@ -18,7 +18,8 @@ card's time alone, host work excluded) beside the call time
   ``oe_episode`` at 8,192 x 200.
 
 ``--geometry`` fixes K5's and K8's pipeline geometry (envs per CTA,
-producer warps, steps per slot, slots) where the checkout has one, and
+producer warps, steps per slot, slots, and 0 to leave the table in global
+memory) where the checkout has one, and
 ``--times-only`` times K5 and K8 alone.  The
 script also prints a sha256 digest of every output of K1-K8 on fixed
 inputs (noise and native mode; K3, K4 and K7 at 4,096 envs x 200 steps), so
@@ -54,7 +55,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(REPO))
     parser.add_argument("--label", default="this checkout")
-    parser.add_argument("--geometry", default=None, help="E,P,C,R for K5 and K8")
+    parser.add_argument("--geometry", default=None, help="E,P,C,R[,staged] for K5 and K8")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--times-only", action="store_true", help="time K5 and K8 only, no digests")
     args = parser.parse_args()

@@ -553,8 +553,9 @@ def test_pipeline_geometry_stages_the_cjp_table_and_not_a_huge_one():
         for stats_only in (True, False):
             g = det.kernel_geometry(p, n, stats_only)
             assert g.table_path == "staged" and (g.table_rows, g.row_floats) == (2, 201), g
-            # a row lands up to 3 floats into its slot row: 201 + 3 rounded up to 4
-            assert sp.padded(201) == 204
+            # a slot's rows of a table land up to 3 floats into their run
+            assert g.smem_bytes == sp.ring_bytes(g.envs, g.chunk, g.slots, 5, 2, 201)
+            assert sp.padded(g.chunk * 201) == (g.chunk * 201 + 6) // 4 * 4
     wide = p._replace(table_size=2 * 5000 + 1)
     g = det.kernel_geometry(wide, 16_384, True)
     assert g.table_path == "global" and g.channels == 5
