@@ -197,6 +197,12 @@ def rank_by_gap(entries):
     return sorted(entries, key=lambda e: e["launches"] * (e["ms"] - e["bound_ms"]), reverse=True)
 
 
+def pipeline_entry(geometry):
+    """The kernels line's view of a step-pipeline geometry
+    (mbt_gym_torch/ops/step_pipeline.py)."""
+    return {k: geometry._asdict()[k] for k in ("envs", "producers", "chunk", "slots", "smem_bytes")}
+
+
 def kernel_row(phase, card, name, shape, env_steps, ms, call, b_ms, b_by, plain_ms=None):
     """One phase's line for a kernel timing: device time, call time, rate,
     bound and share of bound (of the device time)."""
@@ -958,12 +964,11 @@ def cj_phases(torch, np, card, dev):
             "launches": launches[key], "max_abs_err": err[name[:2]], "ms": ms, "call_ms": call, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    # which way K5 and K8 read the depth table at the main paths' shape
-    for entry, geometry in ((entries[0], det.kernel_geometry(p_table, CJ_N, True)),
-                            (entries[2], cj.kernel_geometry(p_cj, 100, CJ_N))):
-        entry["table_path"] = geometry.table_path
-        entry["pipeline"] = {k: geometry._asdict()[k] for k in ("envs", "producers", "chunk", "slots", "smem_bytes")}
-        print(f"phase 17 {entry['name']} at {CJ_N}x{cj_steps}: table {geometry.table_path}, pipeline {entry['pipeline']}")
+    # which way K5 reads the depth table at the main path's shape
+    geometry = det.kernel_geometry(p_table, CJ_N, True)
+    entries[0]["table_path"] = geometry.table_path
+    entries[0]["pipeline"] = pipeline_entry(geometry)
+    print(f"phase 17 K5 at {CJ_N}x{cj_steps}: table {geometry.table_path}, pipeline {entries[0]['pipeline']}")
     return entries
 
 
@@ -1070,12 +1075,13 @@ def update_phases(torch, np, card, dev):
     # "Lb?ELb1E"), the bf16 instantiations "ILb1E"; K3 (both layouts) is
     # mlp_rollout_kernel.  Then the tensor-core instructions of each.
     for src, names in (("fused_ppo.cu", ("ppo_pass1", "ppo_pass2")), ("mlp_rollout.cu", ("mlp_rollout_kernel",)),
-                       ("det_rollout.cu", ("det_rollout_kernel",)), ("cj_episode.cu", ("cj_episode_kernel",))):
+                       ("det_rollout.cu", ("det_rollout_kernel",)), ("as_episode.cu", ("as_episode_kernel",)),
+                       ("cj_episode.cu", ("cj_episode_kernel",))):
         rows = kernel_registers(_build.ptxas_reports.get(src, ""), names)
         check(rows, f"phase 18: no ptxas report for {names} in {src}")
         for entry, usage in rows:
             print(f"phase 18 registers {src} {entry[:90]}: {usage}")
-            if src in ("det_rollout.cu", "cj_episode.cu"):  # the step-pipeline kernels spill nothing
+            if src in ("det_rollout.cu", "as_episode.cu"):  # the step-pipeline kernels K5 and K1 spill nothing
                 check(spill_bytes(usage) == 0, f"phase 18: {entry} spills: {usage}")
     check(len(kernel_registers(_build.ptxas_reports["det_rollout.cu"], ("det_rollout_kernel",))) == 20,
           "phase 18: det_rollout.cu does not hold K5's 20 instantiations")
@@ -1420,6 +1426,7 @@ def main():
             "replaces": "mbt_gym_tpu/ops/pallas_episode.py:233", "launches": launches["as_episode"],
             "max_abs_err": err["K1"], "ms": k1_ms, "call_ms": k1_call_ms, "plain_ms": k1_plain_ms,
             "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+            "table_path": "none", "pipeline": pipeline_entry(ep.kernel_geometry(p, N_MAIN)),
         },
         {
             "name": "K2 as_episode_trajectories", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/as_episode.cu",

@@ -31,7 +31,6 @@ import torch
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
 from mbt_gym_torch.ops.episode import _MASK32, _target, philox_noise
-from mbt_gym_torch.ops.step_pipeline import PipelineGeometry, pipeline_geometry
 
 
 class CjEpisodeParams(NamedTuple):
@@ -108,7 +107,6 @@ class CjKernelParams(ctypes.Structure):
         ("drift_dt", ctypes.c_float),
         ("vol_sqrt_dt", ctypes.c_float),
         ("initial_price", ctypes.c_float),
-        ("pipe", PipelineGeometry),  # set by the kernel wrapper
     ]
 
 
@@ -177,12 +175,6 @@ def _kernels() -> ctypes.CDLL:
     return lib
 
 
-def kernel_geometry(p: CjEpisodeParams, q_cap: int, num_trajectories: int):
-    """The step pipeline's geometry (:func:`pipeline_geometry`) of one K8
-    call: each step's (2Q+1, 2) table row is staged where it fits."""
-    return pipeline_geometry(num_trajectories, p.n_steps, "limit", "table", True, 2 * (2 * q_cap + 1), table_rows=1)
-
-
 def cj_episode(p: CjEpisodeParams, depth_table, seed: int = 0, q_cap: int = 100,
                num_trajectories: int = 16384, noise: Optional[torch.Tensor] = None, device=None):
     """K8: one whole CJP episode for ``num_trajectories`` envs; returns the
@@ -204,11 +196,9 @@ def cj_episode(p: CjEpisodeParams, depth_table, seed: int = 0, q_cap: int = 100,
     if noise is not None and not noise.is_contiguous():
         raise ValueError("noise must be contiguous")
     outs = tuple(torch.empty(n, dtype=torch.float32, device=device) for _ in range(4))
-    kp = kernel_params(p, q_cap)
-    kp.pipe = kernel_geometry(p, q_cap, n).ctypes()
     index, stream = _build.device_stream(device)
     rc = _kernels().mbt_cj_episode(
-        ctypes.byref(kp), index, n, int(seed) & _MASK32,
+        ctypes.byref(kernel_params(p, q_cap)), index, n, int(seed) & _MASK32,
         None if noise is None else noise.data_ptr(), table.data_ptr(),
         *(o.data_ptr() for o in outs), stream,
     )

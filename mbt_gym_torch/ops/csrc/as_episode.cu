@@ -10,10 +10,18 @@
 //    (emit state / full / container).  The TPU kernel has no noise mode;
 //    this one does, so it can be held to K1 and to the engine.
 //
-// Design: one thread per env, the run_steps loop inside the thread, the
-// state (cash, inventory, price and, for K2, the previous mark-to-market
-// value) in registers.  Streams are (T, N) with envs minor, so each warp's
-// store of one step is one coalesced 128-byte line per plane.
+// Design: K1 runs the warp-specialised step pipeline of step_pipeline.cuh
+// (K5's and this kernel's): per CTA, E / 32 consumer warps step the envs,
+// one thread per env with the state (cash, inventory, price) in registers,
+// while P producer warps compute the draws of the steps ahead into a ring
+// of shared-memory slots (in noise mode the bulk-copy engine copies the
+// (T, 5, N) channels' runs instead), so the consumers' chain per step is
+// the closed-form quotes, two expf and the bookkeeping; the geometry comes
+// from step_pipeline.py::pipeline_geometry.  K2 keeps one thread per env,
+// the run_steps loop inside the thread, the state and the previous
+// mark-to-market value in registers.  Streams are (T, N) with envs minor,
+// so each warp's store of one step is one coalesced 128-byte line per
+// plane.
 //
 // Bounds on the H100: K1 in native mode moves 12 bytes per env, so it is
 // bound by operations — two Philox4x32-10 calls (about 200 integer ops)
@@ -35,6 +43,7 @@
 #include <cuda_runtime.h>
 
 #include "draws.cuh"
+#include "step_pipeline.cuh"
 
 // Mirrors AsKernelParams in mbt_gym_torch/ops/episode.py (ctypes).  Every
 // float is the float32 rounding of the double the host computed, as the
@@ -58,6 +67,7 @@ struct AsKernelParams {
   float gss;           // gamma * sigma * sigma
   float half_gss;      // 0.5 * gamma * sigma * sigma
   float const_half;    // (1/gamma) log(1 + gamma/k), or 1/k when gamma == 0
+  mbt::PipeGeometry pipe;  // K1's step pipeline (unused by K2)
 };
 
 namespace {
@@ -101,20 +111,64 @@ __device__ __forceinline__ float step_time(const AsKernelParams& p, int i) {
 }
 
 template <bool kNoise>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(mbt::kMaxPipeThreads)
 as_episode_kernel(const AsKernelParams p, int n, uint32_t seed, const float* __restrict__ noise,
                   float* __restrict__ cash_out, float* __restrict__ inv_out,
                   float* __restrict__ price_out) {
-  const int env = blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= n) return;
-  float cash = p.initial_cash, inv = p.initial_inventory, price = p.initial_price;
-  for (int i = 0; i < p.run_steps; ++i) {
-    float bid, ask;
-    as_step(p, step_time(p, i), draws_for<kNoise>(noise, n, seed, env, i), cash, inv, price, bid, ask);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const mbt::StepRing ring(p.pipe, smem);
+  const int warp = threadIdx.x >> 5;
+  const int env0 = blockIdx.x * p.pipe.envs;
+  if (warp >= ring.consumer_warps()) {
+    ring.produce<kNoise, 5>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, noise,
+                            [](int, int) { return static_cast<const float*>(nullptr); });  // no table
+    return;
   }
+  const int env = env0 + static_cast<int>(threadIdx.x);
+  float cash = p.initial_cash, inv = p.initial_inventory, price = p.initial_price;
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int c0 = 0; c0 < p.run_steps; c0 += p.pipe.chunk) {
+    const int steps = min(p.pipe.chunk, p.run_steps - c0);
+    ring.wait_full(slot, phase);
+    const mbt::SlotDraws<kNoise, 5> draws{ring.draws(slot) + threadIdx.x, noise + env0, n,
+                                          mbt::draw_stride(p.pipe)};
+    for (int j = 0; j < steps; ++j) {
+      float bid, ask;
+      as_step(p, step_time(p, c0 + j), draws.limit(j, c0 + j), cash, inv, price, bid, ask);
+    }
+    ring.release(slot);
+    if (++slot == p.pipe.slots) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+  if (env >= n) return;
   cash_out[env] = cash;
   inv_out[env] = inv;
   price_out[env] = price;
+}
+
+// K1's geometry as the wrapper chose it, checked against what the kernel
+// assumes: draws only, five channels.
+bool pipe_ok(const mbt::PipeGeometry& g) {
+  const int groups = g.envs / 32;
+  return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
+         g.envs + 32 * g.producers <= mbt::kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 && g.channels == 5 &&
+         !g.staged && g.smem_bytes == mbt::ring_bytes(g);
+}
+
+template <bool kNoise>
+cudaError_t launch_episode(const AsKernelParams& p, int n, uint32_t seed, const float* noise, float* cash,
+                           float* inv, float* price, cudaStream_t s) {
+  const auto kernel = as_episode_kernel<kNoise>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.pipe.smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + p.pipe.envs - 1) / p.pipe.envs);
+  const dim3 block(p.pipe.envs + 32 * p.pipe.producers);
+  kernel<<<grid, block, p.pipe.smem_bytes, s>>>(p, n, seed, noise, cash, inv, price);
+  return cudaSuccess;
 }
 
 // Output planes of K2, in the container's plane order.  emit="state" fills
@@ -188,13 +242,11 @@ extern "C" int mbt_as_episode(const AsKernelParams* p, int device, int n, uint32
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
-  const dim3 grid((n + kBlock - 1) / kBlock);
+  if (!pipe_ok(p->pipe)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (noise) {
-    as_episode_kernel<true><<<grid, kBlock, 0, s>>>(*p, n, seed, noise, cash, inv, price);
-  } else {
-    as_episode_kernel<false><<<grid, kBlock, 0, s>>>(*p, n, seed, noise, cash, inv, price);
-  }
+  err = noise ? launch_episode<true>(*p, n, seed, noise, cash, inv, price, s)
+              : launch_episode<false>(*p, n, seed, noise, cash, inv, price, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,22 +6,19 @@
 // depth table at each step, and only the terminal (cash, inventory, price,
 // sum q_t^2) leaves the chip; the CjMm reward telescopes to those.
 //
-// Design: K5's warp-specialised step pipeline (step_pipeline.cuh).  A CTA
-// owns E envs: E / 32 consumer warps run the step, one thread per env with
-// the state in registers, and P producer warps fill a ring of
-// shared-memory slots with the inputs of the steps ahead: the draws
-// (Philox, or the noise channels, copied by the bulk-copy engine where
-// 16-byte aligned) and the (2Q+1, 2) table rows those steps read.  The
-// table is (T, 2Q+1, 2) floats (1.6 MB at the CJP shape), each step's row
-// contiguous (1.6 KB), so the consumers' chain per step is a shared-memory
-// load at the clipped inventory, two expf and the bookkeeping.  A table
-// too wide for the ring stays in global memory, read through the read-only
-// path (__ldg).  The TPU kernel's one-hot MXU contraction against the row
-// selects the same single entry, so the gather is exact.
+// Design: one thread per env, the step loop inside the thread, the state in
+// registers.  The depth table is (T, 2Q+1, 2) floats (1.6 MB at the CJP
+// shape, more than a block's shared memory); each step every thread of the
+// card reads the same (2Q+1, 2) row through the read-only path (__ldg), so
+// the row sits in L1/L2 and only the clipped inventory index varies per
+// thread.  The TPU kernel's one-hot MXU contraction against the row selects
+// the same single entry, so the gather is exact.
 //
 // Bounds on the H100: 16 bytes written per env and nothing read per step
-// in native mode beyond the table row, so it is bound by operations: two
-// Philox4x32-10 calls, logf/cosf/sqrtf and two expf per env-step.
+// in native mode beyond the cached table row, so it is bound by
+// operations: two Philox4x32-10 calls, logf/cosf/sqrtf and two expf per
+// env-step.  At 16,384 envs only ~6% of the card's thread slots are busy,
+// so it is latency-bound there.
 //
 // Numerics: every float op follows the plain PyTorch version's order
 // (mbt_gym_torch/ops/cj_episode.py) under --fmad=false.  The JAX kernel
@@ -33,7 +30,6 @@
 #include <cuda_runtime.h>
 
 #include "draws.cuh"
-#include "step_pipeline.cuh"
 
 // Mirrors CjKernelParams in mbt_gym_torch/ops/cj_episode.py (ctypes).
 struct CjKernelParams {
@@ -46,97 +42,43 @@ struct CjKernelParams {
   float drift_dt;
   float vol_sqrt_dt;
   float initial_price;
-  mbt::PipeGeometry pipe;
 };
 
 namespace {
 
+constexpr int kBlock = 128;
+
 template <bool kNoise>
-__global__ void __launch_bounds__(mbt::kMaxPipeThreads)
+__global__ void __launch_bounds__(kBlock)
 cj_episode_kernel(const CjKernelParams p, int n, uint32_t seed, const float* __restrict__ noise,
                   const float* __restrict__ table, float* __restrict__ cash_out,
                   float* __restrict__ inv_out, float* __restrict__ price_out,
                   float* __restrict__ sumq2_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const mbt::StepRing ring(p.pipe, smem);
-  const int warp = threadIdx.x >> 5;
-  const int env0 = blockIdx.x * p.pipe.envs;
-  const int row = 2 * (2 * p.q_cap + 1);  // floats of one step's (2Q+1, 2) row
-  if (warp >= ring.consumer_warps()) {
-    ring.produce<kNoise, 5>(warp - ring.consumer_warps(), p.n_steps, env0, n, seed, noise,
-                            [=](int, int i) { return table + static_cast<size_t>(i) * row; });
-    return;
-  }
-  const int e_local = threadIdx.x;
-  const int env = env0 + e_local;
-  float cash = 0.0f, inv = 0.0f, price = p.initial_price, sumq2 = 0.0f;
-  int slot = 0;
-  uint32_t phase = 0;
-  for (int c0 = 0; c0 < p.n_steps; c0 += p.pipe.chunk) {
-    const int steps = min(p.pipe.chunk, p.n_steps - c0);
-    ring.wait_full(slot, phase);
-    const mbt::SlotDraws<kNoise, 5> draws{ring.draws(slot) + e_local, noise + env0, n, mbt::draw_stride(p.pipe)};
-    // the slot's rows, landed at their granule shift
-    const float* rows = ring.table(slot) + mbt::granule_shift(table + static_cast<size_t>(c0) * row);
-    for (int j = 0; j < steps; ++j) {
-      const int i = c0 + j;
-      const mbt::Draws d = draws.limit(j, i);
-      const float qf = fminf(fmaxf(inv + static_cast<float>(p.q_cap), 0.0f), 2.0f * p.q_cap);
-      const int q = static_cast<int>(qf);
-      float bid, ask;
-      if (p.pipe.staged) {
-        bid = rows[j * row + 2 * q];
-        ask = rows[j * row + 2 * q + 1];
-      } else {
-        const size_t at = static_cast<size_t>(i) * row + 2 * q;
-        bid = __ldg(table + at);
-        ask = __ldg(table + at + 1);
-      }
-      const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
-      const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
-      const float fill_bid = (d.u_fb < expf(p.neg_k * bid) ? 1.0f : 0.0f) * (inv < p.max_inventory ? 1.0f : 0.0f);
-      const float fill_ask = (d.u_fa < expf(p.neg_k * ask) ? 1.0f : 0.0f) * (inv > -p.max_inventory ? 1.0f : 0.0f);
-      const float hit_bid = arr_bid * fill_bid;
-      const float hit_ask = arr_ask * fill_ask;
-      inv = inv + hit_bid - hit_ask;
-      cash = cash - hit_bid * (price - bid) + hit_ask * (price + ask);
-      sumq2 = sumq2 + inv * inv;  // post-update inventory (RewardFunctions.py:103)
-      price = price + p.drift_dt + p.vol_sqrt_dt * d.normal;
-    }
-    ring.release(slot);
-    if (++slot == p.pipe.slots) {
-      slot = 0;
-      phase ^= 1u;
-    }
-  }
+  const int env = blockIdx.x * blockDim.x + threadIdx.x;
   if (env >= n) return;
+  const int size = 2 * p.q_cap + 1;
+  float cash = 0.0f, inv = 0.0f, price = p.initial_price, sumq2 = 0.0f;
+  for (int i = 0; i < p.n_steps; ++i) {
+    const mbt::Draws d = mbt::draws_for<kNoise>(noise, n, seed, env, i);
+    const float qf = fminf(fmaxf(inv + static_cast<float>(p.q_cap), 0.0f), 2.0f * p.q_cap);
+    const size_t at = (static_cast<size_t>(i) * size + static_cast<int>(qf)) * 2;
+    const float bid = __ldg(table + at);
+    const float ask = __ldg(table + at + 1);
+    const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
+    const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
+    const float fill_bid = (d.u_fb < expf(p.neg_k * bid) ? 1.0f : 0.0f) * (inv < p.max_inventory ? 1.0f : 0.0f);
+    const float fill_ask = (d.u_fa < expf(p.neg_k * ask) ? 1.0f : 0.0f) * (inv > -p.max_inventory ? 1.0f : 0.0f);
+    const float hit_bid = arr_bid * fill_bid;
+    const float hit_ask = arr_ask * fill_ask;
+    inv = inv + hit_bid - hit_ask;
+    cash = cash - hit_bid * (price - bid) + hit_ask * (price + ask);
+    sumq2 = sumq2 + inv * inv;  // post-update inventory (RewardFunctions.py:103)
+    price = price + p.drift_dt + p.vol_sqrt_dt * d.normal;
+  }
   cash_out[env] = cash;
   inv_out[env] = inv;
   price_out[env] = price;
   sumq2_out[env] = sumq2;
-}
-
-template <bool kNoise>
-cudaError_t launch(const CjKernelParams& p, int n, uint32_t seed, const float* noise, const float* table,
-                   float* cash, float* inv, float* price, float* sumq2, cudaStream_t s) {
-  const auto kernel = cj_episode_kernel<kNoise>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.pipe.smem_bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + p.pipe.envs - 1) / p.pipe.envs);
-  const dim3 block(p.pipe.envs + 32 * p.pipe.producers);
-  kernel<<<grid, block, p.pipe.smem_bytes, s>>>(p, n, seed, noise, table, cash, inv, price, sumq2);
-  return cudaSuccess;
-}
-
-// The geometry the wrapper chose, checked against what the kernel assumes.
-bool pipe_ok(const CjKernelParams& p) {
-  const mbt::PipeGeometry& g = p.pipe;
-  const int groups = g.envs / 32;
-  return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
-         g.envs + 32 * g.producers <= mbt::kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 && g.channels == 5 &&
-         (!g.staged || (g.table_rows == 1 && g.row_floats == 2 * (2 * p.q_cap + 1))) &&
-         g.smem_bytes == mbt::ring_bytes(g);
 }
 
 }  // namespace
@@ -150,10 +92,12 @@ extern "C" int mbt_cj_episode(const CjKernelParams* p, int device, int n, uint32
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
-  if (!pipe_ok(*p)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kBlock - 1) / kBlock);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = noise ? launch<true>(*p, n, seed, noise, table, cash, inv, price, sumq2, s)
-              : launch<false>(*p, n, seed, noise, table, cash, inv, price, sumq2, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (noise) {
+    cj_episode_kernel<true><<<grid, kBlock, 0, s>>>(*p, n, seed, noise, table, cash, inv, price, sumq2);
+  } else {
+    cj_episode_kernel<false><<<grid, kBlock, 0, s>>>(*p, n, seed, noise, table, cash, inv, price, sumq2);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,6 +41,7 @@ import torch
 
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
+from mbt_gym_torch.ops.step_pipeline import PipelineGeometry, pipeline_geometry
 from mbt_gym_torch.types import Trajectory, TrajectoryT
 
 CONTAINER_PLANES = 7  # cash, inventory, time, price, bid, ask, reward
@@ -161,6 +162,7 @@ class AsKernelParams(ctypes.Structure):
         ("gss", ctypes.c_float),
         ("half_gss", ctypes.c_float),
         ("const_half", ctypes.c_float),
+        ("pipe", PipelineGeometry),  # set by K1's wrapper; K2 ignores it
     ]
 
 
@@ -382,7 +384,13 @@ def _launch_args(p: AsEpisodeParams, n: int, noise, device: torch.device):
         if not noise.is_contiguous():
             raise ValueError("noise must be contiguous")
     index, stream = _build.device_stream(device)
-    return ctypes.byref(kernel_params(p)), index, (None if noise is None else noise.data_ptr()), stream
+    return kernel_params(p), index, (None if noise is None else noise.data_ptr()), stream
+
+
+def kernel_geometry(p: AsEpisodeParams, num_trajectories: int):
+    """K1's step-pipeline geometry (:func:`pipeline_geometry`): limit
+    dynamics, no table, the terminal state alone."""
+    return pipeline_geometry(num_trajectories, p.run_steps, "limit", "fixed", True)
 
 
 def as_episode(params: AsEpisodeParams, seed: int = 0, num_trajectories: int = 16384,
@@ -398,9 +406,10 @@ def as_episode(params: AsEpisodeParams, seed: int = 0, num_trajectories: int = 1
         return as_episode_plain(params, seed, num_trajectories, noise, device)
     n = num_trajectories
     kp, index, noise_ptr, stream = _launch_args(params, n, noise, device)
+    kp.pipe = kernel_geometry(params, n).ctypes()
     cash, inv, price = (torch.empty(n, dtype=torch.float32, device=device) for _ in range(3))
     rc = _kernels().mbt_as_episode(
-        kp, index, n, int(seed) & _MASK32, noise_ptr,
+        ctypes.byref(kp), index, n, int(seed) & _MASK32, noise_ptr,
         cash.data_ptr(), inv.data_ptr(), price.data_ptr(), stream,
     )
     if rc != 0:
@@ -435,7 +444,7 @@ def as_episode_trajectories(params: AsEpisodeParams, seed: int = 0,
         ]
     ptrs = [None if x is None else x.data_ptr() for x in planes]
     rc = _kernels().mbt_as_episode_trajectories(
-        kp, index, n, int(seed) & _MASK32, noise_ptr, _EMITS[emit], *ptrs, stream,
+        ctypes.byref(kp), index, n, int(seed) & _MASK32, noise_ptr, _EMITS[emit], *ptrs, stream,
     )
     if rc != 0:
         raise RuntimeError(f"as_episode_trajectories kernel launch failed: CUDA error {rc}")

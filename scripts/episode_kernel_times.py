@@ -17,10 +17,10 @@ card's time alone, host work excluded) beside the call time
 - K1 ``as_episode`` and K2 ``as_episode_trajectories`` at 16,384 x 200, K6
   ``oe_episode`` at 8,192 x 200.
 
-``--geometry`` fixes K5's and K8's pipeline geometry (envs per CTA,
+``--geometry`` fixes K5's and K1's pipeline geometry (envs per CTA,
 producer warps, steps per slot, slots, and 0 to leave the table in global
 memory) where the checkout has one, and
-``--times-only`` times K5 and K8 alone.  The
+``--times-only`` times K5, K8 and K1 alone.  The
 script also prints a sha256 digest of every output of K1-K8 on fixed
 inputs (noise and native mode; K3, K4 and K7 at 4,096 envs x 200 steps), so
 two checkouts can be shown to compute the same bits.  It prints one JSON
@@ -55,9 +55,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(REPO))
     parser.add_argument("--label", default="this checkout")
-    parser.add_argument("--geometry", default=None, help="E,P,C,R[,staged] for K5 and K8")
+    parser.add_argument("--geometry", default=None, help="E,P,C,R[,staged] for K5 and K1")
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--times-only", action="store_true", help="time K5 and K8 only, no digests")
+    parser.add_argument("--times-only", action="store_true", help="time K5, K8 and K1 only, no digests")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -82,7 +82,7 @@ def main():
     label = args.label
     if args.geometry:
         fixed = [int(x) for x in args.geometry.split(",")]
-        for module in (det, cj):
+        for module in (det, ep):
             geometry = getattr(module, "pipeline_geometry", None)
             if geometry is None:
                 continue
@@ -124,7 +124,7 @@ def main():
         ("K6", 8_192, 200, lambda: oe.oe_episode(p_oe, speed_table, 9, 8_192, device=dev)),
     )
     if args.times_only:
-        rows = [row for row in rows if row[0].startswith(("K5", "K8"))]
+        rows = [row for row in rows if row[0].startswith(("K5", "K8", "K1"))]
     for name, n, steps, fn in rows:
         ms = cs.device_ms(torch, fn, warmup=2, reps=args.reps)
         call = cs.cuda_ms(torch, fn, warmup=2, reps=args.reps)

@@ -9,7 +9,6 @@ then reproduce the interpret-mode kernel.  Its random-noise mode is held to
 the JAX engine instead.  The CUDA kernel is held against its plain version
 on the card (tests/test_torch_cuda.py and chip_smoke.py).
 """
-import ctypes
 import dataclasses
 
 import jax
@@ -125,20 +124,3 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(AssertionError):  # the table must be (n_steps, 2*q_cap+1, 2)
         cj.cj_episode(p, agent.depth_table(), 0, 5, 128, device="cpu")
 
-
-def test_k8_geometry_stages_the_table_row():
-    """K8 stages each step's (2Q+1, 2) row: 402 floats at the CJP width, in
-    global memory for max_inventory 5,000; a 1-step episode still gets a
-    slot of one step; the ring fits a CTA's shared memory."""
-    from mbt_gym_torch.ops import step_pipeline as sp
-
-    cfg = cj_env_config(num_trajectories=16_384, max_inventory=100.0)
-    p = cj.cj_params_from_config(cfg)
-    g = cj.kernel_geometry(p, 100, 16_384)
-    assert g.table_path == "staged" and (g.table_rows, g.row_floats) == (1, 2 * 201) and g.channels == 5
-    assert g.smem_bytes <= sp.SMEM_PER_CTA
-    g = cj.kernel_geometry(p, 5000, 16_384)
-    assert g.table_path == "global" and g.smem_bytes <= sp.SMEM_PER_CTA
-    g = cj.kernel_geometry(p._replace(n_steps=1), 100, 4_100)
-    assert g.chunk == 1 and g.table_path == "staged"
-    assert cj.CjKernelParams.pipe.offset == ctypes.sizeof(cj.CjKernelParams) - 9 * 4

@@ -561,10 +561,10 @@ def test_det_rollout_pipeline_edges_on_the_card(cuda_device, kind, run_steps, t_
 
 
 @pytest.mark.parametrize("run_steps", [1, 7, 300])
-def test_cj_episode_pipeline_edges_on_the_card(cuda_device, run_steps):
-    """K8's step pipeline at 4,100 and 4,099 envs and 1, 7 and 300 steps,
-    both draw modes: against its plain version at K1's limits, its terminal
-    state bitwise K5's table stats mode on the same noise, a repeated
+def test_cj_episode_edges_on_the_card(cuda_device, run_steps):
+    """K8 at 4,100 and 4,099 envs and 1, 7 and 300 steps, both draw modes:
+    against its plain version at K1's limits, its terminal state bitwise
+    K5's table stats mode (the step pipeline) on the same noise, a repeated
     launch bitwise."""
     from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent
     from mbt_gym_torch.ops import cj_episode as cj
@@ -588,12 +588,38 @@ def test_cj_episode_pipeline_edges_on_the_card(cuda_device, run_steps):
             _assert_bitwise(got[:3], k5[:3])
 
 
+@pytest.mark.parametrize("run_steps", [1, 7, 200])
+@pytest.mark.parametrize("start", [0, 3], ids=["t0", "late"])
+def test_as_episode_pipeline_edges_on_the_card(cuda_device, run_steps, start):
+    """K1's step pipeline at 4,100 envs (a ragged last CTA) and 4,099
+    (noise rows not 16-byte aligned), episodes of 1, 7 and 200 steps (not
+    multiples of a slot's steps), a late start with an initial inventory,
+    both draw modes: against its plain version at its limits, K2's last
+    row (one thread per env) bitwise, a repeated launch bitwise."""
+    cfg = dataclasses.replace(as_env_config(num_trajectories=16, n_steps=run_steps + start), initial_inventory=3)
+    if start:
+        cfg = dataclasses.replace(cfg, start_time=start * cfg.step_size, initial_cash=5.0)
+    p = ep.params_from_config(cfg, 0.1)
+    assert p.run_steps == run_steps
+    for n in (4100, 4099):
+        for kw in ({"noise": _channels(2, run_steps, n, cuda_device)}, {"seed": 7, "device": cuda_device}):
+            got = ep.as_episode(p, num_trajectories=n, **kw)
+            again = ep.as_episode(p, num_trajectories=n, **kw)
+            want = ep.as_episode_plain(p, num_trajectories=n, **kw)
+            k2 = ep.as_episode_trajectories(p, num_trajectories=n, emit="state", **kw)
+            torch.cuda.synchronize()
+            _assert_bitwise(got, again)
+            _assert_terminal_close(got, want, n)
+            _assert_bitwise(got, (k2[0][-1], k2[1][-1], k2[2][-1]))
+
+
 def test_a_table_too_wide_to_stage_is_read_from_global_memory_on_the_card(cuda_device):
     """max_inventory 5,000: 10,001 entries per row and side, 80 KB a step,
-    more than the ring holds, so K5 and K8 read the table from global
-    memory while the draws are still staged; both against their plain
-    versions, K8's terminal state bitwise K5's.  The depths are random
-    (the closed form at this width is not needed to test the read)."""
+    more than the ring holds, so K5 reads the table from global memory while
+    the draws are still staged; against its plain version, and K8 (one
+    thread per env) at the same width bitwise K5's terminal state.  The
+    depths are random (the closed form at this width is not needed to test
+    the read)."""
     from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent
     from mbt_gym_torch.ops import cj_episode as cj
     from mbt_gym_torch.ops import det_rollout as det
@@ -605,7 +631,6 @@ def test_a_table_too_wide_to_stage_is_read_from_global_memory_on_the_card(cuda_d
     rng = np.random.default_rng(13)
     bid, ask = (rng.uniform(0.2, 2.0, size=(steps + 1, 2 * q + 1)).astype(np.float32) for _ in range(2))
     assert det.kernel_geometry(p, n, True).table_path == "global"
-    assert cj.kernel_geometry(cj.cj_params_from_config(cfg), q, n).table_path == "global"
     for kw in ({"noise": _channels(5, steps, n, cuda_device)}, {"seed": 14, "device": cuda_device}):
         for stats in (True, False):
             extra = {"stats_only": stats, "final_obs": not stats}
