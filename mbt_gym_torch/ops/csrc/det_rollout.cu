@@ -50,7 +50,9 @@
 // TPU-only parts not ported: the sublane `rows` packing, the VMEM tile
 // search, pltpu.prng_seed and the 1e-42 carry jitter.
 
+#include <algorithm>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "draws.cuh"
@@ -105,6 +107,8 @@ struct DetBuffers {
   const float* inv0;      // (N,) or NULL (initial_inventory for all)
   const float* bid;       // table policy: (rows, table_width)
   const float* ask;
+  float* fill_bid;        // table policy: expf(neg_k * bid), the rows the episode reads
+  float* fill_ask;        //   (written by fill_table_kernel before the episode)
   const float* schedule;  // schedule policy: (rows, a_dim)
   float* obs;             // streams: (T, S, N)
   float* act;             // streams: (T, A, N)
@@ -137,6 +141,19 @@ __device__ __forceinline__ void write_obs(const DetKernelParams& p, float* out, 
   }
 }
 
+// The table kind's fill probabilities exp(-k * depth) of every table entry
+// the episode's rows hold, computed once per call (the expf the env step
+// would take of the same float, so the bits agree): the consumers' chain
+// per step then reads them instead of calling expf.
+__global__ void fill_table_kernel(float neg_k, const float* __restrict__ bid, const float* __restrict__ ask,
+                                  float* __restrict__ fill_bid, float* __restrict__ fill_ask, size_t count) {
+  for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; k < count;
+       k += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    fill_bid[k] = expf(neg_k * bid[k]);
+    fill_ask[k] = expf(neg_k * ask[k]);
+  }
+}
+
 template <bool kNoise, int kDyn, int kPol, bool kStats>
 __global__ void __launch_bounds__(mbt::kMaxPipeThreads)
 det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t seed) {
@@ -146,14 +163,11 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   const int env0 = blockIdx.x * p.pipe.envs;
   constexpr int kChannels = kDyn == kLimit ? 5 : 1;
   if (warp >= ring.consumer_warps()) {
-    const float* bid = b.bid;
-    const float* ask = b.ask;
+    const float* tables[4] = {b.bid, b.ask, b.fill_bid, b.fill_ask};
     const int t_off = p.t_off, width = p.table_width;
-    // a step's rows of the two tables: bid (0) and ask (1)
+    // a step's rows of the four tables: bid, ask and their fill probabilities
     ring.produce<kNoise, kChannels>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, b.noise,
-                                    [=](int r, int i) {
-                                      return (r == 0 ? bid : ask) + static_cast<size_t>(t_off + i) * width;
-                                    });
+                                    [=](int r, int i) { return tables[r] + static_cast<size_t>(t_off + i) * width; });
     return;
   }
   const int ts = mbt::table_stride(p.pipe);
@@ -174,94 +188,117 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
     ring.wait_full(slot, phase);
     const mbt::SlotDraws<kNoise, kChannels> draws{ring.draws(slot) + e_local, b.noise + env0, n,
                                                   mbt::draw_stride(p.pipe)};
-    // the slot's bid and ask rows, each run landed at its granule shift
+    // the slot's rows of the four tables, each run landed at its granule shift
     const size_t first_row = static_cast<size_t>(p.t_off + c0) * p.table_width;
     const float* bid_rows = ring.table(slot) + mbt::granule_shift(b.bid + first_row);
     const float* ask_rows = ring.table(slot) + ts + mbt::granule_shift(b.ask + first_row);
-    for (int j = 0; j < steps; ++j) {
-      const int i = c0 + j;
-      const float t = p.start_time + static_cast<float>(i) * p.dt;
-      const int row = p.t_off + i;
-      // ---- policy: the raw action columns (what the stream records)
-      float raw0, raw1 = 0.0f;
-      if constexpr (kPol == kTable) {
-        const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
-        const int q = static_cast<int>(qf);
-        if (p.pipe.staged) {
-          raw0 = bid_rows[j * p.table_width + q];
-          raw1 = ask_rows[j * p.table_width + q];
+    const float* fill_bid_rows = ring.table(slot) + 2 * ts + mbt::granule_shift(b.fill_bid + first_row);
+    const float* fill_ask_rows = ring.table(slot) + 3 * ts + mbt::granule_shift(b.fill_ask + first_row);
+    // the slot's steps, with the staged-table branch taken once per slot
+    auto step_slot = [&](auto staged) {
+      constexpr bool kStaged = decltype(staged)::value;
+      for (int j = 0; j < steps; ++j) {
+        const int i = c0 + j;
+        const float t = p.start_time + static_cast<float>(i) * p.dt;
+        const int row = p.t_off + i;
+        // ---- policy: the raw action columns (what the stream records)
+        float raw0, raw1 = 0.0f;
+        float fill_p0, fill_p1;  // table kind: exp(neg_k * depth) from the fill tables
+        if constexpr (kPol == kTable) {
+          const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
+          const int q = static_cast<int>(qf);
+          if constexpr (kStaged) {
+            const int at = j * p.table_width + q;
+            fill_p0 = fill_bid_rows[at];
+            fill_p1 = fill_ask_rows[at];
+            raw0 = bid_rows[at];
+            raw1 = ask_rows[at];
+          } else {
+            const size_t at = static_cast<size_t>(row) * p.table_width + q;
+            fill_p0 = __ldg(b.fill_bid + at);
+            fill_p1 = __ldg(b.fill_ask + at);
+            raw0 = __ldg(b.bid + at);
+            raw1 = __ldg(b.ask + at);
+          }
+        } else if constexpr (kPol == kSchedule) {
+          raw0 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim);
+          if constexpr (kDyn == kLimit) raw1 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim + 1);
         } else {
-          const size_t at = static_cast<size_t>(row) * p.table_width + q;
-          raw0 = __ldg(b.bid + at);
-          raw1 = __ldg(b.ask + at);
+          raw0 = p.fixed_action[0];
+          raw1 = p.fixed_action[1];
         }
-      } else if constexpr (kPol == kSchedule) {
-        raw0 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim);
-        if constexpr (kDyn == kLimit) raw1 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim + 1);
-      } else {
-        raw0 = p.fixed_action[0];
-        raw1 = p.fixed_action[1];
-      }
-      float exe0 = raw0, exe1 = raw1;
-      if (p.normalise_act) {
-        exe0 = (raw0 + 1.0f) * p.act_grad[0] + p.act_low[0];
-        exe1 = (raw1 + 1.0f) * p.act_grad[1] + p.act_low[1];
-      }
-      if constexpr (!kStats) {
-        if (active) {
-          const size_t o = static_cast<size_t>(i) * p.s_dim * sn + env;
-          write_obs(p, b.obs + o, sn, cash, inv, t, price, imp);
-          const size_t a = static_cast<size_t>(i) * p.a_dim * sn + env;
-          b.act[a] = raw0;
-          if constexpr (kDyn == kLimit) b.act[a + sn] = raw1;
+        float exe0 = raw0, exe1 = raw1;
+        if constexpr (kPol != kTable) {  // the table kind quotes raw depths (pipe_ok)
+          if (p.normalise_act) {
+            exe0 = (raw0 + 1.0f) * p.act_grad[0] + p.act_low[0];
+            exe1 = (raw1 + 1.0f) * p.act_grad[1] + p.act_low[1];
+          }
         }
+        if constexpr (!kStats) {
+          if (active) {
+            const size_t o = static_cast<size_t>(i) * p.s_dim * sn + env;
+            write_obs(p, b.obs + o, sn, cash, inv, t, price, imp);
+            const size_t a = static_cast<size_t>(i) * p.a_dim * sn + env;
+            b.act[a] = raw0;
+            if constexpr (kDyn == kLimit) b.act[a + sn] = raw1;
+          }
+        }
+        // ---- env step (TradingEnvironment.py:198-216 order)
+        float new_cash, new_inv, normal;
+        if constexpr (kDyn == kLimit) {
+          const mbt::Draws d = draws.limit(j, i);
+          if constexpr (kPol != kTable) {
+            fill_p0 = expf(p.neg_k * exe0);
+            fill_p1 = expf(p.neg_k * exe1);
+          }
+          const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
+          const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
+          const float fill_bid = (d.u_fb < fill_p0 ? 1.0f : 0.0f) * (inv < p.max_inventory ? 1.0f : 0.0f);
+          const float fill_ask = (d.u_fa < fill_p1 ? 1.0f : 0.0f) * (inv > -p.max_inventory ? 1.0f : 0.0f);
+          const float hit_bid = arr_bid * fill_bid;
+          const float hit_ask = arr_ask * fill_ask;
+          new_inv = inv + hit_bid - hit_ask;
+          new_cash = cash - hit_bid * (price - exe0) + hit_ask * (price + exe1);
+          normal = d.normal;
+        } else {
+          // impact at the pre-update state, then the permanent-impact recursion
+          const float impact = p.temporary_impact * exe0 + imp;
+          const float new_imp = imp + p.permanent_impact * exe0 * p.dt;
+          const float volume = exe0 * p.dt;
+          new_inv = inv + volume;
+          new_cash = cash - volume * (price + impact);
+          imp = new_imp;
+          normal = draws.at(j, i, 0);
+        }
+        new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
+        new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
+        const float new_price = price + p.drift_dt + p.vol_sqrt_dt * normal;
+        // ---- reward at the post-step state (RewardFunctions.py)
+        float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
+        const float q2 = new_inv * new_inv;
+        if (p.reward == kCjMm) {
+          reward = reward - p.dt_phi * q2 - p.alpha * (q2 - inv * inv) - p.cjmm_const * q0_sq;
+        } else if (p.reward == kRunning) {
+          const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
+          reward = reward - p.dt_phi * q2 - (p.alpha * terminal) * q2;
+        } else if (p.reward == kCjOe) {
+          reward = reward - p.dt_phi * q2 - p.dt_alpha * (2.0f * exe0 * inv + q0_sq * p.ep_len);
+        }
+        if constexpr (kStats) {
+          rsum = rsum + reward;
+          if constexpr (kDyn == kLimit) ssum = ssum + (raw0 + raw1);
+        } else if (active) {
+          b.rew[static_cast<size_t>(i) * sn + env] = reward;
+        }
+        cash = new_cash;
+        inv = new_inv;
+        price = new_price;
       }
-      // ---- env step (TradingEnvironment.py:198-216 order)
-      float new_cash, new_inv, normal;
-      if constexpr (kDyn == kLimit) {
-        const mbt::Draws d = draws.limit(j, i);
-        const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
-        const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
-        const float fill_bid = (d.u_fb < expf(p.neg_k * exe0) ? 1.0f : 0.0f) * (inv < p.max_inventory ? 1.0f : 0.0f);
-        const float fill_ask = (d.u_fa < expf(p.neg_k * exe1) ? 1.0f : 0.0f) * (inv > -p.max_inventory ? 1.0f : 0.0f);
-        const float hit_bid = arr_bid * fill_bid;
-        const float hit_ask = arr_ask * fill_ask;
-        new_inv = inv + hit_bid - hit_ask;
-        new_cash = cash - hit_bid * (price - exe0) + hit_ask * (price + exe1);
-        normal = d.normal;
-      } else {
-        // impact at the pre-update state, then the permanent-impact recursion
-        const float impact = p.temporary_impact * exe0 + imp;
-        const float new_imp = imp + p.permanent_impact * exe0 * p.dt;
-        const float volume = exe0 * p.dt;
-        new_inv = inv + volume;
-        new_cash = cash - volume * (price + impact);
-        imp = new_imp;
-        normal = draws.at(j, i, 0);
-      }
-      new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
-      new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
-      const float new_price = price + p.drift_dt + p.vol_sqrt_dt * normal;
-      // ---- reward at the post-step state (RewardFunctions.py)
-      float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
-      const float q2 = new_inv * new_inv;
-      if (p.reward == kCjMm) {
-        reward = reward - p.dt_phi * q2 - p.alpha * (q2 - inv * inv) - p.cjmm_const * q0_sq;
-      } else if (p.reward == kRunning) {
-        const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
-        reward = reward - p.dt_phi * q2 - (p.alpha * terminal) * q2;
-      } else if (p.reward == kCjOe) {
-        reward = reward - p.dt_phi * q2 - p.dt_alpha * (2.0f * exe0 * inv + q0_sq * p.ep_len);
-      }
-      if constexpr (kStats) {
-        rsum = rsum + reward;
-        if constexpr (kDyn == kLimit) ssum = ssum + (raw0 + raw1);
-      } else if (active) {
-        b.rew[static_cast<size_t>(i) * sn + env] = reward;
-      }
-      cash = new_cash;
-      inv = new_inv;
-      price = new_price;
+    };
+    if (kPol == kTable && p.pipe.staged) {
+      step_slot(std::true_type{});
+    } else {
+      step_slot(std::false_type{});
     }
     ring.release(slot);
     if (++slot == p.pipe.slots) {
@@ -305,7 +342,16 @@ cudaError_t launch(const DetKernelParams& p, const DetBuffers& b, int n, uint32_
                    cudaStream_t s) {
   if (p.dynamics == kLimit) {
     switch (p.policy) {
-      case kTable: return launch_mode<kNoise, kLimit, kTable>(p, b, n, seed, stats, s);
+      case kTable: {
+        const size_t first = static_cast<size_t>(p.t_off) * p.table_width;
+        const size_t count = static_cast<size_t>(p.run_steps) * p.table_width;
+        if (count > 0) {
+          const int blocks = static_cast<int>(std::min<size_t>((count + 255) / 256, 1024));
+          fill_table_kernel<<<blocks, 256, 0, s>>>(p.neg_k, b.bid + first, b.ask + first, b.fill_bid + first,
+                                                   b.fill_ask + first, count);
+        }
+        return launch_mode<kNoise, kLimit, kTable>(p, b, n, seed, stats, s);
+      }
       case kFixed: return launch_mode<kNoise, kLimit, kFixed>(p, b, n, seed, stats, s);
       case kSchedule: return launch_mode<kNoise, kLimit, kSchedule>(p, b, n, seed, stats, s);
       default: return cudaErrorInvalidValue;
@@ -326,7 +372,10 @@ bool pipe_ok(const DetKernelParams& p) {
   const mbt::PipeGeometry& g = p.pipe;
   const int groups = g.envs / 32;
   const int channels = p.dynamics == kLimit ? 5 : 1;
-  const bool table_ok = !g.staged || (p.policy == kTable && g.table_rows == 2 && g.row_floats == p.table_width);
+  // the table kind's fill tables hold exp(neg_k * depth) of the raw depth,
+  // which is what the step exponentiates only when actions are not rescaled
+  if (p.policy == kTable && p.normalise_act) return false;
+  const bool table_ok = !g.staged || (p.policy == kTable && g.table_rows == 4 && g.row_floats == p.table_width);
   return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
          g.envs + 32 * g.producers <= mbt::kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 &&
          g.channels == channels && table_ok && g.smem_bytes == mbt::ring_bytes(g);

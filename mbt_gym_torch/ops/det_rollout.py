@@ -589,7 +589,7 @@ class _DetBuffers(ctypes.Structure):
     """``struct DetBuffers`` in ``csrc/det_rollout.cu``: NULL where unused."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "noise", "inv0", "bid", "ask", "schedule",
+        "noise", "inv0", "bid", "ask", "fill_bid", "fill_ask", "schedule",
         "obs", "act", "rew", "fin", "cash", "inv", "price", "rsum", "ssum",
     )]
 
@@ -606,10 +606,11 @@ def _kernels() -> ctypes.CDLL:
 
 def kernel_geometry(p: DetRolloutParams, num_trajectories: int, stats_only: bool, table_width: int = 0):
     """The step pipeline's geometry (:func:`pipeline_geometry`) of one K5
-    call: the table kind stages each step's bid and ask rows, rows of
-    ``table_width`` floats (default ``p.table_size``), where they fit."""
+    call: the table kind stages each step's rows of four tables (bid, ask
+    and their fill probabilities), rows of ``table_width`` floats (default
+    ``p.table_size``), where they fit."""
     return pipeline_geometry(num_trajectories, p.run_steps, p.dynamics_kind, p.policy_kind, stats_only,
-                             table_width or p.table_size, table_rows=2)
+                             table_width or p.table_size, table_rows=4)
 
 
 def det_rollout(p: DetRolloutParams, tables=(), seed: int = 0, num_trajectories: int = 16384,
@@ -649,6 +650,9 @@ def det_rollout(p: DetRolloutParams, tables=(), seed: int = 0, num_trajectories:
     )
     if p.policy_kind == "table":
         buf.bid, buf.ask = tables[0].data_ptr(), tables[1].data_ptr()
+        # scratch for the kernel's fill probabilities exp(-k * depth) of the rows it reads
+        fill = torch.empty((2, *tables[0].shape), dtype=f32, device=device)
+        buf.fill_bid, buf.fill_ask = fill[0].data_ptr(), fill[1].data_ptr()
     elif p.policy_kind == "schedule":
         buf.schedule = tables[0].data_ptr()
     if stats_only:

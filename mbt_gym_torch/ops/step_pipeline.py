@@ -1,5 +1,5 @@
 """Geometry of the warp-specialised step pipeline that K5
-(``csrc/det_rollout.cu``) and K8 (``csrc/cj_episode.cu``) run
+(``csrc/det_rollout.cu``) and K1 (``csrc/as_episode.cu``) run
 (``csrc/step_pipeline.cuh``).
 
 A CTA owns ``envs`` envs: ``envs / 32`` consumer warps run the env step,
@@ -61,7 +61,7 @@ class Geometry(NamedTuple):
     chunk: int
     slots: int
     channels: int
-    table_rows: int  # tables a step reads a row of: K5 bid and ask, K8 one (0: no table)
+    table_rows: int  # tables a step reads a row of: K5's bid, ask and fill tables (0: no table)
     row_floats: int  # floats from one step's row to the next
     staged: int  # 1: the rows are staged in the ring; 0: read from global memory
     smem_bytes: int
@@ -92,8 +92,8 @@ class Geometry(NamedTuple):
 
 
 def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_only: bool,
-                      row_floats: int = 0, table_rows: int = 2) -> Geometry:
-    """The pipeline geometry of one K5 or K8 call of ``n`` envs over
+                      row_floats: int = 0, table_rows: int = 0) -> Geometry:
+    """The pipeline geometry of one K5 or K1 call of ``n`` envs over
     ``run_steps`` steps.
 
     - Envs per CTA: the widest of 128, 64 and 32 that still gives every SM
@@ -101,8 +101,8 @@ def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_
     - Producer warps: ``PRODUCERS_PER_CONSUMER[mode]`` per consumer warp.
     - Channels: five on limit dynamics, the midprice normal alone on speed.
     - The table kind reads a row of each of ``table_rows`` tables a step,
-      ``row_floats`` apart (K5: the bid and ask tables' width; K8: one
-      table of (2Q+1, 2) rows).  A slot's consecutive rows of a table are
+      ``row_floats`` apart (K5: the bid and ask tables and their fill
+      probabilities, the tables' width apart).  A slot's consecutive rows of a table are
       staged as one run, ``chunk`` steps per slot, at most ``MAX_CHUNK``,
       halved until the ring fits ``SMEM_BUDGET``; where one step's rows do
       not fit even so, the table stays in global memory.

@@ -614,8 +614,9 @@ def test_as_episode_pipeline_edges_on_the_card(cuda_device, run_steps, start):
 
 
 def test_a_table_too_wide_to_stage_is_read_from_global_memory_on_the_card(cuda_device):
-    """max_inventory 5,000: 10,001 entries per row and side, 80 KB a step,
-    more than the ring holds, so K5 reads the table from global memory while
+    """max_inventory 5,000: 10,001 entries per row and side, 160 KB a step
+    with the fill tables, more than the ring holds, so K5 reads the tables
+    from global memory while
     the draws are still staged; against its plain version, and K8 (one
     thread per env) at the same width bitwise K5's terminal state.  The
     depths are random (the closed form at this width is not needed to test

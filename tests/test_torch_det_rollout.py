@@ -533,28 +533,29 @@ def test_pipeline_geometry_fits_a_cta(width):
     an SM), the CTA 512 threads, the consumer warps cover the envs per CTA
     and the producers divide among them; at least one step per slot."""
     for n, run_steps, stats_only in itertools.product((1, 4100, 16_384, 131_072), (1, 7, 300, 1000), (True, False)):
-        g = sp.pipeline_geometry(n, run_steps, "limit", "table", stats_only, width)
+        g = sp.pipeline_geometry(n, run_steps, "limit", "table", stats_only, width, table_rows=4)
         assert g.smem_bytes == sp.ring_bytes(g.envs, g.chunk, g.slots, g.channels, g.table_rows * g.staged, width)
         assert g.smem_bytes <= sp.SMEM_BUDGET <= sp.SMEM_PER_CTA == 232_448
         assert g.envs in (32, 64, 128) and g.threads <= sp.MAX_THREADS
         assert g.producers % (g.envs // 32) == 0 and g.producers >= g.envs // 32
         assert 1 <= g.chunk <= max(1, run_steps) and g.slots >= 1 and g.channels == 5
-        assert (g.table_rows, g.row_floats) == (2, width)
+        assert (g.table_rows, g.row_floats) == (4, width)
 
 
 def test_pipeline_geometry_stages_the_cjp_table_and_not_a_huge_one():
     """The CJP width (max_inventory 100: 201 entries per side) is staged at
     the main path's 16,384 x 1,000 and at 131,072; max_inventory 5,000
-    (10,001 entries, 80 KB a step) leaves the table in global memory, the
-    draws still staged.  Speed dynamics stage the normal alone."""
+    (10,001 entries a row, 160 KB a step for the four tables) leaves the
+    tables in global memory, the draws still staged.  Speed dynamics stage
+    the normal alone."""
     cj = cj_env_config(num_trajectories=16_384, max_inventory=100.0)
     p = det.cj_rollout_params(cj, CarteaJaimungalMmAgent.from_config(cj, max_inventory=100))
     for n in (16_384, 131_072):
         for stats_only in (True, False):
             g = det.kernel_geometry(p, n, stats_only)
-            assert g.table_path == "staged" and (g.table_rows, g.row_floats) == (2, 201), g
+            assert g.table_path == "staged" and (g.table_rows, g.row_floats) == (4, 201), g
             # a slot's rows of a table land up to 3 floats into their run
-            assert g.smem_bytes == sp.ring_bytes(g.envs, g.chunk, g.slots, 5, 2, 201)
+            assert g.smem_bytes == sp.ring_bytes(g.envs, g.chunk, g.slots, 5, 4, 201)
             assert sp.padded(g.chunk * 201) == (g.chunk * 201 + 6) // 4 * 4
     wide = p._replace(table_size=2 * 5000 + 1)
     g = det.kernel_geometry(wide, 16_384, True)
@@ -569,7 +570,7 @@ def test_pipeline_geometry_stages_the_cjp_table_and_not_a_huge_one():
 
 
 def test_pipeline_geometry_of_a_one_step_episode():
-    g = sp.pipeline_geometry(4_100, 1, "limit", "table", True, 201)
+    g = sp.pipeline_geometry(4_100, 1, "limit", "table", True, 201, table_rows=4)
     assert g.chunk == 1 and g.table_path == "staged"
     g = sp.pipeline_geometry(5, 0, "speed", "fixed", False, 0)
     assert g.chunk == 1 and g.smem_bytes == sp.ring_bytes(32, 1, g.slots, 1)
@@ -583,7 +584,7 @@ def test_kernel_params_carry_the_geometry():
 
     assert ctypes.sizeof(sp.PipelineGeometry) == 9 * 4
     assert det.DetKernelParams.pipe.offset == ctypes.sizeof(det.DetKernelParams) - 9 * 4
-    g = sp.pipeline_geometry(16_384, 1000, "limit", "table", True, 201)
+    g = sp.pipeline_geometry(16_384, 1000, "limit", "table", True, 201, table_rows=4)
     c = g.ctypes()
     assert tuple(getattr(c, name) for name, _ in c._fields_) == tuple(g)
-    assert g.with_shape(128, 12, 8, 3).smem_bytes == sp.ring_bytes(128, 8, 3, 5, 2, 201)
+    assert g.with_shape(128, 12, 8, 3).smem_bytes == sp.ring_bytes(128, 8, 3, 5, 4, 201)
