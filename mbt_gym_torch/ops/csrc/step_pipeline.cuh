@@ -239,8 +239,7 @@ class StepRing {
         }
       }
       if constexpr (!kNoise) {
-        for (int j = first; j < steps; j += stride) {
-          if (env >= n) break;
+        for (int j = first; env < n && j < steps; j += stride) {
           float* out = d + j * kChannels * ds + e_local;
           const int i = c0 + j;
           if constexpr (kChannels == 5) {

@@ -23,7 +23,11 @@ SMEM_PER_CTA = 232_448
 SMEM_BUDGET = SMEM_PER_CTA // 2
 MAX_THREADS = 512  # mbt::kMaxPipeThreads
 MAX_CONSUMER_WARPS = 4
-MAX_CHUNK = 16
+# The share of the SMs that must get a CTA before a wider CTA is taken: at
+# 16,384 envs 128 CTAs of 128 envs on 128 of the 132 SMs ran faster on the
+# H100 than 256 CTAs of 64 (scripts/episode_kernel_times.py --geometry).
+SM_SHARE = 0.95
+MAX_CHUNK = 8
 SLOTS = 2
 # Producer warps per consumer warp: the draws of a step (two Philox calls
 # and Box-Muller on limit dynamics) cost several times the consumers' step;
@@ -96,8 +100,9 @@ def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_
     """The pipeline geometry of one K5 or K1 call of ``n`` envs over
     ``run_steps`` steps.
 
-    - Envs per CTA: the widest of 128, 64 and 32 that still gives every SM
-      a CTA (16,384 envs: 64 per CTA, 256 CTAs; 8,192: 32).
+    - Envs per CTA: the widest of 128, 64 and 32 that still gives
+      ``SM_SHARE`` of the SMs a CTA (16,384 envs: 128 per CTA, 128 CTAs;
+      8,192: 64; 4,100: 32).
     - Producer warps: ``PRODUCERS_PER_CONSUMER[mode]`` per consumer warp.
     - Channels: five on limit dynamics, the midprice normal alone on speed.
     - The table kind reads a row of each of ``table_rows`` tables a step,
@@ -112,7 +117,7 @@ def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_
     rows = table_rows if policy == "table" else 0
     width = row_floats if rows else 0
     consumers = MAX_CONSUMER_WARPS
-    while consumers > 1 and -(-n // (32 * consumers)) < H100_SMS:
+    while consumers > 1 and -(-n // (32 * consumers)) < SM_SHARE * H100_SMS:
         consumers //= 2
     envs = 32 * consumers
     producers = PRODUCERS_PER_CONSUMER["stats" if stats_only else "streams"] * consumers

@@ -564,9 +564,10 @@ def test_pipeline_geometry_stages_the_cjp_table_and_not_a_huge_one():
     oe = oe_env_config(num_trajectories=8_192)
     g = det.kernel_geometry(det.schedule_rollout_params(oe), 8_192, False)
     assert g.table_path == "none" and g.channels == 1 and g.table_rows == 0
-    # every SM gets a CTA: 16,384 envs in 64-env CTAs, 8,192 in 32-env ones
-    assert det.kernel_geometry(p, 16_384, True).envs == 64
-    assert g.envs == 32
+    # nearly every SM gets a CTA: 16,384 envs in 128-env CTAs, 8,192 in 64-env ones
+    assert det.kernel_geometry(p, 16_384, True).envs == 128
+    assert g.envs == 64
+    assert det.kernel_geometry(p, 4_100, True).envs == 32
 
 
 def test_pipeline_geometry_of_a_one_step_episode():

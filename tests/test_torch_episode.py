@@ -221,8 +221,8 @@ def test_wrapper_rejects_bad_noise():
 
 def test_k1_pipeline_geometry():
     """K1's step pipeline stages the draws alone (five channels, no table):
-    at the main path's 16,384 x 200 two consumer warps per CTA and every SM
-    a CTA; a 1-step episode still gets a slot of one step; the ring fits a
+    at the main path's 16,384 x 200 four consumer warps per CTA and 128 of
+    the 132 SMs a CTA; a 1-step episode still gets a slot of one step; the ring fits a
     CTA's shared memory at every shape; the ctypes mirror ends with the
     geometry's nine ints, as struct AsKernelParams declares it."""
     import ctypes
@@ -232,7 +232,7 @@ def test_k1_pipeline_geometry():
     p = ep.params_from_config(as_env_config(num_trajectories=16_384), 0.1)
     g = ep.kernel_geometry(p, 16_384)
     assert (g.channels, g.table_path, g.staged) == (5, "none", 0)
-    assert g.envs == 64 and -(-16_384 // g.envs) >= sp.H100_SMS
+    assert g.envs == 128 and -(-16_384 // g.envs) >= sp.SM_SHARE * sp.H100_SMS
     for n in (1, 4_099, 16_384, 1_048_576):
         for steps in (1, 7, 200):
             g = ep.kernel_geometry(p._replace(n_steps=steps), n)
