@@ -163,11 +163,17 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   const int env0 = blockIdx.x * p.pipe.envs;
   constexpr int kChannels = kDyn == kLimit ? 5 : 1;
   if (warp >= ring.consumer_warps()) {
-    const float* tables[4] = {b.bid, b.ask, b.fill_bid, b.fill_ask};
+    const float* bid = b.bid;
+    const float* ask = b.ask;
+    const float* fill_bid = b.fill_bid;
+    const float* fill_ask = b.fill_ask;
     const int t_off = p.t_off, width = p.table_width;
     // a step's rows of the four tables: bid, ask and their fill probabilities
     ring.produce<kNoise, kChannels>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, b.noise,
-                                    [=](int r, int i) { return tables[r] + static_cast<size_t>(t_off + i) * width; });
+                                    [=](int r, int i) {
+                                      const float* table = r == 0 ? bid : r == 1 ? ask : r == 2 ? fill_bid : fill_ask;
+                                      return table + static_cast<size_t>(t_off + i) * width;
+                                    });
     return;
   }
   const int ts = mbt::table_stride(p.pipe);
@@ -196,14 +202,13 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
     const float* fill_ask_rows = ring.table(slot) + 3 * ts + mbt::granule_shift(b.fill_ask + first_row);
     // the slot's steps, with the staged-table branch taken once per slot
     auto step_slot = [&](auto staged) {
-      constexpr bool kStaged = decltype(staged)::value;
+      [[maybe_unused]] constexpr bool kStaged = decltype(staged)::value;
       for (int j = 0; j < steps; ++j) {
         const int i = c0 + j;
-        const float t = p.start_time + static_cast<float>(i) * p.dt;
-        const int row = p.t_off + i;
+        [[maybe_unused]] const int row = p.t_off + i;
         // ---- policy: the raw action columns (what the stream records)
         float raw0, raw1 = 0.0f;
-        float fill_p0, fill_p1;  // table kind: exp(neg_k * depth) from the fill tables
+        [[maybe_unused]] float fill_p0, fill_p1;  // exp(neg_k * depth): the table kind's from its fill tables
         if constexpr (kPol == kTable) {
           const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
           const int q = static_cast<int>(qf);
@@ -236,6 +241,7 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
         }
         if constexpr (!kStats) {
           if (active) {
+            const float t = p.start_time + static_cast<float>(i) * p.dt;
             const size_t o = static_cast<size_t>(i) * p.s_dim * sn + env;
             write_obs(p, b.obs + o, sn, cash, inv, t, price, imp);
             const size_t a = static_cast<size_t>(i) * p.a_dim * sn + env;

@@ -192,7 +192,7 @@ class StepRing {
     const int first = pw / groups, stride = g_.producers / groups;
     const int valid = min(g_.envs, n - env0);
     const int ds = draw_stride(g_), ts = table_stride(g_);
-    const int draw_runs = kNoise ? kChannels : 0;  // bulk copies per step
+    constexpr int draw_runs = kNoise ? kChannels : 0;  // bulk copies per step
     const int table_runs = g_.staged ? g_.table_rows : 0;  // bulk copies per slot
     int slot = 0;
     uint32_t phase = 0;
@@ -206,16 +206,18 @@ class StepRing {
         // run k: the slot's rows of table k, then step (k - table_runs) /
         // draw_runs's draw channels
         auto run = [&](int k, float** dst, int* floats) {
-          if (k < table_runs) {
-            *dst = t + k * ts;
-            *floats = steps * g_.row_floats;
-            return table_row(k, c0);
+          if constexpr (kNoise) {
+            if (k >= table_runs) {
+              const int j = (k - table_runs) / kChannels, c = k - table_runs - j * kChannels;
+              const int channel = kChannels == 1 ? 4 : c;
+              *dst = d + (j * kChannels + c) * ds;
+              *floats = valid;
+              return noise + (static_cast<size_t>(c0 + j) * 5 + channel) * n + env0;
+            }
           }
-          const int j = (k - table_runs) / draw_runs, c = k - table_runs - j * draw_runs;
-          const int channel = kChannels == 1 ? 4 : c;
-          *dst = d + (j * kChannels + c) * ds;
-          *floats = valid;
-          return noise + (static_cast<size_t>(c0 + j) * 5 + channel) * n + env0;
+          *dst = t + k * ts;
+          *floats = steps * g_.row_floats;
+          return table_row(k, c0);
         };
         if (lane == 0) {
           uint32_t total = 0;

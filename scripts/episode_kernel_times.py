@@ -14,8 +14,9 @@ card's time alone, host work excluded) beside the call time
 - K5 ``det_rollout``: CJP table stats and streams at 16,384 x 1,000, table
   stats at 131,072 x 1,000, OE schedule streams at 8,192 x 200;
 - K8 ``cj_episode`` at 16,384 x 1,000;
-- K1 ``as_episode`` and K2 ``as_episode_trajectories`` at 16,384 x 200, K6
-  ``oe_episode`` at 8,192 x 200.
+- K1 ``as_episode`` at 16,384 and 1,048,576 x 200, K2
+  ``as_episode_trajectories`` at 16,384 x 200, K6 ``oe_episode`` at 8,192 x
+  200.
 
 ``--geometry`` fixes K5's and K1's pipeline geometry (envs per CTA,
 producer warps, steps per slot, slots, and 0 to leave the table in global
@@ -120,6 +121,7 @@ def main():
          lambda: det.schedule_rollout(p_sched, speed_table[:, None], 9, 8_192, final_obs=True, device=dev)),
         ("K8", 16_384, 1000, lambda: cj.cj_episode(p_cj, cj_table, 9, 100, 16_384, device=dev)),
         ("K1", 16_384, 200, lambda: ep.as_episode(p_as, 9, 16_384, device=dev)),
+        ("K1", 1_048_576, 200, lambda: ep.as_episode(p_as, 9, 1_048_576, device=dev)),
         ("K2 full", 16_384, 200, lambda: ep.as_episode_trajectories(p_as, 9, 16_384, emit="full", device=dev)),
         ("K6", 8_192, 200, lambda: oe.oe_episode(p_oe, speed_table, 9, 8_192, device=dev)),
     )
