@@ -29,8 +29,12 @@ public entry points and times it all:
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
 update passes and of K3 run tensor-core instructions and the float32 ones
-none; phases 8, 9 and 19 launch K3, K4 and K7 twice on the same inputs and
-require bitwise-equal results.
+none, and that K5 and K1, the step-pipeline kernels, spill nothing; phases
+2, 8, 9, 14 and 19 launch K1, K3, K4, K5, K7 and K8 twice on the same
+inputs and require bitwise-equal results.  Kernel times are the card's
+own (``device_ms``: a sleep ahead of the start event keeps the wrapper's
+host work out of the window), with the caller's time (``call_ms``) beside
+them; the kernels are ranked by launches x (device time - bound).
 
 Run from the repository root:
 
@@ -964,10 +968,13 @@ def cj_phases(torch, np, card, dev):
             "launches": launches[key], "max_abs_err": err[name[:2]], "ms": ms, "call_ms": call, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    # which way K5 reads the depth table at the main path's shape
+    # which way K5 and K8 read the depth table at the main paths' shape:
+    # K5 staged in its step pipeline's ring (or global memory, for a table
+    # too wide for the ring); K8, one thread per env, from global memory
     geometry = det.kernel_geometry(p_table, CJ_N, True)
     entries[0]["table_path"] = geometry.table_path
     entries[0]["pipeline"] = pipeline_entry(geometry)
+    entries[2]["table_path"] = "global"
     print(f"phase 17 K5 at {CJ_N}x{cj_steps}: table {geometry.table_path}, pipeline {entries[0]['pipeline']}")
     return entries
 
@@ -1334,9 +1341,11 @@ def main():
         noise = torch.from_numpy(channels).to(dev)
         for mode, kw in (("noise", {"noise": noise}), ("native", {"seed": 50, "device": dev})):
             k1 = ep.as_episode(p, num_trajectories=N_MAIN, **kw)
+            k1_again = ep.as_episode(p, num_trajectories=N_MAIN, **kw)
             k1_plain = ep.as_episode_plain(p, num_trajectories=N_MAIN, **kw)
             torch.cuda.synchronize()
             err["K1"] = max(err["K1"], compare_terminal(torch, k1, k1_plain, N_MAIN, f"phase 2 K1 {label} {mode}"))
+            check_repeat(torch, (dict(enumerate(k1)),), (dict(enumerate(k1_again)),), f"phase 2 K1 {label} {mode}")
             for emit in ("full", "container"):
                 k2 = ep.as_episode_trajectories(p, num_trajectories=N_MAIN, emit=emit, **kw)
                 k2_plain = ep.as_episode_trajectories_plain(p, num_trajectories=N_MAIN, emit=emit, **kw)
