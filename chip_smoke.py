@@ -117,21 +117,16 @@ def cuda_ms(torch, fn, warmup=2, reps=5):
     return statistics.median(event_times(torch, fn, warmup, reps))
 
 
-_SLEEP_MS_PER_MCYCLE = []
-
-
-def sleep_cycles(torch, ms):
-    """``torch.cuda._sleep`` cycles that keep the card busy for ``ms``
-    milliseconds, from one timed sleep of a million cycles (cached)."""
-    if not _SLEEP_MS_PER_MCYCLE:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(1_000_000)  # warm
-        start.record()
-        torch.cuda._sleep(1_000_000)
-        end.record()
-        end.synchronize()
-        _SLEEP_MS_PER_MCYCLE.append(start.elapsed_time(end))
-    return int(ms / _SLEEP_MS_PER_MCYCLE[0] * 1e6) + 1
+def sleep_ms_per_mcycle(torch):
+    """Milliseconds one ``torch.cuda._sleep`` of a million cycles keeps the
+    card busy (one warm sleep, then one timed)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def device_times(torch, fn, warmup=2, reps=5):
@@ -152,11 +147,12 @@ def device_times(torch, fn, warmup=2, reps=5):
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     lead_ms = max(1.0, 4.0 * host_ms)
+    ms_per_mcycle = sleep_ms_per_mcycle(torch)
     times = []
     while len(times) < reps:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(sleep_cycles(torch, lead_ms))
+        torch.cuda._sleep(int(lead_ms / ms_per_mcycle * 1e6) + 1)
         start.record()
         fn()
         covered = not start.query()
