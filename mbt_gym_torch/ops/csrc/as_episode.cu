@@ -151,25 +151,7 @@ as_episode_kernel(const AsKernelParams p, int n, uint32_t seed, const float* __r
 
 // K1's geometry as the wrapper chose it, checked against what the kernel
 // assumes: draws only, five channels.
-bool pipe_ok(const mbt::PipeGeometry& g) {
-  const int groups = g.envs / 32;
-  return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
-         g.envs + 32 * g.producers <= mbt::kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 && g.channels == 5 &&
-         !g.staged && g.smem_bytes == mbt::ring_bytes(g);
-}
-
-template <bool kNoise>
-cudaError_t launch_episode(const AsKernelParams& p, int n, uint32_t seed, const float* noise, float* cash,
-                           float* inv, float* price, cudaStream_t s) {
-  const auto kernel = as_episode_kernel<kNoise>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.pipe.smem_bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + p.pipe.envs - 1) / p.pipe.envs);
-  const dim3 block(p.pipe.envs + 32 * p.pipe.producers);
-  kernel<<<grid, block, p.pipe.smem_bytes, s>>>(p, n, seed, noise, cash, inv, price);
-  return cudaSuccess;
-}
+bool pipe_ok(const mbt::PipeGeometry& g) { return mbt::pipe_shape_ok(g, 5) && !g.staged; }
 
 // Output planes of K2, in the container's plane order.  emit="state" fills
 // cash/inv/price; "full" adds reward/bid/ask; "container" adds time.
@@ -244,8 +226,8 @@ extern "C" int mbt_as_episode(const AsKernelParams* p, int device, int n, uint32
   if (n <= 0) return 0;
   if (!pipe_ok(p->pipe)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = noise ? launch_episode<true>(*p, n, seed, noise, cash, inv, price, s)
-              : launch_episode<false>(*p, n, seed, noise, cash, inv, price, s);
+  err = noise ? mbt::launch_pipeline(as_episode_kernel<true>, p->pipe, n, s, *p, n, seed, noise, cash, inv, price)
+              : mbt::launch_pipeline(as_episode_kernel<false>, p->pipe, n, s, *p, n, seed, noise, cash, inv, price);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

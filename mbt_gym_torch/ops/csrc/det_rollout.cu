@@ -324,23 +324,11 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   }
 }
 
-template <bool kNoise, int kDyn, int kPol, bool kStats>
-cudaError_t launch_kernel(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, cudaStream_t s) {
-  const auto kernel = det_rollout_kernel<kNoise, kDyn, kPol, kStats>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.pipe.smem_bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + p.pipe.envs - 1) / p.pipe.envs);
-  const dim3 block(p.pipe.envs + 32 * p.pipe.producers);
-  kernel<<<grid, block, p.pipe.smem_bytes, s>>>(p, b, n, seed);
-  return cudaSuccess;
-}
-
 template <bool kNoise, int kDyn, int kPol>
 cudaError_t launch_mode(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
                         cudaStream_t s) {
-  return stats ? launch_kernel<kNoise, kDyn, kPol, true>(p, b, n, seed, s)
-               : launch_kernel<kNoise, kDyn, kPol, false>(p, b, n, seed, s);
+  return stats ? mbt::launch_pipeline(det_rollout_kernel<kNoise, kDyn, kPol, true>, p.pipe, n, s, p, b, n, seed)
+               : mbt::launch_pipeline(det_rollout_kernel<kNoise, kDyn, kPol, false>, p.pipe, n, s, p, b, n, seed);
 }
 
 template <bool kNoise>
@@ -376,15 +364,11 @@ cudaError_t launch(const DetKernelParams& p, const DetBuffers& b, int n, uint32_
 // The geometry the wrapper chose, checked against what the kernel assumes.
 bool pipe_ok(const DetKernelParams& p) {
   const mbt::PipeGeometry& g = p.pipe;
-  const int groups = g.envs / 32;
-  const int channels = p.dynamics == kLimit ? 5 : 1;
   // the table kind's fill tables hold exp(neg_k * depth) of the raw depth,
   // which is what the step exponentiates only when actions are not rescaled
   if (p.policy == kTable && p.normalise_act) return false;
   const bool table_ok = !g.staged || (p.policy == kTable && g.table_rows == 4 && g.row_floats == p.table_width);
-  return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
-         g.envs + 32 * g.producers <= mbt::kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 &&
-         g.channels == channels && table_ok && g.smem_bytes == mbt::ring_bytes(g);
+  return mbt::pipe_shape_ok(g, p.dynamics == kLimit ? 5 : 1) && table_ok;
 }
 
 }  // namespace

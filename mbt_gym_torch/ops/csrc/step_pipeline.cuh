@@ -76,6 +76,28 @@ __host__ __device__ inline int ring_bytes(const PipeGeometry& g) {
   return 16 * g.slots + 4 * g.slots * ring_slot_floats(g);
 }
 
+// The invariants every pipeline kernel assumes of its geometry (the
+// wrapper's pipeline_geometry keeps them): whole warps of envs, producers a
+// multiple of the env groups, the CTA within kMaxPipeThreads, `channels`
+// draw channels, and the shared memory ring_bytes() gives.
+inline bool pipe_shape_ok(const PipeGeometry& g, int channels) {
+  const int groups = g.envs / 32;
+  return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
+         g.envs + 32 * g.producers <= kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 && g.channels == channels &&
+         g.smem_bytes == ring_bytes(g);
+}
+
+// Launches a pipeline kernel over n envs: one CTA per E envs, E + 32 P
+// threads, the ring's dynamic shared memory.
+template <class... Params, class... Args>
+cudaError_t launch_pipeline(void (*kernel)(Params...), const PipeGeometry& g, int n, cudaStream_t s,
+                            const Args&... args) {
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem_bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(n + g.envs - 1) / g.envs, g.envs + 32 * g.producers, g.smem_bytes, s>>>(args...);
+  return cudaSuccess;
+}
+
 // Where a run of floats starting at `p` lands in its slot row: its offset
 // in floats from the 16-byte granule that holds it.
 __device__ __forceinline__ int granule_shift(const float* p) {
