@@ -29,9 +29,11 @@ public entry points and times it all:
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
 update passes and of K3 run tensor-core instructions and the float32 ones
-none, and that K5 and K1, the step-pipeline kernels, spill nothing; phases
-2, 8, 9, 14 and 19 launch K1, K3, K4, K5, K7 and K8 twice on the same
-inputs and require bitwise-equal results.  Kernel times are the card's
+none, and that K1, K5, K6 and K8, the step-pipeline kernels, spill nothing
+in any instantiation (the wide shape's included); phases 2, 8, 9, 14 and
+19 launch K1, K3, K4, K5, K6, K7 and K8 twice on the same inputs and
+require bitwise-equal results, and phases 2 and 14 hold K1, K6 and K8 to
+their plain versions at their wide shape too.  Kernel times are the card's
 own (``device_ms``: a sleep ahead of the start event keeps the wrapper's
 host work out of the window), with the caller's time (``call_ms``) beside
 them; the kernels are ranked by launches x (device time - bound).
@@ -199,8 +201,10 @@ def rank_by_gap(entries):
 
 def pipeline_entry(geometry):
     """The kernels line's view of a step-pipeline geometry
-    (mbt_gym_torch/ops/step_pipeline.py)."""
-    return {k: geometry._asdict()[k] for k in ("envs", "producers", "chunk", "slots", "smem_bytes")}
+    (mbt_gym_torch/ops/step_pipeline.py): which shape ("pipeline", or
+    "wide": one thread per env, no ring) and its sizes."""
+    return {"shape": geometry.shape,
+            **{k: geometry._asdict()[k] for k in ("envs", "producers", "chunk", "slots", "smem_bytes")}}
 
 
 def kernel_row(phase, card, name, shape, env_steps, ms, call, b_ms, b_by, plain_ms=None):
@@ -752,14 +756,27 @@ def cj_phases(torch, np, card, dev):
                 err["K5"] = max(err["K5"], compare_outputs(torch, got, want, n, f"phase 14 K5 {at}", streams=not stats))
                 check_repeat(torch, (dict(enumerate(got)),), (dict(enumerate(again)),), f"phase 14 K5 {at}")
             del got, again, want
-    normals = torch.from_numpy(np.random.default_rng(15).normal(size=(oe_steps, OE_N)).astype(np.float32)).to(dev)
-    for mode, kw in (("noise", {"noise": normals}), ("native", {"seed": 42, "device": dev})):
-        got = oe.oe_episode(p_oe, speed_table, num_trajectories=OE_N, **kw)
-        want = oe.oe_episode_plain(p_oe, speed_table, num_trajectories=OE_N, **kw)
-        torch.cuda.synchronize()
-        err["K6"] = max(err["K6"], compare_outputs(torch, got, want, OE_N, f"phase 14 K6 {mode} at {OE_N}x{oe_steps}"))
+    # K6 at its main shape (the step pipeline) and its wide shape, both
+    # draw modes, a repeated launch bitwise
+    gen = torch.Generator(dev).manual_seed(15)
+    for n in (OE_N, OE_LARGE_N):
+        shape = oe.kernel_geometry(p_oe, n).shape
+        check(shape == ("pipeline" if n == OE_N else "wide"), f"phase 14 K6 at {n} envs takes the {shape} shape")
+        normals = torch.randn((oe_steps, n), generator=gen, device=dev)
+        for mode, kw in (("noise", {"noise": normals}), ("native", {"seed": 42, "device": dev})):
+            got = oe.oe_episode(p_oe, speed_table, num_trajectories=n, **kw)
+            again = oe.oe_episode(p_oe, speed_table, num_trajectories=n, **kw)
+            want = oe.oe_episode_plain(p_oe, speed_table, num_trajectories=n, **kw)
+            torch.cuda.synchronize()
+            at = f"{mode} at {n}x{oe_steps} ({shape})"
+            err["K6"] = max(err["K6"], compare_outputs(torch, got, want, n, f"phase 14 K6 {at}"))
+            check_repeat(torch, (dict(enumerate(got)),), (dict(enumerate(again)),), f"phase 14 K6 {at}")
+        del normals, got, again, want
+    # K8 at its main shape, bitwise K5's table stats mode on the same noise;
+    # at its wide shape (1,048,576 envs, the episode cut to 200 steps)
     p_cj = cj.cj_params_from_config(cj_cfg)
     cj_table = torch.tensor(cj_agent.depth_table_f32()[:-1], device=dev)
+    check(cj.kernel_geometry(p_cj, 100, CJ_N).shape == "pipeline", "phase 14 K8 at its main shape is not a pipeline")
     for mode, kw in (("noise", {"noise": channels(16, cj_steps, CJ_N)}), ("native", {"seed": 43, "device": dev})):
         got = cj.cj_episode(p_cj, cj_table, q_cap=100, num_trajectories=CJ_N, **kw)
         again = cj.cj_episode(p_cj, cj_table, q_cap=100, num_trajectories=CJ_N, **kw)
@@ -771,8 +788,22 @@ def cj_phases(torch, np, card, dev):
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got[:3], k5[:3])),
               f"phase 14 K8 {mode}: terminal state differs from K5's table stats mode on the same noise")
-    print(f"phase 14 ok in {time.perf_counter() - t0:.1f} s: K5, K6 and K8 agree with their plain versions; "
-          "K8's terminal state equals K5's table stats mode on the same noise")
+    wide_steps = 200
+    p_wide, wide_table = p_cj._replace(n_steps=wide_steps), cj_table[:wide_steps]
+    check(cj.kernel_geometry(p_wide, 100, OE_LARGE_N).shape == "wide", "phase 14 K8 at its wide shape is not wide")
+    wide_noise = torch.rand((wide_steps, 5, OE_LARGE_N), generator=gen, device=dev)
+    wide_noise[:, 4] = torch.randn((wide_steps, OE_LARGE_N), generator=gen, device=dev)
+    for mode, kw in (("noise", {"noise": wide_noise}), ("native", {"seed": 44, "device": dev})):
+        got = cj.cj_episode(p_wide, wide_table, q_cap=100, num_trajectories=OE_LARGE_N, **kw)
+        again = cj.cj_episode(p_wide, wide_table, q_cap=100, num_trajectories=OE_LARGE_N, **kw)
+        want = cj.cj_episode_plain(p_wide, wide_table, q_cap=100, num_trajectories=OE_LARGE_N, **kw)
+        torch.cuda.synchronize()
+        at = f"{mode} at {OE_LARGE_N}x{wide_steps} (wide)"
+        err["K8"] = max(err["K8"], compare_outputs(torch, got, want, OE_LARGE_N, f"phase 14 K8 {at}"))
+        check_repeat(torch, (dict(enumerate(got)),), (dict(enumerate(again)),), f"phase 14 K8 {at}")
+    del wide_noise, got, again, want
+    print(f"phase 14 ok in {time.perf_counter() - t0:.1f} s: K5, K6 and K8 agree with their plain versions "
+          "(K6 and K8 at their wide shape too); K8's terminal state equals K5's table stats mode on the same noise")
 
     # ---- phase 15: the CJ paths through the public entry points, auto
     t0 = time.perf_counter()
@@ -925,7 +956,7 @@ def cj_phases(torch, np, card, dev):
         ("K5 det_rollout schedule streams native", k5_sched, None, OE_N, oe_steps,
          bound(oe_steps * 4 + (oe_steps * (s_oe + 4) + s_oe) * 4 * OE_N, OPS_PER_ENV_STEP_K5_SPEED * OE_N * oe_steps)),
         ("K6 oe_episode native", (k6_ms, k6_call_ms), k6_plain_ms, OE_N, oe_steps, k6_bound),
-        ("K6 oe_episode native", k6_big, None, OE_LARGE_N, oe_steps,
+        (f"K6 oe_episode native ({oe.kernel_geometry(p_oe, OE_LARGE_N).shape} shape)", k6_big, None, OE_LARGE_N, oe_steps,
          bound(oe_steps * 4 + 6 * 4 * OE_LARGE_N, OPS_PER_ENV_STEP_K6 * OE_LARGE_N * oe_steps)),
         ("K8 cj_episode native", (k8_ms, k8_call_ms), k8_plain_ms, CJ_N, cj_steps, k8_bound),
     )
@@ -964,14 +995,14 @@ def cj_phases(torch, np, card, dev):
             "launches": launches[key], "max_abs_err": err[name[:2]], "ms": ms, "call_ms": call, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    # which way K5 and K8 read the depth table at the main paths' shape:
-    # K5 staged in its step pipeline's ring (or global memory, for a table
-    # too wide for the ring); K8, one thread per env, from global memory
-    geometry = det.kernel_geometry(p_table, CJ_N, True)
-    entries[0]["table_path"] = geometry.table_path
-    entries[0]["pipeline"] = pipeline_entry(geometry)
-    entries[2]["table_path"] = "global"
-    print(f"phase 17 K5 at {CJ_N}x{cj_steps}: table {geometry.table_path}, pipeline {entries[0]['pipeline']}")
+    # the step-pipeline geometry of K5, K6 and K8 at the main paths' shape,
+    # and which way K5 and K8 read the depth table there: staged in the
+    # ring, or from global memory for a table too wide for it
+    for entry, geometry in zip(entries, (det.kernel_geometry(p_table, CJ_N, True), oe.kernel_geometry(p_oe, OE_N),
+                                         cj.kernel_geometry(p_cj, 100, CJ_N))):
+        entry["table_path"] = geometry.table_path
+        entry["pipeline"] = pipeline_entry(geometry)
+        print(f"phase 17 {entry['name']} on its main path: table {geometry.table_path}, pipeline {entry['pipeline']}")
     return entries
 
 
@@ -1077,17 +1108,22 @@ def update_phases(torch, np, card, dev):
     # ppo_pass1/ppo_pass2 with kRowMajor = true (template arguments
     # "Lb?ELb1E"), the bf16 instantiations "ILb1E"; K3 (both layouts) is
     # mlp_rollout_kernel.  Then the tensor-core instructions of each.
+    # The step-pipeline kernels K1, K5, K6 and K8 spill nothing: K5's 20
+    # instantiations, and K1's, K6's and K8's 4 (two draw modes, the
+    # pipeline and the wide shape).
+    pipeline_kernels = {"det_rollout.cu": 20, "as_episode.cu": 4, "oe_episode.cu": 4, "cj_episode.cu": 4}
     for src, names in (("fused_ppo.cu", ("ppo_pass1", "ppo_pass2")), ("mlp_rollout.cu", ("mlp_rollout_kernel",)),
                        ("det_rollout.cu", ("det_rollout_kernel",)), ("as_episode.cu", ("as_episode_kernel",)),
-                       ("cj_episode.cu", ("cj_episode_kernel",))):
+                       ("oe_episode.cu", ("oe_episode_kernel",)), ("cj_episode.cu", ("cj_episode_kernel",))):
         rows = kernel_registers(_build.ptxas_reports.get(src, ""), names)
         check(rows, f"phase 18: no ptxas report for {names} in {src}")
         for entry, usage in rows:
             print(f"phase 18 registers {src} {entry[:90]}: {usage}")
-            if src in ("det_rollout.cu", "as_episode.cu"):  # the step-pipeline kernels K5 and K1 spill nothing
+            if src in pipeline_kernels:
                 check(spill_bytes(usage) == 0, f"phase 18: {entry} spills: {usage}")
-    check(len(kernel_registers(_build.ptxas_reports["det_rollout.cu"], ("det_rollout_kernel",))) == 20,
-          "phase 18: det_rollout.cu does not hold K5's 20 instantiations")
+        if src in pipeline_kernels:
+            check(len(rows) == pipeline_kernels[src],
+                  f"phase 18: {src} holds {len(rows)} instantiations of {names}, not {pipeline_kernels[src]}")
     check_tensor_cores(_build.build("fused_ppo.cu"), "fused_ppo.cu", ("ppo_pass",), 8)
     # K3: mlp_rollout_kernel<true> (bf16, tensor cores) and <false>; MUFU
     # counts the special-function instructions behind its tanhf/expf/logf
@@ -1350,7 +1386,19 @@ def main():
                 last = (k2[0][-1], k2[1][-1], k2[3 if emit == "container" else 2][-1])
                 check(all(torch.equal(a, b) for a, b in zip(last, k1)),
                       f"phase 3 K2 {emit} {label} {mode}: last row differs from K1's terminal state")
-    print("phase 2/3 ok: K1 and K2 agree with their plain versions; K2's last row is K1's terminal state")
+    # K1 at 1,048,576 envs takes the wide shape: native mode against the
+    # plain version, a repeated launch bitwise
+    p_large = ep.params_from_config(dataclasses.replace(default_cfg, num_trajectories=N_LARGE), 0.1)
+    check(ep.kernel_geometry(p_large, N_LARGE).shape == "wide", "phase 2: K1 at its wide shape is not wide")
+    k1 = ep.as_episode(p_large, 50, N_LARGE, device=dev)
+    k1_again = ep.as_episode(p_large, 50, N_LARGE, device=dev)
+    k1_plain = ep.as_episode_plain(p_large, 50, N_LARGE, device=dev)
+    torch.cuda.synchronize()
+    err["K1"] = max(err["K1"], compare_terminal(torch, k1, k1_plain, N_LARGE, "phase 2 K1 wide shape native"))
+    check_repeat(torch, (dict(enumerate(k1)),), (dict(enumerate(k1_again)),), "phase 2 K1 wide shape native")
+    del k1, k1_again, k1_plain
+    print("phase 2/3 ok: K1 and K2 agree with their plain versions (K1 at its wide shape too); "
+          "K2's last row is K1's terminal state")
 
     # ---- phase 4: the main path through the public entry points (native)
     cfg = default_cfg
@@ -1418,7 +1466,8 @@ def main():
     for name, ms, call, plain_ms, n, (b_ms, b_by) in (
         ("K1 as_episode native", k1_ms, k1_call_ms, k1_plain_ms, N_MAIN, k1_bound_at(N_MAIN)),
         ("K2 as_episode_trajectories full native", k2_ms, k2_call_ms, k2_plain_ms, N_MAIN, k2_bound_at(N_MAIN)),
-        ("K1 as_episode native", k1_large, k1_large_call, None, N_LARGE, k1_bound_at(N_LARGE)),
+        (f"K1 as_episode native ({ep.kernel_geometry(large, N_LARGE).shape} shape)", k1_large, k1_large_call, None,
+         N_LARGE, k1_bound_at(N_LARGE)),
         ("K2 as_episode_trajectories full native", k2_large, k2_large_call, None, N_LARGE, k2_bound_at(N_LARGE)),
     ):
         print(kernel_row(6, card, name, f"{n}x{STEPS}", n * STEPS, ms, call, b_ms, b_by, plain_ms))

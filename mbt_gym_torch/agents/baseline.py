@@ -83,12 +83,22 @@ class AvellanedaStoikovAgent:
         return tag_policy(policy_fn, kind="as_closed_form", agent=self)
 
 
-def _device_table(cache: dict, table: np.ndarray, device) -> torch.Tensor:
-    """``table`` as a tensor on ``device``, copied there once per device."""
+def _device_table(cache: dict, table, device):
+    """``table`` as a tensor on ``device``, copied there once per device;
+    ``table`` may also be a function that makes the value on ``device``."""
     key = str(device)
     if key not in cache:
-        cache[key] = torch.tensor(table, device=device)
+        cache[key] = table() if callable(table) else torch.tensor(table, device=device)
     return cache[key]
+
+
+@functools.lru_cache(maxsize=32)
+def agent_device_tables(agent, kind: str) -> dict:
+    """The cache of one ``kind`` of ``agent``'s kernel tables by device (for
+    :func:`_device_table`), kept per agent value as its float32 depth table
+    is: the CJ kernels' entry points copy their tables to the card once,
+    not on every call."""
+    return {}
 
 
 @functools.lru_cache(maxsize=16)

@@ -7,7 +7,10 @@ per env, quoting from the closed-form depth table per step, returning only
 the terminal ``(cash, inventory, price, sum q_t^2)``.  The CjMm episode
 reward telescopes to those (:func:`cj_episode_rewards`), which is the
 value-function lane of the CJP replication.  CUDA C++ in
-``csrc/cj_episode.cu``.
+``csrc/cj_episode.cu``, on the step pipeline of ``csrc/step_pipeline.cuh``
+with the geometry of :func:`kernel_geometry`; the fill probabilities
+``exp(-k * depth)`` of the table it stages come from
+:func:`cj_fill_table`.
 
 The JAX kernel has hardware PRNG only.  This one also has a noise mode in
 K1's ``(T, 5, N)`` layout (arrival-bid u, arrival-ask u, fill-bid u,
@@ -31,6 +34,7 @@ import torch
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
 from mbt_gym_torch.ops.episode import _MASK32, _target, philox_noise
+from mbt_gym_torch.ops.step_pipeline import PipelineGeometry, pipeline_geometry
 
 
 class CjEpisodeParams(NamedTuple):
@@ -94,8 +98,9 @@ def cj_params_from_config(cfg: EnvConfig) -> CjEpisodeParams:
 
 
 class CjKernelParams(ctypes.Structure):
-    """float32 step constants shared by the plain version and the kernel
-    (``struct CjKernelParams`` in ``csrc/cj_episode.cu``)."""
+    """float32 step constants shared by the plain version and the kernel,
+    then the kernel's step-pipeline geometry (``struct CjKernelParams`` in
+    ``csrc/cj_episode.cu``)."""
 
     _fields_ = [
         ("n_steps", ctypes.c_int),
@@ -107,7 +112,16 @@ class CjKernelParams(ctypes.Structure):
         ("drift_dt", ctypes.c_float),
         ("vol_sqrt_dt", ctypes.c_float),
         ("initial_price", ctypes.c_float),
+        ("pipe", PipelineGeometry),
     ]
+
+
+def kernel_geometry(p: CjEpisodeParams, q_cap: int, num_trajectories: int):
+    """K8's step-pipeline geometry (:func:`pipeline_geometry`): limit
+    dynamics, the terminal state alone, and each step's interleaved
+    ``(2Q+1, 2)`` rows of two tables (the depths and their fill
+    probabilities) staged where they fit; the wide shape at wide calls."""
+    return pipeline_geometry(num_trajectories, p.n_steps, "limit", "table", True, 2 * (2 * q_cap + 1), table_rows=2)
 
 
 def kernel_params(p: CjEpisodeParams, q_cap: int) -> CjKernelParams:
@@ -133,16 +147,48 @@ def _check_call(p: CjEpisodeParams, table: torch.Tensor, q_cap: int, n: int, noi
         )
 
 
+def cj_fill_table_plain(p: CjEpisodeParams, depth_table) -> torch.Tensor:
+    """Plain PyTorch :func:`cj_fill_table`: ``exp(-k * depth)`` of every
+    entry, on the table's device."""
+    return torch.exp(kernel_params(p, 0).neg_k * torch.as_tensor(depth_table, dtype=torch.float32))
+
+
+def cj_fill_table(p: CjEpisodeParams, depth_table: torch.Tensor) -> torch.Tensor:
+    """The fill probabilities ``exp(-k * depth)`` of every entry of a depth
+    table, the same shape: what K8's step compares its fill draws with.  On
+    a CPU tensor this is :func:`cj_fill_table_plain`; on a CUDA tensor one
+    launch of ``csrc/cj_episode.cu``'s fill kernel, the same ``expf`` of the
+    same float as the step, so the bits agree."""
+    if depth_table.device.type == "cpu":
+        return cj_fill_table_plain(p, depth_table)
+    if depth_table.device.type != "cuda" or depth_table.dtype != torch.float32:
+        raise ValueError(f"the fill table is float32 on a CUDA device, not {depth_table.dtype} on {depth_table.device}")
+    table = depth_table.contiguous()
+    fill = torch.empty_like(table)
+    index, stream = _build.device_stream(table.device)
+    rc = _kernels().mbt_cj_fill_table(kernel_params(p, 0).neg_k, index, table.data_ptr(), fill.data_ptr(),
+                                      table.numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"cj_fill_table kernel launch failed: CUDA error {rc}")
+    return fill
+
+
 def cj_episode_plain(p: CjEpisodeParams, depth_table, seed: int = 0, q_cap: int = 100,
-                     num_trajectories: int = 16384, noise: Optional[torch.Tensor] = None, device=None):
+                     num_trajectories: int = 16384, noise: Optional[torch.Tensor] = None, device=None,
+                     fill_table: Optional[torch.Tensor] = None):
     """Plain PyTorch K8 on any device, in the kernel's float32 operation
     order (pallas_episode.py:365-397); returns what :func:`cj_episode`
-    returns."""
+    returns.  With ``fill_table`` (:func:`cj_fill_table` of the table) the
+    fill probabilities are gathered from it instead of exponentiated per
+    step, as the kernel does: the same floats."""
     device = noise.device if noise is not None else resolve_device(device)
     n = num_trajectories
     table = torch.as_tensor(depth_table, dtype=torch.float32, device=device)
     _check_call(p, table, q_cap, n, noise)
     kp = kernel_params(p, q_cap)
+    if fill_table is not None:
+        fill_table = torch.as_tensor(fill_table, dtype=torch.float32, device=device)
+        assert fill_table.shape == table.shape, (tuple(fill_table.shape), tuple(table.shape))
     draws = philox_noise(seed, kp.n_steps, n, device) if noise is None else noise
     f32 = torch.float32
     cash, inv, sumq2 = (torch.zeros((n,), dtype=f32, device=device) for _ in range(3))
@@ -152,10 +198,15 @@ def cj_episode_plain(p: CjEpisodeParams, depth_table, seed: int = 0, q_cap: int 
         idx = torch.clamp(inv + kp.q_cap, 0, 2 * kp.q_cap).to(torch.int64)
         quotes = table[i][idx]  # (N, 2): the one-hot contraction's single term
         bid, ask = quotes[:, 0], quotes[:, 1]
+        if fill_table is None:
+            fill_p_bid, fill_p_ask = torch.exp(kp.neg_k * bid), torch.exp(kp.neg_k * ask)
+        else:
+            fill_p = fill_table[i][idx]
+            fill_p_bid, fill_p_ask = fill_p[:, 0], fill_p[:, 1]
         arr_bid = (d[0] < kp.p_arr_bid).to(f32)
         arr_ask = (d[1] < kp.p_arr_ask).to(f32)
-        fill_bid = (d[2] < torch.exp(kp.neg_k * bid)).to(f32) * (inv < kp.max_inventory).to(f32)
-        fill_ask = (d[3] < torch.exp(kp.neg_k * ask)).to(f32) * (inv > -kp.max_inventory).to(f32)
+        fill_bid = (d[2] < fill_p_bid).to(f32) * (inv < kp.max_inventory).to(f32)
+        fill_ask = (d[3] < fill_p_ask).to(f32) * (inv > -kp.max_inventory).to(f32)
         hit_bid = arr_bid * fill_bid
         hit_ask = arr_ask * fill_ask
         inv = inv + hit_bid - hit_ask
@@ -169,25 +220,29 @@ def _kernels() -> ctypes.CDLL:
     lib = _build.load("cj_episode.cu")
     if not getattr(lib, "_mbt_declared", False):
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.mbt_cj_episode.argtypes = [ptr, i32, i32, u32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+        lib.mbt_cj_episode.argtypes = [ptr, i32, i32, u32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         lib.mbt_cj_episode.restype = i32
+        lib.mbt_cj_fill_table.argtypes = [ctypes.c_float, i32, ptr, ptr, ctypes.c_size_t, ptr]
+        lib.mbt_cj_fill_table.restype = i32
         lib._mbt_declared = True
     return lib
 
 
 def cj_episode(p: CjEpisodeParams, depth_table, seed: int = 0, q_cap: int = 100,
-               num_trajectories: int = 16384, noise: Optional[torch.Tensor] = None, device=None):
+               num_trajectories: int = 16384, noise: Optional[torch.Tensor] = None, device=None,
+               fill_table: Optional[torch.Tensor] = None):
     """K8: one whole CJP episode for ``num_trajectories`` envs; returns the
     terminal ``(cash, inventory, price, sum q_t^2)``, each ``(N,)`` float32.
     ``depth_table`` is ``(n_steps, 2*q_cap+1, 2)`` float32 — pass
     ``agent.depth_table()[:-1]``, rows indexed by step.  Fills are masked
     at the env's ``max_inventory``, not at ``q_cap``.  ``noise`` (optional)
     injects ``(n_steps, 5, N)`` channels; otherwise native Philox noise
-    keyed by ``seed``.  On a CPU target this is :func:`cj_episode_plain`; on
-    CUDA it launches the kernel."""
+    keyed by ``seed``.  ``fill_table`` is :func:`cj_fill_table` of the
+    table, computed here where not given.  On a CPU target this is
+    :func:`cj_episode_plain`; on CUDA it launches the kernel."""
     device = _target(noise, device)
     if device.type == "cpu":
-        return cj_episode_plain(p, depth_table, seed, q_cap, num_trajectories, noise, device)
+        return cj_episode_plain(p, depth_table, seed, q_cap, num_trajectories, noise, device, fill_table)
     if device.type != "cuda":
         raise ValueError(f"the CJ episode kernel runs on CUDA devices, not {device}")
     n = num_trajectories
@@ -195,17 +250,34 @@ def cj_episode(p: CjEpisodeParams, depth_table, seed: int = 0, q_cap: int = 100,
     _check_call(p, table, q_cap, n, noise)
     if noise is not None and not noise.is_contiguous():
         raise ValueError("noise must be contiguous")
+    fill = cj_fill_table(p, table) if fill_table is None else fill_table
+    if fill.shape != table.shape or fill.dtype != torch.float32 or fill.device != table.device or not fill.is_contiguous():
+        raise ValueError("fill_table must be the table's contiguous float32 fill probabilities, on its device")
+    kp = kernel_params(p, q_cap)
+    kp.pipe = kernel_geometry(p, q_cap, n).ctypes()
     outs = tuple(torch.empty(n, dtype=torch.float32, device=device) for _ in range(4))
     index, stream = _build.device_stream(device)
     rc = _kernels().mbt_cj_episode(
-        ctypes.byref(kernel_params(p, q_cap)), index, n, int(seed) & _MASK32,
-        None if noise is None else noise.data_ptr(), table.data_ptr(),
+        ctypes.byref(kp), index, n, int(seed) & _MASK32,
+        None if noise is None else noise.data_ptr(), table.data_ptr(), fill.data_ptr(),
         *(o.data_ptr() for o in outs), stream,
     )
     if rc != 0:
         raise RuntimeError(f"cj_episode kernel launch failed: CUDA error {rc}")
     _build.count_launch("cj_episode")
     return outs
+
+
+def cj_episode_tables(agent, p: CjEpisodeParams, device):
+    """K8's ``(n_steps, 2Q+1, 2)`` depth table of a CJ agent and its fill
+    probabilities (:func:`cj_fill_table`) on ``device``, made there once per
+    agent, device and fill exponent."""
+    from mbt_gym_torch.agents.baseline import _device_table, agent_device_tables
+
+    table = _device_table(agent_device_tables(agent, "K8 depth"), agent.depth_table_f32()[:-1], device)
+    fill = _device_table(agent_device_tables(agent, f"K8 fill {p.fill_exponent!r}"), lambda: cj_fill_table(p, table),
+                         device)
+    return table, fill
 
 
 def cj_episode_rewards(cfg: EnvConfig, agent, seed: int = 0, num_trajectories: int = 16384,
@@ -216,7 +288,7 @@ def cj_episode_rewards(cfg: EnvConfig, agent, seed: int = 0, num_trajectories: i
     pathwise terminal term telescopes to ``alpha*q_T^2`` for a start at 0
     with no inventory."""
     p = cj_params_from_config(cfg)
-    table = torch.tensor(agent.depth_table_f32()[:-1])
-    cash, inv, price, sumq2 = cj_episode(p, table, seed, agent.max_inventory, num_trajectories, noise, device)
+    table, fill = cj_episode_tables(agent, p, _target(noise, device))
+    cash, inv, price, sumq2 = cj_episode(p, table, seed, agent.max_inventory, num_trajectories, noise, device, fill)
     pnl = cash + inv * price - 0.0
     return pnl - p.phi * p.dt * sumq2 - p.alpha * inv**2

@@ -11,13 +11,16 @@
 //    this one does, so it can be held to K1 and to the engine.
 //
 // Design: K1 runs the warp-specialised step pipeline of step_pipeline.cuh
-// (K5's and this kernel's): per CTA, E / 32 consumer warps step the envs,
-// one thread per env with the state (cash, inventory, price) in registers,
-// while P producer warps compute the draws of the steps ahead into a ring
-// of shared-memory slots (in noise mode the bulk-copy engine copies the
-// (T, 5, N) channels' runs instead), so the consumers' chain per step is
-// the closed-form quotes, two expf and the bookkeeping; the geometry comes
-// from step_pipeline.py::pipeline_geometry.  K2 keeps one thread per env,
+// (K5's, K6's, K8's and this kernel's): per CTA, E / 32 consumer warps step
+// the envs, one thread per env with the state (cash, inventory, price) in
+// registers, while P producer warps compute the draws of the steps ahead
+// into a ring of shared-memory slots (in noise mode the bulk-copy engine
+// copies the (T, 5, N) channels' runs instead), so the consumers' chain per
+// step is the closed-form quotes, two expf and the bookkeeping; the
+// geometry comes from step_pipeline.py::pipeline_geometry.  From its
+// WIDE_MIN_ENVS on, where one thread per env fills the card and producers
+// only add work, the wide shape runs: no ring, each thread draws its own
+// draws.  K2 keeps one thread per env,
 // the run_steps loop inside the thread, the state and the previous
 // mark-to-market value in registers.  Streams are (T, N) with envs minor,
 // so each warp's store of one step is one coalesced 128-byte line per
@@ -110,40 +113,41 @@ __device__ __forceinline__ float step_time(const AsKernelParams& p, int i) {
   return p.start_time + static_cast<float>(i) * p.dt;
 }
 
-template <bool kNoise>
-__global__ void __launch_bounds__(mbt::kMaxPipeThreads)
+template <bool kNoise, bool kWide>
+__global__ void __launch_bounds__(kWide ? mbt::kWideEnvs : mbt::kMaxPipeThreads)
 as_episode_kernel(const AsKernelParams p, int n, uint32_t seed, const float* __restrict__ noise,
                   float* __restrict__ cash_out, float* __restrict__ inv_out,
                   float* __restrict__ price_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const mbt::StepRing ring(p.pipe, smem);
-  const int warp = threadIdx.x >> 5;
-  const int env0 = blockIdx.x * p.pipe.envs;
-  if (warp >= ring.consumer_warps()) {
-    ring.produce<kNoise, 5>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, noise,
-                            [](int, int) { return static_cast<const float*>(nullptr); });  // no table
-    return;
-  }
-  const int env = env0 + static_cast<int>(threadIdx.x);
   float cash = p.initial_cash, inv = p.initial_inventory, price = p.initial_price;
-  int slot = 0;
-  uint32_t phase = 0;
-  for (int c0 = 0; c0 < p.run_steps; c0 += p.pipe.chunk) {
-    const int steps = min(p.pipe.chunk, p.run_steps - c0);
-    ring.wait_full(slot, phase);
-    const mbt::SlotDraws<kNoise, 5> draws{ring.draws(slot) + threadIdx.x, noise + env0, n,
-                                          mbt::draw_stride(p.pipe)};
-    for (int j = 0; j < steps; ++j) {
+  int env;
+  if constexpr (kWide) {
+    env = blockIdx.x * mbt::kWideEnvs + threadIdx.x;
+    if (env >= n) return;
+    for (int i = 0; i < p.run_steps; ++i) {
       float bid, ask;
-      as_step(p, step_time(p, c0 + j), draws.limit(j, c0 + j), cash, inv, price, bid, ask);
+      as_step(p, step_time(p, i), draws_for<kNoise>(noise, n, seed, env, i), cash, inv, price, bid, ask);
     }
-    ring.release(slot);
-    if (++slot == p.pipe.slots) {
-      slot = 0;
-      phase ^= 1u;
+  } else {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const mbt::StepRing ring(p.pipe, smem);
+    const int warp = threadIdx.x >> 5;
+    const int env0 = blockIdx.x * p.pipe.envs;
+    if (warp >= ring.consumer_warps()) {
+      ring.produce<kNoise, 5>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, noise,
+                              [](int, int) { return static_cast<const float*>(nullptr); });  // no table
+      return;
     }
+    env = env0 + static_cast<int>(threadIdx.x);
+    ring.consume(p.run_steps, [&](int slot, int c0, int steps) {
+      const mbt::SlotDraws<kNoise, 5> draws{ring.draws(slot) + threadIdx.x, noise + env0, n,
+                                            mbt::draw_stride(p.pipe)};
+      for (int j = 0; j < steps; ++j) {
+        float bid, ask;
+        as_step(p, step_time(p, c0 + j), draws.limit(j, c0 + j), cash, inv, price, bid, ask);
+      }
+    });
+    if (env >= n) return;
   }
-  if (env >= n) return;
   cash_out[env] = cash;
   inv_out[env] = inv;
   price_out[env] = price;
@@ -226,8 +230,14 @@ extern "C" int mbt_as_episode(const AsKernelParams* p, int device, int n, uint32
   if (n <= 0) return 0;
   if (!pipe_ok(p->pipe)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = noise ? mbt::launch_pipeline(as_episode_kernel<true>, p->pipe, n, s, *p, n, seed, noise, cash, inv, price)
-              : mbt::launch_pipeline(as_episode_kernel<false>, p->pipe, n, s, *p, n, seed, noise, cash, inv, price);
+  const bool wide = mbt::is_wide(p->pipe);
+  if (noise) {
+    err = wide ? mbt::launch_pipeline(as_episode_kernel<true, true>, p->pipe, n, s, *p, n, seed, noise, cash, inv, price)
+               : mbt::launch_pipeline(as_episode_kernel<true, false>, p->pipe, n, s, *p, n, seed, noise, cash, inv, price);
+  } else {
+    err = wide ? mbt::launch_pipeline(as_episode_kernel<false, true>, p->pipe, n, s, *p, n, seed, noise, cash, inv, price)
+               : mbt::launch_pipeline(as_episode_kernel<false, false>, p->pipe, n, s, *p, n, seed, noise, cash, inv, price);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -187,11 +187,7 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   float price = p.initial_price;
   float imp = 0.0f;
   float rsum = 0.0f, ssum = 0.0f;
-  int slot = 0;
-  uint32_t phase = 0;
-  for (int c0 = 0; c0 < p.run_steps; c0 += p.pipe.chunk) {
-    const int steps = min(p.pipe.chunk, p.run_steps - c0);
-    ring.wait_full(slot, phase);
+  ring.consume(p.run_steps, [&](int slot, int c0, int steps) {
     const mbt::SlotDraws<kNoise, kChannels> draws{ring.draws(slot) + e_local, b.noise + env0, n,
                                                   mbt::draw_stride(p.pipe)};
     // the slot's rows of the four tables, each run landed at its granule shift
@@ -306,12 +302,7 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
     } else {
       step_slot(std::false_type{});
     }
-    ring.release(slot);
-    if (++slot == p.pipe.slots) {
-      slot = 0;
-      phase ^= 1u;
-    }
-  }
+  });
   if (!active) return;
   if constexpr (kStats) {
     b.cash[env] = cash;

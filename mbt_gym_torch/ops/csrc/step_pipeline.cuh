@@ -3,9 +3,8 @@
 // stage the depth-table rows those steps read (and, in noise mode, the
 // injected draws), into a ring of shared-memory slots; its consumer warps
 // run the env step, one thread per env with the state in registers,
-// reading both from shared memory.  Used by K5 (det_rollout.cu) and K8
-// (cj_episode.cu); written so that the other episode kernels can take it
-// up.
+// reading both from shared memory.  Used by K1 (as_episode.cu), K5
+// (det_rollout.cu), K6 (oe_episode.cu) and K8 (cj_episode.cu).
 //
 // Why: the draws are counter-based, keyed by (seed, env) at counter (step,
 // draw) (draws.cuh), so they do not depend on the state; in noise mode they
@@ -14,7 +13,16 @@
 // scheduler, where nothing hides the Philox chains, the libm calls and the
 // table row's L2 trip on the state chain.  Here the draws of a slot's C
 // steps are spread over P producer warps per CTA, and the consumers' chain
-// per step is a shared-memory load, two expf and the bookkeeping.
+// per step is a shared-memory load, the bookkeeping and, where the fill
+// probabilities are not staged, two expf.
+//
+// The wide shape: where one thread per env already keeps the card's
+// schedulers busy (from step_pipeline.py's WIDE_MIN_ENVS envs on), the
+// producers only add work.  A geometry with P = 0 has no ring and no
+// mbarrier: a CTA of kWideEnvs threads, each stepping one env and drawing
+// its own draws inline (draws.cuh) in the same operation order, so the bits
+// are the pipeline's.  K1, K6 and K8 have both paths as two instantiations
+// (kWide); the wrapper's geometry picks one.  K5 has the pipeline alone.
 //
 // The ring: R slots, each holding the inputs of C consecutive steps:
 //   draws  [C][channels][E + 4] floats (five channels on limit dynamics, the
@@ -29,7 +37,9 @@
 // lands `shift` floats (its address mod 16, in floats) into its slot row,
 // which is why a row has 3 floats more room than it holds.  A granule that
 // holds one valid byte lies in a mapped page, so the copy cannot fault; the
-// extra floats are never read.
+// extra floats are never read.  The injected noise has kNoiseChannels
+// channels per step: (T, 5, N) for the limit kernels and K5, whose speed
+// dynamics read channel 4, and (T, N) for K6.
 //
 // One full and one empty mbarrier per slot.  Each producer warp arrives on
 // `full` once its lanes have written their draws (and one lane has
@@ -51,17 +61,20 @@ namespace mbt {
 // Mirrors PipelineGeometry in mbt_gym_torch/ops/step_pipeline.py (ctypes).
 struct PipeGeometry {
   int envs;        // E: envs per CTA, 32 per consumer warp
-  int producers;   // P: producer warps per CTA, a multiple of E / 32
+  int producers;   // P: producer warps per CTA, a multiple of E / 32; 0: the wide shape
   int chunk;       // C: steps per slot
-  int slots;       // R: slots in the ring
+  int slots;       // R: slots in the ring (0 in the wide shape)
   int channels;    // draw channels per step: 5 (limit) or 1 (speed)
-  int table_rows;  // tables a step reads a row of (K5: bid and ask; K8: one)
+  int table_rows;  // tables a step reads a row of (K5: four; K8: two)
   int row_floats;  // floats from one step's row to the next in such a table
   int staged;      // 1: the rows are staged in the ring; 0: read from global memory
   int smem_bytes;  // the CTA's dynamic shared memory
 };
 
 constexpr int kMaxPipeThreads = 512;
+constexpr int kWideEnvs = 128;  // a wide-shape CTA's threads, one env each
+
+__host__ __device__ inline bool is_wide(const PipeGeometry& g) { return g.producers == 0; }
 
 // Slot rows have room for a run that starts up to 3 floats into a granule.
 __host__ __device__ inline int padded(int floats) { return (floats + 3 + 3) & ~3; }
@@ -79,16 +92,18 @@ __host__ __device__ inline int ring_bytes(const PipeGeometry& g) {
 // The invariants every pipeline kernel assumes of its geometry (the
 // wrapper's pipeline_geometry keeps them): whole warps of envs, producers a
 // multiple of the env groups, the CTA within kMaxPipeThreads, `channels`
-// draw channels, and the shared memory ring_bytes() gives.
+// draw channels, and the shared memory ring_bytes() gives; in the wide
+// shape, kWideEnvs envs and no ring.
 inline bool pipe_shape_ok(const PipeGeometry& g, int channels) {
+  if (g.channels != channels || g.smem_bytes != ring_bytes(g)) return false;
+  if (is_wide(g)) return g.envs == kWideEnvs && g.slots == 0 && !g.staged;
   const int groups = g.envs / 32;
   return g.envs >= 32 && g.envs % 32 == 0 && g.producers >= groups && g.producers % groups == 0 &&
-         g.envs + 32 * g.producers <= kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1 && g.channels == channels &&
-         g.smem_bytes == ring_bytes(g);
+         g.envs + 32 * g.producers <= kMaxPipeThreads && g.chunk >= 1 && g.slots >= 1;
 }
 
 // Launches a pipeline kernel over n envs: one CTA per E envs, E + 32 P
-// threads, the ring's dynamic shared memory.
+// threads (E in the wide shape), the ring's dynamic shared memory.
 template <class... Params, class... Args>
 cudaError_t launch_pipeline(void (*kernel)(Params...), const PipeGeometry& g, int n, cudaStream_t s,
                             const Args&... args) {
@@ -162,6 +177,14 @@ __device__ __forceinline__ uint32_t granule_bytes(const float* src, int floats, 
   return static_cast<uint32_t>(((a + 4 * static_cast<uintptr_t>(floats) + 15) & ~static_cast<uintptr_t>(15)) - lo);
 }
 
+// The channel of the injected noise that ring channel c of a step holds: a
+// one-channel kernel takes the midprice normal, channel 4 of (T, 5, N)
+// noise or the only one of (T, N).
+template <int kChannels, int kNoiseChannels>
+__host__ __device__ constexpr int noise_channel(int c) {
+  return kNoiseChannels == 1 ? 0 : kChannels == 1 ? 4 : c;
+}
+
 class StepRing {
  public:
   // Carves the ring out of the CTA's dynamic shared memory and initialises
@@ -186,12 +209,24 @@ class StepRing {
   __device__ float* draws(int slot) const { return base_ + slot * slot_floats_; }
   __device__ float* table(int slot) const { return draws(slot) + g_.chunk * g_.channels * draw_stride(g_); }
 
-  // Consumer side: wait for a slot's inputs; hand the slot back once every
-  // lane of the warp has read it.
-  __device__ void wait_full(int slot, uint32_t phase) const { mbar_wait(full_ + slot, phase); }
-  __device__ void release(int slot) const {
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(empty_ + slot);
+  // Consumer side, run by each consumer thread over `run_steps` steps:
+  // `slot_steps(slot, c0, steps)` steps the env through episode steps c0 ..
+  // c0 + steps - 1, whose inputs slot `slot` holds, once they have landed;
+  // the slot is handed back once every lane of the warp has read it.
+  template <class SlotSteps>
+  __device__ void consume(int run_steps, SlotSteps slot_steps) const {
+    int slot = 0;
+    uint32_t phase = 0;
+    for (int c0 = 0; c0 < run_steps; c0 += g_.chunk) {
+      mbar_wait(full_ + slot, phase);
+      slot_steps(slot, c0, min(g_.chunk, run_steps - c0));
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(empty_ + slot);
+      if (++slot == g_.slots) {
+        slot = 0;
+        phase ^= 1u;
+      }
+    }
   }
 
   // Producer side, run by the CTA's producer warps (warp index `pw` among
@@ -200,11 +235,12 @@ class StepRing {
   // envs of group pw % (E / 32) at the steps j = pw / (E / 32),
   // + P / (E / 32), ... of each slot; kChannels 5 (philox_draws) or 1 (the
   // midprice normal).  Noise mode: each step's channel runs for the CTA's
-  // envs are bulk copies.  `table_row(r, step)` points at a step's row of
-  // table r; the rows of consecutive steps follow each other, row_floats
-  // apart, so a slot's rows of one table are one bulk copy.  Producer warp
-  // 0 registers and issues the slot's bulk copies.
-  template <bool kNoise, int kChannels, class TableRow>
+  // envs are bulk copies, from noise of kNoiseChannels channels a step.
+  // `table_row(r, step)` points at a step's row of table r; the rows of
+  // consecutive steps follow each other, row_floats apart, so a slot's rows
+  // of one table are one bulk copy.  Producer warp 0 registers and starts
+  // the slot's bulk copies.
+  template <bool kNoise, int kChannels, int kNoiseChannels = 5, class TableRow>
   __device__ void produce(int pw, int run_steps, int env0, int n, uint32_t seed, const float* __restrict__ noise,
                           TableRow table_row) const {
     const int groups = g_.envs >> 5;
@@ -231,10 +267,10 @@ class StepRing {
           if constexpr (kNoise) {
             if (k >= table_runs) {
               const int j = (k - table_runs) / kChannels, c = k - table_runs - j * kChannels;
-              const int channel = kChannels == 1 ? 4 : c;
               *dst = d + (j * kChannels + c) * ds;
               *floats = valid;
-              return noise + (static_cast<size_t>(c0 + j) * 5 + channel) * n + env0;
+              const int channel = noise_channel<kChannels, kNoiseChannels>(c);
+              return noise + (static_cast<size_t>(c0 + j) * kNoiseChannels + channel) * n + env0;
             }
           }
           *dst = t + k * ts;
@@ -298,7 +334,7 @@ class StepRing {
 // A consumer thread's view of one slot's draws: slot step j (episode step
 // i), channel c of its env.  In noise mode each (step, channel) run landed
 // shifted by its granule offset (see above); native draws are unshifted.
-template <bool kNoise, int kChannels>
+template <bool kNoise, int kChannels, int kNoiseChannels = 5>
 struct SlotDraws {
   const float* slot;   // draws(slot) + the thread's env within the CTA
   const float* noise;  // noise + env0 (noise mode)
@@ -307,8 +343,8 @@ struct SlotDraws {
   __device__ float at(int j, int i, int c) const {
     int shift = 0;
     if constexpr (kNoise) {
-      const int channel = kChannels == 1 ? 4 : c;
-      shift = granule_shift(noise + (static_cast<size_t>(i) * 5 + channel) * n);
+      const int channel = noise_channel<kChannels, kNoiseChannels>(c);
+      shift = granule_shift(noise + (static_cast<size_t>(i) * kNoiseChannels + channel) * n);
     }
     return slot[(j * kChannels + c) * stride + shift];
   }

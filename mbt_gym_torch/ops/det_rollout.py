@@ -608,9 +608,9 @@ def kernel_geometry(p: DetRolloutParams, num_trajectories: int, stats_only: bool
     """The step pipeline's geometry (:func:`pipeline_geometry`) of one K5
     call: the table kind stages each step's rows of four tables (bid, ask
     and their fill probabilities), rows of ``table_width`` floats (default
-    ``p.table_size``), where they fit."""
+    ``p.table_size``), where they fit.  K5 has no wide shape."""
     return pipeline_geometry(num_trajectories, p.run_steps, p.dynamics_kind, p.policy_kind, stats_only,
-                             table_width or p.table_size, table_rows=4)
+                             table_width or p.table_size, table_rows=4, wide=False)
 
 
 def det_rollout(p: DetRolloutParams, tables=(), seed: int = 0, num_trajectories: int = 16384,
@@ -756,9 +756,13 @@ def cj_mc_episode_stats(cfg: EnvConfig, agent, key, episodes: int = 1, device=No
     closed-form CJ agent on K5's table stats mode (pallas_rollout.py:2030):
     the same summary dict without trajectories; ``mean_spread`` is the mean
     quoted spread (bid + ask) over steps and envs."""
+    from mbt_gym_torch.agents.baseline import _device_table, agent_device_tables
+
     device = resolve_device(device)
     p = cj_rollout_params(cfg, agent)
-    bid, ask = (torch.as_tensor(t, device=device) for t in cj_depth_tables(agent))
+    # the tables are copied to the card once per agent and device
+    bid, ask = _device_table(agent_device_tables(agent, "K5 depth"),
+                             lambda: tuple(torch.as_tensor(t, device=device) for t in cj_depth_tables(agent)), device)
     n = cfg.num_trajectories
     total, spread = _stats_loop(
         lambda s: table_rollout(p, bid, ask, s, n, stats_only=True, device=device), key, episodes, device,

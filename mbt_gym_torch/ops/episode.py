@@ -389,7 +389,8 @@ def _launch_args(p: AsEpisodeParams, n: int, noise, device: torch.device):
 
 def kernel_geometry(p: AsEpisodeParams, num_trajectories: int):
     """K1's step-pipeline geometry (:func:`pipeline_geometry`): limit
-    dynamics, no table, the terminal state alone."""
+    dynamics, no table, the terminal state alone; the wide shape at wide
+    calls."""
     return pipeline_geometry(num_trajectories, p.run_steps, "limit", "fixed", True)
 
 

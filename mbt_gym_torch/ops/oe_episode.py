@@ -9,7 +9,8 @@ speed read from a per-step schedule — returning only the terminal
 The CJ execution reward telescopes to those sums
 (:func:`oe_rewards_from_terminal`), so :func:`oe_mc_episode_stats` needs
 no trajectories.  CUDA C++ in ``csrc/oe_episode.cu`` (its source note
-gives what bounds it on the H100).
+gives what bounds it on the H100), on the step pipeline of
+``csrc/step_pipeline.cuh`` with the geometry of :func:`kernel_geometry`.
 
 Noise: ``noise`` is ``(T, N)`` float32 midprice normals, as the JAX
 kernel's noise mode takes them.  Without it, native mode draws the normal
@@ -31,6 +32,7 @@ import torch
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
 from mbt_gym_torch.ops.episode import _MASK32, _target, philox_normal, seed_from_key
+from mbt_gym_torch.ops.step_pipeline import PipelineGeometry, pipeline_geometry
 
 
 class OeEpisodeParams(NamedTuple):
@@ -115,8 +117,9 @@ def oe_params_from_config(cfg: EnvConfig) -> OeEpisodeParams:
 
 
 class OeKernelParams(ctypes.Structure):
-    """float32 step constants shared by the plain version and the kernel
-    (``struct OeKernelParams`` in ``csrc/oe_episode.cu``)."""
+    """float32 step constants shared by the plain version and the kernel,
+    then the kernel's step-pipeline geometry (``struct OeKernelParams`` in
+    ``csrc/oe_episode.cu``)."""
 
     _fields_ = [
         ("run_steps", ctypes.c_int),
@@ -130,7 +133,15 @@ class OeKernelParams(ctypes.Structure):
         ("initial_cash", ctypes.c_float),
         ("initial_inventory", ctypes.c_float),
         ("initial_price", ctypes.c_float),
+        ("pipe", PipelineGeometry),
     ]
+
+
+def kernel_geometry(p: OeEpisodeParams, num_trajectories: int):
+    """K6's step-pipeline geometry (:func:`pipeline_geometry`): speed
+    dynamics (the midprice normal alone), no table, the terminal state
+    alone; the wide shape at wide calls."""
+    return pipeline_geometry(num_trajectories, p.run_steps, "speed", "schedule", True)
 
 
 def kernel_params(p: OeEpisodeParams) -> OeKernelParams:
@@ -217,10 +228,12 @@ def oe_episode(p: OeEpisodeParams, speed_table, seed: int = 0, num_trajectories:
     _check_call(p, speed_table, n, noise)
     if noise is not None and not noise.is_contiguous():
         raise ValueError("noise must be contiguous")
+    kp = kernel_params(p)
+    kp.pipe = kernel_geometry(p, n).ctypes()
     outs = tuple(torch.empty(n, dtype=torch.float32, device=device) for _ in range(6))
     index, stream = _build.device_stream(device)
     rc = _kernels().mbt_oe_episode(
-        ctypes.byref(kernel_params(p)), index, n, int(seed) & _MASK32,
+        ctypes.byref(kp), index, n, int(seed) & _MASK32,
         None if noise is None else noise.data_ptr(), speed_table.data_ptr(),
         *(o.data_ptr() for o in outs), stream,
     )

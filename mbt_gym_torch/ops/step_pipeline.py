@@ -1,5 +1,6 @@
-"""Geometry of the warp-specialised step pipeline that K5
-(``csrc/det_rollout.cu``) and K1 (``csrc/as_episode.cu``) run
+"""Geometry of the warp-specialised step pipeline that K1
+(``csrc/as_episode.cu``), K5 (``csrc/det_rollout.cu``), K6
+(``csrc/oe_episode.cu``) and K8 (``csrc/cj_episode.cu``) run
 (``csrc/step_pipeline.cuh``).
 
 A CTA owns ``envs`` envs: ``envs / 32`` consumer warps run the env step,
@@ -7,7 +8,9 @@ one thread per env, and ``producers`` warps fill a ring of ``slots``
 shared-memory slots, each holding the draws of ``chunk`` consecutive steps
 (``channels`` floats per env and step) and, where it fits, the depth-table
 rows those steps read (a row of each of ``table_rows`` tables per step,
-``row_floats`` floats apart).
+``row_floats`` floats apart).  The wide shape (``producers == 0``) has no
+ring: each thread steps one env and draws its own draws, for calls with
+enough envs to fill the card one thread per env.
 :func:`pipeline_geometry` chooses all of it from the call's shape; it is
 pure and runs on the host, so the CPU tests check its arithmetic.
 """
@@ -27,12 +30,32 @@ MAX_CONSUMER_WARPS = 4
 # 16,384 envs 128 CTAs of 128 envs on 128 of the 132 SMs ran faster on the
 # H100 than 256 CTAs of 64 (scripts/episode_kernel_times.py --geometry).
 SM_SHARE = 0.95
-MAX_CHUNK = 8
 SLOTS = 2
-# Producer warps per consumer warp: the draws of a step (two Philox calls
-# and Box-Muller on limit dynamics) cost several times the consumers' step;
-# streams mode adds the consumers' stores.
-PRODUCERS_PER_CONSUMER = {"stats": 3, "streams": 2}
+# Producer warps per consumer warp, and the most steps a slot holds, by
+# mode: the draws of a step on limit dynamics (two Philox calls and
+# Box-Muller) cost several times the consumers' step, and streams mode adds
+# the consumers' stores.  On speed dynamics a step draws one normal and the
+# stats consumers' chain is a few float ops, so the producers set the pace:
+# as many as the CTA holds (up to 7 a consumer warp) and long slots.  K6 at
+# 8,192 x 200 on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (scripts/episode_kernel_times.py --geometry, one call; 64-env CTAs):
+# 0.0275 ms with 6 producer warps and 8-step slots, 0.0235 with 14 and 8,
+# 0.0205 with 14 and 16, 0.0192 with 14 and 32, 0.0194 with 14 and 50;
+# K5's fixed-action stats mode on the same config 0.0277 and 0.0260 ms.
+PRODUCERS_PER_CONSUMER = {"stats": 3, "streams": 2, "speed stats": 7}
+MAX_CHUNK = {"stats": 8, "streams": 8, "speed stats": 32}
+# The wide shape: CTAs of WIDE_ENVS threads, one env each (mbt::kWideEnvs),
+# taken by the kernels that have it (K1, K6, K8) from WIDE_MIN_ENVS envs on,
+# where one thread per env fills the card and the producers' warps only add
+# work.  Device times on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (scripts/episode_kernel_times.py --sweep, --geometry pipeline against
+# --geometry wide, one call): at 32,768 envs the pipeline ran K1, K6 and K8
+# in 0.0811 / 0.0544 / 0.3935 ms against the wide shape's 0.0877 / 0.0631 /
+# 0.5296; at 49,152 the two were within 2% of each other; at 65,536 the
+# wide shape was ahead on all three (0.1527 / 0.0979 / 0.7425 against
+# 0.1538 / 0.1003 / 0.7628 ms); at 1,048,576, in another call, by 9-14%.
+WIDE_ENVS = 128
+WIDE_MIN_ENVS = 65_536
 
 
 class PipelineGeometry(ctypes.Structure):
@@ -79,13 +102,20 @@ class Geometry(NamedTuple):
         return "staged" if self.staged else "global"
 
     @property
+    def shape(self) -> str:
+        """"wide" (one thread per env, no ring) or "pipeline"."""
+        return "wide" if self.producers == 0 else "pipeline"
+
+    @property
     def threads(self) -> int:
         return self.envs + 32 * self.producers
 
     def with_shape(self, envs: int, producers: int, chunk: int, slots: int, staged: bool = True) -> "Geometry":
         """The same call at another shape (for tuning), the table staged
         unless ``staged`` is false or the ring would not fit a CTA's shared
-        memory."""
+        memory; ``producers == 0`` is the wide shape, whatever the rest."""
+        if producers == 0:
+            return wide_geometry(self.channels, self.table_rows, self.row_floats)
         staged = int(staged and bool(self.table_rows)
                      and ring_bytes(envs, chunk, slots, self.channels, self.table_rows, self.row_floats) <= SMEM_PER_CTA)
         smem = ring_bytes(envs, chunk, slots, self.channels, self.table_rows * staged, self.row_floats)
@@ -95,20 +125,30 @@ class Geometry(NamedTuple):
         return PipelineGeometry(*self)
 
 
+def wide_geometry(channels: int, table_rows: int = 0, row_floats: int = 0) -> Geometry:
+    """The wide shape: CTAs of ``WIDE_ENVS`` threads, no producers, no ring;
+    a table is read from global memory."""
+    return Geometry(WIDE_ENVS, 0, 1, 0, channels, table_rows, row_floats, 0, 0)
+
+
 def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_only: bool,
-                      row_floats: int = 0, table_rows: int = 0) -> Geometry:
-    """The pipeline geometry of one K5 or K1 call of ``n`` envs over
+                      row_floats: int = 0, table_rows: int = 0, wide: bool = True) -> Geometry:
+    """The pipeline geometry of one K1, K5, K6 or K8 call of ``n`` envs over
     ``run_steps`` steps.
 
+    - From ``WIDE_MIN_ENVS`` envs on, a kernel with the wide shape
+      (``wide``: K1, K6 and K8; K5 has none) takes it.
     - Envs per CTA: the widest of 128, 64 and 32 that still gives
       ``SM_SHARE`` of the SMs a CTA (16,384 envs: 128 per CTA, 128 CTAs;
       8,192: 64; 4,100: 32).
-    - Producer warps: ``PRODUCERS_PER_CONSUMER[mode]`` per consumer warp.
+    - Producer warps: ``PRODUCERS_PER_CONSUMER[mode]`` per consumer warp,
+      as far as ``MAX_THREADS`` allows (mode: "stats", "streams", or
+      "speed stats" for the stats mode of speed dynamics).
     - Channels: five on limit dynamics, the midprice normal alone on speed.
     - The table kind reads a row of each of ``table_rows`` tables a step,
       ``row_floats`` apart (K5: the bid and ask tables and their fill
       probabilities, the tables' width apart).  A slot's consecutive rows of a table are
-      staged as one run, ``chunk`` steps per slot, at most ``MAX_CHUNK``,
+      staged as one run, ``chunk`` steps per slot, at most ``MAX_CHUNK[mode]``,
       halved until the ring fits ``SMEM_BUDGET``; where one step's rows do
       not fit even so, the table stays in global memory.
     """
@@ -116,17 +156,22 @@ def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_
     assert dynamics in ("limit", "speed") and policy in ("table", "fixed", "schedule")
     rows = table_rows if policy == "table" else 0
     width = row_floats if rows else 0
+    channels = 5 if dynamics == "limit" else 1
+    if wide and n >= WIDE_MIN_ENVS:
+        return wide_geometry(channels, rows, width)
     consumers = MAX_CONSUMER_WARPS
     while consumers > 1 and -(-n // (32 * consumers)) < SM_SHARE * H100_SMS:
         consumers //= 2
     envs = 32 * consumers
-    producers = PRODUCERS_PER_CONSUMER["stats" if stats_only else "streams"] * consumers
-    channels = 5 if dynamics == "limit" else 1
-    chunk = max(1, min(MAX_CHUNK, run_steps))
+    mode = "streams" if not stats_only else "speed stats" if dynamics == "speed" else "stats"
+    room = (MAX_THREADS - envs) // 32 // consumers * consumers  # producer warps the CTA holds
+    producers = min(PRODUCERS_PER_CONSUMER[mode] * consumers, room)
+    max_chunk = MAX_CHUNK[mode]
+    chunk = max(1, min(max_chunk, run_steps))
     while chunk > 1 and ring_bytes(envs, chunk, SLOTS, channels, rows, width) > SMEM_BUDGET:
         chunk //= 2
     staged = int(bool(rows) and ring_bytes(envs, chunk, SLOTS, channels, rows, width) <= SMEM_BUDGET)
     if rows and not staged:
-        chunk = max(1, min(MAX_CHUNK, run_steps))
+        chunk = max(1, min(max_chunk, run_steps))
     return Geometry(envs, producers, chunk, SLOTS, channels, rows, width, staged,
                     ring_bytes(envs, chunk, SLOTS, channels, rows * staged, width))

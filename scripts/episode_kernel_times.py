@@ -3,7 +3,8 @@
 NVIDIA GPU, for comparing two checkouts of ``mbt_gym_torch`` on one card.
 
     python3 scripts/episode_kernel_times.py [--root DIR] [--label NAME]
-        [--geometry E,P,C,R[,0]] [--reps N] [--times-only]
+        [--geometry E,P,C,R[,0] | pipeline | wide] [--reps N] [--times-only]
+        [--sweep [N,...]] [--kernels K6,...]
 
 ``--root`` is the directory that holds the ``mbt_gym_torch`` to measure
 (default: this checkout); its kernels are built from its own ``csrc/``.
@@ -12,20 +13,26 @@ card's time alone, host work excluded) beside the call time
 (``chip_smoke.cuda_ms``), native mode, at the main paths' shapes:
 
 - K5 ``det_rollout``: CJP table stats and streams at 16,384 x 1,000, table
-  stats at 131,072 x 1,000, OE schedule streams at 8,192 x 200;
+  stats at 131,072 x 1,000, OE schedule streams and OE fixed-action stats
+  at 8,192 x 200;
 - K8 ``cj_episode`` at 16,384 x 1,000;
 - K1 ``as_episode`` at 16,384 and 1,048,576 x 200, K2
-  ``as_episode_trajectories`` at 16,384 x 200, K6 ``oe_episode`` at 8,192 x
-  200.
+  ``as_episode_trajectories`` at 16,384 x 200, K6 ``oe_episode`` at 8,192
+  and 1,048,576 x 200.
 
-``--geometry`` fixes K5's and K1's pipeline geometry (envs per CTA,
-producer warps, steps per slot, slots, and 0 to leave the table in global
-memory) where the checkout has one, and
-``--times-only`` times K5, K8 and K1 alone.  The
-script also prints a sha256 digest of every output of K1-K8 on fixed
-inputs (noise and native mode; K3, K4 and K7 at 4,096 envs x 200 steps), so
-two checkouts can be shown to compute the same bits.  It prints one JSON
-object per line and needs a CUDA device.
+``--geometry`` fixes the step-pipeline geometry of K1, K5, K6 and K8
+where the checkout has one: envs per CTA, producer warps, steps per slot,
+slots, and 0 to leave the table in global memory; ``pipeline`` is the
+pipeline's own choice without the wide shape, ``wide`` the wide shape (K5,
+which has none, keeps its own).  ``--times-only`` times K1, K5, K6 and K8
+alone, ``--sweep`` times K1, K6 and K8 at the given env counts (131,072
+to 1,048,576 by default) instead, to place the wide shape's threshold, and
+``--kernels`` keeps the rows whose names start with one of its
+comma-separated prefixes.  The script also prints a
+sha256 digest of every output of K1-K8 on fixed inputs (noise and native
+mode; K3, K4 and K7 at 4,096 envs x 200 steps; K1, K6 and K8 native at
+1,048,576 envs as well), so two checkouts can be shown to compute the same
+bits.  It prints one JSON object per line and needs a CUDA device.
 """
 import argparse
 import dataclasses
@@ -56,9 +63,12 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(REPO))
     parser.add_argument("--label", default="this checkout")
-    parser.add_argument("--geometry", default=None, help="E,P,C,R[,staged] for K5 and K1")
+    parser.add_argument("--geometry", default=None, help="E,P,C,R[,staged], pipeline or wide")
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--times-only", action="store_true", help="time K5, K8 and K1 only, no digests")
+    parser.add_argument("--times-only", action="store_true", help="time K1, K5, K6 and K8 only, no digests")
+    parser.add_argument("--sweep", nargs="?", const="131072,262144,524288,1048576", default=None,
+                        help="time K1, K6 and K8 at these env counts (default 131,072 to 1,048,576)")
+    parser.add_argument("--kernels", default=None, help="time only the rows whose names start so, e.g. K6,K5 fixed")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -82,15 +92,17 @@ def main():
 
     label = args.label
     if args.geometry:
-        fixed = [int(x) for x in args.geometry.split(",")]
-        for module in (det, ep):
+        for module in (det, ep, oe, cj) if args.geometry != "wide" else (ep, oe, cj):
             geometry = getattr(module, "pipeline_geometry", None)
             if geometry is None:
                 continue
 
             def pinned(*a, _geometry=geometry, **kw):
-                g = _geometry(*a, **kw)
-                return g.with_shape(*fixed)
+                if args.geometry in ("pipeline", "wide"):
+                    kw.pop("wide", None)
+                    g = _geometry(*a, **kw, wide=False)
+                    return g.with_shape(g.envs, 0, 1, 0) if args.geometry == "wide" else g
+                return _geometry(*a, **kw).with_shape(*(int(x) for x in args.geometry.split(",")))
 
             module.pipeline_geometry = pinned
         label += f" geometry {args.geometry}"
@@ -106,6 +118,7 @@ def main():
     oe_agent = CarteaJaimungalOeAgent.from_config(oe_cfg, phi=2e-4, alpha=0.01)
     speed_table = oe.oe_speed_table(oe_cfg, oe_agent).to(dev)
     p_sched = det.schedule_rollout_params(oe_cfg)
+    p_fixed_oe = det.fixed_rollout_params(oe_cfg, [-2.5])
     p_oe = oe.oe_params_from_config(oe_cfg)
     p_cj = cj.cj_params_from_config(cj_cfg)
     cj_table = torch.tensor(agent.depth_table_f32()[:-1], device=dev)
@@ -119,21 +132,33 @@ def main():
         ("K5 table streams", 16_384, 1000, lambda: det.table_rollout(p_table, *tables, 9, 16_384, final_obs=True, device=dev)),
         ("K5 schedule streams", 8_192, 200,
          lambda: det.schedule_rollout(p_sched, speed_table[:, None], 9, 8_192, final_obs=True, device=dev)),
+        ("K5 fixed OE stats", 8_192, 200, lambda: det.fixed_rollout(p_fixed_oe, 9, 8_192, stats_only=True, device=dev)),
         ("K8", 16_384, 1000, lambda: cj.cj_episode(p_cj, cj_table, 9, 100, 16_384, device=dev)),
         ("K1", 16_384, 200, lambda: ep.as_episode(p_as, 9, 16_384, device=dev)),
         ("K1", 1_048_576, 200, lambda: ep.as_episode(p_as, 9, 1_048_576, device=dev)),
         ("K2 full", 16_384, 200, lambda: ep.as_episode_trajectories(p_as, 9, 16_384, emit="full", device=dev)),
         ("K6", 8_192, 200, lambda: oe.oe_episode(p_oe, speed_table, 9, 8_192, device=dev)),
+        ("K6", 1_048_576, 200, lambda: oe.oe_episode(p_oe, speed_table, 9, 1_048_576, device=dev)),
     )
     if args.times_only:
-        rows = [row for row in rows if row[0].startswith(("K5", "K8", "K1"))]
+        rows = [row for row in rows if not row[0].startswith("K2")]
+    if args.geometry == "wide":
+        rows = [row for row in rows if not row[0].startswith("K5")]
+    if args.sweep:
+        rows = [(name, n, steps, fn) for n in (int(x) for x in args.sweep.split(",")) for name, steps, fn in (
+            ("K1", 200, lambda n=n: ep.as_episode(p_as, 9, n, device=dev)),
+            ("K6", 200, lambda n=n: oe.oe_episode(p_oe, speed_table, 9, n, device=dev)),
+            ("K8", 1000, lambda n=n: cj.cj_episode(p_cj, cj_table, 9, 100, n, device=dev)),
+        )]
+    if args.kernels:
+        rows = [row for row in rows if row[0].startswith(tuple(args.kernels.split(",")))]
     for name, n, steps, fn in rows:
         ms = cs.device_ms(torch, fn, warmup=2, reps=args.reps)
         call = cs.cuda_ms(torch, fn, warmup=2, reps=args.reps)
         print(json.dumps({"label": label, "kernel": name, "shape": f"{n}x{steps}", "device_ms": ms, "call_ms": call,
                           "card": card}))
 
-    if args.times_only:
+    if args.times_only or args.sweep:
         return 0
 
     def channels(seed, steps, n):
@@ -162,6 +187,10 @@ def main():
     normals = torch.from_numpy(np.random.default_rng(15).normal(size=(200, 8_192)).astype(np.float32)).to(dev)
     for mode, kw in (("noise", {"noise": normals}), ("native", {"seed": 42, "device": dev})):
         digests[f"K6 {mode}"] = digest(oe.oe_episode(p_oe, speed_table, num_trajectories=8_192, **kw))
+    # the wide shape (one thread per env where the checkout has it)
+    digests["K1 native 1048576"] = digest(ep.as_episode(p_as, 51, 1_048_576, device=dev))
+    digests["K6 native 1048576"] = digest(oe.oe_episode(p_oe, speed_table, 52, 1_048_576, device=dev))
+    digests["K8 native 1048576"] = digest(cj.cj_episode(p_cj, cj_table, 53, 100, 1_048_576, device=dev))
     digests.update(ppo_digests(torch, dev))
     print(json.dumps({"label": label, "digests": digests}))
     return 0

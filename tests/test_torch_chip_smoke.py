@@ -130,3 +130,17 @@ def test_spill_bytes_reads_the_spill_line():
     rows = dict(chip_smoke.kernel_registers(_PTXAS, ("ppo_pass1", "ppo_pass2")))
     assert chip_smoke.spill_bytes(rows["_ZN4_GLOBAL9ppo_pass2ILb1ELb0E13__nv_bfloat16EEv"]) == 12
     assert chip_smoke.spill_bytes(rows["_ZN4_GLOBAL9ppo_pass1ILb0ELb0EfEEv"]) == 0
+
+
+@pytest.mark.parametrize("n, shape", [(16_384, "pipeline"), (1_048_576, "wide")])
+def test_pipeline_entry_names_the_geometry_that_ran(n, shape):
+    """The kernels line's pipeline entry says which shape a kernel's
+    geometry is: K8's step pipeline at the CJP's 16,384 envs (with its
+    ring's bytes), the wide shape (no producers, no ring) at 1,048,576."""
+    from mbt_gym_torch.ops import cj_episode as cj
+    from mbt_gym_torch.utils.config import cj_env_config
+
+    p = cj.cj_params_from_config(cj_env_config(num_trajectories=16, max_inventory=100.0))
+    entry = chip_smoke.pipeline_entry(cj.kernel_geometry(p, 100, n))
+    assert entry["shape"] == shape and set(entry) == {"shape", "envs", "producers", "chunk", "slots", "smem_bytes"}
+    assert (entry["producers"] == 0) == (shape == "wide") and (entry["smem_bytes"] == 0) == (shape == "wide")

@@ -9,6 +9,7 @@ then reproduce the interpret-mode kernel.  Its random-noise mode is held to
 the JAX engine instead.  The CUDA kernel is held against its plain version
 on the card (tests/test_torch_cuda.py and chip_smoke.py).
 """
+import ctypes
 import dataclasses
 
 import jax
@@ -124,3 +125,72 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(AssertionError):  # the table must be (n_steps, 2*q_cap+1, 2)
         cj.cj_episode(p, agent.depth_table(), 0, 5, 128, device="cpu")
 
+
+
+def test_fill_table_is_the_exp_of_the_scaled_depths():
+    """K8's fill probabilities: cj_fill_table's plain version (what a CPU
+    tensor gets) is torch.exp(neg_k * table), bitwise, the same shape."""
+    cfg = cj_env_config(num_trajectories=N, n_steps=40, max_inventory=5.0)
+    p = cj.cj_params_from_config(cfg)
+    table = torch.from_numpy(CarteaJaimungalMmAgent.from_config(cfg, max_inventory=8).depth_table_f32()[:-1].copy())
+    want = torch.exp(cj.kernel_params(p, 8).neg_k * table)
+    for got in (cj.cj_fill_table_plain(p, table), cj.cj_fill_table(p, table)):
+        assert got.shape == table.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["noise", "native"])
+def test_k8_plain_on_the_fill_table_is_bitwise_the_exp_per_step(mode):
+    """The plain K8 gathering its fill probabilities from the fill table
+    (as the kernel reads them) equals the plain K8 that exponentiates each
+    step's gathered depths, bitwise, on random noise and on native draws;
+    so does the wrapper's CPU path given the table."""
+    cfg = cj_env_config(num_trajectories=N, n_steps=80, max_inventory=5.0)
+    agent = CarteaJaimungalMmAgent.from_config(cfg, max_inventory=8)
+    p = cj.cj_params_from_config(cfg)
+    table = torch.from_numpy(agent.depth_table_f32()[:-1].copy())
+    fill = cj.cj_fill_table(p, table)
+    kw = {"noise": torch.from_numpy(random_channels(29, 80, N))} if mode == "noise" else {"seed": 6, "device": "cpu"}
+    want = cj.cj_episode_plain(p, table, q_cap=8, num_trajectories=N, **kw)
+    for got in (cj.cj_episode_plain(p, table, q_cap=8, num_trajectories=N, fill_table=fill, **kw),
+                cj.cj_episode(p, table, q_cap=8, num_trajectories=N, fill_table=fill, **kw)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_k8_geometry_stages_its_two_interleaved_tables():
+    """K8 at the CJP's 16,384 x 1,000 stages, per step, the interleaved
+    (2Q+1, 2) row of the depth table and of its fill probabilities (402
+    floats each): 128-env CTAs, 8-step slots, 93,792 bytes of ring within
+    SMEM_BUDGET, K5's footprint.  A table of Q = 5,000 (20,002 floats a
+    row) stays in global memory, the draws still staged."""
+    from mbt_gym_torch.ops import step_pipeline as sp
+
+    p = cj.cj_params_from_config(cj_env_config(num_trajectories=16_384, max_inventory=100.0))
+    g = cj.kernel_geometry(p, 100, 16_384)
+    assert g.shape == "pipeline" and g.table_path == "staged"
+    assert (g.envs, g.chunk, g.slots, g.channels, g.table_rows, g.row_floats) == (128, 8, 2, 5, 2, 402)
+    assert g.smem_bytes == sp.ring_bytes(128, 8, 2, 5, 2, 402) == 93_792 <= sp.SMEM_BUDGET
+    huge = cj.kernel_geometry(p, 5000, 16_384)
+    assert huge.table_path == "global" and (huge.table_rows, huge.row_floats) == (2, 20_002)
+    assert huge.smem_bytes == sp.ring_bytes(huge.envs, huge.chunk, huge.slots, 5)
+    assert cj.CjKernelParams.pipe.offset == ctypes.sizeof(cj.CjKernelParams) - 9 * 4
+
+
+def test_entry_points_copy_the_cj_tables_once_per_agent_and_device():
+    """cj_episode_rewards (K8) and cj_mc_episode_stats (K5) take their
+    device tables from the agent's cache: the second call reuses the first
+    call's tensors, and the rewards do not change."""
+    from mbt_gym_torch.agents.baseline import agent_device_tables
+
+    cfg = cj_env_config(num_trajectories=N, n_steps=30, max_inventory=5.0)
+    agent = CarteaJaimungalMmAgent.from_config(cfg, max_inventory=8)
+    first = cj_episode_rewards(cfg, agent, 3, N, device="cpu")
+    table, fill = cj.cj_episode_tables(agent, cj.cj_params_from_config(cfg), torch.device("cpu"))
+    assert agent_device_tables(agent, "K8 depth")["cpu"] is table
+    assert torch.equal(table, torch.from_numpy(agent.depth_table_f32()[:-1].copy()))
+    assert torch.equal(fill, cj.cj_fill_table_plain(cj.cj_params_from_config(cfg), table))
+    assert torch.equal(cj_episode_rewards(cfg, agent, 3, N, device="cpu"), first)
+    assert cj.cj_episode_tables(agent, cj.cj_params_from_config(cfg), torch.device("cpu"))[1] is fill
+    det.cj_mc_episode_stats(cfg, agent, 5, device="cpu")
+    bid, ask = agent_device_tables(agent, "K5 depth")["cpu"]
+    det.cj_mc_episode_stats(cfg, agent, 5, device="cpu")
+    assert agent_device_tables(agent, "K5 depth")["cpu"][0] is bid

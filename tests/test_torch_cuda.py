@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: the episode kernels K1 and K2, the MLP rollout K3 (both actor-critic
 layouts), the fused PPO updates K4 (both layouts) and K7, the
-deterministic-policy rollout K5, the OE episode K6 and the CJ episode K8.  They have no CPU mode, so every test here skips on a host
+deterministic-policy rollout K5, the OE episode K6 and the CJ episode K8,
+and the step pipeline's wide shape.  They have no CPU mode, so every test here skips on a host
 without a GPU.  This file imports neither JAX nor the JAX package, so it
 runs on the GPU machine too, without the suite's conftest:
 
@@ -613,12 +614,111 @@ def test_as_episode_pipeline_edges_on_the_card(cuda_device, run_steps, start):
             _assert_bitwise(got, (k2[0][-1], k2[1][-1], k2[2][-1]))
 
 
+@pytest.mark.parametrize("run_steps", [1, 7, 200])
+def test_oe_episode_pipeline_edges_on_the_card(cuda_device, run_steps):
+    """K6's step pipeline (one draw channel, (T, N) noise) at 4,100 envs (a
+    ragged last CTA) and 4,099 (noise rows not 16-byte aligned), episodes of
+    1, 7 and 200 steps (not multiples of a slot's steps), both draw modes:
+    against its plain version (no fills, so the inventory exactly), a
+    repeated launch bitwise."""
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalOeAgent
+    from mbt_gym_torch.ops import oe_episode as oe
+    from mbt_gym_torch.utils.config import oe_env_config
+
+    cfg = oe_env_config(num_trajectories=16, n_steps=run_steps)
+    p = oe.oe_params_from_config(cfg)
+    table = oe.oe_speed_table(cfg, CarteaJaimungalOeAgent.from_config(cfg, alpha=0.01))
+    for n in (4100, 4099):
+        assert oe.kernel_geometry(p, n).shape == "pipeline"
+        normals = torch.from_numpy(np.random.default_rng(3).normal(size=(run_steps, n)).astype(np.float32))
+        for kw in ({"noise": normals.to(cuda_device)}, {"seed": 9, "device": cuda_device}):
+            got = oe.oe_episode(p, table, num_trajectories=n, **kw)
+            again = oe.oe_episode(p, table, num_trajectories=n, **kw)
+            want = oe.oe_episode_plain(p, table, num_trajectories=n, **kw)
+            torch.cuda.synchronize()
+            _assert_bitwise(got, again)
+            torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+            _assert_terminal_close(got, want, n)
+
+
+def test_cj_fill_table_kernel_is_the_plain_exp_on_the_card(cuda_device):
+    """K8's fill probabilities from the fill kernel are torch.exp of the
+    scaled depths, bitwise, at the CJP shape."""
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent
+    from mbt_gym_torch.ops import cj_episode as cj
+    from mbt_gym_torch.utils.config import cj_env_config
+
+    cfg = cj_env_config(num_trajectories=16, max_inventory=100.0)
+    p = cj.cj_params_from_config(cfg)
+    table = torch.tensor(CarteaJaimungalMmAgent.from_config(cfg, max_inventory=100).depth_table_f32()[:-1],
+                         device=cuda_device)
+    got = cj.cj_fill_table(p, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cj.cj_fill_table_plain(p, table))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K6", "K8"])
+def test_wide_shape_matches_plain_and_the_pipeline_on_the_card(cuda_device, monkeypatch, kernel):
+    """From WIDE_MIN_ENVS envs on, K1, K6 and K8 take the wide shape (one
+    thread per env, no ring).  There (plus 3 envs, a ragged last CTA), in
+    both draw modes: against the plain version, a repeated launch bitwise,
+    and bitwise the step pipeline's result at the same size, since each
+    thread draws its draws in the same operation order.  Episodes are cut
+    to 50 steps: the shape does not depend on them."""
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent, CarteaJaimungalOeAgent
+    from mbt_gym_torch.ops import cj_episode as cj
+    from mbt_gym_torch.ops import oe_episode as oe
+    from mbt_gym_torch.ops import step_pipeline as sp
+    from mbt_gym_torch.utils.config import cj_env_config, oe_env_config
+
+    n, steps = sp.WIDE_MIN_ENVS + 3, 50
+    gen = torch.Generator(cuda_device).manual_seed(21)
+    if kernel == "K6":
+        cfg = oe_env_config(num_trajectories=16, n_steps=steps)
+        p = oe.oe_params_from_config(cfg)
+        table = oe.oe_speed_table(cfg, CarteaJaimungalOeAgent.from_config(cfg, alpha=0.01))
+        module, geometry = oe, lambda: oe.kernel_geometry(p, n)
+        noise = torch.randn((steps, n), generator=gen, device=cuda_device)
+        run = lambda **kw: oe.oe_episode(p, table, num_trajectories=n, **kw)  # noqa: E731
+        plain = lambda **kw: oe.oe_episode_plain(p, table, num_trajectories=n, **kw)  # noqa: E731
+    else:
+        noise = torch.rand((steps, 5, n), generator=gen, device=cuda_device)
+        noise[:, 4] = torch.randn((steps, n), generator=gen, device=cuda_device)
+        if kernel == "K1":
+            p = ep.params_from_config(as_env_config(num_trajectories=16, n_steps=steps), 0.1)
+            module, geometry = ep, lambda: ep.kernel_geometry(p, n)
+            run = lambda **kw: ep.as_episode(p, num_trajectories=n, **kw)  # noqa: E731
+            plain = lambda **kw: ep.as_episode_plain(p, num_trajectories=n, **kw)  # noqa: E731
+        else:
+            cfg = cj_env_config(num_trajectories=16, n_steps=steps, max_inventory=100.0)
+            p = cj.cj_params_from_config(cfg)
+            table = torch.tensor(CarteaJaimungalMmAgent.from_config(cfg, max_inventory=100).depth_table_f32()[:-1],
+                                 device=cuda_device)
+            module, geometry = cj, lambda: cj.kernel_geometry(p, 100, n)
+            run = lambda **kw: cj.cj_episode(p, table, q_cap=100, num_trajectories=n, **kw)  # noqa: E731
+            plain = lambda **kw: cj.cj_episode_plain(p, table, q_cap=100, num_trajectories=n, **kw)  # noqa: E731
+    assert geometry().shape == "wide"
+    for kw in ({"noise": noise}, {"seed": 17, "device": cuda_device}):
+        got, again, want = run(**kw), run(**kw), plain(**kw)
+        torch.cuda.synchronize()
+        _assert_bitwise(got, again)
+        _assert_terminal_close(got, want, n)
+        with monkeypatch.context() as m:
+            m.setattr(module, "pipeline_geometry",
+                      lambda *a, **k: sp.pipeline_geometry(*a, **{**k, "wide": False}))
+            assert geometry().shape == "pipeline"
+            piped = run(**kw)
+            torch.cuda.synchronize()
+        _assert_bitwise(got, piped)
+
+
 def test_a_table_too_wide_to_stage_is_read_from_global_memory_on_the_card(cuda_device):
     """max_inventory 5,000: 10,001 entries per row and side, 160 KB a step
     with the fill tables, more than the ring holds, so K5 reads the tables
     from global memory while
-    the draws are still staged; against its plain version, and K8 (one
-    thread per env) at the same width bitwise K5's terminal state.  The
+    the draws are still staged; against its plain version, and K8 at the
+    same width (its two interleaved tables read from global memory too)
+    bitwise K5's terminal state.  The
     depths are random (the closed form at this width is not needed to test
     the read)."""
     from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent
@@ -632,6 +732,7 @@ def test_a_table_too_wide_to_stage_is_read_from_global_memory_on_the_card(cuda_d
     rng = np.random.default_rng(13)
     bid, ask = (rng.uniform(0.2, 2.0, size=(steps + 1, 2 * q + 1)).astype(np.float32) for _ in range(2))
     assert det.kernel_geometry(p, n, True).table_path == "global"
+    assert cj.kernel_geometry(cj.cj_params_from_config(cfg), q, n).table_path == "global"
     for kw in ({"noise": _channels(5, steps, n, cuda_device)}, {"seed": 14, "device": cuda_device}):
         for stats in (True, False):
             extra = {"stats_only": stats, "final_obs": not stats}

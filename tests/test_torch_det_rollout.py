@@ -531,9 +531,10 @@ def test_pipeline_geometry_fits_a_cta(width):
     """Every table width the wrappers accept: the ring fits the H100's
     227 KB of shared memory per CTA (and the half that lets two CTAs share
     an SM), the CTA 512 threads, the consumer warps cover the envs per CTA
-    and the producers divide among them; at least one step per slot."""
+    and the producers divide among them; at least one step per slot.  K5's
+    geometry: no wide shape."""
     for n, run_steps, stats_only in itertools.product((1, 4100, 16_384, 131_072), (1, 7, 300, 1000), (True, False)):
-        g = sp.pipeline_geometry(n, run_steps, "limit", "table", stats_only, width, table_rows=4)
+        g = sp.pipeline_geometry(n, run_steps, "limit", "table", stats_only, width, table_rows=4, wide=False)
         assert g.smem_bytes == sp.ring_bytes(g.envs, g.chunk, g.slots, g.channels, g.table_rows * g.staged, width)
         assert g.smem_bytes <= sp.SMEM_BUDGET <= sp.SMEM_PER_CTA == 232_448
         assert g.envs in (32, 64, 128) and g.threads <= sp.MAX_THREADS

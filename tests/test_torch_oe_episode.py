@@ -202,3 +202,20 @@ def test_wrapper_rejects_bad_noise():
         oe.oe_episode(p, torch.zeros(10), 0, 128, noise=torch.zeros((10, 64)))
     with pytest.raises(AssertionError):
         oe.oe_episode(p, torch.zeros(9), 0, 128, device="cpu")
+
+
+def test_k6_geometry_has_one_channel_and_no_table():
+    """K6 at 8,192 x 200 runs the step pipeline with the midprice normal
+    alone: one draw channel, no table, 64-env CTAs (128 CTAs for the
+    card's 132 SMs), the ring within SMEM_BUDGET; the ctypes mirror ends
+    with the geometry's nine ints, as struct OeKernelParams declares it."""
+    import ctypes
+
+    from mbt_gym_torch.ops import step_pipeline as sp
+
+    p = oe.oe_params_from_config(oe_env_config(num_trajectories=8_192))
+    g = oe.kernel_geometry(p, 8_192)
+    assert g.shape == "pipeline" and (g.channels, g.table_rows, g.table_path, g.staged) == (1, 0, "none", 0)
+    assert g.envs == 64 and -(-8_192 // g.envs) >= sp.SM_SHARE * sp.H100_SMS
+    assert g.smem_bytes == sp.ring_bytes(g.envs, g.chunk, g.slots, 1) <= sp.SMEM_BUDGET
+    assert oe.OeKernelParams.pipe.offset == ctypes.sizeof(oe.OeKernelParams) - 9 * 4
