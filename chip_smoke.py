@@ -7,7 +7,8 @@ its plain PyTorch version on the card, drives the main paths through the
 public entry points and times it all:
 
 - the Avellaneda-Stoikov path, ``rollout`` and ``mc_episode_stats`` with
-  ``backend="auto"`` (K2, K1), then ``backend="engine"`` (phases 1-6);
+  ``backend="auto"`` (K2 writing the rollout's Trajectory, once; K1), then
+  ``backend="engine"`` (phases 1-6);
 - PPO training on the normalised AS env at bench_suite config 5 (262,144
   envs x 200 steps, 256x256 shared trunk, 16 minibatches, bf16), through
   ``init_train_state`` / ``train_iteration`` / ``train_chunk`` on the fused
@@ -29,14 +30,17 @@ public entry points and times it all:
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
 update passes and of K3 run tensor-core instructions and the float32 ones
-none, and that K1, K5, K6 and K8, the step-pipeline kernels, spill nothing
-in any instantiation (the wide shape's included); phases 2, 8, 9, 14 and
-19 launch K1, K3, K4, K5, K6, K7 and K8 twice on the same inputs and
-require bitwise-equal results, and phases 2 and 14 hold K1, K6 and K8 to
-their plain versions at their wide shape too.  Kernel times are the card's
-own (``device_ms``: a sleep ahead of the start event keeps the wrapper's
-host work out of the window), with the caller's time (``call_ms``) beside
-them; the kernels are ranked by launches x (device time - bound).
+none, and that K1, K2, K5, K6 and K8, the step-pipeline kernels, spill
+nothing in any instantiation (the wide shape's included); phases 2, 3, 8,
+9, 14 and 19 launch K1-K8 twice on the same inputs and require
+bitwise-equal results, and phases 2, 3 and 14 hold K1, K2, K6 and K8 to
+their plain versions at their wide shape too.  Phase 3 holds K2's
+trajectory layout bit for bit to the layout of its own full streams, and
+phase 4 the rollout's Trajectory to that layout for the same seed.  Kernel
+times are the card's own (``device_ms``: a sleep ahead of the start event
+keeps the wrapper's host work out of the window), with the caller's time
+(``call_ms``) beside them; the kernels are ranked by launches x (device
+time - bound).
 
 Run from the repository root:
 
@@ -69,10 +73,12 @@ EPISODES = 8
 # Philox4x32-10 calls at 10 rounds x 8 ops + 9 key bumps x 2 (196), six
 # 24-bit uniforms x 3 (18), Box-Muller (7), quotes with the step time (9),
 # arrivals/fills/masks (14), bookkeeping and clip (10), price move (3).
-# K2 emit="full" adds the mark-to-market value and reward (3).  Integer ops
-# are held to the float32 peak too: the bound stays a lower bound.
+# K2 emit="full" adds the mark-to-market value and reward (3); its
+# trajectory layout the next row's time as well (3).  Integer ops are held
+# to the float32 peak too: the bound stays a lower bound.
 OPS_PER_ENV_STEP_K1 = 196 + 18 + 7 + 9 + 14 + 10 + 3
 OPS_PER_ENV_STEP_K2_FULL = OPS_PER_ENV_STEP_K1 + 3
+OPS_PER_ENV_STEP_K2_TRAJECTORY = OPS_PER_ENV_STEP_K2_FULL + 3
 
 AS_BANDS = {"mean_spread": (1.4918, 0.01), "mean_pnl": (64.87, 1.0), "std_terminal_inventory": (2.89, 0.3)}
 
@@ -253,6 +259,38 @@ def compare_streams(torch, got, want, n, label):
     return err
 
 
+def check_k2(torch, ep, p, n, kw, terminal, label):
+    """Phase 3 for one config and draw mode: K2's full and container
+    layouts against the plain version, each launched twice to the same
+    bits, their last row K1's terminal state ``terminal``; the trajectory
+    layout launched twice to the same bits and bitwise the layout
+    (``as_trajectory_from_full``) of the kernel's own full streams, time
+    column and initial row included.  Returns the max abs error."""
+    err = 0.0
+    for emit in ("full", "container"):
+        k2 = ep.as_episode_trajectories(p, num_trajectories=n, emit=emit, **kw)
+        again = ep.as_episode_trajectories(p, num_trajectories=n, emit=emit, **kw)
+        plain = ep.as_episode_trajectories_plain(p, num_trajectories=n, emit=emit, **kw)
+        torch.cuda.synchronize()
+        err = max(err, compare_streams(torch, k2, plain, n, f"phase 3 K2 {emit} {label}"))
+        check_repeat(torch, (dict(enumerate(k2)),), (dict(enumerate(again)),), f"phase 3 K2 {emit} {label}")
+        last = (k2[0][-1], k2[1][-1], k2[3 if emit == "container" else 2][-1])
+        check(all(torch.equal(a, b) for a, b in zip(last, terminal)),
+              f"phase 3 K2 {emit} {label}: last row differs from K1's terminal state")
+        del again, plain
+        if emit == "full":
+            traj = ep.as_episode_trajectory(p, num_trajectories=n, **kw)
+            again = ep.as_episode_trajectory(p, num_trajectories=n, **kw)
+            want = ep.as_trajectory_from_full(p, k2)
+            torch.cuda.synchronize()
+            differ = [name for name, a, b in zip(traj._fields, traj, want) if not torch.equal(a, b)]
+            check(not differ, f"phase 3 K2 trajectory {label}: {differ} differ from the layout of the full streams")
+            check_repeat(torch, (traj._asdict(),), (again._asdict(),), f"phase 3 K2 trajectory {label}")
+            del traj, again, want
+        del k2
+    return err
+
+
 # ------------------------------------------------------------------ PPO
 PPO_N = 262_144  # bench_suite config 5
 PPO_MINIBATCHES = 16
@@ -292,6 +330,20 @@ def bound_ms(bytes_moved, ops, peak):
     ``peak`` operations/s."""
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def as_bound(layout, n, steps=STEPS):
+    """bound_ms of one native AS episode call of ``n`` envs x ``steps``
+    (native mode reads nothing): K1's terminal state (``"terminal"``:
+    cash, inventory, price), K2's full streams (``"full"``: six (T, N)
+    planes) or its trajectory layout (``"trajectory"``: observations
+    (T+1, N, 4), actions (T, N, 2), rewards (T, N)), float32."""
+    floats, ops = {
+        "terminal": (3, OPS_PER_ENV_STEP_K1 * steps),
+        "full": (6 * steps, OPS_PER_ENV_STEP_K2_FULL * steps),
+        "trajectory": (4 * (steps + 1) + 3 * steps, OPS_PER_ENV_STEP_K2_TRAJECTORY * steps),
+    }[layout]
+    return bound_ms(4 * floats * n, ops * n, FP32_OPS_PER_S)
 
 
 def busy_ms(intervals):
@@ -700,15 +752,19 @@ def rollout_summary(torch, res):
             "mean_terminal_inventory": inv.mean(), "std_terminal_inventory": inv.std(correction=0)}
 
 
-def cj_phases(torch, np, card, dev):
+def cj_phases(torch, np, card, dev, as_kernel_ms=None):
     """Phases 14-17: K5, K6 and K8 against their plain versions, the
     closed-form CJ paths through the public entry points (auto, then
-    engine), timings.  Returns the kernels-line entries of K5, K6 and K8."""
+    engine), timings, and the profiles of the fused entry points, the AS
+    ones too (``as_kernel_ms``: the device ms of the AS kernels by name,
+    phase 6's, added where the profile loses one).  Returns the
+    kernels-line entries of K5, K6 and K8."""
     import dataclasses
 
     from mbt_gym_torch import (
-        CarteaJaimungalMmAgent, CarteaJaimungalOeAgent, as_env_config, cj_env_config, cj_episode_rewards,
-        dispatch_report, episode_stats, fixed_action_policy, mc_episode_stats, oe_env_config, rollout,
+        AvellanedaStoikovAgent, CarteaJaimungalMmAgent, CarteaJaimungalOeAgent, as_env_config, cj_env_config,
+        cj_episode_rewards, dispatch_report, episode_stats, fixed_action_policy, mc_episode_stats, oe_env_config,
+        rollout,
     )
     from mbt_gym_torch.ops import _build
     from mbt_gym_torch.ops import cj_episode as cj
@@ -808,6 +864,7 @@ def cj_phases(torch, np, card, dev):
     # ---- phase 15: the CJ paths through the public entry points, auto
     t0 = time.perf_counter()
     cj_pol, oe_pol = cj_agent.policy(), oe_agent.policy()
+    as_pol = AvellanedaStoikovAgent.from_config(as_cfg, risk_aversion=0.1).policy()
     fx_as, fx_oe = fixed_action_policy(fixed_as), fixed_action_policy(fixed_oe)
     cj_big = dataclasses.replace(cj_cfg, num_trajectories=CJ_STATS_N)
     for cfg, pol, family in ((cj_cfg, cj_pol, "cj_table"), (oe_cfg, oe_pol, "oe_episode"),
@@ -974,6 +1031,10 @@ def cj_phases(torch, np, card, dev):
         ("cj_episode_rewards CJ fused", lambda: cj_episode_rewards(cj_cfg, cj_agent, 7, CJ_N), "cj_episode_kernel", k8_ms),
         ("mc_episode_stats OE fused", lambda: mc_episode_stats(oe_cfg, oe_pol, None, 7), "oe_episode_kernel", k6_ms),
         ("rollout OE fused", lambda: rollout(oe_cfg, oe_pol, None, 7), "det_rollout_kernel", k5_sched[0]),
+        ("rollout AS fused", lambda: rollout(as_cfg, as_pol, None, 7), "as_traj_kernel",
+         (as_kernel_ms or {}).get("as_traj_kernel", 0.0)),
+        ("mc_episode_stats AS fused", lambda: mc_episode_stats(as_cfg, as_pol, None, 7, episodes=EPISODES),
+         "as_episode_kernel", EPISODES * (as_kernel_ms or {}).get("as_episode_kernel", 0.0)),
     ):
         seen = profile_iteration(torch, card, name, fn, phase=17, expect=(kernel,), warm=True)
         if seen and not any(kernel in k for k in seen["by_name"]):
@@ -1108,12 +1169,14 @@ def update_phases(torch, np, card, dev):
     # ppo_pass1/ppo_pass2 with kRowMajor = true (template arguments
     # "Lb?ELb1E"), the bf16 instantiations "ILb1E"; K3 (both layouts) is
     # mlp_rollout_kernel.  Then the tensor-core instructions of each.
-    # The step-pipeline kernels K1, K5, K6 and K8 spill nothing: K5's 20
-    # instantiations, and K1's, K6's and K8's 4 (two draw modes, the
-    # pipeline and the wide shape).
-    pipeline_kernels = {"det_rollout.cu": 20, "as_episode.cu": 4, "oe_episode.cu": 4, "cj_episode.cu": 4}
+    # The step-pipeline kernels K1, K2, K5, K6 and K8 spill nothing: K5's
+    # 20 instantiations, K1's, K6's and K8's 4 (two draw modes, the
+    # pipeline and the wide shape) and K2's 16 (the same, by its four
+    # output layouts).
+    pipeline_kernels = {"det_rollout.cu": 20, "as_episode.cu": 4 + 16, "oe_episode.cu": 4, "cj_episode.cu": 4}
     for src, names in (("fused_ppo.cu", ("ppo_pass1", "ppo_pass2")), ("mlp_rollout.cu", ("mlp_rollout_kernel",)),
-                       ("det_rollout.cu", ("det_rollout_kernel",)), ("as_episode.cu", ("as_episode_kernel",)),
+                       ("det_rollout.cu", ("det_rollout_kernel",)),
+                       ("as_episode.cu", ("as_episode_kernel", "as_traj_kernel")),
                        ("oe_episode.cu", ("oe_episode_kernel",)), ("cj_episode.cu", ("cj_episode_kernel",))):
         rows = kernel_registers(_build.ptxas_reports.get(src, ""), names)
         check(rows, f"phase 18: no ptxas report for {names} in {src}")
@@ -1329,44 +1392,31 @@ def update_phases(torch, np, card, dev):
     return k7, towers_figures
 
 
-def main():
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 1
+def as_phases(torch, np, card, dev):
+    """Phases 2-6: K1 and K2 against their plain versions at the pipeline
+    and the wide shape, the AS main path through the public entry points
+    (auto, then engine), timings.  Returns the kernels-line entries of K1
+    and K2 and their device ms by kernel name (phase 17's profiles add them
+    where the profiler loses a kernel)."""
     import dataclasses
-
-    import numpy as np
 
     from mbt_gym_torch import dispatch_report, episode_stats, mc_episode_stats, rollout
     from mbt_gym_torch.agents.baseline import AvellanedaStoikovAgent
+    from mbt_gym_torch.env import make_generator
     from mbt_gym_torch.ops import _build
     from mbt_gym_torch.ops import episode as ep
     from mbt_gym_torch.utils.config import as_env_config
 
-    dev = torch.device("cuda")
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}")
-
-    # ---- phases 1 (K1/K2), 7 (K3/K4), 13 (K5/K6/K8) and 18 (K7, the
-    # towers modes): build every kernel source, one nvcc each, all started
-    # together, with -Xptxas -v
-    t0 = time.perf_counter()
-    sources = _build.SOURCES
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(lambda src: _build.build(src, ptxas_verbose=True), sources))
-    ep._kernels()
-    print(f"phase 1/7/13/18 build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
-
     # ---- phase 2/3: K1 and K2 against their plain versions, noise mode on
-    # two configs and native mode, at the main path's 16,384 x 200
+    # two configs and native mode, at the main path's 16,384 x 200 (the
+    # step pipeline) and at 1,048,576 x 200 (the wide shape)
     default_cfg = as_env_config(num_trajectories=N_MAIN)
     late_cfg = dataclasses.replace(default_cfg, initial_cash=5.0, initial_inventory=3, start_time=0.2)
     err = {"K1": 0.0, "K2": 0.0}
     for label, cfg in (("late-start", late_cfg), ("default", default_cfg)):
         p = ep.params_from_config(cfg, 0.1)
+        check(ep.kernel_geometry(p, N_MAIN).shape == ep.trajectory_geometry(p, N_MAIN).shape == "pipeline",
+              "phase 2: K1 or K2 at the main shape is not a pipeline")
         rng = np.random.default_rng(11)
         channels = rng.uniform(size=(p.run_steps, 5, N_MAIN)).astype(np.float32)
         channels[:, 4] = rng.normal(size=(p.run_steps, N_MAIN)).astype(np.float32)
@@ -1378,27 +1428,32 @@ def main():
             torch.cuda.synchronize()
             err["K1"] = max(err["K1"], compare_terminal(torch, k1, k1_plain, N_MAIN, f"phase 2 K1 {label} {mode}"))
             check_repeat(torch, (dict(enumerate(k1)),), (dict(enumerate(k1_again)),), f"phase 2 K1 {label} {mode}")
-            for emit in ("full", "container"):
-                k2 = ep.as_episode_trajectories(p, num_trajectories=N_MAIN, emit=emit, **kw)
-                k2_plain = ep.as_episode_trajectories_plain(p, num_trajectories=N_MAIN, emit=emit, **kw)
-                torch.cuda.synchronize()
-                err["K2"] = max(err["K2"], compare_streams(torch, k2, k2_plain, N_MAIN, f"phase 3 K2 {emit} {label} {mode}"))
-                last = (k2[0][-1], k2[1][-1], k2[3 if emit == "container" else 2][-1])
-                check(all(torch.equal(a, b) for a, b in zip(last, k1)),
-                      f"phase 3 K2 {emit} {label} {mode}: last row differs from K1's terminal state")
-    # K1 at 1,048,576 envs takes the wide shape: native mode against the
-    # plain version, a repeated launch bitwise
-    p_large = ep.params_from_config(dataclasses.replace(default_cfg, num_trajectories=N_LARGE), 0.1)
-    check(ep.kernel_geometry(p_large, N_LARGE).shape == "wide", "phase 2: K1 at its wide shape is not wide")
-    k1 = ep.as_episode(p_large, 50, N_LARGE, device=dev)
-    k1_again = ep.as_episode(p_large, 50, N_LARGE, device=dev)
-    k1_plain = ep.as_episode_plain(p_large, 50, N_LARGE, device=dev)
-    torch.cuda.synchronize()
-    err["K1"] = max(err["K1"], compare_terminal(torch, k1, k1_plain, N_LARGE, "phase 2 K1 wide shape native"))
-    check_repeat(torch, (dict(enumerate(k1)),), (dict(enumerate(k1_again)),), "phase 2 K1 wide shape native")
-    del k1, k1_again, k1_plain
-    print("phase 2/3 ok: K1 and K2 agree with their plain versions (K1 at its wide shape too); "
-          "K2's last row is K1's terminal state")
+            err["K2"] = max(err["K2"], check_k2(torch, ep, p, N_MAIN, kw, k1, f"{label} {mode} at {N_MAIN}"))
+    # K1 and K2 at 1,048,576 envs take the wide shape: against their plain
+    # versions (K2 on both configs, noise made on the card), repeated
+    # launches bitwise
+    gen = torch.Generator(dev).manual_seed(12)
+    for label, cfg in (("late-start", late_cfg), ("default", default_cfg)):
+        p_large = ep.params_from_config(dataclasses.replace(cfg, num_trajectories=N_LARGE), 0.1)
+        check(ep.kernel_geometry(p_large, N_LARGE).shape == ep.trajectory_geometry(p_large, N_LARGE).shape == "wide",
+              "phase 2: K1 or K2 at the wide shape is not wide")
+        noise = torch.rand((p_large.run_steps, 5, N_LARGE), generator=gen, device=dev)
+        noise[:, 4] = torch.randn((p_large.run_steps, N_LARGE), generator=gen, device=dev)
+        for mode, kw in (("noise", {"noise": noise}), ("native", {"seed": 50, "device": dev})):
+            at = f"{label} {mode} at {N_LARGE} (wide shape)"
+            k1 = ep.as_episode(p_large, num_trajectories=N_LARGE, **kw)
+            k1_again = ep.as_episode(p_large, num_trajectories=N_LARGE, **kw)
+            k1_plain = ep.as_episode_plain(p_large, num_trajectories=N_LARGE, **kw)
+            torch.cuda.synchronize()
+            err["K1"] = max(err["K1"], compare_terminal(torch, k1, k1_plain, N_LARGE, f"phase 2 K1 {at}"))
+            check_repeat(torch, (dict(enumerate(k1)),), (dict(enumerate(k1_again)),), f"phase 2 K1 {at}")
+            del k1_again, k1_plain
+            err["K2"] = max(err["K2"], check_k2(torch, ep, p_large, N_LARGE, kw, k1, at))
+            del k1
+        del noise
+    torch.cuda.empty_cache()
+    print("phase 2/3 ok: K1 and K2 agree with their plain versions at the pipeline and the wide shape; "
+          "K2's last row is K1's terminal state; its trajectory layout is its full streams' layout bit for bit")
 
     # ---- phase 4: the main path through the public entry points (native)
     cfg = default_cfg
@@ -1406,14 +1461,26 @@ def main():
     for mode in ("rollout", "stats"):
         decision = dispatch_report(cfg, policy, mode=mode)
         check((decision.backend, decision.family) == ("fused", "as_episode"), f"phase 4 dispatch ({mode}): {decision}")
+    p = ep.params_from_config(cfg, 0.1)
+    check(ep.trajectory_geometry(p, N_MAIN).shape == "pipeline", "phase 4: K2 on the main path is not a pipeline")
     _build.reset_launch_counts()
     res = rollout(cfg, policy, None, 50)
+    torch.cuda.synchronize()
+    rollout_launches = {k: c for k, c in _build.launch_counts.items() if c}
     mc = mc_episode_stats(cfg, policy, None, 51, episodes=EPISODES)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
-    print(f"phase 4 launches on the main path: {launches}")
-    check(launches["as_episode_trajectories"] > 0, "phase 4: rollout did not launch K2")
-    check(launches["as_episode"] > 0, "phase 4: mc_episode_stats did not launch K1")
+    print(f"phase 4 launches on the main path: {launches}; rollout alone {rollout_launches}")
+    check(rollout_launches == {"as_episode_trajectories": 1}, f"phase 4: rollout launched {rollout_launches}, not K2 once")
+    check(launches["as_episode"] == EPISODES, f"phase 4: mc_episode_stats launched K1 {launches['as_episode']} times")
+    # the rollout's Trajectory is what the full streams' layout gives for
+    # the same seed (the assembly the rollout ran before K2 wrote it)
+    seed = ep.seed_from_key(make_generator(50, dev))
+    want = ep.as_trajectory_from_full(p, ep.as_episode_trajectories(p, seed, N_MAIN, emit="full", device=dev))
+    torch.cuda.synchronize()
+    differ = [name for name, a, b in zip(res.trajectory._fields, res.trajectory, want) if not torch.equal(a, b)]
+    check(not differ, f"phase 4: rollout's {differ} differ from the full streams' layout for the same seed")
+    del want
     traj = res.trajectory
     check(tuple(traj.observations.shape) == (STEPS + 1, N_MAIN, 4), f"phase 4 obs shape {tuple(traj.observations.shape)}")
     check(tuple(traj.actions.shape) == (STEPS, N_MAIN, 2) and tuple(traj.rewards.shape) == (STEPS, N_MAIN), "phase 4 shapes")
@@ -1435,45 +1502,49 @@ def main():
 
     # ---- phase 6: timings (CUDA events, medians after warm-up)
     env_steps = N_MAIN * STEPS
-    p = ep.params_from_config(cfg, 0.1)
     t_stats = cuda_ms(torch, lambda: mc_episode_stats(cfg, policy, None, 7, episodes=EPISODES))
     t_roll = cuda_ms(torch, lambda: rollout(cfg, policy, None, 7))
     t_eng = cuda_ms(torch, lambda: rollout(cfg, policy, None, 7, backend="engine"), warmup=1, reps=3)
     for name, ms, steps in (
         ("mc_episode_stats fused K1 (8 episodes)", t_stats, EPISODES * env_steps),
-        ("rollout fused K2 full", t_roll, env_steps),
+        ("rollout fused K2 trajectory layout", t_roll, env_steps),
         ("rollout engine", t_eng, env_steps),
     ):
         print(f"phase 6 [{card}] {name} at {N_MAIN}x{STEPS}: {ms} ms per call = {steps / ms * 1e3} env-steps/s")
     k1_ms, k1_call_ms = kernel_ms(torch, lambda: ep.as_episode(p, 9, N_MAIN, device=dev), warmup=3, reps=20)
-    k2_ms, k2_call_ms = kernel_ms(torch, lambda: ep.as_episode_trajectories(p, 9, N_MAIN, emit="full", device=dev),
-                                  warmup=3, reps=20)
+    k2_ms, k2_call_ms = kernel_ms(torch, lambda: ep.as_episode_trajectory(p, 9, N_MAIN, device=dev), warmup=3, reps=20)
+    k2_full_ms, k2_full_call_ms = kernel_ms(
+        torch, lambda: ep.as_episode_trajectories(p, 9, N_MAIN, emit="full", device=dev), warmup=3, reps=20)
     k1_plain_ms = cuda_ms(torch, lambda: ep.as_episode_plain(p, 9, N_MAIN, device=dev), warmup=1, reps=3)
-    k2_plain_ms = cuda_ms(torch, lambda: ep.as_episode_trajectories_plain(p, 9, N_MAIN, emit="full", device=dev), warmup=1, reps=3)
+    k2_plain_ms = cuda_ms(torch, lambda: ep.as_episode_trajectory_plain(p, 9, N_MAIN, device=dev), warmup=1, reps=3)
+    k2_full_plain_ms = cuda_ms(torch, lambda: ep.as_episode_trajectories_plain(p, 9, N_MAIN, emit="full", device=dev),
+                               warmup=1, reps=3)
     large = ep.params_from_config(dataclasses.replace(cfg, num_trajectories=N_LARGE), 0.1)
     k1_large, k1_large_call = kernel_ms(torch, lambda: ep.as_episode(large, 9, N_LARGE, device=dev), warmup=2, reps=10)
     k2_large, k2_large_call = kernel_ms(
         torch, lambda: ep.as_episode_trajectories(large, 9, N_LARGE, emit="full", device=dev), warmup=2, reps=10)
-    def bound(bytes_moved, ops):
-        return bound_ms(bytes_moved, ops, FP32_OPS_PER_S)
+    k2_large_traj, k2_large_traj_call = kernel_ms(
+        torch, lambda: ep.as_episode_trajectory(large, 9, N_LARGE, device=dev), warmup=2, reps=10)
 
-    def k1_bound_at(n):  # terminal (cash, inv, price) out; native mode reads nothing
-        return bound(3 * 4 * n, OPS_PER_ENV_STEP_K1 * n * STEPS)
-
-    def k2_bound_at(n):  # six (T, N) float32 streams out
-        return bound(6 * 4 * n * STEPS, OPS_PER_ENV_STEP_K2_FULL * n * STEPS)
-
+    wide = ep.trajectory_geometry(large, N_LARGE).shape
     for name, ms, call, plain_ms, n, (b_ms, b_by) in (
-        ("K1 as_episode native", k1_ms, k1_call_ms, k1_plain_ms, N_MAIN, k1_bound_at(N_MAIN)),
-        ("K2 as_episode_trajectories full native", k2_ms, k2_call_ms, k2_plain_ms, N_MAIN, k2_bound_at(N_MAIN)),
+        ("K1 as_episode native", k1_ms, k1_call_ms, k1_plain_ms, N_MAIN, as_bound("terminal", N_MAIN)),
+        ("K2 as_episode_trajectory (trajectory layout) native", k2_ms, k2_call_ms, k2_plain_ms, N_MAIN,
+         as_bound("trajectory", N_MAIN)),
+        ("K2 as_episode_trajectories full native", k2_full_ms, k2_full_call_ms, k2_full_plain_ms, N_MAIN,
+         as_bound("full", N_MAIN)),
         (f"K1 as_episode native ({ep.kernel_geometry(large, N_LARGE).shape} shape)", k1_large, k1_large_call, None,
-         N_LARGE, k1_bound_at(N_LARGE)),
-        ("K2 as_episode_trajectories full native", k2_large, k2_large_call, None, N_LARGE, k2_bound_at(N_LARGE)),
+         N_LARGE, as_bound("terminal", N_LARGE)),
+        (f"K2 as_episode_trajectories full native ({wide} shape)", k2_large, k2_large_call, None, N_LARGE,
+         as_bound("full", N_LARGE)),
+        (f"K2 as_episode_trajectory (trajectory layout) native ({wide} shape)", k2_large_traj, k2_large_traj_call,
+         None, N_LARGE, as_bound("trajectory", N_LARGE)),
     ):
         print(kernel_row(6, card, name, f"{n}x{STEPS}", n * STEPS, ms, call, b_ms, b_by, plain_ms))
 
-    k1_bound = k1_bound_at(N_MAIN)
-    k2_bound = k2_bound_at(N_MAIN)
+    k1_bound = as_bound("terminal", N_MAIN)
+    k2_bound = as_bound("trajectory", N_MAIN)
+    k2_full_bound = as_bound("full", N_MAIN)
     kernels = [
         {
             "name": "K1 as_episode", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/as_episode.cu",
@@ -1483,14 +1554,49 @@ def main():
             "table_path": "none", "pipeline": pipeline_entry(ep.kernel_geometry(p, N_MAIN)),
         },
         {
+            # ms: the trajectory layout, which the main path (rollout)
+            # launches; the full streams' figures beside it
             "name": "K2 as_episode_trajectories", "route": "cuda", "source": "mbt_gym_torch/ops/csrc/as_episode.cu",
             "replaces": "mbt_gym_tpu/ops/pallas_episode.py:1074", "launches": launches["as_episode_trajectories"],
             "max_abs_err": err["K2"], "ms": k2_ms, "call_ms": k2_call_ms, "plain_ms": k2_plain_ms,
             "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
+            "full_ms": k2_full_ms, "full_call_ms": k2_full_call_ms, "full_plain_ms": k2_full_plain_ms,
+            "full_bound_ms": k2_full_bound[0], "wide_full_ms": k2_large, "wide_ms": k2_large_traj,
+            "table_path": "none", "pipeline": pipeline_entry(ep.trajectory_geometry(p, N_MAIN)),
         },
     ]
+    return kernels, {"as_traj_kernel": k2_ms, "as_episode_kernel": k1_ms}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import episode as ep
+
+    dev = torch.device("cuda")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}")
+
+    # ---- phases 1 (K1/K2), 7 (K3/K4), 13 (K5/K6/K8) and 18 (K7, the
+    # towers modes): build every kernel source, one nvcc each, all started
+    # together, with -Xptxas -v
+    t0 = time.perf_counter()
+    sources = _build.SOURCES
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(lambda src: _build.build(src, ptxas_verbose=True), sources))
+    ep._kernels()
+    print(f"phase 1/7/13/18 build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+
+    kernels, as_kernel_ms = as_phases(torch, np, card, dev)
     kernels += ppo_phases(torch, np, card, dev)
-    kernels += cj_phases(torch, np, card, dev)
+    kernels += cj_phases(torch, np, card, dev, as_kernel_ms=as_kernel_ms)
     k7, towers_figures = update_phases(torch, np, card, dev)
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))

@@ -358,12 +358,9 @@ def fused_rollout(cfg: EnvConfig, policy, policy_params, key, decision, device=N
     n = cfg.num_trajectories
     if decision.family == "as_episode":
         p = episode.params_from_config(cfg, risk_aversion=meta["agent"].risk_aversion)
-        # emit="full": rewards and closed-form actions come kernel-computed,
-        # so the Trajectory assembly is layout work only.
-        streams = episode.as_episode_trajectories(
-            p, episode.seed_from_key(gen), n, emit="full", device=device
-        )
-        traj = episode.as_trajectory_from_full(p, streams)
+        # K2 writes the time-major Trajectory itself: rewards and
+        # closed-form actions kernel-computed, no layout copies after it.
+        traj = episode.as_episode_trajectory(p, episode.seed_from_key(gen), n, device=device)
         final = _final_state_from_obs(
             cfg, traj.observations[-1], gen, p.run_steps, p.initial_inventory, p.start_time,
         )

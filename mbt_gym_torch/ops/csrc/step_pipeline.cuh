@@ -3,7 +3,7 @@
 // stage the depth-table rows those steps read (and, in noise mode, the
 // injected draws), into a ring of shared-memory slots; its consumer warps
 // run the env step, one thread per env with the state in registers,
-// reading both from shared memory.  Used by K1 (as_episode.cu), K5
+// reading both from shared memory.  Used by K1 and K2 (as_episode.cu), K5
 // (det_rollout.cu), K6 (oe_episode.cu) and K8 (cj_episode.cu).
 //
 // Why: the draws are counter-based, keyed by (seed, env) at counter (step,
@@ -17,12 +17,13 @@
 // probabilities are not staged, two expf.
 //
 // The wide shape: where one thread per env already keeps the card's
-// schedulers busy (from step_pipeline.py's WIDE_MIN_ENVS envs on), the
+// schedulers busy (from step_pipeline.py's wide_min_envs on), the
 // producers only add work.  A geometry with P = 0 has no ring and no
 // mbarrier: a CTA of kWideEnvs threads, each stepping one env and drawing
 // its own draws inline (draws.cuh) in the same operation order, so the bits
-// are the pipeline's.  K1, K6 and K8 have both paths as two instantiations
-// (kWide); the wrapper's geometry picks one.  K5 has the pipeline alone.
+// are the pipeline's.  K1, K2, K6 and K8 have both paths as two
+// instantiations (kWide); the wrapper's geometry picks one.  K5 has the
+// pipeline alone.
 //
 // The ring: R slots, each holding the inputs of C consecutive steps:
 //   draws  [C][channels][E + 4] floats (five channels on limit dynamics, the

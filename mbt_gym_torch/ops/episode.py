@@ -14,14 +14,21 @@ PyTorch version.
   same episode, streaming every step's post-step state (``emit="state"``),
   plus the PnL reward and the closed-form quotes (``"full"``), or all seven
   planes in one ``(7, T, N)`` buffer (``"container"``).
+  :func:`as_episode_trajectory` is K2's fourth layout, which the rollout
+  alone reaches: the time-major :class:`~mbt_gym_torch.types.Trajectory`
+  written by the kernel itself, the function the JAX package computes as
+  ``as_trajectory_from_pallas_full`` over the ``"full"`` streams.
 
 Both are CUDA C++ kernels (``csrc/as_episode.cu``; the source note there
-gives what bounds them on the H100 and what the design does about it).
+gives what bounds them on the H100 and what the design does about it), on
+the step pipeline of ``csrc/step_pipeline.cuh`` below the wide shape's
+threshold and one thread per env from there on (:func:`kernel_geometry`,
+:func:`trajectory_geometry`).
 Which path a call takes depends only on the device of its tensors: CPU
 tensors run the plain version, CUDA tensors launch the kernel or raise.
 The plain versions (:func:`as_episode_plain`,
-:func:`as_episode_trajectories_plain`) run on any device; on the card they
-are what the kernels are held against.
+:func:`as_episode_trajectories_plain`, :func:`as_episode_trajectory_plain`)
+run on any device; on the card they are what the kernels are held against.
 
 Noise: ``noise`` is ``(run_steps, 5, N)`` float32 channels (arrival-bid u,
 arrival-ask u, fill-bid u, fill-ask u, midprice normal), as the JAX kernel's
@@ -45,7 +52,7 @@ from mbt_gym_torch.ops.step_pipeline import PipelineGeometry, pipeline_geometry
 from mbt_gym_torch.types import Trajectory, TrajectoryT
 
 CONTAINER_PLANES = 7  # cash, inventory, time, price, bid, ask, reward
-_EMITS = {"state": 0, "full": 1, "container": 2}
+_EMITS = {"state": 0, "full": 1, "container": 2}  # K2's public modes; 3 is the trajectory layout
 # Container planes each emit mode returns, in its return order.
 _EMIT_PLANES = {"state": (0, 1, 3), "full": (0, 1, 3, 6, 4, 5)}
 
@@ -162,7 +169,7 @@ class AsKernelParams(ctypes.Structure):
         ("gss", ctypes.c_float),
         ("half_gss", ctypes.c_float),
         ("const_half", ctypes.c_float),
-        ("pipe", PipelineGeometry),  # set by K1's wrapper; K2 ignores it
+        ("pipe", PipelineGeometry),  # set by each wrapper (kernel_geometry, trajectory_geometry)
     ]
 
 
@@ -345,6 +352,14 @@ def as_episode_trajectories_plain(params: AsEpisodeParams, seed: int = 0,
     return tuple(planes[c] for c in _EMIT_PLANES[emit])
 
 
+def as_episode_trajectory_plain(params: AsEpisodeParams, seed: int = 0, num_trajectories: int = 16384,
+                                noise: Optional[torch.Tensor] = None, device=None) -> Trajectory:
+    """Plain PyTorch version of K2's trajectory layout on any device: the
+    layout of the ``emit="full"`` streams (:func:`as_trajectory_from_full`)."""
+    streams = as_episode_trajectories_plain(params, seed, num_trajectories, "full", noise, device)
+    return as_trajectory_from_full(params, streams)
+
+
 # ------------------------------------------------------------ kernel wrappers
 def _check_noise(p: AsEpisodeParams, n: int, noise: torch.Tensor) -> None:
     if noise.dtype != torch.float32 or tuple(noise.shape) != (p.run_steps, 5, n):
@@ -364,6 +379,8 @@ def _kernels() -> ctypes.CDLL:
             ptr, i32, i32, u32, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         ]
         lib.mbt_as_episode_trajectories.restype = i32
+        lib.mbt_as_episode_trajectory.argtypes = [ptr, i32, i32, u32, ptr, ptr, ptr, ptr, ptr]
+        lib.mbt_as_episode_trajectory.restype = i32
         lib._mbt_declared = True
     return lib
 
@@ -392,6 +409,13 @@ def kernel_geometry(p: AsEpisodeParams, num_trajectories: int):
     dynamics, no table, the terminal state alone; the wide shape at wide
     calls."""
     return pipeline_geometry(num_trajectories, p.run_steps, "limit", "fixed", True)
+
+
+def trajectory_geometry(p: AsEpisodeParams, num_trajectories: int):
+    """K2's geometry, every output layout: limit dynamics, no table, a store
+    per step, in the pipeline's "as streams" mode; the wide shape from K2's
+    own threshold on (``step_pipeline.wide_min_envs("as streams")``)."""
+    return pipeline_geometry(num_trajectories, p.run_steps, "limit", "fixed", False, mode="as streams")
 
 
 def as_episode(params: AsEpisodeParams, seed: int = 0, num_trajectories: int = 16384,
@@ -436,6 +460,7 @@ def as_episode_trajectories(params: AsEpisodeParams, seed: int = 0,
         return as_episode_trajectories_plain(params, seed, num_trajectories, emit, noise, device)
     n, T = num_trajectories, params.run_steps
     kp, index, noise_ptr, stream = _launch_args(params, n, noise, device)
+    kp.pipe = trajectory_geometry(params, n).ctypes()
     if emit == "container":
         planes = torch.empty((CONTAINER_PLANES, T, n), dtype=torch.float32, device=device)
     else:
@@ -453,6 +478,35 @@ def as_episode_trajectories(params: AsEpisodeParams, seed: int = 0,
     if emit == "container":
         return planes
     return tuple(planes[c] for c in _EMIT_PLANES[emit])
+
+
+def as_episode_trajectory(params: AsEpisodeParams, seed: int = 0, num_trajectories: int = 16384,
+                          noise: Optional[torch.Tensor] = None, device=None) -> Trajectory:
+    """K2's trajectory layout: the rollout's time-major
+    :class:`~mbt_gym_torch.types.Trajectory` written by the kernel, with
+    observations ``(T+1, N, 4)`` (cash, inventory, time, price; row 0 the
+    initial state), actions ``(T, N, 2)`` (the closed-form bid and ask) and
+    rewards ``(T, N)`` (PnL).  The same function as
+    ``as_trajectory_from_full(params, as_episode_trajectories(..., emit="full"))``,
+    bit for bit, without the layout copies.  On a CPU target this is
+    :func:`as_episode_trajectory_plain`; on CUDA it launches K2."""
+    device = _target(noise, device)
+    if device.type == "cpu":
+        return as_episode_trajectory_plain(params, seed, num_trajectories, noise, device)
+    n, T = num_trajectories, params.run_steps
+    kp, index, noise_ptr, stream = _launch_args(params, n, noise, device)
+    kp.pipe = trajectory_geometry(params, n).ctypes()
+    obs = torch.empty((T + 1, n, 4), dtype=torch.float32, device=device)
+    actions = torch.empty((T, n, 2), dtype=torch.float32, device=device)
+    rewards = torch.empty((T, n), dtype=torch.float32, device=device)
+    rc = _kernels().mbt_as_episode_trajectory(
+        ctypes.byref(kp), index, n, int(seed) & _MASK32, noise_ptr,
+        obs.data_ptr(), actions.data_ptr(), rewards.data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"as_episode_trajectory kernel launch failed: CUDA error {rc}")
+    _build.count_launch("as_episode_trajectories")
+    return Trajectory(observations=obs, actions=actions, rewards=rewards)
 
 
 # ------------------------------------------------------------ stats + views
@@ -530,7 +584,9 @@ def _observation_planes(params: AsEpisodeParams, cash, inv, price):
 def as_trajectory_from_full(params: AsEpisodeParams, streams) -> Trajectory:
     """Time-major :class:`~mbt_gym_torch.types.Trajectory` from the
     ``emit="full"`` streams: rewards and actions come kernel-computed, so
-    this is layout work only."""
+    this is layout work only.  :func:`as_episode_trajectory` writes the same
+    tensors from the kernel; this stays its plain version and serves the
+    ``"full"`` streams' other callers."""
     cash, inv, price, reward, bid, ask = streams
     obs = torch.stack(_observation_planes(params, cash, inv, price), dim=2)
     return Trajectory(observations=obs, actions=torch.stack([bid, ask], dim=2), rewards=reward)

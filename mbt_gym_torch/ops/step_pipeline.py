@@ -1,4 +1,4 @@
-"""Geometry of the warp-specialised step pipeline that K1
+"""Geometry of the warp-specialised step pipeline that K1 and K2
 (``csrc/as_episode.cu``), K5 (``csrc/det_rollout.cu``), K6
 (``csrc/oe_episode.cu``) and K8 (``csrc/cj_episode.cu``) run
 (``csrc/step_pipeline.cuh``).
@@ -17,7 +17,7 @@ pure and runs on the host, so the CPU tests check its arithmetic.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 H100_SMS = 132
 # 227 KB of shared memory a CTA can take on the H100; the ring keeps to half
@@ -42,10 +42,17 @@ SLOTS = 2
 # 0.0275 ms with 6 producer warps and 8-step slots, 0.0235 with 14 and 8,
 # 0.0205 with 14 and 16, 0.0192 with 14 and 32, 0.0194 with 14 and 50;
 # K5's fixed-action stats mode on the same config 0.0277 and 0.0260 ms.
-PRODUCERS_PER_CONSUMER = {"stats": 3, "streams": 2, "speed stats": 7}
-MAX_CHUNK = {"stats": 8, "streams": 8, "speed stats": 32}
+# K2's streams ("as streams", every output layout of as_episode.cu) keep
+# the streams mode's producers and take 16-step slots.  Its trajectory
+# layout at 16,384 x 200 on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (scripts/episode_kernel_times.py --geometry, one call; 128-env CTAs):
+# 0.0530 ms with 8 producer warps and 8-step slots, 0.0513 with 16, 0.0514
+# with 32 (but 8% slower than 16 at 24,576 envs), 0.0512 with 16 and three
+# slots, 0.0525 with 12 producer warps and 16.
+PRODUCERS_PER_CONSUMER = {"stats": 3, "streams": 2, "speed stats": 7, "as streams": 2}
+MAX_CHUNK = {"stats": 8, "streams": 8, "speed stats": 32, "as streams": 16}
 # The wide shape: CTAs of WIDE_ENVS threads, one env each (mbt::kWideEnvs),
-# taken by the kernels that have it (K1, K6, K8) from WIDE_MIN_ENVS envs on,
+# taken by the kernels that have it (K1, K6, K8; K2 below) from WIDE_MIN_ENVS envs on,
 # where one thread per env fills the card and the producers' warps only add
 # work.  Device times on an NVIDIA H100 80GB HBM3 at 700.00 W
 # (scripts/episode_kernel_times.py --sweep, --geometry pipeline against
@@ -56,6 +63,20 @@ MAX_CHUNK = {"stats": 8, "streams": 8, "speed stats": 32}
 # 0.1538 / 0.1003 / 0.7628 ms); at 1,048,576, in another call, by 9-14%.
 WIDE_ENVS = 128
 WIDE_MIN_ENVS = 65_536
+# K2 stores every step, and its wide shape overtakes its pipeline at fewer
+# envs than K1's, K6's and K8's: its trajectory layout (--sweep, --geometry
+# pipeline against wide, one call, the same card) ran 0.0514 against
+# 0.0691 ms at 16,384 envs, 0.0902 against 0.0889 at 20,480, 0.0904 against
+# 0.0894 at 32,768 and 0.1332 against 0.1251 at 49,152.  Sizes between
+# 16,384 and 20,480 were not timed; from 16,897 envs on the pipeline's
+# 128-env CTAs no longer fit one to an SM.
+WIDE_MIN_ENVS_BY_MODE = {"as streams": 20_480}
+
+
+def wide_min_envs(mode: str) -> int:
+    """The env count from which a kernel with the wide shape takes it, by
+    pipeline mode."""
+    return WIDE_MIN_ENVS_BY_MODE.get(mode, WIDE_MIN_ENVS)
 
 
 class PipelineGeometry(ctypes.Structure):
@@ -132,18 +153,21 @@ def wide_geometry(channels: int, table_rows: int = 0, row_floats: int = 0) -> Ge
 
 
 def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_only: bool,
-                      row_floats: int = 0, table_rows: int = 0, wide: bool = True) -> Geometry:
-    """The pipeline geometry of one K1, K5, K6 or K8 call of ``n`` envs over
-    ``run_steps`` steps.
+                      row_floats: int = 0, table_rows: int = 0, wide: bool = True,
+                      mode: Optional[str] = None) -> Geometry:
+    """The pipeline geometry of one K1, K2, K5, K6 or K8 call of ``n`` envs
+    over ``run_steps`` steps.
 
-    - From ``WIDE_MIN_ENVS`` envs on, a kernel with the wide shape
-      (``wide``: K1, K6 and K8; K5 has none) takes it.
+    - Mode: "stats", "streams", or "speed stats" for the stats mode of
+      speed dynamics, from ``stats_only`` and ``dynamics``, unless ``mode``
+      names one (K2: "as streams").
+    - From :func:`wide_min_envs` of the mode on, a kernel with the wide
+      shape (``wide``: K1, K2, K6 and K8; K5 has none) takes it.
     - Envs per CTA: the widest of 128, 64 and 32 that still gives
       ``SM_SHARE`` of the SMs a CTA (16,384 envs: 128 per CTA, 128 CTAs;
       8,192: 64; 4,100: 32).
     - Producer warps: ``PRODUCERS_PER_CONSUMER[mode]`` per consumer warp,
-      as far as ``MAX_THREADS`` allows (mode: "stats", "streams", or
-      "speed stats" for the stats mode of speed dynamics).
+      as far as ``MAX_THREADS`` allows.
     - Channels: five on limit dynamics, the midprice normal alone on speed.
     - The table kind reads a row of each of ``table_rows`` tables a step,
       ``row_floats`` apart (K5: the bid and ask tables and their fill
@@ -157,13 +181,13 @@ def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_
     rows = table_rows if policy == "table" else 0
     width = row_floats if rows else 0
     channels = 5 if dynamics == "limit" else 1
-    if wide and n >= WIDE_MIN_ENVS:
+    mode = mode or ("streams" if not stats_only else "speed stats" if dynamics == "speed" else "stats")
+    if wide and n >= wide_min_envs(mode):
         return wide_geometry(channels, rows, width)
     consumers = MAX_CONSUMER_WARPS
     while consumers > 1 and -(-n // (32 * consumers)) < SM_SHARE * H100_SMS:
         consumers //= 2
     envs = 32 * consumers
-    mode = "streams" if not stats_only else "speed stats" if dynamics == "speed" else "stats"
     room = (MAX_THREADS - envs) // 32 // consumers * consumers  # producer warps the CTA holds
     producers = min(PRODUCERS_PER_CONSUMER[mode] * consumers, room)
     max_chunk = MAX_CHUNK[mode]

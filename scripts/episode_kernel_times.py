@@ -17,22 +17,30 @@ card's time alone, host work excluded) beside the call time
   at 8,192 x 200;
 - K8 ``cj_episode`` at 16,384 x 1,000;
 - K1 ``as_episode`` at 16,384 and 1,048,576 x 200, K2
-  ``as_episode_trajectories`` at 16,384 x 200, K6 ``oe_episode`` at 8,192
-  and 1,048,576 x 200.
+  ``as_episode_trajectories`` (``emit="full"``) at 16,384 and 1,048,576 x
+  200, K2's trajectory layout (``as_episode_trajectory``, the rollout's
+  Trajectory) at 16,384 and 1,048,576 x 200, K6 ``oe_episode`` at 8,192
+  and 1,048,576 x 200.  A checkout without the trajectory layout times
+  what its rollout ran instead: the full streams and their layout
+  (``as_trajectory_from_full``), every device op of both.  Beside them,
+  the call time of the AS ``rollout`` entry point at 16,384 x 200
+  (``backend="auto"``).
 
-``--geometry`` fixes the step-pipeline geometry of K1, K5, K6 and K8
+``--geometry`` fixes the step-pipeline geometry of K1, K2, K5, K6 and K8
 where the checkout has one: envs per CTA, producer warps, steps per slot,
 slots, and 0 to leave the table in global memory; ``pipeline`` is the
 pipeline's own choice without the wide shape, ``wide`` the wide shape (K5,
-which has none, keeps its own).  ``--times-only`` times K1, K5, K6 and K8
-alone, ``--sweep`` times K1, K6 and K8 at the given env counts (131,072
-to 1,048,576 by default) instead, to place the wide shape's threshold, and
-``--kernels`` keeps the rows whose names start with one of its
-comma-separated prefixes.  The script also prints a
+which has none, keeps its own).  ``--times-only`` skips the digests,
+``--sweep`` times K1, K2 (full and the trajectory layout), K6 and K8 at
+the given env counts (131,072 to 1,048,576 by default) instead, to place
+the wide shape's threshold, and ``--kernels`` keeps the rows whose names
+start with one of its comma-separated prefixes.  The script also prints a
 sha256 digest of every output of K1-K8 on fixed inputs (noise and native
 mode; K3, K4 and K7 at 4,096 envs x 200 steps; K1, K6 and K8 native at
-1,048,576 envs as well), so two checkouts can be shown to compute the same
-bits.  It prints one JSON object per line and needs a CUDA device.
+1,048,576 envs as well), of K2's trajectory layout in both draw modes, and
+of the Trajectory of the AS ``rollout`` on the card, so two checkouts can
+be shown to compute the same bits.  It prints one JSON object per line and
+needs a CUDA device.
 """
 import argparse
 import dataclasses
@@ -65,9 +73,9 @@ def main():
     parser.add_argument("--label", default="this checkout")
     parser.add_argument("--geometry", default=None, help="E,P,C,R[,staged], pipeline or wide")
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--times-only", action="store_true", help="time K1, K5, K6 and K8 only, no digests")
+    parser.add_argument("--times-only", action="store_true", help="times only, no digests")
     parser.add_argument("--sweep", nargs="?", const="131072,262144,524288,1048576", default=None,
-                        help="time K1, K6 and K8 at these env counts (default 131,072 to 1,048,576)")
+                        help="time K1, K2, K6 and K8 at these env counts (default 131,072 to 1,048,576)")
     parser.add_argument("--kernels", default=None, help="time only the rows whose names start so, e.g. K6,K5 fixed")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -84,7 +92,10 @@ def main():
 
     with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
         list(pool.map(_build.build, _build.SOURCES))
-    from mbt_gym_torch import CarteaJaimungalMmAgent, CarteaJaimungalOeAgent, as_env_config, cj_env_config, oe_env_config
+    from mbt_gym_torch import (
+        AvellanedaStoikovAgent, CarteaJaimungalMmAgent, CarteaJaimungalOeAgent, as_env_config, cj_env_config,
+        oe_env_config, rollout,
+    )
     from mbt_gym_torch.ops import cj_episode as cj
     from mbt_gym_torch.ops import det_rollout as det
     from mbt_gym_torch.ops import episode as ep
@@ -125,6 +136,12 @@ def main():
     as_cfg = as_env_config(num_trajectories=16_384)
     p_as = ep.params_from_config(as_cfg, 0.1)
     big_p = det.cj_rollout_params(dataclasses.replace(cj_cfg, num_trajectories=131_072), agent)
+    # K2's trajectory layout; where the checkout has none, the rollout's
+    # assembly of it from the full streams
+    as_policy = AvellanedaStoikovAgent.from_config(as_cfg, risk_aversion=0.1).policy()
+    trajectory = getattr(ep, "as_episode_trajectory", None) or (
+        lambda p, seed, n, noise=None, device=None: ep.as_trajectory_from_full(
+            p, ep.as_episode_trajectories(p, seed, n, emit="full", noise=noise, device=device)))
 
     rows = (
         ("K5 table stats", 16_384, 1000, lambda: det.table_rollout(p_table, *tables, 9, 16_384, stats_only=True, device=dev)),
@@ -137,16 +154,19 @@ def main():
         ("K1", 16_384, 200, lambda: ep.as_episode(p_as, 9, 16_384, device=dev)),
         ("K1", 1_048_576, 200, lambda: ep.as_episode(p_as, 9, 1_048_576, device=dev)),
         ("K2 full", 16_384, 200, lambda: ep.as_episode_trajectories(p_as, 9, 16_384, emit="full", device=dev)),
+        ("K2 full", 1_048_576, 200, lambda: ep.as_episode_trajectories(p_as, 9, 1_048_576, emit="full", device=dev)),
+        ("K2 trajectory", 16_384, 200, lambda: trajectory(p_as, 9, 16_384, device=dev)),
+        ("K2 trajectory", 1_048_576, 200, lambda: trajectory(p_as, 9, 1_048_576, device=dev)),
         ("K6", 8_192, 200, lambda: oe.oe_episode(p_oe, speed_table, 9, 8_192, device=dev)),
         ("K6", 1_048_576, 200, lambda: oe.oe_episode(p_oe, speed_table, 9, 1_048_576, device=dev)),
     )
-    if args.times_only:
-        rows = [row for row in rows if not row[0].startswith("K2")]
     if args.geometry == "wide":
         rows = [row for row in rows if not row[0].startswith("K5")]
     if args.sweep:
         rows = [(name, n, steps, fn) for n in (int(x) for x in args.sweep.split(",")) for name, steps, fn in (
             ("K1", 200, lambda n=n: ep.as_episode(p_as, 9, n, device=dev)),
+            ("K2 full", 200, lambda n=n: ep.as_episode_trajectories(p_as, 9, n, emit="full", device=dev)),
+            ("K2 trajectory", 200, lambda n=n: trajectory(p_as, 9, n, device=dev)),
             ("K6", 200, lambda n=n: oe.oe_episode(p_oe, speed_table, 9, n, device=dev)),
             ("K8", 1000, lambda n=n: cj.cj_episode(p_cj, cj_table, 9, 100, n, device=dev)),
         )]
@@ -158,6 +178,10 @@ def main():
         print(json.dumps({"label": label, "kernel": name, "shape": f"{n}x{steps}", "device_ms": ms, "call_ms": call,
                           "card": card}))
 
+    if not args.sweep and (not args.kernels or "rollout AS".startswith(tuple(args.kernels.split(",")))):
+        # the entry point reads its seed back to the host, so only its call time is defined
+        call = cs.cuda_ms(torch, lambda: rollout(as_cfg, as_policy, None, 9), warmup=2, reps=args.reps)
+        print(json.dumps({"label": label, "kernel": "rollout AS", "shape": "16384x200", "call_ms": call, "card": card}))
     if args.times_only or args.sweep:
         return 0
 
@@ -184,6 +208,8 @@ def main():
     for mode, kw in (("noise", {"noise": channels(11, 200, 16_384)}), ("native", {"seed": 50, "device": dev})):
         digests[f"K1 {mode}"] = digest(ep.as_episode(p_as, num_trajectories=16_384, **kw))
         digests[f"K2 {mode}"] = digest(ep.as_episode_trajectories(p_as, num_trajectories=16_384, emit="full", **kw))
+        digests[f"K2 trajectory {mode}"] = digest(trajectory(p_as, kw.get("seed", 0), 16_384, noise=kw.get("noise"),
+                                                             device=dev))
     normals = torch.from_numpy(np.random.default_rng(15).normal(size=(200, 8_192)).astype(np.float32)).to(dev)
     for mode, kw in (("noise", {"noise": normals}), ("native", {"seed": 42, "device": dev})):
         digests[f"K6 {mode}"] = digest(oe.oe_episode(p_oe, speed_table, num_trajectories=8_192, **kw))
@@ -191,6 +217,7 @@ def main():
     digests["K1 native 1048576"] = digest(ep.as_episode(p_as, 51, 1_048_576, device=dev))
     digests["K6 native 1048576"] = digest(oe.oe_episode(p_oe, speed_table, 52, 1_048_576, device=dev))
     digests["K8 native 1048576"] = digest(cj.cj_episode(p_cj, cj_table, 53, 100, 1_048_576, device=dev))
+    digests["rollout AS native"] = digest(rollout(as_cfg, as_policy, None, 50).trajectory)
     digests.update(ppo_digests(torch, dev))
     print(json.dumps({"label": label, "digests": digests}))
     return 0

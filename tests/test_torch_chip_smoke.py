@@ -144,3 +144,18 @@ def test_pipeline_entry_names_the_geometry_that_ran(n, shape):
     entry = chip_smoke.pipeline_entry(cj.kernel_geometry(p, 100, n))
     assert entry["shape"] == shape and set(entry) == {"shape", "envs", "producers", "chunk", "slots", "smem_bytes"}
     assert (entry["producers"] == 0) == (shape == "wide") and (entry["smem_bytes"] == 0) == (shape == "wide")
+
+
+@pytest.mark.parametrize("layout,n,want_ms,by", [
+    ("terminal", 16_384, 257 * 16_384 * 200 / 67e12 * 1e3, "operations"),
+    ("full", 16_384, 6 * 4 * 16_384 * 200 / 3.35e12 * 1e3, "bytes"),
+    ("trajectory", 16_384, 16_384 * (201 * 16 + 200 * 12) / 3.35e12 * 1e3, "bytes"),
+    ("trajectory", 1_048_576, 1_048_576 * (201 * 16 + 200 * 12) / 3.35e12 * 1e3, "bytes"),
+])
+def test_as_bounds_count_each_layouts_bytes(layout, n, want_ms, by):
+    """K1 is bound by its operations (257 a native env-step at the float32
+    peak), K2's full streams by their 24 bytes per env-step, its trajectory
+    layout by 28 bytes per env-step plus the 16-byte initial row: 92.0 MB,
+    0.0275 ms at 16,384 x 200."""
+    got_ms, got_by = chip_smoke.as_bound(layout, n)
+    assert got_by == by and got_ms == pytest.approx(want_ms, rel=1e-12)

@@ -589,29 +589,64 @@ def test_cj_episode_edges_on_the_card(cuda_device, run_steps):
             _assert_bitwise(got[:3], k5[:3])
 
 
+def _assert_planes_close(got, want, n):
+    """K2's (T, N) planes on the envs whose inventory plane agrees at every
+    step (at most 1e-4 of them may differ), at K1's limits."""
+    same = (got[1] == want[1]).all(dim=0)
+    assert int((~same).sum()) <= n // 10_000
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a[:, same], b[:, same], rtol=1e-6, atol=1e-3)
+
+
+def _assert_trajectory(traj, full, plain, terminal, n, p):
+    """K2's trajectory layout: bitwise the layout of its own full streams
+    (time column and initial row included), at K1's limits against the
+    plain layout, its last row bitwise K1's terminal state."""
+    want = ep.as_trajectory_from_full(p, full)
+    assert all(torch.equal(a, b) for a, b in zip(traj, want))
+    same = (traj.observations[..., 1] == plain.observations[..., 1]).all(dim=0)
+    assert int((~same).sum()) <= n // 10_000
+    for a, b in zip(traj, plain):
+        torch.testing.assert_close(a[:, same], b[:, same], rtol=1e-6, atol=1e-3)
+    last = traj.observations[-1]
+    _assert_bitwise(terminal, (last[:, 0], last[:, 1], last[:, 3]))
+
+
 @pytest.mark.parametrize("run_steps", [1, 7, 200])
 @pytest.mark.parametrize("start", [0, 3], ids=["t0", "late"])
 def test_as_episode_pipeline_edges_on_the_card(cuda_device, run_steps, start):
-    """K1's step pipeline at 4,100 envs (a ragged last CTA) and 4,099
-    (noise rows not 16-byte aligned), episodes of 1, 7 and 200 steps (not
-    multiples of a slot's steps), a late start with an initial inventory,
-    both draw modes: against its plain version at its limits, K2's last
-    row (one thread per env) bitwise, a repeated launch bitwise."""
+    """K1's and K2's step pipeline at 4,100 envs (a ragged last CTA) and
+    4,099 (noise rows not 16-byte aligned), episodes of 1, 7 and 200 steps
+    (not multiples of a slot's steps), a late start with an initial
+    inventory, both draw modes: K1 and K2 (state, full, the trajectory
+    layout) against their plain versions at K1's limits, K2's last row
+    bitwise K1's terminal state, repeated launches bitwise."""
     cfg = dataclasses.replace(as_env_config(num_trajectories=16, n_steps=run_steps + start), initial_inventory=3)
     if start:
         cfg = dataclasses.replace(cfg, start_time=start * cfg.step_size, initial_cash=5.0)
     p = ep.params_from_config(cfg, 0.1)
     assert p.run_steps == run_steps
     for n in (4100, 4099):
+        assert ep.kernel_geometry(p, n).shape == ep.trajectory_geometry(p, n).shape == "pipeline"
         for kw in ({"noise": _channels(2, run_steps, n, cuda_device)}, {"seed": 7, "device": cuda_device}):
             got = ep.as_episode(p, num_trajectories=n, **kw)
             again = ep.as_episode(p, num_trajectories=n, **kw)
             want = ep.as_episode_plain(p, num_trajectories=n, **kw)
             k2 = ep.as_episode_trajectories(p, num_trajectories=n, emit="state", **kw)
+            full = ep.as_episode_trajectories(p, num_trajectories=n, emit="full", **kw)
+            full_again = ep.as_episode_trajectories(p, num_trajectories=n, emit="full", **kw)
+            full_plain = ep.as_episode_trajectories_plain(p, num_trajectories=n, emit="full", **kw)
+            traj = ep.as_episode_trajectory(p, num_trajectories=n, **kw)
+            traj_again = ep.as_episode_trajectory(p, num_trajectories=n, **kw)
+            traj_plain = ep.as_episode_trajectory_plain(p, num_trajectories=n, **kw)
             torch.cuda.synchronize()
             _assert_bitwise(got, again)
             _assert_terminal_close(got, want, n)
             _assert_bitwise(got, (k2[0][-1], k2[1][-1], k2[2][-1]))
+            _assert_bitwise(full, full_again)
+            _assert_planes_close(full, full_plain, n)
+            _assert_bitwise(traj, traj_again)
+            _assert_trajectory(traj, full, traj_plain, got, n, p)
 
 
 @pytest.mark.parametrize("run_steps", [1, 7, 200])
@@ -657,10 +692,11 @@ def test_cj_fill_table_kernel_is_the_plain_exp_on_the_card(cuda_device):
     assert torch.equal(got, cj.cj_fill_table_plain(p, table))
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K6", "K8"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K2 trajectory", "K6", "K8"])
 def test_wide_shape_matches_plain_and_the_pipeline_on_the_card(cuda_device, monkeypatch, kernel):
-    """From WIDE_MIN_ENVS envs on, K1, K6 and K8 take the wide shape (one
-    thread per env, no ring).  There (plus 3 envs, a ragged last CTA), in
+    """From their threshold on (K2's own, the others' WIDE_MIN_ENVS), K1, K2
+    (its full streams and its trajectory layout), K6 and K8 take the wide
+    shape (one thread per env, no ring).  There (plus 3 envs, a ragged last CTA), in
     both draw modes: against the plain version, a repeated launch bitwise,
     and bitwise the step pipeline's result at the same size, since each
     thread draws its draws in the same operation order.  Episodes are cut
@@ -671,7 +707,7 @@ def test_wide_shape_matches_plain_and_the_pipeline_on_the_card(cuda_device, monk
     from mbt_gym_torch.ops import step_pipeline as sp
     from mbt_gym_torch.utils.config import cj_env_config, oe_env_config
 
-    n, steps = sp.WIDE_MIN_ENVS + 3, 50
+    n, steps = (sp.wide_min_envs("as streams") if kernel.startswith("K2") else sp.WIDE_MIN_ENVS) + 3, 50
     gen = torch.Generator(cuda_device).manual_seed(21)
     if kernel == "K6":
         cfg = oe_env_config(num_trajectories=16, n_steps=steps)
@@ -689,6 +725,16 @@ def test_wide_shape_matches_plain_and_the_pipeline_on_the_card(cuda_device, monk
             module, geometry = ep, lambda: ep.kernel_geometry(p, n)
             run = lambda **kw: ep.as_episode(p, num_trajectories=n, **kw)  # noqa: E731
             plain = lambda **kw: ep.as_episode_plain(p, num_trajectories=n, **kw)  # noqa: E731
+        elif kernel == "K2":
+            p = ep.params_from_config(as_env_config(num_trajectories=16, n_steps=steps), 0.1)
+            module, geometry = ep, lambda: ep.trajectory_geometry(p, n)
+            run = lambda **kw: ep.as_episode_trajectories(p, num_trajectories=n, emit="full", **kw)  # noqa: E731
+            plain = lambda **kw: ep.as_episode_trajectories_plain(p, num_trajectories=n, emit="full", **kw)  # noqa: E731
+        elif kernel == "K2 trajectory":
+            p = ep.params_from_config(as_env_config(num_trajectories=16, n_steps=steps), 0.1)
+            module, geometry = ep, lambda: ep.trajectory_geometry(p, n)
+            run = lambda **kw: ep.as_episode_trajectory(p, num_trajectories=n, **kw)  # noqa: E731
+            plain = lambda **kw: ep.as_episode_trajectory_plain(p, num_trajectories=n, **kw)  # noqa: E731
         else:
             cfg = cj_env_config(num_trajectories=16, n_steps=steps, max_inventory=100.0)
             p = cj.cj_params_from_config(cfg)
@@ -702,7 +748,13 @@ def test_wide_shape_matches_plain_and_the_pipeline_on_the_card(cuda_device, monk
         got, again, want = run(**kw), run(**kw), plain(**kw)
         torch.cuda.synchronize()
         _assert_bitwise(got, again)
-        _assert_terminal_close(got, want, n)
+        if kernel == "K2":
+            _assert_planes_close(got, want, n)
+        elif kernel == "K2 trajectory":
+            full = ep.as_episode_trajectories(p, num_trajectories=n, emit="full", **kw)
+            _assert_trajectory(got, full, want, ep.as_episode(p, num_trajectories=n, **kw), n, p)
+        else:
+            _assert_terminal_close(got, want, n)
         with monkeypatch.context() as m:
             m.setattr(module, "pipeline_geometry",
                       lambda *a, **k: sp.pipeline_geometry(*a, **{**k, "wide": False}))

@@ -125,6 +125,73 @@ def test_k2_plain_random_noise_matches_jax_engine():
     )
 
 
+@pytest.mark.parametrize("n,steps", [(256, 20), (512, 900)], ids=["one-shot", "chunked"])
+def test_k2_trajectory_zero_bits_matches_interpret_pallas(n, steps):
+    """K2's trajectory layout against the JAX package's rollout assembly,
+    as_trajectory_from_pallas_full over the interpret-mode kernel's full
+    streams (mbt_gym_tpu/dispatch.py:363-366), on zero-bit noise (see
+    test_k2_plain_zero_bits_matches_interpret_pallas): the state columns
+    exactly, the time column, actions and rewards at that test's rtol=1e-6."""
+    jcfg = jax_as_env_config(num_trajectories=n, n_steps=steps)
+    p = pe.params_from_config(jcfg, risk_aversion=0.1)
+    want = pe.as_trajectory_from_pallas_full(
+        p, pe.as_episode_trajectories_pallas(p, 3, n, interpret=pltpu.InterpretParams(), emit="full")
+    )
+
+    tp = ep.params_from_config(torch_config(jcfg), risk_aversion=0.1)
+    zeros = torch.zeros((tp.run_steps, 5, n), dtype=torch.float32)
+    got = ep.as_episode_trajectory(tp, 3, n, noise=zeros)
+    want_obs = np.asarray(want.observations)
+    assert got.observations.shape == want_obs.shape == (steps + 1, n, 4)
+    assert got.actions.shape == (steps, n, 2) and got.rewards.shape == (steps, n)
+    for col in (0, 1, 3):
+        np.testing.assert_array_equal(got.observations[..., col].numpy(), want_obs[..., col], err_msg=str(col))
+    np.testing.assert_allclose(got.observations[..., 2].numpy(), want_obs[..., 2], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got.actions.numpy(), np.asarray(want.actions), rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(got.rewards.numpy(), np.asarray(want.rewards), rtol=1e-6, atol=1e-5)
+
+
+def test_k2_trajectory_random_noise_matches_jax_engine():
+    """K2's trajectory layout against the JAX engine's trajectory on the
+    same random noise, at the tolerances of
+    test_k2_plain_random_noise_matches_jax_engine."""
+    jcfg = _late_start_config()
+    tp = ep.params_from_config(torch_config(jcfg), risk_aversion=0.1)
+    channels = random_channels(11, 30, 256)
+    jres = jax_rollout(
+        jcfg, JaxAgent.from_config(jcfg, 0.1).policy(), None, jax.random.PRNGKey(0),
+        noise=channels_noise(channels, JaxSlotNoise),
+    )
+    traj = ep.as_episode_trajectory(tp, 0, 256, noise=torch.from_numpy(channels[: tp.run_steps]))
+    want_obs = np.asarray(jres.trajectory.observations)
+    got_obs = traj.observations.numpy()
+    assert got_obs.shape == want_obs.shape == (25, 256, 4)
+    assert_state_close(got_obs, want_obs)
+    np.testing.assert_allclose(got_obs[..., 2], want_obs[..., 2], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(traj.actions.numpy(), np.asarray(jres.trajectory.actions), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(traj.rewards.numpy(), np.asarray(jres.trajectory.rewards), rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["noise", "native"])
+@pytest.mark.parametrize("late", [False, True], ids=["default", "late-start"])
+def test_k2_trajectory_is_the_layout_of_the_full_streams(mode, late):
+    """On the CPU the trajectory layout is, bit for bit, what
+    as_trajectory_from_full makes of the emit="full" streams of the same
+    draws, time column and initial row included."""
+    cfg = as_env_config(num_trajectories=256, n_steps=40)
+    if late:
+        cfg = dataclasses.replace(cfg, initial_cash=5.0, initial_inventory=3, start_time=0.2)
+    p = ep.params_from_config(cfg, 0.1)
+    kw = {"noise": torch.from_numpy(random_channels(5, p.run_steps, 256))} if mode == "noise" else {"device": "cpu"}
+    got = ep.as_episode_trajectory(p, 7, 256, **kw)
+    want = ep.as_trajectory_from_full(p, ep.as_episode_trajectories(p, 7, 256, emit="full", **kw))
+    for name in ("observations", "actions", "rewards"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert got.observations.shape == (p.run_steps + 1, 256, 4)
+    initial = torch.tensor([p.initial_cash, p.initial_inventory, p.start_time, p.initial_price], dtype=torch.float32)
+    assert torch.equal(got.observations[0], initial.expand(256, 4))
+
+
 def test_k2_emits_agree_and_end_at_k1():
     """state == the first three full streams; the container holds the full
     streams plus the post-step time plane; K2's last row is K1's terminal
@@ -239,3 +306,23 @@ def test_k1_pipeline_geometry():
             assert 1 <= g.chunk <= steps and g.smem_bytes == sp.ring_bytes(g.envs, g.chunk, g.slots, 5)
             assert g.smem_bytes <= sp.SMEM_BUDGET and g.threads <= sp.MAX_THREADS
     assert ep.AsKernelParams.pipe.offset == ctypes.sizeof(ep.AsKernelParams) - 9 * 4
+
+
+def test_k2_pipeline_geometry():
+    """K2 (every layout) takes the pipeline's "as streams" mode: at the main
+    path's 16,384 x 200 128-env CTAs with the streams mode's two producer
+    warps a consumer warp, its own slot length, five draw channels and no
+    table; from its own threshold on, and at 1,048,576 envs, the wide
+    shape."""
+    from mbt_gym_torch.ops import step_pipeline as sp
+
+    p = ep.params_from_config(as_env_config(num_trajectories=16_384), 0.1)
+    g = ep.trajectory_geometry(p, 16_384)
+    assert g.shape == "pipeline" and (g.envs, g.slots, g.channels, g.table_path) == (128, sp.SLOTS, 5, "none")
+    assert g.producers == sp.PRODUCERS_PER_CONSUMER["as streams"] * g.envs // 32 == 8
+    assert g.chunk == sp.MAX_CHUNK["as streams"]
+    assert sp.PRODUCERS_PER_CONSUMER["as streams"] == sp.PRODUCERS_PER_CONSUMER["streams"]
+    assert g.smem_bytes == sp.ring_bytes(128, g.chunk, sp.SLOTS, 5) <= sp.SMEM_BUDGET
+    threshold = sp.wide_min_envs("as streams")
+    assert ep.trajectory_geometry(p, threshold - 1).shape == "pipeline"
+    assert ep.trajectory_geometry(p, threshold).shape == ep.trajectory_geometry(p, 1_048_576).shape == "wide"
