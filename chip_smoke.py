@@ -26,7 +26,17 @@ public entry points and times it all:
   shared trunk with ``fused_update`` (K7 16 times per iteration), (b) the
   towers with ``fused_update`` (K4's stacked-trunk mode 16 times), (c) the
   towers fully fused (K3's towers mode once, K4's 16 times), and
-  ``evaluate_policy(backend="fused")`` on the towers (phases 18-21).
+  ``evaluate_policy(backend="fused")`` on the towers (phases 18-21);
+- PPO learning on the CJ market-making env (phase 22): K3's CjMm and
+  running-penalty rewards at exponents 2 and 3 and K5 at exponent 3
+  against their plain versions (22a); 250 fully fused iterations (K3 with
+  the CjMm reward once and K4 16 times each) of the JAX slow gate's
+  setting, which must reach 0.6 x the closed-form CJ agent's reward, beside
+  the engine path, then ``evaluate_policy(backend="auto")`` on K3 (22b);
+  one fused iteration at config 5's widths on the CJ env, both layouts,
+  K3's CjMm time beside its PnL time (22c); REINFORCE on the card (22d);
+  and ``with_normalised_rewards`` on K5's fixed kind against the engine
+  (22e).
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
 update passes and of K3 run tensor-core instructions and the float32 ones
@@ -1170,10 +1180,10 @@ def update_phases(torch, np, card, dev):
     # "Lb?ELb1E"), the bf16 instantiations "ILb1E"; K3 (both layouts) is
     # mlp_rollout_kernel.  Then the tensor-core instructions of each.
     # The step-pipeline kernels K1, K2, K5, K6 and K8 spill nothing: K5's
-    # 20 instantiations, K1's, K6's and K8's 4 (two draw modes, the
-    # pipeline and the wide shape) and K2's 16 (the same, by its four
-    # output layouts).
-    pipeline_kernels = {"det_rollout.cu": 20, "as_episode.cu": 4 + 16, "oe_episode.cu": 4, "cj_episode.cu": 4}
+    # 40 instantiations (20 at inventory exponent 2, 20 at any other),
+    # K1's, K6's and K8's 4 (two draw modes, the pipeline and the wide
+    # shape) and K2's 16 (the same, by its four output layouts).
+    pipeline_kernels = {"det_rollout.cu": 40, "as_episode.cu": 4 + 16, "oe_episode.cu": 4, "cj_episode.cu": 4}
     for src, names in (("fused_ppo.cu", ("ppo_pass1", "ppo_pass2")), ("mlp_rollout.cu", ("mlp_rollout_kernel",)),
                        ("det_rollout.cu", ("det_rollout_kernel",)),
                        ("as_episode.cu", ("as_episode_kernel", "as_traj_kernel")),
@@ -1392,6 +1402,281 @@ def update_phases(torch, np, card, dev):
     return k7, towers_figures
 
 
+# ------------------------------------------------------------------ CJ learning
+# The JAX slow gate's setting (tests/test_convergence.py:214-237): the CJ
+# env at 1,024 envs x 100 steps, arrival rate 10, phi 0.5, alpha 0.001,
+# q_max 10; 250 iterations of 4 epochs x 4 minibatches, 128x128 towers; the
+# best mean episode reward above 0.6 x the closed-form CJ agent's.
+CJ_GATE_N, CJ_GATE_T, CJ_GATE_ITERATIONS, CJ_GATE_BAR = 1024, 100, 250, 0.6
+CJ_SMALL_N = 4096
+SCALING_N = 131_072  # a lane multiple: the reward-scaling simulation on K5
+
+
+def cj_learning_phases(torch, np, card, dev, k3_pnl_ms=None):
+    """Phase 22: PPO learning on the CJ market-making env through K3's CjMm
+    reward.  (a) K3's CjMm and running-penalty rewards at exponents 2 and 3
+    and K5 at exponent 3 against their plain versions; (b) the fully fused
+    PPO path learns on the card to the JAX slow gate's bar, beside the
+    engine path, then evaluate_policy(backend="auto") goes to K3; (c) one
+    fused iteration at config 5's widths on the CJ env, with K3's CjMm
+    time beside its PnL time (``k3_pnl_ms``: phase 12's); (d) REINFORCE on
+    the card; (e) the reward-scaling simulation on K5's fixed kind.
+    Returns the kernels-line figures of K3, K4 and K5 by kernel."""
+    import dataclasses
+
+    from mbt_gym_torch import (
+        CarteaJaimungalMmAgent, as_env_config, cj_env_config, dispatch_report, rollout, with_normalised_rewards,
+    )
+    from mbt_gym_torch.agents import reinforce
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.agents.ppo import (
+        PPOConfig, deterministic_policy, evaluate_policy, init_train_state, train_iteration,
+    )
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.rewards import CjMmCriterion, RunningInventoryPenalty
+    from mbt_gym_torch.utils import reward_scaling
+
+    t_start = time.perf_counter()
+    norm = dict(normalise_observation_space=True, normalise_action_space=True)
+    steps = STEPS
+    cj5 = dataclasses.replace(cj_env_config(num_trajectories=PPO_N, n_steps=steps), **norm)  # CjMm, phi 0.01
+    shared = init_actor_critic(3, 4, 2, hidden=(256, 256), shared_trunk=True, device=dev)
+    towers = init_actor_critic(4, 4, 2, hidden=(256, 256), shared_trunk=False, device=dev)
+    layouts = (("shared trunk", shared), ("towers", towers))
+
+    def mlp_channels(seed, n):
+        rng = np.random.default_rng(seed)
+        c = rng.uniform(size=(steps, mr.N_CHANNELS, n)).astype(np.float32)
+        c[:, 4:] = rng.normal(size=(steps, mr.N_CHANNELS - 4, n)).astype(np.float32)
+        return torch.from_numpy(c).to(dev)
+
+    # ---- phase 22a: K3's new reward kinds at config 5's widths (CjMm,
+    # injected noise, both layouts), then the running penalty and exponent
+    # 3 at 4,096 envs in both draw modes, at phase 8's limits, each
+    # launched twice bitwise; K5's table and fixed kinds at exponent 3 at
+    # phase 14's limits
+    t0 = time.perf_counter()
+    err = {"K3": 0.0, "K5": 0.0}
+    p5 = mr.rollout_params_from_config(cj5)
+    check((p5.reward_kind, p5.phi, p5.alpha) == ("cjmm", 0.01, 0.001), f"phase 22a: config 5 CJ params {p5}")
+    noise = mlp_channels(25, PPO_N)
+    for layout, model in layouts:
+        got = mr.mlp_rollout(p5, model, num_trajectories=PPO_N, noise=noise)
+        again = mr.mlp_rollout(p5, model, num_trajectories=PPO_N, noise=noise)
+        want = mr.mlp_rollout_plain(p5, model, num_trajectories=PPO_N, noise=noise)
+        torch.cuda.synchronize()
+        at = f"phase 22a K3 cjmm {layout} noise at {PPO_N}x{steps}"
+        err["K3"] = max(err["K3"], compare_rollouts(torch, got, want, PPO_N, at))
+        check_repeat(torch, rollout_outputs(got), rollout_outputs(again), at)
+        del got, again, want
+    del noise
+    for name, reward in (("running", RunningInventoryPenalty(0.01, 0.001)),
+                         ("cjmm e3", CjMmCriterion(0.01, 0.001, inventory_exponent=3.0)),
+                         ("running e3", RunningInventoryPenalty(0.01, 0.001, inventory_exponent=3.0))):
+        p = mr.rollout_params_from_config(dataclasses.replace(cj5, num_trajectories=CJ_SMALL_N, reward_function=reward))
+        for layout, model in layouts:
+            for mode, kw in (("noise", {"noise": mlp_channels(26, CJ_SMALL_N)}), ("native", {"seed": 34, "device": dev})):
+                got = mr.mlp_rollout(p, model, num_trajectories=CJ_SMALL_N, **kw)
+                again = mr.mlp_rollout(p, model, num_trajectories=CJ_SMALL_N, **kw)
+                want = mr.mlp_rollout_plain(p, model, num_trajectories=CJ_SMALL_N, **kw)
+                torch.cuda.synchronize()
+                at = f"phase 22a K3 {name} {layout} {mode} at {CJ_SMALL_N}x{steps}"
+                err["K3"] = max(err["K3"], compare_rollouts(torch, got, want, CJ_SMALL_N, at))
+                check_repeat(torch, rollout_outputs(got), rollout_outputs(again), at)
+    cjp = cj_env_config(num_trajectories=CJ_N, max_inventory=100.0)
+    cjp_agent = CarteaJaimungalMmAgent.from_config(cjp, max_inventory=100)  # its closed form takes exponent 2
+    cjp3 = dataclasses.replace(cjp, reward_function=CjMmCriterion(0.01, 0.001, inventory_exponent=3.0))
+    as3 = dataclasses.replace(as_env_config(num_trajectories=CJ_N),
+                              reward_function=RunningInventoryPenalty(0.01, 0.001, inventory_exponent=3.0))
+    k5_cases = (
+        ("table CJP cjmm e3", det.cj_rollout_params(cjp3, cjp_agent),
+         tuple(torch.as_tensor(t, device=dev) for t in det.cj_depth_tables(cjp_agent))),
+        ("fixed AS running e3", det.fixed_rollout_params(as3, [0.7, 0.9]), ()),
+    )
+    for label, p, tbl in k5_cases:
+        check(p.inventory_exponent == 3.0, f"phase 22a K5 {label}: exponent {p.inventory_exponent}")
+        rng = np.random.default_rng(27)
+        c = rng.uniform(size=(p.run_steps, 5, CJ_N)).astype(np.float32)
+        c[:, 4] = rng.normal(size=(p.run_steps, CJ_N)).astype(np.float32)
+        for mode, kw in (("noise", {"noise": torch.from_numpy(c).to(dev)}), ("native", {"seed": 43, "device": dev})):
+            for stats in (True, False):
+                extra = {"stats_only": stats, "final_obs": not stats}
+                got = det.det_rollout(p, tbl, num_trajectories=CJ_N, **kw, **extra)
+                again = det.det_rollout(p, tbl, num_trajectories=CJ_N, **kw, **extra)
+                want = det.det_rollout_plain(p, tbl, num_trajectories=CJ_N, **kw, **extra)
+                torch.cuda.synchronize()
+                at = f"phase 22a K5 {label} {'stats' if stats else 'streams'} {mode} at {CJ_N}x{p.run_steps}"
+                err["K5"] = max(err["K5"], compare_outputs(torch, got, want, CJ_N, at, streams=not stats))
+                check_repeat(torch, (dict(enumerate(got)),), (dict(enumerate(again)),), at)
+        del got, again, want
+    print(f"phase 22a ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 22b: the fused PPO path learns on the card.  Launch counts
+    # are read per iteration (K3 x1, K4 x16, nothing else) and summed over
+    # the slice's main path (22b and 22e); metric bands on every iteration
+    t0 = time.perf_counter()
+    path = {name: 0 for name in _build.launch_counts}
+
+    def add_launches():
+        for name, c in _build.launch_counts.items():
+            path[name] += c
+
+    raw = cj_env_config(num_trajectories=CJ_GATE_N, n_steps=CJ_GATE_T, arrival_rate=10.0,
+                        per_step_inventory_aversion=0.5, terminal_inventory_aversion=0.001, max_inventory=10.0)
+    gate_cfg = dataclasses.replace(raw, **norm)
+    _build.reset_launch_counts()
+    cf = float(rollout(raw, CarteaJaimungalMmAgent.from_config(raw, max_inventory=10).policy(), None, 1)
+               .trajectory.rewards.sum(dim=0).mean())
+    torch.cuda.synchronize()
+    add_launches()
+    fused_cfg = PPOConfig(hidden=(128, 128), n_epochs=4, n_minibatches=4, shuffle=False, fused_rollout=True,
+                          fused_update=True)
+    per_iteration = {"mlp_rollout": 1, "ppo_fused_grads_T": fused_cfg.n_epochs * fused_cfg.n_minibatches}
+    bests = {}
+    for label, cfg in (("fused", fused_cfg), ("engine", dataclasses.replace(fused_cfg, fused_rollout=False,
+                                                                            fused_update=False))):
+        t1 = time.perf_counter()
+        ts = init_train_state(gate_cfg, cfg, 0)
+        check(next(ts.params.parameters()).device.type == "cuda", f"phase 22b {label}: params not on the card")
+        history = []
+        for i in range(CJ_GATE_ITERATIONS):
+            _build.reset_launch_counts()
+            ts, metrics = train_iteration(gate_cfg, cfg, ts, i)
+            counts = dict(_build.launch_counts)
+            want = {name: per_iteration.get(name, 0) if label == "fused" else 0 for name in counts}
+            check(counts == want, f"phase 22b {label} iteration {i + 1}: launches {counts}, want {want}")
+            if label == "fused":
+                add_launches()
+            history.append(assert_metric_bands(metrics, f"phase 22b {label} iteration {i + 1}")["mean_episode_reward"])
+        bests[label] = max(history)
+        print(f"phase 22b {label} path: {CJ_GATE_ITERATIONS} iterations in {time.perf_counter() - t1:.1f} s, "
+              f"mean_episode_reward first 5 {history[:5]}, last 5 {history[-5:]}, best {bests[label]} "
+              f"= {bests[label] / cf:.3f} x the closed-form CJ agent's {cf}")
+        if label == "fused":
+            trained = ts.params
+    decision = dispatch_report(gate_cfg, deterministic_policy(gate_cfg), mode="evaluate", platform=dev,
+                               policy_params=trained)
+    check((decision.backend, decision.family) == ("fused", "mlp_rollout"), f"phase 22b evaluate dispatch: {decision}")
+    _build.reset_launch_counts()
+    auto = float(evaluate_policy(gate_cfg, trained, 50))
+    torch.cuda.synchronize()
+    counts = {name: c for name, c in _build.launch_counts.items() if c}
+    check(counts == {"mlp_rollout": 1}, f"phase 22b evaluate_policy(auto) launches {counts}")
+    add_launches()
+    engine = float(evaluate_policy(gate_cfg, trained, 50, backend="engine"))
+    with torch.no_grad():
+        spread = rollout(gate_cfg, deterministic_policy(gate_cfg), trained, 51, backend="engine").trajectory.rewards.sum(0)
+    se = float(spread.std()) * (2.0 / CJ_GATE_N) ** 0.5
+    print(f"phase 22b evaluate_policy of the trained towers at {CJ_GATE_N}x{CJ_GATE_T}: auto (K3 x1) {auto}, "
+          f"engine {engine}, {abs(auto - engine) / se:.2f} se")
+    check(abs(auto - engine) <= 4 * se, f"phase 22b: evaluate_policy auto {auto} vs engine {engine}, se {se}")
+    check(bests["fused"] > CJ_GATE_BAR * cf,
+          f"phase 22b: fused PPO best {bests['fused']} not above {CJ_GATE_BAR} x the closed form {cf}")
+    print(f"phase 22b ok in {time.perf_counter() - t0:.1f} s: fused best {bests['fused']} and engine best "
+          f"{bests['engine']} against the bar {CJ_GATE_BAR * cf}")
+
+    # ---- phase 22c: config 5's widths on the CJ env: one fused iteration
+    # per layout (launches checked, metric bands), one timed, one profiled;
+    # K3's device time with the CjMm reward beside the PnL kind on the same
+    # params in this call, and phase 12's PnL figure
+    t0 = time.perf_counter()
+    env_steps = PPO_N * steps
+    k3 = {}
+    for layout, shared_trunk in (("shared trunk", True), ("towers", False)):
+        cfg = PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=PPO_MINIBATCHES, shuffle=False,
+                        compute_dtype="bfloat16", shared_trunk=shared_trunk, fused_rollout=True, fused_update=True)
+        ts = init_train_state(cj5, cfg, 60)
+        _build.reset_launch_counts()
+        ts, metrics = train_iteration(cj5, cfg, ts, 61)
+        torch.cuda.synchronize()
+        counts = {name: c for name, c in _build.launch_counts.items() if c}
+        check(counts == {"mlp_rollout": 1, "ppo_fused_grads_T": PPO_MINIBATCHES},
+              f"phase 22c {layout}: launches {counts}")
+        assert_metric_bands(metrics, f"phase 22c {layout}")
+        ms = cuda_ms(torch, lambda: train_iteration(cj5, cfg, ts, 62), warmup=0, reps=1)
+        print(f"phase 22c [{card}] fused train_iteration on the CJ env, {layout}, at config 5 ({PPO_N}x{steps}, "
+              f"16 minibatches): {ms} ms = {env_steps / ms * 1e3} env-steps/s")
+        profile_iteration(torch, card, f"fused train_iteration on the CJ env, {layout}, at config 5",
+                          lambda: train_iteration(cj5, cfg, ts, 63), phase=22)
+        params = ts.params
+        cjmm = kernel_ms(torch, lambda: mr.mlp_rollout(p5, params, 9, PPO_N, device=dev), warmup=1, reps=5,
+                         label=f"phase 22c K3 cjmm {layout} at {PPO_N}x{steps}")
+        p_pnl = p5._replace(reward_kind="pnl")
+        pnl = kernel_ms(torch, lambda: mr.mlp_rollout(p_pnl, params, 9, PPO_N, device=dev), warmup=1, reps=5,
+                        label=f"phase 22c K3 pnl {layout} at {PPO_N}x{steps}")
+        plain_ms = cuda_ms(torch, lambda: mr.mlp_rollout_plain(p5, params, 9, PPO_N, device=dev), warmup=1, reps=1)
+        k3[layout] = (cjmm, pnl, plain_ms)
+        print(f"phase 22c [{card}] K3 {layout} at {PPO_N}x{steps}: CjMm {cjmm[0]} ms on the device (call {cjmm[1]} ms), "
+              f"plain {plain_ms} ms, PnL on the same params {pnl[0]} ms (call {pnl[1]} ms)"
+              + (f"; phase 12's PnL K3 {k3_pnl_ms} ms" if shared_trunk and k3_pnl_ms is not None else ""))
+        del ts, params
+    print(f"phase 22c ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 22d: REINFORCE on the card (tests/test_convergence.py:135-176)
+    t0 = time.perf_counter()
+    rf_env = dataclasses.replace(as_env_config(num_trajectories=256, n_steps=20), **norm)
+    gen = torch.Generator(dev).manual_seed(123)
+
+    def random_policy(p, obs, state):
+        return torch.rand((obs.shape[0], rf_env.action_dim), generator=gen, dtype=obs.dtype, device=obs.device) * 2 - 1
+
+    _build.reset_launch_counts()
+    rand = float(rollout(rf_env, random_policy, None, 5).trajectory.rewards.sum(dim=0).mean())
+    rf_cfg = reinforce.ReinforceConfig(hidden=(32, 32), action_std=0.3, learning_rate=1e-2, lr_decay=0.999)
+    rts = reinforce.init_train_state(rf_env, rf_cfg, 0)
+    check(next(rts.params.parameters()).device.type == "cuda", "phase 22d: REINFORCE params not on the card")
+    hist = []
+    for i in range(100):
+        rts, m = reinforce.train_epoch(rf_env, rf_cfg, rts, i, 100)
+        hist.append(float(m["mean_episode_reward"]))
+    check(sum(_build.launch_counts.values()) == 0, f"phase 22d: REINFORCE launched {dict(_build.launch_counts)}")
+    first10, last10 = statistics.mean(hist[:10]), statistics.mean(hist[-10:])
+    print(f"phase 22d REINFORCE on the card: first 10 epochs {first10}, last 10 {last10}, random policy {rand}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(last10 > first10 + 0.3, f"phase 22d: REINFORCE did not improve: {first10} -> {last10}")
+    check(last10 > rand + 1.0, f"phase 22d: REINFORCE {last10} does not beat the random policy {rand} by 1.0")
+
+    # ---- phase 22e: the reward-scaling simulation on K5's fixed kind, held
+    # to the engine's within 4 standard errors; at 100,000 trajectories the
+    # dispatch takes the engine for the lane rule
+    t0 = time.perf_counter()
+    sc_cfg = as_env_config(num_trajectories=64)
+    sim, pol = reward_scaling.inventory_neutral_simulation(sc_cfg, SCALING_N)
+    decision = dispatch_report(sim, pol, mode="rollout", platform=dev)
+    check((decision.backend, decision.family) == ("fused", "fixed"), f"phase 22e dispatch: {decision}")
+    _build.reset_launch_counts()
+    scaled = with_normalised_rewards(sc_cfg, 7, SCALING_N)
+    torch.cuda.synchronize()
+    counts = {name: c for name, c in _build.launch_counts.items() if c}
+    check(counts == {"det_rollout": 1}, f"phase 22e: with_normalised_rewards launches {counts}")
+    add_launches()
+    episodes = rollout(sim, pol, None, 8, backend="engine").trajectory.rewards.sum(dim=0)
+    e_mean, se = float(episodes.mean()), float(episodes.std()) * (2.0 / SCALING_N) ** 0.5
+    k5_mean = 1.0 / scaled.reward_scaling
+    print(f"phase 22e reward scaling at {SCALING_N}x{sc_cfg.n_steps}: {scaled.reward_scaling} (K5 x1); mean "
+          f"inventory-neutral episode reward {k5_mean} vs engine {e_mean}, {abs(k5_mean - e_mean) / se:.2f} se")
+    check(abs(k5_mean - e_mean) <= 4 * se, f"phase 22e: K5 {k5_mean} vs engine {e_mean}, se {se}")
+    big = dispatch_report(*reward_scaling.inventory_neutral_simulation(sc_cfg, 100_000), mode="rollout", platform=dev)
+    check(big.backend == "engine" and "multiple of 128" in big.reason, f"phase 22e at 100,000: {big}")
+    print(f"phase 22e at 100,000 trajectories: {big.backend} ({big.reason}); ok in {time.perf_counter() - t0:.1f} s")
+
+    print(f"phase 22 launches on the CJ learning path (22b, 22e): { {k: c for k, c in path.items() if c} }")
+    for name in ("mlp_rollout", "ppo_fused_grads_T", "det_rollout"):
+        check(path[name] > 0, f"phase 22: {name} was not launched on the CJ learning path")
+    print(f"phase 22 ok in {time.perf_counter() - t_start:.1f} s")
+    (cj_ms, cj_call), (pnl_ms, _), cj_plain_ms = k3["shared trunk"]
+    return {
+        "K3": {"cjmm_launches": path["mlp_rollout"], "cjmm_max_abs_err": err["K3"], "cjmm_ms": cj_ms,
+               "cjmm_call_ms": cj_call, "cjmm_plain_ms": cj_plain_ms, "cjmm_pnl_same_call_ms": pnl_ms,
+               "cjmm_towers_ms": k3["towers"][0][0], "cjmm_towers_plain_ms": k3["towers"][2],
+               "cjmm_towers_pnl_same_call_ms": k3["towers"][1][0]},
+        "K4": {"cjmm_launches": path["ppo_fused_grads_T"]},
+        "K5": {"cjmm_launches": path["det_rollout"], "e3_max_abs_err": err["K5"]},
+    }
+
+
 def as_phases(torch, np, card, dev):
     """Phases 2-6: K1 and K2 against their plain versions at the pipeline
     and the wide shape, the AS main path through the public entry points
@@ -1598,8 +1883,11 @@ def main():
     kernels += ppo_phases(torch, np, card, dev)
     kernels += cj_phases(torch, np, card, dev, as_kernel_ms=as_kernel_ms)
     k7, towers_figures = update_phases(torch, np, card, dev)
+    k3_pnl_ms = next(entry["ms"] for entry in kernels if entry["name"].startswith("K3"))
+    cj_figures = cj_learning_phases(torch, np, card, dev, k3_pnl_ms)
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))
+        entry.update(cj_figures.get(entry["name"][:2], {}))
     kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
     for entry in rank_by_gap(kernels):
         print(f"rank [{card}] {entry['name']}: {entry['launches']} launches x ({entry['ms']} - {entry['bound_ms']}) ms "

@@ -13,7 +13,11 @@ rollout, K4, the feature-major PPO update, and K7, the row-major one),
 and the closed-form Cartea-Jaimungal paths: the
 CJP market maker, the optimal-execution schedule and fixed actions on the
 deterministic-policy kernel K5, the OE episode kernel K6, and the CJP
-value-function lane :func:`cj_episode_rewards` on K8.
+value-function lane :func:`cj_episode_rewards` on K8.  PPO also trains on
+the CJ market-making env with the CjMm or running-penalty reward through
+K3; ``agents.reinforce`` is the REINFORCE learner; :mod:`wrappers` holds
+the observation and reward transforms, and
+:func:`with_normalised_rewards` the reference's reward normalisation.
 """
 
 from mbt_gym_torch.types import (
@@ -43,6 +47,8 @@ from mbt_gym_torch.agents.baseline import (
 from mbt_gym_torch.ops.cj_episode import cj_episode_rewards
 from mbt_gym_torch.ops.oe_episode import oe_episode_rewards
 from mbt_gym_torch.utils.config import as_env_config, cj_env_config, oe_env_config
+from mbt_gym_torch.utils.reward_scaling import compute_inventory_neutral_reward_scaling, with_normalised_rewards
+from mbt_gym_torch import wrappers
 
 __version__ = "0.1.0"
 
@@ -70,6 +76,7 @@ __all__ = [
     "as_env_config",
     "cj_env_config",
     "cj_episode_rewards",
+    "compute_inventory_neutral_reward_scaling",
     "default_dynamics",
     "episode_stats",
     "fixed_action_policy",
@@ -83,4 +90,6 @@ __all__ = [
     "step",
     "train_chunk",
     "train_iteration",
+    "with_normalised_rewards",
+    "wrappers",
 ]

@@ -9,9 +9,13 @@ package's actor-critic:
 - ``shared_trunk=True``: one ``shared`` trunk with tanh after every layer
   and the linear heads ``pi_head`` / ``vf_head``.
 
+A plain MLP (REINFORCE's policy mean) is an ``nn.ModuleList`` of
+``nn.Linear`` from :func:`init_mlp`, run by :func:`mlp_apply`.
+
 ``nn.Linear`` stores its weight as ``(out, in)``, the transpose of the JAX
 package's ``(in, out)`` ``w``; :func:`mbt_gym_torch.convert.actor_critic_from_numpy`
-and ``actor_critic_to_numpy`` carry weights across.  ``log_std`` is a
+and ``actor_critic_to_numpy`` (``mlp_from_numpy`` / ``mlp_to_numpy`` for a
+plain MLP) carry weights across.  ``log_std`` is a
 parameter of shape ``(A,)``.
 
 ``compute_dtype`` follows ``mlp_apply`` (networks.py:34-50): inputs,
@@ -48,6 +52,24 @@ def _fill_normal(layer: nn.Linear, scale: float, gen: torch.Generator) -> None:
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     layer.weight.copy_((scale * w).T)
     layer.bias.zero_()
+
+
+def init_mlp(key, sizes: Sequence[int], device=None, dtype: torch.dtype = torch.float32) -> nn.ModuleList:
+    """networks.py:19-31: an MLP over ``[in, h1, ..., out]`` as an
+    ``nn.ModuleList`` of ``nn.Linear``, each layer's weights scaled normals
+    (``sqrt(2 / fan_in)``, ``0.01`` on the last layer) drawn layer by layer
+    from ``key`` (an int seed or a ``torch.Generator``), biases zero.
+    :func:`mlp_apply` runs it; :func:`mbt_gym_torch.convert.mlp_from_numpy`
+    builds one from the JAX package's ``MlpParams``."""
+    device = resolve_device(device)
+    gen = make_generator(key, device)
+    layers = nn.ModuleList(
+        nn.utils.skip_init(nn.Linear, i, o, device=device, dtype=dtype) for i, o in zip(sizes[:-1], sizes[1:])
+    )
+    with torch.no_grad():
+        for i, lin in enumerate(layers):
+            _fill_normal(lin, math.sqrt(2.0 / lin.in_features) if i < len(layers) - 1 else 0.01, gen)
+    return layers
 
 
 class ActorCritic(nn.Module):

@@ -17,7 +17,8 @@ lists.
 - :func:`actor_critic_from_numpy` / :func:`actor_critic_to_numpy` carry
   actor-critic parameters across as the JAX package's params pytree of
   numpy arrays (``w`` is ``(in, out)`` there and ``(out, in)`` in
-  ``nn.Linear``).
+  ``nn.Linear``), and :func:`mlp_from_numpy` / :func:`mlp_to_numpy` a
+  plain MLP (``MlpParams``, REINFORCE's policy).
 
 A type that the port has not ported yet raises ``ValueError`` naming it.
 """
@@ -165,6 +166,27 @@ def _layers_from_numpy(layers, model_layers, device) -> None:
     for layer, lin in zip(layers, model_layers):
         lin.weight.copy_(torch.tensor(np.asarray(layer["w"]), dtype=torch.float32, device=device).T)
         lin.bias.copy_(torch.tensor(np.asarray(layer["b"]), dtype=torch.float32, device=device))
+
+
+def mlp_from_numpy(layers, device=None) -> torch.nn.ModuleList:
+    """A plain MLP (:func:`mbt_gym_torch.agents.networks.init_mlp`'s
+    ``nn.ModuleList`` of ``nn.Linear``) from the JAX package's ``MlpParams``:
+    a list of ``{"w": (in, out), "b": (out,)}`` numpy arrays."""
+    device = resolve_device(device)
+    model = torch.nn.ModuleList(
+        torch.nn.utils.skip_init(torch.nn.Linear, *np.shape(layer["w"]), device=device) for layer in layers
+    )
+    with torch.no_grad():
+        _layers_from_numpy(layers, model, device)
+    return model
+
+
+def mlp_to_numpy(model: torch.nn.ModuleList) -> list:
+    """The JAX package's ``MlpParams`` of a plain MLP, as numpy arrays."""
+    return [
+        {"w": lin.weight.detach().float().cpu().numpy().T.copy(), "b": lin.bias.detach().float().cpu().numpy().copy()}
+        for lin in model
+    ]
 
 
 def actor_critic_from_numpy(tree: dict, device=None) -> ActorCritic:

@@ -10,8 +10,8 @@
 // Ported scope: limit-order dynamics (Poisson arrivals, exponential fills)
 // with the PnL, pathwise CJ or running-penalty reward, and trading-speed
 // dynamics with temporary + permanent impact and the PnL or CJ execution
-// reward; BM midprice; inventory exponent 2; fixed start; optional per-env
-// initial inventory (inv0).
+// reward; BM midprice; any inventory exponent; fixed start; optional
+// per-env initial inventory (inv0).
 //
 // Design: a warp-specialised step pipeline (step_pipeline.cuh).  A CTA
 // owns E envs: E / 32 consumer warps run the env step, one thread per env
@@ -45,7 +45,14 @@
 // (mbt_gym_torch/ops/det_rollout.py), --fmad=false keeps every multiply
 // and add separately rounded, and normalisation divides.  Draws: native
 // Philox4x32-10 or injected (T, 5, N) channels, in the layout of
-// draws.cuh.
+// draws.cuh.  Inventory exponents: exponent 2 runs its own instantiation
+// (kAnyExp false), q(x) = x * x as before any other exponent was taken, so
+// its code, bits and time stay those of the exponent-2 kernel; any other
+// exponent runs the kAnyExp instantiation, q(x) = x * x at 2, x at 1 and
+// powf otherwise (pallas_rollout.py:1142-1149).  One kernel with a runtime
+// branch on the exponent cost the exponent-2 runs 11-64% (measured on the
+// H100): the inlined powf raised the register count, and the speed
+// dynamics took a 32-byte stack frame.
 //
 // TPU-only parts not ported: the sublane `rows` packing, the VMEM tile
 // search, pltpu.prng_seed and the 1e-42 carry jitter.
@@ -56,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include "draws.cuh"
+#include "inventory_power.cuh"
 #include "step_pipeline.cuh"
 
 constexpr int kMaxS = 5;
@@ -98,6 +106,7 @@ struct DetKernelParams {
   float dt_alpha;     // dt * alpha
   float cjmm_const;   // alpha * dt / episode_length
   float ep_len;       // terminal_time - start_time
+  float inv_exp;      // inventory exponent
   mbt::PipeGeometry pipe;
 };
 
@@ -127,6 +136,16 @@ enum Dynamics { kLimit = 0, kSpeed = 1 };
 enum Policy { kTable = 0, kFixed = 1, kSchedule = 2 };
 enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2, kCjOe = 3 };
 
+// q(x) at the kernel's exponent: x * x in the exponent-2 instantiation.
+template <bool kAnyExp>
+__device__ __forceinline__ float q_exp(float x, float e) {
+  if constexpr (kAnyExp) {
+    return mbt::q_pow(x, e);
+  } else {
+    return x * x;
+  }
+}
+
 // The observation planes of a state, normalised per the config.
 __device__ __forceinline__ void write_obs(const DetKernelParams& p, float* out, size_t stride,
                                           float cash, float inv, float t, float price, float imp) {
@@ -154,7 +173,7 @@ __global__ void fill_table_kernel(float neg_k, const float* __restrict__ bid, co
   }
 }
 
-template <bool kNoise, int kDyn, int kPol, bool kStats>
+template <bool kNoise, int kDyn, int kPol, bool kStats, bool kAnyExp>
 __global__ void __launch_bounds__(mbt::kMaxPipeThreads)
 det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t seed) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -183,7 +202,7 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   const size_t sn = static_cast<size_t>(n);
   float cash = p.initial_cash;
   float inv = b.inv0 && active ? b.inv0[env] : p.initial_inventory;
-  const float q0_sq = inv * inv;
+  const float q0_pow = q_exp<kAnyExp>(inv, p.inv_exp);
   float price = p.initial_price;
   float imp = 0.0f;
   float rsum = 0.0f, ssum = 0.0f;
@@ -277,14 +296,17 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
         const float new_price = price + p.drift_dt + p.vol_sqrt_dt * normal;
         // ---- reward at the post-step state (RewardFunctions.py)
         float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
-        const float q2 = new_inv * new_inv;
+        const float q_new = q_exp<kAnyExp>(new_inv, p.inv_exp);
         if (p.reward == kCjMm) {
-          reward = reward - p.dt_phi * q2 - p.alpha * (q2 - inv * inv) - p.cjmm_const * q0_sq;
+          reward = reward - p.dt_phi * q_new - p.alpha * (q_new - q_exp<kAnyExp>(inv, p.inv_exp)) -
+                   p.cjmm_const * q0_pow;
         } else if (p.reward == kRunning) {
           const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
-          reward = reward - p.dt_phi * q2 - (p.alpha * terminal) * q2;
+          reward = reward - p.dt_phi * q_new - (p.alpha * terminal) * q_new;
         } else if (p.reward == kCjOe) {
-          reward = reward - p.dt_phi * q2 - p.dt_alpha * (2.0f * exe0 * inv + q0_sq * p.ep_len);
+          // e * speed * q(inv, e - 1): 2 * speed * inv at exponent 2
+          const float dq = kAnyExp ? p.inv_exp * exe0 * mbt::q_pow(inv, p.inv_exp - 1.0f) : 2.0f * exe0 * inv;
+          reward = reward - p.dt_phi * q_new - p.dt_alpha * (dq + q0_pow * p.ep_len);
         }
         if constexpr (kStats) {
           rsum = rsum + reward;
@@ -315,11 +337,20 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   }
 }
 
+template <bool kNoise, int kDyn, int kPol, bool kAnyExp>
+cudaError_t launch_exp(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
+                       cudaStream_t s) {
+  return stats ? mbt::launch_pipeline(det_rollout_kernel<kNoise, kDyn, kPol, true, kAnyExp>, p.pipe, n, s, p, b, n,
+                                      seed)
+               : mbt::launch_pipeline(det_rollout_kernel<kNoise, kDyn, kPol, false, kAnyExp>, p.pipe, n, s, p, b, n,
+                                      seed);
+}
+
 template <bool kNoise, int kDyn, int kPol>
 cudaError_t launch_mode(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
                         cudaStream_t s) {
-  return stats ? mbt::launch_pipeline(det_rollout_kernel<kNoise, kDyn, kPol, true>, p.pipe, n, s, p, b, n, seed)
-               : mbt::launch_pipeline(det_rollout_kernel<kNoise, kDyn, kPol, false>, p.pipe, n, s, p, b, n, seed);
+  return p.inv_exp == 2.0f ? launch_exp<kNoise, kDyn, kPol, false>(p, b, n, seed, stats, s)
+                           : launch_exp<kNoise, kDyn, kPol, true>(p, b, n, seed, stats, s);
 }
 
 template <bool kNoise>

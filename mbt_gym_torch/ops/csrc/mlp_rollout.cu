@@ -3,8 +3,10 @@
 // Replaces the TPU kernel mlp_rollout_pallas
 // (mbt_gym_tpu/ops/pallas_rollout.py:1514, pallas_call at :1634) for the
 // MLP policy on the "limit" family: BM midprice, Poisson arrivals,
-// exponential fills, limit-order dynamics, PnL reward, fixed start time
-// and initial inventory, both actor-critic layouts.  Each step, per env:
+// exponential fills, limit-order dynamics, the PnL, pathwise CJ
+// market-making (CjMm) or running-penalty reward at any inventory
+// exponent, fixed start time and initial inventory, both actor-critic
+// layouts.  Each step, per env:
 // the (normalised) observation, the trunk h = tanh(W h + b) layer by
 // layer, the merged (A+1)-row head giving mean and value, the Gaussian
 // sample and its log-prob, the clipped and denormalised action, then the
@@ -88,6 +90,18 @@
 // products use explicit FMAs, exact on bf16 operands).  Fixed warp tiles
 // and a fixed reduction order make a repeated launch bitwise equal.
 //
+// Rewards (pallas_rollout.py:1136-1191): the reward kind and the exponent
+// are fields of the kernel's parameters, not template arguments.  The PnL
+// kind takes one uniform branch past the inventory terms and computes what
+// it computed before (its bits unchanged; at config 5 within 0.1% of the
+// kernel without the branch, measured on the H100); CjMm and the running
+// penalty add q(new_inv) (and CjMm q(inv)), where q is x * x at exponent
+// 2, x at 1 and powf otherwise, as the plain version branches, with the
+// wrapper's float32 constants dt * phi, alpha and
+// (alpha * dt / ep_len) * q(inv0).  The env step runs on 128 of the CTA's
+// 512 threads, so the longer branch costs the step little (CjMm +0.6% at
+// config 5).
+//
 // Noise: noise mode reads (T, 7, N) channels in the JAX order (u_arr_bid,
 // u_arr_ask, u_fill_bid, u_fill_ask, eps0, eps1, mid normal).  Native mode
 // draws Philox4x32-10 keyed by (seed, env) with counter (step, draw, 0, 0):
@@ -102,6 +116,7 @@
 #include <cuda_runtime.h>
 
 #include "dense.cuh"
+#include "inventory_power.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 
@@ -136,6 +151,11 @@ struct MlpKernelParams {
   float initial_inventory;
   float initial_price;
   float logp_const;  // 0.5 * log(2 pi) * a_dim
+  int reward;        // 0 pnl, 1 cjmm, 2 running
+  float dt_phi;      // dt * phi
+  float alpha;
+  float cjmm_const;  // (alpha * dt / episode_length) * q(initial_inventory)
+  float inv_exp;     // inventory exponent
 };
 
 struct RolloutOut {
@@ -149,6 +169,8 @@ struct RolloutOut {
 namespace {
 
 constexpr int kNoiseChannels = 7;
+enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2 };
+
 
 struct Draws {
   float u_ab, u_aa, u_fb, u_fa, eps0, eps1, mid;
@@ -245,7 +267,16 @@ __device__ __forceinline__ void env_step(const MlpKernelParams& p, const Draws& 
   new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
   new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
   const float new_price = s.price + p.drift_dt + p.vol_sqrt_dt * d.mid;
-  const float reward = (new_cash + new_inv * new_price) - (s.cash + s.inv * s.price);
+  float reward = (new_cash + new_inv * new_price) - (s.cash + s.inv * s.price);
+  if (p.reward != kPnl) {
+    const float q_new = mbt::q_pow(new_inv, p.inv_exp);
+    if (p.reward == kCjMm) {
+      reward = reward - p.dt_phi * q_new - p.alpha * (q_new - mbt::q_pow(s.inv, p.inv_exp)) - p.cjmm_const;
+    } else {  // the running penalty's terminal term at the last step only
+      const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
+      reward = reward - p.dt_phi * q_new - (p.alpha * terminal) * q_new;
+    }
+  }
 
   const size_t o1 = static_cast<size_t>(i) * n + env;
   for (int a = 0; a < p.a_dim; ++a) {
@@ -756,6 +787,7 @@ extern "C" int mbt_mlp_rollout(const MlpKernelParams* p, int device, int n, uint
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
+  if (p->reward < kPnl || p->reward > kRunning) return static_cast<int>(cudaErrorInvalidValue);
   const RolloutOut out{obs, act, logp, value, reward};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return launch<true>(*p, n, seed, noise, pi, vf, log_std, out, s);

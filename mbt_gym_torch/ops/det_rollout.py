@@ -18,8 +18,8 @@ on the H100 and what the design does about it).  The policy kinds:
 Ported scope: limit-order dynamics with PnL, the pathwise CJ criterion
 (``CjMmCriterion``) or the running inventory penalty, and trading-speed
 dynamics with temporary and permanent impact and PnL or the CJ execution
-criterion; BM midprice, Poisson arrivals, exponential fills; inventory
-exponent 2; a fixed start time; a random initial inventory through the
+criterion; BM midprice, Poisson arrivals, exponential fills; any
+inventory exponent; a fixed start time; a random initial inventory through the
 ``inv0`` plane (streams mode).  :func:`det_rollout_params_from_config`
 raises ``AssertionError`` naming any other feature.
 
@@ -95,6 +95,9 @@ class DetRolloutParams(NamedTuple):
     reward_kind: str = "pnl"  # "pnl" | "cjmm" | "running" | "cjoe"
     phi: float = 0.0  # per-step inventory aversion
     alpha: float = 0.0  # terminal inventory aversion
+    # reference semantics: inventory**exp, NaN on a negative inventory with
+    # a fractional exponent, as in the engine
+    inventory_exponent: float = 2.0
     terminal_time: float = 1.0
     dynamics_kind: str = "limit"  # "limit" | "speed"
     temporary_impact: float = 0.0
@@ -185,10 +188,6 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
             f"dynamics only; {type(d).__name__} with {d.action_dim} action columns (the "
             "limit-and-market-order and at-the-touch families) is not ported to CUDA yet"
         )
-    assert getattr(r, "inventory_exponent", 2.0) == 2.0, (
-        "deterministic-policy kernel: inventory exponent 2 only; other exponents are not "
-        "ported to CUDA yet"
-    )
     assert cfg.reward_scaling is None, (
         "reward_scaling is an engine feature; the kernel's rewards are unscaled"
     )
@@ -236,6 +235,7 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
         reward_kind=reward_kind,
         phi=phi,
         alpha=alpha,
+        inventory_exponent=float(getattr(r, "inventory_exponent", 2.0)),
         terminal_time=cfg.terminal_time,
         dynamics_kind=dynamics_kind,
         temporary_impact=temp_imp,
@@ -329,6 +329,19 @@ def det_streams_feasible(p: DetRolloutParams, num_trajectories: int, tables_byte
     return 4 * floats + tables_bytes <= free_bytes
 
 
+def q_pow(x, exponent: float):
+    """The JAX kernels' inventory power (pallas_rollout.py:1142-1149):
+    ``x * x`` for exponent 2, ``x`` for 1, else ``x ** exponent`` (NaN on a
+    negative base with a fractional exponent, as in the reference)."""
+    if exponent == 2.0:
+        return x * x
+    if exponent == 1.0:
+        return x
+    if isinstance(x, torch.Tensor):
+        return x**exponent
+    return np.power(x, np.float32(exponent))
+
+
 # ------------------------------------------------------------ constants
 class DetKernelParams(ctypes.Structure):
     """float32 step constants shared by the plain version and the kernel
@@ -373,6 +386,7 @@ class DetKernelParams(ctypes.Structure):
         ("dt_alpha", ctypes.c_float),
         ("cjmm_const", ctypes.c_float),
         ("ep_len", ctypes.c_float),
+        ("inv_exp", ctypes.c_float),
         ("pipe", PipelineGeometry),  # set by the kernel wrapper
     ]
 
@@ -422,6 +436,7 @@ def kernel_params(p: DetRolloutParams, table_width: int = 0) -> DetKernelParams:
         dt_alpha=p.dt * p.alpha,
         cjmm_const=p.alpha * p.dt / ep_len,
         ep_len=ep_len,
+        inv_exp=p.inventory_exponent,
     )
 
 
@@ -514,7 +529,8 @@ def det_rollout_plain(p: DetRolloutParams, tables=(), seed: int = 0, num_traject
     f32 = torch.float32
     cash = torch.full((n,), kp.initial_cash, dtype=f32, device=device)
     inv = torch.full((n,), kp.initial_inventory, dtype=f32, device=device) if inv0 is None else inv0.to(device, f32)
-    q0 = inv
+    e = kp.inv_exp
+    q0 = q_pow(inv, e)
     price = torch.full((n,), kp.initial_price, dtype=f32, device=device)
     imp = torch.zeros((n,), dtype=f32, device=device)
     speed_dyn = p.dynamics_kind == "speed"
@@ -553,14 +569,15 @@ def det_rollout_plain(p: DetRolloutParams, tables=(), seed: int = 0, num_traject
         new_cash = torch.clamp(new_cash, -kp.max_cash, kp.max_cash)
         new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[4]
         reward = (new_cash + new_inv * new_price) - (cash + inv * price)
-        q2 = new_inv * new_inv
+        if p.reward_kind != "pnl":  # pallas_rollout.py:1150-1185, in its op order
+            q_new = q_pow(new_inv, e)
         if p.reward_kind == "cjmm":
-            reward = reward - kp.dt_phi * q2 - kp.alpha * (q2 - inv * inv) - kp.cjmm_const * (q0 * q0)
+            reward = reward - kp.dt_phi * q_new - kp.alpha * (q_new - q_pow(inv, e)) - kp.cjmm_const * q0
         elif p.reward_kind == "running":
             terminal = 1.0 if i == T - 1 else 0.0
-            reward = reward - kp.dt_phi * q2 - (kp.alpha * terminal) * q2
+            reward = reward - kp.dt_phi * q_new - (kp.alpha * terminal) * q_new
         elif p.reward_kind == "cjoe":
-            reward = reward - kp.dt_phi * q2 - kp.dt_alpha * (2.0 * exe[0] * inv + (q0 * q0) * kp.ep_len)
+            reward = reward - kp.dt_phi * q_new - kp.dt_alpha * (e * exe[0] * q_pow(inv, e - 1.0) + q0 * kp.ep_len)
         if stats_only:
             rsum = rsum + reward
             if A >= 2:

@@ -18,8 +18,10 @@ and zero columns add exact zeros, so the outputs do not change), and
 operands it runs on CUDA cores over tiles of 32 envs.
 
 Ported scope: the "limit" family (BM midprice, Poisson arrivals,
-exponential fill, limit-order dynamics, PnL reward) with a fixed start
-time and a fixed initial inventory, and both actor-critic layouts: the
+exponential fill, limit-order dynamics) with the PnL, pathwise CJ
+market-making (``CjMmCriterion``) or running-penalty
+(``RunningInventoryPenalty``) reward at any inventory exponent, a fixed
+start time and a fixed initial inventory, and both actor-critic layouts: the
 shared trunk, and the separate pi/vf towers as the JAX kernel's stacked
 trunk (``split_at`` mode, ``pallas_rollout.py:668-712`` and ``:858-873``).
 :func:`rollout_params_from_config` raises ``AssertionError`` naming any
@@ -52,6 +54,7 @@ import torch
 
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
+from mbt_gym_torch.ops.det_rollout import q_pow
 from mbt_gym_torch.ops.episode import _MASK32, _target, _uniform24, philox4x32_10
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -88,8 +91,9 @@ class MlpRolloutParams(NamedTuple):
     """Static scalars of the fused policy rollout: the fields of the JAX
     package's ``MlpRolloutParams`` that the ported family reads, with the
     same names and values (AS env contract, TradingEnvironment.py:103-110;
-    normalisation per :112-126).  The JAX kind fields are implied: limit
-    dynamics, BM midprice, Poisson arrivals, exponential fills, PnL, MLP."""
+    normalisation per :112-126).  The JAX kind fields the port does not
+    carry are implied: limit dynamics, BM midprice, Poisson arrivals,
+    exponential fills, MLP."""
 
     n_steps: int
     dt: float
@@ -110,10 +114,22 @@ class MlpRolloutParams(NamedTuple):
     act_grad: tuple
     normalise_obs: bool
     normalise_act: bool
+    # reward: "pnl" (RewardFunctions.py:20-36), "cjmm" (pathwise CJ MM
+    # criterion, :77-113) or "running" (RunningInventoryPenalty, :116-141),
+    # at any inventory_exponent (reference semantics: inventory**exp, so a
+    # fractional exponent is NaN on negative inventory, as in the engine)
+    reward_kind: str = "pnl"
+    phi: float = 0.0  # per-step inventory aversion
+    alpha: float = 0.0  # terminal inventory aversion
+    inventory_exponent: float = 2.0
+    terminal_time: float = 1.0
 
     @property
     def run_steps(self) -> int:
         return self.n_steps - round(self.start_time / self.dt)
+
+
+_REWARDS = {"pnl": 0, "cjmm": 1, "running": 2}
 
 
 def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
@@ -123,7 +139,7 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
     from mbt_gym_torch.processes.arrivals import PoissonArrivals
     from mbt_gym_torch.processes.fills import ExponentialFill
     from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
-    from mbt_gym_torch.rewards import PnL
+    from mbt_gym_torch.rewards import CjMmCriterion, PnL, RunningInventoryPenalty
 
     d = cfg.dynamics
     assert isinstance(d, LimitOrderDynamics) and d.action_dim == 2, (
@@ -143,10 +159,17 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
         f"fused rollout fills: exponential only; {d.fill_probability_model} "
         "is not ported to CUDA yet"
     )
-    assert isinstance(cfg.reward_function, PnL), (
-        f"fused rollout (limit dynamics) supports PnL only; "
-        f"{cfg.reward_function} is not ported to CUDA yet"
-    )
+    r = cfg.reward_function
+    if isinstance(r, PnL):
+        reward_kind, phi, alpha = "pnl", 0.0, 0.0
+    elif isinstance(r, (CjMmCriterion, RunningInventoryPenalty)):
+        reward_kind = "cjmm" if isinstance(r, CjMmCriterion) else "running"
+        phi, alpha = r.per_step_inventory_aversion, r.terminal_inventory_aversion
+    else:
+        raise AssertionError(
+            f"fused rollout (limit dynamics) supports PnL / CjMmCriterion / "
+            f"RunningInventoryPenalty; {r} is not ported to CUDA yet"
+        )
     assert cfg.reward_scaling is None
     assert not callable(cfg.initial_inventory), (
         "callable initial_inventory is host-evaluated per reset; use the "
@@ -187,6 +210,11 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
         act_grad=tuple(float(h - l) / 2.0 for l, h in zip(act_low, act_high)),
         normalise_obs=bool(cfg.normalise_observation_space),
         normalise_act=bool(cfg.normalise_action_space),
+        reward_kind=reward_kind,
+        phi=phi,
+        alpha=alpha,
+        inventory_exponent=float(getattr(r, "inventory_exponent", 2.0)),
+        terminal_time=cfg.terminal_time,
     )
 
 
@@ -314,11 +342,23 @@ class MlpKernelParams(ctypes.Structure):
         ("initial_inventory", ctypes.c_float),
         ("initial_price", ctypes.c_float),
         ("logp_const", ctypes.c_float),
+        ("reward", ctypes.c_int),
+        ("dt_phi", ctypes.c_float),
+        ("alpha", ctypes.c_float),
+        ("cjmm_const", ctypes.c_float),
+        ("inv_exp", ctypes.c_float),
     ]
 
 
 def kernel_params(p: MlpRolloutParams, widths) -> MlpKernelParams:
+    """The step constants of ``p``.  ``dt*phi`` and ``alpha*dt/ep_len`` are
+    formed in double, as the JAX kernel forms them from Python floats; the
+    CjMm constant ``(alpha*dt/ep_len) * q(inv0)`` is that float32 times the
+    float32 ``q(inv0)``, rounded to float32, as the JAX kernel multiplies
+    it by its float32 inv0 plane (pallas_rollout.py:1157)."""
     a_dim = len(p.act_low)
+    ep_len = p.terminal_time - p.start_time
+    q0 = q_pow(np.float32(p.initial_inventory), p.inventory_exponent)
     return MlpKernelParams(
         run_steps=p.run_steps,
         n_layers=len(widths),
@@ -345,6 +385,11 @@ def kernel_params(p: MlpRolloutParams, widths) -> MlpKernelParams:
         initial_inventory=p.initial_inventory,
         initial_price=p.initial_price,
         logp_const=0.5 * _LOG_2PI * a_dim,
+        reward=_REWARDS[p.reward_kind],
+        dt_phi=p.dt * p.phi,
+        alpha=p.alpha,
+        cjmm_const=float(np.float32(p.alpha * p.dt / ep_len) * q0),
+        inv_exp=p.inventory_exponent,
     )
 
 
@@ -501,7 +546,15 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
             new_cash = cash - hit_bid * (price - bid) + hit_ask * (price + ask)
             new_cash = torch.clamp(new_cash, -kp.max_cash, kp.max_cash)
             new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[6]
-            rew_out[i] = (new_cash + new_inv * new_price) - (cash + inv * price)
+            reward = (new_cash + new_inv * new_price) - (cash + inv * price)
+            if p.reward_kind != "pnl":  # pallas_rollout.py:1150-1185, in its op order
+                q_new = q_pow(new_inv, kp.inv_exp)
+                if p.reward_kind == "cjmm":
+                    reward = reward - kp.dt_phi * q_new - kp.alpha * (q_new - q_pow(inv, kp.inv_exp)) - kp.cjmm_const
+                else:  # "running": the terminal penalty at the last step only
+                    terminal = 1.0 if i == T - 1 else 0.0
+                    reward = reward - kp.dt_phi * q_new - (kp.alpha * terminal) * q_new
+            rew_out[i] = reward
             cash, inv, price = new_cash, new_inv, new_price
     return obs_out, act_out, logp_out, val_out, rew_out
 

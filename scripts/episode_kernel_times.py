@@ -24,7 +24,10 @@ card's time alone, host work excluded) beside the call time
   what its rollout ran instead: the full streams and their layout
   (``as_trajectory_from_full``), every device op of both.  Beside them,
   the call time of the AS ``rollout`` entry point at 16,384 x 200
-  (``backend="auto"``).
+  (``backend="auto"``);
+- K3 ``mlp_rollout`` with the PnL reward at bench_suite config 5 (262,144
+  x 200, 256x256, normalised AS env, bf16 operands), shared trunk and
+  towers.
 
 ``--geometry`` fixes the step-pipeline geometry of K1, K2, K5, K6 and K8
 where the checkout has one: envs per CTA, producer warps, steps per slot,
@@ -98,7 +101,9 @@ def main():
     )
     from mbt_gym_torch.ops import cj_episode as cj
     from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.agents.networks import init_actor_critic
     from mbt_gym_torch.ops import episode as ep
+    from mbt_gym_torch.ops import mlp_rollout as mr
     from mbt_gym_torch.ops import oe_episode as oe
 
     label = args.label
@@ -143,7 +148,15 @@ def main():
         lambda p, seed, n, noise=None, device=None: ep.as_trajectory_from_full(
             p, ep.as_episode_trajectories(p, seed, n, emit="full", noise=noise, device=device)))
 
+    k3_n = 262_144
+    p_k3 = mr.rollout_params_from_config(dataclasses.replace(
+        as_env_config(num_trajectories=k3_n), normalise_observation_space=True, normalise_action_space=True))
+    k3_models = {layout: init_actor_critic(0, 4, 2, hidden=(256, 256), shared_trunk=layout == "shared", device=dev)
+                 for layout in ("shared", "towers")}
+
     rows = (
+        ("K3 pnl shared", k3_n, 200, lambda: mr.mlp_rollout(p_k3, k3_models["shared"], 9, k3_n, device=dev)),
+        ("K3 pnl towers", k3_n, 200, lambda: mr.mlp_rollout(p_k3, k3_models["towers"], 9, k3_n, device=dev)),
         ("K5 table stats", 16_384, 1000, lambda: det.table_rollout(p_table, *tables, 9, 16_384, stats_only=True, device=dev)),
         ("K5 table stats", 131_072, 1000, lambda: det.table_rollout(big_p, *tables, 9, 131_072, stats_only=True, device=dev)),
         ("K5 table streams", 16_384, 1000, lambda: det.table_rollout(p_table, *tables, 9, 16_384, final_obs=True, device=dev)),

@@ -107,6 +107,38 @@ def test_mlp_rollout_kernel_matches_plain_on_the_card(cuda_device, normalised):
 
 
 @pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared-trunk", "towers"])
+@pytest.mark.parametrize("reward", ["cjmm", "running", "cjmm-e3", "running-e3"])
+def test_mlp_rollout_cj_rewards_match_plain_on_the_card(cuda_device, reward, shared_trunk):
+    """K3's CjMm and running-penalty rewards at inventory exponents 2 and 3
+    on the normalised CJ env (4,096 envs x 200 steps, 256x256, initial
+    inventory 2), noise and native mode, against the plain version at the
+    limits of the PnL test; a second launch is bitwise equal."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.rewards import CjMmCriterion, RunningInventoryPenalty
+    from mbt_gym_torch.utils.config import cj_env_config
+
+    n = 4096
+    e = 3.0 if reward.endswith("e3") else 2.0
+    r = (CjMmCriterion(0.5, 0.001, inventory_exponent=e) if reward.startswith("cjmm")
+         else RunningInventoryPenalty(0.5, 0.001, inventory_exponent=e))
+    cfg = dataclasses.replace(cj_env_config(num_trajectories=n, n_steps=200), reward_function=r, initial_inventory=2,
+                              normalise_observation_space=True, normalise_action_space=True)
+    p = mr.rollout_params_from_config(cfg)
+    assert (p.reward_kind, p.inventory_exponent) == (reward.split("-")[0], e)
+    model = init_actor_critic(5, 4, 2, hidden=(256, 256), shared_trunk=shared_trunk, device=cuda_device)
+    for kw in ({"noise": _mlp_channels(6, 200, n, cuda_device)}, {"seed": 11, "device": cuda_device}):
+        got = mr.mlp_rollout(p, model, num_trajectories=n, **kw)
+        again = mr.mlp_rollout(p, model, num_trajectories=n, **kw)
+        want = mr.mlp_rollout_plain(p, model, num_trajectories=n, **kw)
+        torch.cuda.synchronize()
+        same = _same_inventory_envs(got, want, n)
+        for a, b, c in zip(got, want, again):
+            torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3)
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared-trunk", "towers"])
 @pytest.mark.parametrize("hidden", [(64, 64), (36, 100), (256,), (128, 128, 128), (256, 256, 256)],
                          ids=["64x64", "36x100-padded", "256", "128x128x128", "256x256x256-unstaged"])
 def test_mlp_rollout_kernel_at_the_mma_tile_edges(cuda_device, hidden, shared_trunk):
@@ -394,6 +426,7 @@ def _assert_streams_close(got, want, n):
 def _det_cases():
     from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent, CarteaJaimungalOeAgent
     from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, RunningInventoryPenalty
     from mbt_gym_torch.utils.config import cj_env_config, oe_env_config
 
     cj = cj_env_config(num_trajectories=4096, n_steps=300, max_inventory=5.0)
@@ -401,7 +434,19 @@ def _det_cases():
     oe = oe_env_config(num_trajectories=4096)
     oe_agent = CarteaJaimungalOeAgent.from_config(oe, alpha=0.01)
     late = dataclasses.replace(as_env_config(num_trajectories=4096), initial_inventory=(-3, 4), start_time=0.1)
+    # inventory exponent 3: the CJ tables come from the exponent-2 agent
+    # (its closed form assumes 2)
+    cj3 = dataclasses.replace(cj, reward_function=CjMmCriterion(0.01, 0.001, inventory_exponent=3.0),
+                              initial_inventory=2)
+    as3 = dataclasses.replace(as_env_config(num_trajectories=4096),
+                              reward_function=RunningInventoryPenalty(0.01, 0.001, inventory_exponent=3.0))
+    oe3 = dataclasses.replace(oe, reward_function=CjOeCriterion(oe.reward_function.per_step_inventory_aversion,
+                                                                oe.reward_function.terminal_inventory_aversion,
+                                                                inventory_exponent=3.0))
     return {
+        "cj-table-e3": (det.cj_rollout_params(cj3, agent), det.cj_depth_tables(agent)),
+        "as-fixed-running-e3": (det.fixed_rollout_params(as3, [0.7, 0.9]), ()),
+        "oe-fixed-e3": (det.fixed_rollout_params(oe3, [-2.5]), ()),
         "cj-table": (det.cj_rollout_params(cj, agent), det.cj_depth_tables(agent)),
         "as-fixed-random-inventory": (det.fixed_rollout_params(late, [0.7, 0.9]), ()),
         "oe-fixed": (det.fixed_rollout_params(oe, [-2.5]), ()),
@@ -409,10 +454,11 @@ def _det_cases():
     }
 
 
-@pytest.mark.parametrize("case", ["cj-table", "as-fixed-random-inventory", "oe-fixed", "oe-schedule"])
+@pytest.mark.parametrize("case", ["cj-table", "as-fixed-random-inventory", "oe-fixed", "oe-schedule",
+                                  "cj-table-e3", "as-fixed-running-e3", "oe-fixed-e3"])
 def test_det_rollout_kernel_matches_plain_on_the_card(cuda_device, case):
     """K5 in both output modes, noise and native, against its plain version
-    at K1's limits."""
+    at K1's limits, at inventory exponent 2 and 3."""
     from mbt_gym_torch.ops import det_rollout as det
 
     p, tables = _det_cases()[case]

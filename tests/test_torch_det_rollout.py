@@ -160,6 +160,62 @@ def test_table_plain_random_initial_inventory_matches_interpret_pallas():
     _assert_streams_match_jax(got, want, p, obs_atol=1e-5, rew_atol=1e-4)
 
 
+@pytest.mark.parametrize("case", ["table-cjmm", "table-running", "fixed-cjoe", "fixed-cjoe-e1.5"])
+def test_other_exponents_plain_matches_interpret_pallas(case):
+    """Inventory exponents other than 2 (pallas_rollout.py:1140-1171):
+    the CjMm and running rewards on the table kind at exponent 3, the CJ
+    execution criterion on the fixed kind at 3 and at 1.5 (q(inv, e - 1)
+    through powf; inventories stay positive there), against the JAX
+    interpret kernel in streams (with the terminal observation) and stats
+    mode, at the tolerances of the exponent-2 cases.  The CJ agent's tables
+    come from the exponent-2 config (its closed form assumes 2)."""
+    from mbt_gym_tpu.rewards import CjMmCriterion as JaxCjMm
+    from mbt_gym_tpu.rewards import CjOeCriterion as JaxCjOe
+
+    kind, reward = case.split("-")[:2]
+    e = 1.5 if case.endswith("e1.5") else 3.0
+    if kind == "table":
+        jcfg2 = jax_cj_env_config(num_trajectories=N, n_steps=T, max_inventory=3.0)
+        jagent = JaxCjAgent.from_config(jcfg2)
+        r = (JaxCjMm(0.01, 0.001, inventory_exponent=e) if reward == "cjmm"
+             else JaxRunning(0.01, 0.001, inventory_exponent=e))
+        jcfg = dataclasses.replace(jcfg2, reward_function=r, initial_inventory=2)
+        jp = pr.cj_rollout_params(jcfg, jagent)
+        jtables = pr.cj_depth_tables(jagent)
+        agent = torch_cj_agent(jagent)
+        p = det.cj_rollout_params(torch_config(jcfg), agent)
+        tables = det.cj_depth_tables(agent)
+        channels = random_channels(17, T, N)
+
+        def run_jax(**kw):
+            return pr.table_rollout_pallas(jp, *jtables, 0, N, tile=128, interpret=True,
+                                           noise=jnp.asarray(channels), **kw)
+
+        def run_port(**kw):
+            return det.table_rollout(p, *tables, 0, N, noise=torch.from_numpy(channels), **kw)
+        obs_atol, rew_atol = 1e-5, 1e-4
+    else:
+        ocfg = dataclasses.replace(jax_oe_env_config(num_trajectories=N), n_steps=6)
+        jcfg = dataclasses.replace(ocfg, reward_function=JaxCjOe(
+            ocfg.reward_function.per_step_inventory_aversion, ocfg.reward_function.terminal_inventory_aversion,
+            inventory_exponent=e))
+        jp = pr.fixed_rollout_params(jcfg, [-2.5])
+        p = det.fixed_rollout_params(torch_config(jcfg), [-2.5])
+        channels = random_channels(32, 6, N)
+
+        def run_jax(**kw):
+            return pr.fixed_rollout_pallas(jp, 0, N, tile=128, interpret=True, noise=jnp.asarray(channels), **kw)
+
+        def run_port(**kw):
+            return det.fixed_rollout(p, 0, N, noise=torch.from_numpy(channels), **kw)
+        obs_atol, rew_atol = 1e-4, 1e-4
+    assert p.inventory_exponent == jp.inventory_exponent == e
+    got = run_port(final_obs=True)
+    _assert_streams_match_jax(got, run_jax(final_obs=True), p, obs_atol=obs_atol, rew_atol=rew_atol)
+    assert bool(torch.isfinite(got[4]).all())
+    _assert_stats_match_jax(run_port(stats_only=True), run_jax(stats_only=True))
+
+
 @pytest.mark.parametrize("config", ["as-limit", "as-normalised", "oe-speed"])
 def test_fixed_plain_matches_interpret_pallas(config):
     """The fixed kind against fixed_rollout_pallas(interpret=True): limit
@@ -262,6 +318,19 @@ def test_config_guards():
     ):
         with pytest.raises(AssertionError, match=match):
             det.fixed_rollout_params(dataclasses.replace(oe, **change), [1.0])
+    # any inventory exponent now runs on K5 (pallas_rollout.py:1140); K8
+    # stays at exponent 2, as the JAX K8 asserts (pallas_episode.py:324)
+    from mbt_gym_torch.ops import cj_episode
+    from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion
+
+    cj3 = dataclasses.replace(cfg, reward_function=CjMmCriterion(0.01, 0.001, inventory_exponent=3.0))
+    assert det.cj_rollout_params(cj3, agent).inventory_exponent == 3.0
+    assert det.fixed_rollout_params(
+        dataclasses.replace(oe, reward_function=CjOeCriterion(0.01, 0.1, inventory_exponent=3.0)), [1.0]
+    ).inventory_exponent == 3.0
+    cj_episode.cj_params_from_config(cfg)
+    with pytest.raises(AssertionError, match="inventory exponent 2 only"):
+        cj_episode.cj_params_from_config(cj3)
 
 
 def test_streams_feasible_is_the_device_memory_rule():
@@ -332,10 +401,12 @@ def _port_policy(jcfg, kind, jagent=None, action=None):
     return cfg, fixed_action_policy(action)
 
 
-@pytest.mark.parametrize("family", ["cj_table", "fixed-as", "fixed-oe", "oe_episode"])
+@pytest.mark.parametrize("family", ["cj_table", "fixed-as", "fixed-oe", "oe_episode", "fixed-as-e3", "fixed-oe-e3"])
 def test_eligible_families_route_fused(family):
     """tests/test_dispatch.py:50-73 for a CUDA target: each family in both
-    modes (OE rollouts go to K5's schedule kind, its stats to K6)."""
+    modes (OE rollouts go to K5's schedule kind, its stats to K6); a fixed
+    action with the running penalty or the CJ execution criterion at
+    exponent 3 takes K5 in both packages."""
     if family == "cj_table":
         jcfg, jagent = _cj()
         jpol, (cfg, pol) = jagent.policy(), _port_policy(jcfg, "cj", jagent)
@@ -343,8 +414,14 @@ def test_eligible_families_route_fused(family):
         jcfg, jagent = _oe()
         jpol, (cfg, pol) = jagent.policy(), _port_policy(jcfg, "oe", jagent)
     else:
-        jcfg = jax_as_env_config(num_trajectories=256) if family == "fixed-as" else _oe()[0]
-        action = [0.7, 0.7] if family == "fixed-as" else [-2.5]
+        on_as = family.startswith("fixed-as")
+        jcfg = jax_as_env_config(num_trajectories=256) if on_as else _oe()[0]
+        action = [0.7, 0.7] if on_as else [-2.5]
+        if family.endswith("e3"):
+            from mbt_gym_tpu.rewards import CjOeCriterion as JaxCjOe
+
+            r = JaxRunning(0.01, 0.001, inventory_exponent=3.0) if on_as else JaxCjOe(0.01, 0.1, inventory_exponent=3.0)
+            jcfg = dataclasses.replace(jcfg, reward_function=r)
         jpol, (cfg, pol) = jax_fixed_action_policy(action), _port_policy(jcfg, "fixed", action=action)
     name = family.split("-")[0]
     for mode in ("rollout", "stats"):
@@ -375,6 +452,10 @@ def _guard_case(name):
         jagent = JaxCjAgent.from_config(jcfg)
     elif name == "cj-float64":
         jcfg = dataclasses.replace(jcfg, dtype="float64")
+    elif name == "cj-exponent-3":
+        from mbt_gym_tpu.rewards import CjMmCriterion as JaxCjMm
+
+        jcfg = dataclasses.replace(jcfg, reward_function=JaxCjMm(0.01, 0.001, inventory_exponent=3.0))
     elif name.startswith("oe"):
         jcfg, jagent = _oe()
         if name == "oe-mismatched-agent":
@@ -405,6 +486,7 @@ def _guard_case(name):
         ("cj-random-inventory", ("stats",), "random initial inventory is unsupported"),
         ("cj-n-not-128", ("rollout", "stats"), "multiple of 128"),
         ("cj-float64", ("rollout", "stats"), "float64"),
+        ("cj-exponent-3", ("rollout", "stats"), "Inventory exponent must be 2"),
         ("oe-mismatched-agent", ("rollout", "stats"), "differ from the env config"),
         ("oe-reward-scaling", ("rollout", "stats"), "reward_scaling"),
         ("fixed-wrong-columns", ("rollout", "stats"), "fixed action has 1 columns; limit dynamics takes 2"),

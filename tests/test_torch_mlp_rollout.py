@@ -73,6 +73,90 @@ def test_plain_rollout_matches_jax_interpret_kernel(normalised, overrides):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=atol)
 
 
+def _cj_reward_configs(reward_name):
+    """tests/test_pallas_rollout.py:270-318's reward cases (but
+    exp_utility, which the port lacks): the AS env with the CjMm or running
+    reward at exponent 2 or 3, initial inventory 3, normalised."""
+    from mbt_gym_tpu.rewards import CjMmCriterion, RunningInventoryPenalty
+
+    e = 3.0 if reward_name.endswith("_e3") else 2.0
+    if reward_name.startswith("cjmm"):
+        reward = CjMmCriterion(per_step_inventory_aversion=0.5, terminal_inventory_aversion=0.001,
+                               terminal_time=1.0, inventory_exponent=e)
+    else:
+        reward = RunningInventoryPenalty(per_step_inventory_aversion=0.5, terminal_inventory_aversion=0.001,
+                                         inventory_exponent=e)
+    return _configs(reward_function=reward, initial_inventory=3)
+
+
+def _port_engine_rewards(cfg, model, channels):
+    """The port's engine and networks on the same (T, 7, N) channels, as
+    tests/test_pallas_rollout.py's _xla_reference steps the JAX engine:
+    the Gaussian sample from the eps channels, clipped to the action box."""
+    from mbt_gym_torch import env as env_lib
+    from mbt_gym_torch.agents import networks
+    from mbt_gym_torch.types import SlotNoise
+
+    ch = torch.from_numpy(channels)
+    state, obs = env_lib.reset(cfg, 0, device="cpu")
+    std = torch.exp(model.log_std.detach())
+    rewards = []
+    with torch.no_grad():
+        for t in range(ch.shape[0]):
+            mean, _ = networks.policy_value(model, obs)
+            action = torch.clamp(mean + std * ch[t, 4:6].T, -1.0, 1.0)
+            noise = (SlotNoise(normal=ch[t, 6][:, None], uniform=None),
+                     SlotNoise(normal=None, uniform=ch[t, 0:2].T.contiguous()),
+                     SlotNoise(normal=None, uniform=ch[t, 2:4].T.contiguous()))
+            res = env_lib.step(cfg, state, action, noise=noise)
+            rewards.append(res.reward)
+            state, obs = res.state, res.obs
+    return torch.stack(rewards).numpy()
+
+
+@pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared-trunk", "towers"])
+@pytest.mark.parametrize("reward_name", ["cjmm", "running", "cjmm_e3", "running_e3"])
+def test_plain_rollout_cj_rewards_match_jax_interpret_kernel(reward_name, shared_trunk):
+    """K3's CjMm and running-penalty rewards at exponents 2 and 3: the plain
+    version against mlp_rollout_pallas(interpret=True) on the same params
+    and channels (the tolerances of test_plain_rollout_matches_jax_interpret_kernel,
+    inventory paths exact, rewards atol 5e-3), and against the port's own
+    engine on the same channels (tests/test_pallas_rollout.py:311-318's
+    tolerance)."""
+    jcfg, cfg = _cj_reward_configs(reward_name)
+    params, model = jax_and_port_params(shared_trunk, hidden=(16, 16), seed=3)
+    channels = _channels(seed=13)
+    jp = pallas_rollout.rollout_params_from_config(jcfg)
+    p = mr.rollout_params_from_config(cfg)
+    for field in mr.MlpRolloutParams._fields:
+        assert getattr(p, field) == getattr(jp, field), field
+    assert p.reward_kind == reward_name.split("_")[0] and p.inventory_exponent == jp.inventory_exponent
+    want = pallas_rollout.mlp_rollout_pallas(jp, params, 0, N, tile=128, interpret=True,
+                                             noise=jnp.asarray(channels))
+    got = [x.numpy() for x in mr.mlp_rollout(p, model, 0, N, noise=torch.from_numpy(channels), device="cpu")]
+    want = [np.asarray(x) for x in want]
+
+    def inventory(obs):
+        return np.rint((obs[:, 1] + 1.0) * p.obs_grad[1] + p.obs_low[1])
+
+    np.testing.assert_array_equal(inventory(got[0]), inventory(want[0]))
+    assert np.abs(inventory(got[0])).max() >= 3  # the penalties see non-zero inventories
+    for g, w, atol in zip(got, want, (2e-4, 1e-3, 1e-3, 1e-3, 5e-3)):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=atol)
+    np.testing.assert_allclose(got[4], _port_engine_rewards(cfg, model, channels), rtol=1e-4, atol=5e-3)
+    # the penalty terms alone, from the inventory path (steps 0..T-2, whose
+    # post-step inventory the next observation holds), against the PnL
+    # kind's rewards on the same noise, to float32 rounding
+    pnl = mr.mlp_rollout(p._replace(reward_kind="pnl"), model, 0, N, noise=torch.from_numpy(channels),
+                         device="cpu")[4].numpy()
+    q = inventory(got[0]).astype(np.float64) ** p.inventory_exponent
+    q_prev, q_next = q[:-1], q[1:]
+    penalty = -p.dt * p.phi * q_next
+    if p.reward_kind == "cjmm":
+        penalty = penalty - p.alpha * (q_next - q_prev) - p.alpha * p.dt / p.terminal_time * 3.0**p.inventory_exponent
+    np.testing.assert_allclose(got[4][:-1] - pnl[:-1], penalty, rtol=0, atol=1e-5)
+
+
 def test_philox_noise_channels():
     """Native-mode channels: deterministic in (seed, env, step), uniforms
     in [0, 1), normals with unit moments; an env's stream does not depend
@@ -99,15 +183,30 @@ def test_native_mode_is_noise_mode_on_philox_channels():
 
 
 def test_config_guard_names_unported_features():
+    from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, RunningInventoryPenalty
+
+    @dataclasses.dataclass(frozen=True)
+    class ExponentialUtility:  # not in the port yet: a stand-in of the JAX reward
+        risk_aversion: float = 0.01
+
     cfg = as_env_config(num_trajectories=N)
     for change, match in (
         ({"initial_inventory": (-2, 3)}, "random initial inventory is not ported to CUDA"),
         ({"start_time": ("uniform", 0.0, 0.5)}, "random start times are not ported to CUDA"),
         ({"dtype": "float64"}, "float64 reference-parity"),
         ({"reward_scaling": 0.5}, None),
+        ({"reward_function": ExponentialUtility()}, "ExponentialUtility.* is not ported to CUDA"),
+        ({"reward_function": CjOeCriterion()}, "CjOeCriterion.* is not ported to CUDA"),
     ):
         with pytest.raises(AssertionError, match=match):
             mr.rollout_params_from_config(dataclasses.replace(cfg, **change))
+    # the CJ market-making rewards run on K3 at any inventory exponent
+    for reward, kind in ((CjMmCriterion(0.01, 0.001), "cjmm"), (CjMmCriterion(0.5, 0.001, 3.0), "cjmm"),
+                         (RunningInventoryPenalty(0.5, 0.001), "running"),
+                         (RunningInventoryPenalty(0.5, 0.001, 1.5), "running")):
+        p = mr.rollout_params_from_config(dataclasses.replace(cfg, reward_function=reward))
+        assert (p.reward_kind, p.phi, p.alpha, p.inventory_exponent) == (
+            kind, reward.per_step_inventory_aversion, reward.terminal_inventory_aversion, reward.inventory_exponent)
     # the separate pi/vf towers now run (the stacked-trunk mode); towers of
     # unequal widths, which the JAX kernel refuses too, raise by name
     towers = init_actor_critic(0, 4, 2, hidden=(16, 16), shared_trunk=False, device="cpu")
