@@ -36,7 +36,19 @@ public entry points and times it all:
   one fused iteration at config 5's widths on the CJ env, both layouts,
   K3's CjMm time beside its PnL time (22c); REINFORCE on the card (22d);
   and ``with_normalised_rewards`` on K5's fixed kind against the engine
-  (22e).
+  (22e);
+- the limit-and-market-order and at-the-touch families and the
+  reference's canonical learning env (phase 23): K3's lam, touch and
+  canonical kinds (4 actions, the per-env initial inventory) at full
+  width, K4 at A = 4 and K5's fixed kind on lam and touch against their
+  plain versions (23a); 200 fully fused iterations on the canonical env
+  (K3 once and K4 4 times each), which must reach a best mean episode
+  reward above 40, beside the closed-form no-market-order CJ baseline
+  (23b); one fused iteration on bench_suite configs 7, 8 and 9 at full
+  width, both layouts, the engine's on config 8, each new K3 kind's time
+  beside K3 PnL's (23c); fixed actions on lam and touch through
+  ``mc_episode_stats``/``rollout`` on K5 against the engine (23d); the new
+  instantiations' registers, spills and tensor-core instructions (23e).
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
 update passes and of K3 run tensor-core instructions and the float32 ones
@@ -425,13 +437,28 @@ def profile_iteration(torch, card, label, fn, top=6, phase=12, expect=(), warm=F
     return {"by_name": by_name, "busy_ms": busy, "wall_ms": wall_ms}
 
 
-def compare_rollouts(torch, got, want, n, label):
+def compare_rollouts(torch, got, want, n, label, continuous=False):
     """K3's five outputs against its plain version: at most 0.1% of envs may
-    differ in their inventory stream (a fill decided on the other side of
-    u < exp(-k d) by a summation-order difference changes that env's later
-    path); the rest agree to rtol=1e-4/atol=1e-3.  Returns the max abs
-    error over the compared values."""
-    same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
+    differ in their inventory stream (a fill or market order decided on the
+    other side of its threshold by a summation-order difference changes
+    that env's later path); the rest agree to rtol=1e-4/atol=1e-3.  The
+    streams hold each step's pre-step inventory, so a decision that flips
+    at the last step shows only in the last reward: an env whose last
+    reward disagrees counts as flipped too, and its last actions are
+    printed.  With ``continuous`` (the at-the-touch fills are the post
+    columns themselves, so every inventory carries the action's rounding)
+    an env's stream counts as the same where it agrees to that tolerance.
+    Returns the max abs error over the compared values."""
+    if continuous:
+        inv_a, inv_b = got[0][:, 1], want[0][:, 1]
+        same = ((inv_a - inv_b).abs() <= 1e-3 + 1e-4 * inv_b.abs()).all(dim=0)
+    else:
+        same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
+    last = (got[4][-1] - want[4][-1]).abs() <= 1e-3 + 1e-4 * want[4][-1].abs()
+    for env in (same & ~last).nonzero().flatten()[:4].tolist():
+        print(f"{label}: env {env} flips at the last step: actions {got[1][-1, :, env].tolist()} vs "
+              f"{want[1][-1, :, env].tolist()}, reward {float(got[4][-1, env])} vs {float(want[4][-1, env])}")
+    same = same & last
     flips = int((~same).sum())
     check(flips <= n // 1000, f"{label}: inventory stream differs on {flips} of {n} envs")
     err = 0.0
@@ -1178,12 +1205,14 @@ def update_phases(torch, np, card, dev):
     # (the full report is printed with the builds above): K7 is
     # ppo_pass1/ppo_pass2 with kRowMajor = true (template arguments
     # "Lb?ELb1E"), the bf16 instantiations "ILb1E"; K3 (both layouts) is
-    # mlp_rollout_kernel.  Then the tensor-core instructions of each.
+    # mlp_rollout_kernel, one instantiation per operand type and dynamics
+    # kind (limit, lam, touch).  Then the tensor-core instructions of each.
     # The step-pipeline kernels K1, K2, K5, K6 and K8 spill nothing: K5's
-    # 40 instantiations (20 at inventory exponent 2, 20 at any other),
+    # 56 instantiations (limit and speed: 20 at inventory exponent 2, 20
+    # at any other; lam and touch, the fixed kind: 8 and 8),
     # K1's, K6's and K8's 4 (two draw modes, the pipeline and the wide
     # shape) and K2's 16 (the same, by its four output layouts).
-    pipeline_kernels = {"det_rollout.cu": 40, "as_episode.cu": 4 + 16, "oe_episode.cu": 4, "cj_episode.cu": 4}
+    pipeline_kernels = {"det_rollout.cu": 56, "as_episode.cu": 4 + 16, "oe_episode.cu": 4, "cj_episode.cu": 4}
     for src, names in (("fused_ppo.cu", ("ppo_pass1", "ppo_pass2")), ("mlp_rollout.cu", ("mlp_rollout_kernel",)),
                        ("det_rollout.cu", ("det_rollout_kernel",)),
                        ("as_episode.cu", ("as_episode_kernel", "as_traj_kernel")),
@@ -1198,9 +1227,10 @@ def update_phases(torch, np, card, dev):
             check(len(rows) == pipeline_kernels[src],
                   f"phase 18: {src} holds {len(rows)} instantiations of {names}, not {pipeline_kernels[src]}")
     check_tensor_cores(_build.build("fused_ppo.cu"), "fused_ppo.cu", ("ppo_pass",), 8)
-    # K3: mlp_rollout_kernel<true> (bf16, tensor cores) and <false>; MUFU
+    # K3: mlp_rollout_kernel<true, kind> (bf16, tensor cores) and <false,
+    # kind> for the three dynamics kinds; MUFU
     # counts the special-function instructions behind its tanhf/expf/logf
-    k3_sass = check_tensor_cores(_build.build("mlp_rollout.cu"), "mlp_rollout.cu", ("mlp_rollout_kernel",), 2)
+    k3_sass = check_tensor_cores(_build.build("mlp_rollout.cu"), "mlp_rollout.cu", ("mlp_rollout_kernel",), 6)
     kinds = {kind: sass_counts(k3_sass, f"MUFU.{kind}", ("mlp_rollout_kernel",))
              for kind in ("EX2", "RCP", "LG2", "SQRT", "RSQ", "SIN", "COS", "TANH")}
     for entry, n in sorted(sass_counts(k3_sass, "MUFU", ("mlp_rollout_kernel",)).items()):
@@ -1677,6 +1707,383 @@ def cj_learning_phases(torch, np, card, dev, k3_pnl_ms=None):
     }
 
 
+# ------------------------------------------------------------------ lam / touch
+CANON_N, CANON_ITERATIONS, CANON_BAR = 4096, 200, 40.0  # tests/test_convergence.py:249
+# Operations per env-step of K5's fixed kind, counted as OPS_PER_ENV_STEP_K1
+# is: two Philox calls (196), six 24-bit uniforms (18), Box-Muller (7),
+# step time (3), then on lam dynamics two fill probabilities (2),
+# arrivals/fills/masks (14), the market orders with their mask (6),
+# bookkeeping with them and the clips (16), the price move (3), PnL and
+# the running reward (14), the reward and spread sums (3); at the touch
+# arrivals and the post masks (8), bookkeeping and the clips (12) in place
+# of the fills, market orders and lam's bookkeeping.
+OPS_PER_ENV_STEP_K5_LAM = 196 + 18 + 7 + 3 + 2 + 14 + 6 + 16 + 3 + 14 + 3
+OPS_PER_ENV_STEP_K5_TOUCH = 196 + 18 + 7 + 3 + 8 + 12 + 3 + 14 + 3
+
+
+def two_action_copy(torch, params, dev):
+    """A copy of the actor-critic ``params`` with its action head cut to
+    the first two pi rows (and their log_std): the same trunk for a K3
+    limit-kind run beside a lam-kind one."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+
+    model = init_actor_critic(0, params.obs_dim, 2, hidden=params.hidden, shared_trunk=params.shared_trunk,
+                              device=dev)
+    source = dict(params.named_parameters())
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            t.copy_(source[name][:t.shape[0]])
+    return model
+
+
+def lam_touch_phases(torch, np, card, dev, k3_pnl_ms=None):
+    """Phase 23: the limit-and-market-order ("lam") and at-the-touch
+    ("touch") families and the reference's canonical learning env.  (a)
+    K3's lam, touch and canonical kinds (A = 4 with the inv0 plane and the
+    CjMm reward) at full width, K4 at A = 4 and K5's fixed kind on lam and
+    touch against their plain versions, each launched twice bitwise; (b)
+    the fully fused PPO path learns the canonical env to the JAX TPU gate's
+    bar (tests/test_convergence.py:249) beside the closed-form no-MO CJ
+    baseline; (c) one fused iteration at full width on bench_suite configs
+    7, 8 and 9, both layouts, the engine iteration on config 8, and each
+    new K3 kind's device time beside K3 PnL on the same params; (d)
+    ``mc_episode_stats``/``rollout`` of fixed actions on lam and touch
+    through ``backend="auto"`` (K5) against the engine; (e) the new
+    instantiations' registers, spills and tensor-core instructions.
+    Returns the kernels-line figures of K3, K4 and K5 by kernel."""
+    import dataclasses
+    import re
+
+    from mbt_gym_torch import (
+        CarteaJaimungalMmAgent, as_env_config, dispatch_report, mc_episode_stats, rollout,
+    )
+    from mbt_gym_torch.agents.baseline import fixed_action_policy, no_market_order_policy
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.agents.ppo import (
+        PPOConfig, compute_gae, deterministic_policy, evaluate_policy, init_train_state, normalise, train_iteration,
+    )
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import fused_ppo
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.utils.config import lam_env_config, learning_env_config, touch_env_config
+
+    t_start = time.perf_counter()
+    obs_norm = dict(normalise_observation_space=True)
+    # bench_suite configs 7, 8 and 9 (scripts/bench_suite.py:203-252)
+    configs = {
+        "touch": dataclasses.replace(touch_env_config(num_trajectories=PPO_N), **obs_norm),
+        "lam": dataclasses.replace(lam_env_config(num_trajectories=PPO_N), **obs_norm),
+        "canonical": dataclasses.replace(learning_env_config(num_trajectories=PPO_N), **obs_norm),
+    }
+    models = {(kind, layout): init_actor_critic(5, 4, cfg.action_dim, hidden=(256, 256),
+                                                shared_trunk=layout == "shared trunk", device=dev)
+              for kind, cfg in configs.items() for layout in ("shared trunk", "towers")}
+
+    def inv0_for(p, n, seed):
+        if not p.inventory_range:
+            return None
+        gen = torch.Generator(dev).manual_seed(seed)
+        return torch.randint(*p.inventory_range, (n,), generator=gen, device=dev).to(torch.float32)
+
+    # ---- phase 23a: K3's new kinds at full width in native mode (the lam
+    # kind's third Philox call) and at 4,096 envs on injected channels,
+    # both layouts, at phase 8's limits (touch: its continuous fills
+    # compared to the same tolerance); K4 at A = 4 on the lam rollout's
+    # first minibatch at phase 9's limits; K5's fixed kind on lam (with and
+    # without the market-order mask) and touch at 16,384 x 200 at phase
+    # 14's limits.  Each launched twice, bitwise.
+    t0 = time.perf_counter()
+    err = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    plain_k3_ms = {}  # the plain version's time at full width (CUDA events around its one call)
+    lam_rollout = None
+    for kind, cfg in configs.items():
+        p = mr.rollout_params_from_config(cfg)
+        check((p.dynamics_kind, p.a_dim) == ({"touch": "touch"}.get(kind, "lam"), cfg.action_dim),
+              f"phase 23a: {kind} params {p}")
+        for layout in ("shared trunk", "towers"):
+            model = models[(kind, layout)]
+            for n, mode in ((PPO_N, "native"), (CJ_SMALL_N, "noise")):
+                kw = ({"seed": 35, "device": dev} if mode == "native" else
+                      {"noise": mr.philox_noise(36, p.run_steps, n, dev, p.a_dim) * 1.0})
+                inv0 = inv0_for(p, n, 37)
+                got = mr.mlp_rollout(p, model, num_trajectories=n, inv0=inv0, **kw)
+                again = mr.mlp_rollout(p, model, num_trajectories=n, inv0=inv0, **kw)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                want = mr.mlp_rollout_plain(p, model, num_trajectories=n, inv0=inv0, **kw)
+                end.record()
+                end.synchronize()
+                if n == PPO_N:
+                    plain_k3_ms[(kind, layout)] = start.elapsed_time(end)
+                at = f"phase 23a K3 {kind} {layout} {mode} at {n}x{p.run_steps}"
+                err["K3"] = max(err["K3"], compare_rollouts(torch, got, want, n, at, continuous=kind == "touch"))
+                check_repeat(torch, rollout_outputs(got), rollout_outputs(again), at)
+                if kind == "lam" and layout == "shared trunk" and mode == "native":
+                    check(bool((got[1][:, 2:] > 0.5).any()), "phase 23a: no market order fired on lam")
+                    lam_rollout = got
+                del got, again, want
+    obs_t, actions_t, log_probs, values, rewards = lam_rollout
+    adv, returns = compute_gae(rewards, values, torch.zeros_like(values[0]), 1.0, 0.95)
+    nb = PPO_N // PPO_MINIBATCHES
+    mb_a4 = [x[..., :nb] for x in (obs_t, actions_t, log_probs, adv, returns)]
+    mb_a4[3] = normalise(mb_a4[3])
+    moved = init_actor_critic(5, 4, 4, hidden=(256, 256), shared_trunk=True, device=dev)
+    with torch.no_grad():
+        moved.log_std.add_(0.05)
+    for dtype in ("float32", "bfloat16"):
+        grads, metrics = fused_ppo.ppo_fused_grads_T(moved, *mb_a4, compute_dtype=dtype)
+        again = fused_ppo.ppo_fused_grads_T(moved, *mb_a4, compute_dtype=dtype)
+        want_g, want_m = fused_ppo.ppo_fused_grads_T_plain(moved, *mb_a4, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        at = f"phase 23a K4 A=4 {dtype} at {STEPS}x{nb}"
+        err["K4"] = max(err["K4"], compare_grads(torch, grads, metrics, want_g, want_m, dtype, at))
+        check_repeat(torch, (grads, metrics), again, at)
+    del lam_rollout, obs_t, actions_t, log_probs, values, rewards, adv, returns, again
+    k5_cases = {
+        "lam": det.fixed_rollout_params(lam_env_config(num_trajectories=N_MAIN), [0.6, 0.6, 0.7, 0.2]),
+        "lam mask": det.fixed_rollout_params(dataclasses.replace(
+            lam_env_config(num_trajectories=N_MAIN, max_inventory=3.0), mask_market_orders_at_max_inventory=True),
+            [0.6, 0.6, 0.7, 0.0]),
+        "touch": det.fixed_rollout_params(touch_env_config(num_trajectories=N_MAIN), [1.0, 0.5]),
+    }
+    for label, p in k5_cases.items():
+        rng = np.random.default_rng(38)
+        c = rng.uniform(size=(p.run_steps, 5, N_MAIN)).astype(np.float32)
+        c[:, 4] = rng.normal(size=(p.run_steps, N_MAIN)).astype(np.float32)
+        for mode, kw in (("noise", {"noise": torch.from_numpy(c).to(dev)}), ("native", {"seed": 44, "device": dev})):
+            for stats in (True, False):
+                extra = {"stats_only": stats, "final_obs": not stats}
+                got = det.fixed_rollout(p, num_trajectories=N_MAIN, **kw, **extra)
+                again = det.fixed_rollout(p, num_trajectories=N_MAIN, **kw, **extra)
+                want = det.fixed_rollout_plain(p, num_trajectories=N_MAIN, **kw, **extra)
+                torch.cuda.synchronize()
+                at = f"phase 23a K5 fixed {label} {'stats' if stats else 'streams'} {mode} at {N_MAIN}x{p.run_steps}"
+                err["K5"] = max(err["K5"], compare_outputs(torch, got, want, N_MAIN, at, streams=not stats))
+                check_repeat(torch, (dict(enumerate(got)),), (dict(enumerate(again)),), at)
+        del got, again, want
+    print(f"phase 23a ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 23b: the canonical learning gate (tests/test_convergence.py:
+    # 249, JAX's TPU-only gate): 4,096 envs, max_inventory 20, normalised
+    # observations, 256x256 shared trunk, 1 epoch of 4 minibatches, lr
+    # 1e-3, 200 fully fused iterations; the best mean episode reward must
+    # exceed 40.  Launch counts per iteration (K3 x1, K4 x4, nothing else),
+    # metric bands on each; the closed-form no-MO CJ agent on the engine
+    # beside it (examples/train_canonical.py's baseline).  Then
+    # evaluate_policy(backend="auto") goes to K3, inv0 drawn per episode.
+    t0 = time.perf_counter()
+    path = {name: 0 for name in _build.launch_counts}
+
+    def add_launches():
+        for name, c in _build.launch_counts.items():
+            path[name] += c
+
+    raw = dataclasses.replace(learning_env_config(num_trajectories=CANON_N), max_inventory=20.0)
+    canon = dataclasses.replace(raw, **obs_norm)
+    cj = CarteaJaimungalMmAgent.from_config(raw, max_inventory=20)
+    cj_policy = no_market_order_policy(cj.policy())
+    check(dispatch_report(raw, cj_policy).backend == "engine", "phase 23b: the no-MO CJ policy left the engine")
+    baseline = statistics.mean(float(rollout(raw, cj_policy, None, 700 + e).trajectory.rewards.sum(dim=0).mean())
+                               for e in range(8))
+    canon_cfg = PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=4, shuffle=False, shared_trunk=True,
+                          fused_rollout=True, fused_update=True, learning_rate=1e-3)
+    ts = init_train_state(canon, canon_cfg, 0)
+    check(next(ts.params.parameters()).device.type == "cuda", "phase 23b: params not on the card")
+    per_iteration = {"mlp_rollout": 1, "ppo_fused_grads_T": canon_cfg.n_minibatches}
+    history = []
+    t1 = time.perf_counter()
+    for i in range(CANON_ITERATIONS):
+        _build.reset_launch_counts()
+        ts, metrics = train_iteration(canon, canon_cfg, ts, i)
+        counts = dict(_build.launch_counts)
+        want = {name: per_iteration.get(name, 0) for name in counts}
+        check(counts == want, f"phase 23b iteration {i + 1}: launches {counts}, want {want}")
+        add_launches()
+        history.append(assert_metric_bands(metrics, f"phase 23b iteration {i + 1}")["mean_episode_reward"])
+    best = max(history)
+    print(f"phase 23b [{card}] fused PPO on the canonical env at {CANON_N}x{canon.n_steps}: {CANON_ITERATIONS} "
+          f"iterations in {time.perf_counter() - t1:.1f} s, mean_episode_reward first 5 {history[:5]}, last 5 "
+          f"{history[-5:]}, best {best} (bar {CANON_BAR}); closed-form no-MO CJ baseline on the engine {baseline} "
+          f"(mean of 8 episodes), best / baseline {best / baseline:.3f}")
+    decision = dispatch_report(canon, deterministic_policy(canon), mode="evaluate", platform=dev,
+                               policy_params=ts.params)
+    check((decision.backend, decision.family) == ("fused", "mlp_rollout"), f"phase 23b evaluate dispatch: {decision}")
+    _build.reset_launch_counts()
+    auto = float(evaluate_policy(canon, ts.params, 50, n_episodes=4))
+    torch.cuda.synchronize()
+    counts = {name: c for name, c in _build.launch_counts.items() if c}
+    check(counts == {"mlp_rollout": 4}, f"phase 23b evaluate_policy(auto) launches {counts}")
+    add_launches()
+    engine = float(evaluate_policy(canon, ts.params, 51, n_episodes=4, backend="engine"))
+    with torch.no_grad():
+        spread = rollout(canon, deterministic_policy(canon), ts.params, 52, backend="engine").trajectory.rewards.sum(0)
+    se = float(spread.std()) * (2.0 / (4 * CANON_N)) ** 0.5
+    print(f"phase 23b evaluate_policy of the trained policy, 4 episodes each: auto (K3 x4) {auto}, engine {engine}, "
+          f"{abs(auto - engine) / se:.2f} se")
+    check(abs(auto - engine) <= 4 * se, f"phase 23b: evaluate_policy auto {auto} vs engine {engine}, se {se}")
+    check(best > CANON_BAR, f"phase 23b: fused PPO best {best} not above {CANON_BAR}")
+    del ts
+    print(f"phase 23b ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 23c: bench_suite configs 7, 8 and 9 at full width (262,144
+    # envs, 256x256, 16 minibatches, bf16): one fused iteration per config
+    # and layout (launches checked, metric bands), one timed, one profiled;
+    # the engine iteration on config 8 (shared trunk); each new K3 kind's
+    # device time beside K3 PnL on the same params in this call (the plain
+    # version's time is 23a's)
+    t0 = time.perf_counter()
+    k3 = {}
+    for kind, cfg in configs.items():
+        env_steps = PPO_N * cfg.n_steps
+        p = mr.rollout_params_from_config(cfg)
+        for layout in ("shared trunk", "towers"):
+            pcfg = PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=PPO_MINIBATCHES, shuffle=False,
+                             compute_dtype="bfloat16", shared_trunk=layout == "shared trunk", fused_rollout=True,
+                             fused_update=True)
+            ts = init_train_state(cfg, pcfg, 70)
+            _build.reset_launch_counts()
+            ts, metrics = train_iteration(cfg, pcfg, ts, 71)
+            torch.cuda.synchronize()
+            counts = {name: c for name, c in _build.launch_counts.items() if c}
+            check(counts == {"mlp_rollout": 1, "ppo_fused_grads_T": PPO_MINIBATCHES},
+                  f"phase 23c {kind} {layout}: launches {counts}")
+            assert_metric_bands(metrics, f"phase 23c {kind} {layout}")
+            ms = cuda_ms(torch, lambda: train_iteration(cfg, pcfg, ts, 72), warmup=0, reps=1)
+            print(f"phase 23c [{card}] fused train_iteration on {kind} ({PPO_N}x{cfg.n_steps}, 16 minibatches), "
+                  f"{layout}: {ms} ms = {env_steps / ms * 1e3} env-steps/s")
+            profile_iteration(torch, card, f"fused train_iteration on {kind}, {layout}, at {PPO_N}x{cfg.n_steps}",
+                              lambda: train_iteration(cfg, pcfg, ts, 73), phase=23)
+            if kind == "lam" and layout == "shared trunk":
+                engine_cfg = dataclasses.replace(pcfg, fused_rollout=False, fused_update=False)
+                e_ms = cuda_ms(torch, lambda: train_iteration(cfg, engine_cfg, ts, 74), warmup=1, reps=1)
+                print(f"phase 23c [{card}] engine train_iteration on lam ({PPO_N}x{cfg.n_steps}), {layout}: {e_ms} "
+                      f"ms = {env_steps / e_ms * 1e3} env-steps/s")
+                profile_iteration(torch, card, f"engine train_iteration on lam, {layout}, at {PPO_N}x{cfg.n_steps}",
+                                  lambda: train_iteration(cfg, engine_cfg, ts, 75), phase=23)
+            params = ts.params
+            inv0 = inv0_for(p, PPO_N, 76)
+            kind_ms = kernel_ms(torch, lambda: mr.mlp_rollout(p, params, 9, PPO_N, device=dev, inv0=inv0),
+                                warmup=1, reps=5, label=f"phase 23c K3 {kind} {layout} at {PPO_N}x{cfg.n_steps}")
+            # K3 PnL (limit dynamics, the normalised AS env of phase 12 at
+            # this horizon) on the same trunk; lam's head cut to its first
+            # two pi rows
+            pnl_p = mr.rollout_params_from_config(dataclasses.replace(
+                as_env_config(num_trajectories=PPO_N, n_steps=cfg.n_steps), **obs_norm))
+            pnl_model = two_action_copy(torch, params, dev)
+            pnl = kernel_ms(torch, lambda: mr.mlp_rollout(pnl_p, pnl_model, 9, PPO_N, device=dev), warmup=1, reps=5,
+                            label=f"phase 23c K3 pnl {layout} at {PPO_N}x{pnl_p.run_steps}")
+            plain_ms = plain_k3_ms[(kind, layout)]
+            k3[(kind, layout)] = (kind_ms, pnl, plain_ms, cfg.n_steps)
+            print(f"phase 23c [{card}] K3 {kind} {layout} at {PPO_N}x{cfg.n_steps}: {kind_ms[0]} ms on the device "
+                  f"(call {kind_ms[1]} ms), plain {plain_ms} ms; PnL (limit, A = 2) on the same trunk at "
+                  f"{PPO_N}x{pnl_p.run_steps} {pnl[0]} ms (call {pnl[1]} ms)"
+                  + (f"; phase 12's PnL K3 {k3_pnl_ms} ms" if layout == "shared trunk" and k3_pnl_ms else ""))
+            del ts, params
+    # K4 at A = 4: one bf16 minibatch of the lam rollout
+    k4_ms = kernel_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(moved, *mb_a4), warmup=2, reps=10,
+                      label=f"phase 23c K4 A=4 at {STEPS}x{nb}")
+    k4_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(moved, *mb_a4), warmup=1, reps=3)
+    k4_bound = bound_ms((4 + 4 + 3) * 4 * STEPS * nb, ppo_grad_flops_per_sample(4, 256, 256, 4) * STEPS * nb,
+                        BF16_OPS_PER_S)
+    print(kernel_row("23c", card, "K4 ppo_fused_grads_T A=4 bf16 (one minibatch)", f"{STEPS}x{nb}", STEPS * nb,
+                     *k4_ms, *k4_bound, k4_plain_ms))
+    del mb_a4
+    print(f"phase 23c ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 23d: serving fixed actions on lam and touch through the
+    # public entry points: backend="auto" takes K5 (stats mode and
+    # streams), within 4 standard errors of the engine on independent
+    # streams; touch reports post_rate.  Then each K5 kind timed.
+    t0 = time.perf_counter()
+    k5 = {}
+    for label, cfg, action in (("lam", lam_env_config(num_trajectories=N_MAIN), [0.6, 0.6, 0.7, 0.2]),
+                               ("touch", touch_env_config(num_trajectories=N_MAIN), [1.0, 0.5])):
+        pol = fixed_action_policy(action)
+        for mode in ("rollout", "stats"):
+            d = dispatch_report(cfg, pol, mode=mode, platform=dev)
+            check((d.backend, d.family) == ("fused", "fixed"), f"phase 23d {label} dispatch ({mode}): {d}")
+        _build.reset_launch_counts()
+        fused = mc_episode_stats(cfg, pol, None, 80, episodes=2)
+        traj = rollout(cfg, pol, None, 81).trajectory
+        torch.cuda.synchronize()
+        counts = {name: c for name, c in _build.launch_counts.items() if c}
+        check(counts == {"det_rollout": 3}, f"phase 23d {label}: launches {counts}")
+        add_launches()
+        engine = mc_episode_stats(cfg, pol, None, 82, episodes=2, backend="engine")
+        n = 2 * N_MAIN
+        streams = traj.rewards.sum(dim=0)
+        for key, a, b, n_a in (("mean_pnl", fused["mean_pnl"], engine["mean_pnl"], n),
+                               ("rollout mean_pnl", streams.mean(), engine["mean_pnl"], N_MAIN)):
+            se = float(engine["std_pnl"]) * (1.0 / n + 1.0 / n_a) ** 0.5
+            print(f"phase 23d {label} {key}: auto (K5) {float(a)} vs engine {float(b)}, {abs(float(a - b)) / se:.2f} se")
+            check(abs(float(a - b)) <= 4 * se, f"phase 23d {label} {key}: {float(a)} vs {float(b)}, se {se}")
+        if label == "touch":
+            check(np.isnan(float(fused["mean_spread"])) and float(fused["post_rate"]) == 0.75
+                  and float(engine["post_rate"]) == 0.75, f"phase 23d touch stats {fused}, engine {engine}")
+            print(f"phase 23d touch post_rate: auto {float(fused['post_rate'])}, engine {float(engine['post_rate'])}")
+        p = det.fixed_rollout_params(cfg, action)
+        for stats in (True, False):
+            ms = kernel_ms(torch, lambda: det.fixed_rollout(p, 9, N_MAIN, stats_only=stats, final_obs=not stats,
+                                                            device=dev), warmup=2, reps=10)
+            plain_ms = cuda_ms(torch, lambda: det.fixed_rollout_plain(p, 9, N_MAIN, stats_only=stats,
+                                                                     final_obs=not stats, device=dev),
+                               warmup=1, reps=1)
+            ops = (OPS_PER_ENV_STEP_K5_LAM if label == "lam" else OPS_PER_ENV_STEP_K5_TOUCH) * N_MAIN * STEPS
+            s_dim, a_dim = 4, len(action)
+            floats = 5 if stats else STEPS * (s_dim + a_dim + 3) + s_dim
+            b = bound_ms(4 * floats * N_MAIN, ops, FP32_OPS_PER_S)
+            k5[(label, stats)] = (ms, plain_ms, b)
+            print(kernel_row("23d", card, f"K5 fixed {label} {'stats' if stats else 'streams'}", f"{N_MAIN}x{STEPS}",
+                             N_MAIN * STEPS, *ms, *b, plain_ms))
+    print(f"phase 23d ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 23e: the new instantiations' registers and spills (ptxas
+    # -v of the builds above): K3's lam and touch kinds (template argument
+    # kDyn 1 and 2), K5's lam and touch fixed kinds (kDyn 2 and 3); none
+    # spills.  HMMA > 0 in K3's bf16 lam instantiation.
+    k3_rows = kernel_registers(_build.ptxas_reports.get("mlp_rollout.cu", ""), ("mlp_rollout_kernel",))
+    k5_rows = kernel_registers(_build.ptxas_reports.get("det_rollout.cu", ""), ("det_rollout_kernel",))
+    new_k3 = [(e, u) for e, u in k3_rows if re.search(r"ILb[01]ELi[12]E", e)]
+    new_k5 = [(e, u) for e, u in k5_rows if re.search(r"ILb[01]ELi[23]ELi1E", e)]
+    check(len(new_k3) == 4 and len(new_k5) == 16,
+          f"phase 23e: {len(new_k3)} new K3 and {len(new_k5)} new K5 instantiations, not 4 and 16")
+    for entry, usage in new_k3 + new_k5:
+        print(f"phase 23e registers {entry[:100]}: {usage}")
+        check(spill_bytes(usage) == 0, f"phase 23e: {entry} spills: {usage}")
+    import shutil
+    from pathlib import Path
+
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.build("mlp_rollout.cu"))], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hmma = {e: n for e, n in sass_counts(sass, "HMMA", ("mlp_rollout_kernel",)).items() if "ILb1ELi1E" in e}
+    check(len(hmma) == 1 and all(n > 0 for n in hmma.values()), f"phase 23e: HMMA in K3's bf16 lam kind {hmma}")
+    print(f"phase 23e K3 bf16 lam instantiation: {list(hmma.values())[0]} HMMA")
+
+    print(f"phase 23 launches on the slice's main path (23b, 23d): { {k: c for k, c in path.items() if c} }")
+    for name in ("mlp_rollout", "ppo_fused_grads_T", "det_rollout"):
+        check(path[name] > 0, f"phase 23: {name} was not launched on the slice's main path")
+    print(f"phase 23 ok in {time.perf_counter() - t_start:.1f} s")
+    figures = {"K3": {"lam_touch_canonical_launches": path["mlp_rollout"], "lam_touch_canonical_max_abs_err": err["K3"]},
+               "K4": {"a4_launches": path["ppo_fused_grads_T"], "a4_max_abs_err": err["K4"], "a4_ms": k4_ms[0],
+                      "a4_call_ms": k4_ms[1], "a4_plain_ms": k4_plain_ms, "a4_bound_ms": k4_bound[0]},
+               "K5": {"lam_touch_launches": path["det_rollout"], "lam_touch_max_abs_err": err["K5"]}}
+    for (kind, layout), (kind_ms, pnl, plain_ms, steps) in k3.items():
+        tag = f"{kind}_{'towers' if layout == 'towers' else 'shared'}"
+        a_dim = configs[kind].action_dim
+        b = bound_ms((4 + a_dim + 3) * 4 * PPO_N * steps,
+                     mlp_flops_per_sample(4, 256, 256, a_dim, towers=1 if layout == "shared trunk" else 2)
+                     * PPO_N * steps, BF16_OPS_PER_S)
+        figures["K3"].update({f"{tag}_ms": kind_ms[0], f"{tag}_call_ms": kind_ms[1], f"{tag}_plain_ms": plain_ms,
+                              f"{tag}_pnl_same_call_ms": pnl[0], f"{tag}_bound_ms": b[0]})
+    for (label, stats), ((ms, call), plain_ms, b) in k5.items():
+        tag = f"fixed_{label}_{'stats' if stats else 'streams'}"
+        figures["K5"].update({f"{tag}_ms": ms, f"{tag}_call_ms": call, f"{tag}_plain_ms": plain_ms,
+                              f"{tag}_bound_ms": b[0]})
+    return figures
+
+
 def as_phases(torch, np, card, dev):
     """Phases 2-6: K1 and K2 against their plain versions at the pipeline
     and the wide shape, the AS main path through the public entry points
@@ -1885,9 +2292,11 @@ def main():
     k7, towers_figures = update_phases(torch, np, card, dev)
     k3_pnl_ms = next(entry["ms"] for entry in kernels if entry["name"].startswith("K3"))
     cj_figures = cj_learning_phases(torch, np, card, dev, k3_pnl_ms)
+    lam_figures = lam_touch_phases(torch, np, card, dev, k3_pnl_ms)
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))
         entry.update(cj_figures.get(entry["name"][:2], {}))
+        entry.update(lam_figures.get(entry["name"][:2], {}))
     kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
     for entry in rank_by_gap(kernels):
         print(f"rank [{card}] {entry['name']}: {entry['launches']} launches x ({entry['ms']} - {entry['bound_ms']}) ms "

@@ -17,7 +17,10 @@ value-function lane :func:`cj_episode_rewards` on K8.  PPO also trains on
 the CJ market-making env with the CjMm or running-penalty reward through
 K3; ``agents.reinforce`` is the REINFORCE learner; :mod:`wrappers` holds
 the observation and reward transforms, and
-:func:`with_normalised_rewards` the reference's reward normalisation.
+:func:`with_normalised_rewards` the reference's reward normalisation.  The
+at-the-touch and limit-and-market-order dynamics run on the engine, K3
+(PPO, including the reference's canonical learning env with its random
+initial inventory) and K5's fixed kind.
 """
 
 from mbt_gym_torch.types import (
@@ -46,7 +49,14 @@ from mbt_gym_torch.agents.baseline import (
 )
 from mbt_gym_torch.ops.cj_episode import cj_episode_rewards
 from mbt_gym_torch.ops.oe_episode import oe_episode_rewards
-from mbt_gym_torch.utils.config import as_env_config, cj_env_config, oe_env_config
+from mbt_gym_torch.utils.config import (
+    as_env_config,
+    cj_env_config,
+    lam_env_config,
+    learning_env_config,
+    oe_env_config,
+    touch_env_config,
+)
 from mbt_gym_torch.utils.reward_scaling import compute_inventory_neutral_reward_scaling, with_normalised_rewards
 from mbt_gym_torch import wrappers
 
@@ -81,6 +91,8 @@ __all__ = [
     "episode_stats",
     "fixed_action_policy",
     "init_train_state",
+    "lam_env_config",
+    "learning_env_config",
     "mc_episode_stats",
     "observe",
     "oe_env_config",
@@ -88,6 +100,7 @@ __all__ = [
     "reset",
     "rollout",
     "step",
+    "touch_env_config",
     "train_chunk",
     "train_iteration",
     "with_normalised_rewards",

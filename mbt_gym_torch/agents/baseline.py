@@ -3,10 +3,14 @@
 ``mbt_gym/agents/BaselineAgents.py``) as policies
 ``policy(params, obs, state) -> (N, A)`` for :func:`mbt_gym_torch.rollout.rollout`.
 
-Each policy carries a ``dispatch_meta`` tag naming its kind, which
-:func:`mbt_gym_torch.dispatch.dispatch_report` reads.  The port carries the
-AS agent, the two Cartea-Jaimungal agents (market making and optimal
-execution) and the fixed-action policy.
+Each kernel-eligible policy carries a ``dispatch_meta`` tag naming its
+kind, which :func:`mbt_gym_torch.dispatch.dispatch_report` reads.  The port
+carries the AS agent, the two Cartea-Jaimungal agents (market making and
+optimal execution), the fixed-action, fixed-spread, random, human and
+no-market-order policies, and the raw-observation adapter.
+
+Agents read the *raw* (unnormalised) observation columns; when the env
+normalises observations, wrap with :func:`raw_obs_policy`.
 """
 from __future__ import annotations
 
@@ -17,8 +21,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from mbt_gym_torch.dispatch import tag_policy
-from mbt_gym_torch.env import EnvConfig
+from mbt_gym_torch.dispatch import policy_meta, tag_policy
+from mbt_gym_torch.env import EnvConfig, make_generator
 from mbt_gym_torch.types import (
     ASK_INDEX,
     ASSET_PRICE_INDEX,
@@ -41,6 +45,99 @@ def fixed_action_policy(fixed_action):
         return action.expand(obs.shape[0], fixed.shape[-1])
 
     return tag_policy(policy, kind="fixed", action=tuple(float(x) for x in fixed))
+
+
+def raw_obs_policy(cfg: EnvConfig, policy):
+    """Adapt a raw-observation policy to an env with normalised observations."""
+    if not cfg.normalise_observation_space:
+        return policy
+    low, high = cfg.observation_bounds()
+    gradient = (high - low) / 2
+
+    def wrapped(params, obs, state):
+        g = torch.as_tensor(gradient, dtype=obs.dtype, device=obs.device)
+        lo = torch.as_tensor(low, dtype=obs.dtype, device=obs.device)
+        return policy(params, (obs + 1.0) * g + lo, state)
+
+    return wrapped
+
+
+def fixed_spread_policy(half_spread: float = 1.0, offset: float = 0.0):
+    """Symmetric quotes ``half_spread -/+ offset`` (BaselineAgents.py:34-42)."""
+    return fixed_action_policy([half_spread - offset, half_spread + offset])
+
+
+def random_policy(cfg: EnvConfig, key=0):
+    """Uniform samples from the action space, one per step shared by all
+    trajectories (BaselineAgents.py:15-22 repeats one sample over N).
+
+    The samples come from their own generator, never from the env's noise
+    stream: ``key`` is an int seed (the generator is made on the first
+    call's device) or a ``torch.Generator``."""
+    low, high = cfg.action_bounds()
+    gens = {}
+
+    def policy(params, obs, state):
+        device = obs.device
+        if device.type not in gens:
+            gens[device.type] = make_generator(key, device)
+        u = torch.rand((1, len(low)), generator=gens[device.type], dtype=obs.dtype, device=device)
+        lo = torch.as_tensor(low, dtype=obs.dtype, device=device)
+        hi = torch.as_tensor(high, dtype=obs.dtype, device=device)
+        return (lo + u * (hi - lo)).expand(obs.shape[0], len(low))
+
+    return policy
+
+
+def human_policy(cfg: EnvConfig):
+    """stdin-driven quotes, one pair broadcast to all trajectories
+    (HumanAgent, BaselineAgents.py:45-49).  Host-side by nature — for
+    interactive inspection only."""
+
+    def policy(params, obs, state):
+        bid = float(input(f"Current state is {obs[0].cpu().numpy()}. Midprice-bid half spread? "))
+        ask = float(input(f"Current state is {obs[0].cpu().numpy()}. Ask-midprice half spread? "))
+        action = torch.tensor([bid, ask], dtype=obs.dtype, device=obs.device)
+        return action.expand(obs.shape[0], 2)
+
+    return policy
+
+
+def no_market_order_policy(quote_policy):
+    """Adapt a 2-column quoting policy to a limit-and-market-order env
+    (action_dim=4) by forcing the market-order columns to zero — the
+    natural closed-form baseline on ``get_cj_env``-style envs
+    (experiments/helpers.py:21-60), since no closed form exists for the
+    full limit+market problem.  A fixed inner policy stays ``kind="fixed"``
+    with the zero columns appended, so it still dispatches to K5."""
+
+    def policy(params, obs, state):
+        q = quote_policy(params, obs, state)
+        return torch.cat([q, torch.zeros_like(q)], dim=1)
+
+    inner = policy_meta(quote_policy)
+    if inner is not None and inner.get("kind") == "fixed":
+        tag_policy(
+            policy, kind="fixed",
+            action=tuple(inner["action"]) + (0.0,) * len(inner["action"]),
+        )
+    return policy
+
+
+def expected_action(policy, params, obs, state, key, n_samples: int = 1000):
+    """Monte-Carlo mean action of a stochastic policy (Agent.py:11-12).
+
+    Each sample sees the state with its ``key`` replaced by one generator
+    made from ``key`` (a seed or a ``torch.Generator``) and consumed in
+    turn, so policies that draw from ``state.key`` draw independently;
+    deterministic policies return their action unchanged."""
+    gen = make_generator(key, obs.device)
+    sample_state = state._replace(key=gen) if state is not None else None
+    total = None
+    for _ in range(n_samples):
+        a = policy(params, obs, sample_state)
+        total = a.clone() if total is None else total + a
+    return total / n_samples
 
 
 @dataclasses.dataclass(frozen=True)

@@ -330,7 +330,8 @@ def _engine_update(ppo_cfg: PPOConfig, ts: PPOTrainState, batch: RolloutBatch,
 # ------------------------------------------------------------ fused path
 def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networks.ActorCritic,
                           optimizer: torch.optim.Optimizer, key,
-                          noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                          noise: Optional[torch.Tensor] = None,
+                          inv0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The fully fused pipeline (ppo.py:282-382, single device): K3's
     feature-major ``(T, C, N)`` buffers feed K4 directly.  Minibatches are
     contiguous env slices (all T steps each), passed to K4 as views;
@@ -338,7 +339,8 @@ def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networ
     depends on ``log_std`` alone, enters the ``log_std`` grad here; Adam
     steps through ``p.grad``.  Updates ``params``/``optimizer`` in place
     and returns the mean metrics.  ``noise`` injects the rollout's
-    ``(T, 7, N)`` channels (the parity tests)."""
+    ``(T, n_noise_channels(A), N)`` channels and ``inv0`` the per-env
+    initial inventories of a random-inventory config (the parity tests)."""
     from mbt_gym_torch.ops import fused_ppo, mlp_rollout
 
     assert not ppo_cfg.shuffle, "fused path uses contiguous env-slice minibatches"
@@ -348,7 +350,7 @@ def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networ
     )
     device = _device_of(params)
     tb = mlp_rollout.collect_rollout_fused_T(
-        env_cfg, params, key, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda, noise=noise, device=device,
+        env_cfg, params, key, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda, noise=noise, device=device, inv0=inv0,
     )
     n = env_cfg.num_trajectories
     nb = n // ppo_cfg.n_minibatches
@@ -394,7 +396,7 @@ def train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrai
     state and the mean metrics (``pg_loss``, ``vf_loss``, ``entropy``,
     ``approx_kl``, ``mean_episode_reward``).  ``key`` is an int seed or a
     ``torch.Generator`` on the parameters' device.  ``noise`` (fused
-    rollout only) injects K3's ``(T, 7, N)`` channels."""
+    rollout only) injects K3's ``(T, n_noise_channels(A), N)`` channels."""
     if ppo_cfg.fused_rollout and ppo_cfg.fused_update:
         return _fused_train_iteration(env_cfg, ppo_cfg, train_state, key, noise=noise)
     device = _device_of(train_state.params)

@@ -36,21 +36,33 @@ from mbt_gym_torch.agents.baseline import (
     CarteaJaimungalOeAgent,
 )
 from mbt_gym_torch.agents.networks import ActorCritic
-from mbt_gym_torch.dynamics import LimitOrderDynamics, TradingWithSpeedDynamics
+from mbt_gym_torch.dynamics import (
+    AtTheTouchDynamics,
+    LimitAndMarketOrderDynamics,
+    LimitOrderDynamics,
+    TradingWithSpeedDynamics,
+)
 from mbt_gym_torch.env import EnvConfig, make_generator, resolve_device
 from mbt_gym_torch.processes.arrivals import PoissonArrivals
 from mbt_gym_torch.processes.fills import ExponentialFill
 from mbt_gym_torch.processes.impact import TemporaryAndPermanentImpact
 from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
-from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, PnL, RunningInventoryPenalty
+from mbt_gym_torch.rewards import (
+    CjMmCriterion,
+    CjOeCriterion,
+    ExponentialUtility,
+    PnL,
+    RunningInventoryPenalty,
+)
 from mbt_gym_torch.types import EnvState
 
 _COMPONENTS = {
     cls.__name__: cls
     for cls in (
         BrownianMotionMidprice, PoissonArrivals, ExponentialFill, TemporaryAndPermanentImpact,
-        LimitOrderDynamics, TradingWithSpeedDynamics,
-        PnL, RunningInventoryPenalty, CjMmCriterion, CjOeCriterion,
+        LimitOrderDynamics, AtTheTouchDynamics, LimitAndMarketOrderDynamics,
+        TradingWithSpeedDynamics,
+        PnL, RunningInventoryPenalty, CjMmCriterion, CjOeCriterion, ExponentialUtility,
     )
 }
 

@@ -163,10 +163,11 @@ def _check_fixed(cfg: EnvConfig, meta: dict, mode: str, device: torch.device) ->
         p = det.fixed_rollout_params(cfg, action)
     except AssertionError as e:
         raise _Ineligible(str(e))
-    if len(p.fixed_action) != p.a_dim:
+    expected = {"limit": 2, "lam": 4, "touch": 2, "speed": 1}[p.dynamics_kind]
+    if len(p.fixed_action) != expected:
         raise _Ineligible(
             f"fixed action has {len(p.fixed_action)} columns; "
-            f"{p.dynamics_kind} dynamics takes {p.a_dim}"
+            f"{p.dynamics_kind} dynamics takes {expected}"
         )
     if p.random_start:
         raise _Ineligible("random start times with the fixed policy run on the engine")

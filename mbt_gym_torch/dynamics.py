@@ -12,10 +12,9 @@ order, TradingEnvironment.py:303-318) plus pure functions:
 
 The bid/ask sign convention is the reference's ``fill_multiplier = [-1, +1]``
 (ModelDynamics.py:71-73): a filled *bid* quote buys (inventory +1,
-cash -(mid - depth)), a filled *ask* quote sells.  The port carries the
-limit-order and trading-speed dynamics; the at-the-touch and
-limit-and-market-order families are not ported yet (ROADMAP.md Queue 1
-item 7).
+cash -(mid - depth)), a filled *ask* quote sells.  The port carries all
+four families of the JAX package: limit orders, at-the-touch posting,
+limit plus market orders, and trading speed.
 """
 from __future__ import annotations
 
@@ -25,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from mbt_gym_torch.processes.base import ProcessBase
-from mbt_gym_torch.types import SlotNoise
+from mbt_gym_torch.types import ASK_INDEX, BID_INDEX, SlotNoise
 
 # Slot order parity with TradingEnvironment._get_stochastic_processes (:303-309).
 SLOT_ORDER = ("midprice_model", "arrival_model", "fill_probability_model", "price_impact_model")
@@ -117,6 +116,67 @@ class LimitOrderDynamics(DynamicsBase):
         return arrivals, fills
 
     def update_agent(self, cash, inventory, midprice, proc_states, action, arrivals, fills, dt):
+        return _limit_order_bookkeeping(cash, inventory, midprice, _limit_depths(action), arrivals, fills)
+
+
+@dataclasses.dataclass(frozen=True)
+class AtTheTouchDynamics(DynamicsBase):
+    """Post-or-not at a fixed half-spread (ModelDynamics.py:134-176).
+    Action = binary (post bid, post ask); fills are the action itself."""
+
+    midprice_model: ProcessBase = None
+    arrival_model: ProcessBase = None
+    fixed_market_half_spread: float = 0.5
+    action_dim = 2
+
+    def required_processes(self):
+        return ("arrival_model",)
+
+    def action_bounds(self):
+        # MultiBinary(2) in the reference (ModelDynamics.py:166-167); exposed
+        # as a {0,1}-valued Box here. Action normalisation must stay off.
+        return ((0.0, 0.0), (1.0, 1.0))
+
+    def get_arrivals_and_fills(self, proc_states, action, noises, dt):
+        arrivals = self.arrival_model.get_arrivals(
+            proc_states.get("arrival_model"), noises["arrival_model"].uniform, dt
+        )
+        fills = action[:, 0:2]
+        return arrivals, fills
+
+    def update_agent(self, cash, inventory, midprice, proc_states, action, arrivals, fills, dt):
+        mult = _fill_mult(cash)
+        hits = arrivals * fills
+        new_cash = cash + torch.sum(
+            mult * hits * (midprice[:, None] + self.fixed_market_half_spread * mult), dim=1
+        )
+        new_inventory = inventory + torch.sum(hits * -mult, dim=1)
+        return new_cash, new_inventory
+
+
+@dataclasses.dataclass(frozen=True)
+class LimitAndMarketOrderDynamics(LimitOrderDynamics):
+    """Limit orders plus unit market orders (ModelDynamics.py:179-240).
+    Action = (bid depth, ask depth, mo_buy, mo_sell); a market order fires
+    when its column exceeds 0.5, buying at mid+half_spread / selling at
+    mid-half_spread, before the limit-order bookkeeping.  Arrival/fill
+    sampling and max-depth resolution are inherited from
+    :class:`LimitOrderDynamics`."""
+
+    fixed_market_half_spread: float = 0.5
+    action_dim = 4
+
+    def action_bounds(self):
+        d = self._max_depth()
+        return ((0.0, 0.0, 0.0, 0.0), (d, d, 1.0, 1.0))
+
+    def update_agent(self, cash, inventory, midprice, proc_states, action, arrivals, fills, dt):
+        mo_buy = (action[:, 2 + BID_INDEX] > 0.5).to(cash.dtype)
+        mo_sell = (action[:, 2 + ASK_INDEX] > 0.5).to(cash.dtype)
+        best_bid = midprice - self.fixed_market_half_spread
+        best_ask = midprice + self.fixed_market_half_spread
+        cash = cash + mo_sell * best_bid - mo_buy * best_ask
+        inventory = inventory + mo_buy - mo_sell
         return _limit_order_bookkeeping(cash, inventory, midprice, _limit_depths(action), arrivals, fills)
 
 

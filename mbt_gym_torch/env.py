@@ -26,7 +26,12 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from mbt_gym_torch.dynamics import DynamicsBase, LimitOrderDynamics
+from mbt_gym_torch.dynamics import (
+    AtTheTouchDynamics,
+    DynamicsBase,
+    LimitAndMarketOrderDynamics,
+    LimitOrderDynamics,
+)
 from mbt_gym_torch.processes.arrivals import PoissonArrivals
 from mbt_gym_torch.processes.fills import ExponentialFill
 from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
@@ -102,8 +107,11 @@ class EnvConfig:
     reward_scaling: Optional[float] = None  # None = no reward normalisation
     dtype: str = "float32"
     # Repo addition (NOT reference behavior): block unit market orders at
-    # +/- max_inventory.  Only limit-and-market-order dynamics have market
-    # orders, and they are not ported yet.
+    # the +/- max_inventory boundary, with the same at-boundary convention
+    # as the limit-fill mask (TradingEnvironment.py:323-327 masks only
+    # limit fills; market orders pass and the independent inventory/cash
+    # clips at :283-289 keep the cash — a money-pump exploit RL discovers).
+    # Default False keeps the reference mechanics bit for bit.
     mask_market_orders_at_max_inventory: bool = False
 
     def __post_init__(self):
@@ -111,12 +119,18 @@ class EnvConfig:
             object.__setattr__(self, "dynamics", default_dynamics())
         self.dynamics.validate()
         assert self.dtype in _DTYPES, f"dtype must be one of {sorted(_DTYPES)}"
-        assert not self.mask_market_orders_at_max_inventory, (
-            "mask_market_orders_at_max_inventory only applies to "
-            "LimitAndMarketOrderDynamics (the only dynamics with market "
-            "orders)."
-        )
+        if self.mask_market_orders_at_max_inventory:
+            assert isinstance(self.dynamics, LimitAndMarketOrderDynamics), (
+                "mask_market_orders_at_max_inventory only applies to "
+                "LimitAndMarketOrderDynamics (the only dynamics with market "
+                "orders)."
+            )
         if self.normalise_action_space:
+            assert not isinstance(self.dynamics, AtTheTouchDynamics), (
+                "AtTheTouchDynamics takes binary post decisions (MultiBinary in the "
+                "reference, ModelDynamics.py:166-167); normalising them would corrupt "
+                "fills — use normalise_action_space=False."
+            )
             lo, hi = self.dynamics.action_bounds()
             assert all(h > l for l, h in zip(lo, hi)), "Cannot normalise a degenerate action space."
         if self.normalise_observation_space:
@@ -219,6 +233,29 @@ def _noise_dict(cfg: EnvConfig, noise: StepNoise):
 
 
 # --------------------------------------------------------------------- reset
+def resolve_reset_overrides(cfg: EnvConfig):
+    """Host-evaluate callable ``start_time`` / ``initial_inventory`` specs
+    for ONE reset (TradingEnvironment.py:257-281: ``self.start_time()``
+    quantised to the grid; ``self.initial_inventory()`` rounded when the
+    dynamics says so).  Returns ``(start_time, initial_inventory)``, each
+    ``None`` when the spec is not callable; pass the result to
+    :func:`reset`'s override arguments."""
+    start = None
+    inventory = None
+    if callable(cfg.start_time):
+        raw = float(cfg.start_time())
+        assert 0.0 <= raw < cfg.terminal_time, (
+            "Start time is not within (0, env.terminal_time)."  # TradingEnvironment.py:267
+        )
+        start = round(raw / cfg.step_size) * cfg.step_size
+    if callable(cfg.initial_inventory):
+        v = np.asarray(cfg.initial_inventory(), dtype=np.float64)
+        if cfg.dynamics.round_initial_inventory:
+            v = np.round(v)  # TradingEnvironment.py:277-279
+        inventory = np.broadcast_to(v, (cfg.num_trajectories,)).astype(cfg.dtype)
+    return start, inventory
+
+
 def reset(
     cfg: EnvConfig,
     key,
@@ -346,6 +383,22 @@ def step(
         f"Action must have shape ({n}, {dynamics.action_dim}); got {tuple(action.shape)}."
     )
     action = denormalise_action(cfg, action)
+
+    if cfg.mask_market_orders_at_max_inventory:
+        # Repo addition (see EnvConfig): zero the MO trigger columns where
+        # the unit order would cross +/- max_inventory, with the strict
+        # at-boundary convention of the limit-fill mask below (a buy is
+        # blocked AT +max, a sell AT -max), on the pre-step inventory.
+        can_buy = (state.inventory < cfg.max_inventory).to(dtype)
+        can_sell = (state.inventory > -cfg.max_inventory).to(dtype)
+        action = torch.cat(
+            [
+                action[:, :2],
+                action[:, 2:3] * can_buy[:, None],
+                action[:, 3:4] * can_sell[:, None],
+            ],
+            dim=1,
+        )
 
     if noise is None:
         assert state.key is not None, "native noise needs state.key (a torch.Generator)"

@@ -57,3 +57,23 @@ def reference_noise_cube(
             )
         )
     return tuple(slots)
+
+
+def reference_initial_inventory(cfg: EnvConfig, seed: int, resets: int = 0) -> np.ndarray:
+    """Replay the reference's reset-time inventory draw for tuple specs:
+    env-level ``default_rng(seed).integers(low, high, size=N)``
+    (TradingEnvironment.py:72,270-273).
+
+    The reference consumes one draw when the constructor builds the initial
+    state (TradingEnvironment.py:74) and one more per ``env.reset()``
+    (:96-99); ``resets`` is how many draws to skip, so ``resets=0`` is the
+    constructor's state and ``resets=1`` the state after the first
+    ``reset()`` (what ``generate_trajectory`` rolls from,
+    generate_trajectory.py:18).  Feed the result to ``reset(...,
+    initial_inventory=...)`` or ``rollout(..., initial_inventory=...)``."""
+    assert isinstance(cfg.initial_inventory, tuple)
+    rng = np.random.default_rng(seed)
+    lo, hi = cfg.initial_inventory
+    for _ in range(resets):
+        rng.integers(int(lo), int(hi), size=cfg.num_trajectories)
+    return rng.integers(int(lo), int(hi), size=cfg.num_trajectories).astype(cfg.dtype)

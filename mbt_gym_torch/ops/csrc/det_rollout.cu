@@ -11,7 +11,15 @@
 // with the PnL, pathwise CJ or running-penalty reward, and trading-speed
 // dynamics with temporary + permanent impact and the PnL or CJ execution
 // reward; BM midprice; any inventory exponent; fixed start; optional
-// per-env initial inventory (inv0).
+// per-env initial inventory (inv0).  The fixed kind also runs the
+// limit-and-market-order ("lam": 4 columns, a unit market order where a
+// trigger column exceeds 0.5 at mid -/+ the half-spread before the limit
+// bookkeeping, optionally blocked at +/- max inventory on the pre-step
+// inventory) and at-the-touch ("touch": the 2 post columns are the fills,
+// at mid -/+ the half-spread) dynamics with the market-making rewards,
+// each dynamics kind its own instantiation (template parameter kDyn), so
+// the limit and speed kinds keep their code and bits; both draw the limit
+// kind's five channels (touch leaves the fill uniforms unread).
 //
 // Design: a warp-specialised step pipeline (step_pipeline.cuh).  A CTA
 // owns E envs: E / 32 consumer warps run the env step, one thread per env
@@ -67,12 +75,13 @@
 #include "step_pipeline.cuh"
 
 constexpr int kMaxS = 5;
+constexpr int kMaxA = 4;
 
 // Mirrors DetKernelParams in mbt_gym_torch/ops/det_rollout.py (ctypes).
 struct DetKernelParams {
   int run_steps;
   int t_off;          // round(start_time / dt): first table/schedule row
-  int dynamics;       // 0 limit, 1 speed
+  int dynamics;       // 0 limit, 1 speed, 2 lam, 3 touch
   int policy;         // 0 table, 1 fixed, 2 schedule
   int reward;         // 0 pnl, 1 cjmm, 2 running, 3 cjoe
   int normalise_obs;
@@ -86,9 +95,9 @@ struct DetKernelParams {
   float t_term;       // start_time + run_steps * dt (the terminal obs time)
   float obs_low[kMaxS];
   float obs_grad[kMaxS];
-  float act_low[2];
-  float act_grad[2];
-  float fixed_action[2];
+  float act_low[kMaxA];
+  float act_grad[kMaxA];
+  float fixed_action[kMaxA];
   float p_arr_bid;
   float p_arr_ask;
   float neg_k;
@@ -107,6 +116,8 @@ struct DetKernelParams {
   float cjmm_const;   // alpha * dt / episode_length
   float ep_len;       // terminal_time - start_time
   float inv_exp;      // inventory exponent
+  float half_spread;  // lam and touch: the fixed market half-spread
+  int mask_mo;        // lam: block market orders at +/- max_inventory
   mbt::PipeGeometry pipe;
 };
 
@@ -132,7 +143,7 @@ struct DetBuffers {
 
 namespace {
 
-enum Dynamics { kLimit = 0, kSpeed = 1 };
+enum Dynamics { kLimit = 0, kSpeed = 1, kLam = 2, kTouch = 3 };
 enum Policy { kTable = 0, kFixed = 1, kSchedule = 2 };
 enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2, kCjOe = 3 };
 
@@ -180,7 +191,7 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   const mbt::StepRing ring(p.pipe, smem);
   const int warp = threadIdx.x >> 5;
   const int env0 = blockIdx.x * p.pipe.envs;
-  constexpr int kChannels = kDyn == kLimit ? 5 : 1;
+  constexpr int kChannels = kDyn == kSpeed ? 1 : 5;
   if (warp >= ring.consumer_warps()) {
     const float* bid = b.bid;
     const float* ask = b.ask;
@@ -223,6 +234,7 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
         [[maybe_unused]] const int row = p.t_off + i;
         // ---- policy: the raw action columns (what the stream records)
         float raw0, raw1 = 0.0f;
+        [[maybe_unused]] float raw2 = 0.0f, raw3 = 0.0f;  // lam's market-order columns
         [[maybe_unused]] float fill_p0, fill_p1;  // exp(neg_k * depth): the table kind's from its fill tables
         if constexpr (kPol == kTable) {
           const float qf = fminf(fmaxf(static_cast<float>(p.q_max) + inv, 0.0f), 2.0f * p.q_max);
@@ -246,12 +258,21 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
         } else {
           raw0 = p.fixed_action[0];
           raw1 = p.fixed_action[1];
+          if constexpr (kDyn == kLam) {
+            raw2 = p.fixed_action[2];
+            raw3 = p.fixed_action[3];
+          }
         }
         float exe0 = raw0, exe1 = raw1;
+        [[maybe_unused]] float exe2 = raw2, exe3 = raw3;
         if constexpr (kPol != kTable) {  // the table kind quotes raw depths (pipe_ok)
           if (p.normalise_act) {
             exe0 = (raw0 + 1.0f) * p.act_grad[0] + p.act_low[0];
             exe1 = (raw1 + 1.0f) * p.act_grad[1] + p.act_low[1];
+            if constexpr (kDyn == kLam) {
+              exe2 = (raw2 + 1.0f) * p.act_grad[2] + p.act_low[2];
+              exe3 = (raw3 + 1.0f) * p.act_grad[3] + p.act_low[3];
+            }
           }
         }
         if constexpr (!kStats) {
@@ -261,7 +282,11 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
             write_obs(p, b.obs + o, sn, cash, inv, t, price, imp);
             const size_t a = static_cast<size_t>(i) * p.a_dim * sn + env;
             b.act[a] = raw0;
-            if constexpr (kDyn == kLimit) b.act[a + sn] = raw1;
+            if constexpr (kDyn != kSpeed) b.act[a + sn] = raw1;
+            if constexpr (kDyn == kLam) {
+              b.act[a + 2 * sn] = raw2;
+              b.act[a + 3 * sn] = raw3;
+            }
           }
         }
         // ---- env step (TradingEnvironment.py:198-216 order)
@@ -280,6 +305,35 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
           const float hit_ask = arr_ask * fill_ask;
           new_inv = inv + hit_bid - hit_ask;
           new_cash = cash - hit_bid * (price - exe0) + hit_ask * (price + exe1);
+          normal = d.normal;
+        } else if constexpr (kDyn == kLam) {
+          const mbt::Draws d = draws.limit(j, i);
+          const float can_buy = inv < p.max_inventory ? 1.0f : 0.0f;
+          const float can_sell = inv > -p.max_inventory ? 1.0f : 0.0f;
+          float mo_buy = exe2 > 0.5f ? 1.0f : 0.0f;
+          float mo_sell = exe3 > 0.5f ? 1.0f : 0.0f;
+          if (p.mask_mo) {
+            mo_buy = mo_buy * can_buy;
+            mo_sell = mo_sell * can_sell;
+          }
+          const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
+          const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
+          const float fill_bid = (d.u_fb < expf(p.neg_k * exe0) ? 1.0f : 0.0f) * can_buy;
+          const float fill_ask = (d.u_fa < expf(p.neg_k * exe1) ? 1.0f : 0.0f) * can_sell;
+          const float hit_bid = arr_bid * fill_bid;
+          const float hit_ask = arr_ask * fill_ask;
+          new_inv = inv + (mo_buy - mo_sell) + hit_bid - hit_ask;
+          new_cash = cash + mo_sell * (price - p.half_spread) - mo_buy * (price + p.half_spread) -
+                     hit_bid * (price - exe0) + hit_ask * (price + exe1);
+          normal = d.normal;
+        } else if constexpr (kDyn == kTouch) {
+          const mbt::Draws d = draws.limit(j, i);
+          const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
+          const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
+          const float hit_bid = arr_bid * (exe0 * (inv < p.max_inventory ? 1.0f : 0.0f));
+          const float hit_ask = arr_ask * (exe1 * (inv > -p.max_inventory ? 1.0f : 0.0f));
+          new_inv = inv + hit_bid - hit_ask;
+          new_cash = cash - hit_bid * (price - p.half_spread) + hit_ask * (price + p.half_spread);
           normal = d.normal;
         } else {
           // impact at the pre-update state, then the permanent-impact recursion
@@ -310,7 +364,7 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
         }
         if constexpr (kStats) {
           rsum = rsum + reward;
-          if constexpr (kDyn == kLimit) ssum = ssum + (raw0 + raw1);
+          if constexpr (kDyn != kSpeed) ssum = ssum + (raw0 + raw1);
         } else if (active) {
           b.rew[static_cast<size_t>(i) * sn + env] = reward;
         }
@@ -380,6 +434,10 @@ cudaError_t launch(const DetKernelParams& p, const DetBuffers& b, int n, uint32_
       default: return cudaErrorInvalidValue;  // the depth table quotes limit depths
     }
   }
+  // lam and touch: the fixed kind only
+  if (p.policy != kFixed) return cudaErrorInvalidValue;
+  if (p.dynamics == kLam) return launch_mode<kNoise, kLam, kFixed>(p, b, n, seed, stats, s);
+  if (p.dynamics == kTouch) return launch_mode<kNoise, kTouch, kFixed>(p, b, n, seed, stats, s);
   return cudaErrorInvalidValue;
 }
 
@@ -390,7 +448,7 @@ bool pipe_ok(const DetKernelParams& p) {
   // which is what the step exponentiates only when actions are not rescaled
   if (p.policy == kTable && p.normalise_act) return false;
   const bool table_ok = !g.staged || (p.policy == kTable && g.table_rows == 4 && g.row_floats == p.table_width);
-  return mbt::pipe_shape_ok(g, p.dynamics == kLimit ? 5 : 1) && table_ok;
+  return mbt::pipe_shape_ok(g, p.dynamics == kSpeed ? 1 : 5) && table_ok;
 }
 
 }  // namespace
@@ -402,7 +460,9 @@ extern "C" int mbt_det_rollout(const DetKernelParams* p, const DetBuffers* b, in
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
-  if (p->s_dim > kMaxS || p->a_dim < 1 || p->a_dim > 2 || !pipe_ok(*p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (p->s_dim > kMaxS || p->a_dim < 1 || p->a_dim > kMaxA || !pipe_ok(*p)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = b->noise ? launch<true>(*p, *b, n, seed, stats_only != 0, s)
                  : launch<false>(*p, *b, n, seed, stats_only != 0, s);

@@ -2,15 +2,18 @@
 //
 // Replaces the TPU kernel mlp_rollout_pallas
 // (mbt_gym_tpu/ops/pallas_rollout.py:1514, pallas_call at :1634) for the
-// MLP policy on the "limit" family: BM midprice, Poisson arrivals,
-// exponential fills, limit-order dynamics, the PnL, pathwise CJ
-// market-making (CjMm) or running-penalty reward at any inventory
-// exponent, fixed start time and initial inventory, both actor-critic
-// layouts.  Each step, per env:
+// MLP policy with BM midprice and Poisson arrivals on three dynamics kinds,
+// each its own instantiation (template parameter kDyn): "limit"
+// (exponential fills, limit-order dynamics, A = 2), "lam" (limit orders
+// plus unit market orders, A = 4) and "touch" (post-or-not at a fixed
+// half-spread, A = 2); the PnL, pathwise CJ market-making (CjMm) or
+// running-penalty reward at any inventory exponent, fixed start time, a
+// fixed or per-env (inv0) initial inventory, both actor-critic layouts.
+// Each step, per env:
 // the (normalised) observation, the trunk h = tanh(W h + b) layer by
 // layer, the merged (A+1)-row head giving mean and value, the Gaussian
 // sample and its log-prob, the clipped and denormalised action, then the
-// env step (pallas_rollout.py:724-754, 849-897, 992-1006, 1078-1153).
+// env step (pallas_rollout.py:724-754, 849-897, 992-1052, 1078-1153).
 // Outputs: obs (T, S, N) as the policy saw it, the unclipped action
 // (T, A, N), log-prob, value and reward (T, N).
 //
@@ -90,6 +93,20 @@
 // products use explicit FMAs, exact on bf16 operands).  Fixed warp tiles
 // and a fixed reduction order make a repeated launch bitwise equal.
 //
+// Dynamics kinds (pallas_rollout.py:992-1052): one instantiation each, so
+// the limit kind's code and bits stay those of the kernel before the other
+// kinds came (a runtime branch in one kernel had cost K5 11-64%).  "lam"
+// fires a unit market order where its column, clipped to [0, 1], exceeds
+// 0.5, buying at mid + half-spread and selling at mid - half-spread before
+// the limit bookkeeping; with mask_mo set, a buy is blocked at +max
+// inventory and a sell at -max, on the pre-step inventory.  "touch" takes
+// the clipped post columns as the fills (continuous, as the engine does)
+// at mid -/+ half-spread.  The lam kind's head has A + 1 = 5 rows.
+// Initial inventory: the per-env inv0 plane when given (a random initial
+// inventory), else the constant; the CjMm constant (alpha dt / ep_len)
+// q(inv0) is formed per env at the start, the float32 product of the
+// wrapper's float32 coefficient and q(inv0), the constant's bits.
+//
 // Rewards (pallas_rollout.py:1136-1191): the reward kind and the exponent
 // are fields of the kernel's parameters, not template arguments.  The PnL
 // kind takes one uniform branch past the inventory terms and computes what
@@ -97,17 +114,19 @@
 // kernel without the branch, measured on the H100); CjMm and the running
 // penalty add q(new_inv) (and CjMm q(inv)), where q is x * x at exponent
 // 2, x at 1 and powf otherwise, as the plain version branches, with the
-// wrapper's float32 constants dt * phi, alpha and
-// (alpha * dt / ep_len) * q(inv0).  The env step runs on 128 of the CTA's
+// wrapper's float32 constants dt * phi, alpha and alpha * dt / ep_len.  The env step runs on 128 of the CTA's
 // 512 threads, so the longer branch costs the step little (CjMm +0.6% at
 // config 5).
 //
 // Noise: noise mode reads (T, 7, N) channels in the JAX order (u_arr_bid,
-// u_arr_ask, u_fill_bid, u_fill_ask, eps0, eps1, mid normal).  Native mode
-// draws Philox4x32-10 keyed by (seed, env) with counter (step, draw, 0, 0):
+// u_arr_ask, u_fill_bid, u_fill_ask, eps0, eps1, mid normal); the lam kind
+// reads (T, 9, N), eps0..eps3 then the mid normal.  Native mode draws
+// Philox4x32-10 keyed by (seed, env) with counter (step, draw, 0, 0):
 // draw 0 gives the four uniforms, draw 1 four Box-Muller uniforms
 // u0..u3 -> r_j = sqrt(-2 log(1 - u_j)), theta_j = 2 pi u_{2+j};
-// eps0 = r0 cos theta0, eps1 = r1 cos theta1, mid = r0 sin theta0.
+// eps0 = r0 cos theta0, eps1 = r1 cos theta1, mid = r0 sin theta0.  The
+// lam kind takes draw 2 as well, one more pair: r2 from its first word,
+// theta2 from its second, eps2 = r2 cos theta2, eps3 = r2 sin theta2.
 
 #include <cstdint>
 #include <type_traits>
@@ -154,8 +173,11 @@ struct MlpKernelParams {
   int reward;        // 0 pnl, 1 cjmm, 2 running
   float dt_phi;      // dt * phi
   float alpha;
-  float cjmm_const;  // (alpha * dt / episode_length) * q(initial_inventory)
+  float cjmm_coef;   // alpha * dt / episode_length
   float inv_exp;     // inventory exponent
+  int dynamics;      // 0 limit, 1 lam, 2 touch
+  int mask_mo;       // lam: block market orders at +/- max_inventory
+  float half_spread; // lam and touch: the fixed market half-spread
 };
 
 struct RolloutOut {
@@ -168,25 +190,35 @@ struct RolloutOut {
 
 namespace {
 
-constexpr int kNoiseChannels = 7;
 enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2 };
+enum Dynamics { kLimit = 0, kLam = 1, kTouch = 2 };
 
+// Noise-mode channels per step: 4 uniforms, max(A, 2) normals, the mid normal.
+template <int kDyn>
+constexpr int kNoiseChannels = kDyn == kLam ? 9 : 7;
 
 struct Draws {
   float u_ab, u_aa, u_fb, u_fa, eps0, eps1, mid;
+  float eps2, eps3;  // lam only
 };
 
+template <int kDyn>
 __device__ __forceinline__ Draws draws_at(const float* noise, int n, uint32_t seed, int env, int step) {
   Draws d;
   if (noise) {
-    const size_t base = static_cast<size_t>(step) * kNoiseChannels * n + env;
+    constexpr int kCh = kNoiseChannels<kDyn>;
+    const size_t base = static_cast<size_t>(step) * kCh * n + env;
     d.u_ab = noise[base];
     d.u_aa = noise[base + static_cast<size_t>(n)];
     d.u_fb = noise[base + 2 * static_cast<size_t>(n)];
     d.u_fa = noise[base + 3 * static_cast<size_t>(n)];
     d.eps0 = noise[base + 4 * static_cast<size_t>(n)];
     d.eps1 = noise[base + 5 * static_cast<size_t>(n)];
-    d.mid = noise[base + 6 * static_cast<size_t>(n)];
+    if constexpr (kDyn == kLam) {
+      d.eps2 = noise[base + 6 * static_cast<size_t>(n)];
+      d.eps3 = noise[base + 7 * static_cast<size_t>(n)];
+    }
+    d.mid = noise[base + (kCh - 1) * static_cast<size_t>(n)];
     return d;
   }
   const uint2 key = make_uint2(seed, static_cast<uint32_t>(env));
@@ -203,19 +235,29 @@ __device__ __forceinline__ Draws draws_at(const float* noise, int n, uint32_t se
   d.eps0 = r0 * cosf(th0);
   d.eps1 = r1 * cosf(th1);
   d.mid = r0 * sinf(th0);
+  if constexpr (kDyn == kLam) {
+    const uint4 c = mbt::philox4x32_10(make_uint4(static_cast<uint32_t>(step), 2u, 0u, 0u), key);
+    const float r2 = sqrtf(-2.0f * logf(1.0f - mbt::uniform24(c.x)));
+    const float th2 = mbt::kTwoPi * mbt::uniform24(c.y);
+    d.eps2 = r2 * cosf(th2);
+    d.eps3 = r2 * sinf(th2);
+  }
   return d;
 }
 
 // One env's state and its policy constants, in the registers of its thread.
 struct EnvState {
   float cash, inv, price;
+  float cjmm_const;  // (alpha * dt / episode_length) * q(initial inventory)
   float lstd[kMaxAct], stdv[kMaxAct];
 };
 
-__device__ __forceinline__ EnvState initial_state(const MlpKernelParams& p, const float* log_std) {
+__device__ __forceinline__ EnvState initial_state(const MlpKernelParams& p, const float* log_std,
+                                                  const float* inv0, int env) {
   EnvState s;
   s.cash = p.initial_cash;
-  s.inv = p.initial_inventory;
+  s.inv = inv0 ? inv0[env] : p.initial_inventory;
+  s.cjmm_const = p.cjmm_coef * mbt::q_pow(s.inv, p.inv_exp);
   s.price = p.initial_price;
   for (int a = 0; a < p.a_dim; ++a) {
     s.lstd[a] = log_std[a];
@@ -234,11 +276,18 @@ __device__ __forceinline__ float observation(const MlpKernelParams& p, const Env
 }
 
 // Step i of one env from its head output `mean`: the sample, its log-prob,
-// the executed action and the env step; writes the action, log-prob and
-// reward of the step and advances the state.
+// the executed action and the env step of the dynamics kind; writes the
+// action, log-prob and reward of the step and advances the state.
+template <int kDyn>
 __device__ __forceinline__ void env_step(const MlpKernelParams& p, const Draws& d, const float* mean, EnvState& s,
                                          const RolloutOut& out, int n, int env, int i) {
-  const float eps[2] = {d.eps0, d.eps1};
+  float eps[kDyn == kLam ? 4 : 2];
+  eps[0] = d.eps0;
+  eps[1] = d.eps1;
+  if constexpr (kDyn == kLam) {
+    eps[2] = d.eps2;
+    eps[3] = d.eps3;
+  }
   float action[kMaxAct], exec[kMaxAct];
   float lp = 0.0f;
   for (int a = 0; a < p.a_dim; ++a) {
@@ -253,17 +302,37 @@ __device__ __forceinline__ void env_step(const MlpKernelParams& p, const Draws& 
   }
   lp = lp - p.logp_const;
 
-  const float bid = exec[0], ask = exec[1];
   const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
   const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
-  float fill_bid = d.u_fb < expf(p.neg_k * bid) ? 1.0f : 0.0f;
-  float fill_ask = d.u_fa < expf(p.neg_k * ask) ? 1.0f : 0.0f;
-  fill_bid = fill_bid * (s.inv < p.max_inventory ? 1.0f : 0.0f);
-  fill_ask = fill_ask * (s.inv > -p.max_inventory ? 1.0f : 0.0f);
-  const float hit_bid = arr_bid * fill_bid;
-  const float hit_ask = arr_ask * fill_ask;
-  float new_inv = s.inv + hit_bid - hit_ask;
-  float new_cash = s.cash - hit_bid * (s.price - bid) + hit_ask * (s.price + ask);
+  float new_inv, new_cash;
+  if constexpr (kDyn == kTouch) {  // the fills are the clipped post columns
+    const float hit_bid = arr_bid * (exec[0] * (s.inv < p.max_inventory ? 1.0f : 0.0f));
+    const float hit_ask = arr_ask * (exec[1] * (s.inv > -p.max_inventory ? 1.0f : 0.0f));
+    new_inv = s.inv + hit_bid - hit_ask;
+    new_cash = s.cash - hit_bid * (s.price - p.half_spread) + hit_ask * (s.price + p.half_spread);
+  } else {
+    const float bid = exec[0], ask = exec[1];
+    float fill_bid = d.u_fb < expf(p.neg_k * bid) ? 1.0f : 0.0f;
+    float fill_ask = d.u_fa < expf(p.neg_k * ask) ? 1.0f : 0.0f;
+    fill_bid = fill_bid * (s.inv < p.max_inventory ? 1.0f : 0.0f);
+    fill_ask = fill_ask * (s.inv > -p.max_inventory ? 1.0f : 0.0f);
+    const float hit_bid = arr_bid * fill_bid;
+    const float hit_ask = arr_ask * fill_ask;
+    if constexpr (kDyn == kLam) {  // unit market orders before the limit bookkeeping
+      float mo_buy = exec[2] > 0.5f ? 1.0f : 0.0f;
+      float mo_sell = exec[3] > 0.5f ? 1.0f : 0.0f;
+      if (p.mask_mo) {
+        mo_buy = mo_buy * (s.inv < p.max_inventory ? 1.0f : 0.0f);
+        mo_sell = mo_sell * (s.inv > -p.max_inventory ? 1.0f : 0.0f);
+      }
+      new_inv = s.inv + (mo_buy - mo_sell) + hit_bid - hit_ask;
+      new_cash = s.cash + mo_sell * (s.price - p.half_spread) - mo_buy * (s.price + p.half_spread) -
+                 hit_bid * (s.price - bid) + hit_ask * (s.price + ask);
+    } else {
+      new_inv = s.inv + hit_bid - hit_ask;
+      new_cash = s.cash - hit_bid * (s.price - bid) + hit_ask * (s.price + ask);
+    }
+  }
   new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
   new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
   const float new_price = s.price + p.drift_dt + p.vol_sqrt_dt * d.mid;
@@ -271,7 +340,7 @@ __device__ __forceinline__ void env_step(const MlpKernelParams& p, const Draws& 
   if (p.reward != kPnl) {
     const float q_new = mbt::q_pow(new_inv, p.inv_exp);
     if (p.reward == kCjMm) {
-      reward = reward - p.dt_phi * q_new - p.alpha * (q_new - mbt::q_pow(s.inv, p.inv_exp)) - p.cjmm_const;
+      reward = reward - p.dt_phi * q_new - p.alpha * (q_new - mbt::q_pow(s.inv, p.inv_exp)) - s.cjmm_const;
     } else {  // the running penalty's terminal term at the last step only
       const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
       reward = reward - p.dt_phi * q_new - (p.alpha * terminal) * q_new;
@@ -380,9 +449,10 @@ __device__ void forward(const MlpKernelParams& p, const float* w, const Smem& sm
 // `vf.w` is NULL for the shared trunk, whose merged head (A+1 rows, the
 // value last) is `pi`'s; with towers `pi` holds the pi tower and its A head
 // rows and `vf` the vf tower and its value row.
+template <int kDyn>
 __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
-                        const TowerWeights<float>& pi, const TowerWeights<float>& vf, const Layout& lay,
-                        const float* __restrict__ log_std, const RolloutOut& out) {
+                        const float* __restrict__ inv0, const TowerWeights<float>& pi, const TowerWeights<float>& vf,
+                        const Layout& lay, const float* __restrict__ log_std, const RolloutOut& out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int h_last = p.widths[p.n_layers - 1];
@@ -397,7 +467,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
 
   stage(pi, sm, lay.b_total, h_last);
   const int env = blockIdx.x * kE + tid;
-  EnvState s = initial_state(p, log_std);
+  EnvState s = initial_state(p, log_std, tid < kE ? inv0 : nullptr, env);
   __syncthreads();
 
   // ---- phase 1: the episode with the pi tower (or the shared trunk)
@@ -418,7 +488,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
       float mean[kMaxAct];
       for (int a = 0; a < p.a_dim; ++a) mean[a] = sm.head_o[a * kE + tid];
       if (!vf.w) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[p.a_dim * kE + tid];
-      env_step(p, draws_at(noise, n, seed, env, i), mean, s, out, n, env, i);
+      env_step<kDyn>(p, draws_at<kDyn>(noise, n, seed, env, i), mean, s, out, n, env, i);
     }
     // the next step's observation writes act0 only after this step's head
     // has read the trunk output (the barrier that ends forward), and its
@@ -471,7 +541,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kE = 128;        // envs per CTA
 constexpr int kLd = kE + 8;    // activation row stride (bf16)
 constexpr int kK0 = 16;        // layer 0's k: S rows of the observation, then zeros
-constexpr int kHead = 3;       // head rows the env step reads (A + 1 at most)
+// head rows the env step reads (A + 1): 3, and 5 in the lam instantiation
+template <int kDyn>
+constexpr int kHead = kDyn == kLam ? 5 : 3;
 constexpr int kRows = 32;      // warp tile: two 16-row blocks
 constexpr int kEnvs = 64;      //            x eight 8-env tiles
 constexpr int kNT = kEnvs / 8;
@@ -484,7 +556,7 @@ struct Smem {
   __nv_bfloat16* head_w;  // the head as a packed (16, h_last) matrix
   __nv_bfloat16* x;       // [kK0][kLd] observation tile (layer 0's input)
   __nv_bfloat16* act;     // [act_rows][kLd] activation tile
-  float* head_o;          // [kHead][kE] the head's output
+  float* head_o;          // [kHead<kDyn>][kE] the head's output
 };
 
 __device__ __forceinline__ uint4 lds128(const __nv_bfloat16* p) {
@@ -560,7 +632,8 @@ __device__ __forceinline__ void store_layer(const float (&acc)[2][kNT][4], const
 // rows): warp w computes the (16, k_dim) packed head `w` times envs
 // [8 w, +8) as one mma row block, the k blocks summed round-robin in four
 // accumulators (shorter dependency chains) added in a fixed order, and
-// writes rows 0..kHead-1 to head_o.
+// writes rows 0..kRowsOut-1 to head_o.
+template <int kRowsOut>
 __device__ __forceinline__ void head_product(const __nv_bfloat16* w, int k_dim, const __nv_bfloat16* act,
                                              float* head_o) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
@@ -579,7 +652,7 @@ __device__ __forceinline__ void head_product(const __nv_bfloat16* w, int k_dim, 
       }
     }
   }
-  if (g < kHead) {  // row g: envs 2 t4, 2 t4 + 1
+  if (g < kRowsOut) {  // row g: envs 2 t4, 2 t4 + 1
     *reinterpret_cast<float2*>(head_o + g * kE + warp * 8 + t4 * 2) =
         make_float2((d[0][0] + d[1][0]) + (d[2][0] + d[3][0]), (d[0][1] + d[1][1]) + (d[2][1] + d[3][1]));
   }
@@ -587,6 +660,7 @@ __device__ __forceinline__ void head_product(const __nv_bfloat16* w, int k_dim, 
 
 // The trunk and the head of one step, from the observation tile.  Ends
 // with head_o written, before a barrier.
+template <int kDyn>
 __device__ void forward(const MlpKernelParams& p, const Smem& sm, const Layout& lay, const __nv_bfloat16* w_dev) {
   const int warp = threadIdx.x / 32, rg = warp / 2, eh = warp % 2;
   float acc[2][kNT][4];
@@ -611,12 +685,14 @@ __device__ void forward(const MlpKernelParams& p, const Smem& sm, const Layout& 
   }
   if (has_rows) store_layer(acc, sm.bias + b_off, r_dim, rg, eh, sm.act);
   __syncthreads();
-  head_product(sm.head_w, r_dim, sm.act, sm.head_o);
+  head_product<kHead<kDyn>>(sm.head_w, r_dim, sm.act, sm.head_o);
 }
 
+template <int kDyn>
 __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
-                        const TowerWeights<__nv_bfloat16>& pi, const TowerWeights<__nv_bfloat16>& vf,
-                        const Layout& lay, const float* __restrict__ log_std, const RolloutOut& out) {
+                        const float* __restrict__ inv0, const TowerWeights<__nv_bfloat16>& pi,
+                        const TowerWeights<__nv_bfloat16>& vf, const Layout& lay,
+                        const float* __restrict__ log_std, const RolloutOut& out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int h_last = p.widths[p.n_layers - 1];
@@ -637,7 +713,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
   const bool env_thread = tid < kE;
   const int env = blockIdx.x * kE + tid;
   const bool active = env_thread && env < n;  // the last tile may be ragged
-  EnvState s = initial_state(p, log_std);
+  EnvState s = initial_state(p, log_std, active ? inv0 : nullptr, env);
   // this thread's column of the observation tile before step i; envs past
   // n take zeros and store nothing
   auto load_obs = [&](int i, bool from_out) {
@@ -660,13 +736,13 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
 
   // ---- phase 1: the episode with the pi tower (or the shared trunk)
   for (int i = 0; i < p.run_steps; ++i) {
-    forward(p, sm, lay, pi.w);
+    forward<kDyn>(p, sm, lay, pi.w);
     __syncthreads();
     if (active) {
       float mean[kMaxAct];
       for (int a = 0; a < p.a_dim; ++a) mean[a] = sm.head_o[a * kE + tid] + pi.b_head[a];
       if (!vf.w) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[p.a_dim * kE + tid] + pi.b_head[p.a_dim];
-      env_step(p, draws_at(noise, n, seed, env, i), mean, s, out, n, env, i);
+      env_step<kDyn>(p, draws_at<kDyn>(noise, n, seed, env, i), mean, s, out, n, env, i);
     }
     if (env_thread && i + 1 < p.run_steps) load_obs(i + 1, false);
     __syncthreads();  // the observation tile and the head are read before they are rewritten
@@ -678,7 +754,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
   if (env_thread) load_obs(0, true);
   __syncthreads();
   for (int i = 0; i < p.run_steps; ++i) {
-    forward(p, sm, lay, vf.w);
+    forward<kDyn>(p, sm, lay, vf.w);
     __syncthreads();
     if (active) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[tid] + vf.b_head[0];
     if (env_thread && i + 1 < p.run_steps) load_obs(i + 1, true);
@@ -688,8 +764,9 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
 
 size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 
-// The launch's layout, the inner layers staged when `staged`.
-Layout layout(const MlpKernelParams& p, bool staged) {
+// The launch's layout, the inner layers staged when `staged`, with
+// `head_rows` rows of head output.
+Layout layout(const MlpKernelParams& p, bool staged, int head_rows) {
   Layout lay{};
   lay.w0_size = p.widths[0] * kK0;
   lay.w_size = lay.w0_size;
@@ -705,7 +782,7 @@ Layout layout(const MlpKernelParams& p, bool staged) {
   lay.off_x = lay.off_head + sizeof(__nv_bfloat16) * 16 * h_last;
   lay.off_act = lay.off_x + sizeof(__nv_bfloat16) * kK0 * kLd;
   lay.off_head_o = lay.off_act + sizeof(__nv_bfloat16) * lay.act_rows * kLd;
-  lay.bytes = lay.off_head_o + sizeof(float) * kHead * kE;
+  lay.bytes = lay.off_head_o + sizeof(float) * head_rows * kE;
   return lay;
 }
 
@@ -714,21 +791,23 @@ Layout layout(const MlpKernelParams& p, bool staged) {
 template <bool kBf16>
 using Weight = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
 
-template <bool kBf16>
+template <bool kBf16, int kDyn>
 __global__ void __launch_bounds__(kBf16 ? tc::kThreads : cc::kThreads, 1)
 mlp_rollout_kernel(const MlpKernelParams p, int n, uint32_t seed, const float* __restrict__ noise,
-                   const TowerWeights<Weight<kBf16>> pi, const TowerWeights<Weight<kBf16>> vf, const Layout lay,
-                   const float* __restrict__ log_std, RolloutOut out) {
+                   const float* __restrict__ inv0, const TowerWeights<Weight<kBf16>> pi,
+                   const TowerWeights<Weight<kBf16>> vf, const Layout lay, const float* __restrict__ log_std,
+                   RolloutOut out) {
   if constexpr (kBf16) {
-    tc::rollout(p, n, seed, noise, pi, vf, lay, log_std, out);
+    tc::rollout<kDyn>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out);
   } else {
-    cc::rollout(p, n, seed, noise, pi, vf, lay, log_std, out);
+    cc::rollout<kDyn>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out);
   }
 }
 
-template <bool kBf16>
-int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const void* const* pi,
-           const void* const* vf, const float* log_std, const RolloutOut& out, cudaStream_t stream) {
+template <bool kBf16, int kDyn>
+int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const float* inv0,
+           const void* const* pi, const void* const* vf, const float* log_std, const RolloutOut& out,
+           cudaStream_t stream) {
   using TW = Weight<kBf16>;
   const bool towers = vf[0] != nullptr;
   auto tower = [&](const void* const* t, int rows) {
@@ -740,15 +819,15 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
   Layout lay;
   int threads, tile;
   if constexpr (kBf16) {
-    if (p.a_dim + 1 > tc::kHead || p.s_dim > tc::kK0) return static_cast<int>(cudaErrorInvalidValue);
+    if (p.a_dim + 1 > tc::kHead<kDyn> || p.s_dim > tc::kK0) return static_cast<int>(cudaErrorInvalidValue);
     for (int l = 0; l < p.n_layers; ++l) {
       if (p.widths[l] % 16) return static_cast<int>(cudaErrorInvalidValue);
     }
     int max_optin = 0, device = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    lay = tc::layout(p, true);
-    if (lay.bytes > static_cast<size_t>(max_optin)) lay = tc::layout(p, false);
+    lay = tc::layout(p, true, tc::kHead<kDyn>);
+    if (lay.bytes > static_cast<size_t>(max_optin)) lay = tc::layout(p, false, tc::kHead<kDyn>);
     threads = tc::kThreads;
     tile = tc::kE;
   } else {
@@ -756,19 +835,29 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
     threads = cc::kThreads;
     tile = cc::kE;
   }
-  cudaError_t err = cudaFuncSetAttribute(mlp_rollout_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(lay.bytes));
+  cudaError_t err = cudaFuncSetAttribute(mlp_rollout_kernel<kBf16, kDyn>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(lay.bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_rollout_kernel<kBf16><<<(n + tile - 1) / tile, threads, lay.bytes, stream>>>(p, n, seed, noise, pi_w, vf_w,
-                                                                                  lay, log_std, out);
+  mlp_rollout_kernel<kBf16, kDyn><<<(n + tile - 1) / tile, threads, lay.bytes, stream>>>(
+      p, n, seed, noise, inv0, pi_w, vf_w, lay, log_std, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kDyn>
+int launch_dyn(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const float* inv0, int bf16,
+               const void* const* pi, const void* const* vf, const float* log_std, const RolloutOut& out,
+               cudaStream_t s) {
+  if (p.a_dim != (kDyn == kLam ? 4 : 2)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16) return launch<true, kDyn>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
+  return launch<false, kDyn>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError() (0 on success).
-// `noise` is NULL in native (Philox) mode.  A tower is {w, bias, w_head,
+// `noise` is NULL in native (Philox) mode; `inv0` is NULL for a fixed
+// initial inventory, else the (n,) per-env initial inventories.  A tower is {w, bias, w_head,
 // b_head}.  float32 (`bf16` clear): each layer's (in, out) weight matrix,
 // layers concatenated; the biases concatenated; the head rows and their
 // biases.  bf16 (`bf16` set): every width a multiple of 16 (the wrapper
@@ -779,17 +868,22 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
 // (float).  Shared trunk: `pi` is the trunk with the merged (A+1)-row head
 // and `vf` is four NULLs.  Towers: `pi` is the pi tower with its A rows,
 // `vf` the vf tower with its value row, of equal widths.  n must be a
-// multiple of 32, every width a multiple of 4 and at most 256.
+// multiple of 32, every width a multiple of 4 and at most 256; A is 4 on
+// lam dynamics and 2 on the others.
 extern "C" int mbt_mlp_rollout(const MlpKernelParams* p, int device, int n, uint32_t seed,
-                               const float* noise, int bf16, const void* const* pi, const void* const* vf,
-                               const float* log_std, float* obs, float* act, float* logp, float* value,
-                               float* reward, void* stream) {
+                               const float* noise, const float* inv0, int bf16, const void* const* pi,
+                               const void* const* vf, const float* log_std, float* obs, float* act, float* logp,
+                               float* value, float* reward, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
   if (p->reward < kPnl || p->reward > kRunning) return static_cast<int>(cudaErrorInvalidValue);
   const RolloutOut out{obs, act, logp, value, reward};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<true>(*p, n, seed, noise, pi, vf, log_std, out, s);
-  return launch<false>(*p, n, seed, noise, pi, vf, log_std, out, s);
+  switch (p->dynamics) {
+    case kLimit: return launch_dyn<kLimit>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, s);
+    case kLam: return launch_dyn<kLam>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, s);
+    case kTouch: return launch_dyn<kTouch>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -18,10 +18,14 @@ on the H100 and what the design does about it).  The policy kinds:
 Ported scope: limit-order dynamics with PnL, the pathwise CJ criterion
 (``CjMmCriterion``) or the running inventory penalty, and trading-speed
 dynamics with temporary and permanent impact and PnL or the CJ execution
-criterion; BM midprice, Poisson arrivals, exponential fills; any
-inventory exponent; a fixed start time; a random initial inventory through the
-``inv0`` plane (streams mode).  :func:`det_rollout_params_from_config`
-raises ``AssertionError`` naming any other feature.
+criterion; for the fixed kind also the limit-and-market-order ("lam", 4
+action columns, with the optional market-order mask) and at-the-touch
+("touch", 2 post columns) dynamics with the market-making rewards; BM
+midprice, Poisson arrivals, exponential fills; any inventory exponent; a
+fixed start time; a random initial inventory through the ``inv0`` plane
+(streams mode).  :func:`det_rollout_params_from_config` raises
+``AssertionError`` naming any other feature, and the kernel wrappers the
+table and schedule kinds on lam and touch.
 
 Two output modes: streams — obs ``(T, S, N)``, actions ``(T, A, N)``, zero
 log-probs and values and the rewards ``(T, N)``, plus the terminal
@@ -33,7 +37,8 @@ Noise: ``noise`` is ``(T, 5, N)`` float32 in the JAX kernel's
 deterministic channel layout (``n_noise_channels(a_dim, table=True)``):
 arrival-bid u, arrival-ask u, fill-bid u, fill-ask u, midprice normal —
 K1's layout, so :func:`mbt_gym_torch.ops.episode.philox_noise` gives the
-native stream; speed dynamics read the normal alone.
+native stream; speed dynamics read the normal alone, touch dynamics leave
+the fill uniforms unread.
 
 Which path a call takes depends only on the device of its tensors: CPU
 tensors run :func:`det_rollout_plain`, CUDA tensors launch the kernel or
@@ -57,11 +62,13 @@ from mbt_gym_torch.ops.step_pipeline import PipelineGeometry, pipeline_geometry
 # normal (pallas_rollout.py:98-109 with table=True, no exo or second
 # midprice state).
 N_CHANNELS = 5
-ACTION_DIMS = {"limit": 2, "speed": 1}
-_DYNAMICS = {"limit": 0, "speed": 1}
+# action columns per dynamics kind (mbt_gym_tpu/dispatch.py:169)
+ACTION_DIMS = {"limit": 2, "lam": 4, "touch": 2, "speed": 1}
+_DYNAMICS = {"limit": 0, "speed": 1, "lam": 2, "touch": 3}
 _POLICIES = {"table": 0, "fixed": 1, "schedule": 2}
 _REWARDS = {"pnl": 0, "cjmm": 1, "running": 2, "cjoe": 3}
 _MAX_S = 5
+_MAX_A = 4
 
 # The H100's device memory, the streams-mode limit when a decision is
 # inspected from a host without the card.
@@ -112,6 +119,8 @@ class DetRolloutParams(NamedTuple):
     # 0.0, the full horizon); dispatch sends it to the engine and the
     # kernel wrappers refuse it
     random_start: bool = False
+    fixed_half_spread: float = 0.0  # lam and touch
+    mask_mo_at_max_inventory: bool = False  # lam: EnvConfig's market-order mask
 
     @property
     def run_steps(self) -> int:
@@ -127,7 +136,12 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
     kinds); ``AssertionError`` naming the first feature outside them.  The
     policy kind is set by :func:`cj_rollout_params`,
     :func:`fixed_rollout_params` or :func:`schedule_rollout_params`."""
-    from mbt_gym_torch.dynamics import LimitOrderDynamics, TradingWithSpeedDynamics
+    from mbt_gym_torch.dynamics import (
+        AtTheTouchDynamics,
+        LimitAndMarketOrderDynamics,
+        LimitOrderDynamics,
+        TradingWithSpeedDynamics,
+    )
     from mbt_gym_torch.processes.arrivals import PoissonArrivals
     from mbt_gym_torch.processes.fills import ExponentialFill
     from mbt_gym_torch.processes.impact import TemporaryAndPermanentImpact
@@ -141,19 +155,34 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
         "is not ported to CUDA yet"
     )
     intensity, fill_exponent, temp_imp, perm_imp = (0.0, 0.0), 0.0, 0.0, 0.0
-    phi = alpha = 0.0
-    if isinstance(d, LimitOrderDynamics) and d.action_dim == 2:
+    phi = alpha = half_spread = 0.0
+    if isinstance(d, AtTheTouchDynamics):
+        dynamics_kind = "touch"
+    elif isinstance(d, LimitAndMarketOrderDynamics):
+        dynamics_kind = "lam"
+    elif isinstance(d, LimitOrderDynamics) and d.action_dim == 2:
         dynamics_kind = "limit"
+    elif isinstance(d, TradingWithSpeedDynamics):
+        dynamics_kind = "speed"
+    else:
+        raise AssertionError(
+            "deterministic-policy kernel: limit-order, limit-and-market-order, at-the-touch and "
+            f"trading-speed dynamics only; {type(d).__name__} is not ported to CUDA yet"
+        )
+    if dynamics_kind != "speed":
         assert isinstance(d.arrival_model, PoissonArrivals), (
             f"deterministic-policy kernel arrivals: linear Poisson only; {d.arrival_model} "
             "is not ported to CUDA yet"
         )
-        assert isinstance(d.fill_probability_model, ExponentialFill), (
-            f"deterministic-policy kernel fills: exponential only; {d.fill_probability_model} "
-            "is not ported to CUDA yet"
-        )
         intensity = d.arrival_model.intensity
-        fill_exponent = d.fill_probability_model.fill_exponent
+        if dynamics_kind != "touch":
+            assert isinstance(d.fill_probability_model, ExponentialFill), (
+                f"deterministic-policy kernel fills: exponential only; {d.fill_probability_model} "
+                "is not ported to CUDA yet"
+            )
+            fill_exponent = d.fill_probability_model.fill_exponent
+        if dynamics_kind != "limit":
+            half_spread = float(d.fixed_market_half_spread)
         if isinstance(r, PnL):
             reward_kind = "pnl"
         elif isinstance(r, (CjMmCriterion, RunningInventoryPenalty)):
@@ -161,11 +190,10 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
             phi, alpha = r.per_step_inventory_aversion, r.terminal_inventory_aversion
         else:
             raise AssertionError(
-                f"deterministic-policy kernel (limit dynamics) supports PnL / CjMmCriterion / "
+                f"deterministic-policy kernel ({dynamics_kind} dynamics) supports PnL / CjMmCriterion / "
                 f"RunningInventoryPenalty; {r} is not ported to CUDA yet"
             )
-    elif isinstance(d, TradingWithSpeedDynamics):
-        dynamics_kind = "speed"
+    else:
         assert isinstance(d.price_impact_model, TemporaryAndPermanentImpact), (
             f"deterministic-policy kernel (speed dynamics): temporary-and-permanent impact "
             f"only; {d.price_impact_model} is not ported to CUDA yet"
@@ -182,12 +210,6 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
                 f"deterministic-policy kernel (speed dynamics) supports PnL / CjOeCriterion; "
                 f"{r} is not ported to CUDA yet"
             )
-    else:
-        raise AssertionError(
-            "deterministic-policy kernel: limit-order (2 action columns) and trading-speed "
-            f"dynamics only; {type(d).__name__} with {d.action_dim} action columns (the "
-            "limit-and-market-order and at-the-touch families) is not ported to CUDA yet"
-        )
     assert cfg.reward_scaling is None, (
         "reward_scaling is an engine feature; the kernel's rewards are unscaled"
     )
@@ -242,6 +264,8 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
         permanent_impact=perm_imp,
         inventory_range=inventory_range,
         random_start=random_start,
+        fixed_half_spread=half_spread,
+        mask_mo_at_max_inventory=bool(cfg.mask_market_orders_at_max_inventory),
     )
 
 
@@ -342,6 +366,44 @@ def q_pow(x, exponent: float):
     return np.power(x, np.float32(exponent))
 
 
+def market_making_step(kind: str, kp, d, exe, cash, inv, price):
+    """The unclipped ``(inventory, cash)`` after one step of the
+    market-making dynamics ``kind`` (pallas_rollout.py:992-1052), in the
+    kernels' float32 operation order, shared by the plain versions of K3
+    and K5: ``kp`` holds the step constants (``p_arr_bid``, ``p_arr_ask``,
+    ``neg_k``, ``max_inventory``, ``half_spread``, ``mask_mo``), ``d`` the
+    step's channels (arrival-bid, arrival-ask, fill-bid, fill-ask
+    uniforms first) and ``exe`` the executed action columns.  "limit":
+    exponential fills at the quoted depths; "lam": unit market orders
+    where a trigger column exceeds 0.5, at mid -/+ the half-spread, before
+    the limit bookkeeping (blocked at the inventory bounds with
+    ``mask_mo``); "touch": the post columns are the fills, at mid -/+ the
+    half-spread.  Fills and market orders are masked on the pre-step
+    inventory."""
+    f32 = torch.float32
+    arr_bid = (d[0] < kp.p_arr_bid).to(f32)
+    arr_ask = (d[1] < kp.p_arr_ask).to(f32)
+    can_buy = (inv < kp.max_inventory).to(f32)
+    can_sell = (inv > -kp.max_inventory).to(f32)
+    if kind == "touch":
+        hit_bid = arr_bid * (exe[0] * can_buy)
+        hit_ask = arr_ask * (exe[1] * can_sell)
+        return inv + hit_bid - hit_ask, cash - hit_bid * (price - kp.half_spread) + hit_ask * (price + kp.half_spread)
+    bid, ask = exe[0], exe[1]
+    hit_bid = arr_bid * ((d[2] < torch.exp(kp.neg_k * bid)).to(f32) * can_buy)
+    hit_ask = arr_ask * ((d[3] < torch.exp(kp.neg_k * ask)).to(f32) * can_sell)
+    if kind == "limit":
+        return inv + hit_bid - hit_ask, cash - hit_bid * (price - bid) + hit_ask * (price + ask)
+    mo_buy = (exe[2] > 0.5).to(f32)
+    mo_sell = (exe[3] > 0.5).to(f32)
+    if kp.mask_mo:
+        mo_buy = mo_buy * can_buy
+        mo_sell = mo_sell * can_sell
+    new_cash = (cash + mo_sell * (price - kp.half_spread) - mo_buy * (price + kp.half_spread)
+                - hit_bid * (price - bid) + hit_ask * (price + ask))
+    return inv + (mo_buy - mo_sell) + hit_bid - hit_ask, new_cash
+
+
 # ------------------------------------------------------------ constants
 class DetKernelParams(ctypes.Structure):
     """float32 step constants shared by the plain version and the kernel
@@ -366,9 +428,9 @@ class DetKernelParams(ctypes.Structure):
         ("t_term", ctypes.c_float),
         ("obs_low", ctypes.c_float * _MAX_S),
         ("obs_grad", ctypes.c_float * _MAX_S),
-        ("act_low", ctypes.c_float * 2),
-        ("act_grad", ctypes.c_float * 2),
-        ("fixed_action", ctypes.c_float * 2),
+        ("act_low", ctypes.c_float * _MAX_A),
+        ("act_grad", ctypes.c_float * _MAX_A),
+        ("fixed_action", ctypes.c_float * _MAX_A),
         ("p_arr_bid", ctypes.c_float),
         ("p_arr_ask", ctypes.c_float),
         ("neg_k", ctypes.c_float),
@@ -387,6 +449,8 @@ class DetKernelParams(ctypes.Structure):
         ("cjmm_const", ctypes.c_float),
         ("ep_len", ctypes.c_float),
         ("inv_exp", ctypes.c_float),
+        ("half_spread", ctypes.c_float),
+        ("mask_mo", ctypes.c_int),
         ("pipe", PipelineGeometry),  # set by the kernel wrapper
     ]
 
@@ -398,7 +462,7 @@ def kernel_params(p: DetRolloutParams, table_width: int = 0) -> DetKernelParams:
     from Python floats."""
     ep_len = p.terminal_time - p.start_time
     s_dim, a_dim = len(p.obs_low), p.a_dim
-    fixed = p.fixed_action + (0.0,) * (2 - len(p.fixed_action))
+    fixed = p.fixed_action + (0.0,) * (_MAX_A - len(p.fixed_action))
     return DetKernelParams(
         run_steps=p.run_steps,
         t_off=round(p.start_time / p.dt),
@@ -416,9 +480,9 @@ def kernel_params(p: DetRolloutParams, table_width: int = 0) -> DetKernelParams:
         t_term=p.start_time + p.run_steps * p.dt,
         obs_low=(ctypes.c_float * _MAX_S)(*p.obs_low),
         obs_grad=(ctypes.c_float * _MAX_S)(*p.obs_grad),
-        act_low=(ctypes.c_float * 2)(*p.act_low),
-        act_grad=(ctypes.c_float * 2)(*p.act_grad),
-        fixed_action=(ctypes.c_float * 2)(*fixed[:2]),
+        act_low=(ctypes.c_float * _MAX_A)(*p.act_low),
+        act_grad=(ctypes.c_float * _MAX_A)(*p.act_grad),
+        fixed_action=(ctypes.c_float * _MAX_A)(*fixed[:_MAX_A]),
         p_arr_bid=p.intensity_bid * p.dt,
         p_arr_ask=p.intensity_ask * p.dt,
         neg_k=-p.fill_exponent,
@@ -437,6 +501,8 @@ def kernel_params(p: DetRolloutParams, table_width: int = 0) -> DetKernelParams:
         cjmm_const=p.alpha * p.dt / ep_len,
         ep_len=ep_len,
         inv_exp=p.inventory_exponent,
+        half_spread=p.fixed_half_spread,
+        mask_mo=int(p.mask_mo_at_max_inventory),
     )
 
 
@@ -449,6 +515,10 @@ def _check_call(p: DetRolloutParams, tables, n: int, noise, inv0, stats_only: bo
         "reference's CJ replication runs fixed-horizon episodes); run the engine"
     )
     assert not (stats_only and final_obs), "final_obs is a streams-mode output"
+    assert p.policy_kind == "fixed" or p.dynamics_kind in ("limit", "speed"), (
+        f"the {p.policy_kind} kind on {p.dynamics_kind} dynamics is not ported to CUDA yet (K5 runs "
+        "the fixed kind there)"
+    )
     T, t_off = p.run_steps, round(p.start_time / p.dt)
     if p.policy_kind == "table":
         bid, ask = tables
@@ -556,15 +626,7 @@ def det_rollout_plain(p: DetRolloutParams, tables=(), seed: int = 0, num_traject
             new_inv = inv + volume
             new_cash = cash - volume * (price + impact)
         else:
-            bid, ask = exe
-            arr_bid = (d[0] < kp.p_arr_bid).to(f32)
-            arr_ask = (d[1] < kp.p_arr_ask).to(f32)
-            fill_bid = (d[2] < torch.exp(kp.neg_k * bid)).to(f32) * (inv < kp.max_inventory).to(f32)
-            fill_ask = (d[3] < torch.exp(kp.neg_k * ask)).to(f32) * (inv > -kp.max_inventory).to(f32)
-            hit_bid = arr_bid * fill_bid
-            hit_ask = arr_ask * fill_ask
-            new_inv = inv + hit_bid - hit_ask
-            new_cash = cash - hit_bid * (price - bid) + hit_ask * (price + ask)
+            new_inv, new_cash = market_making_step(p.dynamics_kind, kp, d, exe, cash, inv, price)
         new_inv = torch.clamp(new_inv, -kp.max_inventory, kp.max_inventory)
         new_cash = torch.clamp(new_cash, -kp.max_cash, kp.max_cash)
         new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[4]
@@ -626,7 +688,9 @@ def kernel_geometry(p: DetRolloutParams, num_trajectories: int, stats_only: bool
     call: the table kind stages each step's rows of four tables (bid, ask
     and their fill probabilities), rows of ``table_width`` floats (default
     ``p.table_size``), where they fit.  K5 has no wide shape."""
-    return pipeline_geometry(num_trajectories, p.run_steps, p.dynamics_kind, p.policy_kind, stats_only,
+    # lam and touch draw the limit kind's five channels
+    dynamics = "speed" if p.dynamics_kind == "speed" else "limit"
+    return pipeline_geometry(num_trajectories, p.run_steps, dynamics, p.policy_kind, stats_only,
                              table_width or p.table_size, table_rows=4, wide=False)
 
 
@@ -743,16 +807,19 @@ def schedule_rollout_plain(p, action_table, seed=0, num_trajectories=16384, nois
 
 
 # ------------------------------------------------------------ stats wrappers
-def _summary(total: torch.Tensor, episodes: int, n: int, spread) -> dict:
+def _summary(total: torch.Tensor, episodes: int, n: int, spread, post_rate=None) -> dict:
     mean_r, mean_r2, mean_q, mean_q2 = total / episodes
-    return {
+    out = {
         "mean_pnl": mean_r,
         "std_pnl": torch.sqrt(torch.clamp(mean_r2 - mean_r**2, min=0.0)),
         "mean_terminal_inventory": mean_q,
         "std_terminal_inventory": torch.sqrt(torch.clamp(mean_q2 - mean_q**2, min=0.0)),
         "mean_spread": spread,
-        "episodes": episodes * n,
     }
+    if post_rate is not None:
+        out["post_rate"] = post_rate
+    out["episodes"] = episodes * n
+    return out
 
 
 def _stats_loop(run, key, episodes: int, device):
@@ -791,7 +858,9 @@ def fixed_mc_episode_stats(cfg: EnvConfig, fixed_action, key, episodes: int = 1,
     """Throughput-mode :func:`mbt_gym_torch.rollout.mc_episode_stats` for a
     constant action on K5's fixed stats mode (pallas_rollout.py:2118).  The
     spread is exact on the host: twice the mean of the first two
-    (denormalised) action columns, NaN for a 1-column (speed) action."""
+    (denormalised) action columns, NaN for a 1-column (speed) action; at
+    the touch ``mean_spread`` is NaN and ``post_rate`` the mean of the two
+    post columns (pallas_rollout.py:2154-2159)."""
     device = resolve_device(device)
     p = fixed_rollout_params(cfg, fixed_action)
     n = cfg.num_trajectories
@@ -799,6 +868,10 @@ def fixed_mc_episode_stats(cfg: EnvConfig, fixed_action, key, episodes: int = 1,
         lambda s: fixed_rollout(p, s, n, stats_only=True, device=device), key, episodes, device,
     )
     action = np.asarray(p.fixed_action, np.float32)
+    if p.dynamics_kind == "touch":
+        nan = torch.tensor(float("nan"), dtype=torch.float32, device=device)
+        post_rate = torch.tensor(float(action[:2].mean()), dtype=torch.float32, device=device)
+        return _summary(total, episodes, n, nan, post_rate)
     if action.size >= 2:
         quotes = action[:2]
         if p.normalise_act:

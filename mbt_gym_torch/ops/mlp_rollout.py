@@ -17,13 +17,20 @@ and zero columns add exact zeros, so the outputs do not change), and
 :func:`pack_tower_bf16` packs each tower for the kernel.  With float32
 operands it runs on CUDA cores over tiles of 32 envs.
 
-Ported scope: the "limit" family (BM midprice, Poisson arrivals,
-exponential fill, limit-order dynamics) with the PnL, pathwise CJ
-market-making (``CjMmCriterion``) or running-penalty
-(``RunningInventoryPenalty``) reward at any inventory exponent, a fixed
-start time and a fixed initial inventory, and both actor-critic layouts: the
-shared trunk, and the separate pi/vf towers as the JAX kernel's stacked
-trunk (``split_at`` mode, ``pallas_rollout.py:668-712`` and ``:858-873``).
+Ported scope: BM midprice and Poisson arrivals under three dynamics
+kinds (``dynamics_kind``, each its own kernel instantiation): "limit"
+(limit-order dynamics, exponential fills, A = 2), "lam" (limit orders plus
+unit market orders at mid -/+ ``fixed_half_spread``, exponential fills,
+A = 4, with the optional market-order mask at +/- max inventory) and
+"touch" (post-or-not at ``fixed_half_spread``, the fills the clipped post
+columns, A = 2); the PnL, pathwise CJ market-making (``CjMmCriterion``) or
+running-penalty (``RunningInventoryPenalty``) reward at any inventory
+exponent; a fixed start time; a fixed initial inventory or a per-env one
+drawn in ``inventory_range`` (the ``inv0`` plane, under CjMm with its
+per-env constant ``(alpha dt / ep_len) q(inv0)``); and both actor-critic
+layouts: the shared trunk, and the separate pi/vf towers as the JAX
+kernel's stacked trunk (``split_at`` mode, ``pallas_rollout.py:668-712``
+and ``:858-873``).
 :func:`rollout_params_from_config` raises ``AssertionError`` naming any
 other feature as not ported to CUDA yet; towers of unequal widths raise
 ``ValueError`` in :func:`transpose_params`.
@@ -37,10 +44,12 @@ normalised observations every matmul operand is rounded to bf16
 (``pallas_rollout.py:855``); its matmuls run with TF32 off and float32
 matmul precision "highest", set for the call.
 
-Noise: ``noise`` is ``(T, 7, N)`` float32 channels in the JAX kernel's
-order (:data:`N_CHANNELS`).  Without it, native mode draws Philox4x32-10
-keyed by ``(seed, env)``; :func:`philox_noise` reproduces that stream as
-channels, so the plain version sees the kernel's draws on any device.
+Noise: ``noise`` is ``(T, n_noise_channels(A), N)`` float32 channels in
+the JAX kernel's order: 4 env uniforms, max(A, 2) policy-sample normals,
+the midprice normal — 7 at A = 2 (:data:`N_CHANNELS`), 9 at A = 4.
+Without it, native mode draws Philox4x32-10 keyed by ``(seed, env)``;
+:func:`philox_noise` reproduces that stream as channels, so the plain
+version sees the kernel's draws on any device.
 """
 from __future__ import annotations
 
@@ -54,13 +63,16 @@ import torch
 
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
-from mbt_gym_torch.ops.det_rollout import q_pow
+from mbt_gym_torch.ops.det_rollout import market_making_step, q_pow
 from mbt_gym_torch.ops.episode import _MASK32, _target, _uniform24, philox4x32_10
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
-S_DIM = 4  # AS env state columns (cash, inventory, time, price)
-A_DIM = 2  # bid/ask depths
+S_DIM = 4  # state columns (cash, inventory, time, price)
+A_DIM = 2  # bid/ask depths (limit) or post flags (touch)
+# action columns per dynamics kind: lam adds the two market-order triggers
+ACTION_DIMS = {"limit": 2, "lam": 4, "touch": 2}
+_DYNAMICS = {"limit": 0, "lam": 1, "touch": 2}
 
 # The CUDA kernel's limits (csrc/mlp_rollout.cu): the env count is a
 # multiple of _ENV_TILE (the float32 kernel's tile; the bf16 kernel's tiles
@@ -89,11 +101,10 @@ N_CHANNELS = n_noise_channels(A_DIM)
 
 class MlpRolloutParams(NamedTuple):
     """Static scalars of the fused policy rollout: the fields of the JAX
-    package's ``MlpRolloutParams`` that the ported family reads, with the
-    same names and values (AS env contract, TradingEnvironment.py:103-110;
-    normalisation per :112-126).  The JAX kind fields the port does not
-    carry are implied: limit dynamics, BM midprice, Poisson arrivals,
-    exponential fills, MLP."""
+    package's ``MlpRolloutParams`` that the ported kinds read, with the
+    same names and values (TradingEnvironment.py:103-110; normalisation
+    per :112-126).  The JAX kind fields the port does not carry are
+    implied: BM midprice, Poisson arrivals, exponential fills, MLP."""
 
     n_steps: int
     dt: float
@@ -123,10 +134,24 @@ class MlpRolloutParams(NamedTuple):
     alpha: float = 0.0  # terminal inventory aversion
     inventory_exponent: float = 2.0
     terminal_time: float = 1.0
+    # "limit" (ModelDynamics.py:87-131), "lam" (:179-240, limit orders +
+    # unit market orders at mid +/- fixed_half_spread) or "touch"
+    # (:134-176, post-or-not at fixed_half_spread)
+    dynamics_kind: str = "limit"
+    fixed_half_spread: float = 0.0
+    # () = deterministic initial_inventory; (lo, hi) = per-env integer draw
+    # in [lo, hi) per episode, passed to the kernel as the inv0 plane
+    inventory_range: tuple = ()
+    # EnvConfig.mask_market_orders_at_max_inventory (lam only)
+    mask_mo_at_max_inventory: bool = False
 
     @property
     def run_steps(self) -> int:
         return self.n_steps - round(self.start_time / self.dt)
+
+    @property
+    def a_dim(self) -> int:
+        return ACTION_DIMS[self.dynamics_kind]
 
 
 _REWARDS = {"pnl": 0, "cjmm": 1, "running": 2}
@@ -135,18 +160,23 @@ _REWARDS = {"pnl": 0, "cjmm": 1, "running": 2}
 def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
     """The rollout scalars of ``cfg``; ``AssertionError`` naming the first
     feature outside the ported family (pallas_rollout.py:277-665)."""
-    from mbt_gym_torch.dynamics import LimitOrderDynamics
+    from mbt_gym_torch.dynamics import AtTheTouchDynamics, LimitAndMarketOrderDynamics, LimitOrderDynamics
     from mbt_gym_torch.processes.arrivals import PoissonArrivals
     from mbt_gym_torch.processes.fills import ExponentialFill
     from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
     from mbt_gym_torch.rewards import CjMmCriterion, PnL, RunningInventoryPenalty
 
     d = cfg.dynamics
-    assert isinstance(d, LimitOrderDynamics) and d.action_dim == 2, (
-        "fused rollout: limit-order dynamics only; the limit-and-market-"
-        "order, at-the-touch and trading-speed families are not ported to "
-        "CUDA yet"
-    )
+    if isinstance(d, AtTheTouchDynamics):
+        dynamics_kind = "touch"
+    elif isinstance(d, LimitAndMarketOrderDynamics):
+        dynamics_kind = "lam"
+    else:
+        assert isinstance(d, LimitOrderDynamics) and d.action_dim == 2, (
+            "fused rollout: limit-order, limit-and-market-order and at-the-touch "
+            "dynamics only; the trading-speed family is not ported to CUDA yet"
+        )
+        dynamics_kind = "limit"
     assert isinstance(d.midprice_model, BrownianMotionMidprice), (
         f"fused rollout midprice: Brownian motion only; {d.midprice_model} "
         "is not ported to CUDA yet"
@@ -155,10 +185,16 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
         f"fused rollout arrivals: linear Poisson only; {d.arrival_model} is "
         "not ported to CUDA yet"
     )
-    assert isinstance(d.fill_probability_model, ExponentialFill), (
-        f"fused rollout fills: exponential only; {d.fill_probability_model} "
-        "is not ported to CUDA yet"
-    )
+    if dynamics_kind == "touch":
+        fill_exponent = 0.0
+        half_spread = float(d.fixed_market_half_spread)
+    else:
+        assert isinstance(d.fill_probability_model, ExponentialFill), (
+            f"fused rollout fills: exponential only; {d.fill_probability_model} "
+            "is not ported to CUDA yet"
+        )
+        fill_exponent = d.fill_probability_model.fill_exponent
+        half_spread = float(d.fixed_market_half_spread) if dynamics_kind == "lam" else 0.0
     r = cfg.reward_function
     if isinstance(r, PnL):
         reward_kind, phi, alpha = "pnl", 0.0, 0.0
@@ -167,7 +203,7 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
         phi, alpha = r.per_step_inventory_aversion, r.terminal_inventory_aversion
     else:
         raise AssertionError(
-            f"fused rollout (limit dynamics) supports PnL / CjMmCriterion / "
+            f"fused rollout ({dynamics_kind} dynamics) supports PnL / CjMmCriterion / "
             f"RunningInventoryPenalty; {r} is not ported to CUDA yet"
         )
     assert cfg.reward_scaling is None
@@ -175,9 +211,11 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
         "callable initial_inventory is host-evaluated per reset; use the "
         "engine rollout"
     )
-    assert not isinstance(cfg.initial_inventory, tuple), (
-        "fused rollout: random initial inventory is not ported to CUDA yet"
-    )
+    if isinstance(cfg.initial_inventory, tuple):
+        lo, hi = cfg.initial_inventory
+        inventory_range, inv0 = (int(lo), int(hi)), 0.0  # per-env draws come in as the inv0 plane
+    else:
+        inventory_range, inv0 = (), float(cfg.initial_inventory)
     assert not callable(cfg.start_time), (
         "callable start_time is host-evaluated per reset; use the engine rollout"
     )
@@ -198,11 +236,11 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
         initial_price=d.midprice_model.initial_price,
         intensity_bid=d.arrival_model.intensity[0],
         intensity_ask=d.arrival_model.intensity[1],
-        fill_exponent=d.fill_probability_model.fill_exponent,
+        fill_exponent=fill_exponent,
         max_inventory=float(cfg.max_inventory),
         max_cash=float(cfg.resolved_max_cash()),
         initial_cash=float(cfg.initial_cash),
-        initial_inventory=float(cfg.initial_inventory),
+        initial_inventory=inv0,
         start_time=round(float(cfg.start_time) / cfg.step_size) * cfg.step_size,
         obs_low=tuple(float(x) for x in obs_low),
         obs_grad=tuple(float(h - l) / 2.0 for l, h in zip(obs_low, obs_high)),
@@ -215,6 +253,10 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
         alpha=alpha,
         inventory_exponent=float(getattr(r, "inventory_exponent", 2.0)),
         terminal_time=cfg.terminal_time,
+        dynamics_kind=dynamics_kind,
+        fixed_half_spread=half_spread,
+        inventory_range=inventory_range,
+        mask_mo_at_max_inventory=bool(cfg.mask_market_orders_at_max_inventory),
     )
 
 
@@ -286,11 +328,15 @@ def tower_params(tp: TransposedParams) -> list:
 
 
 # ------------------------------------------------------------- native noise
-def philox_noise(seed: int, run_steps: int, num_trajectories: int, device=None) -> torch.Tensor:
-    """The kernel's native noise as ``(run_steps, 7, N)`` float32 channels:
-    Philox4x32-10 keyed by ``(seed, env)``; counter ``(step, 0)`` gives the
-    four arrival/fill uniforms and ``(step, 1)`` four Box-Muller uniforms,
-    whose pairs give eps0, eps1 and the midprice normal."""
+def philox_noise(seed: int, run_steps: int, num_trajectories: int, device=None, a_dim: int = A_DIM) -> torch.Tensor:
+    """The kernel's native noise as ``(run_steps, n_noise_channels(a_dim),
+    N)`` float32 channels: Philox4x32-10 keyed by ``(seed, env)``; counter
+    ``(step, 0)`` gives the four arrival/fill uniforms and ``(step, 1)``
+    four Box-Muller uniforms, whose pairs give eps0, eps1 and the midprice
+    normal.  At ``a_dim`` 4 a third call, counter ``(step, 2)``, gives one
+    more pair (r2 from its first word, theta2 from its second): eps2 =
+    r2 cos theta2, eps3 = r2 sin theta2; the first seven draws keep their
+    bits."""
     device = resolve_device(device)
     steps = torch.arange(run_steps, dtype=torch.int64, device=device)[:, None]
     envs = torch.arange(num_trajectories, dtype=torch.int64, device=device)[None, :]
@@ -302,9 +348,14 @@ def philox_noise(seed: int, run_steps: int, num_trajectories: int, device=None) 
     r1 = torch.sqrt(-2.0 * torch.log(1.0 - _uniform24(b[1])))
     th0 = (2.0 * math.pi) * _uniform24(b[2])
     th1 = (2.0 * math.pi) * _uniform24(b[3])
+    eps = [r0 * torch.cos(th0), r1 * torch.cos(th1)]
+    if a_dim > 2:
+        c = philox4x32_10((steps, zero + 2, zero, zero), key)
+        r2 = torch.sqrt(-2.0 * torch.log(1.0 - _uniform24(c[0])))
+        th2 = (2.0 * math.pi) * _uniform24(c[1])
+        eps += [r2 * torch.cos(th2), r2 * torch.sin(th2)]
     return torch.stack(
-        [_uniform24(a[0]), _uniform24(a[1]), _uniform24(a[2]), _uniform24(a[3]),
-         r0 * torch.cos(th0), r1 * torch.cos(th1), r0 * torch.sin(th0)],
+        [_uniform24(a[0]), _uniform24(a[1]), _uniform24(a[2]), _uniform24(a[3]), *eps, r0 * torch.sin(th0)],
         dim=1,
     )
 
@@ -345,20 +396,23 @@ class MlpKernelParams(ctypes.Structure):
         ("reward", ctypes.c_int),
         ("dt_phi", ctypes.c_float),
         ("alpha", ctypes.c_float),
-        ("cjmm_const", ctypes.c_float),
+        ("cjmm_coef", ctypes.c_float),
         ("inv_exp", ctypes.c_float),
+        ("dynamics", ctypes.c_int),
+        ("mask_mo", ctypes.c_int),
+        ("half_spread", ctypes.c_float),
     ]
 
 
 def kernel_params(p: MlpRolloutParams, widths) -> MlpKernelParams:
     """The step constants of ``p``.  ``dt*phi`` and ``alpha*dt/ep_len`` are
-    formed in double, as the JAX kernel forms them from Python floats; the
-    CjMm constant ``(alpha*dt/ep_len) * q(inv0)`` is that float32 times the
-    float32 ``q(inv0)``, rounded to float32, as the JAX kernel multiplies
-    it by its float32 inv0 plane (pallas_rollout.py:1157)."""
+    formed in double, as the JAX kernel forms them from Python floats; each
+    env's CjMm constant ``(alpha*dt/ep_len) * q(inv0)`` is that float32
+    times the float32 ``q(inv0)`` of its initial inventory, rounded to
+    float32, as the JAX kernel multiplies it by its float32 inv0 plane
+    (pallas_rollout.py:1157)."""
     a_dim = len(p.act_low)
     ep_len = p.terminal_time - p.start_time
-    q0 = q_pow(np.float32(p.initial_inventory), p.inventory_exponent)
     return MlpKernelParams(
         run_steps=p.run_steps,
         n_layers=len(widths),
@@ -388,8 +442,11 @@ def kernel_params(p: MlpRolloutParams, widths) -> MlpKernelParams:
         reward=_REWARDS[p.reward_kind],
         dt_phi=p.dt * p.phi,
         alpha=p.alpha,
-        cjmm_const=float(np.float32(p.alpha * p.dt / ep_len) * q0),
+        cjmm_coef=p.alpha * p.dt / ep_len,
         inv_exp=p.inventory_exponent,
+        dynamics=_DYNAMICS[p.dynamics_kind],
+        mask_mo=int(p.mask_mo_at_max_inventory),
+        half_spread=p.fixed_half_spread,
     )
 
 
@@ -472,8 +529,18 @@ def pack_tower_bf16(trunk, w_head: torch.Tensor, b_head: torch.Tensor) -> tuple:
 
 
 # ------------------------------------------------------------ plain version
+def _initial_inventory(p: MlpRolloutParams, kp: MlpKernelParams, n: int, inv0, device) -> torch.Tensor:
+    if p.inventory_range:
+        if inv0 is None or tuple(inv0.shape) != (n,):
+            raise ValueError("inventory_range set: pass inv0 (N,) draws")
+        return inv0.to(device, torch.float32)
+    if inv0 is not None:
+        raise ValueError("inv0 only valid with inventory_range")
+    return torch.full((n,), kp.initial_inventory, dtype=torch.float32, device=device)
+
+
 def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: int = 16384,
-                      noise: Optional[torch.Tensor] = None, device=None):
+                      noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None):
     """Plain PyTorch K3 on any device; returns what :func:`mlp_rollout`
     returns."""
     device = noise.device if noise is not None else resolve_device(device)
@@ -483,9 +550,10 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
     kp = kernel_params(p, tp.split_at or [w.shape[0] for w, _ in trunk])
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
     if noise is None:
-        noise = philox_noise(seed, T, n, device)
+        noise = philox_noise(seed, T, n, device, A)
     else:
         _check_noise(p, n, noise)
+    mid_ch = n_noise_channels(A) - 1
     rnd = bf16_round if p.normalise_obs else (lambda x: x)
     trunk = [(rnd(w), b[:, None]) for w, b in trunk]
     w_head, b_head = rnd(tp.w_head.to(device)), tp.b_head.to(device)[:, None]
@@ -496,8 +564,9 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
     act_out = torch.empty((T, A, n), dtype=f32, device=device)
     logp_out, val_out, rew_out = (torch.empty((T, n), dtype=f32, device=device) for _ in range(3))
     cash = torch.full((n,), kp.initial_cash, dtype=f32, device=device)
-    inv = torch.full((n,), kp.initial_inventory, dtype=f32, device=device)
+    inv = _initial_inventory(p, kp, n, inv0, device)
     price = torch.full((n,), kp.initial_price, dtype=f32, device=device)
+    cjmm_const = kp.cjmm_coef * q_pow(inv, kp.inv_exp)  # per env under inventory_range
     with full_float32_matmul():
         for i in range(T):
             t = float(np.float32(kp.start_time) + np.float32(i) * np.float32(kp.dt))
@@ -533,24 +602,15 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
                     exec_action.append(torch.clamp(action, kp.act_low[a], kp.act_high[a]))
             logp_out[i] = lp - kp.logp_const
             val_out[i] = hd[A]
-            bid, ask = exec_action[0], exec_action[1]
-            arr_bid = (d[0] < kp.p_arr_bid).to(f32)
-            arr_ask = (d[1] < kp.p_arr_ask).to(f32)
-            fill_bid = (d[2] < torch.exp(kp.neg_k * bid)).to(f32)
-            fill_ask = (d[3] < torch.exp(kp.neg_k * ask)).to(f32)
-            fill_bid = fill_bid * (inv < kp.max_inventory).to(f32)
-            fill_ask = fill_ask * (inv > -kp.max_inventory).to(f32)
-            hit_bid = arr_bid * fill_bid
-            hit_ask = arr_ask * fill_ask
-            new_inv = torch.clamp(inv + hit_bid - hit_ask, -kp.max_inventory, kp.max_inventory)
-            new_cash = cash - hit_bid * (price - bid) + hit_ask * (price + ask)
+            new_inv, new_cash = market_making_step(p.dynamics_kind, kp, d, exec_action, cash, inv, price)
+            new_inv = torch.clamp(new_inv, -kp.max_inventory, kp.max_inventory)
             new_cash = torch.clamp(new_cash, -kp.max_cash, kp.max_cash)
-            new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[6]
+            new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[mid_ch]
             reward = (new_cash + new_inv * new_price) - (cash + inv * price)
             if p.reward_kind != "pnl":  # pallas_rollout.py:1150-1185, in its op order
                 q_new = q_pow(new_inv, kp.inv_exp)
                 if p.reward_kind == "cjmm":
-                    reward = reward - kp.dt_phi * q_new - kp.alpha * (q_new - q_pow(inv, kp.inv_exp)) - kp.cjmm_const
+                    reward = reward - kp.dt_phi * q_new - kp.alpha * (q_new - q_pow(inv, kp.inv_exp)) - cjmm_const
                 else:  # "running": the terminal penalty at the last step only
                     terminal = 1.0 if i == T - 1 else 0.0
                     reward = reward - kp.dt_phi * q_new - (kp.alpha * terminal) * q_new
@@ -561,7 +621,7 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
 
 # ------------------------------------------------------------ kernel wrapper
 def _check_noise(p: MlpRolloutParams, n: int, noise: torch.Tensor) -> None:
-    want = (p.run_steps, N_CHANNELS, n)
+    want = (p.run_steps, n_noise_channels(p.a_dim), n)
     if noise.dtype != torch.float32 or tuple(noise.shape) != want:
         raise ValueError(f"noise must be float32 of shape {want}; got {noise.dtype} {tuple(noise.shape)}")
 
@@ -570,7 +630,8 @@ def _kernels() -> ctypes.CDLL:
     lib = _build.load("mlp_rollout.cu")
     if not getattr(lib, "_mbt_declared", False):
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.mbt_mlp_rollout.argtypes = [ptr, i32, i32, u32, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+        lib.mbt_mlp_rollout.argtypes = [ptr, i32, i32, u32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                        ptr]
         lib.mbt_mlp_rollout.restype = i32
         lib._mbt_declared = True
     return lib
@@ -579,8 +640,9 @@ def _kernels() -> ctypes.CDLL:
 def check_kernel_shapes(p: MlpRolloutParams, widths, n: int) -> None:
     """The K3 kernel's limits on the config, the (per-tower) trunk widths
     and the env count; ``ValueError`` naming the first one broken."""
-    if len(p.obs_low) != S_DIM or len(p.act_low) != A_DIM:
-        raise ValueError(f"the K3 kernel takes S={S_DIM}, A={A_DIM}; got {len(p.obs_low)}, {len(p.act_low)}")
+    if len(p.obs_low) != S_DIM or len(p.act_low) != p.a_dim:
+        raise ValueError(f"the K3 kernel takes S={S_DIM}, A={p.a_dim} on {p.dynamics_kind} dynamics; got "
+                         f"{len(p.obs_low)}, {len(p.act_low)}")
     if not 1 <= len(widths) <= _MAX_LAYERS or any(w % 4 or not 0 < w <= _MAX_WIDTH for w in widths):
         raise ValueError(
             f"the K3 kernel takes 1-{_MAX_LAYERS} trunk layers, each a multiple of 4 wide and at "
@@ -591,17 +653,19 @@ def check_kernel_shapes(p: MlpRolloutParams, widths, n: int) -> None:
 
 
 def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: int = 16384,
-                noise: Optional[torch.Tensor] = None, device=None):
+                noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None):
     """K3: one full episode for ``num_trajectories`` envs with the MLP
     policy fused in.  Returns ``(obs (T, S, N), actions (T, A, N),
     log_probs (T, N), values (T, N), rewards (T, N))``, float32.
 
-    ``noise`` (optional) injects ``(T, 7, N)`` channels; otherwise native
-    Philox noise keyed by ``seed``.  On a CPU target this is
+    ``noise`` (optional) injects ``(T, n_noise_channels(A), N)`` channels;
+    otherwise native Philox noise keyed by ``seed``.  ``inv0`` is the
+    ``(N,)`` per-env initial inventory, required under
+    ``p.inventory_range`` and refused otherwise.  On a CPU target this is
     :func:`mlp_rollout_plain`; on CUDA it launches the kernel."""
     device = _target(noise, device)
     if device.type == "cpu":
-        return mlp_rollout_plain(p, params, seed, num_trajectories, noise, device)
+        return mlp_rollout_plain(p, params, seed, num_trajectories, noise, device, inv0)
     if device.type != "cuda":
         raise ValueError(f"the rollout kernel runs on CUDA devices, not {device}")
     n = num_trajectories
@@ -627,6 +691,10 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
     # `tensors` stays alive until the launch returns
     kp = kernel_params(p, widths)
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
+    if p.inventory_range:
+        inv0 = _initial_inventory(p, kp, n, inv0, device).contiguous()
+    elif inv0 is not None:
+        raise ValueError("inv0 only valid with inventory_range")
     pointers = [(ctypes.c_void_p * 4)(*(x.data_ptr() for x in t)) for t in tensors]
     if len(pointers) == 1:
         pointers.append((ctypes.c_void_p * 4)())
@@ -638,7 +706,8 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
     index, stream = _build.device_stream(device)
     rc = _kernels().mbt_mlp_rollout(
         ctypes.byref(kp), index, n, int(seed) & _MASK32,
-        None if noise is None else noise.data_ptr(), int(bf16), pointers[0], pointers[1], log_std.data_ptr(),
+        None if noise is None else noise.data_ptr(), None if inv0 is None else inv0.data_ptr(), int(bf16),
+        pointers[0], pointers[1], log_std.data_ptr(),
         obs.data_ptr(), act.data_ptr(), logp.data_ptr(), val.data_ptr(), rew.data_ptr(), stream,
     )
     if rc != 0:
@@ -662,32 +731,44 @@ class TRolloutBatch(NamedTuple):
 
 
 def collect_rollout_fused_T(env_cfg: EnvConfig, params, key, gamma: float = 1.0, lam: float = 0.95,
-                            noise: Optional[torch.Tensor] = None, device=None) -> TRolloutBatch:
+                            noise: Optional[torch.Tensor] = None, device=None,
+                            inv0: Optional[torch.Tensor] = None) -> TRolloutBatch:
     """K3 rollout in its feature-major layout + GAE — the input of
     :func:`mbt_gym_torch.ops.fused_ppo.ppo_fused_grads_T`
     (pallas_rollout.py:2198-2256).  ``key`` (an int seed or a
     ``torch.Generator``) gives the kernel's Philox seed; ``noise`` injects
-    ``(T, 7, N)`` channels instead."""
+    ``(T, n_noise_channels(A), N)`` channels instead.  Under a random
+    initial inventory (``initial_inventory=(lo, hi)``) the per-env draws in
+    [lo, hi) come from ``key`` first, each episode (the distribution of
+    ``env.reset``); ``inv0`` injects them (the parity tests)."""
     from mbt_gym_torch.agents.ppo import compute_gae
+    from mbt_gym_torch.env import make_generator
     from mbt_gym_torch.ops.episode import seed_from_key
 
     p = rollout_params_from_config(env_cfg)
+    n = env_cfg.num_trajectories
+    if p.inventory_range:
+        target = _target(noise, device)
+        if inv0 is None:
+            key = make_generator(key, target)
+            lo, hi = p.inventory_range
+            inv0 = torch.randint(lo, hi, (n,), generator=key, device=target).to(torch.float32)
     seed = 0 if noise is not None else seed_from_key(key)
     obs_t, actions_t, log_probs, values, rewards = mlp_rollout(
-        p, params, seed, env_cfg.num_trajectories, noise=noise, device=device,
+        p, params, seed, n, noise=noise, device=device, inv0=inv0,
     )
     advantages, returns = compute_gae(rewards, values, torch.zeros_like(values[0]), gamma, lam)
     return TRolloutBatch(obs_t, actions_t, log_probs, values, rewards, advantages, returns)
 
 
 def collect_rollout_fused(env_cfg: EnvConfig, params, key, gamma: float = 1.0, lam: float = 0.95,
-                          noise: Optional[torch.Tensor] = None, device=None):
+                          noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None):
     """Drop-in for :func:`mbt_gym_torch.agents.ppo.collect_rollout`: the
     row-major :class:`~mbt_gym_torch.agents.ppo.RolloutBatch` of a K3
     rollout (obs ``(T, N, S)``, actions ``(T, N, A)``; views, no copy)."""
     from mbt_gym_torch.agents.ppo import RolloutBatch
 
-    tb = collect_rollout_fused_T(env_cfg, params, key, gamma, lam, noise=noise, device=device)
+    tb = collect_rollout_fused_T(env_cfg, params, key, gamma, lam, noise=noise, device=device, inv0=inv0)
     return RolloutBatch(
         obs=tb.obs_t.transpose(1, 2), actions=tb.actions_t.transpose(1, 2),
         log_probs=tb.log_probs, values=tb.values, rewards=tb.rewards,

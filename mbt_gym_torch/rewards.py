@@ -4,9 +4,8 @@
 Pure functions of (current, action, next, is_terminal, aux) where
 ``current``/``next`` are :class:`AgentStateView` snapshots and ``aux``
 carries the reset-time quantities (initial inventory and episode length,
-RewardFunctions.py:72-74,111-113).  All return ``(N,)`` rewards.  The port
-carries PnL and the three Cartea-Jaimungal inventory criteria; the
-exponential-utility reward is not ported yet (ROADMAP.md Queue 1 item 7).
+RewardFunctions.py:72-74,111-113).  All return ``(N,)`` rewards: PnL, the
+three Cartea-Jaimungal inventory criteria and the exponential utility.
 """
 from __future__ import annotations
 
@@ -120,3 +119,16 @@ class CjOeCriterion:
                 + aux.initial_inventory**exp * aux.episode_length
             )
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ExponentialUtility:
+    """``-exp(-gamma * terminal wealth)`` at the terminal step, else 0
+    (RewardFunctions.py:149-166)."""
+
+    risk_aversion: float = 0.1
+
+    def calculate(self, current, action, next, is_terminal, aux):
+        utility = -torch.exp(-self.risk_aversion * mark_to_market(next))
+        terminal = torch.as_tensor(is_terminal, dtype=utility.dtype, device=utility.device)
+        return terminal * utility

@@ -27,6 +27,15 @@ class RolloutResult(NamedTuple):
     final_state: EnvState
 
 
+def _is_touch(cfg: EnvConfig) -> bool:
+    """At-the-touch dynamics: action columns are binary post/no-post flags,
+    so spread-style action stats are meaningless; the stats report the
+    posting rate instead."""
+    from mbt_gym_torch.dynamics import AtTheTouchDynamics
+
+    return isinstance(cfg.dynamics, AtTheTouchDynamics)
+
+
 def native_noise_cube(cfg: EnvConfig, key: torch.Generator, n_steps: int) -> StepNoise:
     """Whole-episode native noise in two draws (one normal, one uniform)
     instead of two per step; leaves are ``(n_steps, N, k)``.  The stream
@@ -197,7 +206,10 @@ def to_reference_layout(traj: Trajectory) -> Tuple[torch.Tensor, torch.Tensor, t
 
 
 def _quote_mean(cfg: EnvConfig, action: torch.Tensor) -> torch.Tensor:
-    """Mean of the bid/ask quote columns in raw units (NaN without them)."""
+    """Mean of the bid/ask quote columns in raw units (NaN without them);
+    at the touch, the mean of the two post flags."""
+    if _is_touch(cfg):
+        return action[..., :2].mean()
     if action.shape[-1] < 2:
         return torch.full((), float("nan"), dtype=action.dtype, device=action.device)
     quotes = action[..., :2]
@@ -286,9 +298,17 @@ def mc_episode_stats(
         "std_pnl": torch.sqrt(torch.clamp(mean_r2 - mean_r**2, min=0.0)),
         "mean_terminal_inventory": mean_q,
         "std_terminal_inventory": torch.sqrt(torch.clamp(mean_q2 - mean_q**2, min=0.0)),
-        "mean_spread": 2.0 * mean_a,
+        **_spread_stats(cfg, mean_a),
         "episodes": episodes * cfg.num_trajectories,
     }
+
+
+def _spread_stats(cfg: EnvConfig, mean_a: torch.Tensor) -> dict:
+    """``mean_spread`` from the mean half-spread; at the touch the actions
+    are post flags, so ``mean_spread`` is NaN and ``post_rate`` the mean."""
+    if _is_touch(cfg):
+        return {"mean_spread": torch.full_like(mean_a, float("nan")), "post_rate": mean_a}
+    return {"mean_spread": 2.0 * mean_a}
 
 
 def episode_stats(cfg: EnvConfig, traj) -> dict:
@@ -314,9 +334,10 @@ def episode_stats(cfg: EnvConfig, traj) -> dict:
         terminal_inventory = (terminal_inventory + 1.0) * float(high[1] - low[1]) / 2 + float(low[1])
     # Spread uses the bid/ask depth columns only, mapped back to raw units
     # when the action space is normalised (the reference's table averages
-    # ALL action columns, plotting.py:99).
+    # ALL action columns, plotting.py:99); at the touch it is NaN and the
+    # posting rate stands beside it.
     return {
-        "mean_spread": 2.0 * _quote_mean(cfg, actions),
+        **_spread_stats(cfg, _quote_mean(cfg, actions)),
         "mean_pnl": total_rewards.mean(),
         "std_pnl": total_rewards.std(correction=0),
         "mean_terminal_inventory": terminal_inventory.mean(),

@@ -27,7 +27,9 @@ card's time alone, host work excluded) beside the call time
   (``backend="auto"``);
 - K3 ``mlp_rollout`` with the PnL reward at bench_suite config 5 (262,144
   x 200, 256x256, normalised AS env, bf16 operands), shared trunk and
-  towers.
+  towers; where the checkout has them, K3's lam, touch and canonical
+  kinds at bench_suite configs 8, 7 and 9 (262,144 envs, shared trunk),
+  and K5's fixed kind on lam and touch at 16,384 x 200 (stats).
 
 ``--geometry`` fixes the step-pipeline geometry of K1, K2, K5, K6 and K8
 where the checkout has one: envs per CTA, producer warps, steps per slot,
@@ -173,6 +175,22 @@ def main():
         ("K6", 8_192, 200, lambda: oe.oe_episode(p_oe, speed_table, 9, 8_192, device=dev)),
         ("K6", 1_048_576, 200, lambda: oe.oe_episode(p_oe, speed_table, 9, 1_048_576, device=dev)),
     )
+    if hasattr(mr, "ACTION_DIMS"):  # the lam and touch kinds
+        from mbt_gym_torch.utils.config import lam_env_config, learning_env_config, touch_env_config
+
+        kinds = {"lam": lam_env_config, "touch": touch_env_config, "canonical": learning_env_config}
+        for kind, make in kinds.items():
+            cfg = dataclasses.replace(make(num_trajectories=k3_n), normalise_observation_space=True)
+            p = mr.rollout_params_from_config(cfg)
+            model = init_actor_critic(0, 4, cfg.action_dim, hidden=(256, 256), shared_trunk=True, device=dev)
+            inv0 = torch.randint(-5, 6, (k3_n,), device=dev).float() if p.inventory_range else None
+            rows += ((f"K3 {kind} shared", k3_n, p.run_steps,
+                      lambda p=p, model=model, inv0=inv0: mr.mlp_rollout(p, model, 9, k3_n, device=dev, inv0=inv0)),)
+        for kind, make, action in (("lam", lam_env_config, [0.6, 0.6, 0.7, 0.2]),
+                                   ("touch", touch_env_config, [1.0, 0.5])):
+            p = det.fixed_rollout_params(make(num_trajectories=16_384), action)
+            rows += ((f"K5 fixed {kind} stats", 16_384, 200,
+                      lambda p=p: det.fixed_rollout(p, 9, 16_384, stats_only=True, device=dev)),)
     if args.geometry == "wide":
         rows = [row for row in rows if not row[0].startswith("K5")]
     if args.sweep:

@@ -159,3 +159,58 @@ def test_as_bounds_count_each_layouts_bytes(layout, n, want_ms, by):
     0.0275 ms at 16,384 x 200."""
     got_ms, got_by = chip_smoke.as_bound(layout, n)
     assert got_by == by and got_ms == pytest.approx(want_ms, rel=1e-12)
+
+
+def test_two_action_copy_keeps_the_trunk_and_the_first_pi_rows():
+    """Phase 23c times K3's PnL kind on the lam params' trunk: the copy
+    holds every trunk and value weight as it is and the first two rows of
+    the pi head and log_std, in both layouts."""
+    import torch
+
+    from mbt_gym_torch.agents.networks import init_actor_critic
+
+    for shared_trunk in (True, False):
+        lam = init_actor_critic(3, 4, 4, hidden=(16, 16), shared_trunk=shared_trunk, device="cpu")
+        two = chip_smoke.two_action_copy(torch, lam, torch.device("cpu"))
+        assert two.action_dim == 2 and two.shared_trunk == shared_trunk
+        source = dict(lam.named_parameters())
+        for name, t in two.named_parameters():
+            want = source[name] if t.shape == source[name].shape else source[name][:2]
+            assert torch.equal(t, want), name
+
+
+def test_continuous_compare_holds_touch_streams_to_the_tolerance():
+    """At the touch the fills are the post columns, so every inventory
+    stream carries the action's rounding: compare_rollouts(continuous=True)
+    takes a stream within rtol 1e-4 / atol 1e-3 as the same and still fails
+    on a wrong one."""
+    import torch
+
+    n, steps = 2000, 3
+    want = [torch.zeros((steps, 4, n)), torch.zeros((steps, 2, n)), *(torch.zeros((steps, n)) for _ in range(3))]
+    want[0][:, 1] = torch.linspace(-3, 3, n)
+    got = [w.clone() for w in want]
+    got[0][:, 1] += 2e-4
+    with pytest.raises(chip_smoke.PhaseFailed, match="inventory stream differs"):
+        chip_smoke.compare_rollouts(torch, got, want, n, "exact")
+    assert chip_smoke.compare_rollouts(torch, got, want, n, "touch", continuous=True) == pytest.approx(2e-4, rel=1e-3)
+    got[0][:, 1, :10] += 0.5
+    with pytest.raises(chip_smoke.PhaseFailed, match="differs on 10 of"):
+        chip_smoke.compare_rollouts(torch, got, want, n, "touch", continuous=True)
+
+
+def test_a_decision_flipped_at_the_last_step_counts_as_a_flip():
+    """The streams hold pre-step inventories, so a fill or market order
+    decided the other way at the last step shows only in the last reward:
+    compare_rollouts counts that env among the flips (within the 0.1% bar)
+    instead of failing the tolerance, and fails past the bar."""
+    import torch
+
+    n, steps = 2000, 3
+    want = [torch.zeros((steps, 4, n)), torch.zeros((steps, 4, n)), *(torch.zeros((steps, n)) for _ in range(3))]
+    got = [w.clone() for w in want]
+    got[4][-1, 7] = 0.6
+    assert chip_smoke.compare_rollouts(torch, got, want, n, "lam") == 0.0
+    got[4][-1, :3] = 0.6
+    with pytest.raises(chip_smoke.PhaseFailed, match="differs on 4 of"):
+        chip_smoke.compare_rollouts(torch, got, want, n, "lam")

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: the episode kernels K1 and K2, the MLP rollout K3 (both actor-critic
-layouts), the fused PPO updates K4 (both layouts) and K7, the
+layouts; the limit, lam and touch dynamics kinds), the fused PPO updates K4 (both layouts) and K7, the
 deterministic-policy rollout K5, the OE episode K6 and the CJ episode K8,
 and the step pipeline's wide shape.  They have no CPU mode, so every test here skips on a host
 without a GPU.  This file imports neither JAX nor the JAX package, so it
@@ -133,6 +133,54 @@ def test_mlp_rollout_cj_rewards_match_plain_on_the_card(cuda_device, reward, sha
         want = mr.mlp_rollout_plain(p, model, num_trajectories=n, **kw)
         torch.cuda.synchronize()
         same = _same_inventory_envs(got, want, n)
+        for a, b, c in zip(got, want, again):
+            torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3)
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared-trunk", "towers"])
+@pytest.mark.parametrize("kind", ["lam", "lam-mask", "touch", "canonical", "lam-float32"])
+def test_mlp_rollout_lam_touch_kinds_match_plain_on_the_card(cuda_device, kind, shared_trunk):
+    """K3's lam (A = 4, the market-order mask), touch and canonical (the
+    per-env inv0 plane with the CjMm reward) kinds at 4,096 envs, 256x256,
+    noise and native mode, against the plain version at the PnL test's
+    limits (touch: its continuous fills compared to the same tolerance on
+    every env; an env whose decision flips at the last step, seen only in
+    its last reward, counts among the flips); a second launch is bitwise
+    equal."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.utils.config import lam_env_config, learning_env_config, touch_env_config
+
+    n = 4096
+    cfg = {"lam": lam_env_config(num_trajectories=n),
+           "lam-mask": dataclasses.replace(lam_env_config(num_trajectories=n, max_inventory=2.0),
+                                           mask_market_orders_at_max_inventory=True),
+           "touch": touch_env_config(num_trajectories=n),
+           "canonical": learning_env_config(num_trajectories=n),
+           "lam-float32": lam_env_config(num_trajectories=n)}[kind]
+    cfg = dataclasses.replace(cfg, normalise_observation_space=kind != "lam-float32")
+    p = mr.rollout_params_from_config(cfg)
+    model = init_actor_critic(5, 4, p.a_dim, hidden=(256, 256), shared_trunk=shared_trunk, device=cuda_device)
+    inv0 = None
+    if p.inventory_range:
+        inv0 = torch.from_numpy(np.random.default_rng(4).integers(*p.inventory_range, n).astype(np.float32))
+        inv0 = inv0.to(cuda_device)
+    rng = np.random.default_rng(6)
+    channels = rng.uniform(size=(p.run_steps, mr.n_noise_channels(p.a_dim), n)).astype(np.float32)
+    channels[:, 4:] = rng.normal(size=(p.run_steps, mr.n_noise_channels(p.a_dim) - 4, n)).astype(np.float32)
+    for kw in ({"noise": torch.from_numpy(channels).to(cuda_device)}, {"seed": 11, "device": cuda_device}):
+        got = mr.mlp_rollout(p, model, num_trajectories=n, inv0=inv0, **kw)
+        again = mr.mlp_rollout(p, model, num_trajectories=n, inv0=inv0, **kw)
+        want = mr.mlp_rollout_plain(p, model, num_trajectories=n, inv0=inv0, **kw)
+        torch.cuda.synchronize()
+        if kind == "touch":
+            same = ((got[0][:, 1] - want[0][:, 1]).abs() <= 1e-3 + 1e-4 * want[0][:, 1].abs()).all(dim=0)
+        else:
+            same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
+        # a decision flipped at the last step shows only in the last reward
+        same &= (got[4][-1] - want[4][-1]).abs() <= 1e-3 + 1e-4 * want[4][-1].abs()
+        assert int((~same).sum()) <= n // 1000
         for a, b, c in zip(got, want, again):
             torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3)
             assert torch.equal(a, c)
@@ -427,7 +475,7 @@ def _det_cases():
     from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent, CarteaJaimungalOeAgent
     from mbt_gym_torch.ops import det_rollout as det
     from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, RunningInventoryPenalty
-    from mbt_gym_torch.utils.config import cj_env_config, oe_env_config
+    from mbt_gym_torch.utils.config import cj_env_config, lam_env_config, oe_env_config, touch_env_config
 
     cj = cj_env_config(num_trajectories=4096, n_steps=300, max_inventory=5.0)
     agent = CarteaJaimungalMmAgent.from_config(cj)
@@ -451,11 +499,17 @@ def _det_cases():
         "as-fixed-random-inventory": (det.fixed_rollout_params(late, [0.7, 0.9]), ()),
         "oe-fixed": (det.fixed_rollout_params(oe, [-2.5]), ()),
         "oe-schedule": (det.schedule_rollout_params(oe), (det.schedule_table_from_policy(oe, oe_agent.policy()),)),
+        "lam-fixed": (det.fixed_rollout_params(lam_env_config(num_trajectories=4096), [0.6, 0.6, 0.7, 0.2]), ()),
+        "lam-fixed-mask": (det.fixed_rollout_params(dataclasses.replace(
+            lam_env_config(num_trajectories=4096, max_inventory=3.0), mask_market_orders_at_max_inventory=True),
+            [0.6, 0.6, 0.7, 0.0]), ()),
+        "touch-fixed": (det.fixed_rollout_params(touch_env_config(num_trajectories=4096), [1.0, 0.5]), ()),
     }
 
 
 @pytest.mark.parametrize("case", ["cj-table", "as-fixed-random-inventory", "oe-fixed", "oe-schedule",
-                                  "cj-table-e3", "as-fixed-running-e3", "oe-fixed-e3"])
+                                  "cj-table-e3", "as-fixed-running-e3", "oe-fixed-e3", "lam-fixed",
+                                  "lam-fixed-mask", "touch-fixed"])
 def test_det_rollout_kernel_matches_plain_on_the_card(cuda_device, case):
     """K5 in both output modes, noise and native, against its plain version
     at K1's limits, at inventory exponent 2 and 3."""

@@ -510,14 +510,20 @@ def test_fallback_reasons_match_jax(name, modes, words):
 
 
 def test_unported_dynamics_reason_names_the_missing_piece():
-    """A fixed action on a 4-column limit-order dynamics (the shape of the
-    limit-and-market-order family, not ported) runs the engine with a
-    reason naming it."""
-    from tests.test_torch_rollout import _port_lam_stand_in
+    """What K5 still lacks on the limit-and-market-order family is named
+    where it is refused: the schedule kind on lam dynamics by the kernel
+    wrapper, and a fixed action under the exponential-utility reward by the
+    dispatch front door, which then runs the engine."""
+    from mbt_gym_torch.rewards import ExponentialUtility
+    from mbt_gym_torch.utils.config import lam_env_config
 
-    cfg = _port_lam_stand_in(torch_config(jax_as_env_config(num_trajectories=256)))
-    d = dispatch.dispatch_report(cfg, fixed_action_policy([0.6, 0.6, 0.0, 0.0]), platform="cuda")
-    assert d.backend == "engine" and "limit-and-market-order" in d.reason and "not ported" in d.reason
+    cfg = lam_env_config(num_trajectories=256, n_steps=8)
+    p = det.schedule_rollout_params(cfg)
+    with pytest.raises(AssertionError, match="schedule kind on lam dynamics is not ported"):
+        det.schedule_rollout(p, torch.zeros((8, 4)), 0, 256, device="cpu")
+    util = dataclasses.replace(cfg, reward_function=ExponentialUtility())
+    d = dispatch.dispatch_report(util, fixed_action_policy([0.6, 0.6, 0.0, 0.0]), platform="cuda")
+    assert d.backend == "engine" and "ExponentialUtility" in d.reason and "not ported" in d.reason
 
 
 def test_long_horizon_cj_rollout_stays_fused():

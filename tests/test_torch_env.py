@@ -124,10 +124,14 @@ def test_spec_roundtrip_rebuilds_the_same_config():
 
 
 def test_unported_component_raises():
+    """A process model the port lacks (Hawkes arrivals, ROADMAP Queue 1)
+    raises by name."""
+    from mbt_gym_tpu.processes.arrivals import HawkesArrivals
+
     spec = jax_spec(jax_as_env_config(num_trajectories=128))
     del spec["type"]
-    spec["reward_function"] = {"type": "ExponentialUtility"}
-    with pytest.raises(ValueError, match="ExponentialUtility is not ported"):
+    spec["dynamics"]["arrival_model"] = jax_spec(HawkesArrivals())
+    with pytest.raises(ValueError, match="HawkesArrivals is not ported"):
         convert.env_config_from_spec(spec)
 
 

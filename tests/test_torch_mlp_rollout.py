@@ -183,15 +183,13 @@ def test_native_mode_is_noise_mode_on_philox_channels():
 
 
 def test_config_guard_names_unported_features():
-    from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, RunningInventoryPenalty
-
-    @dataclasses.dataclass(frozen=True)
-    class ExponentialUtility:  # not in the port yet: a stand-in of the JAX reward
-        risk_aversion: float = 0.01
+    from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, ExponentialUtility, RunningInventoryPenalty
 
     cfg = as_env_config(num_trajectories=N)
+    # a random initial inventory runs on K3 through its inv0 plane
+    p = mr.rollout_params_from_config(dataclasses.replace(cfg, initial_inventory=(-2, 3)))
+    assert (p.inventory_range, p.initial_inventory) == ((-2, 3), 0.0)
     for change, match in (
-        ({"initial_inventory": (-2, 3)}, "random initial inventory is not ported to CUDA"),
         ({"start_time": ("uniform", 0.0, 0.5)}, "random start times are not ported to CUDA"),
         ({"dtype": "float64"}, "float64 reference-parity"),
         ({"reward_scaling": 0.5}, None),

@@ -19,7 +19,6 @@ from mbt_gym_tpu.utils.config import as_env_config as jax_as_env_config
 
 from mbt_gym_torch import dispatch, episode_stats, mc_episode_stats, rollout
 from mbt_gym_torch.agents.baseline import AvellanedaStoikovAgent, fixed_action_policy
-from mbt_gym_torch.dynamics import LimitOrderDynamics
 from mbt_gym_torch.ops import episode as ep
 from mbt_gym_torch.rollout import to_reference_layout
 from mbt_gym_torch.types import SlotNoise
@@ -70,21 +69,6 @@ def test_fused_paths_through_plain_versions_on_cpu():
     _assert_as_bands(stats)
 
 
-def _port_lam_stand_in(cfg):
-    """The port has no limit-and-market-order dynamics yet; a 4-action
-    subclass of its limit-order dynamics is what the guard must refuse."""
-
-    @dataclasses.dataclass(frozen=True)
-    class LimitAndMarketStandIn(LimitOrderDynamics):
-        action_dim = 4
-
-    d = cfg.dynamics
-    return dataclasses.replace(cfg, dynamics=LimitAndMarketStandIn(
-        midprice_model=d.midprice_model, arrival_model=d.arrival_model,
-        fill_probability_model=d.fill_probability_model,
-    ))
-
-
 def _jax_lam(cfg):
     d = cfg.dynamics
     return dataclasses.replace(cfg, dynamics=JaxLam(
@@ -111,7 +95,8 @@ def test_dispatch_reasons_match_jax(guard):
     jagent = JaxAgent.from_config(jcfg, 0.1)
     change = GUARDS[guard]
     if guard == "lam":
-        jcfg, cfg = _jax_lam(jcfg), _port_lam_stand_in(torch_config(jcfg))
+        jcfg = _jax_lam(jcfg)
+        cfg = torch_config(jcfg)
     elif guard == "mismatched-agent":
         cfg = torch_config(jcfg)
         jagent = dataclasses.replace(jagent, volatility=3.0)
