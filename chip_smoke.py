@@ -73,11 +73,13 @@ package beside it, and on any failed phase.  Its last three lines are the
 ``kernels`` JSON object, the card's name and power limit from nvidia-smi,
 and ``{"ok": true, "device": {...}}``.
 """
+import copy
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM data-sheet peaks used for bound_ms.
@@ -1208,11 +1210,12 @@ def update_phases(torch, np, card, dev):
     # mlp_rollout_kernel, one instantiation per operand type and dynamics
     # kind (limit, lam, touch).  Then the tensor-core instructions of each.
     # The step-pipeline kernels K1, K2, K5, K6 and K8 spill nothing: K5's
-    # 56 instantiations (limit and speed: 20 at inventory exponent 2, 20
-    # at any other; lam and touch, the fixed kind: 8 and 8),
+    # 56 instantiations of the plain processes (limit and speed: 20 at
+    # inventory exponent 2, 20 at any other; lam and touch, the fixed kind:
+    # 8 and 8), 28 general ones and 4 of the composite family (phase 24e),
     # K1's, K6's and K8's 4 (two draw modes, the pipeline and the wide
     # shape) and K2's 16 (the same, by its four output layouts).
-    pipeline_kernels = {"det_rollout.cu": 56, "as_episode.cu": 4 + 16, "oe_episode.cu": 4, "cj_episode.cu": 4}
+    pipeline_kernels = {"det_rollout.cu": 56 + 28 + 4, "as_episode.cu": 4 + 16, "oe_episode.cu": 4, "cj_episode.cu": 4}
     for src, names in (("fused_ppo.cu", ("ppo_pass1", "ppo_pass2")), ("mlp_rollout.cu", ("mlp_rollout_kernel",)),
                        ("det_rollout.cu", ("det_rollout_kernel",)),
                        ("as_episode.cu", ("as_episode_kernel", "as_traj_kernel")),
@@ -1227,10 +1230,11 @@ def update_phases(torch, np, card, dev):
             check(len(rows) == pipeline_kernels[src],
                   f"phase 18: {src} holds {len(rows)} instantiations of {names}, not {pipeline_kernels[src]}")
     check_tensor_cores(_build.build("fused_ppo.cu"), "fused_ppo.cu", ("ppo_pass",), 8)
-    # K3: mlp_rollout_kernel<true, kind> (bf16, tensor cores) and <false,
-    # kind> for the three dynamics kinds; MUFU
-    # counts the special-function instructions behind its tanhf/expf/logf
-    k3_sass = check_tensor_cores(_build.build("mlp_rollout.cu"), "mlp_rollout.cu", ("mlp_rollout_kernel",), 6)
+    # K3: mlp_rollout_kernel<true, kind, proc> (bf16, tensor cores) and
+    # <false, kind, proc> for the three dynamics kinds on the plain and the
+    # general processes; MUFU counts the special-function instructions
+    # behind its tanhf/expf/logf
+    k3_sass = check_tensor_cores(_build.build("mlp_rollout.cu"), "mlp_rollout.cu", ("mlp_rollout_kernel",), 12)
     kinds = {kind: sass_counts(k3_sass, f"MUFU.{kind}", ("mlp_rollout_kernel",))
              for kind in ("EX2", "RCP", "LG2", "SQRT", "RSQ", "SIN", "COS", "TANH")}
     for entry, n in sorted(sass_counts(k3_sass, "MUFU", ("mlp_rollout_kernel",)).items()):
@@ -2040,12 +2044,12 @@ def lam_touch_phases(torch, np, card, dev, k3_pnl_ms=None):
 
     # ---- phase 23e: the new instantiations' registers and spills (ptxas
     # -v of the builds above): K3's lam and touch kinds (template argument
-    # kDyn 1 and 2), K5's lam and touch fixed kinds (kDyn 2 and 3); none
-    # spills.  HMMA > 0 in K3's bf16 lam instantiation.
+    # kDyn 1 and 2), K5's lam and touch fixed kinds (kDyn 2 and 3), on the
+    # plain processes (kProc 0); none spills.  HMMA > 0 in K3's bf16 lam instantiation.
     k3_rows = kernel_registers(_build.ptxas_reports.get("mlp_rollout.cu", ""), ("mlp_rollout_kernel",))
     k5_rows = kernel_registers(_build.ptxas_reports.get("det_rollout.cu", ""), ("det_rollout_kernel",))
-    new_k3 = [(e, u) for e, u in k3_rows if re.search(r"ILb[01]ELi[12]E", e)]
-    new_k5 = [(e, u) for e, u in k5_rows if re.search(r"ILb[01]ELi[23]ELi1E", e)]
+    new_k3 = [(e, u) for e, u in k3_rows if re.search(r"ILb[01]ELi[12]ELi0E", e)]
+    new_k5 = [(e, u) for e, u in k5_rows if re.search(r"ILb[01]ELi[23]ELi1ELb[01]ELb[01]ELi0E", e)]
     check(len(new_k3) == 4 and len(new_k5) == 16,
           f"phase 23e: {len(new_k3)} new K3 and {len(new_k5)} new K5 instantiations, not 4 and 16")
     for entry, usage in new_k3 + new_k5:
@@ -2057,7 +2061,7 @@ def lam_touch_phases(torch, np, card, dev, k3_pnl_ms=None):
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.build("mlp_rollout.cu"))], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    hmma = {e: n for e, n in sass_counts(sass, "HMMA", ("mlp_rollout_kernel",)).items() if "ILb1ELi1E" in e}
+    hmma = {e: n for e, n in sass_counts(sass, "HMMA", ("mlp_rollout_kernel",)).items() if "ILb1ELi1ELi0E" in e}
     check(len(hmma) == 1 and all(n > 0 for n in hmma.values()), f"phase 23e: HMMA in K3's bf16 lam kind {hmma}")
     print(f"phase 23e K3 bf16 lam instantiation: {list(hmma.values())[0]} HMMA")
 
@@ -2082,6 +2086,535 @@ def lam_touch_phases(torch, np, card, dev, k3_pnl_ms=None):
         figures["K5"].update({f"{tag}_ms": ms, f"{tag}_call_ms": call, f"{tag}_plain_ms": plain_ms,
                               f"{tag}_bound_ms": b[0]})
     return figures
+
+
+# ------------------------------------------------------------------ process zoo
+COMPOSITE_N = 262_144  # bench_suite config 10 (scripts/bench_suite.py:252-264)
+COMPOSITE_EVAL_N = 65_536  # bench_suite configs 4 and 14 (:161-169, :349-380)
+KIND_N = 16_384
+COMPOSITE_ITERATIONS = 6
+COMPOSITE_EPISODES = 8
+COMPOSITE_ACTION = (0.6, 0.6, 0.0, 0.0)  # config 4's fixed quotes, no market orders
+# Operations per env-step of K5's fixed kind on the composite config,
+# counted as OPS_PER_ENV_STEP_K1 is: two Philox calls (196), eight 24-bit
+# uniforms (24), two Box-Muller pairs with both sines (18), step time (3),
+# Hawkes thinning (4) and its step (12), the exogenous fill probabilities
+# (10) and the exogenous depths' OU step (10), fills and masks (10), the
+# market orders with their mask (6), bookkeeping and the clips (16), the
+# price move (3), PnL and the running reward (14), the reward and spread
+# sums (3).
+OPS_PER_ENV_STEP_K5_COMPOSITE = 196 + 24 + 18 + 3 + 4 + 12 + 10 + 10 + 10 + 6 + 16 + 3 + 14 + 3
+
+
+class general_instantiation:
+    """Within it, the composite stress family runs K5's general
+    instantiation (its kinds read at run time) instead of its own (its
+    kinds fixed at compile time), for holding the two to each other."""
+
+    def __enter__(self):
+        from mbt_gym_torch.ops import proc_kinds as pk
+
+        self.pk, self.mode = pk, pk.proc_mode
+        pk.proc_mode = lambda p, composite_ok: self.mode(p, False)
+
+    def __exit__(self, *exc):
+        self.pk.proc_mode = self.mode
+
+
+def hawkes_fixed_point(p):
+    """The Hawkes intensity's stationary mean under per-step thinning at
+    the current intensity: E[l'] = l + m (b - l) dt + j l dt, so
+    l* = b m / (m - j) (tests/test_pallas_rollout.py:1389-1395)."""
+    return p.intensity_bid * p.hawkes_mean_reversion / (p.hawkes_mean_reversion - p.hawkes_jump)
+
+
+def narrow_copy(torch, params, s_dim, a_dim, dev):
+    """A copy of the actor-critic ``params`` reading the first ``s_dim``
+    observation columns and writing the first ``a_dim`` action rows: the
+    same inner trunk for a K3 run on a narrower config beside the wide
+    one."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+
+    model = init_actor_critic(0, s_dim, a_dim, hidden=params.hidden, shared_trunk=params.shared_trunk, device=dev)
+    source = dict(params.named_parameters())
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            src = source[name][:t.shape[0]]
+            t.copy_(src[:, :t.shape[1]] if t.dim() == 2 else src)
+    return model
+
+
+def kind_configs(n=None, steps=STEPS):
+    """{name: EnvConfig} of every process kind beyond the plain ones, at
+    ``n`` envs (KIND_N) x ``steps``: the nine other midprice models, the
+    exact-probability Poisson arrivals and the triangular and power fills
+    on the AS config, the exogenous-MM fills with BM and GBM sides on the
+    composite config, and the all-axes config (Heston + Hawkes +
+    exogenous MM + lam, S = 9)."""
+    import dataclasses
+
+    from mbt_gym_torch import processes as pc
+    from mbt_gym_torch.utils.config import as_env_config, composite_env_config
+
+    n = n or KIND_N
+
+    def with_(cfg, **dyn):
+        return dataclasses.replace(cfg, dynamics=dataclasses.replace(cfg.dynamics, **dyn))
+
+    base = as_env_config(num_trajectories=n, n_steps=steps)
+    alpha = pc.OuMidprice(initial_price=0.5, mean_reversion_level=0.0, mean_reversion_speed=2.0, volatility=1.0,
+                          dt_scaled_drift=True)
+    mids = {
+        "constant": pc.ConstantMidprice(),
+        "gbm": pc.GeometricBrownianMotionMidprice(drift=0.5, volatility=0.02),
+        "ou": pc.OuMidprice(mean_reversion_level=100.0, mean_reversion_speed=2.0, volatility=2.0),
+        "cev": pc.CevMidprice(drift=0.2, volatility=0.05, gamma=0.7),
+        "bmjump": pc.BrownianMotionJumpMidprice(jump_size=0.5),
+        "oujump": pc.OuJumpMidprice(mean_reversion_level=100.0, mean_reversion_speed=2.0, jump_size=0.5,
+                                    dt_scaled_drift=True),
+        "heston": pc.HestonMidprice(),
+        "st_ou_alpha": pc.ShortTermOuAlphaMidprice(ou=alpha),
+        "st_jump_alpha": pc.ShortTermJumpAlphaMidprice(ou_jump=pc.OuJumpMidprice(
+            initial_price=0.5, mean_reversion_speed=2.0, volatility=1.0, jump_size=0.3, dt_scaled_drift=True)),
+    }
+    out = {f"mid {k}": with_(base, midprice_model=m) for k, m in mids.items()}
+    out["poisson_nl"] = with_(base, arrival_model=pc.PoissonArrivalsNonLinear((140.0, 140.0)))
+    out["triangular"] = with_(base, fill_probability_model=pc.TriangularFill(max_fill_depth=1.5))
+    out["power"] = with_(base, fill_probability_model=pc.PowerFill(fill_exponent=1.5, fill_multiplier=1.2))
+    comp = composite_env_config(num_trajectories=n, n_steps=steps)
+    out["exomm bm/gbm"] = with_(comp, fill_probability_model=pc.ExogenousMmFill(
+        bid_process=pc.BrownianMotionMidprice(initial_price=0.8, drift=0.05, volatility=0.1),
+        ask_process=pc.GeometricBrownianMotionMidprice(initial_price=0.8, drift=-0.1, volatility=0.2)))
+    out["all axes"] = with_(comp, midprice_model=pc.HestonMidprice())
+    return out
+
+
+def proc_phases(torch, np, card, dev, k3_pnl_ms=None):
+    """Phase 24: the rest of the process zoo and the composite stress
+    family.  (a) K3 on bench_suite config 10 (``composite_env_config``
+    at 262,144 envs, normalised observations, 256x256, bf16), both
+    layouts, K5's fixed kind on config 14 (65,536 envs, the fixed quotes
+    (0.6, 0.6, 0, 0)) in stats and streams mode, and both kernels on every
+    other process kind at 16,384 x 200 (K5 also the table kind on the
+    triangular and power fills and the four impact kinds on speed
+    dynamics) against their plain versions, in noise and native mode, each
+    launched twice bitwise, and K3 on the composite and all-axes configs
+    with raw observations (the float32 products); K4 at S = 8 on one
+    16,384-env minibatch of each config-10 rollout (float32 and bf16,
+    both layouts) against its plain version, launched twice bitwise, and
+    timed; (b) the native draws' statistics on the
+    composite config under a zero policy (the Hawkes fixed point, the
+    exogenous depths' level, standard-normal actions); (c) config 10
+    through ``train_iteration``, fully fused, 6 iterations per layout,
+    beside the engine iteration, and K3's composite device time beside K3
+    lam on the same trunk; the all-axes config (S = 9) takes K3 and the
+    autograd update; (d) config 14 through ``mc_episode_stats``
+    (``backend="auto"``, 8 episodes) against the engine; (e) the new
+    instantiations' registers, spills and tensor-core instructions.
+    Returns the kernels-line figures of K3, K4 and K5."""
+    import dataclasses
+    import re
+
+    from mbt_gym_torch import dispatch_report, mc_episode_stats
+    from mbt_gym_torch import processes as pc
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent, CarteaJaimungalOeAgent, fixed_action_policy
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.agents.ppo import (
+        PPOConfig, compute_gae, fused_update_refusal, init_train_state, normalise, train_iteration,
+    )
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import fused_ppo
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.utils.config import cj_env_config, composite_env_config, lam_env_config, oe_env_config
+
+    t_start = time.perf_counter()
+    obs_norm = dict(normalise_observation_space=True)
+    config10 = dataclasses.replace(composite_env_config(num_trajectories=COMPOSITE_N), **obs_norm)
+    p10 = mr.rollout_params_from_config(config10)
+    check((p10.dynamics_kind, p10.arrival_kind, p10.fill_kind, len(p10.obs_low), p10.a_dim, p10.n_channels)
+          == ("lam", "hawkes", "exomm", 8, 4, 11), f"phase 24: config 10 params {p10}")
+    layouts = ("shared trunk", "towers")
+    models = {layout: init_actor_critic(6, 8, 4, hidden=(256, 256), shared_trunk=layout == "shared trunk",
+                                        device=dev) for layout in layouts}
+    small_models = {}
+
+    def model_for(s_dim, a_dim):
+        if (s_dim, a_dim) not in small_models:
+            small_models[(s_dim, a_dim)] = init_actor_critic(7, s_dim, a_dim, hidden=(256, 256), shared_trunk=True,
+                                                             device=dev)
+        return small_models[(s_dim, a_dim)]
+
+    def k3_check(p, model, n, label):
+        """K3 native and on injected channels against its plain version,
+        launched twice; returns the plain version's native time and the
+        max abs error."""
+        inv0 = None
+        if p.inventory_range:
+            gen = torch.Generator(dev).manual_seed(37)
+            inv0 = torch.randint(*p.inventory_range, (n,), generator=gen, device=dev).to(torch.float32)
+        err, plain_ms = 0.0, None
+        for mode in ("native", "noise"):
+            kw = ({"seed": 35, "device": dev} if mode == "native" else
+                  {"noise": mr.philox_noise(36, p.run_steps, n, dev, p.a_dim, p.fill_kind == "exomm", p.has_mid2)})
+            got = mr.mlp_rollout(p, model, num_trajectories=n, inv0=inv0, **kw)
+            again = mr.mlp_rollout(p, model, num_trajectories=n, inv0=inv0, **kw)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = mr.mlp_rollout_plain(p, model, num_trajectories=n, inv0=inv0, **kw)
+            end.record()
+            end.synchronize()
+            if mode == "native":
+                plain_ms = start.elapsed_time(end)
+            at = f"phase 24a K3 {label} {mode} at {n}x{p.run_steps}"
+            err = max(err, compare_rollouts(torch, got, want, n, at))
+            check_repeat(torch, rollout_outputs(got), rollout_outputs(again), at)
+            del got, again, want
+        return plain_ms, err
+
+    def k5_check(p, tables, n, label):
+        """K5 in stats and streams mode, native and on injected channels,
+        against its plain version, launched twice; returns the plain
+        version's native stats time and the max abs error."""
+        err, plain_ms = 0.0, None
+        rng = np.random.default_rng(38)
+        c = rng.uniform(size=(p.run_steps, p.n_channels, n)).astype(np.float32)
+        c[:, 4:] = rng.normal(size=(p.run_steps, p.n_channels - 4, n)).astype(np.float32)
+        for mode, kw in (("noise", {"noise": torch.from_numpy(c).to(dev)}), ("native", {"seed": 44, "device": dev})):
+            for stats in (True, False):
+                extra = {"stats_only": stats, "final_obs": not stats}
+                got = det.det_rollout(p, tables, num_trajectories=n, **kw, **extra)
+                again = det.det_rollout(p, tables, num_trajectories=n, **kw, **extra)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                want = det.det_rollout_plain(p, tables, num_trajectories=n, **kw, **extra)
+                end.record()
+                end.synchronize()
+                if mode == "native" and stats:
+                    plain_ms = start.elapsed_time(end)
+                at = f"phase 24a K5 {label} {'stats' if stats else 'streams'} {mode} at {n}x{p.run_steps}"
+                err = max(err, compare_outputs(torch, got, want, n, at, streams=not stats))
+                check_repeat(torch, (dict(enumerate(got)),), (dict(enumerate(again)),), at)
+                del got, again, want
+        return plain_ms, err
+
+    # ---- phase 24a: K3 and K5 against their plain versions on every
+    # process kind (phases 14 and 23a's limits); K4 at S = 8 on config
+    # 10's minibatches (phase 23a's limits)
+    t0 = time.perf_counter()
+    err = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    plain = {}
+    k4 = {}
+    nb = COMPOSITE_N // PPO_MINIBATCHES
+    for layout in layouts:
+        plain[("K3", layout)], e = k3_check(p10, models[layout], COMPOSITE_N, f"config 10 {layout}")
+        err["K3"] = max(err["K3"], e)
+        e = k3_check(p10, models[layout], CJ_SMALL_N, f"config 10 {layout}")[1]
+        err["K3"] = max(err["K3"], e)
+        # the first of config 10's 16 minibatches, as train_iteration cuts
+        # them from this layout's K3 rollout
+        obs_t, actions_t, log_probs, values, rewards = mr.mlp_rollout(p10, models[layout], 35, COMPOSITE_N,
+                                                                      device=dev)
+        adv, returns = compute_gae(rewards, values, torch.zeros_like(values[0]), 1.0, 0.95)
+        mb = [x[..., :nb] for x in (obs_t, actions_t, log_probs, adv, returns)]
+        mb[3] = normalise(mb[3])
+        del obs_t, actions_t, log_probs, values, rewards, adv, returns
+        moved = copy.deepcopy(models[layout])
+        with torch.no_grad():
+            moved.log_std.add_(0.05)  # ratios away from 1, so both clip branches occur
+        for dtype in ("float32", "bfloat16"):
+            grads, metrics = fused_ppo.ppo_fused_grads_T(moved, *mb, compute_dtype=dtype)
+            again = fused_ppo.ppo_fused_grads_T(moved, *mb, compute_dtype=dtype)
+            want_g, want_m = fused_ppo.ppo_fused_grads_T_plain(moved, *mb, compute_dtype=dtype)
+            torch.cuda.synchronize()
+            at = f"phase 24a K4 S=8 A=4 {layout} {dtype} at {STEPS}x{nb}"
+            err["K4"] = max(err["K4"], compare_grads(torch, grads, metrics, want_g, want_m, dtype, at))
+            check_repeat(torch, (grads, metrics), again, at)
+            del grads, metrics, again, want_g, want_m
+        ms = kernel_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(moved, *mb, compute_dtype="bfloat16"), warmup=2,
+                       reps=10, label=f"phase 24a K4 S=8 {layout} at {STEPS}x{nb}")
+        plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(moved, *mb, compute_dtype="bfloat16"),
+                           warmup=1, reps=3)
+        b = bound_ms((8 + 4 + 3) * 4 * STEPS * nb, ppo_grad_flops_per_sample(
+            8, 256, 256, 4, towers=1 if layout == "shared trunk" else 2) * STEPS * nb, BF16_OPS_PER_S)
+        k4[layout] = (ms, plain_ms, b)
+        print(kernel_row("24a", card, f"K4 ppo_fused_grads_T S=8 A=4 bf16 {layout} (one minibatch)", f"{STEPS}x{nb}",
+                         STEPS * nb, *ms, *b, plain_ms))
+        del mb, moved
+    config14 = composite_env_config(num_trajectories=COMPOSITE_EVAL_N)
+    p14 = det.fixed_rollout_params(config14, COMPOSITE_ACTION)
+    check((p14.n_channels, len(p14.obs_low)) == (7, 8), f"phase 24a: config 14 params {p14}")
+    plain["K5"], e = k5_check(p14, (), COMPOSITE_EVAL_N, "fixed config 14")
+    err["K5"] = max(err["K5"], e)
+    # K5's composite instantiation computes the general one's bits
+    for label, run in (("K5 config 14 streams", lambda: det.fixed_rollout(p14, 44, COMPOSITE_EVAL_N, final_obs=True,
+                                                                          device=dev)),
+                       ("K5 config 14 stats", lambda: det.fixed_rollout(p14, 44, COMPOSITE_EVAL_N, stats_only=True,
+                                                                        device=dev))):
+        own = run()
+        with general_instantiation():
+            general = run()
+        check_repeat(torch, (dict(enumerate(own)),), (dict(enumerate(general)),),
+                     f"phase 24a {label}: the composite instantiation against the general one")
+    kinds = kind_configs()
+    for name, cfg in kinds.items():
+        normalised = dataclasses.replace(cfg, **obs_norm) if name != "mid constant" else cfg
+        p = mr.rollout_params_from_config(normalised)
+        check(p.n_channels == mr.n_noise_channels(p.a_dim, p.fill_kind == "exomm", p.has_mid2),
+              f"phase 24a {name}: {p.n_channels} channels")
+        err["K3"] = max(err["K3"], k3_check(p, model_for(cfg.state_dim, cfg.action_dim), KIND_N, name)[1])
+        action = COMPOSITE_ACTION if cfg.action_dim == 4 else (0.6, 0.6)
+        err["K5"] = max(err["K5"], k5_check(det.fixed_rollout_params(cfg, action), (), KIND_N, f"fixed {name}")[1])
+    # raw observations: K3's float32 general instantiation at S = 8 and 9
+    for name in ("composite", "all axes"):
+        cfg = kinds["all axes"] if name == "all axes" else composite_env_config(num_trajectories=KIND_N)
+        err["K3"] = max(err["K3"], k3_check(mr.rollout_params_from_config(cfg), model_for(cfg.state_dim, 4), KIND_N,
+                                            f"{name}, raw observations")[1])
+    cj_base = cj_env_config(num_trajectories=KIND_N, n_steps=STEPS, max_inventory=10.0)
+    agent = CarteaJaimungalMmAgent.from_config(cj_base, max_inventory=10)
+    tables = tuple(torch.as_tensor(t, device=dev) for t in det.cj_depth_tables(agent))
+    for name, fill in (("triangular", pc.TriangularFill(max_fill_depth=1.5)),
+                       ("power", pc.PowerFill(fill_exponent=1.5, fill_multiplier=1.2))):
+        cfg = dataclasses.replace(cj_base, dynamics=dataclasses.replace(cj_base.dynamics, fill_probability_model=fill))
+        err["K5"] = max(err["K5"], k5_check(det.cj_rollout_params(cfg, agent), tables, KIND_N, f"table {name}")[1])
+    oe_base = oe_env_config(num_trajectories=KIND_N)
+    oe_agent = CarteaJaimungalOeAgent.from_config(oe_base, alpha=0.01)
+    schedule = (det.schedule_table_from_policy(oe_base, oe_agent.policy()).to(dev),)
+    for name, dyn in (("power impact", dict(price_impact_model=pc.TemporaryPowerImpact(temporary_impact_exponent=2.0))),
+                      ("transient", dict(price_impact_model=pc.TransientImpact(resilience_coefficient=0.5))),
+                      ("temp+transient", dict(price_impact_model=pc.TemporaryAndTransientImpact())),
+                      ("temp+perm, heston", dict(midprice_model=pc.HestonMidprice()))):
+        cfg = dataclasses.replace(oe_base, dynamics=dataclasses.replace(oe_base.dynamics, **dyn))
+        err["K5"] = max(err["K5"], k5_check(det.schedule_rollout_params(cfg), schedule, KIND_N,
+                                            f"schedule speed {name}")[1])
+        err["K5"] = max(err["K5"], k5_check(det.fixed_rollout_params(cfg, (-2.5,)), (), KIND_N,
+                                            f"fixed speed {name}")[1])
+    print(f"phase 24a ok in {time.perf_counter() - t0:.1f} s: max abs err K3 {err['K3']}, K5 {err['K5']}")
+
+    # ---- phase 24b: native-draw statistics (tests/test_pallas_rollout.py:
+    # 1366-1404) on the composite config at 16,384 x 200, raw observations,
+    # a zero policy on K3: the Hawkes intensity's tail at its fixed point,
+    # the exogenous depths at their OU level, the action channels standard
+    # normal
+    t0 = time.perf_counter()
+    comp = composite_env_config(num_trajectories=KIND_N)
+    p = mr.rollout_params_from_config(comp)
+    zero = init_actor_critic(0, 8, 4, hidden=(16, 16), shared_trunk=True, device=dev)
+    with torch.no_grad():
+        for t in zero.parameters():
+            t.zero_()
+    obs, actions = (x.double() for x in mr.mlp_rollout(p, zero, 4321, KIND_N, device=dev)[:2])
+    tail = STEPS // 2
+    lam, exo = obs[tail:, 4:6], obs[tail:, 6:8]
+    lstar = hawkes_fixed_point(p)
+    stats = {"lam_mean": float(lam.mean()), "lam_std": float(lam.std()), "lstar": lstar,
+             "exo_mean": float(exo.mean()), "exo_std": float(exo.std()),
+             "action_means": actions.mean(dim=(0, 2)).tolist(), "action_stds": actions.std(dim=(0, 2)).tolist()}
+    print(f"phase 24b [{card}] native draws on the composite config at {KIND_N}x{STEPS}, zero policy: {stats}")
+    check(abs(stats["lam_mean"] / lstar - 1.0) < 0.05 and stats["lam_std"] > 0.5, f"phase 24b Hawkes: {stats}")
+    check(abs(stats["exo_mean"] - p.exo_level[0]) < 0.02 and stats["exo_std"] > 0.005, f"phase 24b exo: {stats}")
+    check(all(abs(m) < 0.01 for m in stats["action_means"]) and all(abs(s - 1.0) < 0.01 for s in stats["action_stds"]),
+          f"phase 24b actions: {stats}")
+    print(f"phase 24b ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 24c: config 10 through train_iteration, fully fused (K3
+    # x1, K4 x16 a iteration, nothing else), 6 iterations per layout,
+    # metric bands on each, no degradation; one more timed and one
+    # profiled; the engine iteration on the shared trunk; K3 composite
+    # beside K3 lam on the same trunk (the lam kind's general instantiation
+    # and its plain one).  The main path's launches are
+    # counted over 24c's iterations and 24d's call.
+    t0 = time.perf_counter()
+    path = {name: 0 for name in _build.launch_counts}
+
+    def add_launches():
+        for name, c in _build.launch_counts.items():
+            path[name] += c
+
+    env_steps = COMPOSITE_N * config10.n_steps
+    k3 = {}
+    iteration_ms = {}
+    for layout in layouts:
+        pcfg = PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=PPO_MINIBATCHES, shuffle=False,
+                         compute_dtype="bfloat16", shared_trunk=layout == "shared trunk", fused_rollout=True,
+                         fused_update=True)
+        ts = init_train_state(config10, pcfg, 90)
+        history = []
+        for i in range(COMPOSITE_ITERATIONS):
+            _build.reset_launch_counts()
+            ts, metrics = train_iteration(config10, pcfg, ts, 91 + i)
+            torch.cuda.synchronize()
+            counts = {name: c for name, c in _build.launch_counts.items() if c}
+            check(counts == {"mlp_rollout": 1, "ppo_fused_grads_T": PPO_MINIBATCHES},
+                  f"phase 24c {layout} iteration {i + 1}: launches {counts}")
+            add_launches()
+            history.append(assert_metric_bands(metrics, f"phase 24c {layout} iteration {i + 1}")["mean_episode_reward"])
+        early, late = statistics.mean(history[1:3]), statistics.mean(history[-2:])
+        print(f"phase 24c {layout}: mean_episode_reward {history}; iterations 2-3 {early}, last 2 {late}")
+        check(late >= early - 1.0, f"phase 24c {layout}: PPO degraded, mean reward {early} -> {late}")
+        ms = cuda_ms(torch, lambda: train_iteration(config10, pcfg, ts, 97), warmup=0, reps=1)
+        iteration_ms[layout] = ms
+        print(f"phase 24c [{card}] fused train_iteration on config 10 ({COMPOSITE_N}x{config10.n_steps}, 16 "
+              f"minibatches), {layout}: {ms} ms = {env_steps / ms * 1e3} env-steps/s")
+        profile_iteration(torch, card, f"fused train_iteration on config 10, {layout}, at {COMPOSITE_N}x"
+                          f"{config10.n_steps}", lambda: train_iteration(config10, pcfg, ts, 98), phase=24)
+        if layout == "shared trunk":
+            engine_cfg = dataclasses.replace(pcfg, fused_rollout=False, fused_update=False)
+            e_ms = cuda_ms(torch, lambda: train_iteration(config10, engine_cfg, ts, 99), warmup=1, reps=1)
+            iteration_ms["engine"] = e_ms
+            print(f"phase 24c [{card}] engine train_iteration on config 10, {layout}: {e_ms} ms = "
+                  f"{env_steps / e_ms * 1e3} env-steps/s")
+            profile_iteration(torch, card, f"engine train_iteration on config 10, {layout}",
+                              lambda: train_iteration(config10, engine_cfg, ts, 100), phase=24)
+        params = ts.params
+        comp_ms = kernel_ms(torch, lambda: mr.mlp_rollout(p10, params, 9, COMPOSITE_N, device=dev), warmup=1, reps=5,
+                            label=f"phase 24c K3 composite {layout} at {COMPOSITE_N}x{p10.run_steps}")
+        lam_p = mr.rollout_params_from_config(dataclasses.replace(lam_env_config(num_trajectories=COMPOSITE_N),
+                                                                  **obs_norm))
+        lam_model = narrow_copy(torch, params, 4, 4, dev)
+        lam_ms = kernel_ms(torch, lambda: mr.mlp_rollout(lam_p, lam_model, 9, COMPOSITE_N, device=dev), warmup=1,
+                           reps=5, label=f"phase 24c K3 lam {layout} at {COMPOSITE_N}x{lam_p.run_steps}")
+        k3[layout] = (comp_ms, lam_ms)
+        print(f"phase 24c [{card}] K3 composite {layout} at {COMPOSITE_N}x{p10.run_steps}: {comp_ms[0]} ms on the "
+              f"device (call {comp_ms[1]} ms), plain {plain[('K3', layout)]} ms; K3 lam on the same trunk "
+              f"{lam_ms[0]} ms (call {lam_ms[1]} ms), composite / lam {comp_ms[0] / lam_ms[0]:.4f}"
+              + (f"; phase 12's PnL K3 {k3_pnl_ms} ms" if layout == "shared trunk" and k3_pnl_ms else ""))
+        del ts, params
+    # the all-axes config (S = 9): K3's rollout, the update refused by K4
+    axes = dataclasses.replace(kinds["all axes"], **obs_norm)
+    reason = fused_update_refusal(axes)
+    check(reason is not None and "S = 9" in reason, f"phase 24c all axes: {reason}")
+    acfg = PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=PPO_MINIBATCHES, shuffle=False,
+                     compute_dtype="bfloat16", shared_trunk=True, fused_rollout=True, fused_update=True)
+    ts = init_train_state(axes, acfg, 101)
+    _build.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ts, metrics = train_iteration(axes, acfg, ts, 102)
+    torch.cuda.synchronize()
+    counts = {name: c for name, c in _build.launch_counts.items() if c}
+    check(counts == {"mlp_rollout": 1}, f"phase 24c all axes: launches {counts}")
+    check(reason in [str(w.message) for w in caught], f"phase 24c all axes: the refusal not issued {caught}")
+    print(f"phase 24c all-axes config (S = 9) at {KIND_N}x{STEPS}: K3 x1 and the autograd update ({reason}); "
+          f"metrics { {k: float(v) for k, v in metrics.items()} }")
+    del ts
+    print(f"phase 24c ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 24d: config 14 through mc_episode_stats(backend="auto"):
+    # K5's fixed kind in stats mode, 8 episodes, within 4 standard errors
+    # of the engine; timed and profiled
+    t0 = time.perf_counter()
+    pol = fixed_action_policy(list(COMPOSITE_ACTION))
+    for mode in ("rollout", "stats"):
+        d = dispatch_report(config14, pol, mode=mode, platform=dev)
+        check((d.backend, d.family) == ("fused", "fixed"), f"phase 24d dispatch ({mode}): {d}")
+    _build.reset_launch_counts()
+    fused = mc_episode_stats(config14, pol, None, 110, episodes=COMPOSITE_EPISODES)
+    torch.cuda.synchronize()
+    counts = {name: c for name, c in _build.launch_counts.items() if c}
+    check(counts == {"det_rollout": COMPOSITE_EPISODES}, f"phase 24d: launches {counts}")
+    add_launches()
+    engine = mc_episode_stats(config14, pol, None, 111, episodes=COMPOSITE_EPISODES, backend="engine")
+    n = COMPOSITE_EPISODES * COMPOSITE_EVAL_N
+    for key, std_key in (("mean_pnl", "std_pnl"), ("mean_terminal_inventory", "std_terminal_inventory")):
+        a, b = float(fused[key]), float(engine[key])
+        se = float(engine[std_key]) * (2.0 / n) ** 0.5
+        print(f"phase 24d config 14 {key}: auto (K5) {a} vs engine {b}, {abs(a - b) / se:.2f} se")
+        check(abs(a - b) <= 4 * se, f"phase 24d {key}: {a} vs {b}, se {se}")
+    call = cuda_ms(torch, lambda: mc_episode_stats(config14, pol, None, 112, episodes=COMPOSITE_EPISODES),
+                   warmup=1, reps=3)
+    e_call = cuda_ms(torch, lambda: mc_episode_stats(config14, pol, None, 113, episodes=COMPOSITE_EPISODES,
+                                                     backend="engine"), warmup=0, reps=1)
+    steps14 = COMPOSITE_EPISODES * COMPOSITE_EVAL_N * config14.n_steps
+    iteration_ms["config 14"] = call
+    iteration_ms["config 14 engine"] = e_call
+    print(f"phase 24d [{card}] mc_episode_stats on config 14 ({COMPOSITE_EPISODES} x {COMPOSITE_EVAL_N}x"
+          f"{config14.n_steps}): auto {call} ms = {steps14 / call * 1e3} env-steps/s; engine {e_call} ms = "
+          f"{steps14 / e_call * 1e3} env-steps/s")
+    profile_iteration(torch, card, f"mc_episode_stats on config 14, auto, {COMPOSITE_EPISODES} episodes",
+                      lambda: mc_episode_stats(config14, pol, None, 114, episodes=COMPOSITE_EPISODES), phase=24,
+                      expect=("det_rollout_kernel",), warm=True)
+    k5 = {}
+    for stats in (True, False):
+        ms = kernel_ms(torch, lambda: det.fixed_rollout(p14, 9, COMPOSITE_EVAL_N, stats_only=stats,
+                                                        final_obs=not stats, device=dev), warmup=2, reps=10)
+        lam14 = det.fixed_rollout_params(lam_env_config(num_trajectories=COMPOSITE_EVAL_N), COMPOSITE_ACTION)
+        lam_ms = kernel_ms(torch, lambda: det.fixed_rollout(lam14, 9, COMPOSITE_EVAL_N, stats_only=stats,
+                                                            final_obs=not stats, device=dev), warmup=2, reps=10)
+        with general_instantiation():
+            gen_ms = kernel_ms(torch, lambda: det.fixed_rollout(p14, 9, COMPOSITE_EVAL_N, stats_only=stats,
+                                                                final_obs=not stats, device=dev), warmup=2, reps=10)
+        floats = 5 if stats else STEPS * (8 + 4 + 3) + 8
+        b = bound_ms(4 * floats * COMPOSITE_EVAL_N, OPS_PER_ENV_STEP_K5_COMPOSITE * COMPOSITE_EVAL_N * STEPS,
+                     FP32_OPS_PER_S)
+        k5[stats] = (ms, lam_ms, b, gen_ms)
+        print(kernel_row("24d", card, f"K5 fixed composite {'stats' if stats else 'streams'}",
+                         f"{COMPOSITE_EVAL_N}x{STEPS}", COMPOSITE_EVAL_N * STEPS, *ms, *b,
+                         plain["K5"] if stats else None)
+              + f"; the general instantiation {gen_ms[0]} ms; K5 fixed lam at the same shape {lam_ms[0]} ms, "
+              f"composite / lam {ms[0] / lam_ms[0]:.4f}, general / lam {gen_ms[0] / lam_ms[0]:.4f}")
+    print(f"phase 24d ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 24e: the new instantiations' registers and spills (ptxas
+    # -v of the builds above): K3's six general ones (kProc, the third
+    # template argument, 1), K5's 28 general ones (kProc, the sixth, 1) and
+    # its four composite ones (2, lam, fixed); none spills.  HMMA > 0 in
+    # K3's bf16 lam general instantiation, which runs config 10.
+    k3_rows = kernel_registers(_build.ptxas_reports.get("mlp_rollout.cu", ""), ("mlp_rollout_kernel",))
+    k5_rows = kernel_registers(_build.ptxas_reports.get("det_rollout.cu", ""), ("det_rollout_kernel",))
+    gen_k3 = [(e, u) for e, u in k3_rows if re.search(r"ILb[01]ELi\dELi1E", e)]
+    comp_k3 = [(e, u) for e, u in k3_rows if re.search(r"ILb[01]ELi\dELi2E", e)]
+    gen_k5 = [(e, u) for e, u in k5_rows if re.search(r"ILb[01]ELi\dELi\dELb[01]ELb[01]ELi1E", e)]
+    comp_k5 = [(e, u) for e, u in k5_rows if re.search(r"ILb[01]ELi2ELi1ELb[01]ELb1ELi2E", e)]
+    check((len(gen_k3), len(comp_k3), len(gen_k5), len(comp_k5)) == (6, 0, 28, 4),
+          f"phase 24e: {len(gen_k3)} general and {len(comp_k3)} composite K3, {len(gen_k5)} general and "
+          f"{len(comp_k5)} composite K5 instantiations, not 6, 0, 28 and 4")
+    for entry, usage in gen_k3 + gen_k5 + comp_k5:
+        print(f"phase 24e registers {entry[:110]}: {usage}")
+        check(spill_bytes(usage) == 0, f"phase 24e: {entry} spills: {usage}")
+    import shutil
+    from pathlib import Path
+
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.build("mlp_rollout.cu"))], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hmma = {e: n for e, n in sass_counts(sass, "HMMA", ("mlp_rollout_kernel",)).items() if "ILb1ELi1ELi1E" in e}
+    check(len(hmma) == 1 and all(n > 0 for n in hmma.values()), f"phase 24e: HMMA in K3's bf16 lam general kind {hmma}")
+    print(f"phase 24e K3 bf16 lam general instantiation: {list(hmma.values())[0]} HMMA")
+
+    print(f"phase 24 launches on the slice's main path (24c, 24d): { {k: c for k, c in path.items() if c} }")
+    for name in ("mlp_rollout", "ppo_fused_grads_T", "det_rollout"):
+        check(path[name] > 0, f"phase 24: {name} was not launched on the slice's main path")
+    print(f"phase 24 ok in {time.perf_counter() - t_start:.1f} s")
+    comp_b = bound_ms((8 + 4 + 3) * 4 * COMPOSITE_N * STEPS, mlp_flops_per_sample(8, 256, 256, 4) * COMPOSITE_N * STEPS,
+                      BF16_OPS_PER_S)
+    towers_b = bound_ms((8 + 4 + 3) * 4 * COMPOSITE_N * STEPS,
+                        mlp_flops_per_sample(8, 256, 256, 4, towers=2) * COMPOSITE_N * STEPS, BF16_OPS_PER_S)
+    (cs, ls), (ct, lt) = k3["shared trunk"], k3["towers"]
+    (s_ms, s_lam, s_b, s_gen), (st_ms, st_lam, st_b, st_gen) = k5[True], k5[False]
+    return {
+        "K3": {"composite_launches": path["mlp_rollout"], "composite_max_abs_err": err["K3"],
+               "composite_ms": cs[0], "composite_call_ms": cs[1], "composite_plain_ms": plain[("K3", "shared trunk")],
+               "composite_bound_ms": comp_b[0], "composite_lam_same_call_ms": ls[0],
+               "composite_towers_ms": ct[0], "composite_towers_plain_ms": plain[("K3", "towers")],
+               "composite_towers_bound_ms": towers_b[0], "composite_towers_lam_same_call_ms": lt[0],
+               "composite_iteration_ms": iteration_ms["shared trunk"],
+               "composite_towers_iteration_ms": iteration_ms["towers"],
+               "composite_engine_iteration_ms": iteration_ms["engine"]},
+        "K4": {"composite_launches": path["ppo_fused_grads_T"], "s8_max_abs_err": err["K4"],
+               **{f"s8_{'towers_' if layout == 'towers' else ''}{key}": value
+                  for layout, (ms, plain_ms, b) in k4.items()
+                  for key, value in (("ms", ms[0]), ("call_ms", ms[1]), ("plain_ms", plain_ms), ("bound_ms", b[0]))}},
+        "K5": {"composite_launches": path["det_rollout"], "composite_max_abs_err": err["K5"],
+               "fixed_composite_stats_ms": s_ms[0], "fixed_composite_stats_call_ms": s_ms[1],
+               "fixed_composite_stats_plain_ms": plain["K5"], "fixed_composite_stats_bound_ms": s_b[0],
+               "fixed_composite_stats_lam_same_call_ms": s_lam[0],
+               "fixed_composite_stats_general_instantiation_ms": s_gen[0],
+               "fixed_composite_streams_general_instantiation_ms": st_gen[0],
+               "fixed_composite_streams_ms": st_ms[0], "fixed_composite_streams_call_ms": st_ms[1],
+               "fixed_composite_streams_bound_ms": st_b[0], "fixed_composite_streams_lam_same_call_ms": st_lam[0],
+               "config14_call_ms": iteration_ms["config 14"], "config14_engine_ms": iteration_ms["config 14 engine"]},
+    }
 
 
 def as_phases(torch, np, card, dev):
@@ -2293,10 +2826,12 @@ def main():
     k3_pnl_ms = next(entry["ms"] for entry in kernels if entry["name"].startswith("K3"))
     cj_figures = cj_learning_phases(torch, np, card, dev, k3_pnl_ms)
     lam_figures = lam_touch_phases(torch, np, card, dev, k3_pnl_ms)
+    proc_figures = proc_phases(torch, np, card, dev, k3_pnl_ms)
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))
         entry.update(cj_figures.get(entry["name"][:2], {}))
         entry.update(lam_figures.get(entry["name"][:2], {}))
+        entry.update(proc_figures.get(entry["name"][:2], {}))
     kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
     for entry in rank_by_gap(kernels):
         print(f"rank [{card}] {entry['name']}: {entry['launches']} launches x ({entry['ms']} - {entry['bound_ms']}) ms "

@@ -20,7 +20,11 @@ the observation and reward transforms, and
 :func:`with_normalised_rewards` the reference's reward normalisation.  The
 at-the-touch and limit-and-market-order dynamics run on the engine, K3
 (PPO, including the reference's canonical learning env with its random
-initial inventory) and K5's fixed kind.
+initial inventory) and K5's fixed kind.  Every stochastic-process model
+of the JAX package (ten midprice, three arrival, four fill and four
+impact models) runs on the engine, K3 and K5, and so does the composite
+stress config :func:`composite_env_config` (Hawkes arrivals, exogenous
+competing-market-maker fills, limit and market orders).
 """
 
 from mbt_gym_torch.types import (
@@ -52,6 +56,7 @@ from mbt_gym_torch.ops.oe_episode import oe_episode_rewards
 from mbt_gym_torch.utils.config import (
     as_env_config,
     cj_env_config,
+    composite_env_config,
     lam_env_config,
     learning_env_config,
     oe_env_config,
@@ -85,6 +90,7 @@ __all__ = [
     "TrajectoryT",
     "as_env_config",
     "cj_env_config",
+    "composite_env_config",
     "cj_episode_rewards",
     "compute_inventory_neutral_reward_scaling",
     "default_dynamics",

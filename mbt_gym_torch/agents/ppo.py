@@ -23,6 +23,12 @@ pi/vf towers, the default, or ``shared_trunk=True``), routed as
 - both: the fully **fused** path, K3's feature-major buffers feeding K4
   directly, minibatches being contiguous env slices (``shuffle=False``).
 
+K4 and K7 take at most ``fused_ppo.MAX_S`` (8) observation columns: on a
+wider config (the all-axes composite, S = 9) ``fused_update`` is refused
+by name (:func:`fused_update_refusal`, issued as a ``RuntimeWarning``)
+and the update runs on autograd, after the K3 rollout where
+``fused_rollout`` asks for it.
+
 The optimizer is ``torch.optim.Adam`` after a global-norm clip written to
 optax's formula.  :class:`PPOTrainState` holds the model and its
 optimizer; :func:`train_iteration` returns a new state and leaves the one
@@ -35,6 +41,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import warnings
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -339,7 +346,7 @@ def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networ
     depends on ``log_std`` alone, enters the ``log_std`` grad here; Adam
     steps through ``p.grad``.  Updates ``params``/``optimizer`` in place
     and returns the mean metrics.  ``noise`` injects the rollout's
-    ``(T, n_noise_channels(A), N)`` channels and ``inv0`` the per-env
+    ``(T, p.n_channels, N)`` channels and ``inv0`` the per-env
     initial inventories of a random-inventory config (the parity tests)."""
     from mbt_gym_torch.ops import fused_ppo, mlp_rollout
 
@@ -390,13 +397,31 @@ def _fused_train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: 
 
 
 # ------------------------------------------------------------ entry points
+def fused_update_refusal(env_cfg: EnvConfig) -> Optional[str]:
+    """Why the update kernels K4 and K7 cannot take ``env_cfg``'s
+    minibatches, or None: they take at most ``fused_ppo.MAX_S`` observation
+    columns (widening K4 is ROADMAP Queue 2 A.3)."""
+    from mbt_gym_torch.ops.fused_ppo import MAX_S
+
+    if env_cfg.state_dim > MAX_S:
+        return (f"the fused update (K4/K7) takes S <= {MAX_S}; the config observes S = {env_cfg.state_dim}, "
+                "so its update runs on autograd")
+    return None
+
+
 def train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key,
                     noise: Optional[torch.Tensor] = None) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
     """rollout -> GAE -> n_epochs x n_minibatches updates; returns the new
     state and the mean metrics (``pg_loss``, ``vf_loss``, ``entropy``,
     ``approx_kl``, ``mean_episode_reward``).  ``key`` is an int seed or a
     ``torch.Generator`` on the parameters' device.  ``noise`` (fused
-    rollout only) injects K3's ``(T, n_noise_channels(A), N)`` channels."""
+    rollout only) injects K3's ``(T, p.n_channels, N)`` channels.  A
+    config that :func:`fused_update_refusal` refuses takes the autograd
+    update, and the refusal's reason is issued as a ``RuntimeWarning``."""
+    refusal = fused_update_refusal(env_cfg) if ppo_cfg.fused_update else None
+    if refusal is not None:
+        warnings.warn(refusal, RuntimeWarning, stacklevel=2)
+        ppo_cfg = dataclasses.replace(ppo_cfg, fused_update=False)
     if ppo_cfg.fused_rollout and ppo_cfg.fused_update:
         return _fused_train_iteration(env_cfg, ppo_cfg, train_state, key, noise=noise)
     device = _device_of(train_state.params)

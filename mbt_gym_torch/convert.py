@@ -20,7 +20,7 @@ lists.
   ``nn.Linear``), and :func:`mlp_from_numpy` / :func:`mlp_to_numpy` a
   plain MLP (``MlpParams``, REINFORCE's policy).
 
-A type that the port has not ported yet raises ``ValueError`` naming it.
+A type the port does not know raises ``ValueError`` naming it.
 """
 from __future__ import annotations
 
@@ -43,10 +43,7 @@ from mbt_gym_torch.dynamics import (
     TradingWithSpeedDynamics,
 )
 from mbt_gym_torch.env import EnvConfig, make_generator, resolve_device
-from mbt_gym_torch.processes.arrivals import PoissonArrivals
-from mbt_gym_torch.processes.fills import ExponentialFill
-from mbt_gym_torch.processes.impact import TemporaryAndPermanentImpact
-from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
+from mbt_gym_torch import processes
 from mbt_gym_torch.rewards import (
     CjMmCriterion,
     CjOeCriterion,
@@ -59,7 +56,7 @@ from mbt_gym_torch.types import EnvState
 _COMPONENTS = {
     cls.__name__: cls
     for cls in (
-        BrownianMotionMidprice, PoissonArrivals, ExponentialFill, TemporaryAndPermanentImpact,
+        *(getattr(processes, name) for name in dir(processes) if name[0].isupper() and name != "ProcessBase"),
         LimitOrderDynamics, AtTheTouchDynamics, LimitAndMarketOrderDynamics,
         TradingWithSpeedDynamics,
         PnL, RunningInventoryPenalty, CjMmCriterion, CjOeCriterion, ExponentialUtility,

@@ -62,6 +62,30 @@
 // H100): the inlined powf raised the register count, and the speed
 // dynamics took a 32-byte stack frame.
 //
+// Process kinds (template parameter kProc, proc_kinds.cuh): the plain
+// processes (BM midprice, linear Poisson arrivals, exponential fills,
+// temporary and permanent impact) run the instantiations above
+// (kProcPlain), whose code is the kernel's from before the other kinds
+// came.  Every other midprice model, the exact-probability Poisson and
+// Hawkes arrivals, the triangular, power and exogenous-market-maker fills
+// and the power and transient impacts run the general instantiation
+// (kProcGeneral) of each (dynamics, policy) pair the kernel takes, the
+// kinds runtime fields of p.proc, the inventory power the kAnyExp one; the
+// composite stress family's fixed quotes on lam dynamics (bench_suite
+// config 14: Hawkes arrivals, exogenous-MM fills with OU sides, BM
+// midprice) run an instantiation with those kinds fixed at compile time
+// (kProcComposite).  Its consumers carry the process states
+// (second midprice column, Hawkes intensities, exogenous depths, impact
+// state) in registers; its ring stages 8 draw channels a step on the
+// market-making dynamics (the five, the two exogenous normals, the second
+// midprice normal) and 2 on speed dynamics (the midprice normal and the
+// second midprice normal), the extra normals drawn from the midprice
+// normal's Philox call (draws.cuh: philox_extra_normals), so the five keep
+// their bits.  In noise mode the injected (T, p.proc.channels, N) noise is
+// placed by a noise map (step_pipeline.cuh).  The table kind's fill
+// probabilities come from the fill kind of the raw depth, not from the fill
+// tables.
+//
 // TPU-only parts not ported: the sublane `rows` packing, the VMEM tile
 // search, pltpu.prng_seed and the 1e-42 carry jitter.
 
@@ -72,9 +96,11 @@
 
 #include "draws.cuh"
 #include "inventory_power.cuh"
+#include "proc_kinds.cuh"
 #include "step_pipeline.cuh"
 
-constexpr int kMaxS = 5;
+constexpr int kMaxS = 16;
+constexpr int kPlainS = 5;  // the plain processes' observation: cash, inventory, time, price[, impact]
 constexpr int kMaxA = 4;
 
 // Mirrors DetKernelParams in mbt_gym_torch/ops/det_rollout.py (ctypes).
@@ -118,12 +144,14 @@ struct DetKernelParams {
   float inv_exp;      // inventory exponent
   float half_spread;  // lam and touch: the fixed market half-spread
   int mask_mo;        // lam: block market orders at +/- max_inventory
+  int proc_mode;      // mbt::ProcMode: the plain, general or composite instantiation
+  mbt::ProcParams proc;
   mbt::PipeGeometry pipe;
 };
 
 // Mirrors _DetBuffers: NULL where a mode does not use a buffer.
 struct DetBuffers {
-  const float* noise;     // (T, 5, N) or NULL (native Philox)
+  const float* noise;     // (T, 5, N) ((T, p.proc.channels, N) general) or NULL (native Philox)
   const float* inv0;      // (N,) or NULL (initial_inventory for all)
   const float* bid;       // table policy: (rows, table_width)
   const float* ask;
@@ -160,9 +188,9 @@ __device__ __forceinline__ float q_exp(float x, float e) {
 // The observation planes of a state, normalised per the config.
 __device__ __forceinline__ void write_obs(const DetKernelParams& p, float* out, size_t stride,
                                           float cash, float inv, float t, float price, float imp) {
-  const float planes[kMaxS] = {cash, inv, t, price, imp};
+  const float planes[kPlainS] = {cash, inv, t, price, imp};
 #pragma unroll
-  for (int c = 0; c < kMaxS; ++c) {
+  for (int c = 0; c < kPlainS; ++c) {
     if (c < p.s_dim) {
       float x = planes[c];
       if (p.normalise_obs) x = (x - p.obs_low[c]) / p.obs_grad[c] - 1.0f;
@@ -170,6 +198,36 @@ __device__ __forceinline__ void write_obs(const DetKernelParams& p, float* out, 
     }
   }
 }
+
+// The general kinds' observation planes: the process states follow the price.
+template <int kProc>
+__device__ __forceinline__ void write_obs_general(const DetKernelParams& p, float* out, size_t stride, float cash,
+                                                  float inv, float t, float price, const mbt::ProcState& ps) {
+  for (int c = 0; c < p.s_dim; ++c) {
+    float x = c == 0 ? cash : c == 1 ? inv : c == 2 ? t : c == 3 ? price : mbt::proc_plane<kProc>(p.proc, ps, c - 4);
+    if (p.normalise_obs) x = (x - p.obs_low[c]) / p.obs_grad[c] - 1.0f;
+    out[c * stride] = x;
+  }
+}
+
+// The general kinds' noise map (step_pipeline.cuh), read from the params:
+// ring channels 0-4 are the five, then the exogenous normals and the second
+// midprice normal where the config has them (on speed dynamics the ring
+// holds the midprice normal and the second midprice normal).  A channel the
+// config lacks maps to the midprice normal's, never read.
+template <int kDyn>
+struct ProcNoiseMap {
+  const mbt::ProcParams& q;
+  __device__ int channels() const { return q.channels; }
+  __device__ bool extras() const { return q.ch_exo >= 0 || q.ch_mid2 >= 0; }
+  __device__ int of(int c) const {
+    const int mid2 = q.ch_mid2 >= 0 ? q.ch_mid2 : 4;
+    if (kDyn == kSpeed) return c == 0 ? 4 : mid2;
+    if (c < 5) return c;
+    if (c < 7) return q.ch_exo >= 0 ? q.ch_exo + (c - 5) : 4;
+    return mid2;
+  }
+};
 
 // The table kind's fill probabilities exp(-k * depth) of every table entry
 // the episode's rows hold, computed once per call (the expf the env step
@@ -184,14 +242,15 @@ __global__ void fill_table_kernel(float neg_k, const float* __restrict__ bid, co
   }
 }
 
-template <bool kNoise, int kDyn, int kPol, bool kStats, bool kAnyExp>
+template <bool kNoise, int kDyn, int kPol, bool kStats, bool kAnyExp, int kProc = mbt::kProcPlain>
 __global__ void __launch_bounds__(mbt::kMaxPipeThreads)
 det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t seed) {
   extern __shared__ __align__(16) unsigned char smem[];
   const mbt::StepRing ring(p.pipe, smem);
   const int warp = threadIdx.x >> 5;
   const int env0 = blockIdx.x * p.pipe.envs;
-  constexpr int kChannels = kDyn == kSpeed ? 1 : 5;
+  constexpr bool kGen = kProc != mbt::kProcPlain;
+  constexpr int kChannels = kGen ? (kDyn == kSpeed ? 2 : 8) : (kDyn == kSpeed ? 1 : 5);
   if (warp >= ring.consumer_warps()) {
     const float* bid = b.bid;
     const float* ask = b.ask;
@@ -199,11 +258,16 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
     const float* fill_ask = b.fill_ask;
     const int t_off = p.t_off, width = p.table_width;
     // a step's rows of the four tables: bid, ask and their fill probabilities
-    ring.produce<kNoise, kChannels>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, b.noise,
-                                    [=](int r, int i) {
-                                      const float* table = r == 0 ? bid : r == 1 ? ask : r == 2 ? fill_bid : fill_ask;
-                                      return table + static_cast<size_t>(t_off + i) * width;
-                                    });
+    auto table_row = [=](int r, int i) {
+      const float* table = r == 0 ? bid : r == 1 ? ask : r == 2 ? fill_bid : fill_ask;
+      return table + static_cast<size_t>(t_off + i) * width;
+    };
+    if constexpr (kGen) {
+      ring.produce<kNoise, kChannels, 5>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, b.noise, table_row,
+                                         ProcNoiseMap<kDyn>{p.proc});
+    } else {
+      ring.produce<kNoise, kChannels>(warp - ring.consumer_warps(), p.run_steps, env0, n, seed, b.noise, table_row);
+    }
     return;
   }
   const int ts = mbt::table_stride(p.pipe);
@@ -217,9 +281,19 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   float price = p.initial_price;
   float imp = 0.0f;
   float rsum = 0.0f, ssum = 0.0f;
+  [[maybe_unused]] mbt::ProcState ps{};
+  if constexpr (kGen) ps = mbt::proc_initial(p.proc);
   ring.consume(p.run_steps, [&](int slot, int c0, int steps) {
-    const mbt::SlotDraws<kNoise, kChannels> draws{ring.draws(slot) + e_local, b.noise + env0, n,
-                                                  mbt::draw_stride(p.pipe)};
+    using SlotDraws = std::conditional_t<kGen, mbt::MappedSlotDraws<kNoise, kChannels, ProcNoiseMap<kDyn>>,
+                                         mbt::SlotDraws<kNoise, kChannels>>;
+    const SlotDraws draws = [&] {
+      if constexpr (kGen) {
+        return SlotDraws{ring.draws(slot) + e_local, b.noise + env0, n, mbt::draw_stride(p.pipe),
+                         ProcNoiseMap<kDyn>{p.proc}};
+      } else {
+        return SlotDraws{ring.draws(slot) + e_local, b.noise + env0, n, mbt::draw_stride(p.pipe)};
+      }
+    }();
     // the slot's rows of the four tables, each run landed at its granule shift
     const size_t first_row = static_cast<size_t>(p.t_off + c0) * p.table_width;
     const float* bid_rows = ring.table(slot) + mbt::granule_shift(b.bid + first_row);
@@ -279,7 +353,11 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
           if (active) {
             const float t = p.start_time + static_cast<float>(i) * p.dt;
             const size_t o = static_cast<size_t>(i) * p.s_dim * sn + env;
-            write_obs(p, b.obs + o, sn, cash, inv, t, price, imp);
+            if constexpr (kGen) {
+              write_obs_general<kProc>(p, b.obs + o, sn, cash, inv, t, price, ps);
+            } else {
+              write_obs(p, b.obs + o, sn, cash, inv, t, price, imp);
+            }
             const size_t a = static_cast<size_t>(i) * p.a_dim * sn + env;
             b.act[a] = raw0;
             if constexpr (kDyn != kSpeed) b.act[a + sn] = raw1;
@@ -291,7 +369,37 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
         }
         // ---- env step (TradingEnvironment.py:198-216 order)
         float new_cash, new_inv, normal;
-        if constexpr (kDyn == kLimit) {
+        [[maybe_unused]] float hit_bid = 0.0f, hit_ask = 0.0f, n_mid2 = 0.0f;
+        if constexpr (kGen) {  // the process kinds of p.proc (proc_kinds.cuh)
+          if constexpr (kDyn == kSpeed) {
+            normal = draws.at(j, i, 0);
+            if (p.proc.has_mid2) n_mid2 = draws.at(j, i, 1);
+            const float impact = mbt::speed_impact(p.proc, p.temporary_impact, p.permanent_impact, ps, exe0);
+            const float volume = exe0 * p.dt;
+            new_inv = inv + volume;
+            new_cash = cash - volume * (price + impact);
+          } else {
+            constexpr int kMarket = kDyn == kLam ? mbt::kMarketLam : kDyn == kTouch ? mbt::kMarketTouch
+                                                                                     : mbt::kMarketLimit;
+            const mbt::Draws d = draws.limit(j, i);
+            const mbt::Kinds<kProc> kinds{p.proc};
+            float exo_nb = 0.0f, exo_na = 0.0f;
+            if (kinds.fill() == mbt::kFillExoMm) {
+              exo_nb = draws.at(j, i, 5);
+              exo_na = draws.at(j, i, 6);
+            }
+            if (kinds.has_mid2()) n_mid2 = draws.at(j, i, 7);
+            const float u[4] = {d.u_ab, d.u_aa, d.u_fb, d.u_fa};
+            const float exe[4] = {exe0, exe1, exe2, exe3};
+            const mbt::MarketOut m =
+                mbt::market_step<kMarket, kProc>(p, ps, u, exo_nb, exo_na, exe, cash, inv, price);
+            new_inv = m.inv;
+            new_cash = m.cash;
+            hit_bid = m.hit_bid;
+            hit_ask = m.hit_ask;
+            normal = d.normal;
+          }
+        } else if constexpr (kDyn == kLimit) {
           const mbt::Draws d = draws.limit(j, i);
           if constexpr (kPol != kTable) {
             fill_p0 = expf(p.neg_k * exe0);
@@ -347,7 +455,14 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
         }
         new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
         new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
-        const float new_price = price + p.drift_dt + p.vol_sqrt_dt * normal;
+        const float new_price = [&] {
+          if constexpr (kGen) {
+            return mbt::midprice_step<kProc>(p.proc, p.drift_dt, p.vol_sqrt_dt, ps, price, normal, n_mid2, hit_bid,
+                                             hit_ask);
+          } else {
+            return price + p.drift_dt + p.vol_sqrt_dt * normal;
+          }
+        }();
         // ---- reward at the post-step state (RewardFunctions.py)
         float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
         const float q_new = q_exp<kAnyExp>(new_inv, p.inv_exp);
@@ -387,7 +502,13 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
     b.rsum[env] = rsum;
     b.ssum[env] = ssum;
   } else {
-    if (b.fin) write_obs(p, b.fin + env, sn, cash, inv, p.t_term, price, imp);
+    if (b.fin) {
+      if constexpr (kGen) {
+        write_obs_general<kProc>(p, b.fin + env, sn, cash, inv, p.t_term, price, ps);
+      } else {
+        write_obs(p, b.fin + env, sn, cash, inv, p.t_term, price, imp);
+      }
+    }
   }
 }
 
@@ -400,9 +521,29 @@ cudaError_t launch_exp(const DetKernelParams& p, const DetBuffers& b, int n, uin
                                       seed);
 }
 
+// The general kinds (and the composite family's): one instantiation per
+// (dynamics, policy, mode), at any inventory exponent.
+template <bool kNoise, int kDyn, int kPol, int kProc>
+cudaError_t launch_general(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
+                           cudaStream_t s) {
+  return stats ? mbt::launch_pipeline(det_rollout_kernel<kNoise, kDyn, kPol, true, true, kProc>, p.pipe, n, s, p, b, n,
+                                      seed)
+               : mbt::launch_pipeline(det_rollout_kernel<kNoise, kDyn, kPol, false, true, kProc>, p.pipe, n, s, p, b,
+                                      n, seed);
+}
+
 template <bool kNoise, int kDyn, int kPol>
 cudaError_t launch_mode(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
                         cudaStream_t s) {
+  if constexpr (kDyn == kLam && kPol == kFixed) {
+    if (p.proc_mode == mbt::kProcComposite) {
+      return launch_general<kNoise, kDyn, kPol, mbt::kProcComposite>(p, b, n, seed, stats, s);
+    }
+  }
+  if (p.proc_mode == mbt::kProcGeneral) {
+    return launch_general<kNoise, kDyn, kPol, mbt::kProcGeneral>(p, b, n, seed, stats, s);
+  }
+  if (p.proc_mode != mbt::kProcPlain) return cudaErrorInvalidValue;
   return p.inv_exp == 2.0f ? launch_exp<kNoise, kDyn, kPol, false>(p, b, n, seed, stats, s)
                            : launch_exp<kNoise, kDyn, kPol, true>(p, b, n, seed, stats, s);
 }
@@ -448,7 +589,9 @@ bool pipe_ok(const DetKernelParams& p) {
   // which is what the step exponentiates only when actions are not rescaled
   if (p.policy == kTable && p.normalise_act) return false;
   const bool table_ok = !g.staged || (p.policy == kTable && g.table_rows == 4 && g.row_floats == p.table_width);
-  return mbt::pipe_shape_ok(g, p.dynamics == kSpeed ? 1 : 5) && table_ok;
+  const int channels = p.proc_mode ? (p.dynamics == kSpeed ? 2 : 8) : (p.dynamics == kSpeed ? 1 : 5);
+  // the plain processes observe at most kPlainS planes
+  return mbt::pipe_shape_ok(g, channels) && table_ok && (p.proc_mode || p.s_dim <= kPlainS);
 }
 
 }  // namespace

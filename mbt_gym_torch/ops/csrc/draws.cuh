@@ -41,6 +41,26 @@ __device__ __forceinline__ Draws philox_draws(uint32_t seed, uint32_t env, uint3
   return d;
 }
 
+// The general process kinds' extra normals (K5, det_rollout.cu), from the
+// midprice normal's own Philox call at counter (step, 1): its first pair
+// (r0, theta0), words x and y, gives the midprice normal r0 cos theta0 (the
+// bits of philox_normal) and the exogenous bid's r0 sin theta0; its second
+// pair (r1, theta1), words z and w, the exogenous ask's r1 cos theta1 and
+// the second midprice column's r1 sin theta1.
+// mbt_gym_torch/ops/det_rollout.py::philox_noise reproduces them.
+struct ExtraNormals {
+  float normal, exo_bid, exo_ask, mid2;
+};
+
+__device__ __forceinline__ ExtraNormals philox_extra_normals(uint32_t seed, uint32_t env, uint32_t step) {
+  const uint4 b = philox4x32_10(make_uint4(step, 1u, 0u, 0u), make_uint2(seed, env));
+  const float r0 = sqrtf(-2.0f * logf(1.0f - uniform24(b.x)));
+  const float th0 = kTwoPi * uniform24(b.y);
+  const float r1 = sqrtf(-2.0f * logf(1.0f - uniform24(b.z)));
+  const float th1 = kTwoPi * uniform24(b.w);
+  return ExtraNormals{r0 * cosf(th0), r0 * sinf(th0), r1 * cosf(th1), r1 * sinf(th1)};
+}
+
 __device__ __forceinline__ Draws noise_draws(const float* __restrict__ noise, int n, int env, int step) {
   const size_t base = static_cast<size_t>(step) * 5 * n + env;
   Draws d;

@@ -118,15 +118,37 @@
 // 512 threads, so the longer branch costs the step little (CjMm +0.6% at
 // config 5).
 //
+// Process kinds (template parameter kProc, proc_kinds.cuh): the plain
+// processes (BM midprice, linear Poisson arrivals, exponential fills) run
+// the instantiations above (kProcPlain), whose code is the kernel's from
+// before the other kinds came; every other midprice model, the
+// exact-probability Poisson and Hawkes arrivals, the triangular, power and
+// exogenous-market-maker fills run each dynamics kind's general
+// instantiation (kProcGeneral), the kinds runtime fields of p.proc (the
+// same choice as K5's inventory exponent: a new kind is a new
+// instantiation, not a branch in the old code).  The composite stress
+// family (bench_suite config 10) runs the lam kind's general instantiation
+// too: one with its kinds fixed at compile time saved 2.2% of K3's time on
+// the H100, too little to pay for two more kernels.  These carry the
+// process states (the second midprice column, the Hawkes intensities,
+// the exogenous depths) in the env threads' registers and observe them
+// after the price, S up to 16 (layer 0's padded k).
+//
 // Noise: noise mode reads (T, 7, N) channels in the JAX order (u_arr_bid,
 // u_arr_ask, u_fill_bid, u_fill_ask, eps0, eps1, mid normal); the lam kind
-// reads (T, 9, N), eps0..eps3 then the mid normal.  Native mode draws
+// reads (T, 9, N), eps0..eps3 then the mid normal; the general kinds add the
+// exogenous normals and the second midprice normal after it
+// (p.proc.channels a step, at p.proc.ch_exo and p.proc.ch_mid2).  Native mode draws
 // Philox4x32-10 keyed by (seed, env) with counter (step, draw, 0, 0):
 // draw 0 gives the four uniforms, draw 1 four Box-Muller uniforms
 // u0..u3 -> r_j = sqrt(-2 log(1 - u_j)), theta_j = 2 pi u_{2+j};
 // eps0 = r0 cos theta0, eps1 = r1 cos theta1, mid = r0 sin theta0.  The
 // lam kind takes draw 2 as well, one more pair: r2 from its first word,
 // theta2 from its second, eps2 = r2 cos theta2, eps3 = r2 sin theta2.
+// The general kinds' extra normals: the exogenous bid's is draw 1's spare
+// r1 sin theta1, and draw 3 gives one more pair (r3 from its first word,
+// theta3 from its second): the exogenous ask's r3 cos theta3 and the second
+// midprice column's r3 sin theta3.
 
 #include <cstdint>
 #include <type_traits>
@@ -138,9 +160,10 @@
 #include "inventory_power.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
+#include "proc_kinds.cuh"
 
 constexpr int kMaxLayers = 8;
-constexpr int kMaxObs = 8;
+constexpr int kMaxObs = 16;
 constexpr int kMaxAct = 4;
 
 // Mirrors MlpKernelParams in mbt_gym_torch/ops/mlp_rollout.py (ctypes).
@@ -178,6 +201,8 @@ struct MlpKernelParams {
   int dynamics;      // 0 limit, 1 lam, 2 touch
   int mask_mo;       // lam: block market orders at +/- max_inventory
   float half_spread; // lam and touch: the fixed market half-spread
+  int proc_mode;     // mbt::ProcMode: the plain or the general instantiation
+  mbt::ProcParams proc;
 };
 
 struct RolloutOut {
@@ -199,14 +224,16 @@ constexpr int kNoiseChannels = kDyn == kLam ? 9 : 7;
 
 struct Draws {
   float u_ab, u_aa, u_fb, u_fa, eps0, eps1, mid;
-  float eps2, eps3;  // lam only
+  float eps2, eps3;             // lam only
+  float exo_b, exo_a, mid2;     // the general kinds only
 };
 
-template <int kDyn>
-__device__ __forceinline__ Draws draws_at(const float* noise, int n, uint32_t seed, int env, int step) {
+template <int kDyn, int kProc>
+__device__ __forceinline__ Draws draws_at(const MlpKernelParams& p, const float* noise, int n, uint32_t seed, int env,
+                                          int step) {
   Draws d;
   if (noise) {
-    constexpr int kCh = kNoiseChannels<kDyn>;
+    const int kCh = kProc != mbt::kProcPlain ? p.proc.channels : kNoiseChannels<kDyn>;
     const size_t base = static_cast<size_t>(step) * kCh * n + env;
     d.u_ab = noise[base];
     d.u_aa = noise[base + static_cast<size_t>(n)];
@@ -218,7 +245,16 @@ __device__ __forceinline__ Draws draws_at(const float* noise, int n, uint32_t se
       d.eps2 = noise[base + 6 * static_cast<size_t>(n)];
       d.eps3 = noise[base + 7 * static_cast<size_t>(n)];
     }
-    d.mid = noise[base + (kCh - 1) * static_cast<size_t>(n)];
+    if constexpr (kProc != mbt::kProcPlain) {
+      d.mid = noise[base + (4 + (kDyn == kLam ? 4 : 2)) * static_cast<size_t>(n)];
+      if (p.proc.ch_exo >= 0) {
+        d.exo_b = noise[base + p.proc.ch_exo * static_cast<size_t>(n)];
+        d.exo_a = noise[base + (p.proc.ch_exo + 1) * static_cast<size_t>(n)];
+      }
+      if (p.proc.ch_mid2 >= 0) d.mid2 = noise[base + p.proc.ch_mid2 * static_cast<size_t>(n)];
+    } else {
+      d.mid = noise[base + (kCh - 1) * static_cast<size_t>(n)];
+    }
     return d;
   }
   const uint2 key = make_uint2(seed, static_cast<uint32_t>(env));
@@ -241,6 +277,16 @@ __device__ __forceinline__ Draws draws_at(const float* noise, int n, uint32_t se
     const float th2 = mbt::kTwoPi * mbt::uniform24(c.y);
     d.eps2 = r2 * cosf(th2);
     d.eps3 = r2 * sinf(th2);
+  }
+  if constexpr (kProc != mbt::kProcPlain) {
+    if (p.proc.ch_exo >= 0 || p.proc.ch_mid2 >= 0) {
+      const uint4 e = mbt::philox4x32_10(make_uint4(static_cast<uint32_t>(step), 3u, 0u, 0u), key);
+      const float r3 = sqrtf(-2.0f * logf(1.0f - mbt::uniform24(e.x)));
+      const float th3 = mbt::kTwoPi * mbt::uniform24(e.y);
+      d.exo_b = r1 * sinf(th1);
+      d.exo_a = r3 * cosf(th3);
+      d.mid2 = r3 * sinf(th3);
+    }
   }
   return d;
 }
@@ -266,11 +312,19 @@ __device__ __forceinline__ EnvState initial_state(const MlpKernelParams& p, cons
   return s;
 }
 
-// Observation channel c before step i (pallas_rollout.py:724-754).
-__device__ __forceinline__ float observation(const MlpKernelParams& p, const EnvState& s, int i, int c) {
+// Observation channel c before step i (pallas_rollout.py:724-754); the
+// general kinds' process states follow the price.
+template <int kProc>
+__device__ __forceinline__ float observation(const MlpKernelParams& p, const EnvState& s, const mbt::ProcState& ps,
+                                             int i, int c) {
   const float t = p.start_time + static_cast<float>(i) * p.dt;
-  const float planes[4] = {s.cash, s.inv, t, s.price};
-  float x = planes[c];
+  float x;
+  if constexpr (kProc != mbt::kProcPlain) {
+    x = c == 0 ? s.cash : c == 1 ? s.inv : c == 2 ? t : c == 3 ? s.price : mbt::proc_plane<kProc>(p.proc, ps, c - 4);
+  } else {
+    const float planes[4] = {s.cash, s.inv, t, s.price};
+    x = planes[c];
+  }
   if (p.normalise_obs) x = (x - p.obs_low[c]) / p.obs_grad[c] - 1.0f;
   return x;
 }
@@ -278,9 +332,9 @@ __device__ __forceinline__ float observation(const MlpKernelParams& p, const Env
 // Step i of one env from its head output `mean`: the sample, its log-prob,
 // the executed action and the env step of the dynamics kind; writes the
 // action, log-prob and reward of the step and advances the state.
-template <int kDyn>
+template <int kDyn, int kProc>
 __device__ __forceinline__ void env_step(const MlpKernelParams& p, const Draws& d, const float* mean, EnvState& s,
-                                         const RolloutOut& out, int n, int env, int i) {
+                                         mbt::ProcState& ps, const RolloutOut& out, int n, int env, int i) {
   float eps[kDyn == kLam ? 4 : 2];
   eps[0] = d.eps0;
   eps[1] = d.eps1;
@@ -302,40 +356,51 @@ __device__ __forceinline__ void env_step(const MlpKernelParams& p, const Draws& 
   }
   lp = lp - p.logp_const;
 
-  const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
-  const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
-  float new_inv, new_cash;
-  if constexpr (kDyn == kTouch) {  // the fills are the clipped post columns
-    const float hit_bid = arr_bid * (exec[0] * (s.inv < p.max_inventory ? 1.0f : 0.0f));
-    const float hit_ask = arr_ask * (exec[1] * (s.inv > -p.max_inventory ? 1.0f : 0.0f));
-    new_inv = s.inv + hit_bid - hit_ask;
-    new_cash = s.cash - hit_bid * (s.price - p.half_spread) + hit_ask * (s.price + p.half_spread);
+  float new_inv, new_cash, new_price;
+  if constexpr (kProc != mbt::kProcPlain) {  // the process kinds of p.proc
+    constexpr int kMarket = kDyn == kLam ? mbt::kMarketLam : kDyn == kTouch ? mbt::kMarketTouch : mbt::kMarketLimit;
+    const float u[4] = {d.u_ab, d.u_aa, d.u_fb, d.u_fa};
+    const mbt::MarketOut m =
+        mbt::market_step<kMarket, kProc>(p, ps, u, d.exo_b, d.exo_a, exec, s.cash, s.inv, s.price);
+    new_inv = fminf(fmaxf(m.inv, -p.max_inventory), p.max_inventory);
+    new_cash = fminf(fmaxf(m.cash, -p.max_cash), p.max_cash);
+    new_price = mbt::midprice_step<kProc>(p.proc, p.drift_dt, p.vol_sqrt_dt, ps, s.price, d.mid, d.mid2, m.hit_bid,
+                                          m.hit_ask);
   } else {
-    const float bid = exec[0], ask = exec[1];
-    float fill_bid = d.u_fb < expf(p.neg_k * bid) ? 1.0f : 0.0f;
-    float fill_ask = d.u_fa < expf(p.neg_k * ask) ? 1.0f : 0.0f;
-    fill_bid = fill_bid * (s.inv < p.max_inventory ? 1.0f : 0.0f);
-    fill_ask = fill_ask * (s.inv > -p.max_inventory ? 1.0f : 0.0f);
-    const float hit_bid = arr_bid * fill_bid;
-    const float hit_ask = arr_ask * fill_ask;
-    if constexpr (kDyn == kLam) {  // unit market orders before the limit bookkeeping
-      float mo_buy = exec[2] > 0.5f ? 1.0f : 0.0f;
-      float mo_sell = exec[3] > 0.5f ? 1.0f : 0.0f;
-      if (p.mask_mo) {
-        mo_buy = mo_buy * (s.inv < p.max_inventory ? 1.0f : 0.0f);
-        mo_sell = mo_sell * (s.inv > -p.max_inventory ? 1.0f : 0.0f);
-      }
-      new_inv = s.inv + (mo_buy - mo_sell) + hit_bid - hit_ask;
-      new_cash = s.cash + mo_sell * (s.price - p.half_spread) - mo_buy * (s.price + p.half_spread) -
-                 hit_bid * (s.price - bid) + hit_ask * (s.price + ask);
-    } else {
+    const float arr_bid = d.u_ab < p.p_arr_bid ? 1.0f : 0.0f;
+    const float arr_ask = d.u_aa < p.p_arr_ask ? 1.0f : 0.0f;
+    if constexpr (kDyn == kTouch) {  // the fills are the clipped post columns
+      const float hit_bid = arr_bid * (exec[0] * (s.inv < p.max_inventory ? 1.0f : 0.0f));
+      const float hit_ask = arr_ask * (exec[1] * (s.inv > -p.max_inventory ? 1.0f : 0.0f));
       new_inv = s.inv + hit_bid - hit_ask;
-      new_cash = s.cash - hit_bid * (s.price - bid) + hit_ask * (s.price + ask);
+      new_cash = s.cash - hit_bid * (s.price - p.half_spread) + hit_ask * (s.price + p.half_spread);
+    } else {
+      const float bid = exec[0], ask = exec[1];
+      float fill_bid = d.u_fb < expf(p.neg_k * bid) ? 1.0f : 0.0f;
+      float fill_ask = d.u_fa < expf(p.neg_k * ask) ? 1.0f : 0.0f;
+      fill_bid = fill_bid * (s.inv < p.max_inventory ? 1.0f : 0.0f);
+      fill_ask = fill_ask * (s.inv > -p.max_inventory ? 1.0f : 0.0f);
+      const float hit_bid = arr_bid * fill_bid;
+      const float hit_ask = arr_ask * fill_ask;
+      if constexpr (kDyn == kLam) {  // unit market orders before the limit bookkeeping
+        float mo_buy = exec[2] > 0.5f ? 1.0f : 0.0f;
+        float mo_sell = exec[3] > 0.5f ? 1.0f : 0.0f;
+        if (p.mask_mo) {
+          mo_buy = mo_buy * (s.inv < p.max_inventory ? 1.0f : 0.0f);
+          mo_sell = mo_sell * (s.inv > -p.max_inventory ? 1.0f : 0.0f);
+        }
+        new_inv = s.inv + (mo_buy - mo_sell) + hit_bid - hit_ask;
+        new_cash = s.cash + mo_sell * (s.price - p.half_spread) - mo_buy * (s.price + p.half_spread) -
+                   hit_bid * (s.price - bid) + hit_ask * (s.price + ask);
+      } else {
+        new_inv = s.inv + hit_bid - hit_ask;
+        new_cash = s.cash - hit_bid * (s.price - bid) + hit_ask * (s.price + ask);
+      }
     }
+    new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
+    new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
+    new_price = s.price + p.drift_dt + p.vol_sqrt_dt * d.mid;
   }
-  new_inv = fminf(fmaxf(new_inv, -p.max_inventory), p.max_inventory);
-  new_cash = fminf(fmaxf(new_cash, -p.max_cash), p.max_cash);
-  const float new_price = s.price + p.drift_dt + p.vol_sqrt_dt * d.mid;
   float reward = (new_cash + new_inv * new_price) - (s.cash + s.inv * s.price);
   if (p.reward != kPnl) {
     const float q_new = mbt::q_pow(new_inv, p.inv_exp);
@@ -449,7 +514,7 @@ __device__ void forward(const MlpKernelParams& p, const float* w, const Smem& sm
 // `vf.w` is NULL for the shared trunk, whose merged head (A+1 rows, the
 // value last) is `pi`'s; with towers `pi` holds the pi tower and its A head
 // rows and `vf` the vf tower and its value row.
-template <int kDyn>
+template <int kDyn, int kProc>
 __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
                         const float* __restrict__ inv0, const TowerWeights<float>& pi, const TowerWeights<float>& vf,
                         const Layout& lay, const float* __restrict__ log_std, const RolloutOut& out) {
@@ -468,13 +533,14 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
   stage(pi, sm, lay.b_total, h_last);
   const int env = blockIdx.x * kE + tid;
   EnvState s = initial_state(p, log_std, tid < kE ? inv0 : nullptr, env);
+  mbt::ProcState ps = mbt::proc_initial(p.proc);
   __syncthreads();
 
   // ---- phase 1: the episode with the pi tower (or the shared trunk)
   for (int i = 0; i < p.run_steps; ++i) {
     if (tid < kE) {
       for (int c = 0; c < p.s_dim; ++c) {
-        const float x = observation(p, s, i, c);
+        const float x = observation<kProc>(p, s, ps, i, c);
         out.obs[(static_cast<size_t>(i) * p.s_dim + c) * n + env] = x;
         sm.act0[c * kE + tid] = x;
       }
@@ -488,7 +554,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
       float mean[kMaxAct];
       for (int a = 0; a < p.a_dim; ++a) mean[a] = sm.head_o[a * kE + tid];
       if (!vf.w) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[p.a_dim * kE + tid];
-      env_step<kDyn>(p, draws_at<kDyn>(noise, n, seed, env, i), mean, s, out, n, env, i);
+      env_step<kDyn, kProc>(p, draws_at<kDyn, kProc>(p, noise, n, seed, env, i), mean, s, ps, out, n, env, i);
     }
     // the next step's observation writes act0 only after this step's head
     // has read the trunk output (the barrier that ends forward), and its
@@ -688,7 +754,7 @@ __device__ void forward(const MlpKernelParams& p, const Smem& sm, const Layout& 
   head_product<kHead<kDyn>>(sm.head_w, r_dim, sm.act, sm.head_o);
 }
 
-template <int kDyn>
+template <int kDyn, int kProc>
 __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
                         const float* __restrict__ inv0, const TowerWeights<__nv_bfloat16>& pi,
                         const TowerWeights<__nv_bfloat16>& vf, const Layout& lay,
@@ -714,6 +780,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
   const int env = blockIdx.x * kE + tid;
   const bool active = env_thread && env < n;  // the last tile may be ragged
   EnvState s = initial_state(p, log_std, active ? inv0 : nullptr, env);
+  mbt::ProcState ps = mbt::proc_initial(p.proc);
   // this thread's column of the observation tile before step i; envs past
   // n take zeros and store nothing
   auto load_obs = [&](int i, bool from_out) {
@@ -724,7 +791,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
         if (from_out) {
           x = out.obs[o];  // this thread wrote it in phase 1
         } else {
-          x = observation(p, s, i, c);
+          x = observation<kProc>(p, s, ps, i, c);
           out.obs[o] = x;
         }
       }
@@ -742,7 +809,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
       float mean[kMaxAct];
       for (int a = 0; a < p.a_dim; ++a) mean[a] = sm.head_o[a * kE + tid] + pi.b_head[a];
       if (!vf.w) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[p.a_dim * kE + tid] + pi.b_head[p.a_dim];
-      env_step<kDyn>(p, draws_at<kDyn>(noise, n, seed, env, i), mean, s, out, n, env, i);
+      env_step<kDyn, kProc>(p, draws_at<kDyn, kProc>(p, noise, n, seed, env, i), mean, s, ps, out, n, env, i);
     }
     if (env_thread && i + 1 < p.run_steps) load_obs(i + 1, false);
     __syncthreads();  // the observation tile and the head are read before they are rewritten
@@ -791,20 +858,20 @@ Layout layout(const MlpKernelParams& p, bool staged, int head_rows) {
 template <bool kBf16>
 using Weight = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
 
-template <bool kBf16, int kDyn>
+template <bool kBf16, int kDyn, int kProc>
 __global__ void __launch_bounds__(kBf16 ? tc::kThreads : cc::kThreads, 1)
 mlp_rollout_kernel(const MlpKernelParams p, int n, uint32_t seed, const float* __restrict__ noise,
                    const float* __restrict__ inv0, const TowerWeights<Weight<kBf16>> pi,
                    const TowerWeights<Weight<kBf16>> vf, const Layout lay, const float* __restrict__ log_std,
                    RolloutOut out) {
   if constexpr (kBf16) {
-    tc::rollout<kDyn>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out);
+    tc::rollout<kDyn, kProc>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out);
   } else {
-    cc::rollout<kDyn>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out);
+    cc::rollout<kDyn, kProc>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out);
   }
 }
 
-template <bool kBf16, int kDyn>
+template <bool kBf16, int kDyn, int kProc>
 int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const float* inv0,
            const void* const* pi, const void* const* vf, const float* log_std, const RolloutOut& out,
            cudaStream_t stream) {
@@ -835,10 +902,10 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
     threads = cc::kThreads;
     tile = cc::kE;
   }
-  cudaError_t err = cudaFuncSetAttribute(mlp_rollout_kernel<kBf16, kDyn>,
+  cudaError_t err = cudaFuncSetAttribute(mlp_rollout_kernel<kBf16, kDyn, kProc>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(lay.bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_rollout_kernel<kBf16, kDyn><<<(n + tile - 1) / tile, threads, lay.bytes, stream>>>(
+  mlp_rollout_kernel<kBf16, kDyn, kProc><<<(n + tile - 1) / tile, threads, lay.bytes, stream>>>(
       p, n, seed, noise, inv0, pi_w, vf_w, lay, log_std, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -848,8 +915,14 @@ int launch_dyn(const MlpKernelParams& p, int n, uint32_t seed, const float* nois
                const void* const* pi, const void* const* vf, const float* log_std, const RolloutOut& out,
                cudaStream_t s) {
   if (p.a_dim != (kDyn == kLam ? 4 : 2)) return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16) return launch<true, kDyn>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
-  return launch<false, kDyn>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
+  if (p.proc_mode == mbt::kProcGeneral) {
+    if (bf16) return launch<true, kDyn, mbt::kProcGeneral>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
+    return launch<false, kDyn, mbt::kProcGeneral>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
+  }
+  // the plain processes observe S = 4
+  if (p.proc_mode != mbt::kProcPlain || p.s_dim != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16) return launch<true, kDyn, mbt::kProcPlain>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
+  return launch<false, kDyn, mbt::kProcPlain>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
 }
 
 }  // namespace
@@ -869,7 +942,8 @@ int launch_dyn(const MlpKernelParams& p, int n, uint32_t seed, const float* nois
 // and `vf` is four NULLs.  Towers: `pi` is the pi tower with its A rows,
 // `vf` the vf tower with its value row, of equal widths.  n must be a
 // multiple of 32, every width a multiple of 4 and at most 256; A is 4 on
-// lam dynamics and 2 on the others.
+// lam dynamics and 2 on the others; S is 4 on the plain processes, at most
+// 16 on the general kinds (p.proc_mode).
 extern "C" int mbt_mlp_rollout(const MlpKernelParams* p, int device, int n, uint32_t seed,
                                const float* noise, const float* inv0, int bf16, const void* const* pi,
                                const void* const* vf, const float* log_std, float* obs, float* act, float* logp,

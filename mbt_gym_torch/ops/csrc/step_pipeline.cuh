@@ -40,7 +40,14 @@
 // holds one valid byte lies in a mapped page, so the copy cannot fault; the
 // extra floats are never read.  The injected noise has kNoiseChannels
 // channels per step: (T, 5, N) for the limit kernels and K5, whose speed
-// dynamics read channel 4, and (T, N) for K6.
+// dynamics read channel 4, and (T, N) for K6.  K5's general process kinds
+// (kMapped) stage 8 channels on the market-making dynamics (the five, then
+// the two exogenous normals and the second midprice normal) and 2 on speed
+// dynamics (the midprice normal, the second midprice normal); their noise
+// has a runtime channel count and places, given by a noise map: a type
+// with channels() (per step), of(c) (the noise channel ring channel c
+// holds; a ring channel the config does not use takes any valid one, never
+// read) and extras() (native mode draws the extra normals).
 //
 // One full and one empty mbarrier per slot.  Each producer warp arrives on
 // `full` once its lanes have written their draws (and one lane has
@@ -53,6 +60,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "draws.cuh"
@@ -178,6 +186,9 @@ __device__ __forceinline__ uint32_t granule_bytes(const float* src, int floats, 
   return static_cast<uint32_t>(((a + 4 * static_cast<uintptr_t>(floats) + 15) & ~static_cast<uintptr_t>(15)) - lo);
 }
 
+// The noise map of the kernels whose channels are fixed (noise_channel).
+struct FixedChannels {};
+
 // The channel of the injected noise that ring channel c of a step holds: a
 // one-channel kernel takes the midprice normal, channel 4 of (T, 5, N)
 // noise or the only one of (T, N).
@@ -241,9 +252,13 @@ class StepRing {
   // consecutive steps follow each other, row_floats apart, so a slot's rows
   // of one table are one bulk copy.  Producer warp 0 registers and starts
   // the slot's bulk copies.
-  template <bool kNoise, int kChannels, int kNoiseChannels = 5, class TableRow>
+  // With a noise map (K5's general kinds, kChannels 8 or 2) `map` places
+  // the noise channels and says whether native mode draws the extra
+  // normals (philox_extra_normals).
+  template <bool kNoise, int kChannels, int kNoiseChannels = 5, class TableRow, class NoiseMap = FixedChannels>
   __device__ void produce(int pw, int run_steps, int env0, int n, uint32_t seed, const float* __restrict__ noise,
-                          TableRow table_row) const {
+                          TableRow table_row, const NoiseMap& map = NoiseMap{}) const {
+    constexpr bool kMapped = !std::is_same<NoiseMap, FixedChannels>::value;
     const int groups = g_.envs >> 5;
     const int lane = threadIdx.x & 31;
     const int e_local = (pw % groups) * 32 + lane;
@@ -270,8 +285,12 @@ class StepRing {
               const int j = (k - table_runs) / kChannels, c = k - table_runs - j * kChannels;
               *dst = d + (j * kChannels + c) * ds;
               *floats = valid;
-              const int channel = noise_channel<kChannels, kNoiseChannels>(c);
-              return noise + (static_cast<size_t>(c0 + j) * kNoiseChannels + channel) * n + env0;
+              if constexpr (kMapped) {
+                return noise + (static_cast<size_t>(c0 + j) * map.channels() + map.of(c)) * n + env0;
+              } else {
+                const int channel = noise_channel<kChannels, kNoiseChannels>(c);
+                return noise + (static_cast<size_t>(c0 + j) * kNoiseChannels + channel) * n + env0;
+              }
             }
           }
           *dst = t + k * ts;
@@ -310,6 +329,30 @@ class StepRing {
             out[2 * ds] = v.u_fb;
             out[3 * ds] = v.u_fa;
             out[4 * ds] = v.normal;
+          } else if constexpr (kChannels == 8) {
+            const uint4 a = philox4x32_10(make_uint4(static_cast<uint32_t>(i), 0u, 0u, 0u),
+                                          make_uint2(seed, static_cast<uint32_t>(env)));
+            out[0] = uniform24(a.x);
+            out[ds] = uniform24(a.y);
+            out[2 * ds] = uniform24(a.z);
+            out[3 * ds] = uniform24(a.w);
+            if (map.extras()) {
+              const ExtraNormals e = philox_extra_normals(seed, static_cast<uint32_t>(env), static_cast<uint32_t>(i));
+              out[4 * ds] = e.normal;
+              out[5 * ds] = e.exo_bid;
+              out[6 * ds] = e.exo_ask;
+              out[7 * ds] = e.mid2;
+            } else {
+              out[4 * ds] = philox_normal(seed, static_cast<uint32_t>(env), static_cast<uint32_t>(i));
+            }
+          } else if constexpr (kChannels == 2) {
+            if (map.extras()) {
+              const ExtraNormals e = philox_extra_normals(seed, static_cast<uint32_t>(env), static_cast<uint32_t>(i));
+              out[0] = e.normal;
+              out[ds] = e.mid2;
+            } else {
+              out[0] = philox_normal(seed, static_cast<uint32_t>(env), static_cast<uint32_t>(i));
+            }
           } else {
             out[0] = philox_normal(seed, static_cast<uint32_t>(env), static_cast<uint32_t>(i));
           }
@@ -346,6 +389,32 @@ struct SlotDraws {
     if constexpr (kNoise) {
       const int channel = noise_channel<kChannels, kNoiseChannels>(c);
       shift = granule_shift(noise + (static_cast<size_t>(i) * kNoiseChannels + channel) * n);
+    }
+    return slot[(j * kChannels + c) * stride + shift];
+  }
+  __device__ Draws limit(int j, int i) const {
+    Draws d;
+    d.u_ab = at(j, i, 0);
+    d.u_aa = at(j, i, 1);
+    d.u_fb = at(j, i, 2);
+    d.u_fa = at(j, i, 3);
+    d.normal = at(j, i, 4);
+    return d;
+  }
+};
+
+// SlotDraws for a ring whose noise channels a noise map places.
+template <bool kNoise, int kChannels, class NoiseMap>
+struct MappedSlotDraws {
+  const float* slot;
+  const float* noise;
+  int n;
+  int stride;
+  NoiseMap map;
+  __device__ float at(int j, int i, int c) const {
+    int shift = 0;
+    if constexpr (kNoise) {
+      shift = granule_shift(noise + (static_cast<size_t>(i) * map.channels() + map.of(c)) * n);
     }
     return slot[(j * kChannels + c) * stride + shift];
   }

@@ -17,12 +17,18 @@ on the H100 and what the design does about it).  The policy kinds:
 
 Ported scope: limit-order dynamics with PnL, the pathwise CJ criterion
 (``CjMmCriterion``) or the running inventory penalty, and trading-speed
-dynamics with temporary and permanent impact and PnL or the CJ execution
-criterion; for the fixed kind also the limit-and-market-order ("lam", 4
-action columns, with the optional market-order mask) and at-the-touch
-("touch", 2 post columns) dynamics with the market-making rewards; BM
-midprice, Poisson arrivals, exponential fills; any inventory exponent; a
-fixed start time; a random initial inventory through the ``inv0`` plane
+dynamics with PnL or the CJ execution criterion; for the fixed kind also
+the limit-and-market-order ("lam", 4 action columns, with the optional
+market-order mask) and at-the-touch ("touch", 2 post columns) dynamics
+with the market-making rewards; every midprice model (no fill-driven jump
+on speed dynamics), linear and exact-probability Poisson and Hawkes
+arrivals, exponential, triangular, power and exogenous-market-maker fills,
+and the four impact models on speed dynamics — the plain processes (BM,
+linear Poisson, exponential, temporary and permanent impact) on the
+original instantiations, the composite stress family's fixed quotes on
+lam (bench_suite config 14) on their own, any other on the general ones
+(:mod:`~mbt_gym_torch.ops.proc_kinds`); any inventory exponent; a fixed
+start time; a random initial inventory through the ``inv0`` plane
 (streams mode).  :func:`det_rollout_params_from_config` raises
 ``AssertionError`` naming any other feature, and the kernel wrappers the
 table and schedule kinds on lam and touch.
@@ -33,12 +39,14 @@ observation ``(S, N)`` with ``final_obs`` — or ``stats_only``: the
 terminal cash, inventory and price and the per-env sums of rewards and
 quoted spreads (bid + ask), each ``(N,)``.
 
-Noise: ``noise`` is ``(T, 5, N)`` float32 in the JAX kernel's
+Noise: ``noise`` is ``(T, p.n_channels, N)`` float32 in the JAX kernel's
 deterministic channel layout (``n_noise_channels(a_dim, table=True)``):
 arrival-bid u, arrival-ask u, fill-bid u, fill-ask u, midprice normal —
-K1's layout, so :func:`mbt_gym_torch.ops.episode.philox_noise` gives the
-native stream; speed dynamics read the normal alone, touch dynamics leave
-the fill uniforms unread.
+K1's layout, 5 channels, on the plain processes — then 2 exogenous
+best-depth normals (exogenous-MM fills) and 1 second-midprice normal
+(Heston, short-term alphas).  :func:`philox_noise` gives the native
+stream; speed dynamics read the normals alone, touch dynamics leave the
+fill uniforms unread.
 
 Which path a call takes depends only on the device of its tensors: CPU
 tensors run :func:`det_rollout_plain`, CUDA tensors launch the kernel or
@@ -55,19 +63,21 @@ import torch
 
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
-from mbt_gym_torch.ops.episode import _MASK32, _step_time, _target, philox_noise, seed_from_key
+from mbt_gym_torch.ops import episode
+from mbt_gym_torch.ops import proc_kinds as pk
+from mbt_gym_torch.ops.episode import _MASK32, _step_time, _target, seed_from_key
 from mbt_gym_torch.ops.step_pipeline import PipelineGeometry, pipeline_geometry
 
-# Channel count of the deterministic layout: 4 env uniforms + the midprice
-# normal (pallas_rollout.py:98-109 with table=True, no exo or second
-# midprice state).
+# Channel count of the deterministic layout on the plain processes: 4 env
+# uniforms + the midprice normal (pallas_rollout.py:98-111 with table=True,
+# no exo or second midprice state).
 N_CHANNELS = 5
 # action columns per dynamics kind (mbt_gym_tpu/dispatch.py:169)
 ACTION_DIMS = {"limit": 2, "lam": 4, "touch": 2, "speed": 1}
 _DYNAMICS = {"limit": 0, "speed": 1, "lam": 2, "touch": 3}
 _POLICIES = {"table": 0, "fixed": 1, "schedule": 2}
 _REWARDS = {"pnl": 0, "cjmm": 1, "running": 2, "cjoe": 3}
-_MAX_S = 5
+_MAX_S = 16
 _MAX_A = 4
 
 # The H100's device memory, the streams-mode limit when a decision is
@@ -93,7 +103,7 @@ class DetRolloutParams(NamedTuple):
     initial_cash: float
     initial_inventory: float
     start_time: float
-    obs_low: tuple  # (S,) cash, inventory, time, price[, impact state]
+    obs_low: tuple  # (S,) cash, inventory, time, price, then the process states
     obs_grad: tuple  # (high - low) / 2 per channel
     act_low: tuple  # (A,) bid/ask depth (limit) or speed (speed) lower bounds
     act_grad: tuple
@@ -121,6 +131,37 @@ class DetRolloutParams(NamedTuple):
     random_start: bool = False
     fixed_half_spread: float = 0.0  # lam and touch
     mask_mo_at_max_inventory: bool = False  # lam: EnvConfig's market-order mask
+    # the process kinds, with the JAX names and meanings
+    # (pallas_rollout.py:155-228; mbt_gym_torch/ops/proc_kinds.py)
+    impact_kind: str = "temp_perm"  # "temp_perm" | "power" | "transient" | "temp_transient"
+    impact_exponent: float = 1.0
+    impact_kappa: float = 0.0
+    impact_rho: float = 0.0
+    impact_gamma: float = 0.0
+    impact_initial: float = 0.0
+    midprice_kind: str = "bm"
+    mid_level: float = 0.0
+    mid_speed: float = 0.0
+    mid_dt_scaled: bool = False
+    mid_jump: float = 0.0
+    mid2_initial: float = 0.0
+    mid2_level: float = 0.0
+    mid2_speed: float = 0.0
+    mid2_vol: float = 0.0
+    mid2_dt_scaled: bool = False
+    mid2_corr: float = 0.0
+    arrival_kind: str = "poisson"
+    hawkes_jump: float = 0.0
+    hawkes_mean_reversion: float = 0.0
+    fill_kind: str = "exp"
+    fill_param: float = 0.0
+    exo_kind: tuple = ()
+    exo_level: tuple = ()
+    exo_speed: tuple = ()
+    exo_vol: tuple = ()
+    exo_initial: tuple = ()
+    exo_dt_scaled: tuple = ()
+    exo_base_fill: float = 1.0
 
     @property
     def run_steps(self) -> int:
@@ -129,6 +170,15 @@ class DetRolloutParams(NamedTuple):
     @property
     def a_dim(self) -> int:
         return ACTION_DIMS[self.dynamics_kind]
+
+    @property
+    def has_mid2(self) -> bool:
+        return pk.has_mid2(self)
+
+    @property
+    def n_channels(self) -> int:
+        """Noise-mode channels per step."""
+        return N_CHANNELS + pk.extra_channels(self)
 
 
 def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
@@ -142,19 +192,10 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
         LimitOrderDynamics,
         TradingWithSpeedDynamics,
     )
-    from mbt_gym_torch.processes.arrivals import PoissonArrivals
-    from mbt_gym_torch.processes.fills import ExponentialFill
-    from mbt_gym_torch.processes.impact import TemporaryAndPermanentImpact
-    from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
     from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, PnL, RunningInventoryPenalty
 
     d = cfg.dynamics
     r = cfg.reward_function
-    assert isinstance(d.midprice_model, BrownianMotionMidprice), (
-        f"deterministic-policy kernel midprice: Brownian motion only; {d.midprice_model} "
-        "is not ported to CUDA yet"
-    )
-    intensity, fill_exponent, temp_imp, perm_imp = (0.0, 0.0), 0.0, 0.0, 0.0
     phi = alpha = half_spread = 0.0
     if isinstance(d, AtTheTouchDynamics):
         dynamics_kind = "touch"
@@ -169,18 +210,8 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
             "deterministic-policy kernel: limit-order, limit-and-market-order, at-the-touch and "
             f"trading-speed dynamics only; {type(d).__name__} is not ported to CUDA yet"
         )
+    procs = pk.process_fields(d, dynamics_kind)
     if dynamics_kind != "speed":
-        assert isinstance(d.arrival_model, PoissonArrivals), (
-            f"deterministic-policy kernel arrivals: linear Poisson only; {d.arrival_model} "
-            "is not ported to CUDA yet"
-        )
-        intensity = d.arrival_model.intensity
-        if dynamics_kind != "touch":
-            assert isinstance(d.fill_probability_model, ExponentialFill), (
-                f"deterministic-policy kernel fills: exponential only; {d.fill_probability_model} "
-                "is not ported to CUDA yet"
-            )
-            fill_exponent = d.fill_probability_model.fill_exponent
         if dynamics_kind != "limit":
             half_spread = float(d.fixed_market_half_spread)
         if isinstance(r, PnL):
@@ -194,12 +225,6 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
                 f"RunningInventoryPenalty; {r} is not ported to CUDA yet"
             )
     else:
-        assert isinstance(d.price_impact_model, TemporaryAndPermanentImpact), (
-            f"deterministic-policy kernel (speed dynamics): temporary-and-permanent impact "
-            f"only; {d.price_impact_model} is not ported to CUDA yet"
-        )
-        temp_imp = d.price_impact_model.temporary_impact_coefficient
-        perm_imp = d.price_impact_model.permanent_impact_coefficient
         if isinstance(r, PnL):
             reward_kind = "pnl"
         elif isinstance(r, CjOeCriterion):
@@ -237,12 +262,6 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
     return DetRolloutParams(
         n_steps=cfg.n_steps,
         dt=cfg.step_size,
-        drift=d.midprice_model.drift,
-        volatility=d.midprice_model.volatility,
-        initial_price=d.midprice_model.initial_price,
-        intensity_bid=intensity[0],
-        intensity_ask=intensity[1],
-        fill_exponent=fill_exponent,
         max_inventory=float(cfg.max_inventory),
         max_cash=float(cfg.resolved_max_cash()),
         initial_cash=float(cfg.initial_cash),
@@ -260,12 +279,11 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
         inventory_exponent=float(getattr(r, "inventory_exponent", 2.0)),
         terminal_time=cfg.terminal_time,
         dynamics_kind=dynamics_kind,
-        temporary_impact=temp_imp,
-        permanent_impact=perm_imp,
         inventory_range=inventory_range,
         random_start=random_start,
         fixed_half_spread=half_spread,
         mask_mo_at_max_inventory=bool(cfg.mask_market_orders_at_max_inventory),
+        **procs,
     )
 
 
@@ -451,6 +469,8 @@ class DetKernelParams(ctypes.Structure):
         ("inv_exp", ctypes.c_float),
         ("half_spread", ctypes.c_float),
         ("mask_mo", ctypes.c_int),
+        ("proc_mode", ctypes.c_int),  # proc_kinds.proc_mode: the plain, general or composite instantiation
+        ("proc", pk.ProcParams),
         ("pipe", PipelineGeometry),  # set by the kernel wrapper
     ]
 
@@ -483,8 +503,8 @@ def kernel_params(p: DetRolloutParams, table_width: int = 0) -> DetKernelParams:
         act_low=(ctypes.c_float * _MAX_A)(*p.act_low),
         act_grad=(ctypes.c_float * _MAX_A)(*p.act_grad),
         fixed_action=(ctypes.c_float * _MAX_A)(*fixed[:_MAX_A]),
-        p_arr_bid=p.intensity_bid * p.dt,
-        p_arr_ask=p.intensity_ask * p.dt,
+        p_arr_bid=pk.arrival_probability(p)[0],
+        p_arr_ask=pk.arrival_probability(p)[1],
         neg_k=-p.fill_exponent,
         max_inventory=p.max_inventory,
         max_cash=p.max_cash,
@@ -503,7 +523,27 @@ def kernel_params(p: DetRolloutParams, table_width: int = 0) -> DetKernelParams:
         inv_exp=p.inventory_exponent,
         half_spread=p.fixed_half_spread,
         mask_mo=int(p.mask_mo_at_max_inventory),
+        proc_mode=pk.proc_mode(p, composite_ok=(p.dynamics_kind, p.policy_kind) == ("lam", "fixed")),
+        proc=pk.proc_params(p, 0),
     )
+
+
+def philox_noise(p: DetRolloutParams, seed: int, run_steps: int, num_trajectories: int, device=None) -> torch.Tensor:
+    """The kernel's native noise as ``(run_steps, p.n_channels, N)``
+    float32 channels: K1's five (:func:`mbt_gym_torch.ops.episode.philox_noise`:
+    counter ``(step, 0)`` for the four uniforms, the first pair of counter
+    ``(step, 1)`` for the midprice normal), then the extra normals from the
+    same counter-1 call (:func:`mbt_gym_torch.ops.proc_kinds.philox_extras`):
+    the exogenous bid's r0 sin theta0, the exogenous ask's r1 cos theta1 and
+    the second midprice column's r1 sin theta1, (r1, theta1) from its third
+    and fourth words."""
+    device = resolve_device(device)
+    base = episode.philox_noise(seed, run_steps, num_trajectories, device)
+    if not pk.extra_channels(p):
+        return base
+    exo_bid, exo_ask, mid2 = pk.philox_extras(seed, run_steps, num_trajectories, device, 1, "zw")
+    extra = ([exo_bid, exo_ask] if p.fill_kind == "exomm" else []) + ([mid2] if p.has_mid2 else [])
+    return torch.cat([base, torch.stack(extra, dim=1)], dim=1)
 
 
 # ------------------------------------------------------------ plain version
@@ -550,9 +590,9 @@ def _check_call(p: DetRolloutParams, tables, n: int, noise, inv0, stats_only: bo
             f"fixed_action has {len(p.fixed_action)} columns; {p.dynamics_kind} "
             f"dynamics takes {p.a_dim}"
         )
-    if noise is not None and (noise.dtype != torch.float32 or tuple(noise.shape) != (T, N_CHANNELS, n)):
+    if noise is not None and (noise.dtype != torch.float32 or tuple(noise.shape) != (T, p.n_channels, n)):
         raise ValueError(
-            f"noise must be float32 of shape ({T}, {N_CHANNELS}, {n}); got "
+            f"noise must be float32 of shape ({T}, {p.n_channels}, {n}); got "
             f"{noise.dtype} {tuple(noise.shape)}"
         )
     if p.inventory_range:
@@ -595,7 +635,9 @@ def det_rollout_plain(p: DetRolloutParams, tables=(), seed: int = 0, num_traject
     _check_call(p, tables, n, noise, inv0, stats_only, final_obs)
     kp = kernel_params(p, tables[0].shape[1] if p.policy_kind == "table" else 0)
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
-    draws = philox_noise(seed, T, n, device) if noise is None else noise
+    draws = philox_noise(p, seed, T, n, device) if noise is None else noise
+    pp = kp.proc
+    names = pk.state_planes(p, speed=p.dynamics_kind == "speed")
     f32 = torch.float32
     cash = torch.full((n,), kp.initial_cash, dtype=f32, device=device)
     inv = torch.full((n,), kp.initial_inventory, dtype=f32, device=device) if inv0 is None else inv0.to(device, f32)
@@ -603,6 +645,7 @@ def det_rollout_plain(p: DetRolloutParams, tables=(), seed: int = 0, num_traject
     q0 = q_pow(inv, e)
     price = torch.full((n,), kp.initial_price, dtype=f32, device=device)
     imp = torch.zeros((n,), dtype=f32, device=device)
+    ps = pk.initial_planes(pp, names, cash)  # the general kinds' process states past the price
     speed_dyn = p.dynamics_kind == "speed"
     if stats_only:
         rsum, ssum = torch.zeros_like(cash), torch.zeros_like(cash)
@@ -618,18 +661,33 @@ def det_rollout_plain(p: DetRolloutParams, tables=(), seed: int = 0, num_traject
             exe = [(raw[c] + 1.0) * kp.act_grad[c] + kp.act_low[c] for c in range(A)]
         else:
             exe = raw
+        if kp.proc_mode:  # the process states' planes, before the step
+            planes = (cash, inv, price, *(ps[name] for name in names))
+        else:
+            planes = (cash, inv, price, imp) if speed_dyn else (cash, inv, price)
+        hit_bid = hit_ask = None
         if speed_dyn:
             (speed,) = exe
-            impact = kp.temporary_impact * speed + imp
-            new_imp = imp + kp.permanent_impact * speed * kp.dt
+            if kp.proc_mode:
+                impact = pk.speed_impact(pp, kp, ps, speed)
+            else:
+                impact = kp.temporary_impact * speed + imp
+                new_imp = imp + kp.permanent_impact * speed * kp.dt
             volume = speed * kp.dt
             new_inv = inv + volume
             new_cash = cash - volume * (price + impact)
+        elif kp.proc_mode:
+            new_inv, new_cash, hit_bid, hit_ask = pk.market_step(p.dynamics_kind, kp, pp, ps, d, exe, cash, inv,
+                                                                 price)
         else:
             new_inv, new_cash = market_making_step(p.dynamics_kind, kp, d, exe, cash, inv, price)
         new_inv = torch.clamp(new_inv, -kp.max_inventory, kp.max_inventory)
         new_cash = torch.clamp(new_cash, -kp.max_cash, kp.max_cash)
-        new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[4]
+        if kp.proc_mode:
+            new_price = pk.midprice_update(pp, kp, ps, price, d[4], d[pp.ch_mid2] if pp.ch_mid2 >= 0 else None,
+                                           hit_bid, hit_ask)
+        else:
+            new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[4]
         reward = (new_cash + new_inv * new_price) - (cash + inv * price)
         if p.reward_kind != "pnl":  # pallas_rollout.py:1150-1185, in its op order
             q_new = q_pow(new_inv, e)
@@ -645,20 +703,22 @@ def det_rollout_plain(p: DetRolloutParams, tables=(), seed: int = 0, num_traject
             if A >= 2:
                 ssum = ssum + (raw[0] + raw[1])
         else:
-            planes = (cash, inv, price, imp) if speed_dyn else (cash, inv, price)
             obs_out[i] = _obs_planes(kp, t, planes)
             for c in range(A):
                 act_out[i, c] = raw[c]
             rew_out[i] = reward
         cash, inv, price = new_cash, new_inv, new_price
-        if speed_dyn:
+        if speed_dyn and not kp.proc_mode:
             imp = new_imp
     if stats_only:
         return cash, inv, price, rsum, ssum
     zeros = torch.zeros((T, n), dtype=f32, device=device)
     outs = (obs_out, act_out, zeros, zeros.clone(), rew_out)
     if final_obs:
-        planes = (cash, inv, price, imp) if speed_dyn else (cash, inv, price)
+        if kp.proc_mode:
+            planes = (cash, inv, price, *(ps[name] for name in names))
+        else:
+            planes = (cash, inv, price, imp) if speed_dyn else (cash, inv, price)
         outs += (_obs_planes(kp, kp.t_term, planes),)
     return outs
 
@@ -688,10 +748,13 @@ def kernel_geometry(p: DetRolloutParams, num_trajectories: int, stats_only: bool
     call: the table kind stages each step's rows of four tables (bid, ask
     and their fill probabilities), rows of ``table_width`` floats (default
     ``p.table_size``), where they fit.  K5 has no wide shape."""
-    # lam and touch draw the limit kind's five channels
+    # lam and touch draw the limit kind's five channels; the general process
+    # kinds stage 8 (the five, two exogenous normals, the second midprice
+    # normal), or 2 on speed dynamics
     dynamics = "speed" if p.dynamics_kind == "speed" else "limit"
+    channels = None if pk.is_plain(p) else (2 if dynamics == "speed" else 8)
     return pipeline_geometry(num_trajectories, p.run_steps, dynamics, p.policy_kind, stats_only,
-                             table_width or p.table_size, table_rows=4, wide=False)
+                             table_width or p.table_size, table_rows=4, wide=False, channels=channels)
 
 
 def det_rollout(p: DetRolloutParams, tables=(), seed: int = 0, num_trajectories: int = 16384,

@@ -54,6 +54,8 @@ from mbt_gym_torch.ops.mlp_rollout import bf16_round, full_float32_matmul, pack_
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _SAMPLE_TILE = 32
+# observation columns K4 and K7 take (csrc/fused_ppo.cu)
+MAX_S = 8
 _PASS1_CTAS = 256
 _PASS2_PARTS = 64
 
@@ -276,9 +278,9 @@ def check_kernel_limits(params, samples_per_step: int, s_dim: int, a_dim: int, l
             f"the {label} kernel takes a two-layer trunk with widths (per tower) a multiple of 64 "
             f"up to 256; got {widths}"
         )
-    if samples_per_step % _SAMPLE_TILE or s_dim > 8 or a_dim > 4:
+    if samples_per_step % _SAMPLE_TILE or s_dim > MAX_S or a_dim > 4:
         raise ValueError(
-            f"the {label} kernel takes a multiple of {_SAMPLE_TILE} samples per step, S <= 8 and "
+            f"the {label} kernel takes a multiple of {_SAMPLE_TILE} samples per step, S <= {MAX_S} and "
             f"A <= 4; got {samples_per_step}, {s_dim}, {a_dim}"
         )
     return (1 if tp.split_at is None else 2, *widths)

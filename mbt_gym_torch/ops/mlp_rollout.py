@@ -17,13 +17,19 @@ and zero columns add exact zeros, so the outputs do not change), and
 :func:`pack_tower_bf16` packs each tower for the kernel.  With float32
 operands it runs on CUDA cores over tiles of 32 envs.
 
-Ported scope: BM midprice and Poisson arrivals under three dynamics
-kinds (``dynamics_kind``, each its own kernel instantiation): "limit"
-(limit-order dynamics, exponential fills, A = 2), "lam" (limit orders plus
-unit market orders at mid -/+ ``fixed_half_spread``, exponential fills,
+Ported scope: three dynamics kinds (``dynamics_kind``, each its own
+kernel instantiation): "limit" (limit-order dynamics, A = 2), "lam"
+(limit orders plus unit market orders at mid -/+ ``fixed_half_spread``,
 A = 4, with the optional market-order mask at +/- max inventory) and
 "touch" (post-or-not at ``fixed_half_spread``, the fills the clipped post
-columns, A = 2); the PnL, pathwise CJ market-making (``CjMmCriterion``) or
+columns, A = 2); every midprice model, linear and exact-probability
+Poisson and Hawkes arrivals, and exponential, triangular, power and
+exogenous-market-maker fills (OU, BM or GBM sides) — the plain processes
+(BM, linear Poisson, exponential) on each dynamics kind's original
+instantiation, any other (the composite stress family of bench_suite
+config 10 too) on the dynamics kind's general one
+(:mod:`~mbt_gym_torch.ops.proc_kinds`);
+the PnL, pathwise CJ market-making (``CjMmCriterion``) or
 running-penalty (``RunningInventoryPenalty``) reward at any inventory
 exponent; a fixed start time; a fixed initial inventory or a per-env one
 drawn in ``inventory_range`` (the ``inv0`` plane, under CjMm with its
@@ -44,12 +50,14 @@ normalised observations every matmul operand is rounded to bf16
 (``pallas_rollout.py:855``); its matmuls run with TF32 off and float32
 matmul precision "highest", set for the call.
 
-Noise: ``noise`` is ``(T, n_noise_channels(A), N)`` float32 channels in
-the JAX kernel's order: 4 env uniforms, max(A, 2) policy-sample normals,
-the midprice normal — 7 at A = 2 (:data:`N_CHANNELS`), 9 at A = 4.
-Without it, native mode draws Philox4x32-10 keyed by ``(seed, env)``;
-:func:`philox_noise` reproduces that stream as channels, so the plain
-version sees the kernel's draws on any device.
+Noise: ``noise`` is ``(T, p.n_channels, N)`` float32 channels in the
+JAX kernel's order: 4 env uniforms, max(A, 2) policy-sample normals, the
+midprice normal, then 2 exogenous best-depth normals (exogenous-MM fills)
+and 1 second-midprice normal (Heston, short-term alphas) — 7 at A = 2 on
+the plain processes (:data:`N_CHANNELS`), 9 at A = 4, 11 on the composite
+config.  Without it, native mode draws Philox4x32-10 keyed by
+``(seed, env)``; :func:`philox_noise` reproduces that stream as channels,
+so the plain version sees the kernel's draws on any device.
 """
 from __future__ import annotations
 
@@ -63,12 +71,13 @@ import torch
 
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
+from mbt_gym_torch.ops import proc_kinds as pk
 from mbt_gym_torch.ops.det_rollout import market_making_step, q_pow
 from mbt_gym_torch.ops.episode import _MASK32, _target, _uniform24, philox4x32_10
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
-S_DIM = 4  # state columns (cash, inventory, time, price)
+MAX_S = 16  # state columns the kernel takes: layer 0's padded k (csrc/mlp_rollout.cu kK0)
 A_DIM = 2  # bid/ask depths (limit) or post flags (touch)
 # action columns per dynamics kind: lam adds the two market-order triggers
 ACTION_DIMS = {"limit": 2, "lam": 4, "touch": 2}
@@ -86,11 +95,12 @@ _MAX_LAYERS = 8
 _MMA_WIDTH = 16
 
 
-def n_noise_channels(a_dim: int) -> int:
-    """Injected-noise channel count of the MLP policy on the ported family
-    (pallas_rollout.py:98-109): 4 env uniforms + max(a_dim, 2)
-    policy-sample normals + 1 midprice normal."""
-    return 4 + max(a_dim, 2) + 1
+def n_noise_channels(a_dim: int, exomm: bool = False, mid2: bool = False) -> int:
+    """Injected-noise channel count of the MLP policy (pallas_rollout.py:98-111):
+    4 env uniforms + max(a_dim, 2) policy-sample normals + 1 midprice
+    normal (+ 2 exogenous best-depth normals for the exogenous-MM fill
+    kind, + 1 second-midprice normal for the 2-dim midprice kinds)."""
+    return 4 + max(a_dim, 2) + 1 + (2 if exomm else 0) + (1 if mid2 else 0)
 
 
 # Injected-noise channel order (noise mode): 4 env uniforms (u_arr_bid,
@@ -103,8 +113,8 @@ class MlpRolloutParams(NamedTuple):
     """Static scalars of the fused policy rollout: the fields of the JAX
     package's ``MlpRolloutParams`` that the ported kinds read, with the
     same names and values (TradingEnvironment.py:103-110; normalisation
-    per :112-126).  The JAX kind fields the port does not carry are
-    implied: BM midprice, Poisson arrivals, exponential fills, MLP."""
+    per :112-126).  The policy is the MLP; the process fields are those of
+    :func:`mbt_gym_torch.ops.proc_kinds.process_fields`."""
 
     n_steps: int
     dt: float
@@ -119,7 +129,7 @@ class MlpRolloutParams(NamedTuple):
     initial_cash: float
     initial_inventory: float
     start_time: float
-    obs_low: tuple  # (S,) cash, inventory, time, price
+    obs_low: tuple  # (S,) cash, inventory, time, price, then the process states
     obs_grad: tuple  # (high - low) / 2 per channel
     act_low: tuple  # (A,) bid/ask depth lower bounds
     act_grad: tuple
@@ -144,6 +154,31 @@ class MlpRolloutParams(NamedTuple):
     inventory_range: tuple = ()
     # EnvConfig.mask_market_orders_at_max_inventory (lam only)
     mask_mo_at_max_inventory: bool = False
+    # the process kinds, with the JAX names and meanings
+    # (pallas_rollout.py:168-228; mbt_gym_torch/ops/proc_kinds.py)
+    midprice_kind: str = "bm"
+    mid_level: float = 0.0  # OU mean-reversion level / CEV elasticity gamma
+    mid_speed: float = 0.0  # OU mean-reversion speed
+    mid_dt_scaled: bool = False
+    mid_jump: float = 0.0
+    mid2_initial: float = 0.0  # Heston variance / short-term alpha
+    mid2_level: float = 0.0
+    mid2_speed: float = 0.0
+    mid2_vol: float = 0.0
+    mid2_dt_scaled: bool = False
+    mid2_corr: float = 0.0
+    arrival_kind: str = "poisson"  # "poisson" | "poisson_nl" | "hawkes" (baseline in intensity_*)
+    hawkes_jump: float = 0.0
+    hawkes_mean_reversion: float = 0.0
+    fill_kind: str = "exp"  # "exp" | "triangular" | "power" | "exomm"
+    fill_param: float = 0.0  # triangular max depth / power multiplier
+    exo_kind: tuple = ()  # (bid, ask) in {"ou", "bm", "gbm"}
+    exo_level: tuple = ()  # OU level / BM-GBM drift
+    exo_speed: tuple = ()
+    exo_vol: tuple = ()
+    exo_initial: tuple = ()
+    exo_dt_scaled: tuple = ()
+    exo_base_fill: float = 1.0
 
     @property
     def run_steps(self) -> int:
@@ -153,6 +188,15 @@ class MlpRolloutParams(NamedTuple):
     def a_dim(self) -> int:
         return ACTION_DIMS[self.dynamics_kind]
 
+    @property
+    def has_mid2(self) -> bool:
+        return pk.has_mid2(self)
+
+    @property
+    def n_channels(self) -> int:
+        """Noise-mode channels per step."""
+        return n_noise_channels(self.a_dim, self.fill_kind == "exomm", self.has_mid2)
+
 
 _REWARDS = {"pnl": 0, "cjmm": 1, "running": 2}
 
@@ -161,9 +205,6 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
     """The rollout scalars of ``cfg``; ``AssertionError`` naming the first
     feature outside the ported family (pallas_rollout.py:277-665)."""
     from mbt_gym_torch.dynamics import AtTheTouchDynamics, LimitAndMarketOrderDynamics, LimitOrderDynamics
-    from mbt_gym_torch.processes.arrivals import PoissonArrivals
-    from mbt_gym_torch.processes.fills import ExponentialFill
-    from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
     from mbt_gym_torch.rewards import CjMmCriterion, PnL, RunningInventoryPenalty
 
     d = cfg.dynamics
@@ -177,24 +218,8 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
             "dynamics only; the trading-speed family is not ported to CUDA yet"
         )
         dynamics_kind = "limit"
-    assert isinstance(d.midprice_model, BrownianMotionMidprice), (
-        f"fused rollout midprice: Brownian motion only; {d.midprice_model} "
-        "is not ported to CUDA yet"
-    )
-    assert isinstance(d.arrival_model, PoissonArrivals), (
-        f"fused rollout arrivals: linear Poisson only; {d.arrival_model} is "
-        "not ported to CUDA yet"
-    )
-    if dynamics_kind == "touch":
-        fill_exponent = 0.0
-        half_spread = float(d.fixed_market_half_spread)
-    else:
-        assert isinstance(d.fill_probability_model, ExponentialFill), (
-            f"fused rollout fills: exponential only; {d.fill_probability_model} "
-            "is not ported to CUDA yet"
-        )
-        fill_exponent = d.fill_probability_model.fill_exponent
-        half_spread = float(d.fixed_market_half_spread) if dynamics_kind == "lam" else 0.0
+    procs = pk.process_fields(d, dynamics_kind)
+    half_spread = float(d.fixed_market_half_spread) if dynamics_kind != "limit" else 0.0
     r = cfg.reward_function
     if isinstance(r, PnL):
         reward_kind, phi, alpha = "pnl", 0.0, 0.0
@@ -231,12 +256,6 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
     return MlpRolloutParams(
         n_steps=cfg.n_steps,
         dt=cfg.step_size,
-        drift=d.midprice_model.drift,
-        volatility=d.midprice_model.volatility,
-        initial_price=d.midprice_model.initial_price,
-        intensity_bid=d.arrival_model.intensity[0],
-        intensity_ask=d.arrival_model.intensity[1],
-        fill_exponent=fill_exponent,
         max_inventory=float(cfg.max_inventory),
         max_cash=float(cfg.resolved_max_cash()),
         initial_cash=float(cfg.initial_cash),
@@ -257,6 +276,7 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
         fixed_half_spread=half_spread,
         inventory_range=inventory_range,
         mask_mo_at_max_inventory=bool(cfg.mask_market_orders_at_max_inventory),
+        **procs,
     )
 
 
@@ -328,15 +348,20 @@ def tower_params(tp: TransposedParams) -> list:
 
 
 # ------------------------------------------------------------- native noise
-def philox_noise(seed: int, run_steps: int, num_trajectories: int, device=None, a_dim: int = A_DIM) -> torch.Tensor:
-    """The kernel's native noise as ``(run_steps, n_noise_channels(a_dim),
-    N)`` float32 channels: Philox4x32-10 keyed by ``(seed, env)``; counter
-    ``(step, 0)`` gives the four arrival/fill uniforms and ``(step, 1)``
-    four Box-Muller uniforms, whose pairs give eps0, eps1 and the midprice
-    normal.  At ``a_dim`` 4 a third call, counter ``(step, 2)``, gives one
-    more pair (r2 from its first word, theta2 from its second): eps2 =
-    r2 cos theta2, eps3 = r2 sin theta2; the first seven draws keep their
-    bits."""
+def philox_noise(seed: int, run_steps: int, num_trajectories: int, device=None, a_dim: int = A_DIM,
+                 exomm: bool = False, mid2: bool = False) -> torch.Tensor:
+    """The kernel's native noise as ``(run_steps, n_noise_channels(a_dim,
+    exomm, mid2), N)`` float32 channels: Philox4x32-10 keyed by ``(seed,
+    env)``; counter ``(step, 0)`` gives the four arrival/fill uniforms and
+    ``(step, 1)`` four Box-Muller uniforms, whose pairs give eps0, eps1 and
+    the midprice normal.  At ``a_dim`` 4 a third call, counter ``(step,
+    2)``, gives one more pair (r2 from its first word, theta2 from its
+    second): eps2 = r2 cos theta2, eps3 = r2 sin theta2.  The extra normals
+    of the exogenous-MM and 2-dim midprice kinds: the exogenous bid's is
+    the spare r1 sin theta1 of counter 1, and a fourth call, counter
+    ``(step, 3)``, gives one more pair (words x, y): the exogenous ask's
+    r3 cos theta3 and the second midprice column's r3 sin theta3.  Every
+    earlier channel keeps its bits."""
     device = resolve_device(device)
     steps = torch.arange(run_steps, dtype=torch.int64, device=device)[:, None]
     envs = torch.arange(num_trajectories, dtype=torch.int64, device=device)[None, :]
@@ -354,8 +379,12 @@ def philox_noise(seed: int, run_steps: int, num_trajectories: int, device=None, 
         r2 = torch.sqrt(-2.0 * torch.log(1.0 - _uniform24(c[0])))
         th2 = (2.0 * math.pi) * _uniform24(c[1])
         eps += [r2 * torch.cos(th2), r2 * torch.sin(th2)]
+    extra = []
+    if exomm or mid2:
+        _, exo_ask, mid2_n = pk.philox_extras(seed, run_steps, num_trajectories, device, 3, "xy")
+        extra = ([r1 * torch.sin(th1), exo_ask] if exomm else []) + ([mid2_n] if mid2 else [])
     return torch.stack(
-        [_uniform24(a[0]), _uniform24(a[1]), _uniform24(a[2]), _uniform24(a[3]), *eps, r0 * torch.sin(th0)],
+        [_uniform24(a[0]), _uniform24(a[1]), _uniform24(a[2]), _uniform24(a[3]), *eps, r0 * torch.sin(th0), *extra],
         dim=1,
     )
 
@@ -377,8 +406,8 @@ class MlpKernelParams(ctypes.Structure):
         ("widths", ctypes.c_int * _MAX_LAYERS),
         ("start_time", ctypes.c_float),
         ("dt", ctypes.c_float),
-        ("obs_low", ctypes.c_float * 8),
-        ("obs_grad", ctypes.c_float * 8),
+        ("obs_low", ctypes.c_float * MAX_S),
+        ("obs_grad", ctypes.c_float * MAX_S),
         ("act_low", ctypes.c_float * 4),
         ("act_grad", ctypes.c_float * 4),
         ("act_high", ctypes.c_float * 4),
@@ -401,6 +430,8 @@ class MlpKernelParams(ctypes.Structure):
         ("dynamics", ctypes.c_int),
         ("mask_mo", ctypes.c_int),
         ("half_spread", ctypes.c_float),
+        ("proc_mode", ctypes.c_int),  # proc_kinds.proc_mode: the plain or the general instantiation
+        ("proc", pk.ProcParams),
     ]
 
 
@@ -423,13 +454,13 @@ def kernel_params(p: MlpRolloutParams, widths) -> MlpKernelParams:
         widths=(ctypes.c_int * _MAX_LAYERS)(*widths),
         start_time=p.start_time,
         dt=p.dt,
-        obs_low=(ctypes.c_float * 8)(*p.obs_low),
-        obs_grad=(ctypes.c_float * 8)(*p.obs_grad),
+        obs_low=(ctypes.c_float * MAX_S)(*p.obs_low),
+        obs_grad=(ctypes.c_float * MAX_S)(*p.obs_grad),
         act_low=(ctypes.c_float * 4)(*p.act_low),
         act_grad=(ctypes.c_float * 4)(*p.act_grad),
         act_high=(ctypes.c_float * 4)(*(lo + 2 * g for lo, g in zip(p.act_low, p.act_grad))),
-        p_arr_bid=p.intensity_bid * p.dt,
-        p_arr_ask=p.intensity_ask * p.dt,
+        p_arr_bid=pk.arrival_probability(p)[0],
+        p_arr_ask=pk.arrival_probability(p)[1],
         neg_k=-p.fill_exponent,
         max_inventory=p.max_inventory,
         max_cash=p.max_cash,
@@ -447,6 +478,8 @@ def kernel_params(p: MlpRolloutParams, widths) -> MlpKernelParams:
         dynamics=_DYNAMICS[p.dynamics_kind],
         mask_mo=int(p.mask_mo_at_max_inventory),
         half_spread=p.fixed_half_spread,
+        proc_mode=pk.proc_mode(p, composite_ok=False),
+        proc=pk.proc_params(p, max(a_dim, 2)),
     )
 
 
@@ -550,10 +583,12 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
     kp = kernel_params(p, tp.split_at or [w.shape[0] for w, _ in trunk])
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
     if noise is None:
-        noise = philox_noise(seed, T, n, device, A)
+        noise = philox_noise(seed, T, n, device, A, p.fill_kind == "exomm", p.has_mid2)
     else:
         _check_noise(p, n, noise)
-    mid_ch = n_noise_channels(A) - 1
+    mid_ch = 4 + max(A, 2)
+    pp = kp.proc
+    names = pk.state_planes(p, speed=False)
     rnd = bf16_round if p.normalise_obs else (lambda x: x)
     trunk = [(rnd(w), b[:, None]) for w, b in trunk]
     w_head, b_head = rnd(tp.w_head.to(device)), tp.b_head.to(device)[:, None]
@@ -566,11 +601,12 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
     cash = torch.full((n,), kp.initial_cash, dtype=f32, device=device)
     inv = _initial_inventory(p, kp, n, inv0, device)
     price = torch.full((n,), kp.initial_price, dtype=f32, device=device)
+    ps = pk.initial_planes(pp, names, cash)  # the process states past the price
     cjmm_const = kp.cjmm_coef * q_pow(inv, kp.inv_exp)  # per env under inventory_range
     with full_float32_matmul():
         for i in range(T):
             t = float(np.float32(kp.start_time) + np.float32(i) * np.float32(kp.dt))
-            planes = [cash, inv, torch.full_like(cash, t), price]
+            planes = [cash, inv, torch.full_like(cash, t), price, *(ps[name] for name in names)]
             if p.normalise_obs:
                 # a tensor divisor: PyTorch's CUDA division by a Python
                 # scalar multiplies by its reciprocal, the kernel divides
@@ -602,10 +638,18 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
                     exec_action.append(torch.clamp(action, kp.act_low[a], kp.act_high[a]))
             logp_out[i] = lp - kp.logp_const
             val_out[i] = hd[A]
-            new_inv, new_cash = market_making_step(p.dynamics_kind, kp, d, exec_action, cash, inv, price)
+            if kp.proc_mode:
+                new_inv, new_cash, hit_bid, hit_ask = pk.market_step(p.dynamics_kind, kp, pp, ps, d, exec_action,
+                                                                     cash, inv, price)
+            else:
+                new_inv, new_cash = market_making_step(p.dynamics_kind, kp, d, exec_action, cash, inv, price)
             new_inv = torch.clamp(new_inv, -kp.max_inventory, kp.max_inventory)
             new_cash = torch.clamp(new_cash, -kp.max_cash, kp.max_cash)
-            new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[mid_ch]
+            if kp.proc_mode:
+                new_price = pk.midprice_update(pp, kp, ps, price, d[mid_ch], d[pp.ch_mid2] if pp.ch_mid2 >= 0 else None,
+                                               hit_bid, hit_ask)
+            else:
+                new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[mid_ch]
             reward = (new_cash + new_inv * new_price) - (cash + inv * price)
             if p.reward_kind != "pnl":  # pallas_rollout.py:1150-1185, in its op order
                 q_new = q_pow(new_inv, kp.inv_exp)
@@ -621,7 +665,7 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
 
 # ------------------------------------------------------------ kernel wrapper
 def _check_noise(p: MlpRolloutParams, n: int, noise: torch.Tensor) -> None:
-    want = (p.run_steps, n_noise_channels(p.a_dim), n)
+    want = (p.run_steps, p.n_channels, n)
     if noise.dtype != torch.float32 or tuple(noise.shape) != want:
         raise ValueError(f"noise must be float32 of shape {want}; got {noise.dtype} {tuple(noise.shape)}")
 
@@ -640,9 +684,10 @@ def _kernels() -> ctypes.CDLL:
 def check_kernel_shapes(p: MlpRolloutParams, widths, n: int) -> None:
     """The K3 kernel's limits on the config, the (per-tower) trunk widths
     and the env count; ``ValueError`` naming the first one broken."""
-    if len(p.obs_low) != S_DIM or len(p.act_low) != p.a_dim:
-        raise ValueError(f"the K3 kernel takes S={S_DIM}, A={p.a_dim} on {p.dynamics_kind} dynamics; got "
-                         f"{len(p.obs_low)}, {len(p.act_low)}")
+    s_dim = 4 + len(pk.state_planes(p, speed=False))
+    if len(p.obs_low) != s_dim or s_dim > MAX_S or len(p.act_low) != p.a_dim:
+        raise ValueError(f"the K3 kernel takes S={s_dim} (at most {MAX_S}), A={p.a_dim} on {p.dynamics_kind} "
+                         f"dynamics; got {len(p.obs_low)}, {len(p.act_low)}")
     if not 1 <= len(widths) <= _MAX_LAYERS or any(w % 4 or not 0 < w <= _MAX_WIDTH for w in widths):
         raise ValueError(
             f"the K3 kernel takes 1-{_MAX_LAYERS} trunk layers, each a multiple of 4 wide and at "
@@ -658,7 +703,7 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
     policy fused in.  Returns ``(obs (T, S, N), actions (T, A, N),
     log_probs (T, N), values (T, N), rewards (T, N))``, float32.
 
-    ``noise`` (optional) injects ``(T, n_noise_channels(A), N)`` channels;
+    ``noise`` (optional) injects ``(T, p.n_channels, N)`` channels;
     otherwise native Philox noise keyed by ``seed``.  ``inv0`` is the
     ``(N,)`` per-env initial inventory, required under
     ``p.inventory_range`` and refused otherwise.  On a CPU target this is
@@ -737,7 +782,7 @@ def collect_rollout_fused_T(env_cfg: EnvConfig, params, key, gamma: float = 1.0,
     :func:`mbt_gym_torch.ops.fused_ppo.ppo_fused_grads_T`
     (pallas_rollout.py:2198-2256).  ``key`` (an int seed or a
     ``torch.Generator``) gives the kernel's Philox seed; ``noise`` injects
-    ``(T, n_noise_channels(A), N)`` channels instead.  Under a random
+    ``(T, p.n_channels, N)`` channels instead.  Under a random
     initial inventory (``initial_inventory=(lo, hi)``) the per-env draws in
     [lo, hi) come from ``key`` first, each episode (the distribution of
     ``env.reset``); ``inv0`` injects them (the parity tests)."""

@@ -154,7 +154,7 @@ def wide_geometry(channels: int, table_rows: int = 0, row_floats: int = 0) -> Ge
 
 def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_only: bool,
                       row_floats: int = 0, table_rows: int = 0, wide: bool = True,
-                      mode: Optional[str] = None) -> Geometry:
+                      mode: Optional[str] = None, channels: Optional[int] = None) -> Geometry:
     """The pipeline geometry of one K1, K2, K5, K6 or K8 call of ``n`` envs
     over ``run_steps`` steps.
 
@@ -168,7 +168,9 @@ def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_
       8,192: 64; 4,100: 32).
     - Producer warps: ``PRODUCERS_PER_CONSUMER[mode]`` per consumer warp,
       as far as ``MAX_THREADS`` allows.
-    - Channels: five on limit dynamics, the midprice normal alone on speed.
+    - Channels: five on limit dynamics, the midprice normal alone on speed,
+      unless ``channels`` names another count (K5's general process kinds:
+      8 on the market-making dynamics, 2 on speed).
     - The table kind reads a row of each of ``table_rows`` tables a step,
       ``row_floats`` apart (K5: the bid and ask tables and their fill
       probabilities, the tables' width apart).  A slot's consecutive rows of a table are
@@ -180,7 +182,7 @@ def pipeline_geometry(n: int, run_steps: int, dynamics: str, policy: str, stats_
     assert dynamics in ("limit", "speed") and policy in ("table", "fixed", "schedule")
     rows = table_rows if policy == "table" else 0
     width = row_floats if rows else 0
-    channels = 5 if dynamics == "limit" else 1
+    channels = channels or (5 if dynamics == "limit" else 1)
     mode = mode or ("streams" if not stats_only else "speed stats" if dynamics == "speed" else "stats")
     if wide and n >= wide_min_envs(mode):
         return wide_geometry(channels, rows, width)

@@ -1,9 +1,9 @@
 """Canonical environment factories (counterpart of
-``mbt_gym_tpu/utils/config.py``).  The port carries the AS and CJP
-replication configs, the optimal-execution config, the at-the-touch and
-limit-and-market-order configs and the reference's canonical learning env;
-the composite factory waits on the rest of the process zoo (ROADMAP.md
-Queue 1)."""
+``mbt_gym_tpu/utils/config.py``): the AS and CJP replication configs, the
+optimal-execution config, the at-the-touch and limit-and-market-order
+configs, the reference's canonical learning env and the composite stress
+config (Hawkes arrivals, exogenous competing-market-maker fills,
+limit-and-market-order dynamics)."""
 from __future__ import annotations
 
 from mbt_gym_torch.dynamics import (
@@ -13,10 +13,10 @@ from mbt_gym_torch.dynamics import (
     TradingWithSpeedDynamics,
 )
 from mbt_gym_torch.env import EnvConfig
-from mbt_gym_torch.processes.arrivals import PoissonArrivals
-from mbt_gym_torch.processes.fills import ExponentialFill
+from mbt_gym_torch.processes.arrivals import HawkesArrivals, PoissonArrivals
+from mbt_gym_torch.processes.fills import ExogenousMmFill, ExponentialFill
 from mbt_gym_torch.processes.impact import TemporaryAndPermanentImpact
-from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
+from mbt_gym_torch.processes.midprice import BrownianMotionMidprice, OuMidprice
 from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, PnL, RunningInventoryPenalty
 
 
@@ -266,6 +266,52 @@ def learning_env_config(
         n_steps=n_steps,
         initial_inventory=initial_inventory,
         max_inventory=n_steps,
+        num_trajectories=num_trajectories,
+        normalise_action_space=False,
+        normalise_observation_space=False,
+        dtype=dtype,
+    )
+
+
+def composite_env_config(
+    num_trajectories: int = 65536,
+    initial_price: float = 100.0,
+    terminal_time: float = 1.0,
+    sigma: float = 2.0,
+    n_steps: int = 200,
+    baseline_arrival_rate: float = 10.0,
+    fill_exponent: float = 1.5,
+    dtype: str = "float32",
+) -> EnvConfig:
+    """Composite stress config: Hawkes self-exciting arrivals + stochastic
+    (exogenous competing-MM) fill probability + limit-and-market-order
+    action space.  State S = 8: cash, inventory, time, price, the two
+    Hawkes intensities, the two exogenous best depths; A = 4."""
+    exo_bid = OuMidprice(
+        initial_price=0.8, mean_reversion_level=0.8, mean_reversion_speed=1.0,
+        volatility=0.1, terminal_time=terminal_time, dt_scaled_drift=True,
+    )
+    exo_ask = OuMidprice(
+        initial_price=0.8, mean_reversion_level=0.8, mean_reversion_speed=1.0,
+        volatility=0.1, terminal_time=terminal_time, dt_scaled_drift=True,
+    )
+    dynamics = LimitAndMarketOrderDynamics(
+        midprice_model=BrownianMotionMidprice(
+            initial_price=initial_price, volatility=sigma, terminal_time=terminal_time
+        ),
+        arrival_model=HawkesArrivals(
+            baseline_arrival_rate=(baseline_arrival_rate, baseline_arrival_rate)
+        ),
+        fill_probability_model=ExogenousMmFill(
+            bid_process=exo_bid, ask_process=exo_ask, fill_exponent=fill_exponent
+        ),
+    )
+    return EnvConfig(
+        dynamics=dynamics,
+        reward_function=RunningInventoryPenalty(0.01, 0.001),
+        terminal_time=terminal_time,
+        n_steps=n_steps,
+        max_inventory=100.0,
         num_trajectories=num_trajectories,
         normalise_action_space=False,
         normalise_observation_space=False,

@@ -29,7 +29,11 @@ card's time alone, host work excluded) beside the call time
   x 200, 256x256, normalised AS env, bf16 operands), shared trunk and
   towers; where the checkout has them, K3's lam, touch and canonical
   kinds at bench_suite configs 8, 7 and 9 (262,144 envs, shared trunk),
-  and K5's fixed kind on lam and touch at 16,384 x 200 (stats).
+  and K5's fixed kind on lam and touch at 16,384 x 200 (stats), on lam
+  also at 65,536 x 200; where the checkout has the composite config, K3
+  at bench_suite config 10 (``composite_env_config`` at 262,144 envs,
+  normalised, shared trunk) and K5's fixed kind on it (the quotes (0.6,
+  0.6, 0, 0)) at 16,384 and 65,536 (config 14) x 200 (stats).
 
 ``--geometry`` fixes the step-pipeline geometry of K1, K2, K5, K6 and K8
 where the checkout has one: envs per CTA, producer warps, steps per slot,
@@ -42,8 +46,9 @@ the wide shape's threshold, and ``--kernels`` keeps the rows whose names
 start with one of its comma-separated prefixes.  The script also prints a
 sha256 digest of every output of K1-K8 on fixed inputs (noise and native
 mode; K3, K4 and K7 at 4,096 envs x 200 steps; K1, K6 and K8 native at
-1,048,576 envs as well), of K2's trajectory layout in both draw modes, and
-of the Trajectory of the AS ``rollout`` on the card, so two checkouts can
+1,048,576 envs as well), of K2's trajectory layout in both draw modes, of
+the Trajectory of the AS ``rollout`` on the card and, where the checkout
+has it, of K5's fixed kind on the composite config, so two checkouts can
 be shown to compute the same bits.  It prints one JSON object per line and
 needs a CUDA device.
 """
@@ -191,6 +196,21 @@ def main():
             p = det.fixed_rollout_params(make(num_trajectories=16_384), action)
             rows += ((f"K5 fixed {kind} stats", 16_384, 200,
                       lambda p=p: det.fixed_rollout(p, 9, 16_384, stats_only=True, device=dev)),)
+        p = det.fixed_rollout_params(lam_env_config(num_trajectories=65_536), [0.6, 0.6, 0.0, 0.0])
+        rows += (("K5 fixed lam stats", 65_536, 200,
+                  lambda p=p: det.fixed_rollout(p, 9, 65_536, stats_only=True, device=dev)),)
+    from mbt_gym_torch.utils import config as config_module
+
+    composite = getattr(config_module, "composite_env_config", None)
+    if composite is not None:  # the process kinds
+        p10 = mr.rollout_params_from_config(dataclasses.replace(composite(num_trajectories=k3_n),
+                                                                normalise_observation_space=True))
+        m10 = init_actor_critic(0, 8, 4, hidden=(256, 256), shared_trunk=True, device=dev)
+        rows += (("K3 composite shared", k3_n, 200, lambda: mr.mlp_rollout(p10, m10, 9, k3_n, device=dev)),)
+        for n in (16_384, 65_536):
+            p = det.fixed_rollout_params(composite(num_trajectories=n), [0.6, 0.6, 0.0, 0.0])
+            rows += (("K5 fixed composite stats", n, 200,
+                      lambda p=p, n=n: det.fixed_rollout(p, 9, n, stats_only=True, device=dev)),)
     if args.geometry == "wide":
         rows = [row for row in rows if not row[0].startswith("K5")]
     if args.sweep:
@@ -249,6 +269,15 @@ def main():
     digests["K6 native 1048576"] = digest(oe.oe_episode(p_oe, speed_table, 52, 1_048_576, device=dev))
     digests["K8 native 1048576"] = digest(cj.cj_episode(p_cj, cj_table, 53, 100, 1_048_576, device=dev))
     digests["rollout AS native"] = digest(rollout(as_cfg, as_policy, None, 50).trajectory)
+    if composite is not None:
+        p = det.fixed_rollout_params(composite(num_trajectories=16_384), [0.6, 0.6, 0.0, 0.0])
+        rng = np.random.default_rng(17)
+        c = rng.uniform(size=(200, p.n_channels, 16_384)).astype(np.float32)
+        c[:, 4:] = rng.normal(size=(200, p.n_channels - 4, 16_384)).astype(np.float32)
+        for mode, kw in (("noise", {"noise": torch.from_numpy(c).to(dev)}), ("native", {"seed": 45, "device": dev})):
+            for stats in (True, False):
+                out = det.fixed_rollout(p, num_trajectories=16_384, stats_only=stats, final_obs=not stats, **kw)
+                digests[f"K5 fixed composite {'stats' if stats else 'streams'} {mode}"] = digest(out)
     digests.update(ppo_digests(torch, dev))
     print(json.dumps({"label": label, "digests": digests}))
     return 0

@@ -214,3 +214,66 @@ def test_a_decision_flipped_at_the_last_step_counts_as_a_flip():
     got[4][-1, :3] = 0.6
     with pytest.raises(chip_smoke.PhaseFailed, match="differs on 4 of"):
         chip_smoke.compare_rollouts(torch, got, want, n, "lam")
+
+
+def test_hawkes_fixed_point_of_the_composite_config():
+    """Phase 24b's target: 10 * 60 / (60 - 40) = 30 on the composite
+    config."""
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.utils.config import composite_env_config
+
+    p = mr.rollout_params_from_config(composite_env_config(num_trajectories=256))
+    assert chip_smoke.hawkes_fixed_point(p) == 30.0
+
+
+def test_narrow_copy_keeps_the_inner_trunk():
+    """Phase 24c's K3 lam run beside the composite one: layer 0 reads the
+    first four observation columns, the inner layers and the value row are
+    the same tensors' values, the pi rows the first four."""
+    import torch
+
+    from mbt_gym_torch.agents.networks import init_actor_critic
+
+    wide = init_actor_critic(3, 8, 4, hidden=(32, 32), shared_trunk=False, device="cpu")
+    narrow = chip_smoke.narrow_copy(torch, wide, 4, 4, torch.device("cpu"))
+    assert (narrow.obs_dim, narrow.action_dim, narrow.hidden) == (4, 4, (32, 32))
+    src = dict(wide.named_parameters())
+    for name, t in narrow.named_parameters():
+        want = src[name][:t.shape[0]]
+        torch.testing.assert_close(t, want[:, :t.shape[1]] if t.dim() == 2 else want, rtol=0, atol=0)
+
+
+def test_kind_configs_cover_every_process_kind():
+    """Phase 24a's configurations: every midprice kind but BM, the
+    exact-probability arrivals, the triangular and power fills, the
+    exogenous-MM fills with BM and GBM sides and the all-axes config, each
+    on a general instantiation of K3 and K5, at 16,384 x 200."""
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.ops import proc_kinds as pk
+
+    kinds = chip_smoke.kind_configs()
+    seen = set()
+    for name, cfg in kinds.items():
+        assert (cfg.num_trajectories, cfg.n_steps) == (chip_smoke.KIND_N, 200)
+        p = mr.rollout_params_from_config(cfg)
+        assert not pk.is_plain(p), name
+        seen |= {p.midprice_kind, p.arrival_kind, p.fill_kind, *p.exo_kind}
+        q = det.fixed_rollout_params(cfg, chip_smoke.COMPOSITE_ACTION if cfg.action_dim == 4 else (0.6, 0.6))
+        assert q.n_channels == 5 + pk.extra_channels(q)
+    assert seen >= set(pk.MIDPRICE_KINDS) - {"bm"} | set(pk.ARRIVAL_KINDS) | set(pk.FILL_KINDS) | set(pk.EXO_KINDS)
+    assert kinds["all axes"].state_dim == 9
+
+
+def test_composite_bounds_count_the_wider_streams():
+    """K3's composite bound at config 10: (8 + 4 + 3) floats per env-step
+    of streams against the S = 8, A = 4 forward's operations; K5's fixed
+    composite stats mode is bound by its operations."""
+    n, t = chip_smoke.COMPOSITE_N, 200
+    flops = chip_smoke.mlp_flops_per_sample(8, 256, 256, 4)
+    assert flops == 2 * (8 * 256 + 256 * 256 + 5 * 256)
+    ms, by = chip_smoke.bound_ms(15 * 4 * n * t, flops * n * t, chip_smoke.BF16_OPS_PER_S)
+    assert by == "operations" and ms == pytest.approx(flops * n * t / 989e12 * 1e3)
+    ms, by = chip_smoke.bound_ms(4 * 5 * 65_536, chip_smoke.OPS_PER_ENV_STEP_K5_COMPOSITE * 65_536 * t,
+                                 chip_smoke.FP32_OPS_PER_S)
+    assert by == "operations" and chip_smoke.OPS_PER_ENV_STEP_K5_COMPOSITE == 329

@@ -382,10 +382,10 @@ def _edge_samples(model, t_steps, nb, seed, device):
 
     rng = np.random.default_rng(seed)
     m = t_steps * nb
-    obs = torch.from_numpy(rng.uniform(-1.0, 1.0, (m, 4)).astype(np.float32)).to(device)
+    obs = torch.from_numpy(rng.uniform(-1.0, 1.0, (m, model.obs_dim)).astype(np.float32)).to(device)
     with torch.no_grad():
         mean, _ = networks.policy_value(model, obs, "float32")
-        eps = torch.from_numpy(rng.normal(size=(m, 2)).astype(np.float32)).to(device)
+        eps = torch.from_numpy(rng.normal(size=(m, model.action_dim)).astype(np.float32)).to(device)
         actions = mean + torch.exp(model.log_std) * eps
         logp = networks.gaussian_log_prob(model, mean, actions)
     old = logp + torch.from_numpy(rng.normal(0.0, 0.1, m).astype(np.float32)).to(device)
@@ -399,21 +399,23 @@ def _feature_major(rows, t_steps, nb):
             for x in rows]
 
 
+@pytest.mark.parametrize("dims", [(4, 2), (8, 4)], ids=["S4-A2", "S8-A4"])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nb", [32, 96])
 @pytest.mark.parametrize("hidden", [(64, 64), (128, 192), (256, 256)], ids=["64x64", "128x192", "256x256"])
-def test_update_kernels_at_the_mma_tile_edges(cuda_device, hidden, nb, compute_dtype):
+def test_update_kernels_at_the_mma_tile_edges(cuda_device, hidden, nb, compute_dtype, dims):
     """K4 (shared trunk and towers) and K7 at the smallest and unequal
-    widths and at 1 and 3 sample tiles per step, against their plain
-    versions at the limits of the tests above; a second launch on the same
-    minibatch gives bitwise-equal grads and metrics (fixed tile ranges and
-    a fixed-order reduction)."""
+    widths and at 1 and 3 sample tiles per step, at S = 4, A = 2 and at the
+    composite config's S = 8, A = 4 (K4's widest observation), against
+    their plain versions at the limits of the tests above; a second launch
+    on the same minibatch gives bitwise-equal grads and metrics (fixed tile
+    ranges and a fixed-order reduction)."""
     from mbt_gym_torch.agents.networks import init_actor_critic
     from mbt_gym_torch.ops import fused_ppo
 
     t_steps = 5
     for shared_trunk in (True, False):
-        model = init_actor_critic(7, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device=cuda_device)
+        model = init_actor_critic(7, *dims, hidden=hidden, shared_trunk=shared_trunk, device=cuda_device)
         with torch.no_grad():
             model.log_std.add_(0.05)
         rows = _edge_samples(model, t_steps, nb, 11 + nb, cuda_device)
@@ -922,3 +924,88 @@ def test_streams_memory_rule_counts_the_allocator_cache_as_free(cuda_device):
         assert abs(warm - cold) <= cold // 100, (cold, warm)
     finally:
         torch.cuda.empty_cache()
+
+
+def _process_kind_cases(run_steps):
+    """{name: (K5 params, tables)} of the general and composite process
+    kinds (phase 24a of chip_smoke.py) at ``run_steps`` steps."""
+    from mbt_gym_torch import processes as pc
+    from mbt_gym_torch.agents.baseline import CarteaJaimungalMmAgent
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.utils.config import cj_env_config, composite_env_config, oe_env_config
+
+    def with_(cfg, **dyn):
+        return dataclasses.replace(cfg, dynamics=dataclasses.replace(cfg.dynamics, **dyn))
+
+    comp = composite_env_config(num_trajectories=4100, n_steps=run_steps)
+    cj = cj_env_config(num_trajectories=4100, n_steps=run_steps, max_inventory=10.0)
+    agent = CarteaJaimungalMmAgent.from_config(cj, max_inventory=10)
+    oe = oe_env_config(num_trajectories=4100, n_steps=run_steps)
+    return {
+        "composite": (det.fixed_rollout_params(comp, [0.6, 0.6, 0.0, 0.7]), ()),
+        "all-axes": (det.fixed_rollout_params(with_(comp, midprice_model=pc.HestonMidprice()), [0.6, 0.6, 0.7, 0.0]),
+                     ()),
+        "table-power": (det.cj_rollout_params(with_(cj, fill_probability_model=pc.PowerFill()), agent),
+                        det.cj_depth_tables(agent)),
+        "speed-transient-alpha": (det.fixed_rollout_params(with_(oe, price_impact_model=pc.TransientImpact(),
+                                                                  midprice_model=pc.ShortTermOuAlphaMidprice()),
+                                                           [-2.5]), ()),
+    }
+
+
+@pytest.mark.parametrize("kind", ["composite", "all-axes", "table-power", "speed-transient-alpha"])
+@pytest.mark.parametrize("run_steps", [7, 200])
+def test_process_kinds_at_the_pipeline_edges_on_the_card(cuda_device, kind, run_steps):
+    """K5's general and composite instantiations at the pipeline's edges:
+    4,100 envs (a ragged last CTA) and 4,099 (the injected channels, placed
+    by the noise map, not 16-byte aligned), 7 and 200 steps, both draw
+    modes and output modes, against the plain version at K1's limits, a
+    repeated launch bitwise; K3's general kind on the composite config with
+    raw observations (float32 products) and on the all-axes config with
+    normalised ones (bf16) at 4,128 envs (a ragged last 128-env tile) the
+    same way."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import mlp_rollout as mr
+
+    p, tables = _process_kind_cases(run_steps)[kind]
+    for n in (4100, 4099):
+        rng = np.random.default_rng(8)
+        c = rng.uniform(size=(run_steps, p.n_channels, n)).astype(np.float32)
+        c[:, 4:] = rng.normal(size=(run_steps, p.n_channels - 4, n)).astype(np.float32)
+        for kw in ({"noise": torch.from_numpy(c).to(cuda_device)}, {"seed": 6, "device": cuda_device}):
+            for stats in (True, False):
+                extra = {"stats_only": stats, "final_obs": not stats}
+                got = det.det_rollout(p, tables, num_trajectories=n, **kw, **extra)
+                again = det.det_rollout(p, tables, num_trajectories=n, **kw, **extra)
+                want = det.det_rollout_plain(p, tables, num_trajectories=n, **kw, **extra)
+                torch.cuda.synchronize()
+                _assert_bitwise(got, again)
+                if stats:
+                    _assert_terminal_close(got, want, n)
+                else:
+                    _assert_streams_close(got, want, n)
+    if kind not in ("composite", "all-axes"):
+        return
+    from mbt_gym_torch import processes as pc
+    from mbt_gym_torch.utils.config import composite_env_config
+
+    # the composite config on raw observations (the float32 instantiation),
+    # the all-axes one normalised (bf16 products)
+    cfg = dataclasses.replace(composite_env_config(num_trajectories=4128, n_steps=run_steps),
+                              normalise_observation_space=kind == "all-axes")
+    if kind == "all-axes":
+        cfg = dataclasses.replace(cfg, dynamics=dataclasses.replace(cfg.dynamics, midprice_model=pc.HestonMidprice()))
+    q = mr.rollout_params_from_config(cfg)
+    model = init_actor_critic(2, cfg.state_dim, 4, hidden=(64, 64), shared_trunk=False, device=cuda_device)
+    for kw in ({"noise": mr.philox_noise(3, run_steps, 4128, cuda_device, 4, True, q.has_mid2)},
+               {"seed": 6, "device": cuda_device}):
+        got = mr.mlp_rollout(q, model, num_trajectories=4128, **kw)
+        again = mr.mlp_rollout(q, model, num_trajectories=4128, **kw)
+        want = mr.mlp_rollout_plain(q, model, num_trajectories=4128, **kw)
+        torch.cuda.synchronize()
+        _assert_bitwise(got, again)
+        same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
+        assert int((~same).sum()) <= 4
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3)

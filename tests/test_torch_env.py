@@ -124,14 +124,13 @@ def test_spec_roundtrip_rebuilds_the_same_config():
 
 
 def test_unported_component_raises():
-    """A process model the port lacks (Hawkes arrivals, ROADMAP Queue 1)
-    raises by name."""
-    from mbt_gym_tpu.processes.arrivals import HawkesArrivals
-
+    """A component type the port does not know (here a user's own arrival
+    model; every process class of the JAX package is ported) raises by
+    name."""
     spec = jax_spec(jax_as_env_config(num_trajectories=128))
     del spec["type"]
-    spec["dynamics"]["arrival_model"] = jax_spec(HawkesArrivals())
-    with pytest.raises(ValueError, match="HawkesArrivals is not ported"):
+    spec["dynamics"]["arrival_model"] = {"type": "CustomArrivals", "intensity": [1.0, 1.0]}
+    with pytest.raises(ValueError, match="CustomArrivals is not ported"):
         convert.env_config_from_spec(spec)
 
 
