@@ -48,7 +48,17 @@ public entry points and times it all:
   width, both layouts, the engine's on config 8, each new K3 kind's time
   beside K3 PnL's (23c); fixed actions on lam and touch through
   ``mc_episode_stats``/``rollout`` on K5 against the engine (23d); the new
-  instantiations' registers, spills and tensor-core instructions (23e).
+  instantiations' registers, spills and tensor-core instructions (23e);
+- the process zoo and the composite stress family (phase 24);
+- the training and interop surfaces (phase 25): checkpoint and resume at
+  config 5, bitwise (K3 x1 and K4 x16 per iteration) (25a); one config-5
+  iteration through the data-parallel mesh at world size 1 over NCCL
+  against the meshless one, and ``entry.dryrun_multichip(1)`` (25b); the
+  SB3-style ``VecTradingEnv`` and ``host_model_policy`` on the AS config
+  at 16,384 envs against the engine (25c); the backtest statistics on
+  K2's trajectory against float64 on the CPU (25d); a profiler trace
+  naming K3's and K4's kernels, engine throughput, ``scaling_report``
+  and the TensorBoard logger (25e).
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
 update passes and of K3 run tensor-core instructions and the float32 ones
@@ -323,17 +333,16 @@ DRYRUN_N, DRYRUN_T = 2048, 64
 
 
 def assert_metric_bands(metrics, label):
-    """__graft_entry__._assert_metric_bands (lines 42-54), copied: PPO
-    sanity bands on the normalised AS env."""
-    m = {k: float(v) for k, v in metrics.items()}
-    check(all(v == v and abs(v) != float("inf") for v in m.values()), f"{label}: non-finite metrics {m}")
-    check(abs(m["pg_loss"]) < 0.5, f"{label}: pg_loss {m}")
-    check(0.0 < m["vf_loss"] < 1e4, f"{label}: vf_loss {m}")
-    check(abs(m["approx_kl"]) < 0.5, f"{label}: approx_kl {m}")
-    check(-200.0 < m["mean_episode_reward"] < 200.0, f"{label}: mean_episode_reward {m}")
-    if "entropy" in m:
-        check(0.0 < m["entropy"] < 20.0, f"{label}: entropy {m}")
-    return m
+    """The PPO sanity bands on the normalised AS env,
+    :func:`mbt_gym_torch.entry.assert_metric_bands` (those of
+    __graft_entry__.py:42-54); a metric outside them fails the phase."""
+    from mbt_gym_torch.entry import assert_metric_bands as bands
+
+    try:
+        return bands(metrics, label)
+    except AssertionError as e:
+        check(False, f"{label}: metrics outside the bands: {e}")
+        return {k: float(v) for k, v in metrics.items()}
 
 
 def mlp_flops_per_sample(s_dim, h0, h1, a_dim, towers=1):
@@ -2617,6 +2626,406 @@ def proc_phases(torch, np, card, dev, k3_pnl_ms=None):
     }
 
 
+# ------------------------------------------------------------------ training and interop surfaces
+SURFACE_N = 16_384  # the AS serving width (phases 4-6): the adapters, analytics and engine throughput
+SURFACE_TOL = 1e-5  # analytics on the card against float64 on the CPU
+
+
+def state_digest(torch, ts):
+    """sha256 of a PPO train state: the model's state_dict (sorted names),
+    then per parameter Adam's step and moments (step 0 and zeros where Adam
+    has not stepped yet, the state it starts from), then the update count."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, value in sorted(ts.params.state_dict().items()):
+        h.update(name.encode())
+        h.update(value.detach().cpu().contiguous().numpy().tobytes())
+    for group in ts.opt_state.param_groups:
+        for p in group["params"]:
+            state = ts.opt_state.state.get(p, {})
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                value = state.get(key)
+                if value is None:  # Adam starts from step 0 and zero moments
+                    value = torch.zeros(()) if key == "step" else torch.zeros_like(p)
+                h.update(value.detach().cpu().reshape(-1).numpy().tobytes())
+    h.update(str(ts.update_count).encode())
+    return h.hexdigest()
+
+
+def step_split(wall_ms, busy_ms, steps):
+    """One adapter step's time split: ``wall_ms`` (host clock, per step,
+    median), the device's busy time ``busy_ms`` over ``steps`` profiled
+    steps; the host's share is the rest."""
+    step_ms = statistics.median(wall_ms)
+    device = busy_ms / steps
+    host = max(step_ms - device, 0.0)
+    return {"step_ms": step_ms, "device_ms": device, "host_ms": host, "host_share": host / step_ms}
+
+
+def device_busy(torch, fn):
+    """(device busy ms, wall ms) of one call of ``fn`` under
+    torch.profiler: the union of the device events' intervals, as
+    :func:`profile_iteration` counts it, without touching the launch
+    counters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return busy_ms([(e.time_range.start, e.time_range.end) for e in device]), wall
+
+
+def as_numpy_predict(agent):
+    """The AS closed form (BaselineAgents.py:52-83) as a host numpy
+    ``predict(obs (N, 4) float32) -> (N, 2)``: what an external model hands
+    the adapters."""
+    import numpy as np
+
+    gamma, sigma, k, big_t = agent.risk_aversion, agent.volatility, agent.fill_exponent, agent.terminal_time
+    half_log = float((2.0 / gamma) * np.log(1 + gamma / k))
+
+    def predict(obs):
+        q, t = obs[:, 1], obs[:, 2]
+        skew = q * gamma * sigma**2 * (big_t - t)
+        spread = gamma * sigma**2 * (big_t - t) + half_log
+        return np.stack([skew + spread / 2, -skew + spread / 2], axis=1)
+
+    return predict
+
+
+def counts_since(before, now):
+    return {k: now[k] - before.get(k, 0) for k in now if now[k] - before.get(k, 0)}
+
+
+def surface_phases(torch, np, card, dev):
+    """Phase 25: the training and interop surfaces on the card.  (a)
+    checkpoint and resume at config 5: 4 iterations straight against 2,
+    ``save_checkpoint`` of the train state and the card generator that
+    seeds the iterations, ``restore_checkpoint`` into a template built
+    from another seed, 2 more, bitwise equal (params, Adam state, metrics);
+    a CPU file restored onto the card and back; the mismatch error on a
+    128x128 template.  (b) the data-parallel mesh at world size 1 through
+    NCCL: one config-5 iteration through ``train_iteration(mesh=)``
+    against the meshless one (tests/test_sharding.py:181-187's
+    tolerances), its time beside the meshless time, and
+    ``entry.dryrun_multichip(1)``.  (c) ``VecTradingEnv`` over one AS
+    episode at 16,384 envs with the closed form as a numpy ``predict``
+    (device and host time per step), ``rollout`` of
+    ``host_model_policy`` on the engine, both within 4 standard errors of
+    the AS agent's engine rollout; ``GymTradingEnv`` where gymnasium
+    imports.  (d) the backtest statistics and diagnostics on K2's
+    trajectory (``rollout(backend="auto")``, one launch) against float64 on
+    the CPU; plotting where matplotlib imports.  (e) ``profiling.trace``
+    around two config-5 iterations, naming K3's and K4's kernels;
+    ``throughput`` and ``scaling_report`` on the AS engine; the
+    TensorBoard logger on ``train_chunk``'s metrics.  Returns the
+    kernels-line figures of K2, K3 and K4."""
+    import dataclasses
+    import glob
+    import json
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mbt_gym_torch import dispatch_report, entry, rollout
+    from mbt_gym_torch.agents.baseline import AvellanedaStoikovAgent
+    from mbt_gym_torch.agents.external import host_model_policy
+    from mbt_gym_torch.agents.ppo import PPOConfig, init_train_state, train_chunk, train_iteration
+    from mbt_gym_torch.analytics import backtesting, diagnostics
+    from mbt_gym_torch.checkpoint import CheckpointMismatchError, restore_checkpoint, save_checkpoint
+    from mbt_gym_torch.gym_compat import GymTradingEnv, VecTradingEnv
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.parallel import mesh as mesh_lib
+    from mbt_gym_torch.types import Trajectory
+    from mbt_gym_torch.utils import profiling, tblog
+    from mbt_gym_torch.utils.config import as_env_config
+
+    t_start = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    env_cfg = dataclasses.replace(as_env_config(num_trajectories=PPO_N),
+                                  normalise_observation_space=True, normalise_action_space=True)
+    ppo_cfg = PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=PPO_MINIBATCHES, shuffle=False,
+                        compute_dtype="bfloat16", shared_trunk=True, fused_rollout=True, fused_update=True)
+    figures = {}
+    _build.reset_launch_counts()  # the slice's main path: everything phase 25 runs
+
+    # ---- phase 25a: checkpoint and resume at config 5
+    def run(ts, gen, n):
+        out = []
+        for _ in range(n):
+            before = dict(_build.launch_counts)
+            ts, metrics = train_iteration(env_cfg, ppo_cfg, ts, gen)
+            torch.cuda.synchronize()
+            got = counts_since(before, _build.launch_counts)
+            check(got == {"mlp_rollout": 1, "ppo_fused_grads_T": PPO_MINIBATCHES},
+                  f"phase 25a: an iteration launched {got}, not K3 x1 and K4 x{PPO_MINIBATCHES}")
+            out.append(assert_metric_bands(metrics, "phase 25a"))
+        return ts, out
+
+    ts0 = init_train_state(env_cfg, ppo_cfg, 0, device=dev)
+    straight, m_straight = run(ts0, torch.Generator(dev).manual_seed(77), 4)
+    gen = torch.Generator(dev).manual_seed(77)
+    half, _ = run(ts0, gen, 2)
+    path = os.path.join(tmp.name, "config5.ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, {"train_state": half, "key": gen})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    template = {"train_state": init_train_state(env_cfg, ppo_cfg, 5, device=dev),
+                "key": torch.Generator(dev).manual_seed(0)}
+    check(state_digest(torch, template["train_state"]) != state_digest(torch, half), "phase 25a: template = state")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(path, template)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(next(restored["train_state"].params.parameters()).device.type == dev.type, "phase 25a: restored off the card")
+    check(state_digest(torch, restored["train_state"]) == state_digest(torch, half), "phase 25a: restore is not exact")
+    resumed, m_resumed = run(restored["train_state"], restored["key"], 2)
+    check(state_digest(torch, resumed) == state_digest(torch, straight),
+          "phase 25a: 2 + save + restore + 2 iterations differ from 4 straight (params or Adam state)")
+    check(m_resumed == m_straight[2:], f"phase 25a: resumed metrics {m_resumed} != {m_straight[2:]}")
+    size = os.path.getsize(path)
+    print(f"phase 25a [{card}] config 5 checkpoint: {size} bytes, save {save_ms} ms, restore {restore_ms} ms; "
+          "4 straight iterations = 2 + save + restore + 2, bitwise (params, Adam state, metrics)")
+    # a CPU file onto the card and back; a 128x128 template refused
+    cpu_ts = init_train_state(env_cfg, ppo_cfg, 3, device="cpu")
+    cpu_path = os.path.join(tmp.name, "cpu.ckpt")
+    save_checkpoint(cpu_path, {"train_state": cpu_ts})
+    on_card = restore_checkpoint(cpu_path, {"train_state": init_train_state(env_cfg, ppo_cfg, 4, device=dev)})
+    check(state_digest(torch, on_card["train_state"]) == state_digest(torch, cpu_ts), "phase 25a: CPU -> card")
+    save_checkpoint(cpu_path, on_card)
+    back = restore_checkpoint(cpu_path, {"train_state": init_train_state(env_cfg, ppo_cfg, 4, device="cpu")})
+    check(state_digest(torch, back["train_state"]) == state_digest(torch, cpu_ts), "phase 25a: card -> CPU")
+    narrow = init_train_state(env_cfg, dataclasses.replace(ppo_cfg, hidden=(128, 128)), 0, device=dev)
+    try:
+        restore_checkpoint(path, {"train_state": narrow, "key": torch.Generator(dev)})
+        check(False, "phase 25a: a 128x128 template restored a 256x256 checkpoint")
+    except CheckpointMismatchError as e:
+        check("train_state/params/shared/0/weight" in str(e), f"phase 25a: mismatch message {e}")
+        print(f"phase 25a: a 128x128 template is refused: {str(e)[:160]}...")
+    figures["checkpoint"] = {"bytes": size, "save_ms": save_ms, "restore_ms": restore_ms}
+    del straight, half, resumed, restored, template, narrow
+
+    # ---- phase 25b: the data-parallel mesh at world size 1 through NCCL
+    mesh_lib.init_distributed(device=dev)
+    mesh = mesh_lib.make_mesh()
+    backend = dist.get_backend()
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo") and mesh.world == 1,
+          f"phase 25b: backend {backend}, world {mesh.world}")
+    ts = init_train_state(env_cfg, ppo_cfg, 6, device=dev)
+    before = dict(_build.launch_counts)
+    mesh_ts, mesh_m = train_iteration(env_cfg, ppo_cfg, ts, 300, mesh=mesh)
+    torch.cuda.synchronize()
+    got = counts_since(before, _build.launch_counts)
+    check(got == {"mlp_rollout": 1, "ppo_fused_grads_T": PPO_MINIBATCHES}, f"phase 25b: the mesh iteration launched {got}")
+    plain_ts, plain_m = train_iteration(env_cfg, ppo_cfg, ts, 300)
+    worst = 0.0
+    for (name, a), b in zip(plain_ts.params.state_dict().items(), mesh_ts.params.state_dict().values()):
+        err = float(((a - b).abs() - 1e-6 * a.abs()).max())
+        worst = max(worst, float((a - b).abs().max()))
+        check(err <= 1e-6, f"phase 25b: {name} differs from the meshless iteration beyond rtol/atol 1e-6 "
+                           f"(max abs {float((a - b).abs().max())})")
+    for k in plain_m:
+        a, b = float(plain_m[k]), float(mesh_m[k])
+        check(abs(a - b) <= 1e-6 + 1e-5 * abs(a), f"phase 25b: metric {k} {b} vs meshless {a}")
+    assert_metric_bands(mesh_m, "phase 25b")
+    state = {"ts": ts}
+
+    def mesh_iteration():
+        state["ts"], _ = train_iteration(env_cfg, ppo_cfg, state["ts"], 301, mesh=mesh)
+
+    def plain_iteration():
+        state["ts"], _ = train_iteration(env_cfg, ppo_cfg, state["ts"], 301)
+
+    plain_ms = cuda_ms(torch, plain_iteration, warmup=1, reps=3)
+    mesh_ms = cuda_ms(torch, mesh_iteration, warmup=1, reps=3)
+    plain_ms2 = cuda_ms(torch, plain_iteration, warmup=0, reps=3)
+    print(f"phase 25b [{card}] config 5 iteration through the {backend} mesh (world 1, 16 coalesced grad "
+          f"all-reduces): {mesh_ms} ms, meshless {plain_ms} ms then {plain_ms2} ms; params within {worst} "
+          f"(max abs) of the meshless iteration")
+    figures["mesh"] = {"ms": mesh_ms, "meshless_ms": (plain_ms + plain_ms2) / 2, "max_abs_param_diff": worst}
+    del mesh_ts, plain_ts, state
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1, device=dev)
+    torch.cuda.synchronize()
+    figures["dryrun_s"] = time.perf_counter() - t0
+    print(f"phase 25b [{card}] dryrun_multichip(1) at its defaults (2,048 x 64, 256x256): {figures['dryrun_s']} s")
+
+    # ---- phase 25c: the adapters and host policies on the AS config
+    as_cfg = as_env_config(num_trajectories=SURFACE_N)
+    agent = AvellanedaStoikovAgent.from_config(as_cfg, risk_aversion=0.1)
+    predict = as_numpy_predict(agent)
+    venv = VecTradingEnv(as_cfg, seed=41, device=dev)
+    obs = venv.reset()
+    totals = np.zeros(SURFACE_N, dtype=np.float64)
+    walls = []
+    for t in range(as_cfg.n_steps):
+        t0 = time.perf_counter()
+        obs, rewards, dones, infos = venv.step(predict(obs))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        totals += rewards
+        check(bool(dones.all()) == (t == as_cfg.n_steps - 1) and bool(dones.any()) == bool(dones.all()),
+              f"phase 25c: dones at step {t}")
+    check(len(infos) == SURFACE_N and abs(float(infos[0]["terminal_observation"][2]) - as_cfg.terminal_time) < 1e-5,
+          "phase 25c: terminal_observation infos")
+    check(np.all(obs[:, 2] == 0.0) and np.all(obs[:, 1] == 0.0), "phase 25c: the autoreset's observations")
+    obs = venv.reset()
+
+    def twenty_steps():
+        nonlocal obs
+        for _ in range(20):
+            obs = venv.step(predict(obs))[0]
+
+    busy, _ = device_busy(torch, twenty_steps)
+    split = step_split(walls, busy, 20)
+    engine = rollout_summary(torch, rollout(as_cfg, agent.policy(), None, 42, backend="engine", device=dev))
+    venv_pnl = {"mean_pnl": totals.mean(), "std_pnl": totals.std()}
+    check_agree(venv_pnl, engine, "mean_pnl", SURFACE_N, SURFACE_N, "phase 25c VecTradingEnv vs the engine")
+    hp = host_model_policy(predict, 2)
+    decision = dispatch_report(as_cfg, hp, mode="rollout", platform=dev)
+    check(decision.backend == "engine" and decision.reason.startswith("policy carries no dispatch metadata"),
+          f"phase 25c: host policy dispatch {decision}")
+    before = dict(_build.launch_counts)
+    host_res = rollout_summary(torch, rollout(as_cfg, hp, None, 43, device=dev))
+    check(counts_since(before, _build.launch_counts) == {}, "phase 25c: the host policy launched a kernel")
+    check_agree(host_res, engine, "mean_pnl", SURFACE_N, SURFACE_N, "phase 25c host_model_policy vs the engine")
+    host_ms = cuda_ms(torch, lambda: rollout(as_cfg, hp, None, 44, device=dev), warmup=0, reps=2)
+    eng_ms = cuda_ms(torch, lambda: rollout(as_cfg, agent.policy(), None, 44, backend="engine", device=dev),
+                     warmup=0, reps=2)
+    print(f"phase 25c [{card}] VecTradingEnv at {SURFACE_N} envs: {split['step_ms']} ms per step (median), device "
+          f"{split['device_ms']} ms, host {split['host_ms']} ms ({split['host_share']:.1%}); "
+          f"host_model_policy rollout {host_ms} ms per episode, the AS agent's engine rollout {eng_ms} ms")
+    try:
+        import gymnasium  # noqa: F401
+    except ImportError:
+        try:
+            GymTradingEnv(as_cfg, device=dev)
+            check(False, "phase 25c: GymTradingEnv built without gymnasium")
+        except ImportError as e:
+            print(f"phase 25c: gymnasium is absent; GymTradingEnv raises ImportError: {e}")
+    else:
+        genv = GymTradingEnv(as_cfg, seed=1, device=dev)
+        g_obs, _ = genv.reset()
+        g_obs, g_rew, term, trunc, info = genv.step(predict(g_obs))
+        check(g_obs.shape == (SURFACE_N, 4) and not term.any() and len(info) == SURFACE_N, "phase 25c: GymTradingEnv")
+        print("phase 25c: gymnasium imports; GymTradingEnv reset and stepped")
+    figures["adapters"] = {**split, "host_policy_rollout_ms": host_ms, "engine_rollout_ms": eng_ms}
+
+    # ---- phase 25d: analytics on K2's trajectory
+    a_cfg = dataclasses.replace(as_cfg, initial_cash=1000.0)
+    policy = agent.policy()
+    decision = dispatch_report(a_cfg, policy, mode="rollout", platform=dev)
+    check((decision.backend, decision.family) == ("fused", "as_episode"), f"phase 25d dispatch: {decision}")
+    before = dict(_build.launch_counts)
+    traj = rollout(a_cfg, policy, None, 45, device=dev).trajectory
+    torch.cuda.synchronize()
+    got = counts_since(before, _build.launch_counts)
+    check(got == {"as_episode_trajectories": 1}, f"phase 25d: rollout launched {got}, not K2 once")
+    cpu64 = Trajectory(*(x.detach().cpu().double() for x in traj))
+    analytics_ms = {}
+    for name, fn in (("sharpe_ratio", backtesting.sharpe_ratio), ("sortino_ratio", backtesting.sortino_ratio),
+                     ("maximum_drawdown", backtesting.maximum_drawdown),
+                     ("negative_spread_fraction", diagnostics.negative_spread_fraction),
+                     ("max_abs_inventory", diagnostics.max_abs_inventory)):
+        got_v, want_v = fn(traj).cpu().double(), fn(cpu64)
+        finite = torch.isfinite(want_v)
+        check(bool((torch.isfinite(got_v) == finite).all()), f"phase 25d {name}: NaN pattern differs")
+        err = float(((got_v - want_v).abs() / want_v.abs().clamp_min(1e-300))[finite].max()) if finite.any() else 0.0
+        check(err <= SURFACE_TOL, f"phase 25d {name}: relative error {err} against float64 on the CPU")
+        analytics_ms[name] = cuda_ms(torch, lambda: fn(traj), warmup=1, reps=5)
+        print(f"phase 25d [{card}] {name} on K2's {SURFACE_N}x{a_cfg.n_steps} trajectory: {analytics_ms[name]} ms, "
+              f"max relative error {err} against float64 on the CPU ({int(finite.sum())} finite of {finite.numel()})")
+    try:
+        import matplotlib
+    except ImportError:
+        print("phase 25d: plotting skipped: matplotlib is absent")
+    else:
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        from mbt_gym_torch.analytics import plotting
+
+        plt.close(plotting.plot_trajectory(a_cfg, traj, max_trajectories=4))
+        print("phase 25d: plot_trajectory drew K2's trajectory")
+    figures["analytics_ms"] = analytics_ms
+    del traj, cpu64
+
+    # ---- phase 25e: profiling and logging
+    # Two iterations: CUPTI now and then drops the record of a single
+    # launch from the kernels' libraries (phase 17 has seen it), and K3
+    # launches once per iteration; each kernel's records are printed
+    # beside its launches.
+    trace_dir = os.path.join(tmp.name, "trace")
+    ts = init_train_state(env_cfg, ppo_cfg, 8, device=dev)
+    before = dict(_build.launch_counts)
+    with profiling.trace(trace_dir):
+        for seed in (302, 303):
+            ts, _ = train_iteration(env_cfg, ppo_cfg, ts, seed)
+    launched = counts_since(before, _build.launch_counts)
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"phase 25e: trace files {files}")
+    with open(files[0]) as f:
+        kernel_events = [str(e.get("name", "")) for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    names = set(kernel_events)
+    for kernel, counter in (("mlp_rollout_kernel", "mlp_rollout"), ("ppo_pass1", "ppo_fused_grads_T"),
+                            ("ppo_pass2", "ppo_fused_grads_T")):
+        traced = sum(kernel in n for n in kernel_events)
+        print(f"phase 25e: {kernel}: {traced} records in the trace, {launched.get(counter, 0)} launches")
+        check(traced > 0 or dev.type != "cuda",
+              f"phase 25e: the trace names no {kernel} kernel ({sorted(names)[:12]})")
+    trace_bytes = os.path.getsize(files[0])
+    print(f"phase 25e [{card}] profiling.trace of two config-5 iterations: {trace_bytes} bytes, {len(names)} kernel "
+          f"names, K3's and K4's among them")
+    tp = profiling.throughput(as_cfg, policy, episodes_per_call=2, iters=2, device=dev)
+    check(all(np.isfinite(v) for v in tp.values()), f"phase 25e: throughput {tp}")
+    rows = profiling.scaling_report(as_cfg, policy, episodes_per_call=1, iters=2)
+    check(len(rows) == 1 and rows[0]["devices"] == 1, f"phase 25e: scaling_report {rows}")
+    print(f"phase 25e [{card}] throughput of AS {SURFACE_N}x{as_cfg.n_steps} engine episodes: "
+          f"{tp['env_steps_per_s']} env-steps/s ({tp['seconds_per_call']} s per 2 episodes); scaling_report {rows}")
+    check(isinstance(tblog.maybe_logger(None), tblog._NoopLogger), "phase 25e: maybe_logger(None)")
+    ts, chunk = train_chunk(env_cfg, ppo_cfg, ts, 9, 2)
+    values = tblog.host_values(chunk)
+    check(all(v.shape == (2,) for v in values.values()), f"phase 25e: train_chunk metrics {values}")
+    try:
+        logger = tblog.TensorboardLogger(os.path.join(tmp.name, "tb"))
+    except ImportError as e:
+        print(f"phase 25e: tensorboard is absent; TensorboardLogger raises ImportError: {e}")
+    else:
+        logger.log(0, chunk)
+        logger.close()
+        events = glob.glob(os.path.join(tmp.name, "tb", "events.out.tfevents.*"))
+        check(events and os.path.getsize(events[0]) > 0, "phase 25e: no TensorBoard event file")
+        print(f"phase 25e: TensorboardLogger wrote {os.path.getsize(events[0])} bytes from train_chunk's metrics")
+    figures["trace_bytes"] = trace_bytes
+    figures["throughput_env_steps_per_s"] = tp["env_steps_per_s"]
+    figures["scaling"] = rows
+    dist.destroy_process_group()
+    tmp.cleanup()
+
+    torch.cuda.synchronize()
+    path_counts = {k: c for k, c in _build.launch_counts.items() if c}
+    print(f"phase 25 launches on the slice's path: {path_counts}")
+    for name in ("as_episode_trajectories", "mlp_rollout", "ppo_fused_grads_T"):
+        check(path_counts.get(name, 0) > 0, f"phase 25: {name} was not launched on the slice's path")
+    print(f"phase 25 ok in {time.perf_counter() - t_start:.1f} s: {json.dumps(figures, default=float)}")
+    return {
+        "K2": {"slice14_launches": path_counts.get("as_episode_trajectories", 0),
+               "slice14_analytics_ms": analytics_ms},
+        "K3": {"slice14_launches": path_counts.get("mlp_rollout", 0)},
+        "K4": {"slice14_launches": path_counts.get("ppo_fused_grads_T", 0),
+               "slice14_mesh_iteration_ms": figures["mesh"]["ms"],
+               "slice14_meshless_iteration_ms": figures["mesh"]["meshless_ms"]},
+    }
+
+
 def as_phases(torch, np, card, dev):
     """Phases 2-6: K1 and K2 against their plain versions at the pipeline
     and the wide shape, the AS main path through the public entry points
@@ -2827,11 +3236,13 @@ def main():
     cj_figures = cj_learning_phases(torch, np, card, dev, k3_pnl_ms)
     lam_figures = lam_touch_phases(torch, np, card, dev, k3_pnl_ms)
     proc_figures = proc_phases(torch, np, card, dev, k3_pnl_ms)
+    surface_figures = surface_phases(torch, np, card, dev)
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))
         entry.update(cj_figures.get(entry["name"][:2], {}))
         entry.update(lam_figures.get(entry["name"][:2], {}))
         entry.update(proc_figures.get(entry["name"][:2], {}))
+        entry.update(surface_figures.get(entry["name"][:2], {}))
     kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
     for entry in rank_by_gap(kernels):
         print(f"rank [{card}] {entry['name']}: {entry['launches']} launches x ({entry['ms']} - {entry['bound_ms']}) ms "

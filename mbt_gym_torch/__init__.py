@@ -25,6 +25,20 @@ of the JAX package (ten midprice, three arrival, four fill and four
 impact models) runs on the engine, K3 and K5, and so does the composite
 stress config :func:`composite_env_config` (Hawkes arrivals, exogenous
 competing-market-maker fills, limit and market orders).
+
+The training and interop surfaces: :mod:`checkpoint` saves and resumes a
+bundle (env state, PPO train state, generator) bit for bit;
+:mod:`gym_compat` wraps the engine as a gymnasium ``Env``, an SB3
+``VecEnv`` and a gymnasium ``VectorEnv``; :mod:`agents.external` turns a
+host model (an SB3 ``predict``, any numpy function) into a policy;
+:mod:`analytics` holds the backtest statistics, diagnostics, info dicts
+and plots; :mod:`utils.profiling` the profiler trace and throughput
+harness, :mod:`utils.tblog` TensorBoard logging; :mod:`parallel.mesh`
+trains data-parallel over a ``torch.distributed`` process group (NCCL on
+cards, Gloo on the CPU) through ``train_iteration(..., mesh=)``; and
+:mod:`entry` holds the flagship forward step, the PPO metric bands and
+``dryrun_multichip``.  gymnasium, tensorboard and matplotlib are optional:
+the surface that needs one raises ``ImportError`` without it.
 """
 
 from mbt_gym_torch.types import (

@@ -29,6 +29,20 @@ by name (:func:`fused_update_refusal`, issued as a ``RuntimeWarning``)
 and the update runs on autograd, after the K3 rollout where
 ``fused_rollout`` asks for it.
 
+``mesh=`` (a :class:`mbt_gym_torch.parallel.mesh.Mesh`) makes
+:func:`collect_rollout`, :func:`train_iteration` and :func:`train_chunk`
+data-parallel over a ``torch.distributed`` process group (ppo.py:116-458):
+each rank steps its ``N / world`` envs from its own key
+(:func:`~mbt_gym_torch.parallel.mesh.fold_in` of the key with its rank,
+ppo.py:317-319), normalises each minibatch's advantages with the global
+mean and std, and averages each minibatch's grads and metrics over the
+ranks with one all-reduce of one flat buffer before the optimizer step,
+so params stay replicated.  The fused path takes the global ``noise``
+``(T, C, N)`` and ``inv0`` ``(N,)`` and uses this rank's columns; the
+engine path shuffles each rank's own samples with a permutation drawn
+from a generator seeded alike on every rank.  ``mesh=None`` is the
+single-device path, unchanged.
+
 The optimizer is ``torch.optim.Adam`` after a global-norm clip written to
 optax's formula.  :class:`PPOTrainState` holds the model and its
 optimizer; :func:`train_iteration` returns a new state and leaves the one
@@ -161,14 +175,23 @@ def _clip_to_action_box(env_cfg: EnvConfig, action: torch.Tensor) -> torch.Tenso
     return torch.minimum(torch.maximum(action, low), high)
 
 
+def _local_config(env_cfg: EnvConfig, mesh) -> EnvConfig:
+    """The config of this rank's ``N / world`` envs."""
+    from mbt_gym_torch.parallel.mesh import local_slice
+
+    rows = local_slice(mesh, env_cfg.num_trajectories)
+    return dataclasses.replace(env_cfg, num_trajectories=rows.stop - rows.start)
+
+
 @torch.no_grad()
 def collect_rollout(env_cfg: EnvConfig, params: networks.ActorCritic, key, gamma: float = 1.0,
-                    lam: float = 0.95, compute_dtype=None) -> RolloutBatch:
+                    lam: float = 0.95, compute_dtype=None, mesh=None) -> RolloutBatch:
     """One on-policy episode for all N trajectories, with values and
     log-probs (ppo.py:133-186), on the parameters' device.  ``key`` (an int
     seed or a ``torch.Generator``) drives the reset, the env noise and the
     policy samples.  Random start times are refused: their post-done steps
-    would enter GAE."""
+    would enter GAE.  With ``mesh``, this rank's ``N / world`` envs, from
+    ``fold_in(key, rank)``; the batch returned is this rank's."""
     from mbt_gym_torch.rollout import _episode_steps
 
     assert not isinstance(env_cfg.start_time, tuple), (
@@ -176,6 +199,11 @@ def collect_rollout(env_cfg: EnvConfig, params: networks.ActorCritic, key, gamma
         "would enter GAE); use a fixed start_time."
     )
     device = _device_of(params)
+    if mesh is not None:
+        from mbt_gym_torch.parallel.mesh import fold_in
+
+        env_cfg = _local_config(env_cfg, mesh)
+        key = fold_in(key, mesh.rank)
     gen = env_lib.make_generator(key, device)
     state, obs = env_lib.reset(env_cfg, gen, device=device)
     n_steps = _episode_steps(env_cfg)
@@ -212,6 +240,41 @@ def compute_gae(rewards: torch.Tensor, values: torch.Tensor, last_value: torch.T
 def normalise(adv: torch.Tensor) -> torch.Tensor:
     """``(adv - mean) / (std + 1e-8)`` with the population std (``jnp.std``)."""
     return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+
+
+def normalise_global(mesh, adv: torch.Tensor) -> torch.Tensor:
+    """:func:`normalise` with the mean and std over every rank's
+    minibatch, as ppo.py:349-350 writes them: the mean of the ranks' means,
+    then the square root of the mean of the ranks' mean squared deviations
+    (equal shard sizes make both the global ones).  On one rank the global
+    statistics are the rank's own, computed as :func:`normalise` computes
+    them, so a one-rank mesh normalises bit for bit as the meshless path
+    does."""
+    from mbt_gym_torch.parallel.mesh import all_reduce_mean
+
+    if mesh.world == 1:
+        return normalise(adv)
+    mean = all_reduce_mean(mesh, adv.mean().reshape(1))
+    var = all_reduce_mean(mesh, ((adv - mean) ** 2).mean().reshape(1))
+    return (adv - mean) / (torch.sqrt(var) + 1e-8)
+
+
+def mesh_mean(mesh, grads: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor]):
+    """The ranks' mean of one minibatch's grads and metrics, through ONE
+    all-reduce of one flat float32 buffer (the pmeans of ppo.py:361-362).
+    Each rank's values are means over its own minibatch; equal shard sizes
+    make their mean the global one."""
+    from mbt_gym_torch.parallel.mesh import all_reduce_mean
+
+    parts = list(grads.items()) + list(metrics.items())
+    flat = torch.cat([v.detach().reshape(-1).to(torch.float32) for _, v in parts])
+    all_reduce_mean(mesh, flat)
+    out, start = [], 0
+    for _, v in parts:
+        out.append(flat[start:start + v.numel()].view(v.shape).to(v.dtype))
+        start += v.numel()
+    n = len(grads)
+    return dict(zip(grads, out[:n])), dict(zip(metrics, out[n:]))
 
 
 def _ppo_loss(params: networks.ActorCritic, ppo_cfg: PPOConfig, batch):
@@ -300,11 +363,17 @@ def _mean_metrics(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Ten
 
 
 def _engine_update(ppo_cfg: PPOConfig, ts: PPOTrainState, batch: RolloutBatch,
-                   gen: torch.Generator) -> Dict[str, torch.Tensor]:
+                   gen: torch.Generator, mesh=None) -> Dict[str, torch.Tensor]:
     """n_epochs x n_minibatches updates of ``ts`` in place over row-major
     minibatches, shuffled globally per epoch when ``shuffle`` (ppo.py:504-548),
     each gradient from autograd or, with ``fused_update``, from
-    :func:`_fused_grads_and_metrics`; returns the mean metrics."""
+    :func:`_fused_grads_and_metrics`; returns the mean metrics.  With
+    ``mesh``, ``batch`` is this rank's and ``gen`` in the same state on
+    every rank: advantages are normalised with the global statistics and
+    each minibatch's grads and metrics averaged over the ranks."""
+    mb_cfg = ppo_cfg
+    if mesh is not None and ppo_cfg.normalise_advantages:
+        mb_cfg = dataclasses.replace(ppo_cfg, normalise_advantages=False)
     t, n = batch.rewards.shape
     flat = UpdateBatch(
         obs=batch.obs.reshape(t * n, -1), actions=batch.actions.reshape(t * n, -1),
@@ -322,13 +391,17 @@ def _engine_update(ppo_cfg: PPOConfig, ts: PPOTrainState, batch: RolloutBatch,
             sl = slice(m * mb_size, (m + 1) * mb_size)
             idx = perm[sl] if perm is not None else sl
             mb = UpdateBatch(*(x[idx] for x in flat))
+            if mb_cfg is not ppo_cfg:
+                mb = mb._replace(advantages=normalise_global(mesh, mb.advantages))
             if ppo_cfg.fused_update:
-                grads, mb_metrics = _fused_grads_and_metrics(params, ppo_cfg, mb)
+                grads, mb_metrics = _fused_grads_and_metrics(params, mb_cfg, mb)
             else:
                 params.zero_grad(set_to_none=True)
-                loss, mb_metrics = _ppo_loss(params, ppo_cfg, mb)
+                loss, mb_metrics = _ppo_loss(params, mb_cfg, mb)
                 loss.backward()
                 grads = {name: p.grad for name, p in zip(names, params.parameters())}
+            if mesh is not None:
+                grads, mb_metrics = mesh_mean(mesh, grads, mb_metrics)
             apply_gradients(ppo_cfg, params, optimizer, grads)
             metrics.append({k: v.detach() for k, v in mb_metrics.items()})
     return _mean_metrics(metrics)
@@ -338,7 +411,7 @@ def _engine_update(ppo_cfg: PPOConfig, ts: PPOTrainState, batch: RolloutBatch,
 def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networks.ActorCritic,
                           optimizer: torch.optim.Optimizer, key,
                           noise: Optional[torch.Tensor] = None,
-                          inv0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                          inv0: Optional[torch.Tensor] = None, mesh=None) -> Dict[str, torch.Tensor]:
     """The fully fused pipeline (ppo.py:282-382, single device): K3's
     feature-major ``(T, C, N)`` buffers feed K4 directly.  Minibatches are
     contiguous env slices (all T steps each), passed to K4 as views;
@@ -347,7 +420,13 @@ def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networ
     steps through ``p.grad``.  Updates ``params``/``optimizer`` in place
     and returns the mean metrics.  ``noise`` injects the rollout's
     ``(T, p.n_channels, N)`` channels and ``inv0`` the per-env
-    initial inventories of a random-inventory config (the parity tests)."""
+    initial inventories of a random-inventory config (the parity tests).
+
+    ``mesh`` (ppo.py:301-307's ``axis_name``): ``env_cfg``, ``noise`` and
+    ``inv0`` are this rank's; the rollout draws from ``fold_in(key, rank)``;
+    advantages are normalised with the global statistics; each K4 call's
+    grads and metrics, and the episode reward, are averaged over the
+    ranks, so every rank applies the same update."""
     from mbt_gym_torch.ops import fused_ppo, mlp_rollout
 
     assert not ppo_cfg.shuffle, "fused path uses contiguous env-slice minibatches"
@@ -356,6 +435,10 @@ def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networ
         "would enter GAE); use a fixed start_time."
     )
     device = _device_of(params)
+    if mesh is not None:
+        from mbt_gym_torch.parallel.mesh import fold_in
+
+        key = fold_in(key, mesh.rank)
     tb = mlp_rollout.collect_rollout_fused_T(
         env_cfg, params, key, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda, noise=noise, device=device, inv0=inv0,
     )
@@ -372,12 +455,14 @@ def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networ
 
             adv = sl(tb.advantages)
             if ppo_cfg.normalise_advantages:
-                adv = normalise(adv)
+                adv = normalise(adv) if mesh is None else normalise_global(mesh, adv)
             grads, mb_metrics = fused_ppo.ppo_fused_grads_T(
                 params, sl(tb.obs_t), sl(tb.actions_t), sl(tb.log_probs), adv, sl(tb.returns),
                 clip_eps=ppo_cfg.clip_eps, vf_coef=ppo_cfg.vf_coef,
                 compute_dtype=ppo_cfg.fused_compute_dtype,
             )
+            if mesh is not None:
+                grads, mb_metrics = mesh_mean(mesh, grads, mb_metrics)
             if ppo_cfg.ent_coef:
                 grads["log_std"] = grads["log_std"] - ppo_cfg.ent_coef
             mb_metrics = dict(mb_metrics)
@@ -385,14 +470,45 @@ def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networ
             apply_gradients(ppo_cfg, params, optimizer, grads)
             metrics.append(mb_metrics)
     out = _mean_metrics(metrics)
-    out["mean_episode_reward"] = tb.rewards.sum(dim=0).mean()
+    out["mean_episode_reward"] = _episode_reward(tb.rewards, mesh)
     return out
+
+
+def _episode_reward(rewards: torch.Tensor, mesh) -> torch.Tensor:
+    """Mean episode reward over the envs (over every rank's, with ``mesh``)."""
+    reward = rewards.sum(dim=0).mean()
+    if mesh is None:
+        return reward
+    from mbt_gym_torch.parallel.mesh import all_reduce_mean
+
+    return all_reduce_mean(mesh, reward.reshape(1)).reshape(())
 
 
 def _fused_train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key,
                            noise: Optional[torch.Tensor] = None):
     ts = _copy_state(train_state)
     metrics = _fused_iteration_body(env_cfg, ppo_cfg, ts.params, ts.opt_state, key, noise=noise)
+    return ts._replace(update_count=ts.update_count + 1), metrics
+
+
+def _fused_train_iteration_mesh(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key, mesh,
+                                noise: Optional[torch.Tensor] = None, inv0: Optional[torch.Tensor] = None):
+    """The data-parallel fully fused path (ppo.py:398-458): every rank runs
+    K3 and K4 on its ``N / world`` envs and the minibatch all-reduces of
+    :func:`_fused_iteration_body` keep params replicated.  ``noise`` is the
+    global ``(T, C, N)`` channel cube and ``inv0`` the global ``(N,)``
+    initial inventories; each rank takes its own env columns."""
+    from mbt_gym_torch.parallel.mesh import local_slice
+
+    if mesh.model != 1:
+        raise ValueError("the fused kernels hold the whole MLP on each rank (replicated-params data parallelism)")
+    rows = local_slice(mesh, env_cfg.num_trajectories)
+    local_cfg = _local_config(env_cfg, mesh)
+    noise = None if noise is None else noise[..., rows].contiguous()
+    inv0 = None if inv0 is None else inv0[rows]
+    ts = _copy_state(train_state)
+    metrics = _fused_iteration_body(local_cfg, ppo_cfg, ts.params, ts.opt_state, key, noise=noise, inv0=inv0,
+                                    mesh=mesh)
     return ts._replace(update_count=ts.update_count + 1), metrics
 
 
@@ -410,22 +526,37 @@ def fused_update_refusal(env_cfg: EnvConfig) -> Optional[str]:
 
 
 def train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key,
-                    noise: Optional[torch.Tensor] = None) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
+                    noise: Optional[torch.Tensor] = None, mesh=None
+                    ) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
     """rollout -> GAE -> n_epochs x n_minibatches updates; returns the new
     state and the mean metrics (``pg_loss``, ``vf_loss``, ``entropy``,
     ``approx_kl``, ``mean_episode_reward``).  ``key`` is an int seed or a
     ``torch.Generator`` on the parameters' device.  ``noise`` (fused
     rollout only) injects K3's ``(T, p.n_channels, N)`` channels.  A
     config that :func:`fused_update_refusal` refuses takes the autograd
-    update, and the refusal's reason is issued as a ``RuntimeWarning``."""
+    update, and the refusal's reason is issued as a ``RuntimeWarning``.
+    ``mesh`` runs the iteration data-parallel (see the module docstring);
+    the rollout with K3 alone, without the K4 update, is single-device."""
     refusal = fused_update_refusal(env_cfg) if ppo_cfg.fused_update else None
     if refusal is not None:
         warnings.warn(refusal, RuntimeWarning, stacklevel=2)
         ppo_cfg = dataclasses.replace(ppo_cfg, fused_update=False)
     if ppo_cfg.fused_rollout and ppo_cfg.fused_update:
+        if mesh is not None:
+            return _fused_train_iteration_mesh(env_cfg, ppo_cfg, train_state, key, mesh, noise=noise)
         return _fused_train_iteration(env_cfg, ppo_cfg, train_state, key, noise=noise)
     device = _device_of(train_state.params)
-    gen = env_lib.make_generator(key, device)
+    if mesh is None:
+        gen = shuffle_gen = env_lib.make_generator(key, device)
+    else:
+        from mbt_gym_torch.parallel.mesh import fold_in, key_seed, shared_key
+
+        if ppo_cfg.fused_rollout:
+            raise ValueError("fused_rollout without fused_update is single-device (mesh must be None)")
+        base = key_seed(key)
+        gen = env_lib.make_generator(fold_in(base, mesh.rank), device)
+        shuffle_gen = env_lib.make_generator(shared_key(base), device)
+        env_cfg = _local_config(env_cfg, mesh)
     ts = _copy_state(train_state)
     if ppo_cfg.fused_rollout:
         from mbt_gym_torch.ops.mlp_rollout import collect_rollout_fused
@@ -439,8 +570,8 @@ def train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrai
             env_cfg, ts.params, gen, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda,
             compute_dtype=ppo_cfg.compute_dtype,
         )
-    metrics = _engine_update(ppo_cfg, ts, batch, gen)
-    metrics["mean_episode_reward"] = batch.rewards.sum(dim=0).mean()
+    metrics = _engine_update(ppo_cfg, ts, batch, shuffle_gen, mesh=mesh)
+    metrics["mean_episode_reward"] = _episode_reward(batch.rewards, mesh)
     return ts._replace(update_count=ts.update_count + 1), metrics
 
 
@@ -452,13 +583,14 @@ def iteration_keys(key, n_iterations: int) -> List[int]:
 
 
 def train_chunk(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key,
-                n_iterations: int) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
+                n_iterations: int, mesh=None) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
     """``n_iterations`` train iterations on the seeds
     :func:`iteration_keys` draws from ``key``; metrics come back stacked
-    with a leading ``(n_iterations,)`` axis (ppo.py:558-587)."""
+    with a leading ``(n_iterations,)`` axis (ppo.py:558-587).  ``mesh`` as
+    in :func:`train_iteration`."""
     history = []
     for k in iteration_keys(key, n_iterations):
-        train_state, metrics = train_iteration(env_cfg, ppo_cfg, train_state, k)
+        train_state, metrics = train_iteration(env_cfg, ppo_cfg, train_state, k, mesh=mesh)
         history.append(metrics)
     return train_state, {k: torch.stack([m[k] for m in history]) for k in history[0]}
 

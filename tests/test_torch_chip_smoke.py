@@ -277,3 +277,73 @@ def test_composite_bounds_count_the_wider_streams():
     ms, by = chip_smoke.bound_ms(4 * 5 * 65_536, chip_smoke.OPS_PER_ENV_STEP_K5_COMPOSITE * 65_536 * t,
                                  chip_smoke.FP32_OPS_PER_S)
     assert by == "operations" and chip_smoke.OPS_PER_ENV_STEP_K5_COMPOSITE == 329
+
+
+def test_state_digest_reads_params_adam_state_and_count():
+    """Phase 25a's digest: equal for equal states, moved by any param, any
+    Adam moment and the update count; an optimizer that has not stepped
+    digests as Adam's starting state (step 0, zero moments), which a
+    restored checkpoint of it holds."""
+    import copy
+
+    import torch
+
+    from mbt_gym_torch.agents import ppo
+    from mbt_gym_torch.utils.config import as_env_config
+
+    cfg = as_env_config(num_trajectories=32, n_steps=4)
+    ppo_cfg = ppo.PPOConfig(hidden=(8, 8), n_epochs=1, n_minibatches=1)
+    fresh = ppo.init_train_state(cfg, ppo_cfg, 0, device="cpu")
+    stepped, _ = ppo.train_iteration(cfg, ppo_cfg, fresh, 1)
+    digest = chip_smoke.state_digest(torch, stepped)
+    assert digest == chip_smoke.state_digest(torch, copy.deepcopy(stepped))
+    assert digest != chip_smoke.state_digest(torch, stepped._replace(update_count=2))
+    moved = copy.deepcopy(stepped)
+    next(iter(moved.opt_state.state.values()))["exp_avg"].add_(1e-7)
+    assert digest != chip_smoke.state_digest(torch, moved)
+    zeroed = copy.deepcopy(fresh)
+    for group in zeroed.opt_state.param_groups:
+        for p in group["params"]:
+            zeroed.opt_state.state[p] = {"step": torch.zeros(()), "exp_avg": torch.zeros_like(p),
+                                         "exp_avg_sq": torch.zeros_like(p)}
+    assert chip_smoke.state_digest(torch, zeroed) == chip_smoke.state_digest(torch, fresh)
+
+
+def test_step_split_puts_the_rest_of_a_step_on_the_host():
+    """Phase 25c: the median wall time of a step, the profiled busy time
+    per step on the device, the host's share the difference."""
+    split = chip_smoke.step_split([2.0, 3.0, 2.5, 9.0], busy_ms=10.0, steps=20)
+    assert split == {"step_ms": 2.75, "device_ms": 0.5, "host_ms": 2.25, "host_share": 2.25 / 2.75}
+    assert chip_smoke.step_split([1.0], busy_ms=40.0, steps=20)["host_ms"] == 0.0
+
+
+def test_as_numpy_predict_is_the_agents_closed_form():
+    """Phase 25c's host model: the AS quotes in numpy float32 equal the
+    agent's torch policy to 1e-6."""
+    import numpy as np
+    import torch
+
+    from mbt_gym_torch.agents.baseline import AvellanedaStoikovAgent
+    from mbt_gym_torch.utils.config import as_env_config
+
+    agent = AvellanedaStoikovAgent.from_config(as_env_config(num_trajectories=8), risk_aversion=0.1)
+    rng = np.random.default_rng(2)
+    obs = np.stack([rng.normal(size=64), rng.integers(-5, 6, size=64), rng.uniform(size=64),
+                    100 + rng.normal(size=64)], axis=1).astype(np.float32)
+    got = chip_smoke.as_numpy_predict(agent)(obs)
+    assert got.dtype == np.float32 and got.shape == (64, 2)
+    np.testing.assert_allclose(got, agent.policy()(None, torch.from_numpy(obs), None).numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_launch_deltas():
+    """Phase 25's per-run launch counts: what each counter gained."""
+    assert chip_smoke.counts_since({"k3": 2, "k4": 5}, {"k3": 3, "k4": 5, "k2": 1}) == {"k3": 1, "k2": 1}
+
+
+def test_metric_bands_are_the_entry_modules():
+    """chip_smoke's bands are mbt_gym_torch.entry's; outside them the phase
+    fails."""
+    good = {"pg_loss": 0.01, "vf_loss": 2.0, "approx_kl": 0.001, "mean_episode_reward": 10.0}
+    assert chip_smoke.assert_metric_bands(good, "ok") == good
+    with pytest.raises(chip_smoke.PhaseFailed, match="bands"):
+        chip_smoke.assert_metric_bands(dict(good, vf_loss=0.0), "bad")
