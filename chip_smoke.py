@@ -58,7 +58,18 @@ public entry points and times it all:
   at 16,384 envs against the engine (25c); the backtest statistics on
   K2's trajectory against float64 on the CPU (25d); a profiler trace
   naming K3's and K4's kernels, engine throughput, ``scaling_report``
-  and the TensorBoard logger (25e).
+  and the TensorBoard logger (25e);
+- PPO on optimal execution (phase 26): K3's speed kind at bench_suite
+  config 6, its impact kinds, the exponential utility, the t0 plane of a
+  random start and the terminal observation, K5's exponential utility and
+  schedule kind on lam and touch, and K4 at S = 5, A = 1 against their
+  plain versions (26a); the JAX OE learning gate, 200 fully fused
+  iterations that must capture 90% of the closed-form schedule's saving
+  (26b); config 6 at full width, both layouts, beside the engine (26c);
+  random-start ``evaluate_policy``, the exponential utility through
+  ``rollout(auto)`` and K5's lam schedule against the engine (26d); the
+  new instantiations' registers, spills and tensor-core instructions
+  (26e).
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
 update passes and of K3 run tensor-core instructions and the float32 ones
@@ -1219,12 +1230,14 @@ def update_phases(torch, np, card, dev):
     # mlp_rollout_kernel, one instantiation per operand type and dynamics
     # kind (limit, lam, touch).  Then the tensor-core instructions of each.
     # The step-pipeline kernels K1, K2, K5, K6 and K8 spill nothing: K5's
-    # 56 instantiations of the plain processes (limit and speed: 20 at
-    # inventory exponent 2, 20 at any other; lam and touch, the fixed kind:
-    # 8 and 8), 28 general ones and 4 of the composite family (phase 24e),
-    # K1's, K6's and K8's 4 (two draw modes, the pipeline and the wide
-    # shape) and K2's 16 (the same, by its four output layouts).
-    pipeline_kernels = {"det_rollout.cu": 56 + 28 + 4, "as_episode.cu": 4 + 16, "oe_episode.cu": 4, "cj_episode.cu": 4}
+    # 72 instantiations of the plain processes (limit and speed: 20 at
+    # inventory exponent 2, 20 at any other; lam and touch, the fixed and
+    # schedule kinds: 16 and 16), 36 general ones, 4 of the composite
+    # family and 36 of the exponential utility (phases 24e, 26e), K1's,
+    # K6's and K8's 4 (two draw modes, the pipeline and the wide shape) and
+    # K2's 16 (the same, by its four output layouts).
+    pipeline_kernels = {"det_rollout.cu": 72 + 36 + 4 + 36, "as_episode.cu": 4 + 16, "oe_episode.cu": 4,
+                        "cj_episode.cu": 4}
     for src, names in (("fused_ppo.cu", ("ppo_pass1", "ppo_pass2")), ("mlp_rollout.cu", ("mlp_rollout_kernel",)),
                        ("det_rollout.cu", ("det_rollout_kernel",)),
                        ("as_episode.cu", ("as_episode_kernel", "as_traj_kernel")),
@@ -1239,11 +1252,12 @@ def update_phases(torch, np, card, dev):
             check(len(rows) == pipeline_kernels[src],
                   f"phase 18: {src} holds {len(rows)} instantiations of {names}, not {pipeline_kernels[src]}")
     check_tensor_cores(_build.build("fused_ppo.cu"), "fused_ppo.cu", ("ppo_pass",), 8)
-    # K3: mlp_rollout_kernel<true, kind, proc> (bf16, tensor cores) and
-    # <false, kind, proc> for the three dynamics kinds on the plain and the
-    # general processes; MUFU counts the special-function instructions
-    # behind its tanhf/expf/logf
-    k3_sass = check_tensor_cores(_build.build("mlp_rollout.cu"), "mlp_rollout.cu", ("mlp_rollout_kernel",), 12)
+    # K3: mlp_rollout_kernel<true, kind, proc, extras> (bf16, tensor cores)
+    # and <false, kind, proc, extras> for the four dynamics kinds on the
+    # plain and the general processes, and the general ones' extras
+    # variants; MUFU counts the special-function instructions behind its
+    # tanhf/expf/logf
+    k3_sass = check_tensor_cores(_build.build("mlp_rollout.cu"), "mlp_rollout.cu", ("mlp_rollout_kernel",), 24)
     kinds = {kind: sass_counts(k3_sass, f"MUFU.{kind}", ("mlp_rollout_kernel",))
              for kind in ("EX2", "RCP", "LG2", "SQRT", "RSQ", "SIN", "COS", "TANH")}
     for entry, n in sorted(sass_counts(k3_sass, "MUFU", ("mlp_rollout_kernel",)).items()):
@@ -2138,18 +2152,20 @@ def hawkes_fixed_point(p):
 
 
 def narrow_copy(torch, params, s_dim, a_dim, dev):
-    """A copy of the actor-critic ``params`` reading the first ``s_dim``
-    observation columns and writing the first ``a_dim`` action rows: the
-    same inner trunk for a K3 run on a narrower config beside the wide
-    one."""
+    """A copy of the actor-critic ``params`` for ``s_dim`` observation
+    columns and ``a_dim`` actions: the block of each parameter that both
+    shapes hold is copied (the first observation columns, the first action
+    rows), any row past ``params``' keeps a seeded init.  The same inner
+    trunk for a K3 run on another config beside the first one."""
     from mbt_gym_torch.agents.networks import init_actor_critic
 
     model = init_actor_critic(0, s_dim, a_dim, hidden=params.hidden, shared_trunk=params.shared_trunk, device=dev)
     source = dict(params.named_parameters())
     with torch.no_grad():
         for name, t in model.named_parameters():
-            src = source[name][:t.shape[0]]
-            t.copy_(src[:, :t.shape[1]] if t.dim() == 2 else src)
+            src = source[name]
+            block = tuple(slice(0, min(a, b)) for a, b in zip(t.shape, src.shape))
+            t[block] = src[block]
     return model
 
 
@@ -2571,9 +2587,12 @@ def proc_phases(torch, np, card, dev, k3_pnl_ms=None):
     # K3's bf16 lam general instantiation, which runs config 10.
     k3_rows = kernel_registers(_build.ptxas_reports.get("mlp_rollout.cu", ""), ("mlp_rollout_kernel",))
     k5_rows = kernel_registers(_build.ptxas_reports.get("det_rollout.cu", ""), ("det_rollout_kernel",))
-    gen_k3 = [(e, u) for e, u in k3_rows if re.search(r"ILb[01]ELi\dELi1E", e)]
+    # (the market-making kinds' general ones without the extras, kDyn 0-2;
+    # K5's without the schedule kind on lam and touch: phase 26e's)
+    gen_k3 = [(e, u) for e, u in k3_rows if re.search(r"ILb[01]ELi[012]ELi1ELb0E", e)]
     comp_k3 = [(e, u) for e, u in k3_rows if re.search(r"ILb[01]ELi\dELi2E", e)]
-    gen_k5 = [(e, u) for e, u in k5_rows if re.search(r"ILb[01]ELi\dELi\dELb[01]ELb[01]ELi1E", e)]
+    gen_k5 = [(e, u) for e, u in k5_rows
+              if re.search(r"kernelILb[01]E(?:Li[01]ELi\d|Li[23]ELi[01])ELb[01]ELb[01]ELi1E", e)]
     comp_k5 = [(e, u) for e, u in k5_rows if re.search(r"ILb[01]ELi2ELi1ELb[01]ELb1ELi2E", e)]
     check((len(gen_k3), len(comp_k3), len(gen_k5), len(comp_k5)) == (6, 0, 28, 4),
           f"phase 24e: {len(gen_k3)} general and {len(comp_k3)} composite K3, {len(gen_k5)} general and "
@@ -2587,7 +2606,7 @@ def proc_phases(torch, np, card, dev, k3_pnl_ms=None):
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.build("mlp_rollout.cu"))], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    hmma = {e: n for e, n in sass_counts(sass, "HMMA", ("mlp_rollout_kernel",)).items() if "ILb1ELi1ELi1E" in e}
+    hmma = {e: n for e, n in sass_counts(sass, "HMMA", ("mlp_rollout_kernel",)).items() if "ILb1ELi1ELi1ELb0E" in e}
     check(len(hmma) == 1 and all(n > 0 for n in hmma.values()), f"phase 24e: HMMA in K3's bf16 lam general kind {hmma}")
     print(f"phase 24e K3 bf16 lam general instantiation: {list(hmma.values())[0]} HMMA")
 
@@ -3026,6 +3045,548 @@ def surface_phases(torch, np, card, dev):
     }
 
 
+# ------------------------------------------------------------------ optimal execution
+SPEED_N = 262_144  # bench_suite config 6 (scripts/bench_suite.py:184-200)
+SPEED_ITERATIONS = 3  # timed config-6 iterations per layout
+OE_GATE_N, OE_GATE_ITERATIONS, OE_GATE_BAR = 8192, 200, 0.9  # tests/test_convergence.py:317-350
+OE_GATE_PHI, OE_GATE_ALPHA = 2e-3, 0.1
+EU_GAMMA = 0.01  # ExponentialUtility's risk aversion in phase 26 (cash and value in the hundreds)
+# The instantiations phase 26 adds, by mangled name: K3's speed kind (kDyn
+# 3, plain or general processes, no extras) and the extras variants (the
+# fourth template argument, kExtra, 1) of every kind; K5's schedule kind on
+# lam and touch (kDyn 2 and 3, kPol 2) and its exponential-utility kernels.
+K3_NEW_INSTANTIATIONS = r"mlp_rollout_kernelI(?:Lb[01]ELi3ELi[01]ELb0E|Lb[01]ELi\dELi1ELb1E)"
+K5_NEW_INSTANTIATIONS = r"kernelILb[01]ELi[23]ELi2E|kernel_utilityI"
+# Operations per env-step of phase 26's K5 cases, counted as
+# OPS_PER_ENV_STEP_K1 is: the lam, table, speed and touch steps, the
+# exponential utility adding its value, product, exp and the terminal
+# product (4) in place of the PnL reward's difference.
+K5_SLICE15_OPS = {"eu_fixed_lam": OPS_PER_ENV_STEP_K5_LAM + 4, "eu_table": OPS_PER_ENV_STEP_K5_TABLE + 4,
+                  "eu_schedule_oe": OPS_PER_ENV_STEP_K5_SPEED + 4, "schedule_lam": OPS_PER_ENV_STEP_K5_LAM,
+                  "schedule_touch": OPS_PER_ENV_STEP_K5_TOUCH}
+
+
+def oe_saving(det, cf, hold):
+    """The share of the closed-form schedule's saving over holding the
+    inventory that a policy captures, (det - hold) / (cf - hold)
+    (tests/test_convergence.py:357)."""
+    return (det - hold) / (cf - hold)
+
+
+def k3_bound(n, steps, s_dim, a_dim, towers=1, peak=BF16_OPS_PER_S):
+    """bound_ms of one K3 call: the (T, S + A + 3, N) float32 outputs
+    written once against the trunk's and head's matmul FLOPs per
+    env-step at ``peak``."""
+    return bound_ms((s_dim + a_dim + 3) * 4 * n * steps, mlp_flops_per_sample(s_dim, 256, 256, a_dim, towers) * n * steps,
+                    peak)
+
+
+def speed_figures(err, launches, k3, k4, k5, k3_extra=None):
+    """The kernels-line fields of phase 26 by kernel: ``err`` the max abs
+    errors against the plain versions, ``launches`` the main path's counts,
+    ``k3`` {layout: (device_ms, call_ms, plain_ms, bound_ms, pnl_ms)} of K3
+    speed at config 6, ``k4`` (device_ms, call_ms, plain_ms, bound_ms) of K4
+    at S = 5, A = 1, ``k5`` and ``k3_extra`` {tag: (device_ms, call_ms,
+    plain_ms, bound_ms)} of K5's new kinds and of K3's exponential utility
+    and t0 plane."""
+    figures = {"K3": {"speed_launches": launches.get("mlp_rollout", 0), "speed_max_abs_err": err["K3"]},
+               "K4": {"s5a1_launches": launches.get("ppo_fused_grads_T", 0), "s5a1_max_abs_err": err["K4"],
+                      "s5a1_ms": k4[0], "s5a1_call_ms": k4[1], "s5a1_plain_ms": k4[2], "s5a1_bound_ms": k4[3]},
+               "K5": {"slice15_launches": launches.get("det_rollout", 0), "slice15_max_abs_err": err["K5"]}}
+    for layout, (ms, call, plain, bound, pnl) in k3.items():
+        tag = f"speed_{'towers' if layout == 'towers' else 'shared'}"
+        figures["K3"].update({f"{tag}_ms": ms, f"{tag}_call_ms": call, f"{tag}_plain_ms": plain,
+                              f"{tag}_bound_ms": bound, f"{tag}_pnl_same_call_ms": pnl})
+    for kernel, kinds in (("K5", k5), ("K3", k3_extra or {})):
+        for tag, (ms, call, plain, bound) in kinds.items():
+            figures[kernel].update({f"{tag}_ms": ms, f"{tag}_call_ms": call, f"{tag}_plain_ms": plain,
+                                    f"{tag}_bound_ms": bound})
+    return figures
+
+
+def speed_phases(torch, np, card, dev, k3_pnl_ms=None):
+    """Phase 26: PPO on optimal execution through K3's speed kind, K3's
+    t0 plane and terminal observation, the exponential utility in K3 and
+    K5, K5's schedule kind on lam and touch.  (a) each new kind against
+    its plain version in native and noise modes, launched twice bitwise,
+    and K4 at S = 5, A = 1; (b) the JAX OE learning gate
+    (tests/test_convergence.py:317-350, not cut): 200 fully fused
+    iterations must capture 90% of the closed-form schedule's saving; (c)
+    bench_suite config 6 at full width, both layouts, beside the engine and
+    K3 PnL; (d) two implementations of one contract: random-start
+    evaluate_policy, the exponential utility's fixed quotes through
+    rollout(auto), the schedule kind on lam, each fused against the engine;
+    (e) the new instantiations' registers, spills and HMMA.  Returns the
+    kernels-line figures of K3, K4 and K5."""
+    import dataclasses
+    import re
+
+    from mbt_gym_torch import (
+        CarteaJaimungalMmAgent, CarteaJaimungalOeAgent, as_env_config, dispatch_report, rollout,
+    )
+    from mbt_gym_torch.agents.baseline import fixed_action_policy
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.agents.ppo import (
+        PPOConfig, compute_gae, deterministic_policy, evaluate_policy, init_train_state, normalise, train_iteration,
+    )
+    from mbt_gym_torch.env import make_generator
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import fused_ppo
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.processes import impact as ip
+    from mbt_gym_torch.processes import midprice as mp
+    from mbt_gym_torch.rewards import CjOeCriterion, ExponentialUtility
+    from mbt_gym_torch.types import TIME_INDEX
+    from mbt_gym_torch.utils.config import cj_env_config, lam_env_config, oe_env_config, touch_env_config
+
+    t_start = time.perf_counter()
+    norm = dict(normalise_observation_space=True, normalise_action_space=True)
+    cfg6 = dataclasses.replace(oe_env_config(num_trajectories=SPEED_N), **norm)
+    path = {name: 0 for name in _build.launch_counts}
+
+    def add_launches():
+        for name, c in _build.launch_counts.items():
+            path[name] += c
+
+    def model_for(cfg, seed, shared=True):
+        return init_actor_critic(seed, cfg.state_dim, cfg.action_dim, hidden=(256, 256), shared_trunk=shared,
+                                 device=dev)
+
+    def k3_noise(p, n, seed):
+        return mr.philox_noise(seed, p.run_steps, n, dev, p.a_dim, p.fill_kind == "exomm", p.has_mid2) * 1.0
+
+    # ---- phase 26a: each new kind against its plain version, native and
+    # noise, at phase 8's limits (K3; the speed kind's inventory is
+    # continuous, compared to the tolerance) and phase 14's (K5), each
+    # launched twice bitwise; K4 at S = 5, A = 1 at phase 9's
+    t0 = time.perf_counter()
+    err = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    plain_k3_ms = {}
+
+    def k3_case(label, cfg, model, n, modes=("native", "noise"), t0_plane=None, final_obs=False, time_plain=False):
+        p = mr.rollout_params_from_config(cfg)
+        kept = None
+        for mode in modes:
+            kw = {"seed": 61, "device": dev} if mode == "native" else {"noise": k3_noise(p, n, 62)}
+            extra = {"t0": t0_plane, "final_obs": final_obs}
+            got = mr.mlp_rollout(p, model, num_trajectories=n, **kw, **extra)
+            again = mr.mlp_rollout(p, model, num_trajectories=n, **kw, **extra)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = mr.mlp_rollout_plain(p, model, num_trajectories=n, **kw, **extra)
+            end.record()
+            end.synchronize()
+            if time_plain and mode == "native":
+                plain_k3_ms[label] = start.elapsed_time(end)
+            at = f"phase 26a K3 {label} {mode} at {n}x{p.run_steps}"
+            err["K3"] = max(err["K3"], compare_rollouts(torch, got[:5], want[:5], n, at, continuous=p.speed))
+            outs = dict(zip(ROLLOUT_OUTPUTS + ("final_obs",), got))
+            check_repeat(torch, (outs,), (dict(zip(outs, again)),), at)
+            if final_obs:
+                torch.testing.assert_close(got[5], want[5], rtol=1e-4, atol=1e-3, msg=lambda m: f"{at} final_obs: {m}")
+                err["K3"] = max(err["K3"], float((got[5] - want[5]).abs().max()))
+            if mode == "native":
+                kept = got
+            del got, again, want
+        return p, kept
+
+    # K3 speed at config 6's shape: both layouts, bf16 (normalised, config
+    # 6) and float32 (the raw OE spaces)
+    raw6 = oe_env_config(num_trajectories=SPEED_N)
+    speed_rollout = None
+    for precision, cfg in (("bf16", cfg6), ("float32", raw6)):
+        for layout in ("shared trunk", "towers"):
+            model = model_for(cfg, 63, layout == "shared trunk")
+            for n, mode in ((SPEED_N, "native"), (CJ_SMALL_N, "noise")):
+                p, got = k3_case(f"speed {precision} {layout}", cfg, model, n, modes=(mode,),
+                                 time_plain=n == SPEED_N)
+                check((p.dynamics_kind, p.a_dim, len(p.obs_low)) == ("speed", 1, 5), f"phase 26a: params {p}")
+                if precision == "bf16" and layout == "shared trunk" and n == SPEED_N:
+                    speed_rollout, speed_model = got, model
+                del got
+    # the four impact kinds, CjOe at exponents 2 and 3, a Heston midprice
+    # on speed, and the exponential utility on limit and speed, at
+    # 16,384 x 200 on the bf16 shared trunk.  The power impact (0.01
+    # speed^2, tests/test_pallas_rollout.py:441's exponent) runs on the raw
+    # spaces' float32 path: at the speed bound of 100 a step's reward moves
+    # 1.3 per unit of speed, so the bf16 path's summation-order difference
+    # in the action (~1e-4 of a normalised unit) moves a reward by ~0.01,
+    # past phase 8's tolerance, while the float32 path's is ~1e-6.
+    base = dataclasses.replace(oe_env_config(num_trajectories=KIND_N), **norm)
+
+    def impact(m, cfg=base):
+        return dataclasses.replace(cfg, dynamics=dataclasses.replace(cfg.dynamics, price_impact_model=m))
+
+    kinds = {
+        "temp_perm cjoe e2": base,
+        "cjoe e3": dataclasses.replace(base, reward_function=CjOeCriterion(2e-4, 0.01, inventory_exponent=3.0)),
+        "power float32": impact(ip.TemporaryPowerImpact(temporary_impact_coefficient=0.01, temporary_impact_exponent=2.0),
+                                oe_env_config(num_trajectories=KIND_N)),
+        "transient": impact(ip.TransientImpact()),
+        "temp_transient": impact(ip.TemporaryAndTransientImpact()),
+        "heston": dataclasses.replace(base, dynamics=dataclasses.replace(base.dynamics, midprice_model=mp.HestonMidprice(
+            initial_price=100.0))),
+        "speed exp_utility": dataclasses.replace(base, reward_function=ExponentialUtility(EU_GAMMA)),
+        "limit exp_utility": dataclasses.replace(as_env_config(num_trajectories=KIND_N), reward_function=ExponentialUtility(
+            EU_GAMMA), **norm),
+    }
+    for label, cfg in kinds.items():
+        k3_case(label, cfg, model_for(cfg, 64), KIND_N)
+    # the t0 plane on the normalised AS env (start_time ("uniform", 0,
+    # 0.5)), per-env starts on the step grid, both layouts: the steps past
+    # each env's horizon give exact zeros
+    late = dataclasses.replace(as_env_config(num_trajectories=KIND_N), start_time=("uniform", 0.0, 0.5), **norm)
+    gen = torch.Generator(dev).manual_seed(65)
+    steps_in = torch.randint(0, 101, (KIND_N,), generator=gen, device=dev)
+    t0_plane = steps_in.to(torch.float32) * late.step_size
+    for layout in ("shared trunk", "towers"):
+        p, got = k3_case(f"t0 {layout}", late, model_for(late, 66, layout == "shared trunk"), KIND_N,
+                         t0_plane=t0_plane)
+        check(p.random_start and p.run_steps == late.n_steps, f"phase 26a: t0 params {p}")
+        done = torch.arange(late.n_steps, device=dev)[:, None] >= late.n_steps - steps_in[None, :]
+        check(bool((got[4][done] == 0.0).all()) and bool((got[4][~done] != 0.0).any()),
+              "phase 26a: K3's post-done rewards under t0 are not zero")
+        del got
+    # the terminal observation: against the plain version (normalised AS,
+    # bf16; config 6's OE, bf16), and equal to the last observation row of
+    # a run one step longer on the same channels (raw AS, float32)
+    for label, cfg in (("final_obs limit", dataclasses.replace(as_env_config(num_trajectories=KIND_N), **norm)),
+                       ("final_obs speed", base)):
+        k3_case(label, cfg, model_for(cfg, 67), KIND_N, final_obs=True)
+    raw = as_env_config(num_trajectories=KIND_N)
+    longer = as_env_config(num_trajectories=KIND_N, n_steps=STEPS + 1, terminal_time=(STEPS + 1) / STEPS)
+    model = model_for(raw, 68)
+    p, p1 = mr.rollout_params_from_config(raw), mr.rollout_params_from_config(longer)
+    check(np.float32(p.dt) == np.float32(p1.dt), f"phase 26a: step sizes {p.dt} and {p1.dt}")
+    noise = k3_noise(p1, KIND_N, 69)
+    fin = mr.mlp_rollout(p, model, num_trajectories=KIND_N, noise=noise[:STEPS].contiguous(), final_obs=True)[5]
+    row = mr.mlp_rollout(p1, model, num_trajectories=KIND_N, noise=noise)[0][STEPS]
+    torch.testing.assert_close(fin, row, rtol=1e-6, atol=1e-6, msg=lambda m: f"phase 26a final_obs vs one more step: {m}")
+    print(f"phase 26a K3 final_obs equals the last observation row stepped once more (max abs "
+          f"{float((fin - row).abs().max()):.3g})")
+    del fin, row, noise
+
+    # K5: the exponential utility on the fixed (lam), table (CJ) and
+    # schedule (OE) kinds; the schedule kind on lam (with market orders)
+    # and touch, at 16,384 x 200 (the CJ table at its 1,000 steps)
+    cj_base = cj_env_config(num_trajectories=N_MAIN, max_inventory=10.0)
+    cj_agent = CarteaJaimungalMmAgent.from_config(cj_base, max_inventory=10)
+    oe_base = oe_env_config(num_trajectories=N_MAIN)
+    oe_table = det.schedule_table_from_policy(oe_base, CarteaJaimungalOeAgent.from_config(oe_base).policy()).to(dev)
+    rng = np.random.default_rng(70)
+    lam_table = torch.from_numpy(rng.uniform(0.0, 1.0, size=(STEPS, 4)).astype(np.float32)).to(dev)
+    touch_table = torch.from_numpy(rng.uniform(0.0, 1.0, size=(STEPS, 2)).astype(np.float32)).to(dev)
+    eu = ExponentialUtility(EU_GAMMA)
+    k5_cases = {
+        # market buys each step, masked at the inventory bound: unmasked, the
+        # money pump takes the value below -8,800 and exp overflows (the
+        # reward then 0 x -inf = NaN, as in JAX)
+        "eu_fixed_lam": (det.fixed_rollout_params(dataclasses.replace(
+            lam_env_config(num_trajectories=N_MAIN), reward_function=eu, mask_market_orders_at_max_inventory=True),
+            [0.6, 0.6, 0.7, 0.2]), ()),
+        "eu_table": (det.cj_rollout_params(dataclasses.replace(cj_base, reward_function=eu), cj_agent),
+                     tuple(torch.as_tensor(t, device=dev) for t in det.cj_depth_tables(cj_agent))),
+        "eu_schedule_oe": (det.schedule_rollout_params(dataclasses.replace(oe_base, reward_function=eu)), (oe_table,)),
+        "schedule_lam": (det.schedule_rollout_params(lam_env_config(num_trajectories=N_MAIN)), (lam_table,)),
+        "schedule_touch": (det.schedule_rollout_params(touch_env_config(num_trajectories=N_MAIN)), (touch_table,)),
+    }
+    for label, (p, tables) in k5_cases.items():
+        check((p.reward_kind == "exp_utility") == label.startswith("eu"), f"phase 26a: {label} {p}")
+        c = rng.uniform(size=(p.run_steps, p.n_channels, N_MAIN)).astype(np.float32)
+        c[:, 4:] = rng.normal(size=(p.run_steps, p.n_channels - 4, N_MAIN)).astype(np.float32)
+        for mode, kw in (("noise", {"noise": torch.from_numpy(c).to(dev)}), ("native", {"seed": 71, "device": dev})):
+            for stats in (True, False):
+                extra = {"stats_only": stats, "final_obs": not stats}
+                got = det.det_rollout(p, tables, num_trajectories=N_MAIN, **kw, **extra)
+                again = det.det_rollout(p, tables, num_trajectories=N_MAIN, **kw, **extra)
+                want = det.det_rollout_plain(p, tables, num_trajectories=N_MAIN, **kw, **extra)
+                torch.cuda.synchronize()
+                at = f"phase 26a K5 {label} {'stats' if stats else 'streams'} {mode} at {N_MAIN}x{p.run_steps}"
+                err["K5"] = max(err["K5"], compare_outputs(torch, got, want, N_MAIN, at, streams=not stats))
+                check_repeat(torch, (dict(enumerate(got)),), (dict(enumerate(again)),), at)
+                if label == "schedule_lam" and not stats and mode == "native":
+                    check(bool((got[1][:, 2:] > 0.5).any()), "phase 26a: no market order on the lam schedule")
+                del got, again, want
+    # K4 at S = 5, A = 1 on the first minibatch of config 6's native rollout
+    obs_t, actions_t, log_probs, values, rewards = speed_rollout
+    adv, returns = compute_gae(rewards, values, torch.zeros_like(values[0]), 1.0, 0.95)
+    nb = SPEED_N // PPO_MINIBATCHES
+    mb = [x[..., :nb] for x in (obs_t, actions_t, log_probs, adv, returns)]
+    mb[3] = normalise(mb[3])
+    moved = copy.deepcopy(speed_model)
+    with torch.no_grad():
+        moved.log_std.add_(0.05)
+    for dtype in ("float32", "bfloat16"):
+        grads, metrics = fused_ppo.ppo_fused_grads_T(moved, *mb, compute_dtype=dtype)
+        again = fused_ppo.ppo_fused_grads_T(moved, *mb, compute_dtype=dtype)
+        want_g, want_m = fused_ppo.ppo_fused_grads_T_plain(moved, *mb, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        at = f"phase 26a K4 S=5 A=1 {dtype} at {STEPS}x{nb}"
+        err["K4"] = max(err["K4"], compare_grads(torch, grads, metrics, want_g, want_m, dtype, at))
+        check_repeat(torch, (grads, metrics), again, at)
+    del speed_rollout, obs_t, actions_t, log_probs, values, rewards, adv, returns, again
+    print(f"phase 26a ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 26b: the OE learning gate (tests/test_convergence.py:317-
+    # 350, JAX's TPU-only gate), not cut: 8,192 x 200, phi 2e-3, alpha 0.1,
+    # normalised spaces, 256x256 shared trunk, 1 epoch of 4 minibatches,
+    # lr 1e-3, bf16, 200 fully fused iterations; the deterministic policy
+    # must capture 90% of the closed-form schedule's saving over holding.
+    # K3 x1 and K4 x4 per iteration, nothing else; the metric bands on
+    # each; evaluate_policy(auto) on K3 within 4 standard errors of the
+    # engine.
+    t0 = time.perf_counter()
+    raw_gate = oe_env_config(num_trajectories=OE_GATE_N, per_step_inventory_aversion=OE_GATE_PHI,
+                             terminal_inventory_aversion=OE_GATE_ALPHA)
+    gate = dataclasses.replace(raw_gate, **norm)
+    oe_agent = CarteaJaimungalOeAgent.from_config(raw_gate, phi=OE_GATE_PHI, alpha=OE_GATE_ALPHA)
+    cf = float(rollout(raw_gate, oe_agent.policy(), None, 7, backend="engine").trajectory.rewards.sum(dim=0).mean())
+    hold = -OE_GATE_ALPHA * float(raw_gate.initial_inventory) ** 2
+    gate_cfg = PPOConfig(hidden=(256, 256), gamma=1.0, gae_lambda=0.95, n_epochs=1, n_minibatches=4, shuffle=False,
+                         compute_dtype="bfloat16", shared_trunk=True, learning_rate=1e-3, fused_rollout=True,
+                         fused_update=True)
+    ts = init_train_state(gate, gate_cfg, 0)
+    per_iteration = {"mlp_rollout": 1, "ppo_fused_grads_T": gate_cfg.n_minibatches}
+    history = []
+    t1 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        for i in range(OE_GATE_ITERATIONS):
+            _build.reset_launch_counts()
+            ts, metrics = train_iteration(gate, gate_cfg, ts, 1 + i)
+            counts = dict(_build.launch_counts)
+            want = {name: per_iteration.get(name, 0) for name in counts}
+            check(counts == want, f"phase 26b iteration {i + 1}: launches {counts}, want {want}")
+            add_launches()
+            history.append(assert_metric_bands(metrics, f"phase 26b iteration {i + 1}")["mean_episode_reward"])
+    train_s = time.perf_counter() - t1
+    decision = dispatch_report(gate, deterministic_policy(gate), mode="evaluate", platform=dev, policy_params=ts.params)
+    check((decision.backend, decision.family) == ("fused", "mlp_rollout"), f"phase 26b evaluate dispatch: {decision}")
+    _build.reset_launch_counts()
+    det_reward = float(evaluate_policy(gate, ts.params, 9, n_episodes=2))
+    torch.cuda.synchronize()
+    counts = {name: c for name, c in _build.launch_counts.items() if c}
+    check(counts == {"mlp_rollout": 2}, f"phase 26b evaluate_policy(auto) launches {counts}")
+    add_launches()
+    saving = oe_saving(det_reward, cf, hold)
+    engine = float(evaluate_policy(gate, ts.params, 10, n_episodes=2, backend="engine"))
+    with torch.no_grad():
+        spread = rollout(gate, deterministic_policy(gate), ts.params, 11, backend="engine").trajectory.rewards.sum(0)
+    se = float(spread.std()) * (2.0 / (2 * OE_GATE_N)) ** 0.5
+    print(f"phase 26b [{card}] fused PPO on optimal execution at {OE_GATE_N}x{gate.n_steps}: {OE_GATE_ITERATIONS} "
+          f"iterations in {train_s:.1f} s, mean_episode_reward first 5 {history[:5]}, last 5 {history[-5:]}; "
+          f"evaluate_policy(auto) (K3 x2) {det_reward}, closed-form schedule on the engine {cf}, holding {hold}: "
+          f"saving {saving} (bar {OE_GATE_BAR})")
+    print(f"phase 26b evaluate_policy of the trained policy, 2 episodes each: auto (K3) {det_reward}, engine {engine}, "
+          f"{abs(det_reward - engine) / se:.2f} se")
+    check(abs(det_reward - engine) <= 4 * se, f"phase 26b: evaluate_policy auto {det_reward} vs engine {engine}, se {se}")
+    check(saving > OE_GATE_BAR, f"phase 26b: saving {saving} not above {OE_GATE_BAR}")
+    del ts
+    print(f"phase 26b ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 26c: bench_suite config 6 at full width (262,144 envs,
+    # 256x256, 16 minibatches, bf16), both layouts: fully fused iterations
+    # (K3 x1 + K4 x16 each, no RuntimeWarning, the bands), timed and
+    # profiled; the engine iteration on the shared trunk; K3 speed's device
+    # time beside K3 PnL's on the same trunk in this call; K4 at S = 5,
+    # A = 1 timed
+    t0 = time.perf_counter()
+    env_steps = SPEED_N * cfg6.n_steps
+    k3 = {}
+    pnl_cfg = dataclasses.replace(as_env_config(num_trajectories=SPEED_N), **norm)
+    pnl_p = mr.rollout_params_from_config(pnl_cfg)
+    p6 = mr.rollout_params_from_config(cfg6)
+    for layout in ("shared trunk", "towers"):
+        pcfg = PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=PPO_MINIBATCHES, shuffle=False,
+                         compute_dtype="bfloat16", shared_trunk=layout == "shared trunk", fused_rollout=True,
+                         fused_update=True)
+        ts = init_train_state(cfg6, pcfg, 80)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            for i in range(SPEED_ITERATIONS):
+                _build.reset_launch_counts()
+                ts, metrics = train_iteration(cfg6, pcfg, ts, 81 + i)
+                torch.cuda.synchronize()
+                counts = {name: c for name, c in _build.launch_counts.items() if c}
+                check(counts == {"mlp_rollout": 1, "ppo_fused_grads_T": PPO_MINIBATCHES},
+                      f"phase 26c {layout} iteration {i + 1}: launches {counts}")
+                add_launches()
+                assert_metric_bands(metrics, f"phase 26c {layout} iteration {i + 1}")
+            ms = cuda_ms(torch, lambda: train_iteration(cfg6, pcfg, ts, 90), warmup=0, reps=1)
+        print(f"phase 26c [{card}] fused train_iteration on config 6 ({SPEED_N}x{cfg6.n_steps}, 16 minibatches), "
+              f"{layout}: {ms} ms = {env_steps / ms * 1e3} env-steps/s; launches per iteration K3 x1 + K4 x16")
+        profile_iteration(torch, card, f"fused train_iteration on config 6, {layout}, at {SPEED_N}x{cfg6.n_steps}",
+                          lambda: train_iteration(cfg6, pcfg, ts, 91), phase=26)
+        if layout == "shared trunk":
+            engine_cfg = dataclasses.replace(pcfg, fused_rollout=False, fused_update=False)
+            e_ms = cuda_ms(torch, lambda: train_iteration(cfg6, engine_cfg, ts, 92), warmup=1, reps=1)
+            print(f"phase 26c [{card}] engine train_iteration on config 6 ({SPEED_N}x{cfg6.n_steps}), {layout}: "
+                  f"{e_ms} ms = {env_steps / e_ms * 1e3} env-steps/s")
+            profile_iteration(torch, card, f"engine train_iteration on config 6, {layout}, at {SPEED_N}x{cfg6.n_steps}",
+                              lambda: train_iteration(cfg6, engine_cfg, ts, 93), phase=26)
+        params = ts.params
+        speed_ms = kernel_ms(torch, lambda: mr.mlp_rollout(p6, params, 9, SPEED_N, device=dev), warmup=1, reps=5,
+                             label=f"phase 26c K3 speed {layout} at {SPEED_N}x{cfg6.n_steps}")
+        pnl_model = narrow_copy(torch, params, 4, 2, dev)
+        pnl = kernel_ms(torch, lambda: mr.mlp_rollout(pnl_p, pnl_model, 9, SPEED_N, device=dev), warmup=1, reps=5,
+                        label=f"phase 26c K3 pnl {layout} at {SPEED_N}x{pnl_p.run_steps}")
+        towers = 1 if layout == "shared trunk" else 2
+        b = k3_bound(SPEED_N, STEPS, 5, 1, towers)
+        plain_ms = plain_k3_ms[f"speed bf16 {layout}"]
+        k3[layout] = (speed_ms[0], speed_ms[1], plain_ms, b[0], pnl[0])
+        print(kernel_row("26c", card, f"K3 speed {layout}", f"{SPEED_N}x{STEPS}", env_steps, *speed_ms, *b, plain_ms)
+              + f"; PnL (limit, S = 4, A = 2) on the same trunk {pnl[0]} ms (call {pnl[1]} ms)"
+              + (f"; phase 12's PnL K3 {k3_pnl_ms} ms" if layout == "shared trunk" and k3_pnl_ms else ""))
+        del ts, params
+    # K3 speed on the float32 path (the raw OE spaces) at config 6's shape
+    raw_model = model_for(raw6, 63)
+    raw_p = mr.rollout_params_from_config(raw6)
+    f32_ms = kernel_ms(torch, lambda: mr.mlp_rollout(raw_p, raw_model, 9, SPEED_N, device=dev), warmup=1, reps=3,
+                       label=f"phase 26c K3 speed float32 shared trunk at {SPEED_N}x{STEPS}")
+    f32_b = k3_bound(SPEED_N, STEPS, 5, 1, peak=FP32_OPS_PER_S)
+    print(kernel_row("26c", card, "K3 speed float32 shared trunk", f"{SPEED_N}x{STEPS}", env_steps, *f32_ms, *f32_b,
+                     plain_k3_ms["speed float32 shared trunk"]))
+    # K3's exponential utility and t0 plane at config 5's shape (limit
+    # dynamics, normalised, shared trunk): the reward branch, and the
+    # general instantiation's extras variant with per-env starts on the grid
+    extra_ms = {}
+    eu5 = dataclasses.replace(pnl_cfg, reward_function=ExponentialUtility(EU_GAMMA))
+    late5 = dataclasses.replace(pnl_cfg, start_time=("uniform", 0.0, 0.5))
+    steps5 = torch.randint(0, 101, (SPEED_N,), generator=torch.Generator(dev).manual_seed(96), device=dev)
+    t0_5 = steps5.to(torch.float32) * late5.step_size
+    model5 = model_for(pnl_cfg, 97)
+    for tag, cfg, t0_arg in (("exp_utility", eu5, None), ("t0", late5, t0_5)):
+        p5 = mr.rollout_params_from_config(cfg)
+        ms = kernel_ms(torch, lambda: mr.mlp_rollout(p5, model5, 9, SPEED_N, device=dev, t0=t0_arg), warmup=1, reps=5,
+                       label=f"phase 26c K3 {tag} shared trunk at {SPEED_N}x{STEPS}")
+        plain_ms = cuda_ms(torch, lambda: mr.mlp_rollout_plain(p5, model5, 9, SPEED_N, device=dev, t0=t0_arg),
+                           warmup=0, reps=1)
+        b = k3_bound(SPEED_N, STEPS, 4, 2)
+        extra_ms[tag] = (ms[0], ms[1], plain_ms, b[0])
+        print(kernel_row("26c", card, f"K3 {tag} shared trunk", f"{SPEED_N}x{STEPS}", env_steps, *ms, *b, plain_ms))
+    extra_ms["speed_float32"] = (f32_ms[0], f32_ms[1], plain_k3_ms["speed float32 shared trunk"], f32_b[0])
+    k4_ms = kernel_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(moved, *mb), warmup=2, reps=10,
+                      label=f"phase 26c K4 S=5 A=1 at {STEPS}x{nb}")
+    k4_plain_ms = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(moved, *mb), warmup=1, reps=3)
+    k4_bound = bound_ms((5 + 1 + 3) * 4 * STEPS * nb, ppo_grad_flops_per_sample(5, 256, 256, 1) * STEPS * nb,
+                        BF16_OPS_PER_S)
+    print(kernel_row("26c", card, "K4 ppo_fused_grads_T S=5 A=1 bf16 (one minibatch)", f"{STEPS}x{nb}", STEPS * nb,
+                     *k4_ms, *k4_bound, k4_plain_ms))
+    del mb, moved
+    print(f"phase 26c ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 26d: two implementations of one contract, each pair within
+    # 4 standard errors.  Random starts: evaluate_policy fused (K3, t0
+    # plane) against the engine, one episode a key, the key's first draw the
+    # shared start of both; the exponential utility's fixed quotes through
+    # rollout(auto) (K5) against the engine; the schedule kind on lam (K5)
+    # against the engine with the same table as a time-indexed policy
+    t0 = time.perf_counter()
+    late_model = model_for(late, 95)
+    fused_r, engine_r, var = [], [], 0.0
+    for key in range(4):
+        with torch.no_grad():
+            tb = mr.collect_rollout_fused_T(late, late_model, make_generator(100 + key, dev), device=dev)
+            res = rollout(late, deterministic_policy(late), late_model, 100 + key, backend="engine")
+        t_fused, t_engine = float(tb.obs_t[0, TIME_INDEX, 0]), float(res.trajectory.observations[0, 0, TIME_INDEX])
+        check(t_fused == t_engine, f"phase 26d: key {100 + key} starts at {t_fused} fused, {t_engine} engine")
+        _build.reset_launch_counts()
+        fused_r.append(float(evaluate_policy(late, late_model, 100 + key, backend="fused")))
+        check(_build.launch_counts["mlp_rollout"] == 1, "phase 26d: evaluate_policy(fused) did not launch K3 once")
+        add_launches()
+        total = res.trajectory.rewards.sum(dim=0)
+        engine_r.append(float(total.mean()))
+        var += 2.0 * float(total.var()) / KIND_N
+        del tb, res
+    se = var ** 0.5 / 4
+    diff = abs(statistics.mean(fused_r) - statistics.mean(engine_r))
+    print(f"phase 26d random-start evaluate_policy at {KIND_N}x{late.n_steps}, 4 episodes: fused (K3 t0) {fused_r}, "
+          f"engine {engine_r}, {diff / se:.2f} se")
+    check(diff <= 4 * se, f"phase 26d random starts: fused {fused_r} vs engine {engine_r}, se {se}")
+    eu_cfg = dataclasses.replace(as_env_config(num_trajectories=N_MAIN), reward_function=ExponentialUtility(EU_GAMMA))
+    pol = fixed_action_policy([0.7, 0.9])
+    d = dispatch_report(eu_cfg, pol, platform=dev)
+    check((d.backend, d.family) == ("fused", "fixed"), f"phase 26d exponential utility dispatch: {d}")
+
+    def agree(label, fused_total, engine_total):
+        se = (float(fused_total.var()) / fused_total.numel() + float(engine_total.var()) / engine_total.numel()) ** 0.5
+        a, b = float(fused_total.mean()), float(engine_total.mean())
+        print(f"phase 26d {label}: fused (K5) {a} vs engine {b}, {abs(a - b) / se:.2f} se")
+        check(abs(a - b) <= 4 * se, f"phase 26d {label}: {a} vs {b}, se {se}")
+
+    _build.reset_launch_counts()
+    fused_eu = rollout(eu_cfg, pol, None, 110).trajectory.rewards.sum(dim=0)
+    check({k: c for k, c in _build.launch_counts.items() if c} == {"det_rollout": 1},
+          f"phase 26d: rollout(auto) launches {dict(_build.launch_counts)}")
+    add_launches()
+    agree("exponential utility, fixed quotes (0.7, 0.9), rollout(auto)", fused_eu,
+          rollout(eu_cfg, pol, None, 111, backend="engine").trajectory.rewards.sum(dim=0))
+    lam_cfg = lam_env_config(num_trajectories=N_MAIN)
+    p = det.schedule_rollout_params(lam_cfg)
+    _build.reset_launch_counts()
+    fused_lam = det.schedule_rollout(p, lam_table, 112, N_MAIN, device=dev)[4].sum(dim=0)
+    add_launches()
+    dt = lam_cfg.step_size
+
+    def table_policy(params, obs, state):
+        row = torch.clamp(torch.round(obs[:, TIME_INDEX] / dt).long(), max=STEPS - 1)
+        return lam_table[row]
+
+    agree("schedule on lam", fused_lam, rollout(lam_cfg, table_policy, None, 113, backend="engine")
+          .trajectory.rewards.sum(dim=0))
+    sched_ms = {}
+    for tag, (p, tables) in k5_cases.items():
+        ms = kernel_ms(torch, lambda: det.det_rollout(p, tables, 9, N_MAIN, final_obs=True, device=dev), warmup=2,
+                       reps=10)
+        plain_ms = cuda_ms(torch, lambda: det.det_rollout_plain(p, tables, 9, N_MAIN, final_obs=True, device=dev),
+                           warmup=1, reps=1)
+        s_dim, a_dim = len(p.obs_low), p.a_dim
+        floats = p.run_steps * (s_dim + a_dim + 3) + s_dim
+        b = bound_ms(4 * floats * N_MAIN, K5_SLICE15_OPS[tag] * N_MAIN * p.run_steps, FP32_OPS_PER_S)
+        sched_ms[tag] = (ms[0], ms[1], plain_ms, b[0])
+        print(kernel_row("26d", card, f"K5 {tag} streams", f"{N_MAIN}x{p.run_steps}", N_MAIN * p.run_steps, *ms, *b,
+                         plain_ms))
+    print(f"phase 26d ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 26e: the new instantiations' registers and spills (ptxas
+    # -v of the builds above): K3's speed kind (kDyn 3) on the plain and
+    # general processes and the extras variants (the fourth template
+    # argument, kExtra, 1) of every kind; K5's schedule kind on lam and
+    # touch (kDyn 2 and 3, kPol 2) and its exponential-utility kernels
+    # (det_rollout_kernel_utility, on the general processes); none spills.  HMMA
+    # > 0 in K3's bf16 speed and extras instantiations, 0 in the float32
+    # ones.
+    k3_rows = kernel_registers(_build.ptxas_reports.get("mlp_rollout.cu", ""), ("mlp_rollout_kernel",))
+    k5_rows = kernel_registers(_build.ptxas_reports.get("det_rollout.cu", ""), ("det_rollout_kernel",))
+    new_k3 = [(e, u) for e, u in k3_rows if re.search(K3_NEW_INSTANTIATIONS, e)]
+    new_k5 = [(e, u) for e, u in k5_rows if re.search(K5_NEW_INSTANTIATIONS, e)]
+    check(len(new_k3) == 12 and len(new_k5) == 24 + 36,
+          f"phase 26e: {len(new_k3)} new K3 and {len(new_k5)} new K5 instantiations, not 12 and 60")
+    for entry, usage in new_k3 + new_k5:
+        print(f"phase 26e registers {entry[:110]}: {usage}")
+        check(spill_bytes(usage) == 0, f"phase 26e: {entry} spills: {usage}")
+    import shutil
+    from pathlib import Path
+
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.build("mlp_rollout.cu"))], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hmma = {e: n for e, n in sass_counts(sass, "HMMA", ("mlp_rollout_kernel",)).items()
+            if re.search(K3_NEW_INSTANTIATIONS, e)}
+    check(len(hmma) == 12, f"phase 26e: {len(hmma)} new K3 instantiations in the SASS, not 12")
+    for entry, n in sorted(hmma.items()):
+        bf16 = bf16_instantiation(entry)
+        print(f"phase 26e K3 {entry[:100]}: {n} HMMA ({'bf16' if bf16 else 'float32'})")
+        check(n > 0 if bf16 else n == 0, f"phase 26e: {n} HMMA in {entry}")
+
+    print(f"phase 26 launches on the slice's main path (26b-26d): { {k: c for k, c in path.items() if c} }")
+    for name in ("mlp_rollout", "ppo_fused_grads_T", "det_rollout"):
+        check(path[name] > 0, f"phase 26: {name} was not launched on the slice's main path")
+    print(f"phase 26 ok in {time.perf_counter() - t_start:.1f} s")
+    return speed_figures(err, path, k3, (k4_ms[0], k4_ms[1], k4_plain_ms, k4_bound[0]), sched_ms, extra_ms)
+
+
 def as_phases(torch, np, card, dev):
     """Phases 2-6: K1 and K2 against their plain versions at the pipeline
     and the wide shape, the AS main path through the public entry points
@@ -3237,12 +3798,14 @@ def main():
     lam_figures = lam_touch_phases(torch, np, card, dev, k3_pnl_ms)
     proc_figures = proc_phases(torch, np, card, dev, k3_pnl_ms)
     surface_figures = surface_phases(torch, np, card, dev)
+    speed_figures_ = speed_phases(torch, np, card, dev, k3_pnl_ms)
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))
         entry.update(cj_figures.get(entry["name"][:2], {}))
         entry.update(lam_figures.get(entry["name"][:2], {}))
         entry.update(proc_figures.get(entry["name"][:2], {}))
         entry.update(surface_figures.get(entry["name"][:2], {}))
+        entry.update(speed_figures_.get(entry["name"][:2], {}))
     kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
     for entry in rank_by_gap(kernels):
         print(f"rank [{card}] {entry['name']}: {entry['launches']} launches x ({entry['ms']} - {entry['bound_ms']}) ms "

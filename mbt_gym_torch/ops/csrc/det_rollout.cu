@@ -11,7 +11,8 @@
 // with the PnL, pathwise CJ or running-penalty reward, and trading-speed
 // dynamics with temporary + permanent impact and the PnL or CJ execution
 // reward; BM midprice; any inventory exponent; fixed start; optional
-// per-env initial inventory (inv0).  The fixed kind also runs the
+// per-env initial inventory (inv0); the terminal exponential utility on
+// every dynamics kind.  The fixed and schedule kinds also run the
 // limit-and-market-order ("lam": 4 columns, a unit market order where a
 // trigger column exceeds 0.5 at mid -/+ the half-spread before the limit
 // bookkeeping, optionally blocked at +/- max inventory on the pre-step
@@ -19,7 +20,12 @@
 // at mid -/+ the half-spread) dynamics with the market-making rewards,
 // each dynamics kind its own instantiation (template parameter kDyn), so
 // the limit and speed kinds keep their code and bits; both draw the limit
-// kind's five channels (touch leaves the fill uniforms unread).
+// kind's five channels (touch leaves the fill uniforms unread).  The
+// exponential utility, terminal * -exp(-gamma (cash + inventory price))
+// (pallas_rollout.py:1173-1179), runs kernels of its own
+// (det_rollout_kernel_utility), on the general processes, whose bits on the
+// plain processes are the plain ones', so every other instantiation keeps
+// its code.
 //
 // Design: a warp-specialised step pipeline (step_pipeline.cuh).  A CTA
 // owns E envs: E / 32 consumer warps run the env step, one thread per env
@@ -136,7 +142,7 @@ struct DetKernelParams {
   float initial_price;
   float temporary_impact;
   float permanent_impact;
-  float dt_phi;       // dt * phi
+  float dt_phi;       // dt * phi; -risk_aversion under the exponential utility, which has no inventory terms
   float alpha;
   float dt_alpha;     // dt * alpha
   float cjmm_const;   // alpha * dt / episode_length
@@ -173,7 +179,7 @@ namespace {
 
 enum Dynamics { kLimit = 0, kSpeed = 1, kLam = 2, kTouch = 3 };
 enum Policy { kTable = 0, kFixed = 1, kSchedule = 2 };
-enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2, kCjOe = 3 };
+enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2, kCjOe = 3, kExpUtility = 4 };
 
 // q(x) at the kernel's exponent: x * x in the exponent-2 instantiation.
 template <bool kAnyExp>
@@ -242,9 +248,9 @@ __global__ void fill_table_kernel(float neg_k, const float* __restrict__ bid, co
   }
 }
 
-template <bool kNoise, int kDyn, int kPol, bool kStats, bool kAnyExp, int kProc = mbt::kProcPlain>
-__global__ void __launch_bounds__(mbt::kMaxPipeThreads)
-det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t seed) {
+// One CTA's episodes (the kernels below).
+template <bool kNoise, int kDyn, int kPol, bool kStats, bool kAnyExp, int kProc, bool kUtility>
+__device__ __forceinline__ void det_rollout_cta(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed) {
   extern __shared__ __align__(16) unsigned char smem[];
   const mbt::StepRing ring(p.pipe, smem);
   const int warp = threadIdx.x >> 5;
@@ -327,8 +333,13 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
             raw1 = __ldg(b.ask + at);
           }
         } else if constexpr (kPol == kSchedule) {
-          raw0 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim);
-          if constexpr (kDyn == kLimit) raw1 = __ldg(b.schedule + static_cast<size_t>(row) * p.a_dim + 1);
+          const float* sched = b.schedule + static_cast<size_t>(row) * p.a_dim;
+          raw0 = __ldg(sched);
+          if constexpr (kDyn != kSpeed) raw1 = __ldg(sched + 1);
+          if constexpr (kDyn == kLam) {
+            raw2 = __ldg(sched + 2);
+            raw3 = __ldg(sched + 3);
+          }
         } else {
           raw0 = p.fixed_action[0];
           raw1 = p.fixed_action[1];
@@ -465,17 +476,22 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
         }();
         // ---- reward at the post-step state (RewardFunctions.py)
         float reward = (new_cash + new_inv * new_price) - (cash + inv * price);
-        const float q_new = q_exp<kAnyExp>(new_inv, p.inv_exp);
-        if (p.reward == kCjMm) {
-          reward = reward - p.dt_phi * q_new - p.alpha * (q_new - q_exp<kAnyExp>(inv, p.inv_exp)) -
-                   p.cjmm_const * q0_pow;
-        } else if (p.reward == kRunning) {
+        if constexpr (kUtility) {  // the exponential utility: terminal * -exp(-gamma * value)
           const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
-          reward = reward - p.dt_phi * q_new - (p.alpha * terminal) * q_new;
-        } else if (p.reward == kCjOe) {
-          // e * speed * q(inv, e - 1): 2 * speed * inv at exponent 2
-          const float dq = kAnyExp ? p.inv_exp * exe0 * mbt::q_pow(inv, p.inv_exp - 1.0f) : 2.0f * exe0 * inv;
-          reward = reward - p.dt_phi * q_new - p.dt_alpha * (dq + q0_pow * p.ep_len);
+          reward = terminal * -expf(p.dt_phi * (new_cash + new_inv * new_price));
+        } else {
+          const float q_new = q_exp<kAnyExp>(new_inv, p.inv_exp);
+          if (p.reward == kCjMm) {
+            reward = reward - p.dt_phi * q_new - p.alpha * (q_new - q_exp<kAnyExp>(inv, p.inv_exp)) -
+                     p.cjmm_const * q0_pow;
+          } else if (p.reward == kRunning) {
+            const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
+            reward = reward - p.dt_phi * q_new - (p.alpha * terminal) * q_new;
+          } else if (p.reward == kCjOe) {
+            // e * speed * q(inv, e - 1): 2 * speed * inv at exponent 2
+            const float dq = kAnyExp ? p.inv_exp * exe0 * mbt::q_pow(inv, p.inv_exp - 1.0f) : 2.0f * exe0 * inv;
+            reward = reward - p.dt_phi * q_new - p.dt_alpha * (dq + q0_pow * p.ep_len);
+          }
         }
         if constexpr (kStats) {
           rsum = rsum + reward;
@@ -512,6 +528,21 @@ det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t 
   }
 }
 
+template <bool kNoise, int kDyn, int kPol, bool kStats, bool kAnyExp, int kProc = mbt::kProcPlain>
+__global__ void __launch_bounds__(mbt::kMaxPipeThreads)
+det_rollout_kernel(const DetKernelParams p, const DetBuffers b, int n, uint32_t seed) {
+  det_rollout_cta<kNoise, kDyn, kPol, kStats, kAnyExp, kProc, false>(p, b, n, seed);
+}
+
+// The exponential utility's kernels, on the general processes: one block
+// per SM at most, so ptxas may hold the env's state in registers (with the
+// first kernel's launch bounds it spilled the table kind's native streams).
+template <bool kNoise, int kDyn, int kPol, bool kStats>
+__global__ void __launch_bounds__(mbt::kMaxPipeThreads, 1)
+det_rollout_kernel_utility(const DetKernelParams p, const DetBuffers b, int n, uint32_t seed) {
+  det_rollout_cta<kNoise, kDyn, kPol, kStats, true, mbt::kProcGeneral, true>(p, b, n, seed);
+}
+
 template <bool kNoise, int kDyn, int kPol, bool kAnyExp>
 cudaError_t launch_exp(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
                        cudaStream_t s) {
@@ -532,9 +563,21 @@ cudaError_t launch_general(const DetKernelParams& p, const DetBuffers& b, int n,
                                       n, seed);
 }
 
+// The exponential utility: one instantiation per (dynamics, policy, mode)
+// on the general processes.
+template <bool kNoise, int kDyn, int kPol>
+cudaError_t launch_utility(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
+                           cudaStream_t s) {
+  return stats ? mbt::launch_pipeline(det_rollout_kernel_utility<kNoise, kDyn, kPol, true>, p.pipe, n, s, p, b, n,
+                                      seed)
+               : mbt::launch_pipeline(det_rollout_kernel_utility<kNoise, kDyn, kPol, false>, p.pipe, n, s,
+                                      p, b, n, seed);
+}
+
 template <bool kNoise, int kDyn, int kPol>
 cudaError_t launch_mode(const DetKernelParams& p, const DetBuffers& b, int n, uint32_t seed, bool stats,
                         cudaStream_t s) {
+  if (p.reward == kExpUtility) return launch_utility<kNoise, kDyn, kPol>(p, b, n, seed, stats, s);
   if constexpr (kDyn == kLam && kPol == kFixed) {
     if (p.proc_mode == mbt::kProcComposite) {
       return launch_general<kNoise, kDyn, kPol, mbt::kProcComposite>(p, b, n, seed, stats, s);
@@ -575,10 +618,17 @@ cudaError_t launch(const DetKernelParams& p, const DetBuffers& b, int n, uint32_
       default: return cudaErrorInvalidValue;  // the depth table quotes limit depths
     }
   }
-  // lam and touch: the fixed kind only
-  if (p.policy != kFixed) return cudaErrorInvalidValue;
-  if (p.dynamics == kLam) return launch_mode<kNoise, kLam, kFixed>(p, b, n, seed, stats, s);
-  if (p.dynamics == kTouch) return launch_mode<kNoise, kTouch, kFixed>(p, b, n, seed, stats, s);
+  // lam and touch: the fixed and schedule kinds (the depth table quotes limit depths)
+  const bool fixed = p.policy == kFixed;
+  if (!fixed && p.policy != kSchedule) return cudaErrorInvalidValue;
+  if (p.dynamics == kLam) {
+    return fixed ? launch_mode<kNoise, kLam, kFixed>(p, b, n, seed, stats, s)
+                 : launch_mode<kNoise, kLam, kSchedule>(p, b, n, seed, stats, s);
+  }
+  if (p.dynamics == kTouch) {
+    return fixed ? launch_mode<kNoise, kTouch, kFixed>(p, b, n, seed, stats, s)
+                 : launch_mode<kNoise, kTouch, kSchedule>(p, b, n, seed, stats, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -603,7 +653,10 @@ extern "C" int mbt_det_rollout(const DetKernelParams* p, const DetBuffers* b, in
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
-  if (p->s_dim > kMaxS || p->a_dim < 1 || p->a_dim > kMaxA || !pipe_ok(*p)) {
+  // the exponential utility runs the general instantiations
+  const bool reward_ok = p->reward >= kPnl && p->reward <= kExpUtility &&
+                         (p->reward != kExpUtility || p->proc_mode == mbt::kProcGeneral);
+  if (p->s_dim > kMaxS || p->a_dim < 1 || p->a_dim > kMaxA || !reward_ok || !pipe_ok(*p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

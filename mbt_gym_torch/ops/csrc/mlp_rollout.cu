@@ -2,13 +2,15 @@
 //
 // Replaces the TPU kernel mlp_rollout_pallas
 // (mbt_gym_tpu/ops/pallas_rollout.py:1514, pallas_call at :1634) for the
-// MLP policy with BM midprice and Poisson arrivals on three dynamics kinds,
-// each its own instantiation (template parameter kDyn): "limit"
-// (exponential fills, limit-order dynamics, A = 2), "lam" (limit orders
-// plus unit market orders, A = 4) and "touch" (post-or-not at a fixed
-// half-spread, A = 2); the PnL, pathwise CJ market-making (CjMm) or
-// running-penalty reward at any inventory exponent, fixed start time, a
-// fixed or per-env (inv0) initial inventory, both actor-critic layouts.
+// MLP policy on four dynamics kinds, each its own instantiation (template
+// parameter kDyn): "limit" (exponential fills, limit-order dynamics,
+// A = 2), "lam" (limit orders plus unit market orders, A = 4), "touch"
+// (post-or-not at a fixed half-spread, A = 2) and "speed" (trading speed
+// against price impact, A = 1); the PnL, pathwise CJ market-making (CjMm),
+// running-penalty or, on speed, CJ execution (CjOe) reward at any inventory
+// exponent, or the terminal exponential utility; a fixed or random (the t0
+// plane) start time, a fixed or per-env (inv0) initial inventory, the
+// optional terminal observation, both actor-critic layouts.
 // Each step, per env:
 // the (normalised) observation, the trunk h = tanh(W h + b) layer by
 // layer, the merged (A+1)-row head giving mean and value, the Gaussian
@@ -107,8 +109,32 @@
 // q(inv0) is formed per env at the start, the float32 product of the
 // wrapper's float32 coefficient and q(inv0), the constant's bits.
 //
+// Speed dynamics (pallas_rollout.py:1056-1072): the executed speed trades
+// speed * dt at the mid plus the impact of the pre-update state, then the
+// impact state steps; the impact state is observed after the price (S = 5,
+// 4 with the stateless power impact).  The head has A + 1 = 2 rows; the
+// draws are the limit kind's, eps1 unread.  Temporary-and-permanent impact
+// on the BM midprice (bench_suite config 6) runs the speed kind's plain
+// instantiation, the other impact and midprice models its general one
+// (proc_kinds.cuh: speed_impact, midprice_step, as K5 runs them).
+//
+// Extras (template parameter kExtra, on the general instantiations only,
+// whose bits on the plain processes are the plain instantiations'): the t0
+// plane of a random start (pallas_rollout.py:1303-1320, :1352-1358) and the
+// terminal observation (:1432-1438), so the main paths' instantiations do
+// not carry them.  Under t0 the episode spans the full horizon: step i
+// observes the time min(t0 + i dt, terminal); a step starting at or past
+// terminal - dt / 2 is post-done (state frozen, reward 0) and one at or
+// past terminal - 1.5 dt the last; each env's CjMm constant is
+// (alpha dt / (terminal - t0)) q(inv0) and its CjOe constant
+// q(inv0) (terminal - t0).  The terminal observation is the final state's
+// at start + T dt.
+//
 // Rewards (pallas_rollout.py:1136-1191): the reward kind and the exponent
-// are fields of the kernel's parameters, not template arguments.  The PnL
+// are fields of the kernel's parameters, not template arguments.  The
+// exponential utility, -exp(-gamma (cash + inventory price)) at the last
+// step and 0 before (times the terminal flag, as JAX multiplies), is one
+// more branch beside the inventory terms; CjOe runs in the speed kind.  The PnL
 // kind takes one uniform branch past the inventory terms and computes what
 // it computed before (its bits unchanged; at config 5 within 0.1% of the
 // kernel without the branch, measured on the H100); CjMm and the running
@@ -203,6 +229,17 @@ struct MlpKernelParams {
   float half_spread; // lam and touch: the fixed market half-spread
   int proc_mode;     // mbt::ProcMode: the plain or the general instantiation
   mbt::ProcParams proc;
+  float temporary_impact;  // speed: temp_perm
+  float permanent_impact;
+  float dt_alpha;          // dt * alpha (cjoe)
+  float ep_len;            // terminal_time - start_time (cjoe, fixed start)
+  float neg_gamma;         // -risk_aversion (exp_utility)
+  int random_start;        // the t0 plane is read (the extras instantiations)
+  float terminal_time;
+  float alpha_dt;          // alpha * dt (cjmm under the t0 plane)
+  float t_done;            // terminal_time - dt / 2
+  float t_last;            // terminal_time - 1.5 dt
+  float t_term;            // start_time + run_steps * dt: the terminal observation's time
 };
 
 struct RolloutOut {
@@ -213,12 +250,19 @@ struct RolloutOut {
   float* reward;
 };
 
+// The extras instantiations' input and output: NULL where unused.
+struct Extras {
+  const float* t0;  // (n,) start times under a random start
+  float* fin;       // (S, n) terminal observation
+};
+
 namespace {
 
-enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2 };
-enum Dynamics { kLimit = 0, kLam = 1, kTouch = 2 };
+enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2, kCjOe = 3, kExpUtility = 4 };
+enum Dynamics { kLimit = 0, kLam = 1, kTouch = 2, kSpeed = 3 };
 
-// Noise-mode channels per step: 4 uniforms, max(A, 2) normals, the mid normal.
+// Noise-mode channels per step: 4 uniforms, max(A, 2) normals, the mid normal
+// (speed reads eps0 of the two).
 template <int kDyn>
 constexpr int kNoiseChannels = kDyn == kLam ? 9 : 7;
 
@@ -294,16 +338,23 @@ __device__ __forceinline__ Draws draws_at(const MlpKernelParams& p, const float*
 // One env's state and its policy constants, in the registers of its thread.
 struct EnvState {
   float cash, inv, price;
-  float cjmm_const;  // (alpha * dt / episode_length) * q(initial inventory)
+  // CjMm: (alpha * dt / episode_length) * q(initial inventory); CjOe
+  // (speed): q(initial inventory) * episode_length
+  float reward_const;
   float lstd[kMaxAct], stdv[kMaxAct];
 };
 
+template <int kDyn>
 __device__ __forceinline__ EnvState initial_state(const MlpKernelParams& p, const float* log_std,
                                                   const float* inv0, int env) {
   EnvState s;
   s.cash = p.initial_cash;
   s.inv = inv0 ? inv0[env] : p.initial_inventory;
-  s.cjmm_const = p.cjmm_coef * mbt::q_pow(s.inv, p.inv_exp);
+  if constexpr (kDyn == kSpeed) {
+    s.reward_const = mbt::q_pow(s.inv, p.inv_exp) * p.ep_len;
+  } else {
+    s.reward_const = p.cjmm_coef * mbt::q_pow(s.inv, p.inv_exp);
+  }
   s.price = p.initial_price;
   for (int a = 0; a < p.a_dim; ++a) {
     s.lstd[a] = log_std[a];
@@ -312,15 +363,55 @@ __device__ __forceinline__ EnvState initial_state(const MlpKernelParams& p, cons
   return s;
 }
 
-// Observation channel c before step i (pallas_rollout.py:724-754); the
-// general kinds' process states follow the price.
-template <int kProc>
+// Under a random start, the time at which step i of this env starts,
+// t0 + i dt, its t0 read from device memory at each use: a register held
+// across the episode for it spilled the lam kind's bf16 extras variant.
+__device__ __forceinline__ float started(const MlpKernelParams& p, const Extras& ex, int env, int i) {
+  float t0;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(t0) : "l"(ex.t0 + env));
+  return t0 + static_cast<float>(i) * p.dt;
+}
+
+// The extras instantiations' per-env reward constant under a random start,
+// of the episode length terminal - t0.
+template <int kDyn, bool kExtra>
+__device__ __forceinline__ void start_episode(const MlpKernelParams& p, const Extras& ex, EnvState& s, bool active,
+                                              int env) {
+  if constexpr (kExtra) {
+    if (p.random_start && active) {
+      const float ep_len = p.terminal_time - ex.t0[env];
+      const float q0 = mbt::q_pow(s.inv, p.inv_exp);
+      if constexpr (kDyn == kSpeed) {
+        s.reward_const = q0 * ep_len;
+      } else {
+        s.reward_const = (p.alpha_dt / ep_len) * q0;
+      }
+    }
+  }
+}
+
+// The time step i observes (pallas_rollout.py:1303-1320): clamped at the
+// terminal time under a random start.
+template <bool kExtra>
+__device__ __forceinline__ float step_time(const MlpKernelParams& p, const Extras& ex, bool active, int env, int i) {
+  if constexpr (kExtra) {
+    if (p.random_start && active) return fminf(started(p, ex, env, i), p.terminal_time);
+  }
+  return p.start_time + static_cast<float>(i) * p.dt;
+}
+
+// Observation channel c at time t (pallas_rollout.py:724-754); the
+// general kinds' process states follow the price, as does the speed
+// kind's impact state.
+template <int kDyn, int kProc>
 __device__ __forceinline__ float observation(const MlpKernelParams& p, const EnvState& s, const mbt::ProcState& ps,
-                                             int i, int c) {
-  const float t = p.start_time + static_cast<float>(i) * p.dt;
+                                             float t, int c) {
   float x;
   if constexpr (kProc != mbt::kProcPlain) {
     x = c == 0 ? s.cash : c == 1 ? s.inv : c == 2 ? t : c == 3 ? s.price : mbt::proc_plane<kProc>(p.proc, ps, c - 4);
+  } else if constexpr (kDyn == kSpeed) {
+    const float planes[5] = {s.cash, s.inv, t, s.price, ps.imp};
+    x = planes[c];
   } else {
     const float planes[4] = {s.cash, s.inv, t, s.price};
     x = planes[c];
@@ -331,10 +422,13 @@ __device__ __forceinline__ float observation(const MlpKernelParams& p, const Env
 
 // Step i of one env from its head output `mean`: the sample, its log-prob,
 // the executed action and the env step of the dynamics kind; writes the
-// action, log-prob and reward of the step and advances the state.
-template <int kDyn, int kProc>
+// action, log-prob and reward of the step and advances the state.  Under a
+// random start a post-done step takes no env step: the state stays, the
+// reward is 0, what JAX's step-then-freeze leaves.
+template <int kDyn, int kProc, bool kExtra>
 __device__ __forceinline__ void env_step(const MlpKernelParams& p, const Draws& d, const float* mean, EnvState& s,
-                                         mbt::ProcState& ps, const RolloutOut& out, int n, int env, int i) {
+                                         mbt::ProcState& ps, const RolloutOut& out, int n, int env, int i,
+                                         const Extras& ex) {
   float eps[kDyn == kLam ? 4 : 2];
   eps[0] = d.eps0;
   eps[1] = d.eps1;
@@ -355,9 +449,41 @@ __device__ __forceinline__ void env_step(const MlpKernelParams& p, const Draws& 
     }
   }
   lp = lp - p.logp_const;
+  // the step's action, log-prob and reward
+  auto store = [&](float reward) {
+    const size_t o1 = static_cast<size_t>(i) * n + env;
+    for (int a = 0; a < p.a_dim; ++a) {
+      out.act[(static_cast<size_t>(i) * p.a_dim + a) * n + env] = action[a];
+    }
+    out.logp[o1] = lp;
+    out.reward[o1] = reward;
+  };
+  if constexpr (kExtra) {
+    if (p.random_start && started(p, ex, env, i) >= p.t_done) {
+      store(0.0f);
+      return;
+    }
+  }
 
   float new_inv, new_cash, new_price;
-  if constexpr (kProc != mbt::kProcPlain) {  // the process kinds of p.proc
+  if constexpr (kDyn == kSpeed) {  // the impact at the pre-update state, then its state's step
+    const float speed = exec[0];
+    float impact;
+    if constexpr (kProc != mbt::kProcPlain) {
+      impact = mbt::speed_impact(p.proc, p.temporary_impact, p.permanent_impact, ps, speed);
+    } else {  // temporary and permanent impact
+      impact = p.temporary_impact * speed + ps.imp;
+      ps.imp = ps.imp + p.permanent_impact * speed * p.dt;
+    }
+    const float volume = speed * p.dt;
+    new_inv = fminf(fmaxf(s.inv + volume, -p.max_inventory), p.max_inventory);
+    new_cash = fminf(fmaxf(s.cash - volume * (s.price + impact), -p.max_cash), p.max_cash);
+    if constexpr (kProc != mbt::kProcPlain) {  // no fills for a jump kind to react to
+      new_price = mbt::midprice_step<kProc>(p.proc, p.drift_dt, p.vol_sqrt_dt, ps, s.price, d.mid, d.mid2, 0.0f, 0.0f);
+    } else {
+      new_price = s.price + p.drift_dt + p.vol_sqrt_dt * d.mid;
+    }
+  } else if constexpr (kProc != mbt::kProcPlain) {  // the process kinds of p.proc
     constexpr int kMarket = kDyn == kLam ? mbt::kMarketLam : kDyn == kTouch ? mbt::kMarketTouch : mbt::kMarketLimit;
     const float u[4] = {d.u_ab, d.u_aa, d.u_fb, d.u_fa};
     const mbt::MarketOut m =
@@ -403,21 +529,27 @@ __device__ __forceinline__ void env_step(const MlpKernelParams& p, const Draws& 
   }
   float reward = (new_cash + new_inv * new_price) - (s.cash + s.inv * s.price);
   if (p.reward != kPnl) {
-    const float q_new = mbt::q_pow(new_inv, p.inv_exp);
-    if (p.reward == kCjMm) {
-      reward = reward - p.dt_phi * q_new - p.alpha * (q_new - mbt::q_pow(s.inv, p.inv_exp)) - s.cjmm_const;
-    } else {  // the running penalty's terminal term at the last step only
-      const float terminal = i == p.run_steps - 1 ? 1.0f : 0.0f;
-      reward = reward - p.dt_phi * q_new - (p.alpha * terminal) * q_new;
+    bool last = i == p.run_steps - 1;
+    if constexpr (kExtra) {
+      if (p.random_start) last = started(p, ex, env, i) >= p.t_last;
+    }
+    if (p.reward == kExpUtility) {  // terminal * -exp(-gamma * value), as JAX multiplies
+      const float terminal = last ? 1.0f : 0.0f;
+      reward = terminal * -expf(p.neg_gamma * (new_cash + new_inv * new_price));
+    } else {
+      const float q_new = mbt::q_pow(new_inv, p.inv_exp);
+      if constexpr (kDyn == kSpeed) {  // CjOe: e * speed * q(inv, e - 1) + q(inv0) * episode length
+        reward = reward - p.dt_phi * q_new -
+                 p.dt_alpha * (p.inv_exp * exec[0] * mbt::q_pow(s.inv, p.inv_exp - 1.0f) + s.reward_const);
+      } else if (p.reward == kCjMm) {
+        reward = reward - p.dt_phi * q_new - p.alpha * (q_new - mbt::q_pow(s.inv, p.inv_exp)) - s.reward_const;
+      } else {  // the running penalty's terminal term at the last step only
+        const float terminal = last ? 1.0f : 0.0f;
+        reward = reward - p.dt_phi * q_new - (p.alpha * terminal) * q_new;
+      }
     }
   }
-
-  const size_t o1 = static_cast<size_t>(i) * n + env;
-  for (int a = 0; a < p.a_dim; ++a) {
-    out.act[(static_cast<size_t>(i) * p.a_dim + a) * n + env] = action[a];
-  }
-  out.logp[o1] = lp;
-  out.reward[o1] = reward;
+  store(reward);
   s.cash = new_cash;
   s.inv = new_inv;
   s.price = new_price;
@@ -514,10 +646,11 @@ __device__ void forward(const MlpKernelParams& p, const float* w, const Smem& sm
 // `vf.w` is NULL for the shared trunk, whose merged head (A+1 rows, the
 // value last) is `pi`'s; with towers `pi` holds the pi tower and its A head
 // rows and `vf` the vf tower and its value row.
-template <int kDyn, int kProc>
+template <int kDyn, int kProc, bool kExtra>
 __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
                         const float* __restrict__ inv0, const TowerWeights<float>& pi, const TowerWeights<float>& vf,
-                        const Layout& lay, const float* __restrict__ log_std, const RolloutOut& out) {
+                        const Layout& lay, const float* __restrict__ log_std, const RolloutOut& out,
+                        const Extras& ex) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int h_last = p.widths[p.n_layers - 1];
@@ -532,15 +665,17 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
 
   stage(pi, sm, lay.b_total, h_last);
   const int env = blockIdx.x * kE + tid;
-  EnvState s = initial_state(p, log_std, tid < kE ? inv0 : nullptr, env);
+  EnvState s = initial_state<kDyn>(p, log_std, tid < kE ? inv0 : nullptr, env);
+  start_episode<kDyn, kExtra>(p, ex, s, tid < kE, env);
   mbt::ProcState ps = mbt::proc_initial(p.proc);
   __syncthreads();
 
   // ---- phase 1: the episode with the pi tower (or the shared trunk)
   for (int i = 0; i < p.run_steps; ++i) {
     if (tid < kE) {
+      const float t = step_time<kExtra>(p, ex, true, env, i);
       for (int c = 0; c < p.s_dim; ++c) {
-        const float x = observation<kProc>(p, s, ps, i, c);
+        const float x = observation<kDyn, kProc>(p, s, ps, t, c);
         out.obs[(static_cast<size_t>(i) * p.s_dim + c) * n + env] = x;
         sm.act0[c * kE + tid] = x;
       }
@@ -554,11 +689,18 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
       float mean[kMaxAct];
       for (int a = 0; a < p.a_dim; ++a) mean[a] = sm.head_o[a * kE + tid];
       if (!vf.w) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[p.a_dim * kE + tid];
-      env_step<kDyn, kProc>(p, draws_at<kDyn, kProc>(p, noise, n, seed, env, i), mean, s, ps, out, n, env, i);
+      env_step<kDyn, kProc, kExtra>(p, draws_at<kDyn, kProc>(p, noise, n, seed, env, i), mean, s, ps, out, n, env,
+                                    i, ex);
     }
     // the next step's observation writes act0 only after this step's head
     // has read the trunk output (the barrier that ends forward), and its
     // head runs after the barrier that follows those writes
+  }
+  if constexpr (kExtra) {  // the terminal observation
+    if (ex.fin && tid < kE) {
+      for (int c = 0; c < p.s_dim; ++c) ex.fin[static_cast<size_t>(c) * n + env] = observation<kDyn, kProc>(
+          p, s, ps, p.t_term, c);
+    }
   }
   if (!vf.w) return;
 
@@ -607,9 +749,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kE = 128;        // envs per CTA
 constexpr int kLd = kE + 8;    // activation row stride (bf16)
 constexpr int kK0 = 16;        // layer 0's k: S rows of the observation, then zeros
-// head rows the env step reads (A + 1): 3, and 5 in the lam instantiation
+// head rows the env step reads (A + 1): 3, 5 in the lam instantiation and 2
+// in the speed one
 template <int kDyn>
-constexpr int kHead = kDyn == kLam ? 5 : 3;
+constexpr int kHead = kDyn == kLam ? 5 : kDyn == kSpeed ? 2 : 3;
 constexpr int kRows = 32;      // warp tile: two 16-row blocks
 constexpr int kEnvs = 64;      //            x eight 8-env tiles
 constexpr int kNT = kEnvs / 8;
@@ -754,11 +897,11 @@ __device__ void forward(const MlpKernelParams& p, const Smem& sm, const Layout& 
   head_product<kHead<kDyn>>(sm.head_w, r_dim, sm.act, sm.head_o);
 }
 
-template <int kDyn, int kProc>
+template <int kDyn, int kProc, bool kExtra>
 __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
                         const float* __restrict__ inv0, const TowerWeights<__nv_bfloat16>& pi,
                         const TowerWeights<__nv_bfloat16>& vf, const Layout& lay,
-                        const float* __restrict__ log_std, const RolloutOut& out) {
+                        const float* __restrict__ log_std, const RolloutOut& out, const Extras& ex) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int h_last = p.widths[p.n_layers - 1];
@@ -779,11 +922,13 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
   const bool env_thread = tid < kE;
   const int env = blockIdx.x * kE + tid;
   const bool active = env_thread && env < n;  // the last tile may be ragged
-  EnvState s = initial_state(p, log_std, active ? inv0 : nullptr, env);
+  EnvState s = initial_state<kDyn>(p, log_std, active ? inv0 : nullptr, env);
+  start_episode<kDyn, kExtra>(p, ex, s, active, env);
   mbt::ProcState ps = mbt::proc_initial(p.proc);
   // this thread's column of the observation tile before step i; envs past
   // n take zeros and store nothing
   auto load_obs = [&](int i, bool from_out) {
+    const float t = step_time<kExtra>(p, ex, active, env, i);
     for (int c = 0; c < p.s_dim; ++c) {
       float x = 0.0f;
       if (active) {
@@ -791,7 +936,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
         if (from_out) {
           x = out.obs[o];  // this thread wrote it in phase 1
         } else {
-          x = observation<kProc>(p, s, ps, i, c);
+          x = observation<kDyn, kProc>(p, s, ps, t, c);
           out.obs[o] = x;
         }
       }
@@ -809,10 +954,17 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
       float mean[kMaxAct];
       for (int a = 0; a < p.a_dim; ++a) mean[a] = sm.head_o[a * kE + tid] + pi.b_head[a];
       if (!vf.w) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[p.a_dim * kE + tid] + pi.b_head[p.a_dim];
-      env_step<kDyn, kProc>(p, draws_at<kDyn, kProc>(p, noise, n, seed, env, i), mean, s, ps, out, n, env, i);
+      env_step<kDyn, kProc, kExtra>(p, draws_at<kDyn, kProc>(p, noise, n, seed, env, i), mean, s, ps, out, n, env,
+                                    i, ex);
     }
     if (env_thread && i + 1 < p.run_steps) load_obs(i + 1, false);
     __syncthreads();  // the observation tile and the head are read before they are rewritten
+  }
+  if constexpr (kExtra) {  // the terminal observation
+    if (ex.fin && active) {
+      for (int c = 0; c < p.s_dim; ++c) ex.fin[static_cast<size_t>(c) * n + env] = observation<kDyn, kProc>(
+          p, s, ps, p.t_term, c);
+    }
   }
   if (!vf.w) return;
 
@@ -858,23 +1010,23 @@ Layout layout(const MlpKernelParams& p, bool staged, int head_rows) {
 template <bool kBf16>
 using Weight = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
 
-template <bool kBf16, int kDyn, int kProc>
+template <bool kBf16, int kDyn, int kProc, bool kExtra>
 __global__ void __launch_bounds__(kBf16 ? tc::kThreads : cc::kThreads, 1)
 mlp_rollout_kernel(const MlpKernelParams p, int n, uint32_t seed, const float* __restrict__ noise,
                    const float* __restrict__ inv0, const TowerWeights<Weight<kBf16>> pi,
                    const TowerWeights<Weight<kBf16>> vf, const Layout lay, const float* __restrict__ log_std,
-                   RolloutOut out) {
+                   RolloutOut out, Extras ex) {
   if constexpr (kBf16) {
-    tc::rollout<kDyn, kProc>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out);
+    tc::rollout<kDyn, kProc, kExtra>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out, ex);
   } else {
-    cc::rollout<kDyn, kProc>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out);
+    cc::rollout<kDyn, kProc, kExtra>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out, ex);
   }
 }
 
-template <bool kBf16, int kDyn, int kProc>
+template <bool kBf16, int kDyn, int kProc, bool kExtra>
 int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const float* inv0,
            const void* const* pi, const void* const* vf, const float* log_std, const RolloutOut& out,
-           cudaStream_t stream) {
+           const Extras& ex, cudaStream_t stream) {
   using TW = Weight<kBf16>;
   const bool towers = vf[0] != nullptr;
   auto tower = [&](const void* const* t, int rows) {
@@ -902,27 +1054,35 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
     threads = cc::kThreads;
     tile = cc::kE;
   }
-  cudaError_t err = cudaFuncSetAttribute(mlp_rollout_kernel<kBf16, kDyn, kProc>,
+  cudaError_t err = cudaFuncSetAttribute(mlp_rollout_kernel<kBf16, kDyn, kProc, kExtra>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(lay.bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_rollout_kernel<kBf16, kDyn, kProc><<<(n + tile - 1) / tile, threads, lay.bytes, stream>>>(
-      p, n, seed, noise, inv0, pi_w, vf_w, lay, log_std, out);
+  mlp_rollout_kernel<kBf16, kDyn, kProc, kExtra><<<(n + tile - 1) / tile, threads, lay.bytes, stream>>>(
+      p, n, seed, noise, inv0, pi_w, vf_w, lay, log_std, out, ex);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kDyn>
 int launch_dyn(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const float* inv0, int bf16,
                const void* const* pi, const void* const* vf, const float* log_std, const RolloutOut& out,
-               cudaStream_t s) {
-  if (p.a_dim != (kDyn == kLam ? 4 : 2)) return static_cast<int>(cudaErrorInvalidValue);
-  if (p.proc_mode == mbt::kProcGeneral) {
-    if (bf16) return launch<true, kDyn, mbt::kProcGeneral>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
-    return launch<false, kDyn, mbt::kProcGeneral>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
+               const Extras& ex, cudaStream_t s) {
+  if (p.a_dim != (kDyn == kLam ? 4 : kDyn == kSpeed ? 1 : 2)) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.random_start != (ex.t0 != nullptr) || (ex.t0 && ex.fin)) return static_cast<int>(cudaErrorInvalidValue);
+  if (ex.t0 || ex.fin) {  // the extras run the general instantiation's extras variant
+    if (p.proc_mode != mbt::kProcGeneral) return static_cast<int>(cudaErrorInvalidValue);
+    if (bf16) return launch<true, kDyn, mbt::kProcGeneral, true>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
+    return launch<false, kDyn, mbt::kProcGeneral, true>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
   }
-  // the plain processes observe S = 4
-  if (p.proc_mode != mbt::kProcPlain || p.s_dim != 4) return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16) return launch<true, kDyn, mbt::kProcPlain>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
-  return launch<false, kDyn, mbt::kProcPlain>(p, n, seed, noise, inv0, pi, vf, log_std, out, s);
+  if (p.proc_mode == mbt::kProcGeneral) {
+    if (bf16) return launch<true, kDyn, mbt::kProcGeneral, false>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
+    return launch<false, kDyn, mbt::kProcGeneral, false>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
+  }
+  // the plain processes observe S = 4, and the impact state too on speed
+  if (p.proc_mode != mbt::kProcPlain || p.s_dim != (kDyn == kSpeed ? 5 : 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bf16) return launch<true, kDyn, mbt::kProcPlain, false>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
+  return launch<false, kDyn, mbt::kProcPlain, false>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
 }
 
 }  // namespace
@@ -942,22 +1102,29 @@ int launch_dyn(const MlpKernelParams& p, int n, uint32_t seed, const float* nois
 // and `vf` is four NULLs.  Towers: `pi` is the pi tower with its A rows,
 // `vf` the vf tower with its value row, of equal widths.  n must be a
 // multiple of 32, every width a multiple of 4 and at most 256; A is 4 on
-// lam dynamics and 2 on the others; S is 4 on the plain processes, at most
-// 16 on the general kinds (p.proc_mode).
+// lam dynamics, 1 on speed and 2 on the others; S is 4 on the plain
+// processes (5 on speed), at most 16 on the general kinds (p.proc_mode).
+// `t0` (the (n,) start times, exactly when p.random_start) and `fin` (the
+// (S, n) terminal observation; not with t0) are NULL unless used, and need
+// p.proc_mode general.
 extern "C" int mbt_mlp_rollout(const MlpKernelParams* p, int device, int n, uint32_t seed,
                                const float* noise, const float* inv0, int bf16, const void* const* pi,
                                const void* const* vf, const float* log_std, float* obs, float* act, float* logp,
-                               float* value, float* reward, void* stream) {
+                               float* value, float* reward, const float* t0, float* fin, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
-  if (p->reward < kPnl || p->reward > kRunning) return static_cast<int>(cudaErrorInvalidValue);
+  // CjOe is the speed kind's reward, CjMm and the running penalty the market-making kinds'
+  const bool own = p->dynamics == kSpeed ? p->reward == kCjOe : p->reward == kCjMm || p->reward == kRunning;
+  if (!(p->reward == kPnl || p->reward == kExpUtility || own)) return static_cast<int>(cudaErrorInvalidValue);
   const RolloutOut out{obs, act, logp, value, reward};
+  const Extras ex{t0, fin};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p->dynamics) {
-    case kLimit: return launch_dyn<kLimit>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, s);
-    case kLam: return launch_dyn<kLam>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, s);
-    case kTouch: return launch_dyn<kTouch>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, s);
+    case kLimit: return launch_dyn<kLimit>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, s);
+    case kLam: return launch_dyn<kLam>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, s);
+    case kTouch: return launch_dyn<kTouch>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, s);
+    case kSpeed: return launch_dyn<kSpeed>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

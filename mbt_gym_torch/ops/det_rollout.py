@@ -15,10 +15,12 @@ on the H100 and what the design does about it).  The policy kinds:
 - ``"schedule"``: one precomputed action row per step — any time-only
   policy, such as the CJ optimal-execution speed schedule.
 
-Ported scope: limit-order dynamics with PnL, the pathwise CJ criterion
-(``CjMmCriterion``) or the running inventory penalty, and trading-speed
-dynamics with PnL or the CJ execution criterion; for the fixed kind also
-the limit-and-market-order ("lam", 4 action columns, with the optional
+Ported scope, the JAX kernel's whole deterministic contract: limit-order
+dynamics with PnL, the pathwise CJ criterion (``CjMmCriterion``) or the
+running inventory penalty, and trading-speed dynamics with PnL or the CJ
+execution criterion, the exponential utility (``ExponentialUtility``,
+terminal only) on both; for the fixed and schedule kinds also the
+limit-and-market-order ("lam", 4 action columns, with the optional
 market-order mask) and at-the-touch ("touch", 2 post columns) dynamics
 with the market-making rewards; every midprice model (no fill-driven jump
 on speed dynamics), linear and exact-probability Poisson and Hawkes
@@ -30,8 +32,9 @@ lam (bench_suite config 14) on their own, any other on the general ones
 (:mod:`~mbt_gym_torch.ops.proc_kinds`); any inventory exponent; a fixed
 start time; a random initial inventory through the ``inv0`` plane
 (streams mode).  :func:`det_rollout_params_from_config` raises
-``AssertionError`` naming any other feature, and the kernel wrappers the
-table and schedule kinds on lam and touch.
+``AssertionError`` in the JAX kernel's words naming any other feature,
+and the kernel wrappers refuse random start times and the table kind off
+limit dynamics, as JAX's do.
 
 Two output modes: streams — obs ``(T, S, N)``, actions ``(T, A, N)``, zero
 log-probs and values and the rewards ``(T, N)``, plus the terminal
@@ -76,7 +79,7 @@ N_CHANNELS = 5
 ACTION_DIMS = {"limit": 2, "lam": 4, "touch": 2, "speed": 1}
 _DYNAMICS = {"limit": 0, "speed": 1, "lam": 2, "touch": 3}
 _POLICIES = {"table": 0, "fixed": 1, "schedule": 2}
-_REWARDS = {"pnl": 0, "cjmm": 1, "running": 2, "cjoe": 3}
+_REWARDS = {"pnl": 0, "cjmm": 1, "running": 2, "cjoe": 3, "exp_utility": 4}
 _MAX_S = 16
 _MAX_A = 4
 
@@ -109,7 +112,7 @@ class DetRolloutParams(NamedTuple):
     act_grad: tuple
     normalise_obs: bool
     normalise_act: bool
-    reward_kind: str = "pnl"  # "pnl" | "cjmm" | "running" | "cjoe"
+    reward_kind: str = "pnl"  # "pnl" | "cjmm" | "running" | "cjoe" | "exp_utility"
     phi: float = 0.0  # per-step inventory aversion
     alpha: float = 0.0  # terminal inventory aversion
     # reference semantics: inventory**exp, NaN on a negative inventory with
@@ -130,6 +133,7 @@ class DetRolloutParams(NamedTuple):
     # kernel wrappers refuse it
     random_start: bool = False
     fixed_half_spread: float = 0.0  # lam and touch
+    risk_aversion: float = 0.0  # "exp_utility" only
     mask_mo_at_max_inventory: bool = False  # lam: EnvConfig's market-order mask
     # the process kinds, with the JAX names and meanings
     # (pallas_rollout.py:155-228; mbt_gym_torch/ops/proc_kinds.py)
@@ -181,60 +185,69 @@ class DetRolloutParams(NamedTuple):
         return N_CHANNELS + pk.extra_channels(self)
 
 
-def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
-    """The episode scalars of ``cfg`` (pallas_rollout.py:277-665, the ported
-    kinds); ``AssertionError`` naming the first feature outside them.  The
-    policy kind is set by :func:`cj_rollout_params`,
-    :func:`fixed_rollout_params` or :func:`schedule_rollout_params`."""
+def dynamics_kind_of(d) -> str:
+    """The dynamics kind of the rollout kernels K3 and K5
+    (pallas_rollout.py:510-574)."""
     from mbt_gym_torch.dynamics import (
         AtTheTouchDynamics,
         LimitAndMarketOrderDynamics,
         LimitOrderDynamics,
         TradingWithSpeedDynamics,
     )
-    from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, PnL, RunningInventoryPenalty
 
-    d = cfg.dynamics
-    r = cfg.reward_function
-    phi = alpha = half_spread = 0.0
     if isinstance(d, AtTheTouchDynamics):
-        dynamics_kind = "touch"
-    elif isinstance(d, LimitAndMarketOrderDynamics):
-        dynamics_kind = "lam"
-    elif isinstance(d, LimitOrderDynamics) and d.action_dim == 2:
-        dynamics_kind = "limit"
-    elif isinstance(d, TradingWithSpeedDynamics):
-        dynamics_kind = "speed"
-    else:
+        return "touch"
+    if isinstance(d, LimitAndMarketOrderDynamics):
+        return "lam"
+    if isinstance(d, LimitOrderDynamics) and d.action_dim == 2:
+        return "limit"
+    if isinstance(d, TradingWithSpeedDynamics):
+        return "speed"
+    raise AssertionError(
+        "fused rollout: limit-order, limit-and-market-order, "
+        "at-the-touch or trading-speed dynamics only"
+    )
+
+
+def reward_fields(r, dynamics_kind: str) -> tuple:
+    """``(reward_kind, phi, alpha, risk_aversion)`` of the reward ``r`` on
+    the dynamics kind, as the JAX kernels read them
+    (pallas_rollout.py:295-318 for the market-making kinds, :548-563 on
+    speed); ``AssertionError`` in their words for any other reward."""
+    from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, ExponentialUtility, PnL, RunningInventoryPenalty
+
+    if isinstance(r, PnL):
+        return "pnl", 0.0, 0.0, 0.0
+    if isinstance(r, ExponentialUtility):
+        return "exp_utility", 0.0, 0.0, r.risk_aversion
+    if dynamics_kind == "speed":
+        if isinstance(r, CjOeCriterion):
+            return "cjoe", r.per_step_inventory_aversion, r.terminal_inventory_aversion, 0.0
         raise AssertionError(
-            "deterministic-policy kernel: limit-order, limit-and-market-order, at-the-touch and "
-            f"trading-speed dynamics only; {type(d).__name__} is not ported to CUDA yet"
+            f"fused rollout (speed dynamics) supports PnL / CjOeCriterion "
+            f"/ ExponentialUtility; got {r}"
         )
+    if isinstance(r, (CjMmCriterion, RunningInventoryPenalty)):
+        kind = "cjmm" if isinstance(r, CjMmCriterion) else "running"
+        return kind, r.per_step_inventory_aversion, r.terminal_inventory_aversion, 0.0
+    raise AssertionError(
+        f"fused rollout ({dynamics_kind} dynamics) supports PnL / CjMmCriterion / "
+        f"RunningInventoryPenalty / ExponentialUtility; got {r}"
+    )
+
+
+def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
+    """The episode scalars of ``cfg`` (pallas_rollout.py:277-665, the kinds
+    the JAX kernel takes); ``AssertionError`` in its words naming the first
+    feature outside them.  The policy kind is set by
+    :func:`cj_rollout_params`, :func:`fixed_rollout_params` or
+    :func:`schedule_rollout_params`."""
+    d = cfg.dynamics
+    dynamics_kind = dynamics_kind_of(d)
     procs = pk.process_fields(d, dynamics_kind)
-    if dynamics_kind != "speed":
-        if dynamics_kind != "limit":
-            half_spread = float(d.fixed_market_half_spread)
-        if isinstance(r, PnL):
-            reward_kind = "pnl"
-        elif isinstance(r, (CjMmCriterion, RunningInventoryPenalty)):
-            reward_kind = "cjmm" if isinstance(r, CjMmCriterion) else "running"
-            phi, alpha = r.per_step_inventory_aversion, r.terminal_inventory_aversion
-        else:
-            raise AssertionError(
-                f"deterministic-policy kernel ({dynamics_kind} dynamics) supports PnL / CjMmCriterion / "
-                f"RunningInventoryPenalty; {r} is not ported to CUDA yet"
-            )
-    else:
-        if isinstance(r, PnL):
-            reward_kind = "pnl"
-        elif isinstance(r, CjOeCriterion):
-            reward_kind = "cjoe"
-            phi, alpha = r.per_step_inventory_aversion, r.terminal_inventory_aversion
-        else:
-            raise AssertionError(
-                f"deterministic-policy kernel (speed dynamics) supports PnL / CjOeCriterion; "
-                f"{r} is not ported to CUDA yet"
-            )
+    half_spread = float(d.fixed_market_half_spread) if dynamics_kind in ("lam", "touch") else 0.0
+    r = cfg.reward_function
+    reward_kind, phi, alpha, gamma_u = reward_fields(r, dynamics_kind)
     assert cfg.reward_scaling is None, (
         "reward_scaling is an engine feature; the kernel's rewards are unscaled"
     )
@@ -282,6 +295,7 @@ def det_rollout_params_from_config(cfg: EnvConfig) -> DetRolloutParams:
         inventory_range=inventory_range,
         random_start=random_start,
         fixed_half_spread=half_spread,
+        risk_aversion=gamma_u,
         mask_mo_at_max_inventory=bool(cfg.mask_market_orders_at_max_inventory),
         **procs,
     )
@@ -461,7 +475,7 @@ class DetKernelParams(ctypes.Structure):
         ("initial_price", ctypes.c_float),
         ("temporary_impact", ctypes.c_float),
         ("permanent_impact", ctypes.c_float),
-        ("dt_phi", ctypes.c_float),
+        ("dt_phi", ctypes.c_float),  # -risk_aversion under the exponential utility (no inventory terms)
         ("alpha", ctypes.c_float),
         ("dt_alpha", ctypes.c_float),
         ("cjmm_const", ctypes.c_float),
@@ -479,7 +493,10 @@ def kernel_params(p: DetRolloutParams, table_width: int = 0) -> DetKernelParams:
     """The step constants of ``p`` (the JAX kernel's ``_rollout_step``,
     pallas_rollout.py:757-1196): ``dt*phi``, ``dt*alpha`` and
     ``alpha*dt/ep_len`` are formed in double, as the JAX kernel forms them
-    from Python floats."""
+    from Python floats.  The exponential utility runs the general
+    instantiation (the plain processes' bits are the same there), its
+    ``-risk_aversion`` in ``dt_phi``."""
+    utility = p.reward_kind == "exp_utility"
     ep_len = p.terminal_time - p.start_time
     s_dim, a_dim = len(p.obs_low), p.a_dim
     fixed = p.fixed_action + (0.0,) * (_MAX_A - len(p.fixed_action))
@@ -515,7 +532,7 @@ def kernel_params(p: DetRolloutParams, table_width: int = 0) -> DetKernelParams:
         initial_price=p.initial_price,
         temporary_impact=p.temporary_impact,
         permanent_impact=p.permanent_impact,
-        dt_phi=p.dt * p.phi,
+        dt_phi=-p.risk_aversion if utility else p.dt * p.phi,
         alpha=p.alpha,
         dt_alpha=p.dt * p.alpha,
         cjmm_const=p.alpha * p.dt / ep_len,
@@ -523,7 +540,8 @@ def kernel_params(p: DetRolloutParams, table_width: int = 0) -> DetKernelParams:
         inv_exp=p.inventory_exponent,
         half_spread=p.fixed_half_spread,
         mask_mo=int(p.mask_mo_at_max_inventory),
-        proc_mode=pk.proc_mode(p, composite_ok=(p.dynamics_kind, p.policy_kind) == ("lam", "fixed")),
+        proc_mode=pk.PROC_GENERAL if utility else pk.proc_mode(
+            p, composite_ok=(p.dynamics_kind, p.policy_kind) == ("lam", "fixed")),
         proc=pk.proc_params(p, 0),
     )
 
@@ -555,10 +573,6 @@ def _check_call(p: DetRolloutParams, tables, n: int, noise, inv0, stats_only: bo
         "reference's CJ replication runs fixed-horizon episodes); run the engine"
     )
     assert not (stats_only and final_obs), "final_obs is a streams-mode output"
-    assert p.policy_kind == "fixed" or p.dynamics_kind in ("limit", "speed"), (
-        f"the {p.policy_kind} kind on {p.dynamics_kind} dynamics is not ported to CUDA yet (K5 runs "
-        "the fixed kind there)"
-    )
     T, t_off = p.run_steps, round(p.start_time / p.dt)
     if p.policy_kind == "table":
         bid, ask = tables
@@ -611,12 +625,15 @@ def _plain_policy(p: DetRolloutParams, kp: DetKernelParams, tables, row: int, in
     return [torch.full_like(inv, kp.fixed_action[c]) for c in range(kp.a_dim)]
 
 
-def _obs_planes(kp: DetKernelParams, t: float, planes):
-    """The observation planes, normalised per the config (a tensor divisor:
-    PyTorch's CUDA division by a Python scalar multiplies by its
-    reciprocal, the kernel divides)."""
+def obs_planes(kp, t, planes) -> torch.Tensor:
+    """The (S, N) observation of the state ``planes`` (cash, inventory,
+    price, then the process states) at time ``t`` (a float, or an (N,)
+    plane under K3's random start), normalised per the step constants
+    ``kp`` (a tensor divisor: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal, the kernels divide)."""
     cash, inv, price = planes[:3]
-    out = [cash, inv, torch.full_like(cash, t), price, *planes[3:]]
+    time = t if isinstance(t, torch.Tensor) else torch.full_like(cash, t)
+    out = [cash, inv, time, price, *planes[3:]]
     if kp.normalise_obs:
         out = [(x - kp.obs_low[c]) / torch.full_like(x, kp.obs_grad[c]) - 1.0 for c, x in enumerate(out)]
     return torch.stack(out)
@@ -689,7 +706,7 @@ def det_rollout_plain(p: DetRolloutParams, tables=(), seed: int = 0, num_traject
         else:
             new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[4]
         reward = (new_cash + new_inv * new_price) - (cash + inv * price)
-        if p.reward_kind != "pnl":  # pallas_rollout.py:1150-1185, in its op order
+        if p.reward_kind not in ("pnl", "exp_utility"):  # pallas_rollout.py:1150-1185, in its op order
             q_new = q_pow(new_inv, e)
         if p.reward_kind == "cjmm":
             reward = reward - kp.dt_phi * q_new - kp.alpha * (q_new - q_pow(inv, e)) - kp.cjmm_const * q0
@@ -698,12 +715,15 @@ def det_rollout_plain(p: DetRolloutParams, tables=(), seed: int = 0, num_traject
             reward = reward - kp.dt_phi * q_new - (kp.alpha * terminal) * q_new
         elif p.reward_kind == "cjoe":
             reward = reward - kp.dt_phi * q_new - kp.dt_alpha * (e * exe[0] * q_pow(inv, e - 1.0) + q0 * kp.ep_len)
+        elif p.reward_kind == "exp_utility":  # pallas_rollout.py:1173-1179
+            terminal = 1.0 if i == T - 1 else 0.0
+            reward = terminal * -torch.exp(kp.dt_phi * (new_cash + new_inv * new_price))  # dt_phi: -gamma
         if stats_only:
             rsum = rsum + reward
             if A >= 2:
                 ssum = ssum + (raw[0] + raw[1])
         else:
-            obs_out[i] = _obs_planes(kp, t, planes)
+            obs_out[i] = obs_planes(kp, t, planes)
             for c in range(A):
                 act_out[i, c] = raw[c]
             rew_out[i] = reward
@@ -719,7 +739,7 @@ def det_rollout_plain(p: DetRolloutParams, tables=(), seed: int = 0, num_traject
             planes = (cash, inv, price, *(ps[name] for name in names))
         else:
             planes = (cash, inv, price, imp) if speed_dyn else (cash, inv, price)
-        outs += (_obs_planes(kp, kp.t_term, planes),)
+        outs += (obs_planes(kp, kp.t_term, planes),)
     return outs
 
 
@@ -748,11 +768,13 @@ def kernel_geometry(p: DetRolloutParams, num_trajectories: int, stats_only: bool
     call: the table kind stages each step's rows of four tables (bid, ask
     and their fill probabilities), rows of ``table_width`` floats (default
     ``p.table_size``), where they fit.  K5 has no wide shape."""
-    # lam and touch draw the limit kind's five channels; the general process
-    # kinds stage 8 (the five, two exogenous normals, the second midprice
+    # lam and touch draw the limit kind's five channels; the general
+    # instantiation (the general process kinds, the exponential utility)
+    # stages 8 (the five, two exogenous normals, the second midprice
     # normal), or 2 on speed dynamics
     dynamics = "speed" if p.dynamics_kind == "speed" else "limit"
-    channels = None if pk.is_plain(p) else (2 if dynamics == "speed" else 8)
+    general = not pk.is_plain(p) or p.reward_kind == "exp_utility"
+    channels = (2 if dynamics == "speed" else 8) if general else None
     return pipeline_geometry(num_trajectories, p.run_steps, dynamics, p.policy_kind, stats_only,
                              table_width or p.table_size, table_rows=4, wide=False, channels=channels)
 

@@ -17,28 +17,38 @@ and zero columns add exact zeros, so the outputs do not change), and
 :func:`pack_tower_bf16` packs each tower for the kernel.  With float32
 operands it runs on CUDA cores over tiles of 32 envs.
 
-Ported scope: three dynamics kinds (``dynamics_kind``, each its own
-kernel instantiation): "limit" (limit-order dynamics, A = 2), "lam"
-(limit orders plus unit market orders at mid -/+ ``fixed_half_spread``,
-A = 4, with the optional market-order mask at +/- max inventory) and
-"touch" (post-or-not at ``fixed_half_spread``, the fills the clipped post
-columns, A = 2); every midprice model, linear and exact-probability
-Poisson and Hawkes arrivals, and exponential, triangular, power and
-exogenous-market-maker fills (OU, BM or GBM sides) — the plain processes
-(BM, linear Poisson, exponential) on each dynamics kind's original
-instantiation, any other (the composite stress family of bench_suite
-config 10 too) on the dynamics kind's general one
-(:mod:`~mbt_gym_torch.ops.proc_kinds`);
-the PnL, pathwise CJ market-making (``CjMmCriterion``) or
-running-penalty (``RunningInventoryPenalty``) reward at any inventory
-exponent; a fixed start time; a fixed initial inventory or a per-env one
-drawn in ``inventory_range`` (the ``inv0`` plane, under CjMm with its
-per-env constant ``(alpha dt / ep_len) q(inv0)``); and both actor-critic
-layouts: the shared trunk, and the separate pi/vf towers as the JAX
-kernel's stacked trunk (``split_at`` mode, ``pallas_rollout.py:668-712``
-and ``:858-873``).
-:func:`rollout_params_from_config` raises ``AssertionError`` naming any
-other feature as not ported to CUDA yet; towers of unequal widths raise
+Ported scope, the JAX kernel's whole MLP contract: four dynamics kinds
+(``dynamics_kind``, each its own kernel instantiation): "limit"
+(limit-order dynamics, A = 2), "lam" (limit orders plus unit market
+orders at mid -/+ ``fixed_half_spread``, A = 4, with the optional
+market-order mask at +/- max inventory), "touch" (post-or-not at
+``fixed_half_spread``, the fills the clipped post columns, A = 2) and
+"speed" (trading-speed execution against price impact, A = 1, the impact
+state observed after the price); every midprice model (no fill-driven
+jump on speed), linear and exact-probability Poisson and Hawkes arrivals,
+exponential, triangular, power and exogenous-market-maker fills (OU, BM
+or GBM sides), and the four impact models — the plain processes (BM,
+linear Poisson, exponential, temporary and permanent impact) on each
+dynamics kind's original instantiation, any other (the composite stress
+family of bench_suite config 10 too) on the dynamics kind's general one
+(:mod:`~mbt_gym_torch.ops.proc_kinds`); the PnL, pathwise CJ
+market-making (``CjMmCriterion``), running-penalty
+(``RunningInventoryPenalty``) or, on speed, CJ execution (``CjOeCriterion``)
+reward at any inventory exponent, and the terminal exponential utility
+(``ExponentialUtility``) on every kind; a fixed start time, or a random
+one (``start_time=("uniform", lo, hi)``: the full horizon with a per-env
+``t0`` plane, post-done steps frozen with zero rewards, as the engine
+masks them); a fixed initial inventory or a per-env one drawn in
+``inventory_range`` (the ``inv0`` plane, under CjMm with its per-env
+constant ``(alpha dt / ep_len) q(inv0)``); the terminal observation
+(``final_obs``, fixed starts); and both actor-critic layouts: the shared
+trunk, and the separate pi/vf towers as the JAX kernel's stacked trunk
+(``split_at`` mode, ``pallas_rollout.py:668-712`` and ``:858-873``).
+The ``t0`` plane and ``final_obs`` run the general instantiation's
+"extras" variant (the plain processes' bits are the same there), so the
+main paths' instantiations do not carry them.
+:func:`rollout_params_from_config` raises ``AssertionError`` naming what
+the JAX kernel refuses, in its words; towers of unequal widths raise
 ``ValueError`` in :func:`transpose_params`.
 
 Which path a call takes depends only on the device of its tensors: CPU
@@ -53,9 +63,9 @@ matmul precision "highest", set for the call.
 Noise: ``noise`` is ``(T, p.n_channels, N)`` float32 channels in the
 JAX kernel's order: 4 env uniforms, max(A, 2) policy-sample normals, the
 midprice normal, then 2 exogenous best-depth normals (exogenous-MM fills)
-and 1 second-midprice normal (Heston, short-term alphas) — 7 at A = 2 on
-the plain processes (:data:`N_CHANNELS`), 9 at A = 4, 11 on the composite
-config.  Without it, native mode draws Philox4x32-10 keyed by
+and 1 second-midprice normal (Heston, short-term alphas) — 7 at A = 2 and
+A = 1 (speed reads the first eps row) on the plain processes
+(:data:`N_CHANNELS`), 9 at A = 4, 11 on the composite config.  Without it, native mode draws Philox4x32-10 keyed by
 ``(seed, env)``; :func:`philox_noise` reproduces that stream as channels,
 so the plain version sees the kernel's draws on any device.
 """
@@ -72,16 +82,17 @@ import torch
 from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
 from mbt_gym_torch.ops import proc_kinds as pk
-from mbt_gym_torch.ops.det_rollout import market_making_step, q_pow
+from mbt_gym_torch.ops.det_rollout import dynamics_kind_of, market_making_step, obs_planes, q_pow, reward_fields
 from mbt_gym_torch.ops.episode import _MASK32, _target, _uniform24, philox4x32_10
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
 MAX_S = 16  # state columns the kernel takes: layer 0's padded k (csrc/mlp_rollout.cu kK0)
 A_DIM = 2  # bid/ask depths (limit) or post flags (touch)
-# action columns per dynamics kind: lam adds the two market-order triggers
-ACTION_DIMS = {"limit": 2, "lam": 4, "touch": 2}
-_DYNAMICS = {"limit": 0, "lam": 1, "touch": 2}
+# action columns per dynamics kind: lam adds the two market-order triggers,
+# speed has its one trading speed
+ACTION_DIMS = {"limit": 2, "lam": 4, "touch": 2, "speed": 1}
+_DYNAMICS = {"limit": 0, "lam": 1, "touch": 2, "speed": 3}
 
 # The CUDA kernel's limits (csrc/mlp_rollout.cu): the env count is a
 # multiple of _ENV_TILE (the float32 kernel's tile; the bf16 kernel's tiles
@@ -131,27 +142,44 @@ class MlpRolloutParams(NamedTuple):
     start_time: float
     obs_low: tuple  # (S,) cash, inventory, time, price, then the process states
     obs_grad: tuple  # (high - low) / 2 per channel
-    act_low: tuple  # (A,) bid/ask depth lower bounds
+    act_low: tuple  # (A,) bid/ask depth (limit) or speed (speed) lower bounds
     act_grad: tuple
     normalise_obs: bool
     normalise_act: bool
     # reward: "pnl" (RewardFunctions.py:20-36), "cjmm" (pathwise CJ MM
-    # criterion, :77-113) or "running" (RunningInventoryPenalty, :116-141),
-    # at any inventory_exponent (reference semantics: inventory**exp, so a
-    # fractional exponent is NaN on negative inventory, as in the engine)
+    # criterion, :77-113), "running" (RunningInventoryPenalty, :116-141),
+    # "cjoe" (CJ execution criterion, :39-74, speed only), at any
+    # inventory_exponent (reference semantics: inventory**exp, so a
+    # fractional exponent is NaN on negative inventory, as in the engine),
+    # or "exp_utility" (terminal -exp(-risk_aversion * value), :149-166)
     reward_kind: str = "pnl"
     phi: float = 0.0  # per-step inventory aversion
     alpha: float = 0.0  # terminal inventory aversion
     inventory_exponent: float = 2.0
     terminal_time: float = 1.0
     # "limit" (ModelDynamics.py:87-131), "lam" (:179-240, limit orders +
-    # unit market orders at mid +/- fixed_half_spread) or "touch"
-    # (:134-176, post-or-not at fixed_half_spread)
+    # unit market orders at mid +/- fixed_half_spread), "touch" (:134-176,
+    # post-or-not at fixed_half_spread) or "speed" (:243-275, trading speed
+    # against price impact)
     dynamics_kind: str = "limit"
+    # speed dynamics' impact model (price_impact_models.py): "temp_perm",
+    # "power", "transient" or "temp_transient"
+    impact_kind: str = "temp_perm"
+    impact_exponent: float = 1.0
+    impact_kappa: float = 0.0
+    impact_rho: float = 0.0
+    impact_gamma: float = 0.0
+    impact_initial: float = 0.0
+    temporary_impact: float = 0.0
+    permanent_impact: float = 0.0
     fixed_half_spread: float = 0.0
+    risk_aversion: float = 0.0  # "exp_utility" only
     # () = deterministic initial_inventory; (lo, hi) = per-env integer draw
     # in [lo, hi) per episode, passed to the kernel as the inv0 plane
     inventory_range: tuple = ()
+    # start_time=("uniform", lo, hi): the full horizon (start_time 0.0) with
+    # a per-env t0 plane; post-done steps frozen, as the engine masks them
+    random_start: bool = False
     # EnvConfig.mask_market_orders_at_max_inventory (lam only)
     mask_mo_at_max_inventory: bool = False
     # the process kinds, with the JAX names and meanings
@@ -182,11 +210,17 @@ class MlpRolloutParams(NamedTuple):
 
     @property
     def run_steps(self) -> int:
+        if self.random_start:
+            return self.n_steps
         return self.n_steps - round(self.start_time / self.dt)
 
     @property
     def a_dim(self) -> int:
         return ACTION_DIMS[self.dynamics_kind]
+
+    @property
+    def speed(self) -> bool:
+        return self.dynamics_kind == "speed"
 
     @property
     def has_mid2(self) -> bool:
@@ -198,39 +232,19 @@ class MlpRolloutParams(NamedTuple):
         return n_noise_channels(self.a_dim, self.fill_kind == "exomm", self.has_mid2)
 
 
-_REWARDS = {"pnl": 0, "cjmm": 1, "running": 2}
+_REWARDS = {"pnl": 0, "cjmm": 1, "running": 2, "cjoe": 3, "exp_utility": 4}
 
 
 def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
-    """The rollout scalars of ``cfg``; ``AssertionError`` naming the first
-    feature outside the ported family (pallas_rollout.py:277-665)."""
-    from mbt_gym_torch.dynamics import AtTheTouchDynamics, LimitAndMarketOrderDynamics, LimitOrderDynamics
-    from mbt_gym_torch.rewards import CjMmCriterion, PnL, RunningInventoryPenalty
-
+    """The rollout scalars of ``cfg``; ``AssertionError``, in the JAX
+    kernel's words, naming the first feature outside its contract
+    (pallas_rollout.py:277-665)."""
     d = cfg.dynamics
-    if isinstance(d, AtTheTouchDynamics):
-        dynamics_kind = "touch"
-    elif isinstance(d, LimitAndMarketOrderDynamics):
-        dynamics_kind = "lam"
-    else:
-        assert isinstance(d, LimitOrderDynamics) and d.action_dim == 2, (
-            "fused rollout: limit-order, limit-and-market-order and at-the-touch "
-            "dynamics only; the trading-speed family is not ported to CUDA yet"
-        )
-        dynamics_kind = "limit"
+    dynamics_kind = dynamics_kind_of(d)
     procs = pk.process_fields(d, dynamics_kind)
-    half_spread = float(d.fixed_market_half_spread) if dynamics_kind != "limit" else 0.0
+    half_spread = float(d.fixed_market_half_spread) if dynamics_kind in ("lam", "touch") else 0.0
     r = cfg.reward_function
-    if isinstance(r, PnL):
-        reward_kind, phi, alpha = "pnl", 0.0, 0.0
-    elif isinstance(r, (CjMmCriterion, RunningInventoryPenalty)):
-        reward_kind = "cjmm" if isinstance(r, CjMmCriterion) else "running"
-        phi, alpha = r.per_step_inventory_aversion, r.terminal_inventory_aversion
-    else:
-        raise AssertionError(
-            f"fused rollout ({dynamics_kind} dynamics) supports PnL / CjMmCriterion / "
-            f"RunningInventoryPenalty; {r} is not ported to CUDA yet"
-        )
+    reward_kind, phi, alpha, gamma_u = reward_fields(r, dynamics_kind)
     assert cfg.reward_scaling is None
     assert not callable(cfg.initial_inventory), (
         "callable initial_inventory is host-evaluated per reset; use the "
@@ -244,9 +258,12 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
     assert not callable(cfg.start_time), (
         "callable start_time is host-evaluated per reset; use the engine rollout"
     )
-    assert not isinstance(cfg.start_time, tuple), (
-        "fused rollout: random start times are not ported to CUDA yet"
-    )
+    random_start = isinstance(cfg.start_time, tuple)
+    if random_start:
+        assert cfg.start_time[0] == "uniform", f"Unknown start_time spec {cfg.start_time}"
+        start_time = 0.0  # the full horizon; per-env t0 comes in as the t0 plane
+    else:
+        start_time = round(float(cfg.start_time) / cfg.step_size) * cfg.step_size
     assert cfg.dtype == "float32", (
         "fused rollout computes in float32/bf16; float64 reference-parity "
         "configs must use the engine rollout"
@@ -260,7 +277,7 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
         max_cash=float(cfg.resolved_max_cash()),
         initial_cash=float(cfg.initial_cash),
         initial_inventory=inv0,
-        start_time=round(float(cfg.start_time) / cfg.step_size) * cfg.step_size,
+        start_time=start_time,
         obs_low=tuple(float(x) for x in obs_low),
         obs_grad=tuple(float(h - l) / 2.0 for l, h in zip(obs_low, obs_high)),
         act_low=tuple(float(x) for x in act_low),
@@ -274,7 +291,9 @@ def rollout_params_from_config(cfg: EnvConfig) -> MlpRolloutParams:
         terminal_time=cfg.terminal_time,
         dynamics_kind=dynamics_kind,
         fixed_half_spread=half_spread,
+        risk_aversion=gamma_u,
         inventory_range=inventory_range,
+        random_start=random_start,
         mask_mo_at_max_inventory=bool(cfg.mask_market_orders_at_max_inventory),
         **procs,
     )
@@ -432,16 +451,31 @@ class MlpKernelParams(ctypes.Structure):
         ("half_spread", ctypes.c_float),
         ("proc_mode", ctypes.c_int),  # proc_kinds.proc_mode: the plain or the general instantiation
         ("proc", pk.ProcParams),
+        # speed dynamics, the CJ execution and exponential-utility rewards,
+        # the t0 plane and the terminal observation
+        ("temporary_impact", ctypes.c_float),
+        ("permanent_impact", ctypes.c_float),
+        ("dt_alpha", ctypes.c_float),     # dt * alpha (cjoe)
+        ("ep_len", ctypes.c_float),       # terminal_time - start_time (cjoe, fixed start)
+        ("neg_gamma", ctypes.c_float),    # -risk_aversion (exp_utility)
+        ("random_start", ctypes.c_int),   # the t0 plane is read
+        ("terminal_time", ctypes.c_float),
+        ("alpha_dt", ctypes.c_float),     # alpha * dt (cjmm under the t0 plane: / (terminal_time - t0))
+        ("t_done", ctypes.c_float),       # terminal_time - dt / 2: a step starting at or past it is post-done
+        ("t_last", ctypes.c_float),       # terminal_time - 1.5 dt: a step starting at or past it is the last
+        ("t_term", ctypes.c_float),       # start_time + run_steps * dt: the terminal observation's time
     ]
 
 
-def kernel_params(p: MlpRolloutParams, widths) -> MlpKernelParams:
-    """The step constants of ``p``.  ``dt*phi`` and ``alpha*dt/ep_len`` are
-    formed in double, as the JAX kernel forms them from Python floats; each
-    env's CjMm constant ``(alpha*dt/ep_len) * q(inv0)`` is that float32
-    times the float32 ``q(inv0)`` of its initial inventory, rounded to
-    float32, as the JAX kernel multiplies it by its float32 inv0 plane
-    (pallas_rollout.py:1157)."""
+def kernel_params(p: MlpRolloutParams, widths, extras: bool = False) -> MlpKernelParams:
+    """The step constants of ``p``.  ``dt*phi``, ``dt*alpha``,
+    ``alpha*dt/ep_len`` and the random start's thresholds are formed in
+    double, as the JAX kernel forms them from Python floats; each env's
+    CjMm constant ``(alpha*dt/ep_len) * q(inv0)`` is that float32 times the
+    float32 ``q(inv0)`` of its initial inventory, rounded to float32, as
+    the JAX kernel multiplies it by its float32 inv0 plane
+    (pallas_rollout.py:1157).  ``extras`` (a t0 plane or the terminal
+    observation) selects the general instantiation's extras variant."""
     a_dim = len(p.act_low)
     ep_len = p.terminal_time - p.start_time
     return MlpKernelParams(
@@ -478,8 +512,19 @@ def kernel_params(p: MlpRolloutParams, widths) -> MlpKernelParams:
         dynamics=_DYNAMICS[p.dynamics_kind],
         mask_mo=int(p.mask_mo_at_max_inventory),
         half_spread=p.fixed_half_spread,
-        proc_mode=pk.proc_mode(p, composite_ok=False),
+        proc_mode=pk.PROC_GENERAL if extras else pk.proc_mode(p, composite_ok=False),
         proc=pk.proc_params(p, max(a_dim, 2)),
+        temporary_impact=p.temporary_impact,
+        permanent_impact=p.permanent_impact,
+        dt_alpha=p.dt * p.alpha,
+        ep_len=ep_len,
+        neg_gamma=-p.risk_aversion,
+        random_start=int(p.random_start),
+        terminal_time=p.terminal_time,
+        alpha_dt=p.alpha * p.dt,
+        t_done=p.terminal_time - p.dt / 2,
+        t_last=p.terminal_time - 1.5 * p.dt,
+        t_term=p.start_time + p.run_steps * p.dt,
     )
 
 
@@ -572,15 +617,31 @@ def _initial_inventory(p: MlpRolloutParams, kp: MlpKernelParams, n: int, inv0, d
     return torch.full((n,), kp.initial_inventory, dtype=torch.float32, device=device)
 
 
+def _start_times(p: MlpRolloutParams, n: int, t0, final_obs: bool, device) -> Optional[torch.Tensor]:
+    """The ``(N,)`` float32 t0 plane under a random start; the JAX
+    wrapper's argument contract (pallas_rollout.py:1590-1625)."""
+    if p.random_start:
+        if t0 is None or tuple(t0.shape) != (n,):
+            raise ValueError("random_start set: pass t0 (N,) start times")
+        if final_obs:
+            raise ValueError("final_obs with random starts: use the engine")
+        return t0.to(device, torch.float32)
+    if t0 is not None:
+        raise ValueError("t0 only valid with a random start_time spec")
+    return None
+
+
 def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: int = 16384,
-                      noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None):
+                      noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None,
+                      t0: Optional[torch.Tensor] = None, final_obs: bool = False):
     """Plain PyTorch K3 on any device; returns what :func:`mlp_rollout`
     returns."""
     device = noise.device if noise is not None else resolve_device(device)
     n = num_trajectories
     tp = transpose_params(params)
     trunk = [(w.to(device), b.to(device)) for w, b in tp.trunk]
-    kp = kernel_params(p, tp.split_at or [w.shape[0] for w, _ in trunk])
+    start = _start_times(p, n, t0, final_obs, device)
+    kp = kernel_params(p, tp.split_at or [w.shape[0] for w, _ in trunk], extras=start is not None or final_obs)
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
     if noise is None:
         noise = philox_noise(seed, T, n, device, A, p.fill_kind == "exomm", p.has_mid2)
@@ -588,7 +649,7 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
         _check_noise(p, n, noise)
     mid_ch = 4 + max(A, 2)
     pp = kp.proc
-    names = pk.state_planes(p, speed=False)
+    names = pk.state_planes(p, speed=p.speed)
     rnd = bf16_round if p.normalise_obs else (lambda x: x)
     trunk = [(rnd(w), b[:, None]) for w, b in trunk]
     w_head, b_head = rnd(tp.w_head.to(device)), tp.b_head.to(device)[:, None]
@@ -602,17 +663,25 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
     inv = _initial_inventory(p, kp, n, inv0, device)
     price = torch.full((n,), kp.initial_price, dtype=f32, device=device)
     ps = pk.initial_planes(pp, names, cash)  # the process states past the price
-    cjmm_const = kp.cjmm_coef * q_pow(inv, kp.inv_exp)  # per env under inventory_range
+    q0 = q_pow(inv, kp.inv_exp)
+    if start is None:
+        cjmm_const = kp.cjmm_coef * q0  # per env under inventory_range
+        ep_len = kp.ep_len
+    else:  # per-env episode lengths (pallas_rollout.py:1352-1358)
+        ep_len = kp.terminal_time - start
+        cjmm_const = (torch.full_like(ep_len, kp.alpha_dt) / ep_len) * q0
     with full_float32_matmul():
         for i in range(T):
-            t = float(np.float32(kp.start_time) + np.float32(i) * np.float32(kp.dt))
-            planes = [cash, inv, torch.full_like(cash, t), price, *(ps[name] for name in names)]
-            if p.normalise_obs:
-                # a tensor divisor: PyTorch's CUDA division by a Python
-                # scalar multiplies by its reciprocal, the kernel divides
-                planes = [(x - kp.obs_low[c]) / torch.full_like(x, kp.obs_grad[c]) - 1.0
-                          for c, x in enumerate(planes)]
-            X = torch.stack(planes)
+            step_t = float(np.float32(i) * np.float32(kp.dt))
+            if start is None:
+                t = float(np.float32(kp.start_time) + np.float32(step_t))
+                last = i == T - 1
+            else:  # pallas_rollout.py:1303-1320
+                t_start = start + step_t
+                t = torch.clamp(t_start, max=kp.terminal_time)
+                was_done = t_start >= kp.t_done
+                last = t_start >= kp.t_last
+            X = obs_planes(kp, t, (cash, inv, price, *(ps[name] for name in names)))
             obs_out[i] = X
             h = X
             for li, (w, b) in enumerate(trunk):
@@ -638,7 +707,15 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
                     exec_action.append(torch.clamp(action, kp.act_low[a], kp.act_high[a]))
             logp_out[i] = lp - kp.logp_const
             val_out[i] = hd[A]
-            if kp.proc_mode:
+            before = dict(ps) if start is not None else None  # the process states a post-done step keeps
+            hit_bid = hit_ask = None
+            if p.speed:  # impact at the pre-update state (pallas_rollout.py:1056-1072)
+                speed = exec_action[0]
+                impact = pk.speed_impact(pp, kp, ps, speed)
+                volume = speed * kp.dt
+                new_inv = inv + volume
+                new_cash = cash - volume * (price + impact)
+            elif kp.proc_mode:
                 new_inv, new_cash, hit_bid, hit_ask = pk.market_step(p.dynamics_kind, kp, pp, ps, d, exec_action,
                                                                      cash, inv, price)
             else:
@@ -650,17 +727,32 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
                                                hit_bid, hit_ask)
             else:
                 new_price = price + kp.drift_dt + kp.vol_sqrt_dt * d[mid_ch]
-            reward = (new_cash + new_inv * new_price) - (cash + inv * price)
-            if p.reward_kind != "pnl":  # pallas_rollout.py:1150-1185, in its op order
+            terminal = last.to(f32) if isinstance(last, torch.Tensor) else (1.0 if last else 0.0)
+            if p.reward_kind == "exp_utility":  # pallas_rollout.py:1173-1179
+                reward = terminal * -torch.exp(kp.neg_gamma * (new_cash + new_inv * new_price))
+            else:
+                reward = (new_cash + new_inv * new_price) - (cash + inv * price)
+            if p.reward_kind in ("cjmm", "running", "cjoe"):  # pallas_rollout.py:1150-1172, in its op order
                 q_new = q_pow(new_inv, kp.inv_exp)
                 if p.reward_kind == "cjmm":
                     reward = reward - kp.dt_phi * q_new - kp.alpha * (q_new - q_pow(inv, kp.inv_exp)) - cjmm_const
+                elif p.reward_kind == "cjoe":
+                    e = kp.inv_exp
+                    reward = reward - kp.dt_phi * q_new - kp.dt_alpha * (
+                        e * exec_action[0] * q_pow(inv, e - 1.0) + q0 * ep_len)
                 else:  # "running": the terminal penalty at the last step only
-                    terminal = 1.0 if i == T - 1 else 0.0
                     reward = reward - kp.dt_phi * q_new - (kp.alpha * terminal) * q_new
+            if start is not None:  # post-done steps frozen, their rewards zero
+                reward = torch.where(was_done, torch.zeros_like(reward), reward)
+                new_cash, new_inv, new_price = (torch.where(was_done, old, new) for old, new in
+                                                ((cash, new_cash), (inv, new_inv), (price, new_price)))
+                ps.update({k: torch.where(was_done, before[k], v) for k, v in ps.items()})
             rew_out[i] = reward
             cash, inv, price = new_cash, new_inv, new_price
-    return obs_out, act_out, logp_out, val_out, rew_out
+    outs = (obs_out, act_out, logp_out, val_out, rew_out)
+    if final_obs:  # the terminal observation (pallas_rollout.py:1432-1438)
+        outs += (obs_planes(kp, kp.t_term, (cash, inv, price, *(ps[name] for name in names))),)
+    return outs
 
 
 # ------------------------------------------------------------ kernel wrapper
@@ -675,7 +767,7 @@ def _kernels() -> ctypes.CDLL:
     if not getattr(lib, "_mbt_declared", False):
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.mbt_mlp_rollout.argtypes = [ptr, i32, i32, u32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                        ptr]
+                                        ptr, ptr, ptr]
         lib.mbt_mlp_rollout.restype = i32
         lib._mbt_declared = True
     return lib
@@ -684,7 +776,7 @@ def _kernels() -> ctypes.CDLL:
 def check_kernel_shapes(p: MlpRolloutParams, widths, n: int) -> None:
     """The K3 kernel's limits on the config, the (per-tower) trunk widths
     and the env count; ``ValueError`` naming the first one broken."""
-    s_dim = 4 + len(pk.state_planes(p, speed=False))
+    s_dim = 4 + len(pk.state_planes(p, speed=p.speed))
     if len(p.obs_low) != s_dim or s_dim > MAX_S or len(p.act_low) != p.a_dim:
         raise ValueError(f"the K3 kernel takes S={s_dim} (at most {MAX_S}), A={p.a_dim} on {p.dynamics_kind} "
                          f"dynamics; got {len(p.obs_low)}, {len(p.act_low)}")
@@ -698,19 +790,25 @@ def check_kernel_shapes(p: MlpRolloutParams, widths, n: int) -> None:
 
 
 def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: int = 16384,
-                noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None):
+                noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None,
+                t0: Optional[torch.Tensor] = None, final_obs: bool = False):
     """K3: one full episode for ``num_trajectories`` envs with the MLP
     policy fused in.  Returns ``(obs (T, S, N), actions (T, A, N),
-    log_probs (T, N), values (T, N), rewards (T, N))``, float32.
+    log_probs (T, N), values (T, N), rewards (T, N))``, float32, and with
+    ``final_obs`` the terminal observation ``(S, N)`` after them.
 
     ``noise`` (optional) injects ``(T, p.n_channels, N)`` channels;
     otherwise native Philox noise keyed by ``seed``.  ``inv0`` is the
     ``(N,)`` per-env initial inventory, required under
-    ``p.inventory_range`` and refused otherwise.  On a CPU target this is
-    :func:`mlp_rollout_plain`; on CUDA it launches the kernel."""
+    ``p.inventory_range`` and refused otherwise; ``t0`` the ``(N,)``
+    per-env start times, required under ``p.random_start`` (on the step
+    grid; :func:`collect_rollout_fused_T` draws one shared value per
+    episode) and refused otherwise, as is ``final_obs`` with it.  On a CPU
+    target this is :func:`mlp_rollout_plain`; on CUDA it launches the
+    kernel."""
     device = _target(noise, device)
     if device.type == "cpu":
-        return mlp_rollout_plain(p, params, seed, num_trajectories, noise, device, inv0)
+        return mlp_rollout_plain(p, params, seed, num_trajectories, noise, device, inv0, t0, final_obs)
     if device.type != "cuda":
         raise ValueError(f"the rollout kernel runs on CUDA devices, not {device}")
     n = num_trajectories
@@ -721,6 +819,7 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
         _check_noise(p, n, noise)
         if not noise.is_contiguous():
             raise ValueError("noise must be contiguous")
+    start = _start_times(p, n, t0, final_obs, device)
     bf16 = bool(p.normalise_obs)
     if bf16:  # the tensor-core kernel's layout
         padded = pad_widths(params)
@@ -734,12 +833,14 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
                     w_head.to(device).contiguous(), b_head.to(device).contiguous())
                    for trunk, w_head, b_head in tower_params(tp)]
     # `tensors` stays alive until the launch returns
-    kp = kernel_params(p, widths)
+    kp = kernel_params(p, widths, extras=start is not None or final_obs)
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
     if p.inventory_range:
         inv0 = _initial_inventory(p, kp, n, inv0, device).contiguous()
     elif inv0 is not None:
         raise ValueError("inv0 only valid with inventory_range")
+    if start is not None:
+        start = start.contiguous()
     pointers = [(ctypes.c_void_p * 4)(*(x.data_ptr() for x in t)) for t in tensors]
     if len(pointers) == 1:
         pointers.append((ctypes.c_void_p * 4)())
@@ -748,17 +849,19 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
     obs = torch.empty((T, S, n), dtype=f32, device=device)
     act = torch.empty((T, A, n), dtype=f32, device=device)
     logp, val, rew = (torch.empty((T, n), dtype=f32, device=device) for _ in range(3))
+    fin = torch.empty((S, n), dtype=f32, device=device) if final_obs else None
     index, stream = _build.device_stream(device)
     rc = _kernels().mbt_mlp_rollout(
         ctypes.byref(kp), index, n, int(seed) & _MASK32,
         None if noise is None else noise.data_ptr(), None if inv0 is None else inv0.data_ptr(), int(bf16),
         pointers[0], pointers[1], log_std.data_ptr(),
-        obs.data_ptr(), act.data_ptr(), logp.data_ptr(), val.data_ptr(), rew.data_ptr(), stream,
+        obs.data_ptr(), act.data_ptr(), logp.data_ptr(), val.data_ptr(), rew.data_ptr(),
+        None if start is None else start.data_ptr(), None if fin is None else fin.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"mlp_rollout kernel launch failed: CUDA error {rc}")
     _build.count_launch("mlp_rollout")
-    return obs, act, logp, val, rew
+    return (obs, act, logp, val, rew) + ((fin,) if final_obs else ())
 
 
 # ------------------------------------------------------------ PPO batches
@@ -777,7 +880,7 @@ class TRolloutBatch(NamedTuple):
 
 def collect_rollout_fused_T(env_cfg: EnvConfig, params, key, gamma: float = 1.0, lam: float = 0.95,
                             noise: Optional[torch.Tensor] = None, device=None,
-                            inv0: Optional[torch.Tensor] = None) -> TRolloutBatch:
+                            inv0: Optional[torch.Tensor] = None, t0: Optional[torch.Tensor] = None) -> TRolloutBatch:
     """K3 rollout in its feature-major layout + GAE — the input of
     :func:`mbt_gym_torch.ops.fused_ppo.ppo_fused_grads_T`
     (pallas_rollout.py:2198-2256).  ``key`` (an int seed or a
@@ -785,35 +888,46 @@ def collect_rollout_fused_T(env_cfg: EnvConfig, params, key, gamma: float = 1.0,
     ``(T, p.n_channels, N)`` channels instead.  Under a random
     initial inventory (``initial_inventory=(lo, hi)``) the per-env draws in
     [lo, hi) come from ``key`` first, each episode (the distribution of
-    ``env.reset``); ``inv0`` injects them (the parity tests)."""
+    ``env.reset``); ``inv0`` injects them (the parity tests).  Under a
+    random start time (``start_time=("uniform", lo, hi)``) one shared
+    start per episode, quantised to the step grid as ``env.reset`` draws
+    it, comes from ``key`` next and fills the kernel's t0 plane; ``t0``
+    injects an ``(N,)`` plane (per-env values are taken).  Post-done steps
+    are frozen with zero rewards, so GAE over the full horizon sees the
+    engine's masking."""
     from mbt_gym_torch.agents.ppo import compute_gae
     from mbt_gym_torch.env import make_generator
     from mbt_gym_torch.ops.episode import seed_from_key
 
     p = rollout_params_from_config(env_cfg)
     n = env_cfg.num_trajectories
-    if p.inventory_range:
-        target = _target(noise, device)
-        if inv0 is None:
-            key = make_generator(key, target)
-            lo, hi = p.inventory_range
-            inv0 = torch.randint(lo, hi, (n,), generator=key, device=target).to(torch.float32)
+    target = _target(noise, device)
+    if (p.inventory_range and inv0 is None) or (p.random_start and t0 is None):
+        key = make_generator(key, target)
+    if p.inventory_range and inv0 is None:
+        lo, hi = p.inventory_range
+        inv0 = torch.randint(lo, hi, (n,), generator=key, device=target).to(torch.float32)
+    if p.random_start and t0 is None:  # env.reset's draw (mbt_gym_torch/env.py)
+        _, lo, hi = env_cfg.start_time
+        raw = torch.rand((), generator=key, dtype=torch.float32, device=target) * (hi - lo) + lo
+        t0 = (torch.round(raw / env_cfg.step_size) * env_cfg.step_size).expand(n)
     seed = 0 if noise is not None else seed_from_key(key)
     obs_t, actions_t, log_probs, values, rewards = mlp_rollout(
-        p, params, seed, n, noise=noise, device=device, inv0=inv0,
+        p, params, seed, n, noise=noise, device=device, inv0=inv0, t0=t0,
     )
     advantages, returns = compute_gae(rewards, values, torch.zeros_like(values[0]), gamma, lam)
     return TRolloutBatch(obs_t, actions_t, log_probs, values, rewards, advantages, returns)
 
 
 def collect_rollout_fused(env_cfg: EnvConfig, params, key, gamma: float = 1.0, lam: float = 0.95,
-                          noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None):
+                          noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None,
+                          t0: Optional[torch.Tensor] = None):
     """Drop-in for :func:`mbt_gym_torch.agents.ppo.collect_rollout`: the
     row-major :class:`~mbt_gym_torch.agents.ppo.RolloutBatch` of a K3
     rollout (obs ``(T, N, S)``, actions ``(T, N, A)``; views, no copy)."""
     from mbt_gym_torch.agents.ppo import RolloutBatch
 
-    tb = collect_rollout_fused_T(env_cfg, params, key, gamma, lam, noise=noise, device=device, inv0=inv0)
+    tb = collect_rollout_fused_T(env_cfg, params, key, gamma, lam, noise=noise, device=device, inv0=inv0, t0=t0)
     return RolloutBatch(
         obs=tb.obs_t.transpose(1, 2), actions=tb.actions_t.transpose(1, 2),
         log_probs=tb.log_probs, values=tb.values, rewards=tb.rewards,

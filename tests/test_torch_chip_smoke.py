@@ -347,3 +347,91 @@ def test_metric_bands_are_the_entry_modules():
     assert chip_smoke.assert_metric_bands(good, "ok") == good
     with pytest.raises(chip_smoke.PhaseFailed, match="bands"):
         chip_smoke.assert_metric_bands(dict(good, vf_loss=0.0), "bad")
+
+
+def test_oe_saving_is_the_share_of_the_closed_form_saving():
+    """tests/test_convergence.py:357: holding scores 0, the closed-form
+    schedule 1; phase 26b's bar is 0.9."""
+    hold, cf = -10.0, -1.3873921632766724
+    assert chip_smoke.oe_saving(hold, cf, hold) == 0.0
+    assert chip_smoke.oe_saving(cf, cf, hold) == 1.0
+    assert chip_smoke.oe_saving(-1.4022302627563477, cf, hold) == pytest.approx(0.998277, abs=1e-6)
+    assert chip_smoke.oe_saving(-5.0, cf, hold) < chip_smoke.OE_GATE_BAR
+
+
+def test_speed_bounds_at_one_action_and_five_columns():
+    """K3's speed kind at bench_suite config 6 (S = 5, A = 1, 256x256):
+    per env-step 2(5*256 + 256*256 + 2*256) = 134,656 FLOP, the same as
+    config 5's S = 4, A = 2 (towers 2(2*5*256 + 2*256*256 + 2*256) =
+    268,288), bound by operations at the bf16 peak; the (5 + 1 + 3)-float
+    streams are 0.56 ms of bytes.  K4 at S = 5, A = 1: forward plus
+    backward 2(2*2*256 + 2*256*256 + 5*256) = 401,408 a sample."""
+    assert chip_smoke.mlp_flops_per_sample(5, 256, 256, 1) == 134_656
+    assert chip_smoke.mlp_flops_per_sample(5, 256, 256, 1, towers=2) == 268_288
+    assert chip_smoke.ppo_grad_flops_per_sample(5, 256, 256, 1) == 134_656 + 266_752
+    n, steps = chip_smoke.SPEED_N, chip_smoke.STEPS
+    ms, by = chip_smoke.k3_bound(n, steps, 5, 1)
+    assert by == "operations" and ms == pytest.approx(134_656 * n * steps / 989e12 * 1e3)
+    assert chip_smoke.k3_bound(n, steps, 5, 1, towers=2)[0] == pytest.approx(268_288 * n * steps / 989e12 * 1e3)
+    assert 9 * 4 * n * steps / 3.35e12 * 1e3 == pytest.approx(0.5634, abs=1e-4)
+
+
+def test_speed_figures_fill_the_kernels_line():
+    """Phase 26's kernels-line fields: K3's speed times per layout beside
+    PnL's on the same trunk, K4's at S = 5, A = 1, K5's new kinds, each
+    with launches and its largest error, through a JSON round trip."""
+    import json
+
+    err = {"K3": 7.6e-4, "K4": 5.8e-8, "K5": 0.0}
+    launches = {"mlp_rollout": 212, "ppo_fused_grads_T": 896, "det_rollout": 2}
+    k3 = {"shared trunk": (44.49, 47.19, 669.9, 7.138, 43.01), "towers": (86.75, 92.99, 1220.4, 14.22, 84.42)}
+    k5 = {"schedule_lam": (0.153, 0.370, 211.4, 0.0431)}
+    extra = {"t0": (45.0, 47.0, 700.0, 7.138)}
+    figures = json.loads(json.dumps(chip_smoke.speed_figures(err, launches, k3, (20.92, 21.89, 102.1, 1.33), k5,
+                                                             extra)))
+    assert set(figures) == {"K3", "K4", "K5"}
+    assert figures["K3"]["speed_launches"] == 212 and figures["K3"]["speed_max_abs_err"] == 7.6e-4
+    assert figures["K3"]["speed_shared_ms"] == 44.49 and figures["K3"]["speed_towers_pnl_same_call_ms"] == 84.42
+    assert figures["K3"]["speed_towers_bound_ms"] == 14.22 and figures["K3"]["speed_shared_plain_ms"] == 669.9
+    assert figures["K4"] == {"s5a1_launches": 896, "s5a1_max_abs_err": 5.8e-8, "s5a1_ms": 20.92,
+                             "s5a1_call_ms": 21.89, "s5a1_plain_ms": 102.1, "s5a1_bound_ms": 1.33}
+    assert figures["K5"]["slice15_launches"] == 2
+    assert (figures["K5"]["schedule_lam_ms"], figures["K5"]["schedule_lam_bound_ms"]) == (0.153, 0.0431)
+    assert (figures["K3"]["t0_ms"], figures["K3"]["t0_plain_ms"]) == (45.0, 700.0)
+
+
+@pytest.mark.parametrize("entry,k3,k5", [
+    ("_ZN4anon18mlp_rollout_kernelILb1ELi3ELi0ELb0EEEv15MlpKernelParams", True, False),  # speed, plain
+    ("_ZN4anon18mlp_rollout_kernelILb0ELi3ELi1ELb0EEEv15MlpKernelParams", True, False),  # speed, general
+    ("_ZN4anon18mlp_rollout_kernelILb1ELi1ELi1ELb1EEEv15MlpKernelParams", True, False),  # lam extras
+    ("_ZN4anon18mlp_rollout_kernelILb1ELi1ELi1ELb0EEEv15MlpKernelParams", False, False),  # lam general, earlier
+    ("_ZN4anon18mlp_rollout_kernelILb1ELi0ELi0ELb0EEEv15MlpKernelParams", False, False),  # limit plain
+    ("_ZN4anon18det_rollout_kernelILb0ELi2ELi2ELb1ELb0ELi0EEEv15DetKernelParams", False, True),  # lam schedule
+    ("_ZN4anon18det_rollout_kernelILb0ELi3ELi2ELb0ELb1ELi1EEEv15DetKernelParams", False, True),  # touch, general
+    ("_ZN4anon26det_rollout_kernel_utilityILb1ELi0ELi0ELb0EEEv15DetKernelParams", False, True),  # utility
+    ("_ZN4anon18det_rollout_kernelILb0ELi2ELi1ELb1ELb0ELi0EEEv15DetKernelParams", False, False),  # lam fixed
+    ("_ZN4anon18det_rollout_kernelILb0ELi1ELi2ELb1ELb0ELi0EEEv15DetKernelParams", False, False),  # speed schedule
+])
+def test_new_instantiation_names(entry, k3, k5):
+    """Phase 26e picks exactly the instantiations this slice adds by their
+    mangled template arguments."""
+    import re
+
+    assert bool(re.search(chip_smoke.K3_NEW_INSTANTIATIONS, entry)) == k3
+    assert bool(re.search(chip_smoke.K5_NEW_INSTANTIATIONS, entry)) == k5
+
+
+def test_narrow_copy_widens_the_head_too():
+    """K3 PnL beside K3 speed on the same trunk: the copy reads the first
+    four of the five observation columns and keeps the one pi row in the
+    first of two."""
+    import torch
+
+    from mbt_gym_torch.agents.networks import init_actor_critic
+
+    speed = init_actor_critic(3, 5, 1, hidden=(32, 32), shared_trunk=True, device="cpu")
+    pnl = chip_smoke.narrow_copy(torch, speed, 4, 2, torch.device("cpu"))
+    assert (pnl.obs_dim, pnl.action_dim) == (4, 2)
+    assert torch.equal(pnl.shared[0].weight, speed.shared[0].weight[:, :4])
+    assert torch.equal(pnl.shared[1].weight, speed.shared[1].weight)
+    assert torch.equal(pnl.pi_head.weight[:1], speed.pi_head.weight) and torch.equal(pnl.log_std[:1], speed.log_std)

@@ -227,8 +227,8 @@ def test_k3_native_draws_extend_the_channels():
 
 def test_k3_refuses_what_it_does_not_take_by_name():
     """The strict_reference_bug fills and multi-state exogenous sides, as
-    in JAX; speed dynamics and the exponential utility, which K3 does not
-    take yet."""
+    in JAX; speed dynamics and the exponential utility, which JAX's K3
+    takes, parse to JAX's parameters."""
     comp = jax_config.composite_env_config(num_trajectories=N)
     cases = [
         (_with(comp, fill_probability_model=jp.PowerFill(strict_reference_bug=True)), "strict_reference_bug"),
@@ -241,13 +241,12 @@ def test_k3_refuses_what_it_does_not_take_by_name():
             pr.rollout_params_from_config(jcfg)
         with pytest.raises(AssertionError, match=words):
             mr.rollout_params_from_config(torch_config(jcfg))
-    with pytest.raises(AssertionError, match="trading-speed family is not ported to CUDA yet"):
-        mr.rollout_params_from_config(config.oe_env_config(num_trajectories=N))
-    util = dataclasses.replace(config.composite_env_config(num_trajectories=N), reward_function=
-                               torch_config(dataclasses.replace(comp, reward_function=JaxExponentialUtility()))
-                               .reward_function)
-    with pytest.raises(AssertionError, match="ExponentialUtility.* is not ported to CUDA yet"):
-        mr.rollout_params_from_config(util)
+    jutil = dataclasses.replace(comp, reward_function=JaxExponentialUtility())
+    for jcfg in (jax_config.oe_env_config(num_trajectories=N), jutil):
+        want = pr.rollout_params_from_config(jcfg)
+        got = mr.rollout_params_from_config(torch_config(jcfg))
+        assert {f: getattr(want, f) for f in got._fields} == got._asdict()
+    assert mr.rollout_params_from_config(torch_config(jutil)).reward_kind == "exp_utility"
 
 
 # ------------------------------------------------------------ K5
@@ -419,15 +418,28 @@ def test_k5_refuses_what_it_does_not_take_by_name():
     strict = torch_config(_with(jcomp, fill_probability_model=jp.PowerFill(strict_reference_bug=True)))
     with pytest.raises(AssertionError, match="strict_reference_bug fills"):
         det.fixed_rollout_params(strict, [0.6, 0.6, 0.0, 0.0])
-    util = torch_config(dataclasses.replace(jcomp, reward_function=JaxExponentialUtility()))
-    with pytest.raises(AssertionError, match="ExponentialUtility.* is not ported to CUDA yet"):
-        det.fixed_rollout_params(util, [0.6, 0.6, 0.0, 0.0])
+    # the exponential utility, which JAX's K5 takes, runs: the same stats
+    # as the interpret-mode kernel
+    jutil = dataclasses.replace(jcomp, reward_function=JaxExponentialUtility(risk_aversion=0.01))
+    util = det.fixed_rollout_params(torch_config(jutil), [0.6, 0.6, 0.0, 0.0])
+    assert util.reward_kind == "exp_utility" and util.risk_aversion == 0.01
+    channels = _det_channels(util, 5)
+    want = pr.fixed_rollout_pallas(pr.fixed_rollout_params(jutil, [0.6, 0.6, 0.0, 0.0]), 0, N, tile=128,
+                                   interpret=True, noise=jnp.asarray(channels), stats_only=True)
+    _assert_stats_match_jax(det.fixed_rollout(util, 0, N, noise=torch.from_numpy(channels), stats_only=True), want)
     jump = torch_config(_with(jax_config.oe_env_config(num_trajectories=N), midprice_model=jp.OuJumpMidprice()))
     with pytest.raises(AssertionError, match="fill-driven midprice jumps have no fills"):
         det.schedule_rollout_params(jump)
+    # the schedule kind on the composite lam config runs, as in JAX: a
+    # constant schedule is the fixed kind's episode
     p = det.schedule_rollout_params(comp)
-    with pytest.raises(AssertionError, match="is not ported to CUDA yet"):
-        det.schedule_rollout(p, torch.zeros((comp.n_steps, 4)), 0, N, device="cpu")
+    channels = torch.from_numpy(_det_channels(p, 6))
+    table = torch.tensor([[0.6, 0.6, 0.0, 0.0]]).expand(comp.n_steps, 4).contiguous()
+    got = det.schedule_rollout(p, table, 0, N, noise=channels, stats_only=True)
+    want = det.fixed_rollout(det.fixed_rollout_params(comp, [0.6, 0.6, 0.0, 0.0]), 0, N, noise=channels,
+                             stats_only=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # ------------------------------------------------------------ dispatch
@@ -454,9 +466,9 @@ def test_composite_fixed_routes_to_k5_as_in_jax():
 
 def test_unported_features_fall_back_with_their_names():
     """What the kernels still refuse runs on the engine, the reason naming
-    it: the strict_reference_bug fills (as in JAX), the exponential
-    utility on K5, speed dynamics on K3's evaluate family, and K4 beyond
-    S = 8 in the PPO update."""
+    it: the strict_reference_bug fills (as in JAX) and K4 beyond S = 8 in
+    the PPO update.  The exponential utility on K5 takes JAX's fused
+    decision and reason, and K3's evaluate family takes speed dynamics."""
     from mbt_gym_torch.agents import ppo
     from mbt_gym_torch.agents.networks import init_actor_critic
 
@@ -470,12 +482,15 @@ def test_unported_features_fall_back_with_their_names():
         assert (want.backend, got.backend) == ("xla", "engine")
         for reason in (want.reason, got.reason):
             assert "strict_reference_bug fills are an" in reason
-    util = torch_config(dataclasses.replace(jcomp, reward_function=JaxExponentialUtility()))
-    got = dispatch.dispatch_report(util, baseline.fixed_action_policy([0.6, 0.6, 0.0, 0.0]), platform="cuda")
-    assert got.backend == "engine" and "ExponentialUtility" in got.reason and "not ported" in got.reason
+    jutil = dataclasses.replace(jcomp, reward_function=JaxExponentialUtility())
+    want = jax_dispatch.dispatch_report(jutil, jax_baseline.fixed_action_policy([0.6, 0.6, 0.0, 0.0]),
+                                        platform="tpu")
+    got = dispatch.dispatch_report(torch_config(jutil), baseline.fixed_action_policy([0.6, 0.6, 0.0, 0.0]),
+                                   platform="cuda")
+    assert tuple(got) == tuple(want) == ("fused", "fixed", "config and policy match the fixed kernel contract")
     oe = config.oe_env_config(num_trajectories=N)
     got = dispatch.dispatch_report(oe, ppo.deterministic_policy(oe), mode="evaluate", platform="cuda")
-    assert got.backend == "engine" and "trading-speed family is not ported to CUDA yet" in got.reason
+    assert (got.backend, got.family) == ("fused", "mlp_rollout")
     axes = torch_config(_with(jcomp, midprice_model=jp.HestonMidprice()))
     assert axes.state_dim == 9
     assert "takes S <= 8" in ppo.fused_update_refusal(axes) and "S = 9" in ppo.fused_update_refusal(axes)

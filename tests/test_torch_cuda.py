@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: the episode kernels K1 and K2, the MLP rollout K3 (both actor-critic
-layouts; the limit, lam and touch dynamics kinds), the fused PPO updates K4 (both layouts) and K7, the
+layouts; the limit, lam, touch and speed dynamics kinds, the exponential
+utility, the t0 plane and the terminal observation), the fused PPO updates K4 (both layouts) and K7, the
 deterministic-policy rollout K5, the OE episode K6 and the CJ episode K8,
 and the step pipeline's wide shape.  They have no CPU mode, so every test here skips on a host
 without a GPU.  This file imports neither JAX nor the JAX package, so it
@@ -179,6 +180,59 @@ def test_mlp_rollout_lam_touch_kinds_match_plain_on_the_card(cuda_device, kind, 
         else:
             same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
         # a decision flipped at the last step shows only in the last reward
+        same &= (got[4][-1] - want[4][-1]).abs() <= 1e-3 + 1e-4 * want[4][-1].abs()
+        assert int((~same).sum()) <= n // 1000
+        for a, b, c in zip(got, want, again):
+            torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3)
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared-trunk", "towers"])
+@pytest.mark.parametrize("kind", ["speed", "speed-float32", "speed-transient", "speed-utility", "limit-utility",
+                                  "t0", "final-obs"])
+def test_mlp_rollout_speed_and_extras_match_plain_on_the_card(cuda_device, kind, shared_trunk):
+    """K3's speed kind (A = 1, S = 5; the transient impact on the general
+    instantiation), the exponential utility, the t0 plane of a random start
+    (per-env starts on the step grid) and the terminal observation at 4,096
+    envs, 256x256, noise and native mode, against the plain version at the
+    PnL test's limits (speed's continuous inventory to the tolerance on
+    every env); a second launch is bitwise equal."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.processes.impact import TransientImpact
+    from mbt_gym_torch.rewards import ExponentialUtility
+    from mbt_gym_torch.utils.config import oe_env_config
+
+    n = 4096
+    norm = dict(normalise_observation_space=kind != "speed-float32", normalise_action_space=kind.startswith("speed"))
+    base = as_env_config(num_trajectories=n) if kind in ("limit-utility", "t0", "final-obs") else oe_env_config(
+        num_trajectories=n)
+    cfg = dataclasses.replace(base, **norm)
+    if kind == "speed-transient":
+        cfg = dataclasses.replace(cfg, dynamics=dataclasses.replace(cfg.dynamics, price_impact_model=TransientImpact()))
+    elif kind.endswith("utility"):
+        cfg = dataclasses.replace(cfg, reward_function=ExponentialUtility(0.01))
+    elif kind == "t0":
+        cfg = dataclasses.replace(cfg, start_time=("uniform", 0.0, 0.5))
+    p = mr.rollout_params_from_config(cfg)
+    model = init_actor_critic(5, cfg.state_dim, p.a_dim, hidden=(256, 256), shared_trunk=shared_trunk,
+                              device=cuda_device)
+    extra = {"final_obs": kind == "final-obs", "t0": None}
+    if kind == "t0":
+        steps = np.random.default_rng(4).integers(0, 101, n)
+        extra["t0"] = torch.from_numpy((steps * cfg.step_size).astype(np.float32)).to(cuda_device)
+    rng = np.random.default_rng(6)
+    channels = rng.uniform(size=(p.run_steps, p.n_channels, n)).astype(np.float32)
+    channels[:, 4:] = rng.normal(size=(p.run_steps, p.n_channels - 4, n)).astype(np.float32)
+    for kw in ({"noise": torch.from_numpy(channels).to(cuda_device)}, {"seed": 11, "device": cuda_device}):
+        got = mr.mlp_rollout(p, model, num_trajectories=n, **kw, **extra)
+        again = mr.mlp_rollout(p, model, num_trajectories=n, **kw, **extra)
+        want = mr.mlp_rollout_plain(p, model, num_trajectories=n, **kw, **extra)
+        torch.cuda.synchronize()
+        if p.speed:
+            same = ((got[0][:, 1] - want[0][:, 1]).abs() <= 1e-3 + 1e-4 * want[0][:, 1].abs()).all(dim=0)
+        else:
+            same = (got[0][:, 1] == want[0][:, 1]).all(dim=0)
         same &= (got[4][-1] - want[4][-1]).abs() <= 1e-3 + 1e-4 * want[4][-1].abs()
         assert int((~same).sum()) <= n // 1000
         for a, b, c in zip(got, want, again):

@@ -510,20 +510,30 @@ def test_fallback_reasons_match_jax(name, modes, words):
 
 
 def test_unported_dynamics_reason_names_the_missing_piece():
-    """What K5 still lacks on the limit-and-market-order family is named
-    where it is refused: the schedule kind on lam dynamics by the kernel
-    wrapper, and a fixed action under the exponential-utility reward by the
-    dispatch front door, which then runs the engine."""
-    from mbt_gym_torch.rewards import ExponentialUtility
+    """The limit-and-market-order family on K5 as JAX takes it: the
+    schedule kind on lam dynamics runs (its (steps, 4) table checked in
+    JAX's words), the table kind stays refused in JAX's words, and a fixed
+    action under the exponential-utility reward routes to the fixed family
+    with JAX's reason."""
+    from mbt_gym_tpu.rewards import ExponentialUtility as JaxExponentialUtility
+    from mbt_gym_tpu.utils.config import lam_env_config as jax_lam_env_config
+
     from mbt_gym_torch.utils.config import lam_env_config
 
     cfg = lam_env_config(num_trajectories=256, n_steps=8)
     p = det.schedule_rollout_params(cfg)
-    with pytest.raises(AssertionError, match="schedule kind on lam dynamics is not ported"):
-        det.schedule_rollout(p, torch.zeros((8, 4)), 0, 256, device="cpu")
-    util = dataclasses.replace(cfg, reward_function=ExponentialUtility())
-    d = dispatch.dispatch_report(util, fixed_action_policy([0.6, 0.6, 0.0, 0.0]), platform="cuda")
-    assert d.backend == "engine" and "ExponentialUtility" in d.reason and "not ported" in d.reason
+    obs, act, _, _, rew = det.schedule_rollout(p, torch.full((8, 4), 0.6), 0, 256, device="cpu")
+    assert tuple(act.shape) == (8, 4, 256) and bool(torch.isfinite(rew).all())
+    with pytest.raises(AssertionError, match=r"action_table must be \(steps, 4\) for lam dynamics"):
+        det.schedule_rollout(p, torch.zeros((8, 2)), 0, 256, device="cpu")
+    with pytest.raises(AssertionError, match="limit-order dynamics only"):
+        det.table_rollout(p._replace(policy_kind="table", table_size=3), torch.zeros((9, 3)), torch.zeros((9, 3)),
+                          0, 256, device="cpu")
+    jutil = dataclasses.replace(jax_lam_env_config(num_trajectories=256, n_steps=8),
+                                reward_function=JaxExponentialUtility())
+    want = jax_dispatch.dispatch_report(jutil, jax_fixed_action_policy([0.6, 0.6, 0.0, 0.0]), platform="tpu")
+    d = dispatch.dispatch_report(torch_config(jutil), fixed_action_policy([0.6, 0.6, 0.0, 0.0]), platform="cuda")
+    assert tuple(d) == tuple(want) == ("fused", "fixed", "config and policy match the fixed kernel contract")
 
 
 def test_long_horizon_cj_rollout_stays_fused():

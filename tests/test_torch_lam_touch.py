@@ -185,11 +185,23 @@ def test_k3_native_lam_stream_extends_the_limit_stream():
 
 
 def test_k3_refuses_exponential_utility_by_name():
-    """ExponentialUtility runs on the engine; K3 refuses it by name."""
-    for make in (config.lam_env_config, config.touch_env_config):
-        cfg = dataclasses.replace(make(num_trajectories=N), reward_function=ExponentialUtility())
-        with pytest.raises(AssertionError, match="ExponentialUtility.* is not ported to CUDA yet"):
-            mr.rollout_params_from_config(cfg)
+    """ExponentialUtility, which JAX's K3 takes on lam and touch, parses
+    to JAX's parameters; a reward neither takes is refused in JAX's
+    words."""
+    from mbt_gym_tpu.rewards import CjOeCriterion as JaxCjOe
+    from mbt_gym_tpu.rewards import ExponentialUtility as JaxUtility
+
+    for make in (jax_config.lam_env_config, jax_config.touch_env_config):
+        jcfg = dataclasses.replace(make(num_trajectories=N), reward_function=JaxUtility(risk_aversion=0.2))
+        want = pr.rollout_params_from_config(jcfg)
+        got = mr.rollout_params_from_config(torch_config(jcfg))
+        assert {f: getattr(want, f) for f in got._fields} == got._asdict()
+        assert (got.reward_kind, got.risk_aversion) == ("exp_utility", 0.2)
+        wrong = dataclasses.replace(jcfg, reward_function=JaxCjOe())
+        words = "supports PnL / CjMmCriterion / RunningInventoryPenalty / ExponentialUtility; got"
+        for fn, c in ((pr.rollout_params_from_config, wrong), (mr.rollout_params_from_config, torch_config(wrong))):
+            with pytest.raises(AssertionError, match=words):
+                fn(c)
 
 
 # ------------------------------------------------------------ K5 fixed kind
@@ -231,10 +243,105 @@ def test_k5_fixed_plain_matches_interpret_pallas(name):
 
 
 def test_k5_refuses_the_table_kind_on_lam_and_touch():
+    """The depth table quotes limit depths: on lam and touch both packages
+    refuse it in the same words, while the schedule kind runs there."""
     for make in (config.lam_env_config, config.touch_env_config):
         p = det.schedule_rollout_params(make(num_trajectories=N, n_steps=T))
-        with pytest.raises(AssertionError, match="is not ported to CUDA yet"):
-            det.schedule_rollout(p, torch.zeros((T, p.a_dim)), 0, N, device="cpu")
+        out = det.schedule_rollout(p, torch.zeros((T, p.a_dim)), 0, N, device="cpu")
+        assert tuple(out[1].shape) == (T, p.a_dim, N)
+        table = p._replace(policy_kind="table", table_size=3)
+        with pytest.raises(AssertionError, match="limit-order dynamics only"):
+            det.table_rollout(table, torch.zeros((T + 1, 3)), torch.zeros((T + 1, 3)), 0, N, device="cpu")
+
+
+@pytest.mark.parametrize("name", list(K5_CASES))
+def test_k5_schedule_plain_matches_interpret_pallas(name):
+    """K5's schedule kind on lam (4 columns, with and without the mask and
+    the normalised spaces) and touch (2 post columns) against
+    schedule_rollout_pallas(interpret=True) on a random per-step table:
+    streams with the terminal observation, and the stats mode."""
+    make, action = K5_CASES[name]
+    jcfg = make()
+    jp = pr.schedule_rollout_params(jcfg)
+    p = det.schedule_rollout_params(torch_config(jcfg))
+    for field, value in p._asdict().items():
+        if hasattr(jp, field):
+            assert getattr(jp, field) == value, field
+    rng = np.random.default_rng(33)
+    low = -1.0 if p.normalise_act else 0.0
+    table = rng.uniform(low, 1.0, size=(T, len(action))).astype(np.float32)
+    channels = random_channels(34, T, N)
+    for kw in ({"final_obs": True}, {"stats_only": True}):
+        want = pr.schedule_rollout_pallas(jp, jnp.asarray(table), 0, N, tile=128, interpret=True,
+                                          noise=jnp.asarray(channels), **kw)
+        got = det.schedule_rollout(p, torch.from_numpy(table), 0, N, noise=torch.from_numpy(channels), **kw)
+        if "stats_only" in kw:
+            _assert_stats_match_jax(got, want)
+        else:
+            _assert_streams_match_jax(got, want, p, obs_atol=1e-4, rew_atol=1e-4)
+    if name.startswith("lam"):
+        assert (table[:, 2:] > 0.5).any()
+
+
+@pytest.mark.parametrize("case", ["limit-table", "lam-fixed", "touch-fixed", "speed-schedule"])
+def test_k5_exp_utility_plain_matches_interpret_pallas(case):
+    """The terminal exponential utility on K5 (pallas_rollout.py:1173-1179)
+    on every dynamics kind: the CJ table on limit, fixed actions on lam and
+    touch, the closed-form OE schedule on speed, against the
+    interpret-mode kernel in streams (with the terminal observation) and
+    stats modes."""
+    from mbt_gym_tpu.agents.baseline import CarteaJaimungalMmAgent as JaxCj
+    from mbt_gym_tpu.agents.baseline import CarteaJaimungalOeAgent as JaxOe
+    from mbt_gym_tpu.rewards import ExponentialUtility as JaxUtility
+
+    utility = JaxUtility(risk_aversion=0.01)
+    kind = case.split("-")[0]
+    if kind == "limit":
+        base = jax_config.cj_env_config(num_trajectories=N, n_steps=T, max_inventory=3.0)
+        jagent = JaxCj.from_config(base)
+        jcfg = dataclasses.replace(base, reward_function=utility)
+        jp = pr.cj_rollout_params(jcfg, jagent)
+        agent = baseline.CarteaJaimungalMmAgent.from_config(torch_config(base))
+        p = det.cj_rollout_params(torch_config(jcfg), agent)
+        bid, ask = det.cj_depth_tables(agent)
+        jtables = pr.cj_depth_tables(jagent)  # the inventory grid padded to the TPU's 128 lanes
+
+        def run_jax(**kw):
+            return pr.table_rollout_pallas(jp, *jtables, 0, N, tile=128, interpret=True, **kw)
+
+        def run(**kw):
+            return det.table_rollout(p, bid, ask, 0, N, **kw)
+    elif kind == "speed":
+        base = jax_config.oe_env_config(num_trajectories=N, n_steps=T)
+        jcfg = dataclasses.replace(base, reward_function=utility)
+        jp = pr.schedule_rollout_params(jcfg)
+        p = det.schedule_rollout_params(torch_config(jcfg))
+        table = np.array(pr.schedule_table_from_policy(base, JaxOe.from_config(base).policy()))
+
+        def run_jax(**kw):
+            return pr.schedule_rollout_pallas(jp, jnp.asarray(table), 0, N, tile=128, interpret=True, **kw)
+
+        def run(**kw):
+            return det.schedule_rollout(p, torch.from_numpy(table), 0, N, **kw)
+    else:
+        make, action = K5_CASES[kind]
+        jcfg = dataclasses.replace(make(), reward_function=utility)
+        jp = pr.fixed_rollout_params(jcfg, action)
+        p = det.fixed_rollout_params(torch_config(jcfg), action)
+
+        def run_jax(**kw):
+            return pr.fixed_rollout_pallas(jp, 0, N, tile=128, interpret=True, **kw)
+
+        def run(**kw):
+            return det.fixed_rollout(p, 0, N, **kw)
+    assert (p.reward_kind, p.risk_aversion, jp.reward_kind) == ("exp_utility", 0.01, "exp_utility")
+    channels = random_channels(35, p.run_steps, N)
+    got = run(noise=torch.from_numpy(channels), final_obs=True)
+    _assert_streams_match_jax(got, run_jax(noise=jnp.asarray(channels), final_obs=True), p, obs_atol=1e-4,
+                              rew_atol=1e-6)
+    assert not got[4][:-1].any() and bool((got[4][-1] < 0.0).all())
+    _assert_stats_match_jax(run(noise=torch.from_numpy(channels), stats_only=True),
+                            run_jax(noise=jnp.asarray(channels), stats_only=True))
 
 
 @pytest.mark.parametrize("name", ["lam", "touch"])

@@ -186,15 +186,20 @@ def test_config_guard_names_unported_features():
     from mbt_gym_torch.rewards import CjMmCriterion, CjOeCriterion, ExponentialUtility, RunningInventoryPenalty
 
     cfg = as_env_config(num_trajectories=N)
-    # a random initial inventory runs on K3 through its inv0 plane
+    # a random initial inventory runs on K3 through its inv0 plane, a
+    # random start through its t0 plane, and the exponential utility as a
+    # reward kind, as in JAX
     p = mr.rollout_params_from_config(dataclasses.replace(cfg, initial_inventory=(-2, 3)))
     assert (p.inventory_range, p.initial_inventory) == ((-2, 3), 0.0)
+    p = mr.rollout_params_from_config(dataclasses.replace(cfg, start_time=("uniform", 0.0, 0.5)))
+    assert (p.random_start, p.start_time, p.run_steps) == (True, 0.0, cfg.n_steps)
+    p = mr.rollout_params_from_config(dataclasses.replace(cfg, reward_function=ExponentialUtility(0.3)))
+    assert (p.reward_kind, p.risk_aversion) == ("exp_utility", 0.3)
     for change, match in (
-        ({"start_time": ("uniform", 0.0, 0.5)}, "random start times are not ported to CUDA"),
         ({"dtype": "float64"}, "float64 reference-parity"),
         ({"reward_scaling": 0.5}, None),
-        ({"reward_function": ExponentialUtility()}, "ExponentialUtility.* is not ported to CUDA"),
-        ({"reward_function": CjOeCriterion()}, "CjOeCriterion.* is not ported to CUDA"),
+        ({"reward_function": CjOeCriterion()},
+         r"\(limit dynamics\) supports PnL / CjMmCriterion / RunningInventoryPenalty / ExponentialUtility; got"),
     ):
         with pytest.raises(AssertionError, match=match):
             mr.rollout_params_from_config(dataclasses.replace(cfg, **change))

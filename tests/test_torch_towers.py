@@ -217,9 +217,13 @@ def test_mlp_rollout_dispatch_family(monkeypatch):
     for mode in ("rollout", "stats"):
         d = dispatch_report(env_cfg, policy, mode=mode, platform="cuda")
         assert d.backend == "engine" and "serves evaluate_policy" in d.reason
+    # random start times run on K3's t0 plane; a float64 config stays outside its family
     late = dataclasses.replace(env_cfg, start_time=("uniform", 0.0, 0.5))
     d = dispatch_report(late, ppo.deterministic_policy(late), mode="evaluate", platform="cuda")
-    assert d.backend == "engine" and "random start times" in d.reason
+    assert (d.backend, d.family) == ("fused", "mlp_rollout")
+    wide = dataclasses.replace(env_cfg, dtype="float64")
+    d = dispatch_report(wide, ppo.deterministic_policy(wide), mode="evaluate", platform="cuda")
+    assert d.backend == "engine" and "float64 reference-parity" in d.reason
     odd = networks.init_actor_critic(0, 4, 2, (18, 18), shared_trunk=True, device="cpu")
     d = dispatch_report(env_cfg, policy, mode="evaluate", platform="cuda", policy_params=odd)
     assert d.backend == "engine" and "multiple of 4" in d.reason
