@@ -32,7 +32,8 @@ public entry points and times it all:
   against their plain versions (22a); 250 fully fused iterations (K3 with
   the CjMm reward once and K4 16 times each) of the JAX slow gate's
   setting, which must reach 0.6 x the closed-form CJ agent's reward, beside
-  the engine path, then ``evaluate_policy(backend="auto")`` on K3 (22b);
+  the engine path, whose first three iterations ``jit_train_iteration``
+  repeats bit for bit, then ``evaluate_policy(backend="auto")`` on K3 (22b);
   one fused iteration at config 5's widths on the CJ env, both layouts,
   K3's CjMm time beside its PnL time (22c); REINFORCE on the card (22d);
   and ``with_normalised_rewards`` on K5's fixed kind against the engine
@@ -69,7 +70,19 @@ public entry points and times it all:
   random-start ``evaluate_policy``, the exponential utility through
   ``rollout(auto)`` and K5's lam schedule against the engine (26d); the
   new instantiations' registers, spills and tensor-core instructions
-  (26e).
+  (26e);
+- the compiled entry points, CUDA-graph captures (phase 27):
+  ``jit_rollout(backend="engine")`` bit for bit ``rollout(backend=
+  "engine")`` on the AS, CJ, OE, config-14 and deterministic-policy
+  episodes (27a); two ``jit_train_iteration``s at config 5 bit for bit the
+  eager iterations on the engine, ``fused_update`` (K7; K4 on the towers)
+  and the fully fused learner (K3 x1 + K4 x16 per replay, two traced
+  replays naming K3's and K4's kernels) (27b); ``jit_train_chunk(4)`` bit
+  for bit four ``jit_train_iteration``s and ``jit_train_epoch`` bit for bit
+  eager REINFORCE (27c); eager against captured ms, env-steps/s and idle
+  share, capture seconds and graph pool bytes (27d); the captured
+  iteration over an NCCL group of world size 1 bit for bit the eager one
+  (27e); a capture holding a host read raises (27f).
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
 update passes and of K3 run tensor-core instructions and the float32 ones
@@ -1465,6 +1478,7 @@ def update_phases(torch, np, card, dev):
 # q_max 10; 250 iterations of 4 epochs x 4 minibatches, 128x128 towers; the
 # best mean episode reward above 0.6 x the closed-form CJ agent's.
 CJ_GATE_N, CJ_GATE_T, CJ_GATE_ITERATIONS, CJ_GATE_BAR = 1024, 100, 250, 0.6
+CJ_GATE_CAPTURED = 3  # phase 22b's engine iterations run again captured
 CJ_SMALL_N = 4096
 SCALING_N = 131_072  # a lane multiple: the reward-scaling simulation on K5
 
@@ -1486,8 +1500,9 @@ def cj_learning_phases(torch, np, card, dev, k3_pnl_ms=None):
     )
     from mbt_gym_torch.agents import reinforce
     from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch import compiled
     from mbt_gym_torch.agents.ppo import (
-        PPOConfig, deterministic_policy, evaluate_policy, init_train_state, train_iteration,
+        PPOConfig, deterministic_policy, evaluate_policy, init_train_state, jit_train_iteration, train_iteration,
     )
     from mbt_gym_torch.ops import _build
     from mbt_gym_torch.ops import det_rollout as det
@@ -1591,7 +1606,7 @@ def cj_learning_phases(torch, np, card, dev, k3_pnl_ms=None):
     fused_cfg = PPOConfig(hidden=(128, 128), n_epochs=4, n_minibatches=4, shuffle=False, fused_rollout=True,
                           fused_update=True)
     per_iteration = {"mlp_rollout": 1, "ppo_fused_grads_T": fused_cfg.n_epochs * fused_cfg.n_minibatches}
-    bests = {}
+    bests, engine_states = {}, []
     for label, cfg in (("fused", fused_cfg), ("engine", dataclasses.replace(fused_cfg, fused_rollout=False,
                                                                             fused_update=False))):
         t1 = time.perf_counter()
@@ -1606,6 +1621,8 @@ def cj_learning_phases(torch, np, card, dev, k3_pnl_ms=None):
             check(counts == want, f"phase 22b {label} iteration {i + 1}: launches {counts}, want {want}")
             if label == "fused":
                 add_launches()
+            elif i < CJ_GATE_CAPTURED:
+                engine_states.append((ts, metrics))
             history.append(assert_metric_bands(metrics, f"phase 22b {label} iteration {i + 1}")["mean_episode_reward"])
         bests[label] = max(history)
         print(f"phase 22b {label} path: {CJ_GATE_ITERATIONS} iterations in {time.perf_counter() - t1:.1f} s, "
@@ -1613,6 +1630,16 @@ def cj_learning_phases(torch, np, card, dev, k3_pnl_ms=None):
               f"= {bests[label] / cf:.3f} x the closed-form CJ agent's {cf}")
         if label == "fused":
             trained = ts.params
+    # the engine learner's first iterations again through its compiled
+    # entry point (slice 17): bit for bit the eager ones above
+    ts = init_train_state(gate_cfg, cfg, 0)
+    for i, (ets, em) in enumerate(engine_states):
+        ts, metrics = jit_train_iteration(gate_cfg, cfg, ts, i)
+        check(same_bits(torch, ts.params, ets.params) and same_bits(torch, ts.opt_state, ets.opt_state)
+              and same_bits(torch, metrics, em),
+              f"phase 22b engine iteration {i + 1}: jit_train_iteration is not train_iteration bit for bit")
+    compiled.clear_cache()
+    print(f"phase 22b engine path: {CJ_GATE_CAPTURED} jit_train_iterations bitwise the eager ones")
     decision = dispatch_report(gate_cfg, deterministic_policy(gate_cfg), mode="evaluate", platform=dev,
                                policy_params=trained)
     check((decision.backend, decision.family) == ("fused", "mlp_rollout"), f"phase 22b evaluate dispatch: {decision}")
@@ -3587,6 +3614,375 @@ def speed_phases(torch, np, card, dev, k3_pnl_ms=None):
     return speed_figures(err, path, k3, (k4_ms[0], k4_ms[1], k4_plain_ms, k4_bound[0]), sched_ms, extra_ms)
 
 
+# ------------------------------------------------------------------ the compiled entry points
+COMPILED_CHUNK = 4  # phase 27c's jit_train_chunk
+REINFORCE_N, REINFORCE_T, REINFORCE_EPOCHS = 256, 20, 3  # phase 22d's REINFORCE setting, 3 epochs
+TIMED_CALLS = 3  # phase 27d's timed calls of each path and mode, after one untimed (median)
+
+
+def same_bits(torch, a, b):
+    """Whether ``a`` and ``b`` (tensors, generators, modules, optimizers and
+    nested tuples, lists and dicts of them) hold the same bits: tensors
+    equal in dtype, shape and value (NaN where the other is NaN),
+    generators in the same state, an Adam's per-parameter state in order."""
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())))
+    if isinstance(a, torch.Generator):
+        return bool(torch.equal(a.get_state(), b.get_state()))
+    if isinstance(a, torch.nn.Module):
+        return same_bits(torch, a.state_dict(), b.state_dict())
+    if isinstance(a, torch.optim.Optimizer):
+        states = [[s.get(p, {}) for p in g["params"]] for opt, s in ((a, a.state), (b, b.state))
+                  for g in opt.param_groups]
+        return same_bits(torch, states[0], states[1])
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(torch, x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def wall_ms(torch, fn, calls=TIMED_CALLS, warmup=1):
+    """Host-clock milliseconds of each of ``calls`` calls of ``fn``, the card
+    synchronised around each, after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def compiled_phases(torch, np, card, dev):
+    """Phase 27: the compiled entry points (``mbt_gym_torch.compiled``).
+    (a) ``jit_rollout(backend="engine")`` bit for bit ``rollout(backend=
+    "engine")`` for the same int key, at the first (capturing) call and at
+    a replay: AS 16,384 x 200, CJ 16,384 x 1,000, OE 8,192 x 200, config
+    14's processes at 16,384 x 200 and the deterministic policy of a
+    256x256 trunk on the normalised AS env at 16,384 x 200; (b) two
+    ``jit_train_iteration``s at config 5 bit for bit two eager
+    ``train_iteration``s (params, Adam state, metrics) on the engine, on
+    ``fused_update`` (shared trunk, K7 x16; towers, K4 x16) and fully fused
+    (K3 x1 + K4 x16), each replay's launches counted, two traced replays
+    naming K3's and K4's kernels; (c) ``jit_train_chunk(4)`` bit for bit
+    four ``jit_train_iteration``s, and ``jit_train_epoch`` bit for bit eager
+    REINFORCE at 256 x 20; (d) eager against captured ms, env-steps/s and
+    idle share, the first call's capture seconds and the graph pool's
+    bytes: the AS engine rollout at 16,384 x 200, config 14's 8 engine
+    episodes, the engine iteration (contiguous minibatches, as phases 12,
+    24c and 26c run it) at configs 5, 6 and 10, and config 5 fully fused;
+    (e) ``jit_train_iteration(mesh=)`` over an NCCL group of world size 1
+    bit for bit ``train_iteration(mesh=)``, engine and fully fused; (f) a
+    capture that holds a host read raises, and nothing falls back.
+    Returns the kernels-line figures."""
+    import dataclasses
+
+    from mbt_gym_torch import compiled, init_train_state, jit_rollout, rollout, train_chunk, train_iteration
+    from mbt_gym_torch.agents import reinforce
+    from mbt_gym_torch.agents.baseline import (
+        AvellanedaStoikovAgent, CarteaJaimungalMmAgent, CarteaJaimungalOeAgent, fixed_action_policy,
+    )
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.agents.ppo import PPOConfig, deterministic_policy, jit_train_chunk, jit_train_iteration
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.utils.config import as_env_config, cj_env_config, composite_env_config, oe_env_config
+
+    t_start = time.perf_counter()
+    norm = dict(normalise_observation_space=True, normalise_action_space=True)
+    _build.reset_launch_counts()
+    path = {name: 0 for name in _build.launch_counts}
+
+    def add_launches():
+        for name, c in _build.launch_counts.items():
+            path[name] += c
+        _build.reset_launch_counts()
+
+    def entry_line():
+        info = compiled.cache_info()
+        if not info:
+            return "no capture (the eager function ran)"
+        return (f"capture {info[-1]['capture_seconds']:.2f} s, pool {info[-1]['pool_bytes']} bytes, replay launches "
+                f"{info[-1]['launches']}")
+
+    figures = {}
+
+    def compare_modes(label, env_steps, eager_fn, jit_fn, first_call_s, profiled=None, k3_ms=None):
+        """27d's row: eager and captured ms (host clock, the median of
+        :data:`TIMED_CALLS` calls after one untimed), env-steps/s and
+        idle share (one profiled call each, or of ``profiled``'s eager and
+        captured calls, a part of the work that repeats), the first call's
+        seconds, its warm-up and capture seconds and the graph pool's
+        bytes.  Where a profile lost the record of the call's one K3 launch
+        (CUPTI drops one now and then), ``k3_ms``, K3's device time at the
+        shape, is added to the busy time and the line says so."""
+        info = compiled.cache_info()
+        row = {"first_call_s": first_call_s, "capture_s": sum(e["capture_seconds"] for e in info),
+               "pool_bytes": sum(e["pool_bytes"] for e in info)}
+        for mode, fn, part in zip(("eager", "captured"), (eager_fn, jit_fn), profiled or (eager_fn, jit_fn)):
+            times = wall_ms(torch, fn)
+            prof = profile_iteration(torch, card, f"{mode} {label}" + (", one episode" if profiled else ""), part,
+                                     phase=27, top=3)
+            add_launches()
+            busy = prof.get("busy_ms")
+            if k3_ms is not None and busy is not None and not any("mlp_rollout_kernel" in n for n in prof["by_name"]):
+                busy += k3_ms
+                print(f"phase 27d {mode} {label}: the profile lost K3's record; its device time {k3_ms} ms added")
+            ms = statistics.median(times)
+            if profiled and busy is not None:  # the profiled part is one of COMPOSITE_EPISODES
+                busy *= COMPOSITE_EPISODES
+            # the profiler lengthens a short call's wall time: the idle share
+            # of an unprofiled call (its busy time taken from the profile) too
+            row[mode] = {"ms": ms, "calls_ms": times, "env_steps_per_s": env_steps / ms * 1e3, "busy_ms": busy,
+                         "idle_share": None if busy is None else 1 - busy / (prof["wall_ms"] * (
+                             COMPOSITE_EPISODES if profiled else 1)),
+                         "idle_share_unprofiled": None if busy is None else max(0.0, 1 - busy / ms)}
+            print(f"phase 27d [{card}] {mode} {label}: {ms} ms (calls {times}) = "
+                  f"{row[mode]['env_steps_per_s']} env-steps/s, "
+                  f"device busy {busy} ms, idle share {row[mode]['idle_share']} under the profiler, "
+                  f"{row[mode]['idle_share_unprofiled']} of the unprofiled call")
+        print(f"phase 27d [{card}] captured {label}: first call {row['first_call_s']:.2f} s (warm-up and capture "
+              f"{row['capture_s']:.2f} s), graph pool {row['pool_bytes']} bytes; captured / eager = "
+              f"{row['captured']['ms'] / row['eager']['ms']:.3f}")
+        figures[label] = row
+
+    # ---- 27a: the engine episode, captured, against rollout(engine)
+    t0 = time.perf_counter()
+    as_cfg = as_env_config(num_trajectories=N_MAIN)
+    cj_cfg = cj_env_config(num_trajectories=CJ_N, max_inventory=100.0)
+    oe_cfg = oe_env_config(num_trajectories=OE_N)
+    c14 = composite_env_config(num_trajectories=KIND_N)
+    eval_cfg = dataclasses.replace(as_env_config(num_trajectories=EVAL_N), **norm)
+    model = init_actor_critic(5, 4, 2, hidden=(256, 256), shared_trunk=True, device=dev)
+    cases = {
+        f"AS {N_MAIN}x{as_cfg.n_steps}": (as_cfg, AvellanedaStoikovAgent.from_config(as_cfg).policy(), None),
+        f"CJ {CJ_N}x{cj_cfg.n_steps}": (cj_cfg, CarteaJaimungalMmAgent.from_config(cj_cfg, max_inventory=100).policy(),
+                                        None),
+        f"OE {OE_N}x{oe_cfg.n_steps}": (oe_cfg, CarteaJaimungalOeAgent.from_config(oe_cfg, phi=2e-4, alpha=0.01)
+                                        .policy(), None),
+        f"config 14's processes {KIND_N}x{c14.n_steps}": (c14, fixed_action_policy(COMPOSITE_ACTION), None),
+        f"deterministic policy, 256x256, {EVAL_N}x{eval_cfg.n_steps}": (eval_cfg, deterministic_policy(eval_cfg),
+                                                                       model),
+    }
+    for label, (cfg, policy, params) in cases.items():
+        want = rollout(cfg, policy, params, 41, backend="engine")
+        first = jit_rollout(cfg, policy, params, 41, backend="engine")
+        replayed = jit_rollout(cfg, policy, params, 41, backend="engine")
+        other = jit_rollout(cfg, policy, params, 42, backend="engine")
+        torch.cuda.synchronize()
+        check(same_bits(torch, first, want) and same_bits(torch, replayed, want),
+              f"phase 27a {label}: jit_rollout is not rollout(engine) bit for bit")
+        check(not torch.equal(other.trajectory.rewards, want.trajectory.rewards),
+              f"phase 27a {label}: another key replayed the same episode")
+        print(f"phase 27a [{card}] jit_rollout(engine) {label}: bitwise rollout(engine) at the capture and at a "
+              f"replay, the final generator state too; {entry_line()}")
+        compiled.clear_cache()
+        del want, first, replayed, other
+    print(f"phase 27a ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 27b: jit_train_iteration at config 5, bitwise the eager iterations
+    t0 = time.perf_counter()
+    env5 = dataclasses.replace(as_env_config(num_trajectories=PPO_N), **norm)
+    base = dict(hidden=(256, 256), n_epochs=1, n_minibatches=PPO_MINIBATCHES, compute_dtype="bfloat16")
+    learners = {
+        # the engine iteration of phases 12, 24c and 26c: contiguous minibatches
+        "engine (shared trunk, autograd)": (PPOConfig(**base, shared_trunk=True, shuffle=False), {}),
+        "fused_update, shared trunk (K7)": (PPOConfig(**base, shared_trunk=True, fused_update=True),
+                                            {"ppo_fused_grads": PPO_MINIBATCHES}),
+        "fused_update, towers (K4)": (PPOConfig(**base, shared_trunk=False, fused_update=True),
+                                      {"ppo_fused_grads_T": PPO_MINIBATCHES}),
+        "fully fused, shared trunk (K3 + K4)": (PPOConfig(**base, shared_trunk=True, fused_update=True,
+                                                          fused_rollout=True, shuffle=False),
+                                                {"mlp_rollout": 1, "ppo_fused_grads_T": PPO_MINIBATCHES}),
+    }
+    fused_cfg = None
+    for label, (pcfg, per_iteration) in learners.items():
+        ts0 = init_train_state(env5, pcfg, 60)
+        check(all(g["capturable"] for g in ts0.opt_state.param_groups),
+              f"phase 27b {label}: the card's Adam is not capturable")
+        eager, ts = [], ts0
+        for k in (61, 62):
+            ts, m = train_iteration(env5, pcfg, ts, k)
+            eager.append((ts, m))
+        add_launches()
+        captured, ts = [], ts0
+        for i, k in enumerate((61, 62)):
+            t_first = time.perf_counter()
+            ts, m = jit_train_iteration(env5, pcfg, ts, k)
+            torch.cuda.synchronize()
+            if i == 0:
+                first_call_s = time.perf_counter() - t_first
+            if i == 1:  # a replay of the cached graph: its launches alone
+                counts = {n: c for n, c in _build.launch_counts.items() if c}
+                check(counts == per_iteration, f"phase 27b {label}: a replay launches {counts}, want {per_iteration}")
+            add_launches()
+            captured.append((ts, m))
+        for i, ((ets, em), (cts, cm)) in enumerate(zip(eager, captured)):
+            check(same_bits(torch, cts.params, ets.params) and same_bits(torch, cts.opt_state, ets.opt_state)
+                  and same_bits(torch, cm, em) and cts.update_count == ets.update_count,
+                  f"phase 27b {label}: iteration {i + 1} captured is not eager bit for bit")
+            assert_metric_bands(cm, f"phase 27b {label} iteration {i + 1}")
+        check(same_bits(torch, ts0.params, init_train_state(env5, pcfg, 60).params),
+              f"phase 27b {label}: the state given was changed")
+        print(f"phase 27b [{card}] jit_train_iteration {label} at config 5: two iterations bitwise the eager "
+              f"ones (params, Adam state, metrics), launches per replay {per_iteration}; {entry_line()}")
+        if label.startswith(("engine", "fully fused")):  # 27d's config-5 rows, on this capture
+            kind = "engine" if label.startswith("engine") else "fully fused"
+            k3_ms = None
+            if pcfg.fused_rollout:  # timed apart from the main path's launches
+                add_launches()
+                k3_ms = device_ms(torch, lambda: mr.rollout_fused_T(env5, ts0.params, 66, device=dev))
+                _build.reset_launch_counts()
+            compare_modes(f"{kind} iteration, config 5 ({PPO_N}x{env5.n_steps})", PPO_N * env5.n_steps,
+                          lambda: train_iteration(env5, pcfg, ts0, 65),
+                          lambda: jit_train_iteration(env5, pcfg, ts0, 65), first_call_s, k3_ms=k3_ms)
+        if pcfg.fused_rollout:
+            fused_cfg = (pcfg, ts)
+            prof = profile_iteration(torch, card, f"two jit_train_iteration replays, {label}, config 5",
+                                     lambda: [jit_train_iteration(env5, pcfg, ts, k) for k in (63, 64)], phase=27,
+                                     expect=("mlp_rollout_kernel", "ppo_pass1", "ppo_pass2"))
+            names = prof.get("by_name", {})
+            for kernel in ("mlp_rollout_kernel", "ppo_pass1", "ppo_pass2"):
+                check(any(kernel in name for name in names), f"phase 27b: the trace of two replays names no {kernel}")
+            _build.reset_launch_counts()
+        else:
+            compiled.clear_cache()
+        del eager, captured
+    print(f"phase 27b ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 27c: jit_train_chunk against jit_train_iteration; REINFORCE
+    t0 = time.perf_counter()
+    pcfg, ts0 = fused_cfg
+    from mbt_gym_torch.agents.ppo import iteration_keys
+
+    ts, singles = ts0, []
+    for k in iteration_keys(70, COMPILED_CHUNK):
+        ts, m = jit_train_iteration(env5, pcfg, ts, k)
+        singles.append(m)
+    chunk_ts, chunk = jit_train_chunk(env5, pcfg, ts0, 70, COMPILED_CHUNK)
+    torch.cuda.synchronize()
+    stacked = {k: torch.stack([m[k] for m in singles]) for k in singles[0]}
+    check(same_bits(torch, chunk_ts.params, ts.params) and same_bits(torch, chunk_ts.opt_state, ts.opt_state)
+          and same_bits(torch, chunk, stacked) and chunk_ts.update_count == ts.update_count,
+          "phase 27c: jit_train_chunk(4) is not four jit_train_iterations bit for bit")
+    check(chunk["pg_loss"].device.type == "cuda" and tuple(chunk["pg_loss"].shape) == (COMPILED_CHUNK,),
+          f"phase 27c: chunk metrics {chunk['pg_loss']}")
+    add_launches()
+    print(f"phase 27c [{card}] jit_train_chunk({COMPILED_CHUNK}) fully fused at config 5: bitwise "
+          f"{COMPILED_CHUNK} jit_train_iterations")
+    compiled.clear_cache()
+    rf_env = as_env_config(num_trajectories=REINFORCE_N, n_steps=REINFORCE_T)
+    rf_cfg = reinforce.ReinforceConfig(hidden=(32, 32), action_std=0.3, learning_rate=1e-2, lr_decay=0.999,
+                                       final_action_std=0.1)
+    eager = captured = reinforce.init_train_state(rf_env, rf_cfg, 0)
+    for e in range(REINFORCE_EPOCHS):
+        eager, em = reinforce.train_epoch(rf_env, rf_cfg, eager, 80 + e, REINFORCE_EPOCHS)
+        captured, cm = reinforce.jit_train_epoch(rf_env, rf_cfg, captured, 80 + e, REINFORCE_EPOCHS)
+        torch.cuda.synchronize()
+        check(same_bits(torch, captured.params, eager.params) and same_bits(torch, cm, em)
+              and captured.epoch == eager.epoch
+              and captured.opt_state.param_groups[0]["lr"] == eager.opt_state.param_groups[0]["lr"],
+              f"phase 27c: jit_train_epoch epoch {e + 1} is not train_epoch bit for bit")
+    print(f"phase 27c [{card}] jit_train_epoch: {REINFORCE_EPOCHS} REINFORCE epochs at {REINFORCE_N}x{REINFORCE_T} "
+          f"bitwise train_epoch (the std schedule and the rate device inputs); {entry_line()}")
+    compiled.clear_cache()
+    print(f"phase 27c ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 27d: eager against captured (config 5's rows come from 27b's
+    # captures)
+    t0 = time.perf_counter()
+    engine_cfg = PPOConfig(**base, shared_trunk=True, shuffle=False)
+    cfg6 = dataclasses.replace(oe_env_config(num_trajectories=SPEED_N), **norm)
+    cfg10 = dataclasses.replace(composite_env_config(num_trajectories=COMPOSITE_N), normalise_observation_space=True)
+    cfg14 = composite_env_config(num_trajectories=COMPOSITE_EVAL_N)
+    pol14 = fixed_action_policy(COMPOSITE_ACTION)
+    as_pol = cases[f"AS {N_MAIN}x{as_cfg.n_steps}"][1]
+
+    def episodes(run, cfg, policy, count):
+        return lambda: [run(cfg, policy, None, 90 + e, backend="engine") for e in range(count)]
+
+    # (label, env-steps, the call given the entry point, the profiled part:
+    # one of config 14's episodes, whose eager profile holds ~10^5 events)
+    rows = [(f"AS engine rollout {N_MAIN}x{as_cfg.n_steps}", N_MAIN * as_cfg.n_steps,
+             lambda run: episodes(run, as_cfg, as_pol, 1), None),
+            (f"config 14's {COMPOSITE_EPISODES} engine episodes ({COMPOSITE_EVAL_N}x{cfg14.n_steps})",
+             COMPOSITE_EPISODES * COMPOSITE_EVAL_N * cfg14.n_steps,
+             lambda run: episodes(run, cfg14, pol14, COMPOSITE_EPISODES), lambda run: episodes(run, cfg14, pol14, 1))]
+    for name, cfg, n in (("6", cfg6, SPEED_N), ("10", cfg10, COMPOSITE_N)):
+        ts = init_train_state(cfg, engine_cfg, 93)
+        rows.append((f"engine iteration, config {name} ({n}x{cfg.n_steps})", n * cfg.n_steps,
+                     lambda run, cfg=cfg, ts=ts: (lambda: run(cfg, engine_cfg, ts, 94)), None))
+    for label, env_steps, make, part in rows:
+        eager, jit = (train_iteration, jit_train_iteration) if "iteration" in label else (rollout, jit_rollout)
+        jit_fn = make(jit)
+        t_first = time.perf_counter()
+        jit_fn()
+        torch.cuda.synchronize()
+        compare_modes(label, env_steps, make(eager), jit_fn, time.perf_counter() - t_first,
+                      profiled=None if part is None else (part(eager), part(jit)))
+        compiled.clear_cache()
+    print(f"phase 27d ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 27e: jit_train_iteration over an NCCL mesh of world size 1 (the
+    # all-reduces captured), bitwise train_iteration over the same mesh
+    import torch.distributed as dist
+
+    from mbt_gym_torch.parallel import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    mesh_lib.init_distributed(device=dev)
+    mesh = mesh_lib.make_mesh()
+    small = dataclasses.replace(as_env_config(num_trajectories=4096, n_steps=32), **norm)
+    for label, pcfg in (("engine", PPOConfig(hidden=(64, 64), n_epochs=2, n_minibatches=4, shared_trunk=True)),
+                        ("fully fused", PPOConfig(hidden=(64, 64), n_epochs=2, n_minibatches=4, shared_trunk=True,
+                                                  fused_rollout=True, fused_update=True, shuffle=False))):
+        eager = captured = init_train_state(small, pcfg, 7)
+        for k in (8, 9):
+            eager, em = train_iteration(small, pcfg, eager, k, mesh=mesh)
+            captured, cm = jit_train_iteration(small, pcfg, captured, k, mesh=mesh)
+            torch.cuda.synchronize()
+            check(same_bits(torch, captured.params, eager.params)
+                  and same_bits(torch, captured.opt_state, eager.opt_state) and same_bits(torch, cm, em),
+                  f"phase 27e {label}: the captured mesh iteration is not eager bit for bit")
+        add_launches()
+        print(f"phase 27e [{card}] jit_train_iteration(mesh=) {label} over NCCL at world 1, 4096x32: two iterations "
+              f"bitwise train_iteration(mesh=); {entry_line()}")
+        compiled.clear_cache()
+    dist.destroy_process_group()
+    print(f"phase 27e ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 27f: a capture that holds a host read raises, with no fallback
+    def syncing(params, obs, state):
+        return obs[:, :2] * float(obs[0, 0] > -1e30)
+
+    small = as_env_config(num_trajectories=1024, n_steps=4)
+    before = dict(_build.launch_counts)
+    try:
+        jit_rollout(small, syncing, None, 1, backend="engine")
+    except RuntimeError as e:
+        print(f"phase 27f: a capture holding a host read raised: {str(e).splitlines()[0][:160]}")
+    else:
+        check(False, "phase 27f: a capture holding a host read did not raise")
+    check(compiled.cache_info() == [] and dict(_build.launch_counts) == before,
+          "phase 27f: the failed capture left an entry or launches behind")
+    torch.cuda.synchronize()
+
+    print(f"phase 27 launches on the slice's main path: { {k: c for k, c in path.items() if c} }")
+    for name in ("mlp_rollout", "ppo_fused_grads_T", "ppo_fused_grads"):
+        check(path[name] > 0, f"phase 27: {name} was not launched on the slice's main path")
+    print(f"phase 27 ok in {time.perf_counter() - t_start:.1f} s: {json.dumps(figures, default=float)}")
+    return {
+        "K3": {"slice17_launches": path["mlp_rollout"]},
+        "K4": {"slice17_launches": path["ppo_fused_grads_T"]},
+        "K7": {"slice17_launches": path["ppo_fused_grads"]},
+    }
+
+
 def as_phases(torch, np, card, dev):
     """Phases 2-6: K1 and K2 against their plain versions at the pipeline
     and the wide shape, the AS main path through the public entry points
@@ -3799,6 +4195,7 @@ def main():
     proc_figures = proc_phases(torch, np, card, dev, k3_pnl_ms)
     surface_figures = surface_phases(torch, np, card, dev)
     speed_figures_ = speed_phases(torch, np, card, dev, k3_pnl_ms)
+    compiled_figures = compiled_phases(torch, np, card, dev)
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))
         entry.update(cj_figures.get(entry["name"][:2], {}))
@@ -3806,6 +4203,8 @@ def main():
         entry.update(proc_figures.get(entry["name"][:2], {}))
         entry.update(surface_figures.get(entry["name"][:2], {}))
         entry.update(speed_figures_.get(entry["name"][:2], {}))
+        entry.update(compiled_figures.get(entry["name"][:2], {}))
+    k7.update(compiled_figures["K7"])
     kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
     for entry in rank_by_gap(kernels):
         print(f"rank [{card}] {entry['name']}: {entry['launches']} launches x ({entry['ms']} - {entry['bound_ms']}) ms "

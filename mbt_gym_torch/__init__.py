@@ -37,7 +37,11 @@ harness, :mod:`utils.tblog` TensorBoard logging; :mod:`parallel.mesh`
 trains data-parallel over a ``torch.distributed`` process group (NCCL on
 cards, Gloo on the CPU) through ``train_iteration(..., mesh=)``; and
 :mod:`entry` holds the flagship forward step, the PPO metric bands and
-``dryrun_multichip``.  gymnasium, tensorboard and matplotlib are optional:
+``dryrun_multichip``.  The compiled entry points :func:`jit_rollout`,
+``agents.ppo.jit_train_iteration`` / ``jit_train_chunk`` and
+``agents.reinforce.jit_train_epoch`` replay CUDA graphs of the engine and
+of the learners' iterations on the card (:mod:`compiled`); on the CPU they
+run the eager functions.  gymnasium, tensorboard and matplotlib are optional:
 the surface that needs one raises ``ImportError`` without it.
 """
 
@@ -57,7 +61,7 @@ from mbt_gym_torch.types import (
 )
 from mbt_gym_torch.dispatch import DispatchDecision, dispatch_report
 from mbt_gym_torch.env import EnvConfig, default_dynamics, reset, step, observe
-from mbt_gym_torch.rollout import RolloutResult, episode_stats, mc_episode_stats, rollout
+from mbt_gym_torch.rollout import RolloutResult, episode_stats, jit_rollout, mc_episode_stats, rollout
 from mbt_gym_torch.agents.ppo import PPOConfig, init_train_state, train_chunk, train_iteration
 from mbt_gym_torch.agents.baseline import (
     AvellanedaStoikovAgent,
@@ -111,6 +115,7 @@ __all__ = [
     "episode_stats",
     "fixed_action_policy",
     "init_train_state",
+    "jit_rollout",
     "lam_env_config",
     "learning_env_config",
     "mc_episode_stats",

@@ -30,6 +30,8 @@ from mbt_gym_torch.types import (
     CASH_INDEX,
     INVENTORY_INDEX,
     TIME_INDEX,
+    as_values,
+    device_constant,
 )
 
 
@@ -40,8 +42,10 @@ def fixed_action_policy(fixed_action):
     (:func:`mbt_gym_torch.ops.det_rollout.fixed_rollout`)."""
     fixed = np.asarray(fixed_action, dtype=np.float64).reshape(-1)
 
+    values = as_values(fixed)
+
     def policy(params, obs, state):
-        action = torch.as_tensor(fixed, dtype=obs.dtype, device=obs.device)
+        action = device_constant(values, obs.dtype, obs.device)
         return action.expand(obs.shape[0], fixed.shape[-1])
 
     return tag_policy(policy, kind="fixed", action=tuple(float(x) for x in fixed))
@@ -52,11 +56,11 @@ def raw_obs_policy(cfg: EnvConfig, policy):
     if not cfg.normalise_observation_space:
         return policy
     low, high = cfg.observation_bounds()
-    gradient = (high - low) / 2
+    gradient, low = as_values((high - low) / 2), as_values(low)
 
     def wrapped(params, obs, state):
-        g = torch.as_tensor(gradient, dtype=obs.dtype, device=obs.device)
-        lo = torch.as_tensor(low, dtype=obs.dtype, device=obs.device)
+        g = device_constant(gradient, obs.dtype, obs.device)
+        lo = device_constant(low, obs.dtype, obs.device)
         return policy(params, (obs + 1.0) * g + lo, state)
 
     return wrapped
@@ -82,8 +86,8 @@ def random_policy(cfg: EnvConfig, key=0):
         if device.type not in gens:
             gens[device.type] = make_generator(key, device)
         u = torch.rand((1, len(low)), generator=gens[device.type], dtype=obs.dtype, device=device)
-        lo = torch.as_tensor(low, dtype=obs.dtype, device=device)
-        hi = torch.as_tensor(high, dtype=obs.dtype, device=device)
+        lo = device_constant(as_values(low), obs.dtype, device)
+        hi = device_constant(as_values(high), obs.dtype, device)
         return (lo + u * (hi - lo)).expand(obs.shape[0], len(low))
 
     return policy
@@ -316,7 +320,7 @@ class CarteaJaimungalMmAgent:
                 # Rollout: every trajectory shares the clock
                 # (TradingEnvironment.py:218-220), so one time row.
                 t_idx = torch.clamp(torch.round(state.time[0] / dt).to(torch.int64), 0, last)
-                return tab[t_idx][idx].to(obs.dtype)
+                return tab[t_idx.reshape(1), idx].to(obs.dtype)
             # Standalone use (state=None): each row at its own time.
             t_idx = torch.clamp(torch.round(obs[:, TIME_INDEX] / dt).to(torch.int64), 0, last)
             return tab[t_idx, idx].to(obs.dtype)
@@ -326,7 +330,8 @@ class CarteaJaimungalMmAgent:
     def true_value_function(self, obs: torch.Tensor) -> torch.Tensor:
         """Analytic value ``h(t, q) + cash + q * S`` — the CJP replication
         oracle (BaselineAgents.py:161-170)."""
-        h_tab = torch.as_tensor(self.h_table(), dtype=obs.dtype, device=obs.device)
+        h_tab = _device_table(agent_device_tables(self, f"h {obs.dtype}"),
+                              lambda: torch.as_tensor(self.h_table(), dtype=obs.dtype, device=obs.device), obs.device)
         dt = self.terminal_time / self.n_steps
         t_idx = torch.clamp(torch.round(obs[:, TIME_INDEX] / dt).to(torch.int64), 0, h_tab.shape[0] - 1)
         idx = torch.clamp(

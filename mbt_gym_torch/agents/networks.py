@@ -187,6 +187,19 @@ def value(params: ActorCritic, obs: torch.Tensor, compute_dtype: DType = None) -
     return mlp_apply(params.vf, obs, cdt)[..., 0]
 
 
+def sample_action(params: ActorCritic, obs: torch.Tensor, key) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A Gaussian policy sample and its log-prob (diagonal,
+    state-independent std; networks.py:141-148): ``mean + exp(log_std) *
+    eps``, ``eps`` standard normals drawn from ``key`` (an int seed or a
+    ``torch.Generator`` on ``obs``'s device)."""
+    mean = policy_mean(params, obs)
+    std = torch.exp(params.log_std)
+    gen = make_generator(key, obs.device)
+    eps = torch.randn(mean.shape, generator=gen, dtype=mean.dtype, device=obs.device)
+    action = mean + std * eps
+    return action, gaussian_log_prob(params, mean, action)
+
+
 def gaussian_log_prob(params: ActorCritic, mean: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
     """Diagonal-Gaussian log-density, networks.py:151-154's formula."""
     log_std = params.log_std

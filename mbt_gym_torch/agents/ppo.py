@@ -38,15 +38,19 @@ ppo.py:317-319), normalises each minibatch's advantages with the global
 mean and std, and averages each minibatch's grads and metrics over the
 ranks with one all-reduce of one flat buffer before the optimizer step,
 so params stay replicated.  The fused path takes the global ``noise``
-``(T, C, N)`` and ``inv0`` ``(N,)`` and uses this rank's columns; the
-engine path shuffles each rank's own samples with a permutation drawn
-from a generator seeded alike on every rank.  ``mesh=None`` is the
-single-device path, unchanged.
+``(T, C, N)`` and uses this rank's columns; the engine path shuffles each
+rank's own samples with a permutation drawn from a generator seeded
+alike on every rank.  ``mesh=None`` is the single-device path, unchanged.
+
+:func:`jit_train_iteration` and :func:`jit_train_chunk` are the compiled
+entry points: on the card, replays of a CUDA graph of the iteration
+(:mod:`mbt_gym_torch.compiled`), bit for bit the eager ones.
 
 The optimizer is ``torch.optim.Adam`` after a global-norm clip written to
-optax's formula.  :class:`PPOTrainState` holds the model and its
-optimizer; :func:`train_iteration` returns a new state and leaves the one
-it was given untouched, as the JAX function does (it updates a deep copy;
+optax's formula, ``capturable`` on the card (:func:`make_optimizer`).
+:class:`PPOTrainState` holds the model and its optimizer;
+:func:`train_iteration` returns a new state and leaves the one it was
+given untouched, as the JAX function does (it updates a deep copy;
 at 256x256 the copy is ~1 MB).  Randomness comes from an int seed or a
 ``torch.Generator``.  Everything runs on the device of the model's
 parameters.
@@ -63,6 +67,7 @@ import torch
 from mbt_gym_torch import env as env_lib
 from mbt_gym_torch.agents import networks
 from mbt_gym_torch.env import EnvConfig
+from mbt_gym_torch.types import as_values, device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,8 +132,15 @@ class UpdateBatch(NamedTuple):
 # ------------------------------------------------------------ optimizer
 def make_optimizer(cfg: PPOConfig, params: networks.ActorCritic) -> torch.optim.Adam:
     """Adam at ``cfg.learning_rate`` with optax's defaults (b1=0.9,
-    b2=0.999, eps=1e-8); :func:`apply_gradients` clips before each step."""
-    return torch.optim.Adam(params.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    b2=0.999, eps=1e-8); :func:`apply_gradients` clips before each step.
+    On the card it is built with ``capturable=True``: the step count stays
+    on the device and the bias correction runs there in float32, as optax
+    computes it, so an eager iteration and its CUDA-graph capture
+    (:func:`jit_train_iteration`) step bit for bit alike.  On the CPU it is
+    PyTorch's default Adam (the step count a host scalar)."""
+    capturable = next(params.parameters()).device.type == "cuda"
+    return torch.optim.Adam(params.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=capturable)
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
@@ -169,9 +181,7 @@ def _clip_to_action_box(env_cfg: EnvConfig, action: torch.Tensor) -> torch.Tenso
     log-probs stay those of the unclipped sample."""
     if env_cfg.normalise_action_space:
         return torch.clamp(action, -1.0, 1.0)
-    low, high = env_cfg.action_bounds()
-    low = torch.as_tensor(low, dtype=action.dtype, device=action.device)
-    high = torch.as_tensor(high, dtype=action.dtype, device=action.device)
+    low, high = (device_constant(as_values(b), action.dtype, action.device) for b in env_cfg.action_bounds())
     return torch.minimum(torch.maximum(action, low), high)
 
 
@@ -413,11 +423,8 @@ def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networ
                           noise: Optional[torch.Tensor] = None,
                           inv0: Optional[torch.Tensor] = None, mesh=None) -> Dict[str, torch.Tensor]:
     """The fully fused pipeline (ppo.py:282-382, single device): K3's
-    feature-major ``(T, C, N)`` buffers feed K4 directly.  Minibatches are
-    contiguous env slices (all T steps each), passed to K4 as views;
-    advantages are normalised per minibatch; the entropy term, which
-    depends on ``log_std`` alone, enters the ``log_std`` grad here; Adam
-    steps through ``p.grad``.  Updates ``params``/``optimizer`` in place
+    feature-major ``(T, C, N)`` buffers feed K4 directly
+    (:func:`_fused_update_body`).  Updates ``params``/``optimizer`` in place
     and returns the mean metrics.  ``noise`` injects the rollout's
     ``(T, p.n_channels, N)`` channels and ``inv0`` the per-env
     initial inventories of a random-inventory config (the parity tests).
@@ -427,21 +434,44 @@ def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networ
     advantages are normalised with the global statistics; each K4 call's
     grads and metrics, and the episode reward, are averaged over the
     ranks, so every rank applies the same update."""
-    from mbt_gym_torch.ops import fused_ppo, mlp_rollout
+    _check_fully_fused(env_cfg, ppo_cfg)
+    if mesh is not None:
+        from mbt_gym_torch.parallel.mesh import fold_in
 
+        key = fold_in(key, mesh.rank)
+    outputs = _k3_rollout(env_cfg, params, key, noise=noise, inv0=inv0)
+    return _fused_update_body(env_cfg, ppo_cfg, params, optimizer, outputs, mesh=mesh)
+
+
+def _check_fully_fused(env_cfg: EnvConfig, ppo_cfg: PPOConfig) -> None:
     assert not ppo_cfg.shuffle, "fused path uses contiguous env-slice minibatches"
     assert not isinstance(env_cfg.start_time, tuple), (
         "PPO training does not support random start times (post-done steps "
         "would enter GAE); use a fixed start_time."
     )
-    device = _device_of(params)
-    if mesh is not None:
-        from mbt_gym_torch.parallel.mesh import fold_in
 
-        key = fold_in(key, mesh.rank)
-    tb = mlp_rollout.collect_rollout_fused_T(
-        env_cfg, params, key, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda, noise=noise, device=device, inv0=inv0,
-    )
+
+def _k3_rollout(env_cfg: EnvConfig, params: networks.ActorCritic, key, noise=None, inv0=None, out=None):
+    """K3's five feature-major outputs for one iteration's rollout
+    (:func:`mbt_gym_torch.ops.mlp_rollout.rollout_fused_T`), written into
+    ``out`` where given."""
+    from mbt_gym_torch.ops import mlp_rollout
+
+    return mlp_rollout.rollout_fused_T(env_cfg, params, key, noise=noise, device=_device_of(params), inv0=inv0,
+                                       out=out)
+
+
+def _fused_update_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networks.ActorCritic,
+                       optimizer: torch.optim.Optimizer, outputs, mesh=None) -> Dict[str, torch.Tensor]:
+    """GAE over K3's ``outputs`` and the K4 updates of the fully fused
+    path.  Minibatches are contiguous env slices (all T steps each),
+    passed to K4 as views; advantages are normalised per minibatch; the
+    entropy term, which depends on ``log_std`` alone, enters the
+    ``log_std`` grad here; Adam steps through ``p.grad``.  Updates
+    ``params``/``optimizer`` in place and returns the mean metrics."""
+    from mbt_gym_torch.ops import fused_ppo, mlp_rollout
+
+    tb = mlp_rollout.gae_T(outputs, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda)
     n = env_cfg.num_trajectories
     nb = n // ppo_cfg.n_minibatches
     assert nb * ppo_cfg.n_minibatches == n, (n, ppo_cfg.n_minibatches)
@@ -484,34 +514,6 @@ def _episode_reward(rewards: torch.Tensor, mesh) -> torch.Tensor:
     return all_reduce_mean(mesh, reward.reshape(1)).reshape(())
 
 
-def _fused_train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key,
-                           noise: Optional[torch.Tensor] = None):
-    ts = _copy_state(train_state)
-    metrics = _fused_iteration_body(env_cfg, ppo_cfg, ts.params, ts.opt_state, key, noise=noise)
-    return ts._replace(update_count=ts.update_count + 1), metrics
-
-
-def _fused_train_iteration_mesh(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key, mesh,
-                                noise: Optional[torch.Tensor] = None, inv0: Optional[torch.Tensor] = None):
-    """The data-parallel fully fused path (ppo.py:398-458): every rank runs
-    K3 and K4 on its ``N / world`` envs and the minibatch all-reduces of
-    :func:`_fused_iteration_body` keep params replicated.  ``noise`` is the
-    global ``(T, C, N)`` channel cube and ``inv0`` the global ``(N,)``
-    initial inventories; each rank takes its own env columns."""
-    from mbt_gym_torch.parallel.mesh import local_slice
-
-    if mesh.model != 1:
-        raise ValueError("the fused kernels hold the whole MLP on each rank (replicated-params data parallelism)")
-    rows = local_slice(mesh, env_cfg.num_trajectories)
-    local_cfg = _local_config(env_cfg, mesh)
-    noise = None if noise is None else noise[..., rows].contiguous()
-    inv0 = None if inv0 is None else inv0[rows]
-    ts = _copy_state(train_state)
-    metrics = _fused_iteration_body(local_cfg, ppo_cfg, ts.params, ts.opt_state, key, noise=noise, inv0=inv0,
-                                    mesh=mesh)
-    return ts._replace(update_count=ts.update_count + 1), metrics
-
-
 # ------------------------------------------------------------ entry points
 def fused_update_refusal(env_cfg: EnvConfig) -> Optional[str]:
     """Why the update kernels K4 and K7 cannot take ``env_cfg``'s
@@ -525,54 +527,124 @@ def fused_update_refusal(env_cfg: EnvConfig) -> Optional[str]:
     return None
 
 
-def train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key,
-                    noise: Optional[torch.Tensor] = None, mesh=None
-                    ) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
-    """rollout -> GAE -> n_epochs x n_minibatches updates; returns the new
-    state and the mean metrics (``pg_loss``, ``vf_loss``, ``entropy``,
-    ``approx_kl``, ``mean_episode_reward``).  ``key`` is an int seed or a
-    ``torch.Generator`` on the parameters' device.  ``noise`` (fused
-    rollout only) injects K3's ``(T, p.n_channels, N)`` channels.  A
-    config that :func:`fused_update_refusal` refuses takes the autograd
-    update, and the refusal's reason is issued as a ``RuntimeWarning``.
-    ``mesh`` runs the iteration data-parallel (see the module docstring);
-    the rollout with K3 alone, without the K4 update, is single-device."""
+def _learner_config(env_cfg: EnvConfig, ppo_cfg: PPOConfig, stacklevel: int = 3) -> PPOConfig:
+    """``ppo_cfg``, with the autograd update where :func:`fused_update_refusal`
+    refuses the kernels, its reason issued as a ``RuntimeWarning``."""
     refusal = fused_update_refusal(env_cfg) if ppo_cfg.fused_update else None
-    if refusal is not None:
-        warnings.warn(refusal, RuntimeWarning, stacklevel=2)
-        ppo_cfg = dataclasses.replace(ppo_cfg, fused_update=False)
-    if ppo_cfg.fused_rollout and ppo_cfg.fused_update:
-        if mesh is not None:
-            return _fused_train_iteration_mesh(env_cfg, ppo_cfg, train_state, key, mesh, noise=noise)
-        return _fused_train_iteration(env_cfg, ppo_cfg, train_state, key, noise=noise)
-    device = _device_of(train_state.params)
+    if refusal is None:
+        return ppo_cfg
+    warnings.warn(refusal, RuntimeWarning, stacklevel=stacklevel)
+    return dataclasses.replace(ppo_cfg, fused_update=False)
+
+
+def _fully_fused(ppo_cfg: PPOConfig) -> bool:
+    return ppo_cfg.fused_rollout and ppo_cfg.fused_update
+
+
+def _learner_keys(ppo_cfg: PPOConfig, key, mesh, generator):
+    """``(K3's key, the rollout's generator, the shuffle's generator)`` of
+    one iteration, from ``key``: the fully fused path seeds K3 from the key
+    itself (``fold_in(key, rank)`` on a mesh) and draws nothing else; K3
+    with the engine update seeds K3 from the generator the shuffle then
+    draws from; the engine draws its rollout and its shuffle from one
+    generator, or on a mesh from ``fold_in(key, rank)`` and from
+    ``shared_key(key)``.  ``generator(seed, role)`` gives the generator
+    seeded with ``seed`` for role 0 (rollout) or 1 (shuffle)."""
+    from mbt_gym_torch.parallel.mesh import fold_in, key_seed, shared_key
+
+    if _fully_fused(ppo_cfg):
+        return (key if mesh is None else fold_in(key, mesh.rank)), None, None
     if mesh is None:
-        gen = shuffle_gen = env_lib.make_generator(key, device)
-    else:
-        from mbt_gym_torch.parallel.mesh import fold_in, key_seed, shared_key
-
-        if ppo_cfg.fused_rollout:
-            raise ValueError("fused_rollout without fused_update is single-device (mesh must be None)")
-        base = key_seed(key)
-        gen = env_lib.make_generator(fold_in(base, mesh.rank), device)
-        shuffle_gen = env_lib.make_generator(shared_key(base), device)
-        env_cfg = _local_config(env_cfg, mesh)
-    ts = _copy_state(train_state)
+        gen = generator(key, 0)
+        return (gen if ppo_cfg.fused_rollout else None), gen, gen
     if ppo_cfg.fused_rollout:
-        from mbt_gym_torch.ops.mlp_rollout import collect_rollout_fused
+        raise ValueError("fused_rollout without fused_update is single-device (mesh must be None)")
+    base = key_seed(key)
+    return None, generator(fold_in(base, mesh.rank), 0), generator(shared_key(base), 1)
 
-        batch = collect_rollout_fused(
-            env_cfg, ts.params, gen, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda, noise=noise, device=device,
-        )
+
+def _iteration_config(env_cfg: EnvConfig, ppo_cfg: PPOConfig, mesh) -> EnvConfig:
+    """The config this process steps: its rank's envs on a mesh."""
+    if _fully_fused(ppo_cfg):
+        _check_fully_fused(env_cfg, ppo_cfg)
+    if mesh is None:
+        return env_cfg
+    if _fully_fused(ppo_cfg) and mesh.model != 1:
+        raise ValueError("the fused kernels hold the whole MLP on each rank (replicated-params data parallelism)")
+    return _local_config(env_cfg, mesh)
+
+
+def _iteration_update(env_cfg: EnvConfig, ppo_cfg: PPOConfig, ts: PPOTrainState, gen, shuffle_gen, outputs,
+                      mesh=None) -> Dict[str, torch.Tensor]:
+    """Everything of one iteration after K3, in place on ``ts``: the fully
+    fused update on K3's ``outputs``; GAE on them and the engine update
+    (K3 with the engine update); or the engine rollout from ``gen`` and
+    the engine update (``env_cfg`` is this rank's on a mesh).  Returns the
+    metrics."""
+    if _fully_fused(ppo_cfg):
+        return _fused_update_body(env_cfg, ppo_cfg, ts.params, ts.opt_state, outputs, mesh=mesh)
+    if ppo_cfg.fused_rollout:
+        from mbt_gym_torch.ops import mlp_rollout
+
+        batch = mlp_rollout.row_major(mlp_rollout.gae_T(outputs, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda))
     else:
-        assert noise is None, "noise= injects the fused rollout's channels"
         batch = collect_rollout(
             env_cfg, ts.params, gen, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda,
             compute_dtype=ppo_cfg.compute_dtype,
         )
     metrics = _engine_update(ppo_cfg, ts, batch, shuffle_gen, mesh=mesh)
     metrics["mean_episode_reward"] = _episode_reward(batch.rewards, mesh)
+    return metrics
+
+
+def _noise_columns(env_cfg: EnvConfig, noise, mesh):
+    """This rank's env columns of the global ``(T, C, N)`` noise."""
+    if noise is None or mesh is None:
+        return noise
+    from mbt_gym_torch.parallel.mesh import local_slice
+
+    return noise[..., local_slice(mesh, env_cfg.num_trajectories)].contiguous()
+
+
+def train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key,
+                    noise: Optional[torch.Tensor] = None, mesh=None
+                    ) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
+    """rollout -> GAE -> n_epochs x n_minibatches updates; returns the new
+    state and the mean metrics (``pg_loss``, ``vf_loss``, ``entropy``,
+    ``approx_kl``, ``mean_episode_reward``).  ``key`` is an int seed or a
+    ``torch.Generator`` on the parameters' device.  ``noise`` (K3 rollout
+    only) injects K3's ``(T, p.n_channels, N)`` channels.  A config that
+    :func:`fused_update_refusal` refuses takes the autograd update, and the
+    refusal's reason is issued as a ``RuntimeWarning``.  ``mesh`` runs the
+    iteration data-parallel (see the module docstring); the rollout with
+    K3 alone, without the K4 update, is single-device."""
+    ppo_cfg = _learner_config(env_cfg, ppo_cfg)
+    device = _device_of(train_state.params)
+    k3_key, gen, shuffle_gen = _learner_keys(ppo_cfg, key, mesh,
+                                             lambda seed, role: env_lib.make_generator(seed, device))
+    local_cfg = _iteration_config(env_cfg, ppo_cfg, mesh)
+    if not ppo_cfg.fused_rollout:
+        assert noise is None, "noise= injects the fused rollout's channels"
+    ts = _copy_state(train_state)
+    outputs = None
+    if ppo_cfg.fused_rollout:
+        outputs = _k3_rollout(local_cfg, ts.params, k3_key, noise=_noise_columns(env_cfg, noise, mesh))
+    metrics = _iteration_update(local_cfg, ppo_cfg, ts, gen, shuffle_gen, outputs, mesh=mesh)
     return ts._replace(update_count=ts.update_count + 1), metrics
+
+
+def jit_train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key, mesh=None
+                        ) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
+    """:func:`train_iteration` compiled (ppo.py:553-555): on the card, one
+    replay of a CUDA graph of the iteration, captured at the first call
+    for these configs, this model's layout and this mesh
+    (:mod:`mbt_gym_torch.compiled`); K3, where the learner rolls out on it,
+    launches before the replay into the graph's buffers.  Bit for bit
+    :func:`train_iteration` for the same int ``key``; the state given is
+    left untouched.  On the CPU it is :func:`train_iteration`."""
+    from mbt_gym_torch import compiled
+
+    return compiled.train_iteration(env_cfg, ppo_cfg, train_state, key, mesh=mesh)
 
 
 def iteration_keys(key, n_iterations: int) -> List[int]:
@@ -593,6 +665,19 @@ def train_chunk(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainSta
         train_state, metrics = train_iteration(env_cfg, ppo_cfg, train_state, k, mesh=mesh)
         history.append(metrics)
     return train_state, {k: torch.stack([m[k] for m in history]) for k in history[0]}
+
+
+def jit_train_chunk(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key,
+                    n_iterations: int, mesh=None) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
+    """:func:`train_chunk` compiled (ppo.py:590-592): on the card,
+    ``n_iterations`` replays of :func:`jit_train_iteration`'s graph on the
+    seeds of :func:`iteration_keys`, the state staying in the graph's
+    buffers between them and each iteration's metrics copied into
+    ``(n_iterations,)`` device buffers, with no host read in between.  On
+    the CPU it is :func:`train_chunk`."""
+    from mbt_gym_torch import compiled
+
+    return compiled.train_chunk(env_cfg, ppo_cfg, train_state, key, n_iterations, mesh=mesh)
 
 
 def deterministic_policy(env_cfg: EnvConfig):

@@ -24,14 +24,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from mbt_gym_torch.processes.base import ProcessBase
-from mbt_gym_torch.types import ASK_INDEX, BID_INDEX, SlotNoise
+from mbt_gym_torch.types import ASK_INDEX, BID_INDEX, SlotNoise, device_constant
 
 # Slot order parity with TradingEnvironment._get_stochastic_processes (:303-309).
 SLOT_ORDER = ("midprice_model", "arrival_model", "fill_probability_model", "price_impact_model")
 
 
 def _fill_mult(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor([-1.0, 1.0], dtype=like.dtype, device=like.device)
+    return device_constant((-1.0, 1.0), like.dtype, like.device)
 
 
 def _limit_depths(action: torch.Tensor) -> torch.Tensor:

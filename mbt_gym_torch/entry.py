@@ -112,8 +112,8 @@ def dryrun_multichip(n_devices: int, n_envs: int = None, t_horizon: int = 64, de
     ``collect_rollout(mesh=)`` alone, then ``train_iteration(mesh=)``
     twice — the counterpart of the JAX GSPMD leg, whose tensor-parallel
     ``model`` axis is not ported; (2) the fully fused path (K3 + K4, float32
-    products) through ``_fused_train_iteration_mesh`` with injected noise
-    (numpy seed 11), as JAX's fused-DP leg runs it."""
+    products) through ``train_iteration(mesh=, noise=)`` with injected
+    noise (numpy seed 11), as JAX's fused-DP leg runs it."""
     import torch.distributed as dist
 
     from mbt_gym_torch.agents import ppo
@@ -195,7 +195,7 @@ def dryrun_multichip(n_devices: int, n_envs: int = None, t_horizon: int = 64, de
     channels[:, 4:] = rng.normal(size=(t_horizon, n_ch - 4, n_envs)).astype(np.float32)
     noise = torch.from_numpy(channels).to(dev)
     t0 = time.perf_counter()
-    new_fts, fmetrics = ppo._fused_train_iteration_mesh(env_cfg, fused_cfg, fts, 1, mesh, noise=noise)
+    new_fts, fmetrics = ppo.train_iteration(env_cfg, fused_cfg, fts, 1, noise=noise, mesh=mesh)
     _sync(dev)
     t_fused = time.perf_counter() - t0
     fm = assert_metric_bands(fmetrics, "fused-dp")
@@ -208,7 +208,7 @@ def dryrun_multichip(n_devices: int, n_envs: int = None, t_horizon: int = 64, de
             envs_d = 256 * d
             cfg_d = dataclasses.replace(env_cfg, num_trajectories=envs_d)
             ts_d = ppo.init_train_state(cfg_d, fused_cfg, 3, device=dev)
-            out = ppo._fused_train_iteration_mesh(cfg_d, fused_cfg, ts_d, 1, mesh_d, noise=noise[..., :envs_d])[1]
+            out = ppo.train_iteration(cfg_d, fused_cfg, ts_d, 1, noise=noise[..., :envs_d], mesh=mesh_d)[1]
             _sync(dev)
             return envs_d, out
 

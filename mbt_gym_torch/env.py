@@ -36,7 +36,7 @@ from mbt_gym_torch.processes.arrivals import PoissonArrivals
 from mbt_gym_torch.processes.fills import ExponentialFill
 from mbt_gym_torch.processes.midprice import BrownianMotionMidprice
 from mbt_gym_torch.rewards import AgentStateView, PnL, RewardAux
-from mbt_gym_torch.types import EnvState, SlotNoise, StepNoise, StepResult
+from mbt_gym_torch.types import EnvState, SlotNoise, StepNoise, StepResult, as_values, device_constant
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -278,7 +278,7 @@ def reset(
 
     # Start time: scalar, shared by all trajectories, quantised to the grid.
     if start_time is not None:
-        start = torch.as_tensor(start_time, dtype=dtype, device=device)
+        start = torch.full((), float(start_time), dtype=dtype, device=device)
     elif callable(cfg.start_time):
         raise TypeError(
             "Callable start_time must be evaluated on the host per reset: "
@@ -290,8 +290,8 @@ def reset(
         raw = torch.rand((), generator=gen, dtype=dtype, device=device) * (hi - lo) + lo
         start = torch.round(raw / cfg.step_size) * cfg.step_size
     else:
-        start = torch.as_tensor(
-            round(float(cfg.start_time) / cfg.step_size) * cfg.step_size, dtype=dtype, device=device
+        start = torch.full(
+            (), round(float(cfg.start_time) / cfg.step_size) * cfg.step_size, dtype=dtype, device=device
         )
 
     if initial_inventory is not None:
@@ -332,7 +332,7 @@ def raw_observation(cfg: EnvConfig, state: EnvState) -> torch.Tensor:
 
 
 def _bounds_tensors(bounds, like: torch.Tensor):
-    return tuple(torch.as_tensor(b, dtype=like.dtype, device=like.device) for b in bounds)
+    return tuple(device_constant(as_values(b), like.dtype, like.device) for b in bounds)
 
 
 def observe(cfg: EnvConfig, state: EnvState) -> torch.Tensor:
@@ -465,7 +465,7 @@ def step(
     nxt = AgentStateView(cash=clipped_cash, inventory=clipped_inventory, time=new_time, price=new_midprice)
     aux = RewardAux(
         initial_inventory=state.initial_inventory,
-        episode_length=torch.as_tensor(cfg.terminal_time, dtype=dtype, device=device) - state.start_time,
+        episode_length=device_constant(float(cfg.terminal_time), dtype, device) - state.start_time,
     )
     reward = cfg.reward_function.calculate(current, action, nxt, done_scalar, aux)
     if cfg.reward_scaling is not None:

@@ -13,8 +13,9 @@ plain PyTorch versions compute them; ``--use_fast_math`` is deliberately
 absent, so ``expf``/``logf``/``cosf``/``sqrtf`` are the accurate CUDA ones.
 
 The launch counters are plain integers: a wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.
+launches its kernel and nowhere else, and a replay of a captured graph
+adds the launches its capture recorded, so a run can show that its main
+path went through the kernels.
 """
 from __future__ import annotations
 
@@ -57,8 +58,11 @@ SOURCES = ("as_episode.cu", "mlp_rollout.cu", "fused_ppo.cu", "det_rollout.cu", 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
-def count_launch(kernel: str) -> None:
-    launch_counts[kernel] += 1
+def count_launch(kernel: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``kernel``: one where a wrapper launches it,
+    or the launches a CUDA graph's capture recorded, at each replay
+    (:mod:`mbt_gym_torch.compiled`)."""
+    launch_counts[kernel] += n
 
 
 def reset_launch_counts() -> None:

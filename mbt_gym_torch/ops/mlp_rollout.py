@@ -791,7 +791,7 @@ def check_kernel_shapes(p: MlpRolloutParams, widths, n: int) -> None:
 
 def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: int = 16384,
                 noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None,
-                t0: Optional[torch.Tensor] = None, final_obs: bool = False):
+                t0: Optional[torch.Tensor] = None, final_obs: bool = False, out=None):
     """K3: one full episode for ``num_trajectories`` envs with the MLP
     policy fused in.  Returns ``(obs (T, S, N), actions (T, A, N),
     log_probs (T, N), values (T, N), rewards (T, N))``, float32, and with
@@ -803,12 +803,19 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
     ``p.inventory_range`` and refused otherwise; ``t0`` the ``(N,)``
     per-env start times, required under ``p.random_start`` (on the step
     grid; :func:`collect_rollout_fused_T` draws one shared value per
-    episode) and refused otherwise, as is ``final_obs`` with it.  On a CPU
-    target this is :func:`mlp_rollout_plain`; on CUDA it launches the
-    kernel."""
+    episode) and refused otherwise, as is ``final_obs`` with it.  ``out``
+    (optional) holds the output tensors to write (contiguous, of the
+    shapes and dtype returned), which are returned.  On a CPU target this
+    is :func:`mlp_rollout_plain`; on CUDA it launches the kernel."""
     device = _target(noise, device)
     if device.type == "cpu":
-        return mlp_rollout_plain(p, params, seed, num_trajectories, noise, device, inv0, t0, final_obs)
+        result = mlp_rollout_plain(p, params, seed, num_trajectories, noise, device, inv0, t0, final_obs)
+        if out is None:
+            return result
+        _check_out(out, tuple(tuple(x.shape) for x in result), device)
+        for o, x in zip(out, result):
+            o.copy_(x)
+        return tuple(out)
     if device.type != "cuda":
         raise ValueError(f"the rollout kernel runs on CUDA devices, not {device}")
     n = num_trajectories
@@ -846,10 +853,13 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
         pointers.append((ctypes.c_void_p * 4)())
     log_std = tp.log_std.to(device).contiguous()
     f32 = torch.float32
-    obs = torch.empty((T, S, n), dtype=f32, device=device)
-    act = torch.empty((T, A, n), dtype=f32, device=device)
-    logp, val, rew = (torch.empty((T, n), dtype=f32, device=device) for _ in range(3))
-    fin = torch.empty((S, n), dtype=f32, device=device) if final_obs else None
+    shapes = ((T, S, n), (T, A, n), (T, n), (T, n), (T, n)) + (((S, n),) if final_obs else ())
+    if out is None:
+        out = tuple(torch.empty(shape, dtype=f32, device=device) for shape in shapes)
+    else:
+        _check_out(out, shapes, device)
+    obs, act, logp, val, rew = out[:5]
+    fin = out[5] if final_obs else None
     index, stream = _build.device_stream(device)
     rc = _kernels().mbt_mlp_rollout(
         ctypes.byref(kp), index, n, int(seed) & _MASK32,
@@ -861,7 +871,16 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
     if rc != 0:
         raise RuntimeError(f"mlp_rollout kernel launch failed: CUDA error {rc}")
     _build.count_launch("mlp_rollout")
-    return (obs, act, logp, val, rew) + ((fin,) if final_obs else ())
+    return tuple(out)
+
+
+def _check_out(out, shapes, device) -> None:
+    """``out=`` of :func:`mlp_rollout`: one contiguous float32 tensor on
+    ``device`` per output, of its shape."""
+    got = tuple((tuple(x.shape), x.dtype, x.device.type, x.is_contiguous()) for x in out)
+    want = tuple((shape, torch.float32, device.type, True) for shape in shapes)
+    if got != want:
+        raise ValueError(f"out must be contiguous float32 tensors on {device} of shapes {shapes}; got {got}")
 
 
 # ------------------------------------------------------------ PPO batches
@@ -878,24 +897,22 @@ class TRolloutBatch(NamedTuple):
     returns: torch.Tensor  # (T, N)
 
 
-def collect_rollout_fused_T(env_cfg: EnvConfig, params, key, gamma: float = 1.0, lam: float = 0.95,
-                            noise: Optional[torch.Tensor] = None, device=None,
-                            inv0: Optional[torch.Tensor] = None, t0: Optional[torch.Tensor] = None) -> TRolloutBatch:
-    """K3 rollout in its feature-major layout + GAE — the input of
-    :func:`mbt_gym_torch.ops.fused_ppo.ppo_fused_grads_T`
-    (pallas_rollout.py:2198-2256).  ``key`` (an int seed or a
+def rollout_fused_T(env_cfg: EnvConfig, params, key, noise: Optional[torch.Tensor] = None, device=None,
+                    inv0: Optional[torch.Tensor] = None, t0: Optional[torch.Tensor] = None, out=None):
+    """K3's five feature-major outputs ``(obs (T, S, N), actions (T, A,
+    N), log_probs, values, rewards (T, N))`` for ``env_cfg``, written into
+    ``out`` where given (:func:`mlp_rollout`'s).  ``key`` (an int seed or a
     ``torch.Generator``) gives the kernel's Philox seed; ``noise`` injects
-    ``(T, p.n_channels, N)`` channels instead.  Under a random
-    initial inventory (``initial_inventory=(lo, hi)``) the per-env draws in
-    [lo, hi) come from ``key`` first, each episode (the distribution of
+    ``(T, p.n_channels, N)`` channels instead.  Under a random initial
+    inventory (``initial_inventory=(lo, hi)``) the per-env draws in [lo,
+    hi) come from ``key`` first, each episode (the distribution of
     ``env.reset``); ``inv0`` injects them (the parity tests).  Under a
-    random start time (``start_time=("uniform", lo, hi)``) one shared
-    start per episode, quantised to the step grid as ``env.reset`` draws
-    it, comes from ``key`` next and fills the kernel's t0 plane; ``t0``
-    injects an ``(N,)`` plane (per-env values are taken).  Post-done steps
-    are frozen with zero rewards, so GAE over the full horizon sees the
+    random start time (``start_time=("uniform", lo, hi)``) one shared start
+    per episode, quantised to the step grid as ``env.reset`` draws it,
+    comes from ``key`` next and fills the kernel's t0 plane; ``t0`` injects
+    an ``(N,)`` plane (per-env values are taken).  Post-done steps are
+    frozen with zero rewards, so GAE over the full horizon sees the
     engine's masking."""
-    from mbt_gym_torch.agents.ppo import compute_gae
     from mbt_gym_torch.env import make_generator
     from mbt_gym_torch.ops.episode import seed_from_key
 
@@ -912,11 +929,42 @@ def collect_rollout_fused_T(env_cfg: EnvConfig, params, key, gamma: float = 1.0,
         raw = torch.rand((), generator=key, dtype=torch.float32, device=target) * (hi - lo) + lo
         t0 = (torch.round(raw / env_cfg.step_size) * env_cfg.step_size).expand(n)
     seed = 0 if noise is not None else seed_from_key(key)
-    obs_t, actions_t, log_probs, values, rewards = mlp_rollout(
-        p, params, seed, n, noise=noise, device=device, inv0=inv0, t0=t0,
-    )
+    return mlp_rollout(p, params, seed, n, noise=noise, device=device, inv0=inv0, t0=t0, out=out)
+
+
+def gae_T(outputs, gamma: float = 1.0, lam: float = 0.95) -> TRolloutBatch:
+    """The :class:`TRolloutBatch` of K3's five ``outputs``: GAE over the
+    full horizon, terminal value 0."""
+    from mbt_gym_torch.agents.ppo import compute_gae
+
+    obs_t, actions_t, log_probs, values, rewards = outputs
     advantages, returns = compute_gae(rewards, values, torch.zeros_like(values[0]), gamma, lam)
     return TRolloutBatch(obs_t, actions_t, log_probs, values, rewards, advantages, returns)
+
+
+def collect_rollout_fused_T(env_cfg: EnvConfig, params, key, gamma: float = 1.0, lam: float = 0.95,
+                            noise: Optional[torch.Tensor] = None, device=None,
+                            inv0: Optional[torch.Tensor] = None, t0: Optional[torch.Tensor] = None,
+                            out=None) -> TRolloutBatch:
+    """K3 rollout in its feature-major layout + GAE — the input of
+    :func:`mbt_gym_torch.ops.fused_ppo.ppo_fused_grads_T`
+    (pallas_rollout.py:2198-2256): :func:`rollout_fused_T` (its ``key``,
+    ``noise``, ``inv0``, ``t0`` and ``out``), then :func:`gae_T`."""
+    outputs = rollout_fused_T(env_cfg, params, key, noise=noise, device=device, inv0=inv0, t0=t0, out=out)
+    return gae_T(outputs, gamma, lam)
+
+
+def row_major(tb: TRolloutBatch):
+    """The row-major :class:`~mbt_gym_torch.agents.ppo.RolloutBatch` of a
+    feature-major one (obs ``(T, N, S)``, actions ``(T, N, A)``; views, no
+    copy)."""
+    from mbt_gym_torch.agents.ppo import RolloutBatch
+
+    return RolloutBatch(
+        obs=tb.obs_t.transpose(1, 2), actions=tb.actions_t.transpose(1, 2),
+        log_probs=tb.log_probs, values=tb.values, rewards=tb.rewards,
+        advantages=tb.advantages, returns=tb.returns,
+    )
 
 
 def collect_rollout_fused(env_cfg: EnvConfig, params, key, gamma: float = 1.0, lam: float = 0.95,
@@ -925,11 +973,5 @@ def collect_rollout_fused(env_cfg: EnvConfig, params, key, gamma: float = 1.0, l
     """Drop-in for :func:`mbt_gym_torch.agents.ppo.collect_rollout`: the
     row-major :class:`~mbt_gym_torch.agents.ppo.RolloutBatch` of a K3
     rollout (obs ``(T, N, S)``, actions ``(T, N, A)``; views, no copy)."""
-    from mbt_gym_torch.agents.ppo import RolloutBatch
-
-    tb = collect_rollout_fused_T(env_cfg, params, key, gamma, lam, noise=noise, device=device, inv0=inv0, t0=t0)
-    return RolloutBatch(
-        obs=tb.obs_t.transpose(1, 2), actions=tb.actions_t.transpose(1, 2),
-        log_probs=tb.log_probs, values=tb.values, rewards=tb.rewards,
-        advantages=tb.advantages, returns=tb.returns,
-    )
+    return row_major(collect_rollout_fused_T(env_cfg, params, key, gamma, lam, noise=noise, device=device,
+                                             inv0=inv0, t0=t0))

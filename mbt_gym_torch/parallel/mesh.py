@@ -11,8 +11,8 @@ the CPU; nothing falls back from one to the other.
 
 Not ported: the JAX mesh's ``model`` axis, the GSPMD tensor-parallel MLP
 (``mlp_sharding_specs``, ``mbt_gym_tpu/parallel/mesh.py:74-105``).
-``make_mesh(model > 1)`` raises ``NotImplementedError``; it is ROADMAP
-Queue 1's next item.
+``make_mesh(model > 1)`` raises ``NotImplementedError``; it is item 3 of
+ROADMAP Queue 1.
 
 Usage, one process per card (``torchrun`` sets ``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR`` and ``MASTER_PORT``; a single process needs none)::
@@ -35,7 +35,7 @@ from mbt_gym_torch.env import make_generator, resolve_device
 
 _MODEL_AXIS = (
     "the mesh's model axis (the tensor-parallel MLP, mbt_gym_tpu/parallel/mesh.py:74-105) "
-    "is not ported yet: it is the next item of ROADMAP Queue 1"
+    "is not ported yet: it is item 3 of ROADMAP Queue 1"
 )
 
 

@@ -12,10 +12,11 @@ from typing import Tuple
 import torch
 
 from mbt_gym_torch.processes.base import ProcessBase, process_dataclass
+from mbt_gym_torch.types import device_constant
 
 
 def _rates(rates, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(rates, dtype=like.dtype, device=like.device)
+    return device_constant(tuple(float(r) for r in rates), like.dtype, like.device)
 
 
 @process_dataclass
@@ -65,7 +66,7 @@ class HawkesArrivals(ProcessBase):
         return (0, 2)
 
     def initial_state(self, n, dtype=torch.float32, device=None):
-        rates = torch.tensor(self.baseline_arrival_rate, dtype=dtype, device=device)
+        rates = device_constant(tuple(float(r) for r in self.baseline_arrival_rate), dtype, device)
         return rates.expand(n, 2).clone()
 
     def bounds(self):

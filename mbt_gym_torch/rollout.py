@@ -14,7 +14,7 @@ import torch
 from mbt_gym_torch import dispatch as _dispatch
 from mbt_gym_torch import env as env_lib
 from mbt_gym_torch.env import EnvConfig
-from mbt_gym_torch.types import EnvState, SlotNoise, StepNoise, Trajectory, TrajectoryT
+from mbt_gym_torch.types import EnvState, SlotNoise, StepNoise, Trajectory, TrajectoryT, as_values, device_constant
 
 # policy(params, obs (N,S), state: EnvState) -> action (N, A)
 PolicyFn = Callable[..., torch.Tensor]
@@ -194,6 +194,20 @@ def rollout(
     )
 
 
+def jit_rollout(cfg: EnvConfig, policy: PolicyFn, policy_params, key, *, backend: str = "auto",
+                device=None) -> RolloutResult:
+    """:func:`rollout` compiled (rollout.py:214-216), dispatched as
+    :func:`rollout` dispatches: a kernel family runs its kernel path as it
+    is (one launch and its set-up); the engine runs on the card as one
+    replay of a CUDA graph of the whole episode, captured at the first call
+    for this config, policy and parameter layout
+    (:mod:`mbt_gym_torch.compiled`), bit for bit :func:`rollout` for the
+    same int ``key``.  On the CPU it is :func:`rollout`."""
+    from mbt_gym_torch import compiled
+
+    return compiled.rollout(cfg, policy, policy_params, key, backend=backend, device=device)
+
+
 def to_reference_layout(traj: Trajectory) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Transpose to the reference's trajectory-major buffers
     (observations (N, S, T+1), actions (N, A, T), rewards (N, 1, T) —
@@ -215,8 +229,8 @@ def _quote_mean(cfg: EnvConfig, action: torch.Tensor) -> torch.Tensor:
     quotes = action[..., :2]
     if cfg.normalise_action_space:
         low, high = cfg.action_bounds()
-        low = torch.as_tensor(low[:2], dtype=quotes.dtype, device=quotes.device)
-        high = torch.as_tensor(high[:2], dtype=quotes.dtype, device=quotes.device)
+        low = device_constant(as_values(low[:2]), quotes.dtype, quotes.device)
+        high = device_constant(as_values(high[:2]), quotes.dtype, quotes.device)
         quotes = (quotes + 1.0) * (high - low) / 2 + low
     return quotes.mean()
 

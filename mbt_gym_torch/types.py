@@ -10,8 +10,10 @@ counter-based PRNG key.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 # Observation column convention (parity with mbt_gym/gym/index_names.py:1-7).
@@ -105,3 +107,27 @@ class TrajectoryT(NamedTuple):
             self.actions_t.permute(2, 0, 1),
             self.rewards.permute(1, 0)[:, None, :],
         )
+
+
+def device_constant(values, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """``values`` (a float, or nested tuples of floats) as a tensor on
+    ``device``, copied there once per (values, dtype, device) and shared by
+    every later call, which must not write to it.  The engine's per-step
+    constants (bounds, rates, signs) come from here, so a warm step copies
+    nothing from the host, and a CUDA-graph capture of it
+    (:mod:`mbt_gym_torch.compiled`) finds each one already on the card.
+    The cache is unbounded: a captured graph reads these tensors by
+    address and runs no Python that would keep them alive, so none may
+    ever be freed (each holds a few floats)."""
+    return _device_constant(values, dtype, torch.device("cpu" if device is None else device))
+
+
+@lru_cache(maxsize=None)
+def _device_constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def as_values(array) -> tuple:
+    """A numpy array's values as the hashable tuple :func:`device_constant`
+    takes."""
+    return tuple(np.asarray(array, dtype=np.float64).tolist())

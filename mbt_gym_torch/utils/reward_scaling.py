@@ -7,10 +7,13 @@ trajectories with the fixed risk-neutral action ``1/fill_exponent``
 (TradingEnvironment.py:90-94, 329-343).  Here it is an explicit utility:
 compute it once, then pass the result as ``EnvConfig.reward_scaling``.
 
-The simulation is ``rollout(backend="auto")`` of ``fixed_action_policy``,
-so at a trajectory count that is a multiple of 128 the dispatch sends it
-to K5's fixed kind on the card, and at the default 100,000 to the engine,
-as in the JAX package.
+The simulation is ``jit_rollout(backend="auto")`` of
+``fixed_action_policy``, as the JAX package's is ``jit_rollout``: at a
+trajectory count that is a multiple of 128 the dispatch sends it to K5's
+fixed kind on the card, and at the default 100,000 to the engine, whose
+episode is captured at the first call per config and replayed at every
+later one (the fixed policy is built anew each call; ``jit_rollout`` keys
+it by its action, so the graph is found again).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from mbt_gym_torch.dynamics import LimitOrderDynamics
 from mbt_gym_torch.env import EnvConfig
 from mbt_gym_torch.processes.arrivals import PoissonArrivals
 from mbt_gym_torch.processes.fills import ExponentialFill
-from mbt_gym_torch.rollout import rollout
+from mbt_gym_torch.rollout import jit_rollout
 
 
 def inventory_neutral_simulation(cfg: EnvConfig, num_total_trajectories: int = 100_000):
@@ -51,10 +54,9 @@ def compute_inventory_neutral_reward_scaling(
 ) -> float:
     """scaling = 1 / (mean per-step reward * n_steps) under the fixed
     risk-neutral quote, from a fresh full-horizon simulation.  ``key`` is
-    an int seed or a ``torch.Generator`` on ``device`` (``None``: the
-    card)."""
+    an int seed; ``device`` ``None`` means the card."""
     sim_cfg, policy = inventory_neutral_simulation(cfg, num_total_trajectories)
-    res = rollout(sim_cfg, policy, None, key, device=device)
+    res = jit_rollout(sim_cfg, policy, None, key, device=device)
     mean_episode_reward = float(res.trajectory.rewards.mean()) * cfg.n_steps
     return 1.0 / mean_episode_reward
 

@@ -1,8 +1,8 @@
 """TensorBoard metric logging (counterpart of ``mbt_gym_tpu/utils/tblog.py``;
 the reference's SB3 ``tensorboard_log`` wiring, experiments/helpers.py:73-80).
 
-The learners return metric dicts per iteration (:func:`train_iteration`)
-or per chunk (:func:`train_chunk`'s ``(n_iterations,)`` stacks); this
+The learners return metric dicts per iteration (:func:`jit_train_iteration`)
+or per chunk (:func:`jit_train_chunk`'s ``(n_iterations,)`` stacks); this
 module streams them to TensorBoard event files through
 ``torch.utils.tensorboard.SummaryWriter``, which needs the ``tensorboard``
 package: ``TensorboardLogger(...)`` raises ``ImportError`` without it, and
@@ -12,7 +12,7 @@ Usage::
 
     logger = TensorboardLogger("runs/canonical")
     for i in range(iters):
-        ts, metrics = ppo.train_iteration(env_cfg, ppo_cfg, ts, i)
+        ts, metrics = ppo.jit_train_iteration(env_cfg, ppo_cfg, ts, i)
         logger.log(i, metrics)
     logger.close()
 """

@@ -435,3 +435,72 @@ def test_narrow_copy_widens_the_head_too():
     assert torch.equal(pnl.shared[0].weight, speed.shared[0].weight[:, :4])
     assert torch.equal(pnl.shared[1].weight, speed.shared[1].weight)
     assert torch.equal(pnl.pi_head.weight[:1], speed.pi_head.weight) and torch.equal(pnl.log_std[:1], speed.log_std)
+
+
+def test_same_bits_reads_every_leaf_of_phase_27s_results():
+    """Phase 27's bitwise compare: equal tensors (NaN where the other is
+    NaN), generators in one state, a module's state and an Adam's state in
+    parameter order, nested containers; any one bit, dtype or state apart
+    is a difference."""
+    import copy
+
+    import torch
+
+    from mbt_gym_torch.agents import ppo
+    from mbt_gym_torch.utils.config import as_env_config
+
+    x = torch.tensor([1.0, float("nan"), -0.0])
+    assert chip_smoke.same_bits(torch, x, x.clone())
+    assert not chip_smoke.same_bits(torch, x, x.double())
+    assert not chip_smoke.same_bits(torch, x, torch.tensor([1.0, 2.0, -0.0]))
+    assert not chip_smoke.same_bits(torch, x, torch.nextafter(x, torch.full_like(x, 2.0)))
+    gen = torch.Generator().manual_seed(3)
+    twin = torch.Generator().manual_seed(3)
+    assert chip_smoke.same_bits(torch, {"g": gen, "t": (x, [x])}, {"g": twin, "t": (x, [x])})
+    torch.rand(1, generator=twin)
+    assert not chip_smoke.same_bits(torch, gen, twin)
+    cfg = as_env_config(num_trajectories=32, n_steps=4)
+    ppo_cfg = ppo.PPOConfig(hidden=(8, 8), n_epochs=1, n_minibatches=1)
+    ts, _ = ppo.train_iteration(cfg, ppo_cfg, ppo.init_train_state(cfg, ppo_cfg, 0, device="cpu"), 1)
+    other = copy.deepcopy(ts)
+    assert chip_smoke.same_bits(torch, ts.params, other.params)
+    assert chip_smoke.same_bits(torch, ts.opt_state, other.opt_state)
+    next(iter(other.opt_state.state.values()))["exp_avg_sq"].add_(1e-9)
+    assert not chip_smoke.same_bits(torch, ts.opt_state, other.opt_state)
+
+
+def test_wall_ms_times_each_call_after_an_untimed_one():
+    """Phase 27d's host-clock times: the untimed calls, then one time per
+    timed call, the card synchronised around each."""
+    import types
+
+    calls, syncs = [], []
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(synchronize=lambda: syncs.append(1)))
+    times = chip_smoke.wall_ms(fake, lambda: calls.append(1), calls=3)
+    assert len(times) == 3 and len(calls) == 4 and len(syncs) == 4
+    assert all(t >= 0.0 for t in times)
+    assert len(chip_smoke.wall_ms(fake, lambda: calls.append(1), calls=2, warmup=0)) == 2 and len(calls) == 6
+
+
+def test_eager_timing_times_every_path_at_small_shapes_on_the_cpu():
+    """eager_timing.py's paths run at small shapes on the CPU (the card's
+    are 27d's): each of the five is timed, in the order phase 27d lists
+    them; without a card its command line exits 1 and prints no result."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    import eager_timing
+
+    got = eager_timing.time_paths(torch, "cpu", 2, 1, n_main=128, ppo_n=256, eval_n=128, n_steps=4,
+                                  hidden=(8, 8), minibatches=2)
+    assert list(got) == ["AS engine rollout 128x4", "config 14's 8 engine episodes (128x4)",
+                         "engine iteration, config 5 (256x4)", "engine iteration, config 6 (256x4)",
+                         "engine iteration, config 10 (256x4)"]
+    for row in got.values():
+        assert len(row["calls_ms"]) == 2 and row["ms"] > 0 and row["env_steps_per_s"] > 0
+    out = io.StringIO()
+    with redirect_stdout(out):
+        assert eager_timing.main([]) == 1
+    assert out.getvalue() == ""

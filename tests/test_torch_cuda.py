@@ -1063,3 +1063,134 @@ def test_process_kinds_at_the_pipeline_edges_on_the_card(cuda_device, kind, run_
         assert int((~same).sum()) <= 4
         for a, b in zip(got, want):
             torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3)
+
+
+# ------------------------------------------------------------ the compiled entry points
+def _engine_case(name, n=2048, steps=50):
+    from mbt_gym_torch.agents.baseline import (
+        AvellanedaStoikovAgent, CarteaJaimungalMmAgent, CarteaJaimungalOeAgent, fixed_action_policy,
+    )
+    from mbt_gym_torch.utils.config import cj_env_config, composite_env_config, oe_env_config
+
+    if name == "as":
+        cfg = as_env_config(num_trajectories=n, n_steps=steps)
+        return cfg, AvellanedaStoikovAgent.from_config(cfg).policy()
+    if name == "cj":
+        cfg = cj_env_config(num_trajectories=n, n_steps=steps, max_inventory=20.0)
+        return cfg, CarteaJaimungalMmAgent.from_config(cfg, max_inventory=20).policy()
+    if name == "oe":
+        cfg = oe_env_config(num_trajectories=n, n_steps=steps)
+        return cfg, CarteaJaimungalOeAgent.from_config(cfg).policy()
+    cfg = composite_env_config(num_trajectories=n, n_steps=200)
+    return cfg, fixed_action_policy([0.6, 0.6, 0.0, 0.7])
+
+
+@pytest.mark.parametrize("name", ["as", "cj", "oe", "composite"])
+def test_jit_rollout_replays_the_engine_bit_for_bit_on_the_card(cuda_device, name):
+    """``jit_rollout(backend="engine")``: the capturing call and a replay are
+    ``rollout(backend="engine")`` bit for bit for the same int key (the
+    final generator state too), the replay given a policy rebuilt from the
+    same values after the first was dropped; another key draws another
+    episode."""
+    import gc
+
+    from chip_smoke import same_bits
+    from mbt_gym_torch import compiled
+    from mbt_gym_torch.rollout import jit_rollout, rollout
+
+    cfg, policy = _engine_case(name)
+    want = rollout(cfg, policy, None, 7, backend="engine", device=cuda_device)
+    try:
+        for _ in range(2):
+            got = jit_rollout(cfg, _engine_case(name)[1], None, 7, backend="engine", device=cuda_device)
+            gc.collect()
+            torch.cuda.synchronize()
+            assert same_bits(torch, got, want)
+        other = jit_rollout(cfg, policy, None, 8, backend="engine", device=cuda_device)
+        assert not torch.equal(other.trajectory.rewards, want.trajectory.rewards)
+        assert len(compiled.cache_info()) == 1
+    finally:
+        compiled.clear_cache()
+
+
+@pytest.mark.parametrize("learner", ["engine", "fused_update-shared", "fused_update-towers", "fully-fused",
+                                     "k3-autograd"])
+def test_jit_train_iteration_and_chunk_are_eager_bit_for_bit_on_the_card(cuda_device, learner):
+    """Two ``jit_train_iteration``s are two eager ``train_iteration``s bit for
+    bit (params, Adam state, metrics), with the same kernel launches per
+    iteration, and ``jit_train_chunk(3)`` three ``jit_train_iteration``s."""
+    from chip_smoke import same_bits
+    from mbt_gym_torch import compiled
+    from mbt_gym_torch.agents import ppo
+
+    env_cfg = dataclasses.replace(as_env_config(num_trajectories=4096, n_steps=32),
+                                  normalise_observation_space=True, normalise_action_space=True)
+    flags = {
+        "engine": dict(shared_trunk=True),
+        "fused_update-shared": dict(shared_trunk=True, fused_update=True),
+        "fused_update-towers": dict(shared_trunk=False, fused_update=True),
+        "fully-fused": dict(shared_trunk=True, fused_update=True, fused_rollout=True, shuffle=False),
+        "k3-autograd": dict(shared_trunk=False, fused_rollout=True),
+    }[learner]
+    cfg = ppo.PPOConfig(hidden=(64, 64), n_epochs=2, n_minibatches=4, compute_dtype="bfloat16", **flags)
+    ts0 = ppo.init_train_state(env_cfg, cfg, 1, device=cuda_device)
+    assert all(g["capturable"] for g in ts0.opt_state.param_groups)
+    try:
+        eager = captured = ts0
+        for k in (3, 4):
+            _build.reset_launch_counts()
+            eager, em = ppo.train_iteration(env_cfg, cfg, eager, k)
+            want_counts = dict(_build.launch_counts)
+            _build.reset_launch_counts()
+            captured, cm = ppo.jit_train_iteration(env_cfg, cfg, captured, k)
+            torch.cuda.synchronize()
+            if k == 4:  # a replay
+                assert dict(_build.launch_counts) == want_counts
+            assert same_bits(torch, captured.params, eager.params)
+            assert same_bits(torch, captured.opt_state, eager.opt_state)
+            assert same_bits(torch, cm, em) and captured.update_count == eager.update_count
+        chunk_ts, chunk = ppo.jit_train_chunk(env_cfg, cfg, ts0, 9, 3)
+        ts, singles = ts0, []
+        for k in ppo.iteration_keys(9, 3):
+            ts, m = ppo.jit_train_iteration(env_cfg, cfg, ts, k)
+            singles.append(m)
+        assert same_bits(torch, chunk_ts.params, ts.params) and same_bits(torch, chunk_ts.opt_state, ts.opt_state)
+        assert same_bits(torch, chunk, {k: torch.stack([m[k] for m in singles]) for k in singles[0]})
+    finally:
+        compiled.clear_cache()
+
+
+def test_jit_train_epoch_is_eager_bit_for_bit_on_the_card(cuda_device):
+    from chip_smoke import same_bits
+    from mbt_gym_torch import compiled
+    from mbt_gym_torch.agents import reinforce
+
+    env_cfg = as_env_config(num_trajectories=256, n_steps=20)
+    rf_cfg = reinforce.ReinforceConfig(hidden=(32, 32), action_std=0.3, learning_rate=1e-2, final_action_std=0.1)
+    eager = captured = reinforce.init_train_state(env_cfg, rf_cfg, 0, device=cuda_device)
+    try:
+        for epoch in range(3):
+            eager, em = reinforce.train_epoch(env_cfg, rf_cfg, eager, 5 + epoch, 3)
+            captured, cm = reinforce.jit_train_epoch(env_cfg, rf_cfg, captured, 5 + epoch, 3)
+            torch.cuda.synchronize()
+            assert same_bits(torch, captured.params, eager.params) and same_bits(torch, cm, em)
+    finally:
+        compiled.clear_cache()
+
+
+def test_a_capture_holding_a_host_read_raises_on_the_card(cuda_device):
+    """A captured region that reads a device value back cannot be captured:
+    the call raises, caches nothing and leaves the launch counters as they
+    were; nothing falls back to the eager path."""
+    from mbt_gym_torch import compiled
+    from mbt_gym_torch.rollout import jit_rollout
+
+    def syncing(params, obs, state):
+        return obs[:, :2] * float(obs[0, 0] > -1e30)
+
+    before = dict(_build.launch_counts)
+    with pytest.raises(RuntimeError):
+        jit_rollout(as_env_config(num_trajectories=1024, n_steps=4), syncing, None, 1, backend="engine",
+                    device=cuda_device)
+    assert compiled.cache_info() == [] and dict(_build.launch_counts) == before
+    torch.cuda.synchronize()
