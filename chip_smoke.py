@@ -32,8 +32,9 @@ public entry points and times it all:
   against their plain versions (22a); 250 fully fused iterations (K3 with
   the CjMm reward once and K4 16 times each) of the JAX slow gate's
   setting, which must reach 0.6 x the closed-form CJ agent's reward, beside
-  the engine path, whose first three iterations ``jit_train_iteration``
-  repeats bit for bit, then ``evaluate_policy(backend="auto")`` on K3 (22b);
+  the engine path's first 50 iterations, whose first three
+  ``jit_train_iteration`` repeats bit for bit, then
+  ``evaluate_policy(backend="auto")`` on K3 (22b);
   one fused iteration at config 5's widths on the CJ env, both layouts,
   K3's CjMm time beside its PnL time (22c); REINFORCE on the card (22d);
   and ``with_normalised_rewards`` on K5's fixed kind against the engine
@@ -83,6 +84,17 @@ public entry points and times it all:
   share, capture seconds and graph pool bytes (27d); the captured
   iteration over an NCCL group of world size 1 bit for bit the eager one
   (27e); a capture holding a host read raises (27f).
+- K4 and K7 at every trunk shape K3 takes (phase 28): 1-8 layers, widths
+  a multiple of 4 up to 256 (padded to 64 with exact zeros), against their
+  plain versions on both layouts at S = 4, A = 2 and S = 8, A = 4 (28a;
+  bf16 beyond two layers against the plain version's float64-summed
+  evaluation at fixed limits, ``DEEP_BF16_LIMITS``);
+  the fully fused iteration at config 5's shape on a three-layer and a
+  one-layer trunk through ``train_iteration`` and ``jit_train_iteration``,
+  bitwise, timed, and the kernels against their plain versions on its
+  minibatch, which the deep instantiations run in chunks (28b); a float32 fused iteration against autograd at
+  (32, 32) and (64,) (28c); the deep instantiations' registers, spills
+  and HMMA, and the two-layer ones' report unchanged (28d).
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
 update passes and of K3 run tensor-core instructions and the float32 ones
@@ -373,13 +385,28 @@ def mlp_flops_per_sample(s_dim, h0, h1, a_dim, towers=1):
     """Matmul FLOPs of one forward of the actor-critic: the shared trunk
     (towers=1) or separate pi/vf towers of these widths (towers=2), whose
     heads read only their own tower."""
-    return 2 * (towers * s_dim * h0 + towers * h0 * h1 + (a_dim + 1) * h1)
+    return mlp_flops_at(s_dim, (h0, h1), a_dim, towers)
 
 
 def ppo_grad_flops_per_sample(s_dim, h0, h1, a_dim, towers=1):
     """Forward plus backward (dh2, dW_head, dW1, dh1, dW0) matmul FLOPs."""
-    backward = 2 * (2 * (a_dim + 1) * h1 + 2 * towers * h0 * h1 + towers * s_dim * h0)
-    return mlp_flops_per_sample(s_dim, h0, h1, a_dim, towers) + backward
+    return ppo_grad_flops_at(s_dim, (h0, h1), a_dim, towers)
+
+
+def mlp_flops_at(s_dim, widths, a_dim, towers=1):
+    """The forward's FLOPs at any depth: 2 (T S h_0 + T sum_{l>=1}
+    h_{l-1} h_l + (A+1) h_last), the heads reading only their own tower."""
+    inner = sum(a * b for a, b in zip(widths, widths[1:]))
+    return 2 * (towers * s_dim * widths[0] + towers * inner + (a_dim + 1) * widths[-1])
+
+
+def ppo_grad_flops_at(s_dim, widths, a_dim, towers=1):
+    """Forward plus backward FLOPs at any depth: the forward, and the
+    backward's 2 (2 (A+1) h_last + 2 T sum_{l>=1} h_{l-1} h_l + T S h_0)
+    (dh and dW of the head, of each hidden-to-hidden layer, dW0)."""
+    inner = sum(a * b for a, b in zip(widths, widths[1:]))
+    backward = 2 * (2 * (a_dim + 1) * widths[-1] + 2 * towers * inner + towers * s_dim * widths[0])
+    return mlp_flops_at(s_dim, widths, a_dim, towers) + backward
 
 
 def bound_ms(bytes_moved, ops, peak):
@@ -1478,6 +1505,7 @@ def update_phases(torch, np, card, dev):
 # q_max 10; 250 iterations of 4 epochs x 4 minibatches, 128x128 towers; the
 # best mean episode reward above 0.6 x the closed-form CJ agent's.
 CJ_GATE_N, CJ_GATE_T, CJ_GATE_ITERATIONS, CJ_GATE_BAR = 1024, 100, 250, 0.6
+CJ_GATE_ENGINE_ITERATIONS = 50  # the eager engine learner beside the gate: host-bound, so cut to keep the run short
 CJ_GATE_CAPTURED = 3  # phase 22b's engine iterations run again captured
 CJ_SMALL_N = 4096
 SCALING_N = 131_072  # a lane multiple: the reward-scaling simulation on K5
@@ -1488,7 +1516,8 @@ def cj_learning_phases(torch, np, card, dev, k3_pnl_ms=None):
     reward.  (a) K3's CjMm and running-penalty rewards at exponents 2 and 3
     and K5 at exponent 3 against their plain versions; (b) the fully fused
     PPO path learns on the card to the JAX slow gate's bar, beside the
-    engine path, then evaluate_policy(backend="auto") goes to K3; (c) one
+    engine path's first :data:`CJ_GATE_ENGINE_ITERATIONS` iterations, then
+    evaluate_policy(backend="auto") goes to K3; (c) one
     fused iteration at config 5's widths on the CJ env, with K3's CjMm
     time beside its PnL time (``k3_pnl_ms``: phase 12's); (d) REINFORCE on
     the card; (e) the reward-scaling simulation on K5's fixed kind.
@@ -1613,7 +1642,7 @@ def cj_learning_phases(torch, np, card, dev, k3_pnl_ms=None):
         ts = init_train_state(gate_cfg, cfg, 0)
         check(next(ts.params.parameters()).device.type == "cuda", f"phase 22b {label}: params not on the card")
         history = []
-        for i in range(CJ_GATE_ITERATIONS):
+        for i in range(CJ_GATE_ITERATIONS if label == "fused" else CJ_GATE_ENGINE_ITERATIONS):
             _build.reset_launch_counts()
             ts, metrics = train_iteration(gate_cfg, cfg, ts, i)
             counts = dict(_build.launch_counts)
@@ -1625,7 +1654,7 @@ def cj_learning_phases(torch, np, card, dev, k3_pnl_ms=None):
                 engine_states.append((ts, metrics))
             history.append(assert_metric_bands(metrics, f"phase 22b {label} iteration {i + 1}")["mean_episode_reward"])
         bests[label] = max(history)
-        print(f"phase 22b {label} path: {CJ_GATE_ITERATIONS} iterations in {time.perf_counter() - t1:.1f} s, "
+        print(f"phase 22b {label} path: {len(history)} iterations in {time.perf_counter() - t1:.1f} s, "
               f"mean_episode_reward first 5 {history[:5]}, last 5 {history[-5:]}, best {bests[label]} "
               f"= {bests[label] / cf:.3f} x the closed-form CJ agent's {cf}")
         if label == "fused":
@@ -3983,6 +4012,376 @@ def compiled_phases(torch, np, card, dev):
     }
 
 
+# ------------------------------------------------------------ deep trunks
+# phase 28's trunks: JAX's own test trunks (tests/test_fused_ppo.py:30),
+# unequal widths the wrappers pad, and the depths K3 takes; each on both
+# layouts, and (256,) * 8 on the towers alone (stacked 512 wide)
+DEEP_TRUNKS = (((32, 32), (True, False)), ((64,), (True, False)), ((36, 100), (True, False)),
+               ((256, 256, 256), (True, False)), ((128,) * 8, (True, False)), ((256,) * 8, (False,)))
+DEEP_EDGE = (5, 96)  # 28a's minibatch: 5 steps x 96 envs (1 full and 2 more tiles a step), the card test's edge
+DEEP_FULL = (((256, 256, 256), True), ((256, 256, 256), False), ((256,), True))  # 28b's trunks at config 5
+DEEP_ITERATIONS = 2  # 28b's eager iterations per trunk, replayed captured
+DRIFT_N, DRIFT_T = 64, 8  # 28c: tests/test_fused_ppo.py:82-84's shape
+# bf16 limits of the update kernels beyond two layers.  Up to two layers a
+# kernel is held to its plain version (float32 sums) as compare_grads holds
+# it: 1e-3 per leaf, metrics to rtol 1e-4.  Deeper, a float32 summation-order
+# difference flips bf16 roundings of saved activations, which every later
+# layer carries on, so two float32 orders drift apart (the plain version
+# from its own float64-summed evaluation by up to 2.4e-3 per leaf at eight
+# 256-wide layers on the towers, PERF.md section 7).  There a kernel is held
+# to the plain version's float64-summed evaluation, at fixed limits by depth
+# (three, eight layers) set from the readings of phase 28a and the card
+# tests: per leaf a relative Frobenius error, per metric rtol 1e-4 plus a
+# share of the metric's terms' mean magnitude (approx_kl averages terms ~100
+# times larger than itself, and at eight layers over 160 samples the kernel
+# read 3.0e-4 of them)
+DEEP_BF16_LIMITS = {3: (1e-3, 1e-4), 8: (5e-3, 1e-3)}  # depth: (leaf bound, metric terms' share)
+# the two-layer instantiations' -Xptxas -v usage, as phase 18 reported it
+# on the H100 (CUDA 12.8) before the deep instantiations were added: 28d
+# holds the build to it
+_PASS1_F32 = "used 1 barriers, 96 bytes cumulative stack size; 96 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+_PASS1_BF16 = "Used 128 registers, " + _PASS1_F32
+_PASS2_F32 = ("Used 128 registers, used 1 barriers, 8 bytes cumulative stack size; 8 bytes stack frame, 4 bytes spill "
+              "stores, 8 bytes spill loads")
+_PASS2_BF16 = "Used 128 registers, used 1 barriers; 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+TWO_LAYER_PTXAS = {  # ppo_passN<kBf16, kRowMajor>
+    "ppo_pass1ILb0ELb0E": "Used 115 registers, " + _PASS1_F32, "ppo_pass1ILb0ELb1E": "Used 107 registers, " + _PASS1_F32,
+    "ppo_pass1ILb1ELb0E": _PASS1_BF16, "ppo_pass1ILb1ELb1E": _PASS1_BF16,
+    "ppo_pass2ILb0ELb0E": _PASS2_F32, "ppo_pass2ILb0ELb1E": _PASS2_F32,
+    "ppo_pass2ILb1ELb0E": _PASS2_BF16, "ppo_pass2ILb1ELb1E": _PASS2_BF16,
+}
+
+
+def update_samples(torch, np, model, t_steps, nb, seed, dev):
+    """Row-major samples of ``model``, ordered (t, env), made with numpy:
+    obs uniform on [-1, 1], actions drawn from the policy, old log-probs
+    the policy's own with noise of 0.1, normalised advantages, returns."""
+    from mbt_gym_torch.agents import networks
+    from mbt_gym_torch.agents.ppo import normalise
+
+    rng = np.random.default_rng(seed)
+    m = t_steps * nb
+    host = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
+    obs = host(rng.uniform(-1.0, 1.0, (m, model.obs_dim)))
+    with torch.no_grad():
+        mean, _ = networks.policy_value(model, obs, "float32")
+        actions = mean + torch.exp(model.log_std) * host(rng.normal(size=(m, model.action_dim)))
+        logp = networks.gaussian_log_prob(model, mean, actions)
+    return [obs, actions, logp + host(rng.normal(0.0, 0.1, m)), normalise(host(rng.normal(size=m))),
+            host(rng.normal(size=m))]
+
+
+def feature_major(rows, t_steps, nb):
+    """Row-major samples ordered (t, env) as K4's (T, C, nb) and (T, nb)."""
+    return [x.reshape(t_steps, nb, -1).transpose(1, 2).contiguous() if x.dim() == 2 else x.reshape(t_steps, nb)
+            for x in rows]
+
+
+def leaf_errors(torch, grads, want):
+    """{leaf: relative Frobenius error of ``grads`` against ``want``}."""
+    return {n: float(torch.linalg.vector_norm(grads[n].double() - w.double())
+                     / torch.linalg.vector_norm(w.double()).clamp_min(1e-30)) for n, w in want.items()}
+
+
+def metric_scales(torch, model, rows, clip_eps=0.2):
+    """{metric: the mean absolute per-sample term} of ``model`` on the
+    row-major samples ``rows`` (float32, the policy's own forward): the
+    scale of what ``pg_loss``, ``vf_loss`` and ``approx_kl`` average, which
+    the averages themselves cancel (``approx_kl`` is ~1e-3 of its terms)."""
+    from mbt_gym_torch.agents import networks
+
+    obs, actions, old, adv, ret = rows
+    with torch.no_grad():
+        mean, value = networks.policy_value(model, obs, "float32")
+        logp = networks.gaussian_log_prob(model, mean, actions)
+        ratio = torch.exp(logp - old)
+        pg = -torch.minimum(ratio * adv, torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps) * adv)
+        terms = {"pg_loss": pg, "vf_loss": 0.5 * (value - ret) ** 2, "approx_kl": old - logp}
+    return {name: float(t.abs().mean()) for name, t in terms.items()}
+
+
+def compare_bf16(torch, grads, metrics, want, scales, leaf_bound, terms, label, plain=None):
+    """A bf16 update kernel's grads and metrics against ``want`` (grads,
+    metrics): each leaf's relative Frobenius error at most ``leaf_bound``;
+    each metric within rtol 1e-4 plus ``terms`` of its terms' mean magnitude
+    (:func:`metric_scales`, in ``scales``) plus atol 1e-7.  Prints every
+    leaf's error and every metric's, each beside the plain version's
+    ``plain`` where that is given (``want`` is then the plain version's
+    float64-summed evaluation).  Returns the worst leaf error."""
+    want_g, want_m = want
+    check(set(grads) == set(want_g), f"{label}: grads {sorted(grads)} vs {sorted(want_g)}")
+    errs = leaf_errors(torch, grads, want_g)
+    line = f"{label}: leaf errors (bound {leaf_bound:.3g}) " + ", ".join(f"{n} {e:.2g}" for n, e in sorted(errs.items()))
+    if plain is not None:
+        line += "; the plain version's: " + ", ".join(
+            f"{n} {e:.2g}" for n, e in sorted(leaf_errors(torch, plain[0], want_g).items()))
+    diffs = {name: (abs(float(metrics[name]) - float(w)), 1e-4 * abs(float(w)) + terms * scales[name] + 1e-7)
+             for name, w in want_m.items()}
+    line += "; metrics off by " + ", ".join(f"{n} {d:.3g} (tolerance {t:.3g})" for n, (d, t) in diffs.items())
+    if plain is not None:
+        line += "; the plain version's by " + ", ".join(
+            f"{n} {abs(float(plain[1][n]) - float(w)):.3g}" for n, w in want_m.items())
+    print(line)
+    for name, e in errs.items():
+        check(e <= leaf_bound, f"{label} {name}: relative Frobenius error {e} above {leaf_bound}")
+    for name, (d, t) in diffs.items():
+        check(d <= t, f"{label} {name}: {float(metrics[name])} vs {float(want_m[name])}, tolerance {t}")
+    return max(errs.values())
+
+
+def compare_update(torch, grads, metrics, model, args, plain_fn, rows, dtype, label):
+    """An update kernel's output on ``args`` against its plain version
+    ``plain_fn`` at the limits :func:`deep_bf16_limits` gives ``model``'s
+    depth: up to two layers (and in float32 at any depth) as
+    :func:`compare_grads` holds it; deeper, bf16, against the plain
+    version's float64-summed evaluation by :func:`compare_bf16`.  ``rows``
+    are the row-major samples (for the metric scales).  Returns the worst
+    bf16 leaf error (0 for float32)."""
+    want = plain_fn(model, *args, compute_dtype=dtype)
+    depth = len(model.hidden)
+    if dtype == "float32" or depth <= 2:
+        compare_grads(torch, grads, metrics, *want, dtype, label)
+        return 0.0 if dtype == "float32" else max(leaf_errors(torch, grads, want[0]).values())
+    ref = plain_fn(model, *args, compute_dtype=dtype, sum_dtype=torch.float64)
+    leaf_bound, terms = deep_bf16_limits(depth)
+    return compare_bf16(torch, grads, metrics, ref, metric_scales(torch, model, rows), leaf_bound, terms, label,
+                        plain=want)
+
+
+def deep_bf16_limits(depth):
+    """(leaf bound, metric terms' share) of a bf16 update kernel on a trunk
+    of ``depth`` > 2 layers: :data:`DEEP_BF16_LIMITS`'s three-layer figures
+    up to three layers, its eight-layer ones beyond."""
+    return DEEP_BF16_LIMITS[3 if depth <= 3 else 8]
+
+
+def full_minibatch_close(torch, got, want, hidden, scales, label):
+    """Phase 28b: a bf16 update kernel's (grads, metrics) ``got`` on config
+    5's minibatch of 3,276,800 samples against its plain version's ``want``
+    (float32 sums): up to two layers as :func:`compare_grads` holds it,
+    deeper at :func:`deep_bf16_limits` (the float64-summed evaluation does
+    not fit on the card beside the kernel at this size; the drift between
+    two float32 orders shrinks as the sample count grows).  Returns the
+    worst leaf error."""
+    if len(hidden) <= 2:
+        compare_grads(torch, *got, *want, "bfloat16", label)
+        return max(leaf_errors(torch, got[0], want[0]).values())
+    return compare_bf16(torch, *got, want, scales, *deep_bf16_limits(len(hidden)), label)
+
+
+def deep_trunk_phases(torch, np, card, dev):
+    """Phase 28: K4 and K7 at every trunk shape K3 takes (1-8 layers,
+    widths a multiple of 4 up to 256, padded to 64 with exact zeros).
+    (a) K4 on both layouts and K7 on the shared trunk against their plain
+    versions at :data:`DEEP_TRUNKS`, S = 4, A = 2 and S = 8, A = 4, in
+    bf16 and float32 (:func:`compare_update`), each launched twice bitwise;
+    (b) the fully fused PPO iteration at config 5's shape through
+    ``train_iteration`` and ``jit_train_iteration`` at :data:`DEEP_FULL`,
+    the captured iterations bitwise the eager ones, K3 x1 + K4 x16 an
+    iteration, with the iteration's ms, K3's and K4's (and K7's) device ms
+    against their bounds and the deep instantiation's scratch, and K4 (and
+    K7) on the iteration's first minibatch against the plain version
+    (:func:`full_minibatch_close`); (c) one float32 iteration with
+    ``fused_update`` against the engine's autograd update from the same
+    state and key (tests/test_fused_ppo.py:74-113) at (32, 32) and (64,),
+    both layouts (K7 on the shared trunk, K4 on the towers); (d) the deep
+    instantiations' registers, stack, spills and HMMA, the two-layer ones'
+    report against :data:`TWO_LAYER_PTXAS`.  Returns the kernels-line
+    figures of K4 and K7."""
+    import dataclasses
+
+    from mbt_gym_torch import compiled, init_train_state, train_iteration
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.agents.ppo import PPOConfig, jit_train_iteration, normalise
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import fused_ppo
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.utils.config import as_env_config
+
+    t_start = time.perf_counter()
+    figures = {"K4": {}, "K7": {}}
+    err = {"K4": 0.0, "K7": 0.0}
+
+    # ---- 28a: every trunk against the plain versions
+    t0 = time.perf_counter()
+    t_steps, nb = DEEP_EDGE
+    for hidden, layouts in DEEP_TRUNKS:
+        for shared in layouts:
+            for s_dim, a_dim in ((4, 2), (8, 4)):
+                model = init_actor_critic(28, s_dim, a_dim, hidden=hidden, shared_trunk=shared, device=dev)
+                with torch.no_grad():
+                    model.log_std.add_(0.05)
+                rows = update_samples(torch, np, model, t_steps, nb, 280 + s_dim, dev)
+                calls = [("K4", fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain,
+                          feature_major(rows, t_steps, nb))]
+                if shared:
+                    calls.append(("K7", fused_ppo.ppo_fused_grads, fused_ppo.ppo_fused_grads_plain, rows))
+                for kernel, fn, plain, args in calls:
+                    for dtype in ("bfloat16", "float32"):
+                        label = (f"phase 28a {kernel} {'x'.join(map(str, hidden))} "
+                                 f"{'shared' if shared else 'towers'} S={s_dim} A={a_dim} {dtype}")
+                        grads, metrics = fn(model, *args, compute_dtype=dtype)
+                        again = fn(model, *args, compute_dtype=dtype)
+                        torch.cuda.synchronize()
+                        worst = compare_update(torch, grads, metrics, model, args, plain, rows, dtype, label)
+                        err[kernel] = max(err[kernel], worst)
+                        check_repeat(torch, (grads, metrics), again, label)
+    _build.reset_launch_counts()  # 28a's launches compare; they are not the main path's
+    print(f"phase 28a ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 28b: the fully fused iteration at config 5's shape, eager and captured
+    t0 = time.perf_counter()
+    env5 = dataclasses.replace(as_env_config(num_trajectories=PPO_N), normalise_observation_space=True,
+                               normalise_action_space=True)
+    steps = env5.n_steps
+    nb5 = PPO_N // PPO_MINIBATCHES
+    m5 = steps * nb5
+    per_iteration = {"mlp_rollout": 1, "ppo_fused_grads_T": PPO_MINIBATCHES}
+    path = {name: 0 for name in _build.launch_counts}
+    for hidden, shared in DEEP_FULL:
+        tag = f"{'x'.join(map(str, hidden))} {'shared' if shared else 'towers'}"
+        pcfg = PPOConfig(hidden=hidden, n_epochs=1, n_minibatches=PPO_MINIBATCHES, shuffle=False,
+                         compute_dtype="bfloat16", shared_trunk=shared, fused_rollout=True, fused_update=True)
+        ts0 = init_train_state(env5, pcfg, 281)
+        _build.reset_launch_counts()
+        eager, ts = [], ts0
+        for i in range(DEEP_ITERATIONS):
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)  # no autograd fallback
+                ts, m = train_iteration(env5, pcfg, ts, 282 + i)
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in _build.launch_counts.items() if c}
+            check(counts == per_iteration, f"phase 28b {tag} iteration {i + 1}: launches {counts}")
+            for name, c in _build.launch_counts.items():
+                path[name] += c
+            _build.reset_launch_counts()
+            assert_metric_bands(m, f"phase 28b {tag} iteration {i + 1}")
+            eager.append((ts, m))
+        captured, ts = [], ts0
+        for i in range(DEEP_ITERATIONS):
+            t_first = time.perf_counter()
+            ts, m = jit_train_iteration(env5, pcfg, ts, 282 + i)
+            torch.cuda.synchronize()
+            if i == 0:
+                first_s = time.perf_counter() - t_first
+            else:  # a replay: its launches alone
+                counts = {n: c for n, c in _build.launch_counts.items() if c}
+                check(counts == per_iteration, f"phase 28b {tag}: a replay launches {counts}")
+            for name, c in _build.launch_counts.items():
+                path[name] += c
+            _build.reset_launch_counts()
+            captured.append((ts, m))
+        for i, ((ets, em), (cts, cm)) in enumerate(zip(eager, captured)):
+            check(same_bits(torch, cts.params, ets.params) and same_bits(torch, cts.opt_state, ets.opt_state)
+                  and same_bits(torch, cm, em),
+                  f"phase 28b {tag}: iteration {i + 1} captured is not eager bit for bit")
+        eager_ms = statistics.median(wall_ms(torch, lambda: train_iteration(env5, pcfg, ts0, 290)))
+        jit_ms = statistics.median(wall_ms(torch, lambda: jit_train_iteration(env5, pcfg, ts0, 290)))
+        compiled.clear_cache()
+        # the kernels at this trunk, timed apart from the main path's launches
+        model = ts0.params
+        tb = mr.collect_rollout_fused_T(env5, model, 291, device=dev)
+        mb = [x[..., :nb5] for x in (tb.obs_t, tb.actions_t, tb.log_probs, tb.advantages, tb.returns)]
+        mb[3] = normalise(mb[3])
+        p = mr.rollout_params_from_config(env5)
+        k3_ms, _ = kernel_ms(torch, lambda: mr.mlp_rollout(p, model, 9, PPO_N, device=dev), warmup=1, reps=3)
+        k4_ms, k4_call = kernel_ms(torch, lambda: fused_ppo.ppo_fused_grads_T(model, *mb), warmup=1, reps=5,
+                                   label=f"phase 28b K4 {tag} at {steps}x{nb5}")
+        k4_plain = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_T_plain(model, *mb), warmup=1, reps=2)
+        # the kernels against the plain version on this minibatch, which the
+        # deep instantiations run in chunks
+        rows = [x.permute(0, 2, 1).reshape(m5, -1) if x.dim() == 3 else x.reshape(-1) for x in mb]
+        scales = metric_scales(torch, model, rows)
+        rel = {"K4": full_minibatch_close(torch, fused_ppo.ppo_fused_grads_T(model, *mb),
+                                          fused_ppo.ppo_fused_grads_T_plain(model, *mb), hidden, scales,
+                                          f"phase 28b K4 {tag} at {steps}x{nb5}")}
+        towers = 1 if shared else 2
+        per_sample = (4 + 2 + 3) * 4
+        k4_bound = bound_ms(per_sample * m5, ppo_grad_flops_at(4, hidden, 2, towers) * m5, BF16_OPS_PER_S)
+        k3_bound = bound_ms((4 + 2 + 3) * 4 * PPO_N * steps, mlp_flops_at(4, hidden, 2, towers) * PPO_N * steps,
+                            BF16_OPS_PER_S)
+        shape = fused_ppo.check_kernel_limits(model, nb5, 4, 2, "K4")
+        scratch = (fused_ppo.deep_layout(shape, m5 // 32, 4, 2, True)["stage_bytes"]
+                   if len(hidden) != 2 else 0)
+        key = "x".join(map(str, hidden)) + ("" if shared else "_towers")
+        figures["K4"].update({f"deep_{key}_ms": k4_ms, f"deep_{key}_call_ms": k4_call,
+                              f"deep_{key}_plain_ms": k4_plain, f"deep_{key}_bound_ms": k4_bound[0],
+                              f"deep_{key}_scratch_bytes": scratch, f"deep_{key}_rel_err": rel["K4"]})
+        print(f"phase 28b [{card}] fully fused train_iteration {tag} at config 5 ({PPO_N}x{steps}, 16 minibatches): "
+              f"eager {eager_ms} ms, captured {jit_ms} ms = {PPO_N * steps / jit_ms * 1e3} env-steps/s; first "
+              f"captured call {first_s:.2f} s; {DEEP_ITERATIONS} captured iterations bitwise the eager ones; "
+              f"launches {per_iteration} an iteration; K3 {k3_ms} ms on the device; K4 {k4_ms} ms on the device "
+              f"(call {k4_call} ms, plain {k4_plain} ms), bound {k4_bound[0]} ms ({k4_bound[1]}), "
+              f"{k4_bound[0] / k4_ms:.1%} of bound; K3 bound {k3_bound[0]} ms ({k3_bound[1]}); deep scratch {scratch} bytes")
+        if shared:  # K7 on the same samples, row-major
+            k7_ms, k7_call = kernel_ms(torch, lambda: fused_ppo.ppo_fused_grads(model, *rows), warmup=1, reps=5,
+                                       label=f"phase 28b K7 {tag} at {m5} samples")
+            k7_plain = cuda_ms(torch, lambda: fused_ppo.ppo_fused_grads_plain(model, *rows), warmup=1, reps=2)
+            rel["K7"] = full_minibatch_close(torch, fused_ppo.ppo_fused_grads(model, *rows),
+                                             fused_ppo.ppo_fused_grads_plain(model, *rows), hidden, scales,
+                                             f"phase 28b K7 {tag} at {m5} samples")
+            figures["K7"].update({f"deep_{key}_ms": k7_ms, f"deep_{key}_call_ms": k7_call,
+                                  f"deep_{key}_plain_ms": k7_plain, f"deep_{key}_bound_ms": k4_bound[0],
+                                  f"deep_{key}_rel_err": rel["K7"]})
+            print(f"phase 28b [{card}] K7 {tag} at {m5} samples: {k7_ms} ms on the device (call {k7_call} ms, "
+                  f"plain {k7_plain} ms), bound {k4_bound[0]} ms, {k4_bound[0] / k7_ms:.1%} of bound")
+        _build.reset_launch_counts()
+        del tb, mb, rows, eager, captured
+    print(f"phase 28b launches on the slice's main path: { {k: c for k, c in path.items() if c} }")
+    check(path["ppo_fused_grads_T"] > 0 and path["mlp_rollout"] > 0, "phase 28b: K3 or K4 was not launched")
+    print(f"phase 28b ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 28c: JAX's drift check, float32 fused update against autograd
+    t0 = time.perf_counter()
+    env_small = dataclasses.replace(as_env_config(num_trajectories=DRIFT_N, n_steps=DRIFT_T),
+                                    normalise_observation_space=True, normalise_action_space=True)
+    for hidden in ((32, 32), (64,)):
+        for shared in (True, False):
+            base = PPOConfig(hidden=hidden, n_epochs=2, n_minibatches=2, shuffle=False, shared_trunk=shared,
+                             ent_coef=0.01)
+            fused = dataclasses.replace(base, fused_update=True, fused_compute_dtype="float32")
+            ts0 = init_train_state(env_small, base, 0)
+            ts_ref, m_ref = train_iteration(env_small, base, ts0, 7)
+            _build.reset_launch_counts()
+            ts_fused, m_fused = train_iteration(env_small, fused, ts0, 7)
+            torch.cuda.synchronize()
+            kernel = "ppo_fused_grads" if shared else "ppo_fused_grads_T"
+            check(_build.launch_counts[kernel] == 4, f"phase 28c: {dict(_build.launch_counts)}")
+            path[kernel] += 4
+            label = f"phase 28c {'x'.join(map(str, hidden))} {'shared (K7)' if shared else 'towers (K4)'}"
+            drift = 0.0
+            for (name, want), got in zip(ts_ref.params.named_parameters(), ts_fused.params.parameters()):
+                torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-6, msg=lambda m: f"{label} {name}: {m}")
+                drift = max(drift, float((got - want).detach().abs().max()))
+            for name in ("pg_loss", "vf_loss", "approx_kl", "entropy"):
+                torch.testing.assert_close(m_fused[name], m_ref[name], rtol=1e-3, atol=1e-5,
+                                           msg=lambda m: f"{label} {name}: {m}")
+            print(f"{label}: one float32 fused iteration against autograd, params max abs drift {drift:.3g}, "
+                  f"metrics {[round(float(m_fused[k]), 6) for k in ('pg_loss', 'vf_loss', 'approx_kl')]} vs "
+                  f"{[round(float(m_ref[k]), 6) for k in ('pg_loss', 'vf_loss', 'approx_kl')]}")
+    _build.reset_launch_counts()
+    print(f"phase 28c ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 28d: the new instantiations in the build's report and SASS
+    report = _build.ptxas_reports.get("fused_ppo.cu", "")
+    deep = kernel_registers(report, ("ppo_deep_pass1", "ppo_deep_pass2"))
+    check(len(deep) == 6, f"phase 28d: {len(deep)} deep instantiations in the ptxas report, not 6")
+    for entry, usage in deep:
+        print(f"phase 28d registers {entry[:100]}: {usage}")
+        check(spill_bytes(usage) == 0, f"phase 28d: {entry} spills: {usage}")
+    for entry, usage in kernel_registers(report, ("ppo_pass1", "ppo_pass2")):
+        want = next((u for name, u in TWO_LAYER_PTXAS.items() if name in entry), None)
+        print(f"phase 28d two-layer {entry[:100]}: {usage} (before: {want})")
+        check(usage == want, f"phase 28d: the two-layer {entry} reports {usage}, before {want}")
+    check_tensor_cores(_build.build("fused_ppo.cu"), "fused_ppo.cu deep", ("ppo_deep_pass",), 6)
+    print(f"phase 28 launches on the slice's main path (28b, 28c): { {k: c for k, c in path.items() if c} }")
+    check(path["ppo_fused_grads"] > 0, "phase 28: K7 was not launched on the slice's main path")
+    figures["K4"].update({"deep_max_rel_err": err["K4"], "deep_launches": path["ppo_fused_grads_T"]})
+    figures["K7"].update({"deep_max_rel_err": err["K7"], "deep_launches": path["ppo_fused_grads"]})
+    print(f"phase 28 ok in {time.perf_counter() - t_start:.1f} s")
+    return figures
+
+
 def as_phases(torch, np, card, dev):
     """Phases 2-6: K1 and K2 against their plain versions at the pipeline
     and the wide shape, the AS main path through the public entry points
@@ -4177,16 +4576,31 @@ def main():
 
     # ---- phases 1 (K1/K2), 7 (K3/K4), 13 (K5/K6/K8) and 18 (K7, the
     # towers modes): build every kernel source, one nvcc each, all started
-    # together, with -Xptxas -v
+    # together, with -Xptxas -v.  Phases 2-6 start once K1/K2's source is
+    # built and phases 8-12 once K3's and K4's are, beside the longer builds.
     t0 = time.perf_counter()
     sources = _build.SOURCES
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(lambda src: _build.build(src, ptxas_verbose=True), sources))
-    ep._kernels()
-    print(f"phase 1/7/13/18 build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+    seconds = {}
 
+    def build(src):
+        _build.build(src, ptxas_verbose=True)
+        seconds[src] = round(time.perf_counter() - t0, 1)
+
+    pool = ThreadPoolExecutor(len(sources))
+    builds = {src: pool.submit(build, src) for src in sources}
+
+    def built(*names):
+        for src in names or sources:
+            builds[src].result()
+
+    built("as_episode.cu")
+    ep._kernels()
     kernels, as_kernel_ms = as_phases(torch, np, card, dev)
+    built("mlp_rollout.cu", "fused_ppo.cu")
     kernels += ppo_phases(torch, np, card, dev)
+    built()
+    pool.shutdown()
+    print(f"phase 1/7/13/18 build: {', '.join(sources)}, each done after {seconds} s")
     kernels += cj_phases(torch, np, card, dev, as_kernel_ms=as_kernel_ms)
     k7, towers_figures = update_phases(torch, np, card, dev)
     k3_pnl_ms = next(entry["ms"] for entry in kernels if entry["name"].startswith("K3"))
@@ -4196,6 +4610,7 @@ def main():
     surface_figures = surface_phases(torch, np, card, dev)
     speed_figures_ = speed_phases(torch, np, card, dev, k3_pnl_ms)
     compiled_figures = compiled_phases(torch, np, card, dev)
+    deep_figures = deep_trunk_phases(torch, np, card, dev)
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))
         entry.update(cj_figures.get(entry["name"][:2], {}))
@@ -4204,7 +4619,9 @@ def main():
         entry.update(surface_figures.get(entry["name"][:2], {}))
         entry.update(speed_figures_.get(entry["name"][:2], {}))
         entry.update(compiled_figures.get(entry["name"][:2], {}))
+        entry.update(deep_figures.get(entry["name"][:2], {}))
     k7.update(compiled_figures["K7"])
+    k7.update(deep_figures["K7"])
     kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
     for entry in rank_by_gap(kernels):
         print(f"rank [{card}] {entry['name']}: {entry['launches']} launches x ({entry['ms']} - {entry['bound_ms']}) ms "

@@ -23,11 +23,14 @@ pi/vf towers, the default, or ``shared_trunk=True``), routed as
 - both: the fully **fused** path, K3's feature-major buffers feeding K4
   directly, minibatches being contiguous env slices (``shuffle=False``).
 
-K4 and K7 take at most ``fused_ppo.MAX_S`` (8) observation columns: on a
-wider config (the all-axes composite, S = 9) ``fused_update`` is refused
-by name (:func:`fused_update_refusal`, issued as a ``RuntimeWarning``)
-and the update runs on autograd, after the K3 rollout where
-``fused_rollout`` asks for it.
+K4 and K7 take the trunks K3 takes (1-8 layers, each per-tower width a
+multiple of 4 up to 256; the wrappers pad the widths to multiples of 64
+with exact zeros), on every fused path.  They take at most
+``fused_ppo.MAX_S`` (8) observation columns: on a wider config (the
+all-axes composite, S = 9) ``fused_update`` is refused by name
+(:func:`fused_update_refusal`, issued as a ``RuntimeWarning``) and the
+update runs on autograd, after the K3 rollout where ``fused_rollout`` asks
+for it.
 
 ``mesh=`` (a :class:`mbt_gym_torch.parallel.mesh.Mesh`) makes
 :func:`collect_rollout`, :func:`train_iteration` and :func:`train_chunk`

@@ -23,13 +23,24 @@ own parameter layout: a ``{parameter name: tensor}`` dict in
   ``(M, A)``, old log-probs, advantages and returns ``(M,)``, the shared
   trunk (the JAX kernel's contract).
 
-The CUDA kernels take a two-layer trunk with per-tower widths a multiple of
-64 up to 256 (the repo's 256x256 production model; a stacked carry of 512
-with towers), ``S <= 8``, ``A <= 4`` and a sample count per step (``nb``,
-or ``M``) a multiple of 32; the wrappers raise ``ValueError`` naming the
-limit otherwise.  TPU-only parts are dropped: the T padding to a multiple
-of 8 and its mask, ``swap_dw0``, the 128-lane metrics row and the VMEM tile
-search.
+The CUDA kernels take the trunks K3 takes: 1 to ``MAX_LAYERS`` (8)
+layers, each per-tower width a multiple of 4 up to ``MAX_WIDTH`` (256),
+with ``S <= 8``, ``A <= 4`` and a sample count per step (``nb``, or ``M``)
+a multiple of 32; the wrappers raise ``ValueError`` naming the limit
+otherwise.  Two layers run the kernels' two-layer instantiations, any other
+depth their deep ones (``csrc/fused_ppo.cu`` says how they differ).
+Before a launch every hidden width is padded to a multiple of 64
+(:func:`pad_transposed`; a pass-2 CTA owns 64 rows of a layer, and its dW
+warp tiles split the layer's input width into four runs of 16-column mma
+tiles), each tower inside its own block: the new rows of a layer's weight
+and bias are zero, and so are the columns of the next layer or head that
+read them.  The padding is exact: a padded unit computes tanh(0) = 0,
+every term it adds to a sum downstream is an exact zero, its own dz is
+zero (its dh reads only zero columns), so its weight and bias gradients
+are exact zeros, and the gradients of the real entries are unchanged;
+:func:`unpad_transposed` slices them back to the caller's shapes.
+TPU-only parts are dropped: the T padding to a multiple of 8 and its mask,
+``swap_dw0``, the 128-lane metrics row and the VMEM tile search.
 
 CPU tensors run the plain versions; CUDA tensors launch the kernel or
 raise.  The plain versions take any trunk depth and repeat the kernels'
@@ -45,28 +56,42 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from mbt_gym_torch.ops import _build
-from mbt_gym_torch.ops.mlp_rollout import bf16_round, full_float32_matmul, pack_mma_a, transpose_params
+from mbt_gym_torch.ops.mlp_rollout import (TransposedParams, bf16_round, full_float32_matmul, pack_mma_a,
+                                           transpose_params)
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _SAMPLE_TILE = 32
 # observation columns K4 and K7 take (csrc/fused_ppo.cu)
 MAX_S = 8
+# trunk layers and per-tower width they take (K3's limits, ops/mlp_rollout.py)
+MAX_LAYERS = 8
+MAX_WIDTH = 256
 _PASS1_CTAS = 256
 _PASS2_PARTS = 64
+_ROW_BLOCK = 64  # a pass-2 CTA's rows (csrc/fused_ppo.cu kRowBlock), the multiple each width is padded to
+# the deep instantiations' staged planes (h_0 .. h_{L-2}, dz_1 .. dz_{L-1}) are
+# bounded by this many bytes: passes 1 and 2 run in turn over chunks of tiles
+_STAGE_BYTES = 1 << 30
+# two-layer trunks run the two-layer instantiations; False sends them through
+# the deep ones too (tree_timing.py times the two side by side)
+_TWO_LAYER_KERNELS = True
 
 
-def _grads_dict(split_at: Optional[tuple], a_dim: int, dws, dbs, dwh, dbh, dlstd) -> Dict[str, torch.Tensor]:
-    """The named grads from the stacked-layout ones: ``dws[i]`` ``(out, in)``
-    per trunk layer (stacked pi then vf rows with towers), ``dwh`` ``(A+1,
-    H)`` of the merged head; with towers only the head's in-block parts."""
+def _grads_dict(g: TransposedParams) -> Dict[str, torch.Tensor]:
+    """The named grads from the stacked-layout ones, held in a
+    :class:`TransposedParams` (``trunk`` the ``(dW (out, in), db)`` of each
+    layer, stacked pi then vf rows with towers; ``w_head`` the ``(A+1, H)``
+    merged head's); with towers only the head's in-block parts."""
+    split_at, a_dim = g.split_at, g.log_std.shape[0]
+    dwh, dbh = g.w_head, g.b_head
     grads = {}
     if split_at is None:
-        for i, (dw, db) in enumerate(zip(dws, dbs)):
+        for i, (dw, db) in enumerate(g.trunk):
             grads[f"shared.{i}.weight"] = dw
             grads[f"shared.{i}.bias"] = db
         grads["pi_head.weight"] = dwh[:a_dim]
@@ -74,7 +99,7 @@ def _grads_dict(split_at: Optional[tuple], a_dim: int, dws, dbs, dwh, dbh, dlstd
         grads["vf_head.weight"] = dwh[a_dim:]
         grads["vf_head.bias"] = dbh[a_dim:]
     else:
-        for i, (dw, db, wo) in enumerate(zip(dws, dbs, split_at)):
+        for i, ((dw, db), wo) in enumerate(zip(g.trunk, split_at)):
             for tower, rows in (("pi", slice(0, wo)), ("vf", slice(wo, 2 * wo))):
                 grads[f"{tower}.{i}.weight"] = dw[rows]
                 grads[f"{tower}.{i}.bias"] = db[rows]
@@ -83,8 +108,51 @@ def _grads_dict(split_at: Optional[tuple], a_dim: int, dws, dbs, dwh, dbh, dlstd
         grads[f"pi.{n}.bias"] = dbh[:a_dim]
         grads[f"vf.{n}.weight"] = dwh[a_dim:, h:].contiguous()
         grads[f"vf.{n}.bias"] = dbh[a_dim:]
-    grads["log_std"] = dlstd
+    grads["log_std"] = g.log_std
     return grads
+
+
+def pad_transposed(tp: TransposedParams, padded: tuple) -> TransposedParams:
+    """``tp`` with each hidden (per-tower) width rounded up to ``padded``,
+    exactly: every new entry is zero, each tower padded inside its own
+    block, so the merged head's off-block zeros stay off-block.  Also takes
+    stacked grads (the same layout).  Tensor ops only, so it runs inside a
+    CUDA-graph capture; returns ``tp`` itself when nothing is padded."""
+    towers = 1 if tp.split_at is None else 2
+    widths = tuple(w.shape[0] // towers for w, _ in tp.trunk)
+    if widths == tuple(padded):
+        return tp
+    trunk = []
+    for li, ((w, b), wo, po) in enumerate(zip(tp.trunk, widths, padded)):
+        wi, pi = (w.shape[1], w.shape[1]) if li == 0 else (widths[li - 1], padded[li - 1])
+        wp = w.new_zeros((towers, po, pi))
+        wp[:, :wo, :wi] = w.reshape(towers, wo, wi)
+        bp = b.new_zeros((towers, po))
+        bp[:, :wo] = b.reshape(towers, wo)
+        trunk.append((wp.reshape(towers * po, pi), bp.reshape(-1)))
+    rows = tp.w_head.shape[0]
+    head = tp.w_head.new_zeros((rows, towers, padded[-1]))
+    head[:, :, :widths[-1]] = tp.w_head.reshape(rows, towers, widths[-1])
+    split_at = None if tp.split_at is None else tuple(padded)
+    return TransposedParams(trunk, head.reshape(rows, -1), tp.b_head, tp.log_std, split_at)
+
+
+def unpad_transposed(tp: TransposedParams, widths: tuple) -> TransposedParams:
+    """The inverse of :func:`pad_transposed`: ``tp`` (padded params or their
+    stacked grads) sliced back to the per-tower ``widths``."""
+    towers = 1 if tp.split_at is None else 2
+    padded = tuple(w.shape[0] // towers for w, _ in tp.trunk)
+    if padded == tuple(widths):
+        return tp
+    trunk = []
+    for li, ((w, b), wo, po) in enumerate(zip(tp.trunk, widths, padded)):
+        wi, pi = (w.shape[1], w.shape[1]) if li == 0 else (widths[li - 1], padded[li - 1])
+        trunk.append((w.reshape(towers, po, pi)[:, :wo, :wi].reshape(towers * wo, wi),
+                      b.reshape(towers, po)[:, :wo].reshape(-1)))
+    rows = tp.w_head.shape[0]
+    head = tp.w_head.reshape(rows, towers, padded[-1])[:, :, :widths[-1]].reshape(rows, -1)
+    split_at = None if tp.split_at is None else tuple(widths)
+    return TransposedParams(trunk, head, tp.b_head, tp.log_std, split_at)
 
 
 def _tower_blocks(x: torch.Tensor, split_at: tuple, li: int):
@@ -95,18 +163,37 @@ def _tower_blocks(x: torch.Tensor, split_at: tuple, li: int):
 
 
 def _plain_grads(params, x: torch.Tensor, act: torch.Tensor, old: torch.Tensor, adv: torch.Tensor,
-                 ret: torch.Tensor, clip_eps: float, vf_coef: float, compute_dtype: str) -> Tuple[Dict, Dict]:
+                 ret: torch.Tensor, clip_eps: float, vf_coef: float, compute_dtype: str,
+                 sum_dtype: torch.dtype) -> Tuple[Dict, Dict]:
     """The plain kernel on feature-major samples: ``x (S, M)``, ``act (A,
-    M)``, ``old``/``adv``/``ret`` ``(M,)``, either layout."""
+    M)``, ``old``/``adv``/``ret`` ``(M,)``, either layout, summing in
+    ``sum_dtype``."""
+    tp = transpose_params(params)
+    if sum_dtype != torch.float32:
+        cast = lambda v: v.to(sum_dtype)  # noqa: E731
+        tp = TransposedParams([(cast(w), cast(b)) for w, b in tp.trunk], cast(tp.w_head), cast(tp.b_head),
+                              cast(tp.log_std), tp.split_at)
+        x, act, old, adv, ret = (cast(v) for v in (x, act, old, adv, ret))
+    grads, metrics = plain_grads_stacked(tp, x, act, old, adv, ret, clip_eps, vf_coef, compute_dtype)
+    return _grads_dict(grads), metrics
+
+
+def plain_grads_stacked(tp: TransposedParams, x: torch.Tensor, act: torch.Tensor, old: torch.Tensor,
+                        adv: torch.Tensor, ret: torch.Tensor, clip_eps: float, vf_coef: float,
+                        compute_dtype: str) -> Tuple[TransposedParams, Dict]:
+    """The plain kernel on the kernels' view of the params (``tp``, any
+    depth and widths): the grads in the same stacked layout, and the
+    metrics."""
     assert compute_dtype in ("bfloat16", "float32"), compute_dtype
     A, m = act.shape
     inv_m = 1.0 / m
-    rnd = bf16_round if compute_dtype == "bfloat16" else (lambda x: x)
+    # bf16 rounding that keeps the dtype (bf16_round for float32 sums)
+    rnd = (lambda v: v.to(torch.bfloat16).to(v.dtype)) if compute_dtype == "bfloat16" else (lambda v: v)
 
     def tanh_grad(h):  # 1 - h*h, in bf16 when the activations are
         return rnd(1.0 - rnd(h * h))
 
-    trunk, w_head, b_head, log_std, split_at = transpose_params(params)
+    trunk, w_head, b_head, log_std, split_at = tp
     trunk = [(w.to(x.device), b.to(x.device)) for w, b in trunk]
     w_head, b_head, log_std = w_head.to(x.device), b_head.to(x.device), log_std.to(x.device)
 
@@ -169,31 +256,36 @@ def _plain_grads(params, x: torch.Tensor, act: torch.Tensor, old: torch.Tensor, 
         "vf_loss": torch.sum((0.5 * vf_err) * vf_err) / m,
         "approx_kl": torch.sum(old - logp) / m,
     }
-    return _grads_dict(split_at, A, dws, dbs, dwh, dbh, dlstd), metrics
+    return TransposedParams(list(zip(dws, dbs)), dwh, dbh, dlstd, split_at), metrics
 
 
 def ppo_fused_grads_T_plain(params, obs_t: torch.Tensor, actions_t: torch.Tensor,
                             old_logp: torch.Tensor, adv: torch.Tensor, returns: torch.Tensor,
-                            clip_eps: float = 0.2, vf_coef: float = 0.5,
-                            compute_dtype: str = "bfloat16") -> Tuple[Dict, Dict]:
+                            clip_eps: float = 0.2, vf_coef: float = 0.5, compute_dtype: str = "bfloat16",
+                            sum_dtype: torch.dtype = torch.float32) -> Tuple[Dict, Dict]:
     """Plain PyTorch K4 on any device; returns what
-    :func:`ppo_fused_grads_T` returns."""
+    :func:`ppo_fused_grads_T` returns.  ``sum_dtype=torch.float64`` keeps
+    the bf16 rounding points and sums in float64: the reference against
+    which the card's checks measure how far two float32 summation orders
+    may drift apart on deep bf16 trunks."""
     T, S, nb = obs_t.shape
     A = actions_t.shape[1]
     m = T * nb
     x = obs_t.permute(1, 0, 2).reshape(S, m)  # samples ordered (t, env)
     act = actions_t.permute(1, 0, 2).reshape(A, m)
     old, adv, ret = (v.reshape(m) for v in (old_logp, adv, returns))
-    return _plain_grads(params, x, act, old, adv, ret, clip_eps, vf_coef, compute_dtype)
+    return _plain_grads(params, x, act, old, adv, ret, clip_eps, vf_coef, compute_dtype, sum_dtype)
 
 
 def ppo_fused_grads_plain(params, obs: torch.Tensor, actions: torch.Tensor, old_logp: torch.Tensor,
                           adv: torch.Tensor, returns: torch.Tensor, clip_eps: float = 0.2,
-                          vf_coef: float = 0.5, compute_dtype: str = "bfloat16") -> Tuple[Dict, Dict]:
+                          vf_coef: float = 0.5, compute_dtype: str = "bfloat16",
+                          sum_dtype: torch.dtype = torch.float32) -> Tuple[Dict, Dict]:
     """Plain PyTorch K7 on any device; returns what
-    :func:`ppo_fused_grads` returns."""
+    :func:`ppo_fused_grads` returns (``sum_dtype`` as for K4's)."""
     _require_shared(params)
-    return _plain_grads(params, obs.T, actions.T, old_logp, adv, returns, clip_eps, vf_coef, compute_dtype)
+    return _plain_grads(params, obs.T, actions.T, old_logp, adv, returns, clip_eps, vf_coef, compute_dtype,
+                        sum_dtype)
 
 
 def _require_shared(params) -> None:
@@ -256,62 +348,153 @@ def _view_rows(x: torch.Tensor, name: str) -> _View:
     return _View(x.data_ptr(), 0, x.stride(0))
 
 
+class DeepKernelParams(ctypes.Structure):
+    """``struct DeepParams`` in ``csrc/fused_ppo.cu``: the deep
+    instantiations' shapes and every offset they address by (see
+    :func:`deep_layout`)."""
+
+    _fields_ = [
+        ("base", PpoKernelParams),
+        ("n_layers", ctypes.c_int),
+        ("h_max", ctypes.c_int),
+        ("stage_rows", ctypes.c_int),
+        ("chunk_tiles", ctypes.c_int),
+        ("p1_db", ctypes.c_int),
+        ("p1_dwh", ctypes.c_int),
+        ("p1_dbh", ctypes.c_int),
+        ("p1_total", ctypes.c_int),
+        ("dw_total", ctypes.c_int),
+        ("widths", ctypes.c_int * MAX_LAYERS),
+        ("w_off", ctypes.c_int * MAX_LAYERS),
+        ("b_off", ctypes.c_int * MAX_LAYERS),
+        ("sh_off", ctypes.c_int * MAX_LAYERS),
+        ("sdz_off", ctypes.c_int * MAX_LAYERS),
+        ("rb_start", ctypes.c_int * (MAX_LAYERS + 1)),
+    ]
+
+
 def _kernels() -> ctypes.CDLL:
     lib = _build.load("fused_ppo.cu")
     if not getattr(lib, "_mbt_declared", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.mbt_ppo_fused_grads_T, lib.mbt_ppo_fused_grads):
+        for fn in (lib.mbt_ppo_fused_grads_T, lib.mbt_ppo_fused_grads, lib.mbt_ppo_deep_grads_T,
+                   lib.mbt_ppo_deep_grads):
             fn.argtypes = [ptr, i32, ptr, i32] + [ptr] * 12 + [ptr]
             fn.restype = i32
         lib._mbt_declared = True
     return lib
 
 
-def check_kernel_limits(params, samples_per_step: int, s_dim: int, a_dim: int, label: str) -> tuple:
-    """``(towers, h0, h1)`` of ``params`` if the CUDA kernels take it with
-    ``samples_per_step`` (``nb``, or ``M`` for K7), ``S`` and ``A``; else
-    ``ValueError`` naming the limit."""
+class KernelShape(NamedTuple):
+    """What :func:`check_kernel_limits` finds the kernels take: the
+    layout (1 shared trunk, 2 stacked towers), the caller's per-tower
+    widths and the widths the kernels run, each padded to a multiple of 64."""
+
+    towers: int
+    widths: tuple
+    padded: tuple
+
+
+def check_kernel_limits(params, samples_per_step: int, s_dim: int, a_dim: int, label: str) -> KernelShape:
+    """The :class:`KernelShape` of ``params`` if the CUDA kernels take it
+    with ``samples_per_step`` (``nb``, or ``M`` for K7), ``S`` and ``A``;
+    else ``ValueError`` naming the limit."""
     tp = transpose_params(params)
     widths = tuple(tp.split_at) if tp.split_at is not None else tuple(w.shape[0] for w, _ in tp.trunk)
-    if len(widths) != 2 or any(w % 64 or not 0 < w <= 256 for w in widths):
+    if not 1 <= len(widths) <= MAX_LAYERS or any(w % 4 or not 0 < w <= MAX_WIDTH for w in widths):
         raise ValueError(
-            f"the {label} kernel takes a two-layer trunk with widths (per tower) a multiple of 64 "
-            f"up to 256; got {widths}"
+            f"the {label} kernel takes 1-{MAX_LAYERS} trunk layers, each (per tower) a multiple of 4 wide and "
+            f"at most {MAX_WIDTH}; got {widths}"
         )
     if samples_per_step % _SAMPLE_TILE or s_dim > MAX_S or a_dim > 4:
         raise ValueError(
             f"the {label} kernel takes a multiple of {_SAMPLE_TILE} samples per step, S <= {MAX_S} and "
             f"A <= 4; got {samples_per_step}, {s_dim}, {a_dim}"
         )
-    return (1 if tp.split_at is None else 2, *widths)
+    padded = tuple(-(-w // _ROW_BLOCK) * _ROW_BLOCK for w in widths)
+    return KernelShape(1 if tp.split_at is None else 2, widths, padded)
+
+
+def _prefix(sizes) -> list:
+    out, total = [], 0
+    for n in sizes:
+        out.append(total)
+        total += n
+    return out
+
+
+def deep_layout(shape: KernelShape, n_tiles: int, s_dim: int, a_dim: int, bf16: bool) -> Dict[str, object]:
+    """The deep instantiations' offsets for ``shape``'s padded widths and a
+    minibatch of ``n_tiles`` tiles of 32 samples (the fields of
+    :class:`DeepKernelParams` but ``base``), and ``stage_bytes``, the staged
+    planes of one chunk of ``chunk_tiles`` tiles (at most ``_STAGE_BYTES``)."""
+    t, w = shape.towers, shape.padded
+    n_layers = len(w)
+    rows = [t * h for h in w]
+    mats = [0] + [rows[li] * w[li - 1] for li in range(1, n_layers)]  # layer li's (stacked out, in) matrix
+    staged = rows[:-1] + rows[1:]  # h_0 .. h_{L-2}, then dz_1 .. dz_{L-1}
+    stage_offsets = _prefix(staged)
+    stage_rows = sum(staged)
+    row_bytes = _SAMPLE_TILE * (2 if bf16 else 4)
+    chunk = n_tiles if stage_rows == 0 else max(1, min(n_tiles, _STAGE_BYTES // (stage_rows * row_bytes)))
+    p1_db = rows[0] * s_dim
+    p1_dwh = p1_db + sum(rows)
+    p1_dbh = p1_dwh + (a_dim + 1) * rows[-1]
+    return dict(
+        n_layers=n_layers, h_max=max(rows), stage_rows=stage_rows, chunk_tiles=chunk,
+        p1_db=p1_db, p1_dwh=p1_dwh, p1_dbh=p1_dbh, p1_total=p1_dbh + (a_dim + 1) + a_dim + 3,
+        dw_total=sum(mats), widths=list(w), w_off=_prefix(mats), b_off=_prefix(rows),
+        sh_off=stage_offsets[:n_layers - 1], sdz_off=[0] + stage_offsets[n_layers - 1:],
+        rb_start=[0] + _prefix([r // _ROW_BLOCK for r in rows[1:]] + [0]),
+        stage_bytes=chunk * stage_rows * row_bytes,
+    )
+
+
+def _base_params(n_steps: int, n_envs: int, s_dim: int, a_dim: int, shape: KernelShape, clip_eps: float,
+                 vf_coef: float) -> PpoKernelParams:
+    return PpoKernelParams(
+        n_steps=n_steps, n_envs=n_envs, s_dim=s_dim, a_dim=a_dim, h0=shape.padded[0], h1=shape.padded[-1],
+        towers=shape.towers, inv_m=1.0 / (n_steps * n_envs), clip_lo=1.0 - clip_eps, clip_hi=1.0 + clip_eps,
+        vf_coef=vf_coef, half_log_2pi=0.5 * _LOG_2PI,
+    )
 
 
 def _launch(entry: str, params, n_steps: int, n_envs: int, s_dim: int, a_dim: int, inputs: _Inputs,
             clip_eps: float, vf_coef: float, compute_dtype: str, device: torch.device,
             label: str) -> Tuple[Dict, Dict]:
-    """Check the layout against the kernel's limits, pack the weights,
-    launch ``entry`` and unpack the grads."""
-    towers, h0, h1 = check_kernel_limits(params, n_envs, s_dim, a_dim, label)
-    trunk, w_head, b_head, log_std, split_at = transpose_params(params)
-    H0, H1 = towers * h0, towers * h1
+    """Check the layout against the kernels' limits, pad the widths, launch
+    ``entry``'s two-layer or deep instantiation and slice the grads back."""
+    shape = check_kernel_limits(params, n_envs, s_dim, a_dim, label)
+    tp = pad_transposed(transpose_params(params), shape.padded)
+    kp = _base_params(n_steps, n_envs, s_dim, a_dim, shape, clip_eps, vf_coef)
+    run = _launch_two_layer if len(shape.padded) == 2 and _TWO_LAYER_KERNELS else _launch_deep
+    grads, sums = run(entry, tp, shape, kp, inputs, compute_dtype == "bfloat16", device)
     m = n_steps * n_envs
-    kp = PpoKernelParams(
-        n_steps=n_steps, n_envs=n_envs, s_dim=s_dim, a_dim=a_dim, h0=h0, h1=h1, towers=towers,
-        inv_m=1.0 / m, clip_lo=1.0 - clip_eps, clip_hi=1.0 + clip_eps, vf_coef=vf_coef,
-        half_log_2pi=0.5 * _LOG_2PI,
-    )
-    bf16 = compute_dtype == "bfloat16"
+    metrics = {"pg_loss": sums[0] / m, "vf_loss": sums[1] / m, "approx_kl": sums[2] / m}
+    return _grads_dict(unpad_transposed(grads, shape.widths)), metrics
+
+
+def _head_operands(tp: TransposedParams, bf16: bool, device: torch.device):
+    w_head = tp.w_head.to(device)
+    w_head = (bf16_round(w_head) if bf16 else w_head).contiguous()
+    return w_head, tp.b_head.to(device).contiguous(), tp.log_std.to(device).contiguous()
+
+
+def _launch_two_layer(entry: str, tp: TransposedParams, shape: KernelShape, kp: PpoKernelParams,
+                      inputs: _Inputs, bf16: bool, device: torch.device) -> Tuple[TransposedParams, torch.Tensor]:
+    """The two-layer instantiation: the stacked grads and the metric sums."""
+    towers, (h0, h1) = shape.towers, shape.padded
+    H0, H1 = towers * h0, towers * h1
+    a_dim, s_dim, m = kp.a_dim, kp.s_dim, kp.n_steps * kp.n_envs
     wdt = torch.bfloat16 if bf16 else torch.float32
-    (w0, b0), (w1, b1) = ((w.to(device), b.to(device)) for w, b in trunk)
+    (w0, b0), (w1, b1) = ((w.to(device), b.to(device)) for w, b in tp.trunk)
     wf0 = w0.T.contiguous().to(wdt)  # (S, H0), stacked (in, out)
     wb1 = w1.reshape(towers, h1, h0).contiguous().to(wdt)  # per tower (out, in)
     wf1 = wb1.transpose(1, 2).contiguous()  # per tower (in, out)
     if bf16:  # the tensor-core passes read both in mma fragment order
         wb1, wf1 = pack_mma_a(wb1.reshape(H1, h0)), pack_mma_a(wf1.reshape(H0, h1))
     bias = torch.cat([b0, b1]).contiguous()
-    w_head = w_head.to(device)
-    w_head = (bf16_round(w_head) if bf16 else w_head).contiguous()
-    b_head, log_std = b_head.to(device).contiguous(), log_std.to(device).contiguous()
+    w_head, b_head, log_std = _head_operands(tp, bf16, device)
     sizes = [H0 * s_dim, H0, H1, (a_dim + 1) * H1, a_dim + 1, a_dim, 3]
     f32 = torch.float32
     dmv = torch.empty((a_dim + 1, m), dtype=f32, device=device)
@@ -329,10 +512,67 @@ def _launch(entry: str, params, n_steps: int, n_envs: int, s_dim: int, a_dim: in
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     dw0, db0, db1, dwh, dbh, dlstd, sums = torch.split(small, sizes)
-    grads = _grads_dict(split_at, a_dim, [dw0.view(H0, s_dim), dw1], [db0, db1], dwh.view(a_dim + 1, H1),
-                        dbh, dlstd)
-    metrics = {"pg_loss": sums[0] / m, "vf_loss": sums[1] / m, "approx_kl": sums[2] / m}
-    return grads, metrics
+    grads = TransposedParams([(dw0.view(H0, s_dim), db0), (dw1, db1)], dwh.view(a_dim + 1, H1), dbh, dlstd,
+                             tp.split_at)
+    return grads, sums
+
+
+_DEEP_ENTRIES = {"mbt_ppo_fused_grads_T": "mbt_ppo_deep_grads_T", "mbt_ppo_fused_grads": "mbt_ppo_deep_grads"}
+
+
+def _launch_deep(entry: str, tp: TransposedParams, shape: KernelShape, kp: PpoKernelParams,
+                 inputs: _Inputs, bf16: bool, device: torch.device) -> Tuple[TransposedParams, torch.Tensor]:
+    """The deep instantiation (any depth; two layers only without
+    ``_TWO_LAYER_KERNELS``): the stacked grads and the metric sums."""
+    towers, w = shape.towers, shape.padded
+    a_dim, s_dim = kp.a_dim, kp.s_dim
+    lay = deep_layout(shape, kp.n_steps * kp.n_envs // _SAMPLE_TILE, s_dim, a_dim, bf16)
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    trunk = [(wl.to(device), bl.to(device)) for wl, bl in tp.trunk]
+    wf0 = trunk[0][0].T.contiguous().to(wdt)  # (S, H0), stacked (in, out)
+    wbs, wfs = [], []
+    for li in range(1, len(w)):
+        wb = trunk[li][0].reshape(towers, w[li], w[li - 1]).to(wdt)  # per tower (out, in)
+        wf = wb.transpose(1, 2).contiguous()  # per tower (in, out)
+        if bf16:  # in mma fragment order, as the two-layer instantiation's W1
+            wbs.append(pack_mma_a(wb.reshape(towers * w[li], w[li - 1])))
+            wfs.append(pack_mma_a(wf.reshape(towers * w[li - 1], w[li])))
+        else:
+            wbs.append(wb.reshape(-1))
+            wfs.append(wf.reshape(-1))
+    none = torch.zeros(1, dtype=wdt, device=device)  # a valid pointer where L = 1 has no such layer
+    wb_all = torch.cat(wbs) if wbs else none
+    wf_all = torch.cat(wfs) if wfs else none
+    bias = torch.cat([bl for _, bl in trunk]).contiguous()
+    w_head, b_head, log_std = _head_operands(tp, bf16, device)
+    f32 = torch.float32
+    stage = torch.empty(max(1, lay["stage_bytes"] // (2 if bf16 else 4)), dtype=wdt, device=device)
+    part1 = torch.empty((_PASS1_CTAS, lay["p1_total"]), dtype=f32, device=device)
+    part2 = torch.empty((_PASS2_PARTS, max(1, lay["dw_total"])), dtype=f32, device=device)
+    small = torch.empty(lay["p1_total"], dtype=f32, device=device)
+    dw = torch.empty(max(1, lay["dw_total"]), dtype=f32, device=device)
+    dp = DeepKernelParams(base=kp, **{k: lay[k] for k in ("n_layers", "h_max", "stage_rows", "chunk_tiles",
+                                                          "p1_db", "p1_dwh", "p1_dbh", "p1_total", "dw_total")})
+    for name in ("widths", "w_off", "b_off", "sh_off", "sdz_off", "rb_start"):
+        getattr(dp, name)[:len(lay[name])] = lay[name]
+    deep = _DEEP_ENTRIES[entry]
+    index, stream = _build.device_stream(device)
+    rc = getattr(_kernels(), deep)(
+        ctypes.byref(dp), index, ctypes.byref(inputs), int(bf16),
+        wf0.data_ptr(), wf_all.data_ptr(), wb_all.data_ptr(), bias.data_ptr(), w_head.data_ptr(),
+        b_head.data_ptr(), log_std.data_ptr(), stage.data_ptr(), part1.data_ptr(), part2.data_ptr(),
+        small.data_ptr(), dw.data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{deep} kernel launch failed: CUDA error {rc}")
+    rows = [towers * h for h in w]
+    dw0 = small[:lay["p1_db"]].view(rows[0], s_dim)
+    dbs = torch.split(small[lay["p1_db"]:lay["p1_dwh"]], rows)
+    dws = [dw0] + [dw[lay["w_off"][li]:lay["w_off"][li] + rows[li] * w[li - 1]].view(rows[li], w[li - 1])
+                   for li in range(1, len(w))]
+    dwh = small[lay["p1_dwh"]:lay["p1_dbh"]].view(a_dim + 1, rows[-1])
+    dbh, dlstd, sums = torch.split(small[lay["p1_dbh"]:], [a_dim + 1, a_dim, 3])
+    return TransposedParams(list(zip(dws, dbs)), dwh, dbh, dlstd, tp.split_at), sums
 
 
 def _device_of(x: torch.Tensor, what: str) -> torch.device:

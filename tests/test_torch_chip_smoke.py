@@ -483,18 +483,19 @@ def test_wall_ms_times_each_call_after_an_untimed_one():
 
 
 def test_eager_timing_times_every_path_at_small_shapes_on_the_cpu():
-    """eager_timing.py's paths run at small shapes on the CPU (the card's
-    are 27d's): each of the five is timed, in the order phase 27d lists
-    them; without a card its command line exits 1 and prints no result."""
+    """tree_timing.py's engine paths run at small shapes on the CPU (the
+    card's are 27d's): each of the five is timed, in the order phase 27d
+    lists them; without a card its command line exits 1 and prints no
+    result."""
     import io
     from contextlib import redirect_stdout
 
     import torch
 
-    import eager_timing
+    import tree_timing
 
-    got = eager_timing.time_paths(torch, "cpu", 2, 1, n_main=128, ppo_n=256, eval_n=128, n_steps=4,
-                                  hidden=(8, 8), minibatches=2)
+    got = tree_timing.time_paths(torch, "cpu", 2, 1, n_main=128, ppo_n=256, eval_n=128, n_steps=4,
+                                 hidden=(8, 8), minibatches=2)
     assert list(got) == ["AS engine rollout 128x4", "config 14's 8 engine episodes (128x4)",
                          "engine iteration, config 5 (256x4)", "engine iteration, config 6 (256x4)",
                          "engine iteration, config 10 (256x4)"]
@@ -502,5 +503,103 @@ def test_eager_timing_times_every_path_at_small_shapes_on_the_cpu():
         assert len(row["calls_ms"]) == 2 and row["ms"] > 0 and row["env_steps_per_s"] > 0
     out = io.StringIO()
     with redirect_stdout(out):
-        assert eager_timing.main([]) == 1
+        assert tree_timing.main([]) == 1
+        assert tree_timing.main(["--suite", "update"]) == 1
     assert out.getvalue() == ""
+
+
+def test_tree_timing_digests_the_update_cases_on_the_cpu():
+    """tree_timing.py's update suite at a small shape on the CPU (the plain
+    versions): every case digested, the deep instantiations' two-layer
+    cases beside the two-layer ones (on the CPU both are the plain version,
+    so they agree bit for bit), and a repeated run gives the same digests."""
+    import torch
+
+    import tree_timing
+
+    shapes = dict(ppo_n=256, n_steps=4, minibatches=2)
+    got = tree_timing.run_update(torch, torch.device("cpu"), 1, **shapes)
+    again = tree_timing.run_update(torch, torch.device("cpu"), 1, **shapes)
+    assert got == again
+    assert sorted(got) == sorted([f"config {c} K4 {layout} {dtype}" for c in (5, 10) for layout in ("shared", "towers")
+                                  for dtype in ("bfloat16", "float32", "bfloat16 deep")]
+                                 + ["config 5 K7 shared bfloat16"])
+    for label, row in got.items():
+        assert row["ms"] is None and len(row["grads"]) == 16
+        assert row.get("rel_vs_plain", 0.0) == 0.0 and ("rel_vs_plain" in row) == ("bfloat16" in label)
+        if label.endswith(" deep"):
+            assert row["rel_vs_two_layer"] == 0.0 and row["grads"] == got[label[:-5]]["grads"]
+
+
+@pytest.mark.parametrize("widths,towers,forward,backward", [
+    ((256, 256), 1, 134_656, 267_264),  # test_towers_flop_counts's figures at two layers
+    ((256,), 1, 2 * (4 * 256 + 3 * 256), 2 * (2 * 3 * 256 + 4 * 256)),
+    ((256, 256, 256), 1, 2 * (4 * 256 + 2 * 256 * 256 + 3 * 256), 2 * (2 * 3 * 256 + 4 * 256 * 256 + 4 * 256)),
+    ((256, 256, 256), 2, 2 * (2 * 4 * 256 + 4 * 256 * 256 + 3 * 256),
+     2 * (2 * 3 * 256 + 8 * 256 * 256 + 2 * 4 * 256)),
+])
+def test_flop_counts_at_any_depth(widths, towers, forward, backward):
+    """Phase 28's bounds: every hidden-to-hidden layer adds its product to
+    the forward and its transpose and weight gradient to the backward; the
+    heads read their own tower.  The two-layer counts are the same
+    functions."""
+    assert chip_smoke.mlp_flops_at(4, widths, 2, towers) == forward
+    assert chip_smoke.ppo_grad_flops_at(4, widths, 2, towers) == forward + backward
+    if len(widths) == 2:
+        assert chip_smoke.ppo_grad_flops_per_sample(4, *widths, 2, towers) == forward + backward
+
+
+def test_compare_bf16_bounds_by_the_trunks_float32_drift():
+    """Phase 28a's bf16 check beyond two layers holds each leaf and metric
+    at fixed bounds, whatever the plain version's own float32 drift: a
+    leaf's relative Frobenius error within the bound given, a metric within
+    rtol 1e-4 plus the given share of its terms' mean magnitude plus 1e-7.
+    The limits by depth are DEEP_BF16_LIMITS's: 1e-3 per leaf up to three
+    layers, the bound the shallower trunks are held to."""
+    import torch
+
+    want = {"a": torch.ones(4, dtype=torch.float64), "b": torch.full((2,), 2.0, dtype=torch.float64)}
+    metrics = {"pg_loss": torch.tensor(0.5, dtype=torch.float64)}
+    scales = {"pg_loss": 1.0}  # the terms' mean magnitude: the 0.5 average cancels half of it
+    near = {"a": torch.ones(4) * (1 + 9e-4), "b": want["b"].float()}
+    drifted = ({"a": want["a"] * (1 + 4e-3), "b": want["b"]}, metrics)  # the plain version drifts 4e-3
+    worst = chip_smoke.compare_bf16(torch, near, {"pg_loss": torch.tensor(0.5 + 1.4e-4)}, (want, metrics), scales,
+                                    1e-3, 1e-4, "tight", plain=drifted)
+    assert worst == pytest.approx(9e-4, rel=1e-3)
+    with pytest.raises(chip_smoke.PhaseFailed, match="b: relative Frobenius error"):
+        chip_smoke.compare_bf16(torch, {"a": want["a"], "b": want["b"] * (1 + 2e-3)}, metrics, (want, metrics),
+                                scales, 1e-3, 1e-4, "tight", plain=drifted)
+    with pytest.raises(chip_smoke.PhaseFailed, match="pg_loss"):
+        chip_smoke.compare_bf16(torch, want, {"pg_loss": torch.tensor(0.5 + 1.6e-4)}, (want, metrics), scales,
+                                1e-3, 1e-4, "tight")
+    assert chip_smoke.deep_bf16_limits(3) == chip_smoke.DEEP_BF16_LIMITS[3]
+    assert chip_smoke.deep_bf16_limits(5) == chip_smoke.deep_bf16_limits(8) == chip_smoke.DEEP_BF16_LIMITS[8]
+    assert chip_smoke.DEEP_BF16_LIMITS[3][0] == 1e-3
+
+
+def test_feature_major_reblocks_rows_by_step():
+    """Row-major samples ordered (t, env) as K4's (T, C, nb) and (T, nb)."""
+    import torch
+
+    rows = [torch.arange(24.0).reshape(12, 2), torch.arange(12.0)]
+    obs, flat = chip_smoke.feature_major(rows, 3, 4)
+    assert tuple(obs.shape) == (3, 2, 4) and tuple(flat.shape) == (3, 4)
+    assert float(obs[1, 0, 2]) == float(rows[0][6, 0]) and float(flat[2, 3]) == float(rows[1][11])
+
+
+def test_metric_scales_are_the_terms_mean_magnitudes():
+    """vf_loss's terms are all positive, so its scale is the float32 plain
+    version's vf_loss; the cancelling means sit below their scales."""
+    import numpy as np
+    import torch
+
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import fused_ppo
+
+    model = init_actor_critic(3, 4, 2, hidden=(32, 32), shared_trunk=True, device="cpu")
+    rows = chip_smoke.update_samples(torch, np, model, 4, 32, 5, torch.device("cpu"))
+    scales = chip_smoke.metric_scales(torch, model, rows)
+    _, metrics = fused_ppo.ppo_fused_grads_plain(model, *rows, compute_dtype="float32")
+    assert scales["vf_loss"] == pytest.approx(float(metrics["vf_loss"]), rel=1e-5)
+    for name in ("pg_loss", "approx_kl"):
+        assert 0.0 < abs(float(metrics[name])) < scales[name]

@@ -399,9 +399,10 @@ def test_fused_ppo_rows_kernel_matches_plain_on_the_card(cuda_device, compute_dt
 
 
 def test_update_kernels_refuse_outside_their_limits_on_the_card(cuda_device):
-    """A trunk outside the update kernels' limits, a ragged sample count or
-    a towers minibatch that re-blocks to fewer than 32 lanes raises a
-    ValueError naming the limit, before any launch."""
+    """The update kernels take K3's trunks ((32, 32) and three-layer towers
+    launch); a trunk outside them (nine layers, a width of 258), a ragged
+    sample count or a towers minibatch that re-blocks to fewer than 32
+    lanes raises a ValueError naming the limit, before any launch."""
     from mbt_gym_torch.agents import ppo
     from mbt_gym_torch.agents.networks import init_actor_critic
     from mbt_gym_torch.ops import fused_ppo
@@ -409,14 +410,22 @@ def test_update_kernels_refuse_outside_their_limits_on_the_card(cuda_device):
     m = 1024
     rows = [torch.zeros((m, 4), device=cuda_device), torch.zeros((m, 2), device=cuda_device)]
     rows += [torch.zeros(m, device=cuda_device) for _ in range(3)]
-    narrow = init_actor_critic(0, 4, 2, hidden=(32, 32), shared_trunk=True, device=cuda_device)
-    with pytest.raises(ValueError, match="K7 kernel takes a two-layer trunk"):
-        fused_ppo.ppo_fused_grads(narrow, *rows)
-    towers = init_actor_critic(0, 4, 2, hidden=(64, 64, 64), shared_trunk=False, device=cuda_device)
     feature_major = [x.reshape(8, m // 8, -1).transpose(1, 2).contiguous() if x.dim() == 2 else x.reshape(8, m // 8)
                      for x in rows]
-    with pytest.raises(ValueError, match="K4 kernel takes a two-layer trunk"):
-        fused_ppo.ppo_fused_grads_T(towers, *feature_major)
+    before = dict(_build.launch_counts)
+    narrow = init_actor_critic(0, 4, 2, hidden=(32, 32), shared_trunk=True, device=cuda_device)
+    fused_ppo.ppo_fused_grads(narrow, *rows)
+    towers = init_actor_critic(0, 4, 2, hidden=(64, 64, 64), shared_trunk=False, device=cuda_device)
+    fused_ppo.ppo_fused_grads_T(towers, *feature_major)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ppo_fused_grads"] == before["ppo_fused_grads"] + 1
+    assert _build.launch_counts["ppo_fused_grads_T"] == before["ppo_fused_grads_T"] + 1
+    for hidden in ((64,) * 9, (258,)):
+        outside = init_actor_critic(0, 4, 2, hidden=hidden, shared_trunk=True, device=cuda_device)
+        with pytest.raises(ValueError, match="K7 kernel takes 1-8 trunk layers"):
+            fused_ppo.ppo_fused_grads(outside, *rows)
+        with pytest.raises(ValueError, match="K4 kernel takes 1-8 trunk layers"):
+            fused_ppo.ppo_fused_grads_T(outside, *feature_major)
     wide = init_actor_critic(0, 4, 2, hidden=(64, 64), shared_trunk=True, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 32 samples"):
         fused_ppo.ppo_fused_grads(wide, *(x[: m - 8] for x in rows))
@@ -427,43 +436,25 @@ def test_update_kernels_refuse_outside_their_limits_on_the_card(cuda_device):
         ppo._fused_grads_and_metrics(towers, cfg, odd)
 
 
-def _edge_samples(model, t_steps, nb, seed, device):
-    """Row-major samples of ``model`` (obs, actions, old log-probs with
-    noise of 0.1 on the model's own, normalised advantages, returns) made
-    with numpy, ordered (t, env)."""
-    from mbt_gym_torch.agents import networks
-    from mbt_gym_torch.agents.ppo import normalise
-
-    rng = np.random.default_rng(seed)
-    m = t_steps * nb
-    obs = torch.from_numpy(rng.uniform(-1.0, 1.0, (m, model.obs_dim)).astype(np.float32)).to(device)
-    with torch.no_grad():
-        mean, _ = networks.policy_value(model, obs, "float32")
-        eps = torch.from_numpy(rng.normal(size=(m, model.action_dim)).astype(np.float32)).to(device)
-        actions = mean + torch.exp(model.log_std) * eps
-        logp = networks.gaussian_log_prob(model, mean, actions)
-    old = logp + torch.from_numpy(rng.normal(0.0, 0.1, m).astype(np.float32)).to(device)
-    adv = normalise(torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(device))
-    ret = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(device)
-    return [obs, actions, old, adv, ret]
-
-
-def _feature_major(rows, t_steps, nb):
-    return [x.reshape(t_steps, nb, -1).transpose(1, 2).contiguous() if x.dim() == 2 else x.reshape(t_steps, nb)
-            for x in rows]
-
-
 @pytest.mark.parametrize("dims", [(4, 2), (8, 4)], ids=["S4-A2", "S8-A4"])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nb", [32, 96])
-@pytest.mark.parametrize("hidden", [(64, 64), (128, 192), (256, 256)], ids=["64x64", "128x192", "256x256"])
+@pytest.mark.parametrize("hidden", [(64, 64), (128, 192), (256, 256), (32, 32), (64,), (36, 100), (256, 256, 256),
+                                    (128,) * 8, (256,) * 8],
+                         ids=["64x64", "128x192", "256x256", "32x32", "64", "36x100", "256x256x256", "128x8",
+                              "256x8"])
 def test_update_kernels_at_the_mma_tile_edges(cuda_device, hidden, nb, compute_dtype, dims):
     """K4 (shared trunk and towers) and K7 at the smallest and unequal
-    widths and at 1 and 3 sample tiles per step, at S = 4, A = 2 and at the
-    composite config's S = 8, A = 4 (K4's widest observation), against
-    their plain versions at the limits of the tests above; a second launch
-    on the same minibatch gives bitwise-equal grads and metrics (fixed tile
-    ranges and a fixed-order reduction)."""
+    widths, at one to eight layers (widths padded to multiples of 64 by the
+    wrappers) and at 1 and 3 sample tiles per step, at S = 4, A = 2 and at
+    the composite config's S = 8, A = 4 (K4's widest observation), against
+    their plain versions at the limits of the tests above; bf16 beyond two
+    layers against the plain version's float64-summed evaluation at phase
+    28a's fixed limits (chip_smoke.DEEP_BF16_LIMITS: a float32
+    summation-order difference flips bf16 roundings that the later layers
+    carry on).  A second launch on the same minibatch gives bitwise-equal
+    grads and metrics (fixed tile ranges and a fixed-order reduction)."""
+    from chip_smoke import compare_update, feature_major, update_samples
     from mbt_gym_torch.agents.networks import init_actor_critic
     from mbt_gym_torch.ops import fused_ppo
 
@@ -472,33 +463,80 @@ def test_update_kernels_at_the_mma_tile_edges(cuda_device, hidden, nb, compute_d
         model = init_actor_critic(7, *dims, hidden=hidden, shared_trunk=shared_trunk, device=cuda_device)
         with torch.no_grad():
             model.log_std.add_(0.05)
-        rows = _edge_samples(model, t_steps, nb, 11 + nb, cuda_device)
-        calls = [(fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain, _feature_major(rows, t_steps, nb))]
+        rows = update_samples(torch, np, model, t_steps, nb, 11 + nb, cuda_device)
+        calls = [(fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain, feature_major(rows, t_steps, nb))]
         if shared_trunk:
             calls.append((fused_ppo.ppo_fused_grads, fused_ppo.ppo_fused_grads_plain, rows))
         for kernel, plain, args in calls:
             grads, metrics = kernel(model, *args, compute_dtype=compute_dtype)
             again, again_m = kernel(model, *args, compute_dtype=compute_dtype)
-            want_g, want_m = plain(model, *args, compute_dtype=compute_dtype)
             torch.cuda.synchronize()
-            _assert_update_close(grads, metrics, want_g, want_m, compute_dtype)
+            if len(hidden) <= 2 or compute_dtype == "float32":
+                _assert_update_close(grads, metrics, *plain(model, *args, compute_dtype=compute_dtype), compute_dtype)
+            else:
+                compare_update(torch, grads, metrics, model, args, plain, rows, compute_dtype,
+                               f"{kernel.__name__} {hidden} shared={shared_trunk}")
             for name in grads:
                 assert torch.equal(grads[name], again[name]), name
             for name in metrics:
                 assert torch.equal(metrics[name], again_m[name]), name
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,shared_trunk", [((256, 256, 256), True), ((256, 256, 256), False),
+                                                 ((128,) * 8, True), ((36, 100), True), ((256, 256), False)],
+                         ids=["256x256x256", "256x256x256-towers", "128x8", "36x100", "256x256-towers"])
+def test_deep_update_kernels_over_several_chunks_on_the_card(cuda_device, monkeypatch, hidden, shared_trunk,
+                                                             compute_dtype):
+    """The deep instantiations with their staged scratch cut to two tiles,
+    so that passes 1 and 2 run over 8 chunks of the 15 tiles (the last one
+    ragged), each chunk adding to the partial sums of those before: K4 (and
+    K7 on the shared trunk) against the plain versions at the edge test's
+    limits, a second launch bitwise equal.  The two-layer trunks run the
+    deep instantiations at two layers (``_TWO_LAYER_KERNELS`` off)."""
+    from chip_smoke import compare_update, feature_major, update_samples
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import fused_ppo
+
+    t_steps, nb = 5, 96
+    bf16 = compute_dtype == "bfloat16"
+    model = init_actor_critic(17, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device=cuda_device)
+    with torch.no_grad():
+        model.log_std.add_(0.05)
+    shape = fused_ppo.check_kernel_limits(model, nb, 4, 2, "K4")
+    tile_bytes = fused_ppo.deep_layout(shape, 1, 4, 2, bf16)["stage_bytes"]
+    monkeypatch.setattr(fused_ppo, "_STAGE_BYTES", 2 * tile_bytes)
+    monkeypatch.setattr(fused_ppo, "_TWO_LAYER_KERNELS", False)
+    assert fused_ppo.deep_layout(shape, t_steps * nb // 32, 4, 2, bf16)["chunk_tiles"] == 2
+    rows = update_samples(torch, np, model, t_steps, nb, 23, cuda_device)
+    calls = [(fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain, feature_major(rows, t_steps, nb))]
+    if shared_trunk:
+        calls.append((fused_ppo.ppo_fused_grads, fused_ppo.ppo_fused_grads_plain, rows))
+    for kernel, plain, args in calls:
+        before = _build.launch_counts[kernel.__name__]
+        got = kernel(model, *args, compute_dtype=compute_dtype)
+        again = kernel(model, *args, compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[kernel.__name__] == before + 2
+        compare_update(torch, *got, model, args, plain, rows, compute_dtype,
+                       f"{kernel.__name__} {hidden} shared={shared_trunk} in chunks")
+        for first, second in zip(got, again):
+            for name in first:
+                assert torch.equal(first[name], second[name]), name
+
+
 def test_fused_ppo_bf16_repeat_launch_is_bitwise_equal(cuda_device):
     """K4's bf16 passes, built from the shared tensor-core header (mma.cuh),
     give bitwise-equal grads and metrics on a second launch over the same
     200 x 4,096 minibatch at 256x256, on both layouts."""
+    from chip_smoke import feature_major, update_samples
     from mbt_gym_torch.agents.networks import init_actor_critic
     from mbt_gym_torch.ops import fused_ppo
 
     t_steps, nb = 200, 4096
     for shared_trunk in (True, False):
         model = init_actor_critic(9, 4, 2, hidden=(256, 256), shared_trunk=shared_trunk, device=cuda_device)
-        args = _feature_major(_edge_samples(model, t_steps, nb, 13, cuda_device), t_steps, nb)
+        args = feature_major(update_samples(torch, np, model, t_steps, nb, 13, cuda_device), t_steps, nb)
         grads, metrics = fused_ppo.ppo_fused_grads_T(model, *args, compute_dtype="bfloat16")
         again, again_m = fused_ppo.ppo_fused_grads_T(model, *args, compute_dtype="bfloat16")
         torch.cuda.synchronize()
@@ -1119,6 +1157,19 @@ def test_jit_train_iteration_and_chunk_are_eager_bit_for_bit_on_the_card(cuda_de
     """Two ``jit_train_iteration``s are two eager ``train_iteration``s bit for
     bit (params, Adam state, metrics), with the same kernel launches per
     iteration, and ``jit_train_chunk(3)`` three ``jit_train_iteration``s."""
+    _jit_iterations_are_eager(cuda_device, learner, (64, 64))
+
+
+@pytest.mark.parametrize("learner", ["fused_update-shared", "fused_update-towers", "fully-fused"])
+@pytest.mark.parametrize("hidden", [(64,), (36, 100, 20)], ids=["64", "36x100x20"])
+def test_jit_train_iteration_is_eager_bit_for_bit_at_other_depths_on_the_card(cuda_device, learner, hidden):
+    """The same at a one-layer and a three-layer trunk (its widths padded):
+    K4 and K7's deep instantiations, their zero padding and chunked
+    scratch replay bitwise inside the capture."""
+    _jit_iterations_are_eager(cuda_device, learner, hidden)
+
+
+def _jit_iterations_are_eager(cuda_device, learner, hidden):
     from chip_smoke import same_bits
     from mbt_gym_torch import compiled
     from mbt_gym_torch.agents import ppo
@@ -1132,7 +1183,7 @@ def test_jit_train_iteration_and_chunk_are_eager_bit_for_bit_on_the_card(cuda_de
         "fully-fused": dict(shared_trunk=True, fused_update=True, fused_rollout=True, shuffle=False),
         "k3-autograd": dict(shared_trunk=False, fused_rollout=True),
     }[learner]
-    cfg = ppo.PPOConfig(hidden=(64, 64), n_epochs=2, n_minibatches=4, compute_dtype="bfloat16", **flags)
+    cfg = ppo.PPOConfig(hidden=hidden, n_epochs=2, n_minibatches=4, compute_dtype="bfloat16", **flags)
     ts0 = ppo.init_train_state(env_cfg, cfg, 1, device=cuda_device)
     assert all(g["capturable"] for g in ts0.opt_state.param_groups)
     try:

@@ -1,8 +1,11 @@
 """K4's plain version (mbt_gym_torch.ops.fused_ppo) against the JAX
 package's feature-major fused update run in interpret mode and against
-jax.grad of the JAX loss (as tests/test_fused_ppo.py:113-163), and one
-whole fused PPO iteration against JAX's _fused_iteration_body on the same
-injected noise."""
+jax.grad of the JAX loss (as tests/test_fused_ppo.py:113-163), at every
+trunk shape the CUDA kernels take (one to three layers, widths that the
+kernels pad), the wrappers' exact zero padding, the deep instantiations'
+chunks of staged planes, and whole fused PPO
+iterations against JAX's _fused_iteration_body on the same injected
+noise."""
 import dataclasses
 
 import jax
@@ -17,12 +20,18 @@ from mbt_gym_tpu.utils.config import as_env_config as jax_as_env_config
 
 from mbt_gym_torch import convert
 from mbt_gym_torch.agents import ppo
+from mbt_gym_torch.agents.networks import init_actor_critic
 from mbt_gym_torch.ops import fused_ppo
+from mbt_gym_torch.ops.mlp_rollout import TransposedParams, transpose_params
 from tests.test_torch_env import torch_config
 from tests.test_torch_networks import assert_trees_close, jax_and_port_params, jax_numpy_tree, tree_items
 from tests.test_torch_ppo import _batch
 
 L = 64  # envs per step
+# trunks the CUDA kernels take beyond the two-layer 256x256 one: one layer,
+# narrow and unequal widths (padded to multiples of 64 on the card), three layers
+TRUNKS = [(64,), (32, 32), (36, 100), (24, 16, 8)]
+TRUNK_IDS = ["64", "32x32", "36x100", "24x16x8"]
 
 
 def _feature_major(arrays, t_steps):
@@ -70,7 +79,19 @@ def test_plain_grads_match_jax_interpret_kernel(t_steps, compute_dtype):
     float32: rtol 2e-4 / atol 2e-6.  bf16: the same roundings in both, but
     XLA's CPU backend may keep bf16 intermediates in float32, so a leaf's
     relative Frobenius error is held to 1e-2; metrics to rtol 1e-4."""
-    params, model = jax_and_port_params(True, seed=2)
+    _check_against_interpret_kernel(*jax_and_port_params(True, seed=2), t_steps, compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared", "towers"])
+@pytest.mark.parametrize("hidden", TRUNKS, ids=TRUNK_IDS)
+def test_plain_grads_match_jax_interpret_kernel_at_every_trunk(hidden, shared_trunk, compute_dtype):
+    """The same, on both layouts, at one and three layers and at widths the
+    CUDA kernels pad: the JAX kernel loops over any depth and width."""
+    _check_against_interpret_kernel(*jax_and_port_params(shared_trunk, hidden=hidden, seed=2), 8, compute_dtype)
+
+
+def _check_against_interpret_kernel(params, model, t_steps, compute_dtype):
     inputs = _feature_major(_batch(params, m=t_steps * L, seed=7), t_steps)
     want_g, want_m = jfused.ppo_fused_grads_T(
         params, *(jnp.asarray(x) for x in inputs), clip_eps=0.2, vf_coef=0.5, tile=L, interpret=True,
@@ -104,22 +125,96 @@ def test_env_slice_views_read_in_place():
         torch.testing.assert_close(got_m[name], want_m[name], rtol=0, atol=0)
 
 
+def _stacked_samples(s_dim, a_dim, m, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, (s_dim, m)).astype(np.float32))
+    act = torch.from_numpy(rng.normal(size=(a_dim, m)).astype(np.float32))
+    old = torch.from_numpy((rng.normal(size=m) * 0.3 - 1.5).astype(np.float32))
+    adv, ret = (torch.from_numpy(rng.normal(size=m).astype(np.float32)) for _ in range(2))
+    return x, act, old, adv, ret
+
+
+def _leaves(tp):
+    return [t for pair in tp.trunk for t in pair] + [tp.w_head, tp.b_head, tp.log_std]
+
+
+@pytest.mark.parametrize("shared_trunk", [True, False], ids=["shared", "towers"])
+@pytest.mark.parametrize("hidden", [(36, 100), (32, 32), (20, 44, 8), (64,)], ids=["36x100", "32x32", "20x44x8", "64"])
+def test_padding_to_the_kernel_widths_is_exact(hidden, shared_trunk):
+    """The wrappers pad every hidden width to a multiple of 64 before a
+    launch (each tower inside its block) and slice the grads back.  On
+    float32 CPU tensors, the plain grads of the padded params, sliced back,
+    equal the unpadded plain grads to rtol 1e-6 (atol 1e-6 of the leaf's
+    largest value: the padded products sum their real terms in another
+    blocking), every sliced-off entry is exactly zero, and the params'
+    round trip is exact."""
+    model = init_actor_critic(3, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device="cpu")
+    shape = fused_ppo.check_kernel_limits(model, L, 4, 2, "K4")
+    assert shape == fused_ppo.KernelShape(1 if shared_trunk else 2, hidden, tuple(-(-h // 64) * 64 for h in hidden))
+    tp = transpose_params(model)
+    padded = fused_ppo.pad_transposed(tp, shape.padded)
+    for got, want in zip(_leaves(fused_ppo.unpad_transposed(padded, shape.widths)), _leaves(tp)):
+        assert torch.equal(got, want)
+    samples = _stacked_samples(4, 2, 256, 9)
+    got, got_m = fused_ppo.plain_grads_stacked(padded, *samples, 0.2, 0.5, "float32")
+    want, want_m = fused_ppo.plain_grads_stacked(tp, *samples, 0.2, 0.5, "float32")
+    ones = TransposedParams([(torch.ones_like(w), torch.ones_like(b)) for w, b in want.trunk],
+                            torch.ones_like(want.w_head), want.b_head, want.log_std, want.split_at)
+    for g, keep in zip(_leaves(got), _leaves(fused_ppo.pad_transposed(ones, shape.padded))):
+        assert torch.equal(g * (keep == 0), torch.zeros_like(g))
+    for g, w in zip(_leaves(fused_ppo.unpad_transposed(got, shape.widths)), _leaves(want)):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6 * float(w.abs().max()))
+    for name in want_m:
+        torch.testing.assert_close(got_m[name], want_m[name], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("hidden,shared_trunk,bf16,chunks", [
+    ((256, 256, 256), True, True, 7), ((256, 256, 256), True, False, 13), ((256,) * 8, False, True, 44),
+    ((36, 100, 20), False, True, 5), ((256,), True, True, 1)],
+    ids=["256x256x256", "256x256x256-float32", "256x8-towers", "36x100x20-towers", "256"])
+def test_deep_layout_bounds_the_staged_planes(hidden, shared_trunk, bf16, chunks):
+    """At config 5's minibatch (200 steps x 16,384 envs, 102,400 tiles of
+    32 samples) the deep instantiations stage each tile's hidden-to-hidden
+    inputs h_0 .. h_{L-2} and gradients dz_1 .. dz_{L-1} (padded, stacked
+    widths) in chunks of tiles whose planes take at most ``_STAGE_BYTES``;
+    one layer stages nothing and runs one chunk."""
+    model = init_actor_critic(0, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device="cpu")
+    shape = fused_ppo.check_kernel_limits(model, 16_384, 4, 2, "K4")
+    n_tiles = 200 * 16_384 // 32
+    lay = fused_ppo.deep_layout(shape, n_tiles, 4, 2, bf16)
+    rows = [shape.towers * h for h in shape.padded]
+    assert lay["stage_rows"] == sum(rows[:-1]) + sum(rows[1:])
+    assert lay["stage_bytes"] == lay["chunk_tiles"] * lay["stage_rows"] * 32 * (2 if bf16 else 4)
+    assert lay["stage_bytes"] <= fused_ppo._STAGE_BYTES
+    assert -(-n_tiles // lay["chunk_tiles"]) == chunks
+
+
 def test_fused_iteration_matches_jax_on_injected_noise():
     """One whole fused iteration (K3 rollout -> GAE -> 2 env-slice
     minibatches of K4 grads -> entropy grad -> clip + Adam) against JAX's
     _fused_iteration_body in interpret mode on the same (T, 7, N) channels,
     float32 update, ent_coef 0.01: updated params to rtol 5e-4 / atol 5e-6
     and metrics to rtol 1e-3 (tests/test_fused_ppo.py:98-110)."""
+    _fused_iteration_vs_jax((16, 16))
+
+
+@pytest.mark.parametrize("hidden", [(64,), (24, 16, 8)], ids=["64", "24x16x8"])
+def test_fused_iteration_matches_jax_on_injected_noise_at_other_depths(hidden):
+    """The same whole iteration on a one-layer and a three-layer trunk."""
+    _fused_iteration_vs_jax(hidden)
+
+
+def _fused_iteration_vs_jax(hidden):
     n, t_steps = 128, 8
     jcfg = dataclasses.replace(jax_as_env_config(num_trajectories=n, n_steps=t_steps),
                                normalise_observation_space=True, normalise_action_space=True)
-    kw = dict(hidden=(16, 16), n_epochs=1, n_minibatches=2, shuffle=False, shared_trunk=True, ent_coef=0.01,
+    kw = dict(hidden=hidden, n_epochs=1, n_minibatches=2, shuffle=False, shared_trunk=True, ent_coef=0.01,
               fused_rollout=True, fused_update=True, fused_compute_dtype="float32")
     jcfg_ppo = jppo.PPOConfig(fused_interpret_ok=True, fused_rollout_tile=128, **kw)
     rng = np.random.default_rng(11)
     channels = rng.uniform(size=(t_steps, 7, n)).astype(np.float32)
     channels[:, 4:] = rng.normal(size=(t_steps, 3, n)).astype(np.float32)
-    params, model = jax_and_port_params(True, hidden=(16, 16), seed=6)
+    params, model = jax_and_port_params(True, hidden=hidden, seed=6)
     opt_state = jppo.make_optimizer(jcfg_ppo).init(params)
     want_params, _, want_m = jppo._fused_iteration_body(
         jcfg, jcfg_ppo, params, opt_state, jax.random.PRNGKey(0), noise=jnp.asarray(channels))
