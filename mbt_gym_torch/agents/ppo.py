@@ -23,14 +23,14 @@ pi/vf towers, the default, or ``shared_trunk=True``), routed as
 - both: the fully **fused** path, K3's feature-major buffers feeding K4
   directly, minibatches being contiguous env slices (``shuffle=False``).
 
-K4 and K7 take the trunks K3 takes (1-8 layers, each per-tower width a
-multiple of 4 up to 256; the wrappers pad the widths to multiples of 64
-with exact zeros), on every fused path.  They take at most
-``fused_ppo.MAX_S`` (8) observation columns: on a wider config (the
-all-axes composite, S = 9) ``fused_update`` is refused by name
-(:func:`fused_update_refusal`, issued as a ``RuntimeWarning``) and the
-update runs on autograd, after the K3 rollout where ``fused_rollout`` asks
-for it.
+K4 and K7 take the trunks and observations K3 takes (1-8 layers, each
+per-tower width a multiple of 4 up to 256, the wrappers padding the widths
+to multiples of 64 with exact zeros; at most ``fused_ppo.MAX_S`` (16)
+observation columns, K3's own limit), on every fused path: the all-axes
+composite config (S = 9) trains fully fused.  ``fused_update`` on a config
+observing more columns than that raises ``ValueError`` naming the limit
+(:func:`fused_update_refusal`), as K3 refuses such a rollout; nothing
+falls back to autograd.
 
 ``mesh=`` (a :class:`mbt_gym_torch.parallel.mesh.Mesh`) makes
 :func:`collect_rollout`, :func:`train_iteration` and :func:`train_chunk`
@@ -62,7 +62,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import warnings
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -520,24 +519,22 @@ def _episode_reward(rewards: torch.Tensor, mesh) -> torch.Tensor:
 # ------------------------------------------------------------ entry points
 def fused_update_refusal(env_cfg: EnvConfig) -> Optional[str]:
     """Why the update kernels K4 and K7 cannot take ``env_cfg``'s
-    minibatches, or None: they take at most ``fused_ppo.MAX_S`` observation
-    columns (widening K4 is ROADMAP Queue 2 A.3)."""
+    minibatches, or None: they take at most ``fused_ppo.MAX_S`` (16)
+    observation columns, as K3 does."""
     from mbt_gym_torch.ops.fused_ppo import MAX_S
 
     if env_cfg.state_dim > MAX_S:
-        return (f"the fused update (K4/K7) takes S <= {MAX_S}; the config observes S = {env_cfg.state_dim}, "
-                "so its update runs on autograd")
+        return f"the fused update (K4/K7) takes S <= {MAX_S}; the config observes S = {env_cfg.state_dim}"
     return None
 
 
-def _learner_config(env_cfg: EnvConfig, ppo_cfg: PPOConfig, stacklevel: int = 3) -> PPOConfig:
-    """``ppo_cfg``, with the autograd update where :func:`fused_update_refusal`
-    refuses the kernels, its reason issued as a ``RuntimeWarning``."""
+def check_fused_update(env_cfg: EnvConfig, ppo_cfg: PPOConfig) -> None:
+    """``ValueError`` with :func:`fused_update_refusal`'s reason where
+    ``ppo_cfg`` asks for the update kernels and they cannot take
+    ``env_cfg``."""
     refusal = fused_update_refusal(env_cfg) if ppo_cfg.fused_update else None
-    if refusal is None:
-        return ppo_cfg
-    warnings.warn(refusal, RuntimeWarning, stacklevel=stacklevel)
-    return dataclasses.replace(ppo_cfg, fused_update=False)
+    if refusal is not None:
+        raise ValueError(refusal)
 
 
 def _fully_fused(ppo_cfg: PPOConfig) -> bool:
@@ -616,12 +613,12 @@ def train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrai
     state and the mean metrics (``pg_loss``, ``vf_loss``, ``entropy``,
     ``approx_kl``, ``mean_episode_reward``).  ``key`` is an int seed or a
     ``torch.Generator`` on the parameters' device.  ``noise`` (K3 rollout
-    only) injects K3's ``(T, p.n_channels, N)`` channels.  A config that
-    :func:`fused_update_refusal` refuses takes the autograd update, and the
-    refusal's reason is issued as a ``RuntimeWarning``.  ``mesh`` runs the
+    only) injects K3's ``(T, p.n_channels, N)`` channels.  ``fused_update``
+    on a config that :func:`fused_update_refusal` refuses raises
+    ``ValueError`` with its reason.  ``mesh`` runs the
     iteration data-parallel (see the module docstring); the rollout with
     K3 alone, without the K4 update, is single-device."""
-    ppo_cfg = _learner_config(env_cfg, ppo_cfg)
+    check_fused_update(env_cfg, ppo_cfg)
     device = _device_of(train_state.params)
     k3_key, gen, shuffle_gen = _learner_keys(ppo_cfg, key, mesh,
                                              lambda seed, role: env_lib.make_generator(seed, device))

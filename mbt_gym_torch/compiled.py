@@ -42,7 +42,8 @@ counters read as they do eagerly.
 
 Keys are int seeds: a ``torch.Generator`` raises ``TypeError``.  On the
 CPU every entry point runs its eager function.  On the card a capture
-that fails raises; nothing falls back to the eager path.
+that fails raises; nothing falls back to the eager path, and the caching
+allocator is left as it was before the capture (:func:`_abandon_capture`).
 """
 from __future__ import annotations
 
@@ -190,15 +191,44 @@ def capture(device: torch.device, body: Callable[[], Any], generators: Sequence[
         for gen in generators:
             graph.register_generator_state(gen)
         before = dict(_build.launch_counts)
+        stream, pool = torch.cuda.current_stream(), torch.cuda.graph_pool_handle()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=pool):
                 outputs = body()
+        except BaseException:
+            _abandon_capture(graph, device, stream, pool)
+            raise
         finally:
             launches = {k: v - before[k] for k, v in _build.launch_counts.items() if v != before[k]}
             _build.launch_counts.update(before)
         torch.cuda.synchronize()
         pool_bytes = torch.cuda.memory_reserved() - reserved
     return graph, outputs, launches, time.perf_counter() - t0, pool_bytes
+
+
+def _abandon_capture(graph: torch.cuda.CUDAGraph, device: torch.device, stream: torch.cuda.Stream,
+                     pool) -> None:
+    """Undo what a failed capture leaves behind.  When the stream capture is
+    invalidated (a host read inside it), ``torch.cuda.graph``'s exit raises
+    in PyTorch's ``capture_end`` at ``cudaStreamEndCapture``: before it
+    restores the caller's current ``stream``, and before it stops routing
+    the device's allocations to the graph's memory ``pool`` (whose handle
+    the graph no longer gives).  While a pool is being captured into, the
+    caching allocator releases none of its cached blocks, not on
+    ``empty_cache`` and not when an allocation runs out, so every later
+    allocation's freed memory would stay reserved (8 GiB made, used on
+    another stream and freed after one failed capture stayed reserved:
+    chip_smoke.py phase 27f).  This restores the stream, ends the routing
+    where it is still on, then lets the pool go as a destroyed graph's
+    does."""
+    torch.cuda.set_stream(stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except RuntimeError:  # capture_end got past it: reset releases the pool if the capture ended
+        graph.reset()
+        return
+    torch._C._cuda_releasePool(index, pool)
 
 
 def replay(entry: Entry) -> None:
@@ -394,7 +424,7 @@ def train_iteration(env_cfg, ppo_cfg, train_state, key, mesh=None):
     key, device = _check_train_args(train_state, key)
     if device.type != "cuda":
         return ppo.train_iteration(env_cfg, ppo_cfg, train_state, key, mesh=mesh)
-    ppo_cfg = ppo._learner_config(env_cfg, ppo_cfg, stacklevel=4)
+    ppo.check_fused_update(env_cfg, ppo_cfg)
     device = _cuda(device)
     entry = _iteration_entry(env_cfg, ppo_cfg, train_state, key, mesh, device)
     _load_train_state(entry.inputs.ts, train_state)
@@ -410,7 +440,7 @@ def train_chunk(env_cfg, ppo_cfg, train_state, key, n_iterations: int, mesh=None
     key, device = _check_train_args(train_state, key)
     if device.type != "cuda":
         return ppo.train_chunk(env_cfg, ppo_cfg, train_state, key, n_iterations, mesh=mesh)
-    ppo_cfg = ppo._learner_config(env_cfg, ppo_cfg, stacklevel=4)
+    ppo.check_fused_update(env_cfg, ppo_cfg)
     device = _cuda(device)
     keys = ppo.iteration_keys(key, n_iterations)
     entry = _iteration_entry(env_cfg, ppo_cfg, train_state, keys[0], mesh, device)

@@ -106,26 +106,4 @@ __device__ __forceinline__ void mma_k_block(const uint32_t (&a)[MT][4], const __
   }
 }
 
-// acc[mt][nt] = sum over k < k_dim of w[16 mt + m][k] * act[k][8 nt + n]
-// for one warp: MT 16-row blocks of a bf16 matrix in fragment order (`w`
-// at the first row block's first k block, staged in shared memory: a
-// warp's 16-byte fragment reads cover 512 contiguous bytes) times NT
-// 8-sample tiles of the feature-major activation tile `act` (k_dim rows of
-// stride kLd in shared memory, offset to the first sample).
-template <int MT, int NT, int kLd>
-__device__ __forceinline__ void mma_staged_act(const __nv_bfloat16* w, const __nv_bfloat16* act, int k_dim,
-                                               float (&acc)[MT][NT][4]) {
-  const __nv_bfloat16* b_row = act_b_row<kLd>(act);
-  const __nv_bfloat16* a_frag = w + (threadIdx.x % 32) * 8;
-  zero_acc(acc);
-  for (int k0 = 0; k0 < k_dim; k0 += 16) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      frag_from(a[mt], *reinterpret_cast<const uint4*>(a_frag + mt * k_dim * 16 + k0 / 16 * kBlock));
-    }
-    mma_k_block(a, b_row + k0 * kLd, acc);
-  }
-}
-
 }  // namespace mbt

@@ -23,16 +23,16 @@ own parameter layout: a ``{parameter name: tensor}`` dict in
   ``(M, A)``, old log-probs, advantages and returns ``(M,)``, the shared
   trunk (the JAX kernel's contract).
 
-The CUDA kernels take the trunks K3 takes: 1 to ``MAX_LAYERS`` (8)
-layers, each per-tower width a multiple of 4 up to ``MAX_WIDTH`` (256),
-with ``S <= 8``, ``A <= 4`` and a sample count per step (``nb``, or ``M``)
-a multiple of 32; the wrappers raise ``ValueError`` naming the limit
-otherwise.  Two layers run the kernels' two-layer instantiations, any other
-depth their deep ones (``csrc/fused_ppo.cu`` says how they differ).
-Before a launch every hidden width is padded to a multiple of 64
-(:func:`pad_transposed`; a pass-2 CTA owns 64 rows of a layer, and its dW
-warp tiles split the layer's input width into four runs of 16-column mma
-tiles), each tower inside its own block: the new rows of a layer's weight
+The CUDA kernels take the trunks and observations K3 takes: 1 to
+``MAX_LAYERS`` (8) layers, each per-tower width a multiple of 4 up to
+``MAX_WIDTH`` (256), with ``S <= MAX_S`` (16), ``A <= 4`` and a sample
+count per step (``nb``, or ``M``) a multiple of 32; the wrappers raise
+``ValueError`` naming the limit otherwise.  One instantiation of each
+pass serves every depth (``csrc/fused_ppo.cu``).  Before a launch every
+hidden width is padded to a multiple of 64 (:func:`pad_transposed`; a
+pass-2 CTA owns 64 rows of a layer, and its dW warp tiles split the
+layer's input width into four runs of 16-column mma tiles), each tower
+inside its own block: the new rows of a layer's weight
 and bias are zero, and so are the columns of the next layer or head that
 read them.  The padding is exact: a padded unit computes tanh(0) = 0,
 every term it adds to a sum downstream is an exact zero, its own dz is
@@ -43,14 +43,16 @@ TPU-only parts are dropped: the T padding to a multiple of 8 and its mask,
 ``swap_dw0``, the 128-lane metrics row and the VMEM tile search.
 
 CPU tensors run the plain versions; CUDA tensors launch the kernel or
-raise.  The plain versions take any trunk depth and repeat the kernels'
-arithmetic in both ``compute_dtype``s: with ``"bfloat16"`` every matmul
-operand is rounded to bf16, the saved activations are rounded to bf16, and
-``1 - h*h`` is evaluated in bf16 before it multiplies the float32 ``dh``;
-with ``"float32"`` nothing is rounded.  Their matmuls run with TF32 off.
-(The JAX row-major kernel keeps its saved activations and ``1 - h*h`` in
-float32; both ports round at K4's points, so K7 and K4 agree on the same
-samples.)
+raise.  The plain versions take any trunk depth and S and repeat the
+kernels' arithmetic in both ``compute_dtype``s, each at its JAX kernel's
+rounding points.  With ``"bfloat16"`` every matmul operand is rounded to
+bf16 and summed in float32; K4 (JAX's ``_kernel_T``, ``:276`` and
+``:314``) also rounds the saved activations to bf16 and evaluates
+``1 - h*h`` in bf16 before it multiplies the float32 ``dh``, where K7
+(JAX's ``_kernel``, ``:90-94`` and ``:141-142``) keeps both in float32
+(:func:`plain_grads_stacked`'s ``row_major`` mode).  With ``"float32"``
+nothing is rounded, and K7 and K4 compute the same bits on the same
+samples.  Their matmuls run with TF32 off.
 """
 from __future__ import annotations
 
@@ -61,25 +63,24 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from mbt_gym_torch.ops import _build
+from mbt_gym_torch.ops import mlp_rollout
 from mbt_gym_torch.ops.mlp_rollout import (TransposedParams, bf16_round, full_float32_matmul, pack_mma_a,
                                            transpose_params)
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _SAMPLE_TILE = 32
-# observation columns K4 and K7 take (csrc/fused_ppo.cu)
-MAX_S = 8
+# observation columns K4 and K7 take (csrc/fused_ppo.cu kMaxObs): K3's, so
+# that every rollout K3 takes trains fully fused
+MAX_S = mlp_rollout.MAX_S
 # trunk layers and per-tower width they take (K3's limits, ops/mlp_rollout.py)
 MAX_LAYERS = 8
 MAX_WIDTH = 256
 _PASS1_CTAS = 256
 _PASS2_PARTS = 64
 _ROW_BLOCK = 64  # a pass-2 CTA's rows (csrc/fused_ppo.cu kRowBlock), the multiple each width is padded to
-# the deep instantiations' staged planes (h_0 .. h_{L-2}, dz_1 .. dz_{L-1}) are
-# bounded by this many bytes: passes 1 and 2 run in turn over chunks of tiles
+# the staged planes (h_0 .. h_{L-2}, dz_1 .. dz_{L-1}; K7 in bf16 also h_{L-1})
+# are bounded by this many bytes: passes 1 and 2 run in turn over chunks of tiles
 _STAGE_BYTES = 1 << 30
-# two-layer trunks run the two-layer instantiations; False sends them through
-# the deep ones too (tree_timing.py times the two side by side)
-_TWO_LAYER_KERNELS = True
 
 
 def _grads_dict(g: TransposedParams) -> Dict[str, torch.Tensor]:
@@ -164,34 +165,38 @@ def _tower_blocks(x: torch.Tensor, split_at: tuple, li: int):
 
 def _plain_grads(params, x: torch.Tensor, act: torch.Tensor, old: torch.Tensor, adv: torch.Tensor,
                  ret: torch.Tensor, clip_eps: float, vf_coef: float, compute_dtype: str,
-                 sum_dtype: torch.dtype) -> Tuple[Dict, Dict]:
+                 sum_dtype: torch.dtype, row_major: bool = False) -> Tuple[Dict, Dict]:
     """The plain kernel on feature-major samples: ``x (S, M)``, ``act (A,
     M)``, ``old``/``adv``/``ret`` ``(M,)``, either layout, summing in
-    ``sum_dtype``."""
+    ``sum_dtype``, at K7's rounding points with ``row_major``."""
     tp = transpose_params(params)
     if sum_dtype != torch.float32:
         cast = lambda v: v.to(sum_dtype)  # noqa: E731
         tp = TransposedParams([(cast(w), cast(b)) for w, b in tp.trunk], cast(tp.w_head), cast(tp.b_head),
                               cast(tp.log_std), tp.split_at)
         x, act, old, adv, ret = (cast(v) for v in (x, act, old, adv, ret))
-    grads, metrics = plain_grads_stacked(tp, x, act, old, adv, ret, clip_eps, vf_coef, compute_dtype)
+    grads, metrics = plain_grads_stacked(tp, x, act, old, adv, ret, clip_eps, vf_coef, compute_dtype, row_major)
     return _grads_dict(grads), metrics
 
 
 def plain_grads_stacked(tp: TransposedParams, x: torch.Tensor, act: torch.Tensor, old: torch.Tensor,
                         adv: torch.Tensor, ret: torch.Tensor, clip_eps: float, vf_coef: float,
-                        compute_dtype: str) -> Tuple[TransposedParams, Dict]:
+                        compute_dtype: str, row_major: bool = False) -> Tuple[TransposedParams, Dict]:
     """The plain kernel on the kernels' view of the params (``tp``, any
     depth and widths): the grads in the same stacked layout, and the
-    metrics."""
+    metrics.  In bf16 every matmul operand is rounded; K4's mode also
+    rounds the saved activations and ``1 - h*h``, where ``row_major`` (K7,
+    as JAX's ``_kernel``) keeps both in float32."""
     assert compute_dtype in ("bfloat16", "float32"), compute_dtype
     A, m = act.shape
     inv_m = 1.0 / m
     # bf16 rounding that keeps the dtype (bf16_round for float32 sums)
     rnd = (lambda v: v.to(torch.bfloat16).to(v.dtype)) if compute_dtype == "bfloat16" else (lambda v: v)
+    saved = (lambda v: v) if row_major else rnd  # the saved activations
+    operand = rnd if row_major else (lambda v: v)  # and as matmul operands (K4 saved them rounded)
 
-    def tanh_grad(h):  # 1 - h*h, in bf16 when the activations are
-        return rnd(1.0 - rnd(h * h))
+    def tanh_grad(h):  # 1 - h*h, in bf16 when the saved activations are
+        return 1.0 - h * h if row_major else rnd(1.0 - rnd(h * h))
 
     trunk, w_head, b_head, log_std, split_at = tp
     trunk = [(w.to(x.device), b.to(x.device)) for w, b in trunk]
@@ -200,6 +205,7 @@ def plain_grads_stacked(tp: TransposedParams, x: torch.Tensor, act: torch.Tensor
     def blocks_mm(w, h, li):
         """Layer ``li``'s product: one for the shared trunk and for layer 0,
         else one per tower on its row blocks."""
+        h = operand(h)
         if split_at is None or li == 0:
             return rnd(w) @ h
         wo = split_at[li]
@@ -209,8 +215,8 @@ def plain_grads_stacked(tp: TransposedParams, x: torch.Tensor, act: torch.Tensor
     with full_float32_matmul():
         hs = [rnd(x)]
         for li, (w, b) in enumerate(trunk):
-            hs.append(rnd(torch.tanh(blocks_mm(w, hs[-1], li) + b[:, None])))
-        mv = rnd(w_head) @ hs[-1] + b_head[:, None]
+            hs.append(saved(torch.tanh(blocks_mm(w, hs[-1], li) + b[:, None])))
+        mv = rnd(w_head) @ operand(hs[-1]) + b_head[:, None]
         inv_std = torch.exp(-log_std)[:, None]
         z = (act - mv[:A]) * inv_std
         terms = ((-0.5 * z) * z - log_std[:, None]) - 0.5 * _LOG_2PI
@@ -231,17 +237,17 @@ def plain_grads_stacked(tp: TransposedParams, x: torch.Tensor, act: torch.Tensor
         cv = float(torch.tensor(vf_coef, dtype=f32) * torch.tensor(inv_m, dtype=f32))
         dmv = torch.cat([dlogp * (z * inv_std), (cv * vf_err)[None]], dim=0)  # (A+1, M)
         dh = rnd(w_head).T @ rnd(dmv)
-        dwh = rnd(dmv) @ hs[-1].T
+        dwh = rnd(dmv) @ operand(hs[-1]).T
         dbh = dmv.sum(dim=1)
         dlstd = (dlogp * (z * z - 1.0)).sum(dim=1)
         dws, dbs = [None] * len(trunk), [None] * len(trunk)
         for li in range(len(trunk) - 1, -1, -1):
             dz = dh * tanh_grad(hs[li + 1])
             if split_at is None or li == 0:
-                dws[li] = rnd(dz) @ hs[li].T
+                dws[li] = rnd(dz) @ operand(hs[li]).T
             else:
                 wo = split_at[li]
-                h_pi, h_vf = _tower_blocks(hs[li], split_at, li)
+                h_pi, h_vf = _tower_blocks(operand(hs[li]), split_at, li)
                 dws[li] = torch.cat([rnd(dz[:wo]) @ h_pi.T, rnd(dz[wo:]) @ h_vf.T])
             dbs[li] = dz.sum(dim=1)
             if li > 0:
@@ -281,11 +287,11 @@ def ppo_fused_grads_plain(params, obs: torch.Tensor, actions: torch.Tensor, old_
                           adv: torch.Tensor, returns: torch.Tensor, clip_eps: float = 0.2,
                           vf_coef: float = 0.5, compute_dtype: str = "bfloat16",
                           sum_dtype: torch.dtype = torch.float32) -> Tuple[Dict, Dict]:
-    """Plain PyTorch K7 on any device; returns what
-    :func:`ppo_fused_grads` returns (``sum_dtype`` as for K4's)."""
+    """Plain PyTorch K7 on any device, at JAX K7's rounding points; returns
+    what :func:`ppo_fused_grads` returns (``sum_dtype`` as for K4's)."""
     _require_shared(params)
     return _plain_grads(params, obs.T, actions.T, old_logp, adv, returns, clip_eps, vf_coef, compute_dtype,
-                        sum_dtype)
+                        sum_dtype, row_major=True)
 
 
 def _require_shared(params) -> None:
@@ -305,8 +311,6 @@ class PpoKernelParams(ctypes.Structure):
         ("n_envs", ctypes.c_int),
         ("s_dim", ctypes.c_int),
         ("a_dim", ctypes.c_int),
-        ("h0", ctypes.c_int),
-        ("h1", ctypes.c_int),
         ("towers", ctypes.c_int),
         ("inv_m", ctypes.c_float),
         ("clip_lo", ctypes.c_float),
@@ -349,15 +353,14 @@ def _view_rows(x: torch.Tensor, name: str) -> _View:
 
 
 class DeepKernelParams(ctypes.Structure):
-    """``struct DeepParams`` in ``csrc/fused_ppo.cu``: the deep
-    instantiations' shapes and every offset they address by (see
-    :func:`deep_layout`)."""
+    """``struct DeepParams`` in ``csrc/fused_ppo.cu``: the kernels' shapes
+    and every offset they address by (see :func:`deep_layout`)."""
 
     _fields_ = [
         ("base", PpoKernelParams),
         ("n_layers", ctypes.c_int),
         ("h_max", ctypes.c_int),
-        ("stage_rows", ctypes.c_int),
+        ("tile_bytes", ctypes.c_int),
         ("chunk_tiles", ctypes.c_int),
         ("p1_db", ctypes.c_int),
         ("p1_dwh", ctypes.c_int),
@@ -377,8 +380,7 @@ def _kernels() -> ctypes.CDLL:
     lib = _build.load("fused_ppo.cu")
     if not getattr(lib, "_mbt_declared", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.mbt_ppo_fused_grads_T, lib.mbt_ppo_fused_grads, lib.mbt_ppo_deep_grads_T,
-                   lib.mbt_ppo_deep_grads):
+        for fn in (lib.mbt_ppo_deep_grads_T, lib.mbt_ppo_deep_grads):
             fn.argtypes = [ptr, i32, ptr, i32] + [ptr] * 12 + [ptr]
             fn.restype = i32
         lib._mbt_declared = True
@@ -423,110 +425,72 @@ def _prefix(sizes) -> list:
     return out
 
 
-def deep_layout(shape: KernelShape, n_tiles: int, s_dim: int, a_dim: int, bf16: bool) -> Dict[str, object]:
-    """The deep instantiations' offsets for ``shape``'s padded widths and a
-    minibatch of ``n_tiles`` tiles of 32 samples (the fields of
-    :class:`DeepKernelParams` but ``base``), and ``stage_bytes``, the staged
-    planes of one chunk of ``chunk_tiles`` tiles (at most ``_STAGE_BYTES``)."""
+def deep_layout(shape: KernelShape, n_tiles: int, s_dim: int, a_dim: int, bf16: bool,
+                row_major: bool = False) -> Dict[str, object]:
+    """The kernels' offsets for ``shape``'s padded widths and a minibatch of
+    ``n_tiles`` tiles of 32 samples (the fields of :class:`DeepKernelParams`
+    but ``base``), and ``stage_bytes``, the staged planes of one chunk of
+    ``chunk_tiles`` tiles (at most ``_STAGE_BYTES``).  A tile's planes,
+    ``tile_bytes`` in all, are the h planes then the dz planes, each at its
+    byte offset (``sh_off``, ``sdz_off``), 32 samples a row of the operand
+    type.  K7 in bf16 (``row_major``) stages its h planes in float32 and
+    h_{L-1} as well, since its tanh' reads the float32 activations."""
     t, w = shape.towers, shape.padded
     n_layers = len(w)
     rows = [t * h for h in w]
     mats = [0] + [rows[li] * w[li - 1] for li in range(1, n_layers)]  # layer li's (stacked out, in) matrix
-    staged = rows[:-1] + rows[1:]  # h_0 .. h_{L-2}, then dz_1 .. dz_{L-1}
-    stage_offsets = _prefix(staged)
-    stage_rows = sum(staged)
-    row_bytes = _SAMPLE_TILE * (2 if bf16 else 4)
-    chunk = n_tiles if stage_rows == 0 else max(1, min(n_tiles, _STAGE_BYTES // (stage_rows * row_bytes)))
+    f32_h = bf16 and row_major
+    n_h = n_layers if f32_h else n_layers - 1
+    value_bytes = 2 if bf16 else 4
+    h_bytes = [r * _SAMPLE_TILE * (4 if f32_h else value_bytes) for r in rows[:n_h]]
+    dz_bytes = [r * _SAMPLE_TILE * value_bytes for r in rows[1:]]
+    stage_offsets = _prefix(h_bytes + dz_bytes)  # h_0 .. h_{n_h - 1}, then dz_1 .. dz_{L-1}
+    tile_bytes = sum(h_bytes) + sum(dz_bytes)
+    chunk = n_tiles if tile_bytes == 0 else max(1, min(n_tiles, _STAGE_BYTES // tile_bytes))
     p1_db = rows[0] * s_dim
     p1_dwh = p1_db + sum(rows)
     p1_dbh = p1_dwh + (a_dim + 1) * rows[-1]
     return dict(
-        n_layers=n_layers, h_max=max(rows), stage_rows=stage_rows, chunk_tiles=chunk,
+        n_layers=n_layers, h_max=max(rows), tile_bytes=tile_bytes, chunk_tiles=chunk,
         p1_db=p1_db, p1_dwh=p1_dwh, p1_dbh=p1_dbh, p1_total=p1_dbh + (a_dim + 1) + a_dim + 3,
         dw_total=sum(mats), widths=list(w), w_off=_prefix(mats), b_off=_prefix(rows),
-        sh_off=stage_offsets[:n_layers - 1], sdz_off=[0] + stage_offsets[n_layers - 1:],
+        sh_off=stage_offsets[:n_h], sdz_off=[0] + stage_offsets[n_h:],
         rb_start=[0] + _prefix([r // _ROW_BLOCK for r in rows[1:]] + [0]),
-        stage_bytes=chunk * stage_rows * row_bytes,
+        stage_bytes=chunk * tile_bytes,
     )
 
 
 def _base_params(n_steps: int, n_envs: int, s_dim: int, a_dim: int, shape: KernelShape, clip_eps: float,
                  vf_coef: float) -> PpoKernelParams:
     return PpoKernelParams(
-        n_steps=n_steps, n_envs=n_envs, s_dim=s_dim, a_dim=a_dim, h0=shape.padded[0], h1=shape.padded[-1],
-        towers=shape.towers, inv_m=1.0 / (n_steps * n_envs), clip_lo=1.0 - clip_eps, clip_hi=1.0 + clip_eps,
-        vf_coef=vf_coef, half_log_2pi=0.5 * _LOG_2PI,
+        n_steps=n_steps, n_envs=n_envs, s_dim=s_dim, a_dim=a_dim, towers=shape.towers,
+        inv_m=1.0 / (n_steps * n_envs), clip_lo=1.0 - clip_eps, clip_hi=1.0 + clip_eps, vf_coef=vf_coef,
+        half_log_2pi=0.5 * _LOG_2PI,
     )
 
 
-def _launch(entry: str, params, n_steps: int, n_envs: int, s_dim: int, a_dim: int, inputs: _Inputs,
+def _launch(row_major: bool, params, n_steps: int, n_envs: int, s_dim: int, a_dim: int, inputs: _Inputs,
             clip_eps: float, vf_coef: float, compute_dtype: str, device: torch.device,
             label: str) -> Tuple[Dict, Dict]:
     """Check the layout against the kernels' limits, pad the widths, launch
-    ``entry``'s two-layer or deep instantiation and slice the grads back."""
+    K7 (``row_major``) or K4 and slice the grads back."""
     shape = check_kernel_limits(params, n_envs, s_dim, a_dim, label)
     tp = pad_transposed(transpose_params(params), shape.padded)
     kp = _base_params(n_steps, n_envs, s_dim, a_dim, shape, clip_eps, vf_coef)
-    run = _launch_two_layer if len(shape.padded) == 2 and _TWO_LAYER_KERNELS else _launch_deep
-    grads, sums = run(entry, tp, shape, kp, inputs, compute_dtype == "bfloat16", device)
+    grads, sums = _launch_passes(row_major, tp, shape, kp, inputs, compute_dtype == "bfloat16", device)
     m = n_steps * n_envs
     metrics = {"pg_loss": sums[0] / m, "vf_loss": sums[1] / m, "approx_kl": sums[2] / m}
     return _grads_dict(unpad_transposed(grads, shape.widths)), metrics
 
 
-def _head_operands(tp: TransposedParams, bf16: bool, device: torch.device):
-    w_head = tp.w_head.to(device)
-    w_head = (bf16_round(w_head) if bf16 else w_head).contiguous()
-    return w_head, tp.b_head.to(device).contiguous(), tp.log_std.to(device).contiguous()
-
-
-def _launch_two_layer(entry: str, tp: TransposedParams, shape: KernelShape, kp: PpoKernelParams,
-                      inputs: _Inputs, bf16: bool, device: torch.device) -> Tuple[TransposedParams, torch.Tensor]:
-    """The two-layer instantiation: the stacked grads and the metric sums."""
-    towers, (h0, h1) = shape.towers, shape.padded
-    H0, H1 = towers * h0, towers * h1
-    a_dim, s_dim, m = kp.a_dim, kp.s_dim, kp.n_steps * kp.n_envs
-    wdt = torch.bfloat16 if bf16 else torch.float32
-    (w0, b0), (w1, b1) = ((w.to(device), b.to(device)) for w, b in tp.trunk)
-    wf0 = w0.T.contiguous().to(wdt)  # (S, H0), stacked (in, out)
-    wb1 = w1.reshape(towers, h1, h0).contiguous().to(wdt)  # per tower (out, in)
-    wf1 = wb1.transpose(1, 2).contiguous()  # per tower (in, out)
-    if bf16:  # the tensor-core passes read both in mma fragment order
-        wb1, wf1 = pack_mma_a(wb1.reshape(H1, h0)), pack_mma_a(wf1.reshape(H0, h1))
-    bias = torch.cat([b0, b1]).contiguous()
-    w_head, b_head, log_std = _head_operands(tp, bf16, device)
-    sizes = [H0 * s_dim, H0, H1, (a_dim + 1) * H1, a_dim + 1, a_dim, 3]
-    f32 = torch.float32
-    dmv = torch.empty((a_dim + 1, m), dtype=f32, device=device)
-    part1 = torch.empty((_PASS1_CTAS, sum(sizes)), dtype=f32, device=device)
-    part2 = torch.empty((_PASS2_PARTS, H1, h0), dtype=f32, device=device)
-    small = torch.empty(sum(sizes), dtype=f32, device=device)
-    dw1 = torch.empty((H1, h0), dtype=f32, device=device)
-    index, stream = _build.device_stream(device)
-    rc = getattr(_kernels(), entry)(
-        ctypes.byref(kp), index, ctypes.byref(inputs), int(bf16),
-        wf0.data_ptr(), wf1.data_ptr(), wb1.data_ptr(), bias.data_ptr(), w_head.data_ptr(),
-        b_head.data_ptr(), log_std.data_ptr(), dmv.data_ptr(), part1.data_ptr(), part2.data_ptr(),
-        small.data_ptr(), dw1.data_ptr(), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    dw0, db0, db1, dwh, dbh, dlstd, sums = torch.split(small, sizes)
-    grads = TransposedParams([(dw0.view(H0, s_dim), db0), (dw1, db1)], dwh.view(a_dim + 1, H1), dbh, dlstd,
-                             tp.split_at)
-    return grads, sums
-
-
-_DEEP_ENTRIES = {"mbt_ppo_fused_grads_T": "mbt_ppo_deep_grads_T", "mbt_ppo_fused_grads": "mbt_ppo_deep_grads"}
-
-
-def _launch_deep(entry: str, tp: TransposedParams, shape: KernelShape, kp: PpoKernelParams,
-                 inputs: _Inputs, bf16: bool, device: torch.device) -> Tuple[TransposedParams, torch.Tensor]:
-    """The deep instantiation (any depth; two layers only without
-    ``_TWO_LAYER_KERNELS``): the stacked grads and the metric sums."""
+def _launch_passes(row_major: bool, tp: TransposedParams, shape: KernelShape, kp: PpoKernelParams,
+                   inputs: _Inputs, bf16: bool, device: torch.device) -> Tuple[TransposedParams, torch.Tensor]:
+    """The three passes of K7 (``row_major``) or K4 on the padded ``tp``:
+    the stacked grads and the metric sums."""
     towers, w = shape.towers, shape.padded
     a_dim, s_dim = kp.a_dim, kp.s_dim
-    lay = deep_layout(shape, kp.n_steps * kp.n_envs // _SAMPLE_TILE, s_dim, a_dim, bf16)
+    entry = "mbt_ppo_deep_grads" if row_major else "mbt_ppo_deep_grads_T"
+    lay = deep_layout(shape, kp.n_steps * kp.n_envs // _SAMPLE_TILE, s_dim, a_dim, bf16, row_major)
     wdt = torch.bfloat16 if bf16 else torch.float32
     trunk = [(wl.to(device), bl.to(device)) for wl, bl in tp.trunk]
     wf0 = trunk[0][0].T.contiguous().to(wdt)  # (S, H0), stacked (in, out)
@@ -534,7 +498,7 @@ def _launch_deep(entry: str, tp: TransposedParams, shape: KernelShape, kp: PpoKe
     for li in range(1, len(w)):
         wb = trunk[li][0].reshape(towers, w[li], w[li - 1]).to(wdt)  # per tower (out, in)
         wf = wb.transpose(1, 2).contiguous()  # per tower (in, out)
-        if bf16:  # in mma fragment order, as the two-layer instantiation's W1
+        if bf16:  # in mma fragment order: the tensor-core passes read them so
             wbs.append(pack_mma_a(wb.reshape(towers * w[li], w[li - 1])))
             wfs.append(pack_mma_a(wf.reshape(towers * w[li - 1], w[li])))
         else:
@@ -544,27 +508,28 @@ def _launch_deep(entry: str, tp: TransposedParams, shape: KernelShape, kp: PpoKe
     wb_all = torch.cat(wbs) if wbs else none
     wf_all = torch.cat(wfs) if wfs else none
     bias = torch.cat([bl for _, bl in trunk]).contiguous()
-    w_head, b_head, log_std = _head_operands(tp, bf16, device)
+    w_head = tp.w_head.to(device)
+    w_head = (bf16_round(w_head) if bf16 else w_head).contiguous()
+    b_head, log_std = tp.b_head.to(device).contiguous(), tp.log_std.to(device).contiguous()
     f32 = torch.float32
-    stage = torch.empty(max(1, lay["stage_bytes"] // (2 if bf16 else 4)), dtype=wdt, device=device)
+    stage = torch.empty(max(16, lay["stage_bytes"]), dtype=torch.uint8, device=device)  # the staged planes
     part1 = torch.empty((_PASS1_CTAS, lay["p1_total"]), dtype=f32, device=device)
     part2 = torch.empty((_PASS2_PARTS, max(1, lay["dw_total"])), dtype=f32, device=device)
     small = torch.empty(lay["p1_total"], dtype=f32, device=device)
     dw = torch.empty(max(1, lay["dw_total"]), dtype=f32, device=device)
-    dp = DeepKernelParams(base=kp, **{k: lay[k] for k in ("n_layers", "h_max", "stage_rows", "chunk_tiles",
+    dp = DeepKernelParams(base=kp, **{k: lay[k] for k in ("n_layers", "h_max", "tile_bytes", "chunk_tiles",
                                                           "p1_db", "p1_dwh", "p1_dbh", "p1_total", "dw_total")})
     for name in ("widths", "w_off", "b_off", "sh_off", "sdz_off", "rb_start"):
         getattr(dp, name)[:len(lay[name])] = lay[name]
-    deep = _DEEP_ENTRIES[entry]
     index, stream = _build.device_stream(device)
-    rc = getattr(_kernels(), deep)(
+    rc = getattr(_kernels(), entry)(
         ctypes.byref(dp), index, ctypes.byref(inputs), int(bf16),
         wf0.data_ptr(), wf_all.data_ptr(), wb_all.data_ptr(), bias.data_ptr(), w_head.data_ptr(),
         b_head.data_ptr(), log_std.data_ptr(), stage.data_ptr(), part1.data_ptr(), part2.data_ptr(),
         small.data_ptr(), dw.data_ptr(), stream,
     )
     if rc != 0:
-        raise RuntimeError(f"{deep} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     rows = [towers * h for h in w]
     dw0 = small[:lay["p1_db"]].view(rows[0], s_dim)
     dbs = torch.split(small[lay["p1_db"]:lay["p1_dwh"]], rows)
@@ -602,8 +567,7 @@ def ppo_fused_grads_T(params, obs_t: torch.Tensor, actions_t: torch.Tensor, old_
             raise ValueError(f"{name} must have shape {shape}; got {tuple(x.shape)}")
     inputs = _Inputs(_view_T(obs_t, "obs_t"), _view_T(actions_t, "actions_t"), _view_T(old_logp, "old_logp"),
                      _view_T(adv, "adv"), _view_T(returns, "returns"))
-    out = _launch("mbt_ppo_fused_grads_T", params, T, nb, S, A, inputs, clip_eps, vf_coef, compute_dtype,
-                  device, "K4")
+    out = _launch(False, params, T, nb, S, A, inputs, clip_eps, vf_coef, compute_dtype, device, "K4")
     _build.count_launch("ppo_fused_grads_T")
     return out
 
@@ -629,7 +593,6 @@ def ppo_fused_grads(params, obs: torch.Tensor, actions: torch.Tensor, old_logp: 
             raise ValueError(f"{name} must have shape {shape}; got {tuple(x.shape)}")
     inputs = _Inputs(_view_rows(obs, "obs"), _view_rows(actions, "actions"), _view_rows(old_logp, "old_logp"),
                      _view_rows(adv, "adv"), _view_rows(returns, "returns"))
-    out = _launch("mbt_ppo_fused_grads", params, 1, M, S, A, inputs, clip_eps, vf_coef, compute_dtype,
-                  device, "K7")
+    out = _launch(True, params, 1, M, S, A, inputs, clip_eps, vf_coef, compute_dtype, device, "K7")
     _build.count_launch("ppo_fused_grads")
     return out

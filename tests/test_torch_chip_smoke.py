@@ -510,9 +510,13 @@ def test_eager_timing_times_every_path_at_small_shapes_on_the_cpu():
 
 def test_tree_timing_digests_the_update_cases_on_the_cpu():
     """tree_timing.py's update suite at a small shape on the CPU (the plain
-    versions): every case digested, the deep instantiations' two-layer
-    cases beside the two-layer ones (on the CPU both are the plain version,
-    so they agree bit for bit), and a repeated run gives the same digests."""
+    versions): every case digested (K4 on both layouts and dtypes at
+    configs 5 and 10, K4 beside K7 at S = 8 and 16 and at four trunks, K4
+    at the card edge test's S = 5, A = 1 towers case), a
+    bf16 case's error against the plain version zero (on the CPU the
+    wrapper is the plain version), K4 and K7 on the same samples apart in
+    bf16 (their rounding points differ), and a repeated run gives the same
+    digests."""
     import torch
 
     import tree_timing
@@ -522,13 +526,17 @@ def test_tree_timing_digests_the_update_cases_on_the_cpu():
     again = tree_timing.run_update(torch, torch.device("cpu"), 1, **shapes)
     assert got == again
     assert sorted(got) == sorted([f"config {c} K4 {layout} {dtype}" for c in (5, 10) for layout in ("shared", "towers")
-                                  for dtype in ("bfloat16", "float32", "bfloat16 deep")]
-                                 + ["config 5 K7 shared bfloat16"])
+                                  for dtype in ("bfloat16", "float32")]
+                                 + [f"config 5 {case} {k} shared bfloat16" for k in ("K4", "K7")
+                                    for case in ("S=8", "S=16", "32x32", "64", "256x256", "256x256x256")]
+                                 + ["edge S=5 A=1 K4 towers bfloat16"])
     for label, row in got.items():
+        assert "refused" not in row, label
         assert row["ms"] is None and len(row["grads"]) == 16
         assert row.get("rel_vs_plain", 0.0) == 0.0 and ("rel_vs_plain" in row) == ("bfloat16" in label)
-        if label.endswith(" deep"):
-            assert row["rel_vs_two_layer"] == 0.0 and row["grads"] == got[label[:-5]]["grads"]
+    for case in ("S=16", "256x256x256"):
+        k4, k7 = got[f"config 5 {case} K4 shared bfloat16"], got[f"config 5 {case} K7 shared bfloat16"]
+        assert k4["inputs"] != k7["inputs"] and k4["grads"] != k7["grads"]
 
 
 @pytest.mark.parametrize("widths,towers,forward,backward", [

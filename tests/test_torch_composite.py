@@ -493,32 +493,104 @@ def test_unported_features_fall_back_with_their_names():
     assert (got.backend, got.family) == ("fused", "mlp_rollout")
     axes = torch_config(_with(jcomp, midprice_model=jp.HestonMidprice()))
     assert axes.state_dim == 9
-    assert "takes S <= 8" in ppo.fused_update_refusal(axes) and "S = 9" in ppo.fused_update_refusal(axes)
+    assert ppo.fused_update_refusal(axes) is None
     assert ppo.fused_update_refusal(config.composite_env_config(num_trajectories=N)) is None
-    model = init_actor_critic(0, 9, 4, hidden=(64, 64), shared_trunk=True, device="cpu")
     from mbt_gym_torch.ops import fused_ppo
 
-    with pytest.raises(ValueError, match="S <= 8"):
-        fused_ppo.check_kernel_limits(model, 32, 9, 4, "K4")
+    model = init_actor_critic(0, 9, 4, hidden=(64, 64), shared_trunk=True, device="cpu")
+    assert fused_ppo.check_kernel_limits(model, 32, 9, 4, "K4").padded == (64, 64)
+    wide = init_actor_critic(0, 17, 4, hidden=(64, 64), shared_trunk=True, device="cpu")
+    with pytest.raises(ValueError, match="K4 kernel takes a multiple of 32 samples per step, S <= 16"):
+        fused_ppo.check_kernel_limits(wide, 32, 17, 4, "K4")
 
 
-def test_all_axes_fused_iteration_takes_the_autograd_update():
-    """The all-axes config (S = 9) with fused_rollout and fused_update:
-    K3's rollout (the plain version here) and the autograd update, the
-    same result as asking for the autograd update outright, and the
-    refusal's reason issued as a warning."""
+def _all_axes_learner(n=64):
     from mbt_gym_torch.agents import ppo
 
-    jcfg = dataclasses.replace(_with(jax_config.composite_env_config(num_trajectories=64),
+    jcfg = dataclasses.replace(_with(jax_config.composite_env_config(num_trajectories=n),
                                      midprice_model=jp.HestonMidprice()), n_steps=8, normalise_observation_space=True)
-    cfg = torch_config(jcfg)
     fused = ppo.PPOConfig(hidden=(32, 32), n_minibatches=4, n_epochs=1, shuffle=False, shared_trunk=True,
                           fused_rollout=True, fused_update=True)
+    return jcfg, fused
+
+
+def test_fused_update_refuses_a_config_past_the_kernels_limit(monkeypatch):
+    """``fused_update`` on a config observing more columns than the update
+    kernels take raises ``ValueError`` naming the limit, before anything
+    runs, on the fully fused path, on the engine rollout and through
+    ``jit_train_iteration``: nothing falls back to autograd.  The kernels'
+    limit is cut below the all-axes config's S = 9 here, since K3 refuses
+    any config past the real one (S = 16) itself."""
+    from mbt_gym_torch import compiled
+    from mbt_gym_torch.agents import ppo
+    from mbt_gym_torch.ops import fused_ppo
+
+    jcfg, fused = _all_axes_learner()
+    cfg = torch_config(jcfg)
+    monkeypatch.setattr(fused_ppo, "MAX_S", 8)
     ts = ppo.init_train_state(cfg, fused, 0, device="cpu")
-    with pytest.warns(RuntimeWarning, match=r"takes S <= 8; the config observes S = 9") as caught:
-        a, ma = ppo.train_iteration(cfg, fused, ts, 3)
-    assert any(str(w.message) == ppo.fused_update_refusal(cfg) for w in caught)
-    b, mb = ppo.train_iteration(cfg, dataclasses.replace(fused, fused_update=False), ts, 3)
-    for x, y in zip(a.params.parameters(), b.params.parameters()):
-        assert torch.equal(x, y)
-    assert {k: float(v) for k, v in ma.items()} == {k: float(v) for k, v in mb.items()}
+    want = ppo.fused_update_refusal(cfg)
+    assert want == "the fused update (K4/K7) takes S <= 8; the config observes S = 9"
+
+    def ran(*args, **kw):
+        raise AssertionError("the iteration ran")
+
+    monkeypatch.setattr(ppo, "collect_rollout", ran)
+    monkeypatch.setattr(ppo, "_fused_update_body", ran)
+    for pcfg in (fused, dataclasses.replace(fused, fused_rollout=False, shuffle=True)):
+        with pytest.raises(ValueError, match=r"takes S <= 8; the config observes S = 9"):
+            ppo.train_iteration(cfg, pcfg, ts, 3)
+        with pytest.raises(ValueError, match=r"takes S <= 8; the config observes S = 9"):
+            ppo.check_fused_update(cfg, pcfg)
+    ppo.check_fused_update(cfg, dataclasses.replace(fused, fused_update=False))
+    monkeypatch.setattr(compiled, "_check_train_args", lambda train_state, key: (key, torch.device("cuda", 0)))
+    monkeypatch.setattr(compiled, "_cuda", ran)
+    with pytest.raises(ValueError, match=r"takes S <= 8; the config observes S = 9"):
+        compiled.train_iteration(cfg, fused, ts, 3)
+
+
+def test_all_axes_config_trains_fully_fused(monkeypatch):
+    """The all-axes config (S = 9) trains fully fused: one iteration with
+    fused_rollout and fused_update issues no warning, calls K4 once per
+    minibatch (4) on the rollout's env slices and nothing of autograd, and
+    each call's grads and metrics are bit for bit the plain K4 on the same
+    minibatch."""
+    import warnings
+
+    from mbt_gym_torch.agents import ppo
+    from mbt_gym_torch.ops import fused_ppo
+
+    jcfg, fused = _all_axes_learner()
+    cfg = torch_config(jcfg)
+    calls = []
+    k4 = fused_ppo.ppo_fused_grads_T
+
+    def recorded(params, *args, **kw):
+        out = k4(params, *args, **kw)
+        calls.append(([a.clone() for a in args], kw, out))
+        return out
+
+    def autograd(*args, **kw):
+        raise AssertionError("the autograd update ran")
+
+    monkeypatch.setattr(fused_ppo, "ppo_fused_grads_T", recorded)
+    monkeypatch.setattr(ppo, "_ppo_loss", autograd)
+    ts = ppo.init_train_state(cfg, fused, 0, device="cpu")
+    model = ts.params
+    snapshot = [p.detach().clone() for p in model.parameters()]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        new_ts, metrics = ppo.train_iteration(cfg, fused, ts, 3)
+    assert len(calls) == fused.n_minibatches
+    obs_t = calls[0][0][0]
+    assert obs_t.shape == (cfg.n_steps, 9, cfg.num_trajectories // fused.n_minibatches)
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), snapshot):
+            p.copy_(v)
+    for args, kw, (grads, mb_metrics) in calls[:1]:  # the first minibatch sees the initial params
+        want_g, want_m = fused_ppo.ppo_fused_grads_T_plain(model, *args, **kw)
+        for name in want_g:
+            assert torch.equal(grads[name], want_g[name]), name
+        for name in want_m:
+            assert torch.equal(mb_metrics[name], want_m[name]), name
+    assert all(torch.isfinite(v).all() for v in metrics.values())

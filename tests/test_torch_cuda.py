@@ -436,7 +436,8 @@ def test_update_kernels_refuse_outside_their_limits_on_the_card(cuda_device):
         ppo._fused_grads_and_metrics(towers, cfg, odd)
 
 
-@pytest.mark.parametrize("dims", [(4, 2), (8, 4)], ids=["S4-A2", "S8-A4"])
+@pytest.mark.parametrize("dims", [(4, 2), (8, 4), (9, 4), (16, 4), (5, 1)],
+                         ids=["S4-A2", "S8-A4", "S9-A4", "S16-A4", "S5-A1"])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nb", [32, 96])
 @pytest.mark.parametrize("hidden", [(64, 64), (128, 192), (256, 256), (32, 32), (64,), (36, 100), (256, 256, 256),
@@ -446,9 +447,11 @@ def test_update_kernels_refuse_outside_their_limits_on_the_card(cuda_device):
 def test_update_kernels_at_the_mma_tile_edges(cuda_device, hidden, nb, compute_dtype, dims):
     """K4 (shared trunk and towers) and K7 at the smallest and unequal
     widths, at one to eight layers (widths padded to multiples of 64 by the
-    wrappers) and at 1 and 3 sample tiles per step, at S = 4, A = 2 and at
-    the composite config's S = 8, A = 4 (K4's widest observation), against
-    their plain versions at the limits of the tests above; bf16 beyond two
+    wrappers) and at 1 and 3 sample tiles per step, at S = 4, A = 2, the
+    composite config's S = 8, A = 4, the all-axes config's S = 9, K3's
+    S = 16 (two dW0 sweeps) and the OE configs' S = 5, A = 1, against their
+    plain versions at the limits of the tests above (up to two layers 1e-3
+    per leaf in bf16, K7 at JAX K7's rounding points); bf16 beyond two
     layers against the plain version's float64-summed evaluation at phase
     28a's fixed limits (chip_smoke.DEEP_BF16_LIMITS: a float32
     summation-order difference flips bf16 roundings that the later layers
@@ -492,8 +495,8 @@ def test_deep_update_kernels_over_several_chunks_on_the_card(cuda_device, monkey
     so that passes 1 and 2 run over 8 chunks of the 15 tiles (the last one
     ragged), each chunk adding to the partial sums of those before: K4 (and
     K7 on the shared trunk) against the plain versions at the edge test's
-    limits, a second launch bitwise equal.  The two-layer trunks run the
-    deep instantiations at two layers (``_TWO_LAYER_KERNELS`` off)."""
+    limits, a second launch bitwise equal (K7 in bf16 stages float32 h
+    planes, so its chunks hold one tile)."""
     from chip_smoke import compare_update, feature_major, update_samples
     from mbt_gym_torch.agents.networks import init_actor_critic
     from mbt_gym_torch.ops import fused_ppo
@@ -506,7 +509,6 @@ def test_deep_update_kernels_over_several_chunks_on_the_card(cuda_device, monkey
     shape = fused_ppo.check_kernel_limits(model, nb, 4, 2, "K4")
     tile_bytes = fused_ppo.deep_layout(shape, 1, 4, 2, bf16)["stage_bytes"]
     monkeypatch.setattr(fused_ppo, "_STAGE_BYTES", 2 * tile_bytes)
-    monkeypatch.setattr(fused_ppo, "_TWO_LAYER_KERNELS", False)
     assert fused_ppo.deep_layout(shape, t_steps * nb // 32, 4, 2, bf16)["chunk_tiles"] == 2
     rows = update_samples(torch, np, model, t_steps, nb, 23, cuda_device)
     calls = [(fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain, feature_major(rows, t_steps, nb))]
@@ -1245,3 +1247,58 @@ def test_a_capture_holding_a_host_read_raises_on_the_card(cuda_device):
                     device=cuda_device)
     assert compiled.cache_info() == [] and dict(_build.launch_counts) == before
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("failure", ["host-read", "error-in-capture"])
+def test_a_failed_capture_leaves_the_allocator_as_it_was_on_the_card(cuda_device, failure):
+    """After a capture that fails, by a host read that invalidates it or by
+    an error the captured code raises, the caller's stream is current again
+    and the caching allocator releases what is freed later: blocks of 2-5
+    GiB allocated on a side stream, used on the current one and freed, and
+    others of other sizes, leave no more than 64 MiB above what was
+    reserved before once ``empty_cache`` runs; and a capture after it runs
+    and releases its pool on ``clear_cache``."""
+    from mbt_gym_torch import compiled
+    from mbt_gym_torch.rollout import jit_rollout
+
+    def syncing(params, obs, state):
+        return obs[:, :2] * float(obs[0, 0] > -1e30)
+
+    def raising(params, obs, state):
+        if torch.cuda.is_current_stream_capturing():
+            raise ValueError("a policy error inside the capture")
+        return torch.ones_like(obs[:, :2])
+
+    def steady(params, obs, state):
+        return torch.ones_like(obs[:, :2])
+
+    def released():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(cuda_device)
+
+    small = as_env_config(num_trajectories=1024, n_steps=4)
+    compiled.clear_cache()
+    current = torch.cuda.current_stream(cuda_device)
+    base = released()
+    policy, error = (syncing, RuntimeError) if failure == "host-read" else (raising, ValueError)
+    with pytest.raises(error):
+        jit_rollout(small, policy, None, 1, backend="engine", device=cuda_device)
+    assert compiled.cache_info() == []
+    assert torch.cuda.current_stream(cuda_device) == current
+    side = torch.cuda.Stream(cuda_device)
+    for gib in (4, 3, 5, 2):
+        with torch.cuda.stream(side):
+            x = torch.empty(gib << 28, device=cuda_device)
+        x.record_stream(current)
+        x.fill_(1.0)
+        del x
+        y = torch.empty((gib << 28) + 1, device=cuda_device)
+        del y
+    assert released() <= base + (64 << 20)
+    try:
+        jit_rollout(small, steady, None, 2, backend="engine", device=cuda_device)
+        assert len(compiled.cache_info()) == 1
+    finally:
+        compiled.clear_cache()
+    assert released() <= base + (64 << 20)

@@ -28,7 +28,7 @@ from tests.test_torch_networks import assert_trees_close, jax_and_port_params, j
 from tests.test_torch_ppo import _batch
 
 L = 64  # envs per step
-# trunks the CUDA kernels take beyond the two-layer 256x256 one: one layer,
+# trunks the CUDA kernels take beside the production 256x256: one layer,
 # narrow and unequal widths (padded to multiples of 64 on the card), three layers
 TRUNKS = [(64,), (32, 32), (36, 100), (24, 16, 8)]
 TRUNK_IDS = ["64", "32x32", "36x100", "24x16x8"]
@@ -168,23 +168,36 @@ def test_padding_to_the_kernel_widths_is_exact(hidden, shared_trunk):
         torch.testing.assert_close(got_m[name], want_m[name], rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("hidden,shared_trunk,bf16,chunks", [
-    ((256, 256, 256), True, True, 7), ((256, 256, 256), True, False, 13), ((256,) * 8, False, True, 44),
-    ((36, 100, 20), False, True, 5), ((256,), True, True, 1)],
-    ids=["256x256x256", "256x256x256-float32", "256x8-towers", "36x100x20-towers", "256"])
-def test_deep_layout_bounds_the_staged_planes(hidden, shared_trunk, bf16, chunks):
+@pytest.mark.parametrize("hidden,shared_trunk,bf16,chunks,row_major", [
+    ((256, 256, 256), True, True, 7, False), ((256, 256, 256), True, False, 13, False),
+    ((256,) * 8, False, True, 44, False), ((36, 100, 20), False, True, 5, False), ((256,), True, True, 1, False),
+    ((256, 256), True, True, 8, True), ((256,), True, True, 4, True), ((256, 256), True, False, 7, True)],
+    ids=["256x256x256", "256x256x256-float32", "256x8-towers", "36x100x20-towers", "256", "256x256-k7",
+         "256-k7", "256x256-k7-float32"])
+def test_deep_layout_bounds_the_staged_planes(hidden, shared_trunk, bf16, chunks, row_major):
     """At config 5's minibatch (200 steps x 16,384 envs, 102,400 tiles of
-    32 samples) the deep instantiations stage each tile's hidden-to-hidden
-    inputs h_0 .. h_{L-2} and gradients dz_1 .. dz_{L-1} (padded, stacked
-    widths) in chunks of tiles whose planes take at most ``_STAGE_BYTES``;
-    one layer stages nothing and runs one chunk."""
+    32 samples) the kernels stage each tile's hidden-to-hidden inputs
+    h_0 .. h_{L-2} and gradients dz_1 .. dz_{L-1} (padded, stacked widths)
+    in chunks of tiles whose planes take at most ``_STAGE_BYTES``, each
+    plane at its byte offset in the tile, h planes first; one layer stages
+    nothing and runs one chunk.  K7 in bf16 stages its h planes in float32
+    and h_{L-1} too (its tanh' reads the float32 activations), so a single
+    layer stages one plane, and its dz planes in bf16 as K4 does; in
+    float32 K7 stages what K4 does."""
     model = init_actor_critic(0, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device="cpu")
     shape = fused_ppo.check_kernel_limits(model, 16_384, 4, 2, "K4")
     n_tiles = 200 * 16_384 // 32
-    lay = fused_ppo.deep_layout(shape, n_tiles, 4, 2, bf16)
+    lay = fused_ppo.deep_layout(shape, n_tiles, 4, 2, bf16, row_major)
     rows = [shape.towers * h for h in shape.padded]
-    assert lay["stage_rows"] == sum(rows[:-1]) + sum(rows[1:])
-    assert lay["stage_bytes"] == lay["chunk_tiles"] * lay["stage_rows"] * 32 * (2 if bf16 else 4)
+    f32_h = bf16 and row_major
+    n_h = len(rows) if f32_h else len(rows) - 1
+    value = 2 if bf16 else 4
+    h = [r * 32 * (4 if f32_h else value) for r in rows[:n_h]]
+    dz = [r * 32 * value for r in rows[1:]]
+    assert lay["tile_bytes"] == sum(h) + sum(dz)
+    assert lay["sh_off"] == [sum(h[:i]) for i in range(n_h)]
+    assert lay["sdz_off"][1:] == [sum(h) + sum(dz[:i]) for i in range(len(dz))]
+    assert lay["stage_bytes"] == lay["chunk_tiles"] * lay["tile_bytes"]
     assert lay["stage_bytes"] <= fused_ppo._STAGE_BYTES
     assert -(-n_tiles // lay["chunk_tiles"]) == chunks
 

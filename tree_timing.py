@@ -19,19 +19,22 @@ root and the card's name and power limit.
   is called ``--warmup`` times untimed, then ``--calls`` times on the host
   clock with the card synchronised around each call; the median is
   reported.  Nothing here needs a kernel build.
-- ``update``: the update kernels K4 and K7 at their two-layer production
-  shapes: the first 16,384-env minibatch of a K3 native rollout (seed 31)
-  with GAE at bench_suite config 5 (normalised AS, S = 4, A = 2) and config
-  10 (the composite config, S = 8, A = 4), as ``chip_smoke.py`` phase 9
-  takes it; K4 on the shared trunk and the towers (log_std moved by 0.05)
-  in bf16 and float32, K7 on config 5's samples row-major in bf16; and,
-  where the checkout has them, K4 in bf16 through the deep instantiations
-  at the same two layers (``fused_ppo._TWO_LAYER_KERNELS`` off), with each
-  one's largest relative leaf error against the two-layer instantiation,
-  and each bf16 case's against the plain version.
-  For each case the sha256 of its inputs and of its grads and metrics, and
-  the kernel's device time (``chip_smoke.device_ms``: the median of
-  ``--calls`` calls after two).  ``--build-only`` builds the root's
+- ``update``: the update kernels K4 and K7 on the first 16,384-env
+  minibatch (3,276,800 samples) of a K3 native rollout (seed 31) with GAE
+  at bench_suite config 5 (normalised AS, S = 4, A = 2) and config 10 (the
+  composite config, S = 8, A = 4), as ``chip_smoke.py`` phase 9 takes it:
+  K4 at 256x256 on the shared trunk and the towers (log_std moved by 0.05)
+  in bf16 and float32; K4 and K7 in bf16 on config 5's samples with the
+  observation widened to S = 8 and S = 16 (its four columns repeated, A =
+  2), the shared trunk, 256x256; and K4 beside K7 (config 5's samples
+  row-major) in bf16 on the shared trunks (32, 32), (64,), (256, 256) and
+  (256, 256, 256); and K4 at the card edge test's S = 5, A = 1 towers
+  case (256x256, 5 steps x 96 envs).  Each bf16 case with its largest
+  relative leaf error against the plain version.  For each case the sha256 of its inputs and of
+  its grads and metrics, and the kernel's device time
+  (``chip_smoke.device_ms``: the median of ``--calls`` calls after two); a
+  case that the root's kernels refuse (S = 16 before they took it) reads
+  ``refused`` with the reason.  ``--build-only`` builds the root's
   ``fused_ppo.cu`` and ``mlp_rollout.cu`` with ``-Xptxas -v`` and prints
   the registers, stack and spills of the update passes instead, so that
   builds of two roots can run side by side before the timed runs.
@@ -143,10 +146,10 @@ def digest(tensors) -> str:
 
 
 def update_cases(device, ppo_n=PPO_N, n_steps=None, minibatches=PPO_MINIBATCHES):
-    """``{label: (kernel, model, inputs, compute_dtype, two_layer)}`` of the
-    ``update`` suite; ``two_layer`` is False where the case runs the deep
-    instantiations at two layers.  ``n_steps`` overrides the configs'
-    episode length (the CPU test's small shapes)."""
+    """``{label: (kernel, model, inputs, compute_dtype)}`` of the ``update``
+    suite.  ``n_steps`` overrides the configs' episode length (the CPU
+    test's small shapes)."""
+    import numpy as np
     import torch
 
     from mbt_gym_torch.agents.networks import init_actor_critic
@@ -160,7 +163,18 @@ def update_cases(device, ppo_n=PPO_N, n_steps=None, minibatches=PPO_MINIBATCHES)
                                normalise_action_space=True)
     cfg10 = dataclasses.replace(composite_env_config(num_trajectories=ppo_n, **steps),
                                 normalise_observation_space=True)
-    deep = hasattr(fused_ppo, "_TWO_LAYER_KERNELS")
+
+    def model_for(s_dim, a_dim, hidden=(256, 256), shared=True):
+        model = init_actor_critic(0 if shared else 1, s_dim, a_dim, hidden=hidden, shared_trunk=shared,
+                                  device=device)
+        with torch.no_grad():
+            model.log_std.add_(0.05)
+        return model
+
+    def rows_of(mb):
+        m = mb[0].shape[0] * mb[0].shape[2]
+        return [x.permute(0, 2, 1).reshape(m, -1) if x.dim() == 3 else x.reshape(-1) for x in mb]
+
     out = {}
     for name, cfg, s_dim, a_dim in (("config 5", cfg5, 4, 2), ("config 10", cfg10, 8, 4)):
         actor = init_actor_critic(0, s_dim, a_dim, hidden=(256, 256), shared_trunk=True, device=device)
@@ -169,20 +183,32 @@ def update_cases(device, ppo_n=PPO_N, n_steps=None, minibatches=PPO_MINIBATCHES)
         mb = [x[..., :nb] for x in (tb.obs_t, tb.actions_t, tb.log_probs, tb.advantages, tb.returns)]
         mb[3] = normalise(mb[3])
         for shared in (True, False):
-            model = init_actor_critic(0 if shared else 1, s_dim, a_dim, hidden=(256, 256), shared_trunk=shared,
-                                      device=device)
-            with torch.no_grad():
-                model.log_std.add_(0.05)
+            model = model_for(s_dim, a_dim, shared=shared)
             layout = "shared" if shared else "towers"
             for dtype in ("bfloat16", "float32"):
-                out[f"{name} K4 {layout} {dtype}"] = (fused_ppo.ppo_fused_grads_T, model, mb, dtype, True)
-            if deep:
-                out[f"{name} K4 {layout} bfloat16 deep"] = (fused_ppo.ppo_fused_grads_T, model, mb, "bfloat16",
-                                                            False)
-            if shared and name == "config 5":
-                m = mb[0].shape[0] * mb[0].shape[2]
-                rows = [x.permute(0, 2, 1).reshape(m, -1) if x.dim() == 3 else x.reshape(-1) for x in mb]
-                out[f"{name} K7 shared bfloat16"] = (fused_ppo.ppo_fused_grads, model, rows, "bfloat16", True)
+                out[f"{name} K4 {layout} {dtype}"] = (fused_ppo.ppo_fused_grads_T, model, mb, dtype)
+        if name != "config 5":
+            continue
+        for s_wide in (8, 16):
+            wide = [mb[0].repeat(1, s_wide // s_dim, 1)] + mb[1:]
+            model = model_for(s_wide, a_dim)
+            out[f"{name} S={s_wide} K4 shared bfloat16"] = (fused_ppo.ppo_fused_grads_T, model, wide, "bfloat16")
+            out[f"{name} S={s_wide} K7 shared bfloat16"] = (fused_ppo.ppo_fused_grads, model, rows_of(wide),
+                                                            "bfloat16")
+        for hidden in ((32, 32), (64,), (256, 256), (256, 256, 256)):
+            model = model_for(s_dim, a_dim, hidden)
+            trunk = "x".join(map(str, hidden))
+            out[f"{name} {trunk} K4 shared bfloat16"] = (fused_ppo.ppo_fused_grads_T, model, mb, "bfloat16")
+            out[f"{name} {trunk} K7 shared bfloat16"] = (fused_ppo.ppo_fused_grads, model, rows_of(mb), "bfloat16")
+    # the card edge test's S = 5, A = 1 towers case (256x256, 5 steps x 96
+    # envs, its seeds): the 1e-3 bound's closest case
+    cs = _chip_smoke()
+    model = init_actor_critic(7, 5, 1, hidden=(256, 256), shared_trunk=False, device=device)
+    with torch.no_grad():
+        model.log_std.add_(0.05)
+    rows = cs.update_samples(torch, np, model, 5, 96, 11 + 96, device)
+    out["edge S=5 A=1 K4 towers bfloat16"] = (fused_ppo.ppo_fused_grads_T, model, cs.feature_major(rows, 5, 96),
+                                              "bfloat16")
     return out
 
 
@@ -193,31 +219,27 @@ def _worst_rel(torch, grads, want) -> float:
 
 
 def run_update(torch, device, calls, timer=None, **shapes):
-    """``{label: {"inputs", "grads", "metrics", "ms"[, "rel_vs_plain"][,
-    "rel_vs_two_layer"]}}`` of the ``update`` suite; ``timer(fn)`` gives a
-    call's device ms (none on the CPU).  ``rel_vs_plain`` is a bf16 case's
-    largest relative leaf error against the plain version (float32 sums)."""
+    """``{label: {"inputs", "grads", "metrics", "ms"[, "rel_vs_plain"]}}``
+    (or ``{"inputs", "refused"}``) of the ``update`` suite; ``timer(fn)``
+    gives a call's device ms (none on the CPU).  ``rel_vs_plain`` is a bf16
+    case's largest relative leaf error against the plain version (float32
+    sums)."""
     from mbt_gym_torch.ops import fused_ppo
 
     plain = {fused_ppo.ppo_fused_grads_T: fused_ppo.ppo_fused_grads_T_plain,
              fused_ppo.ppo_fused_grads: fused_ppo.ppo_fused_grads_plain}
-    result, two_layer = {}, {}
-    for label, (kernel, model, inputs, dtype, native) in update_cases(device, **shapes).items():
-        if not native:
-            fused_ppo._TWO_LAYER_KERNELS = False
+    result = {}
+    for label, (kernel, model, inputs, dtype) in update_cases(device, **shapes).items():
+        row = {"inputs": digest(inputs)}
         try:
             grads, metrics = kernel(model, *inputs, compute_dtype=dtype)
-            ms = None if timer is None else timer(lambda: kernel(model, *inputs, compute_dtype=dtype))
-        finally:
-            if not native:
-                fused_ppo._TWO_LAYER_KERNELS = True
-        row = {"inputs": digest(inputs), "grads": digest(grads), "metrics": digest(metrics), "ms": ms}
+        except ValueError as e:  # outside the root's kernel limits
+            result[label] = dict(row, refused=str(e))
+            continue
+        ms = None if timer is None else timer(lambda: kernel(model, *inputs, compute_dtype=dtype))
+        row.update(grads=digest(grads), metrics=digest(metrics), ms=ms)
         if dtype == "bfloat16":
             row["rel_vs_plain"] = _worst_rel(torch, grads, plain[kernel](model, *inputs, compute_dtype=dtype)[0])
-        if native:
-            two_layer[label] = grads
-        else:
-            row["rel_vs_two_layer"] = _worst_rel(torch, grads, two_layer[label[:-len(" deep")]])
         result[label] = row
     return result
 
@@ -251,7 +273,8 @@ def main(argv=None) -> int:
 
         for src in ("fused_ppo.cu", "mlp_rollout.cu"):
             _build.build(src, ptxas_verbose=True)
-        usage = _chip_smoke().kernel_registers(_build.ptxas_reports["fused_ppo.cu"], ("ppo_pass1", "ppo_pass2"))
+        usage = _chip_smoke().kernel_registers(_build.ptxas_reports["fused_ppo.cu"],
+                                               ("ppo_pass1", "ppo_pass2", "ppo_deep_pass1", "ppo_deep_pass2"))
         out["ptxas"] = dict(sorted(usage))
     else:
         cs = _chip_smoke()
