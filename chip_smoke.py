@@ -102,7 +102,17 @@ public entry points and times it all:
   iteration, no RuntimeWarning, the metric bands, ``jit_train_iteration``
   bit for bit, the iteration's time and idle share beside config 10's
   (29b); ``fused_update`` on the engine rollout, K7 x16 (29c); K4 and K7 at
-  S = 8, 9 and 16 timed against their bounds and plain versions (29d).
+  S = 8, 9 and 16 timed against their bounds and plain versions (29d);
+- the eight user examples of ``examples_torch/`` (phase 30), each a
+  subprocess at its default widths and env counts with its iterations cut,
+  the kernels it launches read from ``_build.launch_counts`` at its end:
+  the AS table in the AS bands, the CJP t statistics within |t| < 3.29,
+  ``pod_scale_ppo --fused`` at 131,072 envs x 200 in the metric bands;
+- the mesh's ``model`` axis (phase 31): two processes over Gloo on the
+  card, a ``(1, 2)`` engine iteration at the dryrun shape against the
+  meshless one from the same params and seed, both ranks bitwise alike
+  after ``gather_params``, and ``entry.dryrun_multichip(2)`` across them
+  (its engine leg ``(1, 2)``, its fused leg K3 + K4 over ``(2, 1)``).
 
 Phase 18 also checks in the SASS that the bf16 instantiations of the
 update passes and of K3 run tensor-core instructions and the float32 ones
@@ -4776,6 +4786,416 @@ def as_phases(torch, np, card, dev):
     return kernels, {"as_traj_kernel": k2_ms, "as_episode_kernel": k1_ms}
 
 
+# ---- phase 30: the user examples (examples_torch/) on the card
+EXAMPLE_WRAPPER = """
+import json, runpy, sys
+path = sys.argv[1]
+sys.argv = sys.argv[1:]
+runpy.run_path(path, run_name="__main__")
+from mbt_gym_torch.ops import _build
+jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mbt_gym_tpu"))
+launches = {k: v for k, v in _build.launch_counts.items() if v}
+print("EXAMPLE " + json.dumps({"launches": launches, "jax_modules": jax_modules}), flush=True)
+"""
+NUMBER = r"[-+]?(?:nan|inf|\d+(?:\.\d*)?(?:[eE][-+]?\d+)?)"
+
+
+def example_command(python, script, args=()):
+    """The command that runs ``examples_torch/<script>.py`` with ``args``
+    as ``python examples_torch/<script>.py args`` does (from the
+    repository root), then prints the kernels it launched and any JAX
+    module it imported on a last ``EXAMPLE {json}`` line."""
+    return [python, "-c", EXAMPLE_WRAPPER, f"examples_torch/{script}.py", *args]
+
+
+def parse_example(text):
+    """The figures of an example's output: ``figures``, every number it
+    printed (``nan`` and ``inf`` included); ``launches`` and
+    ``jax_modules`` from the wrapper's line; ``as_table`` (the AS results
+    row: mean_spread, mean_pnl, std_pnl, mean_terminal_inventory,
+    std_terminal_inventory), ``t_stats`` (replicate_cjp's t), and
+    ``iterations`` (pod_scale_ppo's metrics per iteration) where printed."""
+    import json
+    import re
+
+    out = {"figures": [], "launches": None, "jax_modules": None, "as_table": None, "t_stats": [], "iterations": []}
+    for line in text.splitlines():
+        if line.startswith("EXAMPLE "):
+            tail = json.loads(line[len("EXAMPLE "):])
+            out["launches"], out["jax_modules"] = tail["launches"], tail["jax_modules"]
+            continue
+        if "metrics=" in line:
+            out["iterations"].append(json.loads(line.split("metrics=", 1)[1]))
+            line = line.split("metrics=", 1)[0]
+        numbers = [float(x) for x in re.findall(NUMBER, line)]
+        out["figures"].extend(numbers)
+        if line.startswith("Inventory") and len(numbers) == 5:
+            keys = ("mean_spread", "mean_pnl", "std_pnl", "mean_terminal_inventory", "std_terminal_inventory")
+            out["as_table"] = dict(zip(keys, numbers))
+        match = re.search(r"\bt=(" + NUMBER + ")", line)
+        if match:
+            out["t_stats"].append(float(match.group(1)))
+    return out
+
+
+def example_failures(parsed, expect_launches=None, iterations=0, t_stats=0, as_table=False):
+    """What is wrong with a parsed example run: a figure not finite, a JAX
+    module imported, a missing line, figures out of their bands (the AS
+    table, CJP |t| < T_BAND, the PPO metric bands), or, with
+    ``expect_launches``, kernels launched that differ from it (the names
+    of ``_build.launch_counts``, each at least once, nothing else)."""
+    import math
+
+    bad = []
+    if not parsed["figures"] or not all(math.isfinite(x) for x in parsed["figures"]):
+        bad.append("a figure is not finite")
+    if parsed["launches"] is None:
+        bad.append("no EXAMPLE line")
+    elif parsed["jax_modules"]:
+        bad.append(f"imported {parsed['jax_modules']}")
+    if as_table:
+        table = parsed["as_table"]
+        if table is None:
+            bad.append("no AS table")
+        else:
+            bad += [f"{k} {table[k]} not within {c} +/- {tol}" for k, (c, tol) in AS_BANDS.items()
+                    if abs(table[k] - c) > tol]
+    if len(parsed["t_stats"]) != t_stats or any(abs(t) >= T_BAND for t in parsed["t_stats"]):
+        bad.append(f"t statistics {parsed['t_stats']} (want {t_stats}, each |t| < {T_BAND})")
+    if len(parsed["iterations"]) != iterations:
+        bad.append(f"{len(parsed['iterations'])} iterations printed, not {iterations}")
+    from mbt_gym_torch.entry import assert_metric_bands as bands
+
+    for i, metrics in enumerate(parsed["iterations"]):
+        try:
+            bands(metrics, f"iteration {i}")
+        except AssertionError as e:
+            bad.append(f"metric bands: {e}")
+    if expect_launches is not None and parsed["launches"] is not None:
+        if set(parsed["launches"]) != set(expect_launches):
+            bad.append(f"launched {parsed['launches']}, expected {sorted(expect_launches)}")
+    return bad
+
+
+KERNEL_OF = {"as_episode": "K1", "as_episode_trajectories": "K2", "mlp_rollout": "K3", "ppo_fused_grads_T": "K4",
+             "det_rollout": "K5", "oe_episode": "K6", "ppo_fused_grads": "K7", "cj_episode": "K8"}
+# Each example at its default widths and env counts, only its iteration
+# counts cut; the kernels it launches on the card (launch-count names) and
+# example_failures' checks.  baseline_agents' default 1,000 envs are not a
+# multiple of 128, so its closed-form agents run the engine, as JAX's
+# dispatch decides; the no-market-order CJ baseline of train_canonical and
+# arrival_rate_sweep is not a fixed policy, so it runs the engine too.
+EXAMPLE_RUNS = (
+    ("replicate_as", (), ("as_episode_trajectories",), dict(as_table=True)),
+    ("replicate_cjp", (), ("det_rollout",), dict(t_stats=4)),
+    ("baseline_agents", (), (), {}),
+    ("train_ppo", ("--production", "--iterations", "6", "--eval-every", "3"), ("ppo_fused_grads", "det_rollout"), {}),
+    ("train_canonical", ("--iterations", "6", "--eval-every", "3", "--eval-episodes", "2"),
+     ("mlp_rollout", "ppo_fused_grads_T"), {}),
+    ("train_oe", ("--iterations", "6", "--phases", "3", "--eval-every", "3", "--eval-episodes", "2"),
+     ("mlp_rollout", "ppo_fused_grads_T", "det_rollout"), {}),
+    ("arrival_rate_sweep", ("--iterations", "2", "--chunk", "2"), ("mlp_rollout", "ppo_fused_grads_T"), {}),
+    ("pod_scale_ppo", ("--fused", "--iterations", "3"), ("mlp_rollout", "ppo_fused_grads_T"), dict(iterations=3)),
+)
+
+
+EXAMPLE_LANES = 4  # examples run at once, to keep the run short
+
+
+def example_launch_figures(runs):
+    """The kernels-line figures of phase 30: each kernel's launches summed
+    over the example runs (``runs``: parsed outputs)."""
+    totals = {}
+    for parsed in runs:
+        for name, count in (parsed["launches"] or {}).items():
+            totals[KERNEL_OF[name]] = totals.get(KERNEL_OF[name], 0) + count
+    return {k: {"examples_launches": n} for k, n in totals.items()}
+
+
+def examples_phases(torch, np, card, dev):
+    """Phase 30: the eight user examples (examples_torch/) on the card, each
+    a subprocess of ``python examples_torch/<name>.py`` through
+    :data:`EXAMPLE_WRAPPER` (which reads ``_build.launch_counts`` at the
+    end), at its default widths and env counts with only its iterations
+    cut (:data:`EXAMPLE_RUNS`), :data:`EXAMPLE_LANES` at a time on the one
+    card.  All run first, each printed with its seconds (beside the others
+    running then);
+    then each must have exited 0, printed finite figures, imported
+    no JAX, launched the kernels its row names and nothing else, and held
+    its bands (the AS table, CJP |t| < 3.29, pod_scale_ppo's metric bands
+    at 131,072 envs x 200).  Returns the kernels-line figures."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    def run(name, args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(example_command(sys.executable, name, args), cwd=repo, capture_output=True, text=True,
+                              timeout=300)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(EXAMPLE_LANES) as pool:
+        runs = [pool.submit(run, name, args) for name, args, _, _ in EXAMPLE_RUNS]
+        runs = [r.result() for r in runs]
+    results = []
+    for (name, args, expect, checks), (proc, seconds) in zip(EXAMPLE_RUNS, runs):
+        parsed = parse_example(proc.stdout)
+        print(f"phase 30 [{card}] examples_torch/{name}.py {' '.join(args)}: rc {proc.returncode}, {seconds:.1f} s, "
+              f"launches {parsed['launches']}")
+        for line in proc.stdout.splitlines()[-12:]:
+            print(f"  | {line}")
+        if proc.returncode:
+            print(proc.stderr[-3000:])
+        results.append((name, proc.returncode, parsed, example_failures(parsed, set(expect), **checks)))
+    for name, rc, parsed, bad in results:
+        check(rc == 0, f"phase 30: examples_torch/{name}.py exited {rc}")
+        check(not bad, f"phase 30: examples_torch/{name}.py: {bad}")
+    print(f"phase 30 ok in {time.perf_counter() - t_start:.1f} s")
+    return example_launch_figures([parsed for _, _, parsed, _ in results])
+
+
+MODEL_AXIS_TIGHT = 1e-6  # tests/test_sharding.py's rtol/atol, held by at least MODEL_AXIS_SHARE of the elements
+MODEL_AXIS_SHARE = 0.999
+
+
+def model_axis_close(got, want, lr, steps):
+    """Whether a model-axis iteration's params ``got`` equal ``want`` (dicts
+    of numpy arrays by parameter name) as the sum order allows: every
+    element within 2 x ``lr`` per optimizer step (Adam moves an element by
+    about ``lr`` whatever its grad's size, so an element whose summed grad
+    lies within rounding of zero may step the other way), and at least
+    ``MODEL_AXIS_SHARE`` of them within rtol/atol ``MODEL_AXIS_TIGHT``.
+    Returns ``(ok, worst absolute difference, share within the tight
+    tolerance)``."""
+    import numpy as np
+
+    diffs = [np.abs(got[k].astype(np.float64) - want[k]).ravel() for k in want]
+    scales = [np.abs(want[k].astype(np.float64)).ravel() for k in want]
+    diff, scale = np.concatenate(diffs), np.concatenate(scales)
+    worst = float(diff.max())
+    tight = float(np.mean(diff <= MODEL_AXIS_TIGHT * (1.0 + scale)))
+    return bool(worst <= 2.0 * lr * steps and tight >= MODEL_AXIS_SHARE), worst, tight
+
+
+# ---- phase 31: the mesh's model axis on the card (two Gloo processes)
+MODEL_AXIS_N, MODEL_AXIS_T = 2048, 64  # the dryrun shape: 2,048 x 64, 256x256 towers, 4 minibatches
+MODEL_AXIS_WORKER = """
+import dataclasses, hashlib, json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from mbt_gym_torch import entry
+from mbt_gym_torch.agents import ppo
+from mbt_gym_torch.ops import _build
+from mbt_gym_torch.parallel import mesh as mesh_lib
+from mbt_gym_torch.utils.config import as_env_config
+
+rank, port, out, n, steps, device = sys.argv[1:7]
+rank, n, steps = int(rank), int(n), int(steps)
+mesh_lib.init_distributed(world_size=2, rank=rank, init_method=f"tcp://127.0.0.1:{port}", device=device,
+                          backend="gloo")
+mesh = mesh_lib.make_mesh(model=2, device=device)
+env_cfg = dataclasses.replace(as_env_config(num_trajectories=n, n_steps=steps),
+                              normalise_observation_space=True, normalise_action_space=True)
+cfg = ppo.PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=4)
+ts = ppo.init_train_state(env_cfg, cfg, 0, device=device)
+
+def sync():
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+
+def timed(fn, calls=2):
+    ms, result = [], None
+    for _ in range(calls):
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return result, ms
+
+def floats(m):
+    return {k: float(v) for k, v in m.items()}
+
+result = {"rank": rank, "backend": dist.get_backend(), "mesh": [mesh.data, mesh.model, mesh.data_index,
+          mesh.model_index], "device": str(mesh.device)}
+if rank == 0:
+    (plain_ts, plain_m), result["meshless_ms"] = timed(lambda: ppo.train_iteration(env_cfg, cfg, ts, 1))
+    np.savez(f"{out}/meshless.npz", **{k: v.cpu().numpy() for k, v in plain_ts.params.state_dict().items()})
+    result["meshless_metrics"] = floats(plain_m)
+dist.barrier()
+mesh_lib.shard_params(mesh, ts.params)
+(mesh_ts, mesh_m), result["mesh_ms"] = timed(lambda: ppo.train_iteration(env_cfg, cfg, ts, 1, mesh=mesh))
+whole = mesh_lib.gather_params(mesh, mesh_ts.params)
+h = hashlib.sha256()
+for name, v in sorted(whole.state_dict().items()):
+    h.update(name.encode()); h.update(v.cpu().numpy().tobytes())
+np.savez(f"{out}/mesh{rank}.npz", **{k: v.cpu().numpy() for k, v in whole.state_dict().items()})
+result.update(digest=h.hexdigest(), metrics=floats(mesh_m), engine_launches=dict(_build.launch_counts))
+
+# one more mesh iteration with every all-reduce timed between two syncs:
+# the share of the iteration inside the collectives
+collective = {"calls": 0, "bytes": 0, "ms": 0.0}
+all_reduce = dist.all_reduce
+
+def timed_all_reduce(tensor, *args, **kwargs):
+    sync()
+    t0 = time.perf_counter()
+    out = all_reduce(tensor, *args, **kwargs)
+    sync()
+    collective["ms"] += (time.perf_counter() - t0) * 1e3
+    collective["calls"] += 1
+    collective["bytes"] += tensor.numel() * tensor.element_size()
+    return out
+
+dist.all_reduce = timed_all_reduce
+_, result["instrumented_ms"] = timed(lambda: ppo.train_iteration(env_cfg, cfg, ts, 1, mesh=mesh), calls=1)
+dist.all_reduce = all_reduce
+result["collective"] = collective
+try:
+    ppo.jit_train_iteration(env_cfg, cfg, ts, 1, mesh=mesh)
+    result["capture"] = "captured"
+except ValueError as e:
+    result["capture"] = str(e)
+_build.reset_launch_counts()
+t0 = time.perf_counter()
+entry.dryrun_multichip(2, n_envs=n, device=device)
+sync()
+result["dryrun_s"] = time.perf_counter() - t0
+result["dryrun_launches"] = {k: v for k, v in _build.launch_counts.items() if v}
+print("RESULT " + json.dumps(result), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def model_axis_failures(results, close, lr_steps):
+    """What is wrong with phase 31's two worker results (``results``, the
+    RESULT dicts by rank) and ``close`` (``model_axis_close``'s tuple for
+    the gathered mesh params against the meshless ones; ``lr_steps`` the
+    learning rate and optimizer steps it used)."""
+    from mbt_gym_torch.entry import assert_metric_bands as bands
+
+    bad = []
+    r0, r1 = results
+    if r0["backend"] != "gloo" or r0["mesh"] != [1, 2, 0, 0] or r1["mesh"] != [1, 2, 0, 1]:
+        bad.append(f"mesh {r0['backend']} {r0['mesh']} {r1['mesh']}")
+    if r0["digest"] != r1["digest"] or r0["metrics"] != r1["metrics"]:
+        bad.append("the model ranks' gathered params or metrics differ")
+    if not close[0]:
+        bad.append(f"(1, 2) params vs meshless: worst {close[1]} (limit {2 * lr_steps[0] * lr_steps[1]}), "
+                   f"{close[2]:.4%} within {MODEL_AXIS_TIGHT}")
+    for k, v in r0["meshless_metrics"].items():
+        if abs(r0["metrics"][k] - v) > 1e-6 + 1e-5 * abs(v):
+            bad.append(f"metric {k} {r0['metrics'][k]} vs meshless {v}")
+    for label, m in (("mesh", r0["metrics"]), ("meshless", r0["meshless_metrics"])):
+        try:
+            bands(m, label)
+        except AssertionError as e:
+            bad.append(f"{label} metric bands: {e}")
+    for r in results:
+        if any(r["engine_launches"].values()):
+            bad.append(f"rank {r['rank']}: the engine iterations launched {r['engine_launches']}")
+        if set(r["dryrun_launches"]) != {"mlp_rollout", "ppo_fused_grads_T"}:
+            bad.append(f"rank {r['rank']}: the dryrun launched {r['dryrun_launches']}, not K3 and K4")
+        if "cannot hold the gloo backend's collectives" not in r["capture"]:
+            bad.append(f"rank {r['rank']}: jit_train_iteration on a Gloo mesh: {r['capture']}")
+    return bad
+
+
+def start_model_axis(dev):
+    """Start phase 31's two worker processes (:data:`MODEL_AXIS_WORKER`,
+    Gloo on ``dev``, ``OMP_NUM_THREADS`` 4, their output into files), with
+    nothing else running on the card; returns what
+    :func:`model_axis_phases` reads them back with."""
+    import os
+    import tempfile
+
+    from mbt_gym_torch.parallel.mesh import _free_port
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory()
+    port = str(_free_port())
+    logs = [open(os.path.join(tmp.name, f"rank{rank}.log"), "w+") for rank in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", MODEL_AXIS_WORKER, str(rank), port, tmp.name, str(MODEL_AXIS_N),
+                               str(MODEL_AXIS_T), dev.type], cwd=repo, stdout=logs[rank], stderr=subprocess.STDOUT,
+                              env=dict(os.environ, OMP_NUM_THREADS="4")) for rank in range(2)]
+    return tmp, procs, logs, time.perf_counter()
+
+
+def model_axis_phases(torch, np, card, dev, started):
+    """Phase 31: the mesh's ``model`` axis on the one card, two processes
+    over Gloo (NCCL takes one card per rank).  At the dryrun shape (2,048
+    x 64, 256x256 towers, 4 minibatches) a ``(1, 2)`` engine iteration from
+    rank 0's params equals rank 0's meshless iteration from the same
+    params and seed (:func:`model_axis_close`, the CPU test's tolerance),
+    both ranks bitwise alike after ``gather_params``, both in the metric
+    bands, launching no kernel; ``jit_train_iteration`` on the Gloo mesh
+    raises naming the reason; ``entry.dryrun_multichip(2)`` runs across
+    the two at the dryrun shape (its engine leg ``(1, 2)``, its fused leg
+    K3 + K4 over ``(2, 1)``; ``n_envs`` given, so without the weak-scaling
+    tables, which two processes on one card cannot weigh).  Prints the
+    iteration ms (the first call, then a repeat) beside the meshless ms,
+    and the ms of one more mesh iteration whose all-reduces are each timed
+    between two syncs, with their share of it.  ``started``:
+    :func:`start_model_axis`'s processes.  Returns the kernels-line figures
+    and the times."""
+    import json
+    import os
+
+    from mbt_gym_torch.agents.ppo import PPOConfig
+
+    tmp, procs, logs, t_start = started
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    for rank, out in enumerate(outs):
+        print(f"phase 31 rank {rank} (rc {procs[rank].returncode}):")
+        for line in out.splitlines()[-30:]:
+            print(f"  | {line}")
+    for rank, p in enumerate(procs):
+        check(p.returncode == 0, f"phase 31: worker {rank} exited {p.returncode}")
+    results = [json.loads([line for line in out.splitlines() if line.startswith("RESULT ")][0][7:]) for out in outs]
+    want = dict(np.load(os.path.join(tmp.name, "meshless.npz")))
+    got = dict(np.load(os.path.join(tmp.name, "mesh0.npz")))
+    lr_steps = (PPOConfig().learning_rate, 4)
+    close = model_axis_close(got, want, *lr_steps)
+    r0 = results[0]
+    print(f"phase 31 [{card}] (1, 2) engine iteration over Gloo, two processes on the card, {MODEL_AXIS_N} x "
+          f"{MODEL_AXIS_T}, 256x256 towers: {r0['mesh_ms']} ms, meshless {r0['meshless_ms']} ms; params within "
+          f"{close[1]} (max abs) of the meshless iteration, {close[2]:.4%} within {MODEL_AXIS_TIGHT}; "
+          f"dryrun_multichip(2) {r0['dryrun_s']:.1f} s, launches {r0['dryrun_launches']}")
+    for r in results:
+        c = r["collective"]
+        print(f"phase 31 [{card}] rank {r['rank']}: one more (1, 2) iteration with each all-reduce timed between "
+              f"two syncs: {r['instrumented_ms'][0]} ms, of which {c['ms']} ms ({c['ms'] / r['instrumented_ms'][0]:.1%}) "
+              f"in {c['calls']} Gloo all-reduces of {c['bytes']} bytes in all")
+    bad = model_axis_failures(results, close, lr_steps)
+    check(not bad, f"phase 31: {bad}")
+    for text in ("dryrun_multichip OK: mesh=(1x2)", "dryrun fused-DP OK: mesh=(2x1)"):
+        check(text in outs[0], f"phase 31: no '{text}' line")
+    tmp.cleanup()
+    print(f"phase 31 ok in {time.perf_counter() - t_start:.1f} s")
+    totals = {}
+    for r in results:
+        for name, count in r["dryrun_launches"].items():
+            totals[KERNEL_OF[name]] = totals.get(KERNEL_OF[name], 0) + count
+    return {k: {"model_axis_launches": n} for k, n in totals.items()}, {
+        "mesh_ms": r0["mesh_ms"], "meshless_ms": r0["meshless_ms"], "max_abs_param_diff": close[1],
+        "instrumented_ms": r0["instrumented_ms"], "collective": r0["collective"]}
+
+
 def main():
     import torch
 
@@ -4833,6 +5253,9 @@ def main():
     deep_figures = deep_trunk_phases(torch, np, card, dev)
     print_memory(torch, dev, "before phase 29")
     axes_figures = all_axes_phases(torch, np, card, dev)
+    print_memory(torch, dev, "before phase 30")
+    example_figures = examples_phases(torch, np, card, dev)
+    model_figures, _ = model_axis_phases(torch, np, card, dev, start_model_axis(dev))
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))
         entry.update(cj_figures.get(entry["name"][:2], {}))
@@ -4843,9 +5266,12 @@ def main():
         entry.update(compiled_figures.get(entry["name"][:2], {}))
         entry.update(deep_figures.get(entry["name"][:2], {}))
         entry.update(axes_figures.get(entry["name"][:2], {}))
+        entry.update(example_figures.get(entry["name"][:2], {}))
+        entry.update(model_figures.get(entry["name"][:2], {}))
     k7.update(compiled_figures["K7"])
     k7.update(deep_figures["K7"])
     k7.update(axes_figures["K7"])
+    k7.update(example_figures.get("K7", {}))
     kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
     for entry in rank_by_gap(kernels):
         print(f"rank [{card}] {entry['name']}: {entry['launches']} launches x ({entry['ms']} - {entry['bound_ms']}) ms "

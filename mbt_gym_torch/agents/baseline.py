@@ -77,7 +77,9 @@ def random_policy(cfg: EnvConfig, key=0):
 
     The samples come from their own generator, never from the env's noise
     stream: ``key`` is an int seed (the generator is made on the first
-    call's device) or a ``torch.Generator``."""
+    call's device) or a ``torch.Generator``.  ``policy.generators()`` gives
+    the generators made so far, which ``jit_rollout`` registers with its
+    CUDA graph."""
     low, high = cfg.action_bounds()
     gens = {}
 
@@ -90,6 +92,7 @@ def random_policy(cfg: EnvConfig, key=0):
         hi = device_constant(as_values(high), obs.dtype, device)
         return (lo + u * (hi - lo)).expand(obs.shape[0], len(low))
 
+    policy.generators = lambda: tuple(gens.values())
     return policy
 
 

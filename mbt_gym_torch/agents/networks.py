@@ -22,7 +22,17 @@ parameter of shape ``(A,)``.
 weights and biases are cast to it (bfloat16 in production), every matmul,
 bias add and tanh runs in it, master parameters stay float32 and the
 output is cast back to the input's dtype.
+
+Towers split over a mesh's ``model`` axis
+(:func:`mbt_gym_torch.parallel.mesh.shard_params`; ``model_shards`` is
+``(this rank's model index, the model size)``, ``(0, 1)`` on a whole
+model) run tensor-parallel in :func:`policy_value`, :func:`policy_mean`
+and :func:`value`, which then take the mesh's ``model_group``: layer 0
+column-parallel, every later layer row-parallel (a partial product, a SUM
+all-reduce over ``model``, the replicated bias), a row-parallel layer
+whose input is replicated reading this rank's slice of it.
 """
+
 from __future__ import annotations
 
 import math
@@ -36,6 +46,10 @@ from mbt_gym_torch.env import make_generator, resolve_device
 _LOG_2PI = math.log(2.0 * math.pi)
 
 DType = Union[None, str, torch.dtype]
+
+# The JAX package's ``MlpParams`` (a list of {"w", "b"} layers) is an
+# ``nn.ModuleList`` of ``nn.Linear`` here.
+MlpParams = nn.ModuleList
 
 
 def as_dtype(compute_dtype: DType) -> Optional[torch.dtype]:
@@ -96,6 +110,7 @@ class ActorCritic(nn.Module):
             )
             self.vf = nn.ModuleList(linear(i, o) for i, o in zip(sizes, (*self.hidden, 1)))
         self.log_std = nn.Parameter(torch.zeros(self.action_dim, device=device))
+        self.model_shards = (0, 1)
 
 
 def init_actor_critic(
@@ -160,31 +175,74 @@ def _trunk_apply(layers: nn.ModuleList, x: torch.Tensor, cdt) -> torch.Tensor:
     return x
 
 
-def policy_value(params: ActorCritic, obs: torch.Tensor, compute_dtype: DType = None
+def _tensor_parallel_apply(layers: nn.ModuleList, x: torch.Tensor, cdt, index: int, group) -> torch.Tensor:
+    """:func:`mlp_apply` of a tower split over ``model``
+    (``mbt_gym_tpu/parallel/mesh.py:74-97``'s placement): layer 0
+    column-parallel, its output this rank's features; every later layer
+    row-parallel, its replicated input first cut to this rank's features
+    (whose gradient the ranks then sum: a gather of the slices)."""
+    from mbt_gym_torch.parallel.mesh import copy_to_model, reduce_from_model
+
+    if len(layers) == 1:  # no hidden layer: the layer is replicated
+        return mlp_apply(layers, x, cdt)
+    out_dtype = x.dtype
+    if cdt is not None:
+        x = x.to(cdt)
+    for i, layer in enumerate(layers):
+        w, b = layer.weight, layer.bias
+        if cdt is not None:
+            w, b = w.to(cdt), b.to(cdt)
+        if i == 0:
+            x = copy_to_model(x, group) @ w.T + b
+        else:
+            if i > 1:
+                width = layer.in_features
+                x = copy_to_model(x, group).narrow(-1, index * width, width)
+            x = reduce_from_model(x @ w.T, group) + b
+        if i < len(layers) - 1:
+            x = torch.tanh(x)
+    return x.to(out_dtype)
+
+
+def _towers(params: ActorCritic, model_group):
+    """The tower function for ``params``: :func:`mlp_apply`, or its
+    tensor-parallel form over ``model_group`` on a split model."""
+    index, count = params.model_shards
+    if count == 1:
+        return mlp_apply
+    if model_group is None:
+        raise ValueError(f"the towers are split over {count} model ranks: pass the mesh's model_group")
+    return lambda layers, x, cdt: _tensor_parallel_apply(layers, x, cdt, index, model_group)
+
+
+def policy_value(params: ActorCritic, obs: torch.Tensor, compute_dtype: DType = None, model_group=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(policy mean ``(.., A)``, value ``(..,)``) in one pass."""
+    """(policy mean ``(.., A)``, value ``(..,)``) in one pass;
+    ``model_group`` is the mesh's on towers split over ``model``."""
     cdt = as_dtype(compute_dtype)
     if params.shared_trunk:
         h = _trunk_apply(params.shared, obs, cdt)
         mean = _linear(params.pi_head, h, cdt).to(obs.dtype)
         v = _linear(params.vf_head, h, cdt).to(obs.dtype)[..., 0]
         return mean, v
-    return mlp_apply(params.pi, obs, cdt), mlp_apply(params.vf, obs, cdt)[..., 0]
+    tower = _towers(params, model_group)
+    return tower(params.pi, obs, cdt), tower(params.vf, obs, cdt)[..., 0]
 
 
-def policy_mean(params: ActorCritic, obs: torch.Tensor, compute_dtype: DType = None) -> torch.Tensor:
+def policy_mean(params: ActorCritic, obs: torch.Tensor, compute_dtype: DType = None,
+                model_group=None) -> torch.Tensor:
     cdt = as_dtype(compute_dtype)
     if params.shared_trunk:
         return _linear(params.pi_head, _trunk_apply(params.shared, obs, cdt), cdt).to(obs.dtype)
-    return mlp_apply(params.pi, obs, cdt)
+    return _towers(params, model_group)(params.pi, obs, cdt)
 
 
-def value(params: ActorCritic, obs: torch.Tensor, compute_dtype: DType = None) -> torch.Tensor:
+def value(params: ActorCritic, obs: torch.Tensor, compute_dtype: DType = None, model_group=None) -> torch.Tensor:
     cdt = as_dtype(compute_dtype)
     if params.shared_trunk:
         h = _trunk_apply(params.shared, obs, cdt)
         return _linear(params.vf_head, h, cdt).to(obs.dtype)[..., 0]
-    return mlp_apply(params.vf, obs, cdt)[..., 0]
+    return _towers(params, model_group)(params.vf, obs, cdt)[..., 0]
 
 
 def sample_action(params: ActorCritic, obs: torch.Tensor, key) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -34,16 +34,22 @@ falls back to autograd.
 
 ``mesh=`` (a :class:`mbt_gym_torch.parallel.mesh.Mesh`) makes
 :func:`collect_rollout`, :func:`train_iteration` and :func:`train_chunk`
-data-parallel over a ``torch.distributed`` process group (ppo.py:116-458):
-each rank steps its ``N / world`` envs from its own key
-(:func:`~mbt_gym_torch.parallel.mesh.fold_in` of the key with its rank,
-ppo.py:317-319), normalises each minibatch's advantages with the global
-mean and std, and averages each minibatch's grads and metrics over the
-ranks with one all-reduce of one flat buffer before the optimizer step,
-so params stay replicated.  The fused path takes the global ``noise``
-``(T, C, N)`` and uses this rank's columns; the engine path shuffles each
-rank's own samples with a permutation drawn from a generator seeded
-alike on every rank.  ``mesh=None`` is the single-device path, unchanged.
+parallel over a ``torch.distributed`` process group (ppo.py:116-458).
+Over the mesh's ``data`` axis, each ``data`` index steps its ``N / data``
+envs from its own key (:func:`~mbt_gym_torch.parallel.mesh.fold_in` of
+the key with the index, ppo.py:317-319), normalises each minibatch's
+advantages with the global mean and std, and averages each minibatch's
+grads and metrics over ``data`` with one all-reduce of one flat buffer
+before the optimizer step.  The fused path takes the global ``noise``
+``(T, C, N)`` and uses this index's columns; the engine path shuffles each
+index's own samples with a permutation drawn from a generator seeded
+alike on every rank.  A mesh with one ``data`` index draws its rollout and
+shuffle as the meshless call does.  Over the ``model`` axis (the engine
+path only: the kernels hold the whole MLP), the towers run
+tensor-parallel (:func:`mbt_gym_torch.parallel.mesh.shard_params`): a
+split leaf's grad stays on its rank, the clip's global norm sums the
+split leaves' squares over ``model``, and each rank's Adam steps its own
+slices.  ``mesh=None`` is the single-device path, unchanged.
 
 :func:`jit_train_iteration` and :func:`jit_train_chunk` are the compiled
 entry points: on the card, replays of a CUDA graph of the iteration
@@ -145,21 +151,37 @@ def make_optimizer(cfg: PPOConfig, params: networks.ActorCritic) -> torch.optim.
                             capturable=capturable)
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, sharded=None, model_group=None
+                        ) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: unchanged while the global norm is
     below ``max_norm``, else ``(g / norm) * max_norm``.  (Not
-    ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 to the norm.)"""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 to the norm.)
+    With ``model_group``, the leaves ``sharded`` flags are slices split over
+    ``model``, and the norm is the whole model's."""
+    if model_group is None:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    else:
+        from mbt_gym_torch.parallel.mesh import clip_norm_squared
+
+        norm = torch.sqrt(clip_norm_squared([torch.sum(g * g) for g in grads], sharded, model_group))
     trigger = norm < max_norm
     return [torch.where(trigger, g, (g / norm) * max_norm) for g in grads]
 
 
 def apply_gradients(cfg: PPOConfig, params: networks.ActorCritic, optimizer: torch.optim.Optimizer,
-                    grads: Dict[str, torch.Tensor]) -> None:
+                    grads: Dict[str, torch.Tensor], model_group=None) -> None:
     """Clip ``grads`` (a ``{parameter name: tensor}`` dict) by their global
-    norm, put them in ``p.grad`` and take one optimizer step, in place."""
+    norm (the whole model's, over ``model_group``, on towers split over
+    ``model``), put them in ``p.grad`` and take one optimizer step, in
+    place."""
     named = list(params.named_parameters())
-    clipped = clip_by_global_norm([grads[name] for name, _ in named], cfg.max_grad_norm)
+    sharded = None
+    if model_group is not None:
+        from mbt_gym_torch.parallel.mesh import sharded_parameter_names
+
+        split = sharded_parameter_names(params)
+        sharded = [name in split for name, _ in named]
+    clipped = clip_by_global_norm([grads[name] for name, _ in named], cfg.max_grad_norm, sharded, model_group)
     for (_, p), g in zip(named, clipped):
         p.grad = g.to(p.dtype)
     optimizer.step()
@@ -188,11 +210,17 @@ def _clip_to_action_box(env_cfg: EnvConfig, action: torch.Tensor) -> torch.Tenso
 
 
 def _local_config(env_cfg: EnvConfig, mesh) -> EnvConfig:
-    """The config of this rank's ``N / world`` envs."""
+    """The config of this ``data`` index's ``N / data`` envs."""
     from mbt_gym_torch.parallel.mesh import local_slice
 
     rows = local_slice(mesh, env_cfg.num_trajectories)
     return dataclasses.replace(env_cfg, num_trajectories=rows.stop - rows.start)
+
+
+def _model_group(mesh):
+    """The group the towers' tensor-parallel collectives run over, or
+    None off a ``model`` axis."""
+    return mesh.model_group if mesh is not None and mesh.model > 1 else None
 
 
 @torch.no_grad()
@@ -202,8 +230,22 @@ def collect_rollout(env_cfg: EnvConfig, params: networks.ActorCritic, key, gamma
     log-probs (ppo.py:133-186), on the parameters' device.  ``key`` (an int
     seed or a ``torch.Generator``) drives the reset, the env noise and the
     policy samples.  Random start times are refused: their post-done steps
-    would enter GAE.  With ``mesh``, this rank's ``N / world`` envs, from
-    ``fold_in(key, rank)``; the batch returned is this rank's."""
+    would enter GAE.  With ``mesh``, this ``data`` index's ``N / data``
+    envs, from ``fold_in(key, data index)``, the policy tensor-parallel over
+    ``model``; the batch returned is this rank's."""
+    if mesh is not None:
+        from mbt_gym_torch.parallel.mesh import fold_in
+
+        env_cfg = _local_config(env_cfg, mesh)
+        key = fold_in(key, mesh.data_index)
+    return _rollout_batch(env_cfg, params, key, gamma, lam, compute_dtype, _model_group(mesh))
+
+
+@torch.no_grad()
+def _rollout_batch(env_cfg: EnvConfig, params: networks.ActorCritic, key, gamma: float, lam: float,
+                   compute_dtype, model_group) -> RolloutBatch:
+    """:func:`collect_rollout` of this process's ``env_cfg`` from ``key``,
+    the policy tensor-parallel over ``model_group`` on split towers."""
     from mbt_gym_torch.rollout import _episode_steps
 
     assert not isinstance(env_cfg.start_time, tuple), (
@@ -211,18 +253,13 @@ def collect_rollout(env_cfg: EnvConfig, params: networks.ActorCritic, key, gamma
         "would enter GAE); use a fixed start_time."
     )
     device = _device_of(params)
-    if mesh is not None:
-        from mbt_gym_torch.parallel.mesh import fold_in
-
-        env_cfg = _local_config(env_cfg, mesh)
-        key = fold_in(key, mesh.rank)
     gen = env_lib.make_generator(key, device)
     state, obs = env_lib.reset(env_cfg, gen, device=device)
     n_steps = _episode_steps(env_cfg)
     std = torch.exp(params.log_std)
     outs = []
     for _ in range(n_steps):
-        mean, v = networks.policy_value(params, obs, compute_dtype)
+        mean, v = networks.policy_value(params, obs, compute_dtype, model_group)
         eps = torch.randn(mean.shape, generator=gen, dtype=mean.dtype, device=device)
         action = mean + std * eps
         log_prob = networks.gaussian_log_prob(params, mean, action)
@@ -255,16 +292,16 @@ def normalise(adv: torch.Tensor) -> torch.Tensor:
 
 
 def normalise_global(mesh, adv: torch.Tensor) -> torch.Tensor:
-    """:func:`normalise` with the mean and std over every rank's
-    minibatch, as ppo.py:349-350 writes them: the mean of the ranks' means,
-    then the square root of the mean of the ranks' mean squared deviations
-    (equal shard sizes make both the global ones).  On one rank the global
-    statistics are the rank's own, computed as :func:`normalise` computes
-    them, so a one-rank mesh normalises bit for bit as the meshless path
-    does."""
+    """:func:`normalise` with the mean and std over every ``data`` index's
+    minibatch, as ppo.py:349-350 writes them: the mean of the indices'
+    means, then the square root of the mean of their mean squared
+    deviations (equal shard sizes make both the global ones).  With one
+    ``data`` index the global statistics are its own, computed as
+    :func:`normalise` computes them, so such a mesh normalises bit for bit
+    as the meshless path does."""
     from mbt_gym_torch.parallel.mesh import all_reduce_mean
 
-    if mesh.world == 1:
+    if mesh.data == 1:
         return normalise(adv)
     mean = all_reduce_mean(mesh, adv.mean().reshape(1))
     var = all_reduce_mean(mesh, ((adv - mean) ** 2).mean().reshape(1))
@@ -272,10 +309,12 @@ def normalise_global(mesh, adv: torch.Tensor) -> torch.Tensor:
 
 
 def mesh_mean(mesh, grads: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor]):
-    """The ranks' mean of one minibatch's grads and metrics, through ONE
-    all-reduce of one flat float32 buffer (the pmeans of ppo.py:361-362).
-    Each rank's values are means over its own minibatch; equal shard sizes
-    make their mean the global one."""
+    """The ``data`` indices' mean of one minibatch's grads and metrics,
+    through ONE all-reduce of one flat float32 buffer over the ``data``
+    group (the pmeans of ppo.py:361-362).  Each index's values are means
+    over its own minibatch; equal shard sizes make their mean the global
+    one.  A leaf split over ``model`` is averaged with the same slices of
+    the other ``data`` indices."""
     from mbt_gym_torch.parallel.mesh import all_reduce_mean
 
     parts = list(grads.items()) + list(metrics.items())
@@ -289,10 +328,11 @@ def mesh_mean(mesh, grads: Dict[str, torch.Tensor], metrics: Dict[str, torch.Ten
     return dict(zip(grads, out[:n])), dict(zip(metrics, out[n:]))
 
 
-def _ppo_loss(params: networks.ActorCritic, ppo_cfg: PPOConfig, batch):
+def _ppo_loss(params: networks.ActorCritic, ppo_cfg: PPOConfig, batch, model_group=None):
     """Clipped surrogate + value loss - entropy bonus (ppo.py:205-222);
-    returns ``(loss, metrics)``, differentiable in ``params``."""
-    mean, values = networks.policy_value(params, batch.obs, ppo_cfg.compute_dtype)
+    returns ``(loss, metrics)``, differentiable in ``params``
+    (tensor-parallel over ``model_group`` on split towers)."""
+    mean, values = networks.policy_value(params, batch.obs, ppo_cfg.compute_dtype, model_group)
     log_probs = networks.gaussian_log_prob(params, mean, batch.actions)
     adv = batch.advantages
     if ppo_cfg.normalise_advantages:
@@ -381,8 +421,9 @@ def _engine_update(ppo_cfg: PPOConfig, ts: PPOTrainState, batch: RolloutBatch,
     each gradient from autograd or, with ``fused_update``, from
     :func:`_fused_grads_and_metrics`; returns the mean metrics.  With
     ``mesh``, ``batch`` is this rank's and ``gen`` in the same state on
-    every rank: advantages are normalised with the global statistics and
-    each minibatch's grads and metrics averaged over the ranks."""
+    every rank: advantages are normalised with the global statistics,
+    each minibatch's grads and metrics averaged over ``data``, and split
+    towers run tensor-parallel over ``model``."""
     mb_cfg = ppo_cfg
     if mesh is not None and ppo_cfg.normalise_advantages:
         mb_cfg = dataclasses.replace(ppo_cfg, normalise_advantages=False)
@@ -395,6 +436,7 @@ def _engine_update(ppo_cfg: PPOConfig, ts: PPOTrainState, batch: RolloutBatch,
     total = t * n
     mb_size = total // ppo_cfg.n_minibatches
     params, optimizer = ts.params, ts.opt_state
+    model_group = _model_group(mesh)
     names = [name for name, _ in params.named_parameters()]
     metrics = []
     for _ in range(ppo_cfg.n_epochs):
@@ -409,12 +451,12 @@ def _engine_update(ppo_cfg: PPOConfig, ts: PPOTrainState, batch: RolloutBatch,
                 grads, mb_metrics = _fused_grads_and_metrics(params, mb_cfg, mb)
             else:
                 params.zero_grad(set_to_none=True)
-                loss, mb_metrics = _ppo_loss(params, mb_cfg, mb)
+                loss, mb_metrics = _ppo_loss(params, mb_cfg, mb, model_group)
                 loss.backward()
                 grads = {name: p.grad for name, p in zip(names, params.parameters())}
             if mesh is not None:
                 grads, mb_metrics = mesh_mean(mesh, grads, mb_metrics)
-            apply_gradients(ppo_cfg, params, optimizer, grads)
+            apply_gradients(ppo_cfg, params, optimizer, grads, model_group)
             metrics.append({k: v.detach() for k, v in mb_metrics.items()})
     return _mean_metrics(metrics)
 
@@ -432,15 +474,15 @@ def _fused_iteration_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networ
     initial inventories of a random-inventory config (the parity tests).
 
     ``mesh`` (ppo.py:301-307's ``axis_name``): ``env_cfg``, ``noise`` and
-    ``inv0`` are this rank's; the rollout draws from ``fold_in(key, rank)``;
-    advantages are normalised with the global statistics; each K4 call's
-    grads and metrics, and the episode reward, are averaged over the
-    ranks, so every rank applies the same update."""
+    ``inv0`` are this rank's; the rollout draws from ``fold_in(key, data
+    index)``; advantages are normalised with the global statistics; each
+    K4 call's grads and metrics, and the episode reward, are averaged over
+    the ranks, so every rank applies the same update."""
     _check_fully_fused(env_cfg, ppo_cfg)
     if mesh is not None:
         from mbt_gym_torch.parallel.mesh import fold_in
 
-        key = fold_in(key, mesh.rank)
+        key = fold_in(key, mesh.data_index)
     outputs = _k3_rollout(env_cfg, params, key, noise=noise, inv0=inv0)
     return _fused_update_body(env_cfg, ppo_cfg, params, optimizer, outputs, mesh=mesh)
 
@@ -507,7 +549,8 @@ def _fused_update_body(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networks.
 
 
 def _episode_reward(rewards: torch.Tensor, mesh) -> torch.Tensor:
-    """Mean episode reward over the envs (over every rank's, with ``mesh``)."""
+    """Mean episode reward over the envs (over every ``data`` index's, with
+    ``mesh``)."""
     reward = rewards.sum(dim=0).mean()
     if mesh is None:
         return reward
@@ -544,23 +587,24 @@ def _fully_fused(ppo_cfg: PPOConfig) -> bool:
 def _learner_keys(ppo_cfg: PPOConfig, key, mesh, generator):
     """``(K3's key, the rollout's generator, the shuffle's generator)`` of
     one iteration, from ``key``: the fully fused path seeds K3 from the key
-    itself (``fold_in(key, rank)`` on a mesh) and draws nothing else; K3
-    with the engine update seeds K3 from the generator the shuffle then
+    itself (``fold_in(key, data index)`` on a mesh) and draws nothing else;
+    K3 with the engine update seeds K3 from the generator the shuffle then
     draws from; the engine draws its rollout and its shuffle from one
-    generator, or on a mesh from ``fold_in(key, rank)`` and from
+    generator, as the meshless call does on a mesh with one ``data``
+    index, or on a wider one from ``fold_in(key, data index)`` and from
     ``shared_key(key)``.  ``generator(seed, role)`` gives the generator
     seeded with ``seed`` for role 0 (rollout) or 1 (shuffle)."""
     from mbt_gym_torch.parallel.mesh import fold_in, key_seed, shared_key
 
     if _fully_fused(ppo_cfg):
-        return (key if mesh is None else fold_in(key, mesh.rank)), None, None
-    if mesh is None:
+        return (key if mesh is None else fold_in(key, mesh.data_index)), None, None
+    if mesh is None or mesh.data == 1:
         gen = generator(key, 0)
         return (gen if ppo_cfg.fused_rollout else None), gen, gen
     if ppo_cfg.fused_rollout:
-        raise ValueError("fused_rollout without fused_update is single-device (mesh must be None)")
+        raise ValueError("fused_rollout without fused_update runs on one data index (mesh=None or data == 1)")
     base = key_seed(key)
-    return None, generator(fold_in(base, mesh.rank), 0), generator(shared_key(base), 1)
+    return None, generator(fold_in(base, mesh.data_index), 0), generator(shared_key(base), 1)
 
 
 def _iteration_config(env_cfg: EnvConfig, ppo_cfg: PPOConfig, mesh) -> EnvConfig:
@@ -569,8 +613,10 @@ def _iteration_config(env_cfg: EnvConfig, ppo_cfg: PPOConfig, mesh) -> EnvConfig
         _check_fully_fused(env_cfg, ppo_cfg)
     if mesh is None:
         return env_cfg
-    if _fully_fused(ppo_cfg) and mesh.model != 1:
-        raise ValueError("the fused kernels hold the whole MLP on each rank (replicated-params data parallelism)")
+    if mesh.model != 1 and (ppo_cfg.fused_rollout or ppo_cfg.fused_update):
+        raise ValueError("the fused kernels (K3, K4, K7) hold the whole MLP on each rank: a mesh with model > 1 "
+                         "trains on the engine path (fused_rollout=False, fused_update=False), as JAX's fused "
+                         "path asserts (mbt_gym_tpu/agents/ppo.py:425-428)")
     return _local_config(env_cfg, mesh)
 
 
@@ -588,17 +634,15 @@ def _iteration_update(env_cfg: EnvConfig, ppo_cfg: PPOConfig, ts: PPOTrainState,
 
         batch = mlp_rollout.row_major(mlp_rollout.gae_T(outputs, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda))
     else:
-        batch = collect_rollout(
-            env_cfg, ts.params, gen, gamma=ppo_cfg.gamma, lam=ppo_cfg.gae_lambda,
-            compute_dtype=ppo_cfg.compute_dtype,
-        )
+        batch = _rollout_batch(env_cfg, ts.params, gen, ppo_cfg.gamma, ppo_cfg.gae_lambda, ppo_cfg.compute_dtype,
+                               _model_group(mesh))
     metrics = _engine_update(ppo_cfg, ts, batch, shuffle_gen, mesh=mesh)
     metrics["mean_episode_reward"] = _episode_reward(batch.rewards, mesh)
     return metrics
 
 
 def _noise_columns(env_cfg: EnvConfig, noise, mesh):
-    """This rank's env columns of the global ``(T, C, N)`` noise."""
+    """This ``data`` index's env columns of the global ``(T, C, N)`` noise."""
     if noise is None or mesh is None:
         return noise
     from mbt_gym_torch.parallel.mesh import local_slice

@@ -74,11 +74,18 @@ def plot_pnl(total_rewards, symmetric_rewards=None):
 
 def generate_results_table_and_hist(cfg: EnvConfig, traj):
     """The AS-replication metric table (plotting.py:94-110): mean spread,
-    mean/std total PnL, mean/std terminal inventory — as a pandas frame."""
+    mean/std total PnL, mean/std terminal inventory — as a pandas frame —
+    the PnL histogram and the total rewards."""
+    total_rewards = _host_time_major(traj)[2].sum(axis=0)
+    return results_table(cfg, traj), plot_pnl(total_rewards), total_rewards
+
+
+def results_table(cfg: EnvConfig, traj):
+    """:func:`generate_results_table_and_hist`'s table alone (pandas
+    only)."""
     import pandas as pd
 
     stats = {k: float(v) for k, v in episode_stats(cfg, traj).items()}
-    total_rewards = _host_time_major(traj)[2].sum(axis=0)
     results = pd.DataFrame(
         index=["Inventory"],
         columns=["Mean spread", "Mean PnL", "Std PnL", "Mean terminal inventory", "Std terminal inventory"],
@@ -90,8 +97,7 @@ def generate_results_table_and_hist(cfg: EnvConfig, traj):
         stats["mean_terminal_inventory"],
         stats["std_terminal_inventory"],
     ]
-    fig = plot_pnl(total_rewards)
-    return results, fig, total_rewards
+    return results
 
 
 def _policy_actions(policy, params, obs: np.ndarray, device) -> np.ndarray:

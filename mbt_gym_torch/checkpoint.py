@@ -184,9 +184,39 @@ def _stored(leaf):
     return leaf
 
 
-def save_checkpoint(path: str, bundle: Any) -> None:
+def _gathered(obj, mesh):
+    """``obj`` with every PPO train state (a NamedTuple with ``params`` and
+    ``opt_state``) and every actor-critic split over the mesh's ``model``
+    axis replaced by its whole counterpart
+    (:func:`mbt_gym_torch.parallel.mesh.gather_train_state`,
+    :func:`~mbt_gym_torch.parallel.mesh.gather_params`)."""
+    from mbt_gym_torch.parallel.mesh import gather_params, gather_train_state
+
+    if _is_namedtuple(obj) and {"params", "opt_state"} <= set(obj._fields):
+        return gather_train_state(mesh, obj)
+    if isinstance(obj, nn.Module) and getattr(obj, "model_shards", (0, 1))[1] > 1:
+        return gather_params(mesh, obj)
+    if _is_namedtuple(obj):
+        return type(obj)(*(_gathered(v, mesh) for v in obj))
+    if isinstance(obj, dict):
+        return {k: _gathered(v, mesh) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_gathered(v, mesh) for v in obj)
+    return obj
+
+
+def save_checkpoint(path: str, bundle: Any, mesh=None) -> None:
     """Write ``bundle`` to the file ``path`` (overwritten; written to a
-    temporary file first and renamed, so a crash leaves the old file)."""
+    temporary file first and renamed, so a crash leaves the old file).
+
+    With a ``mesh`` whose ``model`` axis splits the bundle's towers, every
+    rank of the mesh calls this: the train states and models are gathered
+    whole (a collective) and the mesh's rank 0 writes the file, which then
+    restores into a one-process template."""
+    if mesh is not None and mesh.model > 1:
+        bundle = _gathered(bundle, mesh)
+        if mesh.rank != 0:
+            return
     path = os.path.abspath(path)
     fp, leaves = _fingerprint(bundle)
     stored = {name: (None if _size(leaf) == 0 else _stored(leaf)) for name, leaf in leaves

@@ -82,7 +82,10 @@ _CACHE: "collections.OrderedDict[tuple, Entry]" = collections.OrderedDict()
 
 
 def clear_cache() -> None:
-    """Drop every captured graph and release its memory pool."""
+    """Drop every captured graph and release its memory pool.  Call it
+    before ``torch.distributed.destroy_process_group`` where a graph holds
+    NCCL collectives: NCCL's communicator teardown waits for every graph
+    that holds its work to be released."""
     while _CACHE:
         _, entry = _CACHE.popitem()
         entry.graph.reset()
@@ -170,11 +173,13 @@ def _cuda(device) -> torch.device:
 
 
 # ------------------------------------------------------------ capture
-def capture(device: torch.device, body: Callable[[], Any], generators: Sequence[torch.Generator] = ()):
+def capture(device: torch.device, body: Callable[[], Any],
+            generators: Callable[[], Sequence[torch.Generator]] = tuple):
     """Warm ``body`` up (:data:`WARMUP_CALLS` eager calls on a side stream),
-    then capture one call of it into a ``torch.cuda.CUDAGraph`` with
-    ``generators`` registered; returns ``(graph, body's outputs, launches
-    per replay, seconds, pool bytes)``.  The warm-up's launches are real and
+    then capture one call of it into a ``torch.cuda.CUDAGraph`` with the
+    generators that ``generators()`` gives after the warm-up (which may
+    make some) registered; returns ``(graph, body's outputs, launches per
+    replay, seconds, pool bytes)``.  The warm-up's launches are real and
     counted; the capture's are recorded and taken back off the counters."""
     t0 = time.perf_counter()
     with torch.cuda.device(device):
@@ -188,7 +193,7 @@ def capture(device: torch.device, body: Callable[[], Any], generators: Sequence[
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         graph = torch.cuda.CUDAGraph()
-        for gen in generators:
+        for gen in generators():
             graph.register_generator_state(gen)
         before = dict(_build.launch_counts)
         stream, pool = torch.cuda.current_stream(), torch.cuda.graph_pool_handle()
@@ -295,7 +300,10 @@ def rollout(cfg, policy, policy_params, key, backend: str = "auto", device=None)
             with torch.no_grad():
                 return eager(cfg, policy, params, gen, backend="engine", device=device)
 
-        graph, outputs, launches, seconds, pool = capture(device, body, (gen,))
+        # a policy's own CUDA generators (random_policy's) are registered
+        # too: each replay then advances them as an eager call does
+        graph, outputs, launches, seconds, pool = capture(device, body, lambda: (gen, *(
+            g for g in getattr(policy, "generators", tuple)() if g.device.type == "cuda")))
         # the captured policy stays alive with its graph: the tensors it
         # holds (a CJ agent's depth table) are read by address
         return Entry(graph, (params, policy), outputs, (gen,), launches, seconds, pool)
@@ -374,7 +382,19 @@ def _seed_learner(ppo, it: _Iteration, entry_gens, key, mesh):
 def _n_generators(ppo, ppo_cfg, mesh) -> int:
     if ppo._fully_fused(ppo_cfg):
         return 0
-    return 1 if mesh is None else 2
+    return 1 if mesh is None or mesh.data == 1 else 2
+
+
+def _check_capturable_mesh(mesh) -> None:
+    """A CUDA graph holds NCCL's collectives but not Gloo's, which stage
+    CUDA tensors through the host: a Gloo mesh on the card raises."""
+    import torch.distributed as dist
+
+    if mesh is not None and dist.get_backend(mesh.group) != "nccl":
+        raise ValueError(
+            f"the compiled entry points capture a CUDA graph, which cannot hold the {dist.get_backend(mesh.group)} "
+            "backend's collectives (they run on the host); on the card use an NCCL group, one card per rank, "
+            "or the eager ppo.train_iteration / train_chunk")
 
 
 def _iteration_entry(env_cfg, ppo_cfg, train_state, key, mesh, device) -> Entry:
@@ -394,7 +414,7 @@ def _iteration_entry(env_cfg, ppo_cfg, train_state, key, mesh, device) -> Entry:
         def body():
             return ppo._iteration_update(local_cfg, ppo_cfg, ts, gen, shuffle_gen, it.k3_outputs, mesh=mesh)
 
-        graph, outputs, launches, seconds, pool = capture(device, body, gens)
+        graph, outputs, launches, seconds, pool = capture(device, body, lambda: gens)
         return Entry(graph, it, outputs, gens, launches, seconds, pool)
 
     return _cached(("jit_train_iteration", env_cfg, ppo_cfg, signature(train_state.params),
@@ -425,6 +445,7 @@ def train_iteration(env_cfg, ppo_cfg, train_state, key, mesh=None):
     if device.type != "cuda":
         return ppo.train_iteration(env_cfg, ppo_cfg, train_state, key, mesh=mesh)
     ppo.check_fused_update(env_cfg, ppo_cfg)
+    _check_capturable_mesh(mesh)
     device = _cuda(device)
     entry = _iteration_entry(env_cfg, ppo_cfg, train_state, key, mesh, device)
     _load_train_state(entry.inputs.ts, train_state)
@@ -441,6 +462,7 @@ def train_chunk(env_cfg, ppo_cfg, train_state, key, n_iterations: int, mesh=None
     if device.type != "cuda":
         return ppo.train_chunk(env_cfg, ppo_cfg, train_state, key, n_iterations, mesh=mesh)
     ppo.check_fused_update(env_cfg, ppo_cfg)
+    _check_capturable_mesh(mesh)
     device = _cuda(device)
     keys = ppo.iteration_keys(key, n_iterations)
     entry = _iteration_entry(env_cfg, ppo_cfg, train_state, keys[0], mesh, device)
@@ -481,7 +503,7 @@ def train_epoch(env_cfg, rf_cfg, state, key, num_epochs: int = 1):
                 p.grad = None
             return reinforce._epoch_update(params, env_cfg, ep.std, ep.lr, gen)
 
-        graph, outputs, launches, seconds, pool = capture(device, body, (gen,))
+        graph, outputs, launches, seconds, pool = capture(device, body, lambda: (gen,))
         return Entry(graph, ep, outputs, (gen,), launches, seconds, pool)
 
     entry = _cached(("jit_train_epoch", env_cfg, rf_cfg, signature(state.params), device), build)

@@ -6,11 +6,12 @@
   its example arguments.
 - :func:`assert_metric_bands`: the PPO sanity bands of
   ``__graft_entry__._assert_metric_bands`` (lines 42-54), verbatim.
-- :func:`dryrun_multichip`: one data-parallel PPO iteration at
-  production-like ratios (>= 2,048 envs, T = 64, a 256x256 trunk) over the
-  process group, on the engine path and on the fully fused path (K3 + K4)
-  with injected noise, each inside the bands, with per-phase times, and at
-  the default shape the weak-scaling tables over the widths the group has.
+- :func:`dryrun_multichip`: one PPO iteration at production-like ratios
+  (>= 2,048 envs, T = 64, 256x256) over the process group, on the engine
+  path over a ``(n // 2, 2)`` mesh (the towers tensor-parallel over
+  ``model``) and on the fully fused path (K3 + K4) data-parallel with
+  injected noise, each inside the bands, with per-phase times, and at the
+  default shape the weak-scaling tables over the widths the group has.
 """
 from __future__ import annotations
 
@@ -71,11 +72,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _weak_scaling(label, widths, rank, run):
+def _model_axis(n: int) -> int:
+    """``__graft_entry__.py:68-70``: a model axis of 2 on every even
+    width, else 1."""
+    return 2 if n % 2 == 0 else 1
+
+
+def _weak_scaling(label, widths, rank, run, model_of, device):
     """One row per width d: ``run(mesh_d, d)`` on the first d ranks (a
-    sub-group; every rank takes part in making it), timed twice on the
-    host clock after a synchronise; returns the rows ``(d, envs, first_s,
-    iter_ms, reward)`` of the ranks inside."""
+    sub-group; every rank takes part in making it), over a ``(d //
+    model_of(d), model_of(d))`` mesh, timed twice on the host clock after a
+    synchronise; returns the rows ``(d, mesh, envs, first_s, iter_ms,
+    reward)`` of the ranks inside."""
     import torch.distributed as dist
 
     from mbt_gym_torch.parallel.mesh import make_mesh
@@ -84,7 +92,7 @@ def _weak_scaling(label, widths, rank, run):
     for d in widths:
         group = dist.new_group(list(range(d)))
         if rank < d:
-            mesh_d = make_mesh(group=group)
+            mesh_d = make_mesh(data=d // model_of(d), model=model_of(d), group=group, device=device)
             t0 = time.perf_counter()
             run(mesh_d, d)
             first_s = time.perf_counter() - t0
@@ -92,28 +100,33 @@ def _weak_scaling(label, widths, rank, run):
             envs, metrics = run(mesh_d, d)
             it_ms = (time.perf_counter() - t0) * 1e3
             assert_metric_bands(metrics, f"{label}-weak-{d}")
-            rows.append((d, envs, first_s, it_ms, float(metrics["mean_episode_reward"])))
+            rows.append((d, f"{mesh_d.data}x{mesh_d.model}", envs, first_s, it_ms,
+                         float(metrics["mean_episode_reward"])))
         dist.destroy_process_group(group)
     return rows
 
 
 def dryrun_multichip(n_devices: int, n_envs: int = None, t_horizon: int = 64, device=None) -> None:
-    """One data-parallel PPO iteration over ``n_devices`` ranks, one per
-    device, at production-like ratios, inside the metric bands.
+    """One PPO iteration over ``n_devices`` ranks, one per device, at
+    production-like ratios, inside the metric bands.
 
     The process group must hold ``n_devices`` ranks; with none up and
     ``n_devices == 1``, :func:`mbt_gym_torch.parallel.mesh.init_distributed`
-    starts one on ``device`` (``None`` means ``"cuda"``: NCCL).  Every rank
-    calls this.  ``n_envs`` defaults to 2,048 rounded up to a multiple of
-    128 x ``n_devices``; at the defaults the weak-scaling tables (256 envs
-    per rank, widths 1, 2, 4, ... up to the group's size) are printed too.
+    starts one on ``device`` (``None`` means ``"cuda"``: NCCL).  The meshes
+    compute on ``device`` where it is given (a Gloo group on the card),
+    else on the backend's.  Every rank calls this.  ``n_envs`` defaults to
+    2,048 rounded up to a multiple of 128 x ``n_devices``; at the defaults
+    the weak-scaling tables (256 envs per rank, widths 1, 2, 4, ... up to
+    the group's size) are printed too.
 
-    Legs (``__graft_entry__.py:57-238``): (1) the engine path —
-    ``collect_rollout(mesh=)`` alone, then ``train_iteration(mesh=)``
-    twice — the counterpart of the JAX GSPMD leg, whose tensor-parallel
-    ``model`` axis is not ported; (2) the fully fused path (K3 + K4, float32
-    products) through ``train_iteration(mesh=, noise=)`` with injected
-    noise (numpy seed 11), as JAX's fused-DP leg runs it."""
+    Legs (``__graft_entry__.py:57-238``): (1) the engine path over a
+    ``(n_devices // 2, 2)`` mesh for an even ``n_devices`` (else
+    ``(n_devices, 1)``), the towers split over ``model`` by ``shard_params``
+    — ``collect_rollout(mesh=)`` alone, then ``train_iteration(mesh=)``
+    twice — the counterpart of the JAX GSPMD tp x dp leg; (2) the fully
+    fused path (K3 + K4, float32 products) data-parallel over ``(n_devices,
+    1)`` through ``train_iteration(mesh=, noise=)`` with injected noise
+    (numpy seed 11), as JAX's fused-DP leg runs it."""
     import torch.distributed as dist
 
     from mbt_gym_torch.agents import ppo
@@ -124,9 +137,10 @@ def dryrun_multichip(n_devices: int, n_envs: int = None, t_horizon: int = 64, de
     run_scaling_table = n_envs is None
     if not dist.is_initialized() and n_devices == 1:
         mesh_lib.init_distributed(world_size=1, rank=0, device=device)
-    mesh = mesh_lib.make_mesh()
-    if mesh.world != n_devices:
-        raise ValueError(f"the process group holds {mesh.world} ranks, not {n_devices}")
+    if dist.get_world_size() != n_devices:
+        raise ValueError(f"the process group holds {dist.get_world_size()} ranks, not {n_devices}")
+    model = _model_axis(n_devices)
+    mesh = mesh_lib.make_mesh(data=n_devices // model, model=model, device=device)
     dev = mesh.device
     per_dev = 128
     if n_envs is None:
@@ -139,7 +153,7 @@ def dryrun_multichip(n_devices: int, n_envs: int = None, t_horizon: int = 64, de
     )
     widths = [d for d in (1, 2, 4, 8, 16) if d <= n_devices]
 
-    # --- (1) the engine data-parallel leg --------------------------------
+    # --- (1) the engine tp x dp leg ----------------------------------------
     ppo_cfg = ppo.PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=4)
     ts = ppo.init_train_state(env_cfg, ppo_cfg, 0, device=dev)
     mesh_lib.shard_params(mesh, ts.params)
@@ -161,9 +175,9 @@ def dryrun_multichip(n_devices: int, n_envs: int = None, t_horizon: int = 64, de
     _sync(dev)
     t_iter = time.perf_counter() - t0
     m = assert_metric_bands(metrics, "engine-dp")
-    print(f"dryrun_multichip OK: mesh=({n_devices}x1), envs={n_envs}, T={t_horizon}, trunk=256x256, "
+    print(f"dryrun_multichip OK: mesh=({mesh.data}x{mesh.model}), envs={n_envs}, T={t_horizon}, trunk=256x256, "
           f"device={dev}, metrics={m}")
-    print(f"dryrun phases (engine DP): rollout {t_rollout * 1e3:.1f} ms (first call {rollout_s[0] * 1e3:.1f} ms), "
+    print(f"dryrun phases (engine tp x dp): rollout {t_rollout * 1e3:.1f} ms (first call {rollout_s[0] * 1e3:.1f} ms), "
           f"first iteration {t_first * 1e3:.1f} ms, full iteration {t_iter * 1e3:.1f} ms, "
           f"update ~{(t_iter - t_rollout) * 1e3:.1f} ms")
 
@@ -171,31 +185,29 @@ def dryrun_multichip(n_devices: int, n_envs: int = None, t_horizon: int = 64, de
         def engine_run(mesh_d, d):
             cfg_d = dataclasses.replace(env_cfg, num_trajectories=256 * d)
             ts_d = ppo.init_train_state(cfg_d, ppo_cfg, 4, device=dev)
+            mesh_lib.shard_params(mesh_d, ts_d.params)
             out = ppo.train_iteration(cfg_d, ppo_cfg, ts_d, 1, mesh=mesh_d)[1]
             _sync(dev)
             return 256 * d, out
 
-        rows = _weak_scaling("engine-dp", widths, mesh.rank, engine_run)
-        if rows:
-            print("dryrun engine DP weak scaling (fixed 256 envs/rank):")
-            print("  devices |   envs | first_s | iter_ms | reward")
-            for d, envs_d, first_s, it_ms, reward in rows:
-                print(f"  {d:7d} | {envs_d:6d} | {first_s:7.2f} | {it_ms:7.1f} | {reward:.3f}")
+        rows = _weak_scaling("engine-tp-dp", widths, mesh.rank, engine_run, _model_axis, device)
+        _print_rows("dryrun engine tp x dp weak scaling (fixed 256 envs/rank):", rows)
 
     # --- (2) the fused data-parallel leg: K3 + K4 with injected noise ------
     fused_cfg = ppo.PPOConfig(
         hidden=(256, 256), n_epochs=1, n_minibatches=2, shuffle=False, shared_trunk=True,
         fused_rollout=True, fused_update=True, fused_compute_dtype="float32",
     )
+    dp_mesh = mesh_lib.make_mesh(data=n_devices, model=1, device=device)
     fts = ppo.init_train_state(env_cfg, fused_cfg, 2, device=dev)
-    mesh_lib.shard_params(mesh, fts.params)
+    mesh_lib.shard_params(dp_mesh, fts.params)
     n_ch = mlp_rollout.n_noise_channels(env_cfg.action_dim)
     rng = np.random.default_rng(11)
     channels = rng.uniform(size=(t_horizon, n_ch, n_envs)).astype(np.float32)
     channels[:, 4:] = rng.normal(size=(t_horizon, n_ch - 4, n_envs)).astype(np.float32)
     noise = torch.from_numpy(channels).to(dev)
     t0 = time.perf_counter()
-    new_fts, fmetrics = ppo.train_iteration(env_cfg, fused_cfg, fts, 1, noise=noise, mesh=mesh)
+    new_fts, fmetrics = ppo.train_iteration(env_cfg, fused_cfg, fts, 1, noise=noise, mesh=dp_mesh)
     _sync(dev)
     t_fused = time.perf_counter() - t0
     fm = assert_metric_bands(fmetrics, "fused-dp")
@@ -212,9 +224,13 @@ def dryrun_multichip(n_devices: int, n_envs: int = None, t_horizon: int = 64, de
             _sync(dev)
             return envs_d, out
 
-        rows = _weak_scaling("fused-dp", widths, mesh.rank, fused_run)
-        if rows:
-            print("dryrun fused-DP weak scaling (fixed 256 envs/rank):")
-            print("  devices |   envs | first_s | iter_ms | reward")
-            for d, envs_d, first_s, it_ms, reward in rows:
-                print(f"  {d:7d} | {envs_d:6d} | {first_s:7.2f} | {it_ms:7.1f} | {reward:.3f}")
+        rows = _weak_scaling("fused-dp", widths, mesh.rank, fused_run, lambda d: 1, device)
+        _print_rows("dryrun fused-DP weak scaling (fixed 256 envs/rank):", rows)
+
+
+def _print_rows(title, rows):
+    if rows:
+        print(title)
+        print("  devices |  mesh |   envs | first_s | iter_ms | reward")
+        for d, shape, envs_d, first_s, it_ms, reward in rows:
+            print(f"  {d:7d} | {shape:>5s} | {envs_d:6d} | {first_s:7.2f} | {it_ms:7.1f} | {reward:.3f}")

@@ -202,7 +202,10 @@ def jit_rollout(cfg: EnvConfig, policy: PolicyFn, policy_params, key, *, backend
     replay of a CUDA graph of the whole episode, captured at the first call
     for this config, policy and parameter layout
     (:mod:`mbt_gym_torch.compiled`), bit for bit :func:`rollout` for the
-    same int ``key``.  On the CPU it is :func:`rollout`."""
+    same int ``key``; a policy that draws from generators of its own
+    (``random_policy``) has them registered with the graph, so they advance
+    with each replay (and with the capture's warm-up calls).  On the CPU it
+    is :func:`rollout`."""
     from mbt_gym_torch import compiled
 
     return compiled.rollout(cfg, policy, policy_params, key, backend=backend, device=device)

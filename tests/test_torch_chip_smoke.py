@@ -1,6 +1,7 @@
 """chip_smoke.py's host-side arithmetic, which the CPU can check: the
 device busy time of a profile (the union of the device events'
 intervals) and the FLOP counts behind the update kernels' bounds."""
+import numpy as np
 import pytest
 
 import chip_smoke
@@ -611,3 +612,138 @@ def test_metric_scales_are_the_terms_mean_magnitudes():
     assert scales["vf_loss"] == pytest.approx(float(metrics["vf_loss"]), rel=1e-5)
     for name in ("pg_loss", "approx_kl"):
         assert 0.0 < abs(float(metrics[name])) < scales[name]
+
+
+AS_OUTPUT = """DispatchDecision(backend='fused', family='as_episode', reason='...')
+          Mean spread   Mean PnL   Std PnL Mean terminal inventory Std terminal inventory
+Inventory     1.49177  64.776062  6.714936               -0.091797               2.887434
+
+Expected (AS 2008 / reference notebook):
+  spread 1.49177, PnL 64.87 +/- 6.69, terminal inv 0.20 +/- 2.89
+EXAMPLE {"launches": {"as_episode_trajectories": 1}, "jax_modules": []}
+"""
+CJP_OUTPUT = "".join(
+    f"{{'initial_price': 100.0, 'n_steps': 1000}}: sample  68.7938  analytic  68.2558  t={t}  ACCEPT\n"
+    for t in ("+0.794", "-0.375", "-0.909", "+0.065")) + 'EXAMPLE {"launches": {"det_rollout": 4}, "jax_modules": []}\n'
+POD_OUTPUT = """mesh {'data': 1, 'model': 1} | 131,072 envs total
+iter 0: reward    2.026      95.0M env-steps/s (incl. learner)  metrics={"pg_loss":0.0039,"vf_loss":2.33,"approx_kl":0.006,"entropy":1.84,"mean_episode_reward":2.03}
+EXAMPLE {"launches": {"mlp_rollout": 2, "ppo_fused_grads_T": 32}, "jax_modules": []}
+"""
+
+
+def test_parse_example_reads_the_examples_lines():
+    parsed = chip_smoke.parse_example(AS_OUTPUT)
+    assert parsed["as_table"] == {"mean_spread": 1.49177, "mean_pnl": 64.776062, "std_pnl": 6.714936,
+                                  "mean_terminal_inventory": -0.091797, "std_terminal_inventory": 2.887434}
+    assert parsed["launches"] == {"as_episode_trajectories": 1} and parsed["jax_modules"] == []
+    assert 2008.0 in parsed["figures"] and parsed["t_stats"] == []
+    assert chip_smoke.parse_example(CJP_OUTPUT)["t_stats"] == [0.794, -0.375, -0.909, 0.065]
+    pod = chip_smoke.parse_example(POD_OUTPUT)
+    assert pod["iterations"] == [{"pg_loss": 0.0039, "vf_loss": 2.33, "approx_kl": 0.006, "entropy": 1.84,
+                                  "mean_episode_reward": 2.03}]
+    assert 95.0 in pod["figures"] and 131.0 in pod["figures"]
+
+
+@pytest.mark.parametrize("text, kw, want", [
+    (AS_OUTPUT, dict(expect_launches={"as_episode_trajectories"}, as_table=True), []),
+    (AS_OUTPUT.replace("64.776062", "66.0"), dict(as_table=True), ["mean_pnl 66.0 not within 64.87 +/- 1.0"]),
+    (AS_OUTPUT.replace("6.714936", "nan"), dict(as_table=True), ["a figure is not finite"]),
+    (AS_OUTPUT, dict(expect_launches={"as_episode"}, as_table=True),
+     ["launched {'as_episode_trajectories': 1}, expected ['as_episode']"]),
+    (AS_OUTPUT.replace('"jax_modules": []', '"jax_modules": ["jax"]'), dict(as_table=True), ["imported ['jax']"]),
+    (AS_OUTPUT.replace("EXAMPLE", "EXAMPLES"), dict(as_table=True), ["no EXAMPLE line"]),
+    (CJP_OUTPUT, dict(t_stats=4, expect_launches={"det_rollout"}), []),
+    (CJP_OUTPUT.replace("-0.909", "-3.400"), dict(t_stats=4),
+     ["t statistics [0.794, -0.375, -3.4, 0.065] (want 4, each |t| < 3.29)"]),
+    (POD_OUTPUT, dict(iterations=1, expect_launches={"mlp_rollout", "ppo_fused_grads_T"}), []),
+    (POD_OUTPUT, dict(iterations=3), ["1 iterations printed, not 3"]),
+])
+def test_example_failures_name_what_is_wrong(text, kw, want):
+    bad = chip_smoke.example_failures(chip_smoke.parse_example(text), **kw)
+    assert bad == want
+
+
+def test_example_failures_hold_pod_scale_to_the_metric_bands():
+    bad = chip_smoke.example_failures(chip_smoke.parse_example(POD_OUTPUT.replace('"pg_loss":0.0039', '"pg_loss":0.9')),
+                                      iterations=1)
+    assert len(bad) == 1 and bad[0].startswith("metric bands:")
+
+
+def test_example_runs_cover_every_example_and_name_real_kernels():
+    import os
+
+    from mbt_gym_torch.ops import _build
+
+    names = [run[0] for run in chip_smoke.EXAMPLE_RUNS]
+    scripts = sorted(f[:-3] for f in os.listdir(os.path.join(os.path.dirname(chip_smoke.__file__), "examples_torch"))
+                     if f.endswith(".py"))
+    assert sorted(names) == scripts and len(names) == 8
+    assert all(set(run[2]) <= set(_build.launch_counts) for run in chip_smoke.EXAMPLE_RUNS)
+    assert set(chip_smoke.KERNEL_OF) == set(_build.launch_counts)
+    cmd = chip_smoke.example_command("python3", "replicate_as", ["--gamma", "0.1"])
+    assert cmd[:2] == ["python3", "-c"] and cmd[3:] == ["examples_torch/replicate_as.py", "--gamma", "0.1"]
+
+
+def test_example_launch_figures_sum_each_kernel_over_the_runs():
+    runs = [chip_smoke.parse_example(t) for t in (AS_OUTPUT, CJP_OUTPUT, POD_OUTPUT, POD_OUTPUT)]
+    assert chip_smoke.example_launch_figures(runs) == {
+        "K2": {"examples_launches": 1}, "K5": {"examples_launches": 4}, "K3": {"examples_launches": 4},
+        "K4": {"examples_launches": 64}}
+
+
+@pytest.mark.parametrize("moved, n_far, want_ok", [
+    (0.0, 0, True),  # equal
+    (5e-7, 0, True),  # the sum order's last bits everywhere
+    (2e-3, 1, True),  # one element an Adam step or so apart: within 2 x lr x 4 steps, 99.9% tight
+    (3e-3, 1, False),  # beyond 2 x lr per step
+    (1e-5, 0, False),  # every element past the tight tolerance
+    (1e-3, 2, False),  # 2 of 1,000 elements apart: under 99.9% tight
+])
+def test_model_axis_close_follows_the_sum_order_argument(moved, n_far, want_ok):
+    rng = np.random.default_rng(0)
+    want = {"a": rng.normal(size=600).astype(np.float32), "b": rng.normal(size=400).astype(np.float32)}
+    got = {k: v.copy() for k, v in want.items()}
+    if n_far:
+        got["a"][:n_far] += np.float32(moved)
+    else:
+        got["b"] += np.float32(moved) * np.sign(got["b"]) * (1 + np.abs(got["b"]))
+    ok, worst, tight = chip_smoke.model_axis_close(got, want, 3e-4, 4)
+    assert ok == want_ok, (worst, tight)
+
+
+def _worker_result(rank, **kw):
+    result = {"rank": rank, "backend": "gloo", "mesh": [1, 2, 0, rank], "digest": "d",
+              "metrics": {"pg_loss": 0.01, "vf_loss": 2.0, "approx_kl": 0.001, "entropy": 1.8,
+                          "mean_episode_reward": 10.0},
+              "engine_launches": {"mlp_rollout": 0}, "dryrun_launches": {"mlp_rollout": 1, "ppo_fused_grads_T": 2},
+              "capture": "... cannot hold the gloo backend's collectives ..."}
+    if rank == 0:
+        result["meshless_metrics"] = dict(result["metrics"], pg_loss=0.0100001)
+    result.update(kw)
+    return result
+
+
+@pytest.mark.parametrize("r0, r1, close, want", [
+    ({}, {}, (True, 1e-7, 1.0), []),
+    ({}, {"digest": "e"}, (True, 1e-7, 1.0), ["the model ranks' gathered params or metrics differ"]),
+    ({}, {}, (False, 5e-3, 0.99), ["(1, 2) params vs meshless: worst 0.005 (limit 0.0024), 99.0000% within 1e-06"]),
+    ({"engine_launches": {"mlp_rollout": 1}}, {}, (True, 0.0, 1.0),
+     ["rank 0: the engine iterations launched {'mlp_rollout': 1}"]),
+    ({}, {"dryrun_launches": {"mlp_rollout": 1}}, (True, 0.0, 1.0),
+     ["rank 1: the dryrun launched {'mlp_rollout': 1}, not K3 and K4"]),
+    ({}, {"capture": "captured"}, (True, 0.0, 1.0), ["rank 1: jit_train_iteration on a Gloo mesh: captured"]),
+    ({"backend": "nccl"}, {}, (True, 0.0, 1.0), ["mesh nccl [1, 2, 0, 0] [1, 2, 0, 1]"]),
+])
+def test_model_axis_failures_name_what_is_wrong(r0, r1, close, want):
+    results = [_worker_result(0, **r0), _worker_result(1, **r1)]
+    assert chip_smoke.model_axis_failures(results, close, (3e-4, 4)) == want
+
+
+def test_model_axis_failures_hold_the_metrics_to_the_meshless_ones_and_the_bands():
+    r0 = _worker_result(0, meshless_metrics=dict(_worker_result(0)["metrics"], vf_loss=2.1))
+    bad = chip_smoke.model_axis_failures([r0, _worker_result(1)], (True, 0.0, 1.0), (3e-4, 4))
+    assert bad == ["metric vf_loss 2.0 vs meshless 2.1"]
+    r0 = _worker_result(0, metrics=dict(_worker_result(0)["metrics"], approx_kl=0.9))
+    r0["meshless_metrics"] = r0["metrics"]
+    bad = chip_smoke.model_axis_failures([r0, _worker_result(1, metrics=r0["metrics"])], (True, 0.0, 1.0), (3e-4, 4))
+    assert len(bad) == 2 and all("metric bands" in b for b in bad)

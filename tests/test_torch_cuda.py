@@ -1302,3 +1302,121 @@ def test_a_failed_capture_leaves_the_allocator_as_it_was_on_the_card(cuda_device
     finally:
         compiled.clear_cache()
     assert released() <= base + (64 << 20)
+
+
+def test_jit_rollout_of_the_random_policy_on_the_card(cuda_device):
+    """``jit_rollout`` of ``random_policy``, which draws from a generator of
+    its own (examples_torch/baseline_agents.py): the capture registers that
+    generator too, so each replay draws new actions inside the action box,
+    one per step shared by every env."""
+    from mbt_gym_torch import compiled
+    from mbt_gym_torch.agents.baseline import random_policy
+    from mbt_gym_torch.rollout import jit_rollout
+
+    cfg = as_env_config(num_trajectories=1000)
+    policy = random_policy(cfg)
+    low, high = (torch.tensor(b, dtype=torch.float32, device=cuda_device) for b in cfg.action_bounds())
+    try:
+        first = jit_rollout(cfg, policy, None, 50, device=cuda_device).trajectory.actions
+        second = jit_rollout(cfg, policy, None, 50, device=cuda_device).trajectory.actions
+        torch.cuda.synchronize()
+        for actions in (first, second):
+            assert torch.all(actions >= low) and torch.all(actions <= high)
+            assert torch.equal(actions, actions[:, :1].expand_as(actions))
+        assert not torch.equal(first, second)
+    finally:
+        compiled.clear_cache()
+
+
+NCCL_MODEL_WORKER = """
+import dataclasses, hashlib, json, sys
+import torch
+from mbt_gym_torch import compiled
+from mbt_gym_torch.agents import ppo
+from mbt_gym_torch.parallel import mesh as mesh_lib
+from mbt_gym_torch.utils.config import as_env_config
+
+rank, port = int(sys.argv[1]), sys.argv[2]
+mesh_lib.init_distributed(world_size=4, rank=rank, init_method=f"tcp://127.0.0.1:{port}")
+mesh = mesh_lib.make_mesh(data=2, model=2)
+env_cfg = dataclasses.replace(as_env_config(num_trajectories=8192, n_steps=32),
+                              normalise_observation_space=True, normalise_action_space=True)
+cfg = ppo.PPOConfig(hidden=(64, 64), n_epochs=2, n_minibatches=4)
+ts = ppo.init_train_state(env_cfg, cfg, 0, device=mesh.device)
+mesh_lib.shard_params(mesh, ts.params)
+eager = captured = ts
+same = True
+for k in (8, 9):
+    eager, em = ppo.train_iteration(env_cfg, cfg, eager, k, mesh=mesh)
+    captured, cm = ppo.jit_train_iteration(env_cfg, cfg, captured, k, mesh=mesh)
+    torch.cuda.synchronize()
+    same = same and all(torch.equal(a, b) for a, b in zip(eager.params.parameters(), captured.params.parameters()))
+    same = same and all(torch.equal(em[n], cm[n]) for n in em)
+    for p, q in zip(eager.params.parameters(), captured.params.parameters()):
+        e, c = eager.opt_state.state[p], captured.opt_state.state[q]
+        same = same and torch.equal(e["exp_avg"], c["exp_avg"]) and torch.equal(e["exp_avg_sq"], c["exp_avg_sq"])
+whole = mesh_lib.gather_params(mesh, captured.params)
+h = hashlib.sha256()
+for name, v in sorted(whole.state_dict().items()):
+    h.update(name.encode()); h.update(v.cpu().numpy().tobytes())
+print("RESULT " + json.dumps({"rank": rank, "same": bool(same), "digest": h.hexdigest(),
+                              "captures": len(compiled.cache_info()), "split": ts.params.model_shards,
+                              "reward": float(cm["mean_episode_reward"])}), flush=True)
+compiled.clear_cache()  # before the communicators: NCCL's teardown waits for the graphs holding its work
+torch.distributed.destroy_process_group()
+print("DESTROYED", flush=True)
+"""
+
+
+def test_jit_train_iteration_captures_the_model_axis_over_nccl_on_four_cards(cuda_device, tmp_path):
+    """A ``(2, 2)`` mesh over NCCL, one process per card (NCCL takes one
+    card per rank): ``jit_train_iteration`` captures the engine iteration
+    with the towers split over ``model`` (the tensor-parallel forward's
+    all-reduces and those of its backward inside the graph, over the
+    ``data`` and ``model`` sub-groups) and ``data``'s grad all-reduce, and
+    two replays equal two eager ``train_iteration`` calls bit for bit
+    (params, Adam moments, metrics); the four ranks gather the same whole
+    model."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices: NCCL takes one card per rank")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    script = tmp_path / "_nccl_model_worker.py"
+    script.write_text(NCCL_MODEL_WORKER)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    logs = [tmp_path / f"rank{rank}.log" for rank in range(4)]
+    procs = []
+    deadline = time.monotonic() + 120
+    try:
+        for rank, log in enumerate(logs):
+            with log.open("w") as f:
+                procs.append(subprocess.Popen([sys.executable, str(script), str(rank), port], env=env, stdout=f,
+                                              stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass  # the ranks still running are killed and reported below
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = [log.read_text() for log in logs]
+    results = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        tail = "\n".join(line for line in out.splitlines()[-12:] if "UserWarning" not in line)
+        assert p.returncode == 0 and "DESTROYED" in out, f"rank {rank} exited {p.returncode}:\n{tail}"
+        results.append(json.loads([line for line in out.splitlines() if line.startswith("RESULT ")][0][7:]))
+    for rank, r in enumerate(results):
+        assert r["same"], f"rank {rank}: the captured model-axis iteration is not eager bit for bit"
+        assert r["captures"] == 1 and r["split"] == [rank % 2, 2]
+    assert len({r["digest"] for r in results}) == 1
