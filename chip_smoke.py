@@ -103,6 +103,16 @@ public entry points and times it all:
   bit for bit, the iteration's time and idle share beside config 10's
   (29b); ``fused_update`` on the engine rollout, K7 x16 (29c); K4 and K7 at
   S = 8, 9 and 16 timed against their bounds and plain versions (29d);
+- K3, K4 and K7 at every trunk and observation width the JAX kernels take
+  (phase 32): bench_suite config 5 with a (512, 512) trunk on both layouts,
+  fully fused (K3 x1 + K4 x16 an iteration, the metric bands) and with
+  ``fused_update`` on the engine rollout, the kernels against their plain
+  versions on the first minibatch and timed (32a); widths off a multiple
+  of 4 and twelve layers in both dtypes (32b); trunks past shared memory
+  on the scratch routes, (2048,) and (1536, 1536) (32c); S = 20 and 32, and
+  a config of nested exogenous-MM fills observing S = 20 trained with
+  ``fused_update`` (32d); phase 18 reads the wide route's instantiations'
+  registers, spills and tensor-core instructions;
 - the eight user examples of ``examples_torch/`` (phase 30), each a
   subprocess at its default widths and env counts with its iterations cut,
   the kernels it launches read from ``_build.launch_counts`` at its end:
@@ -517,7 +527,7 @@ def profile_iteration(torch, card, label, fn, top=6, phase=12, expect=(), warm=F
     return {"by_name": by_name, "busy_ms": busy, "wall_ms": wall_ms}
 
 
-def compare_rollouts(torch, got, want, n, label, continuous=False):
+def compare_rollouts(torch, got, want, n, label, continuous=False, atol=1e-3):
     """K3's five outputs against its plain version: at most 0.1% of envs may
     differ in their inventory stream (a fill or market order decided on the
     other side of its threshold by a summation-order difference changes
@@ -528,7 +538,9 @@ def compare_rollouts(torch, got, want, n, label, continuous=False):
     printed.  With ``continuous`` (the at-the-touch fills are the post
     columns themselves, so every inventory carries the action's rounding)
     an env's stream counts as the same where it agrees to that tolerance.
-    Returns the max abs error over the compared values."""
+    ``atol`` widens the 1e-3 where a float64-summed reference stands for
+    the plain version (:func:`k3_close`).  Returns the max abs error over
+    the compared values."""
     if continuous:
         inv_a, inv_b = got[0][:, 1], want[0][:, 1]
         same = ((inv_a - inv_b).abs() <= 1e-3 + 1e-4 * inv_b.abs()).all(dim=0)
@@ -543,7 +555,8 @@ def compare_rollouts(torch, got, want, n, label, continuous=False):
     check(flips <= n // 1000, f"{label}: inventory stream differs on {flips} of {n} envs")
     err = 0.0
     for name, a, b in zip(("obs", "actions", "log_probs", "values", "rewards"), got, want):
-        torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3, msg=lambda m: f"{label} {name}: {m}")
+        torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=atol if name != "obs" else 1e-3,
+                                   msg=lambda m: f"{label} {name}: {m}")
         err = max(err, float((a[..., same] - b[..., same]).abs().max()))
     print(f"{label}: inventory flips {flips}/{n}, max abs err {err:.3g}")
     return err
@@ -1187,10 +1200,11 @@ def cj_phases(torch, np, card, dev, as_kernel_ms=None):
 # ------------------------------------------------------------------ fused update and towers
 TOWERS_ITERATIONS = {"a": 4, "b": 4, "c": 6}
 EVAL_N = 16_384
-# K4's and K7's kernels: pass 1 <kBf16, kRowMajor> (4) and pass 2 <kBf16,
-# staged plane type> (3: K7's bf16 planes are float32)
+# K4's and K7's kernels: pass 1 <kBf16, kRowMajor, kScratch> (8: the
+# shared-memory and scratch routes) and pass 2 <kBf16, staged plane type>
+# (3: K7's bf16 planes are float32)
 UPDATE_PASSES = ("ppo_deep_pass1", "ppo_deep_pass2")
-UPDATE_INSTANTIATIONS = 7
+UPDATE_INSTANTIATIONS = 11
 
 
 def kernel_registers(report, names):
@@ -1276,6 +1290,8 @@ def update_phases(torch, np, card, dev):
     with per-iteration launch counts; timings and profiles.  Returns the K7
     kernels-line entry and the towers figures of K3 and K4."""
     import dataclasses
+    import shutil
+    from pathlib import Path
 
     from mbt_gym_torch import dispatch_report, init_train_state, train_iteration
     from mbt_gym_torch.agents.networks import init_actor_critic
@@ -1287,9 +1303,9 @@ def update_phases(torch, np, card, dev):
 
     # ---- phase 18: registers and spills of the update passes and of K3
     # (the full report is printed with the builds above): K4 and K7 are
-    # ppo_deep_pass1<kBf16, kRowMajor> (K7: "Lb?ELb1E") and
+    # ppo_deep_pass1<kBf16, kRowMajor, kScratch> (K7: "ILb?ELb1E") and
     # ppo_deep_pass2<kBf16, staged type> (K7 in bf16 stages float32
-    # planes), 7 instantiations, the bf16 ones "ILb1E"; K3 (both layouts) is
+    # planes), 11 instantiations, the bf16 ones "ILb1E"; K3 (both layouts) is
     # mlp_rollout_kernel, one instantiation per operand type and dynamics
     # kind (limit, lam, touch).  Then the tensor-core instructions of each.
     # The update passes and the step-pipeline kernels K1, K2, K5, K6 and
@@ -1321,6 +1337,26 @@ def update_phases(torch, np, card, dev):
     # variants; MUFU counts the special-function instructions behind its
     # tanhf/expf/logf
     k3_sass = check_tensor_cores(_build.build("mlp_rollout.cu"), "mlp_rollout.cu", ("mlp_rollout_kernel",), 24)
+    # K3's wide route (trunks past 256 rows, phase 32), the library of
+    # mlp_rollout_wide.cu alone: one mlp_rollout_wide_kernel per bf16
+    # instantiation (the four dynamics kinds on the plain and general
+    # processes, and the general ones' extras variants), none spilling, each
+    # on the tensor cores
+    rows = kernel_registers(_build.ptxas_reports.get("mlp_rollout_wide.cu", ""), ("mlp_rollout_",))
+    check(len(rows) == WIDE_INSTANTIATIONS and all("mlp_rollout_wide_kernel" in entry for entry, _ in rows),
+          f"phase 18: mlp_rollout_wide.cu holds {[entry for entry, _ in rows]}, not {WIDE_INSTANTIATIONS} wide K3 "
+          "instantiations")
+    for entry, usage in rows:
+        print(f"phase 18 registers mlp_rollout_wide.cu {entry[:90]}: {usage}")
+        check(spill_bytes(usage) == 0, f"phase 18: {entry} spills: {usage}")
+    check(not sass_counts(k3_sass, "HMMA", ("mlp_rollout_wide_kernel",)), "phase 18: mlp_rollout.cu holds the wide route")
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
+    wide_sass = subprocess.run([cuobjdump, "-sass", str(_build.build("mlp_rollout_wide.cu"))], capture_output=True,
+                               text=True, timeout=300, check=True).stdout
+    wide_hmma = sass_counts(wide_sass, "HMMA", ("mlp_rollout_wide_kernel",))
+    check(len(wide_hmma) == WIDE_INSTANTIATIONS and all(n > 0 for n in wide_hmma.values()),
+          f"phase 18: HMMA in K3's wide instantiations {wide_hmma}")
+    print(f"phase 18 mlp_rollout_wide.cu: {len(wide_hmma)} wide instantiations, HMMA {sorted(wide_hmma.values())}")
     kinds = {kind: sass_counts(k3_sass, f"MUFU.{kind}", ("mlp_rollout_kernel",))
              for kind in ("EX2", "RCP", "LG2", "SQRT", "RSQ", "SIN", "COS", "TANH")}
     for entry, n in sorted(sass_counts(k3_sass, "MUFU", ("mlp_rollout_kernel",)).items()):
@@ -3134,12 +3170,11 @@ def oe_saving(det, cf, hold):
     return (det - hold) / (cf - hold)
 
 
-def k3_bound(n, steps, s_dim, a_dim, towers=1, peak=BF16_OPS_PER_S):
+def k3_bound(n, steps, s_dim, a_dim, towers=1, peak=BF16_OPS_PER_S, widths=(256, 256)):
     """bound_ms of one K3 call: the (T, S + A + 3, N) float32 outputs
     written once against the trunk's and head's matmul FLOPs per
     env-step at ``peak``."""
-    return bound_ms((s_dim + a_dim + 3) * 4 * n * steps, mlp_flops_per_sample(s_dim, 256, 256, a_dim, towers) * n * steps,
-                    peak)
+    return bound_ms((s_dim + a_dim + 3) * 4 * n * steps, mlp_flops_at(s_dim, widths, a_dim, towers) * n * steps, peak)
 
 
 def speed_figures(err, launches, k3, k4, k5, k3_extra=None):
@@ -4059,8 +4094,13 @@ DRIFT_N, DRIFT_T = 64, 8  # 28c: tests/test_fused_ppo.py:82-84's shape
 # tests: per leaf a relative Frobenius error, per metric rtol 1e-4 plus a
 # share of the metric's terms' mean magnitude (approx_kl averages terms ~100
 # times larger than itself, and at eight layers over 160 samples the kernel
-# read 3.0e-4 of them)
-DEEP_BF16_LIMITS = {3: (1e-3, 1e-4), 8: (5e-3, 1e-3)}  # depth: (leaf bound, metric terms' share)
+# read 3.0e-4 of them).  Twelve layers (phase 32b), set before any reading
+# there by the same float64-summed rule: the plain version's own drift
+# grew about linearly with depth, 7.3e-4 at three layers to 2.4e-3 at
+# eight (3.3e-4 a layer), so twelve layers should read ~3.7e-3 per leaf;
+# the bound doubles the eight-layer one, the margin that one leaves over
+# its reading (2.1x), and so does the metric share
+DEEP_BF16_LIMITS = {3: (1e-3, 1e-4), 8: (5e-3, 1e-3), 12: (1e-2, 2e-3)}  # depth: (leaf bound, metric terms' share)
 # 28a's observation and action widths: JAX's test shape, config 10's, the
 # all-axes config's and K3's limit (two dW0 sweeps)
 DEEP_DIMS = ((4, 2), (8, 4), (9, 4), (16, 4))
@@ -4151,21 +4191,36 @@ def compare_bf16(torch, grads, metrics, want, scales, leaf_bound, terms, label, 
     return max(errs.values())
 
 
+def plain_close(torch, grads, metrics, want, model, rows, dtype, label):
+    """An update kernel's output against its plain version's ``want`` on a
+    trunk of up to two layers: as :func:`compare_grads` holds it, but a
+    bf16 trunk wider than :data:`WIDE_UPDATE_WIDTH` by :func:`compare_bf16`
+    at the three-layer limits (1e-3 per leaf, as compare_grads; each metric
+    within rtol 1e-4 plus 1e-4 of its terms' mean magnitude, ``rows`` being
+    the row-major samples).  Returns the worst bf16 leaf error (0 for
+    float32)."""
+    if dtype == "bfloat16" and max(model.hidden) > WIDE_UPDATE_WIDTH:
+        return compare_bf16(torch, grads, metrics, want, metric_scales(torch, model, rows), *deep_bf16_limits(3),
+                            label)
+    compare_grads(torch, grads, metrics, *want, dtype, label)
+    return 0.0 if dtype == "float32" else max(leaf_errors(torch, grads, want[0]).values())
+
+
 def compare_update(torch, grads, metrics, model, args, plain_fn, rows, dtype, label):
     """An update kernel's output on ``args`` against its plain version
     ``plain_fn`` at the limits :func:`deep_bf16_limits` gives ``model``'s
-    depth: up to two layers (and in float32 at any depth) as
-    :func:`compare_grads` holds it; deeper, bf16, against the plain
-    version's float64-summed evaluation by :func:`compare_bf16`.  ``rows``
+    depth: up to two layers (and in float32 at any depth) by
+    :func:`plain_close`; deeper, or with a layer wider than
+    :data:`F64_RULE_WIDTH` (at the three-layer limits), bf16, against the
+    plain version's float64-summed evaluation by :func:`compare_bf16`.  ``rows``
     are the row-major samples (for the metric scales).  Returns the worst
     bf16 leaf error (0 for float32)."""
     want = plain_fn(model, *args, compute_dtype=dtype)
     depth = len(model.hidden)
-    if dtype == "float32" or depth <= 2:
-        compare_grads(torch, grads, metrics, *want, dtype, label)
-        return 0.0 if dtype == "float32" else max(leaf_errors(torch, grads, want[0]).values())
+    if dtype == "float32" or (depth <= 2 and max(model.hidden) <= F64_RULE_WIDTH):
+        return plain_close(torch, grads, metrics, want, model, rows, dtype, label)
     ref = plain_fn(model, *args, compute_dtype=dtype, sum_dtype=torch.float64)
-    leaf_bound, terms = deep_bf16_limits(depth)
+    leaf_bound, terms = deep_bf16_limits(max(depth, 3))
     return compare_bf16(torch, grads, metrics, ref, metric_scales(torch, model, rows), leaf_bound, terms, label,
                         plain=want)
 
@@ -4173,8 +4228,9 @@ def compare_update(torch, grads, metrics, model, args, plain_fn, rows, dtype, la
 def deep_bf16_limits(depth):
     """(leaf bound, metric terms' share) of a bf16 update kernel on a trunk
     of ``depth`` > 2 layers: :data:`DEEP_BF16_LIMITS`'s three-layer figures
-    up to three layers, its eight-layer ones beyond."""
-    return DEEP_BF16_LIMITS[3 if depth <= 3 else 8]
+    up to three layers, its eight-layer ones up to eight, its twelve-layer
+    ones beyond."""
+    return DEEP_BF16_LIMITS[3 if depth <= 3 else 8 if depth <= 8 else 12]
 
 
 def full_minibatch_close(torch, got, want, hidden, scales, label):
@@ -4321,7 +4377,7 @@ def deep_trunk_phases(torch, np, card, dev):
         k4_bound = bound_ms(per_sample * m5, ppo_grad_flops_at(4, hidden, 2, towers) * m5, BF16_OPS_PER_S)
         k3_bound = bound_ms((4 + 2 + 3) * 4 * PPO_N * steps, mlp_flops_at(4, hidden, 2, towers) * PPO_N * steps,
                             BF16_OPS_PER_S)
-        shape = fused_ppo.check_kernel_limits(model, nb5, 4, 2, "K4")
+        shape = fused_ppo.check_kernel_limits(model, nb5, 2, "K4")
         scratch = fused_ppo.deep_layout(shape, m5 // 32, 4, 2, True)["stage_bytes"]
         key = "x".join(map(str, hidden)) + ("" if shared else "_towers")
         figures["K4"].update({f"deep_{key}_ms": k4_ms, f"deep_{key}_call_ms": k4_call,
@@ -4432,7 +4488,6 @@ def all_axes_phases(torch, np, card, dev):
                                                                       midprice_model=pc.HestonMidprice()))
     p = mr.rollout_params_from_config(axes)
     check((axes.state_dim, axes.action_dim, p.n_channels) == (9, 4, 12), f"phase 29: all-axes params {p}")
-    check(fused_update_refusal(axes) is None, f"phase 29: {fused_update_refusal(axes)}")
     steps = axes.n_steps
     nb = COMPOSITE_N // PPO_MINIBATCHES
     m = steps * nb
@@ -4510,6 +4565,8 @@ def all_axes_phases(torch, np, card, dev):
                          compute_dtype="bfloat16", shared_trunk=layout == "shared trunk", fused_rollout=True,
                          fused_update=True)
         ts0 = init_train_state(axes, pcfg, 292)
+        refusal = fused_update_refusal(axes, pcfg, ts0.params)
+        check(refusal is None, f"phase 29b {layout}: {refusal}")
         eager, ts = [], ts0
         _build.reset_launch_counts()
         for i in range(AXES_ITERATIONS):
@@ -4607,6 +4664,434 @@ def all_axes_phases(torch, np, card, dev):
     figures["K4"].update({"axes_launches": path["ppo_fused_grads_T"], "axes_max_rel_err": err["K4"]})
     figures["K7"].update({"axes_launches": path["ppo_fused_grads"], "axes_max_rel_err": err["K7"]})
     print(f"phase 29 ok in {time.perf_counter() - t_start:.1f} s")
+    return figures
+
+
+# ------------------------------------------------------------ trunks past 256
+WIDE_TRUNK = (512, 512)  # 32a's trunk at config 5
+WIDE_ITERATIONS = 3  # 32a's fully fused iterations per layout
+WIDE_CHECK_N = 16_384  # 32a's K3 comparison: the first minibatch's envs
+WIDE_F32_STEPS = 20  # 32a's float32 K4/K7 comparison: the first minibatch's first steps
+# 32b's trunks (hidden, shared): widths off a multiple of 4 and a depth past 8
+EDGE_TRUNKS = (((30, 30), True), ((100, 52), False), ((64,) * 12, True), ((64,) * 12, False))
+EDGE_N = 16_384  # 32b's K3 envs x 200 steps
+EDGE_MB = (16, 512)  # 32b-d's synthetic minibatches: 16 steps x 512 envs
+# 32c: trunks past pass 1's and K3's shared memory (the scratch routes)
+SCRATCH_TRUNKS = (((2048,), False), ((1536, 1536), True))
+SCRATCH_N = 16_384  # K3's envs x 200 steps in bf16; K4/K7's minibatch is one of 16
+SCRATCH_F32_N = 4_096  # K3's envs x 200 steps in float32 (1.25 s a launch at 16,384 on (1536, 1536))
+# 32d: observation widths past 16 (K4 both layouts, K7), and the nested
+# exogenous-MM config's depth: ExogenousMmFills nested 4 deep hold 16 OU
+# depth states, S = 20
+WIDE_S = ((20, (256, 256)), (32, (256, 256)), (32, (512, 512)))
+# bf16 trunks deeper than eight layers (32b's twelve) or with a layer
+# wider than 512 (32c's 1536 x 1536): K3 is held, like K4 and K7 there and
+# beyond two layers, to the plain version's float64-summed evaluation.  A
+# float32 summation-order difference flips bf16 roundings of the
+# activations, which every later layer carries on; the chance grows with
+# the length of each sum, a 1,536-term one six times a 256-term one.  On
+# the H100, K3 at 1536 x 1536 read 1.12e-3 from its plain version in one
+# value of 3,274,400 (against atol 1e-3), and K4 and K7 there a pg_loss
+# 1.4e-4 (relative) off on 1,024 samples, a mean that
+# cancels to 1% of its terms; at 512 x 512 both met the plain versions'
+# bounds.  K3's limit was set before any card reading from the plain
+# version's own distance from that evaluation, read on the CPU with
+# mlp_rollout_plain(..., sum_dtype=torch.float64) at 4,096 envs x 200 on
+# 12 x 64: actions 1.12e-3, values 1.55e-3, rewards 1.65e-3, no inventory
+# flip; at eight layers 0.67e-3, 0.58e-3, 1.03e-3; at 2 x 512 2.1e-4.  Two
+# float32 orders sit up to twice one's distance apart; 4e-3 on actions,
+# log-probs, values and rewards (rtol 1e-4 as before; observations, flips
+# as compare_rollouts holds them)
+K3_DEEP_BF16_ATOL = 4e-3
+F64_RULE_DEPTH, F64_RULE_WIDTH = 8, 512  # past either, bf16 K3 takes the float64-summed rule
+# bf16 update trunks past the old 256-wide limit (up to F64_RULE_WIDTH and
+# two layers) are held to the plain version with the metrics' terms' share
+# of the three-layer limits (plain_close): pg_loss averages terms that
+# cancel to ~1% of their size, and at 512 wide a float32 summation-order
+# difference moved it past rtol 1e-4 of itself on 1,024 samples on the
+# card (tests/test_torch_cuda.py's past-256 test); the leaves keep 1e-3
+WIDE_UPDATE_WIDTH = 256
+NESTED_DEPTH = 4
+WIDE_INSTANTIATIONS = 12  # K3's wide route: the bf16 instantiations, 4 kinds x (plain, general, extras)
+NESTED_N, NESTED_T = 16_384, 100  # the nested config's envs x steps (one iteration, shared trunk)
+
+
+def nested_exomm(torch, depth):
+    """An exogenous-MM fill whose bid and ask depth processes are
+    exogenous-MM fills themselves, ``depth`` levels down to OU best depths:
+    2^depth depth states (``ExogenousMmFill.state_dim`` sums its sides')."""
+    from mbt_gym_torch import processes as pc
+
+    if depth == 0:
+        return pc.OuMidprice(initial_price=1.0, mean_reversion_level=1.0, mean_reversion_speed=2.0, volatility=0.1,
+                             terminal_time=1.0, dt_scaled_drift=True)
+    return pc.ExogenousMmFill(bid_process=nested_exomm(torch, depth - 1), ask_process=nested_exomm(torch, depth - 1),
+                              fill_exponent=1.5)
+
+
+def plain_in_chunks(torch, plain, model, args, parts, dtype):
+    """``plain`` (a K4 or K7 plain version) over ``args`` in ``parts``
+    slices (steps of a feature-major minibatch, rows of a row-major one),
+    its grads and metrics weighted by each slice's share of the samples:
+    the plain version of a minibatch too large to evaluate at once."""
+    total = args[0].shape[0]
+    grads, metrics = {}, {}
+    for i in range(parts):
+        lo, hi = total * i // parts, total * (i + 1) // parts
+        g, m = plain(model, *(x[lo:hi] for x in args), compute_dtype=dtype)
+        w = (hi - lo) / total
+        for acc, part in ((grads, g), (metrics, m)):
+            for name, v in part.items():
+                acc[name] = acc.get(name, 0.0) + w * v
+        del g, m
+    return grads, metrics
+
+
+def update_close(torch, fn, plain, model, args, rows, dtype, label, parts=1):
+    """An update kernel's output on ``args`` against its plain version (in
+    ``parts`` slices), launched twice bitwise: :func:`compare_update`'s
+    limits (:func:`deep_bf16_limits` beyond two layers in bf16).  Returns
+    the worst bf16 leaf error (0 in float32)."""
+    grads, metrics = fn(model, *args, compute_dtype=dtype)
+    again = fn(model, *args, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    check_repeat(torch, (grads, metrics), again, label)
+    del again
+    if parts == 1:
+        return compare_update(torch, grads, metrics, model, args, plain, rows, dtype, label)
+    want = plain_in_chunks(torch, plain, model, args, parts, dtype)
+    return plain_close(torch, grads, metrics, want, model, rows, dtype, label)
+
+
+def k3_close(torch, p, model, n, seed, label, dev):
+    """K3 against its plain version at ``n`` envs (native draws, the plain
+    version on the kernel's Philox stream), launched twice bitwise
+    (:func:`compare_rollouts`); a bf16 trunk deeper than
+    :data:`F64_RULE_DEPTH` layers or wider than :data:`F64_RULE_WIDTH`
+    against the plain version's float64-summed evaluation at
+    :data:`K3_DEEP_BF16_ATOL`, the plain version's own distance from it
+    printed beside.  Returns the max abs error."""
+    from mbt_gym_torch.ops import mlp_rollout as mr
+
+    got = mr.mlp_rollout(p, model, seed, n, device=dev)
+    again = mr.mlp_rollout(p, model, seed, n, device=dev)
+    torch.cuda.synchronize()
+    check_repeat(torch, rollout_outputs(got), rollout_outputs(again), label)
+    want = mr.mlp_rollout_plain(p, model, seed, n, device=dev)
+    if not p.normalise_obs or not f64_rule(model.hidden):
+        return compare_rollouts(torch, got, want, n, label)
+    ref = mr.mlp_rollout_plain(p, model, seed, n, device=dev, sum_dtype=torch.float64)
+    same = (want[0][:, 1] == ref[0][:, 1]).all(dim=0)
+    print(f"{label}: the plain version against its float64-summed evaluation: {int((~same).sum())} envs' "
+          "inventory streams differ; on the rest "
+          + ", ".join(f"{name} {float((a[..., same] - b[..., same]).abs().max()):.3g}"
+                      for name, a, b in zip(ROLLOUT_OUTPUTS, want, ref)))
+    atol = K3_DEEP_BF16_ATOL
+    return compare_rollouts(torch, got, ref, n, label + f" (float64-summed reference, atol {atol})", atol=atol)
+
+
+def f64_rule(hidden):
+    """Whether a bf16 trunk ``hidden`` is held to the plain version's
+    float64-summed evaluation (deeper than :data:`F64_RULE_DEPTH` layers
+    or wider than :data:`F64_RULE_WIDTH`) rather than to the plain
+    version itself."""
+    return len(hidden) > F64_RULE_DEPTH or max(hidden) > F64_RULE_WIDTH
+
+
+def wide_trunk_phases(torch, np, card, dev):
+    """Phase 32: K3, K4 and K7 at every trunk and observation width the JAX
+    kernels take.  (a) bench_suite config 5 (262,144 x 200, normalised,
+    16 minibatches, bf16) with a :data:`WIDE_TRUNK` (512, 512) trunk on
+    both layouts: :data:`WIDE_ITERATIONS` fully fused ``train_iteration``s,
+    K3 x1 + K4 x16 each, no RuntimeWarning, the metric bands; one
+    ``fused_update`` iteration on the engine rollout (K7 x16 shared, K4 x16
+    towers); K3 against its plain version on the first minibatch's envs
+    (:data:`WIDE_CHECK_N` x 200) and K4 (and K7) on the iteration's first
+    minibatch in bf16 and float32 (the float32 towers take pass 1's scratch
+    route), each launched twice bitwise; the iteration's ms, each kernel's
+    device ms, call ms and bound; ``evaluate_policy`` on K3 and on the
+    engine at 16,384 x 200 (the dispatch rule's figures).  (b) trunks off
+    a multiple of 4 and twelve layers deep (:data:`EDGE_TRUNKS`) in both
+    dtypes: K3 at :data:`EDGE_N` x 200, K4 (and K7) on a synthetic
+    minibatch.  (c) trunks past pass 1's and K3's shared memory
+    (:data:`SCRATCH_TRUNKS`) through K3 at :data:`SCRATCH_N` x 200 (float32
+    :data:`SCRATCH_F32_N`) and one
+    minibatch of K4 (and K7).  (d) K4 on both layouts and K7 at S = 20 and
+    32 (:data:`WIDE_S`), and one ``fused_update`` iteration on the engine
+    rollout of a config observing S = 20 (exogenous-MM fills nested
+    :data:`NESTED_DEPTH` deep, :func:`nested_exomm`).  Returns the
+    kernels-line figures of K3, K4 and K7."""
+    import dataclasses
+
+    from mbt_gym_torch import init_train_state, train_iteration
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.agents.ppo import PPOConfig, evaluate_policy, fused_update_refusal, normalise
+    from mbt_gym_torch.ops import _build
+    from mbt_gym_torch.ops import fused_ppo
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.utils.config import as_env_config
+
+    t_start = time.perf_counter()
+    figures = {"K3": {}, "K4": {}, "K7": {}}
+    err = {"K3": 0.0, "K4": 0.0, "K7": 0.0}
+    path = {name: 0 for name in _build.launch_counts}
+
+    def add_launches():
+        for name, c in _build.launch_counts.items():
+            path[name] += c
+        _build.reset_launch_counts()
+
+    def comparisons_done():  # launches that compare are not the main path's
+        _build.reset_launch_counts()
+
+    env5 = dataclasses.replace(as_env_config(num_trajectories=PPO_N), normalise_observation_space=True,
+                               normalise_action_space=True)
+    steps = env5.n_steps
+    nb5 = PPO_N // PPO_MINIBATCHES
+    m5 = steps * nb5
+    p5 = mr.rollout_params_from_config(env5)
+    tag_of = lambda hidden, shared: f"{'x'.join(map(str, hidden))} {'shared' if shared else 'towers'}"  # noqa: E731
+
+    # ---- 32a: (512, 512) at config 5
+    t0 = time.perf_counter()
+    per_iteration = {"mlp_rollout": 1, "ppo_fused_grads_T": PPO_MINIBATCHES}
+    for shared in (True, False):
+        tag = tag_of(WIDE_TRUNK, shared)
+        towers = 1 if shared else 2
+        pcfg = PPOConfig(hidden=WIDE_TRUNK, n_epochs=1, n_minibatches=PPO_MINIBATCHES, shuffle=False,
+                         compute_dtype="bfloat16", shared_trunk=shared, fused_rollout=True, fused_update=True)
+        ts = init_train_state(env5, pcfg, 320)
+        model0 = copy.deepcopy(ts.params)
+        check(fused_update_refusal(env5, pcfg, ts.params) is None, f"phase 32a {tag}: refused")
+        _build.reset_launch_counts()
+        wall = []
+        for i in range(WIDE_ITERATIONS):
+            torch.cuda.synchronize()
+            t_it = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)  # no autograd fallback
+                ts, metrics = train_iteration(env5, pcfg, ts, 321 + i)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t_it) * 1e3)
+            counts = {n: c for n, c in _build.launch_counts.items() if c}
+            check(counts == per_iteration, f"phase 32a {tag} iteration {i + 1}: launches {counts}")
+            add_launches()
+            print(f"phase 32a {tag} iteration {i + 1}: {wall[-1]:.1f} ms, "
+                  f"{assert_metric_bands(metrics, f'phase 32a {tag} iteration {i + 1}')}")
+        it_ms = statistics.median(wall[1:])
+        del ts
+        # fused_update on the engine rollout: K7 on the shared trunk, K4 on the towers
+        ecfg = dataclasses.replace(pcfg, fused_rollout=False)
+        ets = init_train_state(env5, ecfg, 322)
+        t_it = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            ets, metrics = train_iteration(env5, ecfg, ets, 323)
+        torch.cuda.synchronize()
+        engine_it_ms = (time.perf_counter() - t_it) * 1e3
+        update = "ppo_fused_grads" if shared else "ppo_fused_grads_T"
+        counts = {n: c for n, c in _build.launch_counts.items() if c}
+        check(counts == {update: PPO_MINIBATCHES}, f"phase 32a {tag} fused_update on the engine rollout: {counts}")
+        add_launches()
+        print(f"phase 32a {tag} fused_update on the engine rollout: {engine_it_ms:.1f} ms, "
+              f"{assert_metric_bands(metrics, f'phase 32a {tag} engine rollout')}")
+        del ets
+        # the kernels against their plain versions on the first minibatch, and their times
+        model = model0
+        k3_err = k3_close(torch, p5, model, WIDE_CHECK_N, 324, f"phase 32a K3 {tag} at {WIDE_CHECK_N}x{steps}", dev)
+        err["K3"] = max(err["K3"], k3_err)
+        tb = mr.collect_rollout_fused_T(env5, model, 325, device=dev)
+        mb = [x[..., :nb5] for x in (tb.obs_t, tb.actions_t, tb.log_probs, tb.advantages, tb.returns)]
+        mb[3] = normalise(mb[3])
+        del tb
+        rows = [x.permute(0, 2, 1).reshape(m5, -1) if x.dim() == 3 else x.reshape(-1) for x in mb]
+        calls = [("K4", fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain, mb, WIDE_F32_STEPS)]
+        if shared:
+            calls.append(("K7", fused_ppo.ppo_fused_grads, fused_ppo.ppo_fused_grads_plain, rows,
+                          WIDE_F32_STEPS * nb5))
+        for kernel, fn, plain, args, cut in calls:
+            # bf16, the main path's, on the whole minibatch; float32 (the
+            # towers' scratch route) on its first WIDE_F32_STEPS steps
+            worst = update_close(torch, fn, plain, model, args, rows, "bfloat16",
+                                 f"phase 32a {kernel} {tag} bfloat16 at {m5} samples", parts=8)
+            err[kernel] = max(err[kernel], worst)
+            update_close(torch, fn, plain, model, [x[:cut] for x in args], None, "float32",
+                         f"phase 32a {kernel} {tag} float32 at {WIDE_F32_STEPS * nb5} samples")
+        comparisons_done()
+        k3_ms, k3_call = kernel_ms(torch, lambda: mr.mlp_rollout(p5, model, 9, PPO_N, device=dev), warmup=1, reps=2,
+                                   label=f"phase 32a K3 {tag} at {PPO_N}x{steps}")
+        k3_b = k3_bound(PPO_N, steps, 4, 2, towers=towers, widths=WIDE_TRUNK)
+        print(kernel_row("32a", card, f"K3 {tag}", f"{PPO_N}x{steps}", PPO_N * steps, k3_ms, k3_call, *k3_b))
+        key = "wide512" + ("" if shared else "_towers")
+        figures["K3"].update({f"{key}_ms": k3_ms, f"{key}_call_ms": k3_call, f"{key}_bound_ms": k3_b[0],
+                              f"{key}_iteration_ms": it_ms, f"{key}_engine_update_iteration_ms": engine_it_ms})
+        u_b = bound_ms((4 + 2 + 3) * 4 * m5, ppo_grad_flops_at(4, WIDE_TRUNK, 2, towers) * m5, BF16_OPS_PER_S)
+        for kernel, fn, plain, args, _ in calls:
+            name = f"{kernel} {tag} bf16"
+            ms, call = kernel_ms(torch, lambda: fn(model, *args), warmup=1, reps=3,
+                                 label=f"phase 32a {name} at {m5} samples")
+            print(kernel_row("32a", card, name, f"{m5} samples", m5, ms, call, *u_b))
+            figures[kernel].update({f"{key}_ms": ms, f"{key}_call_ms": call, f"{key}_bound_ms": u_b[0]})
+        comparisons_done()
+        del mb, rows, calls
+        # evaluate_policy at 16,384 x 200: K3 against the engine (dispatch.MLP_EVALUATE_MEASURED_WIDE)
+        eval_cfg = dataclasses.replace(env5, num_trajectories=EVAL_N)
+        for backend in ("fused", "engine"):
+            ms = cuda_ms(torch, lambda: evaluate_policy(eval_cfg, model, 3, backend=backend), warmup=1, reps=3)
+            print(f"phase 32a [{card}] evaluate_policy {backend} {tag} at {EVAL_N}x{steps}: {ms} ms = "
+                  f"{EVAL_N * steps / ms * 1e3} env-steps/s")
+            figures["K3"][f"{key}_evaluate_{backend}_ms"] = ms
+        comparisons_done()
+        print(f"phase 32a [{card}] {tag} at config 5: fully fused iteration {it_ms:.1f} ms (median of iterations "
+              f"2-{WIDE_ITERATIONS}) = {PPO_N * steps / it_ms * 1e3} env-steps/s; fused_update on the engine rollout "
+              f"{engine_it_ms:.1f} ms")
+        del model, model0
+        print_memory(torch, dev, f"phase 32a after {tag}")
+    print(f"phase 32a ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 32b: widths off a multiple of 4, twelve layers
+    t0 = time.perf_counter()
+    t_steps, nb = EDGE_MB
+    edge_cfg = dataclasses.replace(env5, num_trajectories=EDGE_N)
+    p_edge = {True: mr.rollout_params_from_config(edge_cfg),
+              False: mr.rollout_params_from_config(dataclasses.replace(edge_cfg, normalise_observation_space=False,
+                                                                       normalise_action_space=False))}
+    for hidden, shared in EDGE_TRUNKS:
+        tag = tag_of(hidden, shared)
+        model = init_actor_critic(326, 4, 2, hidden=hidden, shared_trunk=shared, device=dev)
+        with torch.no_grad():
+            model.log_std.add_(0.05)
+        for bf16 in (True, False):
+            err["K3"] = max(err["K3"], k3_close(torch, p_edge[bf16], model, EDGE_N, 327,
+                                                f"phase 32b K3 {tag} {'bf16' if bf16 else 'float32'}", dev))
+        rows = update_samples(torch, np, model, t_steps, nb, 328, dev)
+        calls = [("K4", fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain,
+                  feature_major(rows, t_steps, nb))]
+        if shared:
+            calls.append(("K7", fused_ppo.ppo_fused_grads, fused_ppo.ppo_fused_grads_plain, rows))
+        for kernel, fn, plain, args in calls:
+            for dtype in ("bfloat16", "float32"):
+                worst = update_close(torch, fn, plain, model, args, rows, dtype,
+                                     f"phase 32b {kernel} {tag} {dtype} at {t_steps * nb} samples")
+                err[kernel] = max(err[kernel], worst)
+        del model, rows, calls
+    comparisons_done()
+    print(f"phase 32b ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 32c: the scratch routes
+    t0 = time.perf_counter()
+    scratch_cfg = dataclasses.replace(env5, num_trajectories=SCRATCH_N)
+    nb_s = SCRATCH_N // PPO_MINIBATCHES
+    m_s = steps * nb_s
+    for hidden, shared in SCRATCH_TRUNKS:
+        tag = tag_of(hidden, shared)
+        towers = 1 if shared else 2
+        model = init_actor_critic(329, 4, 2, hidden=hidden, shared_trunk=shared, device=dev)
+        shape = fused_ppo.kernel_shape(model)
+        for bf16 in (True, False):
+            p = mr.rollout_params_from_config(scratch_cfg if bf16 else dataclasses.replace(
+                scratch_cfg, normalise_observation_space=False, normalise_action_space=False))
+            n = SCRATCH_N if bf16 else SCRATCH_F32_N
+            scratch = mr.k3_scratch_bytes(hidden, bf16, 4, 2, n)
+            check(scratch > 0, f"phase 32c K3 {tag}: not the scratch route")
+            dtype = "bf16" if bf16 else "float32"
+            err["K3"] = max(err["K3"], k3_close(torch, p, model, n, 330, f"phase 32c K3 {tag} {dtype}", dev))
+            ms, call = kernel_ms(torch, lambda: mr.mlp_rollout(p, model, 9, n, device=dev), warmup=1, reps=2)
+            b = k3_bound(n, steps, 4, 2, towers=towers, widths=hidden, peak=BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+            print(kernel_row("32c", card, f"K3 {tag} {dtype}", f"{n}x{steps}", n * steps, ms, call, *b)
+                  + f"; scratch {scratch} bytes")
+            key = "scratch_" + "x".join(map(str, hidden)) + ("" if shared else "_towers") + ("" if bf16 else "_f32")
+            figures["K3"].update({f"{key}_ms": ms, f"{key}_call_ms": call, f"{key}_bound_ms": b[0]})
+        tb = mr.collect_rollout_fused_T(scratch_cfg, model, 331, device=dev)
+        mb = [x[..., :nb_s] for x in (tb.obs_t, tb.actions_t, tb.log_probs, tb.advantages, tb.returns)]
+        mb[3] = normalise(mb[3])
+        del tb
+        rows = [x.permute(0, 2, 1).reshape(m_s, -1) if x.dim() == 3 else x.reshape(-1) for x in mb]
+        calls = [("K4", fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain, mb)]
+        if shared:
+            calls.append(("K7", fused_ppo.ppo_fused_grads, fused_ppo.ppo_fused_grads_plain, rows))
+        u_b = bound_ms((4 + 2 + 3) * 4 * m_s, ppo_grad_flops_at(4, hidden, 2, towers) * m_s, BF16_OPS_PER_S)
+        for kernel, fn, plain, args in calls:
+            for dtype in ("bfloat16", "float32"):
+                lay = fused_ppo.deep_layout(shape, m_s // 32, 4, 2, dtype == "bfloat16", kernel == "K7")
+                check(lay["scratch"] == 1, f"phase 32c {kernel} {tag} {dtype}: not pass 1's scratch route")
+                label = f"phase 32c {kernel} {tag} {dtype} at {m_s} samples"
+                err[kernel] = max(err[kernel], update_close(torch, fn, plain, model, args, rows, dtype, label))
+                ms, call = kernel_ms(torch, lambda: fn(model, *args, compute_dtype=dtype), warmup=1, reps=2)
+                b = u_b if dtype == "bfloat16" else bound_ms((4 + 2 + 3) * 4 * m_s,
+                                                             ppo_grad_flops_at(4, hidden, 2, towers) * m_s,
+                                                             FP32_OPS_PER_S)
+                print(kernel_row("32c", card, f"{kernel} {tag} {dtype}", f"{m_s} samples", m_s, ms, call, *b)
+                      + f"; pass-1 scratch {lay['scratch_bytes']} bytes")
+                key = "scratch_" + "x".join(map(str, hidden)) + ("" if shared else "_towers") + (
+                    "" if dtype == "bfloat16" else "_f32")
+                figures[kernel].update({f"{key}_ms": ms, f"{key}_call_ms": call, f"{key}_bound_ms": b[0]})
+        del model, mb, rows, calls
+        print_memory(torch, dev, f"phase 32c after {tag}")
+    comparisons_done()
+    print(f"phase 32c ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 32d: S past 16
+    t0 = time.perf_counter()
+    for s_dim, hidden in WIDE_S:
+        for shared in (True, False):
+            tag = f"S={s_dim} {tag_of(hidden, shared)}"
+            model = init_actor_critic(332, s_dim, 2, hidden=hidden, shared_trunk=shared, device=dev)
+            with torch.no_grad():
+                model.log_std.add_(0.05)
+            rows = update_samples(torch, np, model, t_steps, nb, 333 + s_dim, dev)
+            calls = [("K4", fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain,
+                      feature_major(rows, t_steps, nb))]
+            if shared:
+                calls.append(("K7", fused_ppo.ppo_fused_grads, fused_ppo.ppo_fused_grads_plain, rows))
+            for kernel, fn, plain, args in calls:
+                for dtype in ("bfloat16", "float32"):
+                    lay = fused_ppo.deep_layout(fused_ppo.kernel_shape(model), t_steps * nb // 32, s_dim, 2,
+                                                dtype == "bfloat16", kernel == "K7")
+                    label = (f"phase 32d {kernel} {tag} {dtype} at {t_steps * nb} samples"
+                             f"{' (scratch route)' if lay['scratch'] else ''}")
+                    err[kernel] = max(err[kernel], update_close(torch, fn, plain, model, args, rows, dtype, label))
+            del model, rows, calls
+    comparisons_done()
+    base = dataclasses.replace(as_env_config(num_trajectories=NESTED_N), normalise_observation_space=True,
+                               normalise_action_space=True)
+    nested = dataclasses.replace(base, n_steps=NESTED_T, dynamics=dataclasses.replace(
+        base.dynamics, fill_probability_model=nested_exomm(torch, NESTED_DEPTH)))
+    s_nested = nested.state_dim
+    check(s_nested > 16, f"phase 32d: the nested exogenous-MM config observes S = {s_nested}")
+    for shared in (True,):
+        pcfg = PPOConfig(hidden=(256, 256), n_epochs=1, n_minibatches=PPO_MINIBATCHES, shuffle=False,
+                         compute_dtype="bfloat16", shared_trunk=shared, fused_update=True)
+        ts = init_train_state(nested, pcfg, 334)
+        _build.reset_launch_counts()
+        t_it = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            ts, metrics = train_iteration(nested, pcfg, ts, 335)
+        torch.cuda.synchronize()
+        nested_ms = (time.perf_counter() - t_it) * 1e3
+        update = "ppo_fused_grads" if shared else "ppo_fused_grads_T"
+        counts = {n: c for n, c in _build.launch_counts.items() if c}
+        check(counts == {update: PPO_MINIBATCHES}, f"phase 32d nested exogenous-MM: launches {counts}")
+        add_launches()
+        finite = all(bool(torch.isfinite(v).all()) for v in metrics.values()) and all(
+            bool(torch.isfinite(q).all()) for q in ts.params.parameters())
+        check(finite, f"phase 32d nested exogenous-MM: metrics {metrics}")
+        print(f"phase 32d [{card}] nested exogenous-MM fills ({NESTED_DEPTH} deep), S = {s_nested}, "
+              f"{'shared' if shared else 'towers'}: fused_update on the engine rollout at {NESTED_N}x{nested.n_steps}, "
+              f"{update} x{PPO_MINIBATCHES}, {nested_ms:.1f} ms, metrics "
+              f"{ {k: round(float(v), 6) for k, v in metrics.items()} }")
+        figures["K7"][f"nested_s{s_nested}_iteration_ms"] = nested_ms
+        del ts
+    print(f"phase 32d ok in {time.perf_counter() - t0:.1f} s")
+
+    print(f"phase 32 launches on the slice's main path: { {k: c for k, c in path.items() if c} }")
+    for name in ("mlp_rollout", "ppo_fused_grads_T", "ppo_fused_grads"):
+        check(path[name] > 0, f"phase 32: {name} was not launched on the slice's main path")
+    figures["K3"].update({"wide_launches": path["mlp_rollout"], "wide_max_abs_err": err["K3"]})
+    figures["K4"].update({"wide_launches": path["ppo_fused_grads_T"], "wide_max_rel_err": err["K4"]})
+    figures["K7"].update({"wide_launches": path["ppo_fused_grads"], "wide_max_rel_err": err["K7"]})
+    print(f"phase 32 ok in {time.perf_counter() - t_start:.1f} s")
     return figures
 
 
@@ -5211,6 +5696,11 @@ def main():
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}")
+    t_start = time.perf_counter()
+
+    def done(phases):
+        """Where the run stands: the seconds since the builds started."""
+        print(f"chip_smoke: {phases} done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phases 1 (K1/K2), 7 (K3/K4), 13 (K5/K6/K8) and 18 (K7, the
     # towers modes): build every kernel source, one nvcc each, all started
@@ -5232,30 +5722,42 @@ def main():
             builds[src].result()
 
     built("as_episode.cu")
+    done("build of as_episode.cu")
     ep._kernels()
     kernels, as_kernel_ms = as_phases(torch, np, card, dev)
+    done("phases 2-6")
     built("mlp_rollout.cu", "fused_ppo.cu")
+    done("builds of mlp_rollout.cu and fused_ppo.cu")
     kernels += ppo_phases(torch, np, card, dev)
+    done("phases 8-12")
     built()
     pool.shutdown()
     print(f"phase 1/7/13/18 build: {', '.join(sources)}, each done after {seconds} s")
     kernels += cj_phases(torch, np, card, dev, as_kernel_ms=as_kernel_ms)
+    done("phases 14-17")
     k7, towers_figures = update_phases(torch, np, card, dev)
+    done("phases 18-21")
     k3_pnl_ms = next(entry["ms"] for entry in kernels if entry["name"].startswith("K3"))
     cj_figures = cj_learning_phases(torch, np, card, dev, k3_pnl_ms)
     lam_figures = lam_touch_phases(torch, np, card, dev, k3_pnl_ms)
     proc_figures = proc_phases(torch, np, card, dev, k3_pnl_ms)
     surface_figures = surface_phases(torch, np, card, dev)
     speed_figures_ = speed_phases(torch, np, card, dev, k3_pnl_ms)
+    done("phases 22-26")
     print_memory(torch, dev, "before phase 27")
     compiled_figures = compiled_phases(torch, np, card, dev)
     print_memory(torch, dev, "before phase 28")
     deep_figures = deep_trunk_phases(torch, np, card, dev)
     print_memory(torch, dev, "before phase 29")
     axes_figures = all_axes_phases(torch, np, card, dev)
+    done("phases 27-29")
+    print_memory(torch, dev, "before phase 32")
+    wide_figures = wide_trunk_phases(torch, np, card, dev)
+    done("phase 32")
     print_memory(torch, dev, "before phase 30")
     example_figures = examples_phases(torch, np, card, dev)
     model_figures, _ = model_axis_phases(torch, np, card, dev, start_model_axis(dev))
+    done("phases 30-31")
     for entry in kernels:
         entry.update(towers_figures.get(entry["name"][:2], {}))
         entry.update(cj_figures.get(entry["name"][:2], {}))
@@ -5266,11 +5768,13 @@ def main():
         entry.update(compiled_figures.get(entry["name"][:2], {}))
         entry.update(deep_figures.get(entry["name"][:2], {}))
         entry.update(axes_figures.get(entry["name"][:2], {}))
+        entry.update(wide_figures.get(entry["name"][:2], {}))
         entry.update(example_figures.get(entry["name"][:2], {}))
         entry.update(model_figures.get(entry["name"][:2], {}))
     k7.update(compiled_figures["K7"])
     k7.update(deep_figures["K7"])
     k7.update(axes_figures["K7"])
+    k7.update(wide_figures["K7"])
     k7.update(example_figures.get("K7", {}))
     kernels = sorted(kernels + [k7], key=lambda entry: entry["name"])
     for entry in rank_by_gap(kernels):

@@ -23,14 +23,16 @@ pi/vf towers, the default, or ``shared_trunk=True``), routed as
 - both: the fully **fused** path, K3's feature-major buffers feeding K4
   directly, minibatches being contiguous env slices (``shuffle=False``).
 
-K4 and K7 take the trunks and observations K3 takes (1-8 layers, each
-per-tower width a multiple of 4 up to 256, the wrappers padding the widths
-to multiples of 64 with exact zeros; at most ``fused_ppo.MAX_S`` (16)
-observation columns, K3's own limit), on every fused path: the all-axes
-composite config (S = 9) trains fully fused.  ``fused_update`` on a config
-observing more columns than that raises ``ValueError`` naming the limit
-(:func:`fused_update_refusal`), as K3 refuses such a rollout; nothing
-falls back to autograd.
+K3, K4 and K7 take every trunk and observation width the JAX kernels take
+(any per-tower width, the wrappers padding it with exact zeros; up to 64
+layers; K4 and K7 any S), on every fused path: the all-axes composite
+config (S = 9) and a (512, 512) trunk train fully fused.  What still
+stands is checked before any device work, on every learner path and
+through the compiled entry points (:func:`check_fused_update`): the
+kernels' sample tiles, and the card's free memory against K3's streams and
+scratch and the update kernel's weights and scratch
+(:func:`fused_update_refusal`); a refusal raises ``ValueError`` naming
+it, and nothing falls back to autograd.
 
 ``mesh=`` (a :class:`mbt_gym_torch.parallel.mesh.Mesh`) makes
 :func:`collect_rollout`, :func:`train_iteration` and :func:`train_chunk`
@@ -560,22 +562,65 @@ def _episode_reward(rewards: torch.Tensor, mesh) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ entry points
-def fused_update_refusal(env_cfg: EnvConfig) -> Optional[str]:
-    """Why the update kernels K4 and K7 cannot take ``env_cfg``'s
-    minibatches, or None: they take at most ``fused_ppo.MAX_S`` (16)
-    observation columns, as K3 does."""
-    from mbt_gym_torch.ops.fused_ppo import MAX_S
+def fused_update_refusal(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networks.ActorCritic,
+                         device=None) -> Optional[str]:
+    """Why the kernels ``ppo_cfg``'s learner runs (K3 with
+    ``fused_rollout``, K4 or K7 with ``fused_update``) cannot take
+    ``env_cfg`` (this process's envs) and ``params`` on ``device`` (default:
+    the params'), or None.  They take every trunk, width and S the JAX
+    kernels take; what still stands is the depth cap
+    (``fused_ppo.MAX_LAYERS``), the 32-sample tile of the minibatches and
+    K3's envs, and the card's free memory against K3's streams and scratch
+    and the update kernel's weights and scratch.  None off the card, where
+    the plain versions run.  The trunk's shape comes from ``params.hidden``
+    and ``params.shared_trunk``: nothing here touches the device but its
+    free-memory query."""
+    from mbt_gym_torch.ops import det_rollout as det
+    from mbt_gym_torch.ops import fused_ppo
+    from mbt_gym_torch.ops import mlp_rollout as mr
 
-    if env_cfg.state_dim > MAX_S:
-        return f"the fused update (K4/K7) takes S <= {MAX_S}; the config observes S = {env_cfg.state_dim}"
-    return None
+    if not (ppo_cfg.fused_rollout or ppo_cfg.fused_update):
+        return None
+    device = _device_of(params) if device is None else torch.device(device)
+    if device.type != "cuda":
+        return None
+    n, steps = env_cfg.num_trajectories, env_cfg.n_steps
+    s_dim, a_dim = env_cfg.state_dim, env_cfg.action_dim
+    fully_fused = ppo_cfg.fused_rollout
+    label = "K7" if params.shared_trunk and not fully_fused else "K4"
+    if fully_fused:  # minibatches are env slices of K3's streams
+        per_step = n // ppo_cfg.n_minibatches
+        samples = steps * per_step
+    else:
+        samples = per_step = n * steps // ppo_cfg.n_minibatches
+    shape = fused_ppo.kernel_shape(params)
+    try:
+        if fully_fused:
+            p = mr.rollout_params_from_config(env_cfg)
+            mr.check_kernel_shapes(p, shape.widths, n)
+        if ppo_cfg.fused_update:
+            fused_ppo.check_kernel_limits(params, per_step, a_dim, label)
+    except ValueError as e:
+        return str(e)
+    free = det.device_free_bytes(device)
+    streams = 0
+    if fully_fused:
+        streams = 4 * p.run_steps * (s_dim + a_dim + 5) * n  # K3's outputs, GAE's advantages and returns
+        need = streams + mr.k3_scratch_bytes(shape.widths, bool(p.normalise_obs), s_dim, a_dim, n)
+        if need > free:
+            return (f"K3's streams and scratch at the trunk {shape.widths} and {n} envs take {need} bytes; "
+                    f"the card has {free} free")
+    if not ppo_cfg.fused_update:
+        return None
+    return fused_ppo.memory_refusal(shape, samples, s_dim, a_dim, ppo_cfg.fused_compute_dtype, label == "K7",
+                                    label, free - streams)
 
 
-def check_fused_update(env_cfg: EnvConfig, ppo_cfg: PPOConfig) -> None:
+def check_fused_update(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networks.ActorCritic, device=None) -> None:
     """``ValueError`` with :func:`fused_update_refusal`'s reason where
-    ``ppo_cfg`` asks for the update kernels and they cannot take
-    ``env_cfg``."""
-    refusal = fused_update_refusal(env_cfg) if ppo_cfg.fused_update else None
+    the kernels of ``ppo_cfg``'s learner cannot take ``env_cfg`` and
+    ``params`` on ``device``, raised before any device work."""
+    refusal = fused_update_refusal(env_cfg, ppo_cfg, params, device)
     if refusal is not None:
         raise ValueError(refusal)
 
@@ -658,15 +703,15 @@ def train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrai
     ``approx_kl``, ``mean_episode_reward``).  ``key`` is an int seed or a
     ``torch.Generator`` on the parameters' device.  ``noise`` (K3 rollout
     only) injects K3's ``(T, p.n_channels, N)`` channels.  ``fused_update``
-    on a config that :func:`fused_update_refusal` refuses raises
-    ``ValueError`` with its reason.  ``mesh`` runs the
+    or ``fused_rollout`` that :func:`fused_update_refusal` refuses raises
+    ``ValueError`` with its reason, before any device work.  ``mesh`` runs the
     iteration data-parallel (see the module docstring); the rollout with
     K3 alone, without the K4 update, is single-device."""
-    check_fused_update(env_cfg, ppo_cfg)
+    local_cfg = _iteration_config(env_cfg, ppo_cfg, mesh)
+    check_fused_update(local_cfg, ppo_cfg, train_state.params)
     device = _device_of(train_state.params)
     k3_key, gen, shuffle_gen = _learner_keys(ppo_cfg, key, mesh,
                                              lambda seed, role: env_lib.make_generator(seed, device))
-    local_cfg = _iteration_config(env_cfg, ppo_cfg, mesh)
     if not ppo_cfg.fused_rollout:
         assert noise is None, "noise= injects the fused rollout's channels"
     ts = _copy_state(train_state)

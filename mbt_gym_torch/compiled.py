@@ -444,7 +444,7 @@ def train_iteration(env_cfg, ppo_cfg, train_state, key, mesh=None):
     key, device = _check_train_args(train_state, key)
     if device.type != "cuda":
         return ppo.train_iteration(env_cfg, ppo_cfg, train_state, key, mesh=mesh)
-    ppo.check_fused_update(env_cfg, ppo_cfg)
+    ppo.check_fused_update(ppo._iteration_config(env_cfg, ppo_cfg, mesh), ppo_cfg, train_state.params, device)
     _check_capturable_mesh(mesh)
     device = _cuda(device)
     entry = _iteration_entry(env_cfg, ppo_cfg, train_state, key, mesh, device)
@@ -461,7 +461,7 @@ def train_chunk(env_cfg, ppo_cfg, train_state, key, n_iterations: int, mesh=None
     key, device = _check_train_args(train_state, key)
     if device.type != "cuda":
         return ppo.train_chunk(env_cfg, ppo_cfg, train_state, key, n_iterations, mesh=mesh)
-    ppo.check_fused_update(env_cfg, ppo_cfg)
+    ppo.check_fused_update(ppo._iteration_config(env_cfg, ppo_cfg, mesh), ppo_cfg, train_state.params, device)
     _check_capturable_mesh(mesh)
     device = _cuda(device)
     keys = ppo.iteration_keys(key, n_iterations)

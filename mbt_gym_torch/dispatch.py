@@ -32,8 +32,9 @@ of the deterministic MLP policy), which consults it under
 ``mc_episode_stats()`` of that policy run the engine, as in the JAX
 package.  Where the kernel's contract holds, the ``mlp_rollout`` family
 decides between K3 and the engine by the port's own measurement on the
-card (:data:`MLP_EVALUATE_MEASURED`), once K3's streams fit the target
-card's free memory (the TPU's VMEM rule ``mlp_streams_feasible`` made the
+card (:data:`MLP_EVALUATE_MEASURED`; for trunks wider than 256,
+:data:`MLP_EVALUATE_MEASURED_WIDE`), once K3's streams and scratch fit the
+target card's free memory (the TPU's VMEM rule ``mlp_streams_feasible`` made the
 H100's own, as for K5).  Backend names: ``"fused"`` for a
 kernel family, ``"engine"`` for the general eager engine (the JAX
 package's ``"xla"``).
@@ -211,6 +212,14 @@ MLP_EVALUATE_MEASURED = {
     "shared trunk": (149835752.3, 8587121.5),
     "separate towers": (169311055.3, 10052501.1),
 }
+# The same at 512x512, for trunks wider than 256 (K3's wide route):
+# chip_smoke.py phase 32a on an NVIDIA H100 80GB HBM3 at 700 W, K3 23.25 ms
+# against the engine's 292.04 ms on the shared trunk and 42.86 against
+# 466.20 on the towers.  K3 still leads, so the rule is the same.
+MLP_EVALUATE_MEASURED_WIDE = {
+    "shared trunk": (140918525.0, 11220215.1),
+    "separate towers": (76459849.9, 7028752.5),
+}
 
 
 def _check_mlp(cfg: EnvConfig, meta: dict, mode: str, device: torch.device, policy_params=None) -> str:
@@ -234,17 +243,27 @@ def _check_mlp(cfg: EnvConfig, meta: dict, mode: str, device: torch.device, poli
             f"K3's {p.run_steps}-step streams at {cfg.num_trajectories} envs exceed free device memory; "
             "evaluation runs on the engine"
         )
-    layout = "shared trunk"
+    layout, wide = "shared trunk", False
     if policy_params is not None:
         layout = "shared trunk" if policy_params.shared_trunk else "separate towers"
         try:
             tp = mr.transpose_params(policy_params)
-            mr.check_kernel_shapes(p, tp.split_at or [w.shape[0] for w, _ in tp.trunk], cfg.num_trajectories)
+            widths = list(tp.split_at or [w.shape[0] for w, _ in tp.trunk])
+            mr.check_kernel_shapes(p, widths, cfg.num_trajectories)
         except ValueError as e:
             raise _Ineligible(str(e))
-    fused, engine = MLP_EVALUATE_MEASURED[layout]
-    figures = (f"K3 {fused:.4g} vs engine {engine:.4g} env-steps/s for the {layout} at 16,384 x 200 "
-               "on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 21)")
+        wide = max(widths) > 256
+        scratch = mr.k3_scratch_bytes(widths, bool(p.normalise_obs), len(p.obs_low), len(p.act_low),
+                                      cfg.num_trajectories)
+        if 4 * floats + scratch > det.device_free_bytes(device):
+            raise _Ineligible(
+                f"K3's {p.run_steps}-step streams and its {scratch}-byte scratch at {cfg.num_trajectories} envs "
+                "exceed free device memory; evaluation runs on the engine"
+            )
+    fused, engine = (MLP_EVALUATE_MEASURED_WIDE if wide else MLP_EVALUATE_MEASURED)[layout]
+    figures = (f"K3 {fused:.4g} vs engine {engine:.4g} env-steps/s for the {layout} at "
+               f"{'512x512' if wide else '256x256'}, 16,384 x 200, on an NVIDIA H100 80GB HBM3 at 700 W "
+               f"(chip_smoke.py phase {'32a' if wide else '21'})")
     if not fused > engine:
         raise _Ineligible(f"the engine measured faster than K3 for deterministic evaluation: {figures}")
     return f"K3 measured faster than the engine for deterministic evaluation: {figures}"

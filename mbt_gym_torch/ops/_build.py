@@ -1,7 +1,8 @@
 """Build, load and count the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file has a plain C interface; ``csrc/*.cuh`` are the
-headers they share.  At first use it is
+Each ``csrc/*.cu`` file in :data:`SOURCES` has a plain C interface;
+``csrc/*.cuh`` are the headers they share (``mlp_rollout_wide.cu``
+includes ``mlp_rollout.cu``).  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/mbt_gym_torch/`` at the repository root (git-ignored), named by a
 hash of its source and flags so an edit rebuilds it, then loaded with
@@ -52,8 +53,10 @@ launch_counts: Dict[str, int] = {
 # ``ptxas_verbose``.
 ptxas_reports: Dict[str, str] = {}
 
-# Every kernel source, in the order the kernels were ported.
-SOURCES = ("as_episode.cu", "mlp_rollout.cu", "fused_ppo.cu", "det_rollout.cu", "oe_episode.cu", "cj_episode.cu")
+# Every kernel source, in the order the kernels were ported (K3's wide
+# route a library of its own, built beside the rest of K3).
+SOURCES = ("as_episode.cu", "mlp_rollout.cu", "fused_ppo.cu", "det_rollout.cu", "oe_episode.cu", "cj_episode.cu",
+           "mlp_rollout_wide.cu")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -90,12 +93,15 @@ def nvcc() -> str:
 def build(source: str, ptxas_verbose: bool = False) -> Path:
     """Compile ``csrc/<source>`` into a shared library unless a build of
     the same source and flags exists; return the library's path.  With
-    ``ptxas_verbose`` the compiler's register and spill report is printed."""
+    ``ptxas_verbose`` it is compiled again and the compiler's register and
+    spill report is printed; the report changes nothing in the library, so
+    it is the one later calls load."""
     src = CSRC / source
     flags = NVCC_FLAGS + (("-Xptxas", "-v") if ptxas_verbose else ())
-    # the shared headers are part of every source's build key
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
+    # every source and header is part of every source's build key (a
+    # source may include another)
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cu*")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.exists() and not ptxas_verbose:
         return out

@@ -22,13 +22,15 @@
 // Neither has the TPU kernels' 128-lane metrics row, lane-tile
 // divisibility or VMEM tiling.
 //
-// Shapes.  Like the JAX kernels, any depth of 1-8 trunk layers (one
-// instantiation serves every depth: the layer loop runs over DeepParams'
-// widths), S <= 16 observation columns (K3's limit) and A <= 4 actions.
+// Shapes.  The JAX kernels read the depth, S and the widths from their
+// inputs and take any of them; so do these, up to kMaxLayers (64) trunk
+// layers (the size of DeepParams' offset arrays, far past any trunk either
+// package trains), any S and A <= 4 actions.  One instantiation of each
+// route serves every depth (the layer loop runs over DeepParams' widths).
 // Widths reach the kernels as multiples of 64 (the wrapper pads each hidden
-// width with exact zeros, ops/fused_ppo.py): a pass-2 CTA owns 64 rows of
-// a layer, and its dW warp tiles split the layer's input width into four
-// runs of 16-column mma tiles.
+// width with exact zeros, ops/fused_ppo.py): a pass-2 CTA owns 64 rows and
+// at most 256 input columns of a layer, and its dW warp tiles split those
+// columns into four runs of 16-column mma tiles.
 //
 // Stacked towers (towers = 2): each carry is 2 h_l wide, pi block first.
 // Layer 0 is one product over the stacked rows, since both towers read the
@@ -52,10 +54,13 @@
 //     log_std, metrics); each tile's inputs of the hidden-to-hidden layers
 //     (h_0 .. h_{L-2}) and their gradients (dz_1 .. dz_{L-1}) staged in
 //     device memory.
-//   pass 2, (row blocks of 64) x 64 CTAs: each owns 64 rows of one
-//     hidden-to-hidden layer (of one tower) and a fixed range of tiles,
-//     holds its 64 x h_in slice of that layer's dW in registers and reads
-//     the staged planes.  L = 1 has no pass 2.
+//   pass 2, (row blocks of 64 x column blocks of 256) x 64 CTAs: each owns
+//     64 rows and up to 256 input columns of one hidden-to-hidden layer (of
+//     one tower) and a fixed range of tiles, holds its slice of that
+//     layer's dW (64 x 256 at most: 64 floats a thread) in registers and
+//     reads the staged planes.  Every dW element has one owner, which sums
+//     it over its tiles in order, so a wider input only adds CTAs.  L = 1
+//     has no pass 2.
 //   pass 3: partial sums reduced over the CTAs in a fixed order.
 // The staged planes of a whole minibatch would not fit (1.68 GB a 256-wide
 // bf16 plane at 3,276,800 samples), so passes 1 and 2 run in turn over
@@ -95,16 +100,31 @@
 // log_std gradients and the metrics stay on CUDA cores; there the per-row
 // sums over a tile's samples are one thread per row (float32: warp
 // butterflies), in a fixed order.  dW0's thread keeps one float32 sum per
-// observation column in registers, in sweeps of 8 columns (a second sweep
-// re-reads the tile's dz row from shared memory at S > 8), so that every
-// instantiation stays inside the 128 registers of __launch_bounds__(256,
-// 2).  The float32 instantiations keep every product on CUDA cores with
+// observation column in registers, in sweeps of 8 columns (each further
+// sweep re-reads the tile's dz row, so any S costs no more registers), so
+// that every instantiation stays inside the 128 registers of
+// __launch_bounds__(256, 2).  The float32 instantiations keep every product on CUDA cores with
 // explicit FMAs (dense.cuh): TF32 would break their rtol of 1e-4.
 // What still holds it back (chip_smoke.py, PERF.md): CUDA-core work (layer
 // 0's tanh and the head), the staged planes' traffic, the per-tile L2 reads
 // of the weights in pass 1, and mma.sync, which issues a 16x8 product per
 // warp where wgmma issues 64xN per warpgroup with operands from shared
 // memory.  wgmma with TMA-staged weights is the next step.
+//
+// The scratch route (pass 1's kScratch instantiations).  Pass 1's shared
+// memory holds the observation tile, two activation tiles of the widest
+// stacked layer, the head's weights and the CTA's partial sums; past the
+// 227 KB a block may hold (the float32 towers at 512 x 512, any trunk
+// 1,536 wide, S = 32 on wide towers) the wrapper picks this route instead:
+// the two activation tiles live in device memory, two per CTA
+// (L2-resident while the CTA works on them), the partial sums go straight
+// to the CTA's row of part1, and the head's weights are read where they
+// are.  Shared memory keeps the observation tile, the head's output and,
+// in bf16, a 16-row slot per warp into which the warp copies each k block
+// of its product's activation operand before ldmatrix reads it.  Every sum
+// is taken in the order the shared-memory route takes it, so the two
+// routes give the same bits; the route costs the L1/L2 traffic of the
+// tiles and the per-warp copies.
 //
 // Numerics follow the plain PyTorch versions (ops/fused_ppo.py) in both
 // compute dtypes.  bf16: every matmul operand rounded to bf16 with a
@@ -136,9 +156,8 @@
 #include "dense.cuh"
 #include "mma.cuh"
 
-constexpr int kMaxObs = 16;
 constexpr int kMaxAct = 4;
-constexpr int kMaxLayers = 8;
+constexpr int kMaxLayers = 64;  // DeepParams' arrays (ops/fused_ppo.py MAX_LAYERS)
 
 // Mirrors PpoKernelParams in mbt_gym_torch/ops/fused_ppo.py (ctypes).
 struct PpoKernelParams {
@@ -181,12 +200,13 @@ struct DeepParams {
   int p1_dbh;
   int p1_total;
   int dw_total;     // the hidden-to-hidden dW, layers 1 .. L-1 in order
+  int scratch;      // pass 1 takes the scratch route (activation tiles in device memory)
   int widths[kMaxLayers];
   int w_off[kMaxLayers];    // layer l >= 1: its matrices in wf and wb (and its dW in the dW output)
   int b_off[kMaxLayers];    // layer l's bias and db
   int sh_off[kMaxLayers];   // byte offset of h_l's plane within a tile: l <= L-2 (K7 in bf16: l <= L-1)
   int sdz_off[kMaxLayers];  // byte offset of dz_l's plane, l >= 1
-  int rb_start[kMaxLayers + 1];  // pass-2 row blocks of layer l: [rb_start[l], rb_start[l + 1])
+  int rb_start[kMaxLayers + 1];  // pass-2 blocks (row x column) of layer l: [rb_start[l], rb_start[l + 1])
 };
 
 namespace {
@@ -196,6 +216,7 @@ constexpr int kE = 32;          // samples per tile
 constexpr int kPass1Ctas = 256;
 constexpr int kPass2Parts = 64;
 constexpr int kRowBlock = 64;   // layer rows per pass-2 CTA
+constexpr int kColBlock = 256;  // at most this many input columns per pass-2 CTA
 constexpr int kRowsPerSweep = 4 * (kThreads / 4);  // rows one dense sweep covers (8 envs/thread)
 constexpr int kObsSweep = 8;    // observation columns one dW0 sweep sums in registers
 
@@ -287,6 +308,49 @@ __device__ __forceinline__ void mma_weights_act_ieee(const __nv_bfloat16* __rest
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[mt][nt][i] += u[mt][nt][i];
         }
+      }
+    }
+  }
+}
+
+// mma_weights_act_ieee for an activation tile in device memory (the
+// scratch route): before each k block's products the warp copies the
+// block's 16 rows of the tile's 32 samples into its own shared-memory
+// `slot` ([16][kLdA]), the next block's rows already in flight in
+// registers; the products and their IEEE adds are those above, in the same
+// order.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_weights_act_staged(const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* act,
+                                                       int k_dim, float (&acc)[MT][NT][4], __nv_bfloat16* slot) {
+  static_assert(NT * 8 == kE, "a slot row holds the tile's samples");
+  const int lane = threadIdx.x % 32, r = lane / 4, c = (lane % 4) * 8;
+  const __nv_bfloat16* b_row = mbt::act_b_row<kLdA>(slot);
+  const __nv_bfloat16* a_frag = w + lane * 8;
+  const size_t rb_stride = static_cast<size_t>(k_dim) * 16;
+  auto rows_of = [&](int kb, uint4& v0, uint4& v1) {
+    v0 = *reinterpret_cast<const uint4*>(act + (kb * 16 + r) * kLdA + c);
+    v1 = *reinterpret_cast<const uint4*>(act + (kb * 16 + r + 8) * kLdA + c);
+  };
+  zero_acc(acc);
+  uint4 v0, v1;
+  rows_of(0, v0, v1);
+  for (int kb = 0; kb < k_dim / 16; ++kb) {
+    __syncwarp();  // the slot's last ldmatrix is done
+    *reinterpret_cast<uint4*>(slot + r * kLdA + c) = v0;
+    *reinterpret_cast<uint4*>(slot + (r + 8) * kLdA + c) = v1;
+    __syncwarp();
+    uint32_t a[MT][4];
+    load_a_global<MT>(a, a_frag + kb * kBlock, rb_stride);
+    if (kb + 1 < k_dim / 16) rows_of(kb + 1, v0, v1);
+    float u[MT][NT][4];
+    zero_acc(u);
+    mma_k_block(a, b_row, u);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += u[mt][nt][i];
       }
     }
   }
@@ -414,20 +478,21 @@ __device__ __forceinline__ void stage_in(const TS* plane, int rows, TA* tile) {
   }
 }
 
-// Pass 1 keeps two activation tiles in shared memory and stages every input
+// Pass 1 keeps two activation tiles in shared memory (kScratch: in device
+// memory, `scratch`, two per CTA; see the header) and stages every input
 // of a hidden-to-hidden layer and every such layer's dz in device memory;
 // the backward reads h_{l-1} back from there (through L2, where this CTA
 // has just written it).  A tile's planes lie p.tile_bytes apart, each at
 // its byte offset: the h planes of type TH, the dz planes of the operand
 // type TW.  kF32H (K7 in bf16): TH is float, and h_0 .. h_{L-1} are
 // written by the forward's epilogues (see the header).
-template <bool kBf16, bool kRowMajor, typename TW, typename TH>
+template <bool kBf16, bool kRowMajor, bool kScratch, typename TW, typename TH>
 __global__ void __launch_bounds__(kThreads, 2)
 ppo_deep_pass1(const DeepParams p, const PpoInputs in, int tile0, int n_tiles, int accumulate,
                const TW* __restrict__ wf0, const TW* __restrict__ wf, const TW* __restrict__ wb,
                const float* __restrict__ bias, const float* __restrict__ w_head,
                const float* __restrict__ b_head, const float* __restrict__ log_std, char* __restrict__ stage,
-               float* __restrict__ part1) {
+               float* __restrict__ part1, char* __restrict__ scratch) {
   constexpr bool kF32H = kBf16 && kRowMajor;
   static_assert(std::is_same<TH, typename std::conditional<kF32H, float, TW>::type>::value, "h plane type");
   extern __shared__ __align__(16) float sm[];
@@ -438,15 +503,33 @@ ppo_deep_pass1(const DeepParams p, const PpoInputs in, int tile0, int n_tiles, i
   using TA = TW;                          // activations: bf16 operand tiles or float
   constexpr int kLd = kBf16 ? kLdA : kE;  // their row stride
   float* x = sm;                          // [s][kE]
-  TA* cur = reinterpret_cast<TA*>(x + kMaxObs * kE);     // [h_max][kLd]: this layer
-  TA* nxt = cur + p.h_max * kLd;                          // [h_max][kLd]: the next
-  float* mv = reinterpret_cast<float*>(nxt + p.h_max * kLd);  // [a+1][kE]; later dmv
-  float* hw = mv + n_head * kE;           // [a+1][HL] head weights (operands)
-  float* acc = hw + n_head * HL;          // the pass-1 partials (p1_total)
   float* mine = part1 + static_cast<size_t>(blockIdx.x) * p.p1_total;
-
-  for (int i = tid; i < n_head * HL; i += kThreads) hw[i] = w_head[i];
-  for (int i = tid; i < p.p1_total; i += kThreads) acc[i] = accumulate ? mine[i] : 0.0f;
+  TA* cur;             // [h_max][kLd]: this layer
+  TA* nxt;             // [h_max][kLd]: the next
+  float* mv;           // [a+1][kE]; later dmv
+  const float* hw;     // [a+1][HL] head weights (operands)
+  float* acc;          // the pass-1 partials (p1_total)
+  __nv_bfloat16* slot = nullptr;  // kScratch, bf16: this warp's [16][kLdA] operand slot
+  if constexpr (kScratch) {
+    cur = reinterpret_cast<TA*>(scratch) + static_cast<size_t>(blockIdx.x) * 2 * p.h_max * kLd;
+    nxt = cur + static_cast<size_t>(p.h_max) * kLd;
+    mv = x + bp.s_dim * kE;
+    slot = reinterpret_cast<__nv_bfloat16*>(mv + n_head * kE) + warp * 16 * kLdA;
+    hw = w_head;
+    acc = mine;
+    for (int i = tid; i < p.p1_total; i += kThreads) {
+      if (!accumulate) acc[i] = 0.0f;
+    }
+  } else {
+    cur = reinterpret_cast<TA*>(x + bp.s_dim * kE);
+    nxt = cur + p.h_max * kLd;
+    mv = reinterpret_cast<float*>(nxt + p.h_max * kLd);
+    float* hw_s = mv + n_head * kE;
+    acc = hw_s + n_head * HL;
+    for (int i = tid; i < n_head * HL; i += kThreads) hw_s[i] = w_head[i];
+    for (int i = tid; i < p.p1_total; i += kThreads) acc[i] = accumulate ? mine[i] : 0.0f;
+    hw = hw_s;
+  }
 
   float lstd[kMaxAct], inv_std[kMaxAct];
   for (int a = 0; a < bp.a_dim; ++a) {
@@ -489,7 +572,12 @@ ppo_deep_pass1(const DeepParams p, const PpoInputs in, int tile0, int n_tiles, i
         for (int jb = warp * 32; jb < towers * wo; jb += kWarps * 32) {
           const int tw = jb / wo;
           float z[2][4][4];
-          mma_weights_act_ieee<2, 4>(wb + p.w_off[l] + static_cast<size_t>(jb) * wi, cur + tw * wi * kLd, wi, z);
+          const TW* wl = wb + p.w_off[l] + static_cast<size_t>(jb) * wi;
+          if constexpr (kScratch) {
+            mma_weights_act_staged<2, 4>(wl, cur + tw * wi * kLd, wi, z, slot);
+          } else {
+            mma_weights_act_ieee<2, 4>(wl, cur + tw * wi * kLd, wi, z);
+          }
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -665,7 +753,12 @@ ppo_deep_pass1(const DeepParams p, const PpoInputs in, int tile0, int n_tiles, i
         for (int kb = warp * 32; kb < towers * wi; kb += kWarps * 32) {
           const int tw = kb / wi;
           float z[2][4][4];
-          mma_weights_act_ieee<2, 4>(wf + p.w_off[l] + static_cast<size_t>(kb) * wo, cur + tw * wo * kLd, wo, z);
+          const TW* wl = wf + p.w_off[l] + static_cast<size_t>(kb) * wo;
+          if constexpr (kScratch) {
+            mma_weights_act_staged<2, 4>(wl, cur + tw * wo * kLd, wo, z, slot);
+          } else {
+            mma_weights_act_ieee<2, 4>(wl, cur + tw * wo * kLd, wo, z);
+          }
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -758,23 +851,39 @@ ppo_deep_pass1(const DeepParams p, const PpoInputs in, int tile0, int n_tiles, i
     }
     __syncthreads();
   }
-  for (int i = tid; i < p.p1_total; i += kThreads) mine[i] = acc[i];
+  if constexpr (!kScratch) {
+    for (int i = tid; i < p.p1_total; i += kThreads) mine[i] = acc[i];
+  }
 }
 
 // Pass 2: CTA (x, y) owns the 64 rows [row0, row0 + 64) of hidden-to-hidden
-// layer l (those of tower tw) and part y's tiles of the chunk; its slice
-// dW_l[rows, 0 .. wi) (float32) is added to part2[y] in place.
-__device__ __forceinline__ int deep_layer_of(const DeepParams& p, int block) {
-  int l = 1;
-  while (block >= p.rb_start[l + 1]) ++l;
-  return l;
+// layer l (those of tower tw), its input columns [col0, col0 + cols) (at
+// most kColBlock) and part y's tiles of the chunk; its slice
+// dW_l[rows, cols] (float32) is added to part2[y] in place.
+struct Pass2Block {
+  int l, wi, wo, row0, col0, cols, tw;
+};
+
+__device__ __forceinline__ Pass2Block pass2_block(const DeepParams& p, int block) {
+  Pass2Block b;
+  b.l = 1;
+  while (block >= p.rb_start[b.l + 1]) ++b.l;
+  b.wi = p.widths[b.l - 1];
+  b.wo = p.widths[b.l];
+  const int n_cb = (b.wi + kColBlock - 1) / kColBlock;  // the layer's column blocks
+  const int local = block - p.rb_start[b.l];
+  b.row0 = (local / n_cb) * kRowBlock;  // stacked row of layer l
+  b.col0 = (local % n_cb) * kColBlock;
+  b.cols = b.wi - b.col0 < kColBlock ? b.wi - b.col0 : kColBlock;
+  b.tw = b.row0 / b.wo;
+  return b;
 }
 
-// On tensor cores (bf16): per tile, the 64 dz rows and the tower's wi rows
-// of h_{l-1} staged into shared memory (h rounded to bf16 operands from
-// K7's float32 planes), then dW += dz h^T: warp w holds rows [32 (w % 2), +32) x
-// columns [(w / 2) wi / 4, +wi / 4) of the slice as mma accumulator
-// fragments (at most 64 floats a thread).  The tile's products are summed
+// On tensor cores (bf16): per tile, the 64 dz rows and the block's cols rows
+// of the tower's h_{l-1} staged into shared memory (h rounded to bf16
+// operands from K7's float32 planes), then dW += dz h^T: warp w holds rows
+// [32 (w % 2), +32) x columns [(w / 2) cols / 4, +cols / 4) of the slice as
+// mma accumulator fragments (at most 64 floats a thread).  The tile's products are summed
 // in fresh fragments and added to the accumulator by IEEE float32 adds (a
 // tensor-core accumulator truncates, and over a CTA's ~1,600 tiles that
 // bias would add up: 3.6e-4 of dW1 at config 5).
@@ -784,14 +893,13 @@ __device__ __forceinline__ void deep_pass2_tensor_cores(const DeepParams& p, int
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t4 = lane % 4, q = lane / 8, r = lane % 8;
-  const int l = deep_layer_of(p, blockIdx.x);
-  const int wi = p.widths[l - 1], wo = p.widths[l];
-  const int row0 = (blockIdx.x - p.rb_start[l]) * kRowBlock;  // stacked row of layer l
-  const int tw = row0 / wo;
+  const Pass2Block b = pass2_block(p, blockIdx.x);
+  const int l = b.l, wi = b.wi, row0 = b.row0;
   __nv_bfloat16* dz = reinterpret_cast<__nv_bfloat16*>(sm);  // [64][kLdA]
-  __nv_bfloat16* h = dz + kRowBlock * kLdA;                  // [wi][kLdA]
-  const int nq = wi / 4, dm = (warp % 2) * 32, dn = (warp / 2) * nq;
-  float* out = part2 + static_cast<size_t>(blockIdx.y) * p.dw_total + p.w_off[l] + static_cast<size_t>(row0) * wi;
+  __nv_bfloat16* h = dz + kRowBlock * kLdA;                  // [cols][kLdA]
+  const int nq = b.cols / 4, dm = (warp % 2) * 32, dn = (warp / 2) * nq;
+  float* out = part2 + static_cast<size_t>(blockIdx.y) * p.dw_total + p.w_off[l] + static_cast<size_t>(row0) * wi +
+               b.col0;
   float acc[2][8][4];
   zero_acc(acc);
   if (accumulate) {
@@ -816,7 +924,7 @@ __device__ __forceinline__ void deep_pass2_tensor_cores(const DeepParams& p, int
   for (int qt = lo; qt < hi; ++qt) {
     const char* st = stage + static_cast<size_t>(qt) * p.tile_bytes;
     stage_in(reinterpret_cast<const __nv_bfloat16*>(st + p.sdz_off[l]) + row0 * kE, kRowBlock, dz);
-    stage_in(reinterpret_cast<const TH*>(st + p.sh_off[l - 1]) + tw * wi * kE, wi, h);
+    stage_in(reinterpret_cast<const TH*>(st + p.sh_off[l - 1]) + (b.tw * wi + b.col0) * kE, b.cols, h);
     __syncthreads();
     {
       uint32_t a[2][2][4];  // [k block][row tile]
@@ -872,22 +980,20 @@ __device__ __forceinline__ void deep_pass2_tensor_cores(const DeepParams& p, int
 }
 
 // On CUDA cores (float32): thread (r_own, kb) holds row r_own of the
-// slice, columns [kb kq, (kb+1) kq), in registers; the staged planes are
-// read into sample-major tiles.
+// slice, columns [kb kq, (kb+1) kq) of the block's, in registers; the
+// staged planes are read into sample-major tiles.
 __device__ __forceinline__ void deep_pass2_cuda_cores(const DeepParams& p, int n_tiles, int accumulate,
                                                       const char* __restrict__ stage, float* __restrict__ part2) {
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
-  const int l = deep_layer_of(p, blockIdx.x);
-  const int wi = p.widths[l - 1], wo = p.widths[l];
-  const int row0 = (blockIdx.x - p.rb_start[l]) * kRowBlock;
-  const int tw = row0 / wo;
+  const Pass2Block b = pass2_block(p, blockIdx.x);
+  const int l = b.l, wi = b.wi, row0 = b.row0, cols = b.cols;
   float* dzt = sm;                    // [kE][64]
-  float* ht = dzt + kE * kRowBlock;   // [kE][wi]
-  const int kq = wi / 4;              // dW columns per thread
+  float* ht = dzt + kE * kRowBlock;   // [kE][cols]
+  const int kq = cols / 4;            // dW columns per thread
   const int r_own = tid % kRowBlock, kb = tid / kRowBlock;
   float* out = part2 + static_cast<size_t>(blockIdx.y) * p.dw_total + p.w_off[l] +
-               static_cast<size_t>(row0 + r_own) * wi + kb * kq;
+               static_cast<size_t>(row0 + r_own) * wi + b.col0 + kb * kq;
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = (accumulate && i < kq) ? out[i] : 0.0f;
@@ -896,13 +1002,13 @@ __device__ __forceinline__ void deep_pass2_cuda_cores(const DeepParams& p, int n
   for (int qt = lo; qt < hi; ++qt) {
     const char* st = stage + static_cast<size_t>(qt) * p.tile_bytes;
     const float* sdz = reinterpret_cast<const float*>(st + p.sdz_off[l]) + row0 * kE;
-    const float* sh = reinterpret_cast<const float*>(st + p.sh_off[l - 1]) + tw * wi * kE;
+    const float* sh = reinterpret_cast<const float*>(st + p.sh_off[l - 1]) + (b.tw * wi + b.col0) * kE;
     for (int i = tid; i < kRowBlock * kE; i += kThreads) dzt[(i % kE) * kRowBlock + i / kE] = sdz[i];
-    for (int i = tid; i < wi * kE; i += kThreads) ht[(i % kE) * wi + i / kE] = sh[i];
+    for (int i = tid; i < cols * kE; i += kThreads) ht[(i % kE) * cols + i / kE] = sh[i];
     __syncthreads();
     for (int e = 0; e < kE; ++e) {
       const float d = dzt[e * kRowBlock + r_own];
-      const float* hrow = ht + e * wi + kb * kq;
+      const float* hrow = ht + e * cols + kb * kq;
 #pragma unroll
       for (int i = 0; i < 64; i += 4) {
         if (i < kq) {
@@ -944,23 +1050,40 @@ __global__ void reduce_parts(const float* __restrict__ part, int parts, int n, f
   out[i] = s;
 }
 
+// Pass 1's dynamic shared memory on each route (ops/fused_ppo.py
+// pass1_smem_bytes computes the same to pick the route).
+template <bool kBf16>
+size_t pass1_smem(const DeepParams& p, bool scratch) {
+  const int n_head = p.base.a_dim + 1;
+  const int HL = p.base.towers * p.widths[p.n_layers - 1];
+  const size_t obs_mv = sizeof(float) * (p.base.s_dim * kE + n_head * kE);
+  if (scratch) return obs_mv + (kBf16 ? sizeof(__nv_bfloat16) * kWarps * 16 * kLdA : 0);
+  return obs_mv + sizeof(float) * (static_cast<size_t>(n_head) * HL + p.p1_total) +
+         (kBf16 ? sizeof(__nv_bfloat16) * kLdA : sizeof(float) * kE) * 2 * p.h_max;
+}
+
 template <bool kBf16, bool kRowMajor>
 int launch_deep(const DeepParams& p, const PpoInputs& in, const void* wf0, const void* wf, const void* wb,
                 const float* bias, const float* w_head, const float* b_head, const float* log_std, void* stage,
-                float* part1, float* part2, float* out_small, float* out_dw, cudaStream_t stream) {
+                float* part1, float* part2, float* out_small, float* out_dw, void* scratch, cudaStream_t stream) {
   using TW = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
   using TH = typename std::conditional<kBf16 && kRowMajor, float, TW>::type;  // the staged h planes
-  const int n_head = p.base.a_dim + 1, L = p.n_layers;
-  const int HL = p.base.towers * p.widths[L - 1];
+  const int L = p.n_layers;
   int wi_max = 0;
   for (int l = 1; l < L; ++l) wi_max = wi_max > p.widths[l - 1] ? wi_max : p.widths[l - 1];
-  const size_t smem1 = sizeof(float) * (kMaxObs * kE + n_head * kE + n_head * HL + p.p1_total) +
-                       sizeof(TW) * 2 * p.h_max * (kBf16 ? kLdA : kE);
-  const size_t smem2 = kBf16 ? sizeof(__nv_bfloat16) * (kRowBlock + wi_max) * kLdA
-                             : sizeof(float) * kE * (kRowBlock + wi_max);
-  auto* pass1 = ppo_deep_pass1<kBf16, kRowMajor, TW, TH>;
+  const int cols = wi_max < kColBlock ? wi_max : kColBlock;
+  const size_t smem1 = pass1_smem<kBf16>(p, p.scratch != 0);
+  const size_t smem2 = kBf16 ? sizeof(__nv_bfloat16) * (kRowBlock + cols) * kLdA : sizeof(float) * kE * (kRowBlock + cols);
+  int device = 0, max_optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the shared-memory route must fit, and the scratch route needs its buffer
+  if (smem1 > static_cast<size_t>(max_optin) || (p.scratch && !scratch)) return static_cast<int>(cudaErrorInvalidValue);
+  auto* pass1 = p.scratch ? ppo_deep_pass1<kBf16, kRowMajor, true, TW, TH> : ppo_deep_pass1<kBf16, kRowMajor, false, TW, TH>;
   auto* pass2 = ppo_deep_pass2<kBf16, TH>;
-  cudaError_t err = cudaFuncSetAttribute(pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem1));
+  err = cudaFuncSetAttribute(pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem1));
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(pass2, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem2));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -970,7 +1093,7 @@ int launch_deep(const DeepParams& p, const PpoInputs& in, const void* wf0, const
     const int nc = n_tiles - c0 < p.chunk_tiles ? n_tiles - c0 : p.chunk_tiles;
     pass1<<<kPass1Ctas, kThreads, smem1, stream>>>(
         p, in, c0, nc, c0 > 0, static_cast<const TW*>(wf0), static_cast<const TW*>(wf), static_cast<const TW*>(wb),
-        bias, w_head, b_head, log_std, static_cast<char*>(stage), part1);
+        bias, w_head, b_head, log_std, static_cast<char*>(stage), part1, static_cast<char*>(scratch));
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     if (row_blocks > 0) {
@@ -991,29 +1114,29 @@ template <bool kRowMajor>
 int launch_deep_dtype(const DeepParams* p, int device, const PpoInputs* in, int bf16, const void* wf0,
                       const void* wf, const void* wb, const float* bias, const float* w_head, const float* b_head,
                       const float* log_std, void* stage, float* part1, float* part2, float* out_small,
-                      float* out_dw, void* stream) {
+                      float* out_dw, void* scratch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p->n_layers < 1 || p->n_layers > kMaxLayers || p->chunk_tiles < 1 || p->base.s_dim < 1 ||
-      p->base.s_dim > kMaxObs || p->base.a_dim < 1 || p->base.a_dim > kMaxAct) {
+      p->base.a_dim < 1 || p->base.a_dim > kMaxAct) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return launch_deep<true, kRowMajor>(*p, *in, wf0, wf, wb, bias, w_head, b_head, log_std, stage, part1, part2,
-                                        out_small, out_dw, s);
+                                        out_small, out_dw, scratch, s);
   }
   return launch_deep<false, kRowMajor>(*p, *in, wf0, wf, wb, bias, w_head, b_head, log_std, stage, part1, part2,
-                                       out_small, out_dw, s);
+                                       out_small, out_dw, scratch, s);
 }
 
 }  // namespace
 
 // C entry points, loaded with ctypes.  Each launches on the caller's
 // stream, allocates nothing and returns the first CUDA error (0 on
-// success).  `p` from fused_ppo.py's DeepKernelParams (1-8 layers, S <=
-// 16, A <= 4, a multiple of 32 samples per step, widths multiples of 64 up
-// to 256 per tower).  Weights: `wf0` (s, H0) layer 0's stacked (in, out)
+// success).  `p` from fused_ppo.py's DeepKernelParams (1-64 layers, any S,
+// A <= 4, a multiple of 32 samples per step, widths multiples of 64 per
+// tower).  Weights: `wf0` (s, H0) layer 0's stacked (in, out)
 // matrix; `wf` and `wb` every hidden-to-hidden layer l's stacked (in, out)
 // and (out, in) matrices at p->w_off[l] (bf16 in mma fragment order,
 // ops/mlp_rollout.py::pack_mma_a, with `bf16` set; float (towers, in, out)
@@ -1023,7 +1146,8 @@ int launch_deep_dtype(const DeepParams* p, int device, const PpoInputs* in, int 
 // p->chunk_tiles tiles of p->tile_bytes, each tile's planes (32 samples a
 // row) at the byte offsets p->sh_off and p->sdz_off, of the operand type
 // (h float in K7's bf16 mode), `part1` (256, p->p1_total), `part2` (64,
-// p->dw_total).
+// p->dw_total), and with p->scratch set `scratch`, pass 1's activation
+// tiles: 256 CTAs x 2 x p->h_max rows of 40 bf16 (float32: 32 floats).
 // Results: `out_small` in the pass-1 partials' order and `out_dw`
 // (p->dw_total), the hidden-to-hidden dW at p->w_off[l].
 
@@ -1031,16 +1155,18 @@ int launch_deep_dtype(const DeepParams* p, int device, const PpoInputs* in, int 
 extern "C" int mbt_ppo_deep_grads_T(const DeepParams* p, int device, const PpoInputs* in, int bf16,
                                     const void* wf0, const void* wf, const void* wb, const float* bias,
                                     const float* w_head, const float* b_head, const float* log_std, void* stage,
-                                    float* part1, float* part2, float* out_small, float* out_dw, void* stream) {
+                                    float* part1, float* part2, float* out_small, float* out_dw, void* scratch,
+                                    void* stream) {
   return launch_deep_dtype<false>(p, device, in, bf16, wf0, wf, wb, bias, w_head, b_head, log_std, stage, part1,
-                                  part2, out_small, out_dw, stream);
+                                  part2, out_small, out_dw, scratch, stream);
 }
 
 // K7: row-major views, p->base.n_steps = 1, p->base.n_envs = M.
 extern "C" int mbt_ppo_deep_grads(const DeepParams* p, int device, const PpoInputs* in, int bf16,
                                   const void* wf0, const void* wf, const void* wb, const float* bias,
                                   const float* w_head, const float* b_head, const float* log_std, void* stage,
-                                  float* part1, float* part2, float* out_small, float* out_dw, void* stream) {
+                                  float* part1, float* part2, float* out_small, float* out_dw, void* scratch,
+                                  void* stream) {
   return launch_deep_dtype<true>(p, device, in, bf16, wf0, wf, wb, bias, w_head, b_head, log_std, stage, part1,
-                                 part2, out_small, out_dw, stream);
+                                 part2, out_small, out_dw, scratch, stream);
 }

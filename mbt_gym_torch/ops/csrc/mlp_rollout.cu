@@ -77,11 +77,37 @@
 // merged head's zero blocks add exact zeros), so the values are the same
 // sums.  Both phases are one launch.
 //
+// Trunks past 256 rows (the wide route, Layout::scratch).  The JAX kernel
+// takes any trunk, sizing its tile to the width; so does this one.  A
+// layer wider than the 256 rows the 16 warps cover needs its input tile
+// beside its output tile, and two 512-row tiles of 128 envs (278 KB) do
+// not fit in shared memory; nor do any trunk's weights past 256 x 256.  So
+// on the wide route each CTA keeps two activation tiles ([rows][128] bf16)
+// in device memory (`scratch`, L2-resident while the CTA works on them),
+// and every layer is computed in passes of 256 output rows; a layer past
+// layer 0 streams its input back through one 256-row tile in shared
+// memory, chunk by chunk, every warp adding each chunk's products to its
+// accumulators before the next chunk is copied, and the head reads the
+// last layer the same way.  Weights, biases and the head are read from
+// device memory through L2.  The k blocks are summed in the narrow route's
+// order, so at a width both routes take they give the same bits.  The
+// route is a kernel of its own (mlp_rollout_wide_kernel, one per bf16
+// instantiation): beside the narrow route in one kernel its loop state
+// pushed the narrow instantiations past their 128 registers into spills.
+// It is also a library of its own (mlp_rollout_wide.cu: this file with
+// MBT_K3_WIDE set, which instantiates mlp_rollout_wide_kernel alone), so
+// that its twelve instantiations compile beside the narrow ones.
+// It costs the tiles' L2 traffic, the per-chunk barriers and every weight
+// read twice a step, once for each half of a warp's envs (at 512 x 512,
+// 1 MB a step for each CTA).
+//
 // float32 instantiation (raw observations), on CUDA cores: a CTA of 256
 // threads owns 32 envs; per step the activations sit in shared memory
-// feature-major ([width][32] floats) and each layer is a register tile
-// (dense.cuh, 4 rows x 8 envs a thread) reading the weights through L1/L2;
-// the head is one thread per (row, env); the env state lives in warp 0.
+// feature-major ([width][32] floats; past what shared memory holds, in a
+// device-memory scratch, two per CTA, the head and biases then read where
+// they are) and each layer is a register tile (dense.cuh, 4 rows x 8 envs
+// a thread, 256 rows a sweep) reading the weights through L1/L2; the head
+// is one thread per (row, env); the env state lives in warp 0.
 //
 // Numerics follow the plain PyTorch version (ops/mlp_rollout.py):
 // with normalised observations every matmul operand is rounded to bf16
@@ -188,7 +214,7 @@
 #include "philox.cuh"
 #include "proc_kinds.cuh"
 
-constexpr int kMaxLayers = 8;
+constexpr int kMaxLayers = 64;  // MlpKernelParams' widths (ops/mlp_rollout.py MAX_LAYERS)
 constexpr int kMaxObs = 16;
 constexpr int kMaxAct = 4;
 
@@ -256,7 +282,15 @@ struct Extras {
   float* fin;       // (S, n) terminal observation
 };
 
+#ifndef MBT_K3_WIDE
+#define MBT_K3_WIDE 0
+#endif
+
 namespace {
+
+// This library's instantiations: the bf16 wide route's alone, or every
+// other (the narrow bf16 route and the float32 kernel).
+constexpr bool kWideLib = MBT_K3_WIDE != 0;
 
 enum Reward { kPnl = 0, kCjMm = 1, kRunning = 2, kCjOe = 3, kExpUtility = 4 };
 enum Dynamics { kLimit = 0, kLam = 1, kTouch = 2, kSpeed = 3 };
@@ -571,8 +605,9 @@ struct Layout {
   int w0_size;   // bf16: layer 0's packed weights, in values
   int w_size;    // bf16: every layer's packed weights, in values
   int staged;    // bf16: the inner layers are staged in shared memory
+  int scratch;   // float32: the activation tiles live in device memory
   int b_total;   // every layer's bias
-  int act_rows;  // bf16: rows of the activation tile
+  int act_rows;  // bf16: rows of the activation tile (the wide route: of each scratch tile)
   int h_max;     // float32: widest activation
   size_t off_bias, off_head, off_x, off_act, off_head_o, bytes;
 };
@@ -585,19 +620,29 @@ constexpr int kE = 32;   // envs per CTA
 constexpr int kET = 8;   // envs per thread in a layer
 constexpr int kRowGroups = kThreads / (kE / kET);  // 64 groups of 4 rows
 
-// Buffers of one CTA in shared memory.
+// Buffers of one CTA: in shared memory, or (the scratch route) the
+// activations in device memory and the head and biases where they are.
 struct Smem {
   float* act0;
   float* act1;
-  float* head_w;
+  const float* head_w;
   float* head_o;
-  float* bias_s;
+  const float* bias_s;
 };
 
-// Stages a tower's head and biases into shared memory.
-__device__ void stage(const TowerWeights<float>& tw, const Smem& sm, int b_total, int h_last) {
-  for (int i = threadIdx.x; i < tw.head_rows * h_last; i += kThreads) sm.head_w[i] = tw.w_head[i];
-  for (int i = threadIdx.x; i < b_total; i += kThreads) sm.bias_s[i] = tw.bias[i];
+// Points `sm` at a tower's head and biases: staged into shared memory at
+// `head_s` and `bias_s`, or on the scratch route read where they are.
+__device__ void stage(const TowerWeights<float>& tw, Smem& sm, float* head_s, float* bias_s, int b_total, int h_last,
+                      bool scratch) {
+  if (scratch) {
+    sm.head_w = tw.w_head;
+    sm.bias_s = tw.bias;
+    return;
+  }
+  for (int i = threadIdx.x; i < tw.head_rows * h_last; i += kThreads) head_s[i] = tw.w_head[i];
+  for (int i = threadIdx.x; i < b_total; i += kThreads) bias_s[i] = tw.bias[i];
+  sm.head_w = head_s;
+  sm.bias_s = bias_s;
 }
 
 // The trunk h = tanh(W h + b), layer by layer, from act0 (the tile's
@@ -616,14 +661,14 @@ __device__ void forward(const MlpKernelParams& p, const float* w, const Smem& sm
   int b_off = 0;
   for (int l = 0; l < p.n_layers; ++l) {
     const int out_dim = p.widths[l];
-    if (rg * 4 < out_dim) {
+    for (int r0 = rg * 4; r0 < out_dim; r0 += 4 * kRowGroups) {  // 256 rows a sweep
       float acc[4][kET];
-      mbt::dense_tile<kET>(w + w_off + rg * 4, out_dim, in + eg * kET, kE, k_dim, acc);
+      mbt::dense_tile<kET>(w + w_off + r0, out_dim, in + eg * kET, kE, k_dim, acc);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const float b = sm.bias_s[b_off + rg * 4 + r];
+        const float b = sm.bias_s[b_off + r0 + r];
 #pragma unroll
-        for (int e = 0; e < kET; ++e) o[(rg * 4 + r) * kE + eg * kET + e] = tanhf(acc[r][e] + b);
+        for (int e = 0; e < kET; ++e) o[(r0 + r) * kE + eg * kET + e] = tanhf(acc[r][e] + b);
       }
     }
     __syncthreads();
@@ -650,20 +695,28 @@ template <int kDyn, int kProc, bool kExtra>
 __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
                         const float* __restrict__ inv0, const TowerWeights<float>& pi, const TowerWeights<float>& vf,
                         const Layout& lay, const float* __restrict__ log_std, const RolloutOut& out,
-                        const Extras& ex) {
+                        const Extras& ex, float* scratch) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int h_last = p.widths[p.n_layers - 1];
   const int n_head = p.a_dim + 1;
 
   Smem sm;
-  sm.act0 = reinterpret_cast<float*>(smem_raw);
-  sm.act1 = sm.act0 + lay.h_max * kE;
-  sm.head_w = sm.act1 + lay.h_max * kE;
-  sm.head_o = sm.head_w + n_head * h_last;
-  sm.bias_s = sm.head_o + n_head * kE;
+  float* head_s = nullptr;
+  float* bias_s = nullptr;
+  if (lay.scratch) {
+    sm.act0 = scratch + static_cast<size_t>(blockIdx.x) * 2 * lay.h_max * kE;
+    sm.act1 = sm.act0 + lay.h_max * kE;
+    sm.head_o = reinterpret_cast<float*>(smem_raw);
+  } else {
+    sm.act0 = reinterpret_cast<float*>(smem_raw);
+    sm.act1 = sm.act0 + lay.h_max * kE;
+    head_s = sm.act1 + lay.h_max * kE;
+    sm.head_o = head_s + n_head * h_last;
+    bias_s = sm.head_o + n_head * kE;
+  }
 
-  stage(pi, sm, lay.b_total, h_last);
+  stage(pi, sm, head_s, bias_s, lay.b_total, h_last, lay.scratch);
   const int env = blockIdx.x * kE + tid;
   EnvState s = initial_state<kDyn>(p, log_std, tid < kE ? inv0 : nullptr, env);
   start_episode<kDyn, kExtra>(p, ex, s, tid < kE, env);
@@ -706,7 +759,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
 
   // ---- phase 2: the vf tower's value of each observation of phase 1
   __syncthreads();
-  stage(vf, sm, lay.b_total, h_last);
+  stage(vf, sm, head_s, bias_s, lay.b_total, h_last, lay.scratch);
   __syncthreads();
   for (int i = 0; i < p.run_steps; ++i) {
     if (tid < kE) {  // this thread wrote these observations in phase 1
@@ -720,7 +773,9 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
   }
 }
 
-Layout layout(const MlpKernelParams& p) {
+// The launch's layout; on the scratch route shared memory holds the head's
+// output alone (ops/mlp_rollout.py k3_scratch_bytes computes the same).
+Layout layout(const MlpKernelParams& p, bool scratch) {
   Layout lay{};
   int k_dim = p.s_dim;
   lay.h_max = p.s_dim;
@@ -730,7 +785,10 @@ Layout layout(const MlpKernelParams& p) {
     k_dim = p.widths[l];
   }
   const int n_head = p.a_dim + 1;
-  lay.bytes = sizeof(float) * (2 * static_cast<size_t>(lay.h_max) * kE + n_head * k_dim + n_head * kE + lay.b_total);
+  lay.scratch = scratch;
+  lay.bytes = scratch ? sizeof(float) * n_head * kE
+                      : sizeof(float) * (2 * static_cast<size_t>(lay.h_max) * kE + n_head * k_dim + n_head * kE +
+                                         lay.b_total);
   return lay;
 }
 
@@ -758,6 +816,8 @@ constexpr int kEnvs = 64;      //            x eight 8-env tiles
 constexpr int kNT = kEnvs / 8;
 static_assert(kWarps * kEnvs == 8 * kE, "warp w: rows [32 (w / 2), +32) x envs [64 (w % 2), +64)");
 static_assert(kWarps * 8 == kE, "the head product gives each warp 8 envs");
+constexpr int kPassRows = kWarps / 2 * kRows;  // output rows one pass of the 16 warps covers
+constexpr int kChunk = 256;    // the wide route: input rows streamed through shared memory at a time
 
 struct Smem {
   __nv_bfloat16* w;       // layer 0's packed weights, then (staged) the inner layers'
@@ -789,21 +849,23 @@ __device__ void stage(const TowerWeights<__nv_bfloat16>& tw, const Smem& sm, con
   }
 }
 
-// This warp's tile of one layer's product: acc[mt][nt] = rows
-// [32 rg + 16 mt, +16) of the (r_dim, k_dim) matrix `w` (fragment order;
-// in shared memory or, when `in_smem` is false, device memory) times envs
-// [64 eh + 8 nt, +8) of the feature-major tile `src` (k_dim rows).  A row
-// block at or past r_dim (r_dim % 32 == 16) multiplies zeros.
-__device__ __forceinline__ void product(const __nv_bfloat16* w, bool in_smem, int k_dim, int r_dim,
-                                        const __nv_bfloat16* src, int rg, int eh, float (&acc)[2][kNT][4]) {
-  zero_acc(acc);
+// This warp's tile of one layer's product over its k blocks [kb0, kb0 +
+// nkb): acc[mt][nt] += rows [32 rg + 16 mt, +16) of the (r_dim, k_dim)
+// matrix `w` (fragment order; in shared memory or, when `in_smem` is
+// false, device memory) times envs [e0 + 8 nt, +8) of the feature-major
+// tile `src`, whose first row is k block kb0's.  A row block at or past
+// r_dim (r_dim % 32 == 16) multiplies zeros.
+template <int NT>
+__device__ __forceinline__ void product_blocks(const __nv_bfloat16* w, bool in_smem, int k_dim, int r_dim,
+                                               const __nv_bfloat16* src, int rg, int e0, int kb0, int nkb,
+                                               float (&acc)[2][NT][4]) {
   const bool two = rg * kRows + 16 < r_dim;
   const size_t rb_stride = static_cast<size_t>(k_dim) * 16;
   const __nv_bfloat16* a_frag = w + 2 * rg * rb_stride + (threadIdx.x % 32) * 8;
-  const __nv_bfloat16* b_row = mbt::act_b_row<kLd>(src + eh * kEnvs);
+  const __nv_bfloat16* b_row = mbt::act_b_row<kLd>(src + e0);
   uint32_t a[2][4] = {};
-  for (int kb = 0; kb < k_dim / 16; ++kb) {
-    const __nv_bfloat16* pa = a_frag + kb * mbt::kBlock;
+  for (int kb = 0; kb < nkb; ++kb) {
+    const __nv_bfloat16* pa = a_frag + (kb0 + kb) * mbt::kBlock;
     if (in_smem) {
       frag_from(a[0], lds128(pa));
       if (two) frag_from(a[1], lds128(pa + rb_stride));
@@ -815,9 +877,19 @@ __device__ __forceinline__ void product(const __nv_bfloat16* w, bool in_smem, in
   }
 }
 
-// Epilogue of a layer: act[row][env] = bf16(tanh(acc + b[row])).
-__device__ __forceinline__ void store_layer(const float (&acc)[2][kNT][4], const float* bias, int r_dim, int rg,
-                                            int eh, __nv_bfloat16* act) {
+// The whole product: acc = product_blocks over every k block.
+__device__ __forceinline__ void product(const __nv_bfloat16* w, bool in_smem, int k_dim, int r_dim,
+                                        const __nv_bfloat16* src, int rg, int eh, float (&acc)[2][kNT][4]) {
+  zero_acc(acc);
+  product_blocks(w, in_smem, k_dim, r_dim, src, rg, eh * kEnvs, 0, k_dim / 16, acc);
+}
+
+// Epilogue of a layer: act[row][env] = bf16(tanh(acc + b[row])) for envs
+// [e0, e0 + 8 NT), rows of stride kLdOut (kLd in shared memory, kE in a
+// wide-route scratch tile).
+template <int NT = kNT, int kLdOut = kLd>
+__device__ __forceinline__ void store_layer(const float (&acc)[2][NT][4], const float* bias, int r_dim, int rg,
+                                            int e0, __nv_bfloat16* act) {
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
@@ -826,9 +898,9 @@ __device__ __forceinline__ void store_layer(const float (&acc)[2][kNT][4], const
       const int row = rg * kRows + mt * 16 + half * 8 + g;
       if (row < r_dim) {
         const float b = bias[row];
-        __nv_bfloat16* d = act + row * kLd + eh * kEnvs + t4 * 2;
+        __nv_bfloat16* d = act + row * kLdOut + e0 + t4 * 2;
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
+        for (int nt = 0; nt < NT; ++nt) {
           *reinterpret_cast<__nv_bfloat162*>(d + nt * 8) = __floats2bfloat162_rn(
               tanhf(acc[mt][nt][half * 2] + b), tanhf(acc[mt][nt][half * 2 + 1] + b));
         }
@@ -842,29 +914,44 @@ __device__ __forceinline__ void store_layer(const float (&acc)[2][kNT][4], const
 // [8 w, +8) as one mma row block, the k blocks summed round-robin in four
 // accumulators (shorter dependency chains) added in a fixed order, and
 // writes rows 0..kRowsOut-1 to head_o.
-template <int kRowsOut>
-__device__ __forceinline__ void head_product(const __nv_bfloat16* w, int k_dim, const __nv_bfloat16* act,
-                                             float* head_o) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+// The head's k blocks [kb0, kb0 + nkb) (kb0 a multiple of 4) over the
+// tile `act` whose first row is block kb0's: block kb adds to d[kb % 4].
+__device__ __forceinline__ void head_blocks(const __nv_bfloat16* w, bool in_smem, const __nv_bfloat16* act, int kb0,
+                                            int nkb, float (&d)[4][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const __nv_bfloat16* a_frag = w + lane * 8;
   const __nv_bfloat16* b_row = act + (lane % 16) * kLd + warp * 8;
-  float d[4][4] = {};
-  const int nk = k_dim / 16;
-  for (int kb = 0; kb < nk; kb += 4) {
+  for (int kb = 0; kb < nkb; kb += 4) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      if (kb + c < nk) {
+      if (kb + c < nkb) {
         uint32_t a[4], f[2];
-        frag_from(a, lds128(a_frag + (kb + c) * mbt::kBlock));
+        const __nv_bfloat16* pa = a_frag + (kb0 + kb + c) * mbt::kBlock;
+        frag_from(a, in_smem ? lds128(pa) : __ldg(reinterpret_cast<const uint4*>(pa)));
         mbt::ldmatrix_x2_trans(f, b_row + (kb + c) * 16 * kLd);
         mma_bf16(d[c], a, f[0], f[1]);
       }
     }
   }
+}
+
+// Rows 0..kRowsOut-1 of the head's four accumulators, added in a fixed
+// order, to head_o.
+template <int kRowsOut>
+__device__ __forceinline__ void head_store(const float (&d)[4][4], float* head_o) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   if (g < kRowsOut) {  // row g: envs 2 t4, 2 t4 + 1
     *reinterpret_cast<float2*>(head_o + g * kE + warp * 8 + t4 * 2) =
         make_float2((d[0][0] + d[1][0]) + (d[2][0] + d[3][0]), (d[0][1] + d[1][1]) + (d[2][1] + d[3][1]));
   }
+}
+
+template <int kRowsOut>
+__device__ __forceinline__ void head_product(const __nv_bfloat16* w, int k_dim, const __nv_bfloat16* act,
+                                             float* head_o) {
+  float d[4][4] = {};
+  head_blocks(w, true, act, 0, k_dim / 16, d);
+  head_store<kRowsOut>(d, head_o);
 }
 
 // The trunk and the head of one step, from the observation tile.  Ends
@@ -879,7 +966,7 @@ __device__ void forward(const MlpKernelParams& p, const Smem& sm, const Layout& 
   size_t w_off = lay.w0_size;
   int b_off = 0;
   for (int l = 1; l < p.n_layers; ++l) {
-    if (has_rows) store_layer(acc, sm.bias + b_off, r_dim, rg, eh, sm.act);
+    if (has_rows) store_layer(acc, sm.bias + b_off, r_dim, rg, eh * kEnvs, sm.act);
     __syncthreads();
     const int k_dim = r_dim;
     b_off += k_dim;
@@ -892,16 +979,85 @@ __device__ void forward(const MlpKernelParams& p, const Smem& sm, const Layout& 
     w_off += static_cast<size_t>(k_dim) * r_dim;
     __syncthreads();  // every read of act before the epilogue overwrites it
   }
-  if (has_rows) store_layer(acc, sm.bias + b_off, r_dim, rg, eh, sm.act);
+  if (has_rows) store_layer(acc, sm.bias + b_off, r_dim, rg, eh * kEnvs, sm.act);
   __syncthreads();
   head_product<kHead<kDyn>>(sm.head_w, r_dim, sm.act, sm.head_o);
 }
 
-template <int kDyn, int kProc, bool kExtra>
+// `rows` rows of a wide-route scratch tile ([rows][kE] in device memory)
+// into the shared-memory tile `dst` (row stride kLd), 16 bytes a copy.
+__device__ __forceinline__ void copy_rows(const __nv_bfloat16* src, int rows, __nv_bfloat16* dst) {
+  constexpr int kPerRow = kE / 8;
+  for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = i % kPerRow;
+    *reinterpret_cast<uint4*>(dst + r * kLd + c * 8) =
+        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * kE + c * 8);
+  }
+}
+
+// The wide route's trunk and head of one step (see the header): layer by
+// layer into this CTA's scratch tiles `act0` / `act1`, kPassRows output
+// rows a pass and each warp's 64 envs in two halves of 32 (32 accumulators
+// a thread: with the route's loop state beside 64, ten of the twelve wide
+// instantiations spilled), the input streamed through sm.act kChunk rows
+// at a time for each half; then the head the same way.  Ends with head_o
+// written, before a barrier.
+template <int kDyn>
+__device__ __forceinline__ void forward_wide(const MlpKernelParams& p, const Smem& sm,
+                                          const TowerWeights<__nv_bfloat16>& tw, __nv_bfloat16* act0,
+                                          __nv_bfloat16* act1) {
+  const int warp = threadIdx.x / 32, rg = warp / 2, eh = warp % 2;
+  const __nv_bfloat16* in = nullptr;  // layer 0 reads the observation tile
+  __nv_bfloat16* out = act0;
+  size_t w_off = 0;
+  int b_off = 0, k_dim = kK0;
+  for (int l = 0; l < p.n_layers; ++l) {
+    const int r_dim = p.widths[l];
+    for (int r0 = 0; r0 < r_dim; r0 += kPassRows) {
+      const int g = r0 / kRows + rg;  // this warp's row group
+      const bool has_rows = g * kRows < r_dim;
+#pragma unroll 1
+      for (int e0 = eh * kEnvs; e0 < (eh + 1) * kEnvs; e0 += kEnvs / 2) {
+        float acc[2][kNT / 2][4];
+        zero_acc(acc);
+        if (l == 0) {
+          if (has_rows) product_blocks(tw.w, false, kK0, r_dim, sm.x, g, e0, 0, kK0 / 16, acc);
+        } else {
+          for (int k0 = 0; k0 < k_dim; k0 += kChunk) {
+            const int kc = k_dim - k0 < kChunk ? k_dim - k0 : kChunk;
+            __syncthreads();  // the chunk tile's last reads are done
+            copy_rows(in + static_cast<size_t>(k0) * kE, kc, sm.act);
+            __syncthreads();
+            if (has_rows) product_blocks(tw.w + w_off, false, k_dim, r_dim, sm.act, g, e0, k0 / 16, kc / 16, acc);
+          }
+        }
+        if (has_rows) store_layer<kNT / 2, kE>(acc, tw.bias + b_off, r_dim, g, e0, out);
+      }
+    }
+    __syncthreads();  // the layer's output is whole before it is read
+    w_off += static_cast<size_t>(k_dim) * r_dim;
+    b_off += r_dim;
+    k_dim = r_dim;
+    in = out;
+    out = out == act0 ? act1 : act0;
+  }
+  float d[4][4] = {};
+  for (int k0 = 0; k0 < k_dim; k0 += kChunk) {
+    const int kc = k_dim - k0 < kChunk ? k_dim - k0 : kChunk;
+    __syncthreads();
+    copy_rows(in + static_cast<size_t>(k0) * kE, kc, sm.act);
+    __syncthreads();
+    head_blocks(tw.w_head, false, sm.act, k0 / 16, kc / 16, d);
+  }
+  head_store<kHead<kDyn>>(d, sm.head_o);
+}
+
+template <int kDyn, int kProc, bool kExtra, bool kWide>
 __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const float* __restrict__ noise,
                         const float* __restrict__ inv0, const TowerWeights<__nv_bfloat16>& pi,
                         const TowerWeights<__nv_bfloat16>& vf, const Layout& lay,
-                        const float* __restrict__ log_std, const RolloutOut& out, const Extras& ex) {
+                        const float* __restrict__ log_std, const RolloutOut& out, const Extras& ex,
+                        __nv_bfloat16* scratch) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int h_last = p.widths[p.n_layers - 1];
@@ -912,13 +1068,26 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
   sm.x = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.off_x);
   sm.act = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.off_act);
   sm.head_o = reinterpret_cast<float*>(smem_raw + lay.off_head_o);
+  __nv_bfloat16* act0 = nullptr;  // the wide route's scratch tiles
+  __nv_bfloat16* act1 = nullptr;
+  if constexpr (kWide) {
+    act0 = scratch + static_cast<size_t>(blockIdx.x) * 2 * lay.act_rows * kE;
+    act1 = act0 + static_cast<size_t>(lay.act_rows) * kE;
+  }
+  auto step = [&](const TowerWeights<__nv_bfloat16>& tw) {
+    if constexpr (kWide) {
+      forward_wide<kDyn>(p, sm, tw, act0, act1);
+    } else {
+      forward<kDyn>(p, sm, lay, tw.w);
+    }
+  };
 
   // the observation tile's rows past S stay zero: layer 0's padded k
   for (int i = tid; i < kK0 * kLd / 2; i += kThreads) {
     reinterpret_cast<__nv_bfloat162*>(sm.x)[i] = __floats2bfloat162_rn(0.0f, 0.0f);
   }
   __syncthreads();
-  stage(pi, sm, lay, h_last);
+  if constexpr (!kWide) stage(pi, sm, lay, h_last);
   const bool env_thread = tid < kE;
   const int env = blockIdx.x * kE + tid;
   const bool active = env_thread && env < n;  // the last tile may be ragged
@@ -948,7 +1117,7 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
 
   // ---- phase 1: the episode with the pi tower (or the shared trunk)
   for (int i = 0; i < p.run_steps; ++i) {
-    forward<kDyn>(p, sm, lay, pi.w);
+    step(pi);
     __syncthreads();
     if (active) {
       float mean[kMaxAct];
@@ -969,11 +1138,11 @@ __device__ void rollout(const MlpKernelParams& p, int n, uint32_t seed, const fl
   if (!vf.w) return;
 
   // ---- phase 2: the vf tower's value of each observation of phase 1
-  stage(vf, sm, lay, h_last);
+  if constexpr (!kWide) stage(vf, sm, lay, h_last);
   if (env_thread) load_obs(0, true);
   __syncthreads();
   for (int i = 0; i < p.run_steps; ++i) {
-    forward<kDyn>(p, sm, lay, vf.w);
+    step(vf);
     __syncthreads();
     if (active) out.value[static_cast<size_t>(i) * n + env] = sm.head_o[tid] + vf.b_head[0];
     if (env_thread && i + 1 < p.run_steps) load_obs(i + 1, true);
@@ -1005,6 +1174,22 @@ Layout layout(const MlpKernelParams& p, bool staged, int head_rows) {
   return lay;
 }
 
+// The wide route's layout: shared memory holds the observation tile, one
+// kChunk-row activation tile and the head's output; `act_rows` is each
+// scratch tile's rows, the widest layer (ops/mlp_rollout.py
+// k3_scratch_bytes sizes the scratch from it).
+Layout layout_wide(const MlpKernelParams& p, int head_rows) {
+  Layout lay{};
+  for (int l = 0; l < p.n_layers; ++l) {
+    if (p.widths[l] > lay.act_rows) lay.act_rows = p.widths[l];
+  }
+  lay.off_x = 0;
+  lay.off_act = sizeof(__nv_bfloat16) * kK0 * kLd;
+  lay.off_head_o = lay.off_act + sizeof(__nv_bfloat16) * kChunk * kLd;
+  lay.bytes = lay.off_head_o + sizeof(float) * head_rows * kE;
+  return lay;
+}
+
 }  // namespace tc
 
 template <bool kBf16>
@@ -1015,18 +1200,37 @@ __global__ void __launch_bounds__(kBf16 ? tc::kThreads : cc::kThreads, 1)
 mlp_rollout_kernel(const MlpKernelParams p, int n, uint32_t seed, const float* __restrict__ noise,
                    const float* __restrict__ inv0, const TowerWeights<Weight<kBf16>> pi,
                    const TowerWeights<Weight<kBf16>> vf, const Layout lay, const float* __restrict__ log_std,
-                   RolloutOut out, Extras ex) {
+                   RolloutOut out, Extras ex, Weight<kBf16>* scratch) {
   if constexpr (kBf16) {
-    tc::rollout<kDyn, kProc, kExtra>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out, ex);
+    tc::rollout<kDyn, kProc, kExtra, false>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out, ex, scratch);
   } else {
-    cc::rollout<kDyn, kProc, kExtra>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out, ex);
+    cc::rollout<kDyn, kProc, kExtra>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out, ex, scratch);
   }
+}
+
+// The bf16 instantiations' wide route (trunks past 256 rows; see the header).
+template <int kDyn, int kProc, bool kExtra>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+mlp_rollout_wide_kernel(const MlpKernelParams p, int n, uint32_t seed, const float* __restrict__ noise,
+                        const float* __restrict__ inv0, const TowerWeights<__nv_bfloat16> pi,
+                        const TowerWeights<__nv_bfloat16> vf, const Layout lay, const float* __restrict__ log_std,
+                        RolloutOut out, Extras ex, __nv_bfloat16* scratch) {
+  tc::rollout<kDyn, kProc, kExtra, true>(p, n, seed, noise, inv0, pi, vf, lay, log_std, out, ex, scratch);
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory.
+template <typename Kernel, typename... Args>
+int launch_kernel(Kernel kernel, int blocks, int threads, size_t smem, cudaStream_t stream, const Args&... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kBf16, int kDyn, int kProc, bool kExtra>
 int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const float* inv0,
            const void* const* pi, const void* const* vf, const float* log_std, const RolloutOut& out,
-           const Extras& ex, cudaStream_t stream) {
+           const Extras& ex, void* scratch, cudaStream_t stream) {
   using TW = Weight<kBf16>;
   const bool towers = vf[0] != nullptr;
   auto tower = [&](const void* const* t, int rows) {
@@ -1036,53 +1240,77 @@ int launch(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, c
   const TowerWeights<TW> pi_w = tower(pi, towers ? p.a_dim : p.a_dim + 1);
   const TowerWeights<TW> vf_w = tower(vf, 1);
   Layout lay;
-  int threads, tile;
+  int threads, tile, width = 0;
+  for (int l = 0; l < p.n_layers; ++l) {
+    if (p.widths[l] % (kBf16 ? 16 : 4)) return static_cast<int>(cudaErrorInvalidValue);
+    width = p.widths[l] > width ? p.widths[l] : width;
+  }
+  int max_optin = 0, device = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  // the wide route (this library with kWideLib) takes a scratch, the narrow one none
+  if (kBf16 && (scratch != nullptr) != kWideLib) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (kBf16) {
     if (p.a_dim + 1 > tc::kHead<kDyn> || p.s_dim > tc::kK0) return static_cast<int>(cudaErrorInvalidValue);
-    for (int l = 0; l < p.n_layers; ++l) {
-      if (p.widths[l] % 16) return static_cast<int>(cudaErrorInvalidValue);
+    if constexpr (kWideLib) {
+      lay = tc::layout_wide(p, tc::kHead<kDyn>);
+    } else {  // the narrow route: every layer within one pass of the warps
+      if (width > tc::kPassRows) return static_cast<int>(cudaErrorInvalidValue);
+      lay = tc::layout(p, true, tc::kHead<kDyn>);
+      if (lay.bytes > static_cast<size_t>(max_optin)) lay = tc::layout(p, false, tc::kHead<kDyn>);
     }
-    int max_optin = 0, device = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    lay = tc::layout(p, true, tc::kHead<kDyn>);
-    if (lay.bytes > static_cast<size_t>(max_optin)) lay = tc::layout(p, false, tc::kHead<kDyn>);
     threads = tc::kThreads;
     tile = tc::kE;
   } else {
-    lay = cc::layout(p);
+    lay = cc::layout(p, scratch != nullptr);
     threads = cc::kThreads;
     tile = cc::kE;
   }
-  cudaError_t err = cudaFuncSetAttribute(mlp_rollout_kernel<kBf16, kDyn, kProc, kExtra>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(lay.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_rollout_kernel<kBf16, kDyn, kProc, kExtra><<<(n + tile - 1) / tile, threads, lay.bytes, stream>>>(
-      p, n, seed, noise, inv0, pi_w, vf_w, lay, log_std, out, ex);
-  return static_cast<int>(cudaGetLastError());
+  if (lay.bytes > static_cast<size_t>(max_optin)) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + tile - 1) / tile;
+  if constexpr (kWideLib) {  // only this library's route is instantiated
+    return launch_kernel(mlp_rollout_wide_kernel<kDyn, kProc, kExtra>, blocks, threads, lay.bytes, stream, p, n,
+                         seed, noise, inv0, pi_w, vf_w, lay, log_std, out, ex, static_cast<TW*>(scratch));
+  } else {
+    return launch_kernel(mlp_rollout_kernel<kBf16, kDyn, kProc, kExtra>, blocks, threads, lay.bytes, stream, p, n,
+                         seed, noise, inv0, pi_w, vf_w, lay, log_std, out, ex, static_cast<TW*>(scratch));
+  }
+}
+
+// K3 in bf16 or float32; the wide library has no float32 kernel.
+template <int kDyn, int kProc, bool kExtra>
+int launch_dtype(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const float* inv0, int bf16,
+                 const void* const* pi, const void* const* vf, const float* log_std, const RolloutOut& out,
+                 const Extras& ex, void* scratch, cudaStream_t s) {
+  if (bf16) return launch<true, kDyn, kProc, kExtra>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, scratch, s);
+  if constexpr (kWideLib) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return launch<false, kDyn, kProc, kExtra>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, scratch, s);
+  }
 }
 
 template <int kDyn>
 int launch_dyn(const MlpKernelParams& p, int n, uint32_t seed, const float* noise, const float* inv0, int bf16,
                const void* const* pi, const void* const* vf, const float* log_std, const RolloutOut& out,
-               const Extras& ex, cudaStream_t s) {
+               const Extras& ex, void* scratch, cudaStream_t s) {
   if (p.a_dim != (kDyn == kLam ? 4 : kDyn == kSpeed ? 1 : 2)) return static_cast<int>(cudaErrorInvalidValue);
   if (p.random_start != (ex.t0 != nullptr) || (ex.t0 && ex.fin)) return static_cast<int>(cudaErrorInvalidValue);
   if (ex.t0 || ex.fin) {  // the extras run the general instantiation's extras variant
     if (p.proc_mode != mbt::kProcGeneral) return static_cast<int>(cudaErrorInvalidValue);
-    if (bf16) return launch<true, kDyn, mbt::kProcGeneral, true>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
-    return launch<false, kDyn, mbt::kProcGeneral, true>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
+    return launch_dtype<kDyn, mbt::kProcGeneral, true>(p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex,
+                                                      scratch, s);
   }
   if (p.proc_mode == mbt::kProcGeneral) {
-    if (bf16) return launch<true, kDyn, mbt::kProcGeneral, false>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
-    return launch<false, kDyn, mbt::kProcGeneral, false>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
+    return launch_dtype<kDyn, mbt::kProcGeneral, false>(p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex,
+                                                       scratch, s);
   }
   // the plain processes observe S = 4, and the impact state too on speed
   if (p.proc_mode != mbt::kProcPlain || p.s_dim != (kDyn == kSpeed ? 5 : 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (bf16) return launch<true, kDyn, mbt::kProcPlain, false>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
-  return launch<false, kDyn, mbt::kProcPlain, false>(p, n, seed, noise, inv0, pi, vf, log_std, out, ex, s);
+  return launch_dtype<kDyn, mbt::kProcPlain, false>(p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, scratch,
+                                                   s);
 }
 
 }  // namespace
@@ -1101,19 +1329,25 @@ int launch_dyn(const MlpKernelParams& p, int n, uint32_t seed, const float* nois
 // (float).  Shared trunk: `pi` is the trunk with the merged (A+1)-row head
 // and `vf` is four NULLs.  Towers: `pi` is the pi tower with its A rows,
 // `vf` the vf tower with its value row, of equal widths.  n must be a
-// multiple of 32, every width a multiple of 4 and at most 256; A is 4 on
-// lam dynamics, 1 on speed and 2 on the others; S is 4 on the plain
-// processes (5 on speed), at most 16 on the general kinds (p.proc_mode).
-// `t0` (the (n,) start times, exactly when p.random_start) and `fin` (the
-// (S, n) terminal observation; not with t0) are NULL unless used, and need
-// p.proc_mode general.
+// multiple of 32, 1-64 layers, every width a multiple of 16 (bf16) or 4
+// (float32); A is 4 on lam dynamics, 1 on speed and 2 on the others; S is
+// 4 on the plain processes (5 on speed), at most 16 on the general kinds
+// (p.proc_mode).  `t0` (the (n,) start times, exactly when p.random_start)
+// and `fin` (the (S, n) terminal observation; not with t0) are NULL unless
+// used, and need p.proc_mode general.  `scratch` is NULL, or the
+// activation tiles of the wide (bf16) or scratch (float32) route, two per
+// CTA (ops/mlp_rollout.py k3_scratch_bytes), which a bf16 trunk wider than
+// 256 needs; that trunk goes to the wide library (mlp_rollout_wide.cu,
+// bf16 with a scratch only), every other call to this one.
 extern "C" int mbt_mlp_rollout(const MlpKernelParams* p, int device, int n, uint32_t seed,
                                const float* noise, const float* inv0, int bf16, const void* const* pi,
                                const void* const* vf, const float* log_std, float* obs, float* act, float* logp,
-                               float* value, float* reward, const float* t0, float* fin, void* stream) {
+                               float* value, float* reward, const float* t0, float* fin, void* scratch,
+                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
+  if (p->n_layers < 1 || p->n_layers > kMaxLayers) return static_cast<int>(cudaErrorInvalidValue);
   // CjOe is the speed kind's reward, CjMm and the running penalty the market-making kinds'
   const bool own = p->dynamics == kSpeed ? p->reward == kCjOe : p->reward == kCjMm || p->reward == kRunning;
   if (!(p->reward == kPnl || p->reward == kExpUtility || own)) return static_cast<int>(cudaErrorInvalidValue);
@@ -1121,10 +1355,10 @@ extern "C" int mbt_mlp_rollout(const MlpKernelParams* p, int device, int n, uint
   const Extras ex{t0, fin};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p->dynamics) {
-    case kLimit: return launch_dyn<kLimit>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, s);
-    case kLam: return launch_dyn<kLam>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, s);
-    case kTouch: return launch_dyn<kTouch>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, s);
-    case kSpeed: return launch_dyn<kSpeed>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, s);
+    case kLimit: return launch_dyn<kLimit>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, scratch, s);
+    case kLam: return launch_dyn<kLam>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, scratch, s);
+    case kTouch: return launch_dyn<kTouch>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, scratch, s);
+    case kSpeed: return launch_dyn<kSpeed>(*p, n, seed, noise, inv0, bf16, pi, vf, log_std, out, ex, scratch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

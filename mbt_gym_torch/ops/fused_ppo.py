@@ -23,15 +23,20 @@ own parameter layout: a ``{parameter name: tensor}`` dict in
   ``(M, A)``, old log-probs, advantages and returns ``(M,)``, the shared
   trunk (the JAX kernel's contract).
 
-The CUDA kernels take the trunks and observations K3 takes: 1 to
-``MAX_LAYERS`` (8) layers, each per-tower width a multiple of 4 up to
-``MAX_WIDTH`` (256), with ``S <= MAX_S`` (16), ``A <= 4`` and a sample
-count per step (``nb``, or ``M``) a multiple of 32; the wrappers raise
-``ValueError`` naming the limit otherwise.  One instantiation of each
-pass serves every depth (``csrc/fused_ppo.cu``).  Before a launch every
+The CUDA kernels take what the JAX kernels take: any trunk up to
+``MAX_LAYERS`` (64) layers, a cap far past any trunk either package
+trains, any per-tower width, any ``S``, ``A <= 4`` and a sample count per
+step (``nb``, or ``M``) a multiple of 32; the wrappers raise
+``ValueError`` naming the limit otherwise (:func:`check_kernel_limits`),
+and :func:`memory_refusal` names a trunk whose weights and scratch exceed
+the card's free memory.  One instantiation of each pass and route serves
+every depth (``csrc/fused_ppo.cu``): pass 1 keeps its activation tiles in
+shared memory where they fit (:func:`pass1_smem_bytes`) and in a
+device-memory scratch otherwise, and pass 2 splits a layer's input width
+into blocks of 256 columns.  Before a launch every
 hidden width is padded to a multiple of 64 (:func:`pad_transposed`; a
-pass-2 CTA owns 64 rows of a layer, and its dW warp tiles split the
-layer's input width into four runs of 16-column mma tiles), each tower
+pass-2 CTA owns 64 rows of a layer, and its dW warp tiles split its
+columns into four runs of 16-column mma tiles), each tower
 inside its own block: the new rows of a layer's weight
 and bias are zero, and so are the columns of the next layer or head that
 read them.  The padding is exact: a padded unit computes tanh(0) = 0,
@@ -64,20 +69,19 @@ import torch
 
 from mbt_gym_torch.ops import _build
 from mbt_gym_torch.ops import mlp_rollout
-from mbt_gym_torch.ops.mlp_rollout import (TransposedParams, bf16_round, full_float32_matmul, pack_mma_a,
-                                           transpose_params)
+from mbt_gym_torch.ops.mlp_rollout import (SMEM_OPTIN, TransposedParams, bf16_round, full_float32_matmul,
+                                           pack_mma_a, transpose_params)
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _SAMPLE_TILE = 32
-# observation columns K4 and K7 take (csrc/fused_ppo.cu kMaxObs): K3's, so
-# that every rollout K3 takes trains fully fused
-MAX_S = mlp_rollout.MAX_S
-# trunk layers and per-tower width they take (K3's limits, ops/mlp_rollout.py)
-MAX_LAYERS = 8
-MAX_WIDTH = 256
+# trunk layers the kernels take: the size of DeepParams' offset arrays
+# (csrc/fused_ppo.cu kMaxLayers), far past any trunk either package trains
+MAX_LAYERS = mlp_rollout.MAX_LAYERS
 _PASS1_CTAS = 256
 _PASS2_PARTS = 64
 _ROW_BLOCK = 64  # a pass-2 CTA's rows (csrc/fused_ppo.cu kRowBlock), the multiple each width is padded to
+_COL_BLOCK = 256  # at most this many input columns a pass-2 CTA (kColBlock)
+_LD_BF16 = _SAMPLE_TILE + 8  # a bf16 activation tile's row stride (kLdA)
 # the staged planes (h_0 .. h_{L-2}, dz_1 .. dz_{L-1}; K7 in bf16 also h_{L-1})
 # are bounded by this many bytes: passes 1 and 2 run in turn over chunks of tiles
 _STAGE_BYTES = 1 << 30
@@ -367,6 +371,7 @@ class DeepKernelParams(ctypes.Structure):
         ("p1_dbh", ctypes.c_int),
         ("p1_total", ctypes.c_int),
         ("dw_total", ctypes.c_int),
+        ("scratch", ctypes.c_int),
         ("widths", ctypes.c_int * MAX_LAYERS),
         ("w_off", ctypes.c_int * MAX_LAYERS),
         ("b_off", ctypes.c_int * MAX_LAYERS),
@@ -381,7 +386,7 @@ def _kernels() -> ctypes.CDLL:
     if not getattr(lib, "_mbt_declared", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.mbt_ppo_deep_grads_T, lib.mbt_ppo_deep_grads):
-            fn.argtypes = [ptr, i32, ptr, i32] + [ptr] * 12 + [ptr]
+            fn.argtypes = [ptr, i32, ptr, i32] + [ptr] * 13 + [ptr]
             fn.restype = i32
         lib._mbt_declared = True
     return lib
@@ -397,24 +402,29 @@ class KernelShape(NamedTuple):
     padded: tuple
 
 
-def check_kernel_limits(params, samples_per_step: int, s_dim: int, a_dim: int, label: str) -> KernelShape:
-    """The :class:`KernelShape` of ``params`` if the CUDA kernels take it
-    with ``samples_per_step`` (``nb``, or ``M`` for K7), ``S`` and ``A``;
-    else ``ValueError`` naming the limit."""
-    tp = transpose_params(params)
-    widths = tuple(tp.split_at) if tp.split_at is not None else tuple(w.shape[0] for w, _ in tp.trunk)
-    if not 1 <= len(widths) <= MAX_LAYERS or any(w % 4 or not 0 < w <= MAX_WIDTH for w in widths):
-        raise ValueError(
-            f"the {label} kernel takes 1-{MAX_LAYERS} trunk layers, each (per tower) a multiple of 4 wide and "
-            f"at most {MAX_WIDTH}; got {widths}"
-        )
-    if samples_per_step % _SAMPLE_TILE or s_dim > MAX_S or a_dim > 4:
-        raise ValueError(
-            f"the {label} kernel takes a multiple of {_SAMPLE_TILE} samples per step, S <= {MAX_S} and "
-            f"A <= 4; got {samples_per_step}, {s_dim}, {a_dim}"
-        )
+def kernel_shape(params) -> KernelShape:
+    """The :class:`KernelShape` of ``params`` (its ``hidden`` and
+    ``shared_trunk``; no tensor is read), whatever the kernels' limits."""
+    widths = tuple(params.hidden)
     padded = tuple(-(-w // _ROW_BLOCK) * _ROW_BLOCK for w in widths)
-    return KernelShape(1 if tp.split_at is None else 2, widths, padded)
+    return KernelShape(1 if params.shared_trunk else 2, widths, padded)
+
+
+def check_kernel_limits(params, samples_per_step: int, a_dim: int, label: str) -> KernelShape:
+    """The :class:`KernelShape` of ``params`` if the CUDA kernels take it
+    with ``samples_per_step`` (``nb``, or ``M`` for K7) and ``A``; else
+    ``ValueError`` naming the limit.  Every width and every S is taken;
+    what remains is the depth cap, the 32-sample tile and JAX's action
+    widths."""
+    shape = kernel_shape(params)
+    if not 1 <= len(shape.widths) <= MAX_LAYERS:
+        raise ValueError(f"the {label} kernel takes 1-{MAX_LAYERS} trunk layers; got {len(shape.widths)}")
+    if samples_per_step % _SAMPLE_TILE or a_dim > 4:
+        raise ValueError(
+            f"the {label} kernel takes a multiple of {_SAMPLE_TILE} samples per step and A <= 4; got "
+            f"{samples_per_step}, {a_dim}"
+        )
+    return shape
 
 
 def _prefix(sizes) -> list:
@@ -430,7 +440,11 @@ def deep_layout(shape: KernelShape, n_tiles: int, s_dim: int, a_dim: int, bf16: 
     """The kernels' offsets for ``shape``'s padded widths and a minibatch of
     ``n_tiles`` tiles of 32 samples (the fields of :class:`DeepKernelParams`
     but ``base``), and ``stage_bytes``, the staged planes of one chunk of
-    ``chunk_tiles`` tiles (at most ``_STAGE_BYTES``).  A tile's planes,
+    ``chunk_tiles`` tiles (at most ``_STAGE_BYTES``); ``scratch``, whether
+    pass 1 takes the scratch route (its shared-memory route past
+    :data:`SMEM_OPTIN`), and ``scratch_bytes``, that route's buffer.
+    Pass 2's blocks (``rb_start``) are a layer's row blocks times its
+    column blocks of up to 256.  A tile's planes,
     ``tile_bytes`` in all, are the h planes then the dz planes, each at its
     byte offset (``sh_off``, ``sdz_off``), 32 samples a row of the operand
     type.  K7 in bf16 (``row_major``) stages its h planes in float32 and
@@ -450,14 +464,57 @@ def deep_layout(shape: KernelShape, n_tiles: int, s_dim: int, a_dim: int, bf16: 
     p1_db = rows[0] * s_dim
     p1_dwh = p1_db + sum(rows)
     p1_dbh = p1_dwh + (a_dim + 1) * rows[-1]
-    return dict(
+    blocks = [rows[li] // _ROW_BLOCK * -(-w[li - 1] // _COL_BLOCK) for li in range(1, n_layers)]
+    lay = dict(
         n_layers=n_layers, h_max=max(rows), tile_bytes=tile_bytes, chunk_tiles=chunk,
         p1_db=p1_db, p1_dwh=p1_dwh, p1_dbh=p1_dbh, p1_total=p1_dbh + (a_dim + 1) + a_dim + 3,
         dw_total=sum(mats), widths=list(w), w_off=_prefix(mats), b_off=_prefix(rows),
         sh_off=stage_offsets[:n_h], sdz_off=[0] + stage_offsets[n_h:],
-        rb_start=[0] + _prefix([r // _ROW_BLOCK for r in rows[1:]] + [0]),
+        rb_start=[0] + _prefix(blocks + [0]),
         stage_bytes=chunk * tile_bytes,
     )
+    scratch = pass1_smem_bytes(lay, s_dim, a_dim, shape.towers, bf16) > SMEM_OPTIN
+    lay["scratch"] = int(scratch)
+    lay["scratch_bytes"] = _PASS1_CTAS * 2 * lay["h_max"] * (_LD_BF16 * 2 if bf16 else _SAMPLE_TILE * 4) * scratch
+    return lay
+
+
+def pass1_smem_bytes(lay: Dict[str, object], s_dim: int, a_dim: int, towers: int, bf16: bool) -> int:
+    """Pass 1's dynamic shared memory on its shared-memory route
+    (``csrc/fused_ppo.cu`` ``pass1_smem``): the observation tile and the
+    head's output, the two activation tiles, the head's weights and the
+    partial sums."""
+    n_head = a_dim + 1
+    base = 4 * (s_dim + n_head) * _SAMPLE_TILE
+    tile_row = 2 * _LD_BF16 if bf16 else 4 * _SAMPLE_TILE
+    return base + 4 * (n_head * towers * lay["widths"][-1] + lay["p1_total"]) + tile_row * 2 * lay["h_max"]
+
+
+def kernel_bytes(shape: KernelShape, samples: int, s_dim: int, a_dim: int, bf16: bool,
+                 row_major: bool = False) -> int:
+    """The device bytes one launch of K4 (K7 with ``row_major``) holds
+    besides its inputs at ``shape`` and ``samples`` samples: the padded
+    float32 params, their operand copies, the staged planes, the pass-1
+    scratch and the partial sums."""
+    lay = deep_layout(shape, samples // _SAMPLE_TILE, s_dim, a_dim, bf16, row_major)
+    rows = [shape.towers * h for h in shape.padded]
+    params = s_dim * rows[0] + lay["dw_total"] + sum(rows) + (a_dim + 1) * (rows[-1] + 1) + a_dim
+    operands = (s_dim * rows[0] + 2 * lay["dw_total"]) * (2 if bf16 else 4)
+    partials = 4 * ((_PASS1_CTAS + 1) * lay["p1_total"] + (_PASS2_PARTS + 1) * lay["dw_total"])
+    return 2 * 4 * params + operands + lay["stage_bytes"] + lay["scratch_bytes"] + partials
+
+
+def memory_refusal(shape: KernelShape, samples: int, s_dim: int, a_dim: int, compute_dtype: str, row_major: bool,
+                   label: str, free: int) -> "str | None":
+    """Why the ``label`` kernel cannot run a trunk of ``shape`` at
+    ``samples`` samples a launch on a card with ``free`` bytes free, or
+    None: its weights and scratch (:func:`kernel_bytes`) exceed them."""
+    need = kernel_bytes(shape, samples, s_dim, a_dim, compute_dtype == "bfloat16", row_major)
+    if need > free:
+        return (f"the {label} kernel's weights and scratch at the trunk {shape.widths} "
+                f"({'shared' if shape.towers == 1 else 'towers'}, {samples} samples a minibatch) take {need} "
+                f"bytes; the card has {free} free")
+    return None
 
 
 def _base_params(n_steps: int, n_envs: int, s_dim: int, a_dim: int, shape: KernelShape, clip_eps: float,
@@ -474,7 +531,7 @@ def _launch(row_major: bool, params, n_steps: int, n_envs: int, s_dim: int, a_di
             label: str) -> Tuple[Dict, Dict]:
     """Check the layout against the kernels' limits, pad the widths, launch
     K7 (``row_major``) or K4 and slice the grads back."""
-    shape = check_kernel_limits(params, n_envs, s_dim, a_dim, label)
+    shape = check_kernel_limits(params, n_envs, a_dim, label)
     tp = pad_transposed(transpose_params(params), shape.padded)
     kp = _base_params(n_steps, n_envs, s_dim, a_dim, shape, clip_eps, vf_coef)
     grads, sums = _launch_passes(row_major, tp, shape, kp, inputs, compute_dtype == "bfloat16", device)
@@ -517,8 +574,9 @@ def _launch_passes(row_major: bool, tp: TransposedParams, shape: KernelShape, kp
     part2 = torch.empty((_PASS2_PARTS, max(1, lay["dw_total"])), dtype=f32, device=device)
     small = torch.empty(lay["p1_total"], dtype=f32, device=device)
     dw = torch.empty(max(1, lay["dw_total"]), dtype=f32, device=device)
-    dp = DeepKernelParams(base=kp, **{k: lay[k] for k in ("n_layers", "h_max", "tile_bytes", "chunk_tiles",
-                                                          "p1_db", "p1_dwh", "p1_dbh", "p1_total", "dw_total")})
+    scratch = torch.empty(lay["scratch_bytes"], dtype=torch.uint8, device=device) if lay["scratch"] else None
+    dp = DeepKernelParams(base=kp, **{k: lay[k] for k in ("n_layers", "h_max", "tile_bytes", "chunk_tiles", "p1_db",
+                                                          "p1_dwh", "p1_dbh", "p1_total", "dw_total", "scratch")})
     for name in ("widths", "w_off", "b_off", "sh_off", "sdz_off", "rb_start"):
         getattr(dp, name)[:len(lay[name])] = lay[name]
     index, stream = _build.device_stream(device)
@@ -526,7 +584,7 @@ def _launch_passes(row_major: bool, tp: TransposedParams, shape: KernelShape, kp
         ctypes.byref(dp), index, ctypes.byref(inputs), int(bf16),
         wf0.data_ptr(), wf_all.data_ptr(), wb_all.data_ptr(), bias.data_ptr(), w_head.data_ptr(),
         b_head.data_ptr(), log_std.data_ptr(), stage.data_ptr(), part1.data_ptr(), part2.data_ptr(),
-        small.data_ptr(), dw.data_ptr(), stream,
+        small.data_ptr(), dw.data_ptr(), None if scratch is None else scratch.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")

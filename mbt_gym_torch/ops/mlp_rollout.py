@@ -15,7 +15,12 @@ memory in mma fragment order: :func:`pad_widths` rounds every hidden width
 up to a multiple of 16 with zero rows, columns and biases (tanh(0) = 0,
 and zero columns add exact zeros, so the outputs do not change), and
 :func:`pack_tower_bf16` packs each tower for the kernel.  With float32
-operands it runs on CUDA cores over tiles of 32 envs.
+operands it runs on CUDA cores over tiles of 32 envs, the widths padded to
+a multiple of 4.  Like the JAX kernel it takes any trunk (up to
+:data:`MAX_LAYERS` layers, a cap far past any trunk either package
+trains): a bf16 trunk wider than 256 rows, or a float32 one whose
+activations do not fit in shared memory, keeps its activation tiles in a
+device-memory scratch (:func:`k3_scratch_bytes`; the kernel's wide route).
 
 Ported scope, the JAX kernel's whole MLP contract: four dynamics kinds
 (``dynamics_kind``, each its own kernel instantiation): "limit"
@@ -96,14 +101,25 @@ _DYNAMICS = {"limit": 0, "lam": 1, "touch": 2, "speed": 3}
 
 # The CUDA kernel's limits (csrc/mlp_rollout.cu): the env count is a
 # multiple of _ENV_TILE (the float32 kernel's tile; the bf16 kernel's tiles
-# of 128 envs mask a ragged last one).
+# of 128 envs mask a ragged last one); at most MAX_LAYERS trunk layers (the
+# size of MlpKernelParams' widths), any width.
 _ENV_TILE = 32
-_MAX_WIDTH = 256
-_MAX_LAYERS = 8
+MAX_LAYERS = 64
 # The bf16 kernel's operand layout: widths a multiple of _MMA_WIDTH, layer
 # 0's k (S) padded to _MMA_WIDTH with zero columns, the head as one
-# _MMA_WIDTH-row block.
+# _MMA_WIDTH-row block; the float32 kernel's register tiles take 4 rows.
 _MMA_WIDTH = 16
+_F32_WIDTH = 4
+# The bf16 kernel's narrow route covers _PASS_ROWS output rows a layer (16
+# warps of 32 rows x 64 envs) over _BF16_TILE envs; wider trunks take the
+# wide route.
+_PASS_ROWS = 256
+_BF16_TILE = 128
+# The dynamic shared memory one block may hold on Hopper (227 KB), by
+# which K3's and K4/K7's wrappers pick their routes; the C launchers read
+# the card's own (cudaDevAttrMaxSharedMemoryPerBlockOptin) and refuse a
+# route that does not fit it.
+SMEM_OPTIN = 232_448
 
 
 def n_noise_channels(a_dim: int, exomm: bool = False, mid2: bool = False) -> int:
@@ -422,7 +438,7 @@ class MlpKernelParams(ctypes.Structure):
         ("a_dim", ctypes.c_int),
         ("normalise_obs", ctypes.c_int),
         ("normalise_act", ctypes.c_int),
-        ("widths", ctypes.c_int * _MAX_LAYERS),
+        ("widths", ctypes.c_int * MAX_LAYERS),
         ("start_time", ctypes.c_float),
         ("dt", ctypes.c_float),
         ("obs_low", ctypes.c_float * MAX_S),
@@ -485,7 +501,7 @@ def kernel_params(p: MlpRolloutParams, widths, extras: bool = False) -> MlpKerne
         a_dim=a_dim,
         normalise_obs=int(p.normalise_obs),
         normalise_act=int(p.normalise_act),
-        widths=(ctypes.c_int * _MAX_LAYERS)(*widths),
+        widths=(ctypes.c_int * MAX_LAYERS)(*widths),
         start_time=p.start_time,
         dt=p.dt,
         obs_low=(ctypes.c_float * MAX_S)(*p.obs_low),
@@ -561,15 +577,16 @@ def pack_mma_a(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(r // 16, 2, 8, k // 16, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6).reshape(-1)
 
 
-def pad_widths(params):
+def pad_widths(params, multiple: int = _MMA_WIDTH):
     """A copy of the actor-critic ``params`` with every hidden width rounded
-    up to a multiple of 16: the new rows of a layer's weight and bias are
-    zero, and so are the columns of the next layer (or head) that read
-    them.  Each padded unit computes tanh(0) = 0 and adds exact zeros
-    downstream, so the policy's outputs are unchanged."""
+    up to a multiple of ``multiple`` (the bf16 kernel's 16, the float32
+    kernel's 4): the new rows of a layer's weight and bias are zero, and so
+    are the columns of the next layer (or head) that read them.  Each
+    padded unit computes tanh(0) = 0 and adds exact zeros downstream, so
+    the policy's outputs are unchanged."""
     from mbt_gym_torch.agents.networks import ActorCritic
 
-    hidden = tuple(-(-h // _MMA_WIDTH) * _MMA_WIDTH for h in params.hidden)
+    hidden = tuple(-(-h // multiple) * multiple for h in params.hidden)
     device = params.log_std.device
     padded = ActorCritic(params.obs_dim, params.action_dim, hidden, params.shared_trunk, device=device)
     with torch.no_grad():
@@ -633,9 +650,13 @@ def _start_times(p: MlpRolloutParams, n: int, t0, final_obs: bool, device) -> Op
 
 def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: int = 16384,
                       noise: Optional[torch.Tensor] = None, device=None, inv0: Optional[torch.Tensor] = None,
-                      t0: Optional[torch.Tensor] = None, final_obs: bool = False):
+                      t0: Optional[torch.Tensor] = None, final_obs: bool = False,
+                      sum_dtype: torch.dtype = torch.float32):
     """Plain PyTorch K3 on any device; returns what :func:`mlp_rollout`
-    returns."""
+    returns.  ``sum_dtype=torch.float64`` keeps the operands' roundings and
+    takes each product's sums in float64 (everything else in float32): the
+    reference against which the card's checks measure how far two float32
+    summation orders drift apart on deep and wide bf16 trunks."""
     device = noise.device if noise is not None else resolve_device(device)
     n = num_trajectories
     tp = transpose_params(params)
@@ -653,6 +674,10 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
     rnd = bf16_round if p.normalise_obs else (lambda x: x)
     trunk = [(rnd(w), b[:, None]) for w, b in trunk]
     w_head, b_head = rnd(tp.w_head.to(device)), tp.b_head.to(device)[:, None]
+
+    def mm(w, h):  # a product's sums in sum_dtype
+        return w @ h if sum_dtype == torch.float32 else (w.to(sum_dtype) @ h.to(sum_dtype)).to(torch.float32)
+
     log_std = tp.log_std.to(device)
     std = torch.exp(log_std)
     f32 = torch.float32
@@ -686,12 +711,12 @@ def mlp_rollout_plain(p: MlpRolloutParams, params, seed: int = 0, num_trajectori
             h = X
             for li, (w, b) in enumerate(trunk):
                 if tp.split_at is None or li == 0:
-                    pre = w @ rnd(h)
+                    pre = mm(w, rnd(h))
                 else:  # stacked towers: one product per tower on its row blocks
                     wo, wi = tp.split_at[li], tp.split_at[li - 1]
-                    pre = torch.cat([w[:wo] @ rnd(h[:wi]), w[wo:] @ rnd(h[wi:])])
+                    pre = torch.cat([mm(w[:wo], rnd(h[:wi])), mm(w[wo:], rnd(h[wi:]))])
                 h = torch.tanh(pre + b)
-            hd = w_head @ rnd(h) + b_head
+            hd = mm(w_head, rnd(h)) + b_head
             d = noise[i]
             lp = torch.zeros_like(cash)
             exec_action = []
@@ -762,12 +787,14 @@ def _check_noise(p: MlpRolloutParams, n: int, noise: torch.Tensor) -> None:
         raise ValueError(f"noise must be float32 of shape {want}; got {noise.dtype} {tuple(noise.shape)}")
 
 
-def _kernels() -> ctypes.CDLL:
-    lib = _build.load("mlp_rollout.cu")
+def _kernels(wide: bool = False) -> ctypes.CDLL:
+    """K3's library: the bf16 wide route's (``wide``: a bf16 trunk that
+    takes a scratch, :func:`k3_scratch_bytes`) or every other route's."""
+    lib = _build.load("mlp_rollout_wide.cu" if wide else "mlp_rollout.cu")
     if not getattr(lib, "_mbt_declared", False):
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.mbt_mlp_rollout.argtypes = [ptr, i32, i32, u32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                        ptr, ptr, ptr]
+                                        ptr, ptr, ptr, ptr]
         lib.mbt_mlp_rollout.restype = i32
         lib._mbt_declared = True
     return lib
@@ -775,18 +802,40 @@ def _kernels() -> ctypes.CDLL:
 
 def check_kernel_shapes(p: MlpRolloutParams, widths, n: int) -> None:
     """The K3 kernel's limits on the config, the (per-tower) trunk widths
-    and the env count; ``ValueError`` naming the first one broken."""
+    and the env count; ``ValueError`` naming the first one broken.  Every
+    width is taken (the wrapper pads it); the depth up to
+    :data:`MAX_LAYERS`."""
     s_dim = 4 + len(pk.state_planes(p, speed=p.speed))
     if len(p.obs_low) != s_dim or s_dim > MAX_S or len(p.act_low) != p.a_dim:
         raise ValueError(f"the K3 kernel takes S={s_dim} (at most {MAX_S}), A={p.a_dim} on {p.dynamics_kind} "
                          f"dynamics; got {len(p.obs_low)}, {len(p.act_low)}")
-    if not 1 <= len(widths) <= _MAX_LAYERS or any(w % 4 or not 0 < w <= _MAX_WIDTH for w in widths):
-        raise ValueError(
-            f"the K3 kernel takes 1-{_MAX_LAYERS} trunk layers, each a multiple of 4 wide and at "
-            f"most {_MAX_WIDTH}; got {tuple(widths)}"
-        )
+    if not 1 <= len(widths) <= MAX_LAYERS:
+        raise ValueError(f"the K3 kernel takes 1-{MAX_LAYERS} trunk layers; got {len(widths)}")
     if n % _ENV_TILE:
         raise ValueError(f"the K3 kernel takes a multiple of {_ENV_TILE} envs; got {n}")
+
+
+def k3_scratch_bytes(widths, bf16: bool, s_dim: int, a_dim: int, n: int) -> int:
+    """The device scratch K3 takes at the (per-tower) ``widths``, padded as
+    the wrapper pads them, for ``n`` envs, 0 where its activation tiles fit
+    in shared memory: in
+    bf16 past 256 rows (the wide route; at most 256 rows the narrow route's
+    shared memory always fits, its inner weights read from device memory
+    where they do not), two ``[max width][128]`` bf16 tiles a CTA; in
+    float32 where ``csrc/mlp_rollout.cu``'s ``cc::layout`` exceeds
+    :data:`SMEM_OPTIN`, two ``[h_max][32]`` float tiles a CTA."""
+    multiple = _MMA_WIDTH if bf16 else _F32_WIDTH
+    widths = [-(-w // multiple) * multiple for w in widths]
+    if bf16:
+        if max(widths) <= _PASS_ROWS:
+            return 0
+        return -(-n // _BF16_TILE) * 2 * max(widths) * _BF16_TILE * 2
+    h_max = max(s_dim, *widths)
+    n_head = a_dim + 1
+    smem = 4 * (2 * h_max * _ENV_TILE + n_head * widths[-1] + n_head * _ENV_TILE + sum(widths))
+    if smem <= SMEM_OPTIN:
+        return 0
+    return n // _ENV_TILE * 2 * h_max * _ENV_TILE * 4
 
 
 def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: int = 16384,
@@ -828,17 +877,17 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
             raise ValueError("noise must be contiguous")
     start = _start_times(p, n, t0, final_obs, device)
     bf16 = bool(p.normalise_obs)
+    padded = pad_widths(params, _MMA_WIDTH if bf16 else _F32_WIDTH)
+    widths = list(padded.hidden)
+    towers = tower_params(transpose_params(padded))
     if bf16:  # the tensor-core kernel's layout
-        padded = pad_widths(params)
-        widths = list(padded.hidden)
-        towers = tower_params(transpose_params(padded))
         tensors = [pack_tower_bf16([(w.to(device), b.to(device)) for w, b in trunk], w_head.to(device),
                                    b_head.to(device)) for trunk, w_head, b_head in towers]
     else:  # each layer's (in, out) matrix, layers concatenated; the head rows
         tensors = [(torch.cat([w.to(device).T.contiguous().reshape(-1) for w, _ in trunk]),
                     torch.cat([b.to(device) for _, b in trunk]).contiguous(),
                     w_head.to(device).contiguous(), b_head.to(device).contiguous())
-                   for trunk, w_head, b_head in tower_params(tp)]
+                   for trunk, w_head, b_head in towers]
     # `tensors` stays alive until the launch returns
     kp = kernel_params(p, widths, extras=start is not None or final_obs)
     T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
@@ -860,13 +909,16 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
         _check_out(out, shapes, device)
     obs, act, logp, val, rew = out[:5]
     fin = out[5] if final_obs else None
+    scratch_bytes = k3_scratch_bytes(widths, bf16, S, A, n)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=device) if scratch_bytes else None
     index, stream = _build.device_stream(device)
-    rc = _kernels().mbt_mlp_rollout(
+    rc = _kernels(bf16 and scratch is not None).mbt_mlp_rollout(
         ctypes.byref(kp), index, n, int(seed) & _MASK32,
         None if noise is None else noise.data_ptr(), None if inv0 is None else inv0.data_ptr(), int(bf16),
         pointers[0], pointers[1], log_std.data_ptr(),
         obs.data_ptr(), act.data_ptr(), logp.data_ptr(), val.data_ptr(), rew.data_ptr(),
-        None if start is None else start.data_ptr(), None if fin is None else fin.data_ptr(), stream,
+        None if start is None else start.data_ptr(), None if fin is None else fin.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"mlp_rollout kernel launch failed: CUDA error {rc}")

@@ -747,3 +747,107 @@ def test_model_axis_failures_hold_the_metrics_to_the_meshless_ones_and_the_bands
     r0["meshless_metrics"] = r0["metrics"]
     bad = chip_smoke.model_axis_failures([r0, _worker_result(1, metrics=r0["metrics"])], (True, 0.0, 1.0), (3e-4, 4))
     assert len(bad) == 2 and all("metric bands" in b for b in bad)
+
+
+def test_wide_trunk_bounds_at_512():
+    """Phase 32's bounds at a (512, 512) trunk, bench_suite config 5
+    (262,144 x 200; a minibatch of 3,276,800 samples): K3's forward
+    2 (4*512 + 512*512 + 3*512) = 531,456 FLOP an env-step, 27.9 TFLOP,
+    28.2 ms at the 989 TFLOP/s bf16 peak (towers, whose heads read their own
+    tower alone, 1,059,840 FLOP, 56.2 ms); K4's forward and
+    backward 1,590,272 FLOP a sample (about three forwards), 5.21 TFLOP,
+    5.27 ms (towers 10.5 ms)."""
+    assert chip_smoke.mlp_flops_at(4, (512, 512), 2) == 531_456
+    ms, by = chip_smoke.k3_bound(262_144, 200, 4, 2, widths=(512, 512))
+    assert by == "operations" and abs(ms - 531_456 * 262_144 * 200 / 989e12 * 1e3) < 1e-9 and 28.1 < ms < 28.3
+    assert chip_smoke.mlp_flops_at(4, (512, 512), 2, towers=2) == 1_059_840
+    assert 56.1 < chip_smoke.k3_bound(262_144, 200, 4, 2, towers=2, widths=(512, 512))[0] < 56.3
+    assert chip_smoke.ppo_grad_flops_at(4, (512, 512), 2) == 1_590_272
+    m = 3_276_800
+    ms, by = chip_smoke.bound_ms(9 * 4 * m, chip_smoke.ppo_grad_flops_at(4, (512, 512), 2) * m, 989e12)
+    assert by == "operations" and 5.2 < ms < 5.3
+    # K3's default trunk is the 256x256 one every earlier phase bounds
+    assert chip_smoke.k3_bound(262_144, 200, 4, 2) == chip_smoke.k3_bound(262_144, 200, 4, 2, widths=(256, 256))
+
+
+def test_deep_limits_extend_to_twelve_layers():
+    """DEEP_BF16_LIMITS by depth: three layers' figures up to three, eight
+    layers' up to eight, twelve layers' beyond (phase 32b), each looser
+    than the one before; the float64-summed rule takes bf16 trunks past
+    eight layers or 512 wide (K3 at an atol wider than the 1e-3 its other
+    trunks keep), and leaves (512, 512) and every earlier trunk to the
+    plain versions themselves."""
+    limits = [chip_smoke.deep_bf16_limits(d) for d in (3, 4, 8, 9, 12)]
+    assert limits == [(1e-3, 1e-4), (5e-3, 1e-3), (5e-3, 1e-3), (1e-2, 2e-3), (1e-2, 2e-3)]
+    assert chip_smoke.K3_DEEP_BF16_ATOL > 1e-3
+    assert [chip_smoke.f64_rule(h) for h in ((512, 512), (256,) * 8, (64,) * 12, (1536, 1536), (2048,), (30, 30))] \
+        == [False, False, True, True, True, False]
+
+
+def test_plain_in_chunks_weights_each_slice_by_its_samples():
+    """Phase 32a's plain version of a minibatch too large to evaluate at
+    once: the sample-weighted mean of the slices' grads and metrics, which
+    is the whole minibatch's up to float32 summation order, for K4's
+    feature-major (by steps) and K7's row-major (by rows) inputs."""
+    import torch
+
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import fused_ppo
+
+    model = init_actor_critic(3, 4, 2, hidden=(16, 16), shared_trunk=True, device="cpu")
+    rows = chip_smoke.update_samples(torch, np, model, 6, 32, 5, torch.device("cpu"))
+    for plain, args in ((fused_ppo.ppo_fused_grads_T_plain, chip_smoke.feature_major(rows, 6, 32)),
+                        (fused_ppo.ppo_fused_grads_plain, rows)):
+        want_g, want_m = plain(model, *args, compute_dtype="float32")
+        got_g, got_m = chip_smoke.plain_in_chunks(torch, plain, model, args, 3, "float32")
+        assert set(got_g) == set(want_g) and set(got_m) == set(want_m)
+        for name in want_g:
+            torch.testing.assert_close(got_g[name], want_g[name], rtol=1e-5, atol=1e-7)
+        for name in want_m:
+            torch.testing.assert_close(got_m[name], want_m[name], rtol=1e-5, atol=1e-7)
+
+
+def test_nested_exogenous_mm_fills_observe_s_past_16():
+    """Phase 32d's config: exogenous-MM fills nested NESTED_DEPTH deep hold
+    2^depth OU depth states, so the AS env observes S = 3 + 1 + 16 = 20,
+    which the update kernels take and K3 does not (its S <= 16)."""
+    import dataclasses
+
+    import torch
+
+    from mbt_gym_torch.ops import mlp_rollout as mr
+    from mbt_gym_torch.utils.config import as_env_config
+
+    base = as_env_config(num_trajectories=64, n_steps=8)
+    fill = chip_smoke.nested_exomm(torch, chip_smoke.NESTED_DEPTH)
+    assert fill.state_dim == 2 ** chip_smoke.NESTED_DEPTH
+    cfg = dataclasses.replace(base, dynamics=dataclasses.replace(base.dynamics, fill_probability_model=fill))
+    assert cfg.state_dim == 20 > mr.MAX_S
+
+
+def test_the_reported_build_is_the_library_later_loads_take(tmp_path, monkeypatch):
+    """chip_smoke.py builds every source with the compiler's report
+    (``-Xptxas -v``); the report changes nothing in the library, so the
+    wrappers' later builds take that one and compile nothing again, while
+    a flag that changes the library keys a build of its own."""
+    import subprocess
+    from pathlib import Path
+
+    from mbt_gym_torch.ops import _build
+
+    commands = []
+
+    def compile_(cmd, capture_output, text):
+        commands.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info    : Used 32 registers\n")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "ptxas_reports", {})
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", compile_)
+    reported = _build.build("mlp_rollout_wide.cu", ptxas_verbose=True)
+    assert "-v" in commands[0] and _build.ptxas_reports["mlp_rollout_wide.cu"]
+    assert _build.build("mlp_rollout_wide.cu") == reported and len(commands) == 1
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build.build("mlp_rollout_wide.cu") != reported and len(commands) == 2

@@ -8,6 +8,7 @@ table and schedule kinds (tests/test_pallas_rollout.py:1834-1968) and the
 impact kinds; the native draws' extra channels; the dispatch routing and
 the fallback reasons against ``mbt_gym_tpu.dispatch``."""
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -464,7 +465,7 @@ def test_composite_fixed_routes_to_k5_as_in_jax():
     assert (got.backend, got.family) == ("fused", "cj_table")
 
 
-def test_unported_features_fall_back_with_their_names():
+def test_unported_features_fall_back_with_their_names(monkeypatch):
     """What the kernels still refuse runs on the engine, the reason naming
     it: the strict_reference_bug fills (as in JAX) and K4 beyond S = 8 in
     the PPO update.  The exponential utility on K5 takes JAX's fused
@@ -493,15 +494,24 @@ def test_unported_features_fall_back_with_their_names():
     assert (got.backend, got.family) == ("fused", "mlp_rollout")
     axes = torch_config(_with(jcomp, midprice_model=jp.HestonMidprice()))
     assert axes.state_dim == 9
-    assert ppo.fused_update_refusal(axes) is None
-    assert ppo.fused_update_refusal(config.composite_env_config(num_trajectories=N)) is None
-    from mbt_gym_torch.ops import fused_ppo
+    # both train fully fused: on a card with an H100's 80 GB free nothing is refused
+    from mbt_gym_torch.ops import det_rollout, fused_ppo
+
+    monkeypatch.setattr(det_rollout, "device_free_bytes", lambda device=None: 80 << 30)
+    learner = ppo.PPOConfig(hidden=(64, 64), n_minibatches=4, shuffle=False, fused_rollout=True, fused_update=True)
+    for env in (axes, config.composite_env_config(num_trajectories=N)):
+        for shared_trunk in (True, False):
+            params = init_actor_critic(0, env.state_dim, env.action_dim, hidden=(64, 64), shared_trunk=shared_trunk,
+                                       device="cpu")
+            for pcfg in (learner, dataclasses.replace(learner, fused_rollout=False)):
+                assert ppo.fused_update_refusal(env, pcfg, params, device="cuda") is None
 
     model = init_actor_critic(0, 9, 4, hidden=(64, 64), shared_trunk=True, device="cpu")
-    assert fused_ppo.check_kernel_limits(model, 32, 9, 4, "K4").padded == (64, 64)
+    assert fused_ppo.check_kernel_limits(model, 32, 4, "K4").padded == (64, 64)
     wide = init_actor_critic(0, 17, 4, hidden=(64, 64), shared_trunk=True, device="cpu")
-    with pytest.raises(ValueError, match="K4 kernel takes a multiple of 32 samples per step, S <= 16"):
-        fused_ppo.check_kernel_limits(wide, 32, 17, 4, "K4")
+    assert fused_ppo.check_kernel_limits(wide, 32, 4, "K4") == fused_ppo.KernelShape(1, (64, 64), (64, 64))
+    with pytest.raises(ValueError, match="K4 kernel takes a multiple of 32 samples per step and A <= 4"):
+        fused_ppo.check_kernel_limits(wide, 48, 4, "K4")
 
 
 def _all_axes_learner(n=64):
@@ -515,38 +525,51 @@ def _all_axes_learner(n=64):
 
 
 def test_fused_update_refuses_a_config_past_the_kernels_limit(monkeypatch):
-    """``fused_update`` on a config observing more columns than the update
-    kernels take raises ``ValueError`` naming the limit, before anything
-    runs, on the fully fused path, on the engine rollout and through
-    ``jit_train_iteration``: nothing falls back to autograd.  The kernels'
-    limit is cut below the all-axes config's S = 9 here, since K3 refuses
-    any config past the real one (S = 16) itself."""
+    """What still limits the fused kernels (the card's free memory, against
+    K3's streams and scratch and the update kernel's weights and scratch)
+    raises ``ValueError`` naming it, before anything runs, on the fully
+    fused path, on the engine rollout with ``fused_update`` and through
+    ``jit_train_iteration``: nothing falls back to autograd.  The CPU test
+    stands the params on a card (``_device_of``) whose free memory is cut
+    to 1,000 bytes; the all-axes config's S = 9, and any S, is no longer
+    refused by itself."""
     from mbt_gym_torch import compiled
     from mbt_gym_torch.agents import ppo
-    from mbt_gym_torch.ops import fused_ppo
+    from mbt_gym_torch.ops import det_rollout
 
-    jcfg, fused = _all_axes_learner()
+    jcfg, fused = _all_axes_learner(n=128)
     cfg = torch_config(jcfg)
-    monkeypatch.setattr(fused_ppo, "MAX_S", 8)
     ts = ppo.init_train_state(cfg, fused, 0, device="cpu")
-    want = ppo.fused_update_refusal(cfg)
-    assert want == "the fused update (K4/K7) takes S <= 8; the config observes S = 9"
+    assert ppo.fused_update_refusal(cfg, fused, ts.params) is None  # the plain versions run on the CPU
+    monkeypatch.setattr(ppo, "_device_of", lambda params: torch.device("cuda", 0))
+    monkeypatch.setattr(det_rollout, "device_free_bytes", lambda device=None: 80 << 30)
+    assert ppo.fused_update_refusal(cfg, fused, ts.params) is None  # an H100's 80 GB take it
+    monkeypatch.setattr(det_rollout, "device_free_bytes", lambda device=None: 1000)
+    k3 = r"K3's streams and scratch at the trunk \(32, 32\) and 128 envs take \d+ bytes; the card has 1000 free"
+    k7 = (r"the K7 kernel's weights and scratch at the trunk \(32, 32\) \(shared, 256 samples a minibatch\) take "
+          r"\d+ bytes; the card has 1000 free")
+    engine = dataclasses.replace(fused, fused_rollout=False, shuffle=True)
+    assert re.fullmatch(k3, ppo.fused_update_refusal(cfg, fused, ts.params))
+    assert re.fullmatch(k7, ppo.fused_update_refusal(cfg, engine, ts.params))
 
     def ran(*args, **kw):
         raise AssertionError("the iteration ran")
 
     monkeypatch.setattr(ppo, "collect_rollout", ran)
+    monkeypatch.setattr(ppo, "_k3_rollout", ran)
     monkeypatch.setattr(ppo, "_fused_update_body", ran)
-    for pcfg in (fused, dataclasses.replace(fused, fused_rollout=False, shuffle=True)):
-        with pytest.raises(ValueError, match=r"takes S <= 8; the config observes S = 9"):
+    for pcfg, want in ((fused, k3), (engine, k7)):
+        with pytest.raises(ValueError, match=want):
             ppo.train_iteration(cfg, pcfg, ts, 3)
-        with pytest.raises(ValueError, match=r"takes S <= 8; the config observes S = 9"):
-            ppo.check_fused_update(cfg, pcfg)
-    ppo.check_fused_update(cfg, dataclasses.replace(fused, fused_update=False))
+        with pytest.raises(ValueError, match=want):
+            ppo.check_fused_update(cfg, pcfg, ts.params)
+    ppo.check_fused_update(cfg, dataclasses.replace(fused, fused_update=False, fused_rollout=False), ts.params)
     monkeypatch.setattr(compiled, "_check_train_args", lambda train_state, key: (key, torch.device("cuda", 0)))
     monkeypatch.setattr(compiled, "_cuda", ran)
-    with pytest.raises(ValueError, match=r"takes S <= 8; the config observes S = 9"):
+    with pytest.raises(ValueError, match=k3):
         compiled.train_iteration(cfg, fused, ts, 3)
+    with pytest.raises(ValueError, match=k7):
+        compiled.train_chunk(cfg, engine, ts, 3, 2)
 
 
 def test_all_axes_config_trains_fully_fused(monkeypatch):

@@ -399,10 +399,11 @@ def test_fused_ppo_rows_kernel_matches_plain_on_the_card(cuda_device, compute_dt
 
 
 def test_update_kernels_refuse_outside_their_limits_on_the_card(cuda_device):
-    """The update kernels take K3's trunks ((32, 32) and three-layer towers
-    launch); a trunk outside them (nine layers, a width of 258), a ragged
-    sample count or a towers minibatch that re-blocks to fewer than 32
-    lanes raises a ValueError naming the limit, before any launch."""
+    """The update kernels take every trunk ((32, 32), three-layer towers,
+    and past the old limits nine layers and a width of 258 launch); a trunk
+    past the depth cap, a ragged sample count or a towers minibatch that
+    re-blocks to fewer than 32 lanes raises a ValueError naming the limit,
+    before any launch."""
     from mbt_gym_torch.agents import ppo
     from mbt_gym_torch.agents.networks import init_actor_critic
     from mbt_gym_torch.ops import fused_ppo
@@ -420,12 +421,17 @@ def test_update_kernels_refuse_outside_their_limits_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert _build.launch_counts["ppo_fused_grads"] == before["ppo_fused_grads"] + 1
     assert _build.launch_counts["ppo_fused_grads_T"] == before["ppo_fused_grads_T"] + 1
-    for hidden in ((64,) * 9, (258,)):
-        outside = init_actor_critic(0, 4, 2, hidden=hidden, shared_trunk=True, device=cuda_device)
-        with pytest.raises(ValueError, match="K7 kernel takes 1-8 trunk layers"):
-            fused_ppo.ppo_fused_grads(outside, *rows)
-        with pytest.raises(ValueError, match="K4 kernel takes 1-8 trunk layers"):
-            fused_ppo.ppo_fused_grads_T(outside, *feature_major)
+    for hidden in ((64,) * 9, (258,)):  # past the old limits: taken
+        taken = init_actor_critic(0, 4, 2, hidden=hidden, shared_trunk=True, device=cuda_device)
+        fused_ppo.ppo_fused_grads(taken, *rows)
+        fused_ppo.ppo_fused_grads_T(taken, *feature_major)
+    torch.cuda.synchronize()
+    outside = init_actor_critic(0, 4, 2, hidden=(8,) * (fused_ppo.MAX_LAYERS + 1), shared_trunk=True,
+                                device=cuda_device)
+    with pytest.raises(ValueError, match=f"K7 kernel takes 1-{fused_ppo.MAX_LAYERS} trunk layers"):
+        fused_ppo.ppo_fused_grads(outside, *rows)
+    with pytest.raises(ValueError, match=f"K4 kernel takes 1-{fused_ppo.MAX_LAYERS} trunk layers"):
+        fused_ppo.ppo_fused_grads_T(outside, *feature_major)
     wide = init_actor_critic(0, 4, 2, hidden=(64, 64), shared_trunk=True, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 32 samples"):
         fused_ppo.ppo_fused_grads(wide, *(x[: m - 8] for x in rows))
@@ -434,6 +440,80 @@ def test_update_kernels_refuse_outside_their_limits_on_the_card(cuda_device):
     odd = ppo.UpdateBatch(*(x[: m - 8] for x in rows))
     with pytest.raises(ValueError, match="at least 32 lanes"):
         ppo._fused_grads_and_metrics(towers, cfg, odd)
+
+
+@pytest.mark.parametrize("normalised", [True, False], ids=["bf16", "float32"])
+@pytest.mark.parametrize("hidden,shared_trunk", [((512, 512), True), ((300, 300), False), ((30, 30), True),
+                                                 ((1024,), False), ((2048,), True)],
+                         ids=["512x512", "300x300-towers", "30x30", "1024-towers", "2048"])
+def test_mlp_rollout_kernel_past_256_on_the_card(cuda_device, hidden, shared_trunk, normalised):
+    """K3 at trunks the JAX kernel takes past the old limits: widths off a
+    multiple of 4 (padded to 16 or 4 with exact zeros) and past 256 (the
+    bf16 wide route, activation tiles in device memory; the float32
+    scratch route where its activations pass shared memory, 2048), both
+    layouts, 4,096 + 32 envs, against its plain version at the limits of
+    the tile-edge test; a second launch is bitwise equal."""
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import mlp_rollout as mr
+
+    n = 4096 + 32
+    p = mr.rollout_params_from_config(_ppo_cfg(n, normalised))
+    model = init_actor_critic(8, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device=cuda_device)
+    got = mr.mlp_rollout(p, model, 9, n, device=cuda_device)
+    again = mr.mlp_rollout(p, model, 9, n, device=cuda_device)
+    want = mr.mlp_rollout_plain(p, model, 9, n, device=cuda_device)
+    torch.cuda.synchronize()
+    same = _same_inventory_envs(got, want, n)
+    for a, b, c in zip(got, want, again):
+        torch.testing.assert_close(a[..., same], b[..., same], rtol=1e-4, atol=1e-3)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,shared_trunk,s_dim", [((512, 512), False, 4), ((30, 30), True, 4),
+                                                       ((2048,), False, 4), ((256, 256), True, 20),
+                                                       ((512, 512), False, 32)],
+                         ids=["512x512-towers", "30x30", "2048-towers", "S20", "S32-512x512-towers"])
+def test_update_kernels_past_256_and_16_columns_on_the_card(cuda_device, hidden, shared_trunk, s_dim,
+                                                           compute_dtype):
+    """K4 (and K7 on the shared trunk) past the old limits: widths off a
+    multiple of 4 and past 256, S = 20 and 32; pass 1's scratch route where
+    its tiles, head and partial sums pass shared memory (float32 towers at
+    512 x 512, 2048, S = 32 on 512 x 512 towers), and pass 2's column
+    blocks past 256; against their plain versions, a second launch bitwise
+    equal.  float32 at the tile-edge test's limits; bf16 by
+    chip_smoke.compare_update, the rule phase 32 holds the same trunks to:
+    up to 256 wide as the tile-edge test; 512 wide against the plain
+    version, 1e-3 per leaf and each metric within rtol 1e-4 plus 1e-4 of
+    its terms' mean magnitude (on 1,024 samples pg_loss averages terms that
+    cancel to ~1% of their size, and a float32 summation-order difference
+    moved it past rtol 1e-4 of itself on the card); past 512 against the
+    plain version's float64-summed evaluation at those limits."""
+    from chip_smoke import compare_update, feature_major, update_samples
+    from mbt_gym_torch.agents.networks import init_actor_critic
+    from mbt_gym_torch.ops import fused_ppo
+
+    t_steps, nb = 4, 256
+    model = init_actor_critic(7, s_dim, 2, hidden=hidden, shared_trunk=shared_trunk, device=cuda_device)
+    with torch.no_grad():
+        model.log_std.add_(0.05)
+    rows = update_samples(torch, np, model, t_steps, nb, 19, cuda_device)
+    calls = [(fused_ppo.ppo_fused_grads_T, fused_ppo.ppo_fused_grads_T_plain, feature_major(rows, t_steps, nb))]
+    if shared_trunk:
+        calls.append((fused_ppo.ppo_fused_grads, fused_ppo.ppo_fused_grads_plain, rows))
+    for kernel, plain, args in calls:
+        grads, metrics = kernel(model, *args, compute_dtype=compute_dtype)
+        again, again_m = kernel(model, *args, compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+        if compute_dtype == "float32":
+            _assert_update_close(grads, metrics, *plain(model, *args, compute_dtype=compute_dtype), compute_dtype)
+        else:
+            compare_update(torch, grads, metrics, model, args, plain, rows, compute_dtype,
+                           f"{kernel.__name__} {hidden} S={s_dim}")
+        for name in grads:
+            assert torch.equal(grads[name], again[name]), name
+        for name in metrics:
+            assert torch.equal(metrics[name], again_m[name]), name
 
 
 @pytest.mark.parametrize("dims", [(4, 2), (8, 4), (9, 4), (16, 4), (5, 1)],
@@ -506,7 +586,7 @@ def test_deep_update_kernels_over_several_chunks_on_the_card(cuda_device, monkey
     model = init_actor_critic(17, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device=cuda_device)
     with torch.no_grad():
         model.log_std.add_(0.05)
-    shape = fused_ppo.check_kernel_limits(model, nb, 4, 2, "K4")
+    shape = fused_ppo.check_kernel_limits(model, nb, 2, "K4")
     tile_bytes = fused_ppo.deep_layout(shape, 1, 4, 2, bf16)["stage_bytes"]
     monkeypatch.setattr(fused_ppo, "_STAGE_BYTES", 2 * tile_bytes)
     assert fused_ppo.deep_layout(shape, t_steps * nb // 32, 4, 2, bf16)["chunk_tiles"] == 2

@@ -149,7 +149,7 @@ def test_padding_to_the_kernel_widths_is_exact(hidden, shared_trunk):
     blocking), every sliced-off entry is exactly zero, and the params'
     round trip is exact."""
     model = init_actor_critic(3, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device="cpu")
-    shape = fused_ppo.check_kernel_limits(model, L, 4, 2, "K4")
+    shape = fused_ppo.check_kernel_limits(model, L, 2, "K4")
     assert shape == fused_ppo.KernelShape(1 if shared_trunk else 2, hidden, tuple(-(-h // 64) * 64 for h in hidden))
     tp = transpose_params(model)
     padded = fused_ppo.pad_transposed(tp, shape.padded)
@@ -185,7 +185,7 @@ def test_deep_layout_bounds_the_staged_planes(hidden, shared_trunk, bf16, chunks
     layer stages one plane, and its dz planes in bf16 as K4 does; in
     float32 K7 stages what K4 does."""
     model = init_actor_critic(0, 4, 2, hidden=hidden, shared_trunk=shared_trunk, device="cpu")
-    shape = fused_ppo.check_kernel_limits(model, 16_384, 4, 2, "K4")
+    shape = fused_ppo.check_kernel_limits(model, 16_384, 2, "K4")
     n_tiles = 200 * 16_384 // 32
     lay = fused_ppo.deep_layout(shape, n_tiles, 4, 2, bf16, row_major)
     rows = [shape.towers * h for h in shape.padded]

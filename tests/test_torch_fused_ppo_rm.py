@@ -15,6 +15,7 @@ from mbt_gym_tpu.agents import ppo as jppo
 from mbt_gym_tpu.ops import fused_ppo as jfused
 
 from mbt_gym_torch import convert
+from mbt_gym_torch.agents.networks import init_actor_critic
 from mbt_gym_torch.ops import fused_ppo, mlp_rollout
 from tests.test_torch_networks import assert_trees_close, jax_and_port_params, jax_numpy_tree, tree_items
 from tests.test_torch_ppo import _batch
@@ -241,25 +242,27 @@ def test_k4_rounding_points_fail_the_card_bound_at_the_edge_test_shapes(hidden):
 
 def test_refusals_name_the_contract():
     """K7 takes the shared trunk (the JAX kernel's assert).  The CUDA
-    kernels take K3's trunks (1-8 layers, widths a multiple of 4 up to 256,
-    each padded to a multiple of 64), K3's S <= 16 and a multiple of 32
-    samples per step; outside that the limit is named before any launch."""
+    kernels take every trunk the JAX kernels take (any width, each padded to
+    a multiple of 64, up to MAX_LAYERS layers) and any S; what remains is
+    the depth cap and a multiple of 32 samples per step, named before any
+    launch."""
     _, towers = jax_and_port_params(False, hidden=(32, 32))
     x = torch.zeros((M, 4))
     with pytest.raises(ValueError, match="K7.*shared-trunk layout"):
         fused_ppo.ppo_fused_grads(towers, x, torch.zeros((M, 2)), *(torch.zeros(M) for _ in range(3)))
     _, model = jax_and_port_params(True, hidden=(32, 32))
-    assert fused_ppo.check_kernel_limits(model, M, 4, 2, "K7") == fused_ppo.KernelShape(1, (32, 32), (64, 64))
-    for hidden in ((258,), (64, 30), (32,) * 9):
+    assert fused_ppo.check_kernel_limits(model, M, 2, "K7") == fused_ppo.KernelShape(1, (32, 32), (64, 64))
+    for hidden, padded in (((258,), (320,)), ((64, 30), (64, 64)), ((32,) * 9, (64,) * 9)):
         _, model = jax_and_port_params(True, hidden=hidden)
-        with pytest.raises(ValueError, match="K7 kernel takes 1-8 trunk layers, each .*a multiple of 4 wide and "
-                                             "at most 256"):
-            fused_ppo.check_kernel_limits(model, M, 4, 2, "K7")
+        assert fused_ppo.check_kernel_limits(model, M, 2, "K7") == fused_ppo.KernelShape(1, hidden, padded)
+    deep = init_actor_critic(0, 4, 2, hidden=(8,) * (fused_ppo.MAX_LAYERS + 1), shared_trunk=True, device="cpu")
+    with pytest.raises(ValueError, match=f"K7 kernel takes 1-{fused_ppo.MAX_LAYERS} trunk layers; got 65"):
+        fused_ppo.check_kernel_limits(deep, M, 2, "K7")
     _, model = jax_and_port_params(True, hidden=(64, 64))
-    assert fused_ppo.MAX_S == mlp_rollout.MAX_S == 16
-    assert fused_ppo.check_kernel_limits(model, M, 16, 4, "K7") == fused_ppo.KernelShape(1, (64, 64), (64, 64))
-    with pytest.raises(ValueError, match="multiple of 32 samples per step, S <= 16"):
-        fused_ppo.check_kernel_limits(model, M, 17, 2, "K7")
+    assert fused_ppo.MAX_LAYERS == mlp_rollout.MAX_LAYERS == 64  # S is not among the limits
+    assert fused_ppo.check_kernel_limits(model, M, 4, "K7") == fused_ppo.KernelShape(1, (64, 64), (64, 64))
+    with pytest.raises(ValueError, match="multiple of 32 samples per step and A <= 4"):
+        fused_ppo.check_kernel_limits(model, M, 5, "K7")
     with pytest.raises(ValueError, match="multiple of 32 samples"):
-        fused_ppo.check_kernel_limits(model, M + 1, 4, 2, "K7")
-    assert fused_ppo.check_kernel_limits(model, M, 4, 2, "K7") == fused_ppo.KernelShape(1, (64, 64), (64, 64))
+        fused_ppo.check_kernel_limits(model, M + 1, 2, "K7")
+    assert fused_ppo.check_kernel_limits(model, M, 2, "K7") == fused_ppo.KernelShape(1, (64, 64), (64, 64))

@@ -197,7 +197,8 @@ def test_unported_fused_layouts_raise_named_errors():
     alone on either layout, evaluate_policy's fused backend on the towers)
     runs on the CPU through the plain versions with finite metrics in the
     bands.  What is outside the kernels' contract raises by name: towers
-    of unequal widths, and a trunk outside the CUDA kernels' limits."""
+    of unequal widths, and a trunk past the CUDA kernels' depth cap; a
+    trunk past the old limits (nine layers) is taken."""
     from mbt_gym_torch.ops import fused_ppo
 
     env_cfg = _env(n=128, steps=8)
@@ -217,10 +218,12 @@ def test_unported_fused_layouts_raise_named_errors():
     ts.params.vf = torch.nn.ModuleList([torch.nn.Linear(4, 8), torch.nn.Linear(8, 16), torch.nn.Linear(16, 1)])
     with pytest.raises(ValueError, match="towers must have matching widths"):
         ppo.train_iteration(env_cfg, cfg, ppo.PPOTrainState(ts.params, ppo.make_optimizer(cfg, ts.params), 0), 0)
-    assert fused_ppo.check_kernel_limits(towers, 1024, 4, 2, "K4") == fused_ppo.KernelShape(2, (16, 16), (64, 64))
+    assert fused_ppo.check_kernel_limits(towers, 1024, 2, "K4") == fused_ppo.KernelShape(2, (16, 16), (64, 64))
     deep = networks.init_actor_critic(0, 4, 2, (16,) * 9, device="cpu")
-    with pytest.raises(ValueError, match="K4 kernel takes 1-8 trunk layers"):
-        fused_ppo.check_kernel_limits(deep, 1024, 4, 2, "K4")
+    assert fused_ppo.check_kernel_limits(deep, 1024, 2, "K4") == fused_ppo.KernelShape(2, (16,) * 9, (64,) * 9)
+    deeper = networks.init_actor_critic(0, 4, 2, (4,) * (fused_ppo.MAX_LAYERS + 1), device="cpu")
+    with pytest.raises(ValueError, match=f"K4 kernel takes 1-{fused_ppo.MAX_LAYERS} trunk layers"):
+        fused_ppo.check_kernel_limits(deeper, 1024, 2, "K4")
 
 
 def test_fused_rollout_with_engine_update_runs_on_cpu():

@@ -198,9 +198,9 @@ def test_reblocking_lanes_rule():
 def test_mlp_rollout_dispatch_family(monkeypatch):
     """deterministic_policy's mlp_rollout family: mode "evaluate" on a CUDA
     target follows the port's measurement on the card for each layout, and
-    names its figures; the other modes, a CPU target, a config outside K3's
-    family and layouts outside its limits take the engine with a named
-    reason."""
+    names its figures (a width off a multiple of 4 too: K3 takes any
+    width; past 256, those measured at 512x512); the other modes, a CPU target, a config outside K3's family and
+    a trunk past its depth cap take the engine with a named reason."""
     from mbt_gym_torch.dispatch import MLP_EVALUATE_MEASURED, dispatch_report
 
     env_cfg = dataclasses.replace(torch_config(jax_as_env_config(num_trajectories=128, n_steps=8)),
@@ -226,7 +226,18 @@ def test_mlp_rollout_dispatch_family(monkeypatch):
     assert d.backend == "engine" and "float64 reference-parity" in d.reason
     odd = networks.init_actor_critic(0, 4, 2, (18, 18), shared_trunk=True, device="cpu")
     d = dispatch_report(env_cfg, policy, mode="evaluate", platform="cuda", policy_params=odd)
-    assert d.backend == "engine" and "multiple of 4" in d.reason
+    fused, engine = MLP_EVALUATE_MEASURED["shared trunk"]
+    assert (d.backend, d.family) == (("fused", "mlp_rollout") if fused > engine else ("engine", None))
+    from mbt_gym_torch.dispatch import MLP_EVALUATE_MEASURED_WIDE
+
+    wide = networks.init_actor_critic(0, 4, 2, (300, 300), shared_trunk=False, device="cpu")
+    d = dispatch_report(env_cfg, policy, mode="evaluate", platform="cuda", policy_params=wide)
+    fused, engine = MLP_EVALUATE_MEASURED_WIDE["separate towers"]
+    assert (d.backend, d.family) == (("fused", "mlp_rollout") if fused > engine else ("engine", None))
+    assert "512x512" in d.reason and "phase 32a" in d.reason, d.reason
+    deep = networks.init_actor_critic(0, 4, 2, (4,) * 65, shared_trunk=True, device="cpu")
+    d = dispatch_report(env_cfg, policy, mode="evaluate", platform="cuda", policy_params=deep)
+    assert d.backend == "engine" and "1-64 trunk layers" in d.reason
     from mbt_gym_torch.ops import det_rollout
 
     monkeypatch.setattr(det_rollout, "device_free_bytes", lambda device=None: 1 << 10)
