@@ -1,0 +1,16 @@
+"""``eval_host_ms``: the median, over the traced calls of a
+policy-evaluation cell, of ``mbt.evaluate_policy``'s host time: the
+program's own span around the call, less what its ``mbt.sync.*`` spans
+(the host waiting on the card) cover (``mbt_gym_torch.utils.profiling``).
+None where the program records no such span."""
+import statistics
+
+
+def read(ctx):
+    if ctx.kind != "evaluate":
+        return None
+    from mbt_gym_torch.utils import profiling
+
+    host_seconds = getattr(profiling, "host_seconds", None)
+    times = host_seconds("mbt.evaluate_policy") if host_seconds else []
+    return 1e3 * statistics.median(times) if times else None

@@ -59,7 +59,7 @@ public entry points and times it all:
   SB3-style ``VecTradingEnv`` and ``host_model_policy`` on the AS config
   at 16,384 envs against the engine (25c); the backtest statistics on
   K2's trajectory against float64 on the CPU (25d); a profiler trace
-  naming K3's and K4's kernels, engine throughput, ``scaling_report``
+  naming K3's and K4's kernels, ``scaling_report``
   and the TensorBoard logger (25e);
 - PPO on optimal execution (phase 26): K3's speed kind at bench_suite
   config 6, its impact kinds, the exponential utility, the t0 plane of a
@@ -2839,7 +2839,7 @@ def surface_phases(torch, np, card, dev):
     trajectory (``rollout(backend="auto")``, one launch) against float64 on
     the CPU; plotting where matplotlib imports.  (e) ``profiling.trace``
     around two config-5 iterations, naming K3's and K4's kernels;
-    ``throughput`` and ``scaling_report`` on the AS engine; the
+    ``scaling_report`` on the AS engine; the
     TensorBoard logger on ``train_chunk``'s metrics.  Returns the
     kernels-line figures of K2, K3 and K4."""
     import dataclasses
@@ -3100,12 +3100,9 @@ def surface_phases(torch, np, card, dev):
     trace_bytes = os.path.getsize(files[0])
     print(f"phase 25e [{card}] profiling.trace of two config-5 iterations: {trace_bytes} bytes, {len(names)} kernel "
           f"names, K3's and K4's among them")
-    tp = profiling.throughput(as_cfg, policy, episodes_per_call=2, iters=2, device=dev)
-    check(all(np.isfinite(v) for v in tp.values()), f"phase 25e: throughput {tp}")
     rows = profiling.scaling_report(as_cfg, policy, episodes_per_call=1, iters=2)
     check(len(rows) == 1 and rows[0]["devices"] == 1, f"phase 25e: scaling_report {rows}")
-    print(f"phase 25e [{card}] throughput of AS {SURFACE_N}x{as_cfg.n_steps} engine episodes: "
-          f"{tp['env_steps_per_s']} env-steps/s ({tp['seconds_per_call']} s per 2 episodes); scaling_report {rows}")
+    print(f"phase 25e [{card}] scaling_report of AS {SURFACE_N}x{as_cfg.n_steps} engine episodes: {rows}")
     check(isinstance(tblog.maybe_logger(None), tblog._NoopLogger), "phase 25e: maybe_logger(None)")
     ts, chunk = train_chunk(env_cfg, ppo_cfg, ts, 9, 2)
     values = tblog.host_values(chunk)
@@ -3121,7 +3118,6 @@ def surface_phases(torch, np, card, dev):
         check(events and os.path.getsize(events[0]) > 0, "phase 25e: no TensorBoard event file")
         print(f"phase 25e: TensorboardLogger wrote {os.path.getsize(events[0])} bytes from train_chunk's metrics")
     figures["trace_bytes"] = trace_bytes
-    figures["throughput_env_steps_per_s"] = tp["env_steps_per_s"]
     figures["scaling"] = rows
     dist.destroy_process_group()
     tmp.cleanup()

@@ -32,8 +32,9 @@ bundle (env state, PPO train state, generator) bit for bit;
 ``VecEnv`` and a gymnasium ``VectorEnv``; :mod:`agents.external` turns a
 host model (an SB3 ``predict``, any numpy function) into a policy;
 :mod:`analytics` holds the backtest statistics, diagnostics, info dicts
-and plots; :mod:`utils.profiling` the profiler trace and throughput
-harness, :mod:`utils.tblog` TensorBoard logging; :mod:`parallel.mesh`
+and plots; :mod:`utils.profiling` the host spans at the port's layer
+boundaries, the profiler trace and the scaling report, :mod:`utils.tblog`
+TensorBoard logging; :mod:`parallel.mesh`
 trains data-parallel over a ``torch.distributed`` process group (NCCL on
 cards, Gloo on the CPU) through ``train_iteration(..., mesh=)``; and
 :mod:`entry` holds the flagship forward step, the PPO metric bands and

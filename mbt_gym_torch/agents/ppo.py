@@ -78,6 +78,7 @@ from mbt_gym_torch import env as env_lib
 from mbt_gym_torch.agents import networks
 from mbt_gym_torch.env import EnvConfig
 from mbt_gym_torch.types import as_values, device_constant
+from mbt_gym_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -616,6 +617,7 @@ def fused_update_refusal(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: network
                                     label, free - streams)
 
 
+@span("mbt.learner.check")
 def check_fused_update(env_cfg: EnvConfig, ppo_cfg: PPOConfig, params: networks.ActorCritic, device=None) -> None:
     """``ValueError`` with :func:`fused_update_refusal`'s reason where
     the kernels of ``ppo_cfg``'s learner cannot take ``env_cfg`` and
@@ -722,6 +724,7 @@ def train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrai
     return ts._replace(update_count=ts.update_count + 1), metrics
 
 
+@span("mbt.train_iteration")
 def jit_train_iteration(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key, mesh=None
                         ) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
     """:func:`train_iteration` compiled (ppo.py:553-555): on the card, one
@@ -740,7 +743,9 @@ def iteration_keys(key, n_iterations: int) -> List[int]:
     """The per-iteration int seeds :func:`train_chunk` uses, drawn from
     ``key`` (an int seed or a ``torch.Generator``)."""
     gen = key if isinstance(key, torch.Generator) else torch.Generator().manual_seed(int(key))
-    return torch.randint(0, 2**62, (n_iterations,), generator=gen, device=gen.device).tolist()
+    keys = torch.randint(0, 2**62, (n_iterations,), generator=gen, device=gen.device)
+    with span("mbt.sync.keys"):
+        return keys.tolist()
 
 
 def train_chunk(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key,
@@ -756,6 +761,7 @@ def train_chunk(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainSta
     return train_state, {k: torch.stack([m[k] for m in history]) for k in history[0]}
 
 
+@span("mbt.train_chunk")
 def jit_train_chunk(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_state: PPOTrainState, key,
                     n_iterations: int, mesh=None) -> Tuple[PPOTrainState, Dict[str, torch.Tensor]]:
     """:func:`train_chunk` compiled (ppo.py:590-592): on the card,
@@ -782,6 +788,7 @@ def deterministic_policy(env_cfg: EnvConfig):
     return tag_policy(policy, kind="mlp_deterministic", env_cfg=env_cfg)
 
 
+@span("mbt.evaluate_policy")
 @torch.no_grad()
 def evaluate_policy(env_cfg: EnvConfig, params: networks.ActorCritic, key, n_episodes: int = 1,
                     backend: str = "auto") -> torch.Tensor:
@@ -814,8 +821,9 @@ def evaluate_policy(env_cfg: EnvConfig, params: networks.ActorCritic, key, n_epi
             mlp_rollout.rollout_params_from_config(env_cfg)
         except AssertionError as e:
             raise ValueError(f"backend='fused' unavailable: {e}") from None
-        det = copy.deepcopy(params)
-        det.log_std.fill_(-30.0)
+        with span("mbt.eval.params_copy"):
+            det = copy.deepcopy(params)
+            det.log_std.fill_(-30.0)
         for _ in range(n_episodes):
             tb = mlp_rollout.collect_rollout_fused_T(env_cfg, det, gen, device=device)
             total += tb.rewards.sum(dim=0).mean()

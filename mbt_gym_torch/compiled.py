@@ -50,7 +50,6 @@ from __future__ import annotations
 import collections
 import copy
 import operator
-import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
@@ -58,6 +57,7 @@ from torch import nn
 
 from mbt_gym_torch import env as env_lib
 from mbt_gym_torch.ops import _build
+from mbt_gym_torch.utils.profiling import span
 
 WARMUP_CALLS = 1
 MAX_ENTRIES = 4
@@ -179,10 +179,11 @@ def capture(device: torch.device, body: Callable[[], Any],
     then capture one call of it into a ``torch.cuda.CUDAGraph`` with the
     generators that ``generators()`` gives after the warm-up (which may
     make some) registered; returns ``(graph, body's outputs, launches per
-    replay, seconds, pool bytes)``.  The warm-up's launches are real and
-    counted; the capture's are recorded and taken back off the counters."""
-    t0 = time.perf_counter()
-    with torch.cuda.device(device):
+    replay, seconds, pool bytes)``: the seconds of its ``mbt.graph.capture``
+    span, which records whether tracing is on or not.  The warm-up's
+    launches are real and counted; the capture's are recorded and taken
+    back off the counters."""
+    with span("mbt.graph.capture", always=True) as timer, torch.cuda.device(device):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -208,7 +209,7 @@ def capture(device: torch.device, body: Callable[[], Any],
             _build.launch_counts.update(before)
         torch.cuda.synchronize()
         pool_bytes = torch.cuda.memory_reserved() - reserved
-    return graph, outputs, launches, time.perf_counter() - t0, pool_bytes
+    return graph, outputs, launches, timer.record.seconds, pool_bytes
 
 
 def _abandon_capture(graph: torch.cuda.CUDAGraph, device: torch.device, stream: torch.cuda.Stream,
@@ -236,6 +237,7 @@ def _abandon_capture(graph: torch.cuda.CUDAGraph, device: torch.device, stream: 
     torch._C._cuda_releasePool(index, pool)
 
 
+@span("mbt.graph.replay")
 def replay(entry: Entry) -> None:
     """Replay ``entry``'s graph and count the kernel launches its capture
     recorded."""
@@ -337,6 +339,7 @@ def _capturable_copy(train_state):
     return ts
 
 
+@span("mbt.learner.load_state")
 def _load_train_state(static, train_state) -> None:
     """Copy ``train_state``'s parameters and Adam state into ``static``'s;
     a parameter Adam has not stepped yet loads step 0 and zero moments."""
@@ -368,6 +371,7 @@ class _Iteration(NamedTuple):
     local_cfg: Any
 
 
+@span("mbt.learner.seed")
 def _seed_learner(ppo, it: _Iteration, entry_gens, key, mesh):
     """Seed the entry's generators for one iteration; returns
     ``(K3's key, rollout generator, shuffle generator)``."""
@@ -450,8 +454,10 @@ def train_iteration(env_cfg, ppo_cfg, train_state, key, mesh=None):
     entry = _iteration_entry(env_cfg, ppo_cfg, train_state, key, mesh, device)
     _load_train_state(entry.inputs.ts, train_state)
     _run_iteration(entry, key, mesh)
-    ts = ppo._copy_state(entry.inputs.ts)
-    return ts._replace(update_count=train_state.update_count + 1), fresh(entry.outputs)
+    with span("mbt.learner.outputs"):
+        ts = ppo._copy_state(entry.inputs.ts)
+        outputs = fresh(entry.outputs)
+    return ts._replace(update_count=train_state.update_count + 1), outputs
 
 
 def train_chunk(env_cfg, ppo_cfg, train_state, key, n_iterations: int, mesh=None):
@@ -472,7 +478,8 @@ def train_chunk(env_cfg, ppo_cfg, train_state, key, n_iterations: int, mesh=None
     for i, k in enumerate(keys):
         _run_iteration(entry, k, mesh)
         copy_into([stacked[name][i] for name in stacked], [entry.outputs[name] for name in stacked])
-    ts = ppo._copy_state(entry.inputs.ts)
+    with span("mbt.learner.outputs"):
+        ts = ppo._copy_state(entry.inputs.ts)
     return ts._replace(update_count=train_state.update_count + n_iterations), stacked
 
 

@@ -55,6 +55,7 @@ import torch
 
 from mbt_gym_torch.env import EnvConfig, make_generator, resolve_device
 from mbt_gym_torch.types import EnvState, Trajectory
+from mbt_gym_torch.utils.profiling import span
 
 
 class DispatchDecision(NamedTuple):
@@ -278,6 +279,7 @@ _FAMILIES = {
 }
 
 
+@span("mbt.dispatch")
 def dispatch_report(
     cfg: EnvConfig, policy, mode: str = "rollout", platform: Optional[str] = None,
     policy_params=None,

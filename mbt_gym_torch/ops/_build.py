@@ -13,10 +13,12 @@ module and have no ``nvcc``.
 plain PyTorch versions compute them; ``--use_fast_math`` is deliberately
 absent, so ``expf``/``logf``/``cosf``/``sqrtf`` are the accurate CUDA ones.
 
-The launch counters are plain integers: a wrapper adds one where it
-launches its kernel and nowhere else, and a replay of a captured graph
-adds the launches its capture recorded, so a run can show that its main
-path went through the kernels.
+The launch counters (:data:`launch_counts`) are plain integers: a wrapper
+adds one where it launches its kernel and nowhere else, and a replay of a
+captured graph adds the launches its capture recorded, so a run can show
+that its main path went through the kernels.  They live here; the host
+spans live in :mod:`mbt_gym_torch.utils.profiling`, where each ``nvcc``
+run is an ``mbt.build`` span, recorded whether tracing is on or not.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
+
+from mbt_gym_torch.utils.profiling import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mbt_gym_torch"
@@ -107,9 +111,10 @@ def build(source: str, ptxas_verbose: bool = False) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [nvcc(), *flags, "-o", str(tmp), str(src)], capture_output=True, text=True
-    )
+    with span("mbt.build", always=True):
+        proc = subprocess.run(
+            [nvcc(), *flags, "-o", str(tmp), str(src)], capture_output=True, text=True
+        )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{proc.stderr}")
     if ptxas_verbose:

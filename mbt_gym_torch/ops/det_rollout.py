@@ -70,6 +70,7 @@ from mbt_gym_torch.ops import episode
 from mbt_gym_torch.ops import proc_kinds as pk
 from mbt_gym_torch.ops.episode import _MASK32, _step_time, _target, seed_from_key
 from mbt_gym_torch.ops.step_pipeline import PipelineGeometry, pipeline_geometry
+from mbt_gym_torch.utils.profiling import span
 
 # Channel count of the deterministic layout on the plain processes: 4 env
 # uniforms + the midprice normal (pallas_rollout.py:98-111 with table=True,
@@ -355,6 +356,7 @@ def schedule_table_from_policy(cfg: EnvConfig, policy) -> torch.Tensor:
     return torch.as_tensor(policy(None, obs, None), dtype=torch.float32)
 
 
+@span("mbt.mem_query")
 def device_free_bytes(device=None) -> int:
     """Bytes a new tensor on the CUDA ``device`` (default: the current one)
     can take: the free memory ``torch.cuda.mem_get_info`` reports plus the

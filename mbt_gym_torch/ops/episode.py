@@ -50,6 +50,7 @@ from mbt_gym_torch.env import EnvConfig, resolve_device
 from mbt_gym_torch.ops import _build
 from mbt_gym_torch.ops.step_pipeline import PipelineGeometry, pipeline_geometry
 from mbt_gym_torch.types import Trajectory, TrajectoryT
+from mbt_gym_torch.utils.profiling import span
 
 CONTAINER_PLANES = 7  # cash, inventory, time, price, bid, ask, reward
 _EMITS = {"state": 0, "full": 1, "container": 2}  # K2's public modes; 3 is the trajectory layout
@@ -513,7 +514,9 @@ def as_episode_trajectory(params: AsEpisodeParams, seed: int = 0, num_trajectori
 def seed_from_key(key) -> int:
     """A 30-bit episode seed from an int seed or a ``torch.Generator``."""
     gen = key if isinstance(key, torch.Generator) else torch.Generator().manual_seed(int(key))
-    return int(torch.randint(0, 2**30, (), generator=gen, device=gen.device))
+    seed = torch.randint(0, 2**30, (), generator=gen, device=gen.device)
+    with span("mbt.sync.seed"):  # waits for the device where the generator is a card's
+        return int(seed)
 
 
 def as_mc_episode_stats(cfg: EnvConfig, risk_aversion: float, key, episodes: int = 1,
@@ -531,9 +534,11 @@ def as_mc_episode_stats(cfg: EnvConfig, risk_aversion: float, key, episodes: int
     initial_value = p.initial_cash + p.initial_inventory * p.initial_price
     total = torch.zeros(4, dtype=torch.float32, device=device)
     for e in range(episodes):
-        cash, inv, price = as_episode(p, seed0 + e, n, device=device)
-        pnl = cash + inv * price - initial_value
-        total += torch.stack([pnl.mean(), (pnl**2).mean(), inv.mean(), (inv**2).mean()])
+        with span("mbt.k1.launch"):
+            cash, inv, price = as_episode(p, seed0 + e, n, device=device)
+        with span("mbt.k1.moments"):
+            pnl = cash + inv * price - initial_value
+            total += torch.stack([pnl.mean(), (pnl**2).mean(), inv.mean(), (inv**2).mean()])
     mean_r, mean_r2, mean_q, mean_q2 = total / episodes
     times = p.start_time + np.arange(p.run_steps) * p.dt
     if risk_aversion > 0:
@@ -541,14 +546,16 @@ def as_mc_episode_stats(cfg: EnvConfig, risk_aversion: float, key, episodes: int
         spread = g * s2 * (p.terminal_time - times) + (2.0 / g) * np.log1p(g / k)
     else:
         spread = np.full(p.run_steps, 2.0 / p.fill_exponent)
-    return {
+    stats = {
         "mean_pnl": mean_r,
         "std_pnl": torch.sqrt(torch.clamp(mean_r2 - mean_r**2, min=0.0)),
         "mean_terminal_inventory": mean_q,
         "std_terminal_inventory": torch.sqrt(torch.clamp(mean_q2 - mean_q**2, min=0.0)),
-        "mean_spread": torch.tensor(float(np.mean(spread)), dtype=torch.float32, device=device),
-        "episodes": episodes * n,
     }
+    with span("mbt.sync.mean_spread"):  # a copy from pageable host memory waits for the stream
+        stats["mean_spread"] = torch.tensor(float(np.mean(spread)), dtype=torch.float32, device=device)
+    stats["episodes"] = episodes * n
+    return stats
 
 
 def episode_stats_fused(params: AsEpisodeParams, seed: int = 0, num_trajectories: int = 16384,

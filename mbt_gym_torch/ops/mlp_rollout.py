@@ -89,6 +89,7 @@ from mbt_gym_torch.ops import _build
 from mbt_gym_torch.ops import proc_kinds as pk
 from mbt_gym_torch.ops.det_rollout import dynamics_kind_of, market_making_step, obs_planes, q_pow, reward_fields
 from mbt_gym_torch.ops.episode import _MASK32, _target, _uniform24, philox4x32_10
+from mbt_gym_torch.utils.profiling import span
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -867,62 +868,66 @@ def mlp_rollout(p: MlpRolloutParams, params, seed: int = 0, num_trajectories: in
         return tuple(out)
     if device.type != "cuda":
         raise ValueError(f"the rollout kernel runs on CUDA devices, not {device}")
-    n = num_trajectories
-    tp = transpose_params(params)
-    widths = list(tp.split_at or [w.shape[0] for w, _ in tp.trunk])
-    check_kernel_shapes(p, widths, n)
-    if noise is not None:
-        _check_noise(p, n, noise)
-        if not noise.is_contiguous():
-            raise ValueError("noise must be contiguous")
-    start = _start_times(p, n, t0, final_obs, device)
-    bf16 = bool(p.normalise_obs)
-    padded = pad_widths(params, _MMA_WIDTH if bf16 else _F32_WIDTH)
-    widths = list(padded.hidden)
-    towers = tower_params(transpose_params(padded))
-    if bf16:  # the tensor-core kernel's layout
-        tensors = [pack_tower_bf16([(w.to(device), b.to(device)) for w, b in trunk], w_head.to(device),
-                                   b_head.to(device)) for trunk, w_head, b_head in towers]
-    else:  # each layer's (in, out) matrix, layers concatenated; the head rows
-        tensors = [(torch.cat([w.to(device).T.contiguous().reshape(-1) for w, _ in trunk]),
-                    torch.cat([b.to(device) for _, b in trunk]).contiguous(),
-                    w_head.to(device).contiguous(), b_head.to(device).contiguous())
-                   for trunk, w_head, b_head in towers]
-    # `tensors` stays alive until the launch returns
-    kp = kernel_params(p, widths, extras=start is not None or final_obs)
-    T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
-    if p.inventory_range:
-        inv0 = _initial_inventory(p, kp, n, inv0, device).contiguous()
-    elif inv0 is not None:
-        raise ValueError("inv0 only valid with inventory_range")
-    if start is not None:
-        start = start.contiguous()
-    pointers = [(ctypes.c_void_p * 4)(*(x.data_ptr() for x in t)) for t in tensors]
-    if len(pointers) == 1:
-        pointers.append((ctypes.c_void_p * 4)())
-    log_std = tp.log_std.to(device).contiguous()
-    f32 = torch.float32
-    shapes = ((T, S, n), (T, A, n), (T, n), (T, n), (T, n)) + (((S, n),) if final_obs else ())
-    if out is None:
-        out = tuple(torch.empty(shape, dtype=f32, device=device) for shape in shapes)
-    else:
-        _check_out(out, shapes, device)
-    obs, act, logp, val, rew = out[:5]
-    fin = out[5] if final_obs else None
-    scratch_bytes = k3_scratch_bytes(widths, bf16, S, A, n)
-    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=device) if scratch_bytes else None
-    index, stream = _build.device_stream(device)
-    rc = _kernels(bf16 and scratch is not None).mbt_mlp_rollout(
-        ctypes.byref(kp), index, n, int(seed) & _MASK32,
-        None if noise is None else noise.data_ptr(), None if inv0 is None else inv0.data_ptr(), int(bf16),
-        pointers[0], pointers[1], log_std.data_ptr(),
-        obs.data_ptr(), act.data_ptr(), logp.data_ptr(), val.data_ptr(), rew.data_ptr(),
-        None if start is None else start.data_ptr(), None if fin is None else fin.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"mlp_rollout kernel launch failed: CUDA error {rc}")
-    _build.count_launch("mlp_rollout")
+    # the host's work before the launch: checks, the parameters' transpose,
+    # padding and packing, the planes, the outputs and the scratch
+    with span("mbt.k3.prepare"):
+        n = num_trajectories
+        tp = transpose_params(params)
+        widths = list(tp.split_at or [w.shape[0] for w, _ in tp.trunk])
+        check_kernel_shapes(p, widths, n)
+        if noise is not None:
+            _check_noise(p, n, noise)
+            if not noise.is_contiguous():
+                raise ValueError("noise must be contiguous")
+        start = _start_times(p, n, t0, final_obs, device)
+        bf16 = bool(p.normalise_obs)
+        padded = pad_widths(params, _MMA_WIDTH if bf16 else _F32_WIDTH)
+        widths = list(padded.hidden)
+        towers = tower_params(transpose_params(padded))
+        if bf16:  # the tensor-core kernel's layout
+            tensors = [pack_tower_bf16([(w.to(device), b.to(device)) for w, b in trunk], w_head.to(device),
+                                       b_head.to(device)) for trunk, w_head, b_head in towers]
+        else:  # each layer's (in, out) matrix, layers concatenated; the head rows
+            tensors = [(torch.cat([w.to(device).T.contiguous().reshape(-1) for w, _ in trunk]),
+                        torch.cat([b.to(device) for _, b in trunk]).contiguous(),
+                        w_head.to(device).contiguous(), b_head.to(device).contiguous())
+                       for trunk, w_head, b_head in towers]
+        # `tensors` stays alive until the launch returns
+        kp = kernel_params(p, widths, extras=start is not None or final_obs)
+        T, S, A = kp.run_steps, kp.s_dim, kp.a_dim
+        if p.inventory_range:
+            inv0 = _initial_inventory(p, kp, n, inv0, device).contiguous()
+        elif inv0 is not None:
+            raise ValueError("inv0 only valid with inventory_range")
+        if start is not None:
+            start = start.contiguous()
+        pointers = [(ctypes.c_void_p * 4)(*(x.data_ptr() for x in t)) for t in tensors]
+        if len(pointers) == 1:
+            pointers.append((ctypes.c_void_p * 4)())
+        log_std = tp.log_std.to(device).contiguous()
+        f32 = torch.float32
+        shapes = ((T, S, n), (T, A, n), (T, n), (T, n), (T, n)) + (((S, n),) if final_obs else ())
+        if out is None:
+            out = tuple(torch.empty(shape, dtype=f32, device=device) for shape in shapes)
+        else:
+            _check_out(out, shapes, device)
+        obs, act, logp, val, rew = out[:5]
+        fin = out[5] if final_obs else None
+        scratch_bytes = k3_scratch_bytes(widths, bf16, S, A, n)
+        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=device) if scratch_bytes else None
+    with span("mbt.k3.launch"):
+        index, stream = _build.device_stream(device)
+        rc = _kernels(bf16 and scratch is not None).mbt_mlp_rollout(
+            ctypes.byref(kp), index, n, int(seed) & _MASK32,
+            None if noise is None else noise.data_ptr(), None if inv0 is None else inv0.data_ptr(), int(bf16),
+            pointers[0], pointers[1], log_std.data_ptr(),
+            obs.data_ptr(), act.data_ptr(), logp.data_ptr(), val.data_ptr(), rew.data_ptr(),
+            None if start is None else start.data_ptr(), None if fin is None else fin.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"mlp_rollout kernel launch failed: CUDA error {rc}")
+        _build.count_launch("mlp_rollout")
     return tuple(out)
 
 
@@ -968,19 +973,20 @@ def rollout_fused_T(env_cfg: EnvConfig, params, key, noise: Optional[torch.Tenso
     from mbt_gym_torch.env import make_generator
     from mbt_gym_torch.ops.episode import seed_from_key
 
-    p = rollout_params_from_config(env_cfg)
-    n = env_cfg.num_trajectories
-    target = _target(noise, device)
-    if (p.inventory_range and inv0 is None) or (p.random_start and t0 is None):
-        key = make_generator(key, target)
-    if p.inventory_range and inv0 is None:
-        lo, hi = p.inventory_range
-        inv0 = torch.randint(lo, hi, (n,), generator=key, device=target).to(torch.float32)
-    if p.random_start and t0 is None:  # env.reset's draw (mbt_gym_torch/env.py)
-        _, lo, hi = env_cfg.start_time
-        raw = torch.rand((), generator=key, dtype=torch.float32, device=target) * (hi - lo) + lo
-        t0 = (torch.round(raw / env_cfg.step_size) * env_cfg.step_size).expand(n)
-    seed = 0 if noise is not None else seed_from_key(key)
+    with span("mbt.k3.prepare"):  # the episode's draws and seed
+        p = rollout_params_from_config(env_cfg)
+        n = env_cfg.num_trajectories
+        target = _target(noise, device)
+        if (p.inventory_range and inv0 is None) or (p.random_start and t0 is None):
+            key = make_generator(key, target)
+        if p.inventory_range and inv0 is None:
+            lo, hi = p.inventory_range
+            inv0 = torch.randint(lo, hi, (n,), generator=key, device=target).to(torch.float32)
+        if p.random_start and t0 is None:  # env.reset's draw (mbt_gym_torch/env.py)
+            _, lo, hi = env_cfg.start_time
+            raw = torch.rand((), generator=key, dtype=torch.float32, device=target) * (hi - lo) + lo
+            t0 = (torch.round(raw / env_cfg.step_size) * env_cfg.step_size).expand(n)
+        seed = 0 if noise is not None else seed_from_key(key)
     return mlp_rollout(p, params, seed, n, noise=noise, device=device, inv0=inv0, t0=t0, out=out)
 
 
@@ -1003,7 +1009,8 @@ def collect_rollout_fused_T(env_cfg: EnvConfig, params, key, gamma: float = 1.0,
     (pallas_rollout.py:2198-2256): :func:`rollout_fused_T` (its ``key``,
     ``noise``, ``inv0``, ``t0`` and ``out``), then :func:`gae_T`."""
     outputs = rollout_fused_T(env_cfg, params, key, noise=noise, device=device, inv0=inv0, t0=t0, out=out)
-    return gae_T(outputs, gamma, lam)
+    with span("mbt.k3.gae"):
+        return gae_T(outputs, gamma, lam)
 
 
 def row_major(tb: TRolloutBatch):

@@ -15,6 +15,7 @@ from mbt_gym_torch import dispatch as _dispatch
 from mbt_gym_torch import env as env_lib
 from mbt_gym_torch.env import EnvConfig
 from mbt_gym_torch.types import EnvState, SlotNoise, StepNoise, Trajectory, TrajectoryT, as_values, device_constant
+from mbt_gym_torch.utils.profiling import span
 
 # policy(params, obs (N,S), state: EnvState) -> action (N, A)
 PolicyFn = Callable[..., torch.Tensor]
@@ -99,6 +100,7 @@ def _check_backend(backend: str) -> None:
     assert backend in _BACKENDS, f"backend must be one of {_BACKENDS}; got {backend!r}"
 
 
+@span("mbt.rollout")
 def rollout(
     cfg: EnvConfig,
     policy: PolicyFn,
@@ -238,6 +240,7 @@ def _quote_mean(cfg: EnvConfig, action: torch.Tensor) -> torch.Tensor:
     return quotes.mean()
 
 
+@span("mbt.mc_episode_stats")
 def mc_episode_stats(
     cfg: EnvConfig,
     policy: PolicyFn,

@@ -1,28 +1,181 @@
-"""Profiling and throughput harness (counterpart of
-``mbt_gym_tpu/utils/profiling.py``; the reference has no tracing of its
-own).
+"""Tracing and profiling (counterpart of ``mbt_gym_tpu/utils/profiling.py``;
+the reference has no tracing of its own).
 
+Spans live here; the kernels' launch counters live in
+:mod:`mbt_gym_torch.ops._build` (``launch_counts``).
+
+- :class:`span` — a named host span, as a context manager or a decorator.
+  The port opens them at its layer boundaries (entry points, the dispatch,
+  the free-memory query, the learner's phases, the kernel wrappers), every
+  name prefixed ``mbt.``; ``mbt.sync.*`` marks a place where the host
+  blocks on the device.  Tracing is on while a ``torch.profiler`` records
+  or inside :func:`recording`; off, a span is one flag check.  On, a span
+  appends a :class:`SpanRecord` to a bounded in-memory buffer
+  (:data:`MAX_SPANS`), and under the profiler it also enters
+  ``torch.profiler.record_function``, so the span is a host event on the
+  clock of the trace's device records.  A span made with ``always=True``
+  records whether tracing is on or not: the graph capture
+  (``mbt.graph.capture``) and a kernel build (``mbt.build``), each once
+  per process.
+- :func:`recording`, :func:`spans`, :func:`reset_spans` — turn in-memory
+  recording on without the profiler; read and clear the records.
+- :func:`host_seconds` — a span's host time: its duration less what its
+  ``mbt.sync.*`` descendants cover.
 - :func:`trace` — a context manager around ``torch.profiler.profile`` (CPU
   and, where a GPU is visible, CUDA activity) that writes a Chrome trace
   into ``log_dir`` (``trace_<ms since epoch>.pt.trace.json``).
-- :func:`throughput` — env-steps/s of whole engine episodes,
-  ``episodes_per_call`` per timed call, timed with CUDA events on a card
-  and the host clock on the CPU.
 - :func:`scaling_report` — env-steps/s across data-parallel widths of a
   process group, envs per rank held fixed, with the efficiency against the
   first width.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import itertools
 import os
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, NamedTuple, Optional
 
 import torch
 
-from mbt_gym_torch import env as env_lib
-from mbt_gym_torch.env import EnvConfig
+if TYPE_CHECKING:
+    from mbt_gym_torch.env import EnvConfig
+
+MAX_SPANS = 50_000
+SYNC_PREFIX = "mbt.sync."
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class SpanRecord(NamedTuple):
+    """One closed span: its name, its ``time.perf_counter_ns`` start and
+    end, its id, its parent's id (0 for a root) and the id of the root it
+    runs under (its own for a root): every span of one entry-point call
+    shares that call id."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    span_id: int
+    parent_id: int
+    call_id: int
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+_records: "collections.deque[SpanRecord]" = collections.deque(maxlen=MAX_SPANS)
+_ids = itertools.count(1)
+_local = threading.local()  # each thread's stack of open spans
+_lock = threading.Lock()
+_recording = 0  # how many recording() blocks are open
+
+
+class span:
+    """A host span named ``name``: ``with span(name):`` or ``@span(name)``.
+    Off (no profiler recording, no :func:`recording` block open, not
+    ``always``) it costs one flag check.  On, it records a
+    :class:`SpanRecord` when it closes (:attr:`record`), and under the
+    profiler it is also a ``record_function`` host event."""
+
+    __slots__ = ("name", "always", "record", "_frame", "_start", "_rf")
+
+    def __init__(self, name: str, always: bool = False):
+        self.name, self.always = name, always
+        self.record: Optional[SpanRecord] = None
+        self._frame = None
+
+    def __enter__(self) -> "span":
+        if not (self.always or _recording or _profiler_enabled()):
+            return self
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        span_id = next(_ids)
+        parent_id, call_id = (stack[-1][0], stack[-1][1]) if stack else (0, span_id)
+        self._frame = (span_id, call_id, parent_id)
+        stack.append(self._frame)
+        self._rf = None
+        if _profiler_enabled():
+            self._rf = torch.autograd.profiler.record_function(self.name)
+            self._rf.__enter__()
+        self._start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        frame = self._frame
+        if frame is None:
+            return False
+        end = time.perf_counter_ns()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        _local.stack.pop()  # spans of one thread close in the order they opened
+        span_id, call_id, parent_id = frame
+        self.record = SpanRecord(self.name, self._start, end, span_id, parent_id, call_id)
+        _records.append(self.record)
+        self._frame = None
+        return False
+
+    def __call__(self, fn: Callable) -> Callable:
+        name, always = self.name, self.always
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not (always or _recording or _profiler_enabled()):
+                return fn(*args, **kwargs)
+            with span(name, always):
+                return fn(*args, **kwargs)
+
+        return spanned
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans in memory inside the block, without a profiler (read
+    them with :func:`spans`)."""
+    global _recording
+    with _lock:
+        _recording += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _recording -= 1
+
+
+def spans() -> List[SpanRecord]:
+    """The records in the buffer, in the order their spans closed (a
+    child before its parent); the oldest go once :data:`MAX_SPANS` are
+    held."""
+    return list(_records)
+
+
+def reset_spans() -> None:
+    _records.clear()
+
+
+def host_seconds(name: str, records: Optional[Iterable[SpanRecord]] = None) -> List[float]:
+    """For each span named ``name`` (of ``records``, default :func:`spans`),
+    its host time in seconds: its duration less what its ``mbt.sync.*``
+    descendants cover (a sync span inside another counts once)."""
+    records = spans() if records is None else list(records)
+    by_id = {r.span_id: r for r in records}
+    blocked: Dict[int, int] = collections.defaultdict(int)
+    for r in records:
+        if not r.name.startswith(SYNC_PREFIX):
+            continue
+        ancestors, parent = [], by_id.get(r.parent_id)
+        while parent is not None and not parent.name.startswith(SYNC_PREFIX):
+            ancestors.append(parent.span_id)
+            parent = by_id.get(parent.parent_id)
+        if parent is None:  # not inside another sync span
+            for a in ancestors:
+                blocked[a] += r.end_ns - r.start_ns
+    return [(r.end_ns - r.start_ns - blocked[r.span_id]) / 1e9 for r in records if r.name == name]
 
 
 @contextlib.contextmanager
@@ -50,6 +203,7 @@ def _episode_thunk(cfg: EnvConfig, policy, episodes_per_call: int, device) -> Ca
     :func:`mbt_gym_torch.rollout._should_predraw` says so, the steps, and
     the rewards summed so that their computation is part of the work; it
     returns the sum of the final cash and the rewards (a checksum)."""
+    from mbt_gym_torch import env as env_lib
     from mbt_gym_torch.rollout import _episode_steps, _noise_at, _should_predraw, native_noise_cube
 
     n_scan = _episode_steps(cfg)
@@ -87,32 +241,6 @@ def _timed(device: torch.device, fn: Callable[[], torch.Tensor]):
     t0 = time.perf_counter()
     out = fn()
     return time.perf_counter() - t0, out
-
-
-def throughput(cfg: EnvConfig, policy, episodes_per_call: int = 16, iters: int = 3, key: Optional[int] = None,
-               device=None) -> Dict[str, float]:
-    """Env-steps/s of whole engine episodes of ``cfg`` under ``policy`` on
-    ``device`` (``None`` means ``"cuda"``): the first call is a warm-up
-    (``compile_seconds``: the port compiles nothing, it is the first call's
-    time), then the mean of ``iters`` calls, seeds ``key + i``."""
-    from mbt_gym_torch.rollout import _episode_steps
-
-    device = env_lib.resolve_device(device)
-    key = 0 if key is None else int(key)
-    thunk = _episode_thunk(cfg, policy, episodes_per_call, device)
-    first_s, _ = _timed(device, lambda: thunk(key))
-    total = 0.0
-    for i in range(iters):
-        seconds, checksum = _timed(device, lambda: thunk(key + i))
-        total += seconds
-    elapsed = total / iters
-    steps = cfg.num_trajectories * _episode_steps(cfg) * episodes_per_call
-    return {
-        "env_steps_per_s": steps / elapsed,
-        "seconds_per_call": elapsed,
-        "compile_seconds": first_s,
-        "checksum": float(checksum),
-    }
 
 
 def scaling_report(cfg: EnvConfig, policy, widths: Optional[List[int]] = None, episodes_per_call: int = 8,

@@ -3,7 +3,7 @@ card: the episode kernels K1 and K2, the MLP rollout K3 (both actor-critic
 layouts; the limit, lam, touch and speed dynamics kinds, the exponential
 utility, the t0 plane and the terminal observation), the fused PPO updates K4 (both layouts) and K7, the
 deterministic-policy rollout K5, the OE episode K6 and the CJ episode K8,
-and the step pipeline's wide shape.  They have no CPU mode, so every test here skips on a host
+the step pipeline's wide shape, and the host spans of the paths the benchmark drives.  They have no CPU mode, so every test here skips on a host
 without a GPU.  This file imports neither JAX nor the JAX package, so it
 runs on the GPU machine too, without the suite's conftest:
 
@@ -1500,3 +1500,79 @@ def test_jit_train_iteration_captures_the_model_axis_over_nccl_on_four_cards(cud
         assert r["same"], f"rank {rank}: the captured model-axis iteration is not eager bit for bit"
         assert r["captures"] == 1 and r["split"] == [rank % 2, 2]
     assert len({r["digest"] for r in results}) == 1
+
+
+def test_spans_of_the_benchmarked_paths_on_the_card(cuda_device):
+    """The host spans (``mbt_gym_torch.utils.profiling``) of the paths the
+    benchmark's cells drive, on the card: the fully fused
+    ``jit_train_iteration`` records its capture with tracing off and
+    nothing else, then under ``recording()`` the learner's phases, K3's
+    preparation and launch and the replay under one root, bit for bit the
+    untraced iteration's result; ``evaluate_policy`` on K3 and
+    ``mc_episode_stats`` on K1 their wrappers' spans and host syncs; and
+    under ``torch.profiler`` each span is a host event that starts before
+    the device work it launched."""
+    from chip_smoke import same_bits
+    from mbt_gym_torch import compiled
+    from mbt_gym_torch.agents import ppo
+    from mbt_gym_torch.agents.baseline import AvellanedaStoikovAgent
+    from mbt_gym_torch.rollout import mc_episode_stats
+    from mbt_gym_torch.utils import profiling
+
+    def tree(records, root):
+        (top,) = [r for r in records if r.parent_id == 0]
+        assert top.name == root and all(r.call_id == top.span_id for r in records)
+        return {r.name for r in records if r is not top}
+
+    env_cfg = dataclasses.replace(as_env_config(num_trajectories=4096, n_steps=32),
+                                  normalise_observation_space=True, normalise_action_space=True)
+    cfg = ppo.PPOConfig(hidden=(64, 64), n_epochs=1, n_minibatches=4, shared_trunk=True, fused_update=True,
+                        fused_rollout=True, shuffle=False)
+    ts0 = ppo.init_train_state(env_cfg, cfg, 1, device=cuda_device)
+    profiling.reset_spans()
+    try:
+        ts1, _ = ppo.jit_train_iteration(env_cfg, cfg, ts0, 3)
+        assert [r.name for r in profiling.spans() if r.name != "mbt.build"] == ["mbt.graph.capture"]
+        (capture,) = [r for r in profiling.spans() if r.name == "mbt.graph.capture"]
+        assert compiled.cache_info()[0]["capture_seconds"] == capture.seconds
+        profiling.reset_spans()
+        want = ppo.jit_train_iteration(env_cfg, cfg, ts1, 4)
+        with profiling.recording():
+            got = ppo.jit_train_iteration(env_cfg, cfg, ts1, 4)
+        torch.cuda.synchronize()
+        assert same_bits(torch, got[0].params, want[0].params) and same_bits(torch, got[1], want[1])
+        assert tree(profiling.spans(), "mbt.train_iteration") == {
+            "mbt.learner.check", "mbt.mem_query", "mbt.learner.load_state", "mbt.learner.seed", "mbt.k3.prepare",
+            "mbt.sync.seed", "mbt.k3.launch", "mbt.graph.replay", "mbt.learner.outputs"}
+    finally:
+        compiled.clear_cache()
+
+    profiling.reset_spans()
+    with profiling.recording():
+        ppo.evaluate_policy(env_cfg, ts0.params, 5, n_episodes=2)
+    assert tree(profiling.spans(), "mbt.evaluate_policy") == {
+        "mbt.dispatch", "mbt.mem_query", "mbt.eval.params_copy", "mbt.k3.prepare", "mbt.sync.seed", "mbt.k3.launch",
+        "mbt.k3.gae"}
+    (host,) = profiling.host_seconds("mbt.evaluate_policy")
+    assert 0 < host < profiling.spans()[-1].seconds
+
+    as_cfg = as_env_config(num_trajectories=16384)
+    policy = AvellanedaStoikovAgent.from_config(as_cfg, risk_aversion=0.1).policy()
+    profiling.reset_spans()
+    with profiling.recording():
+        mc_episode_stats(as_cfg, policy, None, 6, episodes=2, device=cuda_device)
+    assert tree(profiling.spans(), "mbt.mc_episode_stats") == {
+        "mbt.dispatch", "mbt.sync.seed", "mbt.k1.launch", "mbt.k1.moments", "mbt.sync.mean_spread"}
+
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ppo.evaluate_policy(env_cfg, ts0.params, 5, n_episodes=1)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    launch = [e for e in events if e.name == "mbt.k3.launch" and e.device_type == torch.autograd.DeviceType.CPU]
+    kernel = [e for e in events if "mlp_rollout_kernel" in e.name and e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(launch) == 1 and kernel and kernel[0].time_range.start >= launch[0].time_range.start
+    assert [r.name for r in profiling.spans()].count("mbt.k3.launch") == 1
+    profiling.reset_spans()
